@@ -1,0 +1,19 @@
+"""spark_rapids_ml_tpu_torch — the PyTorch + CUDA port of spark_rapids_ml_tpu.
+
+The same Estimator/Model/Params surface and on-disk model format as the JAX
+package ``spark_rapids_ml_tpu``, which stays the reference, computed with
+PyTorch on an NVIDIA H100. Kernels that the JAX package wrote in Pallas for
+the TPU are CUDA kernels written by hand for Hopper (``csrc/``), built with
+``nvcc`` at first use and bound with ``ctypes``; everything the JAX package
+left to XLA is plain PyTorch.
+
+Entry points compute on the card; ``SPARK_RAPIDS_ML_TORCH_PLATFORM=cpu``
+asks for the CPU explicitly (see ``utils/resources.py``). This package
+imports neither ``jax`` nor ``spark_rapids_ml_tpu``.
+"""
+
+__version__ = "0.1.0"
+
+from spark_rapids_ml_tpu_torch.models.pca import PCA, PCAModel  # noqa: F401
+
+__all__ = ["PCA", "PCAModel"]

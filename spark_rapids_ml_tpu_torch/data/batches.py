@@ -1,0 +1,241 @@
+"""Out-of-core batch sources: fixed-shape streams for unbounded datasets.
+
+The reference never materializes the whole dataset in one buffer — it
+streams partition chunks through the device, one JNI GEMM per partition
+(the reference's ``src/main/scala/org/apache/spark/ml/linalg/distributed/RapidsRowMatrix.scala:168-202``).
+This module is the ingestion contract behind that capability: any fit()
+input — an in-memory matrix, a generator of arbitrarily-sized chunks, or a
+callable producing such a generator — is normalized into a stream of
+FIXED-shape ``(batch, mask)`` pairs. Uneven chunks are re-blocked into
+``batch_rows``-row buckets and the tail is padded + masked, so device
+memory stays at one bucket plus one n×n accumulator and every bucket
+reaches the Gram kernel at the same shape (the masked tail as
+``rowmul = mask``).
+
+Re-iterability drives semantics upstream: a re-iterable source (matrix,
+list of chunks, or factory callable) supports the exact two-pass
+mean-then-centered-Gram schedule; a one-shot iterator gets the one-pass
+(Σxxᵀ, Σx, n) formulation (documented cancellation hazard for |μ| ≫ σ,
+see ``ops/covariance.covariance_from_stats``).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Iterator, Optional, Tuple
+
+import numpy as np
+
+# In-memory inputs larger than this (measured on the float64 densified host
+# matrix) stream through the device accumulator in batch_rows buckets
+# instead of one whole-matrix copy to the device. Default 1 GiB, the JAX
+# package's value, which keeps small fits single-shot.
+STREAM_THRESHOLD_ENV = "TPUML_STREAM_THRESHOLD_BYTES"
+DEFAULT_STREAM_THRESHOLD = 1 << 30
+
+
+def stream_threshold_bytes() -> int:
+    value = os.environ.get(STREAM_THRESHOLD_ENV)
+    if value is None:
+        return DEFAULT_STREAM_THRESHOLD
+    try:
+        return int(value)
+    except ValueError as exc:
+        raise ValueError(
+            f"{STREAM_THRESHOLD_ENV}={value!r} is not an integer byte count"
+        ) from exc
+
+
+def auto_batch_rows(n_features: int, target_bytes: int = 128 << 20,
+                    itemsize: int = 4) -> int:
+    """Rows per device batch so one f32 batch is ~``target_bytes``, rounded
+    to a multiple of 256, floored at 1024 (8192 rows at 4096 features)."""
+    rows = max(1024, target_bytes // max(1, n_features * itemsize))
+    return max(1024, (rows // 256) * 256)
+
+
+def _as_chunk(chunk) -> np.ndarray:
+    arr = np.asarray(chunk)
+    if arr.ndim == 1:
+        arr = arr[None, :]
+    if arr.ndim != 2:
+        raise ValueError(
+            f"batch chunks must be 1-D or 2-D row arrays, got ndim={arr.ndim}"
+        )
+    return arr
+
+
+def streaming_source(dataset, batch_rows: int = 0) -> Optional["BatchSource"]:
+    """Return a BatchSource for inherently-streaming fit() inputs (a
+    generator / iterator of chunks, or a zero-arg callable producing one),
+    else None.
+
+    Materializable inputs (arrays, frames, pandas, lists of vectors) return
+    None — estimators decide separately whether to stream those by size.
+    """
+    from spark_rapids_ml_tpu_torch.data.frame import VectorFrame
+
+    # pandas frames (pandas is optional) and tensors have __array__ below
+    if isinstance(dataset, (VectorFrame, np.ndarray, list, tuple)):
+        return None
+    if callable(dataset):
+        return BatchSource(dataset, batch_rows=batch_rows)
+    if hasattr(dataset, "__array__"):
+        return None
+    if hasattr(dataset, "__next__"):
+        return BatchSource(dataset, batch_rows=batch_rows)
+    return None
+
+
+class BatchSource:
+    """Normalizes a fit() input into fixed-shape ``(batch, mask)`` streams.
+
+    ``source`` may be:
+      * a 2-D array (or anything ``np.asarray`` densifies to one) — re-iterable,
+      * a list/tuple of chunks — re-iterable,
+      * a zero-arg callable returning an iterable of chunks — re-iterable
+        (called once per pass),
+      * a one-shot iterator/generator of chunks — single pass only.
+
+    Chunks may have any row count; they are re-blocked into exact
+    ``batch_rows`` buckets. Every yielded batch has shape
+    ``(batch_rows, n_features)``; the final bucket is zero-padded with
+    ``mask`` marking valid rows (``mask is None`` for full buckets).
+    """
+
+    def __init__(self, source, batch_rows: int = 0):
+        self._matrix: Optional[np.ndarray] = None
+        self._factory = None
+        self._oneshot: Optional[Iterator] = None
+
+        if callable(source):
+            # A factory must produce a FRESH iterator per call. `lambda: gen`
+            # over one generator object is an easy mistake that would make
+            # pass 2 silently iterate an exhausted stream — detect it by
+            # identity (same iterator object on both calls) and demote to a
+            # one-shot source. `lambda: some_list` is fine: lists are not
+            # their own iterators.
+            probe = source()
+            if iter(probe) is probe and source() is probe:
+                self._oneshot = iter(probe)
+            else:
+                self._factory = source
+        elif isinstance(source, (list, tuple)):
+            chunks = [_as_chunk(c) for c in source]
+            self._factory = lambda: iter(chunks)
+        elif hasattr(source, "__array__") or isinstance(source, np.ndarray):
+            self._matrix = np.asarray(source)
+            if self._matrix.ndim != 2:
+                raise ValueError("matrix source must be 2-D")
+        elif hasattr(source, "__next__") or hasattr(source, "__iter__"):
+            self._oneshot = iter(source)
+        else:
+            raise TypeError(
+                f"unsupported batch source {type(source).__name__}"
+            )
+
+        self._consumed = False
+        self._first_pass_rows: Optional[int] = None
+        self._peeked: Optional[np.ndarray] = None
+        if self._matrix is not None:
+            self.n_features = self._matrix.shape[1]
+        else:
+            # Peek one chunk to learn the width (stashed and re-yielded).
+            it = self._factory() if self._factory else self._oneshot
+            try:
+                first = _as_chunk(next(iter(it)))
+            except StopIteration:
+                raise ValueError("batch source is empty") from None
+            self.n_features = first.shape[1]
+            if self._factory is None:
+                self._peeked = first
+                self._oneshot = it
+            # factory sources: the peek iterator is simply dropped; a fresh
+            # pass re-produces every chunk.
+
+        self.batch_rows = batch_rows if batch_rows > 0 else auto_batch_rows(
+            self.n_features
+        )
+        if self._matrix is not None:
+            self.batch_rows = min(self.batch_rows, max(1, self._matrix.shape[0]))
+
+    @property
+    def reiterable(self) -> bool:
+        return self._matrix is not None or self._factory is not None
+
+    def _chunks(self) -> Iterator[np.ndarray]:
+        if self._matrix is not None:
+            b = self.batch_rows
+            for i in range(0, self._matrix.shape[0], b):
+                yield self._matrix[i:i + b]
+            return
+        if self._factory is not None:
+            for c in self._factory():
+                yield _as_chunk(c)
+            return
+        if self._consumed:
+            raise RuntimeError(
+                "one-shot batch source already consumed; pass a callable "
+                "returning a fresh iterator (or a matrix/list) to allow "
+                "multiple passes"
+            )
+        self._consumed = True
+        if self._peeked is not None:
+            yield self._peeked
+            self._peeked = None
+        for c in self._oneshot:
+            yield _as_chunk(c)
+
+    def batches(self) -> Iterator[Tuple[np.ndarray, Optional[np.ndarray]]]:
+        """Yield fixed-shape ``(batch, mask)`` pairs; mask None = all valid.
+
+        Every FULLY-consumed pass must see the same number of rows as the
+        first one — a "re-iterable" factory that actually hands back a
+        shared, partially-exhausted underlying iterator (one the identity
+        check in ``__init__`` cannot see, e.g. ``lambda: map(f, shared_gen)``)
+        would otherwise silently zero out second-pass accumulations."""
+        b, n = self.batch_rows, self.n_features
+        carry: list = []
+        carry_rows = 0
+        pass_rows = 0
+        for chunk in self._chunks():
+            pass_rows += chunk.shape[0]
+            if chunk.shape[1] != n:
+                raise ValueError(
+                    f"chunk has {chunk.shape[1]} features, expected {n}"
+                )
+            start = 0
+            # Fill the carry buffer first, then emit whole buckets directly
+            # from the chunk (no copy for aligned middles of big chunks).
+            if carry_rows:
+                need = b - carry_rows
+                take = min(need, chunk.shape[0])
+                carry.append(chunk[:take])
+                carry_rows += take
+                start = take
+                if carry_rows == b:
+                    yield np.concatenate(carry, axis=0), None
+                    carry, carry_rows = [], 0
+            while chunk.shape[0] - start >= b:
+                yield chunk[start:start + b], None
+                start += b
+            if start < chunk.shape[0]:
+                carry.append(chunk[start:])
+                carry_rows += chunk.shape[0] - start
+        if carry_rows:
+            # the fill stage flushes exactly at b, so any remainder here is
+            # strictly short: pad + mask
+            tail = np.concatenate(carry, axis=0) if len(carry) > 1 else carry[0]
+            padded = np.zeros((b, n), dtype=tail.dtype)
+            padded[:carry_rows] = tail
+            mask = np.zeros((b,), dtype=bool)
+            mask[:carry_rows] = True
+            yield padded, mask
+        if self._first_pass_rows is None:
+            self._first_pass_rows = pass_rows
+        elif pass_rows != self._first_pass_rows:
+            raise RuntimeError(
+                f"streaming pass saw {pass_rows} rows but the first pass saw "
+                f"{self._first_pass_rows}; the source factory must return a "
+                f"FRESH iterator over the same data on every call"
+            )

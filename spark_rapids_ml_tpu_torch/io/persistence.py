@@ -1,0 +1,332 @@
+"""PCA persistence in Spark ML's on-disk layout.
+
+A copy of the PCA part of the JAX package's ``io/persistence.py``, so a
+model saved by either package loads in the other
+(``RapidsPCA.scala:218-254``):
+
+* ``path/metadata/part-00000`` — one JSON line: class, timestamp, uid,
+  paramMap (Spark's ``DefaultParamsWriter.saveMetadata``); params Spark's
+  reader does not know travel under ``tpuParamMap``, the JAX package's key;
+* ``path/metadata/_SUCCESS`` — empty marker;
+* ``path/data/part-00000.parquet`` — one row: ``pc`` (Spark DenseMatrix
+  struct), ``explainedVariance`` (Spark DenseVector struct) and the
+  extension column ``mean``. Without pyarrow (optional) the same row is
+  written as ``part-00000.json``, which both packages' readers accept.
+
+Estimators persist metadata only, like Spark's ``DefaultParamsWritable``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import time
+from typing import Any, Dict
+
+import numpy as np
+
+_FORMAT_VERSION = "1.0"
+
+# Spark class names for metadata, so a Spark DefaultParamsReader accepts the
+# file; the Python class path travels in 'pythonClass'.
+_SPARK_CLASS_ALIASES = {
+    "PCA": "org.apache.spark.ml.feature.PCA",
+    "PCAModel": "org.apache.spark.ml.feature.PCAModel",
+}
+
+# Params a real Spark DefaultParamsReader recognizes per class; the rest
+# (useXlaDot, deviceId, ...) go under 'tpuParamMap', which Spark ignores.
+_SPARK_PARAM_ALLOWLIST = {
+    "PCA": {"k", "inputCol", "outputCol"},
+    "PCAModel": {"k", "inputCol", "outputCol"},
+}
+
+
+def _require_target(path: str, overwrite: bool) -> None:
+    if os.path.exists(path):
+        if not overwrite:
+            raise FileExistsError(
+                f"path {path!r} already exists; use overwrite=True "
+                "(Spark: .write().overwrite())"
+            )
+        shutil.rmtree(path)
+
+
+def _write_metadata(path: str, cls: str, uid: str,
+                    param_map: Dict[str, Any]) -> None:
+    meta_dir = os.path.join(path, "metadata")
+    os.makedirs(meta_dir, exist_ok=True)
+    simple_name = cls.rsplit(".", 1)[-1]
+    allowed = _SPARK_PARAM_ALLOWLIST.get(simple_name)
+    if allowed is None:
+        spark_params, extra_params = param_map, {}
+    else:
+        spark_params = {k: v for k, v in param_map.items() if k in allowed}
+        extra_params = {k: v for k, v in param_map.items() if k not in allowed}
+    metadata = {
+        "class": _SPARK_CLASS_ALIASES.get(simple_name, cls),
+        "pythonClass": cls,
+        "timestamp": int(time.time() * 1000),
+        "sparkVersion": "3.1.2",  # wire-format vintage (reference pom.xml:68)
+        "frameworkVersion": _FORMAT_VERSION,
+        "uid": uid,
+        "paramMap": spark_params,
+        "defaultParamMap": {},
+        "tpuParamMap": extra_params,
+    }
+    with open(os.path.join(meta_dir, "part-00000"), "w") as f:
+        f.write(json.dumps(metadata))
+    open(os.path.join(meta_dir, "_SUCCESS"), "w").close()
+
+
+def _read_metadata(path: str) -> Dict[str, Any]:
+    with open(os.path.join(path, "metadata", "part-00000")) as f:
+        return json.loads(f.readline())
+
+
+def save_params(estimator, path: str, overwrite: bool = False) -> None:
+    """Persist an unfitted estimator (params only)."""
+    _require_target(path, overwrite)
+    cls = f"{type(estimator).__module__}.{type(estimator).__qualname__}"
+    _write_metadata(path, cls, estimator.uid, estimator.param_map_for_metadata())
+
+
+def _restore_params(obj, meta: Dict[str, Any]):
+    """Apply metadata paramMap (and the extension 'tpuParamMap') onto a
+    Params object (Spark's ``metadata.getAndSetParams``)."""
+    for key in ("paramMap", "tpuParamMap"):
+        for name, value in meta.get(key, {}).items():
+            if obj.has_param(name) and value is not None:
+                obj.set(name, value)
+    return obj
+
+
+def load_params(estimator_cls, path: str):
+    meta = _read_metadata(path)
+    est = estimator_cls()
+    est.uid = meta["uid"]
+    return _restore_params(est, meta)
+
+
+# -- dense matrix/vector structs (Spark ml.linalg UDT serialized form) ----
+def _dense_matrix_struct(m: np.ndarray) -> Dict[str, Any]:
+    m = np.asarray(m, dtype=np.float64)
+    return {
+        "type": 1,
+        "numRows": int(m.shape[0]),
+        "numCols": int(m.shape[1]),
+        "colPtrs": None,
+        "rowIndices": None,
+        "values": np.asfortranarray(m).ravel(order="F").tolist(),
+        "isTransposed": False,
+    }
+
+
+def _dense_matrix_from_struct(s: Dict[str, Any]) -> np.ndarray:
+    values = np.asarray(s["values"], dtype=np.float64)
+    n_rows, n_cols = int(s["numRows"]), int(s["numCols"])
+    if s.get("isTransposed"):
+        return values.reshape(n_rows, n_cols)
+    return values.reshape(n_cols, n_rows).T
+
+
+def _dense_vector_struct(v: np.ndarray) -> Dict[str, Any]:
+    return {
+        "type": 1,
+        "size": None,
+        "indices": None,
+        "values": np.asarray(v, dtype=np.float64).ravel().tolist(),
+    }
+
+
+def _dense_vector_from_struct(s: Dict[str, Any]) -> np.ndarray:
+    return np.asarray(s["values"], dtype=np.float64)
+
+
+def _matrix_arrow_type():
+    """Spark ``MatrixUDT`` sql type."""
+    import pyarrow as pa
+
+    return pa.struct(
+        [
+            ("type", pa.int8()),
+            ("numRows", pa.int32()),
+            ("numCols", pa.int32()),
+            ("colPtrs", pa.list_(pa.int32())),
+            ("rowIndices", pa.list_(pa.int32())),
+            ("values", pa.list_(pa.float64())),
+            ("isTransposed", pa.bool_()),
+        ]
+    )
+
+
+def _vector_arrow_type():
+    """Spark ``VectorUDT`` sql type."""
+    import pyarrow as pa
+
+    return pa.struct(
+        [
+            ("type", pa.int8()),
+            ("size", pa.int32()),
+            ("indices", pa.list_(pa.int32())),
+            ("values", pa.list_(pa.float64())),
+        ]
+    )
+
+
+# Spark catalyst type JSON for the ml.linalg UDTs, written into the parquet
+# footer under 'org.apache.spark.sql.parquet.row.metadata' so a real Spark
+# reader deserializes the struct columns as Matrix/Vector values.
+_MATRIX_UDT_JSON = {
+    "type": "udt",
+    "class": "org.apache.spark.ml.linalg.MatrixUDT",
+    "pyClass": "pyspark.ml.linalg.MatrixUDT",
+    "sqlType": {
+        "type": "struct",
+        "fields": [
+            {"name": "type", "type": "byte", "nullable": False, "metadata": {}},
+            {"name": "numRows", "type": "integer", "nullable": False,
+             "metadata": {}},
+            {"name": "numCols", "type": "integer", "nullable": False,
+             "metadata": {}},
+            {"name": "colPtrs",
+             "type": {"type": "array", "elementType": "integer",
+                      "containsNull": False},
+             "nullable": True, "metadata": {}},
+            {"name": "rowIndices",
+             "type": {"type": "array", "elementType": "integer",
+                      "containsNull": False},
+             "nullable": True, "metadata": {}},
+            {"name": "values",
+             "type": {"type": "array", "elementType": "double",
+                      "containsNull": False},
+             "nullable": True, "metadata": {}},
+            {"name": "isTransposed", "type": "boolean", "nullable": False,
+             "metadata": {}},
+        ],
+    },
+}
+
+_VECTOR_UDT_JSON = {
+    "type": "udt",
+    "class": "org.apache.spark.ml.linalg.VectorUDT",
+    "pyClass": "pyspark.ml.linalg.VectorUDT",
+    "sqlType": {
+        "type": "struct",
+        "fields": [
+            {"name": "type", "type": "byte", "nullable": False, "metadata": {}},
+            {"name": "size", "type": "integer", "nullable": True,
+             "metadata": {}},
+            {"name": "indices",
+             "type": {"type": "array", "elementType": "integer",
+                      "containsNull": False},
+             "nullable": True, "metadata": {}},
+            {"name": "values",
+             "type": {"type": "array", "elementType": "double",
+                      "containsNull": False},
+             "nullable": True, "metadata": {}},
+        ],
+    },
+}
+
+_SPARK_FIELD_TYPES = {"matrix": _MATRIX_UDT_JSON, "vector": _VECTOR_UDT_JSON}
+
+
+def spark_row_metadata(fields) -> str:
+    """Catalyst StructType JSON for ``(name, kind)`` pairs."""
+    return json.dumps({
+        "type": "struct",
+        "fields": [
+            {"name": name, "type": _SPARK_FIELD_TYPES[kind],
+             "nullable": True, "metadata": {}}
+            for name, kind in fields
+        ],
+    })
+
+
+def _write_data_row(path: str, row: Dict[str, Any], schema=None,
+                    spark_fields=None) -> None:
+    """Single-row payload as Parquet when pyarrow is installed, JSON
+    otherwise (the reference repartitions to 1 before writing,
+    ``RapidsPCA.scala:223``, so one file is its on-disk shape)."""
+    data_dir = os.path.join(path, "data")
+    os.makedirs(data_dir, exist_ok=True)
+    try:
+        import pyarrow as pa
+        import pyarrow.parquet as pq
+    except ImportError:  # pyarrow is optional
+        with open(os.path.join(data_dir, "part-00000.json"), "w") as f:
+            json.dump(row, f)
+    else:
+        table = pa.Table.from_pylist([row], schema=schema)
+        if spark_fields is not None:
+            table = table.replace_schema_metadata({
+                "org.apache.spark.sql.parquet.row.metadata":
+                    spark_row_metadata(spark_fields)
+            })
+        pq.write_table(table, os.path.join(data_dir, "part-00000.parquet"))
+    open(os.path.join(data_dir, "_SUCCESS"), "w").close()
+
+
+def _read_data_row(path: str) -> Dict[str, Any]:
+    data_dir = os.path.join(path, "data")
+    pq_files = sorted(
+        f for f in os.listdir(data_dir) if f.endswith(".parquet")
+    )
+    if pq_files:
+        import pyarrow.parquet as pq
+
+        table = pq.read_table(os.path.join(data_dir, pq_files[0]))
+        return table.to_pylist()[0]
+    json_files = sorted(f for f in os.listdir(data_dir) if f.endswith(".json"))
+    if json_files:
+        with open(os.path.join(data_dir, json_files[0])) as f:
+            return json.load(f)
+    raise FileNotFoundError(f"no data payload under {data_dir}")
+
+
+def save_pca_model(model, path: str, overwrite: bool = False) -> None:
+    if model.pc is None:
+        raise ValueError("cannot save an unfitted PCAModel")
+    _require_target(path, overwrite)
+    cls = f"{type(model).__module__}.{type(model).__qualname__}"
+    _write_metadata(path, cls, model.uid, model.param_map_for_metadata())
+    row = {
+        "pc": _dense_matrix_struct(model.pc),
+        "explainedVariance": _dense_vector_struct(model.explained_variance),
+        # `mean` is an extension column (Spark stores none); readers that
+        # don't know it ignore it.
+        "mean": _dense_vector_struct(
+            model.mean if model.mean is not None else np.zeros(model.pc.shape[0])
+        ),
+    }
+    try:
+        import pyarrow as pa
+    except ImportError:
+        schema = None
+    else:
+        schema = pa.schema(
+            [
+                ("pc", _matrix_arrow_type()),
+                ("explainedVariance", _vector_arrow_type()),
+                ("mean", _vector_arrow_type()),
+            ]
+        )
+    _write_data_row(path, row, schema=schema, spark_fields=[
+        ("pc", "matrix"), ("explainedVariance", "vector"), ("mean", "vector"),
+    ])
+
+
+def load_pca_model(path: str):
+    from spark_rapids_ml_tpu_torch.models.pca import PCAModel
+
+    meta = _read_metadata(path)
+    row = _read_data_row(path)
+    model = PCAModel(
+        pc=_dense_matrix_from_struct(row["pc"]),
+        explained_variance=_dense_vector_from_struct(row["explainedVariance"]),
+        mean=_dense_vector_from_struct(row["mean"]) if "mean" in row else None,
+        uid=meta["uid"],
+    )
+    return _restore_params(model, meta)

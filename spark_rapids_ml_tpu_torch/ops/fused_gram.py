@@ -1,0 +1,210 @@
+"""Fused center + scale + mask + Gram: the hand-written CUDA kernel
+(``csrc/fused_gram.cu``) and its plain PyTorch version.
+
+Counterpart of the JAX package's ``ops/pallas_gram.py``. The function is
+
+    G = (diag(rowmul) · (X − mean))ᵀ (diag(rowmul) · (X − mean))
+
+computed in one pass over X, with only the upper output tiles visited and
+the result mirrored, so G is exactly symmetric. ``rowmul`` is the per-row
+multiplier: row mask × 1/√(count − 1), 0 on padding rows.
+
+``fused_centered_gram`` launches the kernel for a CUDA tensor and uses
+``fused_centered_gram_reference`` only for a CPU tensor. There is no
+fallback on the card: a CUDA input the kernel does not take raises. The
+kernel needs no padding (it masks ragged rows and columns itself), so
+``covariance_fused`` keeps the JAX contract without the host pad copy.
+
+Precision (``gramPrecision``; None defers to ``TPUML_GRAM_PRECISION``):
+'highest'/'float32' are full f32, 'bfloat16'/'default' one bf16 pass with
+f32 accumulation, 'bfloat16_3x' splits each operand into bf16 hi + lo and
+sums hi·hi + hi·lo + lo·hi in f32 (lo·lo dropped), as the TPU kernel did.
+The plain version rounds to bf16 exactly as the kernel does.
+
+The JAX package's TPU cost rule (``symmetric_cost_wins``) and its v5e block
+constants were measured on a TPU and are not carried over.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import numpy as np
+import torch
+
+from spark_rapids_ml_tpu_torch.utils import cuda_build
+from spark_rapids_ml_tpu_torch.utils.resources import resolve_device
+
+# precision name → the kernel's mode (its template instantiation)
+_MODES = {
+    "highest": 0, "float32": 0,
+    "bfloat16": 1, "default": 1,
+    "bfloat16_3x": 2,
+}
+# kernel instantiation name by mode, the keys of ``launches``
+KERNEL_NAMES = (
+    "fused_centered_gram_f32",
+    "fused_centered_gram_bf16",
+    "fused_centered_gram_bf16x3",
+)
+
+# How far the kernel may be from its plain version on the same inputs,
+# max |Δ| / max |G| (the two sum the same f32 products in another order;
+# the bf16 modes accumulate on the tensor cores). Each bar lies between the
+# largest error of the sound kernel and what a kernel computing in another
+# precision gives on the same inputs (TF32 or the bf16 split in place of
+# full f32, one bf16 pass or a dropped cross term in place of the split,
+# full f32 in place of one bf16 pass), so a kernel that ran in the wrong
+# precision fails it. chip_smoke.py measures both sides on the card.
+PLAIN_RTOL = {
+    "fused_centered_gram_f32": 1.5e-5,
+    "fused_centered_gram_bf16": 6e-5,
+    "fused_centered_gram_bf16x3": 6.5e-5,
+}
+
+# Launches of each instantiation, counted where the kernel is launched and
+# nowhere else (CPU calls take the plain version and do not count).
+launches = {name: 0 for name in KERNEL_NAMES}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def kernel_name(precision: Optional[str] = None) -> str:
+    """The kernel instantiation a precision selects."""
+    return KERNEL_NAMES[_MODES[_resolve(precision)]]
+
+
+def _resolve(precision: Optional[str]) -> str:
+    from spark_rapids_ml_tpu_torch.ops.covariance import resolve_gram_precision
+
+    return resolve_gram_precision(precision)
+
+
+def _check_inputs(x: torch.Tensor, mean: torch.Tensor,
+                  rowmul: torch.Tensor) -> None:
+    """The kernel's input contract, checked on every device so the plain
+    version accepts exactly what the kernel does."""
+    if x.dim() != 2:
+        raise ValueError(f"x must be 2-D, got shape {tuple(x.shape)}")
+    rows, n = x.shape
+    for name, t, size in (("mean", mean, n), ("rowmul", rowmul, rows)):
+        if t.shape != (size,):
+            raise ValueError(
+                f"{name} must have shape ({size},), got {tuple(t.shape)}")
+    for name, t in (("x", x), ("mean", mean), ("rowmul", rowmul)):
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32, got {t.dtype}")
+        if t.device != x.device:
+            raise ValueError(
+                f"{name} is on {t.device}, x is on {x.device}")
+    if n == 0:
+        raise ValueError("x has no columns")
+    if n > 1 and x.stride(1) != 1:
+        raise ValueError("x must have unit column stride")
+    if rows > 1 and x.stride(0) < n:
+        raise ValueError(f"x row stride {x.stride(0)} is below its width {n}")
+    for name, t in (("mean", mean), ("rowmul", rowmul)):
+        if t.numel() > 1 and t.stride(0) != 1:
+            raise ValueError(f"{name} must be contiguous")
+
+
+def fused_centered_gram_reference(x: torch.Tensor, mean: torch.Tensor,
+                                  rowmul: torch.Tensor,
+                                  precision: Optional[str] = None
+                                  ) -> torch.Tensor:
+    """Plain PyTorch version of the kernel, with the same arithmetic: the
+    same f32 centring and scaling, the same bf16 rounding (round to nearest
+    even) and hi/lo split, f32 accumulation, then the upper triangle
+    mirrored. Only the order of the f32 sums differs from the kernel."""
+    _check_inputs(x, mean, rowmul)
+    mode = _MODES[_resolve(precision)]
+    xc = (x - mean[None, :]) * rowmul[:, None]
+    if mode == 0:
+        g = xc.T @ xc
+    else:
+        hi = xc.to(torch.bfloat16).to(torch.float32)
+        g = hi.T @ hi
+        if mode == 2:
+            lo = (xc - hi).to(torch.bfloat16).to(torch.float32)
+            g = g + hi.T @ lo + lo.T @ hi
+    return torch.triu(g) + torch.triu(g, 1).T
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_fn():
+    lib = cuda_build.load("fused_gram")
+    fn = lib.tpuml_fused_centered_gram
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def fused_centered_gram(x: torch.Tensor, mean: torch.Tensor,
+                        rowmul: torch.Tensor,
+                        precision: Optional[str] = None) -> torch.Tensor:
+    """``(diag(rowmul)·(x − mean))ᵀ (diag(rowmul)·(x − mean))``, exactly
+    symmetric, float32 (n, n).
+
+    x is (rows, n) float32 with unit column stride (any row stride), mean
+    (n,) and rowmul (rows,) float32 on the same device. A CUDA input
+    launches the kernel on the current stream; a CPU input takes the plain
+    version. Anything else the kernel does not take raises ValueError.
+    """
+    if x.device.type == "cpu":
+        return fused_centered_gram_reference(x, mean, rowmul, precision)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    _check_inputs(x, mean, rowmul)
+    mode = _MODES[_resolve(precision)]
+    rows, n = x.shape
+    g = torch.empty((n, n), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _kernel_fn()(
+            x.data_ptr(), max(x.stride(0), n), mean.data_ptr(),
+            rowmul.data_ptr(), g.data_ptr(), rows, n, mode, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"fused_centered_gram launch failed: cudaError {err} "
+            f"(x {tuple(x.shape)}, precision mode {mode})")
+    launches[KERNEL_NAMES[mode]] += 1
+    return g
+
+
+def covariance_fused(x, mask=None, mean_centering: bool = True,
+                     device=None, precision: Optional[str] = None):
+    """Covariance via the fused Gram: one float32 copy of the host matrix
+    to ``device``, the masked mean on the device, then one fused Gram with
+    ``rowmul = mask · 1/√(count − 1)``. Returns (cov[n, n], mean[n]) on
+    ``device``. ``mask`` marks valid rows with 0/1; the count is the number
+    of nonzero entries, an integer. ``device`` None is the entry points'
+    device (the card unless the CPU is requested; see
+    ``utils.resources.resolve_device``)."""
+    device = resolve_device() if device is None else torch.device(device)
+    dtype = torch.float32
+    x_dev = torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+    x_dev = x_dev.contiguous()
+    rows, n = x_dev.shape
+    if mask is None:
+        rowmask = torch.ones(rows, dtype=dtype, device=x_dev.device)
+    else:
+        rowmask = torch.as_tensor(np.asarray(mask), device=x_dev.device)
+        rowmask = rowmask.to(dtype).contiguous()
+    count = torch.count_nonzero(rowmask)
+    if mean_centering:
+        mean = (x_dev * rowmask[:, None]).sum(dim=0) / count
+    else:
+        mean = torch.zeros(n, dtype=dtype, device=x_dev.device)
+    scale = 1.0 / torch.sqrt(torch.clamp(count - 1, min=1).to(dtype))
+    cov = fused_centered_gram(x_dev, mean, rowmask * scale,
+                              precision=precision)
+    return cov, mean

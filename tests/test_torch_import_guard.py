@@ -1,0 +1,136 @@
+"""The port stands alone: it imports neither jax nor the JAX package, and
+its entry points compute on the card unless the CPU is asked for."""
+
+import ast
+import os
+import subprocess
+import sys
+import warnings
+
+import numpy as np
+import pytest
+import torch
+
+import spark_rapids_ml_tpu_torch
+from spark_rapids_ml_tpu_torch import PCA
+from spark_rapids_ml_tpu_torch.utils import resources
+
+PORT_DIR = os.path.dirname(spark_rapids_ml_tpu_torch.__file__)
+REPO_DIR = os.path.dirname(PORT_DIR)
+
+
+def _port_modules():
+    for root, _, files in os.walk(PORT_DIR):
+        for name in sorted(files):
+            if name.endswith(".py"):
+                path = os.path.join(root, name)
+                rel = os.path.relpath(path, REPO_DIR)[:-3].replace(os.sep, ".")
+                yield path, rel[:-len(".__init__")] if rel.endswith(
+                    ".__init__") else rel
+
+
+def _is_forbidden(module: str) -> bool:
+    return (module == "jax" or module.startswith("jax.")
+            or module == "spark_rapids_ml_tpu"
+            or module.startswith("spark_rapids_ml_tpu."))
+
+
+def test_importing_every_port_module_leaves_jax_out():
+    mods = [m for _, m in _port_modules()]
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or "
+        "k.startswith('jax.') or k == 'spark_rapids_ml_tpu' or "
+        "k.startswith('spark_rapids_ml_tpu.'))\n"
+        "print(len(sys.modules), bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO_DIR,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_port_sources_import_no_jax():
+    found = []
+    for path, mod in _port_modules():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            found += [(mod, n) for n in names if _is_forbidden(n)]
+    assert found == []
+
+
+def test_no_cuda_and_no_cpu_request_raises(monkeypatch):
+    monkeypatch.delenv(resources.PLATFORM_ENV, raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match=resources.PLATFORM_ENV):
+        resources.resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PCA().setK(2).fit(np.random.default_rng(0).normal(size=(20, 4)))
+
+
+def test_host_only_fit_needs_no_device(monkeypatch):
+    monkeypatch.delenv(resources.PLATFORM_ENV, raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = (PCA().setK(2).setUseXlaDot(False).setUseXlaSvd(False)
+             .fit(np.random.default_rng(0).normal(size=(20, 4))))
+    assert model.pc.shape == (4, 2)
+
+
+def test_cpu_request_resolves_cpu(monkeypatch):
+    monkeypatch.setenv(resources.PLATFORM_ENV, "cpu")
+    assert resources.resolve_device(3) == torch.device("cpu")
+    monkeypatch.setenv(resources.PLATFORM_ENV, "tpu")
+    with pytest.raises(ValueError, match=resources.PLATFORM_ENV):
+        resources.resolve_device()
+
+
+def test_device_ordinal_precedence():
+    resolve = resources.resolve_device_ordinal
+    assert resolve(2, {"gpu": ["5"]}, {"SPARK_RAPIDS_ML_TORCH_DEVICE": "7"}) == 2
+    assert resolve(-1, {"gpu": ["5"]}, {"SPARK_RAPIDS_ML_TORCH_DEVICE": "7"}) == 5
+    assert resolve(-1, {"gpu": []}, {"SPARK_RAPIDS_ML_TORCH_DEVICE": "7"}) == 7
+    assert resolve(-1, None, {}) == 0
+
+
+@pytest.mark.parametrize("ordinal,count,visible,expected,warns", [
+    (1, 2, "", 1, False),
+    (3, 1, "3", 0, False),   # a pinned executor's one card
+    (3, 1, "", 0, True),     # unpinned: a misrouted task, warned about
+])
+def test_ordinal_maps_to_a_cuda_device(monkeypatch, ordinal, count, visible,
+                                       expected, warns):
+    monkeypatch.delenv(resources.PLATFORM_ENV, raising=False)
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", visible)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: count)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        device = resources.resolve_device(ordinal)
+    assert device == torch.device("cuda", expected)
+    assert bool(caught) == warns
+
+
+def test_ordinal_past_several_devices_raises(monkeypatch):
+    monkeypatch.delenv(resources.PLATFORM_ENV, raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(ValueError, match="deviceId 4"):
+        resources.resolve_device(4)
+
+
+def test_kernel_source_ships_with_the_package():
+    from spark_rapids_ml_tpu_torch.utils import cuda_build
+
+    path = cuda_build.library_path("fused_gram")
+    assert path.startswith(cuda_build.BUILD_DIR) and path.endswith(".so")
+    with pytest.raises(FileNotFoundError):
+        cuda_build.library_path("no_such_kernel")
