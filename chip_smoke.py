@@ -13,13 +13,20 @@ Phases (any failure raises and the script exits non-zero):
 1. Environment: the card's name and power limit, torch and CUDA versions;
    TF32 off for matmuls and cuDNN, so every f32 product is full f32.
 2. Build: every kernel of the path from the checkout's sources, with the
-   registers, shared memory and spills ``ptxas -v`` reports.
+   registers, shared memory and spills ``ptxas -v`` reports for the FFMA,
+   prep and tensor-core kernels, and the tensor-core launches' dynamic
+   shared memory. Fails unless the SASS of both tensor-core instantiations
+   (``cuobjdump -sass``) holds wgmma (``HGMMA``) and TMA loads
+   (``UTMALDG``).
 3. Each kernel against its plain PyTorch version on the card, per
-   precision, at the main-path bucket (8192 × 4096), with a masked tail and
-   at a ragged shape, within its bar (``ops/fused_gram.PLAIN_RTOL``). At
-   the bucket, controls that compute in another precision must miss that
-   bar, so the bar can tell a wrong precision. Timed with CUDA events at
-   the bucket beside its plain version, a library yardstick and its bound.
+   precision, at the main-path bucket (8192 × 4096), with a masked tail, at
+   a ragged shape, at 5 × 129 and on a row view with an odd stride, within
+   its bar (``ops/fused_gram.PLAIN_RTOL``); the bf16 modes' prep pass must
+   equal its plain version bit for bit on each. At the bucket, controls
+   that compute in another precision must miss that bar, so the bar can
+   tell a wrong precision. Timed with CUDA events at the bucket (the whole
+   call, and the prep pass alone) beside its plain version, a library
+   yardstick and its bound.
 4. The PCA slice at the north-star width (4096 features, k = 256; rows cut
    from 10,485,760 to fit the run's time), data with a decaying spectrum
    made per chunk from a seed on the card:
@@ -42,6 +49,7 @@ and last ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -120,6 +128,27 @@ def bound(rows: int, n: int, operand: str, passes: int):
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
+def check_sass(cuda_build, path: str) -> None:
+    """Fail unless each tensor-core instantiation's SASS holds wgmma
+    (HGMMA) and TMA tile loads (UTMALDG)."""
+    cuobjdump = os.path.join(os.path.dirname(cuda_build.nvcc_path()),
+                             "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", path], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    found = 0
+    for block in sass.split("Function : ")[1:]:
+        name = block.split("\n", 1)[0].strip()
+        if "gram_tc_kernel" not in name:
+            continue
+        found += 1
+        hgmma, utmaldg = block.count("HGMMA"), block.count("UTMALDG")
+        log(f"  SASS {name}: {hgmma} HGMMA, {utmaldg} UTMALDG")
+        check(hgmma > 0 and utmaldg > 0,
+              f"{name} has no wgmma or no TMA load in its SASS")
+    check(found == 2, f"{found} tensor-core instantiations in the SASS, "
+          f"expected 2")
+
+
 def mirrored(torch, g):
     return torch.triu(g) + torch.triu(g, 1).T
 
@@ -150,17 +179,51 @@ def controls(torch, fg, x, mean, rowmul, precision):
                 x, mean, rowmul, "bfloat16_3x")}
 
 
+def check_prep(torch, fg, x, mean, rowmul, precision, label) -> None:
+    """The prep pass's hi (and lo) planes equal its plain version's bit for
+    bit, padding included."""
+    got = fg.gram_prep(x, mean, rowmul, precision)
+    torch.cuda.synchronize()
+    want = fg.gram_prep_reference(x, mean, rowmul, precision)
+    same = got.shape == want.shape and torch.equal(
+        got.view(torch.int16), want.view(torch.int16))
+    log(f"  prep pass {precision} {label} {tuple(x.shape)} → "
+        f"{tuple(got.shape)} bf16: bit-equal to its plain version {same}")
+    check(same, f"prep pass {precision} {label} differs from its plain version")
+
+
+def log_tensor_core_share(fg, rows, n, precision, passes, gemm_ms) -> None:
+    """The tensor-core launch's share of a bf16 call (call time − prep
+    time): its rate on the upper triangle's bf16 products, and the panel
+    bytes its 128 × 128 tiles read through L2 (each upper tile reads its
+    two panels of every plane over the whole padded depth) over that
+    time."""
+    tiles = -(-n // 128)
+    planes, _, kp = fg.scratch_shape(rows, n, precision)
+    panel_bytes = tiles * (tiles + 1) // 2 * 2 * planes * 128 * kp * 2
+    tflops = passes * 2.0 * rows * n * (n + 1) / 2 / gemm_ms * 1e-9
+    log(f"    tensor-core launch (call − prep) {gemm_ms:.4f} ms: "
+        f"{tflops:.1f} TFLOP/s of bf16 products; panels read through L2 "
+        f"{panel_bytes / 1e9:.2f} GB, {panel_bytes / gemm_ms * 1e-9:.2f} TB/s")
+
+
 def phase_kernels(torch, fg, device):
     """Phase 3. Returns {kernel name: measurements}."""
     gen = torch.Generator(device=device).manual_seed(SEED)
+    # label: (rows, n, masked tail rows, extra columns of the parent whose
+    # row view x is, starting at column 1: an odd row stride, unaligned)
     shapes = {
-        "bucket": (BUCKET_ROWS, N_FEATURES, 0),
-        "masked tail": (BUCKET_ROWS, N_FEATURES, 3000),
-        "ragged": (1000, 1100, 0),
+        "bucket": (BUCKET_ROWS, N_FEATURES, 0, 0),
+        "masked tail": (BUCKET_ROWS, N_FEATURES, 3000, 0),
+        "ragged": (1000, 1100, 0, 0),
+        "tiny": (5, 129, 0, 0),
+        "odd-stride view": (3000, 1000, 0, 3),
     }
     inputs = {}
-    for label, (rows, n, masked) in shapes.items():
-        x = torch.randn(rows, n, generator=gen, device=device) + 0.5
+    for label, (rows, n, masked, extra) in shapes.items():
+        x = torch.randn(rows, n + extra, generator=gen, device=device) + 0.5
+        if extra:
+            x = x[:, 1:n + 1]
         mask = torch.ones(rows, device=device)
         if masked:
             mask[rows - masked:] = 0.0
@@ -175,6 +238,8 @@ def phase_kernels(torch, fg, device):
         bar = fg.PLAIN_RTOL[name]
         worst = worst_rel = 0.0
         for label, (x, mean, rowmul) in inputs.items():
+            if operand == "bf16":
+                check_prep(torch, fg, x, mean, rowmul, precision, label)
             got = fg.fused_centered_gram(x, mean, rowmul, precision)
             torch.cuda.synchronize()
             want = fg.fused_centered_gram_reference(x, mean, rowmul, precision)
@@ -213,18 +278,24 @@ def phase_kernels(torch, fg, device):
         lib_in = xc.to(torch.bfloat16) if precision == "bfloat16" else xc
         ms = time_ms(torch, lambda: fg.fused_centered_gram(
             x, mean, rowmul, precision), iters=20)
+        prep_ms = time_ms(torch, lambda: fg.gram_prep(
+            x, mean, rowmul, precision), iters=20) \
+            if operand == "bf16" else None
         plain_ms = time_ms(torch, lambda: fg.fused_centered_gram_reference(
             x, mean, rowmul, precision), iters=5)
         library_ms = time_ms(torch, lambda: torch.matmul(lib_in.T, lib_in),
                              iters=20)
         bound_ms, bound_by = bound(rows, n, operand, passes)
-        log(f"  {name} at {rows}x{n}: kernel {ms:.4f} ms, plain "
+        prep = "" if prep_ms is None else f" (prep pass {prep_ms:.4f} ms)"
+        log(f"  {name} at {rows}x{n}: kernel {ms:.4f} ms{prep}, plain "
             f"{plain_ms:.4f} ms, torch.matmul yardstick {library_ms:.4f} ms, "
             f"bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.3f} of "
             f"the bound")
+        if prep_ms is not None:
+            log_tensor_core_share(fg, rows, n, precision, passes, ms - prep_ms)
         results[name] = {
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
+            "max_abs_err": worst, "ms": ms, "prep_ms": prep_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms,
         }
     return results
@@ -442,8 +513,13 @@ def main() -> int:
     log(f"  {result.name}: nvcc {result.seconds:.2f} s "
         f"({'cached' if result.cached else 'built'}) → {result.path}")
     for line in result.ptxas.splitlines():
-        if "Compiling entry" in line or "registers" in line or "spill" in line:
+        if any(key in line for key in ("Compiling entry", "registers",
+                                       "spill", "wgmma", "setmaxnreg")):
             log("   ", line.strip())
+    for precision in ("bfloat16", "bfloat16_3x"):
+        log(f"  {fg.kernel_name(precision)} tensor-core launch: "
+            f"{fg.dynamic_smem_bytes(precision)} B dynamic shared memory")
+    check_sass(cuda_build, result.path)
     log(f"  build phase {time.perf_counter() - t0:.2f} s")
 
     log("[3] kernels vs plain versions")
@@ -459,7 +535,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES, "launches": launches[name],
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
-            "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "prep_ms": m["prep_ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
         })
     log(f"  total {time.perf_counter() - t_start:.1f} s")

@@ -21,6 +21,14 @@ f32 accumulation, 'bfloat16_3x' splits each operand into bf16 hi + lo and
 sums hi·hi + hi·lo + lo·hi in f32 (lo·lo dropped), as the TPU kernel did.
 The plain version rounds to bf16 exactly as the kernel does.
 
+The bf16 modes run in two launches on the current stream: a prep pass that
+writes the centred operand transposed, rounded and split (x̃ᵀ, bf16, rows
+zero-padded to ``padded_depth``) into scratch this wrapper allocates
+(``scratch_shape``), and the tensor-core Gram that reads it. The call
+counts as one launch. ``gram_prep`` runs the prep pass alone, and
+``gram_prep_reference`` is its plain version; both serve only the tests
+and ``chip_smoke.py``, which hold the two bit for bit.
+
 The JAX package's TPU cost rule (``symmetric_cost_wins``) and its v5e block
 constants were measured on a TPU and are not carried over.
 """
@@ -64,9 +72,16 @@ PLAIN_RTOL = {
     "fused_centered_gram_bf16x3": 6.5e-5,
 }
 
+# ``gram_prep``'s count: the prep pass launched alone, outside any Gram
+PREP_KERNEL = "fused_centered_gram_prep"
+
+# Depth of the tensor-core kernel's k-block: the prep pass pads the rows of
+# x̃ᵀ with zeros to a multiple of it (64 bf16, one 128-byte swizzle row).
+K_BLOCK = 64
+
 # Launches of each instantiation, counted where the kernel is launched and
 # nowhere else (CPU calls take the plain version and do not count).
-launches = {name: 0 for name in KERNEL_NAMES}
+launches = {name: 0 for name in KERNEL_NAMES + (PREP_KERNEL,)}
 
 
 def reset_launches() -> None:
@@ -83,6 +98,23 @@ def _resolve(precision: Optional[str]) -> str:
     from spark_rapids_ml_tpu_torch.ops.covariance import resolve_gram_precision
 
     return resolve_gram_precision(precision)
+
+
+def padded_depth(rows: int) -> int:
+    """Rows of X padded to whole k-blocks (at least one): the depth ``kp``
+    of the prep pass's x̃ᵀ."""
+    return max(1, -(-rows // K_BLOCK)) * K_BLOCK
+
+
+def scratch_shape(rows: int, n: int,
+                  precision: Optional[str] = None) -> Optional[tuple]:
+    """Shape of the bf16 scratch the prep pass writes for an (rows, n)
+    input: (planes, n, kp), one plane (hi) for bfloat16 and two (hi, lo)
+    for bfloat16_3x. None for the full-f32 kernel, which takes none."""
+    mode = _MODES[_resolve(precision)]
+    if mode == 0:
+        return None
+    return (2 if mode == 2 else 1, n, padded_depth(rows))
 
 
 def _check_inputs(x: torch.Tensor, mean: torch.Tensor,
@@ -135,17 +167,85 @@ def fused_centered_gram_reference(x: torch.Tensor, mean: torch.Tensor,
     return torch.triu(g) + torch.triu(g, 1).T
 
 
+def gram_prep_reference(x: torch.Tensor, mean: torch.Tensor,
+                        rowmul: torch.Tensor,
+                        precision: Optional[str] = None) -> torch.Tensor:
+    """Plain PyTorch version of the prep pass: x̃ = (x − mean)·rowmul in
+    f32, rounded to bf16 (nearest even) as hi and, for bfloat16_3x,
+    lo = bf16(x̃ − hi), each written transposed into a zeroed
+    ``scratch_shape`` bf16 tensor. The kernel must match it bit for bit."""
+    _check_inputs(x, mean, rowmul)
+    shape = scratch_shape(*x.shape, precision)
+    if shape is None:
+        raise ValueError("the full-f32 kernel has no prep pass")
+    rows = x.shape[0]
+    xc = (x - mean[None, :]) * rowmul[:, None]
+    hi = xc.to(torch.bfloat16)
+    out = torch.zeros(shape, dtype=torch.bfloat16, device=x.device)
+    out[0, :, :rows] = hi.T
+    if shape[0] == 2:
+        out[1, :, :rows] = (xc - hi.to(torch.float32)).to(torch.bfloat16).T
+    return out
+
+
 @functools.lru_cache(maxsize=None)
-def _kernel_fn():
+def _kernel_fns():
+    """The library's C entry points with their argument types, set once."""
     lib = cuda_build.load("fused_gram")
-    fn = lib.tpuml_fused_centered_gram
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
-    return fn
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    gram = lib.tpuml_fused_centered_gram
+    gram.argtypes = [ptr, i64, ptr, ptr, ptr, i32, i32, i32, ptr, i32, ptr]
+    prep = lib.tpuml_gram_prep
+    prep.argtypes = [ptr, i64, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+    smem = lib.tpuml_gram_dynamic_smem
+    smem.argtypes = [i32]
+    for fn in (gram, prep, smem):
+        fn.restype = ctypes.c_int
+    return gram, prep, smem
+
+
+def dynamic_smem_bytes(precision: Optional[str] = None) -> int:
+    """Dynamic shared memory the precision's tensor-core launch asks for
+    (0 for the full-f32 kernel). Builds the library if needed."""
+    return _kernel_fns()[2](_MODES[_resolve(precision)])
+
+
+def _launch(fn, x: torch.Tensor, *args) -> int:
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        return fn(*args, stream)
+
+
+def _raise_on(err: int, what: str, x: torch.Tensor, mode: int) -> None:
+    if err != 0:
+        raise RuntimeError(
+            f"{what} launch failed: cudaError {err} "
+            f"(x {tuple(x.shape)}, precision mode {mode})")
+
+
+def gram_prep(x: torch.Tensor, mean: torch.Tensor, rowmul: torch.Tensor,
+              precision: Optional[str] = None) -> torch.Tensor:
+    """The bf16 modes' prep pass alone: the ``scratch_shape`` bf16 tensor
+    that ``fused_centered_gram`` hands to its tensor-core launch. A CUDA
+    input launches the prep kernel (counted under ``PREP_KERNEL``); a CPU
+    input takes ``gram_prep_reference``."""
+    if x.device.type == "cpu":
+        return gram_prep_reference(x, mean, rowmul, precision)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    _check_inputs(x, mean, rowmul)
+    rows, n = x.shape
+    shape = scratch_shape(rows, n, precision)
+    if shape is None:
+        raise ValueError("the full-f32 kernel has no prep pass")
+    mode = _MODES[_resolve(precision)]
+    scratch = torch.empty(shape, dtype=torch.bfloat16, device=x.device)
+    err = _launch(_kernel_fns()[1], x, x.data_ptr(), max(x.stride(0), n),
+                  mean.data_ptr(), rowmul.data_ptr(), scratch.data_ptr(),
+                  rows, n, mode, shape[2])
+    _raise_on(err, "gram_prep", x, mode)
+    launches[PREP_KERNEL] += 1
+    return scratch
 
 
 def fused_centered_gram(x: torch.Tensor, mean: torch.Tensor,
@@ -156,8 +256,10 @@ def fused_centered_gram(x: torch.Tensor, mean: torch.Tensor,
 
     x is (rows, n) float32 with unit column stride (any row stride), mean
     (n,) and rowmul (rows,) float32 on the same device. A CUDA input
-    launches the kernel on the current stream; a CPU input takes the plain
-    version. Anything else the kernel does not take raises ValueError.
+    launches the kernel on the current stream (the bf16 modes: the prep
+    pass, then the tensor-core Gram, counted as one launch); a CPU input
+    takes the plain version. Anything else the kernel does not take raises
+    ValueError.
     """
     if x.device.type == "cpu":
         return fused_centered_gram_reference(x, mean, rowmul, precision)
@@ -167,15 +269,14 @@ def fused_centered_gram(x: torch.Tensor, mean: torch.Tensor,
     mode = _MODES[_resolve(precision)]
     rows, n = x.shape
     g = torch.empty((n, n), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _kernel_fn()(
-            x.data_ptr(), max(x.stride(0), n), mean.data_ptr(),
-            rowmul.data_ptr(), g.data_ptr(), rows, n, mode, stream)
-    if err != 0:
-        raise RuntimeError(
-            f"fused_centered_gram launch failed: cudaError {err} "
-            f"(x {tuple(x.shape)}, precision mode {mode})")
+    shape = scratch_shape(rows, n, precision)
+    scratch = None if shape is None else torch.empty(
+        shape, dtype=torch.bfloat16, device=x.device)
+    err = _launch(_kernel_fns()[0], x, x.data_ptr(), max(x.stride(0), n),
+                  mean.data_ptr(), rowmul.data_ptr(), g.data_ptr(), rows, n,
+                  mode, 0 if scratch is None else scratch.data_ptr(),
+                  0 if shape is None else shape[2])
+    _raise_on(err, "fused_centered_gram", x, mode)
     launches[KERNEL_NAMES[mode]] += 1
     return g
 

@@ -2,10 +2,12 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into ``_build/<name>-<digest>.so``, then loaded
-with ``ctypes``. The digest covers the source and the flags, so an edited
-source rebuilds and an unchanged one is reused. The build runs at first
-use, from the package's own sources, never at import: the CPU test suite
-imports every module on machines without ``nvcc``.
+with ``ctypes``. The digest covers the source, every file under ``csrc/``
+that it includes (``#include "..."``, followed recursively) and every
+compiler and linker flag, so an edited source, header or flag rebuilds and
+an unchanged build is reused. The build runs at first use, from the
+package's own sources, never at import: the CPU test suite imports every
+module on machines without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -13,12 +15,13 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, List
 
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
@@ -29,6 +32,11 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+# after the source, so the linker resolves the source's calls into libcuda
+# (cuTensorMapEncodeTiled)
+LINK_FLAGS = ("-lcuda",)
+
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 
 @dataclass
@@ -70,12 +78,37 @@ def _source(name: str) -> str:
     return path
 
 
+def build_inputs(name: str) -> List[str]:
+    """``csrc/<name>.cu`` and every file it includes with quotes, directly
+    or through another such file, resolved against the including file's
+    directory as ``nvcc`` does. A quoted include that does not resolve
+    there is not one of the package's files and is left to the compiler."""
+    seen: List[str] = []
+    pending = [_source(name)]
+    while pending:
+        path = os.path.realpath(pending.pop())
+        if path in seen:
+            continue
+        seen.append(path)
+        with open(path, encoding="utf-8") as f:
+            text = f.read()
+        for include in _INCLUDE.findall(text):
+            candidate = os.path.join(os.path.dirname(path), include)
+            if os.path.isfile(candidate):
+                pending.append(candidate)
+    return seen
+
+
 def library_path(name: str) -> str:
-    """Where the build of ``csrc/<name>.cu`` with the current flags lives."""
+    """Where the build of ``csrc/<name>.cu``, with its included files and
+    the current flags, lives."""
     digest = hashlib.sha256()
-    with open(_source(name), "rb") as f:
-        digest.update(f.read())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    for path in build_inputs(name):
+        digest.update(os.path.relpath(path, CSRC_DIR).encode() + b"\0")
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    for flag in NVCC_FLAGS + ("--",) + LINK_FLAGS:
+        digest.update(flag.encode() + b"\0")
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 
@@ -89,7 +122,7 @@ def build(name: str) -> BuildResult:
     tmp = f"{out}.{os.getpid()}.tmp"
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [nvcc_path(), *NVCC_FLAGS, "-o", tmp, _source(name)],
+        [nvcc_path(), *NVCC_FLAGS, "-o", tmp, _source(name), *LINK_FLAGS],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:

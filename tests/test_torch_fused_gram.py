@@ -21,6 +21,10 @@ from spark_rapids_ml_tpu_torch.ops.fused_gram import (
     covariance_fused,
     fused_centered_gram,
     fused_centered_gram_reference,
+    gram_prep,
+    gram_prep_reference,
+    padded_depth,
+    scratch_shape,
 )
 
 
@@ -224,3 +228,99 @@ def test_covariance_fused_defaults_to_the_card(rng, monkeypatch):
     monkeypatch.setenv("SPARK_RAPIDS_ML_TORCH_PLATFORM", "cpu")
     cov, mean = covariance_fused(x)
     assert cov.device.type == "cpu" and mean.device.type == "cpu"
+
+
+def _emulated_prep(x, mean, rowmul, split):
+    """The prep pass's planes in numpy: hi (and lo) of the centred operand,
+    transposed and zero-padded to whole 64-deep k-blocks, as float32."""
+    rows, n = x.shape
+    xc = (x - mean[None, :]) * rowmul[:, None]
+    hi = _bf16_round(xc)
+    planes = [hi] + ([_bf16_round(xc - hi)] if split else [])
+    out = np.zeros((len(planes), n, max(1, -(-rows // 64)) * 64), np.float32)
+    for p, plane in enumerate(planes):
+        out[p, :, :rows] = plane.T
+    return out
+
+
+@pytest.mark.parametrize("precision", ["bfloat16", "bfloat16_3x"])
+@pytest.mark.parametrize("rows,n", [(333, 129), (64, 8), (2, 5), (130, 64)])
+def test_prep_reference_matches_numpy_emulation(rng, precision, rows, n):
+    x, mean, rowmul = _inputs(rng, rows, n)
+    rowmul[rows // 2:] = 0.0  # masked rows must come out as exact zeros
+    got = gram_prep_reference(torch.from_numpy(x), torch.from_numpy(mean),
+                              torch.from_numpy(rowmul), precision)
+    assert got.dtype == torch.bfloat16
+    assert tuple(got.shape) == scratch_shape(rows, n, precision)
+    want = _emulated_prep(x, mean, rowmul, precision == "bfloat16_3x")
+    # bf16 → f32 is exact, so equal floats are equal bits
+    np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+@pytest.mark.parametrize("precision", ["bfloat16", "bfloat16_3x"])
+def test_gram_of_prep_planes_is_the_plain_gram(rng, precision):
+    """The planes hold exactly the operands the plain Gram multiplies:
+    x̃ᵀ in hi (and lo), the padding adding nothing."""
+    x, mean, rowmul = (torch.from_numpy(a) for a in _inputs(rng, 300, 70))
+    planes = gram_prep_reference(x, mean, rowmul, precision).double()
+    g = planes[0] @ planes[0].T
+    if precision == "bfloat16_3x":
+        g = g + planes[0] @ planes[1].T + planes[1] @ planes[0].T
+    want = fused_centered_gram_reference(x, mean, rowmul, precision).double()
+    # the same bf16 products, summed in float64 here and in f32 there
+    np.testing.assert_allclose(g.numpy(), want.numpy(),
+                               atol=1e-6 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("rows,n,block_n,block_r", TILINGS)
+def test_gram_of_prep_planes_matches_pallas_interpret(rng, rows, n, block_n,
+                                                      block_r):
+    x, mean, rowmul = _inputs(rng, rows, n)
+    hi, lo = gram_prep_reference(torch.from_numpy(x), torch.from_numpy(mean),
+                                 torch.from_numpy(rowmul),
+                                 "bfloat16_3x").double()
+    got = (hi @ hi.T + hi @ lo.T + lo @ hi.T).numpy()
+    want = jax_fused_centered_gram(
+        jnp.asarray(x), jnp.asarray(mean), jnp.asarray(rowmul),
+        interpret=True, precision="bfloat16_3x", block_n=block_n,
+        block_r=block_r)
+    np.testing.assert_allclose(got, np.asarray(want), atol=1e-4)
+
+
+@pytest.mark.parametrize("rows,depth", [(0, 64), (1, 64), (63, 64), (64, 64),
+                                        (65, 128), (8192, 8192),
+                                        (8193, 8256)])
+def test_padded_depth(rows, depth):
+    assert padded_depth(rows) == depth
+
+
+@pytest.mark.parametrize("precision,shape", [
+    ("bfloat16", (1, 129, 1024)), ("default", (1, 129, 1024)),
+    ("bfloat16_3x", (2, 129, 1024)), ("highest", None), ("float32", None)])
+def test_scratch_shape(precision, shape):
+    assert scratch_shape(1000, 129, precision) == shape
+
+
+def test_prep_has_no_full_f32_form(rng):
+    x, mean, rowmul = (torch.from_numpy(a) for a in _inputs(rng, 20, 8))
+    for fn in (gram_prep, gram_prep_reference):
+        with pytest.raises(ValueError, match="no prep pass"):
+            fn(x, mean, rowmul, "highest")
+
+
+def test_cpu_prep_takes_plain_version_and_counts_no_launch(rng):
+    fused_gram.reset_launches()
+    x, mean, rowmul = (torch.from_numpy(a) for a in _inputs(rng, 50, 12))
+    for precision in ("bfloat16", "bfloat16_3x"):
+        assert torch.equal(gram_prep(x, mean, rowmul, precision),
+                           gram_prep_reference(x, mean, rowmul, precision))
+    assert sum(fused_gram.launches.values()) == 0
+
+
+@pytest.mark.parametrize("corrupt", [_bad_dtype, _bad_rank, _bad_mean,
+                                     _bad_rowmul, _bad_stride,
+                                     _bad_mean_dtype])
+def test_prep_rejects_what_the_kernel_does_not_take(rng, corrupt):
+    x, mean, rowmul = (torch.from_numpy(a) for a in _inputs(rng, 20, 8))
+    with pytest.raises(ValueError):
+        gram_prep(*corrupt(x, mean, rowmul), "bfloat16_3x")

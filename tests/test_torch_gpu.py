@@ -66,6 +66,65 @@ def test_kernel_matches_plain_version_on_card(cuda_device, precision, rows, n):
     assert torch.equal(got, got.T)
 
 
+# The tensor-core pipeline's edges, as (rows, n, masked tail rows, extra
+# columns of the parent whose row view x is, from column 1).
+EDGES = {
+    "one row": (1, 64, 0, 0),
+    "rows below one k-block": (40, 130, 0, 0),
+    "rows not a multiple of 64": (200, 136, 0, 0),
+    "n not a multiple of 8": (300, 131, 0, 0),
+    "n 4096, diagonal tiles": (256, 4096, 0, 0),
+    "strided row view": (500, 300, 0, 7),
+    "masked tail of garbage": (700, 260, 200, 0),
+}
+
+
+def _edge_inputs(device, edge):
+    rows, n, masked, extra = EDGES[edge]
+    g = torch.Generator(device=device).manual_seed(1)
+    x = torch.randn(rows, n + extra, generator=g, device=device) + 0.5
+    if extra:
+        x = x[:, 1:n + 1]
+    mask = torch.ones(rows, device=device)
+    if masked:
+        mask[rows - masked:] = 0.0
+        x[rows - masked:] = 1e6  # padding garbage the mask must hide
+    valid = int(mask.sum())
+    mean = (x * mask[:, None]).sum(0) / valid
+    rowmul = mask / max(valid - 1, 1) ** 0.5
+    return x, mean.contiguous(), rowmul.contiguous()
+
+
+@pytest.mark.parametrize("precision", ["bfloat16", "bfloat16_3x"])
+@pytest.mark.parametrize("edge", list(EDGES))
+def test_pipeline_edges_match_plain_version(cuda_device, precision, edge):
+    x, mean, rowmul = _edge_inputs(cuda_device, edge)
+    name = fused_gram.kernel_name(precision)
+    before = fused_gram.launches[name]
+    got = fused_centered_gram(x, mean, rowmul, precision)
+    torch.cuda.synchronize()
+    assert fused_gram.launches[name] == before + 1
+    want = fused_centered_gram_reference(x, mean, rowmul, precision)
+    assert bool(torch.isfinite(got).all())
+    err = (got - want).abs().max().item()
+    assert err <= fused_gram.PLAIN_RTOL[name] * want.abs().max().item()
+    assert torch.equal(got, got.T)
+
+
+@pytest.mark.parametrize("precision", ["bfloat16", "bfloat16_3x"])
+@pytest.mark.parametrize("edge", list(EDGES))
+def test_prep_pass_is_bit_equal_to_its_plain_version(cuda_device, precision,
+                                                     edge):
+    x, mean, rowmul = _edge_inputs(cuda_device, edge)
+    before = fused_gram.launches[fused_gram.PREP_KERNEL]
+    got = fused_gram.gram_prep(x, mean, rowmul, precision)
+    torch.cuda.synchronize()
+    assert fused_gram.launches[fused_gram.PREP_KERNEL] == before + 1
+    want = fused_gram.gram_prep_reference(x, mean, rowmul, precision)
+    assert got.shape == want.shape
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
 def test_highest_bar_rejects_tf32_and_the_bf16_split(cuda_device):
     """At the main-path bucket the full-f32 kernel is within its bar, and a
     TF32 product or the bf16 hi/lo split of the same inputs is not."""
