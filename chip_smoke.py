@@ -44,6 +44,32 @@ Phases (any failure raises and the script exits non-zero):
    against the same fit computed with the kernel's plain version on the
    card. Then a few 4096-row transform requests, and save → load →
    transform again. A small fit is held against a float64 numpy oracle.
+5. Serving fit (c)'s model (4096 features, k = 256) through the port's
+   registry, ``ServeEngine`` (max_batch_rows 1024, pipeline depth 2, the
+   default bucket ladder 8…1024) and HTTP server, once per precision ladder
+   (native, bf16, int8), with ``torch.set_float32_matmul_precision("high")``
+   set for the whole phase (the TF32 trap, which native must survive).
+   Per ladder: warmup (bf16 and int8 print the offline max-error check,
+   which must end in a verdict; bf16 must pass it and serve bf16; a
+   refused int8 serves native, counted), then 256 requests in the binary
+   wire format from 8 client threads over HTTP, row counts log-uniform
+   over 1…1024 from SEED, rows with bench.py's 1/(1+j) column variances,
+   and after them 32 JSON requests of at most 64 rows (JSON text of
+   4096-wide rows costs far more host time than the serve path, so the
+   serving numbers are the binary pass's). Every response is held against
+   the float64 host product (native ≤ 1e-5, bf16 / int8 ≤ 0.05, max |Δ| /
+   max |ref| per response); the degraded, retry and error counters
+   (``serving_program`` included) must not move; every batch must have
+   run a ``ServingProgram`` on a CUDA tensor. The int8 program on the card
+   must equal its CPU twin bit for bit on every shape the traffic gives
+   it (each request alone, the requests coalesced up to 1024 rows, the
+   offline check's batch). Prints, all on the host clock: requests/s,
+   rows/s, client p50/p99, batches, rows per batch and padding waste per
+   ladder; an ``engine.predict`` loop at 1, 64 and 1024 rows; and 4096
+   rows through the engine (four 1024-row requests at once) beside
+   ``PCAModel.transform`` on the same rows. The serve path launches no
+   hand kernel: the launch counts are set to 0 before the phase and must
+   read 0 after it.
 
 Then one JSON line ``{"kernels": [...]}``, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.
@@ -538,7 +564,411 @@ def phase_slice(torch, fg, device):
     log(f"  small fit vs float64 oracle: |cos| min {cos.min():.8f}, EVR max "
         f"abs err {evr_err:.3e}")
     check(cos.min() >= 0.9999 and evr_err <= 1e-5, "small fit vs oracle")
-    return launches
+    return launches, model_c
+
+
+SERVE_LADDERS = ("native", "bf16", "int8")
+SERVE_REQUESTS = 256
+SERVE_JSON_REQUESTS = 32
+SERVE_JSON_MAX_ROWS = 64
+SERVE_CLIENTS = 8
+SERVE_MAX_ROWS = 1024
+SERVE_BARS = {"native": 1e-5,   # PERF.md §2's transform bar
+              "bf16": 0.05,     # the engine's default precision_max_err
+              "int8": 0.05}
+
+
+def serve_rows(rng, n):
+    """n float32 rows with bench.py's 1/(1+j) column variances
+    (bench.py:210)."""
+    scale = ((1.0 + np.arange(N_FEATURES)) ** -0.5).astype(np.float32)
+    return rng.standard_normal((int(n), N_FEATURES), dtype=np.float32) * scale
+
+
+def serve_traffic():
+    """Phase 5's binary requests, made once and sent to every ladder: row
+    counts log-uniform over 1…1024 from SEED."""
+    rng = np.random.default_rng(SEED)
+    sizes = np.exp(rng.uniform(0.0, np.log(SERVE_MAX_ROWS + 1),
+                               SERVE_REQUESTS))
+    sizes = np.clip(np.floor(sizes), 1, SERVE_MAX_ROWS).astype(int)
+    return [serve_rows(rng, n) for n in sizes]
+
+
+def json_body(rows) -> bytes:
+    """A JSON predict body; '%.9g' carries every float32 exactly."""
+    import io
+
+    text = io.StringIO()
+    np.savetxt(text, rows, fmt="%.9g", delimiter=",", newline="],[")
+    return ('{"model": "pca", "rows": [[' + text.getvalue()[:-3]
+            + "]]}").encode()
+
+
+def metric_sum(snapshot, name, **match) -> float:
+    """Sum of a counter family's samples whose labels match."""
+    family = snapshot.get(name, {"samples": []})
+    return sum(s["value"] for s in family["samples"]
+               if all(s["labels"].get(k) == v for k, v in match.items()))
+
+
+SERVE_COUNTERS = {
+    "ok": ("sparkml_serve_requests_total", {"outcome": "ok"}),
+    "batches": ("sparkml_serve_batches_total", {}),
+    "batch_rows": ("sparkml_serve_batch_rows_total", {}),
+    "bucket_rows": ("sparkml_serve_bucket_rows_total", {}),
+    "errors": ("sparkml_serve_errors_total", {}),
+    "serving_program": ("sparkml_serve_errors_total",
+                        {"error": "serving_program"}),
+    "degraded": ("sparkml_serve_degraded_total", {}),
+    "retries": ("sparkml_serve_retries_total", {}),
+    "runs_cuda": ("sparkml_serve_program_runs_total", {"device": "cuda"}),
+    "runs_cpu": ("sparkml_serve_program_runs_total", {"device": "cpu"}),
+}
+
+
+def serve_counters(registry) -> dict:
+    snap = registry.snapshot()
+    return {key: metric_sum(snap, name, **match)
+            for key, (name, match) in SERVE_COUNTERS.items()}
+
+
+def http_clients(port, bodies):
+    """Send ``bodies`` [(index, body, content type)] from SERVE_CLIENTS
+    threads, each on one keep-alive connection. Returns ({index: (seconds,
+    status, content type, response bytes)}, wall seconds)."""
+    import http.client
+    import threading
+
+    results, failures = {}, []
+
+    def client(mine):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+        try:
+            for i, body, ctype in mine:
+                t0 = time.perf_counter()
+                conn.request("POST", "/predict", body=body,
+                             headers={"Content-Type": ctype})
+                resp = conn.getresponse()
+                data = resp.read()
+                results[i] = (time.perf_counter() - t0, resp.status, ctype,
+                              data)
+        except Exception as exc:  # noqa: BLE001 - reported by the caller
+            failures.append(repr(exc))
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client,
+                                args=(bodies[t::SERVE_CLIENTS],))
+               for t in range(SERVE_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.perf_counter() - t0
+    check(not failures and not any(t.is_alive() for t in threads),
+          f"HTTP clients failed: {failures[:3]}")
+    return results, wall
+
+
+def predict_loop(engine, rows, iters) -> tuple:
+    """(mean ms, p50 ms) of ``iters`` engine.predict calls, host clock."""
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        engine.predict("pca", rows)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.mean(times)), float(np.median(times))
+
+
+def warm_engine(registry, precision, label):
+    """A warmed engine at ``precision``; prints the offline max-error
+    check of a reduced ladder, which must end in a verdict (a crashed
+    check fails the smoke) and must pass for bf16. Returns (engine, the
+    precision it serves)."""
+    from spark_rapids_ml_tpu_torch.serve import ServeEngine
+
+    engine = ServeEngine(registry, max_batch_rows=SERVE_MAX_ROWS,
+                         pipeline_depth=2, precision=precision)
+    t0 = time.perf_counter()
+    report = engine.warmup("pca")
+    serving = engine.stats()["queues"]["pca@1"]["precision"]
+    log(f"  {label}: warmup {time.perf_counter() - t0:.2f} s over buckets "
+        f"{sorted(report['buckets'])}, serving precision {serving}")
+    if precision != "native":
+        checked = engine.precision_checks[("pca", 1, precision)]
+        log(f"  {label}: offline max-error check (seeded standard-normal "
+            f"batch at the top bucket): error {checked['error']:.4e}, "
+            f"verdict {checked['verdict']} (bar {checked['bar']:g})")
+        check(checked["verdict"] in ("pass", "fail"),
+              f"{label}: the offline check ended {checked['verdict']}")
+        # bf16 keeps 8 bits of every operand: a refusal at 0.05 means a
+        # wrong product, not this model's spectrum
+        check(precision != "bf16" or checked["verdict"] == "pass",
+              f"{label} refused by its offline check")
+        want = precision if checked["verdict"] == "pass" else "native"
+        check(serving == want, f"{label} serves {serving}, expected {want}")
+    return engine, serving
+
+
+def check_responses(label, results, traffic, refs, bar):
+    """Decode every HTTP response and hold it to its float64 reference.
+    Returns (worst max|Δ|/max|ref|, client latencies in ms)."""
+    from spark_rapids_ml_tpu_torch.serve import wire
+
+    worst, latencies = 0.0, []
+    for i, (seconds, status, ctype, data) in sorted(results.items()):
+        check(status == 200, f"{label} request {i}: HTTP {status} "
+              f"{data[:200]!r}")
+        if ctype == wire.BINARY_CONTENT_TYPE:
+            out = wire.decode_response(data)
+        else:
+            out = np.asarray(json.loads(data)["outputs"])
+        check(out.shape == (traffic[i].shape[0], K) and np.isfinite(out).all(),
+              f"{label} request {i}: shape {out.shape}")
+        worst = max(worst, relative_error(out, refs[i]))
+        latencies.append(seconds * 1e3)
+    check(worst <= bar, f"{label} responses outside the bar {bar:g}: "
+          f"{worst:.3e}")
+    return worst, np.asarray(latencies)
+
+
+def relative_error(out, ref) -> float:
+    """max |Δ| / max |ref| of one response."""
+    return float(np.abs(out - ref).max() / np.abs(ref).max())
+
+
+def serve_ladder(registry, precision, traffic, bodies, refs, metrics,
+                 device):
+    """One ladder: warm an engine, drive the binary traffic and then the
+    JSON requests over HTTP, check every response and the counters, print
+    the measurements (the serving numbers are the binary pass's).
+
+    A reduced ladder whose offline check refuses it at the engine's bar
+    (``precision_max_err`` 0.05) serves native, as the engine promises:
+    the fallback must be counted and the responses are held to the native
+    bar. The int8 program is then held against its CPU twin on the card
+    (``int8_against_cpu``) whether or not it serves."""
+    from spark_rapids_ml_tpu_torch.serve import start_serve_server
+
+    start = serve_counters(metrics)
+    fallback = ("sparkml_serve_precision_fallback_total",
+                {"precision": precision})
+    before = metric_sum(metrics.snapshot(), fallback[0], **fallback[1])
+    engine, serving = warm_engine(registry, precision, precision)
+    if serving != precision:
+        moved = metric_sum(metrics.snapshot(), fallback[0],
+                           **fallback[1]) - before
+        log(f"  {precision}: refused by the offline check, the ladder "
+            f"serves native (precision fallback counter +{moved:.0f}); its "
+            f"responses are held to the native bar")
+        check(moved == 1, f"{precision} fallback counted {moved}")
+    bar = SERVE_BARS[serving]
+    server = None
+    try:
+        server = start_serve_server(engine, port=0, addr="127.0.0.1")
+        port = server.server_address[1]
+        before = serve_counters(metrics)
+        results, wall = http_clients(port, bodies["binary"])
+        after = serve_counters(metrics)
+        delta = {k: after[k] - before[k] for k in after}
+        check(len(results) == SERVE_REQUESTS,
+              f"{precision}: {len(results)} binary responses")
+        worst, lat = check_responses(f"{precision} binary", results, traffic,
+                                     refs, bar)
+        total_rows = sum(r.shape[0] for r in traffic)
+        log(f"  {precision}: {SERVE_REQUESTS} binary requests ({total_rows} "
+            f"rows) in {wall:.3f} s: {SERVE_REQUESTS / wall:.1f} "
+            f"requests/s, {total_rows / wall:.0f} rows/s; client latency "
+            f"p50 {np.percentile(lat, 50):.2f} ms, p99 "
+            f"{np.percentile(lat, 99):.2f} ms; {delta['batches']:.0f} "
+            f"batches, {delta['batch_rows'] / max(delta['batches'], 1):.1f} "
+            f"rows per batch, padding waste "
+            f"{1 - delta['batch_rows'] / max(delta['bucket_rows'], 1):.4f}; "
+            f"worst max|Δ|/max|ref| {worst:.3e} (bar {bar:g})")
+
+        results, wall = http_clients(port, bodies["json"])
+        check(len(results) == SERVE_JSON_REQUESTS,
+              f"{precision}: {len(results)} JSON responses")
+        worst, lat = check_responses(f"{precision} JSON", results, traffic,
+                                     refs, bar)
+        log(f"  {precision}: {SERVE_JSON_REQUESTS} JSON requests of at most "
+            f"{SERVE_JSON_MAX_ROWS} rows in {wall:.3f} s: client latency p50 "
+            f"{np.percentile(lat, 50):.2f} ms, p99 "
+            f"{np.percentile(lat, 99):.2f} ms; worst max|Δ|/max|ref| "
+            f"{worst:.3e}")
+        after = serve_counters(metrics)
+        delta = {k: after[k] - before[k] for k in after}
+        log(f"  {precision}: counters over both passes {delta}")
+        check(delta["ok"] == SERVE_REQUESTS + SERVE_JSON_REQUESTS,
+              f"{precision} ok {delta['ok']}")
+        check(delta["batches"] > 0 and delta["runs_cuda"] == delta["batches"],
+              f"{precision}: {delta['runs_cuda']} program runs on cuda for "
+              f"{delta['batches']} batches")
+
+        rng = np.random.default_rng(SEED + 7)
+        for n, iters in ((1, 50), (64, 50), (1024, 20)):
+            mean, p50 = predict_loop(engine, serve_rows(rng, n), iters)
+            log(f"  {precision}: engine.predict {n} rows x {iters}: mean "
+                f"{mean:.3f} ms, p50 {p50:.3f} ms")
+        if precision == "native":
+            compare_4096(engine, registry.resolve("pca"))
+        end = serve_counters(metrics)
+        moved = {key: end[key] - start[key] for key in (
+            "errors", "serving_program", "degraded", "retries", "runs_cpu")}
+        log(f"  {precision}: over the whole ladder (warmup, traffic, "
+            f"predict loops{', 4096 rows' if precision == 'native' else ''})"
+            f": {moved}")
+        for key, value in moved.items():
+            check(value == 0, f"{precision}: {key} moved by {value}")
+        if precision == "int8":
+            # after the counters: its CPU twin counts runs on the cpu
+            int8_against_cpu(registry.resolve("pca"), traffic, refs, device)
+    finally:
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+        engine.shutdown()
+
+
+def int8_against_cpu(model, traffic, refs, device):
+    """The int8 program on the card against the same program on the CPU,
+    bit for bit (int32 sums are exact, the rescale is one f32 product),
+    on every shape the traffic gives it: each request alone at its bucket,
+    the requests coalesced in order up to 1024 rows as the engine batches
+    them (one quantization scale per batch), and the offline check's own
+    batch. Prints each response's error against the float64 product in
+    both layouts."""
+    import torch
+    from spark_rapids_ml_tpu_torch.utils.padding import pad_to_bucket
+
+    card = model.serving_transform_program("int8")
+    plain = model.serving_transform_program("int8",
+                                            device=torch.device("cpu"))
+    check(card.device == device and plain.device.type == "cpu",
+          f"int8 programs on {card.device} and {plain.device}")
+    buckets = set()
+
+    def on_both(rows):
+        padded, n = pad_to_bucket(rows)
+        got = card.fetch(card.run(card.put(padded)))
+        want = plain.fetch(plain.run(plain.put(padded)))
+        check(np.array_equal(got, want), f"int8 on the card differs from "
+              f"its CPU twin at bucket {padded.shape[0]}: max |Δ| "
+              f"{np.abs(got - want).max():.3e}")
+        buckets.add(padded.shape[0])
+        return got[:n]
+
+    alone = [relative_error(on_both(rows), ref)
+             for rows, ref in zip(traffic, refs)]
+    groups, group, rows_in = [], [], 0
+    for i, rows in enumerate(traffic):
+        if group and rows_in + rows.shape[0] > SERVE_MAX_ROWS:
+            groups.append(group)
+            group, rows_in = [], 0
+        group.append(i)
+        rows_in += rows.shape[0]
+    groups.append(group)
+    coalesced = []
+    for group in groups:
+        out = on_both(np.concatenate([traffic[i] for i in group]))
+        edges = np.cumsum([0] + [traffic[i].shape[0] for i in group])
+        coalesced += [relative_error(out[lo:hi], refs[i])
+                      for i, lo, hi in zip(group, edges[:-1], edges[1:])]
+    # the batch of the engine's _precision_ok
+    on_both(np.random.default_rng(7).standard_normal(
+        (SERVE_MAX_ROWS, N_FEATURES)).astype(np.float32))
+    log(f"  int8 program on the card = its CPU twin bit for bit on "
+        f"{len(traffic) + len(groups) + 1} batches, buckets {sorted(buckets)}")
+    for label, errors in (("each request alone", alone),
+                          (f"coalesced into {len(groups)} batches",
+                           coalesced)):
+        errors = np.asarray(errors)
+        log(f"  int8 program, {label}: max|Δ|/max|ref| per response median "
+            f"{np.median(errors):.3e}, p90 {np.percentile(errors, 90):.3e}, "
+            f"worst {errors.max():.3e}; "
+            f"{int((errors > SERVE_BARS['int8']).sum())} of {len(errors)} "
+            f"above {SERVE_BARS['int8']:g}")
+
+
+def compare_4096(engine, model):
+    """4096 rows through the engine (four 1024-row requests at once,
+    several batches) beside PCAModel.transform on the same rows."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    rows = serve_rows(np.random.default_rng(SEED + 99), 4096)
+    ref = rows.astype(np.float64) @ model.pc
+    parts = np.split(rows, 4096 // SERVE_MAX_ROWS)
+    engine_ms, transform_ms = [], []
+    with ThreadPoolExecutor(len(parts)) as pool:
+        for _ in range(5):
+            t0 = time.perf_counter()
+            out = np.concatenate(list(pool.map(
+                lambda p: engine.predict("pca", p), parts)))
+            engine_ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            direct = np.asarray(model.transform(rows).column("pca_features"))
+            transform_ms.append((time.perf_counter() - t0) * 1e3)
+    for label, got in (("engine", out), ("transform", direct)):
+        err = np.abs(got - ref).max() / np.abs(ref).max()
+        check(err <= SERVE_BARS["native"], f"4096 rows {label} err {err:.3e}")
+    log(f"  4096 rows: engine (4 x 1024 at once) median "
+        f"{np.median(engine_ms):.2f} ms {[round(t, 2) for t in engine_ms]}; "
+        f"PCAModel.transform median {np.median(transform_ms):.2f} ms "
+        f"{[round(t, 2) for t in transform_ms]}")
+
+
+def phase_serve(torch, model, device):
+    """Phase 5: serve ``model`` per ladder over HTTP under the TF32 trap."""
+    from spark_rapids_ml_tpu_torch.obs.metrics import get_registry
+    from spark_rapids_ml_tpu_torch.serve import ModelRegistry
+    from spark_rapids_ml_tpu_torch.serve import wire
+
+    t0 = time.perf_counter()
+    traffic = serve_traffic()
+    small = [i for i, rows in enumerate(traffic)
+             if rows.shape[0] <= SERVE_JSON_MAX_ROWS][:SERVE_JSON_REQUESTS]
+    check(len(small) == SERVE_JSON_REQUESTS,
+          f"only {len(small)} requests of at most {SERVE_JSON_MAX_ROWS} rows")
+    bodies = {
+        "binary": [(i, wire.encode_request("pca", rows),
+                    wire.BINARY_CONTENT_TYPE)
+                   for i, rows in enumerate(traffic)],
+        "json": [(i, json_body(traffic[i]), wire.JSON_CONTENT_TYPE)
+                 for i in small],
+    }
+    refs = [rows.astype(np.float64) @ model.pc for rows in traffic]
+    sizes = [r.shape[0] for r in traffic]
+    log(f"  traffic: {len(traffic)} binary requests, rows min {min(sizes)} "
+        f"median {int(np.median(sizes))} max {max(sizes)}, total "
+        f"{sum(sizes)}; JSON: {len(small)} of them, "
+        f"{sum(sizes[i] for i in small)} rows; made and encoded in "
+        f"{time.perf_counter() - t0:.1f} s")
+    registry = ModelRegistry()
+    registry.register("pca", model)
+    torch.set_float32_matmul_precision("high")
+    try:
+        check(torch.backends.cuda.matmul.allow_tf32 or device.type != "cuda",
+              "the TF32 trap is not set")
+        rows = serve_rows(np.random.default_rng(SEED + 5), SERVE_MAX_ROWS)
+        ref = rows.astype(np.float64) @ model.pc
+        pc32 = torch.as_tensor(model.pc, dtype=torch.float32, device=device)
+        tf32 = (torch.as_tensor(rows, device=device) @ pc32).double()
+        err = np.abs(tf32.cpu().numpy() - ref).max() / np.abs(ref).max()
+        log(f"  TF32 trap set (allow_tf32 "
+            f"{torch.backends.cuda.matmul.allow_tf32}): a plain float32 "
+            f"product of 1024 rows is off by {err:.3e} (native bar "
+            f"{SERVE_BARS['native']:g})")
+        check(err > SERVE_BARS["native"] or device.type != "cuda",
+              "the TF32 trap does not bite: the native check proves nothing")
+        metrics = get_registry()
+        for precision in SERVE_LADDERS:
+            serve_ladder(registry, precision, traffic, bodies, refs,
+                         metrics, device)
+    finally:
+        torch.set_float32_matmul_precision("highest")
+        torch.backends.cuda.matmul.allow_tf32 = False
 
 
 def build_fresh(cuda_build):
@@ -590,7 +1020,15 @@ def main() -> int:
     measured = phase_kernels(torch, fg, device)
 
     log("[4] PCA slice at full width")
-    launches = phase_slice(torch, fg, device)
+    launches, model_c = phase_slice(torch, fg, device)
+
+    log("[5] serving fit (c)'s model")
+    fg.reset_launches()
+    phase_serve(torch, model_c, device)
+    served = dict(fg.launches)
+    log(f"  kernel launches in the serve phase: {served} (the serve path "
+        f"runs no hand kernel)")
+    check(sum(served.values()) == 0, "the serve phase launched a kernel")
 
     kernels = []
     for name, m in measured.items():

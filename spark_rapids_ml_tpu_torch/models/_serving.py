@@ -1,0 +1,170 @@
+"""Shared ``ServingProgram`` construction for the pipelined serving hook.
+
+Counterpart of the JAX package's ``models/_serving.py`` (its single-model
+part; the fused whole-pipeline and batch-sharded builders wait for a
+``PipelineModel`` and a multi-device tier in the port). A model
+contributes only its kernel table and its per-precision weights, staged on
+the device once per program; this module resolves the device and dtype and
+wraps put / run / fetch into an ``obs.serving.ServingProgram``.
+
+On the card each program owns two CUDA streams, created at build and
+captured by its closures, so whichever thread calls them (the batcher's
+worker) works on them explicitly rather than on its current stream:
+
+* ``put`` copies a staged (pinned) host batch to the card with
+  ``non_blocking=True`` on the copy stream and records an event;
+* ``run`` makes the compute stream wait on that event, marks the batch
+  as used there (``record_stream``: it was allocated on the copy stream)
+  and launches the product with no host sync;
+* ``fetch`` is the only sync: a device→host copy into pinned memory on
+  the compute stream, a wait on its event, then ``fetch_dtype``.
+
+Every ``run`` counts ``sparkml_serve_program_runs_total{algo, precision,
+device}`` with the device of the tensor it was handed, so a caller can
+tell from the metrics that every batch ran on the card.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from spark_rapids_ml_tpu_torch.obs.metrics import get_registry
+from spark_rapids_ml_tpu_torch.obs.serving import DeviceBatch, ServingProgram
+
+
+class ServingStage(NamedTuple):
+    """One model's composable contribution to a fused pipeline program:
+    ``fn(x_dev, *weights) → y_dev``, the device function, with its
+    device-staged ``weights``; ``terminal`` marks output-typed stages that
+    can only sit last; ``fetch_dtype`` is the host dtype of a last
+    stage's output."""
+
+    fn: Callable
+    weights: Tuple
+    algo: str
+    terminal: bool = False
+    fetch_dtype: Optional[np.dtype] = None
+
+
+def resolve_serving_context(model=None, device=None):
+    """``(device, dtype)`` for a model's serving program: the model's
+    resolved device (the card unless the CPU was asked for; see
+    ``utils/resources.py``) and transform dtype. An explicit ``device``
+    overrides the model's own resolution. (The JAX package also returns
+    whether to donate the staged input; PyTorch has no donation.)"""
+    from spark_rapids_ml_tpu_torch.models.pca import _resolve_dtype
+    from spark_rapids_ml_tpu_torch.utils.resources import resolve_device
+
+    get_dt = getattr(model, "getDtype", None)
+    dtype = _resolve_dtype(get_dt() if callable(get_dt) else "auto")
+    if device is None:
+        get_dev = getattr(model, "getDeviceId", None)
+        device = resolve_device(get_dev() if callable(get_dev) else -1)
+    return torch.device(device), dtype
+
+
+def staged_weight_bytes(weights) -> int:
+    """Device bytes a program's staged constant weights occupy: each
+    staged tensor's ``nbytes`` (weightless entries count 0)."""
+    return sum(int(getattr(w, "nbytes", 0) or 0) for w in weights)
+
+
+def _numpy_dtype(dtype: torch.dtype) -> np.dtype:
+    return torch.empty(0, dtype=dtype).numpy().dtype
+
+
+def build_serving_program(
+    *,
+    device,
+    dtype: torch.dtype,
+    algo: str,
+    precision: str,
+    kernels: Dict[str, Callable],
+    weights: Tuple,
+    fetch_dtype: Optional[np.dtype] = None,
+) -> ServingProgram:
+    """The shared put / run / fetch assembly (see the module docstring).
+
+    ``kernels`` maps precision → kernel; ``weights`` are the device-staged
+    constant operands the kernel takes after the batch (already cast or
+    quantized for this precision); ``fetch_dtype`` is the host dtype of
+    the fetched output (None keeps the device result's own). Raises
+    ``ValueError`` for an unknown precision.
+    """
+    kernel = kernels.get(precision)
+    if kernel is None:
+        raise ValueError(
+            f"unknown serving precision {precision!r} "
+            f"(one of {sorted(kernels)})"
+        )
+    device = torch.device(device)
+    host_dtype = _numpy_dtype(dtype)
+    runs = get_registry().counter(
+        "sparkml_serve_program_runs_total",
+        "serving-program launches by the device of the batch tensor",
+        ("algo", "precision", "device"),
+    )
+
+    def finish(out: np.ndarray) -> np.ndarray:
+        if fetch_dtype is None:
+            return out
+        return out.astype(fetch_dtype, copy=False)
+
+    if device.type == "cuda":
+        copy_stream = torch.cuda.Stream(device=device)
+        compute_stream = torch.cuda.Stream(device=device)
+
+        def put(matrix):
+            host = torch.from_numpy(np.ascontiguousarray(matrix,
+                                                         dtype=host_dtype))
+            with torch.cuda.stream(copy_stream):
+                x = torch.empty(host.shape, dtype=dtype, device=device)
+                x.copy_(host, non_blocking=True)
+                copied = torch.cuda.Event()
+                copied.record(copy_stream)
+            return DeviceBatch(x, copied)
+
+        def run(batch: DeviceBatch):
+            x = batch.tensor
+            compute_stream.wait_event(batch.copied)
+            # allocated on the copy stream: without this the allocator
+            # could hand its memory to the next copy while the product
+            # still reads it
+            x.record_stream(compute_stream)
+            with torch.cuda.stream(compute_stream):
+                out = kernel(x, *weights)
+            runs.inc(algo=algo, precision=precision, device=x.device.type)
+            return out
+
+        def fetch(out: torch.Tensor) -> np.ndarray:
+            with torch.cuda.stream(compute_stream):
+                host = torch.empty(out.shape, dtype=out.dtype,
+                                   pin_memory=True)
+                host.copy_(out, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(compute_stream)
+            done.synchronize()
+            return finish(host.numpy())
+    else:
+        def put(matrix):
+            # a copy, as a device transfer would be: the batch never
+            # aliases a staging buffer or a (read-only) request
+            return DeviceBatch(torch.tensor(np.asarray(matrix), dtype=dtype,
+                                            device=device))
+
+        def run(batch: DeviceBatch):
+            x = batch.tensor
+            out = kernel(x, *weights)
+            runs.inc(algo=algo, precision=precision, device=x.device.type)
+            return out
+
+        def fetch(out: torch.Tensor) -> np.ndarray:
+            return finish(out.numpy())
+
+    return ServingProgram(put=put, run=run, fetch=fetch, dtype=host_dtype,
+                          algo=algo, precision=precision, prime=None,
+                          weight_bytes=staged_weight_bytes(weights),
+                          device=device)

@@ -18,6 +18,7 @@ JAX package's, whose 'auto' is float64 when x64 is on.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -466,6 +467,91 @@ class PCAModel(PCAParams):
         return frame.with_column(self.getOutputCol(),
                                  np.asarray(out, dtype=np.float64))
 
+    # -- serving ------------------------------------------------------------
+    def _serving_weights(self, precision: str, device, dtype):
+        """Device-staged constant operands (the components) for one
+        precision, staged once per program: bf16 pre-cast; int8
+        pre-quantized and zero-padded to ``torch._int_mm``'s widths, with
+        its float32 scale; native in float64, the precision a float32 batch
+        is multiplied in (``ops.pca_kernel._project``)."""
+        from spark_rapids_ml_tpu_torch.ops.pca_kernel import (
+            pad_int8_components,
+        )
+        from spark_rapids_ml_tpu_torch.ops.quantize import (
+            quantize_symmetric_host,
+        )
+
+        pc = np.ascontiguousarray(self.pc, dtype=np.float64)
+        if precision == "bf16":
+            return (torch.as_tensor(pc, device=device).to(torch.bfloat16),)
+        if precision == "int8":
+            q, scale = quantize_symmetric_host(pc)
+            return (torch.as_tensor(pad_int8_components(q), device=device),
+                    torch.tensor(scale, dtype=torch.float32, device=device))
+        return (torch.as_tensor(pc, device=device),)
+
+    def _serving_bodies(self):
+        """precision → the projection body; int8's keeps the model's k
+        of the padded components' columns."""
+        from spark_rapids_ml_tpu_torch.ops import pca_kernel as _pk
+
+        return {
+            "native": _pk.pca_transform_serve,
+            "bf16": _pk.pca_transform_bf16,
+            "int8": functools.partial(_project_int8_columns,
+                                      k=int(self.pc.shape[1])),
+        }
+
+    def serving_stage(self, precision: str = "native", *,
+                      device=None, dtype=None):
+        """The composable stage (``models._serving.ServingStage``): the
+        projection body + device-staged components at ``precision``.
+        None for a host-path model (``useXlaDot=False``)."""
+        if self.pc is None or not self.getUseXlaDot():
+            return None
+        from spark_rapids_ml_tpu_torch.models._serving import (
+            ServingStage,
+            resolve_serving_context,
+        )
+
+        if device is None or dtype is None:
+            device, dtype = resolve_serving_context(self)
+        body = self._serving_bodies().get(precision)
+        if body is None:
+            raise ValueError(f"unknown serving precision {precision!r}")
+        return ServingStage(
+            fn=body,
+            weights=self._serving_weights(precision, device, dtype),
+            algo="pca",
+            fetch_dtype=np.dtype(np.float64),
+        )
+
+    def serving_transform_program(self, precision: str = "native",
+                                  device=None):
+        """The device-resident serving program for the pipelined
+        micro-batcher (``obs.serving.ServingProgram``): components staged
+        on the device once, ``put`` starting each batch's host→device
+        copy, ``run`` launching the projection, ``fetch`` the one host
+        sync, returning float64 as ``transform`` does. ``precision``
+        selects the ladder (native / bf16 / int8), guarded by the engine's
+        offline max-error check; ``device`` overrides the model's own
+        device resolution. None for a host-path model
+        (``useXlaDot=False``): the engine then keeps the blocking path."""
+        if self.pc is None or not self.getUseXlaDot():
+            return None
+        from spark_rapids_ml_tpu_torch.models._serving import (
+            build_serving_program,
+            resolve_serving_context,
+        )
+
+        device, dtype = resolve_serving_context(self, device=device)
+        return build_serving_program(
+            device=device, dtype=dtype, algo="pca", precision=precision,
+            kernels=self._serving_bodies(),
+            weights=self._serving_weights(precision, device, dtype),
+            fetch_dtype=np.float64,
+        )
+
     def transform_schema(self, columns):
         """Output schema check: appends outputCol, k-sized vectors
         (``RapidsPCA.scala:193-200``)."""
@@ -493,6 +579,14 @@ class PCAModel(PCAParams):
     @staticmethod
     def read() -> "_PCAModelReader":
         return _PCAModelReader()
+
+
+def _project_int8_columns(x, components_q, components_scale, *, k: int):
+    """The int8 projection's first ``k`` columns: the rest are the zero
+    padding of the quantized components."""
+    from spark_rapids_ml_tpu_torch.ops.pca_kernel import pca_transform_int8
+
+    return pca_transform_int8(x, components_q, components_scale)[:, :k]
 
 
 class _PCAModelWriter:

@@ -1,0 +1,287 @@
+"""Thread-safe metrics registry: counters, gauges and quantile summaries.
+
+The port's cut of the JAX package's ``obs/metrics.py``: enough for the
+serving engine's ``sparkml_serve_*`` families and the per-batch
+``sparkml_transform_latency_seconds`` summary, exposed as Prometheus text
+(``GET /metrics``) or a JSON-safe snapshot. Labels are kwargs at
+observation time; each label set is its own child series, as in
+Prometheus' data model. Stdlib only; imports nothing of the port but
+``obs/quantiles.py``.
+"""
+
+from __future__ import annotations
+
+import math
+import re
+import threading
+from typing import Dict, Iterable, Tuple
+
+from spark_rapids_ml_tpu_torch.obs.quantiles import QuantileSketch
+
+_NAME_RE = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*$")
+_LABEL_RE = re.compile(r"^[a-zA-Z_][a-zA-Z0-9_]*$")
+
+
+def _escape_label_value(value: str) -> str:
+    return (
+        str(value)
+        .replace("\\", "\\\\")
+        .replace("\n", "\\n")
+        .replace('"', '\\"')
+    )
+
+
+def _format_value(v: float) -> str:
+    if math.isinf(v):
+        return "+Inf" if v > 0 else "-Inf"
+    if v == int(v) and abs(v) < 1e15:
+        return str(int(v))
+    return repr(float(v))
+
+
+class _Metric:
+    """Base: one named family holding one child per label-value tuple."""
+
+    kind = "untyped"
+
+    def __init__(self, name: str, help_text: str, labelnames: Tuple[str, ...]):
+        if not _NAME_RE.match(name):
+            raise ValueError(f"invalid metric name {name!r}")
+        for ln in labelnames:
+            if not _LABEL_RE.match(ln):
+                raise ValueError(f"invalid label name {ln!r}")
+        self.name = name
+        self.help = help_text
+        self.labelnames = tuple(labelnames)
+        self._lock = threading.Lock()
+        self._children: Dict[Tuple[str, ...], object] = {}
+
+    def _key(self, labels: Dict[str, str]) -> Tuple[str, ...]:
+        if set(labels) != set(self.labelnames):
+            raise ValueError(
+                f"metric {self.name} expects labels {self.labelnames}, "
+                f"got {tuple(sorted(labels))}"
+            )
+        return tuple(str(labels[ln]) for ln in self.labelnames)
+
+    def _child(self, labels: Dict[str, str]):
+        key = self._key(labels)
+        with self._lock:
+            child = self._children.get(key)
+            if child is None:
+                child = self._new_child()
+                self._children[key] = child
+            return child
+
+    def _new_child(self):  # pragma: no cover - overridden
+        raise NotImplementedError
+
+    def _samples(self) -> Iterable[Tuple[Tuple[str, ...], object]]:
+        with self._lock:
+            return list(self._children.items())
+
+    def _label_dict(self, key: Tuple[str, ...]) -> Dict[str, str]:
+        return dict(zip(self.labelnames, key))
+
+
+class _Value:
+    __slots__ = ("value", "lock")
+
+    def __init__(self):
+        self.value = 0.0
+        self.lock = threading.Lock()
+
+
+class Counter(_Metric):
+    """Monotonically increasing count (``.inc(amount, **labels)``)."""
+
+    kind = "counter"
+
+    def _new_child(self):
+        return _Value()
+
+    def inc(self, amount: float = 1.0, **labels) -> None:
+        if amount < 0:
+            raise ValueError("counters only go up")
+        child = self._child(labels)
+        with child.lock:
+            child.value += amount
+
+    def value(self, **labels) -> float:
+        child = self._child(labels)
+        with child.lock:
+            return child.value
+
+
+class Gauge(_Metric):
+    """Point-in-time value (``.set(v, **labels)``)."""
+
+    kind = "gauge"
+
+    def _new_child(self):
+        return _Value()
+
+    def set(self, value: float, **labels) -> None:
+        child = self._child(labels)
+        with child.lock:
+            child.value = float(value)
+
+    def value(self, **labels) -> float:
+        child = self._child(labels)
+        with child.lock:
+            return child.value
+
+
+class Summary(_Metric):
+    """Quantile summary backed by a mergeable streaming sketch
+    (``obs.quantiles.QuantileSketch``): ``observe`` is O(1),
+    ``quantile(q)`` within the sketch's relative error. Exposed as
+    ``name{quantile="0.5"}`` lines plus ``_sum`` / ``_count``."""
+
+    kind = "summary"
+    DEFAULT_QUANTILES: Tuple[float, ...] = (0.5, 0.95, 0.99)
+
+    def __init__(
+        self,
+        name: str,
+        help_text: str,
+        labelnames: Tuple[str, ...] = (),
+        alpha: float = 0.01,
+        max_bins: int = 4096,
+        quantiles: Tuple[float, ...] = DEFAULT_QUANTILES,
+    ):
+        super().__init__(name, help_text, labelnames)
+        self.alpha = float(alpha)
+        self.max_bins = int(max_bins)
+        self.quantiles = tuple(float(q) for q in quantiles)
+
+    def _new_child(self):
+        return QuantileSketch(alpha=self.alpha, max_bins=self.max_bins)
+
+    def observe(self, value: float, **labels) -> None:
+        self._child(labels).observe(value)
+
+    def sketch(self, **labels) -> QuantileSketch:
+        """The underlying sketch for one label set."""
+        return self._child(labels)
+
+    def snapshot_child(self, **labels) -> Dict[str, object]:
+        sketch = self._child(labels)
+        return {
+            "count": sketch.count,
+            "sum": sketch.sum,
+            "alpha": self.alpha,
+            "quantiles": {
+                _format_value(q): sketch.quantile(q) for q in self.quantiles
+            },
+        }
+
+
+class MetricsRegistry:
+    """Process-wide metric family registry.
+
+    ``counter`` / ``gauge`` / ``summary`` are get-or-create: repeated calls
+    with the same name return the SAME family, but a name re-registered as
+    a different kind or label set raises.
+    """
+
+    def __init__(self):
+        self._lock = threading.RLock()
+        self._metrics: Dict[str, _Metric] = {}
+
+    def _get_or_create(self, cls, name, help_text, labelnames, **kwargs):
+        labelnames = tuple(labelnames)
+        with self._lock:
+            existing = self._metrics.get(name)
+            if existing is not None:
+                if not isinstance(existing, cls) or (
+                    existing.labelnames != labelnames
+                ):
+                    raise ValueError(
+                        f"metric {name!r} already registered as "
+                        f"{existing.kind} with labels {existing.labelnames}"
+                    )
+                return existing
+            metric = cls(name, help_text, labelnames, **kwargs)
+            self._metrics[name] = metric
+            return metric
+
+    def counter(self, name, help_text="", labelnames=()) -> Counter:
+        return self._get_or_create(Counter, name, help_text, labelnames)
+
+    def gauge(self, name, help_text="", labelnames=()) -> Gauge:
+        return self._get_or_create(Gauge, name, help_text, labelnames)
+
+    def summary(
+        self, name, help_text="", labelnames=(), alpha=0.01,
+        max_bins=4096, quantiles=Summary.DEFAULT_QUANTILES,
+    ) -> Summary:
+        return self._get_or_create(
+            Summary, name, help_text, labelnames, alpha=alpha,
+            max_bins=max_bins, quantiles=quantiles,
+        )
+
+    def families(self):
+        with self._lock:
+            return list(self._metrics.values())
+
+    def snapshot(self) -> Dict[str, object]:
+        """JSON-safe snapshot of every series."""
+        out: Dict[str, object] = {}
+        for metric in self.families():
+            samples = []
+            for key, _child in metric._samples():
+                labels = metric._label_dict(key)
+                if isinstance(metric, Summary):
+                    samples.append(
+                        {"labels": labels, **metric.snapshot_child(**labels)})
+                else:
+                    samples.append(
+                        {"labels": labels, "value": metric.value(**labels)})
+            out[metric.name] = {
+                "type": metric.kind,
+                "help": metric.help,
+                "samples": samples,
+            }
+        return out
+
+    def prometheus_text(self) -> str:
+        """Prometheus text exposition format 0.0.4."""
+        lines = []
+        for metric in self.families():
+            if metric.help:
+                lines.append(f"# HELP {metric.name} {metric.help}")
+            lines.append(f"# TYPE {metric.name} {metric.kind}")
+            for key, _child in metric._samples():
+                labels = metric._label_dict(key)
+                label_str = ",".join(
+                    f'{k}="{_escape_label_value(v)}"'
+                    for k, v in labels.items()
+                )
+                suffix = f"{{{label_str}}}" if label_str else ""
+                if isinstance(metric, Summary):
+                    snap = metric.snapshot_child(**labels)
+                    for q, value in snap["quantiles"].items():
+                        if value is None:
+                            continue
+                        ql = (label_str + "," if label_str else "") + \
+                            f'quantile="{q}"'
+                        lines.append(
+                            f"{metric.name}{{{ql}}} {_format_value(value)}")
+                    lines.append(f"{metric.name}_sum{suffix} "
+                                 f"{_format_value(snap['sum'])}")
+                    lines.append(f"{metric.name}_count{suffix} "
+                                 f"{snap['count']}")
+                else:
+                    lines.append(
+                        f"{metric.name}{suffix} "
+                        f"{_format_value(metric.value(**labels))}")
+        return "\n".join(lines) + ("\n" if lines else "")
+
+
+_default_registry = MetricsRegistry()
+
+
+def get_registry() -> MetricsRegistry:
+    """The process-wide default registry the serving stack writes to."""
+    return _default_registry

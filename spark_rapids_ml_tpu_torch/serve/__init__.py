@@ -1,0 +1,100 @@
+"""The serving engine: model registry, shape-bucketed dynamic batching,
+a stdlib HTTP front end — and the fault-tolerance layer that keeps it
+answering when the device does not.
+
+The port's counterpart of the JAX package's ``serve`` package, cut to what
+one model on one card needs:
+
+* ``ModelRegistry`` (``serve.registry``) — register / alias / version
+  fitted models, load them through the port's ``io.persistence``, warm
+  them at their shape buckets; with a ``manifest_path`` it persists its
+  deployment state and recovers it after a crash;
+* ``MicroBatcher`` (``serve.batching``) — coalesce concurrent requests,
+  pad to row buckets in pinned staging buffers, run ONE program per
+  bucket, split results per request; a pipelined inner loop over the
+  model's ``ServingProgram`` (copy of batch N+1 on a copy stream while N
+  computes), a supervised worker (crash restart, wedge watchdog,
+  ``WorkerCrashed``);
+* ``ServeEngine`` (``serve.engine``) — bounded queues, deadlines, drain,
+  retries with backoff, a per-model circuit breaker (``serve.breaker``),
+  the degraded CPU fallback (``serve.fallback``), the NaN guard, and the
+  bf16 / int8 precision ladder behind an offline max-error check;
+* ``fault_plane`` (``serve.faults``) — deterministic fault injection that
+  rehearses all of the above;
+* ``start_serve_server`` (``serve.server``) — ``POST /predict`` (JSON and
+  the binary columnar wire format, ``serve.wire``), ``GET /healthz``,
+  ``/readyz`` and ``/metrics``.
+"""
+
+# Import order as in the JAX package: ``faults`` / ``breaker`` /
+# ``fallback`` have no intra-package dependencies and initialize before
+# ``batching`` / ``engine``, which import them.
+from spark_rapids_ml_tpu_torch.serve.faults import (  # noqa: F401
+    FaultPlane,
+    FaultSpec,
+    InjectedBackendError,
+    InjectedWorkerCrash,
+    fault_plane,
+    reset_fault_plane,
+)
+from spark_rapids_ml_tpu_torch.serve.breaker import (  # noqa: F401
+    BreakerOpen,
+    CircuitBreaker,
+    breaker_events,
+)
+from spark_rapids_ml_tpu_torch.serve.fallback import cpu_fallback  # noqa: F401
+from spark_rapids_ml_tpu_torch.serve.scheduler import FifoQueue  # noqa: F401
+from spark_rapids_ml_tpu_torch.serve.batching import (  # noqa: F401
+    AsyncTransformSpec,
+    BatcherClosed,
+    DeadlineExpired,
+    MicroBatcher,
+    QueueFull,
+    WaitTimeout,
+    WorkerCrashed,
+)
+from spark_rapids_ml_tpu_torch.serve.engine import (  # noqa: F401
+    EngineClosed,
+    NumericsError,
+    PredictResult,
+    ServeEngine,
+    extract_output,
+)
+from spark_rapids_ml_tpu_torch.serve.registry import (  # noqa: F401
+    ModelRegistry,
+    RegisteredModel,
+)
+from spark_rapids_ml_tpu_torch.serve.server import (  # noqa: F401
+    make_handler,
+    start_serve_server,
+)
+
+__all__ = [
+    "AsyncTransformSpec",
+    "BatcherClosed",
+    "BreakerOpen",
+    "CircuitBreaker",
+    "DeadlineExpired",
+    "EngineClosed",
+    "FaultPlane",
+    "FaultSpec",
+    "FifoQueue",
+    "InjectedBackendError",
+    "InjectedWorkerCrash",
+    "MicroBatcher",
+    "ModelRegistry",
+    "NumericsError",
+    "PredictResult",
+    "QueueFull",
+    "RegisteredModel",
+    "ServeEngine",
+    "WaitTimeout",
+    "WorkerCrashed",
+    "breaker_events",
+    "cpu_fallback",
+    "extract_output",
+    "fault_plane",
+    "make_handler",
+    "reset_fault_plane",
+    "start_serve_server",
+]

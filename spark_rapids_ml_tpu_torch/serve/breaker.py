@@ -1,0 +1,271 @@
+"""Per-model circuit breaker: stop hammering a backend that is down.
+
+The port's copy of the JAX package's ``serve/breaker.py``. A device that
+fails, or hangs every call until some outer deadline, is the textbook case
+for a circuit breaker:
+after a burst of backend failures the breaker **opens** and requests stop
+touching the device at all (they fail fast, or are served by the degraded
+CPU fallback), until a cooldown passes and a single **half-open probe**
+is allowed through to test recovery; a successful probe **closes** the
+breaker, a failed one re-opens it with a fresh cooldown.
+
+State machine (exactly what ``allow``/``record_*`` implement)::
+
+                 failure_threshold consecutive
+                 backend failures, or SLO fast
+                 burn > burn_threshold
+        CLOSED ────────────────────────────────▶ OPEN
+          ▲                                       │ cooldown_seconds
+          │  probe succeeds                       ▼ elapsed
+          └────────────────────────────────── HALF_OPEN
+                        ▲      │ one probe admitted; the rest
+                        │      │ stay on the open path
+                        └──────┘ probe fails → OPEN (fresh cooldown)
+
+Everything is observable: ``sparkml_serve_breaker_state{model}`` (0
+closed / 1 half-open / 2 open), ``sparkml_serve_breaker_transitions_total
+{model,state}``, and a process-wide ring of transition events
+(``breaker_events``). The wall clock is injectable so tests drive
+cooldowns with zero real sleeps.
+"""
+
+from __future__ import annotations
+
+import collections
+import datetime
+import threading
+import time
+from typing import Any, Callable, Deque, Dict, List, Optional
+
+from spark_rapids_ml_tpu_torch.obs.metrics import get_registry
+
+CLOSED = "closed"
+OPEN = "open"
+HALF_OPEN = "half_open"
+
+# Gauge encoding: dashboards alert on value == 2 (open).
+STATE_VALUES = {CLOSED: 0.0, HALF_OPEN: 1.0, OPEN: 2.0}
+
+_EVENT_RING = 256
+_events: Deque[Dict[str, Any]] = collections.deque(maxlen=_EVENT_RING)
+_events_lock = threading.Lock()
+
+
+class BreakerOpen(RuntimeError):
+    """The model's breaker is open and no degraded fallback exists —
+    the request is rejected fast instead of burning a doomed device
+    call (HTTP 503: retryable, the service is shedding)."""
+
+
+class CircuitBreaker:
+    """One model's breaker. ``allow()`` gates each request, the engine
+    reports outcomes via ``record_success``/``record_failure``."""
+
+    def __init__(
+        self,
+        model: str,
+        *,
+        failure_threshold: int = 5,
+        cooldown_seconds: float = 5.0,
+        probe_successes: int = 1,
+        burn_threshold: float = 0.0,
+        clock: Callable[[], float] = time.monotonic,
+    ):
+        if failure_threshold < 1:
+            raise ValueError("failure_threshold must be >= 1")
+        self.model = model
+        self.failure_threshold = int(failure_threshold)
+        self.cooldown_seconds = float(cooldown_seconds)
+        self.probe_successes = int(probe_successes)
+        # SLO fast-burn trip wire: 0 disables; the engine feeds
+        # ``note_burn(slo.fast_burn_rate())`` after backend-classified
+        # failures only — overload sheds (QueueFull/DeadlineExpired)
+        # and the breaker's own rejections never open it.
+        self.burn_threshold = float(burn_threshold)
+        self.clock = clock
+        self._lock = threading.Lock()
+        self._state = CLOSED
+        self._consecutive_failures = 0
+        self._probe_inflight = False
+        self._probe_wins = 0
+        self._opened_at: Optional[float] = None
+        self._reopen_at: Optional[float] = None
+        self._last_error: Optional[str] = None
+        self._opens = 0
+        reg = get_registry()
+        self._m_state = reg.gauge(
+            "sparkml_serve_breaker_state",
+            "circuit breaker state per model "
+            "(0 closed, 1 half-open, 2 open)", ("model",),
+        )
+        self._m_state.set(0.0, model=model)
+        self._m_transitions = reg.counter(
+            "sparkml_serve_breaker_transitions_total",
+            "circuit breaker transitions by destination state",
+            ("model", "state"),
+        )
+        for state in (CLOSED, HALF_OPEN, OPEN):
+            self._m_transitions.inc(0, model=model, state=state)
+
+    # -- state inspection ---------------------------------------------------
+
+    @property
+    def state(self) -> str:
+        with self._lock:
+            return self._state
+
+    def snapshot(self) -> Dict[str, Any]:
+        with self._lock:
+            now = self.clock()
+            return {
+                "model": self.model,
+                "state": self._state,
+                "consecutive_failures": self._consecutive_failures,
+                "failure_threshold": self.failure_threshold,
+                "cooldown_seconds": self.cooldown_seconds,
+                "burn_threshold": self.burn_threshold,
+                "opens": self._opens,
+                "open_for_seconds": (
+                    now - self._opened_at
+                    if self._opened_at is not None and self._state != CLOSED
+                    else None
+                ),
+                "retry_after_seconds": (
+                    max(self._reopen_at - now, 0.0)
+                    if self._reopen_at is not None and self._state == OPEN
+                    else None
+                ),
+                "last_error": self._last_error,
+            }
+
+    # -- the gate -----------------------------------------------------------
+
+    def allow(self) -> str:
+        """Gate one request: ``"closed"`` (normal path), ``"probe"``
+        (half-open — THIS caller carries the recovery probe and must
+        report its outcome with ``probe=True``), or ``"open"`` (do not
+        touch the device — degrade or reject)."""
+        with self._lock:
+            if self._state == CLOSED:
+                return "closed"
+            if self._state == OPEN:
+                if (self._reopen_at is not None
+                        and self.clock() >= self._reopen_at):
+                    self._transition(HALF_OPEN, reason="cooldown_elapsed")
+                else:
+                    return "open"
+            # half-open: exactly one probe at a time
+            if not self._probe_inflight:
+                self._probe_inflight = True
+                return "probe"
+            return "open"
+
+    # -- outcome reporting --------------------------------------------------
+
+    def record_success(self, probe: bool = False) -> None:
+        with self._lock:
+            if probe and self._state == HALF_OPEN:
+                self._probe_inflight = False
+                self._probe_wins += 1
+                if self._probe_wins >= self.probe_successes:
+                    self._transition(CLOSED, reason="probe_succeeded")
+                return
+            if self._state == CLOSED:
+                self._consecutive_failures = 0
+
+    def record_failure(self, probe: bool = False,
+                       error: Optional[str] = None) -> None:
+        with self._lock:
+            self._last_error = error
+            if probe and self._state == HALF_OPEN:
+                self._probe_inflight = False
+                self._open(reason="probe_failed")
+                return
+            if self._state == CLOSED:
+                self._consecutive_failures += 1
+                if self._consecutive_failures >= self.failure_threshold:
+                    self._open(reason="consecutive_failures")
+
+    def release_probe(self) -> None:
+        """Hand the probe token back without a verdict (the probe never
+        reached the device — shed by a deadline or the queue)."""
+        with self._lock:
+            self._probe_inflight = False
+
+    def note_burn(self, fast_burn_rate: float) -> None:
+        """SLO fast-burn trip wire: a closed breaker opens when the
+        short-window burn rate exceeds ``burn_threshold`` (> 0)."""
+        if self.burn_threshold <= 0:
+            return
+        with self._lock:
+            if self._state == CLOSED and fast_burn_rate > self.burn_threshold:
+                self._last_error = (
+                    f"slo_fast_burn={fast_burn_rate:.1f}"
+                )
+                self._open(reason="slo_fast_burn")
+
+    def force_open(self, reason: str = "forced") -> None:
+        with self._lock:
+            if self._state != OPEN:
+                self._open(reason=reason)
+
+    def reset(self) -> None:
+        with self._lock:
+            if self._state != CLOSED:
+                self._transition(CLOSED, reason="reset")
+            self._consecutive_failures = 0
+
+    # -- internals (caller holds the lock) ----------------------------------
+
+    def _open(self, reason: str) -> None:
+        now = self.clock()
+        self._opened_at = now if self._state == CLOSED else self._opened_at
+        if self._opened_at is None:
+            self._opened_at = now
+        self._reopen_at = now + self.cooldown_seconds
+        self._opens += 1
+        self._transition(OPEN, reason=reason)
+
+    def _transition(self, state: str, reason: str) -> None:
+        prev = self._state
+        self._state = state
+        if state == CLOSED:
+            self._consecutive_failures = 0
+            self._probe_wins = 0
+            self._probe_inflight = False
+            self._opened_at = None
+            self._reopen_at = None
+        if state == HALF_OPEN:
+            self._probe_wins = 0
+            self._probe_inflight = False
+        self._m_state.set(STATE_VALUES[state], model=self.model)
+        self._m_transitions.inc(model=self.model, state=state)
+        record_breaker_event(
+            model=self.model, from_state=prev, to_state=state,
+            reason=reason, last_error=self._last_error,
+        )
+
+
+def record_breaker_event(**event) -> None:
+    event = dict(event)
+    event["utc"] = datetime.datetime.now(datetime.timezone.utc).isoformat()
+    with _events_lock:
+        _events.append(event)
+
+
+def breaker_events(limit: int = _EVENT_RING) -> List[Dict[str, Any]]:
+    """Recent breaker transitions, oldest first."""
+    with _events_lock:
+        return list(_events)[-limit:]
+
+
+__all__ = [
+    "BreakerOpen",
+    "CLOSED",
+    "CircuitBreaker",
+    "HALF_OPEN",
+    "OPEN",
+    "STATE_VALUES",
+    "breaker_events",
+    "record_breaker_event",
+]

@@ -1,0 +1,741 @@
+"""The serving front door: deadlines, admission at the queue, graceful
+drain — and the self-healing layer: retries, circuit breakers, degraded
+mode.
+
+The port's core of the JAX package's ``serve/engine.py``. ``ServeEngine``
+ties the registry and one micro-batcher per model version into one
+synchronous ``predict(model_ref, rows)`` call that a thread pool (or the
+HTTP server in ``serve.server``) can hammer:
+
+* **admission at the queue** — each model's queue is bounded at
+  ``max_queue_depth``; a request past it is rejected with ``QueueFull``;
+* **per-request deadlines** — ``deadline_ms`` stamps a monotonic
+  deadline; a request that expires while queued is
+  shed with ``DeadlineExpired`` before it costs device time;
+* **bounded retry with backoff** — a transient backend failure (a device
+  error, a crashed worker, a NaN-guard trip) is retried up to ``retries``
+  times with exponential backoff and jitter, under the same deadline
+  (``sparkml_serve_retries_total``);
+* **per-model circuit breaker** (``serve.breaker``) — consecutive backend
+  failures open it, and requests stop touching the device until a
+  half-open probe proves recovery;
+* **degraded CPU fallback** (``serve.fallback``) — while a breaker is
+  open, a model with a row-independent host equivalent is served on the
+  host, counted in ``sparkml_serve_degraded_total`` and tagged
+  ``degraded``; models without one shed fast with ``BreakerOpen``;
+* **NaN guard** — a batch whose real output rows carry NaN/Inf fails with
+  ``NumericsError`` (retryable, breaker-counted) instead of serving
+  poison;
+* **precision ladder** — ``precision="bf16"`` / ``"int8"`` serves the
+  reduced-precision program, but only after an offline max-error check
+  against the native program (``_precision_ok``); a failed check serves
+  native and counts ``sparkml_serve_precision_fallback_total``;
+* **graceful drain** — ``shutdown()`` stops admissions and serves (or
+  fails, with ``drain=False``) everything already queued.
+
+A model with a ``serving_transform_program`` runs the pipelined batcher on
+that program (on the card unless the CPU was asked for); if the program
+cannot be built the engine counts ``error="serving_program"`` and keeps
+the blocking path through ``model.transform``.
+
+Not ported yet (see ``ROADMAP.md``): multi-tenant admission and the fair
+scheduler (the queue here is FIFO), SLO burn rates, replicas, placement
+and sharded requests, rollout, autoscale, tiering and cost accounting;
+nor the JAX engine's environment knobs: the port's engine is configured
+through its constructor only.
+"""
+
+from __future__ import annotations
+
+import random
+import threading
+import time
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from spark_rapids_ml_tpu_torch.obs.metrics import get_registry
+from spark_rapids_ml_tpu_torch.obs.serving import ServingProgram
+from spark_rapids_ml_tpu_torch.serve import breaker as breaker_mod
+from spark_rapids_ml_tpu_torch.serve import faults as faults_mod
+from spark_rapids_ml_tpu_torch.serve.batching import (
+    AsyncTransformSpec,
+    BatcherClosed,
+    DeadlineExpired,
+    MicroBatcher,
+    QueueFull,
+    WaitTimeout,
+    WorkerCrashed,
+)
+from spark_rapids_ml_tpu_torch.serve.breaker import (
+    BreakerOpen,
+    CircuitBreaker,
+)
+from spark_rapids_ml_tpu_torch.serve.fallback import cpu_fallback
+from spark_rapids_ml_tpu_torch.serve.registry import (
+    ModelRegistry,
+    RegisteredModel,
+    _infer_features,
+)
+
+
+class EngineClosed(RuntimeError):
+    """The engine is shut down (or shutting down) and accepts no new
+    requests."""
+
+
+class NumericsError(RuntimeError):
+    """A transform output failed the engine's NaN guard (or a degraded
+    fallback produced non-finite values). Retryable and breaker-counted:
+    NaN corruption from a sick device is a backend fault."""
+
+
+_PRECISION_ALIASES = {
+    "": "native", "native": "native", "f32": "native", "float32": "native",
+    "f64": "native", "float64": "native",
+    "bf16": "bf16", "bfloat16": "bf16",
+    "int8": "int8",
+}
+
+
+def _normalize_precision(value: str) -> str:
+    """'native' / 'bf16' / 'int8'; unknown spellings degrade to native —
+    a typo must never enable a reduced-precision ladder."""
+    return _PRECISION_ALIASES.get(str(value).strip().lower(), "native")
+
+
+# Output-column getters tried in order when a transform returns a frame.
+_OUTPUT_GETTERS = ("getOutputCol", "getProbabilityCol", "getPredictionCol")
+
+
+def extract_output(model, result) -> np.ndarray:
+    """The row-aligned prediction array from a model's transform result:
+    ndarray results pass through; frame results yield the model's output
+    column (outputCol, then probabilityCol, then predictionCol)."""
+    if isinstance(result, np.ndarray):
+        return result
+    columns = getattr(result, "columns", None)
+    column = getattr(result, "column", None)
+    if columns and callable(column):
+        for getter in _OUTPUT_GETTERS:
+            fn = getattr(model, getter, None)
+            if not callable(fn):
+                continue
+            try:
+                name = fn()
+            except (TypeError, ValueError, AttributeError, KeyError):
+                continue
+            if name in columns:
+                return np.asarray(column(name))
+    raise TypeError(
+        f"cannot extract a serving output from {type(result).__name__} "
+        f"for {type(model).__name__}"
+    )
+
+
+# Exception shapes that mean "the device backend failed", as opposed to a
+# client error or an orderly rejection: these feed the breaker and the
+# retry loop.
+_HARD_BACKEND_ERRORS = (OSError, ConnectionError, TimeoutError,
+                        MemoryError, SystemError)
+
+
+def is_backend_error(exc: BaseException) -> bool:
+    if isinstance(exc, WaitTimeout):
+        # the caller's wait elapsed: congestion, and the request is still
+        # queued, so a retry would duplicate it
+        return False
+    if isinstance(exc, (faults_mod.InjectedBackendError, NumericsError,
+                        WorkerCrashed)):
+        return True
+    if isinstance(exc, _HARD_BACKEND_ERRORS):
+        return True
+    name = type(exc).__name__
+    return "AcceleratorError" in name or "OutOfMemoryError" in name
+
+
+class PredictResult:
+    """One served request: the outputs plus how they were produced
+    (``degraded`` CPU fallback? how many ``retries``?)."""
+
+    __slots__ = ("outputs", "model", "version", "degraded", "retries")
+
+    def __init__(self, outputs: np.ndarray, model: str, version: int,
+                 degraded: bool, retries: int):
+        self.outputs = outputs
+        self.model = model
+        self.version = version
+        self.degraded = degraded
+        self.retries = retries
+
+
+class ServeEngine:
+    """Synchronous front door over a ``ModelRegistry``."""
+
+    def __init__(
+        self,
+        registry: Optional[ModelRegistry] = None,
+        *,
+        max_batch_rows: int = 1024,
+        max_wait_ms: float = 5.0,
+        max_queue_depth: int = 256,
+        buckets: Optional[Sequence[int]] = None,
+        retries: int = 2,
+        backoff_ms: float = 25.0,
+        breaker_failures: int = 5,
+        breaker_cooldown_ms: float = 5000.0,
+        max_worker_restarts: Optional[int] = None,
+        pipeline_depth: int = 2,
+        precision: str = "native",
+        precision_max_err: float = 0.05,
+        clock: Callable[[], float] = time.monotonic,
+    ):
+        """``buckets`` None → the powers of two up to ``max_batch_rows``;
+        ``max_worker_restarts`` None → unlimited; ``pipeline_depth`` 1 at
+        native precision is the blocking path; ``precision_max_err`` is
+        the offline check's bar for a reduced ladder."""
+        self.registry = registry if registry is not None else ModelRegistry()
+        self.max_batch_rows = int(max_batch_rows)
+        self.max_wait_ms = float(max_wait_ms)
+        self.max_queue_depth = int(max_queue_depth)
+        self.buckets = tuple(buckets) if buckets else None
+        self.retries = int(retries)
+        self.backoff_ms = float(backoff_ms)
+        self.breaker_failures = int(breaker_failures)
+        self.breaker_cooldown_ms = float(breaker_cooldown_ms)
+        self.max_worker_restarts = max_worker_restarts
+        self.pipeline_depth = max(int(pipeline_depth), 1)
+        self.precision = _normalize_precision(precision)
+        self.precision_max_err = float(precision_max_err)
+        # (name, version, precision) → {"error", "verdict", "bar"}, the
+        # offline max-error checks this engine ran
+        self.precision_checks: Dict[Tuple[str, int, str], Dict[str, Any]] = {}
+        self._clock = clock
+        self._batchers: Dict[Tuple[str, int], MicroBatcher] = {}
+        self._async_specs: Dict[
+            Tuple[str, int], Optional[AsyncTransformSpec]] = {}
+        self._breakers: Dict[str, CircuitBreaker] = {}
+        self._fallbacks: Dict[Tuple[str, int], Any] = {}
+        self._lock = threading.Lock()
+        self._closed = False
+        reg = get_registry()
+        self._m_latency = reg.summary(
+            "sparkml_serve_request_latency_seconds",
+            "end-to-end serving request latency (admit → split)",
+            ("model",),
+        )
+        self._m_retries = reg.counter(
+            "sparkml_serve_retries_total",
+            "predict attempts re-entered after a transient backend "
+            "failure", ("model",),
+        )
+        self._m_degraded = reg.counter(
+            "sparkml_serve_degraded_total",
+            "requests served by the degraded CPU fallback while the "
+            "model's breaker was open", ("model",),
+        )
+        self._m_errors = reg.counter(
+            "sparkml_serve_errors_total",
+            "serving errors by type: batch failures (exception class), "
+            "worker crashes/wedges, breaker rejections", ("model", "error"),
+        )
+
+    # -- the request path --------------------------------------------------
+
+    def predict(self, model_ref: str, rows, *,
+                deadline_ms: Optional[float] = None,
+                version: Optional[int] = None,
+                timeout: Optional[float] = 120.0) -> np.ndarray:
+        """Serve one request: resolve, admit, coalesce, return its rows
+        (``predict_detailed``'s outputs; same raises)."""
+        return self.predict_detailed(
+            model_ref, rows, deadline_ms=deadline_ms, version=version,
+            timeout=timeout).outputs
+
+    def predict_detailed(self, model_ref: str, rows, *,
+                         deadline_ms: Optional[float] = None,
+                         version: Optional[int] = None,
+                         timeout: Optional[float] = 120.0) -> PredictResult:
+        """Serve one request with full fault handling. Raises ``KeyError``
+        (unknown model), ``ValueError`` (bad request shape), ``QueueFull``,
+        ``DeadlineExpired`` (shed while queued), ``WaitTimeout``,
+        ``WorkerCrashed`` (batcher dead — fast, never a hang),
+        ``BreakerOpen`` (breaker open, no fallback), ``NumericsError``,
+        ``EngineClosed``."""
+        if self._closed:
+            raise EngineClosed("serving engine is shut down")
+        t0 = time.perf_counter()
+        entry = self.registry.resolve_entry(model_ref, version)
+        brk = self._breaker_for(entry.name)
+        # submitted[0] flips once a batcher accepted the request: a
+        # ValueError before that is the client's (bad shape), after it
+        # the batch failing
+        submitted = [False]
+        deadline = (time.monotonic() + deadline_ms / 1000.0
+                    if deadline_ms and deadline_ms > 0 else None)
+        gate = brk.allow()
+        if gate == "open":
+            out = self._degraded_predict(entry, rows)
+            degraded, retries = True, 0
+        else:
+            out, retries, degraded = self._attempts(
+                entry, rows, deadline, timeout, brk, gate, submitted)
+        self._m_latency.observe(time.perf_counter() - t0, model=entry.name)
+        return PredictResult(outputs=out, model=entry.name,
+                             version=entry.version, degraded=degraded,
+                             retries=retries)
+
+    # -- the retry / breaker / degraded machinery --------------------------
+
+    def _attempts(self, entry: RegisteredModel, rows,
+                  deadline: Optional[float], timeout: Optional[float],
+                  brk: CircuitBreaker, gate: str, submitted: List[bool],
+                  ) -> Tuple[np.ndarray, int, bool]:
+        """The bounded-retry loop: (outputs, retries used, degraded)."""
+        probe = gate == "probe"
+        max_attempts = 1 + max(self.retries, 0)
+        attempt = 0
+        while True:
+            attempt += 1
+            try:
+                out = self._one_attempt(entry, rows, deadline, timeout,
+                                        submitted, revive=probe)
+            except BaseException as exc:  # noqa: BLE001 - classified below
+                if isinstance(exc, (QueueFull, DeadlineExpired, KeyError,
+                                    EngineClosed, WaitTimeout)) or (
+                        isinstance(exc, ValueError) and not submitted[0]):
+                    # orderly rejections / client errors: the device was
+                    # never consulted, so no breaker verdict
+                    if probe:
+                        brk.release_probe()
+                    raise
+                backend = is_backend_error(exc)
+                if backend:
+                    brk.record_failure(probe=probe,
+                                       error=type(exc).__name__)
+                elif probe:
+                    brk.release_probe()
+                probe = False
+                # once the breaker is open, stop touching the device: with
+                # a fallback this request degrades, without one its own
+                # error propagates now and the next request sheds
+                if brk.state == breaker_mod.OPEN:
+                    if self._fallback_for(entry) is not None:
+                        return (self._degraded_predict(entry, rows),
+                                attempt - 1, True)
+                    raise
+                retryable = backend or isinstance(exc, BatcherClosed)
+                if retryable and attempt < max_attempts:
+                    delay = self._backoff_delay(attempt)
+                    if deadline is not None:
+                        remaining = deadline - time.monotonic()
+                        if remaining <= 0:
+                            raise  # one deadline governs every attempt
+                        delay = min(delay, max(remaining - 0.001, 0.0))
+                    self._m_retries.inc(model=entry.name)
+                    if delay > 0:
+                        time.sleep(delay)
+                    continue
+                raise
+            else:
+                brk.record_success(probe=probe)
+                return out, attempt - 1, False
+
+    def _one_attempt(self, entry: RegisteredModel, rows, deadline, timeout,
+                     submitted: List[bool],
+                     revive: bool = False) -> np.ndarray:
+        batcher = self._batcher_for(entry)
+        if revive and batcher.dead():
+            # the breaker's half-open probe replaces a dead batcher; the
+            # probe cadence bounds recreate storms
+            batcher = self._revive_batcher(entry, batcher)
+        req = batcher.submit(rows, deadline=deadline)
+        submitted[0] = True
+        return req.wait(timeout)
+
+    def _backoff_delay(self, failed_attempt: int) -> float:
+        """Exponential backoff with jitter: base · 2^(attempt-1), scaled
+        by a random factor in [0.5, 1.0]."""
+        base = max(self.backoff_ms, 0.0) / 1000.0
+        return base * (2 ** (failed_attempt - 1)) * (
+            0.5 + 0.5 * random.random())
+
+    def _degraded_predict(self, entry: RegisteredModel, rows) -> np.ndarray:
+        """Serve one request from the CPU fallback (breaker open)."""
+        fb = self._fallback_for(entry)
+        if fb is None:
+            self._m_errors.inc(model=entry.name, error="breaker_open")
+            raise BreakerOpen(
+                f"{entry.name}: circuit breaker open and the model has no "
+                "CPU fallback — shedding fast (retry after the cooldown)"
+            )
+        out = np.asarray(fb(rows))
+        # a fallback that emits NaN is an outage, not a fallback
+        if np.issubdtype(out.dtype, np.floating) and not np.all(
+                np.isfinite(out)):
+            self._m_errors.inc(model=entry.name, error="degraded_numerics")
+            raise NumericsError(
+                f"{entry.name}: degraded CPU fallback produced non-finite "
+                "rows")
+        self._m_degraded.inc(model=entry.name)
+        return out
+
+    # -- batcher / breaker / fallback plumbing -----------------------------
+
+    def _make_transform_fn(self, entry: RegisteredModel):
+        """The blocking path's transform: fault-plane hook → the model's
+        own ``transform``."""
+        model = entry.model
+        name = entry.name
+
+        def transform(matrix: np.ndarray) -> np.ndarray:
+            spec = faults_mod.fault_plane().begin_call(name)
+            if spec is not None:
+                faults_mod.apply_pre(spec)
+            out = np.asarray(extract_output(model, model.transform(matrix)))
+            if spec is not None and spec.kind == "nan":
+                out = faults_mod.corrupt(spec, out)
+            return out
+
+        return transform
+
+    def _make_output_check(self, entry: RegisteredModel):
+        """The NaN guard, as the batcher's post-slice ``output_check``: it
+        sees only the REAL rows, never the padding."""
+        name = entry.name
+
+        def check(out: np.ndarray) -> None:
+            if (np.issubdtype(out.dtype, np.floating)
+                    and not np.all(np.isfinite(out))):
+                raise NumericsError(
+                    f"{name}: transform output contains NaN/Inf")
+
+        return check
+
+    def _serving_program(self, entry: RegisteredModel,
+                         precision: str) -> Optional[ServingProgram]:
+        """The model's device-resident serving program at ``precision``,
+        or None (no hook, a host-path model, or construction failed —
+        counted as ``error="serving_program"``, never raised: the blocking
+        path is always there)."""
+        hook = getattr(entry.model, "serving_transform_program", None)
+        if not callable(hook):
+            return None
+        try:
+            return hook(precision=precision)
+        except Exception:  # noqa: BLE001 - counted; the sync path remains
+            self._m_errors.inc(model=entry.name, error="serving_program")
+            return None
+
+    def _precision_ok(self, entry: RegisteredModel,
+                      native: ServingProgram,
+                      reduced: ServingProgram) -> bool:
+        """The offline max-error check gating reduced precision: both
+        programs run one seeded random batch at the LARGEST bucket and
+        are compared — relative max-abs error for float outputs, mismatch
+        fraction for labels — against ``precision_max_err``. A failed (or
+        crashed) check means the reduced ladder never serves. The
+        measured error and verdict land in ``precision_checks``."""
+        checks = get_registry().counter(
+            "sparkml_serve_precision_checks_total",
+            "offline reduced-precision max-error checks by verdict",
+            ("model", "precision", "verdict"),
+        )
+        key = (entry.name, entry.version, reduced.precision)
+        err = None
+        try:
+            n_features = _infer_features(entry.model)
+            if n_features is None:
+                verdict = "unknown_features"
+            else:
+                buckets = (self.buckets or entry.buckets
+                           or (self.max_batch_rows,))
+                bucket = int(max(buckets))
+                rng = np.random.default_rng(7)
+                x = rng.standard_normal((bucket, int(n_features))).astype(
+                    native.dtype)
+                ref_raw = np.asarray(native.fetch(native.run(native.put(x))))
+                red_raw = np.asarray(
+                    reduced.fetch(reduced.run(reduced.put(x.copy()))))
+                if ref_raw.shape != red_raw.shape:
+                    verdict = "shape_mismatch"
+                else:
+                    ref = ref_raw.astype(np.float64)
+                    red = red_raw.astype(np.float64)
+                    if np.issubdtype(ref_raw.dtype, np.integer):
+                        err = float(np.mean(ref != red))
+                    else:
+                        scale = float(np.max(np.abs(ref))) or 1.0
+                        err = float(np.max(np.abs(ref - red))) / scale
+                    ok = np.isfinite(err) and err <= self.precision_max_err
+                    verdict = "pass" if ok else "fail"
+        except Exception:  # noqa: BLE001 - a crashed check fails closed
+            verdict = "error"
+        checks.inc(model=entry.name, precision=reduced.precision,
+                   verdict=verdict)
+        self.precision_checks[key] = {"error": err, "verdict": verdict,
+                                      "bar": self.precision_max_err}
+        return verdict == "pass"
+
+    def _make_async_spec(self, entry: RegisteredModel,
+                         prog: ServingProgram) -> AsyncTransformSpec:
+        """Wrap a ``ServingProgram`` with the fault plane: ``raise`` fires
+        at dispatch, ``nan`` corruption at the fetch so the NaN guard sees
+        it exactly like the blocking path."""
+        name = entry.name
+
+        def dispatch(x_dev, _prog=prog):
+            spec_ = faults_mod.fault_plane().begin_call(name)
+            if spec_ is not None:
+                faults_mod.apply_pre(spec_)
+            return _prog.run(x_dev), spec_
+
+        def complete(handle, _prog=prog):
+            out_dev, spec_ = handle
+            out = _prog.fetch(out_dev)
+            if spec_ is not None and spec_.kind == "nan":
+                out = faults_mod.corrupt(spec_, out)
+            return out
+
+        device = getattr(prog, "device", None)
+        return AsyncTransformSpec(
+            stage=prog.put, dispatch=dispatch, complete=complete,
+            dtype=prog.dtype, algo=prog.algo, precision=prog.precision,
+            program=prog,
+            pinned=getattr(device, "type", None) == "cuda",
+        )
+
+    def _async_spec_for(self, entry: RegisteredModel,
+                        ) -> Optional[AsyncTransformSpec]:
+        """Build (and cache) the pipelined-batcher spec for one model
+        version: its ``ServingProgram`` at the engine's precision
+        (max-error-guarded, falling back to native), fault-plane-wrapped.
+        None when the pipeline is off (depth 1 at native precision) or
+        the model has no program."""
+        key = (entry.name, entry.version)
+        with self._lock:
+            if key in self._async_specs:
+                return self._async_specs[key]
+        spec: Optional[AsyncTransformSpec] = None
+        if self.pipeline_depth > 1 or self.precision != "native":
+            prog = self._serving_program(entry, self.precision)
+            if prog is not None and self.precision != "native":
+                native = self._serving_program(entry, "native")
+                if native is None or not self._precision_ok(
+                        entry, native, prog):
+                    get_registry().counter(
+                        "sparkml_serve_precision_fallback_total",
+                        "models served at native precision because the "
+                        "reduced-precision max-error check failed",
+                        ("model", "precision"),
+                    ).inc(model=entry.name, precision=self.precision)
+                    prog = native
+            if prog is not None:
+                spec = self._make_async_spec(entry, prog)
+        with self._lock:
+            self._async_specs[key] = spec
+        return spec
+
+    def _make_batcher(self, entry: RegisteredModel,
+                      spec: Optional[AsyncTransformSpec]) -> MicroBatcher:
+        return MicroBatcher(
+            self._make_transform_fn(entry),
+            name=entry.name,
+            max_batch_rows=self.max_batch_rows,
+            max_wait_ms=self.max_wait_ms,
+            max_queue_depth=self.max_queue_depth,
+            buckets=self.buckets or entry.buckets,
+            max_restarts=self.max_worker_restarts,
+            output_check=self._make_output_check(entry),
+            dtype=spec.dtype if spec is not None else np.float64,
+            async_spec=spec,
+            pipeline_depth=self.pipeline_depth,
+        )
+
+    def _batcher_for(self, entry: RegisteredModel) -> MicroBatcher:
+        """The model version's batcher, built on first use (the serving
+        program is staged outside the engine lock)."""
+        key = (entry.name, entry.version)
+        with self._lock:
+            batcher = self._batchers.get(key)
+        if batcher is not None:
+            return batcher
+        spec = self._async_spec_for(entry)
+        with self._lock:
+            if self._closed:
+                raise EngineClosed("serving engine is shut down")
+            batcher = self._batchers.get(key)
+            if batcher is not None:
+                return batcher  # lost the construction race
+            batcher = self._make_batcher(entry, spec)
+            self._batchers[key] = batcher
+            # flat-0 series for the engine-level counters too
+            self._m_retries.inc(0, model=entry.name)
+            self._m_degraded.inc(0, model=entry.name)
+            stale = self._stale_keys(entry.name)
+        # versions the registry dropped would otherwise leak a worker each
+        for k in stale:
+            self.evict(*k)
+        return batcher
+
+    def _revive_batcher(self, entry: RegisteredModel,
+                        corpse: MicroBatcher) -> MicroBatcher:
+        """Replace a DEAD batcher (restart budget exhausted) with a fresh
+        one on the breaker's half-open probe."""
+        key = (entry.name, entry.version)
+        with self._lock:
+            if self._closed:
+                raise EngineClosed("serving engine is shut down")
+            current = self._batchers.get(key)
+            if current is not corpse:
+                return current if current is not None else corpse
+            fresh = self._make_batcher(entry, self._async_specs.get(key))
+            self._batchers[key] = fresh
+        corpse.close(drain=False, timeout=0.1)  # the final sweep
+        return fresh
+
+    def _breaker_for(self, name: str) -> CircuitBreaker:
+        with self._lock:
+            brk = self._breakers.get(name)
+            if brk is None:
+                brk = CircuitBreaker(
+                    name,
+                    failure_threshold=self.breaker_failures,
+                    cooldown_seconds=self.breaker_cooldown_ms / 1000.0,
+                    clock=self._clock,
+                )
+                self._breakers[name] = brk
+            return brk
+
+    def _fallback_for(self, entry: RegisteredModel):
+        key = (entry.name, entry.version)
+        with self._lock:
+            if key not in self._fallbacks:
+                self._fallbacks[key] = cpu_fallback(entry.model)
+            return self._fallbacks[key]
+
+    def _stale_keys(self, name: str):
+        """Batcher keys for ``name`` whose version the registry dropped.
+        Caller holds the lock."""
+        stale = []
+        for key in self._batchers:
+            if key[0] != name:
+                continue
+            try:
+                self.registry.resolve_entry(key[0], key[1])
+            except KeyError:
+                stale.append(key)
+        return stale
+
+    def evict(self, name: str, version: int, drain: bool = True) -> bool:
+        """Close and drop one (name, version) batcher — call after
+        ``registry.deregister`` (or rely on the sweep when the next
+        version's batcher is created). Returns whether one existed."""
+        with self._lock:
+            batcher = self._batchers.pop((name, version), None)
+            self._fallbacks.pop((name, version), None)
+            self._async_specs.pop((name, version), None)
+        if batcher is None:
+            return False
+        batcher.close(drain=drain)
+        return True
+
+    def warmup(self, model_ref: str, *, n_features: Optional[int] = None):
+        """Warm ``model_ref`` at the buckets THIS engine pads to: the
+        registry's blocking-path warmup, then the pipeline ladder — the
+        serving program at the engine's precision (after its max-error
+        check), one zero batch per bucket through put → run → fetch, so
+        the first request meets warm cuBLAS handles and a warm caching
+        allocator. Returns the registry's report with a ``pipeline``
+        entry ``{"precision", "buckets": {rows: seconds}}``."""
+        entry = self.registry.resolve_entry(model_ref)
+        report = self.registry.warmup(
+            model_ref, n_features=n_features,
+            buckets=self.buckets or entry.buckets,
+            max_bucket_rows=self.max_batch_rows,
+        )
+        batcher = self._batcher_for(entry)
+        spec = batcher.async_spec
+        if n_features is None:
+            n_features = _infer_features(entry.model)
+        if spec is None or spec.program is None or n_features is None:
+            return report
+        prog = spec.program
+        ladder: Dict[int, float] = {}
+        for bucket in sorted(int(b) for b in report["buckets"]):
+            zeros = np.zeros((bucket, int(n_features)), dtype=spec.dtype)
+            t0 = time.perf_counter()
+            prog.fetch(prog.run(prog.put(zeros)))
+            ladder[bucket] = time.perf_counter() - t0
+        report["pipeline"] = {"precision": spec.precision, "buckets": ladder}
+        return report
+
+    # -- lifecycle / introspection ----------------------------------------
+
+    def queue_depth(self, model_ref: Optional[str] = None) -> int:
+        with self._lock:
+            batchers = list(self._batchers.items())
+        return sum(b.depth() for (name, _v), b in batchers
+                   if model_ref is None or name == model_ref)
+
+    def stats(self) -> Dict[str, Any]:
+        with self._lock:
+            batchers = dict(self._batchers)
+        return {
+            "closed": self._closed,
+            "queues": {
+                f"{name}@{version}": {
+                    "depth": b.depth(),
+                    "buckets": list(b.buckets),
+                    "max_batch_rows": b.max_batch_rows,
+                    "precision": (b.async_spec.precision
+                                  if b.async_spec is not None else None),
+                }
+                for (name, version), b in batchers.items()
+            },
+            "breakers": self.breaker_snapshot(),
+        }
+
+    def breaker_snapshot(self) -> Dict[str, Any]:
+        with self._lock:
+            breakers = dict(self._breakers)
+        return {name: b.snapshot() for name, b in breakers.items()}
+
+    def drain(self, timeout: float = 30.0) -> None:
+        """Serve everything queued, keep accepting afterwards (a quiesce
+        point, e.g. before a model rollover)."""
+        deadline = time.monotonic() + timeout
+        while self.queue_depth() > 0 and time.monotonic() < deadline:
+            time.sleep(0.005)
+
+    def shutdown(self, drain: bool = True, timeout: float = 30.0) -> None:
+        """Stop admissions, then drain (or fail, with ``drain=False``)
+        what is queued. Idempotent."""
+        with self._lock:
+            self._closed = True
+            batchers = list(self._batchers.values())
+        for b in batchers:
+            b.close(drain=drain, timeout=timeout)
+
+    def __enter__(self) -> "ServeEngine":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.shutdown()
+
+
+__all__ = [
+    "BatcherClosed",
+    "BreakerOpen",
+    "DeadlineExpired",
+    "EngineClosed",
+    "MicroBatcher",
+    "NumericsError",
+    "PredictResult",
+    "QueueFull",
+    "ServeEngine",
+    "WaitTimeout",
+    "WorkerCrashed",
+    "extract_output",
+    "is_backend_error",
+]

@@ -198,3 +198,148 @@ def test_float64_fit_on_card_matches_host_fit(cuda_device):
                                ref.explained_variance, atol=1e-5)
     out = np.asarray(model.transform(x).column("pca_features"))
     np.testing.assert_allclose(out, x @ model.pc, atol=1e-8)
+
+
+# -- the serving path ---------------------------------------------------------
+
+def _serving_model(d, k, seed=0, dtype="float32"):
+    from spark_rapids_ml_tpu_torch import PCAModel
+
+    rng = np.random.default_rng(seed)
+    pc, _ = np.linalg.qr(rng.normal(size=(d, k)))
+    return PCAModel.from_numpy(pc, np.full(k, 1.0 / k)).setDtype(dtype)
+
+
+def _program_runs(device_type):
+    from spark_rapids_ml_tpu_torch.obs.metrics import get_registry
+
+    snap = get_registry().snapshot().get("sparkml_serve_program_runs_total")
+    if snap is None:
+        return 0.0
+    return sum(s["value"] for s in snap["samples"]
+               if s["labels"]["device"] == device_type)
+
+
+def _run(program, x):
+    return program.fetch(program.run(program.put(x)))
+
+
+@pytest.mark.parametrize("precision", ["native", "bf16", "int8"])
+@pytest.mark.parametrize("rows,d,k", [(8, 13, 3), (16, 300, 20),
+                                      (1024, 4096, 256)])
+def test_serving_program_on_card_matches_its_plain_version(
+        cuda_device, precision, rows, d, k):
+    """put / run / fetch on the card against the same program on the CPU:
+    int8 bit for bit (int32 sums are exact), native and bf16 within their
+    f32 summation-order bars."""
+    model = _serving_model(d, k)
+    rng = np.random.default_rng(1)
+    x = (rng.standard_normal((rows, d)) * (1.0 + np.arange(d)) ** -0.5
+         ).astype(np.float32)
+    card = model.serving_transform_program(precision)
+    plain = model.serving_transform_program(precision,
+                                            device=torch.device("cpu"))
+    assert card.device.type == "cuda" and plain.device.type == "cpu"
+    before = _program_runs("cuda")
+    got = _run(card, x)
+    assert _program_runs("cuda") == before + 1
+    want = _run(plain, x)
+    assert got.shape == want.shape == (rows, k) and got.dtype == np.float64
+    if precision == "int8":
+        np.testing.assert_array_equal(got, want)
+    else:
+        bar = 1e-6 if precision == "native" else 1e-5
+        assert np.abs(got - want).max() <= bar * np.abs(want).max()
+
+
+def test_bf16_program_returns_float32_on_card(cuda_device):
+    model = _serving_model(64, 8)
+    program = model.serving_transform_program("bf16")
+    x = np.random.default_rng(2).standard_normal((32, 64)).astype(np.float32)
+    out = program.run(program.put(x))
+    assert out.is_cuda and out.dtype == torch.float32
+    xb = torch.as_tensor(x).to(torch.bfloat16).float()
+    cb = torch.as_tensor(model.pc).to(torch.bfloat16).float()
+    ref = (xb.double() @ cb.double()).numpy()
+    assert np.abs(out.cpu().numpy() - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+def test_native_program_is_full_f32_under_the_tf32_setting(cuda_device):
+    """With torch.set_float32_matmul_precision('high') a plain float32
+    product misses the 1e-5 transform bar; the native program does not."""
+    d, k = 4096, 256
+    model = _serving_model(d, k)
+    rng = np.random.default_rng(3)
+    x = (rng.standard_normal((1024, d)) * (1.0 + np.arange(d)) ** -0.5
+         ).astype(np.float32)
+    ref = x.astype(np.float64) @ model.pc
+    program = model.serving_transform_program("native")
+    torch.set_float32_matmul_precision("high")
+    try:
+        assert torch.backends.cuda.matmul.allow_tf32
+        got = _run(program, x)
+        plain = (torch.as_tensor(x, device=cuda_device)
+                 @ torch.as_tensor(model.pc, dtype=torch.float32,
+                                   device=cuda_device)).double().cpu().numpy()
+        transform = np.asarray(model.transform(x).column("pca_features"))
+    finally:
+        torch.set_float32_matmul_precision("highest")
+        torch.backends.cuda.matmul.allow_tf32 = False
+    scale = np.abs(ref).max()
+    assert np.abs(got - ref).max() <= 1e-5 * scale
+    assert np.abs(transform - ref).max() <= 1e-5 * scale
+    assert np.abs(plain - ref).max() > 1e-5 * scale
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_staging_reuse_under_a_deep_pipeline(cuda_device, dtype):
+    """Hundreds of ragged requests through pipeline depth 4, each request's
+    rows encoding its own id; an identity projection returns them
+    unchanged, so a staging slot overwritten before its copy ran shows as
+    another request's rows."""
+    import threading
+
+    from spark_rapids_ml_tpu_torch import PCAModel
+    from spark_rapids_ml_tpu_torch.serve import ModelRegistry, ServeEngine
+
+    d = 16
+    model = PCAModel.from_numpy(np.eye(d), np.full(d, 1.0 / d)).setDtype(
+        dtype)
+    registry = ModelRegistry()
+    registry.register("id", model)
+    engine = ServeEngine(registry, max_batch_rows=64, max_wait_ms=0.5,
+                         pipeline_depth=4, max_queue_depth=1024)
+    n_requests, n_threads = 480, 16
+    sizes = np.random.default_rng(4).integers(1, 48, n_requests)
+    wrong, failures = [], []
+
+    def rows_of(i):
+        # integers and small binary fractions: exact in float32
+        return (i * 64.0 + np.arange(int(sizes[i]))[:, None]
+                + np.arange(d)[None, :] / 32.0)
+
+    def client(ids):
+        try:
+            for i in ids:
+                want = rows_of(i)
+                got = engine.predict("id", want, timeout=120)
+                if not np.array_equal(got, want):
+                    wrong.append(i)
+        except Exception as exc:  # noqa: BLE001 - reported below
+            failures.append(repr(exc))
+
+    try:
+        engine.warmup("id")
+        batcher = engine._batchers[("id", 1)]
+        assert batcher.async_spec is not None and batcher.async_spec.pinned
+        threads = [threading.Thread(target=client,
+                                    args=(range(t, n_requests, n_threads),))
+                   for t in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        engine.shutdown()
+    assert failures == [] and wrong == []

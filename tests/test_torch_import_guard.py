@@ -37,8 +37,10 @@ def _is_forbidden(module: str) -> bool:
 
 def test_importing_every_port_module_leaves_jax_out():
     mods = [m for _, m in _port_modules()]
+    assert "spark_rapids_ml_tpu_torch.serve" in mods
     code = (
         "import importlib, sys\n"
+        "import spark_rapids_ml_tpu_torch.serve\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or "
@@ -49,6 +51,41 @@ def test_importing_every_port_module_leaves_jax_out():
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO_DIR,
                           capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_serving_stack_runs_without_jax():
+    """A model served end to end (engine, HTTP server, binary wire) in a
+    process that never imports jax."""
+    code = (
+        "import json, sys, urllib.request\n"
+        "import numpy as np\n"
+        "from spark_rapids_ml_tpu_torch import PCAModel\n"
+        "from spark_rapids_ml_tpu_torch.serve import (ModelRegistry, "
+        "ServeEngine, start_serve_server, wire)\n"
+        "m = PCAModel.from_numpy(np.eye(4)[:, :2], [0.6, 0.4])\n"
+        "reg = ModelRegistry(); reg.register('m', m)\n"
+        "eng = ServeEngine(reg, max_wait_ms=1, precision='int8')\n"
+        "srv = start_serve_server(eng)\n"
+        "try:\n"
+        "    req = urllib.request.Request("
+        "f'http://127.0.0.1:{srv.server_address[1]}/predict', "
+        "data=wire.encode_request('m', np.ones((3, 4))), "
+        "headers={'Content-Type': wire.BINARY_CONTENT_TYPE})\n"
+        "    out = wire.decode_response(urllib.request.urlopen("
+        "req, timeout=60).read())\n"
+        "finally:\n"
+        "    srv.shutdown(); srv.server_close(); eng.shutdown()\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or "
+        "k.startswith('jax.') or k == 'spark_rapids_ml_tpu' or "
+        "k.startswith('spark_rapids_ml_tpu.'))\n"
+        "print(out.shape, bad)\n"
+        "sys.exit(1 if bad or out.shape != (3, 2) else 0)\n"
+    )
+    env = dict(os.environ, SPARK_RAPIDS_ML_TORCH_PLATFORM="cpu")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO_DIR,
+                          capture_output=True, text=True, timeout=120,
+                          env=env)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
