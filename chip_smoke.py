@@ -70,6 +70,34 @@ Phases (any failure raises and the script exits non-zero):
    ``PCAModel.transform`` on the same rows. The serve path launches no
    hand kernel: the launch counts are set to 0 before the phase and must
    read 0 after it.
+6. Multi-tenant serving of the same model, native ladder, under the same
+   TF32 trap: one ``ServeEngine`` per run (queue depth 8, 1024 rows per
+   batch, 5 ms linger, pipeline depth 2; tenant ``greedy`` quota 2,000
+   rows/s with a burst of 4,000, ``compliant`` unlimited, weights 1:1;
+   shed thresholds queue wait 20 ms and depth fraction 0.25, all through
+   the constructor) behind the HTTP server, binary frames with
+   ``X-Tenant`` / ``X-Priority``. Traffic for 8 s, from pools of bodies
+   made from SEED, each tenant's client threads in a child process of
+   their own (so the load does not share the server's GIL):
+   ``compliant`` 2 clients, interactive, 64-row requests paced at 20
+   requests/s each; ``greedy`` 8 closed-loop clients, batch, 512-row
+   requests back to back. Run (A) compliant alone, (B) both
+   tenants with the fair queue and shedding, (C) both with the kill
+   switches (``SPARK_RAPIDS_ML_TORCH_SERVE_SCHED=fifo``, ``..._SHED=0``).
+   Every 200 is held to the native bar against the float64 host product.
+   Run (B) also fails unless every compliant request returns 200; the
+   greedy tenant gets at least one 503 with ``"shed": true`` and a
+   ``Retry-After`` of at least 1 and nothing but 200, shed 503 and 429
+   (with ``Retry-After``); ``sparkml_serve_shed_total`` is 0 for
+   compliant and equals the greedy clients' shed 503s (admission sheds,
+   pre-parse fast sheds and preemptions together); the errors counter
+   moves by the ``load_shed`` sheds only; and ``/readyz`` returns to 200
+   on probes alone within the hold time plus 2 s. Every run: no degraded
+   answer, no retry, no CPU program run, one CUDA program run per batch,
+   no hand-kernel launch. Prints per tenant requests, 200 / 429 / 503
+   counts, rows/s and the 200s' client p50 / p99 (host clock), the
+   highest shed level, the peak queue-wait estimate and the sheds by
+   reason.
 
 Then one JSON line ``{"kernels": [...]}``, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.
@@ -971,6 +999,395 @@ def phase_serve(torch, model, device):
         torch.backends.cuda.matmul.allow_tf32 = False
 
 
+# -- phase 6: multi-tenant serving ----------------------------------------------
+
+MT_SECONDS = 8.0
+MT_QUEUE_DEPTH = 8
+MT_GREEDY = {"clients": 8, "rows": 512, "priority": "batch",
+             "quota": (2000.0, 4000.0)}          # rows/s, burst
+MT_COMPLIANT = {"clients": 2, "rows": 64, "priority": "interactive",
+                "rate": 20.0}                    # requests/s per client
+MT_SHED = {"queue_wait_target_s": 0.020, "depth_frac_target": 0.25}
+MT_POOL = {"greedy": 16, "compliant": 32}        # distinct bodies per tenant
+MT_KILL_SWITCHES = {"SPARK_RAPIDS_ML_TORCH_SERVE_SCHED": "fifo",
+                    "SPARK_RAPIDS_ML_TORCH_SERVE_SHED": "0"}
+MT_COUNTERS = {
+    "batches": ("sparkml_serve_batches_total", {}),
+    "errors": ("sparkml_serve_errors_total", {}),
+    "load_shed": ("sparkml_serve_errors_total", {"error": "load_shed"}),
+    "degraded": ("sparkml_serve_degraded_total", {}),
+    "retries": ("sparkml_serve_retries_total", {}),
+    "runs_cuda": ("sparkml_serve_program_runs_total", {"device": "cuda"}),
+    "runs_cpu": ("sparkml_serve_program_runs_total", {"device": "cpu"}),
+    "shed_compliant": ("sparkml_serve_shed_total", {"tenant": "compliant"}),
+    "shed_greedy": ("sparkml_serve_shed_total", {"tenant": "greedy"}),
+    "shed_over_quota": ("sparkml_serve_shed_total",
+                        {"tenant": "greedy", "reason": "over_quota"}),
+    "shed_over_quota_batch": ("sparkml_serve_shed_total",
+                              {"tenant": "greedy",
+                               "reason": "over_quota_batch"}),
+    "shed_preempted": ("sparkml_serve_shed_total",
+                       {"tenant": "greedy", "reason": "preempted"}),
+}
+
+
+def mt_counters(registry) -> dict:
+    """MT_COUNTERS, plus the server's (count, seconds) of POST /predict
+    handling per HTTP status (``http_<status>``), so a run's mean server
+    time per reply kind is a difference of two reads."""
+    snap = registry.snapshot()
+    out = {key: metric_sum(snap, name, **match)
+           for key, (name, match) in MT_COUNTERS.items()}
+    family = snap.get("sparkml_http_request_latency_seconds",
+                      {"samples": []})
+    for sample in family["samples"]:
+        if sample["labels"]["path"] == "/predict":
+            out["http_" + sample["labels"]["status"]] = np.array(
+                [sample["count"], sample["sum"]])
+    return out
+
+
+def mt_traffic(model):
+    """Per tenant, a pool of binary request bodies made from SEED, cycled
+    by the clients, and each body's float64 host product."""
+    from spark_rapids_ml_tpu_torch.serve import wire
+
+    rng = np.random.default_rng(SEED + 6)
+    pools = {}
+    for tenant, spec in (("greedy", MT_GREEDY), ("compliant", MT_COMPLIANT)):
+        rows = [serve_rows(rng, spec["rows"]) for _ in range(MT_POOL[tenant])]
+        pools[tenant] = [(wire.encode_request("pca", r),
+                          r.astype(np.float64) @ model.pc) for r in rows]
+    return pools
+
+
+def mt_client(port, tenant, spec, bodies, offset, t_end, records, failures,
+              content_type):
+    """One client on one keep-alive connection: the compliant tenant's
+    requests paced at spec["rate"] per second, the greedy tenant's back to
+    back, until t_end. Appends (seconds, status, headers, body, ref index)
+    per response, and what it raised, if anything, to ``failures``."""
+    import http.client
+
+    headers = {"Content-Type": content_type,
+               "X-Tenant": tenant, "X-Priority": spec["priority"]}
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    t_start, sent = time.perf_counter(), 0
+    try:
+        while True:
+            if "rate" in spec:
+                due = t_start + sent / spec["rate"]
+                if due >= t_end:
+                    break
+                time.sleep(max(due - time.perf_counter(), 0.0))
+            elif time.perf_counter() >= t_end:
+                break
+            index = (offset + sent) % len(bodies)
+            t0 = time.perf_counter()
+            conn.request("POST", "/predict", body=bodies[index],
+                         headers=headers)
+            resp = conn.getresponse()
+            data = resp.read()
+            records.append((time.perf_counter() - t0, resp.status,
+                            {k.lower(): v for k, v in resp.getheaders()},
+                            data, index))
+            sent += 1
+    except Exception as exc:  # noqa: BLE001 - reported by the caller
+        failures.append(f"{tenant}: {exc!r}")
+    finally:
+        conn.close()
+
+
+def mt_tenant_process(port, tenant, spec, bodies, content_type, start,
+                      out_path):
+    """A child process holding one tenant's clients, so that the load
+    generator's Python work (sending 8 MiB bodies, reading replies) runs
+    under its own GIL and not the server's. Waits on the ``start``
+    barrier, runs spec["clients"] client threads for MT_SECONDS, and
+    pickles (records, failures, wall seconds) to ``out_path``."""
+    import pickle
+    import threading
+
+    records, failures = [], []
+    start.wait(timeout=120)
+    t0 = time.perf_counter()
+    t_end = t0 + MT_SECONDS
+    threads = [threading.Thread(
+        target=mt_client, daemon=True,
+        args=(port, tenant, spec, bodies, c * (len(bodies) // spec["clients"]),
+              t_end, records, failures, content_type))
+        for c in range(spec["clients"])]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    if any(t.is_alive() for t in threads):
+        failures.append(f"{tenant}: a client did not finish")
+    with open(out_path, "wb") as f:
+        pickle.dump((records, failures, time.perf_counter() - t0), f)
+
+
+def mt_check_responses(label, tenant, records, pool, strict):
+    """Hold every 200 to the native bar; with ``strict`` (run B), every
+    other reply must be a 503 shed or a 429, each with Retry-After >= 1.
+    Returns the tenant's summary."""
+    from spark_rapids_ml_tpu_torch.serve import wire
+
+    worst, lat_ok, lat_shed, rows_ok = 0.0, [], [], 0
+    counts = {"200": 0, "429": 0, "503": 0, "503_shed": 0, "other": 0}
+    for seconds, status, headers, data, index in records:
+        if status == 200:
+            out = wire.decode_response(data)
+            ref = pool[index][1]
+            check(out.shape == ref.shape and np.isfinite(out).all(),
+                  f"{label} {tenant}: shape {out.shape}")
+            worst = max(worst, relative_error(out, ref))
+            lat_ok.append(seconds * 1e3)
+            rows_ok += out.shape[0]
+            counts["200"] += 1
+            continue
+        doc = json.loads(data)
+        retry_after = int(headers.get("retry-after", "0"))
+        if status == 503 and doc.get("shed") is True:
+            counts["503_shed"] += 1
+            counts["503"] += 1
+            lat_shed.append(seconds * 1e3)
+            check(retry_after >= 1, f"{label} {tenant}: shed 503 with "
+                  f"Retry-After {retry_after}")
+        elif status == 429:
+            counts["429"] += 1
+            check(retry_after >= 1, f"{label} {tenant}: 429 with "
+                  f"Retry-After {retry_after}")
+        else:
+            counts["other"] += 1
+            check(not strict, f"{label} {tenant}: HTTP {status} {doc}")
+    check(worst <= SERVE_BARS["native"], f"{label} {tenant}: responses "
+          f"outside the native bar: {worst:.3e}")
+    lat = np.asarray(lat_ok) if lat_ok else np.asarray([np.nan])
+    shed = np.asarray(lat_shed) if lat_shed else np.asarray([np.nan])
+    return {"requests": len(records), **counts, "rows_ok": rows_ok,
+            "p50_ms": float(np.percentile(lat, 50)),
+            "p99_ms": float(np.percentile(lat, 99)),
+            "shed_p50_ms": float(np.percentile(shed, 50)),
+            "shed_p99_ms": float(np.percentile(shed, 99)), "worst": worst}
+
+
+def mt_run(label, registry, pools, tenants, kill_switches=False):
+    """One run of phase 6: a fresh engine (the constructor's admission and
+    scheduler, or with the kill switches set in the environment), the
+    tenants' clients for MT_SECONDS over HTTP, each tenant's clients in a
+    child process of their own, and a sampler of the shed level and the
+    queue-wait estimate. Returns (engine, server, per-tenant summaries,
+    counter deltas, samples, wall seconds)."""
+    import multiprocessing
+    import pickle
+    import threading
+
+    from spark_rapids_ml_tpu_torch.obs.metrics import get_registry
+    from spark_rapids_ml_tpu_torch.serve import (
+        ServeEngine,
+        ShedController,
+        start_serve_server,
+        wire,
+    )
+
+    saved = {k: os.environ.get(k) for k in MT_KILL_SWITCHES}
+    if kill_switches:
+        os.environ.update(MT_KILL_SWITCHES)
+    try:
+        kwargs = dict(
+            max_queue_depth=MT_QUEUE_DEPTH, max_batch_rows=SERVE_MAX_ROWS,
+            max_wait_ms=5.0, pipeline_depth=2, precision="native",
+            tenant_quotas={"greedy": MT_GREEDY["quota"]},
+            tenant_weights={"greedy": 1.0, "compliant": 1.0})
+        if not kill_switches:
+            kwargs.update(fair_scheduling=True,
+                          shed=ShedController(**MT_SHED))
+        engine = ServeEngine(registry, **kwargs)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    check(engine.fair_scheduling == (not kill_switches)
+          and engine.admission.shed.enabled == (not kill_switches),
+          f"{label}: fair {engine.fair_scheduling}, shed "
+          f"{engine.admission.shed.enabled}")
+    engine.warmup("pca")
+    server = start_serve_server(engine, port=0, addr="127.0.0.1")
+    metrics = get_registry()
+    batcher = engine._batchers[("pca", 1)]
+    samples = {"level": 0, "wait": 0.0, "stop": threading.Event()}
+
+    def sampler():
+        while not samples["stop"].wait(0.02):
+            samples["level"] = max(samples["level"],
+                                   engine.admission.shed.level())
+            samples["wait"] = max(samples["wait"],
+                                  batcher.queue_wait_estimate())
+
+    ctx = multiprocessing.get_context("spawn")
+    start = ctx.Barrier(len(tenants) + 1)
+    port = server.server_address[1]
+    records, failures, walls = {}, [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = {}
+        for tenant in tenants:
+            spec = MT_GREEDY if tenant == "greedy" else MT_COMPLIANT
+            procs[tenant] = ctx.Process(
+                target=mt_tenant_process, daemon=True,
+                args=(port, tenant, spec, [b for b, _ in pools[tenant]],
+                      wire.BINARY_CONTENT_TYPE, start,
+                      os.path.join(tmp, tenant + ".pkl")))
+        try:
+            for proc in procs.values():
+                proc.start()
+            before = mt_counters(metrics)
+            sampler_thread = threading.Thread(target=sampler, daemon=True)
+            sampler_thread.start()
+            start.wait(timeout=120)
+            for proc in procs.values():
+                proc.join(timeout=MT_SECONDS + 300)
+        finally:
+            for proc in procs.values():
+                if proc.is_alive():
+                    proc.kill()
+                    proc.join()
+        samples["stop"].set()
+        sampler_thread.join(timeout=5)
+        after = mt_counters(metrics)
+        for tenant, proc in procs.items():
+            check(proc.exitcode == 0,
+                  f"{label}: {tenant}'s clients exited {proc.exitcode}")
+            with open(os.path.join(tmp, tenant + ".pkl"), "rb") as f:
+                records[tenant], failed, wall = pickle.load(f)
+            failures += failed
+            walls.append(wall)
+    check(not failures, f"{label}: clients failed: {failures[:3]}")
+    wall = max(walls)
+    delta = {k: after[k] - before.get(k, 0) for k in after}
+    summaries = {t: mt_check_responses(label, t, records[t], pools[t],
+                                       strict=label.startswith("(B)"))
+                 for t in tenants}
+    for tenant, s in summaries.items():
+        log(f"  {label} {tenant}: {s['requests']} requests, 200 "
+            f"{s['200']}, 429 {s['429']}, 503 {s['503']} (shed "
+            f"{s['503_shed']}), other {s['other']}; "
+            f"{s['rows_ok'] / wall:.0f} rows/s served; client latency of "
+            f"the 200s p50 {s['p50_ms']:.2f} ms, p99 {s['p99_ms']:.2f} ms"
+            f"{'' if not s['503_shed'] else ', of the shed 503s p50 %.2f ms, p99 %.2f ms' % (s['shed_p50_ms'], s['shed_p99_ms'])}; "
+            f"worst max|Δ|/max|ref| {s['worst']:.3e}")
+    split = ", ".join(
+        f"{key[5:]}: {int(v[0])} replies, mean {v[1] / v[0] * 1e3:.2f} ms"
+        for key, v in sorted(delta.items())
+        if key.startswith("http_") and v[0] > 0)
+    log(f"  {label}: server time per POST /predict reply by status "
+        f"({split})")
+    log(f"  {label}: {wall:.2f} s; highest shed level {samples['level']}, "
+        f"peak queue-wait estimate {samples['wait'] * 1e3:.2f} ms; sheds "
+        f"by reason: over_quota {delta['shed_over_quota']:.0f}, "
+        f"over_quota_batch {delta['shed_over_quota_batch']:.0f}, "
+        f"preempted {delta['shed_preempted']:.0f}; batches "
+        f"{delta['batches']:.0f}, program runs on cuda "
+        f"{delta['runs_cuda']:.0f}")
+    return engine, server, summaries, delta, samples, wall
+
+
+def mt_readyz_recovery(engine, server) -> float:
+    """Seconds until /readyz answers 200 again, probing every 50 ms with
+    no predict traffic."""
+    import http.client
+
+    shed = engine.admission.shed
+    budget = shed.hold_seconds + 2.0
+    t0 = time.perf_counter()
+    statuses = []
+    while True:
+        conn = http.client.HTTPConnection("127.0.0.1",
+                                          server.server_address[1],
+                                          timeout=30)
+        try:
+            conn.request("GET", "/readyz")
+            resp = conn.getresponse()
+            resp.read()
+            statuses.append(resp.status)
+        finally:
+            conn.close()
+        elapsed = time.perf_counter() - t0
+        if statuses[-1] == 200 or elapsed > budget + 5.0:
+            break
+        time.sleep(0.05)
+    log(f"  (B): /readyz {statuses[0]} when the flood stopped, 200 after "
+        f"{elapsed:.2f} s of probes alone (hold {shed.hold_seconds:g} s, "
+        f"bar {budget:g} s); signals then {shed.snapshot()['signals']}")
+    check(statuses[-1] == 200 and elapsed <= budget,
+          f"/readyz not back to 200 within {budget:g} s: {statuses[-5:]}")
+    return elapsed
+
+
+def phase_multitenant(torch, model, device):
+    """Phase 6: multi-tenant serving of ``model`` over HTTP."""
+    from spark_rapids_ml_tpu_torch.serve import ModelRegistry
+
+    t0 = time.perf_counter()
+    pools = mt_traffic(model)
+    log(f"  traffic pools: {MT_POOL['greedy']} greedy bodies of "
+        f"{MT_GREEDY['rows']} rows, {MT_POOL['compliant']} compliant "
+        f"bodies of {MT_COMPLIANT['rows']} rows, made in "
+        f"{time.perf_counter() - t0:.2f} s")
+    registry = ModelRegistry()
+    registry.register("pca", model)
+    p99 = {}
+    torch.set_float32_matmul_precision("high")
+    try:
+        for label, tenants, kill in (
+                ("(A) compliant alone", ("compliant",), False),
+                ("(B) both, fair + shed", ("compliant", "greedy"), False),
+                ("(C) both, kill switches", ("compliant", "greedy"), True)):
+            engine, server, summaries, delta, samples, _ = mt_run(
+                label, registry, pools, tenants, kill_switches=kill)
+            try:
+                p99[label[:3]] = summaries["compliant"]["p99_ms"]
+                for key in ("degraded", "retries", "runs_cpu"):
+                    check(delta[key] == 0, f"{label}: {key} moved by "
+                          f"{delta[key]}")
+                check(delta["runs_cuda"] == delta["batches"] > 0,
+                      f"{label}: {delta['runs_cuda']} cuda runs for "
+                      f"{delta['batches']} batches")
+                if label.startswith("(B)"):
+                    compliant, greedy = (summaries["compliant"],
+                                         summaries["greedy"])
+                    check(compliant["200"] == compliant["requests"] > 0,
+                          f"(B) compliant availability {compliant}")
+                    check(greedy["503_shed"] > 0, "(B) greedy never shed")
+                    check(greedy["other"] == 0 and compliant["other"] == 0,
+                          "(B) replies other than 200, 503 shed and 429")
+                    check(delta["shed_compliant"] == 0,
+                          f"(B) compliant shed {delta['shed_compliant']}")
+                    check(delta["shed_greedy"] == greedy["503_shed"],
+                          f"(B) shed counter {delta['shed_greedy']} vs "
+                          f"{greedy['503_shed']} shed 503s")
+                    check(delta["load_shed"] == greedy["503_shed"]
+                          and delta["errors"] == delta["load_shed"],
+                          f"(B) errors {delta['errors']}, load_shed "
+                          f"{delta['load_shed']}")
+                    mt_readyz_recovery(engine, server)
+                else:
+                    check(delta["errors"] == delta["load_shed"] == 0,
+                          f"{label}: errors {delta['errors']}")
+            finally:
+                server.shutdown()
+                server.server_close()
+                engine.shutdown()
+    finally:
+        torch.set_float32_matmul_precision("highest")
+        torch.backends.cuda.matmul.allow_tf32 = False
+    log(f"  compliant p99 (host clock, not asserted): (A) "
+        f"{p99['(A)']:.2f} ms, (B) {p99['(B)']:.2f} ms, (C) "
+        f"{p99['(C)']:.2f} ms; phase 6 {time.perf_counter() - t0:.1f} s")
+
+
 def build_fresh(cuda_build):
     """Build the Gram library anew, so ``ptxas -v`` reports on it."""
     path = cuda_build.library_path("fused_gram")
@@ -1029,6 +1446,14 @@ def main() -> int:
     log(f"  kernel launches in the serve phase: {served} (the serve path "
         f"runs no hand kernel)")
     check(sum(served.values()) == 0, "the serve phase launched a kernel")
+
+    log("[6] multi-tenant serving")
+    fg.reset_launches()
+    phase_multitenant(torch, model_c, device)
+    served = dict(fg.launches)
+    log(f"  kernel launches in the multi-tenant phase: {served}")
+    check(sum(served.values()) == 0, "the multi-tenant phase launched a "
+          "kernel")
 
     kernels = []
     for name, m in measured.items():

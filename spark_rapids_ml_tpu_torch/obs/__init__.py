@@ -1,7 +1,73 @@
 """Observability for the port's serving path: the metrics registry
-(``obs.metrics``), its quantile sketches (``obs.quantiles``) and the
-pipelined serving program contract (``obs.serving``)."""
+(``obs.metrics``), its quantile sketches (``obs.quantiles``), the
+pipelined serving program contract (``obs.serving``), request trace
+context (``obs.tracectx``), structured spans assembled into per-request
+trees (``obs.spans``) and SLO burn-rate objectives (``obs.slo``)."""
 
 from spark_rapids_ml_tpu_torch.obs.metrics import get_registry  # noqa: F401
+from spark_rapids_ml_tpu_torch.obs.slo import (  # noqa: F401
+    BURN_POLICIES,
+    SLO,
+    SloSet,
+    WindowedCounts,
+    default_slos,
+    severity_for_burn,
+)
+from spark_rapids_ml_tpu_torch.obs.spans import (  # noqa: F401
+    SpanEvent,
+    SpanRecorder,
+    assemble_trace,
+    current_span_id,
+    current_trace_id,
+    get_recorder,
+    new_trace_id,
+    recent_traces,
+    record_event,
+    span,
+)
+from spark_rapids_ml_tpu_torch.obs.tracectx import (  # noqa: F401
+    TRACEPARENT_HEADER,
+    TraceContext,
+    activate,
+    capture,
+    current_context,
+    ensure_context,
+    inflight_request,
+    inflight_requests,
+    new_context,
+    new_span_id,
+    parse_traceparent,
+    traced_thread,
+)
 
-__all__ = ["get_registry"]
+__all__ = [
+    "BURN_POLICIES",
+    "SLO",
+    "SloSet",
+    "SpanEvent",
+    "SpanRecorder",
+    "TRACEPARENT_HEADER",
+    "TraceContext",
+    "WindowedCounts",
+    "activate",
+    "assemble_trace",
+    "capture",
+    "current_context",
+    "current_span_id",
+    "current_trace_id",
+    "default_slos",
+    "ensure_context",
+    "get_recorder",
+    "get_registry",
+    "inflight_request",
+    "inflight_requests",
+    "new_context",
+    "new_span_id",
+    "new_trace_id",
+    "parse_traceparent",
+    "recent_traces",
+    "record_event",
+    "severity_for_burn",
+    "span",
+    "traced_thread",
+]

@@ -15,6 +15,13 @@ one model on one card needs:
   model's ``ServingProgram`` (copy of batch N+1 on a copy stream while N
   computes), a supervised worker (crash restart, wedge watchdog,
   ``WorkerCrashed``);
+* ``AdmissionController`` (``serve.admission``) and the fair scheduler
+  (``serve.scheduler``) — requests carry a tenant id and a priority class;
+  per-tenant token-bucket quotas tag over-quota work, a hysteresis shed
+  controller over the SLO fast burn, queue wait and queue depth sheds only
+  over-quota work (``ShedLoad`` → HTTP 503 + ``Retry-After``), and each
+  batcher's ``FairQueue`` orders requests by start-time fair queuing over
+  row-cost virtual time, preempting lower-ranked work on a full queue;
 * ``ServeEngine`` (``serve.engine``) — bounded queues, deadlines, drain,
   retries with backoff, a per-model circuit breaker (``serve.breaker``),
   the degraded CPU fallback (``serve.fallback``), the NaN guard, and the
@@ -43,7 +50,17 @@ from spark_rapids_ml_tpu_torch.serve.breaker import (  # noqa: F401
     breaker_events,
 )
 from spark_rapids_ml_tpu_torch.serve.fallback import cpu_fallback  # noqa: F401
-from spark_rapids_ml_tpu_torch.serve.scheduler import FifoQueue  # noqa: F401
+from spark_rapids_ml_tpu_torch.serve.admission import (  # noqa: F401
+    AdmissionController,
+    ShedController,
+    ShedLoad,
+    TokenBucket,
+)
+from spark_rapids_ml_tpu_torch.serve.scheduler import (  # noqa: F401
+    FairQueue,
+    FifoQueue,
+    fair_scheduling_from_env,
+)
 from spark_rapids_ml_tpu_torch.serve.batching import (  # noqa: F401
     AsyncTransformSpec,
     BatcherClosed,
@@ -70,12 +87,14 @@ from spark_rapids_ml_tpu_torch.serve.server import (  # noqa: F401
 )
 
 __all__ = [
+    "AdmissionController",
     "AsyncTransformSpec",
     "BatcherClosed",
     "BreakerOpen",
     "CircuitBreaker",
     "DeadlineExpired",
     "EngineClosed",
+    "FairQueue",
     "FaultPlane",
     "FaultSpec",
     "FifoQueue",
@@ -88,11 +107,15 @@ __all__ = [
     "QueueFull",
     "RegisteredModel",
     "ServeEngine",
+    "ShedController",
+    "ShedLoad",
+    "TokenBucket",
     "WaitTimeout",
     "WorkerCrashed",
     "breaker_events",
     "cpu_fallback",
     "extract_output",
+    "fair_scheduling_from_env",
     "fault_plane",
     "make_handler",
     "reset_fault_plane",

@@ -23,15 +23,30 @@ three steps, which the worker interleaves across batches:
   padding sliced off, the output check run, and rows split to requests.
 
 All CUDA work happens on the worker thread, on the program's own streams;
-callers only enqueue and wait. A model without a program keeps the
+callers only enqueue and wait. The queue discipline is pluggable
+(``serve.scheduler``): ``FifoQueue`` by default, the engine's weighted-fair
+``FairQueue`` over tenants and priorities otherwise; the queue-wait EWMA
+(``queue_wait_estimate``) is noted where each request leaves the queue for
+a batch, and feeds the shed controller and ``Retry-After``. Each request
+carries its caller's ``TraceContext``: the worker files its
+``serve:queue:<model>`` span, runs each batch in a ``serve:batch:<model>``
+span that links every member's trace, and resolves each latch under the
+member's own context. A model without a program keeps the
 blocking path (window depth 1): one ``transform_fn`` call per batch.
 
-Invariants (tested in ``tests/test_torch_serve_engine.py``):
+Invariants (tested in ``tests/test_torch_serve_engine.py`` and
+``tests/test_torch_serve_fairness.py``):
 
 * padded rows never appear in any response, at any pipeline depth;
 * each request gets exactly its own rows back, in its own order;
 * a request whose deadline expired while queued is shed with
-  ``DeadlineExpired`` before touching the device;
+  ``DeadlineExpired`` before touching the device — the whole queue is
+  swept (``pop_expired``) before each coalesce, not only its head;
+* on a full queue an arrival may preempt a strictly lower-ranked queued
+  request (``FairQueue.select_victim``): the victim fails at once with
+  ``ShedLoad(reason="preempted")``, counted per tenant. Only requests
+  still in the queue are candidates: once coalesced into a staged batch a
+  request is past preemption, so no staged batch ever carries a hole;
 * a batch-level failure reaches every request of that batch, and only
   that batch: the rest of the in-flight window completes normally.
 
@@ -57,7 +72,14 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from spark_rapids_ml_tpu_torch.obs import serving as obs_serving
+from spark_rapids_ml_tpu_torch.obs import spans as spans_mod
+from spark_rapids_ml_tpu_torch.obs import tracectx
 from spark_rapids_ml_tpu_torch.obs.metrics import get_registry
+from spark_rapids_ml_tpu_torch.serve.admission import (
+    INTERACTIVE,
+    ShedLoad,
+    retry_after_cap,
+)
 from spark_rapids_ml_tpu_torch.serve.faults import (
     InjectedWorkerCrash,
     fault_plane,
@@ -136,16 +158,30 @@ class AsyncTransformSpec:
 
 
 class _Request:
-    """One enqueued predict request; a latch the caller waits on."""
+    """One enqueued predict request; a latch the caller waits on.
 
-    __slots__ = ("rows", "n", "enqueued", "deadline", "_event", "result",
-                 "error")
+    ``trace_ctx`` is the submitter's captured ``TraceContext`` (the worker
+    re-activates it around every resolution and files the queue-wait span
+    into its trace); ``tenant`` / ``priority`` / ``over_quota`` are the
+    admission verdict the fair queue orders and ranks by."""
 
-    def __init__(self, rows: np.ndarray, deadline: Optional[float]):
+    __slots__ = ("rows", "n", "enqueued", "enqueued_perf", "deadline",
+                 "trace_ctx", "tenant", "priority", "over_quota",
+                 "_event", "result", "error")
+
+    def __init__(self, rows: np.ndarray, deadline: Optional[float],
+                 trace_ctx: Optional[tracectx.TraceContext] = None,
+                 tenant: str = "default", priority: str = INTERACTIVE,
+                 over_quota: bool = False):
         self.rows = rows
         self.n = int(rows.shape[0])
         self.enqueued = time.monotonic()
+        self.enqueued_perf = time.perf_counter()  # the spans' clock
         self.deadline = deadline
+        self.trace_ctx = trace_ctx
+        self.tenant = tenant
+        self.priority = priority
+        self.over_quota = over_quota
         self._event = threading.Event()
         self.result: Optional[np.ndarray] = None
         self.error: Optional[BaseException] = None
@@ -184,12 +220,13 @@ class _InFlight:
     """One batch traveling stage → dispatch → complete; the unit the
     crash and wedge handlers fail."""
 
-    __slots__ = ("batch", "handle", "n", "bucket", "watchdog",
+    __slots__ = ("batch", "ctx", "handle", "n", "bucket", "watchdog",
                  "dispatched", "stage_seconds", "dispatch_seconds",
                  "sync_seconds", "record")
 
-    def __init__(self, batch: List[_Request]):
+    def __init__(self, batch: List[_Request], ctx: tracectx.TraceContext):
         self.batch = batch
+        self.ctx = ctx  # the batch's own trace, linked to its members'
         self.handle: Any = None
         self.n = 0
         self.bucket = 0
@@ -274,7 +311,8 @@ class MicroBatcher:
 
     ``dtype`` is what ``submit`` coerces request rows to. ``output_check``
     (optional) runs over the REAL rows only, after the padding slice and
-    before the split; a raise there fails the whole batch.
+    before the split; a raise there fails the whole batch. ``queue`` is
+    the queue discipline (None → ``FifoQueue``).
     """
 
     def __init__(
@@ -292,6 +330,7 @@ class MicroBatcher:
         dtype=np.float64,
         async_spec: Optional[AsyncTransformSpec] = None,
         pipeline_depth: int = 2,
+        queue=None,
     ):
         if max_batch_rows < 1:
             raise ValueError("max_batch_rows must be >= 1")
@@ -334,7 +373,13 @@ class MicroBatcher:
             self.max_batch_rows = min(self.max_batch_rows, self.buckets[-1])
         else:
             self.buckets = default_buckets(self.max_batch_rows)
-        self._queue = FifoQueue()
+        self._queue = queue if queue is not None else FifoQueue()
+        # queue-wait estimate: an EWMA updated as requests leave the
+        # queue, decayed toward 0 while idle (an estimate frozen at the
+        # last overload would keep the shed controller shedding an empty
+        # queue). Worker-thread writes; readers tolerate staleness.
+        self._wait_ewma = 0.0
+        self._wait_ewma_at = time.monotonic()
         self._lock = threading.Lock()
         self._not_empty = threading.Condition(self._lock)
         self._closed = False
@@ -419,6 +464,11 @@ class MicroBatcher:
             "worker crashes/wedges, breaker rejections", ("model", "error"),
         )
         self._m_errors.inc(0, model=self.name, error="worker_crashed")
+        self._m_shed_tenant = reg.counter(
+            "sparkml_serve_shed_total",
+            "requests shed by the adaptive overload controller, by "
+            "tenant and reason", ("tenant", "reason"),
+        )
         self._m_restarts = reg.counter(
             "sparkml_serve_worker_restarts_total",
             "batcher worker restarts after a crash or watchdog-declared "
@@ -446,14 +496,23 @@ class MicroBatcher:
     # -- submission --------------------------------------------------------
 
     def submit(self, rows: np.ndarray,
-               deadline: Optional[float] = None) -> _Request:
+               deadline: Optional[float] = None,
+               trace_ctx: Optional[tracectx.TraceContext] = None,
+               tenant: str = "default", priority: str = INTERACTIVE,
+               over_quota: bool = False) -> _Request:
         """Enqueue a (n, d) request; returns the latch to ``wait`` on.
 
         Rows are coerced once, here, to the model's transform ``dtype``
-        (no copy when they already match). Raises ``QueueFull`` past
+        (no copy when they already match). ``trace_ctx`` is the caller's
+        captured ``TraceContext`` (None → the active one);
+        ``tenant`` / ``priority`` / ``over_quota`` are the admission
+        verdict the queue orders by. Raises ``QueueFull`` past
         ``max_queue_depth``, ``BatcherClosed`` after ``close()`` and
         ``WorkerCrashed`` once the batcher is dead — all before the
-        request occupies queue memory.
+        request occupies queue memory. Under the fair queue a FULL queue
+        may instead preempt a strictly lower-ranked queued request: the
+        victim is shed with ``ShedLoad`` (counted per tenant) and the
+        arrival takes its slot.
         """
         rows = np.asarray(rows, dtype=self.dtype)
         if rows.ndim == 1:
@@ -468,7 +527,11 @@ class MicroBatcher:
                 f"max_batch_rows {self.max_batch_rows} — split it, or "
                 "configure a larger top bucket"
             )
-        req = _Request(rows, deadline)
+        req = _Request(rows, deadline,
+                       trace_ctx=trace_ctx or tracectx.capture(),
+                       tenant=tenant, priority=priority,
+                       over_quota=over_quota)
+        victim: Optional[_Request] = None
         with self._not_empty:
             if self._closed:
                 raise BatcherClosed(f"batcher {self.name!r} is closed")
@@ -483,16 +546,55 @@ class MicroBatcher:
                     "budget exhausted) — evict and re-create the batcher"
                 )
             if len(self._queue) >= self.max_queue_depth:
-                self._m_requests.inc(model=self.name, outcome="rejected")
-                self._m_rejected.inc(model=self.name)
-                raise QueueFull(
-                    f"{self.name}: queue depth {len(self._queue)} >= "
-                    f"max_queue_depth {self.max_queue_depth}"
-                )
+                # preemption: a strictly lower-ranked queued request may
+                # be evicted for the arrival (FairQueue only; FifoQueue
+                # always declines and the newcomer is rejected)
+                victim = self._queue.select_victim(req)
+                if victim is None:
+                    self._m_requests.inc(model=self.name,
+                                         outcome="rejected")
+                    self._m_rejected.inc(model=self.name)
+                    raise QueueFull(
+                        f"{self.name}: queue depth {len(self._queue)} >= "
+                        f"max_queue_depth {self.max_queue_depth}"
+                    )
             self._queue.append(req)
             self._record_depth()
             self._not_empty.notify()
+        if victim is not None:
+            self._shed_preempted(victim)
         return req
+
+    def _shed_preempted(self, victim: _Request) -> None:
+        """Resolve a preemption victim at once: shed with ``ShedLoad``
+        (the arrival outranked it), counted per tenant and as the distinct
+        ``load_shed`` error, its queue-wait span filed into its trace."""
+        with tracectx.activate(victim.trace_ctx):
+            self._record_queue_span(victim, shed=True, error="ShedLoad")
+            victim.set_error(ShedLoad(
+                f"{self.name}: preempted from a full queue by a "
+                "higher-priority arrival",
+                retry_after=min(self.queue_wait_estimate() + 1.0,
+                                retry_after_cap()),
+                reason="preempted", tenant=victim.tenant,
+            ))
+        self._m_requests.inc(model=self.name, outcome="shed")
+        self._m_errors.inc(model=self.name, error="load_shed")
+        self._m_shed_tenant.inc(tenant=victim.tenant, reason="preempted")
+
+    def queue_wait_estimate(self) -> float:
+        """The live queue-wait estimate (seconds): an EWMA over recent
+        waits, taken as each request leaves the queue, halved every 2 s
+        of idleness — one overload burst must not read as pressure
+        forever. Host state only: no device read. Feeds the shed
+        controller and the HTTP ``Retry-After``."""
+        age = max(time.monotonic() - self._wait_ewma_at, 0.0)
+        return self._wait_ewma * (0.5 ** (age / 2.0))
+
+    def _note_queue_wait(self, wait_s: float) -> None:
+        self._wait_ewma = (0.8 * self.queue_wait_estimate()
+                           + 0.2 * max(wait_s, 0.0))
+        self._wait_ewma_at = time.monotonic()
 
     def depth(self) -> int:
         with self._lock:
@@ -517,8 +619,10 @@ class MicroBatcher:
             self._closed = True
             if not drain:
                 while self._queue:
-                    self._queue.popleft().set_error(BatcherClosed(
-                        f"batcher {self.name!r} shut down"))
+                    req = self._queue.popleft()
+                    with tracectx.activate(req.trace_ctx):
+                        req.set_error(BatcherClosed(
+                            f"batcher {self.name!r} shut down"))
                 self._record_depth()
             self._not_empty.notify_all()
         self._worker.join(timeout=timeout)
@@ -557,7 +661,15 @@ class MicroBatcher:
 
     def _pop_live(self) -> Optional[_Request]:
         """Pop the next unexpired request; shed expired ones (counted,
-        errored) without touching the device. Caller holds the lock."""
+        errored) without touching the device. Caller holds the lock.
+
+        The fair queue first sweeps expired entries from the WHOLE queue
+        (``pop_expired``): under pressure its interactive-first pick never
+        reaches queued batch work, whose expired entries would otherwise
+        hang their clients and pin the queue depth. FIFO's sweep is a
+        no-op: its head always drains."""
+        for expired in self._queue.pop_expired():
+            self._shed(expired)
         while self._queue:
             req = self._queue.popleft()
             if req.expired():
@@ -567,12 +679,32 @@ class MicroBatcher:
         return None
 
     def _shed(self, req: _Request) -> None:
-        req.set_error(DeadlineExpired(
-            f"{self.name}: deadline expired after "
-            f"{time.monotonic() - req.enqueued:.3f}s in queue"
-        ))
+        self._note_queue_wait(time.monotonic() - req.enqueued)
+        with tracectx.activate(req.trace_ctx):
+            self._record_queue_span(req, shed=True)
+            req.set_error(DeadlineExpired(
+                f"{self.name}: deadline expired after "
+                f"{time.monotonic() - req.enqueued:.3f}s in queue"
+            ))
         self._m_requests.inc(model=self.name, outcome="expired")
         self._m_expired.inc(model=self.name)
+
+    def _record_queue_span(self, req: _Request, shed: bool = False,
+                           error: str = "DeadlineExpired") -> None:
+        """File the queue-wait interval into the REQUEST's trace (the
+        enqueue thread stamped t0; this — pop or shed — is t1)."""
+        ctx = req.trace_ctx
+        if ctx is None:
+            return
+        args = {"model": self.name, "rows": req.n}
+        if shed:
+            args["error"] = error
+        spans_mod.record_event(
+            f"serve:queue:{self.name}",
+            req.enqueued_perf, time.perf_counter(),
+            trace_id=ctx.trace_id, parent_span_id=ctx.span_id,
+            **args,
+        )
 
     def _spawn_worker(self) -> threading.Thread:
         """Start a worker for the current generation."""
@@ -678,7 +810,8 @@ class MicroBatcher:
                        exc: BaseException,
                        error_label: str = "worker_crashed") -> None:
         for req in requests:
-            req.set_error(exc)
+            with tracectx.activate(req.trace_ctx):
+                req.set_error(exc)
         if requests:
             self._m_requests.inc(len(requests), model=self.name,
                                  outcome="error")
@@ -734,7 +867,8 @@ class MicroBatcher:
                     # in flight from here: registered under the lock,
                     # before any fault-prone work, so a crash or wedge
                     # handler fails exactly these requests
-                    entry = _InFlight(batch)
+                    entry = _InFlight(
+                        batch, tracectx.new_context(model=self.name))
                     self._inflight.append(entry)
                 elif not window:
                     if self._closed:
@@ -769,8 +903,19 @@ class MicroBatcher:
                 return None  # a wedge handler already failed these
         now = time.monotonic()
         for req in batch:
-            self._m_stage.observe(now - req.enqueued, model=self.name,
-                                  stage="queue")
+            # measured as the request leaves the queue for a batch (the
+            # pipelined overlap included), where the JAX package takes
+            # it, so the shed thresholds mean the same in both
+            wait = now - req.enqueued
+            self._note_queue_wait(wait)
+            self._m_stage.observe(wait, model=self.name, stage="queue")
+            self._record_queue_span(req)
+        # the fan-in edge: the coalesced dispatch runs in its own batch
+        # trace whose links name every member request's trace
+        member_ids: List[str] = []
+        for req in batch:
+            if req.trace_ctx and req.trace_ctx.trace_id not in member_ids:
+                member_ids.append(req.trace_ctx.trace_id)
         if self._record_algo:
             entry.record = obs_serving.PipelineTransform(self._record_algo)
         try:
@@ -800,7 +945,12 @@ class MicroBatcher:
             entry.stage_seconds = time.perf_counter() - t0
             t1 = time.perf_counter()
             self._note_dispatch(entry)
-            entry.handle = self._dispatch_fn(handle)
+            with tracectx.activate(entry.ctx), spans_mod.span(
+                f"serve:batch:{self.name}",
+                trace_id=entry.ctx.trace_id, links=tuple(member_ids),
+                requests=len(batch), rows=n, bucket=entry.bucket,
+            ):
+                entry.handle = self._dispatch_fn(handle)
             entry.dispatch_seconds = time.perf_counter() - t1
             with self._not_empty:
                 retired = gen != self._generation
@@ -826,7 +976,8 @@ class MicroBatcher:
                 entry.record.finish(error=exc)
             if not stale:
                 for req in batch:
-                    req.set_error(exc)
+                    with tracectx.activate(req.trace_ctx):
+                        req.set_error(exc)
                 self._m_requests.inc(len(batch), model=self.name,
                                      outcome="error")
             return None
@@ -872,14 +1023,17 @@ class MicroBatcher:
             if entry.record is not None:
                 entry.record.finish(error=err)
             for req in entry.batch:
-                req.set_error(err)
+                with tracectx.activate(req.trace_ctx):
+                    req.set_error(err)
             self._m_requests.inc(len(entry.batch), model=self.name,
                                  outcome="error")
             return
         self._record_batch(entry)
         offset = 0
         for req in entry.batch:
-            req.set_result(out[offset:offset + req.n])
+            # resolve under the member's own context
+            with tracectx.activate(req.trace_ctx):
+                req.set_result(out[offset:offset + req.n])
             offset += req.n
         self._m_requests.inc(len(entry.batch), model=self.name,
                              outcome="ok")

@@ -1,12 +1,29 @@
-"""The serving front door: deadlines, admission at the queue, graceful
+"""The serving front door: multi-tenant admission, deadlines, graceful
 drain — and the self-healing layer: retries, circuit breakers, degraded
 mode.
 
 The port's core of the JAX package's ``serve/engine.py``. ``ServeEngine``
 ties the registry and one micro-batcher per model version into one
-synchronous ``predict(model_ref, rows)`` call that a thread pool (or the
-HTTP server in ``serve.server``) can hammer:
+synchronous ``predict(model_ref, rows, tenant=, priority=)`` call that a
+thread pool (or the HTTP server in ``serve.server``) can hammer:
 
+* **multi-tenant admission** (``serve.admission``) — before the breaker
+  or any device work, each request's tenant runs through its token-bucket
+  quota (over quota → tagged, not rejected) and the shed controller,
+  whose levels follow the live overload signals (``_overload_signals``:
+  the SLO fast-burn rate, the batchers' queue-wait estimate, the fullest
+  queue's depth fraction — host counters only, never a device read); a
+  shed raises ``ShedLoad`` (counted, audited as a ``serve:admission``
+  span, never retried, never breaker food);
+* **weighted-fair scheduling** (``serve.scheduler``) — each batcher's
+  queue is a ``FairQueue`` over ``(tenant, priority)`` flows with the
+  tenant weights, interactive-first while the controller sheds, and
+  preemption of lower-ranked work on a full queue;
+  ``SPARK_RAPIDS_ML_TORCH_SERVE_SCHED=fifo`` (or ``fair_scheduling=False``)
+  restores the FIFO deque and ``..._SHED=0`` turns the controller off;
+* **SLOs** (``obs.slo``) — every request's outcome is recorded in
+  ``self.slo``; its fast-burn rate drives shed level 2 and, when
+  ``breaker_burn_threshold`` > 0, trips the breaker on backend failures;
 * **admission at the queue** — each model's queue is bounded at
   ``max_queue_depth``; a request past it is rejected with ``QueueFull``;
 * **per-request deadlines** — ``deadline_ms`` stamps a monotonic
@@ -38,11 +55,16 @@ that program (on the card unless the CPU was asked for); if the program
 cannot be built the engine counts ``error="serving_program"`` and keeps
 the blocking path through ``model.transform``.
 
-Not ported yet (see ``ROADMAP.md``): multi-tenant admission and the fair
-scheduler (the queue here is FIFO), SLO burn rates, replicas, placement
-and sharded requests, rollout, autoscale, tiering and cost accounting;
-nor the JAX engine's environment knobs: the port's engine is configured
-through its constructor only.
+Every request runs under a ``TraceContext`` (the caller's, or a fresh
+root) inside a ``serve:request:<model>`` span whose id the batcher's
+queue span and the admission audit parent under.
+
+Not ported yet (see ``ROADMAP.md``): replicas, placement and sharded
+requests, rollout, autoscale, tiering and cost accounting. The engine is
+configured through its constructor; of the JAX engine's environment
+knobs only admission's and the scheduler's
+(``SPARK_RAPIDS_ML_TORCH_SERVE_{TENANT_*,PRIORITY_DEFAULT,SHED*,SCHED}``)
+and the SLOs' (``SPARK_RAPIDS_ML_TORCH_SLO_*``) are read.
 """
 
 from __future__ import annotations
@@ -54,10 +76,20 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from spark_rapids_ml_tpu_torch.obs import spans as spans_mod
+from spark_rapids_ml_tpu_torch.obs import tracectx
 from spark_rapids_ml_tpu_torch.obs.metrics import get_registry
 from spark_rapids_ml_tpu_torch.obs.serving import ServingProgram
+from spark_rapids_ml_tpu_torch.obs.slo import SloSet, default_slos
 from spark_rapids_ml_tpu_torch.serve import breaker as breaker_mod
 from spark_rapids_ml_tpu_torch.serve import faults as faults_mod
+from spark_rapids_ml_tpu_torch.serve.admission import (
+    AdmissionController,
+    AdmissionDecision,
+    ShedController,
+    ShedLoad,
+    retry_after_cap,
+)
 from spark_rapids_ml_tpu_torch.serve.batching import (
     AsyncTransformSpec,
     BatcherClosed,
@@ -76,6 +108,10 @@ from spark_rapids_ml_tpu_torch.serve.registry import (
     ModelRegistry,
     RegisteredModel,
     _infer_features,
+)
+from spark_rapids_ml_tpu_torch.serve.scheduler import (
+    FairQueue,
+    fair_scheduling_from_env,
 )
 
 
@@ -133,6 +169,21 @@ def extract_output(model, result) -> np.ndarray:
     )
 
 
+def _rows_estimate(rows) -> int:
+    """Row count of a raw request without materializing it (the quota
+    cost must not pay an array copy before admission): array shapes are
+    read directly, a flat sequence counts as one row."""
+    shape = getattr(rows, "shape", None)
+    if shape is not None:
+        return int(shape[0]) if len(shape) >= 2 else 1
+    try:
+        if rows and isinstance(rows[0], (list, tuple, np.ndarray)):
+            return len(rows)
+    except (TypeError, KeyError):
+        pass
+    return 1
+
+
 # Exception shapes that mean "the device backend failed", as opposed to a
 # client error or an orderly rejection: these feed the breaker and the
 # retry loop.
@@ -156,17 +207,20 @@ def is_backend_error(exc: BaseException) -> bool:
 
 class PredictResult:
     """One served request: the outputs plus how they were produced
-    (``degraded`` CPU fallback? how many ``retries``?)."""
+    (``degraded`` CPU fallback? how many ``retries``?) and the request's
+    ``trace_id``."""
 
-    __slots__ = ("outputs", "model", "version", "degraded", "retries")
+    __slots__ = ("outputs", "model", "version", "degraded", "retries",
+                 "trace_id")
 
     def __init__(self, outputs: np.ndarray, model: str, version: int,
-                 degraded: bool, retries: int):
+                 degraded: bool, retries: int, trace_id: str):
         self.outputs = outputs
         self.model = model
         self.version = version
         self.degraded = degraded
         self.retries = retries
+        self.trace_id = trace_id
 
 
 class ServeEngine:
@@ -188,12 +242,27 @@ class ServeEngine:
         pipeline_depth: int = 2,
         precision: str = "native",
         precision_max_err: float = 0.05,
+        slo: Optional[SloSet] = None,
+        breaker_burn_threshold: float = 0.0,
+        fair_scheduling: Optional[bool] = None,
+        admission: Optional[AdmissionController] = None,
+        tenant_quotas: Optional[Dict[str, Any]] = None,
+        tenant_weights: Optional[Dict[str, float]] = None,
+        shed: Optional[ShedController] = None,
         clock: Callable[[], float] = time.monotonic,
     ):
         """``buckets`` None → the powers of two up to ``max_batch_rows``;
         ``max_worker_restarts`` None → unlimited; ``pipeline_depth`` 1 at
         native precision is the blocking path; ``precision_max_err`` is
-        the offline check's bar for a reduced ladder."""
+        the offline check's bar for a reduced ladder.
+
+        ``slo`` None → ``default_slos()``; ``breaker_burn_threshold`` > 0
+        arms the breakers' SLO fast-burn trip wire (off by default);
+        ``fair_scheduling`` None → ``fair_scheduling_from_env()``. The
+        admission layer is ``admission``, or one built from
+        ``tenant_quotas`` (``{name: rate}`` or ``{name: (rate, burst)}``,
+        rows/s), ``tenant_weights`` and ``shed`` (the shed controller and
+        its thresholds; None → one from the environment)."""
         self.registry = registry if registry is not None else ModelRegistry()
         self.max_batch_rows = int(max_batch_rows)
         self.max_wait_ms = float(max_wait_ms)
@@ -211,6 +280,22 @@ class ServeEngine:
         # offline max-error checks this engine ran
         self.precision_checks: Dict[Tuple[str, int, str], Dict[str, Any]] = {}
         self._clock = clock
+        self.slo = slo if slo is not None else default_slos()
+        self.breaker_burn_threshold = float(breaker_burn_threshold)
+        self.fair_scheduling = bool(
+            fair_scheduling if fair_scheduling is not None
+            else fair_scheduling_from_env())
+        if admission is not None:
+            self.admission = admission
+        else:
+            self.admission = AdmissionController(
+                tenant_quotas=tenant_quotas,
+                tenant_weights=tenant_weights,
+                shed=shed, clock=clock,
+            )
+        self.admission.bind(self._overload_signals,
+                            self.retry_after_estimate)
+        self._retry_after_max_s = retry_after_cap()
         self._batchers: Dict[Tuple[str, int], MicroBatcher] = {}
         self._async_specs: Dict[
             Tuple[str, int], Optional[AsyncTransformSpec]] = {}
@@ -239,25 +324,40 @@ class ServeEngine:
             "serving errors by type: batch failures (exception class), "
             "worker crashes/wedges, breaker rejections", ("model", "error"),
         )
+        self._m_tenant = reg.counter(
+            "sparkml_serve_tenant_requests_total",
+            "serving requests per tenant by outcome (ok, shed, "
+            "rejected, expired, error)", ("tenant", "outcome"),
+        )
+        self._m_tenant.inc(0, tenant=self.admission.default_tenant,
+                           outcome="ok")
 
     # -- the request path --------------------------------------------------
 
     def predict(self, model_ref: str, rows, *,
                 deadline_ms: Optional[float] = None,
                 version: Optional[int] = None,
-                timeout: Optional[float] = 120.0) -> np.ndarray:
+                timeout: Optional[float] = 120.0,
+                tenant: Optional[str] = None,
+                priority: Optional[str] = None) -> np.ndarray:
         """Serve one request: resolve, admit, coalesce, return its rows
         (``predict_detailed``'s outputs; same raises)."""
         return self.predict_detailed(
             model_ref, rows, deadline_ms=deadline_ms, version=version,
-            timeout=timeout).outputs
+            timeout=timeout, tenant=tenant, priority=priority).outputs
 
     def predict_detailed(self, model_ref: str, rows, *,
                          deadline_ms: Optional[float] = None,
                          version: Optional[int] = None,
-                         timeout: Optional[float] = 120.0) -> PredictResult:
-        """Serve one request with full fault handling. Raises ``KeyError``
-        (unknown model), ``ValueError`` (bad request shape), ``QueueFull``,
+                         timeout: Optional[float] = 120.0,
+                         tenant: Optional[str] = None,
+                         priority: Optional[str] = None) -> PredictResult:
+        """Serve one request with full fault handling, under the active
+        ``TraceContext`` (or a fresh root). ``tenant`` / ``priority`` feed
+        the admission controller: quota verdict, shed gate and the
+        fair-queue position. Raises ``KeyError`` (unknown model),
+        ``ValueError`` (bad request shape), ``ShedLoad`` (the overload
+        controller, or preempted from a full queue), ``QueueFull``,
         ``DeadlineExpired`` (shed while queued), ``WaitTimeout``,
         ``WorkerCrashed`` (batcher dead — fast, never a hang),
         ``BreakerOpen`` (breaker open, no fallback), ``NumericsError``,
@@ -266,43 +366,109 @@ class ServeEngine:
             raise EngineClosed("serving engine is shut down")
         t0 = time.perf_counter()
         entry = self.registry.resolve_entry(model_ref, version)
+        ctx = tracectx.ensure_context()
         brk = self._breaker_for(entry.name)
         # submitted[0] flips once a batcher accepted the request: a
         # ValueError before that is the client's (bad shape), after it
-        # the batch failing
+        # the batch failing — the outage the SLO layer sees
         submitted = [False]
-        deadline = (time.monotonic() + deadline_ms / 1000.0
-                    if deadline_ms and deadline_ms > 0 else None)
-        gate = brk.allow()
-        if gate == "open":
-            out = self._degraded_predict(entry, rows)
-            degraded, retries = True, 0
-        else:
-            out, retries, degraded = self._attempts(
-                entry, rows, deadline, timeout, brk, gate, submitted)
-        self._m_latency.observe(time.perf_counter() - t0, model=entry.name)
+        tenant_id = self.admission.resolve_tenant(tenant)
+        try:
+            with tracectx.activate(ctx), tracectx.inflight_request(
+                ctx, model=entry.name, version=entry.version,
+            ), spans_mod.span(
+                f"serve:request:{entry.name}", trace_id=ctx.trace_id,
+                model=entry.name, version=entry.version,
+            ):
+                # the queue handoff carries THIS span as the parent, so
+                # the worker's queue span nests under the request span
+                handoff = tracectx.TraceContext(
+                    trace_id=ctx.trace_id,
+                    span_id=spans_mod.current_span_id() or ctx.span_id,
+                    sampled=ctx.sampled,
+                    baggage=ctx.baggage,
+                )
+                deadline = (time.monotonic() + deadline_ms / 1000.0
+                            if deadline_ms and deadline_ms > 0 else None)
+                # the admission boundary, before the breaker or any
+                # device work: an overload shed raises ShedLoad here
+                decision = self.admission.admit(
+                    tenant_id, priority, _rows_estimate(rows),
+                    model=entry.name,
+                )
+                gate = brk.allow()
+                if gate == "open":
+                    out = self._degraded_predict(entry, rows)
+                    degraded, retries = True, 0
+                else:
+                    out, retries, degraded = self._attempts(
+                        entry, rows, deadline, handoff, timeout, brk, gate,
+                        ctx, submitted, decision)
+        except BaseException as exc:
+            # client errors (unknown model, a bad shape rejected at
+            # submit) spend no error budget; a ValueError after the
+            # submit is the batch failing
+            client_error = isinstance(exc, KeyError) or (
+                isinstance(exc, ValueError) and not submitted[0])
+            if not client_error:
+                outcome = ("shed" if isinstance(exc, ShedLoad)
+                           else "rejected" if isinstance(exc, QueueFull)
+                           else "expired"
+                           if isinstance(exc, DeadlineExpired)
+                           else "error")
+                self._m_tenant.inc(tenant=tenant_id, outcome=outcome)
+                if isinstance(exc, ShedLoad) and not submitted[0]:
+                    # an admission shed; a preemption victim (submitted,
+                    # then evicted) was counted by its batcher
+                    self._m_errors.inc(model=entry.name, error="load_shed")
+                self.slo.record_request(False, time.perf_counter() - t0)
+                # the SLO fast-burn trip wire: only device-side failures
+                # feed it — an overload burst burns the budget above but
+                # must not open a breaker guarding a healthy device
+                if is_backend_error(exc) and brk.burn_threshold > 0:
+                    brk.note_burn(self.slo.fast_burn_rate())
+            raise
+        elapsed = time.perf_counter() - t0
+        self.slo.record_request(True, elapsed)
+        self._m_tenant.inc(tenant=tenant_id, outcome="ok")
+        self._m_latency.observe(elapsed, model=entry.name)
         return PredictResult(outputs=out, model=entry.name,
                              version=entry.version, degraded=degraded,
-                             retries=retries)
+                             retries=retries, trace_id=ctx.trace_id)
 
     # -- the retry / breaker / degraded machinery --------------------------
 
     def _attempts(self, entry: RegisteredModel, rows,
-                  deadline: Optional[float], timeout: Optional[float],
-                  brk: CircuitBreaker, gate: str, submitted: List[bool],
+                  deadline: Optional[float],
+                  handoff: tracectx.TraceContext, timeout: Optional[float],
+                  brk: CircuitBreaker, gate: str,
+                  ctx: tracectx.TraceContext, submitted: List[bool],
+                  decision: AdmissionDecision,
                   ) -> Tuple[np.ndarray, int, bool]:
-        """The bounded-retry loop: (outputs, retries used, degraded)."""
+        """The bounded-retry loop: (outputs, retries used, degraded).
+        Retries are ``serve:retry:<model>`` child spans of the request."""
         probe = gate == "probe"
         max_attempts = 1 + max(self.retries, 0)
         attempt = 0
         while True:
             attempt += 1
             try:
-                out = self._one_attempt(entry, rows, deadline, timeout,
-                                        submitted, revive=probe)
+                if attempt == 1:
+                    out = self._one_attempt(entry, rows, deadline, handoff,
+                                            timeout, submitted, decision,
+                                            revive=probe)
+                else:
+                    with spans_mod.span(
+                        f"serve:retry:{entry.name}", trace_id=ctx.trace_id,
+                        model=entry.name, attempt=attempt - 1,
+                    ):
+                        out = self._one_attempt(entry, rows, deadline,
+                                                handoff, timeout, submitted,
+                                                decision)
             except BaseException as exc:  # noqa: BLE001 - classified below
-                if isinstance(exc, (QueueFull, DeadlineExpired, KeyError,
-                                    EngineClosed, WaitTimeout)) or (
+                if isinstance(exc, (QueueFull, ShedLoad, DeadlineExpired,
+                                    KeyError, EngineClosed,
+                                    WaitTimeout)) or (
                         isinstance(exc, ValueError) and not submitted[0]):
                     # orderly rejections / client errors: the device was
                     # never consulted, so no breaker verdict
@@ -341,15 +507,19 @@ class ServeEngine:
                 brk.record_success(probe=probe)
                 return out, attempt - 1, False
 
-    def _one_attempt(self, entry: RegisteredModel, rows, deadline, timeout,
-                     submitted: List[bool],
+    def _one_attempt(self, entry: RegisteredModel, rows, deadline,
+                     handoff: tracectx.TraceContext, timeout,
+                     submitted: List[bool], decision: AdmissionDecision,
                      revive: bool = False) -> np.ndarray:
         batcher = self._batcher_for(entry)
         if revive and batcher.dead():
             # the breaker's half-open probe replaces a dead batcher; the
             # probe cadence bounds recreate storms
             batcher = self._revive_batcher(entry, batcher)
-        req = batcher.submit(rows, deadline=deadline)
+        req = batcher.submit(rows, deadline=deadline, trace_ctx=handoff,
+                             tenant=decision.tenant,
+                             priority=decision.priority,
+                             over_quota=decision.over_quota)
         submitted[0] = True
         return req.wait(timeout)
 
@@ -550,6 +720,19 @@ class ServeEngine:
             dtype=spec.dtype if spec is not None else np.float64,
             async_spec=spec,
             pipeline_depth=self.pipeline_depth,
+            queue=self._make_queue(),
+        )
+
+    def _make_queue(self) -> Optional[FairQueue]:
+        """A new batcher's queue discipline: the weighted-fair queue with
+        the tenant weights, interactive-first while the shed controller
+        reports pressure; None (→ the batcher's FIFO deque) under the
+        ``SCHED=fifo`` kill switch."""
+        if not self.fair_scheduling:
+            return None
+        return FairQueue(
+            tenant_weights=self.admission.tenant_weights,
+            pressure_fn=self.admission.shed.pressure,
         )
 
     def _batcher_for(self, entry: RegisteredModel) -> MicroBatcher:
@@ -602,6 +785,7 @@ class ServeEngine:
                     name,
                     failure_threshold=self.breaker_failures,
                     cooldown_seconds=self.breaker_cooldown_ms / 1000.0,
+                    burn_threshold=self.breaker_burn_threshold,
                     clock=self._clock,
                 )
                 self._breakers[name] = brk
@@ -670,6 +854,79 @@ class ServeEngine:
         report["pipeline"] = {"precision": spec.precision, "buckets": ladder}
         return report
 
+    # -- overload introspection --------------------------------------------
+
+    def _overload_signals(self) -> Dict[str, float]:
+        """The shed controller's live inputs: the worst short-window SLO
+        burn, the worst batcher queue-wait estimate and the fullest
+        queue's depth fraction — host counters only. Called through
+        ``ShedController.maybe_refresh`` at a bounded cadence, never per
+        request."""
+        with self._lock:
+            batchers = list(self._batchers.values())
+        depth_frac = max(
+            (b.depth() / b.max_queue_depth
+             for b in batchers if b.max_queue_depth > 0),
+            default=0.0)
+        burn = self.slo.fast_burn_rate() if len(self.slo) else 0.0
+        return {"burn": burn, "queue_wait_s": self._worst_queue_wait(),
+                "depth_frac": depth_frac}
+
+    def _worst_queue_wait(self) -> float:
+        with self._lock:
+            batchers = list(self._batchers.values())
+        return max((b.queue_wait_estimate() for b in batchers),
+                   default=0.0)
+
+    def shed_posture(self) -> ShedController:
+        """Refresh-then-read the shed controller, for probes: signals
+        otherwise refresh only on predict traffic, so a replica drained
+        on its shedding ``/readyz`` would never run the de-escalation
+        timeline again — probes let it cool down and re-enter rotation."""
+        shed = self.admission.shed
+        if shed.enabled and not self._closed:
+            shed.maybe_refresh(self._overload_signals)
+        return shed
+
+    def fast_shed(self, tenant: Optional[str],
+                  priority: Optional[str]) -> Optional[ShedLoad]:
+        """The HTTP layer's pre-parse shed probe: a ``ShedLoad`` to reply
+        with (counted and audited; recorded here as an SLO failure and a
+        per-tenant shed, like any other shed) or None (parse the body and
+        run the full path). Headers only — the point is skipping the
+        body decode."""
+        if self._closed:
+            return None
+        exc = self.admission.fast_shed(tenant, priority)
+        if exc is None:
+            return None
+        self._m_tenant.inc(tenant=exc.tenant, outcome="shed")
+        self._m_errors.inc(model="(preparse)", error="load_shed")
+        self.slo.record_request(False, 0.0)
+        return exc
+
+    def retry_after_estimate(self) -> float:
+        """Seconds a rejected caller should wait before retrying: twice
+        the live queue-wait estimate, clamped to ``[1,
+        SHED_RETRY_AFTER_MAX_S]`` — the ``Retry-After`` header on
+        429/503/504 responses."""
+        return float(min(max(2.0 * self._worst_queue_wait(), 1.0),
+                         max(self._retry_after_max_s, 1.0)))
+
+    def overload_state(self) -> Dict[str, Any]:
+        """The overload posture: shed level and signals, the scheduling
+        discipline, per-tenant quotas, and the current Retry-After."""
+        snap = self.admission.snapshot()
+        snap["fair_scheduling"] = self.fair_scheduling
+        snap["retry_after_seconds"] = self.retry_after_estimate()
+        return snap
+
+    def slo_snapshot(self) -> Dict[str, Any]:
+        """Evaluate the engine's SLOs now (burn rates per window, budget
+        remaining, firing alerts) and publish them as ``sparkml_slo_*``
+        gauges."""
+        return self.slo.publish(get_registry())
+
     # -- lifecycle / introspection ----------------------------------------
 
     def queue_depth(self, model_ref: Optional[str] = None) -> int:
@@ -694,6 +951,7 @@ class ServeEngine:
                 for (name, version), b in batchers.items()
             },
             "breakers": self.breaker_snapshot(),
+            "overload": self.overload_state(),
         }
 
     def breaker_snapshot(self) -> Dict[str, Any]:
@@ -734,6 +992,7 @@ __all__ = [
     "PredictResult",
     "QueueFull",
     "ServeEngine",
+    "ShedLoad",
     "WaitTimeout",
     "WorkerCrashed",
     "extract_output",

@@ -29,7 +29,9 @@ Response layout: ``magic | version | dtype | flags | n_rows | n_cols``
 Negotiation: a request IS binary when its ``Content-Type`` is
 ``application/x-sparkml-columnar``; the response is binary when the
 client's ``Accept`` asks for it (or, absent an ``Accept``, mirrors the
-request format).
+request format). Tenant and priority stay HEADER-borne (``X-Tenant`` /
+``X-Priority``) so the server's pre-parse fast shed works on binary
+traffic too: that path never reads the body.
 
 Every decoder — the binary one AND the JSON one — records its parse
 latency into the ``sparkml_serve_parse_seconds{format}`` quantile
@@ -97,16 +99,23 @@ class WireError(ValueError):
 
 class DecodedRequest:
     """One decoded predict request, format-agnostic: what
-    ``serve/server.py`` hands to the engine."""
+    ``serve/server.py`` hands to the engine. ``tenant`` / ``priority``
+    come from a JSON body's fields; binary frames carry none (the
+    ``X-Tenant`` / ``X-Priority`` headers do, and headers win)."""
 
-    __slots__ = ("model", "rows", "deadline_ms", "binary")
+    __slots__ = ("model", "rows", "deadline_ms", "tenant", "priority",
+                 "binary")
 
     def __init__(self, model: str, rows: np.ndarray,
                  deadline_ms: Optional[float] = None,
+                 tenant: Optional[str] = None,
+                 priority: Optional[str] = None,
                  binary: bool = False):
         self.model = model
         self.rows = rows
         self.deadline_ms = deadline_ms
+        self.tenant = tenant
+        self.priority = priority
         self.binary = binary
 
 
@@ -287,10 +296,12 @@ def decode_json_request(body: bytes) -> DecodedRequest:
         model = payload["model"]
         rows = np.asarray(payload["rows"], dtype=np.float64)
         deadline_ms = payload.get("deadline_ms")
+        tenant = payload.get("tenant")
+        priority = payload.get("priority")
     except (KeyError, TypeError, ValueError) as exc:
         raise WireError(f"{exc}", reason="bad_json", kind="json") from exc
     out = DecodedRequest(model=model, rows=rows, deadline_ms=deadline_ms,
-                         binary=False)
+                         tenant=tenant, priority=priority, binary=False)
     _parse_summary().observe(time.perf_counter() - t0, format="json")
     return out
 

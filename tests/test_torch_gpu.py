@@ -9,6 +9,7 @@ without them; tests/conftest.py does import jax, so run it there with
 """
 
 import os
+import time
 
 import numpy as np
 import pytest
@@ -343,3 +344,99 @@ def test_staging_reuse_under_a_deep_pipeline(cuda_device, dtype):
     finally:
         engine.shutdown()
     assert failures == [] and wrong == []
+
+
+def test_fair_queue_preemption_under_a_deep_pipeline(cuda_device):
+    """Two tenants' self-identifying requests through pipeline depth 4
+    with a fair queue 8 deep and the shed controller pinned at level 2
+    (interactive first, lower-ranked work evicted from a full queue).
+    Every served output row is its own request's; every victim gets
+    ``ShedLoad`` at once and no request waits past its timeout; no staged
+    batch ever carried an evicted request."""
+    import threading
+
+    from spark_rapids_ml_tpu_torch import PCAModel
+    from spark_rapids_ml_tpu_torch.serve import (
+        ModelRegistry,
+        QueueFull,
+        ServeEngine,
+        ShedController,
+        ShedLoad,
+    )
+
+    d = 16
+    model = PCAModel.from_numpy(np.eye(d), np.full(d, 1.0 / d)).setDtype(
+        "float32")
+    registry = ModelRegistry()
+    registry.register("id", model)
+    shed = ShedController(refresh_seconds=1e9, hold_seconds=1e9)
+    shed.note_signals(burn=100.0, queue_wait_s=10.0, depth_frac=1.0)
+    engine = ServeEngine(registry, max_batch_rows=64, max_wait_ms=0.5,
+                         pipeline_depth=4, max_queue_depth=8,
+                         fair_scheduling=True, shed=shed)
+    n_requests, n_threads = 640, 32
+    sizes = np.random.default_rng(5).integers(1, 48, n_requests)
+    outcomes, wrong, failures = {}, [], []
+    staged, victims = [], []
+
+    def rows_of(i):
+        return (i * 64.0 + np.arange(int(sizes[i]))[:, None]
+                + np.arange(d)[None, :] / 32.0)
+
+    def client(ids, priority):
+        for i in ids:
+            want = rows_of(i)
+            t0 = time.monotonic()
+            try:
+                got = engine.predict("id", want, timeout=60,
+                                     tenant=priority, priority=priority)
+                outcomes[i] = "ok"
+                if not np.array_equal(got, want):
+                    wrong.append(i)
+            except ShedLoad as exc:
+                outcomes[i] = exc.reason
+            except QueueFull:
+                outcomes[i] = "rejected"
+            except Exception as exc:  # noqa: BLE001 - reported below
+                failures.append(repr(exc))
+            if time.monotonic() - t0 > 60:
+                failures.append(f"request {i} waited past its timeout")
+
+    try:
+        engine.warmup("id")
+        batcher = engine._batchers[("id", 1)]
+        assert batcher.async_spec is not None
+        stage_dispatch, shed_preempted = (batcher._stage_dispatch,
+                                          batcher._shed_preempted)
+
+        def spy_stage(entry, *args):
+            staged.append(list(entry.batch))
+            return stage_dispatch(entry, *args)
+
+        def spy_shed(victim):
+            victims.append(victim)
+            shed_preempted(victim)
+            assert victim.error is not None  # the latch failed at once
+
+        batcher._stage_dispatch, batcher._shed_preempted = (spy_stage,
+                                                            spy_shed)
+        threads = [threading.Thread(
+            target=client,
+            args=(range(t, n_requests, n_threads),
+                  "interactive" if t % 4 == 0 else "batch"))
+            for t in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        engine.shutdown()
+    assert failures == [] and wrong == []
+    assert len(outcomes) == n_requests
+    assert victims, "no preemption happened"
+    assert sum(v == "preempted" for v in outcomes.values()) == len(victims)
+    assert all(isinstance(v.error, ShedLoad) for v in victims)
+    assert all(v.priority == "batch" for v in victims)
+    evicted = {id(v) for v in victims}
+    assert not any(id(r) in evicted for batch in staged for r in batch)

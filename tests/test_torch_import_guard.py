@@ -35,9 +35,16 @@ def _is_forbidden(module: str) -> bool:
             or module.startswith("spark_rapids_ml_tpu."))
 
 
+# modules that the JAX package's copies of import nothing of JAX either,
+# and that the port must still not import from there
+STANDALONE = ("obs.tracectx", "obs.spans", "obs.slo", "serve.admission",
+              "serve.scheduler", "serve.wire", "serve.breaker")
+
+
 def test_importing_every_port_module_leaves_jax_out():
     mods = [m for _, m in _port_modules()]
     assert "spark_rapids_ml_tpu_torch.serve" in mods
+    assert {f"spark_rapids_ml_tpu_torch.{m}" for m in STANDALONE} <= set(mods)
     code = (
         "import importlib, sys\n"
         "import spark_rapids_ml_tpu_torch.serve\n"
@@ -55,7 +62,8 @@ def test_importing_every_port_module_leaves_jax_out():
 
 
 def test_serving_stack_runs_without_jax():
-    """A model served end to end (engine, HTTP server, binary wire) in a
+    """A model served end to end (engine with admission and the fair
+    queue, HTTP server, binary wire, a tenant's quota charged) in a
     process that never imports jax."""
     code = (
         "import json, sys, urllib.request\n"
@@ -65,15 +73,18 @@ def test_serving_stack_runs_without_jax():
         "ServeEngine, start_serve_server, wire)\n"
         "m = PCAModel.from_numpy(np.eye(4)[:, :2], [0.6, 0.4])\n"
         "reg = ModelRegistry(); reg.register('m', m)\n"
-        "eng = ServeEngine(reg, max_wait_ms=1, precision='int8')\n"
+        "eng = ServeEngine(reg, max_wait_ms=1, precision='int8', "
+        "tenant_quotas={'t': (1e-6, 10.0)})\n"
         "srv = start_serve_server(eng)\n"
         "try:\n"
         "    req = urllib.request.Request("
         "f'http://127.0.0.1:{srv.server_address[1]}/predict', "
         "data=wire.encode_request('m', np.ones((3, 4))), "
-        "headers={'Content-Type': wire.BINARY_CONTENT_TYPE})\n"
+        "headers={'Content-Type': wire.BINARY_CONTENT_TYPE, "
+        "'X-Tenant': 't', 'X-Priority': 'batch'})\n"
         "    out = wire.decode_response(urllib.request.urlopen("
         "req, timeout=60).read())\n"
+        "    assert eng.overload_state()['tenants']['t']['tokens'] < 10\n"
         "finally:\n"
         "    srv.shutdown(); srv.server_close(); eng.shutdown()\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or "
@@ -91,7 +102,8 @@ def test_serving_stack_runs_without_jax():
 
 def test_port_sources_import_no_jax():
     found = []
-    for path, mod in _port_modules():
+    smoke = os.path.join(REPO_DIR, "chip_smoke.py")
+    for path, mod in [*_port_modules(), (smoke, "chip_smoke")]:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
         for node in ast.walk(tree):

@@ -64,11 +64,18 @@ def _until(predicate, timeout=WAIT):
         time.sleep(0.001)
 
 
+# Not 16: the JAX package's serving tests compile their bf16 / int8
+# programs for a 16-feature model and count the new signatures in the
+# process-wide compile log, which a same-shape program compiled here
+# first would already hold.
+N_FEAT = 20
+
+
 @pytest.fixture
 def models(rng):
     """One float64 PCA fit in the JAX package, and the same model carried
     across with PCAModel.from_numpy; dtype float64 named in both."""
-    x = rng.normal(size=(400, 16)) * (1.0 + np.arange(16)) ** -0.5
+    x = rng.normal(size=(400, N_FEAT)) * (1.0 + np.arange(N_FEAT)) ** -0.5
     ref = JaxPCA().setK(4).setDtype("float64").fit(x)
     port = PCAModel.from_numpy(ref.pc, ref.explained_variance,
                                ref.mean).setDtype("float64")
@@ -792,9 +799,9 @@ def test_unknown_model_and_bad_shape_are_client_errors(models):
     engine.registry.register("pca", port)
     try:
         with pytest.raises(KeyError):
-            engine.predict("ghost", np.ones((1, 16)))
+            engine.predict("ghost", np.ones((1, N_FEAT)))
         with pytest.raises(ValueError):
-            engine.predict("pca", np.ones((0, 16)))
+            engine.predict("pca", np.ones((0, N_FEAT)))
         assert engine.breaker_snapshot()["pca"]["consecutive_failures"] == 0
     finally:
         engine.shutdown()
