@@ -98,6 +98,21 @@ Phases (any failure raises and the script exits non-zero):
    counts, rows/s and the 200s' client p50 / p99 (host clock), the
    highest shed level, the peak queue-wait estimate and the sheds by
    reason.
+7. PCA across ranks: ``parallel.initialize_multihost`` joins a world of one
+   rank in this process (coordinator 127.0.0.1 on a free port), which must
+   run NCCL. On fit (a)'s 262,144 × 4096 float32 rows, k = 256, default
+   gramPrecision: ``distributed_pca_fit`` two pass and one pass,
+   ``DistributedStreamingPCA`` over the four chunks, and
+   ``feature_sharded_pca_fit`` on a 1 × 1 grid, ring + eigh and all-gather
+   + randomized. Each run, with the launch counts set to 0 just before it
+   and read just after, must launch the kernel as often as the code says
+   (1 / 1 / 4 / 1 / 0) and agree with fit (a)'s model at the bar of phase
+   4 (components, EVR) and in its mean (1e-5 relative); its wall time is
+   printed (host clock). Then the kernel on the whole shard (bfloat16_3x)
+   against its plain version (``PLAIN_RTOL``) and float64, timed with CUDA
+   events beside its plain version, the ``torch.matmul`` yardstick, its
+   bound and the same rows as 8192-row launches summed. The process group
+   is destroyed at the end of the phase.
 
 Then one JSON line ``{"kernels": [...]}``, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.
@@ -108,6 +123,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import socket
 import subprocess
 import sys
 import tempfile
@@ -592,7 +608,7 @@ def phase_slice(torch, fg, device):
     log(f"  small fit vs float64 oracle: |cos| min {cos.min():.8f}, EVR max "
         f"abs err {evr_err:.3e}")
     check(cos.min() >= 0.9999 and evr_err <= 1e-5, "small fit vs oracle")
-    return launches, model_c
+    return launches, model_a, model_c
 
 
 SERVE_LADDERS = ("native", "bf16", "int8")
@@ -1388,6 +1404,172 @@ def phase_multitenant(torch, model, device):
         f"{p99['(C)']:.2f} ms; phase 6 {time.perf_counter() - t0:.1f} s")
 
 
+# -- phase 7: PCA across ranks ---------------------------------------------------
+
+MEAN_RTOL = 1e-5  # max |Δ| / max |mean| against fit (a)'s mean
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def compare_to_fit_a(label, result, model_a):
+    """A sharded fit against fit (a)'s model at PERF.md §2's bar."""
+    pc = result.components.cpu().numpy()
+    evr = result.explained_variance.cpu().numpy()
+    mean = result.mean.cpu().numpy()
+    check(pc.shape == (N_FEATURES, K) and np.isfinite(pc).all()
+          and np.isfinite(evr).all() and np.isfinite(mean).all(),
+          f"{label}: components {pc.shape}, finite")
+    cos = np.abs(np.sum(model_a.pc * pc, axis=0))
+    evr_rel = np.abs(evr - model_a.explained_variance) / np.abs(
+        model_a.explained_variance)
+    mean_rel = np.abs(mean - model_a.mean).max() / np.abs(model_a.mean).max()
+    log(f"    vs fit (a): |cos| min over top {TOP_COMPONENTS} "
+        f"{cos[:TOP_COMPONENTS].min():.6f} (bar {COS_BAR}), over all {K} "
+        f"{cos.min():.6f}; EVR max rel err top {TOP_COMPONENTS} "
+        f"{evr_rel[:TOP_COMPONENTS].max():.3e} (bar {EVR_RTOL:g}); mean "
+        f"rel err {mean_rel:.3e} (bar {MEAN_RTOL:g})")
+    check(cos[:TOP_COMPONENTS].min() >= COS_BAR, f"{label} component |cos|")
+    check(evr_rel[:TOP_COMPONENTS].max() <= EVR_RTOL, f"{label} EVR")
+    check(mean_rel <= MEAN_RTOL, f"{label} mean")
+
+
+def whole_shard_kernel(torch, fg, x_dev):
+    """The kernel on a rank's whole shard (fit (a)'s rows, bfloat16_3x, the
+    default precision) against its plain version and float64, timed beside
+    the ``torch.matmul`` yardstick and its bound, as phase 3 does, and
+    beside the same rows as bucket launches summed."""
+    precision = "bfloat16_3x"
+    name, operand, passes = PRECISIONS[precision]
+    rows, n = x_dev.shape
+    mean = x_dev.mean(0)
+    rowmul = torch.full((rows,), (rows - 1) ** -0.5, device=x_dev.device)
+    got = fg.fused_centered_gram(x_dev, mean, rowmul, precision)
+    torch.cuda.synchronize()
+    want = fg.fused_centered_gram_reference(x_dev, mean, rowmul, precision)
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    xc = (x_dev - mean) * rowmul[:, None]
+    xc64 = xc.double()
+    truth = xc64.T @ xc64
+    del xc64
+    k_true = (got.double() - truth).abs().max().item() / scale
+    p_true = (want.double() - truth).abs().max().item() / scale
+    del truth, want
+    log(f"  {name} whole shard {rows}x{n}: max_abs_err {err:.3e} rel "
+        f"{err / scale:.3e} (bar {fg.PLAIN_RTOL[name]:g}); vs float64: kernel "
+        f"{k_true:.3e}, plain {p_true:.3e}")
+    check(bool(torch.isfinite(got).all()) and bool(torch.equal(got, got.T)),
+          "whole-shard Gram finite and symmetric")
+    check(err <= fg.PLAIN_RTOL[name] * scale,
+          f"whole-shard kernel vs plain {err / scale:.3e}")
+    ms = time_ms(torch, lambda: fg.fused_centered_gram(
+        x_dev, mean, rowmul, precision), iters=5, warmup=1)
+    plain_ms = time_ms(torch, lambda: fg.fused_centered_gram_reference(
+        x_dev, mean, rowmul, precision), iters=1, warmup=1)
+    library_ms = time_ms(torch, lambda: torch.matmul(xc.T, xc), iters=3,
+                         warmup=1)
+
+    def bucketed():
+        g = fg.fused_centered_gram(x_dev[:BUCKET_ROWS], mean,
+                                   rowmul[:BUCKET_ROWS], precision)
+        for i in range(BUCKET_ROWS, rows, BUCKET_ROWS):
+            g += fg.fused_centered_gram(x_dev[i:i + BUCKET_ROWS], mean,
+                                        rowmul[i:i + BUCKET_ROWS], precision)
+        return g
+
+    bucketed_ms = time_ms(torch, bucketed, iters=3, warmup=1)
+    bound_ms, bound_by = bound(rows, n, operand, passes)
+    log(f"  {name} whole shard {rows}x{n}: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, torch.matmul yardstick {library_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.3f} of the "
+        f"bound; the same rows as {rows // BUCKET_ROWS} launches of "
+        f"{BUCKET_ROWS} rows summed {bucketed_ms:.4f} ms")
+
+
+def phase_distributed(torch, fg, device, model_a):
+    """Phase 7. Returns the default precision's kernel launches."""
+    import torch.distributed as dist
+
+    from spark_rapids_ml_tpu_torch.parallel import (
+        DistributedStreamingPCA,
+        data_mesh,
+        distributed_pca_fit,
+        feature_sharded_pca_fit,
+        grid_mesh,
+        initialize_multihost,
+    )
+
+    t_phase = time.perf_counter()
+    # a one-rank world on this host: NCCL's bootstrap stays on loopback
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    coordinator = f"127.0.0.1:{free_port()}"
+    joined = initialize_multihost(coordinator, num_processes=1, process_id=0)
+    log(f"  initialize_multihost({coordinator!r}, 1 process): several ranks "
+        f"{joined}, backend {dist.get_backend()}, rank {dist.get_rank()} of "
+        f"{dist.get_world_size()} on cuda:{torch.cuda.current_device()}")
+    check(dist.get_backend() == "nccl", "the card's world runs NCCL")
+    kernel = fg.kernel_name(None)
+    launched = 0
+    try:
+        x = np.concatenate([chunk(torch, device, i) for i in range(4)])
+        log(f"  fit (a)'s data, {x.shape[0]:,} x {x.shape[1]} float32, "
+            f"k = {K}, default gramPrecision ({kernel})")
+        mesh = data_mesh(1)
+        grid = grid_mesh(1, 1)
+
+        def streamed():
+            acc = DistributedStreamingPCA(N_FEATURES, mesh)
+            for i in range(0, x.shape[0], CHUNK_ROWS):
+                acc.partial_fit(x[i:i + CHUNK_ROWS])
+            check(acc.rows_seen == x.shape[0], "rows seen")
+            return acc.finalize(K)
+
+        # label, fit, kernel launches worked out from the code: one per
+        # rank's whole-shard Gram, one per streamed chunk, one for the
+        # ring's diagonal block, none for the all-gather schedule's product
+        runs = (
+            ("distributed_pca_fit two pass",
+             lambda: distributed_pca_fit(x, K, mesh), 1),
+            ("distributed_pca_fit one pass",
+             lambda: distributed_pca_fit(x, K, mesh, one_pass=True), 1),
+            ("DistributedStreamingPCA, 4 chunks", streamed, 4),
+            ("feature_sharded_pca_fit 1x1 ring + eigh",
+             lambda: feature_sharded_pca_fit(x, K, grid), 1),
+            ("feature_sharded_pca_fit 1x1 all-gather + randomized",
+             lambda: feature_sharded_pca_fit(
+                 x, K, grid, schedule="allgather", solver="randomized"), 0),
+        )
+        for label, fit, expected in runs:
+            torch.cuda.synchronize()
+            fg.reset_launches()
+            t0 = time.perf_counter()
+            result = fit()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = dict(fg.launches)
+            log(f"  {label}: {seconds:.2f} s (host clock), launches {counts}")
+            check(counts[kernel] == expected and
+                  sum(counts.values()) == expected,
+                  f"{label}: launches {counts}, expected {expected} of "
+                  f"{kernel}")
+            launched += counts[kernel]
+            compare_to_fit_a(label, result, model_a)
+            del result
+        x_dev = torch.as_tensor(x, device=device)
+        del x
+        whole_shard_kernel(torch, fg, x_dev)
+        del x_dev
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    log(f"  phase 7 {time.perf_counter() - t_phase:.1f} s")
+    return launched
+
+
 def build_fresh(cuda_build):
     """Build the Gram library anew, so ``ptxas -v`` reports on it."""
     path = cuda_build.library_path("fused_gram")
@@ -1437,7 +1619,7 @@ def main() -> int:
     measured = phase_kernels(torch, fg, device)
 
     log("[4] PCA slice at full width")
-    launches, model_c = phase_slice(torch, fg, device)
+    launches, model_a, model_c = phase_slice(torch, fg, device)
 
     log("[5] serving fit (c)'s model")
     fg.reset_launches()
@@ -1455,12 +1637,18 @@ def main() -> int:
     check(sum(served.values()) == 0, "the multi-tenant phase launched a "
           "kernel")
 
+    log("[7] PCA across ranks")
+    distributed = {fg.kernel_name(None): phase_distributed(
+        torch, fg, device, model_a)}
+
     kernels = []
     for name, m in measured.items():
         check(launches.get(name, 0) > 0, f"{name} not launched on the main path")
+        by_phase = {"4": launches[name], "7": distributed.get(name, 0)}
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES, "launches": launches[name],
+            "replaces": REPLACES, "launches": sum(by_phase.values()),
+            "launches_by_phase": by_phase,
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "prep_ms": m["prep_ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],

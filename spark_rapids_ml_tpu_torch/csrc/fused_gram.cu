@@ -83,6 +83,19 @@
 //     (PERF.md): both modes read panels through L2 at about 8 TB/s while
 //     bfloat16_3x does three times the products per byte, so the panel
 //     feed, not the tensor cores, bounds the one-pass mode.
+//
+// Deep inputs: each G element is one f32 chain in k order, whose error grows
+// with its length (on an H100 at 262,144 rows the tensor-core modes were
+// 1.3e-3 of max |G| from float64, against about 2e-5 at 8192 rows, and the
+// FFMA chain drifts too). So no chain runs past FOLD_ROWS rows: every
+// FOLD_ROWS rows of depth each consumer thread adds its 64 running sums
+// into its own slots of a fold workspace the caller allocates (the first
+// fold writes them), restarts its accumulators, and adds the slots back
+// before the epilogue; slot e of thread t of block b is fold[(b·64 + e)·256
+// + t], so a warp's accesses are coalesced and every address is one base
+// plus a constant. An input of at most FOLD_ROWS rows never folds, needs
+// no workspace and gets the unfolded sums bit for bit.
+//
 // A wait on a pipeline barrier that outlasts 2 s traps (hopper_ptx.cuh), so a
 // broken protocol fails the launch instead of hanging the card.
 
@@ -103,6 +116,7 @@ constexpr int kModeBf16x3 = 2;  // bfloat16_3x: hi/lo split, three bf16 passes
 constexpr int BN = 128;         // output tile edge
 constexpr int K_PAD = 64;       // the prep pass pads the scratch's depth to a multiple of this
 constexpr int EPI_LD = BN + 1;  // f32 staging row of the epilogue
+constexpr int FOLD_ROWS = 8192; // longest f32 chain, in rows of depth (see the note at the top)
 
 constexpr int PREP_TILE = 64;                  // bf16 prep pass: 64 rows × 64 columns per block
 constexpr int F32_PREP_ROWS = 8;               // f32 prep pass: 8 rows × 1024 columns per block,
@@ -111,6 +125,7 @@ constexpr int TC_BK = 64;                      // k-block: 64 bf16 = 128 bytes, 
 constexpr int TC_PANEL_BYTES = BN * TC_BK * 2; // one 128 × 64 bf16 panel, 16 KiB
 constexpr int TC_CONSUMERS = 2;                // warpgroups running wgmma, 64 tile rows each
 constexpr int TC_THREADS = 128 * (TC_CONSUMERS + 1);
+constexpr int TC_FOLD_KB = FOLD_ROWS / TC_BK;  // k-blocks between folds
 
 constexpr int FF_BK = 32;                            // FFMA pipeline: k-block of scratch rows,
 constexpr int FF_STAGES = 4;                         // ring stages,
@@ -122,9 +137,12 @@ constexpr int FF_RING_BYTES = FF_STAGES * FF_STAGE_BYTES;
 // 128 bytes to align the ring for TMA, the ring (which then holds the
 // epilogue's staged tile), then a full and an empty barrier per stage
 constexpr int FF_SMEM_BYTES = 128 + FF_RING_BYTES + 2 * FF_STAGES * 8;
+constexpr int FF_FOLD_KB = FOLD_ROWS / FF_BK;         // k-blocks between folds
 static_assert(K_PAD % FF_BK == 0, "the scratch depth must be whole k-blocks");
+static_assert(FOLD_ROWS % FF_BK == 0 && FOLD_ROWS % TC_BK == 0, "folds fall between k-blocks");
 static_assert(FF_RING_BYTES >= BN * EPI_LD * 4, "epilogue staging must fit in the ring");
 static_assert(FF_SMEM_BYTES <= 232448, "shared memory of one block");
+static_assert(FF_CONSUMERS == 256 && TC_CONSUMERS * 128 == 256, "fold slots per block");
 
 template <bool kSplit>
 struct TcConfig {
@@ -147,6 +165,13 @@ __device__ __forceinline__ void upper_tile(int t, int tiles, int& ti, int& tj) {
   }
   ti = i;
   tj = i + t;
+}
+
+// This consumer thread's first fold slot (see the note at the top); its
+// slot e is FOLD_SLOTS·e further on.
+constexpr int FOLD_SLOTS = 256;  // consumer threads per block, both pipelines
+__device__ __forceinline__ float* fold_slots(float* fold, int consumer) {
+  return fold + static_cast<long long>(blockIdx.x) * 64 * FOLD_SLOTS + consumer;
 }
 
 // (x − mean[col]) · rowmul[row], 0 outside [0, rows) × [0, n).
@@ -226,8 +251,8 @@ gram_prep_f32_kernel(const float* __restrict__ x, long long ldx, const float* __
 // Full-f32 Gram over the upper tiles of the prep pass's scratch (kp × n4,
 // f32), read through `map`. See the note at the top.
 __global__ void __launch_bounds__(FF_THREADS, 1)
-gram_ffma_kernel(const __grid_constant__ CUtensorMap map, float* __restrict__ g, int n, int kp,
-                 int tiles) {
+gram_ffma_kernel(const __grid_constant__ CUtensorMap map, float* __restrict__ g,
+                 float* __restrict__ fold, int n, int kp, int tiles) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = hopper::smem_addr(smem_raw);
   uint8_t* smem = smem_raw + ((128 - raw % 128) % 128);
@@ -284,30 +309,53 @@ gram_ffma_kernel(const __grid_constant__ CUtensorMap map, float* __restrict__ g,
   const float* ring_f = reinterpret_cast<const float*>(smem);
   int s = 0;
   uint32_t phase = 0;
-  for (int kb = 0; kb < nk; ++kb) {
-    hopper::mbar_wait(full0 + 8 * s, phase);
-    const float* a = ring_f + s * (FF_STAGE_BYTES / 4);
-    const float* b = a + FF_BK * BN;
+  // the k-loop in segments of FF_FOLD_KB k-blocks, folding between them, so
+  // the hot loop is the unfolded one
+  for (int k0 = 0; k0 < nk; k0 += FF_FOLD_KB) {
+    const int k1 = min(nk, k0 + FF_FOLD_KB);
+    for (int kb = k0; kb < k1; ++kb) {
+      hopper::mbar_wait(full0 + 8 * s, phase);
+      const float* a = ring_f + s * (FF_STAGE_BYTES / 4);
+      const float* b = a + FF_BK * BN;
 #pragma unroll
-    for (int k = 0; k < FF_BK; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(a + k * BN + ty * 4);
-      const float4 a1 = *reinterpret_cast<const float4*>(a + k * BN + 64 + ty * 4);
-      const float4 b0 = *reinterpret_cast<const float4*>(b + k * BN + tx * 4);
-      const float4 b1 = *reinterpret_cast<const float4*>(b + k * BN + 64 + tx * 4);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+      for (int k = 0; k < FF_BK; ++k) {
+        const float4 a0 = *reinterpret_cast<const float4*>(a + k * BN + ty * 4);
+        const float4 a1 = *reinterpret_cast<const float4*>(a + k * BN + 64 + ty * 4);
+        const float4 b0 = *reinterpret_cast<const float4*>(b + k * BN + tx * 4);
+        const float4 b1 = *reinterpret_cast<const float4*>(b + k * BN + 64 + tx * 4);
+        const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+#pragma unroll
+          for (int v = 0; v < 8; ++v) acc[u][v] = fmaf(av[u], bv[v], acc[u][v]);
+      }
+      // this warp has read the stage: hand it back
+      __syncwarp();
+      if (tid % 32 == 0) hopper::mbar_arrive(empty0 + 8 * s);
+      if (++s == FF_STAGES) {
+        s = 0;
+        phase ^= 1;
+      }
+    }
+    if (k1 < nk) {
+      float* slots = fold_slots(fold, tid);
 #pragma unroll
       for (int u = 0; u < 8; ++u)
 #pragma unroll
-        for (int v = 0; v < 8; ++v) acc[u][v] = fmaf(av[u], bv[v], acc[u][v]);
+        for (int v = 0; v < 8; ++v) {
+          float* slot = slots + (8 * u + v) * FOLD_SLOTS;
+          *slot = k0 == 0 ? acc[u][v] : *slot + acc[u][v];
+          acc[u][v] = 0.0f;
+        }
     }
-    // this warp has read the stage: hand it back
-    __syncwarp();
-    if (tid % 32 == 0) hopper::mbar_arrive(empty0 + 8 * s);
-    if (++s == FF_STAGES) {
-      s = 0;
-      phase ^= 1;
-    }
+  }
+  if (nk > FF_FOLD_KB) {
+    const float* slots = fold_slots(fold, tid);
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+#pragma unroll
+      for (int v = 0; v < 8; ++v) acc[u][v] = slots[(8 * u + v) * FOLD_SLOTS] + acc[u][v];
   }
 
   // Epilogue. Every load has landed; once every consumer has finished
@@ -359,8 +407,8 @@ gram_prep_kernel(const float* __restrict__ x, long long ldx, const float* __rest
 template <bool kSplit>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 gram_tc_kernel(const __grid_constant__ CUtensorMap map_hi,
-               const __grid_constant__ CUtensorMap map_lo, float* __restrict__ g, int n, int kp,
-               int tiles) {
+               const __grid_constant__ CUtensorMap map_lo, float* __restrict__ g,
+               float* __restrict__ fold, int n, int kp, int tiles) {
   using Cfg = TcConfig<kSplit>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = hopper::smem_addr(smem_raw);
@@ -421,34 +469,57 @@ gram_tc_kernel(const __grid_constant__ CUtensorMap map_hi,
     const uint32_t a_off = wg * 64 * TC_BK * 2;  // this warpgroup's 64 rows of A
     int s = 0, prev = 0;
     uint32_t phase = 0;
-    for (int kb = 0; kb < nk; ++kb) {
-      hopper::mbar_wait(full0 + 8 * s, phase);
-      const uint32_t st = ring + s * Cfg::kStageBytes;
-      const uint64_t a_hi = hopper::desc_k_major_sw128(st + a_off);
-      const uint64_t b_hi = hopper::desc_k_major_sw128(st + TC_PANEL_BYTES);
-      hopper::fence_operands(acc);
-      if constexpr (kSplit) hopper::fence_operands(cross);
-      hopper::wgmma_fence();
+    // the k-loop in segments of TC_FOLD_KB k-blocks, folding between them, so
+    // the hot loop is the unfolded one
+    for (int k0 = 0; k0 < nk; k0 += TC_FOLD_KB) {
+      const int k1 = min(nk, k0 + TC_FOLD_KB);
+      for (int kb = k0; kb < k1; ++kb) {
+        hopper::mbar_wait(full0 + 8 * s, phase);
+        const uint32_t st = ring + s * Cfg::kStageBytes;
+        const uint64_t a_hi = hopper::desc_k_major_sw128(st + a_off);
+        const uint64_t b_hi = hopper::desc_k_major_sw128(st + TC_PANEL_BYTES);
+        hopper::fence_operands(acc);
+        if constexpr (kSplit) hopper::fence_operands(cross);
+        hopper::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < TC_BK / 16; ++kk) {
-        hopper::wgmma_m64n128k16_bf16(acc, a_hi + 2 * kk, b_hi + 2 * kk);
-        if constexpr (kSplit) {
-          const uint64_t a_lo = hopper::desc_k_major_sw128(st + 2 * TC_PANEL_BYTES + a_off);
-          const uint64_t b_lo = hopper::desc_k_major_sw128(st + 3 * TC_PANEL_BYTES);
-          hopper::wgmma_m64n128k16_bf16(cross, a_hi + 2 * kk, b_lo + 2 * kk);
-          hopper::wgmma_m64n128k16_bf16(cross, a_lo + 2 * kk, b_hi + 2 * kk);
+        for (int kk = 0; kk < TC_BK / 16; ++kk) {
+          hopper::wgmma_m64n128k16_bf16(acc, a_hi + 2 * kk, b_hi + 2 * kk);
+          if constexpr (kSplit) {
+            const uint64_t a_lo = hopper::desc_k_major_sw128(st + 2 * TC_PANEL_BYTES + a_off);
+            const uint64_t b_lo = hopper::desc_k_major_sw128(st + 3 * TC_PANEL_BYTES);
+            hopper::wgmma_m64n128k16_bf16(cross, a_hi + 2 * kk, b_lo + 2 * kk);
+            hopper::wgmma_m64n128k16_bf16(cross, a_lo + 2 * kk, b_hi + 2 * kk);
+          }
+        }
+        hopper::wgmma_commit();
+        // the previous k-block's products are done: hand its stage back
+        hopper::wgmma_wait<1>();
+        hopper::fence_operands(acc);
+        if constexpr (kSplit) hopper::fence_operands(cross);
+        if (kb > 0 && threadIdx.x % 128 == 0) hopper::mbar_arrive(empty0 + 8 * prev);
+        prev = s;
+        if (++s == Cfg::kStages) {
+          s = 0;
+          phase ^= 1;
         }
       }
-      hopper::wgmma_commit();
-      // the previous k-block's products are done: hand its stage back
-      hopper::wgmma_wait<1>();
-      hopper::fence_operands(acc);
-      if constexpr (kSplit) hopper::fence_operands(cross);
-      if (kb > 0 && threadIdx.x % 128 == 0) hopper::mbar_arrive(empty0 + 8 * prev);
-      prev = s;
-      if (++s == Cfg::kStages) {
-        s = 0;
-        phase ^= 1;
+      if (k1 < nk) {
+        // the accumulators are read only once every issued wgmma is done
+        hopper::wgmma_wait<0>();
+        hopper::fence_operands(acc);
+        if constexpr (kSplit) hopper::fence_operands(cross);
+        float* slots = fold_slots(fold, threadIdx.x);
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          float v = acc[i];
+          if constexpr (kSplit) {
+            v += cross[i];
+            cross[i] = 0.0f;
+          }
+          float* slot = slots + i * FOLD_SLOTS;
+          *slot = k0 == 0 ? v : *slot + v;
+          acc[i] = 0.0f;
+        }
       }
     }
     hopper::wgmma_wait<0>();
@@ -457,6 +528,11 @@ gram_tc_kernel(const __grid_constant__ CUtensorMap map_hi,
       hopper::fence_operands(cross);
 #pragma unroll
       for (int i = 0; i < 64; ++i) acc[i] += cross[i];
+    }
+    if (nk > TC_FOLD_KB) {
+      const float* slots = fold_slots(fold, threadIdx.x);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] = slots[i * FOLD_SLOTS] + acc[i];
     }
 
     // Epilogue. Every load has landed and both warpgroups have finished
@@ -520,7 +596,7 @@ bool encode_plane(CUtensorMap* map, const __nv_bfloat16* plane, int n, int kp) {
 }
 
 template <bool kSplit>
-cudaError_t launch_tc(const __nv_bfloat16* hi, float* g, int n, int kp, int tiles,
+cudaError_t launch_tc(const __nv_bfloat16* hi, float* g, float* fold, int n, int kp, int tiles,
                       unsigned blocks, cudaStream_t s) {
   CUtensorMap map_hi, map_lo;
   if (!encode_plane(&map_hi, hi, n, kp)) return cudaErrorInvalidValue;
@@ -531,14 +607,14 @@ cudaError_t launch_tc(const __nv_bfloat16* hi, float* g, int n, int kp, int tile
   const cudaError_t err =
       cudaFuncSetAttribute(gram_tc_kernel<kSplit>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  gram_tc_kernel<kSplit><<<blocks, TC_THREADS, smem, s>>>(map_hi, map_lo, g, n, kp, tiles);
+  gram_tc_kernel<kSplit><<<blocks, TC_THREADS, smem, s>>>(map_hi, map_lo, g, fold, n, kp, tiles);
   return cudaGetLastError();
 }
 
 // The FFMA Gram over the f32 scratch (kp × n4): unswizzled 128 × BK boxes,
 // columns past n4 read as 0.
-cudaError_t launch_ffma(const float* xs, float* g, int n, int kp, int tiles, unsigned blocks,
-                        cudaStream_t s) {
+cudaError_t launch_ffma(const float* xs, float* g, float* fold, int n, int kp, int tiles,
+                        unsigned blocks, cudaStream_t s) {
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(round4(n)), static_cast<cuuint64_t>(kp)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(round4(n)) * 4};
   const cuuint32_t box[2] = {BN, FF_BK};
@@ -553,7 +629,7 @@ cudaError_t launch_ffma(const float* xs, float* g, int n, int kp, int tiles, uns
   const cudaError_t err = cudaFuncSetAttribute(
       gram_ffma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, FF_SMEM_BYTES);
   if (err != cudaSuccess) return err;
-  gram_ffma_kernel<<<blocks, FF_THREADS, FF_SMEM_BYTES, s>>>(map, g, n, kp, tiles);
+  gram_ffma_kernel<<<blocks, FF_THREADS, FF_SMEM_BYTES, s>>>(map, g, fold, n, kp, tiles);
   return cudaGetLastError();
 }
 
@@ -579,16 +655,20 @@ extern "C" int tpuml_gram_prep(const void* x, long long ldx, const void* mean, c
 }
 
 // The whole Gram: the prep pass into `scratch` (as tpuml_gram_prep), then
-// the FFMA (mode 0) or tensor-core (modes 1, 2) launch that reads it.
+// the FFMA (mode 0) or tensor-core (modes 1, 2) launch that reads it. When
+// kp > FOLD_ROWS, `fold` is the fold workspace, tpuml_gram_fold_floats(n)
+// floats; otherwise it is not read and may be null.
 extern "C" int tpuml_fused_centered_gram(const void* x, long long ldx, const void* mean,
                                          const void* rowmul, void* g, int rows, int n, int mode,
-                                         void* scratch, int kp, void* stream) {
-  if (ldx < n || mode < kModeF32 || mode > kModeBf16x3 || !valid_prep_args(rows, n, kp, scratch)) {
+                                         void* scratch, int kp, void* fold, void* stream) {
+  if (ldx < n || mode < kModeF32 || mode > kModeBf16x3 || !valid_prep_args(rows, n, kp, scratch) ||
+      (kp > FOLD_ROWS && fold == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long tiles = (static_cast<long long>(n) + BN - 1) / BN;
   const long long blocks = tiles * (tiles + 1) / 2;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  float* ff = static_cast<float*>(fold);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* gf = static_cast<float*>(g);
   const int t = static_cast<int>(tiles);
@@ -597,13 +677,20 @@ extern "C" int tpuml_fused_centered_gram(const void* x, long long ldx, const voi
                                 static_cast<const float*>(rowmul), scratch, rows, n, mode, kp, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (mode == kModeF32) {
-    err = launch_ffma(static_cast<const float*>(scratch), gf, n, kp, t, b, s);
+    err = launch_ffma(static_cast<const float*>(scratch), gf, ff, n, kp, t, b, s);
   } else {
     const __nv_bfloat16* hi = static_cast<const __nv_bfloat16*>(scratch);
-    err = mode == kModeBf16x3 ? launch_tc<true>(hi, gf, n, kp, t, b, s)
-                              : launch_tc<false>(hi, gf, n, kp, t, b, s);
+    err = mode == kModeBf16x3 ? launch_tc<true>(hi, gf, ff, n, kp, t, b, s)
+                              : launch_tc<false>(hi, gf, ff, n, kp, t, b, s);
   }
   return static_cast<int>(err);
+}
+
+// Floats of the fold workspace for an n-wide Gram: 64 slots for each of the
+// 256 consumer threads of each upper tile's block.
+extern "C" long long tpuml_gram_fold_floats(int n) {
+  const long long tiles = (static_cast<long long>(n) + BN - 1) / BN;
+  return tiles * (tiles + 1) / 2 * 64 * FOLD_SLOTS;
 }
 
 // Dynamic shared memory of a mode's Gram launch.

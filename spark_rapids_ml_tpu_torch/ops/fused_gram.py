@@ -77,6 +77,14 @@ PLAIN_RTOL = {
 # ``gram_prep``'s count: the prep pass launched alone, outside any Gram
 PREP_KERNEL = "fused_centered_gram_prep"
 
+# No f32 sum runs deeper than this many rows: every FOLD_ROWS rows the
+# kernel adds its running sums into a fold workspace and restarts them
+# (csrc/fused_gram.cu, FOLD_ROWS), and the plain version sums its Grams over
+# FOLD_ROWS-row chunks in row order. The bars above were set at this depth
+# (the 8192-row bucket); one f32 chain over 262,144 rows was 1.3e-3 of
+# max |G| from float64 in the bf16 modes.
+FOLD_ROWS = 8192
+
 # The prep pass pads the scratch's depth (the rows of X) with zeros to a
 # multiple of this: the tensor-core k-block (64 bf16, one 128-byte swizzle
 # row) and a whole number of the FFMA pipeline's k-blocks.
@@ -162,19 +170,24 @@ def fused_centered_gram_reference(x: torch.Tensor, mean: torch.Tensor,
                                   ) -> torch.Tensor:
     """Plain PyTorch version of the kernel, with the same arithmetic: the
     same f32 centring and scaling, the same bf16 rounding (round to nearest
-    even) and hi/lo split, f32 accumulation, then the upper triangle
-    mirrored. Only the order of the f32 sums differs from the kernel."""
+    even) and hi/lo split, f32 accumulation in the same ``FOLD_ROWS``-row
+    folds, summed in row order, then the upper triangle mirrored. Only the
+    order of the f32 sums within a fold differs from the kernel."""
     _check_inputs(x, mean, rowmul)
     mode = _MODES[_resolve(precision)]
-    xc = (x - mean[None, :]) * rowmul[:, None]
-    if mode == 0:
-        g = xc.T @ xc
-    else:
-        hi = xc.to(torch.bfloat16).to(torch.float32)
-        g = hi.T @ hi
-        if mode == 2:
-            lo = (xc - hi).to(torch.bfloat16).to(torch.float32)
-            g = g + hi.T @ lo + lo.T @ hi
+    g = None
+    for start in range(0, max(x.shape[0], 1), FOLD_ROWS):
+        rows = slice(start, start + FOLD_ROWS)
+        xc = (x[rows] - mean[None, :]) * rowmul[rows, None]
+        if mode == 0:
+            part = xc.T @ xc
+        else:
+            hi = xc.to(torch.bfloat16).to(torch.float32)
+            part = hi.T @ hi
+            if mode == 2:
+                lo = (xc - hi).to(torch.bfloat16).to(torch.float32)
+                part = part + hi.T @ lo + lo.T @ hi
+        g = part if g is None else g + part
     return torch.triu(g) + torch.triu(g, 1).T
 
 
@@ -208,14 +221,17 @@ def _kernel_fns():
     lib = cuda_build.load("fused_gram")
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     gram = lib.tpuml_fused_centered_gram
-    gram.argtypes = [ptr, i64, ptr, ptr, ptr, i32, i32, i32, ptr, i32, ptr]
+    gram.argtypes = [ptr, i64, ptr, ptr, ptr, i32, i32, i32, ptr, i32, ptr, ptr]
     prep = lib.tpuml_gram_prep
     prep.argtypes = [ptr, i64, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
     smem = lib.tpuml_gram_dynamic_smem
     smem.argtypes = [i32]
     for fn in (gram, prep, smem):
         fn.restype = ctypes.c_int
-    return gram, prep, smem
+    fold_floats = lib.tpuml_gram_fold_floats
+    fold_floats.argtypes = [i32]
+    fold_floats.restype = i64
+    return gram, prep, smem, fold_floats
 
 
 def dynamic_smem_bytes(precision: Optional[str] = None) -> int:
@@ -275,7 +291,9 @@ def fused_centered_gram(x: torch.Tensor, mean: torch.Tensor,
     On the card the call also allocates the prep pass's scratch for its
     duration (``scratch_shape``): for highest kp × n4 × 4 bytes (kp and n4
     are rows and n rounded up to 64 and 4), 134 MB at the 8192 × 4096
-    bucket; for bfloat16 half that, for bfloat16_3x the same.
+    bucket; for bfloat16 half that, for bfloat16_3x the same. Above
+    ``FOLD_ROWS`` rows it also allocates the fold workspace, 64 KiB per
+    upper 128 × 128 tile (35 MB at n = 4096).
     """
     if x.device.type == "cpu":
         return fused_centered_gram_reference(x, mean, rowmul, precision)
@@ -287,9 +305,15 @@ def fused_centered_gram(x: torch.Tensor, mean: torch.Tensor,
     g = torch.empty((n, n), dtype=torch.float32, device=x.device)
     scratch = torch.empty(_scratch_shape(rows, n, mode),
                           dtype=_scratch_dtype(mode), device=x.device)
+    kp = padded_depth(rows)
+    fold = None
+    if kp > FOLD_ROWS:
+        fold = torch.empty(_kernel_fns()[3](n), dtype=torch.float32,
+                           device=x.device)
     err = _launch(_kernel_fns()[0], x, x.data_ptr(), max(x.stride(0), n),
                   mean.data_ptr(), rowmul.data_ptr(), g.data_ptr(), rows, n,
-                  mode, scratch.data_ptr(), padded_depth(rows))
+                  mode, scratch.data_ptr(), kp,
+                  None if fold is None else fold.data_ptr())
     _raise_on(err, "fused_centered_gram", x, mode)
     launches[KERNEL_NAMES[mode]] += 1
     return g

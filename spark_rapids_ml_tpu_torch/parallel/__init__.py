@@ -1,0 +1,50 @@
+"""PCA across ranks on ``torch.distributed``: meshes, the multi-host runtime,
+and the data-parallel, streamed and feature-sharded fits."""
+
+from spark_rapids_ml_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    FEATURE_AXIS,
+    data_mesh,
+    device_count,
+    grid_mesh,
+    pad_rows_to_multiple,
+)
+from spark_rapids_ml_tpu_torch.parallel.multihost import (
+    global_data_mesh,
+    host_local_shard,
+    initialize_multihost,
+    make_global_array,
+    process_info,
+)
+from spark_rapids_ml_tpu_torch.parallel.distributed_pca import (
+    DistributedPCAResult,
+    distributed_pca_fit,
+    distributed_pca_fit_kernel,
+)
+from spark_rapids_ml_tpu_torch.parallel.streaming import (
+    DistributedStreamingPCA,
+    distributed_streaming_pca_fit,
+    finalize_stats_sharded,
+    update_stats_sharded,
+)
+from spark_rapids_ml_tpu_torch.parallel.feature_sharded import (
+    FeatureShardedPCAResult,
+    feature_sharded_covariance_kernel,
+    feature_sharded_pca_fit,
+    pad_cols_to_multiple,
+    randomized_sharded_pca_kernel,
+)
+
+__all__ = [
+    "DATA_AXIS", "FEATURE_AXIS", "data_mesh", "device_count", "grid_mesh",
+    "pad_rows_to_multiple",
+    "global_data_mesh", "host_local_shard", "initialize_multihost",
+    "make_global_array", "process_info",
+    "DistributedPCAResult", "distributed_pca_fit",
+    "distributed_pca_fit_kernel",
+    "DistributedStreamingPCA", "distributed_streaming_pca_fit",
+    "finalize_stats_sharded", "update_stats_sharded",
+    "FeatureShardedPCAResult", "feature_sharded_covariance_kernel",
+    "feature_sharded_pca_fit", "pad_cols_to_multiple",
+    "randomized_sharded_pca_kernel",
+]

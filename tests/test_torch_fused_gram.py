@@ -404,3 +404,22 @@ def test_highest_prep_rejects_what_the_kernel_does_not_take(rng, corrupt):
     x, mean, rowmul = (torch.from_numpy(a) for a in _inputs(rng, 20, 8))
     with pytest.raises(ValueError):
         gram_prep(*corrupt(x, mean, rowmul), "highest")
+
+
+@pytest.mark.parametrize("precision", ["highest", "bfloat16", "bfloat16_3x"])
+def test_plain_version_sums_fold_row_chunks_in_row_order(rng, precision):
+    """Past FOLD_ROWS rows the plain version, like the kernel, sums the
+    Grams of FOLD_ROWS-row chunks in row order: exactly the sum of its
+    results on the chunks (a partial last chunk included)."""
+    rows = 2 * fused_gram.FOLD_ROWS + 100
+    x, mean, rowmul = (torch.from_numpy(a) for a in _inputs(rng, rows, 24))
+    chunks = [slice(s, s + fused_gram.FOLD_ROWS)
+              for s in range(0, rows, fused_gram.FOLD_ROWS)]
+    assert len(chunks) == 3
+    want = None
+    for c in chunks:
+        part = fused_centered_gram_reference(x[c], mean, rowmul[c], precision)
+        want = part if want is None else want + part
+    got = fused_centered_gram_reference(x, mean, rowmul, precision)
+    assert torch.equal(got, want)
+    assert torch.equal(got, got.T)

@@ -127,6 +127,32 @@ def test_prep_pass_is_bit_equal_to_its_plain_version(cuda_device, precision,
     assert torch.equal(got.view(bits), want.view(bits))
 
 
+@pytest.mark.parametrize("precision", ["highest", "bfloat16", "bfloat16_3x"])
+@pytest.mark.parametrize("rows,n", [(262_144, 256), (20_000, 300)])
+def test_tall_whole_shard_launch_matches_plain_version(cuda_device, precision,
+                                                       rows, n):
+    """The sharded fits hand a rank's whole shard to the kernel in one
+    launch: 262,144 rows (scratch depth 262,144, 32 folds of FOLD_ROWS), far
+    past the 8,192-row buckets of the streamed fits, and 20,000 rows (a
+    partial last fold, a ragged width), each with a masked tail."""
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    x = torch.randn(rows, n, generator=g, device=cuda_device) + 0.5
+    mask = torch.ones(rows, device=cuda_device)
+    mask[rows - 1000:] = 0.0
+    mean = (x * mask[:, None]).sum(0) / (rows - 1000)
+    rowmul = (mask / (rows - 1001) ** 0.5).contiguous()
+    name = fused_gram.kernel_name(precision)
+    before = fused_gram.launches[name]
+    got = fused_centered_gram(x, mean, rowmul, precision)
+    torch.cuda.synchronize()
+    assert fused_gram.launches[name] == before + 1
+    want = fused_centered_gram_reference(x, mean, rowmul, precision)
+    assert bool(torch.isfinite(got).all())
+    err = (got - want).abs().max().item()
+    assert err <= fused_gram.PLAIN_RTOL[name] * want.abs().max().item()
+    assert torch.equal(got, got.T)
+
+
 def test_highest_bar_rejects_tf32_and_the_bf16_split(cuda_device):
     """At the main-path bucket the full-f32 kernel is within its bar, and a
     TF32 product or the bf16 hi/lo split of the same inputs is not."""
