@@ -113,6 +113,28 @@ Phases (any failure raises and the script exits non-zero):
    events beside its plain version, the ``torch.matmul`` yardstick, its
    bound and the same rows as 8192-row launches summed. The process group
    is destroyed at the end of the phase.
+8. The debug plane: a fresh history sampler at 100 ms
+   (``obs.tsdb.start_sampling``), then fit (c)'s model on the native
+   ladder behind ``start_serve_server``, phase 5's 256 binary requests
+   from 8 clients (the launch counts set to 0 just before them), every
+   response held to the native bar. Fails unless the traffic launched no
+   hand kernel; ``sparkml_serve_device_batch_seconds_total{device=
+   "cuda:0"}`` equals the batcher's ``sparkml_serve_device_busy_seconds_
+   total``, in total and over the traffic; ``/debug/history`` holds
+   ``sparkml_device_mem_bytes_in_use{device="cuda:0",source="cuda"}``
+   whose last point equals ``torch.cuda.memory_allocated(0)`` read at a
+   quiescent sweep, and ``bytes_limit`` equals the card's
+   ``total_memory``; ``/debug/slo`` has exactly the ported sections (no
+   replicas, rollout, autoscale or tiering) with no degraded answer,
+   retry, restart or armed fault; ``/debug/traces?limit=20`` gives 20
+   trees rooted at ``serve:http:predict``, at least one with a linked
+   batch span; and the sampler swept at least 10 times and at least half
+   as often as its cadence allows. Prints, on the
+   host clock: requests/s beside phase 5's native, the serving busy share
+   (Δ batch seconds / traffic wall: the union of dispatch to completion,
+   an upper bound on device time) and idle share, and the sampler's cost
+   per sweep (``sparkml_obs_overhead_seconds_total{component="sampler"}``
+   / sweeps).
 
 Then one JSON line ``{"kernels": [...]}``, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.
@@ -793,7 +815,8 @@ def serve_ladder(registry, precision, traffic, bodies, refs, metrics,
     (``precision_max_err`` 0.05) serves native, as the engine promises:
     the fallback must be counted and the responses are held to the native
     bar. The int8 program is then held against its CPU twin on the card
-    (``int8_against_cpu``) whether or not it serves."""
+    (``int8_against_cpu``) whether or not it serves. Returns the binary
+    pass's requests/s."""
     from spark_rapids_ml_tpu_torch.serve import start_serve_server
 
     start = serve_counters(metrics)
@@ -822,6 +845,7 @@ def serve_ladder(registry, precision, traffic, bodies, refs, metrics,
         worst, lat = check_responses(f"{precision} binary", results, traffic,
                                      refs, bar)
         total_rows = sum(r.shape[0] for r in traffic)
+        rps = SERVE_REQUESTS / wall
         log(f"  {precision}: {SERVE_REQUESTS} binary requests ({total_rows} "
             f"rows) in {wall:.3f} s: {SERVE_REQUESTS / wall:.1f} "
             f"requests/s, {total_rows / wall:.0f} rows/s; client latency "
@@ -874,6 +898,7 @@ def serve_ladder(registry, precision, traffic, bodies, refs, metrics,
             server.shutdown()
             server.server_close()
         engine.shutdown()
+    return rps
 
 
 def int8_against_cpu(model, traffic, refs, device):
@@ -964,7 +989,8 @@ def compare_4096(engine, model):
 
 
 def phase_serve(torch, model, device):
-    """Phase 5: serve ``model`` per ladder over HTTP under the TF32 trap."""
+    """Phase 5: serve ``model`` per ladder over HTTP under the TF32 trap.
+    Returns each ladder's binary requests/s."""
     from spark_rapids_ml_tpu_torch.obs.metrics import get_registry
     from spark_rapids_ml_tpu_torch.serve import ModelRegistry
     from spark_rapids_ml_tpu_torch.serve import wire
@@ -1007,9 +1033,9 @@ def phase_serve(torch, model, device):
         check(err > SERVE_BARS["native"] or device.type != "cuda",
               "the TF32 trap does not bite: the native check proves nothing")
         metrics = get_registry()
-        for precision in SERVE_LADDERS:
-            serve_ladder(registry, precision, traffic, bodies, refs,
-                         metrics, device)
+        return {precision: serve_ladder(registry, precision, traffic, bodies,
+                                        refs, metrics, device)
+                for precision in SERVE_LADDERS}
     finally:
         torch.set_float32_matmul_precision("highest")
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -1570,6 +1596,203 @@ def phase_distributed(torch, fg, device, model_a):
     return launched
 
 
+# -- phase 8: the debug plane ----------------------------------------------------
+
+DEBUG_SAMPLE_S = 0.1      # the sampler's cadence in this phase
+DEBUG_MIN_SWEEPS = 10
+DEBUG_SLO_SECTIONS = {"slos", "alerts", "queue_depth", "models", "closed",
+                      "breakers", "faults", "degraded_total", "retries_total",
+                      "worker_restarts_total", "overload"}
+DEBUG_UNPORTED = {"replicas", "rollout", "autoscale", "tiering"}
+
+
+def http_get(port, path):
+    """(status, decoded JSON) of one GET."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+def wait_sweeps(sampler, n, timeout=30.0):
+    """Block until the background sampler has swept ``n`` more times."""
+    target = sampler.sweeps + n
+    end = time.monotonic() + timeout
+    while sampler.sweeps < target:
+        check(time.monotonic() < end and sampler.running,
+              f"the sampler stopped sweeping at {sampler.sweeps}")
+        time.sleep(DEBUG_SAMPLE_S / 4)
+
+
+def quiescent_allocation(torch, sampler):
+    """``torch.cuda.memory_allocated(0)`` at a sweep with nothing changing
+    on the card: the same reading before and after two sweeps."""
+    for _ in range(10):
+        before = torch.cuda.memory_allocated(0)
+        wait_sweeps(sampler, 2)
+        if torch.cuda.memory_allocated(0) == before:
+            return before
+    check(False, "device memory never settled between two sweeps")
+
+
+def linked_batch(tree) -> bool:
+    """Whether a trace tree holds a batch span grafted in by its links."""
+    stack = list(tree["spans"])
+    while stack:
+        node = stack.pop()
+        if node.get("link") and node["name"].startswith("serve:batch:"):
+            return True
+        stack.extend(node["children"])
+    return False
+
+
+def phase_debug(torch, fg, model, device, phase5_rps):
+    """Phase 8: fit (c)'s model on the native ladder behind the HTTP server
+    with the history sampler at 100 ms, phase 5's binary traffic, then the
+    debug plane read back over HTTP and held to the card."""
+    from spark_rapids_ml_tpu_torch.obs import devmon, tsdb
+    from spark_rapids_ml_tpu_torch.obs.metrics import get_registry
+    from spark_rapids_ml_tpu_torch.serve import (
+        ModelRegistry,
+        start_serve_server,
+        wire,
+    )
+
+    t_phase = time.perf_counter()
+    traffic = serve_traffic()
+    bodies = [(i, wire.encode_request("pca", rows), wire.BINARY_CONTENT_TYPE)
+              for i, rows in enumerate(traffic)]
+    refs = [rows.astype(np.float64) @ model.pc for rows in traffic]
+    registry = ModelRegistry()
+    registry.register("pca", model)
+    metrics = get_registry()
+    # a fresh history for this phase (phases 5 and 6 started the sampler
+    # at its default cadence)
+    tsdb.reset_tsdb()
+    overhead = metrics.counter("sparkml_obs_overhead_seconds_total", "",
+                               ("component",))
+    sampler_s0 = overhead.value(component="sampler")
+    sampler = tsdb.start_sampling(interval_seconds=DEBUG_SAMPLE_S)
+    t_sampler = time.perf_counter()
+    engine, serving = warm_engine(registry, "native", "debug")
+    check(serving == "native", f"phase 8 serves {serving}")
+    server = start_serve_server(engine, port=0, addr="127.0.0.1")
+    port = server.server_address[1]
+    label = str(device)
+
+    def counters():
+        batch = metrics.counter("sparkml_serve_device_batch_seconds_total",
+                                "", ("model", "device"))
+        return {
+            "batch_s": batch.value(model="pca", device=label),
+            "busy_s": metrics.counter(
+                "sparkml_serve_device_busy_seconds_total", "",
+                ("model",)).value(model="pca"),
+        }
+
+    try:
+        wait_sweeps(sampler, 1)
+        fg.reset_launches()
+        before = counters()
+        results, wall = http_clients(port, bodies)
+        after = counters()
+        launched = dict(fg.launches)
+        check(len(results) == SERVE_REQUESTS,
+              f"phase 8: {len(results)} responses")
+        worst, lat = check_responses("debug", results, traffic, refs,
+                                     SERVE_BARS["native"])
+        rps = SERVE_REQUESTS / wall
+        delta = {k: after[k] - before[k] for k in after}
+        log(f"  {SERVE_REQUESTS} binary requests in {wall:.3f} s: "
+            f"{rps:.1f} requests/s (phase 5 native: "
+            f"{phase5_rps['native']:.1f}), client p50 "
+            f"{np.percentile(lat, 50):.2f} ms, p99 "
+            f"{np.percentile(lat, 99):.2f} ms; worst max|Δ|/max|ref| "
+            f"{worst:.3e}")
+        log(f"  kernel launches during the traffic: {launched}")
+        check(sum(launched.values()) == 0, "phase 8 launched a hand kernel")
+        check(after["batch_s"] == after["busy_s"]
+              and delta["batch_s"] == delta["busy_s"] > 0,
+              f"batch seconds {after['batch_s']!r} (+{delta['batch_s']!r}) "
+              f"!= the batcher's busy seconds {after['busy_s']!r} "
+              f"(+{delta['busy_s']!r})")
+        busy = delta["batch_s"] / wall
+        log(f"  serving busy share {busy:.4f}, idle share {1 - busy:.4f} "
+            f"(Δ sparkml_serve_device_batch_seconds_total {{device="
+            f"\"{label}\"}} {delta['batch_s']:.4f} s over {wall:.3f} s of "
+            f"traffic; host-clock union of dispatch to completion, an "
+            f"upper bound on device time)")
+        log(f"  device occupancy from the history store (rate over 60 s): "
+            f"{devmon.get_device_monitor().occupancy(window=60.0)}")
+
+        allocated = quiescent_allocation(torch, sampler)
+        status, doc = http_get(
+            port, "/debug/history?name=sparkml_device_mem_bytes_in_use")
+        series = {tuple(sorted(s["labels"].items())): s["points"]
+                  for s in doc["series"]}
+        key = (("device", label), ("source", "cuda"))
+        check(status == 200 and key in series,
+              f"/debug/history has no {dict(key)} series: {list(series)}")
+        last = series[key][-1][1]
+        log(f"  /debug/history device memory {dict(key)}: "
+            f"{len(series[key])} points, last {last:.0f} B; "
+            f"torch.cuda.memory_allocated(0) at a quiescent sweep "
+            f"{allocated} B")
+        check(last == allocated, f"device memory {last} != {allocated}")
+        status, doc = http_get(
+            port, "/debug/history?name=sparkml_device_mem_bytes_limit")
+        limit = [s["points"][-1][1] for s in doc["series"]
+                 if s["labels"] == dict(key)]
+        total = torch.cuda.get_device_properties(0).total_memory
+        check(status == 200 and limit == [total],
+              f"bytes_limit {limit} != total_memory {total}")
+
+        status, slo = http_get(port, "/debug/slo")
+        log(f"  /debug/slo sections: {sorted(slo)}")
+        check(status == 200 and set(slo) == DEBUG_SLO_SECTIONS,
+              f"/debug/slo sections {sorted(slo)}")
+        check(not DEBUG_UNPORTED & set(slo), "an unported /debug/slo section")
+        check(slo["degraded_total"] == 0 and slo["retries_total"] == 0
+              and slo["worker_restarts_total"] == 0 and slo["faults"] == []
+              and slo["breakers"]["pca"]["state"] == "closed",
+              f"/debug/slo totals {slo['degraded_total']} / "
+              f"{slo['retries_total']} / {slo['worker_restarts_total']}")
+        status, doc = http_get(port, "/debug/traces?limit=20")
+        traces = doc["traces"]
+        linked = sum(linked_batch(t) for t in traces)
+        log(f"  /debug/traces?limit=20: {len(traces)} trees, {linked} with "
+            f"a linked batch span")
+        check(status == 200 and len(traces) == 20 and linked > 0
+              and all(t["spans"][0]["name"] == "serve:http:predict"
+                      for t in traces), "/debug/traces trees")
+
+        sweeps = sampler.sweeps  # this phase's sampler: every sweep
+        elapsed = time.perf_counter() - t_sampler
+        cost = (overhead.value(component="sampler") - sampler_s0) / sweeps
+        status, hist = http_get(port, "/debug/history")
+        log(f"  sampler: {sweeps} sweeps at {DEBUG_SAMPLE_S * 1e3:.0f} ms "
+            f"in {elapsed:.2f} s, {cost * 1e3:.4f} ms per sweep "
+            f"(sparkml_obs_overhead_seconds_total{{component=\"sampler\"}} "
+            f"/ sweeps, host clock); {hist['sampler']['series_count']} "
+            f"series, {hist['sampler']['dropped_series']} dropped")
+        # at least 10, and at least half the cadence's count: a sampler
+        # that fell behind its interval fails too
+        check(sweeps >= max(DEBUG_MIN_SWEEPS,
+                            0.5 * elapsed / DEBUG_SAMPLE_S),
+              f"the sampler swept {sweeps} times in {elapsed:.2f} s")
+    finally:
+        server.shutdown()
+        server.server_close()
+        engine.shutdown()
+        tsdb.reset_tsdb()
+    log(f"  phase 8 {time.perf_counter() - t_phase:.1f} s")
+
+
 def build_fresh(cuda_build):
     """Build the Gram library anew, so ``ptxas -v`` reports on it."""
     path = cuda_build.library_path("fused_gram")
@@ -1623,7 +1846,7 @@ def main() -> int:
 
     log("[5] serving fit (c)'s model")
     fg.reset_launches()
-    phase_serve(torch, model_c, device)
+    served_rps = phase_serve(torch, model_c, device)
     served = dict(fg.launches)
     log(f"  kernel launches in the serve phase: {served} (the serve path "
         f"runs no hand kernel)")
@@ -1640,6 +1863,9 @@ def main() -> int:
     log("[7] PCA across ranks")
     distributed = {fg.kernel_name(None): phase_distributed(
         torch, fg, device, model_a)}
+
+    log("[8] the debug plane")
+    phase_debug(torch, fg, model_c, device, served_rps)
 
     kernels = []
     for name, m in measured.items():

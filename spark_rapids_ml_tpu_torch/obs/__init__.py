@@ -2,9 +2,17 @@
 (``obs.metrics``), its quantile sketches (``obs.quantiles``), the
 pipelined serving program contract (``obs.serving``), request trace
 context (``obs.tracectx``), structured spans assembled into per-request
-trees (``obs.spans``) and SLO burn-rate objectives (``obs.slo``)."""
+trees (``obs.spans``), SLO burn-rate objectives (``obs.slo``), the
+metrics-history store and its sampler (``obs.tsdb``), and the per-device
+monitor (``obs.devmon``) over the allocator's memory readings
+(``obs.memory``)."""
 
 from spark_rapids_ml_tpu_torch.obs.metrics import get_registry  # noqa: F401
+from spark_rapids_ml_tpu_torch.obs.memory import (  # noqa: F401
+    device_memory_stats,
+    host_current_rss_bytes,
+    host_peak_rss_bytes,
+)
 from spark_rapids_ml_tpu_torch.obs.slo import (  # noqa: F401
     BURN_POLICIES,
     SLO,
@@ -25,6 +33,18 @@ from spark_rapids_ml_tpu_torch.obs.spans import (  # noqa: F401
     record_event,
     span,
 )
+from spark_rapids_ml_tpu_torch.obs.tsdb import (  # noqa: F401
+    MetricsSampler,
+    TimeSeriesStore,
+    get_sampler,
+    get_tsdb,
+    start_sampling,
+    stop_sampling,
+)
+from spark_rapids_ml_tpu_torch.obs.devmon import (  # noqa: F401
+    DeviceMonitor,
+    get_device_monitor,
+)
 from spark_rapids_ml_tpu_torch.obs.tracectx import (  # noqa: F401
     TRACEPARENT_HEADER,
     TraceContext,
@@ -42,11 +62,14 @@ from spark_rapids_ml_tpu_torch.obs.tracectx import (  # noqa: F401
 
 __all__ = [
     "BURN_POLICIES",
+    "DeviceMonitor",
+    "MetricsSampler",
     "SLO",
     "SloSet",
     "SpanEvent",
     "SpanRecorder",
     "TRACEPARENT_HEADER",
+    "TimeSeriesStore",
     "TraceContext",
     "WindowedCounts",
     "activate",
@@ -56,9 +79,15 @@ __all__ = [
     "current_span_id",
     "current_trace_id",
     "default_slos",
+    "device_memory_stats",
     "ensure_context",
+    "get_device_monitor",
     "get_recorder",
     "get_registry",
+    "get_sampler",
+    "get_tsdb",
+    "host_current_rss_bytes",
+    "host_peak_rss_bytes",
     "inflight_request",
     "inflight_requests",
     "new_context",
@@ -69,5 +98,7 @@ __all__ = [
     "record_event",
     "severity_for_burn",
     "span",
+    "start_sampling",
+    "stop_sampling",
     "traced_thread",
 ]

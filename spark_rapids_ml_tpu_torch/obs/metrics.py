@@ -112,6 +112,15 @@ class Counter(_Metric):
         with child.lock:
             return child.value
 
+    def total(self) -> float:
+        """Sum across every labeled child — the family-wide count,
+        without walking a full registry snapshot."""
+        total = 0.0
+        for _key, child in self._samples():
+            with child.lock:
+                total += child.value
+        return total
+
 
 class Gauge(_Metric):
     """Point-in-time value (``.set(v, **labels)``)."""

@@ -1,0 +1,709 @@
+"""Embedded in-process time-series store: the metrics registry's memory.
+
+The port's copy of the JAX package's ``obs/tsdb.py``. The registry is
+instantaneous — a point-in-time snapshot with no history, so an operator
+cannot see a burn-rate ramp, a queue-depth trend, or what device memory
+looked like five minutes ago. This module adds the time dimension without
+adding a database:
+
+* ``TimeSeriesStore`` — bounded per-series rings with coarse downsample
+  tiers (default ``1 s × 5 m`` and ``10 s × 1 h``; env
+  ``SPARK_RAPIDS_ML_TORCH_OBS_HISTORY="1x300,10x3600"``). Each tier keeps
+  the LAST sample per resolution bucket — exact for counters (rate and
+  delta read cumulative values), the usual sampling semantics for
+  gauges. Memory is fixed at construction: ``series × Σ(span/res)``
+  points, full stop.
+* ``range_query(name, labels, window)`` — timestamped points for every
+  matching child series, served from the finest tier that covers the
+  window; ``rate``/``delta``/``rate_points`` are the counter helpers
+  (monotonic-decrease = process restart → treated as a reset, never a
+  negative rate).
+* ``MetricsSampler`` — a background thread (``tracectx.traced_thread``)
+  snapshotting selected metric families into the store at a fixed
+  cadence (``SPARK_RAPIDS_ML_TORCH_OBS_SAMPLE_MS``, default 1000).
+  Counters and gauges sample as-is; a ``Summary`` samples its
+  configured quantiles (one series per quantile label) plus its
+  ``_count`` as a counter (the port's registry has no ``Histogram``).
+  Registered *collectors* (``obs.devmon``'s ``sample``, the serving
+  engine's SLO and queue-wait publishers) run at the top of every sweep
+  so derived gauges get history too.
+* **The cost of watching is itself watched**: every sweep's wall-clock
+  lands in ``sparkml_obs_overhead_seconds_total{component="sampler"}``
+  (a counter the sampler also samples).
+
+Clocks are injectable everywhere (``clock=``): tests drive 30 minutes
+of samples with zero real sleeps. ``history_tail`` is the bounded
+excerpt a flight dump embeds; the port has no flight recorder yet, so
+nothing registers it.
+"""
+
+from __future__ import annotations
+
+import collections
+import os
+import threading
+import time
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+from spark_rapids_ml_tpu_torch.obs import metrics as metrics_mod
+
+SAMPLE_MS_ENV = "SPARK_RAPIDS_ML_TORCH_OBS_SAMPLE_MS"
+HISTORY_ENV = "SPARK_RAPIDS_ML_TORCH_OBS_HISTORY"
+
+_DEFAULT_SAMPLE_MS = 1000.0
+# (resolution_seconds, span_seconds) per tier, finest first.
+DEFAULT_TIERS: Tuple[Tuple[float, float], ...] = (
+    (1.0, 300.0),
+    (10.0, 3600.0),
+)
+# Metric-name prefixes the sampler records by default: the serving tier,
+# its SLOs, the HTTP front end, device/host memory, the per-model cost
+# ledger, and the obs layer's own overhead series.
+DEFAULT_PREFIXES: Tuple[str, ...] = (
+    "sparkml_serve_",
+    "sparkml_slo_",
+    "sparkml_http_",
+    "sparkml_device_",
+    "sparkml_host_",
+    "sparkml_model_",
+    "sparkml_numerics_",
+    "sparkml_obs_",
+    "sparkml_log_",
+    "sparkml_fit_",
+    "sparkml_fleet_",
+    "sparkml_forecast_",
+)
+# Families matched by a prefix above that do NOT earn a history ring:
+# high-cardinality operational counters (per-model × outcome/op/event
+# children) that are scraped via /metrics and rolled up by
+# /debug/costs, but whose time dimension nobody queries. Every child
+# here would otherwise cost a full ring ladder per (model, label)
+# combination — the store's series budget is spent on the families the
+# dashboard and detectors actually read over time.
+SAMPLE_EXCLUDE: Tuple[str, ...] = (
+    "sparkml_model_requests_total",
+    "sparkml_model_rows_total",
+    "sparkml_model_compile_seconds_total",
+    "sparkml_model_compiles_total",
+    "sparkml_model_aot_cache_total",
+    "sparkml_model_ledger_mutations_total",
+    "sparkml_model_reconcile_checks_total",
+    "sparkml_model_last_hit_age_seconds",
+)
+# The series a flight dump's history tail embeds (kept tighter than the
+# sampler set: a dump is read by a human mid-incident).
+DUMP_PREFIXES: Tuple[str, ...] = ("sparkml_serve_", "sparkml_slo_")
+DUMP_TAIL_SECONDS = 300.0
+# Sized for the per-model cost ledger's worst case (OBS_MODEL_MAX
+# models × their sampled families) ON TOP of the serve/SLO/device
+# families — at the old 2048 a full model roster could crowd out
+# late-born serve series, and the store drops NEW series at the cap.
+_MAX_SERIES = 3072
+
+
+def default_tiers() -> Tuple[Tuple[float, float], ...]:
+    """The downsample ladder from ``SPARK_RAPIDS_ML_TORCH_OBS_HISTORY``
+    (``"1x300,10x3600"`` = 1 s × 5 m + 10 s × 1 h), or the default."""
+    raw = os.environ.get(HISTORY_ENV, "").strip()
+    if not raw:
+        return DEFAULT_TIERS
+    tiers: List[Tuple[float, float]] = []
+    try:
+        for part in raw.split(","):
+            res, span = part.lower().split("x")
+            res_s, span_s = float(res), float(span)
+            if res_s <= 0 or span_s <= res_s:
+                return DEFAULT_TIERS
+            tiers.append((res_s, span_s))
+    except ValueError:
+        return DEFAULT_TIERS
+    return tuple(sorted(tiers)) or DEFAULT_TIERS
+
+
+def sample_interval_seconds() -> float:
+    try:
+        ms = float(os.environ.get(SAMPLE_MS_ENV, _DEFAULT_SAMPLE_MS))
+    except ValueError:
+        ms = _DEFAULT_SAMPLE_MS
+    return max(ms, 10.0) / 1000.0
+
+
+class _Tier:
+    """One downsample tier of one series: a bounded ring of
+    ``[bucket_start_ts, value]`` keeping the LAST sample per bucket."""
+
+    __slots__ = ("resolution", "points")
+
+    def __init__(self, resolution: float, span: float):
+        self.resolution = float(resolution)
+        capacity = int(span / resolution) + 1
+        self.points: collections.deque = collections.deque(maxlen=capacity)
+
+    def add(self, ts: float, value: float) -> None:
+        bucket = (ts // self.resolution) * self.resolution
+        if self.points and self.points[-1][0] == bucket:
+            self.points[-1][1] = value  # last-in-bucket wins
+        elif self.points and self.points[-1][0] > bucket:
+            return  # clock went backwards; keep the ring monotone
+        else:
+            self.points.append([bucket, value])
+
+    def query(self, start: float, end: float) -> List[List[float]]:
+        return [[ts, v] for ts, v in self.points if start <= ts <= end]
+
+
+class _Series:
+    __slots__ = ("name", "labels", "kind", "tiers", "born")
+
+    def __init__(self, name: str, labels: Tuple[Tuple[str, str], ...],
+                 kind: str, tiers: Sequence[Tuple[float, float]]):
+        self.name = name
+        self.labels = labels
+        self.kind = kind
+        self.tiers = [_Tier(res, span) for res, span in tiers]
+        # first-ever record time; lets counter math distinguish "child
+        # born mid-window" (its first value IS increase) from "older
+        # points aged out of the ring" (it is not)
+        self.born: Optional[float] = None
+
+    def add(self, ts: float, value: float) -> None:
+        if self.born is None:
+            self.born = ts
+        for tier in self.tiers:
+            tier.add(ts, value)
+
+
+def _label_key(labels: Optional[Dict[str, str]]
+               ) -> Tuple[Tuple[str, str], ...]:
+    return tuple(sorted((str(k), str(v))
+                        for k, v in (labels or {}).items()))
+
+
+def counter_increase(points: Sequence[Sequence[float]]) -> float:
+    """Total increase of a cumulative counter over its sampled points,
+    treating any monotonic DECREASE as a restart-from-zero reset (the
+    post-reset value is itself new increase) — the Prometheus ``rate``
+    reset rule, so a process restart never reads as a negative rate."""
+    total = 0.0
+    prev: Optional[float] = None
+    for _ts, value in points:
+        if prev is not None:
+            total += value - prev if value >= prev else value
+        prev = value
+    return total
+
+
+def windowed_increase(series: Dict[str, Any],
+                      window_start: float) -> float:
+    """Counter increase of one ``range_query`` series doc over its
+    window, crediting a child BORN inside the window with its first
+    sampled value — a burst that mints a new labeled child (the first
+    ``outcome="error"`` of a fault storm) lands entirely between two
+    samples, so the plain first-to-last increase over ``[3, 3, ...]``
+    reads 0 and a detector watching the delta is blind to exactly the
+    event it exists for. ``born_ts`` (first-ever record time) is how we
+    tell that case from an old series whose early points merely aged
+    out of the ring."""
+    points = series.get("points") or []
+    inc = counter_increase(points)
+    born = series.get("born_ts")
+    if points and born is not None and born >= window_start:
+        inc += points[0][1]
+    return inc
+
+
+class TimeSeriesStore:
+    """Bounded multi-tier history for metric series.
+
+    One lock guards the series map and every ring: recording is a dict
+    lookup plus ≤ ``len(tiers)`` deque appends, and queries copy the
+    matching points out — safe under concurrent sample/query threads
+    (tested 8-way). The store holds at most ``max_series`` distinct
+    series; past that, NEW series are dropped and counted in
+    ``sparkml_obs_tsdb_dropped_series_total`` (never silently).
+    """
+
+    def __init__(
+        self,
+        tiers: Optional[Sequence[Tuple[float, float]]] = None,
+        clock: Callable[[], float] = time.time,
+        max_series: int = _MAX_SERIES,
+    ):
+        self.tiers: Tuple[Tuple[float, float], ...] = tuple(
+            sorted(tiers if tiers is not None else default_tiers())
+        )
+        if not self.tiers:
+            raise ValueError("need at least one (resolution, span) tier")
+        self.clock = clock
+        self.max_series = int(max_series)
+        self._lock = threading.Lock()
+        self._series: Dict[Tuple[str, Tuple[Tuple[str, str], ...]],
+                           _Series] = {}
+        self._dropped_keys: set = set()
+
+    # -- recording ---------------------------------------------------------
+
+    def record(self, name: str, labels: Optional[Dict[str, str]],
+               value: float, kind: str = "gauge",
+               now: Optional[float] = None) -> None:
+        ts = self.clock() if now is None else now
+        key = (name, _label_key(labels))
+        with self._lock:
+            series = self._series.get(key)
+            if series is None:
+                if len(self._series) >= self.max_series:
+                    # count each DISTINCT dropped series once — the
+                    # sampler re-offers the same over-cap series every
+                    # sweep, and a per-sample count would read as a
+                    # mass-drop event after a day at 1 s cadence. The
+                    # dedup set is itself bounded (2× the series cap):
+                    # unbounded label churn (a URL scanner minting
+                    # metric children) must not leak memory through the
+                    # very guard that exists to bound it — past the
+                    # bound, further distinct drops go uncounted.
+                    if (key not in self._dropped_keys
+                            and len(self._dropped_keys)
+                            < 2 * self.max_series):
+                        self._dropped_keys.add(key)
+                        self._count_dropped()
+                    return
+                series = _Series(name, key[1], kind, self.tiers)
+                self._series[key] = series
+            series.add(ts, float(value))
+
+    def _count_dropped(self) -> None:
+        try:
+            metrics_mod.get_registry().counter(
+                "sparkml_obs_tsdb_dropped_series_total",
+                "new series dropped because the store hit max_series "
+                "(raise max_series or narrow the sampler prefixes)",
+            ).inc()
+        except Exception:
+            pass  # telemetry about telemetry must never raise
+
+    # -- queries -----------------------------------------------------------
+
+    def _tier_for(self, series: _Series, window: float) -> _Tier:
+        """The finest tier whose span covers the window (else the
+        coarsest)."""
+        for tier, (_res, span) in zip(series.tiers, self.tiers):
+            if span >= window:
+                return tier
+        return series.tiers[-1]
+
+    def _matching(self, name: str, labels: Optional[Dict[str, str]]
+                  ) -> List[_Series]:
+        """Children of ``name`` whose labels contain every given pair
+        (``labels=None`` matches all children). Caller holds the lock."""
+        want = set(_label_key(labels)) if labels else None
+        out = []
+        for (sname, _lk), series in self._series.items():
+            if sname != name:
+                continue
+            if want is not None and not want.issubset(set(series.labels)):
+                continue
+            out.append(series)
+        return out
+
+    def range_query(self, name: str,
+                    labels: Optional[Dict[str, str]] = None,
+                    window: float = 300.0,
+                    now: Optional[float] = None) -> List[Dict[str, Any]]:
+        """``[{"labels": {...}, "kind", "points": [[ts, value], ...]},
+        ...]`` for every matching child over the trailing window —
+        points ascending in time, served from the finest covering tier."""
+        ts = self.clock() if now is None else now
+        with self._lock:
+            matches = [
+                (dict(s.labels), s.kind, s.born,
+                 self._tier_for(s, window).query(ts - window, ts))
+                for s in self._matching(name, labels)
+            ]
+        return [
+            {"labels": lbls, "kind": kind, "born_ts": born,
+             "points": pts}
+            for lbls, kind, born, pts in matches
+        ]
+
+    def delta(self, name: str, labels: Optional[Dict[str, str]] = None,
+              window: float = 300.0, now: Optional[float] = None) -> float:
+        """Total counter increase over the window, summed across matching
+        children, reset-aware."""
+        return sum(
+            counter_increase(s["points"])
+            for s in self.range_query(name, labels, window, now=now)
+        )
+
+    def rate(self, name: str, labels: Optional[Dict[str, str]] = None,
+             window: float = 300.0, now: Optional[float] = None) -> float:
+        """Per-second counter rate over the window, summed per series
+        (Prometheus semantics: each child's increase over its OWN
+        sampled span — a child that appeared mid-window contributes its
+        true rate, not one diluted by the longest-lived sibling's span).
+        A series with fewer than two samples contributes 0.0."""
+        total = 0.0
+        for s in self.range_query(name, labels, window, now=now):
+            pts = s["points"]
+            span = pts[-1][0] - pts[0][0] if len(pts) >= 2 else 0.0
+            if span > 0:
+                total += counter_increase(pts) / span
+        return total
+
+    def rate_points(self, name: str,
+                    labels: Optional[Dict[str, str]] = None,
+                    window: float = 300.0,
+                    now: Optional[float] = None) -> List[Dict[str, Any]]:
+        """Per-interval rate series (``[[ts, per_second], ...]`` between
+        consecutive samples, reset-aware) — what a request-rate
+        sparkline plots from a cumulative counter."""
+        out = []
+        for s in self.range_query(name, labels, window, now=now):
+            pts = s["points"]
+            rates: List[List[float]] = []
+            for prev, cur in zip(pts, pts[1:]):
+                dt = cur[0] - prev[0]
+                if dt <= 0:
+                    continue
+                inc = cur[1] - prev[1] if cur[1] >= prev[1] else cur[1]
+                rates.append([cur[0], inc / dt])
+            out.append({"labels": s["labels"], "kind": "rate",
+                        "points": rates})
+        return out
+
+    # -- introspection -----------------------------------------------------
+
+    def series_names(self) -> List[str]:
+        with self._lock:
+            return sorted({name for name, _ in self._series})
+
+    def series_count(self) -> int:
+        with self._lock:
+            return len(self._series)
+
+    def dropped_series(self) -> int:
+        """How many DISTINCT series were refused at the cap."""
+        with self._lock:
+            return len(self._dropped_keys)
+
+    def history_tail(self, prefixes: Sequence[str] = DUMP_PREFIXES,
+                     window: float = DUMP_TAIL_SECONDS,
+                     now: Optional[float] = None,
+                     max_series: int = 64) -> Dict[str, Any]:
+        """The flight-dump section: recent points for every series whose
+        name starts with one of ``prefixes`` (bounded — a dump must stay
+        readable). Keys are ``name{k=v,...}``."""
+        ts = self.clock() if now is None else now
+        prefixes = tuple(prefixes)
+        with self._lock:
+            items = sorted(self._series.items())
+        out: Dict[str, Any] = {}
+        truncated = 0
+        for (name, label_key), series in items:
+            if not name.startswith(prefixes):
+                continue
+            if len(out) >= max_series:
+                truncated += 1
+                continue
+            tier = self._tier_for(series, window)
+            with self._lock:
+                points = tier.query(ts - window, ts)
+            if not points:
+                continue
+            label_str = ",".join(f"{k}={v}" for k, v in label_key)
+            out[f"{name}{{{label_str}}}" if label_str else name] = {
+                "kind": series.kind,
+                "points": points,
+            }
+        if truncated:
+            out["_truncated_series"] = truncated
+        return out
+
+
+class MetricsSampler:
+    """Background sweep: registry families → store, at a fixed cadence.
+
+    ``sample_once(now=)`` is the injectable-clock entry point tests (and
+    the background thread) share; ``start()``/``stop()`` manage the
+    daemon thread. Collectors registered via ``register_collector`` run
+    at the top of each sweep (guarded — a broken collector never kills
+    the sampler) so derived gauges (device memory, occupancy) are fresh
+    in the same tick that samples them.
+    """
+
+    def __init__(
+        self,
+        store: Optional[TimeSeriesStore] = None,
+        registry: Optional[metrics_mod.MetricsRegistry] = None,
+        interval_seconds: Optional[float] = None,
+        prefixes: Sequence[str] = DEFAULT_PREFIXES,
+        clock: Callable[[], float] = time.time,
+        exclude: Sequence[str] = SAMPLE_EXCLUDE,
+    ):
+        self.store = store if store is not None else TimeSeriesStore(
+            clock=clock)
+        self._registry = registry
+        self.interval_seconds = (
+            interval_seconds if interval_seconds is not None
+            else sample_interval_seconds()
+        )
+        self.prefixes = tuple(prefixes)
+        self.exclude = frozenset(exclude)
+        self.clock = clock
+        self._collectors: List[Callable[[], None]] = []
+        self._post_hooks: List[Callable[[float], None]] = []
+        self._collectors_lock = threading.Lock()
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._lifecycle = threading.Lock()  # start/stop check-then-act
+        self._sweeps = 0
+
+    def _reg(self) -> metrics_mod.MetricsRegistry:
+        return (self._registry if self._registry is not None
+                else metrics_mod.get_registry())
+
+    def register_collector(self, fn: Callable[[], None]) -> None:
+        with self._collectors_lock:
+            if fn not in self._collectors:
+                self._collectors.append(fn)
+
+    def unregister_collector(self, fn: Callable[[], None]) -> None:
+        with self._collectors_lock:
+            if fn in self._collectors:
+                self._collectors.remove(fn)
+
+    def register_post_sweep(self, fn: Callable[[float], None]) -> None:
+        """Run ``fn(sweep_timestamp)`` at the END of every sweep, after
+        fresh samples landed in the store — the hook the auto-incident
+        engine detects from (same thread, same injectable clock, cost
+        inside the sweep's own overhead accounting). Idempotent."""
+        with self._collectors_lock:
+            if fn not in self._post_hooks:
+                self._post_hooks.append(fn)
+
+    def unregister_post_sweep(self, fn: Callable[[float], None]) -> None:
+        with self._collectors_lock:
+            if fn in self._post_hooks:
+                self._post_hooks.remove(fn)
+
+    # -- one sweep ---------------------------------------------------------
+
+    def sample_once(self, now: Optional[float] = None) -> int:
+        """Run collectors, then snapshot every selected family into the
+        store at timestamp ``now`` (injectable). Returns the number of
+        points recorded. The sweep's own wall-clock cost lands in
+        ``sparkml_obs_overhead_seconds_total{component="sampler"}``."""
+        t0 = time.perf_counter()
+        ts = self.clock() if now is None else now
+        with self._collectors_lock:
+            collectors = list(self._collectors)
+        for fn in collectors:
+            try:
+                fn()
+            except Exception:
+                self._count_collector_error(fn)
+        recorded = 0
+        for family in self._reg().families():
+            if (not family.name.startswith(self.prefixes)
+                    or family.name in self.exclude):
+                continue
+            try:
+                recorded += self._sample_family(family, ts)
+            except Exception:
+                continue  # one sick family must not starve the rest
+        # the sampler's own cost stops HERE: post-sweep hooks (the
+        # anomaly sweep) account for themselves under their own
+        # component label — timing them here too would double-count
+        # every detector sweep in the overhead total and make an
+        # evidence capture read as a sampler latency spike
+        self._sweeps += 1
+        elapsed = time.perf_counter() - t0
+        self._publish_overhead(elapsed, recorded)
+        with self._collectors_lock:
+            post_hooks = list(self._post_hooks)
+        for fn in post_hooks:
+            try:
+                fn(ts)
+            except Exception:
+                self._count_collector_error(fn)
+        return recorded
+
+    def _sample_family(self, family, ts: float) -> int:
+        # reads go straight at the child objects _samples() yielded —
+        # re-resolving each child through family.value(**labels) would
+        # re-take the family lock and rebuild the label key per child,
+        # per sweep, for nothing
+        recorded = 0
+        for key, child in family._samples():
+            labels = family._label_dict(key)
+            if isinstance(family, (metrics_mod.Counter,
+                                   metrics_mod.Gauge)):
+                with child.lock:
+                    value = child.value
+                self.store.record(family.name, labels, value,
+                                  kind=family.kind, now=ts)
+                recorded += 1
+            elif isinstance(family, metrics_mod.Summary):
+                sketch = child  # the port's Summary child is its sketch
+                for q in family.quantiles:
+                    value = sketch.quantile(q)
+                    if value is None:
+                        continue
+                    q_labels = dict(labels)
+                    q_labels["quantile"] = metrics_mod._format_value(q)
+                    self.store.record(family.name, q_labels, value,
+                                      kind="gauge", now=ts)
+                    recorded += 1
+                self.store.record(f"{family.name}_count", labels,
+                                  sketch.count, kind="counter", now=ts)
+                recorded += 1
+        return recorded
+
+    def _publish_overhead(self, elapsed: float, recorded: int) -> None:
+        try:
+            reg = self._reg()
+            reg.counter(
+                "sparkml_obs_overhead_seconds_total",
+                "wall-clock the observability layer spends watching "
+                "(sampler sweeps, device monitor, profiler bookkeeping)",
+                ("component",),
+            ).inc(elapsed, component="sampler")
+            reg.counter(
+                "sparkml_obs_samples_total",
+                "history points recorded by the metrics sampler",
+            ).inc(recorded)
+            reg.gauge(
+                "sparkml_obs_sample_sweep_seconds",
+                "duration of the most recent sampler sweep",
+            ).set(elapsed)
+        except Exception:
+            pass  # overhead accounting must never break the sweep
+
+    def _count_collector_error(self, fn) -> None:
+        try:
+            self._reg().counter(
+                "sparkml_obs_collector_errors_total",
+                "sampler collector callbacks that raised", ("collector",),
+            ).inc(collector=getattr(fn, "__name__", "collector"))
+        except Exception:
+            pass
+
+    # -- the background thread ---------------------------------------------
+
+    @property
+    def running(self) -> bool:
+        return self._thread is not None and self._thread.is_alive()
+
+    @property
+    def sweeps(self) -> int:
+        return self._sweeps
+
+    def start(self) -> None:
+        """Start the sampling thread (idempotent — two racing starts
+        must not spawn two sweep loops sampling at double cadence)."""
+        from spark_rapids_ml_tpu_torch.obs import tracectx
+
+        with self._lifecycle:
+            if self.running:
+                return
+            self._stop.clear()
+            self._thread = tracectx.traced_thread(
+                self._run, name="sparkml-obs-sampler", daemon=True,
+                fresh=True,
+            )
+            self._thread.start()
+
+    def stop(self, timeout: float = 5.0) -> None:
+        with self._lifecycle:
+            # set under the lock: a racing start() clearing the event
+            # between set and join would orphan a live sweep loop
+            self._stop.set()
+            thread = self._thread
+            self._thread = None
+        if thread is not None:
+            thread.join(timeout=timeout)
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            self.sample_once()
+            self._stop.wait(self.interval_seconds)
+
+
+# -- the process-wide default store/sampler ----------------------------------
+
+_lock = threading.Lock()
+_store: Optional[TimeSeriesStore] = None
+_sampler: Optional[MetricsSampler] = None
+
+
+def get_tsdb() -> TimeSeriesStore:
+    """The process-wide history store the serving surface queries."""
+    global _store
+    with _lock:
+        if _store is None:
+            _store = TimeSeriesStore()
+        return _store
+
+
+def get_sampler() -> MetricsSampler:
+    global _sampler
+    store = get_tsdb()
+    with _lock:
+        if _sampler is None:
+            _sampler = MetricsSampler(store)
+        return _sampler
+
+
+def start_sampling(interval_seconds: Optional[float] = None
+                   ) -> MetricsSampler:
+    """Start (idempotently) the process-wide history sampler, with the
+    device monitor's ``sample`` as a collector, so the device memory
+    gauges update every sweep. Raises where the device monitor does: no
+    card and no CPU request."""
+    from spark_rapids_ml_tpu_torch.obs import devmon
+
+    monitor = devmon.get_device_monitor()
+    sampler = get_sampler()
+    if interval_seconds is not None:
+        sampler.interval_seconds = interval_seconds
+    sampler.register_collector(monitor.sample)
+    sampler.start()
+    return sampler
+
+
+def stop_sampling() -> None:
+    with _lock:
+        sampler = _sampler
+    if sampler is not None:
+        sampler.stop()
+
+
+def reset_tsdb() -> None:
+    """Drop the process-wide store/sampler (tests)."""
+    global _store, _sampler
+    with _lock:
+        sampler = _sampler
+        _sampler = None
+        _store = None
+    if sampler is not None:
+        sampler.stop()
+
+
+__all__ = [
+    "DEFAULT_PREFIXES",
+    "DEFAULT_TIERS",
+    "DUMP_PREFIXES",
+    "HISTORY_ENV",
+    "MetricsSampler",
+    "SAMPLE_EXCLUDE",
+    "SAMPLE_MS_ENV",
+    "TimeSeriesStore",
+    "counter_increase",
+    "default_tiers",
+    "get_sampler",
+    "get_tsdb",
+    "reset_tsdb",
+    "sample_interval_seconds",
+    "start_sampling",
+    "stop_sampling",
+    "windowed_increase",
+]

@@ -30,7 +30,9 @@ one model on one card needs:
   rehearses all of the above;
 * ``start_serve_server`` (``serve.server``) — ``POST /predict`` (JSON and
   the binary columnar wire format, ``serve.wire``), ``GET /healthz``,
-  ``/readyz`` and ``/metrics``.
+  ``/readyz``, ``/metrics`` and the debug plane ``/debug/traces``,
+  ``/debug/slo`` and ``/debug/history`` (the history sampler, which it
+  starts, with the device monitor as a collector).
 """
 
 # Import order as in the JAX package: ``faults`` / ``breaker`` /

@@ -33,6 +33,10 @@ carries its caller's ``TraceContext``: the worker files its
 span that links every member's trace, and resolves each latch under the
 member's own context. A model without a program keeps the
 blocking path (window depth 1): one ``transform_fn`` call per batch.
+Each completed batch's union busy time
+(``sparkml_serve_device_busy_seconds_total``) is also attributed to the
+program's device through ``obs.devmon``
+(``sparkml_serve_device_batch_seconds_total{model,device}``).
 
 Invariants (tested in ``tests/test_torch_serve_engine.py`` and
 ``tests/test_torch_serve_fairness.py``):
@@ -72,6 +76,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from spark_rapids_ml_tpu_torch.obs import serving as obs_serving
+from spark_rapids_ml_tpu_torch.obs.devmon import get_device_monitor
 from spark_rapids_ml_tpu_torch.obs import spans as spans_mod
 from spark_rapids_ml_tpu_torch.obs import tracectx
 from spark_rapids_ml_tpu_torch.obs.metrics import get_registry
@@ -395,6 +400,13 @@ class MicroBatcher:
         self._busy_marker = 0.0
         self._overlap_marker = 0.0
         self._watchdog = _Watchdog(name)
+        # per-device attribution of each batch's busy time (obs.devmon):
+        # the program's device, else the monitor's first device
+        self._devmon = get_device_monitor()
+        program = async_spec.program if async_spec is not None else None
+        device = getattr(program, "device", None)
+        self.device_label: Optional[str] = (
+            str(device) if device is not None else None)
         self._declare_metrics()
         self._worker = self._spawn_worker()
 
@@ -1016,7 +1028,10 @@ class MicroBatcher:
         if entry.watchdog is not None:
             self._watchdog.disarm(entry.watchdog)
             entry.watchdog = None
-        self._note_complete(entry)
+        busy = self._note_complete(entry)
+        # the same union busy time, attributed to the program's device
+        # (never raises): rate() of it is the device's occupancy
+        self._devmon.note_batch(self.name, busy, device=self.device_label)
         if self._retire_entry(entry, gen):
             return  # the watchdog failed this window; the late result drops
         if err is not None:

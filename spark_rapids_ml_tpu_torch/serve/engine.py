@@ -72,6 +72,7 @@ from __future__ import annotations
 import random
 import threading
 import time
+import weakref
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -118,6 +119,32 @@ from spark_rapids_ml_tpu_torch.serve.scheduler import (
 class EngineClosed(RuntimeError):
     """The engine is shut down (or shutting down) and accepts no new
     requests."""
+
+
+# Live engines, for the sampler-driven SLO publisher (weak: an engine
+# a test abandoned must be collectable, not pinned by telemetry).
+_live_engines: "weakref.WeakSet[ServeEngine]" = weakref.WeakSet()
+
+
+def publish_all_slos() -> None:
+    """Mirror every live engine's SLO verdict into the metrics registry.
+
+    Registered as a sampler collector by ``start_serve_server``, so the
+    ``sparkml_slo_*`` gauges are fresh every sweep and earn history;
+    without it they move only when someone polls ``/debug/slo``.
+    """
+    for engine in list(_live_engines):
+        if engine._closed:
+            continue
+        try:
+            engine.slo.publish(get_registry())
+        except Exception:
+            get_registry().counter(
+                "sparkml_serve_errors_total",
+                "serving errors by type: batch failures (exception "
+                "class), worker crashes/wedges, breaker rejections",
+                ("model", "error"),
+            ).inc(model="(engine)", error="slo_publish")
 
 
 class NumericsError(RuntimeError):
@@ -331,6 +358,7 @@ class ServeEngine:
         )
         self._m_tenant.inc(0, tenant=self.admission.default_tenant,
                            outcome="ok")
+        _live_engines.add(self)
 
     # -- the request path --------------------------------------------------
 
@@ -997,4 +1025,5 @@ __all__ = [
     "WorkerCrashed",
     "extract_output",
     "is_backend_error",
+    "publish_all_slos",
 ]

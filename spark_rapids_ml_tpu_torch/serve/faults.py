@@ -6,8 +6,10 @@ machinery of ``serve/`` is only trustworthy if the failures it exists to
 absorb can be produced on demand.
 
 * **programmatic API** — ``fault_plane().inject(model="pca", kind="raise",
-  count=5)`` arms a fault; ``clear()`` disarms everything. Tests drive
-  the whole matrix in-process.
+  count=5)`` arms a fault; ``clear()`` disarms everything; ``active()``
+  lists what is armed (``GET /debug/slo`` reports it, so a chaos drill is
+  auditable from the surface it attacks). Tests drive the whole matrix
+  in-process.
 * **deterministic targeting** — each spec matches a model name (or
   ``*``), fires from call index ``start``, at most ``count`` times
   (None = forever). Call indices are counted per model per site, so a
@@ -34,7 +36,7 @@ fault counts in ``sparkml_serve_faults_injected_total{model,kind}``.
 from __future__ import annotations
 
 import threading
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 from spark_rapids_ml_tpu_torch.obs.metrics import get_registry
 
@@ -77,6 +79,15 @@ class FaultSpec:
             return False
         return self.count is None or self.fired < self.count
 
+    def as_dict(self) -> Dict[str, Any]:
+        return {
+            "model": self.model,
+            "kind": self.kind,
+            "count": self.count,
+            "start": self.start,
+            "fired": self.fired,
+        }
+
 
 class FaultPlane:
     """The process-wide registry of armed faults.
@@ -113,6 +124,11 @@ class FaultPlane:
             self._specs = []
             self._calls.clear()
             self._worker_calls.clear()
+
+    def active(self) -> List[Dict[str, Any]]:
+        """Every armed spec as a dict (``GET /debug/slo``'s ``faults``)."""
+        with self._lock:
+            return [s.as_dict() for s in self._specs]
 
     # -- firing ------------------------------------------------------------
 

@@ -34,12 +34,30 @@ generators, probes) without a web framework.
   sheds, 200 otherwise; each read refreshes the controller
   (``engine.shed_posture``), so a replica drained by its load balancer
   recovers without predict traffic;
-* ``GET /metrics`` — the metrics registry as Prometheus text.
+* ``GET /metrics`` — the metrics registry as Prometheus text;
+* ``GET /debug/traces[?limit=N]`` — recent request traces assembled into
+  trees from the span ring (server → queue → fan-in batch, the batch
+  span grafted in through its links); ``?trace_id=<id>`` returns one
+  trace, or 404 once the ring has evicted it;
+* ``GET /debug/slo`` — burn rates per window, budget remaining and firing
+  alerts from the engine's ``SloSet``, with the queue depth, models,
+  per-model breaker states, the fault plane's armed faults, the degraded
+  / retry / worker-restart totals and the overload posture;
+* ``GET /debug/history`` — JSON range queries over the history store
+  (``obs.tsdb``): ``?name=<metric>&window=<s>`` for one family
+  (``model=`` narrows by label, ``rate=1`` adds reset-aware rate and
+  delta), no ``name`` for the default bundle of key serve / SLO / device
+  series plus the sampler's health.
 
-Handler threads only decode, enqueue and wait: all device work happens on
-the batchers' worker threads, so ``/metrics`` and ``/healthz`` never touch
-the card. The JAX package's ``/debug/*`` routes and dashboard are not
-ported yet.
+``start_serve_server`` starts the history sampler (``obs.tsdb``, with the
+device monitor ``obs.devmon`` as a collector) and registers the engine's
+SLO and queue-wait publishers on it, so the ``/debug/history`` series
+move every sweep whether or not anyone polls. Handler threads only
+decode, enqueue and wait: all device work happens on the batchers' worker
+threads, so ``/metrics``, ``/healthz`` and ``/debug/*`` never touch the
+card (the device monitor reads the allocator's host-side counters). The
+JAX package's ``/debug/profile``, ``/debug/incidents``, ``/debug/costs``
+and the other tiers' routes, and its dashboard, are not ported yet.
 """
 
 from __future__ import annotations
@@ -47,15 +65,16 @@ from __future__ import annotations
 import http.server
 import json
 import socketserver
-import threading
 import time
 import urllib.parse
+import weakref
 from typing import Optional
 
 import numpy as np
 
 from spark_rapids_ml_tpu_torch.obs import spans as spans_mod
 from spark_rapids_ml_tpu_torch.obs import tracectx
+from spark_rapids_ml_tpu_torch.obs import tsdb as tsdb_mod
 from spark_rapids_ml_tpu_torch.obs.metrics import get_registry
 from spark_rapids_ml_tpu_torch.serve import wire
 from spark_rapids_ml_tpu_torch.serve.admission import ShedLoad
@@ -67,9 +86,113 @@ from spark_rapids_ml_tpu_torch.serve.batching import (
     WorkerCrashed,
 )
 from spark_rapids_ml_tpu_torch.serve.breaker import BreakerOpen
-from spark_rapids_ml_tpu_torch.serve.engine import EngineClosed, ServeEngine
+from spark_rapids_ml_tpu_torch.serve.engine import (
+    EngineClosed,
+    ServeEngine,
+    publish_all_slos,
+)
+from spark_rapids_ml_tpu_torch.serve.faults import fault_plane
 
 _MAX_BODY_BYTES = 64 * 1024 * 1024  # refuse absurd request bodies
+_TRACE_ROOT_PREFIXES = ("serve:http", "serve:request")
+_DEFAULT_TRACE_LIMIT = 20
+_DEFAULT_HISTORY_WINDOW = 300.0
+_MAX_HISTORY_WINDOW = 24 * 3600.0
+# the queue-wait estimate, republished every sampler sweep so it earns
+# history (the JAX package's obs.forecast QUEUE_WAIT_SERIES)
+QUEUE_WAIT_SERIES = "sparkml_serve_queue_wait_seconds"
+
+
+def _query_float(params, key: str, default: float,
+                 lo: float, hi: float) -> float:
+    try:
+        value = float(params.get(key, [default])[0])
+    except (TypeError, ValueError):
+        return default
+    return min(max(value, lo), hi)
+
+
+def history_document(params) -> dict:
+    """The ``GET /debug/history`` body for parsed query params.
+
+    ``?name=<metric>`` → every matching child series (``model=`` narrows
+    by label, ``host=`` by a federated peer's label — the port federates
+    nothing yet, so any host matches no series; ``rate=1`` adds
+    reset-aware rate/delta for counters); without ``name`` → the default
+    bundle of key series, plus sampler health. The bundle keeps the JAX
+    package's keys: a series whose tier is not ported is an empty list."""
+    store = tsdb_mod.get_tsdb()
+    window = _query_float(params, "window", _DEFAULT_HISTORY_WINDOW,
+                          1.0, _MAX_HISTORY_WINDOW)
+    name = (params.get("name", [None])[0] or "").strip()
+    model = (params.get("model", [None])[0] or "").strip()
+    host = (params.get("host", [None])[0] or "").strip()
+    labels = {}
+    if model:
+        labels["model"] = model
+    if host:
+        labels["host"] = host
+    labels = labels or None
+    if name:
+        doc = {
+            "name": name,
+            "window": window,
+            "series": store.range_query(name, labels, window),
+        }
+        if params.get("rate", [""])[0] in ("1", "true"):
+            doc["rate_series"] = store.rate_points(name, labels, window)
+            doc["rate_per_sec"] = store.rate(name, labels, window)
+            doc["delta"] = store.delta(name, labels, window)
+        return doc
+    sampler = tsdb_mod.get_sampler()
+    return {
+        "window": window,
+        "series_names": store.series_names(),
+        "sampler": {
+            "running": sampler.running,
+            "interval_seconds": sampler.interval_seconds,
+            "sweeps": sampler.sweeps,
+            "series_count": store.series_count(),
+            "dropped_series": store.dropped_series(),
+        },
+        "key": {
+            "queue_depth": store.range_query(
+                "sparkml_serve_queue_depth", None, window),
+            "p99_latency_seconds": store.range_query(
+                "sparkml_serve_request_latency_seconds",
+                {"quantile": "0.99"}, window),
+            "request_rate": store.rate_points(
+                "sparkml_serve_requests_total", None, window),
+            "requests_total": store.range_query(
+                "sparkml_serve_requests_total", None, window),
+            "device_mem_bytes_in_use": store.range_query(
+                "sparkml_device_mem_bytes_in_use", None, window),
+            "device_busy_rate": store.rate_points(
+                "sparkml_serve_device_batch_seconds_total", None, window),
+            "obs_overhead_rate": store.rate_points(
+                "sparkml_obs_overhead_seconds_total", None, window),
+            "slo_budget_remaining": store.range_query(
+                "sparkml_slo_budget_remaining", None, window),
+            # the series below belong to tiers not ported yet (the cost
+            # ledger, rollout, federation and forecast): empty until then
+            "model_hbm_bytes": store.range_query(
+                "sparkml_model_hbm_bytes", None, window),
+            "model_device_rate": store.rate_points(
+                "sparkml_model_device_seconds_total", None, window),
+            "model_ewma_rps": store.range_query(
+                "sparkml_model_ewma_rps", None, window),
+            "canary_arm_p99_seconds": store.range_query(
+                "sparkml_serve_canary_arm_p99_seconds", None, window),
+            "canary_arm_error_rate": store.range_query(
+                "sparkml_serve_canary_arm_error_rate", None, window),
+            "fleet_host_up": store.range_query(
+                "sparkml_fleet_host_up", None, window),
+            "forecast_queue_wait_ms": store.range_query(
+                "sparkml_forecast_queue_wait_ms", None, window),
+            "forecast_rps": store.range_query(
+                "sparkml_forecast_rps", None, window),
+        },
+    }
 
 
 def make_handler(engine: ServeEngine):
@@ -84,6 +207,23 @@ def make_handler(engine: ServeEngine):
     m_http_requests = reg.counter(
         "sparkml_http_requests_total",
         "HTTP front-end requests by path and status", ("path", "status"),
+    )
+    # /debug/slo totals: family handles summed per poll, not a registry
+    # snapshot
+    m_degraded = reg.counter(
+        "sparkml_serve_degraded_total",
+        "requests served by the degraded CPU fallback while the "
+        "model's breaker was open", ("model",),
+    )
+    m_retries = reg.counter(
+        "sparkml_serve_retries_total",
+        "predict attempts re-entered after a transient backend "
+        "failure", ("model",),
+    )
+    m_restarts = reg.counter(
+        "sparkml_serve_worker_restarts_total",
+        "batcher worker restarts after a crash or watchdog-declared "
+        "wedge", ("model",),
     )
 
     class _Handler(http.server.BaseHTTPRequestHandler):
@@ -119,7 +259,8 @@ def make_handler(engine: ServeEngine):
             return status
 
         def do_GET(self):  # noqa: N802 - http.server API
-            path = urllib.parse.urlparse(self.path).path
+            parsed = urllib.parse.urlparse(self.path)
+            path = parsed.path
             if path == "/healthz":
                 # liveness stays 200 while shedding; the status field
                 # carries the posture (and the read refreshes it)
@@ -157,12 +298,54 @@ def make_handler(engine: ServeEngine):
                 status = self._reply_bytes(
                     200, reg.prometheus_text().encode("utf-8"),
                     "text/plain; version=0.0.4; charset=utf-8")
+            elif path == "/debug/traces":
+                status = self._reply_traces(
+                    urllib.parse.parse_qs(parsed.query))
+            elif path == "/debug/slo":
+                snap = engine.slo_snapshot()
+                snap["queue_depth"] = engine.queue_depth()
+                snap["models"] = engine.registry.names()
+                snap["closed"] = engine._closed
+                snap["breakers"] = engine.breaker_snapshot()
+                snap["faults"] = fault_plane().active()
+                snap["degraded_total"] = m_degraded.total()
+                snap["retries_total"] = m_retries.total()
+                snap["worker_restarts_total"] = m_restarts.total()
+                snap["overload"] = engine.overload_state()
+                status = self._reply(200, snap)
+            elif path == "/debug/history":
+                status = self._reply(200, history_document(
+                    urllib.parse.parse_qs(parsed.query)))
             else:
                 status = self._reply(404,
                                      {"error": f"unknown path {path!r}"})
                 # client URLs must not mint unbounded metric children
                 path = "(unknown)"
             m_http_requests.inc(path=path, status=str(status))
+
+        def _reply_traces(self, params) -> int:
+            """``/debug/traces``: one trace by ``trace_id`` (the resolver
+            for the trace ids responses carry), or the ``limit`` most
+            recent request traces."""
+            trace_id = (params.get("trace_id", [None])[0] or "").strip()
+            if trace_id:
+                tree = spans_mod.assemble_trace(trace_id)
+                if tree.get("span_count"):
+                    return self._reply(200, tree)
+                return self._reply(404, {
+                    "error": "unknown trace_id (not in the span ring, or "
+                             "already evicted)",
+                    "trace_id": trace_id,
+                })
+            try:
+                limit = int(params.get("limit", [_DEFAULT_TRACE_LIMIT])[0])
+            except (TypeError, ValueError):
+                limit = _DEFAULT_TRACE_LIMIT
+            summaries = spans_mod.recent_traces(
+                max(1, min(limit, 200)), name_prefix=_TRACE_ROOT_PREFIXES)
+            return self._reply(200, {"traces": [
+                spans_mod.assemble_trace(s["trace_id"]) for s in summaries
+            ]})
 
         def do_POST(self):  # noqa: N802 - http.server API
             path = urllib.parse.urlparse(self.path).path
@@ -318,9 +501,46 @@ def start_serve_server(
     """Serve the engine on a daemon thread; returns the HTTPServer (bind
     ``port=0`` for an ephemeral port, read ``server.server_address[1]``;
     stop with ``server.shutdown()`` and ``server.server_close()``, then
-    ``engine.shutdown()`` to drain)."""
+    ``engine.shutdown()`` to drain).
+
+    Also starts the process-wide history sampler (``obs.tsdb``, which
+    outlives the server: ``tsdb.stop_sampling`` stops it) with the device
+    monitor, every live engine's SLO gauges and this engine's queue-wait
+    estimate as collectors, so ``/debug/history`` has data."""
+    sampler = tsdb_mod.start_sampling()
+    sampler.register_collector(publish_all_slos)
+    reg = get_registry()
+    g_queue_wait = reg.gauge(
+        QUEUE_WAIT_SERIES,
+        "the live queue-wait EWMA (the autoscale/shed signal), "
+        "republished every sampler sweep for history + forecasting",
+    )
+    m_collector_errors = reg.counter(
+        "sparkml_serve_collector_errors_total",
+        "sampler collector callbacks that raised (and were swallowed "
+        "so the sweep survives)",
+        ("collector",),
+    )
+
+    engine_ref = weakref.ref(engine)
+
+    def _publish_queue_wait():
+        live = engine_ref()
+        if live is None or live._closed:
+            # the sampler outlives this engine: stop publishing for it
+            sampler.unregister_collector(_publish_queue_wait)
+            return
+        try:
+            g_queue_wait.set(float(
+                live._overload_signals().get("queue_wait_s", 0.0)))
+        except Exception:  # noqa: BLE001 - a collector must not kill sweeps
+            m_collector_errors.inc(collector="queue_wait")
+
+    sampler.register_collector(_publish_queue_wait)
     server = _Server((addr, port), make_handler(engine))
-    thread = threading.Thread(target=server.serve_forever,
-                              name="sparkml-serve-http", daemon=True)
+    thread = tracectx.traced_thread(
+        server.serve_forever, name="sparkml-serve-http", daemon=True,
+        fresh=True,
+    )
     thread.start()
     return server

@@ -466,3 +466,53 @@ def test_fair_queue_preemption_under_a_deep_pipeline(cuda_device):
     assert all(v.priority == "batch" for v in victims)
     evicted = {id(v) for v in victims}
     assert not any(id(r) in evicted for batch in staged for r in batch)
+
+
+def test_device_memory_stats_track_a_known_allocation(cuda_device):
+    """The allocator's counters under PJRT's keys follow a 256 MiB block
+    exactly, in use and at the peak, and the limit is the card's memory."""
+    from spark_rapids_ml_tpu_torch.obs.memory import device_memory_stats
+
+    torch.cuda.synchronize(cuda_device)
+    torch.cuda.reset_peak_memory_stats(cuda_device)
+    before = device_memory_stats(cuda_device)
+    n = 256 << 20
+    block = torch.empty(n, dtype=torch.uint8, device=cuda_device)
+    held = device_memory_stats(cuda_device)
+    assert held["bytes_in_use"] - before["bytes_in_use"] == n
+    assert held["bytes_in_use"] == torch.cuda.memory_allocated(cuda_device)
+    assert held["peak_bytes_in_use"] == held["bytes_in_use"]
+    assert held["bytes_limit"] == torch.cuda.get_device_properties(
+        cuda_device).total_memory
+    del block
+    freed = device_memory_stats(cuda_device)
+    assert freed["bytes_in_use"] == before["bytes_in_use"]
+    assert freed["peak_bytes_in_use"] == held["peak_bytes_in_use"]
+
+
+def test_a_device_monitor_sample_makes_no_sync(cuda_device, monkeypatch):
+    """One sweep of the monitor beside live work: no synchronising call
+    (sync debug mode ``error`` raises on one) and no driver query of free
+    memory."""
+    from spark_rapids_ml_tpu_torch.obs.devmon import DeviceMonitor
+
+    def forbidden(*_args, **_kwargs):
+        raise AssertionError("a sample asked the driver for free memory")
+
+    monitor = DeviceMonitor()
+    assert monitor.default_device_label() == "cuda:0"
+    x = torch.randn(4096, 4096, device=cuda_device)
+    monkeypatch.setattr(torch.cuda, "mem_get_info", forbidden)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y = x @ x  # in flight while the sample reads the counters
+        out = monitor.sample()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize(cuda_device)
+    assert [e["device"] for e in out] == [
+        f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    assert {e["source"] for e in out} == {"cuda"}
+    assert out[0]["bytes_in_use"] == torch.cuda.memory_allocated(0)
+    assert 0.0 < monitor.memory_pressure("cuda:0") < 1.0
+    del x, y

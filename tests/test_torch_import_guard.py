@@ -37,8 +37,9 @@ def _is_forbidden(module: str) -> bool:
 
 # modules that the JAX package's copies of import nothing of JAX either,
 # and that the port must still not import from there
-STANDALONE = ("obs.tracectx", "obs.spans", "obs.slo", "serve.admission",
-              "serve.scheduler", "serve.wire", "serve.breaker")
+STANDALONE = ("obs.tracectx", "obs.spans", "obs.slo", "obs.tsdb",
+              "serve.admission", "serve.scheduler", "serve.wire",
+              "serve.breaker")
 
 
 def test_importing_every_port_module_leaves_jax_out():

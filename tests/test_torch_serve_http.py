@@ -19,6 +19,7 @@ import pytest
 from spark_rapids_ml_tpu import PCA as JaxPCA
 from spark_rapids_ml_tpu.serve import wire as jwire
 from spark_rapids_ml_tpu_torch import PCAModel
+from spark_rapids_ml_tpu_torch.obs import tsdb
 from spark_rapids_ml_tpu_torch.serve import (
     ModelRegistry,
     ServeEngine,
@@ -27,6 +28,14 @@ from spark_rapids_ml_tpu_torch.serve import (
 )
 
 TIMEOUT = 30
+
+
+@pytest.fixture(autouse=True)
+def _stop_the_sampler():
+    """``start_serve_server`` starts the process-wide history sampler;
+    no test leaves its thread running."""
+    yield
+    tsdb.reset_tsdb()
 
 
 @pytest.fixture
@@ -143,7 +152,7 @@ def test_healthz_readyz_and_metrics(served):
            'device="cpu"}' in metrics
 
 
-@pytest.mark.parametrize("path", ["/nope", "/debug/traces"])
+@pytest.mark.parametrize("path", ["/nope", "/debug/costs"])
 def test_unknown_paths_are_404(served, path):
     _, port, _, _ = served
     assert _get(port, path)[0] == 404
