@@ -135,6 +135,35 @@ Phases (any failure raises and the script exits non-zero):
    an upper bound on device time) and idle share, and the sampler's cost
    per sweep (``sparkml_obs_overhead_seconds_total{component="sampler"}``
    / sweeps).
+9. Profiling and the flight recorder: fit (c)'s model on the native ladder
+   behind ``start_serve_server``, the history sampler at 100 ms, the
+   flight recorder's dumps in a fresh temporary directory. ``POST
+   /debug/profile?seconds=60&label=smoke`` starts a ``torch.profiler``
+   capture ([CPU, CUDA], ``profile_all_threads``) and a second POST must
+   get 409; once the trace runs (its start latency printed), phase 5's
+   256 binary requests from 8 clients (the launch counts set to 0 before
+   the POST), every response held to the native bar, then
+   ``profiler.stop_capture()`` and ``wait``. Fails unless ``GET
+   /debug/profile`` reports ``torch_outcome`` ``ok`` with a torch trace;
+   the artifacts are that torch trace and the span trace, both JSON; the
+   torch trace holds cuBLAS GEMM ``kernel`` events and HtoD and DtoH
+   ``gpu_memcpy`` events; the capture counters moved ``started`` 1 and
+   ``completed`` 1; no hand kernel launched; and the device's busy seconds
+   (the union of every kernel, memcpy and memset interval) are at most
+   the batcher's busy seconds over the capture. Prints, each beside the
+   card's name and power limit: device busy seconds, the device busy
+   share of the traffic wall beside the window occupancy (here and phase
+   8's), per batch the device seconds and the host seconds (occupancy
+   less device), the unions of HtoD, GEMM and DtoH, the copy/compute
+   overlap (memcpy ∩ kernel over memcpy), kernels per batch, the host
+   time of the launch and copy calls, and the device's gaps between
+   merged intervals. Then ``flight.dump("chip_smoke:phase9")`` with the
+   server up must write whole JSON holding ``thread_stacks``,
+   ``open_spans``, ``active_traces``, ``breaker_events``,
+   ``metrics_history`` (with ``sparkml_device_mem_*{source="cuda"}``
+   series) and ``metrics``, counted once in
+   ``sparkml_flight_dumps_total{reason="chip_smoke"}``; its size and
+   time to write are printed.
 
 Then one JSON line ``{"kernels": [...]}``, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.
@@ -142,6 +171,7 @@ and last ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import re
@@ -651,9 +681,11 @@ def serve_rows(rng, n):
     return rng.standard_normal((int(n), N_FEATURES), dtype=np.float32) * scale
 
 
+@functools.lru_cache(maxsize=1)
 def serve_traffic():
-    """Phase 5's binary requests, made once and sent to every ladder: row
-    counts log-uniform over 1…1024 from SEED."""
+    """Phase 5's binary requests, made once and sent to every ladder (and
+    again in phases 8 and 9): row counts log-uniform over 1…1024 from
+    SEED."""
     rng = np.random.default_rng(SEED)
     sizes = np.exp(rng.uniform(0.0, np.log(SERVE_MAX_ROWS + 1),
                                SERVE_REQUESTS))
@@ -1654,7 +1686,8 @@ def linked_batch(tree) -> bool:
 def phase_debug(torch, fg, model, device, phase5_rps):
     """Phase 8: fit (c)'s model on the native ladder behind the HTTP server
     with the history sampler at 100 ms, phase 5's binary traffic, then the
-    debug plane read back over HTTP and held to the card."""
+    debug plane read back over HTTP and held to the card. Returns the
+    serving busy share (the window's occupancy)."""
     from spark_rapids_ml_tpu_torch.obs import devmon, tsdb
     from spark_rapids_ml_tpu_torch.obs.metrics import get_registry
     from spark_rapids_ml_tpu_torch.serve import (
@@ -1791,6 +1824,314 @@ def phase_debug(torch, fg, model, device, phase5_rps):
         engine.shutdown()
         tsdb.reset_tsdb()
     log(f"  phase 8 {time.perf_counter() - t_phase:.1f} s")
+    return busy
+
+
+# -- phase 9: profiling and the flight recorder ----------------------------------
+
+PROFILE_SECONDS = 60      # the capture's window; the phase ends it early
+DUMP_SECTIONS = ("thread_stacks", "open_spans", "active_traces",
+                 "breaker_events", "metrics_history", "metrics")
+
+
+def http_post(port, path):
+    """(status, decoded JSON) of one POST without a body."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request("POST", path, body=b"",
+                     headers={"Content-Length": "0"})
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+def merged(intervals):
+    """The union of [start, end) intervals as sorted disjoint pairs."""
+    out = []
+    for start, end in sorted(intervals):
+        if out and start <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], end)
+        else:
+            out.append([start, end])
+    return out
+
+
+def length(pairs) -> float:
+    return sum(end - start for start, end in pairs)
+
+
+def overlap(a, b) -> float:
+    """The length of the intersection of two merged interval lists."""
+    total, i, j = 0.0, 0, 0
+    while i < len(a) and j < len(b):
+        lo, hi = max(a[i][0], b[j][0]), min(a[i][1], b[j][1])
+        total += max(hi - lo, 0.0)
+        if a[i][1] < b[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+def device_split(events) -> dict:
+    """The device side of a torch trace's events (µs): the unions of every
+    kernel, memcpy and memset interval and of each kind, their overlap, the
+    kernel and launch-call counts, and the gaps between merged device
+    intervals. Seconds throughout."""
+    def spans(pred):
+        return [(e["ts"], e["ts"] + e["dur"]) for e in events
+                if e.get("ph") == "X" and pred(e)]
+
+    from spark_rapids_ml_tpu_torch.obs.profiler import DEVICE_CATEGORIES
+
+    kernel = merged(spans(lambda e: e.get("cat") == "kernel"))
+    memcpy = merged(spans(lambda e: e.get("cat") == "gpu_memcpy"))
+    htod = merged(spans(lambda e: e.get("cat") == "gpu_memcpy"
+                        and "HtoD" in e["name"]))
+    dtoh = merged(spans(lambda e: e.get("cat") == "gpu_memcpy"
+                        and "DtoH" in e["name"]))
+    device = merged(spans(lambda e: e.get("cat") in DEVICE_CATEGORIES))
+    names = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            names[e["name"][:60]] = names.get(e["name"][:60], 0) + 1
+    gemms = sum(1 for e in events if e.get("cat") == "kernel"
+                and "gemm" in e["name"].lower())
+    launch_calls = [e["dur"] for e in events
+                    if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                    and e.get("name") in ("cudaLaunchKernel",
+                                          "cuLaunchKernel",
+                                          "cudaLaunchKernelExC",
+                                          "cudaMemcpyAsync")]
+    gaps = [b[0] - a[1] for a, b in zip(device, device[1:])]
+    return {
+        "device_s": length(device) * 1e-6,
+        "kernel_s": length(kernel) * 1e-6,
+        "htod_s": length(htod) * 1e-6,
+        "dtoh_s": length(dtoh) * 1e-6,
+        "memcpy_s": length(memcpy) * 1e-6,
+        "copy_compute_s": overlap(memcpy, kernel) * 1e-6,
+        "kernels": sum(names.values()),
+        "gemms": gemms,
+        "kernel_names": sorted(names.items(), key=lambda kv: -kv[1])[:4],
+        "htod": sum(1 for e in events if e.get("cat") == "gpu_memcpy"
+                    and "HtoD" in e["name"]),
+        "htod_bytes": sum(e.get("args", {}).get("bytes", 0) for e in events
+                          if e.get("cat") == "gpu_memcpy"
+                          and "HtoD" in e["name"]),
+        "dtoh": sum(1 for e in events if e.get("cat") == "gpu_memcpy"
+                    and "DtoH" in e["name"]),
+        "launch_calls": len(launch_calls),
+        "launch_call_s": sum(launch_calls) * 1e-6,
+        "gaps_us": np.asarray(gaps, dtype=np.float64),
+    }
+
+
+def check_dump(path, seconds, device_label) -> None:
+    """A flight dump must be whole JSON with every section, and its
+    metrics history must carry the allocator's device memory series."""
+    size = os.path.getsize(path)
+    with open(path) as f:
+        doc = json.load(f)
+    missing = [k for k in DUMP_SECTIONS if k not in doc]
+    check(not missing, f"the flight dump lacks {missing}")
+    history = doc["metrics_history"] or {}
+    mem = sorted(k for k in history if k.startswith("sparkml_device_mem_")
+                 and f"device={device_label}" in k and "source=cuda" in k)
+    check(mem, f"the dump's metrics_history has no device memory series "
+          f"({sorted(history)[:8]})")
+    log(f"  flight dump {os.path.basename(path)}: {size} B written in "
+        f"{seconds * 1e3:.2f} ms (host clock), {len(doc['thread_stacks'])} "
+        f"thread stacks, {len(doc['open_spans'])} open spans, "
+        f"{len(doc['active_traces'])} active traces, "
+        f"{len(doc['breaker_events']['states'])} breaker states, "
+        f"{len(history)} history series ({', '.join(mem)})")
+
+
+def phase_profile(torch, fg, model, device, occupancy8):
+    """Phase 9: fit (c)'s model on the native ladder behind the HTTP server,
+    a ``torch.profiler`` capture over ``/debug/profile`` around phase 5's
+    binary traffic, the device-side split of a served batch read from its
+    trace, and a flight dump while the server is up."""
+    import shutil
+
+    from spark_rapids_ml_tpu_torch.obs import flight, profiler, tsdb
+    from spark_rapids_ml_tpu_torch.obs.metrics import get_registry
+    from spark_rapids_ml_tpu_torch.serve import (
+        ModelRegistry,
+        start_serve_server,
+        wire,
+    )
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi_line()
+    traffic = serve_traffic()
+    bodies = [(i, wire.encode_request("pca", rows), wire.BINARY_CONTENT_TYPE)
+              for i, rows in enumerate(traffic)]
+    refs = [rows.astype(np.float64) @ model.pc for rows in traffic]
+    registry = ModelRegistry()
+    registry.register("pca", model)
+    metrics = get_registry()
+    saved = {k: os.environ.pop(k, None)
+             for k in (flight.DUMP_DIR_ENV, profiler.PROFILE_DIR_ENV)}
+    dump_root = tempfile.mkdtemp(prefix="chip_smoke_dumps_")
+    os.environ[flight.DUMP_DIR_ENV] = dump_root
+    tsdb.reset_tsdb()
+    sampler = tsdb.start_sampling(interval_seconds=DEBUG_SAMPLE_S)
+    engine, serving = warm_engine(registry, "native", "profile")
+    check(serving == "native", f"phase 9 serves {serving}")
+    server = start_serve_server(engine, port=0, addr="127.0.0.1")
+    port = server.server_address[1]
+    captures = metrics.counter("sparkml_obs_profile_captures_total", "",
+                               ("outcome",))
+    dumps = metrics.counter("sparkml_flight_dumps_total", "", ("reason",))
+
+    def counters():
+        return {
+            "busy_s": metrics.counter(
+                "sparkml_serve_device_busy_seconds_total", "",
+                ("model",)).value(model="pca"),
+            "batches": metrics.counter(
+                "sparkml_serve_batches_total", "", ("model",)).value(
+                    model="pca"),
+            "started": captures.value(outcome="started"),
+            "completed": captures.value(outcome="completed"),
+        }
+
+    try:
+        wait_sweeps(sampler, 1)
+        fg.reset_launches()
+        before = counters()
+        t0 = time.perf_counter()
+        status, started = http_post(
+            port, f"/debug/profile?seconds={PROFILE_SECONDS}&label=smoke")
+        check(status == 200 and started["started"]["torch_enabled"],
+              f"POST /debug/profile: {status} {started}")
+        status, again = http_post(port, "/debug/profile?seconds=1")
+        check(status == 409 and again["active"]["id"]
+              == started["started"]["id"],
+              f"a second POST /debug/profile: {status} {again}")
+        end = time.monotonic() + 120.0
+        while not (profiler.capture_active() or {}).get("torch_trace"):
+            check(time.monotonic() < end and profiler.capture_active(),
+                  f"torch.profiler never started: {profiler.last_capture()}")
+            time.sleep(0.001)
+        start_s = time.perf_counter() - t0
+        log(f"  torch.profiler start ([CPU, CUDA], profile_all_threads, "
+            f"from the POST to the trace running): {start_s:.3f} s "
+            f"(host clock; {smi})")
+        results, wall = http_clients(port, bodies)
+        t_stop = time.perf_counter()
+        profiler.stop_capture()
+        last = profiler.wait(60.0)
+        stop_s = time.perf_counter() - t_stop
+        after = counters()
+        launched = dict(fg.launches)
+        check(len(results) == SERVE_REQUESTS,
+              f"phase 9: {len(results)} responses")
+        worst, lat = check_responses("profile", results, traffic, refs,
+                                     SERVE_BARS["native"])
+        delta = {k: after[k] - before[k] for k in after}
+        log(f"  {SERVE_REQUESTS} binary requests under the capture in "
+            f"{wall:.3f} s: {SERVE_REQUESTS / wall:.1f} requests/s, client "
+            f"p50 {np.percentile(lat, 50):.2f} ms, p99 "
+            f"{np.percentile(lat, 99):.2f} ms; worst max|Δ|/max|ref| "
+            f"{worst:.3e}; stop + export {stop_s:.3f} s")
+
+        status, doc = http_get(port, "/debug/profile")
+        check(status == 200 and set(doc) == {"active", "last", "dir"},
+              f"GET /debug/profile: {status} {sorted(doc)}")
+        last = doc["last"]
+        log(f"  /debug/profile last: torch_outcome {last['torch_outcome']}, "
+            f"torch_trace {last['torch_trace']}, "
+            f"{len(last['artifacts'])} artifacts "
+            f"({sum(a['bytes'] for a in last['artifacts'])} B)")
+        check(doc["active"] is None and last["torch_outcome"] == "ok"
+              and last["torch_trace"], f"the capture ended {last}")
+        names = sorted(os.path.basename(a["path"])
+                       for a in last["artifacts"])
+        torch_path = profiler.torch_trace_path(last["path"], last["id"])
+        check(names == sorted([os.path.basename(torch_path),
+                               os.path.basename(last["spans_trace"])]),
+              f"capture artifacts {names}")
+        with open(last["spans_trace"]) as f:
+            span_events = json.load(f)["traceEvents"]
+        with open(torch_path) as f:
+            events = json.load(f)["traceEvents"]
+        split = device_split(events)
+        check(delta["started"] == 1 and delta["completed"] == 1,
+              f"capture counters moved started {delta['started']}, "
+              f"completed {delta['completed']}")
+        log(f"  kernel launches during the capture: {launched}")
+        check(sum(launched.values()) == 0, "phase 9 launched a hand kernel")
+        check(split["gemms"] > 0 and split["htod"] > 0
+              and split["dtoh"] > 0,
+              f"the torch trace lacks device events: {split['gemms']} "
+              f"GEMM kernels, {split['htod']} HtoD, {split['dtoh']} DtoH")
+        batches = delta["batches"]
+        occupancy = delta["busy_s"]
+        device_s = split["device_s"]
+        log(f"  torch trace: {len(events)} events, {split['kernels']} "
+            f"kernels ({split['gemms']} GEMM; two are the profiler's "
+            f"probe) {split['kernel_names']}, {split['htod']} HtoD, "
+            f"{split['dtoh']} DtoH; span trace: {len(span_events)} spans")
+        check(device_s <= occupancy,
+              f"device busy {device_s:.6f} s > the batcher's busy "
+              f"{occupancy:.6f} s over the capture")
+        log(f"  device busy {device_s:.6f} s (union of kernel, memcpy and "
+            f"memset intervals) <= the batcher's busy {occupancy:.6f} s "
+            f"(Δ sparkml_serve_device_busy_seconds_total) over {batches:.0f} "
+            f"batches; {smi}")
+        log(f"  device busy share {device_s / wall:.4f} of the "
+            f"{wall:.3f} s traffic wall, beside the window occupancy "
+            f"{occupancy / wall:.4f} here and {occupancy8:.4f} in phase 8 "
+            f"({smi})")
+        log(f"  per batch: device {device_s / batches * 1e3:.4f} ms, host "
+            f"{(occupancy - device_s) / batches * 1e3:.4f} ms (window "
+            f"occupancy less device) ({smi})")
+        log(f"  unions: HtoD {split['htod_s']:.6f} s "
+            f"({split['htod_bytes'] / split['htod_s'] / 1e9:.2f} GB/s over "
+            f"{split['htod_bytes']} B), GEMM (kernels) "
+            f"{split['kernel_s']:.6f} s, DtoH {split['dtoh_s']:.6f} s; "
+            f"copy/compute overlap {split['copy_compute_s']:.6f} s of "
+            f"{split['memcpy_s']:.6f} s copying = "
+            f"{split['copy_compute_s'] / split['memcpy_s']:.4f} ({smi})")
+        gaps = split["gaps_us"]
+        short = gaps[gaps < 100.0]
+        log(f"  launches per batch: {split['kernels'] / batches:.3f} "
+            f"kernels; launch and copy calls {split['launch_calls']} "
+            f"({split['launch_call_s'] * 1e3:.3f} ms of host time, "
+            f"{split['launch_call_s'] / batches * 1e6:.2f} µs per batch); "
+            f"device gaps between merged intervals: {len(gaps)}, median "
+            f"{np.median(gaps) if len(gaps) else 0:.2f} µs, "
+            f"{len(short)} under 100 µs summing "
+            f"{short.sum() / batches:.2f} µs per batch ({smi})")
+
+        wait_sweeps(sampler, 1)
+        t_dump = time.perf_counter()
+        path = flight.dump("chip_smoke:phase9")
+        dump_s = time.perf_counter() - t_dump
+        check(path is not None and os.path.exists(path),
+              "flight.dump wrote nothing")
+        check_dump(path, dump_s, str(device))
+        check(dumps.value(reason="chip_smoke") == 1,
+              f"sparkml_flight_dumps_total{{reason=\"chip_smoke\"}} = "
+              f"{dumps.value(reason='chip_smoke')}")
+    finally:
+        profiler.wait(60.0)
+        server.shutdown()
+        server.server_close()
+        engine.shutdown()
+        tsdb.reset_tsdb()
+        os.environ.pop(flight.DUMP_DIR_ENV, None)
+        for key, value in saved.items():
+            if value is not None:
+                os.environ[key] = value
+        shutil.rmtree(dump_root, ignore_errors=True)
+    log(f"  phase 9 {time.perf_counter() - t_phase:.1f} s")
 
 
 def build_fresh(cuda_build):
@@ -1865,7 +2206,10 @@ def main() -> int:
         torch, fg, device, model_a)}
 
     log("[8] the debug plane")
-    phase_debug(torch, fg, model_c, device, served_rps)
+    occupancy8 = phase_debug(torch, fg, model_c, device, served_rps)
+
+    log("[9] profiling and the flight recorder")
+    phase_profile(torch, fg, model_c, device, occupancy8)
 
     kernels = []
     for name, m in measured.items():

@@ -3,9 +3,12 @@
 pipelined serving program contract (``obs.serving``), request trace
 context (``obs.tracectx``), structured spans assembled into per-request
 trees (``obs.spans``), SLO burn-rate objectives (``obs.slo``), the
-metrics-history store and its sampler (``obs.tsdb``), and the per-device
+metrics-history store and its sampler (``obs.tsdb``), the per-device
 monitor (``obs.devmon``) over the allocator's memory readings
-(``obs.memory``)."""
+(``obs.memory``), structured JSON logging (``obs.logging``), the flight
+recorder and its watchdog (``obs.flight``), on-demand ``torch.profiler``
+captures (``obs.profiler``) and the retention sweeper for their on-disk
+artifacts (``obs.retention``)."""
 
 from spark_rapids_ml_tpu_torch.obs.metrics import get_registry  # noqa: F401
 from spark_rapids_ml_tpu_torch.obs.memory import (  # noqa: F401
@@ -24,15 +27,34 @@ from spark_rapids_ml_tpu_torch.obs.slo import (  # noqa: F401
 from spark_rapids_ml_tpu_torch.obs.spans import (  # noqa: F401
     SpanEvent,
     SpanRecorder,
+    active_spans,
     assemble_trace,
     current_span_id,
     current_trace_id,
     get_recorder,
+    maybe_export_trace,
     new_trace_id,
     recent_traces,
     record_event,
     span,
 )
+from spark_rapids_ml_tpu_torch.obs.flight import (  # noqa: F401
+    DUMP_DIR_ENV,
+    FIT_BUDGET_ENV,
+    TRANSFORM_BUDGET_ENV,
+    Watchdog,
+    build_dump,
+    deadline,
+    dump,
+    dump_dir,
+    get_watchdog,
+)
+from spark_rapids_ml_tpu_torch.obs import flight  # noqa: F401
+from spark_rapids_ml_tpu_torch.obs.logging import (  # noqa: F401
+    StructuredLogger,
+    get_logger,
+)
+from spark_rapids_ml_tpu_torch.obs import retention  # noqa: F401
 from spark_rapids_ml_tpu_torch.obs.tsdb import (  # noqa: F401
     MetricsSampler,
     TimeSeriesStore,
@@ -45,6 +67,7 @@ from spark_rapids_ml_tpu_torch.obs.devmon import (  # noqa: F401
     DeviceMonitor,
     get_device_monitor,
 )
+from spark_rapids_ml_tpu_torch.obs import profiler  # noqa: F401
 from spark_rapids_ml_tpu_torch.obs.tracectx import (  # noqa: F401
     TRACEPARENT_HEADER,
     TraceContext,
@@ -62,40 +85,56 @@ from spark_rapids_ml_tpu_torch.obs.tracectx import (  # noqa: F401
 
 __all__ = [
     "BURN_POLICIES",
+    "DUMP_DIR_ENV",
     "DeviceMonitor",
+    "FIT_BUDGET_ENV",
     "MetricsSampler",
     "SLO",
     "SloSet",
     "SpanEvent",
     "SpanRecorder",
+    "StructuredLogger",
     "TRACEPARENT_HEADER",
+    "TRANSFORM_BUDGET_ENV",
     "TimeSeriesStore",
     "TraceContext",
+    "Watchdog",
     "WindowedCounts",
     "activate",
+    "active_spans",
     "assemble_trace",
+    "build_dump",
     "capture",
     "current_context",
     "current_span_id",
     "current_trace_id",
+    "deadline",
     "default_slos",
     "device_memory_stats",
+    "dump",
+    "dump_dir",
     "ensure_context",
+    "flight",
     "get_device_monitor",
+    "get_logger",
     "get_recorder",
     "get_registry",
     "get_sampler",
     "get_tsdb",
+    "get_watchdog",
     "host_current_rss_bytes",
     "host_peak_rss_bytes",
     "inflight_request",
     "inflight_requests",
+    "maybe_export_trace",
     "new_context",
     "new_span_id",
     "new_trace_id",
     "parse_traceparent",
+    "profiler",
     "recent_traces",
     "record_event",
+    "retention",
     "severity_for_burn",
     "span",
     "start_sampling",

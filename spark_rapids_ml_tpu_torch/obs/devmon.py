@@ -22,9 +22,10 @@ empty device list would hide a missing card.
   computes exactly that. Never raises into the batcher: attribution is
   telemetry, not control flow.
 
-The JAX monitor skips a sweep while ``jax.profiler`` starts or stops
-(``_profiler_transition_pending``); that hook comes with the port's
-profiler.
+A sweep is skipped while ``torch.profiler`` starts or stops
+(``_profiler_transition_pending``, ``obs.profiler``), as the JAX monitor
+skips one around ``jax.profiler``; the gauges keep updating through the
+capture window itself.
 """
 
 from __future__ import annotations
@@ -57,6 +58,15 @@ def _devices() -> List[torch.device]:
             f"{PLATFORM_ENV}=cpu to run on the CPU explicitly"
         )
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def _profiler_transition_pending() -> bool:
+    try:
+        from spark_rapids_ml_tpu_torch.obs import profiler
+
+        return profiler.torch_transition_pending()
+    except Exception:
+        return False
 
 
 class DeviceMonitor:
@@ -113,6 +123,12 @@ class DeviceMonitor:
         the process RSS (tagged ``host_rss``) for the CPU."""
         t0 = time.perf_counter()
         out: List[Dict[str, Any]] = []
+        if _profiler_transition_pending():
+            # skip this sweep only while a profiler start()/stop() is in
+            # flight — gauges keep updating through the capture window
+            # itself (a long capture must not hide the very memory ramp
+            # the operator is profiling)
+            return out
         rss: Optional[int] = None
         peak_rss: Optional[int] = None
         for device in self._devices_fn():

@@ -1,0 +1,412 @@
+"""Flight recorder: diagnostic dumps for hangs, wedges, and crashes.
+
+The port's copy of the JAX package's ``obs/flight.py``. A wedged device
+call that leaves nothing but an error string (no stacks, no spans, no
+metrics) cannot be attributed; this module makes every wedge produce an
+artifact:
+
+* ``dump(reason, ...)`` writes one JSON file to
+  ``SPARK_RAPIDS_ML_TORCH_DUMP_DIR`` (default:
+  ``<tmp>/sparkml_torch_dumps``) containing all-thread stack traces, the
+  currently-open spans, the in-flight request table, every registered
+  section (the breakers' events, the metrics history), the last-N
+  completed span ring, a metrics-registry snapshot, and process/env
+  context. The JAX dump's ``device_health_cached`` (the port's health
+  report is not ported yet) and ``compile_log_tail`` (the port compiles
+  nothing) are left out;
+* ``deadline(label, budget_seconds)`` is the watchdog: a single daemon
+  thread arms a deadline per in-flight phase; the budget expiring (or a
+  hard exception crossing the context) triggers a dump (default budget:
+  ``SPARK_RAPIDS_ML_TORCH_FIT_BUDGET_SECONDS``, 900 s). The serving
+  batcher keeps its own wedge watchdog (``serve/batching.py``), which
+  dumps ``budget_exceeded:serve_worker:<model>`` through ``dump``.
+
+Dumping is cheap, never raises into the caller, and a deadline fires at
+most once per armed context.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import os
+import sys
+import tempfile
+import threading
+import time
+import traceback
+from typing import Any, Dict, Optional
+
+DUMP_DIR_ENV = "SPARK_RAPIDS_ML_TORCH_DUMP_DIR"
+FIT_BUDGET_ENV = "SPARK_RAPIDS_ML_TORCH_FIT_BUDGET_SECONDS"
+TRANSFORM_BUDGET_ENV = "SPARK_RAPIDS_ML_TORCH_TRANSFORM_BUDGET_SECONDS"
+_DEFAULT_FIT_BUDGET = 900.0
+# Serving calls are expected to be fast, but the first call through a cold
+# model pays its set-up (CUDA context, cuBLAS handles and workspaces) — the
+# default budget must cover that, not just the steady-state batch latency.
+_DEFAULT_TRANSFORM_BUDGET = 120.0
+_SPAN_RING_TAIL = 128
+# the environment a dump records: the port's knobs and the CUDA stack's
+_ENV_PREFIXES = ("SPARK_RAPIDS_ML_TORCH_", "CUDA_", "NCCL_", "PYTORCH_",
+                 "TORCH_")
+
+
+def dump_dir() -> str:
+    return (os.environ.get(DUMP_DIR_ENV)
+            or os.path.join(tempfile.gettempdir(), "sparkml_torch_dumps"))
+
+
+def fit_budget_seconds() -> float:
+    try:
+        budget = float(os.environ.get(FIT_BUDGET_ENV, _DEFAULT_FIT_BUDGET))
+    except ValueError:
+        return _DEFAULT_FIT_BUDGET
+    return budget if budget > 0 else float("inf")
+
+
+def transform_budget_seconds() -> float:
+    """Watchdog budget for one instrumented transform/predict call
+    (``SPARK_RAPIDS_ML_TORCH_TRANSFORM_BUDGET_SECONDS``; <= 0 disarms)."""
+    try:
+        budget = float(os.environ.get(TRANSFORM_BUDGET_ENV,
+                                      _DEFAULT_TRANSFORM_BUDGET))
+    except ValueError:
+        return _DEFAULT_TRANSFORM_BUDGET
+    return budget if budget > 0 else float("inf")
+
+
+def _utcnow() -> str:
+    from spark_rapids_ml_tpu_torch.obs.spans import utcnow_iso
+
+    return utcnow_iso()
+
+
+def _logger():
+    from spark_rapids_ml_tpu_torch.obs.logging import get_logger
+
+    return get_logger("obs.flight")
+
+
+def _thread_stacks() -> Dict[str, Any]:
+    """Every live thread's current stack, formatted."""
+    names = {t.ident: t.name for t in threading.enumerate()}
+    stacks = {}
+    for ident, frame in sys._current_frames().items():
+        label = f"{names.get(ident, 'unknown')}-{ident}"
+        stacks[label] = traceback.format_stack(frame)
+    return stacks
+
+
+def _safe(fn, default=None):
+    try:
+        return fn()
+    except Exception:
+        return default
+
+
+# Pluggable dump sections: subsystems outside obs/ (e.g. the serving
+# tier's circuit breakers) register a callable whose result is embedded
+# in every dump, right after the in-flight trace table — without flight
+# having to import them (no obs → serve layering inversion). Section
+# functions must be cheap and must never block on the thing being
+# diagnosed.
+_dump_sections: Dict[str, Any] = {}
+_dump_sections_lock = threading.Lock()
+
+
+def register_dump_section(name: str, fn) -> None:
+    """Embed ``fn()``'s result in every future dump under ``name``
+    (idempotent — re-registering replaces)."""
+    with _dump_sections_lock:
+        _dump_sections[name] = fn
+
+
+def unregister_dump_section(name: str) -> None:
+    with _dump_sections_lock:
+        _dump_sections.pop(name, None)
+
+
+def run_dump_section(name: str):
+    """Evaluate ONE registered section outside a full dump (None when
+    unregistered or the section raised). The JAX package's incident
+    engine uses this to put breaker state into an evidence bundle
+    without an obs → serve import; the port's comes with its own."""
+    with _dump_sections_lock:
+        fn = _dump_sections.get(name)
+    if fn is None:
+        return None
+    return _safe(fn)
+
+
+def build_dump(reason: str, extra: Optional[Dict[str, Any]] = None
+               ) -> Dict[str, Any]:
+    """The dump document (separated from I/O so tests can inspect it)."""
+    from spark_rapids_ml_tpu_torch.obs import spans as spans_mod
+
+    doc: Dict[str, Any] = {
+        "reason": reason,
+        "dumped_utc": _utcnow(),
+        "pid": os.getpid(),
+        "argv": list(sys.argv),
+        "thread_stacks": _safe(_thread_stacks, {}),
+        "open_spans": _safe(
+            lambda: [dict(s) for s in spans_mod.active_spans()], []
+        ),
+        # The serving tier's in-flight request table: a watchdog dump
+        # names WHICH requests (trace ids, models, elapsed) were on the
+        # device when the process wedged, not just which threads.
+        "active_traces": _safe(_active_traces, []),
+    }
+    # Registered sections land right here, next to the trace table
+    # (breaker events, and whatever future subsystems plug in).
+    with _dump_sections_lock:
+        sections = list(_dump_sections.items())
+    for name, fn in sections:
+        doc[name] = _safe(fn)
+    doc.update({
+        "span_ring_tail": _safe(
+            lambda: [
+                {"name": e.name, "dur_us": e.dur_us,
+                 "trace_id": e.trace_id, "tid": e.tid}
+                for e in spans_mod.get_recorder().events()[-_SPAN_RING_TAIL:]
+            ],
+            [],
+        ),
+        "metrics": _safe(
+            lambda: __import__(
+                "spark_rapids_ml_tpu_torch.obs.metrics",
+                fromlist=["get_registry"],
+            ).get_registry().snapshot(),
+            {},
+        ),
+        "env": {
+            k: v for k, v in os.environ.items()
+            if k.startswith(_ENV_PREFIXES)
+        },
+    })
+    if extra:
+        doc["extra"] = extra
+    return doc
+
+
+def _active_traces():
+    from spark_rapids_ml_tpu_torch.obs import tracectx
+
+    return tracectx.inflight_requests()
+
+
+def dump(reason: str, extra: Optional[Dict[str, Any]] = None
+         ) -> Optional[str]:
+    """Write a flight dump; returns the path (None when even writing the
+    dump failed — the recorder never raises into a dying caller)."""
+    try:
+        directory = dump_dir()
+        os.makedirs(directory, exist_ok=True)
+        safe_reason = "".join(
+            c if (c.isalnum() or c in "-_") else "_" for c in reason
+        )[:80]
+        path = os.path.join(
+            directory,
+            f"flightdump_{safe_reason}_{int(time.time() * 1000)}"
+            f"_{os.getpid()}.json",
+        )
+        doc = build_dump(reason, extra=extra)
+        # atomic publish: consumers watching the dump dir (tests, ops
+        # tooling) must never observe a half-written JSON document
+        tmp_path = path + ".tmp"
+        with open(tmp_path, "w") as f:
+            json.dump(doc, f, indent=1, default=str)
+        os.replace(tmp_path, path)
+        # structured stderr line (obs.logging), not a bare print — a
+        # dump notice must be shippable/parseable like every other log.
+        # error, the highest level the gate knows: a dump IS an incident
+        # artifact, and the pointer to it must survive ANY production
+        # log-level threshold (at warning it would vanish under
+        # SPARK_RAPIDS_ML_TORCH_LOG_LEVEL=error).
+        _logger().error("flight dump written", reason=reason,
+                        path=path)
+        try:
+            from spark_rapids_ml_tpu_torch.obs.metrics import get_registry
+
+            get_registry().counter(
+                "sparkml_flight_dumps_total", "flight-recorder dumps",
+                ("reason",),
+            ).inc(reason=reason.split(":", 1)[0])
+        except Exception:
+            pass
+        # shared artifact GC: dumps and profiles both land under the
+        # dump dir — a dump storm must not fill the disk
+        try:
+            from spark_rapids_ml_tpu_torch.obs import retention
+
+            retention.maybe_gc("flight")
+        except Exception:
+            pass
+        return path
+    except Exception:
+        return None
+
+
+# -- the watchdog ----------------------------------------------------------
+
+
+class _Armed:
+    __slots__ = ("label", "deadline", "info", "fired", "on_expire")
+
+    def __init__(self, label: str, deadline: float, info: Dict[str, Any],
+                 on_expire=None):
+        self.label = label
+        self.deadline = deadline
+        self.info = info
+        self.fired = False
+        self.on_expire = on_expire
+
+
+class Watchdog:
+    """One daemon thread monitoring every armed deadline in the process."""
+
+    def __init__(self, poll_floor: float = 0.05):
+        self._lock = threading.Lock()
+        self._cond = threading.Condition(self._lock)
+        self._armed: Dict[int, _Armed] = {}
+        self._next_id = 0
+        self._thread: Optional[threading.Thread] = None
+        self._poll_floor = poll_floor
+
+    def _ensure_thread(self) -> None:
+        if self._thread is None or not self._thread.is_alive():
+            self._thread = threading.Thread(
+                target=self._run, name="sparkml-flight-watchdog", daemon=True
+            )
+            self._thread.start()
+
+    def arm(self, label: str, budget_seconds: float,
+            info: Optional[Dict[str, Any]] = None,
+            on_expire=None) -> int:
+        """Arm one deadline. ``on_expire`` (optional) runs on the
+        watchdog thread when the budget blows, BEFORE the dump — the
+        hook the serving tier uses to fail a wedged worker's requests
+        fast. It must be quick, non-blocking, and is exception-guarded
+        (a broken callback never kills the watchdog)."""
+        with self._cond:
+            handle = self._next_id
+            self._next_id += 1
+            self._armed[handle] = _Armed(
+                label, time.monotonic() + budget_seconds, dict(info or {}),
+                on_expire=on_expire,
+            )
+            self._ensure_thread()
+            self._cond.notify()
+        return handle
+
+    def disarm(self, handle: int) -> None:
+        with self._cond:
+            self._armed.pop(handle, None)
+            self._cond.notify()
+
+    def _run(self) -> None:
+        while True:
+            with self._cond:
+                now = time.monotonic()
+                expired = [a for a in self._armed.values()
+                           if not a.fired and a.deadline <= now]
+                for a in expired:
+                    a.fired = True
+                pending = [a.deadline for a in self._armed.values()
+                           if not a.fired]
+                wait = (max(min(pending) - now, self._poll_floor)
+                        if pending else None)
+            for a in expired:
+                if a.on_expire is not None:
+                    _safe(a.on_expire)
+                dump(
+                    f"budget_exceeded:{a.label}",
+                    extra={
+                        "label": a.label,
+                        "budget_info": a.info,
+                        "overdue_at_utc": _utcnow(),
+                    },
+                )
+            with self._cond:
+                self._cond.wait(timeout=wait)
+
+
+_watchdog = Watchdog()
+
+
+def get_watchdog() -> Watchdog:
+    return _watchdog
+
+
+# Fast-fail errors (bad k, wrong shape, a refused source...) are expected
+# control flow, not flight events. An exception dumps when it is a hard
+# runtime/backend failure, or when the block had already been running long
+# enough that its state is worth capturing.
+_HARD_ERRORS = (OSError, TimeoutError, MemoryError, SystemError,
+                ConnectionError)
+_DUMP_AFTER_SECONDS = 5.0
+
+
+def _should_dump_exception(exc: BaseException, elapsed: float) -> bool:
+    if elapsed >= _DUMP_AFTER_SECONDS:
+        return True
+    if isinstance(exc, _HARD_ERRORS):
+        return True
+    name = type(exc).__name__
+    # the CUDA runtime's failures: torch.cuda.OutOfMemoryError, the
+    # AcceleratorError a failed launch or sync raises, and the
+    # "CUDA error: ..." RuntimeError older torch raises for the same
+    if name in ("OutOfMemoryError", "AcceleratorError") \
+            or "Unavailable" in name:
+        return True
+    return isinstance(exc, RuntimeError) and "CUDA error" in str(exc)
+
+
+@contextlib.contextmanager
+def deadline(label: str, budget_seconds: Optional[float] = None, **info):
+    """Arm the watchdog around a block: the budget expiring dumps
+    ``budget_exceeded:<label>``; a hard (or long-running) exception
+    crossing the context dumps ``unhandled_exception:<label>`` (then
+    re-raises). Budget None/inf arms nothing but still dumps on such
+    exceptions."""
+    budget = fit_budget_seconds() if budget_seconds is None else budget_seconds
+    handle = None
+    if budget and budget != float("inf"):
+        handle = _watchdog.arm(label, budget, info)
+    t0 = time.monotonic()
+    try:
+        yield
+    except Exception as exc:
+        elapsed = time.monotonic() - t0
+        if _should_dump_exception(exc, elapsed):
+            dump(
+                f"unhandled_exception:{label}",
+                extra={
+                    "label": label,
+                    "error": f"{type(exc).__name__}: {exc}",
+                    "elapsed_seconds": elapsed,
+                    "budget_info": dict(info),
+                },
+            )
+        raise
+    finally:
+        if handle is not None:
+            _watchdog.disarm(handle)
+
+
+__all__ = [
+    "DUMP_DIR_ENV",
+    "FIT_BUDGET_ENV",
+    "TRANSFORM_BUDGET_ENV",
+    "Watchdog",
+    "build_dump",
+    "deadline",
+    "dump",
+    "dump_dir",
+    "fit_budget_seconds",
+    "get_watchdog",
+    "register_dump_section",
+    "run_dump_section",
+    "transform_budget_seconds",
+    "unregister_dump_section",
+]

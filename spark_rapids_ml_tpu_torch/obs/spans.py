@@ -10,14 +10,19 @@ it fanned into). ``span(...)`` also opens a ``utils.tracing.TraceRange``,
 so on the card each span shows as an NVTX range in a CUDA profiler's
 timeline.
 
-Not ported yet: the Chrome-trace export (``chrome_trace``,
-``maybe_export_trace``, ``trace_dir``) and the open-span listing the
-flight recorder dumps (``active_spans``), which come with that recorder.
+The ring exports as Chrome-trace/Perfetto JSON (``chrome_trace``,
+``export_chrome_trace``: every profiler capture writes one), and one
+trace's slice is written on demand when
+``SPARK_RAPIDS_ML_TORCH_TRACE_DIR`` is set (``maybe_export_trace``; unset,
+the default, means zero files). ``active_spans`` lists the spans open
+across every thread, which the flight recorder dumps.
 """
 
 from __future__ import annotations
 
 import contextvars
+import json
+import os
 import threading
 import time
 import uuid
@@ -28,6 +33,19 @@ from typing import Any, Dict, List, Optional
 
 from spark_rapids_ml_tpu_torch.obs import tracectx
 from spark_rapids_ml_tpu_torch.utils.tracing import TraceColor, TraceRange
+
+TRACE_DIR_ENV = "SPARK_RAPIDS_ML_TORCH_TRACE_DIR"
+
+
+def utcnow_iso() -> str:
+    """Microsecond-precision UTC timestamp — the one formatter every obs
+    artifact (flight dumps, log lines) shares, so telemetry from
+    different tiers orders correctly within a second."""
+    import datetime
+
+    return datetime.datetime.now(datetime.timezone.utc).strftime(
+        "%Y-%m-%dT%H:%M:%S.%fZ"
+    )
 
 
 def new_trace_id() -> str:
@@ -74,6 +92,51 @@ class SpanRecorder:
             return evs
         return [e for e in evs if e.trace_id == trace_id]
 
+    def clear(self) -> None:
+        with self._lock:
+            self._buf.clear()
+
+    def chrome_trace(self, trace_id: Optional[str] = None) -> Dict[str, Any]:
+        """The buffer (optionally one trace's slice) as a Chrome-trace
+        dict: "complete" events (``ph: "X"``) with microsecond
+        ``ts``/``dur``, loadable by ``chrome://tracing`` and Perfetto."""
+        pid = os.getpid()
+        trace_events = []
+        for e in self.events(trace_id):
+            args = dict(e.args)
+            if e.trace_id:
+                args["trace_id"] = e.trace_id
+            if e.span_id:
+                args["span_id"] = e.span_id
+            if e.parent_span_id:
+                args["parent_span_id"] = e.parent_span_id
+            if e.links:
+                args["links"] = list(e.links)
+            if e.color:
+                args["color"] = e.color
+            args["depth"] = e.depth
+            trace_events.append(
+                {
+                    "name": e.name,
+                    "cat": "spark_rapids_ml_tpu_torch",
+                    "ph": "X",
+                    "ts": round(e.ts_us, 3),
+                    "dur": round(e.dur_us, 3),
+                    "pid": pid,
+                    "tid": e.tid,
+                    "args": args,
+                }
+            )
+        return {"traceEvents": trace_events, "displayTimeUnit": "ms"}
+
+    def export_chrome_trace(
+        self, path: str, trace_id: Optional[str] = None
+    ) -> str:
+        doc = self.chrome_trace(trace_id)
+        with open(path, "w") as f:
+            json.dump(doc, f)
+        return path
+
 
 _recorder = SpanRecorder()
 
@@ -98,6 +161,25 @@ _stack: contextvars.ContextVar = contextvars.ContextVar(
 _active_lock = threading.Lock()
 _active: Dict[int, Dict[str, Any]] = {}
 _active_seq = 0
+
+
+def active_spans() -> List[Dict[str, Any]]:
+    """Every currently-open span across all threads (oldest first):
+    ``{name, trace_id, tid, elapsed_seconds}`` — what a flight dump
+    reads from the watchdog thread, where the stalled thread's
+    contextvars are invisible."""
+    now = time.perf_counter()
+    with _active_lock:
+        entries = sorted(_active.values(), key=lambda e: e["seq"])
+        return [
+            {
+                "name": e["name"],
+                "trace_id": e["trace_id"],
+                "tid": e["tid"],
+                "elapsed_seconds": now - e["t0"],
+            }
+            for e in entries
+        ]
 
 
 def _activate(name: str, trace_id: str, t0: float,
@@ -400,14 +482,43 @@ def recent_traces(limit: int = 20,
     return out
 
 
+def trace_dir() -> Optional[str]:
+    return os.environ.get(TRACE_DIR_ENV) or None
+
+
+def maybe_export_trace(trace_id: str, label: str) -> Optional[str]:
+    """Write one trace's spans as Chrome-trace JSON when the env gate is
+    set. Returns the written path, or None (gate unset / export failed —
+    trace export must never break its caller)."""
+    directory = trace_dir()
+    if not directory:
+        return None
+    try:
+        os.makedirs(directory, exist_ok=True)
+        safe_label = "".join(
+            c if (c.isalnum() or c in "-_") else "_" for c in label
+        )
+        path = os.path.join(
+            directory, f"trace_{safe_label}_{trace_id}.json"
+        )
+        return _recorder.export_chrome_trace(path, trace_id=trace_id)
+    except Exception:
+        return None
+
+
 __all__ = [
     "SpanEvent",
     "SpanRecorder",
+    "TRACE_DIR_ENV",
+    "active_spans",
     "assemble_trace",
     "current_span_id",
     "current_trace_id",
     "get_recorder",
+    "maybe_export_trace",
     "recent_traces",
     "record_event",
     "span",
+    "trace_dir",
+    "utcnow_iso",
 ]

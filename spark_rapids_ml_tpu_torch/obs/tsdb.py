@@ -33,8 +33,10 @@ adding a database:
 
 Clocks are injectable everywhere (``clock=``): tests drive 30 minutes
 of samples with zero real sleeps. ``history_tail`` is the bounded
-excerpt a flight dump embeds; the port has no flight recorder yet, so
-nothing registers it.
+excerpt a flight dump embeds: ``start_sampling`` registers it as the
+``metrics_history`` dump section (``obs.flight``), over the serve and
+SLO series and, unlike the JAX package's section, the device memory
+gauges, so a wedge dump shows the allocator's ramp up to it.
 """
 
 from __future__ import annotations
@@ -93,6 +95,10 @@ SAMPLE_EXCLUDE: Tuple[str, ...] = (
 # The series a flight dump's history tail embeds (kept tighter than the
 # sampler set: a dump is read by a human mid-incident).
 DUMP_PREFIXES: Tuple[str, ...] = ("sparkml_serve_", "sparkml_slo_")
+# what the metrics_history dump section reads: the above, plus the device
+# memory gauges (sparkml_device_mem_*{source="cuda"} on the card)
+DUMP_SECTION_PREFIXES: Tuple[str, ...] = DUMP_PREFIXES + (
+    "sparkml_device_mem_",)
 DUMP_TAIL_SECONDS = 300.0
 # Sized for the per-model cost ledger's worst case (OBS_MODEL_MAX
 # models × their sampled families) ON TOP of the serve/SLO/device
@@ -653,19 +659,26 @@ def get_sampler() -> MetricsSampler:
         return _sampler
 
 
+def _dump_history_tail() -> Dict[str, Any]:
+    return get_tsdb().history_tail(prefixes=DUMP_SECTION_PREFIXES)
+
+
 def start_sampling(interval_seconds: Optional[float] = None
                    ) -> MetricsSampler:
     """Start (idempotently) the process-wide history sampler, with the
     device monitor's ``sample`` as a collector, so the device memory
-    gauges update every sweep. Raises where the device monitor does: no
-    card and no CPU request."""
-    from spark_rapids_ml_tpu_torch.obs import devmon
+    gauges update every sweep, and register the ``metrics_history``
+    flight-dump section, so every dump from here on carries the last ~5
+    minutes of the key serve / SLO / device-memory series. Raises where
+    the device monitor does: no card and no CPU request."""
+    from spark_rapids_ml_tpu_torch.obs import devmon, flight
 
     monitor = devmon.get_device_monitor()
     sampler = get_sampler()
     if interval_seconds is not None:
         sampler.interval_seconds = interval_seconds
     sampler.register_collector(monitor.sample)
+    flight.register_dump_section("metrics_history", _dump_history_tail)
     sampler.start()
     return sampler
 
@@ -692,6 +705,7 @@ __all__ = [
     "DEFAULT_PREFIXES",
     "DEFAULT_TIERS",
     "DUMP_PREFIXES",
+    "DUMP_SECTION_PREFIXES",
     "HISTORY_ENV",
     "MetricsSampler",
     "SAMPLE_EXCLUDE",

@@ -60,10 +60,15 @@ in-flight window failed fast with ``WorkerCrashed`` and is restarted
 (``sparkml_serve_worker_restarts_total``); past ``max_restarts`` the
 batcher is dead and every queued and future request fails fast. A worker
 that **wedges** (one batch exceeding ``worker_budget_s`` between stage and
-completion) is caught by a watchdog that fails the whole in-flight window,
-abandons the stuck thread (generation-guarded: its late results resolve
-nothing) and starts a replacement with a fresh staging pool. ``close()``
-ends with a sweep, so every request gets exactly one terminal outcome.
+completion; default the flight recorder's transform budget,
+``SPARK_RAPIDS_ML_TORCH_TRANSFORM_BUDGET_SECONDS``, 120 s) is caught by a
+watchdog that fails the whole in-flight window, abandons the stuck thread
+(generation-guarded: its late results resolve nothing), starts a
+replacement with a fresh staging pool, and then writes a
+``budget_exceeded:serve_worker:<model>`` flight dump (``obs.flight``:
+every thread's stack, the open spans, the in-flight requests, the
+breakers' events, the metrics history). ``close()`` ends with a sweep, so
+every request gets exactly one terminal outcome.
 """
 
 from __future__ import annotations
@@ -75,6 +80,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from spark_rapids_ml_tpu_torch.obs import flight
 from spark_rapids_ml_tpu_torch.obs import serving as obs_serving
 from spark_rapids_ml_tpu_torch.obs.devmon import get_device_monitor
 from spark_rapids_ml_tpu_torch.obs import spans as spans_mod
@@ -96,10 +102,6 @@ from spark_rapids_ml_tpu_torch.utils.padding import (
     pad_to_bucket,
     padding_waste,
 )
-
-# one batch may take this long between stage and completion before the
-# worker is declared wedged (it covers a cold first call)
-DEFAULT_WORKER_BUDGET_S = 120.0
 
 
 class QueueFull(RuntimeError):
@@ -246,21 +248,26 @@ class _InFlight:
 class _Watchdog:
     """Deadlines for in-flight batches, on one thread of the batcher's own
     (started at the first ``arm``, ended by ``stop``). ``on_expire`` runs
-    on that thread, outside the watchdog's lock."""
+    on that thread, outside the watchdog's lock; after it, the expiry
+    writes a ``budget_exceeded:serve_worker:<name>`` flight dump carrying
+    the deadline's ``info``."""
 
     def __init__(self, name: str):
         self._name = name
+        self._label = f"serve_worker:{name}"
         self._cond = threading.Condition()
-        self._due: Dict[int, Tuple[float, Callable[[], None]]] = {}
+        self._due: Dict[int, Tuple[float, Callable[[], None],
+                                   Dict[str, Any]]] = {}
         self._tokens = 0
         self._thread: Optional[threading.Thread] = None
         self._stopped = False
 
-    def arm(self, budget_s: float, on_expire: Callable[[], None]) -> int:
+    def arm(self, budget_s: float, on_expire: Callable[[], None],
+            info: Dict[str, Any]) -> int:
         with self._cond:
             self._tokens += 1
             self._due[self._tokens] = (time.monotonic() + budget_s,
-                                       on_expire)
+                                       on_expire, info)
             if self._thread is None and not self._stopped:
                 self._thread = threading.Thread(
                     target=self._loop, name=f"sparkml-watchdog-{self._name}",
@@ -287,17 +294,31 @@ class _Watchdog:
                 if self._stopped:
                     return
                 now = time.monotonic()
-                fired = [tok for tok, (at, _) in self._due.items()
+                fired = [tok for tok, (at, _, _) in self._due.items()
                          if at <= now]
                 if not fired:
-                    nearest = min((at for at, _ in self._due.values()),
+                    nearest = min((at for at, _, _ in self._due.values()),
                                   default=None)
                     self._cond.wait(None if nearest is None
                                     else max(nearest - now, 0.001))
                     continue
-                hooks = [self._due.pop(tok)[1] for tok in fired]
-            for hook in hooks:
+                expired = [self._due.pop(tok)[1:] for tok in fired]
+            for hook, info in expired:
                 hook()
+                self._dump(info)
+
+    def _dump(self, info: Dict[str, Any]) -> None:
+        """The wedge's artifact, written after the hook has failed the
+        window (outside every batcher lock). Never raises into the
+        watchdog: a failed dump must not stop the next deadline."""
+        try:
+            flight.dump(f"budget_exceeded:{self._label}", extra={
+                "label": self._label,
+                "budget_info": info,
+                "overdue_at_utc": spans_mod.utcnow_iso(),
+            })
+        except Exception:  # noqa: BLE001 - diagnostics only
+            pass
 
 
 def _identity(value):
@@ -360,10 +381,10 @@ class MicroBatcher:
             self._dispatch_fn = self.transform_fn
             self._complete_fn = _identity
             self._record_algo = None
-        # None → DEFAULT_WORKER_BUDGET_S; <= 0 / inf disables wedge
-        # detection; max_restarts None = unlimited
+        # None → the flight recorder's transform budget; <= 0 / inf
+        # disables wedge detection; max_restarts None = unlimited
         if worker_budget_s is None:
-            self.worker_budget_s = DEFAULT_WORKER_BUDGET_S
+            self.worker_budget_s = flight.transform_budget_seconds()
         elif worker_budget_s <= 0:
             self.worker_budget_s = float("inf")
         else:
@@ -936,7 +957,9 @@ class MicroBatcher:
             if self.worker_budget_s != float("inf"):
                 entry.watchdog = self._watchdog.arm(
                     self.worker_budget_s,
-                    lambda: self._declare_wedged(gen, entry))
+                    lambda: self._declare_wedged(gen, entry),
+                    info={"model": self.name, "requests": len(batch),
+                          "rows": sum(r.n for r in batch)})
             t0 = time.perf_counter()
             if staging is not None:
                 staged, n = staging.fill([r.rows for r in batch],

@@ -25,8 +25,10 @@ State machine (exactly what ``allow``/``record_*`` implement)::
 Everything is observable: ``sparkml_serve_breaker_state{model}`` (0
 closed / 1 half-open / 2 open), ``sparkml_serve_breaker_transitions_total
 {model,state}``, and a process-wide ring of transition events
-(``breaker_events``). The wall clock is injectable so tests drive
-cooldowns with zero real sleeps.
+(``breaker_events``), which every flight dump embeds with the live
+breakers' states (the ``breaker_events`` section, registered at import).
+The wall clock is injectable so tests drive cooldowns with zero real
+sleeps.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ import collections
 import datetime
 import threading
 import time
+import weakref
 from typing import Any, Callable, Deque, Dict, List, Optional
 
 from spark_rapids_ml_tpu_torch.obs.metrics import get_registry
@@ -49,6 +52,9 @@ STATE_VALUES = {CLOSED: 0.0, HALF_OPEN: 1.0, OPEN: 2.0}
 _EVENT_RING = 256
 _events: Deque[Dict[str, Any]] = collections.deque(maxlen=_EVENT_RING)
 _events_lock = threading.Lock()
+# Live breakers, for the flight-dump state section (weak: an engine
+# being garbage-collected must not be pinned by its dump visibility).
+_live: "weakref.WeakSet[CircuitBreaker]" = weakref.WeakSet()
 
 
 class BreakerOpen(RuntimeError):
@@ -106,6 +112,7 @@ class CircuitBreaker:
         )
         for state in (CLOSED, HALF_OPEN, OPEN):
             self._m_transitions.inc(0, model=model, state=state)
+        _live.add(self)
 
     # -- state inspection ---------------------------------------------------
 
@@ -254,9 +261,29 @@ def record_breaker_event(**event) -> None:
 
 
 def breaker_events(limit: int = _EVENT_RING) -> List[Dict[str, Any]]:
-    """Recent breaker transitions, oldest first."""
+    """Recent breaker transitions, oldest first (the flight-dump
+    section)."""
     with _events_lock:
         return list(_events)[-limit:]
+
+
+def _dump_section() -> Dict[str, Any]:
+    return {
+        "events": breaker_events(64),
+        "states": [b.snapshot() for b in list(_live)],
+    }
+
+
+def _register_dump_section() -> None:
+    # Breaker-open events land in every flight dump next to the
+    # in-flight trace table: a wedge diagnostic names which models had
+    # already tripped their breakers when the process froze.
+    from spark_rapids_ml_tpu_torch.obs import flight
+
+    flight.register_dump_section("breaker_events", _dump_section)
+
+
+_register_dump_section()
 
 
 __all__ = [

@@ -47,7 +47,14 @@ generators, probes) without a web framework.
   (``obs.tsdb``): ``?name=<metric>&window=<s>`` for one family
   (``model=`` narrows by label, ``rate=1`` adds reset-aware rate and
   delta), no ``name`` for the default bundle of key serve / SLO / device
-  series plus the sampler's health.
+  series plus the sampler's health;
+* ``GET /debug/profile`` — ``{active, last, dir}``: the in-flight
+  capture, the last one's result (``torch_outcome``, artifacts) and the
+  profile directory; ``POST /debug/profile?seconds=N&label=L`` starts a
+  single-flight ``torch.profiler`` capture (``obs.profiler``; the body,
+  if any, is drained): **200** ``{"started": info}``, **409** with the
+  ``active`` capture while one runs, **500** with the error (no card and
+  no CPU request, an unwritable directory).
 
 ``start_serve_server`` starts the history sampler (``obs.tsdb``, with the
 device monitor ``obs.devmon`` as a collector) and registers the engine's
@@ -55,9 +62,10 @@ SLO and queue-wait publishers on it, so the ``/debug/history`` series
 move every sweep whether or not anyone polls. Handler threads only
 decode, enqueue and wait: all device work happens on the batchers' worker
 threads, so ``/metrics``, ``/healthz`` and ``/debug/*`` never touch the
-card (the device monitor reads the allocator's host-side counters). The
-JAX package's ``/debug/profile``, ``/debug/incidents``, ``/debug/costs``
-and the other tiers' routes, and its dashboard, are not ported yet.
+card (the device monitor reads the allocator's host-side counters; a
+profile capture runs on helper threads of its own). The JAX package's
+``/debug/incidents``, ``/debug/costs`` and the other tiers' routes, and
+its dashboard, are not ported yet.
 """
 
 from __future__ import annotations
@@ -72,6 +80,7 @@ from typing import Optional
 
 import numpy as np
 
+from spark_rapids_ml_tpu_torch.obs import profiler as profiler_mod
 from spark_rapids_ml_tpu_torch.obs import spans as spans_mod
 from spark_rapids_ml_tpu_torch.obs import tracectx
 from spark_rapids_ml_tpu_torch.obs import tsdb as tsdb_mod
@@ -316,6 +325,12 @@ def make_handler(engine: ServeEngine):
             elif path == "/debug/history":
                 status = self._reply(200, history_document(
                     urllib.parse.parse_qs(parsed.query)))
+            elif path == "/debug/profile":
+                status = self._reply(200, {
+                    "active": profiler_mod.capture_active(),
+                    "last": profiler_mod.last_capture(),
+                    "dir": profiler_mod.profile_dir(),
+                })
             else:
                 status = self._reply(404,
                                      {"error": f"unknown path {path!r}"})
@@ -348,7 +363,12 @@ def make_handler(engine: ServeEngine):
             ]})
 
         def do_POST(self):  # noqa: N802 - http.server API
-            path = urllib.parse.urlparse(self.path).path
+            parsed = urllib.parse.urlparse(self.path)
+            path = parsed.path
+            if path == "/debug/profile":
+                status = self._handle_profile(parsed)
+                m_http_requests.inc(path=path, status=str(status))
+                return
             if path != "/predict":
                 self._drain_body()
                 status = self._reply(404,
@@ -367,6 +387,32 @@ def make_handler(engine: ServeEngine):
             m_http_latency.observe(time.perf_counter() - t0, path=path,
                                    status=str(status))
             m_http_requests.inc(path=path, status=str(status))
+
+        def _handle_profile(self, parsed) -> int:
+            """``POST /debug/profile?seconds=N``: start a single-flight
+            on-demand capture (``obs.profiler``). 200 with the capture
+            info; 409 while one is already running."""
+            # Parameters ride the query string, but clients may still
+            # POST a body (curl -d '{}') — drain it, or a keep-alive
+            # connection parses the leftover bytes as its next request.
+            self._drain_body()
+            params = urllib.parse.parse_qs(parsed.query)
+            seconds = _query_float(params, "seconds", 5.0,
+                                   0.05, profiler_mod.MAX_SECONDS)
+            label = (params.get("label", ["ondemand"])[0]
+                     or "ondemand")
+            try:
+                info = profiler_mod.start_capture(seconds, label=label)
+            except profiler_mod.CaptureInFlight as exc:
+                return self._reply(409, {
+                    "error": str(exc),
+                    "active": profiler_mod.capture_active(),
+                })
+            except Exception as exc:  # noqa: BLE001 - surface, don't die
+                return self._reply(500, {
+                    "error": f"{type(exc).__name__}: {exc}"
+                })
+            return self._reply(200, {"started": info})
 
         def _drain_body(self) -> None:
             """Read and discard the body: replying before consuming it

@@ -516,3 +516,104 @@ def test_a_device_monitor_sample_makes_no_sync(cuda_device, monkeypatch):
     assert out[0]["bytes_in_use"] == torch.cuda.memory_allocated(0)
     assert 0.0 < monitor.memory_pressure("cuda:0") < 1.0
     del x, y
+
+
+@pytest.fixture
+def capture_dir(cuda_device, tmp_path, monkeypatch):
+    """Profile captures under ``tmp_path``, the profiler warmed up: the
+    first ``start()`` in a process takes seconds on a card, so
+    one capture is started, waited for and stopped first. Drained
+    after."""
+    from spark_rapids_ml_tpu_torch.obs import profiler
+
+    monkeypatch.setenv(profiler.PROFILE_DIR_ENV, str(tmp_path))
+    profiler.wait(60.0)
+    profiler.start_capture(60.0, label="warmup")
+    assert _started(profiler)
+    profiler.stop_capture()
+    assert profiler.wait(60.0)["torch_outcome"] == "ok"
+    yield profiler
+    profiler.stop_capture()
+    profiler.wait(60.0)
+
+
+def _started(profiler, timeout=120.0):
+    end = time.monotonic() + timeout
+    while time.monotonic() < end:
+        active = profiler.capture_active()
+        if active is None or active["torch_trace"]:
+            return active is not None
+        time.sleep(0.005)
+    return False
+
+
+def _torch_trace(profiler, result):
+    import json
+
+    with open(profiler.torch_trace_path(result["path"], result["id"])) as f:
+        return json.load(f)["traceEvents"]
+
+
+def test_capture_holds_a_prior_threads_gemm_and_its_cpu_op(capture_dir):
+    """A capture around a 4096 × 4096 f32 ``torch.mm`` on a worker thread
+    that existed before it: the trace holds the GEMM's ``kernel`` event
+    and that thread's CPU ``aten::mm`` (``profile_all_threads``)."""
+    import threading
+
+    profiler = capture_dir
+    go, done = threading.Event(), threading.Event()
+    x = torch.randn(4096, 4096, device="cuda")
+
+    def worker():
+        assert go.wait(120.0)
+        torch.mm(x, x)
+        torch.cuda.synchronize()
+        done.set()
+
+    t = threading.Thread(target=worker)
+    t.start()
+    try:
+        profiler.start_capture(1.0, label="gpu_mm")
+        assert _started(profiler)
+        go.set()
+        assert done.wait(120.0)
+    finally:
+        go.set()
+        t.join(120.0)
+    result = profiler.wait(60.0)  # the 1 s window ends by itself
+    assert result["id"].startswith("gpu_mm_")
+    assert result["torch_outcome"] == "ok" and result["torch_trace"]
+    events = _torch_trace(profiler, result)
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and "gemm" in e["name"].lower()]
+    assert kernels, sorted({e["name"][:50] for e in events
+                            if e.get("cat") == "kernel"})
+    assert any(e.get("name", "").startswith("aten::mm")
+               and e.get("tid") == t.native_id for e in events)
+
+
+def test_cuda_capture_is_never_ok_without_a_device_event(capture_dir,
+                                                          monkeypatch):
+    """With [CPU, CUDA] activities, ``ok`` comes only with a device event
+    in the trace: the profiler's own probe gives an idle window one, and
+    without the probe an idle window is ``torch_unavailable``."""
+    profiler = capture_dir
+
+    def idle_capture(label):
+        # a process's first start() takes seconds: stop once it runs
+        profiler.start_capture(60.0, label=label)
+        assert _started(profiler)
+        profiler.stop_capture()
+        return profiler.wait(120.0)
+
+    result = idle_capture("idle_probe")
+    assert result["torch_outcome"] == "ok"
+    assert any(e.get("cat") in profiler.DEVICE_CATEGORIES
+               for e in _torch_trace(profiler, result))
+    monkeypatch.setattr(profiler, "_probe_device", lambda: None)
+    result = idle_capture("idle_no_probe")
+    path = profiler.torch_trace_path(result["path"], result["id"])
+    events = _torch_trace(profiler, result) if os.path.exists(path) else []
+    seen = any(e.get("cat") in profiler.DEVICE_CATEGORIES for e in events)
+    assert result["torch_outcome"] == ("ok" if seen else "torch_unavailable")
+    assert result["torch_outcome"] != "ok" or seen

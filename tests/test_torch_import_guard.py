@@ -38,6 +38,7 @@ def _is_forbidden(module: str) -> bool:
 # modules that the JAX package's copies of import nothing of JAX either,
 # and that the port must still not import from there
 STANDALONE = ("obs.tracectx", "obs.spans", "obs.slo", "obs.tsdb",
+              "obs.logging", "obs.retention", "obs.flight", "obs.profiler",
               "serve.admission", "serve.scheduler", "serve.wire",
               "serve.breaker")
 

@@ -5,6 +5,8 @@ the same span scenario assembles into the same tree; the same headers
 parse to the same contexts. Each package keeps its own span recorder and
 metrics registry, read separately."""
 
+import json
+import os
 import threading
 import time
 
@@ -294,3 +296,104 @@ def test_open_span_shows_in_an_assembled_tree():
     assert root["args"] == {"open": True}
     assert [c["name"] for c in root["children"]] == ["serve:admission"]
     assert spans.current_span_id() is None
+
+
+# -- the span ring's Chrome-trace export ----------------------------------------
+
+
+def _events(mod):
+    """One fixed set of recorded events, in either package's SpanEvent."""
+    return [
+        mod.SpanEvent(name="serve:http:predict", ts_us=1000.123456,
+                      dur_us=2500.98765, trace_id="a" * 16, depth=0, tid=7,
+                      color="GREEN", args={"path": "/predict"},
+                      span_id="s1", parent_span_id=None),
+        mod.SpanEvent(name="serve:batch:m", ts_us=1500.0, dur_us=800.5,
+                      trace_id="b" * 16, depth=1, tid=9, args={"rows": 3},
+                      span_id="s2", parent_span_id="s1",
+                      links=("a" * 16, "c" * 16)),
+        mod.SpanEvent(name="untraced", ts_us=0.0004, dur_us=0.0, trace_id=None,
+                      depth=0, tid=1),
+    ]
+
+
+@pytest.mark.parametrize("trace_id", [None, "a" * 16, "b" * 16, "missing"])
+def test_chrome_trace_equals_the_jax_export(trace_id):
+    """The same recorded events through both recorders: the same Chrome
+    trace, the pid aside and the category naming each package."""
+    docs = []
+    for mod in (spans, jax_spans):
+        rec = mod.SpanRecorder()
+        for event in _events(mod):
+            rec.record(event)
+        doc = rec.chrome_trace(trace_id)
+        for ev in doc["traceEvents"]:
+            assert ev.pop("pid") > 0
+            assert ev.pop("cat") == mod.__name__.split(".")[0]
+        docs.append(doc)
+    assert docs[0] == docs[1]
+
+
+def test_chrome_trace_export_valid(tmp_path):
+    rec = spans.SpanRecorder()
+    ctx_tid = tracectx.new_trace_id()
+    with spans.span("root", trace_id=ctx_tid, phase="demo") as tid:
+        with spans.span("child"):
+            pass
+    for event in spans.get_recorder().events(tid):
+        rec.record(event)
+    path = rec.export_chrome_trace(str(tmp_path / "t.json"), trace_id=tid)
+    doc = json.loads(open(path).read())
+    events = doc["traceEvents"]
+    assert len(events) == 2 and doc["displayTimeUnit"] == "ms"
+    for ev in events:
+        assert ev["ph"] == "X" and ev["cat"] == "spark_rapids_ml_tpu_torch"
+        assert isinstance(ev["ts"], (int, float)) and ev["dur"] >= 0
+        assert ev["args"]["trace_id"] == tid
+    root = [e for e in events if e["name"] == "root"][0]
+    child = [e for e in events if e["name"] == "child"][0]
+    assert root["args"]["phase"] == "demo" and root["args"]["depth"] == 0
+    assert child["args"]["parent_span_id"] == root["args"]["span_id"]
+    assert root["dur"] >= child["dur"]
+    rec.clear()
+    assert rec.events() == []
+
+
+def test_maybe_export_trace_env_gated(tmp_path, monkeypatch):
+    # gate unset: no file, returns None
+    monkeypatch.delenv(spans.TRACE_DIR_ENV, raising=False)
+    with spans.span("gated") as tid:
+        pass
+    assert spans.trace_dir() is None
+    assert spans.maybe_export_trace(tid, "algo") is None
+    assert list(tmp_path.iterdir()) == []
+    # gate set: file written, loadable, label sanitised
+    monkeypatch.setenv(spans.TRACE_DIR_ENV, str(tmp_path / "traces"))
+    path = spans.maybe_export_trace(tid, "algo/../x")
+    assert path == str(tmp_path / "traces" / f"trace_algo____x_{tid}.json")
+    doc = json.load(open(path))
+    assert [e["name"] for e in doc["traceEvents"]] == ["gated"]
+    # the JAX gate is a different variable, and names the file alike
+    assert spans.TRACE_DIR_ENV == jax_spans.TRACE_DIR_ENV.replace(
+        "SPARK_RAPIDS_ML_TPU_", "SPARK_RAPIDS_ML_TORCH_")
+    monkeypatch.setenv(jax_spans.TRACE_DIR_ENV, str(tmp_path / "jax"))
+    with jax_spans.span("gated") as jax_tid:
+        pass
+    jax_path = jax_spans.maybe_export_trace(jax_tid, "algo/../x")
+    assert os.path.basename(jax_path).replace(jax_tid, tid) == \
+        os.path.basename(path)
+
+
+def test_maybe_export_trace_never_raises(tmp_path, monkeypatch):
+    blocker = tmp_path / "a_file"
+    blocker.write_text("not a directory")
+    monkeypatch.setenv(spans.TRACE_DIR_ENV, str(blocker / "traces"))
+    assert spans.maybe_export_trace("t" * 16, "x") is None
+
+
+def test_utcnow_iso_has_the_jax_shape():
+    import re
+
+    shape = re.compile(r"^\d{4}-\d\d-\d\dT\d\d:\d\d:\d\d\.\d{6}Z$")
+    assert shape.match(spans.utcnow_iso())
+    assert shape.match(jax_spans.utcnow_iso())

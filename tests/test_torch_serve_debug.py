@@ -1,23 +1,26 @@
-"""The port's serving debug plane: ``/debug/traces``, ``/debug/slo`` and
-``/debug/history`` behind a CPU port engine, and the history sampler that
-``start_serve_server`` starts.
+"""The port's serving debug plane: ``/debug/traces``, ``/debug/slo``,
+``/debug/history`` and ``/debug/profile`` behind a CPU port engine, and
+the history sampler that ``start_serve_server`` starts.
 
 Each route is held to the JAX package's functions and engine methods
 called directly — never the JAX HTTP server, whose requests would mint
 ``path=`` children in the JAX registry that the JAX package's own tests
 count. Every test that starts a server stops the sampler thread in its
-teardown; the tests synchronise on ``sample_once`` and on the span ring,
-never on sleeps."""
+teardown, and every profile capture is drained (``profiler.wait``); the
+tests synchronise on ``sample_once``, the span ring and the capture's
+state, never on sleeps."""
 
 import http.client
 import inspect
 import json
+import os
 import re
 import time
 
 import numpy as np
 import pytest
 
+from spark_rapids_ml_tpu.obs import profiler as jax_profiler
 from spark_rapids_ml_tpu.obs import spans as jax_spans
 from spark_rapids_ml_tpu.obs import tracectx as jax_tracectx
 from spark_rapids_ml_tpu.obs import tsdb as jax_tsdb
@@ -27,7 +30,13 @@ from spark_rapids_ml_tpu.serve import server as jax_server
 from spark_rapids_ml_tpu.serve.breaker import CircuitBreaker as JaxBreaker
 from spark_rapids_ml_tpu.serve.faults import FaultSpec as JaxFaultSpec
 from spark_rapids_ml_tpu_torch import PCAModel
-from spark_rapids_ml_tpu_torch.obs import devmon, spans, tracectx, tsdb
+from spark_rapids_ml_tpu_torch.obs import (
+    devmon,
+    profiler,
+    spans,
+    tracectx,
+    tsdb,
+)
 from spark_rapids_ml_tpu_torch.obs.metrics import get_registry
 from spark_rapids_ml_tpu_torch.serve import (
     ModelRegistry,
@@ -421,3 +430,129 @@ def test_publish_all_slos_publishes_live_engines_only(monkeypatch):
         assert calls.count("live") == 1 and "closed" not in calls
     finally:
         live.shutdown()
+
+
+# -- /debug/profile ----------------------------------------------------------------
+
+
+def _post(port, path, body=b""):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=TIMEOUT)
+    try:
+        conn.request("POST", path, body=body,
+                     headers={"Content-Length": str(len(body))})
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+@pytest.fixture
+def profiling(served, tmp_path, monkeypatch):
+    """The served engine with the profile dir in ``tmp_path``; every
+    capture drained after."""
+    monkeypatch.setenv(profiler.PROFILE_DIR_ENV, str(tmp_path / "profiles"))
+    profiler.wait(TIMEOUT)
+    yield served
+    profiler.stop_capture()
+    profiler.wait(TIMEOUT)
+
+
+def test_debug_profile_get_has_the_jax_route_keys(profiling):
+    _, port, _ = profiling
+    status, doc = _get(port, "/debug/profile")
+    # the JAX route's body, from the JAX functions it calls
+    jax_doc = {"active": jax_profiler.capture_active(),
+               "last": jax_profiler.last_capture(),
+               "dir": jax_profiler.profile_dir()}
+    assert status == 200 and set(doc) == set(jax_doc)
+    assert doc["dir"] == profiler.profile_dir()
+    assert doc["active"] is None
+
+
+def test_debug_profile_post_runs_a_single_flight_cpu_capture(profiling):
+    """POST starts a real CPU capture (200), a second POST while it runs
+    gets 409 naming it, and once drained GET reports ``ok`` with both
+    traces."""
+    _, port, x = profiling
+    counter = get_registry().counter("sparkml_http_requests_total", "",
+                                     ("path", "status"))
+    before = counter.value(path="/debug/profile", status="409")
+    status, doc = _post(port, "/debug/profile?seconds=60&label=http")
+    assert status == 200, doc
+    info = doc["started"]
+    assert info["id"].startswith("http_") and info["seconds"] == 60.0
+    assert set(info) == {k.replace("jax_", "torch_") for k in (
+        "id", "path", "seconds", "jax_enabled", "fit_run_id")}
+    status, busy = _post(port, "/debug/profile?seconds=1")
+    assert status == 409 and busy["active"]["id"] == info["id"]
+    assert counter.value(path="/debug/profile", status="409") == before + 1
+    # the first start in a process takes seconds: stop once it runs
+    _until(lambda: (profiler.capture_active() or {}).get("torch_trace"))
+    _predict(port, x[:4])
+    profiler.stop_capture()
+    profiler.wait(TIMEOUT)
+    status, doc = _get(port, "/debug/profile")
+    last = doc["last"]
+    assert status == 200 and doc["active"] is None
+    assert last["id"] == info["id"]
+    assert last["torch_outcome"] == "ok" and last["torch_trace"] is True
+    names = sorted(os.path.basename(a["path"]) for a in last["artifacts"])
+    assert names == sorted([f"spans_{info['id']}.json",
+                            f"torch_{info['id']}.json"])
+    for artifact in last["artifacts"]:
+        with open(artifact["path"]) as f:
+            assert json.load(f)["traceEvents"]
+
+
+def test_debug_profile_post_drains_its_body(profiling, monkeypatch):
+    """Parameters ride the query string; a body is read and discarded,
+    so the same keep-alive connection serves the next request."""
+    import torch
+
+    monkeypatch.setattr(torch.profiler, "profile", _InstantProfile)
+    _, port, _ = profiling
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=TIMEOUT)
+    try:
+        conn.request("POST", "/debug/profile?seconds=0.05&label=body",
+                     body=b'{"ignored": true}',
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        assert resp.status == 200, resp.read()
+        resp.read()
+        conn.request("GET", "/healthz")
+        resp = conn.getresponse()
+        assert resp.status == 200 and json.loads(resp.read())["status"]
+    finally:
+        conn.close()
+    profiler.wait(TIMEOUT)
+    assert profiler.last_capture()["id"].startswith("body_")
+
+
+def test_debug_profile_post_without_a_device_is_500(profiling, monkeypatch):
+    import torch
+
+    _, port, _ = profiling
+    monkeypatch.delenv("SPARK_RAPIDS_ML_TORCH_PLATFORM", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    status, doc = _post(port, "/debug/profile?seconds=1")
+    assert status == 500 and "no CUDA device" in doc["error"]
+    assert profiler.capture_active() is None
+
+
+class _InstantProfile:
+    """``torch.profiler.profile`` with an instant start and stop."""
+
+    def __init__(self, **_):
+        pass
+
+    def start(self):
+        pass
+
+    def stop(self):
+        pass
+
+    def export_chrome_trace(self, path):
+        with open(path, "w") as f:
+            json.dump({"traceEvents": [{"ph": "X", "cat": "cpu_op",
+                                        "name": "aten::mm", "ts": 0,
+                                        "dur": 1}]}, f)

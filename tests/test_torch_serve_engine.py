@@ -42,8 +42,10 @@ WAIT = 30.0
 
 
 @pytest.fixture(autouse=True)
-def _cpu_requested(monkeypatch):
+def _cpu_requested(monkeypatch, tmp_path):
     monkeypatch.setenv("SPARK_RAPIDS_ML_TORCH_PLATFORM", "cpu")
+    # a wedge writes a flight dump: keep it in this test's directory
+    monkeypatch.setenv("SPARK_RAPIDS_ML_TORCH_DUMP_DIR", str(tmp_path))
     reset_fault_plane()
     yield
     reset_fault_plane()
@@ -752,7 +754,7 @@ def test_dead_worker_fails_fast_and_the_probe_revives_it(models):
         engine.shutdown()
 
 
-def test_wedged_worker_is_failed_fast_by_the_watchdog():
+def test_wedged_worker_is_failed_fast_by_the_watchdog(tmp_path):
     stalls = threading.Event()
 
     def stall(matrix):
@@ -773,6 +775,10 @@ def test_wedged_worker_is_failed_fast_by_the_watchdog():
                                       np.ones((1, 2)))
         assert _counter("sparkml_serve_worker_restarts_total",
                         model="wedge") == before + 1
+        # and the wedge left its flight dump
+        _until(lambda: list(tmp_path.glob("flightdump_*.json")))
+        (dump,) = tmp_path.glob("flightdump_*.json")
+        assert "budget_exceeded_serve_worker_wedge" in dump.name
     finally:
         b.close(timeout=5)
 
