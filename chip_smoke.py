@@ -125,7 +125,7 @@ Phases (any failure raises and the script exits non-zero):
    whose last point equals ``torch.cuda.memory_allocated(0)`` read at a
    quiescent sweep, and ``bytes_limit`` equals the card's
    ``total_memory``; ``/debug/slo`` has exactly the ported sections (no
-   replicas, rollout, autoscale or tiering) with no degraded answer,
+   replicas, rollout or autoscale) with no degraded answer,
    retry, restart or armed fault; ``/debug/traces?limit=20`` gives 20
    trees rooted at ``serve:http:predict``, at least one with a linked
    batch span; and the sampler swept at least 10 times and at least half
@@ -164,6 +164,38 @@ Phases (any failure raises and the script exits non-zero):
    series) and ``metrics``, counted once in
    ``sparkml_flight_dumps_total{reason="chip_smoke"}``; its size and
    time to write are printed.
+10. Tiering on the card: fit (c)'s model as A and three copies loaded from
+    one save as B, C and D (each 4096 × 256 float64 weights, 8,388,608
+    B staged) behind one ``ServeEngine`` (native, pipeline depth 2, 1024
+    rows) and ``start_serve_server``, with a ``TieringController`` on an
+    injected clock (budget three models' weights, flap floor 30 s) bound
+    into admission. D answers one request (its reference), then phase
+    5's binary traffic goes to A, B and C in turn from 8 clients. A tick
+    (``evaluate_once``) must park D and only D, leave the accounted bytes
+    within the budget, and ``torch.cuda.memory_allocated(0)`` (after
+    ``gc.collect()`` and a synchronize) must fall by at least D's
+    weights; ``/debug/costs`` shows D at 0 ``weights`` bytes and
+    ``/debug/tiering`` shows it ``cold``. Then, while A-C traffic runs
+    again, one request to D over HTTP: it must answer 200 within the
+    native bar, with one ``sparkml_serve_tiering_first_hit_seconds``
+    observation, every A-C response 200 within the native bar and at
+    least one landing inside D's first hit, and ``memory_allocated``
+    back up by D's weights within 4 MiB: the raw reading, so a cuBLAS
+    workspace a reactivation made (PyTorch keeps one per handle and
+    stream; every serving program shares one stream pair per device so
+    that a rebuild meets the ones it has) fails it. A second tick parks D
+    again (``memory_allocated`` falls by ≥ its weights), and 8
+    concurrent first hits must all answer 200 within the bar with
+    exactly one reactivation and seven ``gate_wait`` events, and raise
+    ``memory_allocated`` by D's weights within 4 MiB. Finally
+    ``ledger.reconcile()`` (the ledger's device seconds against
+    devmon's, per model) must read ``ok``, no tiering or ledger error is
+    counted, and the phase launches no hand kernel. Prints, with the
+    card's name and power limit, the deactivation's time (its
+    ``serve:tiering:deactivate`` span), the first hit's client latency
+    and reactivation time, the 8 hits' p50, the allocated and reserved
+    bytes around each transition, and A-C's requests/s beside phase
+    5's.
 
 Then one JSON line ``{"kernels": [...]}``, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.
@@ -1634,8 +1666,8 @@ DEBUG_SAMPLE_S = 0.1      # the sampler's cadence in this phase
 DEBUG_MIN_SWEEPS = 10
 DEBUG_SLO_SECTIONS = {"slos", "alerts", "queue_depth", "models", "closed",
                       "breakers", "faults", "degraded_total", "retries_total",
-                      "worker_restarts_total", "overload"}
-DEBUG_UNPORTED = {"replicas", "rollout", "autoscale", "tiering"}
+                      "worker_restarts_total", "overload", "tiering"}
+DEBUG_UNPORTED = {"replicas", "rollout", "autoscale"}
 
 
 def http_get(port, path):
@@ -2134,6 +2166,371 @@ def phase_profile(torch, fg, model, device, occupancy8):
     log(f"  phase 9 {time.perf_counter() - t_phase:.1f} s")
 
 
+# -- phase 10: tiering on the card -------------------------------------------
+
+TIER_MODELS = ("A", "B", "C", "D")   # A fit (c)'s model, B-D save/load copies
+TIER_COLD = "D"
+TIER_FLAP_S = 30.0     # the flap floor, on the phase's injected clock
+TIER_STEP_S = 60.0     # each clock step passes it
+TIER_HITS = 8          # concurrent first hits
+TIER_MIN_OVERLAP = 1   # A-C responses that must land inside D's first hit
+# a reactivation's rise in allocated bytes may differ from D's weights by
+# the small tensors the batchers' last batches leave (at most 704 KiB in
+# the runs so far): half D's 8 MiB, so a missed or a doubled restage, or
+# a new 32 MiB cuBLAS workspace, still fails
+TIER_ALLOC_SLACK = 4 << 20
+
+
+def settled_memory(torch):
+    """(memory_allocated, memory_reserved) of card 0 once every reference
+    dropped so far is collected and the card is idle."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated(0), torch.cuda.memory_reserved(0)
+
+
+def post_predict(port, body, conn=None):
+    """(status, seconds, response bytes) of one binary POST /predict;
+    ``conn`` an open connection to reuse, else a new one."""
+    import http.client
+
+    from spark_rapids_ml_tpu_torch.serve import wire
+
+    own = conn is None
+    if own:
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        t0 = time.perf_counter()
+        conn.request("POST", "/predict", body=body,
+                     headers={"Content-Type": wire.BINARY_CONTENT_TYPE})
+        resp = conn.getresponse()
+        data = resp.read()
+        return resp.status, time.perf_counter() - t0, data
+    finally:
+        if own:
+            conn.close()
+
+
+def traffic_until(port, bodies, stop, records, failures):
+    """SERVE_CLIENTS client threads, each on one keep-alive connection,
+    cycling over its share of ``bodies`` until ``stop`` is set (and each
+    has sent its share once). Each response lands in ``records`` as
+    (index, start, end, status, response bytes). Returns the threads."""
+    import http.client
+    import threading
+
+    def client(mine):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+        try:
+            sent = 0
+            while sent < len(mine) or not stop.is_set():
+                i, body = mine[sent % len(mine)]
+                t0 = time.perf_counter()
+                status, _, data = post_predict(port, body, conn)
+                records.append((i, t0, time.perf_counter(), status, data))
+                sent += 1
+        except Exception as exc:  # noqa: BLE001 - reported by the caller
+            failures.append(repr(exc))
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client,
+                                args=(bodies[t::SERVE_CLIENTS],))
+               for t in range(SERVE_CLIENTS)]
+    for t in threads:
+        t.start()
+    return threads
+
+
+def check_records(label, records, traffic, refs):
+    """Every record a 200 within the native bar; returns the worst error."""
+    from spark_rapids_ml_tpu_torch.serve import wire
+
+    worst = 0.0
+    for i, _t0, _t1, status, data in records:
+        check(status == 200, f"{label} request {i}: HTTP {status} "
+              f"{data[:200]!r}")
+        out = wire.decode_response(data)
+        check(out.shape == (traffic[i].shape[0], K)
+              and np.isfinite(out).all(), f"{label} request {i}: shape "
+              f"{out.shape}")
+        worst = max(worst, relative_error(out, refs[i]))
+    check(worst <= SERVE_BARS["native"], f"{label}: worst max|Δ|/max|ref| "
+          f"{worst:.3e} above {SERVE_BARS['native']:g}")
+    return worst
+
+
+def wait_records(records, n, threads, timeout=300.0):
+    end = time.monotonic() + timeout
+    while len(records) < n:
+        check(time.monotonic() < end and any(t.is_alive() for t in threads),
+              f"background traffic stalled at {len(records)} responses")
+        time.sleep(0.002)
+
+
+def phase_tiering(torch, fg, model, device, phase5_rps):
+    """Phase 10: four copies of fit (c)'s model behind one engine with a
+    tiering controller whose budget holds three; traffic to A-C parks D,
+    whose first hits reactivate it while A-C keep serving. Checks that
+    D's weights really leave the card and come back."""
+    import http.client
+    import shutil
+    import threading
+
+    from spark_rapids_ml_tpu_torch.obs import accounting, spans, tsdb
+    from spark_rapids_ml_tpu_torch.obs.metrics import get_registry
+    from spark_rapids_ml_tpu_torch.serve import (
+        ModelRegistry,
+        ServeEngine,
+        TieringController,
+        start_serve_server,
+        wire,
+    )
+    from spark_rapids_ml_tpu_torch.serve.tiering import ACTIVE, COLD
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi_line()
+    traffic = serve_traffic()
+    refs = [rows.astype(np.float64) @ model.pc for rows in traffic]
+    live = TIER_MODELS[:3]
+    bodies = [(i, wire.encode_request(live[i % 3], rows))
+              for i, rows in enumerate(traffic)]
+    d_rows = serve_rows(np.random.default_rng(SEED + 10), SERVE_JSON_MAX_ROWS)
+    d_ref = d_rows.astype(np.float64) @ model.pc
+    d_body = wire.encode_request(TIER_COLD, d_rows)
+    metrics = get_registry()
+    events = metrics.counter("sparkml_serve_tiering_total", "", ("event",))
+    first_hit = metrics.summary("sparkml_serve_tiering_first_hit_seconds",
+                                "", ("model",))
+    errors = metrics.counter("sparkml_serve_errors_total", "",
+                             ("model", "error"))
+    ledger = accounting.get_ledger()
+    held = ledger.memory_bytes()
+    check(not any(held.values()), f"the ledger still charges {held} B "
+          f"after phases 5-9 shut their engines down")
+    model_dir = tempfile.mkdtemp(prefix="chip_smoke_tier_")
+    registry = ModelRegistry()
+    registry.register("A", model)
+    t0 = time.perf_counter()
+    model.save(os.path.join(model_dir, "pca"))
+    for name in TIER_MODELS[1:]:
+        registry.load(name, os.path.join(model_dir, "pca"))
+    log(f"  registered {list(TIER_MODELS)}: A fit (c)'s model, B-D loaded "
+        f"from one save ({time.perf_counter() - t0:.2f} s)")
+    now = [0.0]
+    tsdb.reset_tsdb()
+    engine = ServeEngine(registry, max_batch_rows=SERVE_MAX_ROWS,
+                         pipeline_depth=2, precision="native")
+    server = None
+    try:
+        t0 = time.perf_counter()
+        for name in TIER_MODELS:
+            engine.warmup(name)
+        weights = ledger.memory_bytes(component=accounting.COMPONENT_WEIGHTS)
+        weight = weights.get(TIER_COLD, 0)
+        check(weight == N_FEATURES * K * 8 and all(
+            weights.get(n) == weight for n in TIER_MODELS),
+              f"staged weights {weights}, expected {N_FEATURES * K * 8} "
+              f"bytes each")
+        budget = 3 * weight
+        ctl = TieringController(engine, hbm_budget_bytes=budget,
+                                flap_floor_s=TIER_FLAP_S,
+                                clock=lambda: now[0])
+        engine.attach_tiering(ctl)
+        server = start_serve_server(engine, port=0, addr="127.0.0.1")
+        port = server.server_address[1]
+        log(f"  warmed {len(TIER_MODELS)} models in "
+            f"{time.perf_counter() - t0:.2f} s: {weight} B of weights "
+            f"each, budget {budget} B (3 models), accounted "
+            f"{sum(ledger.memory_bytes().values())} B")
+
+        # D's reference answer, then A-C take phase 5's traffic
+        status, _, data = post_predict(port, d_body)
+        check(status == 200, f"D's first request: HTTP {status}")
+        d_warm = wire.decode_response(data)
+        check(relative_error(d_warm, d_ref) <= SERVE_BARS["native"],
+              f"D's answer off by {relative_error(d_warm, d_ref):.3e}")
+        results, wall = http_clients(port, [
+            (i, body, wire.BINARY_CONTENT_TYPE) for i, body in bodies])
+        check(len(results) == SERVE_REQUESTS,
+              f"phase 10: {len(results)} responses")
+        worst, lat = check_responses("tiering A-C", results, traffic, refs,
+                                     SERVE_BARS["native"])
+        rps = SERVE_REQUESTS / wall
+        log(f"  A-C: {SERVE_REQUESTS} binary requests in {wall:.3f} s: "
+            f"{rps:.1f} requests/s (phase 5 native, one model: "
+            f"{phase5_rps['native']:.1f}), client p50 "
+            f"{np.percentile(lat, 50):.2f} ms, p99 "
+            f"{np.percentile(lat, 99):.2f} ms; worst max|Δ|/max|ref| "
+            f"{worst:.3e}")
+
+        # deactivate: the budget parks the coldest model, D
+        alloc0, reserved0 = settled_memory(torch)
+        now[0] += TIER_STEP_S
+        actions = ctl.evaluate_once()
+        alloc1, reserved1 = settled_memory(torch)
+        parked = [e for e in spans.get_recorder().events()
+                  if e.name == "serve:tiering:deactivate"
+                  and e.args.get("model") == TIER_COLD]
+        deactivate_ms = parked[-1].dur_us / 1e3 if parked else float("nan")
+        check([a["model"] for a in actions] == [TIER_COLD],
+              f"evaluate_once parked {actions}, expected D alone")
+        states = ctl.states()
+        check(states == {**{n: ACTIVE for n in live}, TIER_COLD: COLD},
+              f"states after the tick {states}")
+        resident = sum(ledger.memory_bytes().values())
+        check(resident <= budget, f"accounted {resident} B > budget "
+              f"{budget} B")
+        check(alloc0 - alloc1 >= weight,
+              f"memory_allocated fell {alloc0 - alloc1} B on deactivation, "
+              f"less than D's {weight} B of weights")
+        status, costs = http_get(port, "/debug/costs")
+        status2, tier = http_get(port, "/debug/tiering")
+        check(status == 200 and costs["models"][TIER_COLD]["hbm_bytes"][
+            accounting.COMPONENT_WEIGHTS] == 0,
+              f"/debug/costs D: {costs['models'].get(TIER_COLD)}")
+        check(status2 == 200 and tier["states"][TIER_COLD] == COLD
+              and tier["resident_bytes"] == resident,
+              f"/debug/tiering {tier['states']}, {tier['resident_bytes']}")
+        log(f"  deactivate D: {deactivate_ms:.3f} ms (the "
+            f"serve:tiering:deactivate span: drain, close, release); "
+            f"accounted {resident} B of budget {budget} B; "
+            f"memory_allocated {alloc0} -> {alloc1} B (-{alloc0 - alloc1}, "
+            f"D's weights {weight}); memory_reserved {reserved0} -> "
+            f"{reserved1} B ({smi})")
+
+        # D's first hit while A-C keep their traffic
+        stop, records, failures = threading.Event(), [], []
+        sketch = first_hit.sketch(model=TIER_COLD)
+        hits0, hit_s0 = sketch.count, sketch.sum
+        t_traffic = time.perf_counter()
+        threads = traffic_until(port, bodies, stop, records, failures)
+        wait_records(records, 4 * SERVE_CLIENTS, threads)
+        t_d0 = time.perf_counter()
+        status, d_seconds, data = post_predict(port, d_body)
+        t_d1 = time.perf_counter()
+        mark = len(records)
+        wait_records(records, mark + 4 * SERVE_CLIENTS, threads)
+        stop.set()
+        for t in threads:
+            t.join(timeout=300)
+        traffic_wall = time.perf_counter() - t_traffic
+        check(not failures and not any(t.is_alive() for t in threads),
+              f"A-C clients failed: {failures[:3]}")
+        check(status == 200, f"D's first hit: HTTP {status} {data[:200]!r}")
+        d_out = wire.decode_response(data)
+        d_err = relative_error(d_out, d_ref)
+        check(d_err <= SERVE_BARS["native"], f"D's first hit off by "
+              f"{d_err:.3e}")
+        check(sketch.count == hits0 + 1,
+              f"first-hit observations {sketch.count - hits0}")
+        hits1, hit_s1 = sketch.count, sketch.sum
+        worst = check_records("A-C during D's first hit", records, traffic,
+                              refs)
+        inside = sum(1 for _i, r0, r1, _s, _d in records
+                     if r1 > t_d0 and r1 < t_d1)
+        check(inside >= TIER_MIN_OVERLAP, f"no A-C response landed inside "
+              f"D's first hit ({d_seconds * 1e3:.1f} ms)")
+        alloc2, reserved2 = settled_memory(torch)
+        rise = alloc2 - alloc1
+        check(abs(rise - weight) <= TIER_ALLOC_SLACK,
+              f"memory_allocated rose {rise} B on reactivation, D's "
+              f"weights are {weight} B")
+        same = ("bit-equal" if np.array_equal(d_out, d_warm) else
+                f"max |Δ| {float(np.abs(d_out - d_warm).max()):.3e}")
+        log(f"  D's first hit: HTTP 200 in {d_seconds * 1e3:.3f} ms (client), "
+            f"reactivation {(hit_s1 - hit_s0) * 1e3:.3f} ms "
+            f"(sparkml_serve_tiering_first_hit_seconds{{model=\"D\"}}, 1 "
+            f"observation); answer vs its pre-cold answer: "
+            f"{same}, vs float64 {d_err:.3e}; A-C meanwhile: {len(records)} "
+            f"responses, all 200, {inside} inside D's first hit, "
+            f"{len(records) / traffic_wall:.1f} requests/s, worst "
+            f"{worst:.3e}; memory_allocated {alloc1} -> {alloc2} B "
+            f"(+{rise}), memory_reserved {reserved1} -> {reserved2} B "
+            f"({smi})")
+
+        # park D again; 8 concurrent first hits share one reactivation
+        now[0] += TIER_STEP_S
+        actions = ctl.evaluate_once()
+        check([a["model"] for a in actions] == [TIER_COLD],
+              f"the second tick parked {actions}, expected D alone")
+        alloc3, reserved3 = settled_memory(torch)
+        check(alloc2 - alloc3 >= weight, f"memory_allocated fell "
+              f"{alloc2 - alloc3} B when D was parked again")
+        counts0 = {e: events.value(event=e)
+                   for e in ("cold_hit", "reactivate", "gate_wait")}
+        conns = [http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+                 for _ in range(TIER_HITS)]
+        for conn in conns:
+            conn.connect()
+        barrier = threading.Barrier(TIER_HITS)
+        hits = [None] * TIER_HITS
+
+        def hit(j):
+            barrier.wait()
+            hits[j] = post_predict(port, d_body, conns[j])
+
+        workers = [threading.Thread(target=hit, args=(j,))
+                   for j in range(TIER_HITS)]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(timeout=300)
+        for conn in conns:
+            conn.close()
+        check(all(h is not None and h[0] == 200 for h in hits),
+              f"concurrent first hits: {[h and h[0] for h in hits]}")
+        for h in hits:
+            out = wire.decode_response(h[2])
+            check(relative_error(out, d_ref) <= SERVE_BARS["native"],
+                  "a concurrent first hit outside the native bar")
+        moved = {e: events.value(event=e) - counts0[e] for e in counts0}
+        check(moved == {"cold_hit": 1, "reactivate": 1,
+                        "gate_wait": TIER_HITS - 1}
+              and sketch.count == hits1 + 1,
+              f"tiering events over the {TIER_HITS} first hits: {moved}, "
+              f"first-hit observations {sketch.count - hits1}")
+        hit_ms = sorted(h[1] * 1e3 for h in hits)
+        alloc4, reserved4 = settled_memory(torch)
+        check(abs(alloc4 - alloc3 - weight) <= TIER_ALLOC_SLACK,
+              f"memory_allocated rose {alloc4 - alloc3} B on the second "
+              f"reactivation, D's weights are {weight} B")
+        log(f"  {TIER_HITS} concurrent first hits: all 200, events {moved}; "
+            f"client latency p50 {np.percentile(hit_ms, 50):.3f} ms, max "
+            f"{hit_ms[-1]:.3f} ms; reactivation "
+            f"{(sketch.sum - hit_s1) * 1e3:.3f} ms; memory_allocated "
+            f"{alloc2} -> {alloc3} (parked, -{alloc2 - alloc3}) -> {alloc4} "
+            f"B (+{alloc4 - alloc3}), memory_reserved {reserved3} -> "
+            f"{reserved4} B ({smi})")
+
+        # the ledger against devmon at the batcher's completion seam
+        report = ledger.reconcile()
+        log(f"  reconcile: verdict {report['verdict']}, worst drift "
+            f"{report['worst_drift_ratio']:.3e}, {report['models_checked']} "
+            f"models checked: " + ", ".join(
+                f"{name} {doc.get('drift_ratio', 'skipped')}"
+                for name, doc in sorted(report["models"].items())))
+        check(report["verdict"] == "ok", f"reconcile verdict "
+              f"{report['verdict']}")
+        check(all(report["models"][n].get("drift_ratio", 0.0)
+                  <= report["tolerance"] for n in TIER_MODELS
+                  if n in report["models"]), "a model drifted")
+        errs = sum(errors.value(model=n, error=e) for n in TIER_MODELS
+                   for e in ("deactivate", "reactivate", "ledger_charge",
+                             "ledger_release", "tiering_audit"))
+        check(errs == 0, f"tiering / ledger errors counted: {errs}")
+    finally:
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+        engine.shutdown()
+        tsdb.reset_tsdb()
+        shutil.rmtree(model_dir, ignore_errors=True)
+    log(f"  phase 10 {time.perf_counter() - t_phase:.1f} s")
+
+
 def build_fresh(cuda_build):
     """Build the Gram library anew, so ``ptxas -v`` reports on it."""
     path = cuda_build.library_path("fused_gram")
@@ -2210,6 +2607,13 @@ def main() -> int:
 
     log("[9] profiling and the flight recorder")
     phase_profile(torch, fg, model_c, device, occupancy8)
+
+    log("[10] tiering on the card")
+    fg.reset_launches()
+    phase_tiering(torch, fg, model_c, device, served_rps)
+    tiered = dict(fg.launches)
+    log(f"  kernel launches in the tiering phase: {tiered}")
+    check(sum(tiered.values()) == 0, "the tiering phase launched a kernel")
 
     kernels = []
     for name, m in measured.items():

@@ -7,9 +7,20 @@ contributes only its kernel table and its per-precision weights, staged on
 the device once per program; this module resolves the device and dtype and
 wraps put / run / fetch into an ``obs.serving.ServingProgram``.
 
-On the card each program owns two CUDA streams, created at build and
-captured by its closures, so whichever thread calls them (the batcher's
-worker) works on them explicitly rather than on its current stream:
+On the card every program on a device shares one pair of CUDA streams
+(``serving_streams``), made on the first build and captured by each
+program's closures, so whichever thread calls them (the batcher's
+worker) works on them explicitly rather than on its current stream.
+The pair is shared, not made per program, because PyTorch caches a
+cuBLAS workspace (32 MiB on Hopper) for each (thread's handle, stream)
+pair it meets and never frees it: fresh streams per program would add
+workspaces on every rebuild (a tiering reactivation, a new version),
+outside the bytes the cost ledger accounts. The handle half of the key
+is the calling thread's, held until that thread ends, so device work a
+caller does beside the batcher (a warmup, a precision check) runs
+through ``on_serving_thread``: on a short-lived thread of its own, whose
+handle goes back to PyTorch's pool, serving-stream workspace and all,
+for the batcher worker that serves next. On the pair:
 
 * ``put`` copies a staged (pinned) host batch to the card with
   ``non_blocking=True`` on the copy stream and records an event;
@@ -26,6 +37,8 @@ tell from the metrics that every batch ran on the card.
 
 from __future__ import annotations
 
+import contextvars
+import threading
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -72,6 +85,54 @@ def staged_weight_bytes(weights) -> int:
     return sum(int(getattr(w, "nbytes", 0) or 0) for w in weights)
 
 
+_STREAMS: Dict[torch.device, Tuple["torch.cuda.Stream",
+                                   "torch.cuda.Stream"]] = {}
+_STREAMS_LOCK = threading.Lock()
+
+
+def serving_streams(device) -> Tuple["torch.cuda.Stream",
+                                     "torch.cuda.Stream"]:
+    """The (copy, compute) CUDA stream pair every serving program on
+    ``device`` shares (see the module docstring), made on first use."""
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device(device.type, torch.cuda.current_device())
+    with _STREAMS_LOCK:
+        pair = _STREAMS.get(device)
+        if pair is None:
+            pair = (torch.cuda.Stream(device=device),
+                    torch.cuda.Stream(device=device))
+            _STREAMS[device] = pair
+        return pair
+
+
+def on_serving_thread(device, fn: Callable):
+    """``fn()`` on a CUDA ``device``'s serving compute stream, run on a
+    thread of its own that ends before this returns (see the module
+    docstring); inline when ``device`` is None or not CUDA. Returns what
+    ``fn`` returns and raises what it raises."""
+    if device is None or torch.device(device).type != "cuda":
+        return fn()
+    stream = serving_streams(device)[1]
+    ctx = contextvars.copy_context()
+    out: Dict[str, object] = {}
+
+    def work():
+        try:
+            with torch.cuda.stream(stream):
+                out["value"] = ctx.run(fn)
+        except BaseException as exc:  # noqa: BLE001 - raised by the caller
+            out["error"] = exc
+
+    thread = threading.Thread(target=work, name="sparkml-serve-device",
+                              daemon=True)
+    thread.start()
+    thread.join()
+    if "error" in out:
+        raise out["error"]
+    return out["value"]
+
+
 def _numpy_dtype(dtype: torch.dtype) -> np.dtype:
     return torch.empty(0, dtype=dtype).numpy().dtype
 
@@ -114,8 +175,7 @@ def build_serving_program(
         return out.astype(fetch_dtype, copy=False)
 
     if device.type == "cuda":
-        copy_stream = torch.cuda.Stream(device=device)
-        compute_stream = torch.cuda.Stream(device=device)
+        copy_stream, compute_stream = serving_streams(device)
 
         def put(matrix):
             host = torch.from_numpy(np.ascontiguousarray(matrix,

@@ -263,7 +263,11 @@ class _Armed:
 
 
 class Watchdog:
-    """One daemon thread monitoring every armed deadline in the process."""
+    """One daemon thread monitoring every armed deadline in the process.
+
+    Unlike the JAX package's loop, it computes its next wait under the
+    lock that the wait releases, so a deadline armed while it runs an
+    expired one's hook and dump is not missed."""
 
     def __init__(self, poll_floor: float = 0.05):
         self._lock = threading.Lock()
@@ -312,10 +316,6 @@ class Watchdog:
                            if not a.fired and a.deadline <= now]
                 for a in expired:
                     a.fired = True
-                pending = [a.deadline for a in self._armed.values()
-                           if not a.fired]
-                wait = (max(min(pending) - now, self._poll_floor)
-                        if pending else None)
             for a in expired:
                 if a.on_expire is not None:
                     _safe(a.on_expire)
@@ -328,6 +328,13 @@ class Watchdog:
                     },
                 )
             with self._cond:
+                # read what is armed under the lock the wait releases: a
+                # deadline armed while the dumps above ran notified no
+                # one, and a wait computed before them would miss it
+                pending = [a.deadline for a in self._armed.values()
+                           if not a.fired]
+                wait = (max(min(pending) - time.monotonic(),
+                            self._poll_floor) if pending else None)
                 self._cond.wait(timeout=wait)
 
 

@@ -28,11 +28,16 @@ one model on one card needs:
   bf16 / int8 precision ladder behind an offline max-error check;
 * ``fault_plane`` (``serve.faults``) — deterministic fault injection that
   rehearses all of the above;
+* ``TieringController`` (``serve.tiering``) — parks the coldest models
+  off the card under a byte budget, ranked by the cost ledger
+  (``obs.accounting``), and brings one back on its first request
+  through admission's gate;
 * ``start_serve_server`` (``serve.server``) — ``POST /predict`` (JSON and
   the binary columnar wire format, ``serve.wire``), ``GET /healthz``,
   ``/readyz``, ``/metrics`` and the debug plane ``/debug/traces``,
-  ``/debug/slo`` and ``/debug/history`` (the history sampler, which it
-  starts, with the device monitor as a collector).
+  ``/debug/slo``, ``/debug/history`` (the history sampler, which it
+  starts, with the device monitor as a collector), ``/debug/costs`` and
+  ``/debug/tiering``.
 """
 
 # Import order as in the JAX package: ``faults`` / ``breaker`` /
@@ -87,6 +92,9 @@ from spark_rapids_ml_tpu_torch.serve.server import (  # noqa: F401
     make_handler,
     start_serve_server,
 )
+from spark_rapids_ml_tpu_torch.serve.tiering import (  # noqa: F401
+    TieringController,
+)
 
 __all__ = [
     "AdmissionController",
@@ -111,6 +119,7 @@ __all__ = [
     "ServeEngine",
     "ShedController",
     "ShedLoad",
+    "TieringController",
     "TokenBucket",
     "WaitTimeout",
     "WorkerCrashed",

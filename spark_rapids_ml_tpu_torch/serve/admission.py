@@ -467,6 +467,7 @@ class AdmissionController:
             clock=clock)
         self._signals_fn: Optional[Callable[[], Dict[str, float]]] = None
         self._retry_after_fn: Optional[Callable[[], float]] = None
+        self._tiering_gate: Optional[Callable[[str], None]] = None
         self._buckets: Dict[str, TokenBucket] = {}
         self._lock = threading.Lock()
         reg = get_registry()
@@ -493,6 +494,15 @@ class AdmissionController:
         the engine)."""
         self._signals_fn = signals_fn
         self._retry_after_fn = retry_after_fn
+
+    def bind_tiering(self, gate_fn: Callable[[str], None]) -> None:
+        """Install the tiering controller's reactivation gate
+        (``TieringController.ensure_active``): ``admit`` calls it with
+        the model name AFTER the shed decision passes — the first
+        request to a COLD model blocks briefly right here while the
+        model is restaged and warmed, and a request the overload
+        controller would shed anyway never triggers a reactivation."""
+        self._tiering_gate = gate_fn
 
     # -- tenant plumbing ---------------------------------------------------
 
@@ -565,6 +575,12 @@ class AdmissionController:
                         over_quota=True)
         else:
             self._m_admission.inc(tenant=tenant, decision="admit")
+        if self._tiering_gate is not None and model:
+            # the cold-model gate (serve.tiering): a COLD model's first
+            # request blocks here through its reactivation — bounded,
+            # counted, and only for requests that already passed quota
+            # + shed
+            self._tiering_gate(model)
         return AdmissionDecision(tenant, priority, over_quota,
                                  "admit_over_quota" if over_quota
                                  else "admit")

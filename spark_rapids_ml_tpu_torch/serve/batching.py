@@ -36,7 +36,8 @@ blocking path (window depth 1): one ``transform_fn`` call per batch.
 Each completed batch's union busy time
 (``sparkml_serve_device_busy_seconds_total``) is also attributed to the
 program's device through ``obs.devmon``
-(``sparkml_serve_device_batch_seconds_total{model,device}``).
+(``sparkml_serve_device_batch_seconds_total{model,device}``) and, with
+the same number, to the model in the cost ledger (``obs.accounting``).
 
 Invariants (tested in ``tests/test_torch_serve_engine.py`` and
 ``tests/test_torch_serve_fairness.py``):
@@ -80,6 +81,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from spark_rapids_ml_tpu_torch.obs import accounting
 from spark_rapids_ml_tpu_torch.obs import flight
 from spark_rapids_ml_tpu_torch.obs import serving as obs_serving
 from spark_rapids_ml_tpu_torch.obs.devmon import get_device_monitor
@@ -424,6 +426,7 @@ class MicroBatcher:
         # per-device attribution of each batch's busy time (obs.devmon):
         # the program's device, else the monitor's first device
         self._devmon = get_device_monitor()
+        self._ledger = accounting.get_ledger()
         program = async_spec.program if async_spec is not None else None
         device = getattr(program, "device", None)
         self.device_label: Optional[str] = (
@@ -1055,6 +1058,10 @@ class MicroBatcher:
         # the same union busy time, attributed to the program's device
         # (never raises): rate() of it is the device's occupancy
         self._devmon.note_batch(self.name, busy, device=self.device_label)
+        # same seam, same number, into the per-model cost ledger — so
+        # reconcile() can hold the two attributions to each other
+        self._ledger.note_batch_seconds(self.name, busy,
+                                        device=self.device_label)
         if self._retire_entry(entry, gen):
             return  # the watchdog failed this window; the late result drops
         if err is not None:

@@ -59,10 +59,17 @@ Every request runs under a ``TraceContext`` (the caller's, or a fresh
 root) inside a ``serve:request:<model>`` span whose id the batcher's
 queue span and the admission audit parent under.
 
+Every model version's staged weights are charged to the cost ledger
+(``obs.accounting``) when its batcher is built from a ``ServingProgram``
+and released on ``evict``; every request's outcome is noted there too
+(``costs_snapshot`` serves ``GET /debug/costs``). The tiering plane
+(``serve.tiering``) drives ``deactivate`` / ``reactivate`` through
+``attach_tiering``, which also binds its first-hit gate into admission.
+
 Not ported yet (see ``ROADMAP.md``): replicas, placement and sharded
-requests, rollout, autoscale, tiering and cost accounting. The engine is
-configured through its constructor; of the JAX engine's environment
-knobs only admission's and the scheduler's
+requests, rollout and autoscale. The engine is configured through its
+constructor; of the JAX engine's environment knobs only admission's and
+the scheduler's
 (``SPARK_RAPIDS_ML_TORCH_SERVE_{TENANT_*,PRIORITY_DEFAULT,SHED*,SCHED}``)
 and the SLOs' (``SPARK_RAPIDS_ML_TORCH_SLO_*``) are read.
 """
@@ -77,6 +84,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from spark_rapids_ml_tpu_torch.models._serving import on_serving_thread
+from spark_rapids_ml_tpu_torch.obs import accounting as accounting_mod
 from spark_rapids_ml_tpu_torch.obs import spans as spans_mod
 from spark_rapids_ml_tpu_torch.obs import tracectx
 from spark_rapids_ml_tpu_torch.obs.metrics import get_registry
@@ -330,6 +339,13 @@ class ServeEngine:
         self._fallbacks: Dict[Tuple[str, int], Any] = {}
         self._lock = threading.Lock()
         self._closed = False
+        # the hot/cold tiering plane (serve.tiering), attached via
+        # attach_tiering
+        self._tiering = None
+        # the per-model cost ledger (obs.accounting): batcher builds
+        # charge the staged weights, evict releases them, every request
+        # notes its vitals
+        self._ledger = accounting_mod.get_ledger()
         reg = get_registry()
         self._m_latency = reg.summary(
             "sparkml_serve_request_latency_seconds",
@@ -445,6 +461,10 @@ class ServeEngine:
                            if isinstance(exc, DeadlineExpired)
                            else "error")
                 self._m_tenant.inc(tenant=tenant_id, outcome=outcome)
+                self._ledger.note_request(
+                    entry.name, entry.version, tenant_id,
+                    self.admission.resolve_priority(priority),
+                    _rows_estimate(rows), outcome)
                 if isinstance(exc, ShedLoad) and not submitted[0]:
                     # an admission shed; a preemption victim (submitted,
                     # then evicted) was counted by its batcher
@@ -459,6 +479,10 @@ class ServeEngine:
         elapsed = time.perf_counter() - t0
         self.slo.record_request(True, elapsed)
         self._m_tenant.inc(tenant=tenant_id, outcome="ok")
+        self._ledger.note_request(
+            entry.name, entry.version, tenant_id,
+            self.admission.resolve_priority(priority),
+            _rows_estimate(rows), "ok")
         self._m_latency.observe(elapsed, model=entry.name)
         return PredictResult(outputs=out, model=entry.name,
                              version=entry.version, degraded=degraded,
@@ -652,9 +676,11 @@ class ServeEngine:
                 rng = np.random.default_rng(7)
                 x = rng.standard_normal((bucket, int(n_features))).astype(
                     native.dtype)
-                ref_raw = np.asarray(native.fetch(native.run(native.put(x))))
-                red_raw = np.asarray(
-                    reduced.fetch(reduced.run(reduced.put(x.copy()))))
+                ref_raw, red_raw = on_serving_thread(
+                    getattr(native, "device", None), lambda: (
+                        np.asarray(native.fetch(native.run(native.put(x)))),
+                        np.asarray(reduced.fetch(
+                            reduced.run(reduced.put(x.copy()))))))
                 if ref_raw.shape != red_raw.shape:
                     verdict = "shape_mismatch"
                 else:
@@ -771,7 +797,9 @@ class ServeEngine:
             batcher = self._batchers.get(key)
         if batcher is not None:
             return batcher
-        spec = self._async_spec_for(entry)
+        # builds bill to this model in the cost ledger
+        with self._ledger.compile_attribution(entry.name, entry.version):
+            spec = self._async_spec_for(entry)
         with self._lock:
             if self._closed:
                 raise EngineClosed("serving engine is shut down")
@@ -784,10 +812,30 @@ class ServeEngine:
             self._m_retries.inc(0, model=entry.name)
             self._m_degraded.inc(0, model=entry.name)
             stale = self._stale_keys(entry.name)
+        self._charge_batcher(entry, batcher)
         # versions the registry dropped would otherwise leak a worker each
         for k in stale:
             self.evict(*k)
         return batcher
+
+    def _charge_batcher(self, entry: RegisteredModel,
+                        batcher: MicroBatcher) -> None:
+        """Account one batcher's staged weights to the cost ledger: the
+        ``weight_bytes`` of the program that serves (after the precision
+        check, the reduced one or the native fallback), under the
+        program's device. A blocking-path batcher (no program) charges 0
+        under ``default``: the key still lands, so ``/debug/costs`` shows
+        the model is live. Never raises into the build path."""
+        spec = batcher.async_spec
+        prog = spec.program if spec is not None else None
+        try:
+            self._ledger.charge_memory(
+                entry.name, entry.version,
+                batcher.device_label or "default",
+                accounting_mod.COMPONENT_WEIGHTS,
+                int(getattr(prog, "weight_bytes", 0) or 0))
+        except Exception:  # noqa: BLE001 - accounting is telemetry
+            self._m_errors.inc(model=entry.name, error="ledger_charge")
 
     def _revive_batcher(self, entry: RegisteredModel,
                         corpse: MicroBatcher) -> MicroBatcher:
@@ -850,6 +898,11 @@ class ServeEngine:
         if batcher is None:
             return False
         batcher.close(drain=drain)
+        # eviction is the path that FREES accounted residency
+        try:
+            self._ledger.release_memory(name, version)
+        except Exception:  # noqa: BLE001 - eviction already happened
+            self._m_errors.inc(model=name, error="ledger_release")
         return True
 
     def warmup(self, model_ref: str, *, n_features: Optional[int] = None):
@@ -861,26 +914,96 @@ class ServeEngine:
         allocator. Returns the registry's report with a ``pipeline``
         entry ``{"precision", "buckets": {rows: seconds}}``."""
         entry = self.registry.resolve_entry(model_ref)
-        report = self.registry.warmup(
-            model_ref, n_features=n_features,
-            buckets=self.buckets or entry.buckets,
-            max_bucket_rows=self.max_batch_rows,
-        )
-        batcher = self._batcher_for(entry)
-        spec = batcher.async_spec
-        if n_features is None:
-            n_features = _infer_features(entry.model)
-        if spec is None or spec.program is None or n_features is None:
+        # every warm and build inside bills to this model in the ledger
+        with self._ledger.compile_attribution(entry.name, entry.version):
+            return self._warmup_entry(entry, model_ref, n_features,
+                                      self.buckets or entry.buckets)
+
+    def _warmup_entry(self, entry: RegisteredModel, model_ref: str,
+                      n_features: Optional[int], buckets):
+        spec = self._batcher_for(entry).async_spec
+        prog = spec.program if spec is not None else None
+
+        def warm():
+            report = self.registry.warmup(
+                model_ref, n_features=n_features, buckets=buckets,
+                max_bucket_rows=self.max_batch_rows,
+            )
+            features = (_infer_features(entry.model) if n_features is None
+                        else n_features)
+            if prog is None or features is None:
+                return report
+            ladder: Dict[int, float] = {}
+            for bucket in sorted(int(b) for b in report["buckets"]):
+                zeros = np.zeros((bucket, int(features)), dtype=spec.dtype)
+                t0 = time.perf_counter()
+                prog.fetch(prog.run(prog.put(zeros)))
+                ladder[bucket] = time.perf_counter() - t0
+            report["pipeline"] = {"precision": spec.precision,
+                                  "buckets": ladder}
             return report
-        prog = spec.program
-        ladder: Dict[int, float] = {}
-        for bucket in sorted(int(b) for b in report["buckets"]):
-            zeros = np.zeros((bucket, int(n_features)), dtype=spec.dtype)
-            t0 = time.perf_counter()
-            prog.fetch(prog.run(prog.put(zeros)))
-            ladder[bucket] = time.perf_counter() - t0
-        report["pipeline"] = {"precision": spec.precision, "buckets": ladder}
-        return report
+
+        # on the card the blocking transforms run on the serving stream
+        # too, and the cuBLAS handle they draw goes back to the pool for
+        # the batcher's worker: a warm makes no workspace serving lacks
+        return on_serving_thread(getattr(prog, "device", None), warm)
+
+    # -- the tiering plane (serve.tiering drives these) --------------------
+
+    def deactivate(self, name: str) -> List[str]:
+        """Park every (name, *) batcher COLD: each closes with a full
+        drain (queued work is never dropped) and is dropped with its
+        serving program, so the staged weights leave the card and the
+        accounted residency — while the registry entry and its
+        ``warmed_buckets`` SURVIVE for the reactivation. Returns the
+        version refs that were parked."""
+        with self._lock:
+            versions = sorted(v for (n, v) in self._batchers if n == name)
+        dropped = []
+        for version in versions:
+            if self.evict(name, version, drain=True):
+                dropped.append(f"{name}@{version}")
+        return dropped
+
+    def reactivate(self, name: str) -> Dict[str, Any]:
+        """Bring a COLD model back: restage its serving program and warm
+        its bucket ladder by executing it (``warmup``; the port has no
+        executable cache to replay from, ``ServingProgram.prime`` is
+        None). The ladder is the registry entry's ``warmed_buckets``,
+        else the one ``warmup`` would use. Returns ``{"model", "version",
+        "buckets"}``, the buckets being the ones warmed."""
+        entry = self.registry.resolve_entry(name)
+        with self._ledger.compile_attribution(entry.name, entry.version):
+            report = self._warmup_entry(
+                entry, name, None,
+                entry.warmed_buckets or self.buckets or entry.buckets)
+        return {"model": entry.name, "version": entry.version,
+                "buckets": sorted(int(b) for b in report["buckets"])}
+
+    def attach_tiering(self, controller) -> None:
+        """Install a ``serve.tiering.TieringController``: its
+        ``ensure_active`` gate binds into admission (the first request
+        to a COLD model blocks there through its reactivation instead of
+        404ing), and its snapshot serves ``GET /debug/tiering``."""
+        self._tiering = controller
+        self.admission.bind_tiering(controller.ensure_active)
+
+    def tiering_controller(self):
+        return self._tiering
+
+    def tiering_snapshot(self) -> Dict[str, Any]:
+        """The ``GET /debug/tiering`` payload (``{"enabled": False}``
+        without an attached controller)."""
+        if self._tiering is None:
+            return {"enabled": False}
+        return self._tiering.snapshot()
+
+    def costs_snapshot(self) -> Dict[str, Any]:
+        """The ``GET /debug/costs`` payload: the cost ledger's per-model
+        rollups, cold-model ranking and reconciliation verdict. (The JAX
+        engine attaches its replica states; the port has no replica
+        sets.)"""
+        return self._ledger.costs_document()
 
     # -- overload introspection --------------------------------------------
 
@@ -996,12 +1119,22 @@ class ServeEngine:
 
     def shutdown(self, drain: bool = True, timeout: float = 30.0) -> None:
         """Stop admissions, then drain (or fail, with ``drain=False``)
-        what is queued. Idempotent."""
+        what is queued, and release each closed batcher's charges in
+        the cost ledger, as ``evict`` does (the ledger is process-wide:
+        a later engine's tiering budget must not count them).
+        Idempotent. (The JAX engine's shutdown releases nothing.)"""
         with self._lock:
+            first = not self._closed
             self._closed = True
-            batchers = list(self._batchers.values())
-        for b in batchers:
+            batchers = list(self._batchers.items())
+        for (name, version), b in batchers:
             b.close(drain=drain, timeout=timeout)
+            if not first:
+                continue
+            try:
+                self._ledger.release_memory(name, version)
+            except Exception:  # noqa: BLE001 - the batcher is closed
+                self._m_errors.inc(model=name, error="ledger_release")
 
     def __enter__(self) -> "ServeEngine":
         return self

@@ -42,7 +42,16 @@ generators, probes) without a web framework.
 * ``GET /debug/slo`` — burn rates per window, budget remaining and firing
   alerts from the engine's ``SloSet``, with the queue depth, models,
   per-model breaker states, the fault plane's armed faults, the degraded
-  / retry / worker-restart totals and the overload posture;
+  / retry / worker-restart totals, the overload posture and the tiering
+  snapshot;
+* ``GET /debug/costs`` — the cost ledger's document
+  (``engine.costs_snapshot``, ``obs.accounting``): per-model residency
+  by component, device seconds, rows, requests by outcome, per-tenant
+  rollups, the cold-model ranking and the reconciliation verdict;
+* ``GET /debug/tiering`` — the tiering controller's snapshot
+  (``serve.tiering``; ``{"enabled": false}`` without one): states, pins,
+  budget, resident bytes, the ledger's cold ranking and recent
+  transitions;
 * ``GET /debug/history`` — JSON range queries over the history store
   (``obs.tsdb``): ``?name=<metric>&window=<s>`` for one family
   (``model=`` narrows by label, ``rate=1`` adds reset-aware rate and
@@ -58,14 +67,16 @@ generators, probes) without a web framework.
 
 ``start_serve_server`` starts the history sampler (``obs.tsdb``, with the
 device monitor ``obs.devmon`` as a collector) and registers the engine's
-SLO and queue-wait publishers on it, so the ``/debug/history`` series
-move every sweep whether or not anyone polls. Handler threads only
-decode, enqueue and wait: all device work happens on the batchers' worker
-threads, so ``/metrics``, ``/healthz`` and ``/debug/*`` never touch the
-card (the device monitor reads the allocator's host-side counters; a
+SLO and queue-wait publishers and the cost ledger's ``publish`` on it, so
+the ``/debug/history`` series move every sweep whether or not anyone
+polls. Handler threads only decode, enqueue and wait: device work
+happens on the batchers' worker threads — except a COLD model's first
+hit, whose handler runs the reactivation (``serve.tiering``) before it
+enqueues — so ``/metrics``, ``/healthz`` and ``/debug/*`` never touch
+the card (the device monitor reads the allocator's host-side counters; a
 profile capture runs on helper threads of its own). The JAX package's
-``/debug/incidents``, ``/debug/costs`` and the other tiers' routes, and
-its dashboard, are not ported yet.
+``/debug/incidents`` and the other tiers' routes, and its dashboard, are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -80,6 +91,7 @@ from typing import Optional
 
 import numpy as np
 
+from spark_rapids_ml_tpu_torch.obs import accounting as accounting_mod
 from spark_rapids_ml_tpu_torch.obs import profiler as profiler_mod
 from spark_rapids_ml_tpu_torch.obs import spans as spans_mod
 from spark_rapids_ml_tpu_torch.obs import tracectx
@@ -321,6 +333,7 @@ def make_handler(engine: ServeEngine):
                 snap["retries_total"] = m_retries.total()
                 snap["worker_restarts_total"] = m_restarts.total()
                 snap["overload"] = engine.overload_state()
+                snap["tiering"] = engine.tiering_snapshot()
                 status = self._reply(200, snap)
             elif path == "/debug/history":
                 status = self._reply(200, history_document(
@@ -331,6 +344,10 @@ def make_handler(engine: ServeEngine):
                     "last": profiler_mod.last_capture(),
                     "dir": profiler_mod.profile_dir(),
                 })
+            elif path == "/debug/tiering":
+                status = self._reply(200, engine.tiering_snapshot())
+            elif path == "/debug/costs":
+                status = self._reply(200, engine.costs_snapshot())
             else:
                 status = self._reply(404,
                                      {"error": f"unknown path {path!r}"})
@@ -551,10 +568,15 @@ def start_serve_server(
 
     Also starts the process-wide history sampler (``obs.tsdb``, which
     outlives the server: ``tsdb.stop_sampling`` stops it) with the device
-    monitor, every live engine's SLO gauges and this engine's queue-wait
-    estimate as collectors, so ``/debug/history`` has data."""
+    monitor, every live engine's SLO gauges, the cost ledger's gauges and
+    this engine's queue-wait estimate as collectors, so
+    ``/debug/history`` has data."""
     sampler = tsdb_mod.start_sampling()
     sampler.register_collector(publish_all_slos)
+    # the cost ledger's time-derived gauges (last-hit age, EWMA rps)
+    # refresh every sweep, so the per-model series get history even
+    # when nobody polls /debug/costs
+    sampler.register_collector(accounting_mod.get_ledger().publish)
     reg = get_registry()
     g_queue_wait = reg.gauge(
         QUEUE_WAIT_SERIES,

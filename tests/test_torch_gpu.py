@@ -279,6 +279,29 @@ def test_serving_program_on_card_matches_its_plain_version(
         assert np.abs(got - want).max() <= bar * np.abs(want).max()
 
 
+def test_programs_on_one_card_share_the_serving_streams(cuda_device):
+    """Every serving program on a card runs on one (copy, compute) pair,
+    and card work beside the batcher runs with that compute stream
+    current: a rebuilt program meets no stream new to cuBLAS."""
+    from spark_rapids_ml_tpu_torch.models._serving import (
+        on_serving_thread,
+        serving_streams,
+    )
+
+    copy, compute = serving_streams(cuda_device)
+    assert serving_streams(cuda_device) == (copy, compute)
+    assert copy != compute
+    model = _serving_model(64, 8)
+    x = np.random.default_rng(3).standard_normal((16, 64)).astype(np.float32)
+    first = model.serving_transform_program("native")
+    second = model.serving_transform_program("native")
+    np.testing.assert_array_equal(first.fetch(first.run(first.put(x))),
+                                  second.fetch(second.run(second.put(x))))
+    assert serving_streams(cuda_device) == (copy, compute)
+    assert on_serving_thread(cuda_device,
+                             torch.cuda.current_stream) == compute
+
+
 def test_bf16_program_returns_float32_on_card(cuda_device):
     model = _serving_model(64, 8)
     program = model.serving_transform_program("bf16")
@@ -466,6 +489,57 @@ def test_fair_queue_preemption_under_a_deep_pipeline(cuda_device):
     assert all(v.priority == "batch" for v in victims)
     evicted = {id(v) for v in victims}
     assert not any(id(r) in evicted for batch in staged for r in batch)
+
+
+def test_parked_model_frees_its_device_bytes_and_gets_them_back(
+        cuda_device):
+    """Tiering on the card: parking a 4096 x 256 model (float64 weights,
+    8 MiB) lowers ``memory_allocated`` by at least its accounted weights,
+    and its first hit stages them again, with the same answer, and adds
+    nothing else (within 4 MiB): the rebuilt program meets the cuBLAS
+    workspaces of the serving stream pair it shares."""
+    import gc
+
+    from spark_rapids_ml_tpu_torch import PCAModel
+    from spark_rapids_ml_tpu_torch.obs import accounting
+    from spark_rapids_ml_tpu_torch.serve import (
+        ModelRegistry,
+        ServeEngine,
+        TieringController,
+    )
+
+    def settled():
+        gc.collect()
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated(0)
+
+    rng = np.random.default_rng(0)
+    basis = np.linalg.qr(rng.normal(size=(4096, 256)))[0]
+    model = PCAModel.from_numpy(basis, np.linspace(1.0, 0.01, 256))
+    accounting.reset_ledger()
+    registry = ModelRegistry()
+    registry.register("gpu_tier", model.setDtype("float64"))
+    engine = ServeEngine(registry, max_batch_rows=64, max_wait_ms=1.0)
+    ctl = TieringController(engine, hbm_budget_bytes=1, clock=lambda: 0.0)
+    engine.attach_tiering(ctl)
+    weight = 4096 * 256 * 8
+    try:
+        x = rng.normal(size=(8, 4096)).astype(np.float32)
+        engine.warmup("gpu_tier")
+        ref = engine.predict("gpu_tier", x)
+        ledger = accounting.get_ledger()
+        assert ledger.memory_bytes("gpu_tier") == {"gpu_tier": weight}
+        before = settled()
+        assert [a["model"] for a in ctl.evaluate_once()] == ["gpu_tier"]
+        parked = settled()
+        assert before - parked >= weight
+        assert ledger.memory_bytes("gpu_tier") == {}
+        np.testing.assert_array_equal(engine.predict("gpu_tier", x), ref)
+        assert abs(settled() - parked - weight) <= 4 << 20
+        assert ledger.memory_bytes("gpu_tier") == {"gpu_tier": weight}
+    finally:
+        engine.shutdown()
+        accounting.reset_ledger()
 
 
 def test_device_memory_stats_track_a_known_allocation(cuda_device):

@@ -39,8 +39,8 @@ def _is_forbidden(module: str) -> bool:
 # and that the port must still not import from there
 STANDALONE = ("obs.tracectx", "obs.spans", "obs.slo", "obs.tsdb",
               "obs.logging", "obs.retention", "obs.flight", "obs.profiler",
-              "serve.admission", "serve.scheduler", "serve.wire",
-              "serve.breaker")
+              "obs.accounting", "serve.admission", "serve.scheduler",
+              "serve.wire", "serve.breaker", "serve.tiering")
 
 
 def test_importing_every_port_module_leaves_jax_out():

@@ -115,6 +115,30 @@ def test_watchdog_does_not_fire_within_budget(dumps):
         "budget_exceeded:stalled_after_test"
 
 
+def test_a_deadline_armed_while_the_watchdog_dumps_still_fires(dumps):
+    """The watchdog's lost wakeup: a deadline armed while the thread runs
+    an expired one's hook and dump (outside its lock, so the arm's notify
+    reaches no waiter) must still fire. The JAX package's watchdog,
+    whose wait is computed before the dumps, waits past it."""
+    watchdog = flight.Watchdog()
+    in_hook, release, fired = (threading.Event(), threading.Event(),
+                               threading.Event())
+
+    def hold():
+        in_hook.set()
+        release.wait(WAIT)
+
+    watchdog.arm("first_expired_test", 0.0, on_expire=hold)
+    assert in_hook.wait(WAIT)
+    watchdog.arm("armed_meanwhile_test", 0.05, on_expire=fired.set)
+    release.set()
+    assert fired.wait(WAIT)
+    reasons = {json.load(open(p))["reason"]
+               for p in _wait_for_dumps(dumps, 2)}
+    assert reasons == {"budget_exceeded:first_expired_test",
+                       "budget_exceeded:armed_meanwhile_test"}
+
+
 def test_hard_exception_dumps_fast_validation_does_not(dumps):
     with pytest.raises(OSError):
         with obs.deadline("hard_error_test", budget_seconds=30.0):

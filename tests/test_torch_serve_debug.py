@@ -31,6 +31,7 @@ from spark_rapids_ml_tpu.serve.breaker import CircuitBreaker as JaxBreaker
 from spark_rapids_ml_tpu.serve.faults import FaultSpec as JaxFaultSpec
 from spark_rapids_ml_tpu_torch import PCAModel
 from spark_rapids_ml_tpu_torch.obs import (
+    accounting,
     devmon,
     profiler,
     spans,
@@ -50,7 +51,7 @@ from spark_rapids_ml_tpu_torch.serve import server as server_mod
 
 TIMEOUT = 30.0
 N_FEAT = 20  # no JAX test compiles this width
-UNPORTED_SECTIONS = {"replicas", "rollout", "autoscale", "tiering"}
+UNPORTED_SECTIONS = {"replicas", "rollout", "autoscale"}
 
 
 @pytest.fixture(autouse=True)
@@ -395,7 +396,9 @@ def test_server_starts_the_sampler_with_its_collectors(served):
     assert sampler.running
     sampler.stop()
     names = [getattr(fn, "__name__", "") for fn in sampler._collectors]
-    assert names == ["sample", "publish_all_slos", "_publish_queue_wait"]
+    assert names == ["sample", "publish_all_slos", "publish",
+                     "_publish_queue_wait"]
+    assert accounting.get_ledger().publish in sampler._collectors
     _predict(port, x[:4])
     sampler.sample_once()
     store = tsdb.get_tsdb()
@@ -412,7 +415,7 @@ def test_server_starts_the_sampler_with_its_collectors(served):
     engine.shutdown()
     sampler.sample_once()
     assert [getattr(fn, "__name__", "") for fn in sampler._collectors] == [
-        "sample", "publish_all_slos"]
+        "sample", "publish_all_slos", "publish"]
 
 
 def test_publish_all_slos_publishes_live_engines_only(monkeypatch):
@@ -485,7 +488,9 @@ def test_debug_profile_post_runs_a_single_flight_cpu_capture(profiling):
         "id", "path", "seconds", "jax_enabled", "fit_run_id")}
     status, busy = _post(port, "/debug/profile?seconds=1")
     assert status == 409 and busy["active"]["id"] == info["id"]
-    assert counter.value(path="/debug/profile", status="409") == before + 1
+    # the handler counts a request after writing its reply
+    _until(lambda: counter.value(path="/debug/profile",
+                                 status="409") == before + 1)
     # the first start in a process takes seconds: stop once it runs
     _until(lambda: (profiler.capture_active() or {}).get("torch_trace"))
     _predict(port, x[:4])

@@ -296,6 +296,42 @@ def test_serving_stage_computes_the_program(models, rng, precision):
         w.nbytes for w in stage.weights)
 
 
+def test_on_serving_thread_runs_card_work_on_a_thread_that_has_ended(
+        monkeypatch):
+    """Device work beside the batcher: inline for the CPU; for a CUDA
+    device (streams faked here) on a thread of its own, with the serving
+    compute stream current and the caller's context variables, ended by
+    the time it returns its value or raises its error."""
+    import contextlib
+    import contextvars
+    import threading
+
+    from spark_rapids_ml_tpu_torch.models import _serving
+
+    assert _serving.on_serving_thread(
+        torch.device("cpu"), threading.current_thread) is (
+        threading.current_thread())
+    assert _serving.on_serving_thread(None, lambda: 7) == 7
+    entered = []
+    monkeypatch.setattr(_serving, "serving_streams",
+                        lambda device: ("copy", "compute"))
+    monkeypatch.setattr(torch.cuda, "stream", lambda stream: (
+        entered.append(stream) or contextlib.nullcontext()))
+    var = contextvars.ContextVar("serving_test_var")
+    var.set("caller's")
+    ran = _serving.on_serving_thread(
+        "cuda", lambda: (threading.current_thread(), var.get()))
+    assert ran[0] is not threading.current_thread()
+    assert not ran[0].is_alive() and ran[1] == "caller's"
+    assert entered == ["compute"]
+
+    def fails():
+        raise KeyError("from the device thread")
+
+    with pytest.raises(KeyError, match="from the device thread"):
+        _serving.on_serving_thread("cuda", fails)
+
+
 # -- metrics ------------------------------------------------------------------
 
 def test_quantile_sketch_matches_jax(rng):
