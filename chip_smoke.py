@@ -196,6 +196,34 @@ Phases (any failure raises and the script exits non-zero):
     and reactivation time, the 8 hits' p50, the allocated and reserved
     bytes around each transition, and A-C's requests/s beside phase
     5's.
+11. The auto-incident engine on the card: fit (c)'s model as
+    ``pca_inc`` (native, pipeline depth 2) behind ``start_serve_server``,
+    in a fresh metrics registry (``MetricsRegistry.reset``: phases 5-10's
+    slowest requests would otherwise be the exemplars the bundle starts
+    from), with the incident engine on the process-wide sampler, whose
+    thread is stopped: the phase sweeps it itself (``sample_once``) on an
+    injected clock. Baseline: 20 sweeps, two binary requests of 64 rows
+    before each; then a ``latency`` fault on the model whose delay is read
+    off the store's baseline p99 (3 x that p99, never below 150 ms), and
+    four requests under it, each held to the native bar. Fails unless
+    exactly the second sweep after the fault opens exactly one incident,
+    ``serve_p99_spike``, kind ``latency``, labelled with the model, and a
+    third sweep dedups into it; its guarded ``torch.profiler`` capture
+    starts, and with two requests served under it ends ``ok`` with at
+    least two GEMM kernels, every kernel on ``cuda:0``, in its trace; the
+    bundle holds ``history.json`` with the implicated series' points, a
+    flight dump, and ``traces.json`` with a trace tree holding a
+    ``serve:`` span seeded from an exemplar, the slowest exemplar an
+    injected request whose trace ``GET /debug/traces?trace_id=``
+    resolves; ``/metrics`` carries
+    ``# exemplar: sparkml_serve_request_latency_seconds`` lines; with the
+    fault cleared, sweeps resolve it within the lookback and
+    ``incident.json`` reads ``resolved``; no thread is named for
+    incidents or anomalies; the phase leaves no hook or dump section
+    behind and launches no hand kernel. Prints the baseline p99 and the
+    delay, the sweeps to open and to resolve, the bundle's file sizes,
+    the capture's device events, the anomaly sweep's cost per sweep beside
+    the sampler's own (host clock) and the phase's seconds.
 
 Then one JSON line ``{"kernels": [...]}``, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.
@@ -2531,6 +2559,359 @@ def phase_tiering(torch, fg, model, device, phase5_rps):
     log(f"  phase 10 {time.perf_counter() - t_phase:.1f} s")
 
 
+# -- phase 11: the auto-incident engine on the card ----------------------------
+
+INC_MODEL = "pca_inc"
+INC_ROWS = 64
+INC_SWEEPS = 20           # baseline sweeps, one per injected second
+INC_PER_SWEEP = 2         # healthy requests per baseline sweep
+INC_SLOW = 4              # requests under the latency fault before its sweeps
+INC_CAPTURED = 2          # requests served under the guarded capture
+INC_MIN_DELAY_S = 0.15
+INC_DELAY_FACTOR = 3.0    # the delay against the store's baseline p99
+INC_CAPTURE_S = 60.0      # the capture's window; the phase ends it early
+INC_RECOVERY_SWEEPS = 70  # ages the jump out of the 60 s lookback
+BUNDLE_FILES = ("incident.json", "history.json", "traces.json",
+                "breakers.json")
+
+
+def inc_predict(conn, body):
+    """(status, seconds, trace id, response bytes) of one binary POST
+    /predict on an open connection."""
+    from spark_rapids_ml_tpu_torch.serve import wire
+
+    t0 = time.perf_counter()
+    conn.request("POST", "/predict", body=body,
+                 headers={"Content-Type": wire.BINARY_CONTENT_TYPE})
+    resp = conn.getresponse()
+    data = resp.read()
+    return (resp.status, time.perf_counter() - t0,
+            resp.getheader("X-Trace-Id"), data)
+
+
+def tree_names(nodes):
+    """Every span name of an assembled trace tree."""
+    names, stack = [], list(nodes)
+    while stack:
+        node = stack.pop()
+        names.append(node["name"])
+        stack.extend(node["children"])
+    return names
+
+
+def phase_incidents(torch, fg, model, device):
+    """Phase 11: fit (c)'s model behind the HTTP server with the
+    auto-incident engine on the process-wide sampler, driven by
+    ``sample_once`` on an injected clock. An injected latency opens one
+    incident with its bundle and a guarded capture of the card, and the
+    incident resolves once the fault clears."""
+    import gc
+    import http.client
+    import shutil
+    import threading
+
+    from spark_rapids_ml_tpu_torch.obs import (
+        accounting,
+        devmon,
+        flight,
+        incidents,
+        profiler,
+        tsdb,
+    )
+    from spark_rapids_ml_tpu_torch.obs.metrics import get_registry
+    from spark_rapids_ml_tpu_torch.serve import (
+        ModelRegistry,
+        ServeEngine,
+        fault_plane,
+        reset_fault_plane,
+        start_serve_server,
+        wire,
+    )
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi_line()
+    rng = np.random.default_rng(SEED + 11)
+    n_requests = INC_SWEEPS * INC_PER_SWEEP + INC_SLOW + INC_CAPTURED
+    rows = [serve_rows(rng, INC_ROWS) for _ in range(n_requests)]
+    refs = [r.astype(np.float64) @ model.pc for r in rows]
+    bodies = [wire.encode_request(INC_MODEL, r) for r in rows]
+    saved = {k: os.environ.pop(k, None)
+             for k in (flight.DUMP_DIR_ENV, profiler.PROFILE_DIR_ENV,
+                       incidents.ENABLED_ENV, incidents.CAPTURE_ENV)}
+    dump_root = tempfile.mkdtemp(prefix="chip_smoke_incidents_")
+    os.environ[flight.DUMP_DIR_ENV] = dump_root
+    os.environ[incidents.CAPTURE_ENV] = str(INC_CAPTURE_S)
+    # A fresh registry, as a freshly started server has: the bundle seeds
+    # its trace trees from the registry's slowest exemplars, and phases
+    # 5-10's slow requests would otherwise be those. Every object that
+    # bound a family of the old registry is dropped with it.
+    get_registry().reset()
+    gc.collect()  # dead engines publish no SLO gauges
+    tsdb.reset_tsdb()
+    devmon.reset_device_monitor()
+    reset_fault_plane()
+    accounting.reset_ledger()
+    incidents.reset_incident_engine()
+    metrics = get_registry()
+    registry = ModelRegistry()
+    registry.register(INC_MODEL, model)
+    engine = ServeEngine(registry, max_batch_rows=SERVE_MAX_ROWS,
+                         pipeline_depth=2, precision="native")
+    server = conn = None
+    sampler = None
+    try:
+        t0 = time.perf_counter()
+        engine.warmup(INC_MODEL)
+        server = start_serve_server(engine, port=0, addr="127.0.0.1")
+        port = server.server_address[1]
+        # own the cadence: the same process-wide sampler, the incident
+        # engine on its post-sweep hook, swept on an injected clock set in
+        # the past, so every point lies inside the windows a flight dump
+        # reads on the wall clock
+        sampler = tsdb.get_sampler()
+        sampler.stop()
+        inc_engine = incidents.get_incident_engine()
+        check(sampler._post_hooks == [inc_engine._post_sweep],
+              f"start_serve_server installed {sampler._post_hooks}")
+        store = tsdb.get_tsdb()
+        overhead = metrics.counter("sparkml_obs_overhead_seconds_total", "",
+                                   ("component",))
+        costs = {"sampler": [], "anomaly": []}
+
+        def sweep(ts):
+            before = {c: overhead.value(component=c) for c in costs}
+            sampler.sample_once(now=ts)
+            for c in costs:
+                costs[c].append(overhead.value(component=c) - before[c])
+
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+        served = []
+
+        def request(i):
+            status, seconds, tid, data = inc_predict(conn, bodies[i])
+            check(status == 200, f"request {i}: HTTP {status} {data[:200]!r}")
+            err = relative_error(wire.decode_response(data), refs[i])
+            check(err <= SERVE_BARS["native"], f"request {i} off by {err:.3e}")
+            served.append((i, seconds, tid))
+            return seconds, tid
+
+        t_base = time.time() - 120.0
+        log(f"  {INC_MODEL}: fit (c)'s model, native, warmed and served in "
+            f"{time.perf_counter() - t0:.2f} s; incident engine installed "
+            f"on the sampler ({len(inc_engine.detectors)} detectors)")
+
+        # -- baseline -----------------------------------------------------
+        i = 0
+        for s in range(INC_SWEEPS):
+            for _ in range(INC_PER_SWEEP):
+                request(i)
+                i += 1
+            sweep(t_base + s)
+        status, doc = http_get(port, "/debug/incidents")
+        check(status == 200 and doc["open"] == [] and doc["sweeps"]
+              == INC_SWEEPS, f"after the baseline: {status} open "
+              f"{doc.get('open')}, sweeps {doc.get('sweeps')}")
+        (p99,) = store.range_query(
+            "sparkml_serve_request_latency_seconds",
+            {"model": INC_MODEL, "quantile": "0.99"}, 60.0,
+            now=t_base + INC_SWEEPS - 1)
+        baseline_p99 = p99["points"][-1][1]
+        delay = max(INC_DELAY_FACTOR * baseline_p99, INC_MIN_DELAY_S)
+        base_lat = [sec for _i, sec, _t in served]
+        log(f"  baseline: {len(served)} binary requests of {INC_ROWS} rows "
+            f"over {INC_SWEEPS} sweeps, client p50 "
+            f"{np.percentile(base_lat, 50) * 1e3:.3f} ms; the store's "
+            f"baseline p99 {baseline_p99 * 1e3:.3f} ms -> injected delay "
+            f"{delay * 1e3:.3f} ms (max({INC_DELAY_FACTOR:g} x p99, "
+            f"{INC_MIN_DELAY_S * 1e3:.0f} ms)) ({smi})")
+
+        # -- the fault ----------------------------------------------------
+        fault_plane().inject(INC_MODEL, "latency", count=None, seconds=delay)
+        slow = [request(i + j) for j in range(INC_SLOW)]
+        i += INC_SLOW
+        injected = metrics.counter("sparkml_serve_faults_injected_total", "",
+                                   ("model", "kind")).value(
+                                       model=INC_MODEL, kind="latency")
+        check(injected == INC_SLOW, f"latency fired {injected} times for "
+              f"{INC_SLOW} requests")
+        check(all(sec >= delay for sec, _t in slow),
+              f"slow requests took {[sec for sec, _t in slow]} s")
+        to_open = 0
+        for s in range(1, 3):
+            sweep(t_base + INC_SWEEPS + s)
+            to_open += 1
+            status, doc = http_get(port, "/debug/incidents")
+            if doc["open"]:
+                break
+        check(to_open == 2 and len(doc["open"]) == 1
+              and doc["opened_total"] == 1,
+              f"{to_open} sweeps after the fault: open {doc['open']}")
+        incident = doc["open"][0]
+        check(incident["detector"] == "serve_p99_spike"
+              and incident["kind"] == "latency"
+              and incident["labels"].get("model") == INC_MODEL
+              and incident["opened_ts"] == t_base + INC_SWEEPS + 2,
+              f"the incident {incident}")
+        log(f"  opened after {to_open} sweeps: {incident['id']} "
+            f"({incident['severity']}), p99 {incident['value'] * 1e3:.3f} ms "
+            f"against {incident['baseline'] * 1e3:.3f} ms; the opening "
+            f"sweep's anomaly cost {costs['anomaly'][-1] * 1e3:.3f} ms "
+            f"(evidence bundle, flight dump and capture start included)")
+        evidence = incident["evidence"]
+        bundle = evidence["dir"]
+        started = evidence.get("profile", {}).get("started")
+        check(started is not None, f"the guarded capture: "
+              f"{evidence.get('profile')}")
+
+        # -- the capture: served GEMMs under it ---------------------------
+        end = time.monotonic() + 120.0
+        while not (profiler.capture_active() or {}).get("torch_trace"):
+            check(time.monotonic() < end and profiler.capture_active(),
+                  f"the incident's capture never ran: "
+                  f"{profiler.last_capture()}")
+            time.sleep(0.001)
+        for j in range(INC_CAPTURED):
+            request(i + j)
+        i += INC_CAPTURED
+        profiler.stop_capture()
+        last = profiler.wait(60.0)
+        check(last is not None and last["id"] == started["id"]
+              and last["torch_outcome"] == "ok",
+              f"the incident's capture ended {last}")
+        with open(profiler.torch_trace_path(last["path"], last["id"])) as f:
+            events = json.load(f)["traceEvents"]
+        dev = device_split(events)
+        devices = sorted({str(e.get("args", {}).get("device"))
+                          for e in events if e.get("cat") == "kernel"})
+        check(dev["gemms"] >= INC_CAPTURED
+              and devices == [str(device.index)],
+              f"the capture's device events: {dev['kernel_names']}, "
+              f"{dev['gemms']} GEMM kernels on devices {devices}")
+        log(f"  guarded capture {last['id']}: torch_outcome ok, "
+            f"{dev['kernels']} kernels ({dev['gemms']} GEMM), "
+            f"{dev['htod']} HtoD, {dev['dtoh']} DtoH on device {devices}, "
+            f"device busy {dev['device_s'] * 1e3:.3f} ms, over "
+            f"{INC_CAPTURED} served requests ({smi})")
+
+        # a third sweep dedups into the same incident
+        sweep(t_base + INC_SWEEPS + 3)
+        status, doc = http_get(port, "/debug/incidents")
+        check(len(doc["open"]) == 1 and doc["opened_total"] == 1
+              and doc["open"][0]["id"] == incident["id"]
+              and doc["open"][0]["updates"] == 1,
+              f"the third sweep: {doc['open']}")
+
+        # -- the bundle ---------------------------------------------------
+        sizes = {name: os.path.getsize(os.path.join(bundle, name))
+                 for name in BUNDLE_FILES
+                 if os.path.isfile(os.path.join(bundle, name))}
+        check(set(sizes) >= {"incident.json", "history.json", "traces.json"},
+              f"bundle files {sorted(sizes)}")
+        with open(os.path.join(bundle, "history.json")) as f:
+            history = json.load(f)
+        implicated = history["implicated"]["series"]
+        check(history["implicated"]["metric"]
+              == "sparkml_serve_request_latency_seconds" and implicated
+              and all(s["points"] for s in implicated),
+              f"history.json's implicated series: {implicated}")
+        dump_path = evidence["flight_dump"]
+        check(dump_path and os.path.isfile(dump_path),
+              f"the incident's flight dump: {dump_path}")
+        sizes[os.path.basename(dump_path)] = os.path.getsize(dump_path)
+        with open(os.path.join(bundle, "traces.json")) as f:
+            traces = json.load(f)
+        check(traces["trees"] and any(
+            n.startswith("serve:") for n in tree_names(
+                traces["trees"][0]["spans"])),
+              f"traces.json trees: {len(traces['trees'])}")
+        exemplar_ids = [e["trace_id"] for e in traces["exemplars"]]
+        slowest = traces["exemplars"][0]
+        check(traces["trees"][0]["trace_id"] in exemplar_ids
+              and slowest["value"] >= delay
+              and slowest["trace_id"] in {t for _s, t in slow},
+              f"traces.json exemplars {traces['exemplars'][:2]}")
+        status, tree = http_get(
+            port, f"/debug/traces?trace_id={slowest['trace_id']}")
+        check(status == 200 and tree["span_count"] >= 1,
+              f"/debug/traces?trace_id={slowest['trace_id']}: {status}")
+        status, text = 0, b""
+        text_conn = http.client.HTTPConnection("127.0.0.1", port,
+                                               timeout=60)
+        try:
+            text_conn.request("GET", "/metrics")
+            resp = text_conn.getresponse()
+            status, text = resp.status, resp.read().decode()
+        finally:
+            text_conn.close()
+        lines = [ln for ln in text.splitlines() if ln.startswith(
+            "# exemplar: sparkml_serve_request_latency_seconds")]
+        check(status == 200 and lines, "no exemplar line in /metrics")
+        log(f"  bundle {os.path.basename(bundle)}: " + ", ".join(
+            f"{name} {size} B" for name, size in sorted(sizes.items()))
+            + f"; {len(traces['trees'])} trace trees from "
+            f"{len(traces['exemplars'])} exemplars, the slowest "
+            f"{slowest['value'] * 1e3:.3f} ms resolving through "
+            f"/debug/traces ({tree['span_count']} spans); /metrics: "
+            f"{lines[0][:100]}")
+
+        # -- recovery -----------------------------------------------------
+        fault_plane().clear()
+        to_resolve = 0
+        for s in range(INC_RECOVERY_SWEEPS):
+            sweep(t_base + INC_SWEEPS + 4 + s)
+            to_resolve += 1
+            if inc_engine.manager.resolved_total:
+                break
+        status, doc = http_get(port, "/debug/incidents")
+        recent = [r for r in doc["recent"] if r["id"] == incident["id"]]
+        check(doc["open"] == [] and doc["resolved_total"] == 1 and recent
+              and recent[0]["state"] == "resolved",
+              f"after {to_resolve} recovery sweeps: open {doc['open']}")
+        with open(os.path.join(bundle, "incident.json")) as f:
+            final = json.load(f)
+        check(final["state"] == "resolved", f"incident.json reads "
+              f"{final['state']}")
+        check(not [t.name for t in threading.enumerate()
+                   if "incident" in t.name.lower()
+                   or "anomaly" in t.name.lower()],
+              "a thread named for incidents or anomalies")
+        ms = {c: np.asarray(v) * 1e3 for c, v in costs.items()}
+        opening = len(costs["anomaly"]) - to_resolve - 2
+        quiet = np.delete(ms["anomaly"], opening)
+        log(f"  resolved after {to_resolve} sweeps with the fault cleared "
+            f"(resolve_after {inc_engine.manager.resolve_after}); "
+            f"incident.json resolved, {final['duration_seconds']:g} s on "
+            f"the injected clock")
+        log(f"  per sweep over {len(ms['anomaly'])} sweeps: anomaly sweep "
+            f"median {np.median(quiet):.4f} ms, max {quiet.max():.4f} ms "
+            f"(the opening sweep {ms['anomaly'][opening]:.3f} ms) beside the "
+            f"sampler's own median {np.median(ms['sampler']):.4f} ms, max "
+            f"{ms['sampler'].max():.4f} ms, at {store.series_count()} series "
+            f"(host clock; {smi})")
+    finally:
+        if conn is not None:
+            conn.close()
+        fault_plane().clear()
+        profiler.wait(60.0)
+        if sampler is not None:
+            incidents.get_incident_engine().uninstall(sampler)
+        incidents.reset_incident_engine()
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+        engine.shutdown()
+        tsdb.reset_tsdb()
+        for key in (flight.DUMP_DIR_ENV, incidents.CAPTURE_ENV):
+            os.environ.pop(key, None)
+        for key, value in saved.items():
+            if value is not None:
+                os.environ[key] = value
+        shutil.rmtree(dump_root, ignore_errors=True)
+    check(sampler._post_hooks == [] and "incidents" not in
+          flight._dump_sections, "the phase left its incident hook behind")
+    log(f"  phase 11 {time.perf_counter() - t_phase:.1f} s")
+
+
 def build_fresh(cuda_build):
     """Build the Gram library anew, so ``ptxas -v`` reports on it."""
     path = cuda_build.library_path("fused_gram")
@@ -2614,6 +2995,14 @@ def main() -> int:
     tiered = dict(fg.launches)
     log(f"  kernel launches in the tiering phase: {tiered}")
     check(sum(tiered.values()) == 0, "the tiering phase launched a kernel")
+
+    log("[11] the auto-incident engine on the card")
+    fg.reset_launches()
+    phase_incidents(torch, fg, model_c, device)
+    incident_launches = dict(fg.launches)
+    log(f"  kernel launches in the incident phase: {incident_launches}")
+    check(sum(incident_launches.values()) == 0,
+          "the incident phase launched a kernel")
 
     kernels = []
     for name, m in measured.items():

@@ -7,8 +7,10 @@ metrics-history store and its sampler (``obs.tsdb``), the per-device
 monitor (``obs.devmon``) over the allocator's memory readings
 (``obs.memory``), structured JSON logging (``obs.logging``), the flight
 recorder and its watchdog (``obs.flight``), on-demand ``torch.profiler``
-captures (``obs.profiler``) and the retention sweeper for their on-disk
-artifacts (``obs.retention``)."""
+captures (``obs.profiler``), the retention sweeper for their on-disk
+artifacts (``obs.retention``), and the auto-incident engine: robust
+statistics (``obs.robust``), online detectors (``obs.anomaly``) and the
+incident lifecycle with its evidence bundles (``obs.incidents``)."""
 
 from spark_rapids_ml_tpu_torch.obs.metrics import get_registry  # noqa: F401
 from spark_rapids_ml_tpu_torch.obs.memory import (  # noqa: F401
@@ -54,6 +56,21 @@ from spark_rapids_ml_tpu_torch.obs.logging import (  # noqa: F401
     StructuredLogger,
     get_logger,
 )
+from spark_rapids_ml_tpu_torch.obs.anomaly import (  # noqa: F401
+    Detector,
+    Finding,
+    MadSpikeDetector,
+    RateOfChangeDetector,
+    ThresholdDetector,
+    builtin_detectors,
+)
+from spark_rapids_ml_tpu_torch.obs.incidents import (  # noqa: F401
+    Incident,
+    IncidentEngine,
+    IncidentManager,
+    get_incident_engine,
+    reset_incident_engine,
+)
 from spark_rapids_ml_tpu_torch.obs import retention  # noqa: F401
 from spark_rapids_ml_tpu_torch.obs.tsdb import (  # noqa: F401
     MetricsSampler,
@@ -86,9 +103,16 @@ from spark_rapids_ml_tpu_torch.obs.tracectx import (  # noqa: F401
 __all__ = [
     "BURN_POLICIES",
     "DUMP_DIR_ENV",
+    "Detector",
     "DeviceMonitor",
     "FIT_BUDGET_ENV",
+    "Finding",
+    "Incident",
+    "IncidentEngine",
+    "IncidentManager",
+    "MadSpikeDetector",
     "MetricsSampler",
+    "RateOfChangeDetector",
     "SLO",
     "SloSet",
     "SpanEvent",
@@ -96,6 +120,7 @@ __all__ = [
     "StructuredLogger",
     "TRACEPARENT_HEADER",
     "TRANSFORM_BUDGET_ENV",
+    "ThresholdDetector",
     "TimeSeriesStore",
     "TraceContext",
     "Watchdog",
@@ -104,6 +129,7 @@ __all__ = [
     "active_spans",
     "assemble_trace",
     "build_dump",
+    "builtin_detectors",
     "capture",
     "current_context",
     "current_span_id",
@@ -116,6 +142,7 @@ __all__ = [
     "ensure_context",
     "flight",
     "get_device_monitor",
+    "get_incident_engine",
     "get_logger",
     "get_recorder",
     "get_registry",
@@ -134,6 +161,7 @@ __all__ = [
     "profiler",
     "recent_traces",
     "record_event",
+    "reset_incident_engine",
     "retention",
     "severity_for_burn",
     "span",

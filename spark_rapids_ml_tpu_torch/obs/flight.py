@@ -128,9 +128,9 @@ def unregister_dump_section(name: str) -> None:
 
 def run_dump_section(name: str):
     """Evaluate ONE registered section outside a full dump (None when
-    unregistered or the section raised). The JAX package's incident
-    engine uses this to put breaker state into an evidence bundle
-    without an obs → serve import; the port's comes with its own."""
+    unregistered or the section raised). The incident engine
+    (``obs.incidents``) uses this to put breaker state into an evidence
+    bundle without an obs → serve import."""
     with _dump_sections_lock:
         fn = _dump_sections.get(name)
     if fn is None:

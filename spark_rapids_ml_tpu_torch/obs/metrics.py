@@ -5,8 +5,9 @@ serving engine's ``sparkml_serve_*`` families and the per-batch
 ``sparkml_transform_latency_seconds`` summary, exposed as Prometheus text
 (``GET /metrics``) or a JSON-safe snapshot. Labels are kwargs at
 observation time; each label set is its own child series, as in
-Prometheus' data model. Stdlib only; imports nothing of the port but
-``obs/quantiles.py``.
+Prometheus' data model. A summary keeps the slowest observations' trace
+ids as exemplars, which the incident engine's evidence bundles start
+from. Stdlib only; imports nothing of the port but ``obs/quantiles.py``.
 """
 
 from __future__ import annotations
@@ -14,7 +15,8 @@ from __future__ import annotations
 import math
 import re
 import threading
-from typing import Dict, Iterable, Tuple
+import time
+from typing import Dict, Iterable, List, Optional, Tuple
 
 from spark_rapids_ml_tpu_torch.obs.quantiles import QuantileSketch
 
@@ -145,10 +147,29 @@ class Summary(_Metric):
     """Quantile summary backed by a mergeable streaming sketch
     (``obs.quantiles.QuantileSketch``): ``observe`` is O(1),
     ``quantile(q)`` within the sketch's relative error. Exposed as
-    ``name{quantile="0.5"}`` lines plus ``_sum`` / ``_count``."""
+    ``name{quantile="0.5"}`` lines plus ``_sum`` / ``_count``.
+
+    ``observe(value, trace_id=...)`` also files a **trace-id exemplar**:
+    each child keeps the ``EXEMPLAR_CAPACITY`` slowest observations with
+    their trace ids, so "the p99 got worse" comes with the requests to
+    look at. They appear in ``snapshot()`` and as ``# exemplar:
+    <name>{labels} trace_id="..."`` comment lines in the text exposition
+    (comments, because the endpoint advertises text format 0.0.4, whose
+    parsers would abort a scrape on an inline OpenMetrics exemplar)."""
 
     kind = "summary"
     DEFAULT_QUANTILES: Tuple[float, ...] = (0.5, 0.95, 0.99)
+    EXEMPLAR_CAPACITY = 5
+
+    class _Child:
+        __slots__ = ("sketch", "exemplars", "lock")
+
+        def __init__(self, alpha: float, max_bins: int):
+            self.sketch = QuantileSketch(alpha=alpha, max_bins=max_bins)
+            # slowest-N ring: [(value, trace_id, unix_ts)] kept sorted
+            # ascending, so [0] is the cheapest candidate to evict
+            self.exemplars: List[Tuple[float, str, float]] = []
+            self.lock = threading.Lock()
 
     def __init__(
         self,
@@ -165,17 +186,42 @@ class Summary(_Metric):
         self.quantiles = tuple(float(q) for q in quantiles)
 
     def _new_child(self):
-        return QuantileSketch(alpha=self.alpha, max_bins=self.max_bins)
+        return Summary._Child(self.alpha, self.max_bins)
 
-    def observe(self, value: float, **labels) -> None:
-        self._child(labels).observe(value)
+    def observe(self, value: float, trace_id: Optional[str] = None,
+                **labels) -> None:
+        child = self._child(labels)
+        child.sketch.observe(value)
+        if trace_id:
+            self._note_exemplar(child, float(value), str(trace_id))
+
+    def _note_exemplar(self, child: "Summary._Child", value: float,
+                       trace_id: str) -> None:
+        with child.lock:
+            ring = child.exemplars
+            if len(ring) >= self.EXEMPLAR_CAPACITY and value <= ring[0][0]:
+                return  # faster than every kept exemplar
+            ring.append((value, trace_id, time.time()))
+            ring.sort(key=lambda e: e[0])
+            if len(ring) > self.EXEMPLAR_CAPACITY:
+                del ring[0]
+
+    def exemplars(self, **labels) -> List[Dict[str, object]]:
+        """The slowest-N exemplars for one label set, slowest first."""
+        child = self._child(labels)
+        with child.lock:
+            ring = list(child.exemplars)
+        return [
+            {"value": v, "trace_id": tid, "unix_ts": ts}
+            for v, tid, ts in reversed(ring)
+        ]
 
     def sketch(self, **labels) -> QuantileSketch:
         """The underlying sketch for one label set."""
-        return self._child(labels)
+        return self._child(labels).sketch
 
     def snapshot_child(self, **labels) -> Dict[str, object]:
-        sketch = self._child(labels)
+        sketch = self._child(labels).sketch
         return {
             "count": sketch.count,
             "sum": sketch.sum,
@@ -183,6 +229,7 @@ class Summary(_Metric):
             "quantiles": {
                 _format_value(q): sketch.quantile(q) for q in self.quantiles
             },
+            "exemplars": self.exemplars(**labels),
         }
 
 
@@ -230,6 +277,11 @@ class MetricsRegistry:
             max_bins=max_bins, quantiles=quantiles,
         )
 
+    def reset(self) -> None:
+        """Drop every family (a fresh process's registry: tests, drills)."""
+        with self._lock:
+            self._metrics.clear()
+
     def families(self):
         with self._lock:
             return list(self._metrics.values())
@@ -270,13 +322,25 @@ class MetricsRegistry:
                 suffix = f"{{{label_str}}}" if label_str else ""
                 if isinstance(metric, Summary):
                     snap = metric.snapshot_child(**labels)
+                    emitted = []
                     for q, value in snap["quantiles"].items():
                         if value is None:
                             continue
                         ql = (label_str + "," if label_str else "") + \
                             f'quantile="{q}"'
-                        lines.append(
+                        emitted.append(
                             f"{metric.name}{{{ql}}} {_format_value(value)}")
+                    lines.extend(emitted)
+                    exemplars = snap["exemplars"]
+                    if emitted and exemplars:
+                        # the slowest observation's trace id, as a comment
+                        # line: 0.0.4 parsers pass comments untouched
+                        ex = exemplars[0]
+                        lines.append(
+                            f"# exemplar: {metric.name}{suffix} "
+                            f'trace_id="{_escape_label_value(ex["trace_id"])}" '
+                            f'{_format_value(ex["value"])} '
+                            f'{ex["unix_ts"]:.3f}')
                     lines.append(f"{metric.name}_sum{suffix} "
                                  f"{_format_value(snap['sum'])}")
                     lines.append(f"{metric.name}_count{suffix} "

@@ -1,13 +1,12 @@
 """Retention sweeper for on-disk observability artifacts.
 
-The port's copy of the JAX package's ``obs/retention.py``. Two writers
+The port's copy of the JAX package's ``obs/retention.py``. Three writers
 land artifacts under ``SPARK_RAPIDS_ML_TORCH_DUMP_DIR``: flight dumps
-(``flightdump_*.json`` files) and profile captures (``profiles/<id>/``
+(``flightdump_*.json`` files), profile captures (``profiles/<id>/``
+directories) and incident evidence bundles (``incidents/<id>/``
 directories). Unswept they accumulate unboundedly — an incident storm
 (the exact situation that produces the most artifacts) could fill the
-disk and take the serving tier down with its own diagnostics. The JAX
-package's third kind, ``incident`` evidence bundles, comes with the
-port's incident engine.
+disk and take the serving tier down with its own diagnostics.
 
 ``maybe_gc(kind)`` is the shared hook every writer calls after landing
 an artifact: per artifact kind it enforces a **count cap** and a **byte
@@ -37,9 +36,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 MAX_COUNT_ENV = "SPARK_RAPIDS_ML_TORCH_OBS_ARTIFACT_MAX_COUNT"
 MAX_MB_ENV = "SPARK_RAPIDS_ML_TORCH_OBS_ARTIFACT_MAX_MB"
-# the artifact kinds this process writes (the JAX package's "incident"
-# kind comes with the incident engine)
-KINDS = ("flight", "profile")
+KINDS = ("flight", "profile", "incident")
 
 _DEFAULT_MAX_COUNT = 200
 _DEFAULT_MAX_MB = 512.0
@@ -68,8 +65,9 @@ def max_bytes() -> float:
 
 def _kind_root(kind: str) -> Tuple[Optional[str], bool]:
     """(root directory, entries-are-directories) for one artifact
-    kind. Function-level imports: flight/profiler both call into this
-    module, and a module-level import back at them would cycle."""
+    kind. Function-level imports: flight/profiler/incidents all call
+    into this module, and a module-level import back at them would
+    cycle."""
     if kind == "flight":
         from spark_rapids_ml_tpu_torch.obs import flight
 
@@ -78,6 +76,10 @@ def _kind_root(kind: str) -> Tuple[Optional[str], bool]:
         from spark_rapids_ml_tpu_torch.obs import profiler
 
         return profiler.profile_dir(), True
+    if kind == "incident":
+        from spark_rapids_ml_tpu_torch.obs import incidents
+
+        return incidents.incidents_dir(), True
     return None, False
 
 

@@ -549,7 +549,7 @@ class MetricsSampler:
                                   kind=family.kind, now=ts)
                 recorded += 1
             elif isinstance(family, metrics_mod.Summary):
-                sketch = child  # the port's Summary child is its sketch
+                sketch = child.sketch
                 for q in family.quantiles:
                     value = sketch.quantile(q)
                     if value is None:

@@ -942,9 +942,11 @@ class MicroBatcher:
             # measured as the request leaves the queue for a batch (the
             # pipelined overlap included), where the JAX package takes
             # it, so the shed thresholds mean the same in both
+            tid = req.trace_ctx.trace_id if req.trace_ctx else None
             wait = now - req.enqueued
             self._note_queue_wait(wait)
-            self._m_stage.observe(wait, model=self.name, stage="queue")
+            self._m_stage.observe(wait, trace_id=tid, model=self.name,
+                                  stage="queue")
             self._record_queue_span(req)
         # the fan-in edge: the coalesced dispatch runs in its own batch
         # trace whose links name every member request's trace
@@ -1140,11 +1142,15 @@ class MicroBatcher:
         self._m_bucket_rows.inc(bucket, model=self.name)
         self._m_coalesced.inc(len(entry.batch), model=self.name)
         stage = self._m_stage
+        tid = entry.ctx.trace_id
         stage.observe(entry.stage_seconds + entry.dispatch_seconds
-                      + entry.sync_seconds, model=self.name, stage="execute")
-        stage.observe(entry.stage_seconds, model=self.name, stage="stage")
-        stage.observe(entry.dispatch_seconds, model=self.name,
+                      + entry.sync_seconds, trace_id=tid, model=self.name,
+                      stage="execute")
+        stage.observe(entry.stage_seconds, trace_id=tid, model=self.name,
+                      stage="stage")
+        stage.observe(entry.dispatch_seconds, trace_id=tid, model=self.name,
                       stage="dispatch")
-        stage.observe(entry.sync_seconds, model=self.name, stage="sync")
+        stage.observe(entry.sync_seconds, trace_id=tid, model=self.name,
+                      stage="sync")
         if entry.record is not None:
             entry.record.finish(rows=entry.n)

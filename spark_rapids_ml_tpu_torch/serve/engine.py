@@ -483,7 +483,8 @@ class ServeEngine:
             entry.name, entry.version, tenant_id,
             self.admission.resolve_priority(priority),
             _rows_estimate(rows), "ok")
-        self._m_latency.observe(elapsed, model=entry.name)
+        self._m_latency.observe(elapsed, trace_id=ctx.trace_id,
+                                model=entry.name)
         return PredictResult(outputs=out, model=entry.name,
                              version=entry.version, degraded=degraded,
                              retries=retries, trace_id=ctx.trace_id)

@@ -23,12 +23,14 @@ Fault kinds:
   (classified as a backend fault by the engine → breaker food);
 * ``nan``     — the transform "succeeds" but its output is corrupted
   with NaNs (the silent poison the NaN guard exists for);
+* ``latency`` — the call completes but ``seconds`` (default 0.05)
+  slower: SLO latency-burn and incident-drill food;
 * ``crash_worker`` — the batcher's worker thread dies
   (``InjectedWorkerCrash``, a ``BaseException`` so nothing on the batch
   path accidentally swallows it) — exercises worker supervision.
 
 Injection sites: the engine consults ``begin_call(model)`` around every
-coalesced transform (raise/nan), the batcher consults
+coalesced transform (raise/nan/latency), the batcher consults
 ``worker_fault(model)`` in its worker loop (crash_worker). Every fired
 fault counts in ``sparkml_serve_faults_injected_total{model,kind}``.
 """
@@ -36,15 +38,18 @@ fault counts in ``sparkml_serve_faults_injected_total{model,kind}``.
 from __future__ import annotations
 
 import threading
+import time
 from typing import Any, Dict, List, Optional
 
 from spark_rapids_ml_tpu_torch.obs.metrics import get_registry
 
-KINDS = ("raise", "nan", "crash_worker")
+KINDS = ("raise", "nan", "latency", "crash_worker")
 
 # Transform-site kinds vs worker-loop kinds: one call index per site so
 # "fail call 3" means the 3rd *transform*, not the 3rd loop iteration.
-_TRANSFORM_KINDS = frozenset({"raise", "nan"})
+_TRANSFORM_KINDS = frozenset({"raise", "nan", "latency"})
+
+_DEFAULT_SECONDS = {"latency": 0.05}
 
 
 class InjectedBackendError(RuntimeError):
@@ -59,19 +64,22 @@ class InjectedWorkerCrash(BaseException):
 
 
 class FaultSpec:
-    """One armed fault: which model, what kind, from which call index and
-    how many times."""
+    """One armed fault: which model, what kind, from which call index, how
+    many times, and (``latency``) how many seconds it adds."""
 
-    __slots__ = ("model", "kind", "count", "start", "fired")
+    __slots__ = ("model", "kind", "count", "start", "seconds", "fired")
 
     def __init__(self, model: str = "*", kind: str = "raise", *,
-                 count: Optional[int] = 1, start: int = 0):
+                 count: Optional[int] = 1, start: int = 0,
+                 seconds: Optional[float] = None):
         if kind not in KINDS:
             raise ValueError(f"unknown fault kind {kind!r} (one of {KINDS})")
         self.model = model
         self.kind = kind
         self.count = None if count is None else int(count)
         self.start = int(start)
+        self.seconds = (float(seconds) if seconds is not None
+                        else _DEFAULT_SECONDS.get(kind, 0.0))
         self.fired = 0
 
     def matches(self, model: str, index: int) -> bool:
@@ -85,6 +93,7 @@ class FaultSpec:
             "kind": self.kind,
             "count": self.count,
             "start": self.start,
+            "seconds": self.seconds,
             "fired": self.fired,
         }
 
@@ -109,10 +118,12 @@ class FaultPlane:
     # -- arming ------------------------------------------------------------
 
     def inject(self, model: str = "*", kind: str = "raise", *,
-               count: Optional[int] = 1, start: int = 0) -> FaultSpec:
+               count: Optional[int] = 1, start: int = 0,
+               seconds: Optional[float] = None) -> FaultSpec:
         """Arm one fault; returns the live spec (its ``fired`` counter
         updates as the fault fires)."""
-        spec = FaultSpec(model, kind, count=count, start=start)
+        spec = FaultSpec(model, kind, count=count, start=start,
+                         seconds=seconds)
         with self._lock:
             self._specs.append(spec)
         return spec
@@ -166,6 +177,8 @@ def apply_pre(spec: FaultSpec) -> None:
             f"injected backend fault on {spec.model!r} "
             f"(fired {spec.fired}/{spec.count or 'inf'})"
         )
+    if spec.kind == "latency":
+        time.sleep(spec.seconds)
 
 
 def corrupt(spec: FaultSpec, out):

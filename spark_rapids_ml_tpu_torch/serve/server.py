@@ -63,20 +63,25 @@ generators, probes) without a web framework.
   single-flight ``torch.profiler`` capture (``obs.profiler``; the body,
   if any, is drained): **200** ``{"started": info}``, **409** with the
   ``active`` capture while one runs, **500** with the error (no card and
-  no CPU request, an unwritable directory).
+  no CPU request, an unwritable directory);
+* ``GET /debug/incidents`` — the auto-incident engine's snapshot
+  (``obs.incidents``): open incidents newest first, recently resolved
+  ones, the lifecycle totals and knobs, the evidence root, the detector
+  sweeps and the detector catalog.
 
 ``start_serve_server`` starts the history sampler (``obs.tsdb``, with the
 device monitor ``obs.devmon`` as a collector) and registers the engine's
 SLO and queue-wait publishers and the cost ledger's ``publish`` on it, so
 the ``/debug/history`` series move every sweep whether or not anyone
-polls. Handler threads only decode, enqueue and wait: device work
+polls; unless ``SPARK_RAPIDS_ML_TORCH_OBS_INCIDENTS=0`` it installs the
+incident engine on the sampler's post-sweep hook, after those
+collectors, so the detectors read the sweep's live gauges. Handler threads only decode, enqueue and wait: device work
 happens on the batchers' worker threads — except a COLD model's first
 hit, whose handler runs the reactivation (``serve.tiering``) before it
 enqueues — so ``/metrics``, ``/healthz`` and ``/debug/*`` never touch
 the card (the device monitor reads the allocator's host-side counters; a
 profile capture runs on helper threads of its own). The JAX package's
-``/debug/incidents`` and the other tiers' routes, and its dashboard, are
-not ported yet.
+other tiers' routes, and its dashboard, are not ported yet.
 """
 
 from __future__ import annotations
@@ -92,6 +97,7 @@ from typing import Optional
 import numpy as np
 
 from spark_rapids_ml_tpu_torch.obs import accounting as accounting_mod
+from spark_rapids_ml_tpu_torch.obs import incidents as incidents_mod
 from spark_rapids_ml_tpu_torch.obs import profiler as profiler_mod
 from spark_rapids_ml_tpu_torch.obs import spans as spans_mod
 from spark_rapids_ml_tpu_torch.obs import tracectx
@@ -344,6 +350,9 @@ def make_handler(engine: ServeEngine):
                     "last": profiler_mod.last_capture(),
                     "dir": profiler_mod.profile_dir(),
                 })
+            elif path == "/debug/incidents":
+                status = self._reply(
+                    200, incidents_mod.get_incident_engine().snapshot())
             elif path == "/debug/tiering":
                 status = self._reply(200, engine.tiering_snapshot())
             elif path == "/debug/costs":
@@ -401,8 +410,10 @@ def make_handler(engine: ServeEngine):
                 "serve:http:predict", trace_id=ctx.trace_id,
             ):
                 status = self._handle_predict(ctx)
-            m_http_latency.observe(time.perf_counter() - t0, path=path,
-                                   status=str(status))
+            m_http_latency.observe(
+                time.perf_counter() - t0, trace_id=ctx.trace_id,
+                path=path, status=str(status),
+            )
             m_http_requests.inc(path=path, status=str(status))
 
         def _handle_profile(self, parsed) -> int:
@@ -570,13 +581,18 @@ def start_serve_server(
     outlives the server: ``tsdb.stop_sampling`` stops it) with the device
     monitor, every live engine's SLO gauges, the cost ledger's gauges and
     this engine's queue-wait estimate as collectors, so
-    ``/debug/history`` has data."""
+    ``/debug/history`` has data, and — unless
+    ``SPARK_RAPIDS_ML_TORCH_OBS_INCIDENTS=0`` — installs the auto-incident
+    engine on it: detectors run at the sampling cadence on the sampler's
+    own thread, after the collectors republished the gauges they read."""
     sampler = tsdb_mod.start_sampling()
     sampler.register_collector(publish_all_slos)
     # the cost ledger's time-derived gauges (last-hit age, EWMA rps)
     # refresh every sweep, so the per-model series get history even
     # when nobody polls /debug/costs
     sampler.register_collector(accounting_mod.get_ledger().publish)
+    if incidents_mod.enabled():
+        incidents_mod.get_incident_engine().install(sampler)
     reg = get_registry()
     g_queue_wait = reg.gauge(
         QUEUE_WAIT_SERIES,

@@ -691,3 +691,126 @@ def test_cuda_capture_is_never_ok_without_a_device_event(capture_dir,
     seen = any(e.get("cat") in profiler.DEVICE_CATEGORIES for e in events)
     assert result["torch_outcome"] == ("ok" if seen else "torch_unavailable")
     assert result["torch_outcome"] != "ok" or seen
+
+
+# -- the auto-incident engine on the card ---------------------------------------
+
+
+def test_latency_incident_on_the_card_opens_one_and_resolves(capture_dir,
+                                                             tmp_path,
+                                                             monkeypatch):
+    """A served model on the card, the incident engine on the sampler,
+    swept on an injected clock: a latency fault sized off the store's own
+    baseline p99 opens exactly one ``serve_p99_spike`` incident two sweeps
+    later; its guarded capture, with requests served under it, holds the
+    card's GEMM kernels; and the incident resolves once the fault clears.
+    The drill's registry is its own: the bundle starts from the registry's
+    slowest exemplars."""
+    import http.client
+    import json
+
+    from spark_rapids_ml_tpu_torch.obs import (
+        accounting,
+        devmon,
+        flight,
+        incidents,
+        metrics,
+        tsdb,
+    )
+    from spark_rapids_ml_tpu_torch.serve import (
+        ModelRegistry,
+        ServeEngine,
+        fault_plane,
+        reset_fault_plane,
+        start_serve_server,
+        wire,
+    )
+
+    profiler = capture_dir
+    monkeypatch.setenv(flight.DUMP_DIR_ENV, str(tmp_path / "dumps"))
+    monkeypatch.setenv(incidents.CAPTURE_ENV, "60")
+    monkeypatch.delenv(incidents.ENABLED_ENV, raising=False)
+    monkeypatch.setattr(metrics, "_default_registry",
+                        metrics.MetricsRegistry())
+
+    def fresh():
+        tsdb.reset_tsdb()
+        devmon.reset_device_monitor()
+        reset_fault_plane()
+        accounting.reset_ledger()
+        incidents.reset_incident_engine()
+
+    fresh()
+    model = _serving_model(512, 32)
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(64, 512)).astype(np.float32)
+    ref = x.astype(np.float64) @ model.pc
+    registry = ModelRegistry()
+    registry.register("gpu_inc", model)
+    engine = ServeEngine(registry, max_batch_rows=64, max_wait_ms=1.0)
+    engine.warmup("gpu_inc")
+    server = start_serve_server(engine, port=0)
+    conn = http.client.HTTPConnection("127.0.0.1", server.server_address[1],
+                                      timeout=120)
+
+    def predict():
+        conn.request("POST", "/predict", body=wire.encode_request(
+            "gpu_inc", x), headers={"Content-Type": wire.BINARY_CONTENT_TYPE})
+        resp = conn.getresponse()
+        out = wire.decode_response(resp.read())
+        assert resp.status == 200
+        assert np.abs(out - ref).max() <= 1e-5 * np.abs(ref).max()
+
+    try:
+        sampler = tsdb.get_sampler()
+        sampler.stop()
+        engine_ = incidents.get_incident_engine()
+        store = tsdb.get_tsdb()
+        t_base = time.time() - 120.0
+        for s in range(20):
+            predict()
+            predict()
+            sampler.sample_once(now=t_base + s)
+        (p99,) = store.range_query(
+            "sparkml_serve_request_latency_seconds",
+            {"model": "gpu_inc", "quantile": "0.99"}, 60.0, now=t_base + 19)
+        delay = max(3.0 * p99["points"][-1][1], 0.15)
+        fault_plane().inject("gpu_inc", "latency", count=None, seconds=delay)
+        for _ in range(4):
+            predict()
+        sampler.sample_once(now=t_base + 21)
+        assert engine_.snapshot()["open"] == []
+        sampler.sample_once(now=t_base + 22)
+        (incident,) = engine_.snapshot()["open"]
+        assert incident["detector"] == "serve_p99_spike"
+        assert incident["labels"]["model"] == "gpu_inc"
+        started = incident["evidence"]["profile"]["started"]
+        assert _started(profiler)
+        predict()
+        predict()
+        profiler.stop_capture()
+        result = profiler.wait(60.0)
+        assert result["id"] == started["id"]
+        assert result["torch_outcome"] == "ok"
+        events = _torch_trace(profiler, result)
+        gemms = [e for e in events if e.get("cat") == "kernel"
+                 and "gemm" in e["name"].lower()]
+        assert len(gemms) >= 2, sorted({e["name"][:50] for e in events
+                                        if e.get("cat") == "kernel"})
+        fault_plane().clear()
+        for s in range(70):
+            sampler.sample_once(now=t_base + 23 + s)
+        snap = engine_.snapshot()
+        assert snap["open"] == [] and snap["resolved_total"] == 1
+        assert snap["opened_total"] == 1
+        bundle = incident["evidence"]["dir"]
+        with open(os.path.join(bundle, "incident.json")) as f:
+            assert json.load(f)["state"] == "resolved"
+    finally:
+        conn.close()
+        fault_plane().clear()
+        server.shutdown()
+        server.server_close()
+        engine.shutdown()
+        flight.unregister_dump_section("metrics_history")
+        fresh()

@@ -39,7 +39,8 @@ def _is_forbidden(module: str) -> bool:
 # and that the port must still not import from there
 STANDALONE = ("obs.tracectx", "obs.spans", "obs.slo", "obs.tsdb",
               "obs.logging", "obs.retention", "obs.flight", "obs.profiler",
-              "obs.accounting", "serve.admission", "serve.scheduler",
+              "obs.accounting", "obs.robust", "obs.anomaly",
+              "obs.incidents", "serve.admission", "serve.scheduler",
               "serve.wire", "serve.breaker", "serve.tiering")
 
 

@@ -323,10 +323,12 @@ def test_retention_kinds_root_under_the_dump_dir(tmp_path, monkeypatch):
     assert retention._kind_root("flight") == (str(tmp_path), False)
     assert retention._kind_root("profile") == (
         os.path.join(str(tmp_path), "profiles"), True)
-    assert retention._kind_root("incident") == (None, False)
-    assert retention.KINDS == ("flight", "profile")
+    assert retention._kind_root("incident") == (
+        os.path.join(str(tmp_path), "incidents"), True)
+    assert retention.KINDS == ("flight", "profile", "incident")
     monkeypatch.setattr(retention, "_last_sweep", {})
-    assert retention.gc_all(force=True) == {"flight": 0, "profile": 0}
+    assert retention.gc_all(force=True) == {
+        "flight": 0, "profile": 0, "incident": 0}
 
 
 def _tree(root, dirs, sizes):
