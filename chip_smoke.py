@@ -224,6 +224,31 @@ Phases (any failure raises and the script exits non-zero):
     delay, the sweeps to open and to resolve, the bundle's file sizes,
     the capture's device events, the anomaly sweep's cost per sweep beside
     the sampler's own (host clock) and the phase's seconds.
+12. Fit and transform reports, and the dashboard. Fit (c)'s
+    ``fit_report_`` (made in phase 4) must read platform ``cuda``, the
+    card count, ``healthy``, a ``cuda``-sourced allocator watermark of
+    at least its float32 input's 536,870,912 B, and phases equal to
+    ``fit_timings_``'s plus ``total``; a 4096-row ``transform`` of its
+    model must report ``device_put`` / ``compute`` / ``host_sync``, 4096
+    rows and a numerics verdict over 4096 rows with no NaN or Inf row.
+    Then phase 5's 256 binary requests, native, from 8 clients over HTTP:
+    each batch must add exactly one ``sparkml_transforms_total``, one
+    ``sparkml_numerics_checks_total``, one ``sparkml_transform_seconds``
+    observation and one ``transform:pca`` span, and ``/metrics`` must hold
+    the ``# exemplar:`` line of ``sparkml_transform_latency_seconds`` with
+    quantile labels exactly 0.5, 0.95 and 0.99. A ``nan`` fault on two
+    calls: four requests, the first answered 200 after two retries, the
+    rest without, none degraded, every answer within the native bar; two
+    ``NumericsError`` transform errors, no numerics anomaly and one check
+    per batch (the NaN guard fails a corrupted batch before the sentinel
+    sees it), as ``tests/test_torch_serve_records.py`` fixes for both
+    packages. ``GET /dashboard`` must answer 200 ``text/html`` holding
+    the page's markers, every URL it fetches that the port serves (and
+    ``/debug/costs``) 200, ``/debug/fit`` and ``/debug/fleet`` 404; no
+    hand kernel launches. Prints the reports' phases (host clock), the
+    watermark and the sentinel's host cost (median of 200 calls on a
+    1024 x 256 float64 output) beside the median batch wall, each with
+    the card's name and power limit.
 
 Then one JSON line ``{"kernels": [...]}``, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.
@@ -1698,17 +1723,23 @@ DEBUG_SLO_SECTIONS = {"slos", "alerts", "queue_depth", "models", "closed",
 DEBUG_UNPORTED = {"replicas", "rollout", "autoscale"}
 
 
-def http_get(port, path):
-    """(status, decoded JSON) of one GET."""
+def http_get_raw(port, path):
+    """(status, content type, body bytes) of one GET."""
     import http.client
 
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
     try:
         conn.request("GET", path)
         resp = conn.getresponse()
-        return resp.status, json.loads(resp.read())
+        return resp.status, resp.getheader("Content-Type"), resp.read()
     finally:
         conn.close()
+
+
+def http_get(port, path):
+    """(status, decoded JSON) of one GET."""
+    status, _, body = http_get_raw(port, path)
+    return status, json.loads(body)
 
 
 def wait_sweeps(sampler, n, timeout=30.0):
@@ -2912,6 +2943,241 @@ def phase_incidents(torch, fg, model, device):
     log(f"  phase 11 {time.perf_counter() - t_phase:.1f} s")
 
 
+# -- phase 12: fit and transform reports, the dashboard ----------------------
+
+FIT_C_BYTES = (CHUNK_ROWS // 2) * N_FEATURES * 4  # fit (c)'s float32 input
+REPORT_TRANSFORM_ROWS = 4096
+NAN_REQUESTS = 4          # requests after a nan fault on NAN_FAULTS calls
+NAN_FAULTS = 2            # below the engine's default retries (2): answered
+SENTINEL_CALLS = 200
+LATENCY_QUANTILE_LABELS = ["0.5", "0.95", "0.99"]
+DASHBOARD_SERVED = ("/debug/slo", "/healthz", "/debug/history",
+                    "/debug/incidents", "/debug/traces?limit=10",
+                    "/debug/costs")
+DASHBOARD_NOT_YET = ("/debug/fit", "/debug/fleet")
+
+
+def record_counters(metrics) -> dict:
+    """The transform record's counters for algo pca, and the batches."""
+    snap = metrics.snapshot()
+
+    def count(name, **match):
+        family = snap.get(name, {"samples": []})
+        return sum(s.get("value", s.get("count", 0))
+                   for s in family["samples"]
+                   if all(s["labels"].get(k) == v for k, v in match.items()))
+
+    return {
+        "transforms": count("sparkml_transforms_total", algo="pca"),
+        "checks": count("sparkml_numerics_checks_total", algo="pca"),
+        "seconds_count": count("sparkml_transform_seconds", algo="pca"),
+        "anomalies": count("sparkml_numerics_anomalies_total", algo="pca"),
+        "numerics_errors": count("sparkml_transform_errors_total",
+                                 algo="pca", error="NumericsError"),
+        "batches": count("sparkml_serve_batches_total", model="pca"),
+        "retries": count("sparkml_serve_retries_total", model="pca"),
+        "degraded": count("sparkml_serve_degraded_total", model="pca"),
+    }
+
+
+def phase_reports(torch, model, device):
+    """Phase 12: fit (c)'s report, a transform's report, the served
+    batches' records over HTTP, a nan fault, and the dashboard."""
+    import http.client
+
+    from spark_rapids_ml_tpu_torch.obs import spans, tsdb
+    from spark_rapids_ml_tpu_torch.obs.metrics import get_registry
+    from spark_rapids_ml_tpu_torch.obs.serving import check_output_numerics
+    from spark_rapids_ml_tpu_torch.serve import (
+        ModelRegistry,
+        fault_plane,
+        reset_fault_plane,
+        start_serve_server,
+        wire,
+    )
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi_line()
+
+    # -- fit (c)'s report -------------------------------------------------
+    rep = model.fit_report_
+    check(rep.device_platform == "cuda"
+          and rep.device_count == torch.cuda.device_count()
+          and rep.healthy is True,
+          f"fit (c): platform {rep.device_platform}, devices "
+          f"{rep.device_count}, healthy {rep.healthy} ({rep.health})")
+    check(rep.memory["source"] == "cuda",
+          f"fit (c): memory source {rep.memory['source']}")
+    check(rep.peak_device_bytes >= FIT_C_BYTES,
+          f"fit (c): peak {rep.peak_device_bytes} B below its input's "
+          f"{FIT_C_BYTES} B")
+    check(set(rep.phases) == set(model.fit_timings_) | {"total"},
+          f"fit (c): phases {sorted(rep.phases)} against fit_timings_ "
+          f"{sorted(model.fit_timings_)}")
+    check((rep.rows, rep.features, rep.bytes_processed)
+          == (CHUNK_ROWS // 2, N_FEATURES, FIT_C_BYTES),
+          f"fit (c): rows {rep.rows}, features {rep.features}, bytes "
+          f"{rep.bytes_processed}")
+    phases = ", ".join(f"{k} {v * 1e3:.3f} ms"
+                       for k, v in sorted(rep.phases.items()))
+    log(f"  fit (c)'s report: {phases} (host clock); peak device bytes "
+        f"{rep.peak_device_bytes} (allocator watermark, {rep.memory['source']}"
+        f"), health probe {rep.health['probe_seconds'] * 1e3:.3f} ms on "
+        f"{rep.health['devices']} ({smi})")
+
+    # -- one transform's report -------------------------------------------
+    x = chunk(torch, device, 40, rows=REPORT_TRANSFORM_ROWS)
+    out = np.asarray(model.transform(x).column("pca_features"))
+    t_rep = model.transform_report_
+    check(out.shape == (REPORT_TRANSFORM_ROWS, K) and np.isfinite(out).all(),
+          f"transform output {out.shape}")
+    check(set(t_rep.phases) == {"device_put", "compute", "host_sync",
+                                "total"},
+          f"transform phases {sorted(t_rep.phases)}")
+    check(t_rep.rows == REPORT_TRANSFORM_ROWS, f"transform rows {t_rep.rows}")
+    check(t_rep.numerics is not None
+          and t_rep.numerics["checked_rows"] == REPORT_TRANSFORM_ROWS
+          and t_rep.numerics["nan_rows"] == 0
+          and t_rep.numerics["inf_rows"] == 0,
+          f"transform numerics {t_rep.numerics}")
+    phases = ", ".join(f"{k} {t_rep.phases[k] * 1e3:.3f} ms" for k in (
+        "device_put", "compute", "host_sync", "total"))
+    log(f"  {REPORT_TRANSFORM_ROWS}-row transform's report: {phases} (host "
+        f"clock; compute is the launch, host_sync holds the product), "
+        f"numerics {t_rep.numerics} ({smi})")
+
+    # -- phase 5's traffic: one record per served batch -------------------
+    traffic = serve_traffic()
+    bodies = [(i, wire.encode_request("pca", rows), wire.BINARY_CONTENT_TYPE)
+              for i, rows in enumerate(traffic)]
+    refs = [rows.astype(np.float64) @ model.pc for rows in traffic]
+    registry = ModelRegistry()
+    registry.register("pca", model)
+    metrics = get_registry()
+    reset_fault_plane()
+    engine, serving = warm_engine(registry, "native", "reports")
+    check(serving == "native", f"phase 12 serves {serving}")
+    server = start_serve_server(engine, port=0, addr="127.0.0.1")
+    port = server.server_address[1]
+    try:
+        before = record_counters(metrics)
+        t_traffic = time.perf_counter()
+        results, wall = http_clients(port, bodies)
+        after = record_counters(metrics)
+        check(len(results) == SERVE_REQUESTS,
+              f"phase 12: {len(results)} responses")
+        worst, lat = check_responses("reports", results, traffic, refs,
+                                     SERVE_BARS["native"])
+        delta = {k: after[k] - before[k] for k in after}
+        batches = delta["batches"]
+        check(batches > 0 and delta["transforms"] == batches
+              and delta["checks"] == batches
+              and delta["seconds_count"] == batches,
+              f"per batch records: {delta}")
+        check(delta["anomalies"] == 0 and delta["numerics_errors"] == 0,
+              f"numerics moved on clean traffic: {delta}")
+        walls = [e.dur_us / 1e6 for e in spans.get_recorder().events()
+                 if e.name == "transform:pca" and e.args.get("pipelined")
+                 and e.ts_us >= t_traffic * 1e6]
+        check(len(walls) == batches,
+              f"{len(walls)} transform:pca spans for {batches} batches")
+        status, ctype, text = http_get_raw(port, "/metrics")
+        text = text.decode()
+        name = "sparkml_transform_latency_seconds"
+        quantiles = sorted(set(re.findall(
+            rf'^{name}\{{algo="pca",quantile="([^"]+)"\}}', text,
+            flags=re.M)))
+        check(status == 200 and quantiles == LATENCY_QUANTILE_LABELS,
+              f"/metrics {status}: {name} quantiles {quantiles}")
+        exemplar = re.search(rf'^# exemplar: {name}\{{algo="pca"\}} '
+                             r'trace_id="([0-9a-f]+)"', text, flags=re.M)
+        check(exemplar is not None, f"/metrics has no exemplar for {name}")
+        # the top bucket's output, as the batcher hands it to the sentinel
+        sample = serve_rows(np.random.default_rng(SEED + 12),
+                            SERVE_MAX_ROWS).astype(np.float64) @ model.pc
+        costs = []
+        for _ in range(SENTINEL_CALLS):
+            t0 = time.perf_counter()
+            check_output_numerics(sample)
+            costs.append(time.perf_counter() - t0)
+        log(f"  phase 5's {SERVE_REQUESTS} binary requests: {batches:.0f} "
+            f"batches, each one transform, one sparkml_transform_seconds "
+            f"observation and one numerics check; {len(walls)} transform:pca "
+            f"spans; worst max|Δ|/max|ref| {worst:.3e}; /metrics quantiles "
+            f"{quantiles} with the exemplar line; {SERVE_REQUESTS / wall:.1f} "
+            f"requests/s, client p50 {np.percentile(lat, 50):.2f} ms (host "
+            f"clock)")
+        log(f"  numerics sentinel: median of {SENTINEL_CALLS} "
+            f"check_output_numerics calls on a {SERVE_MAX_ROWS} x {K} float64 "
+            f"output {np.median(costs) * 1e3:.4f} ms, beside the median batch "
+            f"wall {np.median(walls) * 1e3:.4f} ms (stage to completion) "
+            f"(host clock, {smi})")
+
+        # -- a nan fault: the guard fails the batch, the retry answers -----
+        before = record_counters(metrics)
+        fault_plane().inject("pca", "nan", count=NAN_FAULTS)
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        answers = []
+        try:
+            for i in range(NAN_REQUESTS):
+                conn.request("POST", "/predict", body=bodies[i][1],
+                             headers={"Content-Type":
+                                      wire.BINARY_CONTENT_TYPE})
+                resp = conn.getresponse()
+                data = resp.read()
+                check(resp.status == 200, f"nan fault request {i}: HTTP "
+                      f"{resp.status} {data[:200]!r}")
+                err = relative_error(wire.decode_response(data), refs[i])
+                check(err <= SERVE_BARS["native"],
+                      f"nan fault request {i} off by {err:.3e}")
+                answers.append((int(resp.getheader("X-Retries")),
+                                int(resp.getheader("X-Degraded"))))
+        finally:
+            conn.close()
+        after = record_counters(metrics)
+        delta = {k: after[k] - before[k] for k in after}
+        want = [(NAN_FAULTS, 0)] + [(0, 0)] * (NAN_REQUESTS - 1)
+        check(answers == want, f"nan fault answers (retries, degraded) "
+              f"{answers}, expected {want}")
+        check(delta["numerics_errors"] == NAN_FAULTS
+              and delta["anomalies"] == 0
+              and delta["checks"] == delta["transforms"] == NAN_REQUESTS
+              and delta["batches"] == NAN_REQUESTS
+              and delta["retries"] == NAN_FAULTS and delta["degraded"] == 0,
+              f"nan fault counters {delta}")
+        log(f"  nan fault on {NAN_FAULTS} calls: {NAN_REQUESTS} requests "
+            f"answered 200 within the native bar, (retries, degraded) "
+            f"{answers}; counters {delta}")
+
+        # -- the dashboard ------------------------------------------------
+        status, ctype, body = http_get_raw(port, "/dashboard")
+        page = body.decode("utf-8")
+        check(status == 200 and ctype == "text/html; charset=utf-8",
+              f"/dashboard: {status} {ctype}")
+        for marker in ("/debug/history", "sparkSvg", "svg.spark",
+                       'id="history"'):
+            check(marker in page, f"/dashboard lacks {marker!r}")
+        fetched = set(re.findall(r'fetch\("([^"]+)"\)', page))
+        check(fetched == (set(DASHBOARD_SERVED) | set(DASHBOARD_NOT_YET))
+              - {"/debug/costs"},
+              f"the page fetches {sorted(fetched)}")
+        answered = {}
+        for url in DASHBOARD_SERVED + DASHBOARD_NOT_YET:
+            answered[url] = http_get_raw(port, url)[0]
+        want = {url: 200 for url in DASHBOARD_SERVED}
+        want.update({url: 404 for url in DASHBOARD_NOT_YET})
+        check(answered == want, f"the page's URLs answer {answered}")
+        log(f"  /dashboard: 200 text/html, {len(body)} B; its URLs answer "
+            f"{answered}")
+    finally:
+        reset_fault_plane()
+        server.shutdown()
+        server.server_close()
+        engine.shutdown()
+        tsdb.reset_tsdb()
+    log(f"  phase 12 {time.perf_counter() - t_phase:.1f} s")
+
+
 def build_fresh(cuda_build):
     """Build the Gram library anew, so ``ptxas -v`` reports on it."""
     path = cuda_build.library_path("fused_gram")
@@ -3003,6 +3269,14 @@ def main() -> int:
     log(f"  kernel launches in the incident phase: {incident_launches}")
     check(sum(incident_launches.values()) == 0,
           "the incident phase launched a kernel")
+
+    log("[12] fit and transform reports, the dashboard")
+    fg.reset_launches()
+    phase_reports(torch, model_c, device)
+    report_launches = dict(fg.launches)
+    log(f"  kernel launches in the reports phase: {report_launches}")
+    check(sum(report_launches.values()) == 0,
+          "the reports phase launched a kernel")
 
     kernels = []
     for name, m in measured.items():

@@ -36,6 +36,11 @@ from spark_rapids_ml_tpu_torch.models.params import (
     HasOutputCol,
     Param,
 )
+from spark_rapids_ml_tpu_torch.obs.report import observed_fit
+from spark_rapids_ml_tpu_torch.obs.serving import (
+    observed_transform,
+    transform_phase,
+)
 from spark_rapids_ml_tpu_torch.ops.covariance import (
     column_means,
     covariance,
@@ -153,6 +158,7 @@ class PCA(PCAParams):
         self._svd_solver_used = used
         return pc.cpu().numpy(), evr.cpu().numpy()
 
+    @observed_fit("pca")
     def fit(self, dataset) -> "PCAModel":
         timer = PhaseTimer()
         self._svd_solver_used = None  # set by device solves; None = host
@@ -437,10 +443,17 @@ class PCAModel(PCAParams):
     def explainedVariance(self):
         return self.explained_variance
 
+    @observed_transform("pca")
     def transform(self, dataset) -> VectorFrame:
         """Batched projection, one product over the whole batch on the
         device (the path the reference disabled, ``RapidsPCA.scala:172-190``);
-        host numpy when ``useXlaDot=False``."""
+        host numpy when ``useXlaDot=False``.
+
+        The report's phases: ``device_put`` (the host→device copies),
+        ``compute`` (the product's launch — like the JAX package's, it
+        does not wait for the card) and ``host_sync`` (``.cpu()``, the
+        sync, so it holds the product's device time); the host path
+        records ``compute`` alone."""
         if self.pc is None:
             raise ValueError("model has no components; fit first or load")
         frame = as_vector_frame(dataset, self.getInputCol())
@@ -455,15 +468,20 @@ class PCAModel(PCAParams):
             device = resolve_device(self.getDeviceId())
             dtype = _resolve_dtype(self.getDtype())
             with TraceRange("device transform", TraceColor.GREEN):
-                x = torch.as_tensor(x_host, dtype=dtype, device=device)
-                # contiguous, so a loaded model (its pc is a transposed
-                # view) runs the same product as the fitted one
-                pc = torch.as_tensor(np.ascontiguousarray(self.pc),
-                                     dtype=dtype, device=device)
-                out = pca_transform_kernel(x, pc).cpu().numpy()
+                with transform_phase("device_put"):
+                    x = torch.as_tensor(x_host, dtype=dtype, device=device)
+                    # contiguous, so a loaded model (its pc is a transposed
+                    # view) runs the same product as the fitted one
+                    pc = torch.as_tensor(np.ascontiguousarray(self.pc),
+                                         dtype=dtype, device=device)
+                with transform_phase("compute"):
+                    out_dev = pca_transform_kernel(x, pc)
+                with transform_phase("host_sync"):
+                    out = out_dev.cpu().numpy()
         else:
             with TraceRange("host transform", TraceColor.GREEN):
-                out = x_host @ self.pc
+                with transform_phase("compute"):
+                    out = x_host @ self.pc
         return frame.with_column(self.getOutputCol(),
                                  np.asarray(out, dtype=np.float64))
 

@@ -1,6 +1,10 @@
-"""Observability for the port's serving path: the metrics registry
-(``obs.metrics``), its quantile sketches (``obs.quantiles``), the
-pipelined serving program contract (``obs.serving``), request trace
+"""Observability for the port's fit and serving paths: the metrics
+registry (``obs.metrics``), its quantile sketches (``obs.quantiles``),
+per-fit reports (``obs.report``: ``observed_fit`` /
+``fit_instrumentation`` → ``fit_report_``), the instrumented transform
+path and the pipelined serving program contract (``obs.serving``:
+``observed_transform`` → ``transform_report_``, the numerics sentinel),
+device-memory watermarks (``obs.memory``), request trace
 context (``obs.tracectx``), structured spans assembled into per-request
 trees (``obs.spans``), SLO burn-rate objectives (``obs.slo``), the
 metrics-history store and its sampler (``obs.tsdb``), the per-device
@@ -12,11 +16,22 @@ artifacts (``obs.retention``), and the auto-incident engine: robust
 statistics (``obs.robust``), online detectors (``obs.anomaly``) and the
 incident lifecycle with its evidence bundles (``obs.incidents``)."""
 
-from spark_rapids_ml_tpu_torch.obs.metrics import get_registry  # noqa: F401
+from spark_rapids_ml_tpu_torch.obs.metrics import (  # noqa: F401
+    Counter,
+    DEFAULT_BUCKETS,
+    Gauge,
+    Histogram,
+    MetricsRegistry,
+    Summary,
+    get_registry,
+)
 from spark_rapids_ml_tpu_torch.obs.memory import (  # noqa: F401
     device_memory_stats,
     host_current_rss_bytes,
     host_peak_rss_bytes,
+    memory_watermarks,
+    peak_bytes_in_use,
+    record_memory_metrics,
 )
 from spark_rapids_ml_tpu_torch.obs.slo import (  # noqa: F401
     BURN_POLICIES,
@@ -99,47 +114,95 @@ from spark_rapids_ml_tpu_torch.obs.tracectx import (  # noqa: F401
     parse_traceparent,
     traced_thread,
 )
+from spark_rapids_ml_tpu_torch.obs.report import (  # noqa: F401
+    FitContext,
+    FitReport,
+    REPORT_ATTR,
+    attach_report,
+    current_fit,
+    fit_instrumentation,
+    last_fit_report,
+    observed_fit,
+)
+from spark_rapids_ml_tpu_torch.obs.serving import (  # noqa: F401
+    NUMERICS_SAMPLE_ENV,
+    TRANSFORM_REPORT_ATTR,
+    TransformContext,
+    TransformReport,
+    check_output_numerics,
+    current_transform,
+    last_transform_report,
+    latency_quantiles,
+    observed_transform,
+    transform_phase,
+)
+from spark_rapids_ml_tpu_torch.utils.health import (  # noqa: F401
+    DeviceHealth,
+    check_devices,
+    check_devices_subprocess,
+)
 
 __all__ = [
     "BURN_POLICIES",
+    "Counter",
+    "DEFAULT_BUCKETS",
     "DUMP_DIR_ENV",
     "Detector",
+    "DeviceHealth",
     "DeviceMonitor",
     "FIT_BUDGET_ENV",
     "Finding",
+    "FitContext",
+    "FitReport",
+    "Gauge",
+    "Histogram",
     "Incident",
     "IncidentEngine",
     "IncidentManager",
     "MadSpikeDetector",
+    "MetricsRegistry",
     "MetricsSampler",
+    "NUMERICS_SAMPLE_ENV",
+    "REPORT_ATTR",
     "RateOfChangeDetector",
     "SLO",
     "SloSet",
     "SpanEvent",
     "SpanRecorder",
     "StructuredLogger",
+    "Summary",
     "TRACEPARENT_HEADER",
     "TRANSFORM_BUDGET_ENV",
+    "TRANSFORM_REPORT_ATTR",
     "ThresholdDetector",
     "TimeSeriesStore",
     "TraceContext",
+    "TransformContext",
+    "TransformReport",
     "Watchdog",
     "WindowedCounts",
     "activate",
     "active_spans",
     "assemble_trace",
+    "attach_report",
     "build_dump",
     "builtin_detectors",
     "capture",
+    "check_devices",
+    "check_devices_subprocess",
+    "check_output_numerics",
     "current_context",
+    "current_fit",
     "current_span_id",
     "current_trace_id",
+    "current_transform",
     "deadline",
     "default_slos",
     "device_memory_stats",
     "dump",
     "dump_dir",
     "ensure_context",
+    "fit_instrumentation",
     "flight",
     "get_device_monitor",
     "get_incident_engine",
@@ -153,14 +216,22 @@ __all__ = [
     "host_peak_rss_bytes",
     "inflight_request",
     "inflight_requests",
+    "last_fit_report",
+    "last_transform_report",
+    "latency_quantiles",
     "maybe_export_trace",
+    "memory_watermarks",
     "new_context",
     "new_span_id",
     "new_trace_id",
+    "observed_fit",
+    "observed_transform",
     "parse_traceparent",
+    "peak_bytes_in_use",
     "profiler",
     "recent_traces",
     "record_event",
+    "record_memory_metrics",
     "reset_incident_engine",
     "retention",
     "severity_for_burn",
@@ -168,4 +239,5 @@ __all__ = [
     "start_sampling",
     "stop_sampling",
     "traced_thread",
+    "transform_phase",
 ]

@@ -38,26 +38,10 @@ import torch
 
 from spark_rapids_ml_tpu_torch.obs import memory as memory_mod
 from spark_rapids_ml_tpu_torch.obs.metrics import get_registry
-from spark_rapids_ml_tpu_torch.utils.resources import (
-    PLATFORM_ENV,
-    cpu_requested,
-)
+from spark_rapids_ml_tpu_torch.utils.resources import local_devices
 
 SOURCE_DEVICE = "cuda"
 SOURCE_HOST = "host_rss"
-
-
-def _devices() -> List[torch.device]:
-    """The port's devices: ``[cpu]`` when the CPU was requested, else
-    every visible CUDA device; raises without either."""
-    if cpu_requested():
-        return [torch.device("cpu")]
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; set "
-            f"{PLATFORM_ENV}=cpu to run on the CPU explicitly"
-        )
-    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
 def _profiler_transition_pending() -> bool:
@@ -72,7 +56,7 @@ def _profiler_transition_pending() -> bool:
 class DeviceMonitor:
     """One process-wide monitor over the local devices."""
 
-    def __init__(self, devices_fn=_devices):
+    def __init__(self, devices_fn=local_devices):
         self._devices_fn = devices_fn
         # resolved once here: no card and no CPU request raises now
         self._default_device = str(devices_fn()[0])

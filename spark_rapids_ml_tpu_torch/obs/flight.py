@@ -10,10 +10,11 @@ artifact:
   ``<tmp>/sparkml_torch_dumps``) containing all-thread stack traces, the
   currently-open spans, the in-flight request table, every registered
   section (the breakers' events, the metrics history), the last-N
-  completed span ring, a metrics-registry snapshot, and process/env
-  context. The JAX dump's ``device_health_cached`` (the port's health
-  report is not ported yet) and ``compile_log_tail`` (the port compiles
-  nothing) are left out;
+  completed span ring, a metrics-registry snapshot, the cached device
+  health verdict of the fit reports (``device_health_cached``: never a
+  fresh probe, which could itself hang on a wedged device), and
+  process/env context. The JAX dump's ``compile_log_tail`` is left out
+  (the port compiles nothing);
 * ``deadline(label, budget_seconds)`` is the watchdog: a single daemon
   thread arms a deadline per in-flight phase; the budget expiring (or a
   hard exception crossing the context) triggers a dump (default budget:
@@ -179,6 +180,9 @@ def build_dump(reason: str, extra: Optional[Dict[str, Any]] = None
             ).get_registry().snapshot(),
             {},
         ),
+        # Cached verdict only: a fresh probe inside a hang diagnostic could
+        # itself hang on the wedged device.
+        "device_health_cached": _safe(_cached_health),
         "env": {
             k: v for k, v in os.environ.items()
             if k.startswith(_ENV_PREFIXES)
@@ -193,6 +197,12 @@ def _active_traces():
     from spark_rapids_ml_tpu_torch.obs import tracectx
 
     return tracectx.inflight_requests()
+
+
+def _cached_health():
+    from spark_rapids_ml_tpu_torch.obs import report as report_mod
+
+    return report_mod._health_cache  # cached dict or None; NEVER probes
 
 
 def dump(reason: str, extra: Optional[Dict[str, Any]] = None

@@ -1,7 +1,9 @@
-"""Device-memory readings for the device monitor (``obs.devmon``).
+"""Device-memory readings and watermarks.
 
-The port's cut of the JAX package's ``obs/memory.py``: the readers the
-monitor samples. A CUDA device reports the caching allocator's counters
+The port's copy of the JAX package's ``obs/memory.py``: the readers the
+device monitor (``obs.devmon``) samples, and the watermark snapshot every
+fit report embeds (``memory_watermarks``, exported as gauges by
+``record_memory_metrics``). A CUDA device reports the caching allocator's counters
 (``torch.cuda.memory_stats``) under PJRT's key names, so a reader of the
 JAX package's gauges reads the port's the same way:
 
@@ -16,14 +18,22 @@ why a sample never calls ``torch.cuda.mem_get_info`` or
 batches. The CPU device has no device statistics (``None``, as PJRT's CPU
 backend), and the monitor reports the process RSS for it instead, tagged
 ``host_rss`` so a host number is never mistaken for a device number.
+
+The allocator keeps ``allocated_bytes.all.peak`` as a true high-watermark
+since the process started (or since ``torch.cuda.reset_peak_memory_stats``),
+so an end-of-fit read IS the watermark: no sampling thread is needed. Where
+the JAX package's watermark says ``"source": "pjrt"``, the port's says
+``"cuda"``.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
+
+from spark_rapids_ml_tpu_torch.utils.resources import local_devices
 
 
 @functools.lru_cache(maxsize=None)
@@ -79,8 +89,92 @@ def host_current_rss_bytes() -> Optional[int]:
         return None
 
 
+def peak_bytes_in_use(device) -> Optional[int]:
+    """One device's peak bytes in use, or None without statistics."""
+    stats = device_memory_stats(device)
+    if stats is None:
+        return None
+    peak = int(stats.get("peak_bytes_in_use",
+                         stats.get("bytes_in_use", 0)))
+    return peak or None
+
+
+def memory_watermarks(devices=None) -> Dict[str, Any]:
+    """The uniform watermark snapshot every report embeds.
+
+    Returns ``{"source": "cuda"|"host_rss"|"none", "peak_bytes": int|None,
+    "host_peak_rss_bytes": int|None, "per_device": [...]}`` —
+    ``peak_bytes`` is the highest per-device allocator watermark when any
+    device has statistics, else the host RSS peak (so a CPU run still
+    carries a concrete number, visibly host-sourced).
+    """
+    if devices is None:
+        try:
+            devices = local_devices()
+        except (RuntimeError, ValueError):  # no device: the host RSS alone
+            devices = []
+    per_device: List[Dict[str, Any]] = []
+    device_peaks = []
+    for d in devices:
+        stats = device_memory_stats(d)
+        entry: Dict[str, Any] = {"device": str(d)}
+        if stats is not None:
+            peak = int(stats.get("peak_bytes_in_use",
+                                 stats.get("bytes_in_use", 0)))
+            entry["peak_bytes_in_use"] = peak
+            entry["bytes_in_use"] = int(stats.get("bytes_in_use", 0))
+            if "bytes_limit" in stats:
+                entry["bytes_limit"] = int(stats["bytes_limit"])
+            device_peaks.append(peak)
+        per_device.append(entry)
+    rss = host_peak_rss_bytes()
+    if device_peaks:
+        source = "cuda"
+        peak: Optional[int] = max(device_peaks)
+    elif rss is not None:
+        source = "host_rss"
+        peak = rss
+    else:
+        source = "none"
+        peak = None
+    return {
+        "source": source,
+        "peak_bytes": peak,
+        "host_peak_rss_bytes": rss,
+        "per_device": per_device,
+    }
+
+
+def record_memory_metrics(watermarks: Optional[Dict[str, Any]] = None
+                          ) -> None:
+    """Export a watermark snapshot into the process metrics registry
+    (``sparkml_device_peak_bytes{device=}`` + the host RSS gauge)."""
+    try:
+        from spark_rapids_ml_tpu_torch.obs.metrics import get_registry
+
+        wm = watermarks if watermarks is not None else memory_watermarks()
+        reg = get_registry()
+        for entry in wm.get("per_device", ()):
+            if "peak_bytes_in_use" in entry:
+                reg.gauge(
+                    "sparkml_device_peak_bytes",
+                    "per-device peak bytes in use (allocator watermark)",
+                    ("device",),
+                ).set(entry["peak_bytes_in_use"], device=entry["device"])
+        if wm.get("host_peak_rss_bytes") is not None:
+            reg.gauge(
+                "sparkml_host_peak_rss_bytes",
+                "process RSS high-watermark",
+            ).set(wm["host_peak_rss_bytes"])
+    except Exception:
+        pass  # telemetry must never break the caller
+
+
 __all__ = [
     "device_memory_stats",
     "host_current_rss_bytes",
     "host_peak_rss_bytes",
+    "memory_watermarks",
+    "peak_bytes_in_use",
+    "record_memory_metrics",
 ]

@@ -1,9 +1,11 @@
-"""Thread-safe metrics registry: counters, gauges and quantile summaries.
+"""Thread-safe metrics registry: counters, gauges, histograms and quantile
+summaries.
 
-The port's cut of the JAX package's ``obs/metrics.py``: enough for the
-serving engine's ``sparkml_serve_*`` families and the per-batch
-``sparkml_transform_latency_seconds`` summary, exposed as Prometheus text
-(``GET /metrics``) or a JSON-safe snapshot. Labels are kwargs at
+The port's copy of the JAX package's ``obs/metrics.py``, less its
+standalone scrape server (``GET /metrics`` is the serving server's):
+the serving engine's ``sparkml_serve_*`` families, the transform and fit
+reports' ``sparkml_transform_*`` / ``sparkml_fit_*`` series, exposed as
+Prometheus text or a JSON-safe snapshot. Labels are kwargs at
 observation time; each label set is its own child series, as in
 Prometheus' data model. A summary keeps the slowest observations' trace
 ids as exemplars, which the incident engine's evidence bundles start
@@ -22,6 +24,13 @@ from spark_rapids_ml_tpu_torch.obs.quantiles import QuantileSketch
 
 _NAME_RE = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*$")
 _LABEL_RE = re.compile(r"^[a-zA-Z_][a-zA-Z0-9_]*$")
+
+# Latency-oriented default buckets (seconds): sub-millisecond calls up to
+# multi-minute full-scale fits.
+DEFAULT_BUCKETS: Tuple[float, ...] = (
+    0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0,
+    60.0, 120.0, 300.0,
+)
 
 
 def _escape_label_value(value: str) -> str:
@@ -143,6 +152,63 @@ class Gauge(_Metric):
             return child.value
 
 
+class Histogram(_Metric):
+    """Cumulative-bucket histogram (``.observe(v, **labels)``), exposed as
+    ``name_bucket{le="..."}`` lines plus ``_sum`` / ``_count``."""
+
+    kind = "histogram"
+
+    class _Child:
+        __slots__ = ("counts", "sum", "count", "lock")
+
+        def __init__(self, n_buckets: int):
+            self.counts = [0] * n_buckets  # per bucket, not cumulative
+            self.sum = 0.0
+            self.count = 0
+            self.lock = threading.Lock()
+
+    def __init__(
+        self,
+        name: str,
+        help_text: str,
+        labelnames: Tuple[str, ...] = (),
+        buckets: Tuple[float, ...] = DEFAULT_BUCKETS,
+    ):
+        super().__init__(name, help_text, labelnames)
+        bounds = tuple(sorted(float(b) for b in buckets))
+        if not bounds:
+            raise ValueError("histogram needs at least one bucket bound")
+        self.buckets = bounds
+
+    def _new_child(self):
+        return Histogram._Child(len(self.buckets))
+
+    def observe(self, value: float, **labels) -> None:
+        child = self._child(labels)
+        with child.lock:
+            child.sum += float(value)
+            child.count += 1
+            for i, bound in enumerate(self.buckets):
+                if value <= bound:
+                    child.counts[i] += 1
+                    break
+
+    def snapshot_child(self, **labels) -> Dict[str, object]:
+        child = self._child(labels)
+        with child.lock:
+            cumulative = {}
+            running = 0
+            for bound, c in zip(self.buckets, child.counts):
+                running += c
+                cumulative[_format_value(bound)] = running
+            cumulative["+Inf"] = child.count
+            return {
+                "count": child.count,
+                "sum": child.sum,
+                "buckets": cumulative,
+            }
+
+
 class Summary(_Metric):
     """Quantile summary backed by a mergeable streaming sketch
     (``obs.quantiles.QuantileSketch``): ``observe`` is O(1),
@@ -236,7 +302,7 @@ class Summary(_Metric):
 class MetricsRegistry:
     """Process-wide metric family registry.
 
-    ``counter`` / ``gauge`` / ``summary`` are get-or-create: repeated calls
+    ``counter`` / ``gauge`` / ``histogram`` / ``summary`` are get-or-create: repeated calls
     with the same name return the SAME family, but a name re-registered as
     a different kind or label set raises.
     """
@@ -268,6 +334,13 @@ class MetricsRegistry:
     def gauge(self, name, help_text="", labelnames=()) -> Gauge:
         return self._get_or_create(Gauge, name, help_text, labelnames)
 
+    def histogram(
+        self, name, help_text="", labelnames=(), buckets=DEFAULT_BUCKETS
+    ) -> Histogram:
+        return self._get_or_create(
+            Histogram, name, help_text, labelnames, buckets=buckets
+        )
+
     def summary(
         self, name, help_text="", labelnames=(), alpha=0.01,
         max_bins=4096, quantiles=Summary.DEFAULT_QUANTILES,
@@ -293,7 +366,7 @@ class MetricsRegistry:
             samples = []
             for key, _child in metric._samples():
                 labels = metric._label_dict(key)
-                if isinstance(metric, Summary):
+                if isinstance(metric, (Histogram, Summary)):
                     samples.append(
                         {"labels": labels, **metric.snapshot_child(**labels)})
                 else:
@@ -320,7 +393,17 @@ class MetricsRegistry:
                     for k, v in labels.items()
                 )
                 suffix = f"{{{label_str}}}" if label_str else ""
-                if isinstance(metric, Summary):
+                if isinstance(metric, Histogram):
+                    snap = metric.snapshot_child(**labels)
+                    for le, cum in snap["buckets"].items():
+                        bl = (label_str + "," if label_str else "") + \
+                            f'le="{le}"'
+                        lines.append(f"{metric.name}_bucket{{{bl}}} {cum}")
+                    lines.append(f"{metric.name}_sum{suffix} "
+                                 f"{_format_value(snap['sum'])}")
+                    lines.append(f"{metric.name}_count{suffix} "
+                                 f"{snap['count']}")
+                elif isinstance(metric, Summary):
                     snap = metric.snapshot_child(**labels)
                     emitted = []
                     for q, value in snap["quantiles"].items():

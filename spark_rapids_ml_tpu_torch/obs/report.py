@@ -1,0 +1,590 @@
+"""Uniform per-fit reports: the shared instrumentation entry point.
+
+The port's copy of the JAX package's ``obs/report.py``. Every user-facing
+estimator ``fit`` is wrapped in ``@observed_fit("<algo>")`` and a plain fit
+function may be wrapped in ``@fit_instrumentation("<algo>")``; both produce
+one ``FitReport`` surfaced as ``fit_report_`` on the fitted model or result
+(``fit_timings_`` stays populated beside it), feed the process metrics
+registry, and — when ``SPARK_RAPIDS_ML_TORCH_TRACE_DIR`` is set — export
+the fit's span timeline as Chrome-trace JSON.
+
+The report carries the phase wall-clock split, rows / bytes processed, the
+mesh shape and device platform, the cached ``DeviceHealth`` verdict, the
+device-memory watermark (the caching allocator's peak on the card), and
+host-side accounting of the collectives a fit function declares (kind →
+invocation count + payload bytes).
+
+Nothing compiles in eager PyTorch, so ``compiles`` / ``recompiles`` /
+``compile_seconds`` stay 0. ``analytic_flops``, ``analytic_bytes``,
+``flops_by_phase`` and ``analytic_mfu`` stay empty until the fit-path
+monitor brings its per-step accounting and the card's peak tables; the
+fields are kept so a report reads like the JAX package's.
+
+Telemetry is never allowed to break a fit: everything outside the wrapped
+call itself is exception-guarded.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import functools
+import threading
+import time
+from dataclasses import asdict, dataclass, field
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+
+from spark_rapids_ml_tpu_torch.obs import spans
+from spark_rapids_ml_tpu_torch.obs.metrics import get_registry
+from spark_rapids_ml_tpu_torch.utils.timing import PhaseTimer
+from spark_rapids_ml_tpu_torch.utils.tracing import TraceColor
+
+REPORT_ATTR = "fit_report_"
+
+
+@dataclass
+class FitReport:
+    """The uniform per-fit observability artifact."""
+
+    algo: str
+    trace_id: str
+    started_utc: str
+    wall_seconds: float
+    phases: Dict[str, float] = field(default_factory=dict)
+    rows: Optional[int] = None
+    features: Optional[int] = None
+    bytes_processed: Optional[int] = None
+    mesh_shape: Optional[Tuple[int, ...]] = None
+    mesh_axes: Optional[Tuple[str, ...]] = None
+    device_platform: Optional[str] = None
+    device_count: Optional[int] = None
+    healthy: Optional[bool] = None
+    health: Optional[Dict[str, Any]] = None
+    collectives: Dict[str, Dict[str, int]] = field(default_factory=dict)
+    n_iter: Optional[int] = None
+    # compile attribution: 0 in eager PyTorch (kept for the JAX report's keys)
+    compiles: int = 0
+    recompiles: int = 0
+    compile_seconds: float = 0.0
+    # analytic accounting: None until the fit-path monitor is ported
+    analytic_flops: Optional[float] = None
+    analytic_bytes: Optional[float] = None
+    flops_by_phase: Dict[str, float] = field(default_factory=dict)
+    analytic_mfu: Optional[float] = None
+    # device-memory watermark (obs.memory; host RSS without a card)
+    peak_device_bytes: Optional[int] = None
+    memory: Optional[Dict[str, Any]] = None
+    extra: Dict[str, Any] = field(default_factory=dict)
+
+    def as_dict(self) -> Dict[str, Any]:
+        d = asdict(self)
+        if self.mesh_shape is not None:
+            d["mesh_shape"] = list(self.mesh_shape)
+        if self.mesh_axes is not None:
+            d["mesh_axes"] = list(self.mesh_axes)
+        return d
+
+    def total_collective_bytes(self) -> int:
+        return sum(int(v.get("bytes", 0)) for v in self.collectives.values())
+
+    def total_collective_calls(self) -> int:
+        return sum(int(v.get("count", 0)) for v in self.collectives.values())
+
+
+class FitContext:
+    """Mutable accounting for one in-flight fit.
+
+    Obtained inside an instrumented fit via ``current_fit()``; fit bodies
+    record phases (``with ctx.phase("placement"): ...``) and collectives
+    (``ctx.record_collective("all_reduce", shape=(n, n), dtype=dt)``).
+    """
+
+    __slots__ = (
+        "algo", "trace_id", "timer", "collectives", "extra",
+        "rows", "features", "bytes_processed", "n_iter", "_lock",
+    )
+
+    def __init__(self, algo: str, trace_id: Optional[str] = None):
+        self.algo = algo
+        self.trace_id = trace_id or spans.new_trace_id()
+        self.timer = PhaseTimer()
+        self.collectives: Dict[str, Dict[str, int]] = {}
+        self.extra: Dict[str, Any] = {}
+        self.rows: Optional[int] = None
+        self.features: Optional[int] = None
+        self.bytes_processed: Optional[int] = None
+        self.n_iter: Optional[int] = None
+        self._lock = threading.Lock()
+
+    @contextlib.contextmanager
+    def phase(self, name: str):
+        """Time a named phase AND emit a nested span for the trace file."""
+        with self.timer.phase(name), spans.span(
+            f"{self.algo}:{name}", TraceColor.CYAN
+        ):
+            yield
+
+    def record_collective(
+        self,
+        kind: str,
+        *,
+        shape: Optional[Tuple[int, ...]] = None,
+        dtype=None,
+        nbytes: Optional[int] = None,
+        count: int = 1,
+    ) -> None:
+        """Account ``count`` invocations of a collective, each moving the
+        payload described by ``shape``+``dtype`` (or raw ``nbytes``)."""
+        if nbytes is None:
+            if shape is None:
+                nbytes = 0
+            else:
+                itemsize = np.dtype(dtype).itemsize if dtype is not None else 4
+                nbytes = int(np.prod([int(s) for s in shape])) * itemsize
+        with self._lock:
+            entry = self.collectives.setdefault(
+                kind, {"count": 0, "bytes": 0}
+            )
+            entry["count"] += int(count)
+            entry["bytes"] += int(nbytes) * int(count)
+        try:
+            # mirror into the live fit-path monitor (obs.fitmon, not
+            # ported yet: until it is, the import fails and this is a no-op)
+            from spark_rapids_ml_tpu_torch.obs import fitmon
+
+            fitmon.current_run().record_collective(
+                kind, nbytes=int(nbytes), count=int(count)
+            )
+        except Exception:
+            pass
+
+    def set_data(
+        self,
+        rows: Optional[int] = None,
+        features: Optional[int] = None,
+        nbytes: Optional[int] = None,
+    ) -> None:
+        if rows is not None:
+            self.rows = int(rows)
+        if features is not None:
+            self.features = int(features)
+        if nbytes is not None:
+            self.bytes_processed = int(nbytes)
+
+    def set_iterations(self, n_iter) -> None:
+        try:
+            self.n_iter = int(n_iter)
+        except (TypeError, ValueError):
+            pass
+
+    def note(self, **kwargs) -> None:
+        self.extra.update(kwargs)
+
+
+class _NullFitContext(FitContext):
+    """No-op context: lets fit bodies call ``current_fit()`` unconditionally
+    even when invoked outside an instrumented entry point."""
+
+    def __init__(self):
+        super().__init__("_unobserved")
+
+    @contextlib.contextmanager
+    def phase(self, name: str):
+        yield
+
+    def record_collective(self, *args, **kwargs) -> None:
+        pass
+
+    def set_data(self, *args, **kwargs) -> None:
+        pass
+
+    def set_iterations(self, *args) -> None:
+        pass
+
+    def note(self, **kwargs) -> None:
+        pass
+
+
+_NULL_CONTEXT = _NullFitContext()
+_current_ctx: contextvars.ContextVar = contextvars.ContextVar(
+    "sparkml_torch_fit_ctx", default=None
+)
+
+_last_reports: Dict[Optional[str], FitReport] = {}
+_last_lock = threading.Lock()
+
+
+def current_fit() -> FitContext:
+    """The active fit's context, or a no-op context outside any fit."""
+    ctx = _current_ctx.get()
+    return ctx if ctx is not None else _NULL_CONTEXT
+
+
+def last_fit_report(algo: Optional[str] = None) -> Optional[FitReport]:
+    """Most recent report (optionally for one algo) — the escape hatch for
+    results the report cannot be attached to."""
+    with _last_lock:
+        return _last_reports.get(algo)
+
+
+# -- health / device environment (probed once per process) -----------------
+
+_health_cache: Optional[Dict[str, Any]] = None
+_health_lock = threading.Lock()
+
+
+def _health_once() -> Optional[Dict[str, Any]]:
+    global _health_cache
+    with _health_lock:
+        if _health_cache is None:
+            try:
+                from spark_rapids_ml_tpu_torch.utils.health import (
+                    check_devices,
+                )
+
+                _health_cache = dict(check_devices().__dict__)
+            except Exception:
+                _health_cache = {}
+        return _health_cache or None
+
+
+# -- report assembly -------------------------------------------------------
+
+
+_utcnow = spans.utcnow_iso
+
+
+def _find_mesh(args, kwargs):
+    """The ``DeviceMesh`` a fit function was called with, if any."""
+    try:
+        from torch.distributed.device_mesh import DeviceMesh
+    except Exception:
+        return None
+    mesh = kwargs.get("mesh")
+    if isinstance(mesh, DeviceMesh):
+        return mesh
+    for a in args:
+        if isinstance(a, DeviceMesh):
+            return a
+    return None
+
+
+def _array_stats(value):
+    """(rows, features, nbytes) for an array-like (numpy or torch), else
+    None."""
+    shape = getattr(value, "shape", None)
+    if not shape or not isinstance(shape, tuple):
+        return None
+    try:
+        rows = int(shape[0])
+        features = int(shape[1]) if len(shape) > 1 else None
+        nbytes = getattr(value, "nbytes", None)
+        if nbytes is None:
+            itemsize = getattr(
+                getattr(value, "dtype", None), "itemsize", 8
+            )
+            nbytes = int(np.prod([int(s) for s in shape])) * itemsize
+        return rows, features, int(nbytes)
+    except (TypeError, ValueError):
+        return None
+
+
+def _infer_data_stats(ctx: FitContext, args, kwargs) -> None:
+    """Fill rows/features/bytes from the call's array arguments unless the
+    fit body already set them explicitly."""
+    if ctx.rows is not None and ctx.bytes_processed is not None:
+        return
+    total_bytes = 0
+    first = None
+    flat = []
+    for a in list(args) + list(kwargs.values()):
+        if isinstance(a, tuple):
+            flat.extend(a)
+        else:
+            flat.append(a)
+    for a in flat:
+        stats = _array_stats(a)
+        if stats is None:
+            continue
+        if first is None:
+            first = stats
+        total_bytes += stats[2]
+    if first is not None:
+        if ctx.rows is None:
+            ctx.rows = first[0]
+        if ctx.features is None:
+            ctx.features = first[1]
+    if ctx.bytes_processed is None and total_bytes:
+        ctx.bytes_processed = total_bytes
+
+
+def _mesh_fields(mesh) -> Dict[str, Any]:
+    if mesh is None:
+        return {}
+    try:
+        from spark_rapids_ml_tpu_torch.parallel.mesh import mesh_shape
+
+        summary = mesh_shape(mesh)
+        return {
+            "mesh_shape": summary["shape"],
+            "mesh_axes": summary["axes"],
+            "device_platform": summary["platform"],
+            "device_count": summary["devices"],
+        }
+    except Exception:
+        return {}
+
+
+def _memory_fields() -> Dict[str, Any]:
+    """End-of-fit device-memory watermark (the allocator's peak on the
+    card, the host RSS peak without one)."""
+    try:
+        from spark_rapids_ml_tpu_torch.obs.memory import (
+            memory_watermarks,
+            record_memory_metrics,
+        )
+
+        wm = memory_watermarks()
+        record_memory_metrics(wm)
+        return {"peak_device_bytes": wm.get("peak_bytes"), "memory": wm}
+    except Exception:
+        return {}
+
+
+def _build_report(
+    ctx: FitContext, started: str, wall: float, mesh
+) -> FitReport:
+    phases = ctx.timer.as_dict()
+    phases.setdefault("total", wall)
+    health = _health_once()
+    fields: Dict[str, Any] = _mesh_fields(mesh)
+    if health:
+        fields.setdefault("device_platform", health.get("platform"))
+        fields.setdefault("device_count", health.get("device_count"))
+    fields.update(_memory_fields())
+    return FitReport(
+        algo=ctx.algo,
+        trace_id=ctx.trace_id,
+        started_utc=started,
+        wall_seconds=wall,
+        phases=phases,
+        rows=ctx.rows,
+        features=ctx.features,
+        bytes_processed=ctx.bytes_processed,
+        healthy=health.get("healthy") if health else None,
+        health=health,
+        collectives={k: dict(v) for k, v in ctx.collectives.items()},
+        n_iter=ctx.n_iter,
+        extra=dict(ctx.extra),
+        **fields,
+    )
+
+
+def _flight_deadline(algo: str, trace_id: str):
+    """The watchdog context for one fit (no-op if flight is unavailable)."""
+    try:
+        from spark_rapids_ml_tpu_torch.obs import flight
+
+        return flight.deadline(f"fit:{algo}", trace_id=trace_id)
+    except Exception:
+        return contextlib.nullcontext()
+
+
+def _record_metrics(report: FitReport) -> None:
+    reg = get_registry()
+    algo = report.algo
+    reg.counter(
+        "sparkml_fits_total", "completed fits", ("algo",)
+    ).inc(algo=algo)
+    reg.histogram(
+        "sparkml_fit_seconds", "fit wall-clock seconds", ("algo",)
+    ).observe(report.wall_seconds, algo=algo)
+    if report.rows:
+        reg.counter(
+            "sparkml_rows_processed_total", "rows seen by fits", ("algo",)
+        ).inc(report.rows, algo=algo)
+    if report.bytes_processed:
+        reg.counter(
+            "sparkml_bytes_processed_total", "input bytes seen by fits",
+            ("algo",),
+        ).inc(report.bytes_processed, algo=algo)
+    for kind, entry in report.collectives.items():
+        reg.counter(
+            "sparkml_collective_calls_total",
+            "collective invocations (program-level accounting)",
+            ("algo", "kind"),
+        ).inc(entry.get("count", 0), algo=algo, kind=kind)
+        reg.counter(
+            "sparkml_collective_bytes_total",
+            "collective payload bytes (program-level accounting)",
+            ("algo", "kind"),
+        ).inc(entry.get("bytes", 0), algo=algo, kind=kind)
+    if report.device_platform:
+        reg.gauge(
+            "sparkml_device_count", "visible devices", ("platform",)
+        ).set(report.device_count or 0, platform=report.device_platform)
+
+
+def _publish(report: FitReport) -> None:
+    with _last_lock:
+        _last_reports[report.algo] = report
+        _last_reports[None] = report
+    _record_metrics(report)
+    spans.maybe_export_trace(report.trace_id, report.algo)
+
+
+# -- result attachment -----------------------------------------------------
+
+_subclass_cache: Dict[type, type] = {}
+_subclass_lock = threading.Lock()
+
+
+def _reporting_subclass(cls: type) -> type:
+    """A cached subclass of ``cls`` that accepts instance attributes.
+
+    NamedTuple/tuple results have ``__slots__ = ()`` and refuse attributes;
+    a trivial subclass (same name, no slots) behaves identically —
+    unpacking, ``_fields``, isinstance — but carries ``fit_report_``.
+    """
+    with _subclass_lock:
+        sub = _subclass_cache.get(cls)
+        if sub is None:
+            sub = type(cls.__name__, (cls,), {"__obs_reported__": True})
+            _subclass_cache[cls] = sub
+        return sub
+
+
+def attach_report(result, report, attr: str = REPORT_ATTR):
+    """Attach a report to a result under ``attr``, wrapping when needed.
+
+    Handles model objects (plain setattr), NamedTuples and tuples
+    (attribute-capable subclass), and ndarrays (subclass view). Results
+    that cannot carry attributes are returned unchanged — the report stays
+    reachable via ``last_fit_report()`` / ``last_transform_report()``.
+    """
+    try:
+        setattr(result, attr, report)
+        return result
+    except (AttributeError, TypeError):
+        pass
+    try:
+        if isinstance(result, np.ndarray):
+            out = result.view(_reporting_subclass(type(result)))
+            setattr(out, attr, report)
+            return out
+        if isinstance(result, tuple):
+            cls = type(result)
+            sub = _reporting_subclass(cls)
+            if hasattr(cls, "_make"):  # NamedTuple
+                out = sub._make(result)
+            else:
+                out = tuple.__new__(sub, result)
+            setattr(out, attr, report)
+            return out
+    except Exception:
+        pass
+    return result
+
+
+# -- the two decorators ----------------------------------------------------
+
+
+def fit_instrumentation(algo: str, attach: bool = True):
+    """Wrap a fit function: fit context + root span + report.
+
+    The decorated function's result gains ``fit_report_`` (wrapped into an
+    attribute-capable subclass when needed); a ``DeviceMesh`` argument
+    fills the report's mesh fields.
+    """
+
+    def decorator(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            ctx = FitContext(algo, trace_id=spans.current_trace_id())
+            token = _current_ctx.set(ctx)
+            started = _utcnow()
+            t0 = time.perf_counter()
+            try:
+                with _flight_deadline(algo, ctx.trace_id), spans.span(
+                    f"fit:{algo}", TraceColor.GREEN, trace_id=ctx.trace_id
+                ), ctx.timer.phase("total"):
+                    result = fn(*args, **kwargs)
+            finally:
+                _current_ctx.reset(token)
+            wall = time.perf_counter() - t0
+            try:
+                _infer_data_stats(ctx, args, kwargs)
+                report = _build_report(
+                    ctx, started, wall, _find_mesh(args, kwargs)
+                )
+                _publish(report)
+                if attach:
+                    result = attach_report(result, report)
+            except Exception:
+                pass  # telemetry must never break a fit
+            return result
+
+        wrapper.__obs_instrumented__ = algo
+        return wrapper
+
+    return decorator
+
+
+def observed_fit(algo: str):
+    """Wrap an estimator ``fit`` method: the fitted model gains a uniform
+    ``fit_report_`` (phases merged from the model's ``fit_timings_``, which
+    stays populated)."""
+
+    def decorator(method):
+        @functools.wraps(method)
+        def wrapper(self, dataset, *args, **kwargs):
+            ctx = FitContext(algo, trace_id=spans.current_trace_id())
+            token = _current_ctx.set(ctx)
+            started = _utcnow()
+            t0 = time.perf_counter()
+            try:
+                with _flight_deadline(algo, ctx.trace_id), spans.span(
+                    f"fit:{algo}", TraceColor.GREEN, trace_id=ctx.trace_id
+                ):
+                    model = method(self, dataset, *args, **kwargs)
+            finally:
+                _current_ctx.reset(token)
+            wall = time.perf_counter() - t0
+            try:
+                stats = _array_stats(dataset)
+                if stats is not None:
+                    ctx.set_data(
+                        rows=stats[0], features=stats[1], nbytes=stats[2]
+                    )
+                for name, seconds in (
+                    getattr(model, "fit_timings_", None) or {}
+                ).items():
+                    ctx.timer.add(name, seconds)
+                report = _build_report(ctx, started, wall, None)
+                _publish(report)
+                try:
+                    setattr(model, REPORT_ATTR, report)
+                except (AttributeError, TypeError):
+                    pass
+            except Exception:
+                pass  # telemetry must never break a fit
+            return model
+
+        wrapper.__obs_instrumented__ = algo
+        return wrapper
+
+    return decorator
+
+
+__all__ = [
+    "FitContext",
+    "FitReport",
+    "REPORT_ATTR",
+    "attach_report",
+    "current_fit",
+    "fit_instrumentation",
+    "last_fit_report",
+    "observed_fit",
+]

@@ -23,7 +23,8 @@ adding a database:
   cadence (``SPARK_RAPIDS_ML_TORCH_OBS_SAMPLE_MS``, default 1000).
   Counters and gauges sample as-is; a ``Summary`` samples its
   configured quantiles (one series per quantile label) plus its
-  ``_count`` as a counter (the port's registry has no ``Histogram``).
+  ``_count`` as a counter; a ``Histogram`` samples its ``_count`` and
+  ``_sum`` as counters.
   Registered *collectors* (``obs.devmon``'s ``sample``, the serving
   engine's SLO and queue-wait publishers) run at the top of every sweep
   so derived gauges get history too.
@@ -562,6 +563,14 @@ class MetricsSampler:
                 self.store.record(f"{family.name}_count", labels,
                                   sketch.count, kind="counter", now=ts)
                 recorded += 1
+            elif isinstance(family, metrics_mod.Histogram):
+                with child.lock:
+                    count, total = child.count, child.sum
+                self.store.record(f"{family.name}_count", labels,
+                                  count, kind="counter", now=ts)
+                self.store.record(f"{family.name}_sum", labels,
+                                  total, kind="counter", now=ts)
+                recorded += 2
         return recorded
 
     def _publish_overhead(self, elapsed: float, recorded: int) -> None:

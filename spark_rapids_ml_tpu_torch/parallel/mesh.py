@@ -123,6 +123,17 @@ def axis_size(mesh, axis: str) -> int:
     return int(mesh.mesh.shape[mesh.mesh_dim_names.index(axis)])
 
 
+def mesh_shape(mesh) -> dict:
+    """Axes/shape/device summary of a ``DeviceMesh`` for fit reports and
+    logs; the platform is the mesh's device type (``cuda`` or ``cpu``)."""
+    return {
+        "axes": tuple(str(a) for a in (mesh.mesh_dim_names or ())),
+        "shape": tuple(int(s) for s in mesh.mesh.shape),
+        "devices": int(mesh.mesh.numel()),
+        "platform": str(mesh.device_type),
+    }
+
+
 def all_gather_rows(t: torch.Tensor, group) -> torch.Tensor:
     """The group's tensors stacked along dim 0, in group-rank order
     (``all_gather_into_tensor``, named ``all_gather_single`` in newer

@@ -31,8 +31,14 @@ a batch, and feeds the shed controller and ``Retry-After``. Each request
 carries its caller's ``TraceContext``: the worker files its
 ``serve:queue:<model>`` span, runs each batch in a ``serve:batch:<model>``
 span that links every member's trace, and resolves each latch under the
-member's own context. A model without a program keeps the
-blocking path (window depth 1): one ``transform_fn`` call per batch.
+member's own context. A pipelined batch bypasses the model's decorated
+``transform``, so the worker files its ``TransformReport`` itself
+(``obs.serving.PipelineTransform``: the stage / dispatch / sync split, a
+``transform:<algo>`` span under the batch span, the latency summary with
+the batch's trace id as exemplar, the numerics sentinel on the real
+rows). A model without a program keeps the blocking path (window depth
+1): one ``transform_fn`` call per batch, through the model's decorated
+``transform``.
 Each completed batch's union busy time
 (``sparkml_serve_device_busy_seconds_total``) is also attributed to the
 program's device through ``obs.devmon``
@@ -229,9 +235,10 @@ class _InFlight:
     """One batch traveling stage → dispatch → complete; the unit the
     crash and wedge handlers fail."""
 
-    __slots__ = ("batch", "ctx", "handle", "n", "bucket", "watchdog",
-                 "dispatched", "stage_seconds", "dispatch_seconds",
-                 "sync_seconds", "record")
+    __slots__ = ("batch", "ctx", "handle", "n", "bucket", "features",
+                 "bytes_in", "watchdog", "dispatched", "stage_seconds",
+                 "dispatch_seconds", "sync_seconds", "record",
+                 "batch_span_id")
 
     def __init__(self, batch: List[_Request], ctx: tracectx.TraceContext):
         self.batch = batch
@@ -239,12 +246,15 @@ class _InFlight:
         self.handle: Any = None
         self.n = 0
         self.bucket = 0
+        self.features: Optional[int] = None
+        self.bytes_in: Optional[int] = None
         self.watchdog: Optional[int] = None
         self.dispatched = False
         self.stage_seconds = 0.0
         self.dispatch_seconds = 0.0
         self.sync_seconds = 0.0
         self.record: Optional[obs_serving.PipelineTransform] = None
+        self.batch_span_id: Optional[str] = None
 
 
 class _Watchdog:
@@ -378,11 +388,13 @@ class MicroBatcher:
             self._dispatch_fn = async_spec.dispatch
             self._complete_fn = async_spec.complete
             self._record_algo: Optional[str] = async_spec.algo
+            self._precision = async_spec.precision
         else:
             self._stage_fn = _identity
             self._dispatch_fn = self.transform_fn
             self._complete_fn = _identity
             self._record_algo = None
+            self._precision = "native"
         # None → the flight recorder's transform budget; <= 0 / inf
         # disables wedge detection; max_restarts None = unlimited
         if worker_budget_s is None:
@@ -955,7 +967,11 @@ class MicroBatcher:
             if req.trace_ctx and req.trace_ctx.trace_id not in member_ids:
                 member_ids.append(req.trace_ctx.trace_id)
         if self._record_algo:
-            entry.record = obs_serving.PipelineTransform(self._record_algo)
+            # pipelined batches bypass the models' decorated entry points,
+            # so the batcher files the per-batch TransformReport itself
+            entry.record = obs_serving.PipelineTransform(
+                self._record_algo, trace_id=entry.ctx.trace_id,
+                precision=self._precision)
         try:
             # armed BEFORE the host→device copy: a hang inside the copy
             # itself must be caught too
@@ -978,6 +994,8 @@ class MicroBatcher:
                 staged, n = pad_to_bucket(matrix, self.buckets)
             entry.n = n
             entry.bucket = int(staged.shape[0])
+            entry.features = int(staged.shape[1])
+            entry.bytes_in = int(staged.nbytes)
             handle = self._stage_fn(staged)
             if staging is not None:
                 # the slot is rewritten only after this copy completes
@@ -990,7 +1008,12 @@ class MicroBatcher:
                 trace_id=entry.ctx.trace_id, links=tuple(member_ids),
                 requests=len(batch), rows=n, bucket=entry.bucket,
             ):
-                entry.handle = self._dispatch_fn(handle)
+                entry.batch_span_id = spans_mod.current_span_id()
+                if entry.record is not None:
+                    with entry.record.dispatch_scope():
+                        entry.handle = self._dispatch_fn(handle)
+                else:
+                    entry.handle = self._dispatch_fn(handle)
             entry.dispatch_seconds = time.perf_counter() - t1
             with self._not_empty:
                 retired = gen != self._generation
@@ -1075,7 +1098,7 @@ class MicroBatcher:
             self._m_requests.inc(len(entry.batch), model=self.name,
                                  outcome="error")
             return
-        self._record_batch(entry)
+        self._record_batch(entry, out)
         offset = 0
         for req in entry.batch:
             # resolve under the member's own context
@@ -1131,8 +1154,11 @@ class MicroBatcher:
     def _record_depth(self) -> None:
         self._m_depth.set(len(self._queue), model=self.name)
 
-    def _record_batch(self, entry: _InFlight) -> None:
-        """Completion-side telemetry of one served batch."""
+    def _record_batch(self, entry: _InFlight, out: np.ndarray) -> None:
+        """Completion-side telemetry of one served batch (``out``: its
+        real rows), filed before any member's result resolves, so a
+        member's assembled trace already holds the batch's transform
+        span."""
         real_rows, bucket = entry.n, entry.bucket
         self._m_occupancy.set(
             real_rows / bucket if bucket else 0.0, model=self.name)
@@ -1153,4 +1179,9 @@ class MicroBatcher:
         stage.observe(entry.sync_seconds, trace_id=tid, model=self.name,
                       stage="sync")
         if entry.record is not None:
-            entry.record.finish(rows=entry.n)
+            entry.record.add_phase("stage", entry.stage_seconds)
+            entry.record.add_phase("dispatch", entry.dispatch_seconds)
+            entry.record.add_phase("sync", entry.sync_seconds)
+            entry.record.finish(out, rows=entry.n, features=entry.features,
+                                bytes_in=entry.bytes_in,
+                                parent_span_id=entry.batch_span_id)

@@ -89,7 +89,10 @@ from spark_rapids_ml_tpu_torch.obs import accounting as accounting_mod
 from spark_rapids_ml_tpu_torch.obs import spans as spans_mod
 from spark_rapids_ml_tpu_torch.obs import tracectx
 from spark_rapids_ml_tpu_torch.obs.metrics import get_registry
-from spark_rapids_ml_tpu_torch.obs.serving import ServingProgram
+from spark_rapids_ml_tpu_torch.obs.serving import (
+    ServingProgram,
+    check_output_numerics,
+)
 from spark_rapids_ml_tpu_torch.obs.slo import SloSet, default_slos
 from spark_rapids_ml_tpu_torch.serve import breaker as breaker_mod
 from spark_rapids_ml_tpu_torch.serve import faults as faults_mod
@@ -593,12 +596,15 @@ class ServeEngine:
                 "CPU fallback — shedding fast (retry after the cooldown)"
             )
         out = np.asarray(fb(rows))
-        # a fallback that emits NaN is an outage, not a fallback
-        if np.issubdtype(out.dtype, np.floating) and not np.all(
-                np.isfinite(out)):
+        # The degraded path answers AROUND the instrumented transform, so
+        # it runs the numerics sentinel itself: a fallback emitting NaN
+        # is an outage, not a fallback.
+        verdict = check_output_numerics(out)
+        if verdict and (verdict["nan_rows"] or verdict["inf_rows"]):
             self._m_errors.inc(model=entry.name, error="degraded_numerics")
             raise NumericsError(
-                f"{entry.name}: degraded CPU fallback produced non-finite "
+                f"{entry.name}: degraded CPU fallback produced "
+                f"{verdict['nan_rows']} NaN / {verdict['inf_rows']} Inf "
                 "rows")
         self._m_degraded.inc(model=entry.name)
         return out

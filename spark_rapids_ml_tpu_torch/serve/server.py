@@ -67,7 +67,12 @@ generators, probes) without a web framework.
 * ``GET /debug/incidents`` — the auto-incident engine's snapshot
   (``obs.incidents``): open incidents newest first, recently resolved
   ones, the lifecycle totals and knobs, the evidence root, the detector
-  sweeps and the detector catalog.
+  sweeps and the detector catalog;
+* ``GET /dashboard`` — the JAX package's live ops page
+  (``serve.dashboard``), served as ``text/html; charset=utf-8``: tiles
+  and tables polling ``/debug/slo``, ``/healthz``, ``/debug/history``,
+  ``/debug/incidents`` and ``/debug/traces?limit=10`` (its ``/debug/fit``
+  and ``/debug/fleet`` tiles stay empty: those routes are not ported yet).
 
 ``start_serve_server`` starts the history sampler (``obs.tsdb``, with the
 device monitor ``obs.devmon`` as a collector) and registers the engine's
@@ -81,7 +86,9 @@ hit, whose handler runs the reactivation (``serve.tiering``) before it
 enqueues — so ``/metrics``, ``/healthz`` and ``/debug/*`` never touch
 the card (the device monitor reads the allocator's host-side counters; a
 profile capture runs on helper threads of its own). The JAX package's
-other tiers' routes, and its dashboard, are not ported yet.
+other tiers' routes (``/debug/fit``, ``/debug/fleet``,
+``/debug/fleet/export``, ``/debug/rollout``, ``/debug/autoscale``) are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -113,6 +120,7 @@ from spark_rapids_ml_tpu_torch.serve.batching import (
     WorkerCrashed,
 )
 from spark_rapids_ml_tpu_torch.serve.breaker import BreakerOpen
+from spark_rapids_ml_tpu_torch.serve.dashboard import DASHBOARD_HTML
 from spark_rapids_ml_tpu_torch.serve.engine import (
     EngineClosed,
     ServeEngine,
@@ -357,6 +365,10 @@ def make_handler(engine: ServeEngine):
                 status = self._reply(200, engine.tiering_snapshot())
             elif path == "/debug/costs":
                 status = self._reply(200, engine.costs_snapshot())
+            elif path == "/dashboard":
+                status = self._reply_bytes(
+                    200, DASHBOARD_HTML.encode("utf-8"),
+                    "text/html; charset=utf-8")
             else:
                 status = self._reply(404,
                                      {"error": f"unknown path {path!r}"})

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import os
 import warnings
-from typing import Mapping, Optional, Sequence
+from typing import List, Mapping, Optional, Sequence
 
 import torch
 
@@ -90,3 +90,17 @@ def resolve_device(device_id: int = -1) -> torch.device:
     raise ValueError(
         f"deviceId {ordinal} matches none of the {count} visible CUDA devices"
     )
+
+
+def local_devices() -> List[torch.device]:
+    """The port's devices: ``[cpu]`` when the CPU was requested
+    (``SPARK_RAPIDS_ML_TORCH_PLATFORM=cpu``), else every visible CUDA
+    device; raises without either."""
+    if cpu_requested():
+        return [torch.device("cpu")]
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; set "
+            f"{PLATFORM_ENV}=cpu to run on the CPU explicitly"
+        )
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]

@@ -814,3 +814,42 @@ def test_latency_incident_on_the_card_opens_one_and_resolves(capture_dir,
         engine.shutdown()
         flight.unregister_dump_section("metrics_history")
         fresh()
+
+
+# -- fit and transform reports on the card ------------------------------------
+
+
+def test_health_probe_and_watermark_on_the_card(cuda_device):
+    from spark_rapids_ml_tpu_torch.obs import memory
+    from spark_rapids_ml_tpu_torch.utils import health
+
+    verdict = health.check_devices()
+    assert verdict.healthy, verdict.error
+    assert verdict.platform == "cuda"
+    assert verdict.device_count == torch.cuda.device_count()
+    assert verdict.devices == [f"cuda:{i}"
+                               for i in range(torch.cuda.device_count())]
+    block = torch.empty(64 << 20, dtype=torch.uint8, device=cuda_device)
+    wm = memory.memory_watermarks()
+    assert wm["source"] == "cuda"
+    assert wm["per_device"][0]["device"] == "cuda:0"
+    assert wm["peak_bytes"] >= torch.cuda.memory_allocated(0) >= block.numel()
+    assert wm["per_device"][0]["bytes_limit"] == \
+        torch.cuda.get_device_properties(0).total_memory
+    del block
+
+
+def test_fit_and_transform_reports_on_the_card(cuda_device):
+    x = _decaying(4096, 256).astype(np.float32)
+    model = PCA().setK(16).fit(x)
+    rep = model.fit_report_
+    assert rep.device_platform == "cuda" and rep.healthy is True
+    assert rep.device_count == torch.cuda.device_count()
+    assert rep.memory["source"] == "cuda"
+    assert rep.peak_device_bytes >= x.nbytes
+    assert set(rep.phases) == set(model.fit_timings_) | {"total"}
+    model.transform(x[:1024])
+    t = model.transform_report_
+    assert set(t.phases) == {"device_put", "compute", "host_sync", "total"}
+    assert t.rows == 1024 and t.numerics["checked_rows"] == 1024
+    assert t.numerics["nan_rows"] == t.numerics["inf_rows"] == 0

@@ -154,6 +154,11 @@ def test_sampler_reads_the_summary_sketch_as_the_reference_does():
 @pytest.fixture
 def served(rng, monkeypatch):
     monkeypatch.setenv("SPARK_RAPIDS_ML_TORCH_PLATFORM", "cpu")
+    # a registry of its own: the rings keep the 5 slowest observations,
+    # and slower requests served earlier in this process (another test
+    # file on the same worker) would otherwise crowd this request out
+    monkeypatch.setattr(metrics, "_default_registry",
+                        metrics.MetricsRegistry())
     tsdb.reset_tsdb()
     devmon.reset_device_monitor()
     basis = np.linalg.qr(rng.normal(size=(N_FEAT, 3)))[0]

@@ -1,8 +1,7 @@
 """The port's flight recorder (``obs.flight``), held to the JAX package's:
 dump contents, the watchdog firing on a stalled block and not within its
 budget, exception dumps, the dump counter, the cross-thread open-span
-table, the dump's key set (the JAX one less ``device_health_cached`` and
-``compile_log_tail``), and the batcher's wedge writing exactly one
+table, the dump's key set (the JAX one less ``compile_log_tail``), and the batcher's wedge writing exactly one
 ``budget_exceeded:serve_worker:<model>`` dump.
 
 Every dump goes to a ``tmp_path`` through each package's dump-dir env.
@@ -24,6 +23,7 @@ from spark_rapids_ml_tpu.obs import span as jax_span
 from spark_rapids_ml_tpu.obs import tracectx as jax_tracectx
 from spark_rapids_ml_tpu_torch import obs
 from spark_rapids_ml_tpu_torch.obs import devmon, flight, tracectx, tsdb
+from spark_rapids_ml_tpu_torch.obs import report as report_mod
 from spark_rapids_ml_tpu_torch.serve import breaker
 from spark_rapids_ml_tpu_torch.serve.batching import (
     MicroBatcher,
@@ -31,8 +31,9 @@ from spark_rapids_ml_tpu_torch.serve.batching import (
 )
 
 WAIT = 30.0
-# the JAX dump's sections that the port leaves out (report / xprof)
-UNPORTED_DUMP_KEYS = {"device_health_cached", "compile_log_tail"}
+# the JAX dump's section that the port leaves out (xprof: it compiles
+# nothing)
+UNPORTED_DUMP_KEYS = {"compile_log_tail"}
 
 
 @pytest.fixture
@@ -230,7 +231,8 @@ def test_active_spans_cross_thread_visibility():
 
 def test_build_dump_keys_are_the_jax_keys_less_two(dumps):
     """The same registered section in both recorders: the port's document
-    has exactly the JAX keys, less the two sections it cannot fill."""
+    has exactly the JAX keys, less the compile log it cannot fill, and its
+    ``device_health_cached`` is the fit reports' cached verdict."""
     for mod in (flight, jax_flight):
         mod.register_dump_section("parity_section", lambda: {"x": 1})
     try:
@@ -246,6 +248,7 @@ def test_build_dump_keys_are_the_jax_keys_less_two(dumps):
         set(theirs) - jax_sections - UNPORTED_DUMP_KEYS
     assert UNPORTED_DUMP_KEYS <= set(theirs)
     assert not UNPORTED_DUMP_KEYS & set(ours)
+    assert ours["device_health_cached"] == report_mod._health_cache
     # the port's serving sections, registered where JAX registers them
     assert "breaker_events" in own_sections
     assert flight.run_dump_section("parity_section") is None

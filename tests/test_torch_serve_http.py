@@ -152,7 +152,7 @@ def test_healthz_readyz_and_metrics(served):
            'device="cpu"}' in metrics
 
 
-@pytest.mark.parametrize("path", ["/nope", "/dashboard"])
+@pytest.mark.parametrize("path", ["/nope", "/debug/nope"])
 def test_unknown_paths_are_404(served, path):
     _, port, _, _ = served
     assert _get(port, path)[0] == 404
