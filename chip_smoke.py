@@ -200,10 +200,12 @@ Phases (any failure raises and the script exits non-zero):
     ``pca_inc`` (native, pipeline depth 2) behind ``start_serve_server``,
     in a fresh metrics registry (``MetricsRegistry.reset``: phases 5-10's
     slowest requests would otherwise be the exemplars the bundle starts
-    from), with the incident engine on the process-wide sampler, whose
-    thread is stopped: the phase sweeps it itself (``sample_once``) on an
-    injected clock. Baseline: 20 sweeps, two binary requests of 64 rows
-    before each; then a ``latency`` fault on the model whose delay is read
+    from; the singletons that bound families, the fit monitor's among
+    them, are made anew), with the incident engine on the process-wide
+    sampler, whose thread is stopped: the phase sweeps it itself
+    (``sample_once``) on an injected clock, and counts its sweeps from
+    there. Baseline: 20 sweeps, two binary requests of 64 rows before
+    each; then a ``latency`` fault on the model whose delay is read
     off the store's baseline p99 (3 x that p99, never below 150 ms), and
     four requests under it, each held to the native bar. Fails unless
     exactly the second sweep after the fault opens exactly one incident,
@@ -244,11 +246,44 @@ Phases (any failure raises and the script exits non-zero):
     sees it), as ``tests/test_torch_serve_records.py`` fixes for both
     packages. ``GET /dashboard`` must answer 200 ``text/html`` holding
     the page's markers, every URL it fetches that the port serves (and
-    ``/debug/costs``) 200, ``/debug/fit`` and ``/debug/fleet`` 404; no
-    hand kernel launches. Prints the reports' phases (host clock), the
-    watermark and the sentinel's host cost (median of 200 calls on a
-    1024 x 256 float64 output) beside the median batch wall, each with
-    the card's name and power limit.
+    ``/debug/costs``) 200 (``/debug/fit`` among them), ``/debug/fleet``
+    404; no hand kernel launches.
+    Prints the reports' phases (host clock), the watermark and the
+    sentinel's host cost (median of 200 calls on a 1024 x 256 float64
+    output) beside the median batch wall, each with the card's name and
+    power limit.
+13. The fit-path monitor on the card (``obs.fitmon``). In a fresh metrics
+    registry with fresh singletons (as phase 11), ``start_serve_server``
+    (fit (c)'s model, no traffic) starts the process-wide sampler, whose
+    thread is stopped: the phase sweeps it itself on an injected clock,
+    the incident engine on its post-sweep hook (its capture off). A fresh
+    one-rank NCCL world (phase 7 destroyed its own; if it cannot start
+    again the phase fails). On fit (a)'s 262,144 × 4096 float32 rows, k =
+    256: ``distributed_pca_fit`` two pass and one pass, and
+    ``distributed_streaming_pca_fit`` over four 65,536-row chunks, each
+    with the launch counts set to 0 just before it: 1 / 1 / 4 launches,
+    agreement with fit (a)'s model at phase 7's bar, the report's phases
+    (``prepare`` / ``placement`` / ``execute``, or ``stream`` /
+    ``finalize``, and ``total``) and collective bytes, and a ``FitRun``
+    with the steps ``covariance_eigh``, or ``stream_fold`` × 4 and
+    ``finalize``, whose rows are the fit's, every device time > 0, the
+    run's FLOPs the Gram formula rows·n·(n+1) summed over its calls, each
+    step's MFU FLOPs / device seconds / the card's table peak (relative
+    1e-9, in (0, 1]; the card must be in the table), ``covariance_eigh``
+    compute-bound. ``sparkml_fit_device_seconds_total`` must equal
+    devmon's ``fit:<algo>`` device seconds exactly. ``GET /debug/fit``
+    must hold the JAX key set, the table's peaks and a watchdog verdict
+    ``cuda``, ok, with a canary time; of the URLs ``/dashboard`` fetches
+    only ``/debug/fleet`` may answer 404. Then two watchdog drills through
+    the sampler, the builtin detector and the incident engine: an
+    expected platform ``cpu`` on the card, and a canary that blocks; each
+    must open exactly one ``fit_backend_degraded`` incident, keep it on
+    two more sweeps, and resolve it once the watchdog recovers. Prints the
+    peaks beside the card's power limit (and a note below 700 W), each
+    fit's phases and step table (rows, wall and device ms, GFLOP, FLOP/B,
+    MFU, bound), MFU per step, fitmon's cost per step
+    (``component="fitmon"``) and the watchdog's per check, and the
+    streamed fit's wall beside phase 7's unmonitored one (host clock).
 
 Then one JSON line ``{"kernels": [...]}``, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.
@@ -1634,7 +1669,8 @@ def whole_shard_kernel(torch, fg, x_dev):
 
 
 def phase_distributed(torch, fg, device, model_a):
-    """Phase 7. Returns the default precision's kernel launches."""
+    """Phase 7. Returns the default precision's kernel launches and the
+    streamed run's host seconds."""
     import torch.distributed as dist
 
     from spark_rapids_ml_tpu_torch.parallel import (
@@ -1657,6 +1693,7 @@ def phase_distributed(torch, fg, device, model_a):
     check(dist.get_backend() == "nccl", "the card's world runs NCCL")
     kernel = fg.kernel_name(None)
     launched = 0
+    walls = {}
     try:
         x = np.concatenate([chunk(torch, device, i) for i in range(4)])
         log(f"  fit (a)'s data, {x.shape[0]:,} x {x.shape[1]} float32, "
@@ -1694,6 +1731,7 @@ def phase_distributed(torch, fg, device, model_a):
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
             counts = dict(fg.launches)
+            walls[label] = seconds
             log(f"  {label}: {seconds:.2f} s (host clock), launches {counts}")
             check(counts[kernel] == expected and
                   sum(counts.values()) == expected,
@@ -1710,7 +1748,7 @@ def phase_distributed(torch, fg, device, model_a):
     finally:
         dist.destroy_process_group()
     log(f"  phase 7 {time.perf_counter() - t_phase:.1f} s")
-    return launched
+    return launched, walls["DistributedStreamingPCA, 4 chunks"]
 
 
 # -- phase 8: the debug plane ----------------------------------------------------
@@ -2644,6 +2682,7 @@ def phase_incidents(torch, fg, model, device):
     from spark_rapids_ml_tpu_torch.obs import (
         accounting,
         devmon,
+        fitmon,
         flight,
         incidents,
         profiler,
@@ -2683,6 +2722,7 @@ def phase_incidents(torch, fg, model, device):
     reset_fault_plane()
     accounting.reset_ledger()
     incidents.reset_incident_engine()
+    fitmon.reset_fitmon()
     metrics = get_registry()
     registry = ModelRegistry()
     registry.register(INC_MODEL, model)
@@ -2704,6 +2744,9 @@ def phase_incidents(torch, fg, model, device):
         inc_engine = incidents.get_incident_engine()
         check(sampler._post_hooks == [inc_engine._post_sweep],
               f"start_serve_server installed {sampler._post_hooks}")
+        # the thread's first sweep may have run the engine once, if it
+        # ended after start_serve_server installed it: count from here
+        sweeps0 = inc_engine.sweeps
         store = tsdb.get_tsdb()
         overhead = metrics.counter("sparkml_obs_overhead_seconds_total", "",
                                    ("component",))
@@ -2740,8 +2783,9 @@ def phase_incidents(torch, fg, model, device):
             sweep(t_base + s)
         status, doc = http_get(port, "/debug/incidents")
         check(status == 200 and doc["open"] == [] and doc["sweeps"]
-              == INC_SWEEPS, f"after the baseline: {status} open "
-              f"{doc.get('open')}, sweeps {doc.get('sweeps')}")
+              == sweeps0 + INC_SWEEPS, f"after the baseline: {status} open "
+              f"{doc.get('open')}, sweeps {doc.get('sweeps')} from "
+              f"{sweeps0}")
         (p99,) = store.range_query(
             "sparkml_serve_request_latency_seconds",
             {"model": INC_MODEL, "quantile": "0.99"}, 60.0,
@@ -2953,8 +2997,8 @@ SENTINEL_CALLS = 200
 LATENCY_QUANTILE_LABELS = ["0.5", "0.95", "0.99"]
 DASHBOARD_SERVED = ("/debug/slo", "/healthz", "/debug/history",
                     "/debug/incidents", "/debug/traces?limit=10",
-                    "/debug/costs")
-DASHBOARD_NOT_YET = ("/debug/fit", "/debug/fleet")
+                    "/debug/costs", "/debug/fit")
+DASHBOARD_NOT_YET = ("/debug/fleet",)
 
 
 def record_counters(metrics) -> dict:
@@ -3178,6 +3222,439 @@ def phase_reports(torch, model, device):
     log(f"  phase 12 {time.perf_counter() - t_phase:.1f} s")
 
 
+# -- phase 13: the fit-path monitor on the card -------------------------------
+
+FITMON_DOC_KEYS = {"enabled", "active", "recent", "rollup", "watchdog",
+                   "straggler_ratio", "peaks"}
+FITMON_PHASES = {"distributed_pca": {"prepare", "placement", "execute",
+                                     "total"},
+                 "distributed_streaming_pca": {"stream", "finalize",
+                                               "total"}}
+MFU_RTOL = 1e-9
+DRILL_MAX_SWEEPS = 20     # sweeps a drill may take to open, then to resolve
+WATCHDOG_CHECKS = 5       # direct checks timed for the cost per check
+FULL_POWER_W = 700.0      # the power limit NVIDIA's published peaks assume
+
+
+def gram_flops(rows_list, n):
+    """The Gram formula summed over the calls: rows·n·(n+1) each."""
+    return sum(rows * n * (n + 1) for rows in rows_list)
+
+
+def fitmon_fit(torch, fg, fitmon, label, fit, expected, kernel):
+    """One monitored fit with the launch counts set to 0 just before it;
+    returns (result, its FitRun, host seconds, launches)."""
+    torch.cuda.synchronize()
+    fg.reset_launches()
+    t0 = time.perf_counter()
+    result = fit()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = dict(fg.launches)
+    check(counts[kernel] == expected and sum(counts.values()) == expected,
+          f"{label}: launches {counts}, expected {expected} of {kernel}")
+    run = fitmon.get_fit_monitor().recent_runs()[0]
+    return result, run, seconds, counts[kernel]
+
+
+def drill(fitmon, inc_engine, sweep, ts, watchdog, recover, label):
+    """Degrade the fit monitor's watchdog, sweep until exactly one
+    ``fit_backend_degraded`` incident opens, recover it, sweep until it
+    resolves. Returns (sweeps to open, sweeps to resolve, next timestamp)."""
+    manager = inc_engine.manager
+    opened0, resolved0 = manager.opened_total, manager.resolved_total
+    fitmon.get_fit_monitor().watchdog = watchdog
+    to_open = 0
+    while manager.opened_total == opened0:
+        check(to_open < DRILL_MAX_SWEEPS, f"{label}: no incident after "
+              f"{to_open} sweeps ({watchdog.last_verdict()})")
+        sweep(ts)
+        ts += 1.0
+        to_open += 1
+    opened = manager.open_incidents()
+    check(len(opened) == 1 and opened[0]["detector"] == fitmon.INCIDENT_NAME
+          and manager.opened_total == opened0 + 1,
+          f"{label}: open incidents {opened}")
+    verdict = watchdog.last_verdict()
+    for _ in range(2):  # still degraded: the same incident, no second one
+        sweep(ts)
+        ts += 1.0
+    check(manager.opened_total == opened0 + 1
+          and len(manager.open_incidents()) == 1,
+          f"{label}: {manager.opened_total - opened0} incidents opened")
+    recover()
+    to_resolve = 0
+    while manager.resolved_total == resolved0:
+        check(to_resolve < DRILL_MAX_SWEEPS, f"{label}: not resolved after "
+              f"{to_resolve} sweeps ({watchdog.last_verdict()})")
+        sweep(ts)
+        ts += 1.0
+        to_resolve += 1
+    recent = [r for r in manager.recent_incidents()
+              if r["id"] == opened[0]["id"]]
+    check(manager.open_incidents() == [] and recent
+          and recent[0]["state"] == "resolved"
+          and manager.opened_total == opened0 + 1,
+          f"{label}: after recovery open {manager.open_incidents()}")
+    check(watchdog.last_verdict()["ok"] is True,
+          f"{label}: recovered verdict {watchdog.last_verdict()}")
+    log(f"  drill {label}: verdict {verdict['reason']} (platform "
+        f"{verdict['platform']}, canary {verdict['canary']}); one "
+        f"{fitmon.INCIDENT_NAME} incident ({opened[0]['severity']}) after "
+        f"{to_open} sweeps, resolved {to_resolve} sweeps after recovery")
+    return to_open, to_resolve, ts
+
+
+def phase_fitmon(torch, fg, device, model_a, model_c, streamed7_s):
+    """Phase 13: the data-parallel PCA fits under the fit-path monitor in a
+    fresh one-rank NCCL world, ``GET /debug/fit`` and the dashboard over
+    HTTP, and the watchdog's two incident drills through the process-wide
+    sampler, the builtin detector and the incident engine on an injected
+    clock. Returns the kernel launches."""
+    import gc
+    import shutil
+    import threading
+
+    import torch.distributed as dist
+
+    from spark_rapids_ml_tpu_torch.data.batches import BatchSource
+    from spark_rapids_ml_tpu_torch.obs import (
+        accounting,
+        devmon,
+        fitmon,
+        flight,
+        incidents,
+        tsdb,
+    )
+    from spark_rapids_ml_tpu_torch.obs.metrics import get_registry
+    from spark_rapids_ml_tpu_torch.parallel import (
+        data_mesh,
+        distributed_pca_fit,
+        distributed_streaming_pca_fit,
+        initialize_multihost,
+    )
+    from spark_rapids_ml_tpu_torch.parallel.mesh import collective_nbytes
+    from spark_rapids_ml_tpu_torch.serve import (
+        ModelRegistry,
+        ServeEngine,
+        reset_fault_plane,
+        start_serve_server,
+    )
+    from spark_rapids_ml_tpu_torch.serve.dashboard import DASHBOARD_HTML
+    from spark_rapids_ml_tpu_torch.utils.platform import (
+        PEAK_FLOPS_BF16,
+        PEAK_HBM_BYTES_PER_SECOND,
+    )
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi_line()
+    kind = torch.cuda.get_device_name(0)
+    check(kind in PEAK_FLOPS_BF16, f"{kind!r} has no entry in the peak "
+          f"table: MFU would be absent")
+    peak_flops = PEAK_FLOPS_BF16[kind]
+    peak_bw = PEAK_HBM_BYTES_PER_SECOND[kind]
+    limit_w = float(smi.rsplit(",", 1)[1].strip().split()[0])
+    log(f"  peaks for {kind}: {peak_flops:.4g} FLOP/s bf16 dense, "
+        f"{peak_bw:.4g} B/s (NVIDIA's published figures at "
+        f"{FULL_POWER_W:.0f} W); this card's power limit {limit_w:.2f} W")
+    if limit_w < FULL_POWER_W:
+        log(f"  the power limit is below {FULL_POWER_W:.0f} W: the peaks "
+            f"assume {FULL_POWER_W:.0f} W, so MFU here reads low")
+    saved = {k: os.environ.pop(k, None)
+             for k in (flight.DUMP_DIR_ENV, incidents.ENABLED_ENV,
+                       incidents.CAPTURE_ENV)}
+    dump_root = tempfile.mkdtemp(prefix="chip_smoke_fitmon_")
+    os.environ[flight.DUMP_DIR_ENV] = dump_root
+    os.environ[incidents.CAPTURE_ENV] = "0"  # the drills need no capture
+    # a fresh registry and fresh singletons, as phase 11 makes: the device
+    # seconds of fitmon and devmon then start from 0 together
+    get_registry().reset()
+    gc.collect()
+    tsdb.reset_tsdb()
+    devmon.reset_device_monitor()
+    reset_fault_plane()
+    accounting.reset_ledger()
+    incidents.reset_incident_engine()
+    fitmon.reset_fitmon()
+    metrics = get_registry()
+    registry = ModelRegistry()
+    registry.register("pca", model_c)
+    engine = ServeEngine(registry, max_batch_rows=SERVE_MAX_ROWS,
+                         pipeline_depth=2, precision="native")
+    server = sampler = None
+    release = threading.Event()
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    coordinator = f"127.0.0.1:{free_port()}"
+    try:
+        initialize_multihost(coordinator, num_processes=1, process_id=0)
+    except Exception as exc:
+        # phase 7 destroyed its world; a second world in one process that
+        # cannot start fails the phase, and with it the smoke
+        raise RuntimeError(f"phase 13: the one-rank NCCL world did not "
+                           f"start again at {coordinator}: {exc!r}") from exc
+    kernel = fg.kernel_name(None)
+    launched = 0
+    try:
+        check(dist.get_backend() == ("nccl" if device.type == "cuda"
+                                     else "gloo"),
+              f"the world runs {dist.get_backend()} on {device}")
+        server = start_serve_server(engine, port=0, addr="127.0.0.1")
+        port = server.server_address[1]
+        sampler = tsdb.get_sampler()
+        sampler.stop()  # the phase sweeps it itself, on an injected clock
+        monitor = fitmon.get_fit_monitor()
+        inc_engine = incidents.get_incident_engine()
+        check(monitor.watchdog_collector in sampler._collectors
+              and sampler._post_hooks == [inc_engine._post_sweep],
+              f"collectors {sampler._collectors}, hooks "
+              f"{sampler._post_hooks}")
+
+        x = np.concatenate([chunk(torch, device, i) for i in range(4)])
+        rows, n = x.shape
+        mesh = data_mesh(1)
+        log(f"  fit (a)'s data, {rows:,} x {n} float32, k = {K}, default "
+            f"gramPrecision ({kernel}); world rank {dist.get_rank()} of "
+            f"{dist.get_world_size()}, backend {dist.get_backend()}")
+        two = [collective_nbytes((n + 2,), np.float32),
+               collective_nbytes((n, n), np.float32)]
+        packed = [collective_nbytes((n * n + n + 2,), np.float32)]
+        # label, algo, fit, launches, steps, Gram rows per call, collectives
+        fits = (
+            ("distributed_pca_fit two pass", "distributed_pca",
+             lambda: distributed_pca_fit(x, K, mesh), 1,
+             ["covariance_eigh"], [rows], two),
+            ("distributed_pca_fit one pass", "distributed_pca",
+             lambda: distributed_pca_fit(x, K, mesh, one_pass=True), 1,
+             ["covariance_eigh"], [rows], packed),
+            ("distributed_streaming_pca_fit, 4 chunks",
+             "distributed_streaming_pca",
+             lambda: distributed_streaming_pca_fit(
+                 BatchSource(x, batch_rows=CHUNK_ROWS), K, mesh), 4,
+             ["stream_fold"] * 4 + ["finalize"], [CHUNK_ROWS] * 4, packed),
+        )
+        overhead = metrics.counter("sparkml_obs_overhead_seconds_total", "",
+                                   ("component",))
+        mfus = []
+        walls = {}
+        for label, algo, fit, expected, steps, gram_rows, coll in fits:
+            result, run, seconds, count = fitmon_fit(
+                torch, fg, fitmon, label, fit, expected, kernel)
+            launched += count
+            walls[label] = seconds
+            compare_to_fit_a(label, result, model_a)
+            rep = result.fit_report_
+            check(run.algo == rep.algo == algo and not run.active,
+                  f"{label}: run {run.algo}, report {rep.algo}")
+            check(set(rep.phases) == FITMON_PHASES[algo],
+                  f"{label}: phases {sorted(rep.phases)}")
+            check(rep.collectives == {"all_reduce": {
+                "count": len(coll), "bytes": sum(coll)}},
+                f"{label}: collectives {rep.collectives}")
+            table = list(run.steps)
+            check([s["step"] for s in table] == steps,
+                  f"{label}: steps {[s['step'] for s in table]}")
+            if algo == "distributed_pca":
+                check(table[0]["rows"] == rows, f"{label}: rows "
+                      f"{table[0]['rows']}")
+            else:
+                check(sum(s["rows"] for s in table[:-1]) == rows
+                      and table[-1]["rows"] == rows,
+                      f"{label}: rows {[s['rows'] for s in table]}")
+            check(all(s["device_seconds"] > 0 and not s["failed"]
+                      for s in table), f"{label}: a step without device "
+                  f"time or failed")
+            want = gram_flops(gram_rows, n)
+            check(run.flops_total == want == rep.analytic_flops,
+                  f"{label}: FLOPs {run.flops_total} (report "
+                  f"{rep.analytic_flops}), the Gram formula {want}")
+            check(run.report is not None and run.report["rows"] == rows
+                  and run.report["collective_bytes"] == sum(coll),
+                  f"{label}: the run's joined report {run.report}")
+            log(f"  {label}: {seconds:.3f} s (host clock), {count} launch"
+                f"{'es' if count > 1 else ''}, phases " + ", ".join(
+                    f"{k} {v * 1e3:.3f} ms" for k, v in sorted(
+                        rep.phases.items()))
+                + f"; analytic MFU over the fit's wall "
+                f"{rep.analytic_mfu:.3e}")
+            log(f"    {'step':<16}{'rows':>9}{'wall ms':>12}{'device ms':>12}"
+                f"{'GFLOP':>10}{'FLOP/B':>9}{'MFU':>11}  bound")
+            for s in table:
+                flops = s["flops"]
+                if flops:
+                    mfu = flops / s["device_seconds"] / peak_flops
+                    check(abs(s["mfu"] - mfu) <= MFU_RTOL * mfu
+                          and 0 < s["mfu"] <= 1.0,
+                          f"{label} {s['step']}: MFU {s['mfu']} against "
+                          f"{mfu}")
+                    mfus.append((label, s["step"], s["mfu"]))
+                else:
+                    check(s["mfu"] is None, f"{label} {s['step']}: an MFU "
+                          f"without FLOPs")
+                intensity = (flops / s["bytes_accessed"] if flops else None)
+                if flops:
+                    # at 4096 features ≈ 1008 FLOP/B against a ridge of
+                    # ≈ 295: compute-bound
+                    want = ("compute" if intensity >= peak_flops / peak_bw
+                            else "memory")
+                    check(s["bound"] == want, f"{label}: roofline "
+                          f"{s['bound']} at {intensity} FLOP/B")
+                log(f"    {s['step']:<16}{s['rows']:>9}"
+                    f"{s['wall_seconds'] * 1e3:>12.3f}"
+                    f"{s['device_seconds'] * 1e3:>12.3f}"
+                    f"{(flops or 0) / 1e9:>10.1f}"
+                    f"{intensity or 0:>9.1f}"
+                    f"{s['mfu'] if s['mfu'] is not None else 0:>11.3e}  "
+                    f"{s['bound']}")
+            del result
+        log(f"  ridge point {peak_flops / peak_bw:.1f} FLOP/B; the streamed "
+            f"fit {walls[fits[2][0]]:.3f} s here (4 steps, each ending in a "
+            f"device sync) against phase 7's DistributedStreamingPCA over "
+            f"the same chunks {streamed7_s:.3f} s (no monitor), host clock "
+            f"({smi})")
+        steps_total = sum(len(f[4]) for f in fits)
+        per_step = overhead.value(component="fitmon") / steps_total
+        log(f"  fitmon's own cost: {per_step * 1e3:.4f} ms per step over "
+            f"{steps_total} steps (sparkml_obs_overhead_seconds_total"
+            f"{{component=\"fitmon\"}}, host clock; the step's sync is "
+            f"not in it)")
+
+        # fitmon's and devmon's device seconds: one measured duration each
+        fit_s = metrics.counter("sparkml_fit_device_seconds_total", "",
+                                ("algo", "step"))
+        batch_s = metrics.counter("sparkml_serve_device_batch_seconds_total",
+                                  "", ("model", "device"))
+        for algo in FITMON_PHASES:
+            ours = sum(fit_s.value(algo=algo, step=step)
+                       for step in sorted({s for f in fits if f[1] == algo
+                                           for s in f[4]}))
+            theirs = batch_s.value(
+                model=f"fit:{algo}",
+                device=devmon.get_device_monitor().default_device_label())
+            check(ours > 0 and ours - theirs == 0.0,
+                  f"{algo}: fitmon {ours!r} s, devmon {theirs!r} s")
+            log(f"  {algo}: sparkml_fit_device_seconds_total {ours:.6f} s = "
+                f"devmon fit:{algo} {theirs:.6f} s (drift 0)")
+
+        # the watchdog, read through the sampler; then /debug/fit over HTTP.
+        # The injected clock runs ahead of the wall clock: the sampler's
+        # thread swept once at its start, and a series keeps its points in
+        # time order (an earlier point would be dropped)
+        t_base = time.time() + 60.0
+
+        def sweep(ts):
+            sampler.sample_once(now=ts)
+
+        sweep(t_base)
+        status, doc = http_get(port, "/debug/fit")
+        check(status == 200 and set(doc) == FITMON_DOC_KEYS,
+              f"/debug/fit: {status} keys {sorted(doc)}")
+        verdict = doc["watchdog"]
+        check(verdict is not None and verdict["ok"] is True
+              and verdict["platform"] == "cuda"
+              and verdict["device_kind"] == kind
+              and verdict["device_count"] == torch.cuda.device_count()
+              and verdict["canary"] == "ok"
+              and verdict["canary_seconds"] > 0,
+              f"/debug/fit watchdog {verdict}")
+        check(doc["peaks"] == {"flops_per_second": peak_flops,
+                               "hbm_bytes_per_second": peak_bw},
+              f"/debug/fit peaks {doc['peaks']}")
+        check(len(doc["recent"]) == 3 and doc["active"] == []
+              and set(doc["rollup"]) == set(FITMON_PHASES)
+              and doc["rollup"]["distributed_pca"]["runs"] == 2,
+              f"/debug/fit runs: recent {len(doc['recent'])}, rollup "
+              f"{sorted(doc['rollup'])}")
+        fetched = sorted(set(re.findall(r'fetch\("([^"]+)"\)',
+                                        DASHBOARD_HTML)))
+        answered = {url: http_get_raw(port, url)[0] for url in fetched}
+        check(answered["/debug/fit"] == 200
+              and [u for u, s in answered.items() if s != 200]
+              == ["/debug/fleet"] and answered["/debug/fleet"] == 404,
+              f"the dashboard's URLs answer {answered}")
+        log(f"  /debug/fit: 200, keys {sorted(doc)}; watchdog "
+            f"{verdict['platform']} ({verdict['device_kind']}, "
+            f"{verdict['device_count']} card) ok, canary "
+            f"{verdict['canary_seconds'] * 1e3:.3f} ms; peaks "
+            f"{doc['peaks']}; the dashboard's URLs {answered}")
+        wd = fitmon.BackendWatchdog()
+        costs = []
+        for _ in range(WATCHDOG_CHECKS):
+            t0 = time.perf_counter()
+            check(wd.check()["ok"], "a direct watchdog check on the card")
+            costs.append(time.perf_counter() - t0)
+        log(f"  the watchdog's cost per check (the canary on a helper "
+            f"thread included): median {np.median(costs) * 1e3:.3f} ms, "
+            f"max {max(costs) * 1e3:.3f} ms over {WATCHDOG_CHECKS} checks "
+            f"(host clock, {smi})")
+
+        # -- the drills: through the sampler, detector and engine ----------
+        clock = {"t": t_base + 1.0}
+
+        def clocked_sweep(ts):
+            clock["t"] = ts
+            sweep(ts)
+
+        mismatch = fitmon.BackendWatchdog(
+            expected_platform="cpu", interval_s=1.0,
+            clock=lambda: clock["t"])
+
+        def fix_expectation():
+            mismatch.expected_platform = None
+
+        _o, _r, ts = drill(fitmon, inc_engine, clocked_sweep, clock["t"],
+                           mismatch, fix_expectation,
+                           "expected_platform='cpu' on the card")
+        wedged = {"on": True}
+
+        def canary():
+            if wedged["on"]:
+                release.wait(120.0)  # a card that stopped answering
+            else:
+                torch.zeros(8, device=device).sum().item()
+
+        blocked = fitmon.BackendWatchdog(
+            interval_s=1.0, canary_timeout_s=0.05, canary_fn=canary,
+            clock=lambda: clock["t"])
+
+        def unblock():
+            wedged["on"] = False
+            release.set()
+
+        # past the incident key's cooldown on the injected clock
+        ts += inc_engine.manager.cooldown_seconds + 1.0
+        drill(fitmon, inc_engine, clocked_sweep, ts, blocked, unblock,
+              "a canary that blocks")
+        check(inc_engine.manager.opened_total == 2
+              and inc_engine.manager.resolved_total == 2,
+              f"incidents opened {inc_engine.manager.opened_total}, "
+              f"resolved {inc_engine.manager.resolved_total}: another "
+              f"detector fired")
+    finally:
+        release.set()
+        dist.destroy_process_group()
+        if sampler is not None:
+            incidents.get_incident_engine().uninstall(sampler)
+        incidents.reset_incident_engine()
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+        engine.shutdown()
+        tsdb.reset_tsdb()
+        fitmon.reset_fitmon()
+        for key in (flight.DUMP_DIR_ENV, incidents.CAPTURE_ENV):
+            os.environ.pop(key, None)
+        for key, value in saved.items():
+            if value is not None:
+                os.environ[key] = value
+        shutil.rmtree(dump_root, ignore_errors=True)
+    mfu_text = ", ".join(f"{label.split(',')[0]} {step} {m:.3e}"
+                         for label, step, m in mfus)
+    log(f"  MFU per step against {peak_flops:.4g} FLOP/s: {mfu_text} "
+        f"({smi})")
+    log(f"  phase 13 {time.perf_counter() - t_phase:.1f} s")
+    return launched
+
+
 def build_fresh(cuda_build):
     """Build the Gram library anew, so ``ptxas -v`` reports on it."""
     path = cuda_build.library_path("fused_gram")
@@ -3246,8 +3723,8 @@ def main() -> int:
           "kernel")
 
     log("[7] PCA across ranks")
-    distributed = {fg.kernel_name(None): phase_distributed(
-        torch, fg, device, model_a)}
+    launched7, streamed7_s = phase_distributed(torch, fg, device, model_a)
+    distributed = {fg.kernel_name(None): launched7}
 
     log("[8] the debug plane")
     occupancy8 = phase_debug(torch, fg, model_c, device, served_rps)
@@ -3278,10 +3755,15 @@ def main() -> int:
     check(sum(report_launches.values()) == 0,
           "the reports phase launched a kernel")
 
+    log("[13] the fit-path monitor on the card")
+    monitored = {fg.kernel_name(None): phase_fitmon(
+        torch, fg, device, model_a, model_c, streamed7_s)}
+
     kernels = []
     for name, m in measured.items():
         check(launches.get(name, 0) > 0, f"{name} not launched on the main path")
-        by_phase = {"4": launches[name], "7": distributed.get(name, 0)}
+        by_phase = {"4": launches[name], "7": distributed.get(name, 0),
+                    "13": monitored.get(name, 0)}
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES, "launches": sum(by_phase.values()),

@@ -14,7 +14,9 @@ recorder and its watchdog (``obs.flight``), on-demand ``torch.profiler``
 captures (``obs.profiler``), the retention sweeper for their on-disk
 artifacts (``obs.retention``), and the auto-incident engine: robust
 statistics (``obs.robust``), online detectors (``obs.anomaly``) and the
-incident lifecycle with its evidence bundles (``obs.incidents``)."""
+incident lifecycle with its evidence bundles (``obs.incidents``), and the
+fit-path monitor (``obs.fitmon``: per-step rows/s, device time and MFU
+against the card's peak from ``obs.xprof``, the backend watchdog)."""
 
 from spark_rapids_ml_tpu_torch.obs.metrics import (  # noqa: F401
     Counter,
@@ -100,6 +102,27 @@ from spark_rapids_ml_tpu_torch.obs.devmon import (  # noqa: F401
     get_device_monitor,
 )
 from spark_rapids_ml_tpu_torch.obs import profiler  # noqa: F401
+from spark_rapids_ml_tpu_torch.obs.fitmon import (  # noqa: F401
+    BackendWatchdog,
+    FitMonitor,
+    FitRun,
+    StepMonitor,
+    current_run,
+    debug_fit_doc,
+    detect_stragglers,
+    device_peaks,
+    fit_report,
+    fit_run,
+    get_fit_monitor,
+    reset_fitmon,
+    roofline_bound,
+    step_mfu,
+)
+from spark_rapids_ml_tpu_torch.obs.xprof import (  # noqa: F401
+    analytic_mfu,
+    peak_flops_per_second,
+    record_execution,
+)
 from spark_rapids_ml_tpu_torch.obs.tracectx import (  # noqa: F401
     TRACEPARENT_HEADER,
     TraceContext,
@@ -144,6 +167,7 @@ from spark_rapids_ml_tpu_torch.utils.health import (  # noqa: F401
 
 __all__ = [
     "BURN_POLICIES",
+    "BackendWatchdog",
     "Counter",
     "DEFAULT_BUCKETS",
     "DUMP_DIR_ENV",
@@ -153,7 +177,9 @@ __all__ = [
     "FIT_BUDGET_ENV",
     "Finding",
     "FitContext",
+    "FitMonitor",
     "FitReport",
+    "FitRun",
     "Gauge",
     "Histogram",
     "Incident",
@@ -169,6 +195,7 @@ __all__ = [
     "SloSet",
     "SpanEvent",
     "SpanRecorder",
+    "StepMonitor",
     "StructuredLogger",
     "Summary",
     "TRACEPARENT_HEADER",
@@ -183,6 +210,7 @@ __all__ = [
     "WindowedCounts",
     "activate",
     "active_spans",
+    "analytic_mfu",
     "assemble_trace",
     "attach_report",
     "build_dump",
@@ -193,18 +221,25 @@ __all__ = [
     "check_output_numerics",
     "current_context",
     "current_fit",
+    "current_run",
     "current_span_id",
     "current_trace_id",
     "current_transform",
     "deadline",
+    "debug_fit_doc",
     "default_slos",
+    "detect_stragglers",
     "device_memory_stats",
+    "device_peaks",
     "dump",
     "dump_dir",
     "ensure_context",
     "fit_instrumentation",
+    "fit_report",
+    "fit_run",
     "flight",
     "get_device_monitor",
+    "get_fit_monitor",
     "get_incident_engine",
     "get_logger",
     "get_recorder",
@@ -228,15 +263,20 @@ __all__ = [
     "observed_transform",
     "parse_traceparent",
     "peak_bytes_in_use",
+    "peak_flops_per_second",
     "profiler",
     "recent_traces",
     "record_event",
+    "record_execution",
     "record_memory_metrics",
+    "reset_fitmon",
     "reset_incident_engine",
     "retention",
+    "roofline_bound",
     "severity_for_burn",
     "span",
     "start_sampling",
+    "step_mfu",
     "stop_sampling",
     "traced_thread",
     "transform_phase",

@@ -90,6 +90,7 @@ import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
+from spark_rapids_ml_tpu_torch.obs.fitmon import FIT_MODEL_PREFIX
 from spark_rapids_ml_tpu_torch.obs.metrics import get_registry
 
 ACCOUNTING_ENV = "SPARK_RAPIDS_ML_TORCH_OBS_ACCOUNTING"
@@ -476,7 +477,10 @@ class ResourceLedger:
         per-model drift-ratio gauge and a verdict counter; returns the
         full comparison. Models below ``reconcile_min_seconds`` of
         devmon busy-time are skipped (ratios over microseconds are
-        noise, not evidence)."""
+        noise, not evidence). Device time the fit monitor attributes to
+        ``fit:<algo>`` is a fit's, not a served model's, so it is left
+        out: the JAX ledger counts it as ``(overflow)`` and reads a fit
+        run in a serving process as drift."""
         devmon_by_model: Dict[str, float] = {}
         try:
             family = get_registry().counter(
@@ -487,6 +491,8 @@ class ResourceLedger:
             for key, child in family._samples():
                 labels = family._label_dict(key)
                 raw = labels.get("model", "(unknown)")
+                if raw.startswith(FIT_MODEL_PREFIX):
+                    continue
                 with self._lock:
                     label = (raw if raw in self._known_models
                              else OVERFLOW_MODEL)

@@ -524,7 +524,7 @@ def builtin_detectors(
             kind="rollout", severity="critical",
             stale_after=max(2 * w, 120.0),
         ),
-        # The fit-path backend watchdog (fitmon, not ported yet): the
+        # The fit-path backend watchdog (obs.fitmon): the
         # gauge drops to 0 when the resolved platform silently differs
         # from the configured expectation or the canary dispatch wedges —
         # a fit that fell back to the CPU and nobody noticed. The

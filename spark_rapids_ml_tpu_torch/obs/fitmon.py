@@ -1,0 +1,1040 @@
+"""Fit-path observability plane: step monitor, MFU/roofline attribution,
+collective skew, and a backend-health watchdog.
+
+The port's copy of the JAX package's ``obs/fitmon.py``, with its names,
+metric names, document keys and defaults. It is the fit half of the
+observability contract:
+
+* ``FitRun`` / ``StepMonitor`` — a context distributed fits enter (the
+  data-parallel PCA fits' covariance pass, each streamed fold and the
+  finalize). Every step records wall time, device
+  time (the same measured duration ``obs.devmon`` meters, so the two
+  planes reconcile by construction), rows/sec, and convergence scalars
+  as ``sparkml_fit_*`` TSDB series plus ``fit:step:*`` spans that land
+  in the existing Chrome-trace export.
+* MFU/roofline attribution — the analytic FLOPs/bytes the port's
+  programs file through ``obs.xprof.record_execution`` (the Gram's, from
+  ``ops.covariance.centered_gram``), divided by the step's measured
+  device time against the per-device-kind peak tables in
+  ``utils.platform``. Arithmetic intensity against the ridge point
+  classifies each step compute-bound vs memory-bound. Unknown device
+  kinds (CPU included) degrade to *absent* — never a made-up peak.
+* Per-host skew — ``note_host_step`` collects per-host step timings from
+  the ``parallel/multihost.py`` seams; ``detect_stragglers`` flags a
+  host whose mean step time exceeds the fleet median by a configurable
+  ratio (``SPARK_RAPIDS_ML_TORCH_FITMON_STRAGGLER_RATIO``, default 1.5).
+* ``BackendWatchdog`` — samples the resolved platform (``cuda``, or
+  ``cpu`` when ``SPARK_RAPIDS_ML_TORCH_PLATFORM=cpu`` asked for it),
+  device count, and a tiny canary dispatch at bounded cadence,
+  publishing ``sparkml_fit_backend_ok``. The ``fit_backend_degraded``
+  builtin ThresholdDetector (obs.anomaly) raises exactly one
+  auto-resolving incident when the platform silently differs from the
+  configured expectation (``SPARK_RAPIDS_ML_TORCH_FITMON_EXPECT_PLATFORM``),
+  no card is visible, or the canary wedges — a fit quietly running on
+  the CPU, or a card that stopped answering, noticed live.
+
+Step timing on the card: PyTorch returns before the device finishes, so
+``StepMonitor`` synchronizes the current CUDA device before it reads the
+step's end (when CUDA is initialized). A step's wall, and the device time
+it defaults to, then covers the device work the step launched, as the JAX
+package's blocked steps do; without it a streamed fold would time its
+launch alone and its MFU would mean nothing. (The JAX ``stream_fold`` step
+does not block, so it measures placement and dispatch only.) The sync
+costs one device round trip per step.
+
+Surfaces: ``GET /debug/fit`` (serve/server.py), dashboard tiles, and the
+``fit_report()`` rollup. Telemetry never raises into a fit; every
+public entry point is exception-guarded. Clocks are injectable
+(``clock: Callable = time.time`` default-reference only);
+``time.perf_counter`` is used for durations.
+
+Knobs (env): SPARK_RAPIDS_ML_TORCH_FITMON (default 1),
+SPARK_RAPIDS_ML_TORCH_FITMON_HISTORY (32 recent runs),
+SPARK_RAPIDS_ML_TORCH_FITMON_MAX_STEPS (256 step rows kept per run —
+totals keep counting past the cap),
+SPARK_RAPIDS_ML_TORCH_FITMON_STRAGGLER_RATIO (1.5),
+SPARK_RAPIDS_ML_TORCH_FITMON_EXPECT_PLATFORM (unset = no expectation),
+SPARK_RAPIDS_ML_TORCH_FITMON_WATCHDOG_S (30),
+SPARK_RAPIDS_ML_TORCH_FITMON_CANARY_TIMEOUT_S (5),
+SPARK_RAPIDS_ML_TORCH_FITMON_PEAK_FLOPS / _PEAK_BW (override the
+per-device-kind peak table — the extension seam for unlisted kinds).
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+import contextvars
+import os
+import threading
+import time
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
+
+import torch
+
+from spark_rapids_ml_tpu_torch.obs.metrics import get_registry
+
+INCIDENT_NAME = "fit_backend_degraded"
+BACKEND_OK_METRIC = "sparkml_fit_backend_ok"
+# the devmon model label a fit's step device time is attributed to
+FIT_MODEL_PREFIX = "fit:"
+
+
+def _env_float(name: str, default: float) -> float:
+    try:
+        return float(os.environ.get(name, default))
+    except ValueError:
+        return default
+
+
+def _env_int(name: str, default: int) -> int:
+    try:
+        return int(os.environ.get(name, default))
+    except ValueError:
+        return default
+
+
+# -- pure roofline/skew math (unit-testable, no device) ---------------------
+
+
+def step_mfu(flops: Optional[float], device_seconds: Optional[float],
+             peak_flops: Optional[float]) -> Optional[float]:
+    """FLOPs over device time over the chip peak; None when any input is
+    unknown — an unknown device kind must never produce a fake MFU."""
+    if not flops or not device_seconds or device_seconds <= 0:
+        return None
+    if not peak_flops:
+        return None
+    return flops / device_seconds / peak_flops
+
+
+def roofline_bound(flops: Optional[float], nbytes: Optional[float],
+                   peak_flops: Optional[float],
+                   peak_bw: Optional[float]) -> Optional[str]:
+    """``"compute"`` or ``"memory"`` from arithmetic intensity vs the
+    ridge point ``peak_flops / peak_bw``; None when any side is unknown."""
+    if not flops or not nbytes or not peak_flops or not peak_bw:
+        return None
+    intensity = flops / nbytes
+    ridge = peak_flops / peak_bw
+    return "compute" if intensity >= ridge else "memory"
+
+
+def detect_stragglers(host_seconds: Dict[str, float],
+                      ratio: float = 1.5) -> Dict[str, Any]:
+    """Flag hosts whose mean step time exceeds the fleet median by
+    ``ratio``. Pure: feed it synthetic timings in tests. A single-host
+    fleet has no median to diverge from — never flagged."""
+    hosts = {str(h): float(s) for h, s in host_seconds.items()}
+    out: Dict[str, Any] = {
+        "hosts": hosts, "ratio": float(ratio),
+        "median_seconds": None, "stragglers": [],
+    }
+    if len(hosts) < 2:
+        return out
+    ordered = sorted(hosts.values())
+    mid = len(ordered) // 2
+    if len(ordered) % 2:
+        median = ordered[mid]
+    else:
+        median = (ordered[mid - 1] + ordered[mid]) / 2.0
+    out["median_seconds"] = median
+    if median > 0:
+        out["stragglers"] = sorted(
+            h for h, s in hosts.items() if s > ratio * median
+        )
+    return out
+
+
+def device_peaks() -> Tuple[Optional[float], Optional[float]]:
+    """(peak FLOP/s, peak HBM bytes/s) for this process's device kind, or
+    (None, None) when unknown (CPU included).
+
+    ``SPARK_RAPIDS_ML_TORCH_FITMON_PEAK_FLOPS`` /
+    ``SPARK_RAPIDS_ML_TORCH_FITMON_PEAK_BW`` override the table — the
+    extension seam for device kinds the table does not list yet (and how
+    CPU-only drills get a deterministic MFU to assert against)."""
+    flops_env = os.environ.get("SPARK_RAPIDS_ML_TORCH_FITMON_PEAK_FLOPS")
+    bw_env = os.environ.get("SPARK_RAPIDS_ML_TORCH_FITMON_PEAK_BW")
+    if flops_env or bw_env:
+        try:
+            return (float(flops_env) if flops_env else None,
+                    float(bw_env) if bw_env else None)
+        except ValueError:
+            pass  # malformed override: fall through to the table
+    try:
+        from spark_rapids_ml_tpu_torch.utils.platform import (
+            PEAK_FLOPS_BF16,
+            PEAK_HBM_BYTES_PER_SECOND,
+            device_kind,
+        )
+
+        kind = device_kind()
+        if kind is None:
+            return None, None
+        return (PEAK_FLOPS_BF16.get(kind),
+                PEAK_HBM_BYTES_PER_SECOND.get(kind))
+    except Exception:
+        return None, None
+
+
+# -- step / run -------------------------------------------------------------
+
+
+class StepMonitor:
+    """One host-visible fit step (a kernel pass, a streaming fold).
+    ``with run.step("lloyd", rows=n) as step:`` measures wall time around
+    the block, synchronizing the current CUDA device before reading its
+    end (see the module docstring); device time defaults to that measured
+    wall unless the fit passes a tighter measurement via
+    ``set_device_seconds``. The ONE measured duration also feeds
+    ``devmon.note_batch`` so fitmon and devmon device-seconds agree by
+    construction."""
+
+    __slots__ = ("_run", "name", "rows", "scalars", "_t0", "_flops0",
+                 "_bytes0", "_device_seconds", "_token", "started_unix")
+
+    def __init__(self, run: "FitRun", name: str,
+                 rows: Optional[int] = None):
+        self._run = run
+        self.name = name
+        self.rows = int(rows) if rows is not None else None
+        self.scalars: Dict[str, float] = {}
+        self._t0 = 0.0
+        self._flops0 = 0.0
+        self._bytes0 = 0.0
+        self._device_seconds: Optional[float] = None
+        self._token = None
+        self.started_unix: Optional[float] = None
+
+    def note(self, **scalars) -> None:
+        """Record convergence scalars (n_iter, cost, grad_norm, ...)
+        observed inside the step. Non-numeric values are dropped."""
+        for key, value in scalars.items():
+            try:
+                self.scalars[key] = float(value)
+            except (TypeError, ValueError):
+                pass
+
+    def set_device_seconds(self, seconds: float) -> None:
+        """Override the device-time attribution for this step (a fit
+        that timed the dispatch more tightly than the step block)."""
+        try:
+            self._device_seconds = max(float(seconds), 0.0)
+        except (TypeError, ValueError):
+            pass
+
+    def __enter__(self) -> "StepMonitor":
+        try:
+            self._token = _current_run.set(self._run)
+            self.started_unix = self._run._clock()
+            with self._run._lock:
+                self._flops0 = self._run.flops_total
+                self._bytes0 = self._run.bytes_total
+        except Exception:
+            pass
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        try:
+            if torch.cuda.is_initialized():
+                torch.cuda.synchronize()
+        except Exception:
+            pass  # a device error surfaces at the fit's own next sync
+        t1 = time.perf_counter()
+        try:
+            self._run._finish_step(self, self._t0, t1,
+                                   failed=exc_type is not None)
+        except Exception:
+            pass  # telemetry must never break a fit
+        finally:
+            if self._token is not None:
+                try:
+                    _current_run.reset(self._token)
+                except Exception:
+                    pass
+
+
+class _NullStep:
+    """Inert step: fitmon disabled or no active run."""
+
+    __slots__ = ()
+
+    def note(self, **scalars) -> None:
+        pass
+
+    def set_device_seconds(self, seconds: float) -> None:
+        pass
+
+    def __enter__(self) -> "_NullStep":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        pass
+
+
+class FitRun:
+    """One distributed fit (or one streaming-training stretch) under the
+    monitor: a bounded step table plus running totals, per-host skew, and
+    program-level FLOPs/bytes fed by ``obs.xprof.record_execution``."""
+
+    def __init__(self, monitor: "FitMonitor", run_id: str, algo: str,
+                 trace_id: Optional[str] = None):
+        self._monitor = monitor
+        self._clock = monitor._clock
+        self._lock = threading.Lock()
+        self.run_id = run_id
+        self.algo = algo
+        self.trace_id = trace_id
+        self.started_unix = self._clock()
+        self.finished_unix: Optional[float] = None
+        self.status = "active"
+        self.steps: collections.deque = collections.deque(
+            maxlen=monitor.max_steps)
+        self.steps_total = 0
+        self.steps_failed = 0
+        self.wall_seconds_total = 0.0
+        self.device_seconds_total = 0.0
+        self.rows_total = 0
+        self.flops_total = 0.0
+        self.bytes_total = 0.0
+        self.host_seconds: Dict[str, List[float]] = {}
+        self.collectives: Dict[str, Dict[str, float]] = {}
+        self.extra: Dict[str, Any] = {}
+        self.report: Optional[Dict[str, Any]] = None
+
+    @property
+    def active(self) -> bool:
+        return self.status == "active"
+
+    # -- recording seams ---------------------------------------------------
+
+    def step(self, name: str, rows: Optional[int] = None):
+        """A context manager timing one host-visible step."""
+        if not self._monitor.enabled:
+            return _NULL_STEP
+        return StepMonitor(self, name, rows=rows)
+
+    def record_program(self, label: str, flops: Optional[float],
+                       nbytes: Optional[float]) -> None:
+        """Called by ``obs.xprof.record_execution`` on every counted
+        program execution while this run is current."""
+        with self._lock:
+            if flops:
+                self.flops_total += float(flops)
+            if nbytes:
+                self.bytes_total += float(nbytes)
+
+    def note_host_step(self, host, seconds: float) -> None:
+        """One host's contribution to a step (the multihost placement /
+        collective seams) — the skew/straggler input. Never raises."""
+        try:
+            key = str(host)
+            value = max(float(seconds), 0.0)
+            with self._lock:
+                bucket = self.host_seconds.setdefault(key, [])
+                bucket.append(value)
+                if len(bucket) > 512:
+                    del bucket[0]
+            self._monitor._m_host_seconds.inc(
+                value, algo=self.algo, host=key)
+        except Exception:
+            pass
+
+    def record_collective(self, kind: str, *, nbytes: int = 0,
+                          count: int = 1,
+                          seconds: Optional[float] = None) -> None:
+        """Comms accounting visible in ``/debug/fit`` (the FitContext in
+        obs.report keeps the per-report ledger; this one is live)."""
+        try:
+            with self._lock:
+                entry = self.collectives.setdefault(
+                    kind, {"count": 0, "bytes": 0, "seconds": 0.0})
+                entry["count"] += int(count)
+                entry["bytes"] += int(nbytes) * int(count)
+                if seconds:
+                    entry["seconds"] += float(seconds)
+        except Exception:
+            pass
+
+    def note(self, **kwargs) -> None:
+        try:
+            with self._lock:
+                self.extra.update(kwargs)
+        except Exception:
+            pass
+
+    # -- step completion (called by StepMonitor.__exit__) ------------------
+
+    def _finish_step(self, step: StepMonitor, t0: float, t1: float, *,
+                     failed: bool = False) -> None:
+        over0 = time.perf_counter()
+        wall = max(t1 - t0, 0.0)
+        device = step._device_seconds if step._device_seconds is not None \
+            else wall
+        with self._lock:
+            flops = self.flops_total - step._flops0
+            nbytes = self.bytes_total - step._bytes0
+            index = self.steps_total
+            self.steps_total += 1
+            if failed:
+                self.steps_failed += 1
+            self.wall_seconds_total += wall
+            self.device_seconds_total += device
+            if step.rows:
+                self.rows_total += step.rows
+        peak_flops, peak_bw = self._monitor.peaks()
+        mfu = step_mfu(flops, device, peak_flops)
+        bound = roofline_bound(flops, nbytes, peak_flops, peak_bw)
+        rows_per_sec = (step.rows / wall
+                        if step.rows and wall > 0 else None)
+        record: Dict[str, Any] = {
+            "index": index,
+            "step": step.name,
+            "started_unix": step.started_unix,
+            "wall_seconds": wall,
+            "device_seconds": device,
+            "rows": step.rows,
+            "rows_per_sec": rows_per_sec,
+            "flops": flops or None,
+            "bytes_accessed": nbytes or None,
+            "mfu": mfu,
+            "bound": bound,
+            "failed": failed,
+            "scalars": dict(step.scalars),
+        }
+        with self._lock:
+            self.steps.append(record)
+        self._monitor._publish_step(self, record, t0, t1)
+        try:
+            self._monitor._m_overhead.inc(
+                time.perf_counter() - over0, component="fitmon")
+        except Exception:
+            pass
+
+    # -- views -------------------------------------------------------------
+
+    def skew(self, ratio: Optional[float] = None) -> Dict[str, Any]:
+        """Per-host mean step seconds + straggler verdict."""
+        with self._lock:
+            means = {h: sum(v) / len(v)
+                     for h, v in self.host_seconds.items() if v}
+        return detect_stragglers(
+            means, ratio if ratio is not None
+            else self._monitor.straggler_ratio)
+
+    def summary(self) -> Dict[str, Any]:
+        with self._lock:
+            mfus = [s["mfu"] for s in self.steps if s["mfu"] is not None]
+            last_scalars = (dict(self.steps[-1]["scalars"])
+                            if self.steps else {})
+            doc = {
+                "run_id": self.run_id,
+                "algo": self.algo,
+                "trace_id": self.trace_id,
+                "status": self.status,
+                "started_unix": self.started_unix,
+                "finished_unix": self.finished_unix,
+                "steps": self.steps_total,
+                "steps_failed": self.steps_failed,
+                "wall_seconds": self.wall_seconds_total,
+                "device_seconds": self.device_seconds_total,
+                "rows": self.rows_total,
+                "rows_per_sec": (
+                    self.rows_total / self.wall_seconds_total
+                    if self.rows_total and self.wall_seconds_total > 0
+                    else None),
+                "flops": self.flops_total or None,
+                "bytes_accessed": self.bytes_total or None,
+                "mfu_mean": sum(mfus) / len(mfus) if mfus else None,
+                "last_scalars": last_scalars,
+            }
+        skew = self.skew()
+        if skew["hosts"]:
+            doc["stragglers"] = skew["stragglers"]
+        return doc
+
+    def as_dict(self) -> Dict[str, Any]:
+        doc = self.summary()
+        with self._lock:
+            doc["step_table"] = list(self.steps)
+            doc["collectives"] = {k: dict(v)
+                                  for k, v in self.collectives.items()}
+            doc["extra"] = dict(self.extra)
+            if self.report is not None:
+                doc["report"] = self.report
+        doc["skew"] = self.skew()
+        return doc
+
+
+class _NullFitRun:
+    """No-op run: lets seams call ``current_run().step(...)``
+    unconditionally outside any monitored fit (or with fitmon off)."""
+
+    run_id = None
+    algo = "_unmonitored"
+    trace_id = None
+    status = "inactive"
+    active = False
+
+    def step(self, name: str, rows: Optional[int] = None) -> _NullStep:
+        return _NULL_STEP
+
+    def record_program(self, *args, **kwargs) -> None:
+        pass
+
+    def note_host_step(self, *args, **kwargs) -> None:
+        pass
+
+    def record_collective(self, *args, **kwargs) -> None:
+        pass
+
+    def note(self, **kwargs) -> None:
+        pass
+
+    def skew(self, ratio: Optional[float] = None) -> Dict[str, Any]:
+        return detect_stragglers({})
+
+    def summary(self) -> Dict[str, Any]:
+        return {}
+
+    def as_dict(self) -> Dict[str, Any]:
+        return {}
+
+
+_NULL_STEP = _NullStep()
+_NULL_RUN = _NullFitRun()
+_current_run: contextvars.ContextVar = contextvars.ContextVar(
+    "sparkml_fitmon_run", default=None
+)
+
+
+# -- backend-health watchdog ------------------------------------------------
+
+
+class _Device(NamedTuple):
+    """What the watchdog reads of a device: its platform (``cuda`` or
+    ``cpu``) and kind (the card's name, ``cpu`` on the CPU)."""
+
+    platform: str
+    device_kind: str
+
+
+def _default_devices() -> List[_Device]:
+    """The port's devices (``utils.resources.local_devices``): every
+    visible card, or the CPU when it was asked for. Raises with neither,
+    which the watchdog reads as ``backend_error``."""
+    from spark_rapids_ml_tpu_torch.utils.resources import local_devices
+
+    return [_Device("cpu", "cpu") if d.type == "cpu"
+            else _Device(d.type, torch.cuda.get_device_name(d))
+            for d in local_devices()]
+
+
+def _default_canary() -> None:
+    """A tiny real dispatch on the first device, on the calling thread's
+    default stream (never the serving programs' shared stream): if the
+    card stopped answering, this call never returns — the bounded join
+    below is what turns that hang into a verdict."""
+    from spark_rapids_ml_tpu_torch.utils.resources import local_devices
+
+    torch.zeros(8, device=local_devices()[0]).sum().item()
+
+
+class BackendWatchdog:
+    """Samples the resolved backend at bounded cadence and publishes
+    ``sparkml_fit_backend_ok`` (1 healthy / 0 degraded). Degraded means:
+    no device can be resolved (no card and no CPU request), the resolved
+    platform differs from the configured expectation
+    (``SPARK_RAPIDS_ML_TORCH_FITMON_EXPECT_PLATFORM``), zero devices, the
+    canary dispatch raises, or the canary wedges past its bounded join.
+    The builtin ``fit_backend_degraded`` ThresholdDetector turns a 0
+    reading into exactly one auto-resolving incident."""
+
+    def __init__(self, *,
+                 expected_platform: Optional[str] = None,
+                 interval_s: Optional[float] = None,
+                 canary_timeout_s: Optional[float] = None,
+                 clock: Callable[[], float] = time.time,
+                 devices_fn: Callable[[], List[Any]] = _default_devices,
+                 canary_fn: Callable[[], None] = _default_canary):
+        self.expected_platform = (
+            expected_platform
+            if expected_platform is not None
+            else os.environ.get(
+                "SPARK_RAPIDS_ML_TORCH_FITMON_EXPECT_PLATFORM") or None)
+        self.interval_s = (
+            interval_s if interval_s is not None
+            else _env_float("SPARK_RAPIDS_ML_TORCH_FITMON_WATCHDOG_S", 30.0))
+        self.canary_timeout_s = (
+            canary_timeout_s if canary_timeout_s is not None
+            else _env_float(
+                "SPARK_RAPIDS_ML_TORCH_FITMON_CANARY_TIMEOUT_S", 5.0))
+        self._clock = clock
+        self._devices_fn = devices_fn
+        self._canary_fn = canary_fn
+        self._lock = threading.Lock()
+        self._last_checked: Optional[float] = None
+        self._last_verdict: Optional[Dict[str, Any]] = None
+        self.checks = 0
+        self._m_ok = get_registry().gauge(
+            BACKEND_OK_METRIC,
+            "fit-backend health verdict from the fitmon watchdog "
+            "(1 healthy, 0 degraded — platform mismatch, no devices, "
+            "canary error, or canary wedge)", ())
+
+    def last_verdict(self) -> Optional[Dict[str, Any]]:
+        with self._lock:
+            return dict(self._last_verdict) if self._last_verdict else None
+
+    def maybe_check(self, now: Optional[float] = None
+                    ) -> Optional[Dict[str, Any]]:
+        """Run a check if the cadence allows; otherwise return the last
+        verdict. The sampler calls this every sweep — the interval here
+        is what makes the canary's cost bounded."""
+        if now is None:
+            now = self._clock()
+        with self._lock:
+            due = (self._last_checked is None
+                   or now - self._last_checked >= self.interval_s)
+            if not due:
+                return (dict(self._last_verdict)
+                        if self._last_verdict else None)
+        return self.check(now)
+
+    def check(self, now: Optional[float] = None) -> Dict[str, Any]:
+        """One unconditional health check. Never raises."""
+        if now is None:
+            now = self._clock()
+        verdict: Dict[str, Any] = {
+            "ok": True, "reason": None, "checked_unix": now,
+            "platform": None, "device_kind": None, "device_count": 0,
+            "expected_platform": self.expected_platform,
+            "canary": "skipped", "canary_seconds": None,
+        }
+        try:
+            devices = self._devices_fn()
+        except Exception as exc:  # backend init itself broken
+            devices = []
+            verdict["ok"] = False
+            verdict["reason"] = "backend_error"
+            verdict["error"] = repr(exc)
+        if devices:
+            verdict["platform"] = str(devices[0].platform)
+            verdict["device_kind"] = str(devices[0].device_kind)
+            verdict["device_count"] = len(devices)
+        elif verdict["reason"] is None:
+            verdict["ok"] = False
+            verdict["reason"] = "no_devices"
+        if (verdict["ok"] and self.expected_platform
+                and verdict["platform"] != self.expected_platform):
+            verdict["ok"] = False
+            verdict["reason"] = "platform_mismatch"
+        if verdict["ok"] and devices:
+            verdict.update(self._run_canary())
+            if verdict["canary"] == "wedged":
+                verdict["ok"] = False
+                verdict["reason"] = "canary_wedged"
+            elif verdict["canary"] == "error":
+                verdict["ok"] = False
+                verdict["reason"] = "canary_error"
+        try:
+            self._m_ok.set(1.0 if verdict["ok"] else 0.0)
+        except Exception:
+            pass
+        with self._lock:
+            self._last_checked = now
+            self._last_verdict = verdict
+            self.checks += 1
+        return dict(verdict)
+
+    def _run_canary(self) -> Dict[str, Any]:
+        """The canary dispatch on a helper thread with a bounded join —
+        a wedged device hangs the thread, not the watchdog."""
+        outcome: Dict[str, Any] = {"canary": "ok", "canary_seconds": None}
+        box: Dict[str, Any] = {}
+
+        def _work() -> None:
+            try:
+                self._canary_fn()
+                box["ok"] = True
+            except Exception as exc:
+                box["error"] = repr(exc)
+
+        t0 = time.perf_counter()
+        worker = threading.Thread(
+            target=_work, name="fitmon-canary", daemon=True)
+        try:
+            worker.start()
+            worker.join(self.canary_timeout_s)
+        except Exception:
+            outcome["canary"] = "error"
+            return outcome
+        outcome["canary_seconds"] = time.perf_counter() - t0
+        if worker.is_alive():
+            outcome["canary"] = "wedged"
+        elif "error" in box:
+            outcome["canary"] = "error"
+            outcome["canary_error"] = box["error"]
+        return outcome
+
+
+# -- the monitor ------------------------------------------------------------
+
+
+class FitMonitor:
+    """Process-wide fit-path monitor: active runs, bounded run history,
+    the device-peak cache, and the backend watchdog."""
+
+    def __init__(self, *, enabled: Optional[bool] = None,
+                 clock: Callable[[], float] = time.time,
+                 peaks_fn: Callable[
+                     [], Tuple[Optional[float], Optional[float]]
+                 ] = device_peaks,
+                 watchdog: Optional[BackendWatchdog] = None):
+        if enabled is None:
+            enabled = os.environ.get(
+                "SPARK_RAPIDS_ML_TORCH_FITMON", "1") not in ("0", "false", "")
+        self.enabled = bool(enabled)
+        self._clock = clock
+        self._peaks_fn = peaks_fn
+        self._peaks: Optional[
+            Tuple[Optional[float], Optional[float]]] = None
+        self._lock = threading.Lock()
+        self._seq = 0
+        self._active: Dict[str, FitRun] = {}
+        self._recent: collections.deque = collections.deque(
+            maxlen=_env_int("SPARK_RAPIDS_ML_TORCH_FITMON_HISTORY", 32))
+        self.max_steps = _env_int(
+            "SPARK_RAPIDS_ML_TORCH_FITMON_MAX_STEPS", 256)
+        self.straggler_ratio = _env_float(
+            "SPARK_RAPIDS_ML_TORCH_FITMON_STRAGGLER_RATIO", 1.5)
+        self.watchdog = watchdog if watchdog is not None \
+            else BackendWatchdog(clock=clock)
+        reg = get_registry()
+        self._m_runs = reg.counter(
+            "sparkml_fit_runs_total", "monitored fit runs", ("algo",))
+        self._m_steps = reg.counter(
+            "sparkml_fit_steps_total", "monitored fit steps",
+            ("algo", "step"))
+        self._m_step_seconds = reg.counter(
+            "sparkml_fit_step_seconds_total",
+            "wall-clock inside monitored fit steps", ("algo", "step"))
+        self._m_device_seconds = reg.counter(
+            "sparkml_fit_device_seconds_total",
+            "device time attributed to monitored fit steps — the same "
+            "measured duration devmon meters, so the planes reconcile",
+            ("algo", "step"))
+        self._m_rows = reg.counter(
+            "sparkml_fit_rows_total", "rows processed by monitored steps",
+            ("algo",))
+        self._m_rows_per_sec = reg.gauge(
+            "sparkml_fit_rows_per_sec",
+            "latest per-step fit throughput", ("algo", "step"))
+        self._m_mfu = reg.gauge(
+            "sparkml_fit_mfu",
+            "latest per-step analytic MFU (absent on unknown device "
+            "kinds)", ("algo", "step"))
+        self._m_convergence = reg.gauge(
+            "sparkml_fit_convergence",
+            "latest per-step convergence scalars (n_iter, cost, ...)",
+            ("algo", "step", "scalar"))
+        self._m_host_seconds = reg.counter(
+            "sparkml_fit_host_step_seconds_total",
+            "per-host step seconds from the multihost seams — the "
+            "skew/straggler input", ("algo", "host"))
+        self._m_overhead = reg.counter(
+            "sparkml_obs_overhead_seconds_total",
+            "wall-clock the observability layer spends watching "
+            "(sampler sweeps, device monitor, profiler bookkeeping)",
+            ("component",))
+
+    # -- peaks -------------------------------------------------------------
+
+    def peaks(self) -> Tuple[Optional[float], Optional[float]]:
+        """(peak FLOP/s, peak HBM bytes/s), resolved once per process —
+        the device kind cannot change under a live process."""
+        if self._peaks is None:
+            try:
+                self._peaks = self._peaks_fn()
+            except Exception:
+                self._peaks = (None, None)
+        return self._peaks
+
+    # -- run lifecycle -----------------------------------------------------
+
+    def start_run(self, algo: str,
+                  trace_id: Optional[str] = None) -> FitRun:
+        with self._lock:
+            self._seq += 1
+            run_id = f"fit-{self._seq}"
+        run = FitRun(self, run_id, algo, trace_id=trace_id)
+        with self._lock:
+            self._active[run_id] = run
+        try:
+            self._m_runs.inc(algo=algo)
+        except Exception:
+            pass
+        return run
+
+    def finish_run(self, run: FitRun,
+                   report: Optional[Dict[str, Any]] = None) -> None:
+        try:
+            run.status = "done"
+            run.finished_unix = self._clock()
+            if report is not None:
+                run.report = report
+            with self._lock:
+                self._active.pop(run.run_id, None)
+                self._recent.appendleft(run)
+        except Exception:
+            pass
+
+    def active_runs(self) -> List[FitRun]:
+        with self._lock:
+            return list(self._active.values())
+
+    def recent_runs(self) -> List[FitRun]:
+        with self._lock:
+            return list(self._recent)
+
+    def latest_active_run_id(self) -> Optional[str]:
+        """The most recently started still-active run (what a profiler
+        capture taken right now is covering)."""
+        with self._lock:
+            if not self._active:
+                return None
+            return max(self._active.values(),
+                       key=lambda r: r.started_unix).run_id
+
+    def find_run(self, run_id: str) -> Optional[FitRun]:
+        with self._lock:
+            run = self._active.get(run_id)
+            if run is not None:
+                return run
+            for r in self._recent:
+                if r.run_id == run_id:
+                    return r
+        return None
+
+    # -- step publication (called by FitRun._finish_step) ------------------
+
+    def _publish_step(self, run: FitRun, record: Dict[str, Any],
+                      t0: float, t1: float) -> None:
+        algo, step = run.algo, record["step"]
+        try:
+            self._m_steps.inc(algo=algo, step=step)
+            self._m_step_seconds.inc(
+                record["wall_seconds"], algo=algo, step=step)
+            self._m_device_seconds.inc(
+                record["device_seconds"], algo=algo, step=step)
+            if record["rows"]:
+                self._m_rows.inc(record["rows"], algo=algo)
+            if record["rows_per_sec"] is not None:
+                self._m_rows_per_sec.set(
+                    record["rows_per_sec"], algo=algo, step=step)
+            if record["mfu"] is not None:
+                self._m_mfu.set(record["mfu"], algo=algo, step=step)
+            for name, value in record["scalars"].items():
+                self._m_convergence.set(
+                    value, algo=algo, step=step, scalar=name)
+        except Exception:
+            pass
+        # the ONE measured device duration also feeds devmon, so
+        # per-fit device occupancy shows up beside serving occupancy
+        # and the two planes reconcile by construction
+        try:
+            from spark_rapids_ml_tpu_torch.obs import devmon
+
+            devmon.get_device_monitor().note_batch(
+                f"{FIT_MODEL_PREFIX}{algo}", record["device_seconds"])
+        except Exception:
+            pass
+        try:
+            from spark_rapids_ml_tpu_torch.obs import spans
+
+            spans.record_event(
+                f"fit:step:{algo}:{step}", t0, t1,
+                trace_id=run.trace_id,
+                run_id=run.run_id,
+                rows=record["rows"],
+                device_seconds=record["device_seconds"],
+                mfu=record["mfu"],
+                **record["scalars"],
+            )
+        except Exception:
+            pass
+
+    # -- watchdog collector (registered by obs.tsdb.start_sampling) --------
+
+    def watchdog_collector(self) -> List[Dict[str, Any]]:
+        """Sampler-sweep hook: runs the watchdog at ITS bounded cadence
+        (the sampler sweeps much faster). Skips while a profiler
+        start/stop transition is in flight — same contract as devmon."""
+        t0 = time.perf_counter()
+        try:
+            from spark_rapids_ml_tpu_torch.obs import profiler
+
+            if profiler.torch_transition_pending():
+                return []
+        except Exception:
+            pass
+        try:
+            verdict = self.watchdog.maybe_check()
+        except Exception:
+            return []
+        try:
+            self._m_overhead.inc(time.perf_counter() - t0,
+                                 component="fitmon_watchdog")
+        except Exception:
+            pass
+        return [verdict] if verdict else []
+
+    # -- rollups -----------------------------------------------------------
+
+    def fit_report(self) -> Dict[str, Any]:
+        """Per-algo rollup over every run the monitor still remembers."""
+        algos: Dict[str, Dict[str, Any]] = {}
+        for run in self.active_runs() + self.recent_runs():
+            s = run.summary()
+            doc = algos.setdefault(run.algo, {
+                "runs": 0, "active": 0, "steps": 0, "rows": 0,
+                "wall_seconds": 0.0, "device_seconds": 0.0,
+                "mfu_mean": None, "_mfus": [],
+                "last_run": None,
+            })
+            doc["runs"] += 1
+            if run.active:
+                doc["active"] += 1
+            doc["steps"] += s.get("steps", 0)
+            doc["rows"] += s.get("rows", 0)
+            doc["wall_seconds"] += s.get("wall_seconds", 0.0)
+            doc["device_seconds"] += s.get("device_seconds", 0.0)
+            if s.get("mfu_mean") is not None:
+                doc["_mfus"].append(s["mfu_mean"])
+            if doc["last_run"] is None:
+                doc["last_run"] = s
+        for doc in algos.values():
+            mfus = doc.pop("_mfus")
+            if mfus:
+                doc["mfu_mean"] = sum(mfus) / len(mfus)
+        return {"algos": algos, "enabled": self.enabled}
+
+    def debug_doc(self) -> Dict[str, Any]:
+        """The ``GET /debug/fit`` document."""
+        peak_flops, peak_bw = self.peaks()
+        return {
+            "enabled": self.enabled,
+            "active": [r.as_dict() for r in self.active_runs()],
+            "recent": [r.summary() for r in self.recent_runs()],
+            "rollup": self.fit_report()["algos"],
+            "watchdog": self.watchdog.last_verdict(),
+            "straggler_ratio": self.straggler_ratio,
+            "peaks": {
+                "flops_per_second": peak_flops,
+                "hbm_bytes_per_second": peak_bw,
+            },
+        }
+
+
+# -- module-level singletons / entry points ---------------------------------
+
+
+_monitor: Optional[FitMonitor] = None
+_monitor_lock = threading.Lock()
+
+
+def get_fit_monitor() -> FitMonitor:
+    global _monitor
+    with _monitor_lock:
+        if _monitor is None:
+            _monitor = FitMonitor()
+        return _monitor
+
+
+def reset_fitmon() -> None:
+    """Drop the cached monitor (tests that reset the registry)."""
+    global _monitor
+    with _monitor_lock:
+        _monitor = None
+
+
+def current_run():
+    """The active ``FitRun`` in this context, or an inert null run —
+    seams call ``current_run().step(...)`` unconditionally."""
+    run = _current_run.get()
+    if run is None or not run.active:
+        return _NULL_RUN
+    return run
+
+
+@contextlib.contextmanager
+def fit_run(algo: str, trace_id: Optional[str] = None):
+    """Enter one monitored fit run. With fitmon disabled this yields the
+    inert null run at near-zero cost. Monitor bookkeeping never raises
+    into the fit."""
+    monitor = None
+    run = None
+    try:
+        monitor = get_fit_monitor()
+        if monitor.enabled:
+            run = monitor.start_run(algo, trace_id=trace_id)
+    except Exception:
+        run = None
+    if run is None:
+        yield _NULL_RUN
+        return
+    token = _current_run.set(run)
+    try:
+        yield run
+    finally:
+        try:
+            _current_run.reset(token)
+        except Exception:
+            pass
+        try:
+            monitor.finish_run(run)
+        except Exception:
+            pass
+
+
+def record_program(label: str, flops: Optional[float],
+                   nbytes: Optional[float]) -> None:
+    """The ``obs.xprof`` seam: attribute one counted program execution's
+    analytic FLOPs/bytes to the current run (no-op outside one)."""
+    run = _current_run.get()
+    if run is not None and run.active:
+        run.record_program(label, flops, nbytes)
+
+
+def fit_report() -> Dict[str, Any]:
+    """Per-algo rollup over the monitor's remembered runs."""
+    return get_fit_monitor().fit_report()
+
+
+def debug_fit_doc() -> Dict[str, Any]:
+    """The ``GET /debug/fit`` document (serve/server.py)."""
+    return get_fit_monitor().debug_doc()
+
+
+__all__ = [
+    "BACKEND_OK_METRIC",
+    "BackendWatchdog",
+    "FIT_MODEL_PREFIX",
+    "FitMonitor",
+    "FitRun",
+    "INCIDENT_NAME",
+    "StepMonitor",
+    "current_run",
+    "debug_fit_doc",
+    "detect_stragglers",
+    "device_peaks",
+    "fit_report",
+    "fit_run",
+    "get_fit_monitor",
+    "record_program",
+    "reset_fitmon",
+    "roofline_bound",
+    "step_mfu",
+]

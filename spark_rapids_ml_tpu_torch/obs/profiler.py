@@ -39,8 +39,8 @@ This module turns one HTTP request into a bounded capture:
   ``torch_wedged``), and the bookkeeping cost lands in
   ``sparkml_obs_overhead_seconds_total{component="profiler"}``.
 
-``fit_run_id`` keeps the JAX key; it stays None until the port has a
-fit monitor.
+``fit_run_id`` names the fit-monitor run (``obs.fitmon``) active when the
+capture started, None outside any monitored fit.
 """
 
 from __future__ import annotations
@@ -219,6 +219,12 @@ def start_capture(seconds: float = _DEFAULT_SECONDS,
         _active = cap
         torch_enabled = (_torch_helper is None
                          or not _torch_helper.is_alive())
+    try:
+        from spark_rapids_ml_tpu_torch.obs import fitmon
+
+        cap.fit_run_id = fitmon.get_fit_monitor().latest_active_run_id()
+    except Exception:
+        cap.fit_run_id = None
     try:
         os.makedirs(path, exist_ok=True)
         from spark_rapids_ml_tpu_torch.obs import tracectx

@@ -1,8 +1,11 @@
 """Uniform per-fit reports: the shared instrumentation entry point.
 
 The port's copy of the JAX package's ``obs/report.py``. Every user-facing
-estimator ``fit`` is wrapped in ``@observed_fit("<algo>")`` and a plain fit
-function may be wrapped in ``@fit_instrumentation("<algo>")``; both produce
+estimator ``fit`` is wrapped in ``@observed_fit("<algo>")`` and every
+data-parallel fit (``parallel.distributed_pca_fit``,
+``parallel.distributed_streaming_pca_fit``) in
+``@fit_instrumentation("<algo>")``, which also opens a fit-path monitor run
+(``obs.fitmon``) whose steps land in ``GET /debug/fit``; both produce
 one ``FitReport`` surfaced as ``fit_report_`` on the fitted model or result
 (``fit_timings_`` stays populated beside it), feed the process metrics
 registry, and — when ``SPARK_RAPIDS_ML_TORCH_TRACE_DIR`` is set — export
@@ -15,10 +18,11 @@ host-side accounting of the collectives a fit function declares (kind →
 invocation count + payload bytes).
 
 Nothing compiles in eager PyTorch, so ``compiles`` / ``recompiles`` /
-``compile_seconds`` stay 0. ``analytic_flops``, ``analytic_bytes``,
-``flops_by_phase`` and ``analytic_mfu`` stay empty until the fit-path
-monitor brings its per-step accounting and the card's peak tables; the
-fields are kept so a report reads like the JAX package's.
+``compile_seconds`` stay 0. ``analytic_flops`` / ``analytic_bytes`` /
+``flops_by_phase`` sum what the fit's programs filed through
+``obs.xprof.record_execution`` (each Gram's analytic count; the port has no
+HLO cost analysis, so other work is absent), and ``analytic_mfu`` divides
+them by the fit's wall and the card's peak (None on the CPU).
 
 Telemetry is never allowed to break a fit: everything outside the wrapped
 call itself is exception-guarded.
@@ -68,7 +72,7 @@ class FitReport:
     compiles: int = 0
     recompiles: int = 0
     compile_seconds: float = 0.0
-    # analytic accounting: None until the fit-path monitor is ported
+    # analytic accounting over every program the fit filed (obs.xprof)
     analytic_flops: Optional[float] = None
     analytic_bytes: Optional[float] = None
     flops_by_phase: Dict[str, float] = field(default_factory=dict)
@@ -92,6 +96,26 @@ class FitReport:
     def total_collective_calls(self) -> int:
         return sum(int(v.get("count", 0)) for v in self.collectives.values())
 
+    def phase_mfu(self, peak_flops: Optional[float] = None
+                  ) -> Dict[str, Optional[float]]:
+        """Per-phase analytic MFU: the FLOPs attributed to each phase over
+        that phase's wall-clock over the card's peak (None entries when
+        the peak or the phase time is unknown)."""
+        if peak_flops is None:
+            from spark_rapids_ml_tpu_torch.obs.xprof import (
+                peak_flops_per_second,
+            )
+
+            peak_flops = peak_flops_per_second()
+        out: Dict[str, Optional[float]] = {}
+        for phase, flops in self.flops_by_phase.items():
+            seconds = self.phases.get(phase)
+            if peak_flops and seconds:
+                out[phase] = flops / seconds / peak_flops
+            else:
+                out[phase] = None
+        return out
+
 
 class FitContext:
     """Mutable accounting for one in-flight fit.
@@ -104,6 +128,9 @@ class FitContext:
     __slots__ = (
         "algo", "trace_id", "timer", "collectives", "extra",
         "rows", "features", "bytes_processed", "n_iter", "_lock",
+        "compiles", "recompiles", "compile_seconds",
+        "analytic_flops", "analytic_bytes", "flops_by_phase",
+        "_phase_stack",
     )
 
     def __init__(self, algo: str, trace_id: Optional[str] = None):
@@ -116,6 +143,13 @@ class FitContext:
         self.features: Optional[int] = None
         self.bytes_processed: Optional[int] = None
         self.n_iter: Optional[int] = None
+        self.compiles = 0
+        self.recompiles = 0
+        self.compile_seconds = 0.0
+        self.analytic_flops = 0.0
+        self.analytic_bytes = 0.0
+        self.flops_by_phase: Dict[str, float] = {}
+        self._phase_stack: Tuple[str, ...] = ()
         self._lock = threading.Lock()
 
     @contextlib.contextmanager
@@ -124,7 +158,31 @@ class FitContext:
         with self.timer.phase(name), spans.span(
             f"{self.algo}:{name}", TraceColor.CYAN
         ):
-            yield
+            # the phase stack attributes program FLOPs to the innermost
+            # phase of whichever thread entered it last; fit bodies run
+            # phases sequentially on one thread, which is the contract
+            prev = self._phase_stack
+            self._phase_stack = prev + (name,)
+            try:
+                yield
+            finally:
+                self._phase_stack = prev
+
+    def record_program(self, label: str, flops: Optional[float],
+                       nbytes: Optional[float]) -> None:
+        """Called by ``obs.xprof.record_execution`` on every counted
+        program execution: accumulates its analytic FLOPs/bytes,
+        attributed to the innermost active phase."""
+        with self._lock:
+            if flops:
+                self.analytic_flops += float(flops)
+                phase = self._phase_stack[-1] if self._phase_stack \
+                    else "_unphased"
+                self.flops_by_phase[phase] = (
+                    self.flops_by_phase.get(phase, 0.0) + float(flops)
+                )
+            if nbytes:
+                self.analytic_bytes += float(nbytes)
 
     def record_collective(
         self,
@@ -150,8 +208,8 @@ class FitContext:
             entry["count"] += int(count)
             entry["bytes"] += int(nbytes) * int(count)
         try:
-            # mirror into the live fit-path monitor (obs.fitmon, not
-            # ported yet: until it is, the import fails and this is a no-op)
+            # mirror into the live fit-path monitor so /debug/fit shows
+            # comms accounting while the fit is still running
             from spark_rapids_ml_tpu_torch.obs import fitmon
 
             fitmon.current_run().record_collective(
@@ -195,6 +253,9 @@ class _NullFitContext(FitContext):
         yield
 
     def record_collective(self, *args, **kwargs) -> None:
+        pass
+
+    def record_program(self, *args, **kwargs) -> None:
         pass
 
     def set_data(self, *args, **kwargs) -> None:
@@ -364,6 +425,12 @@ def _build_report(
         fields.setdefault("device_platform", health.get("platform"))
         fields.setdefault("device_count", health.get("device_count"))
     fields.update(_memory_fields())
+    try:
+        from spark_rapids_ml_tpu_torch.obs.xprof import analytic_mfu
+
+        mfu = analytic_mfu(ctx.analytic_flops, wall)
+    except Exception:
+        mfu = None
     return FitReport(
         algo=ctx.algo,
         trace_id=ctx.trace_id,
@@ -377,6 +444,13 @@ def _build_report(
         health=health,
         collectives={k: dict(v) for k, v in ctx.collectives.items()},
         n_iter=ctx.n_iter,
+        compiles=ctx.compiles,
+        recompiles=ctx.recompiles,
+        compile_seconds=ctx.compile_seconds,
+        analytic_flops=ctx.analytic_flops or None,
+        analytic_bytes=ctx.analytic_bytes or None,
+        flops_by_phase=dict(ctx.flops_by_phase),
+        analytic_mfu=mfu,
         extra=dict(ctx.extra),
         **fields,
     )
@@ -392,12 +466,30 @@ def _flight_deadline(algo: str, trace_id: str):
         return contextlib.nullcontext()
 
 
+def _fitmon_run(algo: str, trace_id: str):
+    """The fit-path step monitor's run context (obs/fitmon.py): every
+    instrumented fit is a monitored FitRun, so its steps land in
+    ``/debug/fit`` and the ``sparkml_fit_*`` history. No-op when fitmon
+    is disabled or unavailable."""
+    try:
+        from spark_rapids_ml_tpu_torch.obs import fitmon
+
+        return fitmon.fit_run(algo, trace_id=trace_id)
+    except Exception:
+        return contextlib.nullcontext()
+
+
 def _record_metrics(report: FitReport) -> None:
     reg = get_registry()
     algo = report.algo
     reg.counter(
         "sparkml_fits_total", "completed fits", ("algo",)
     ).inc(algo=algo)
+    if report.analytic_flops:
+        reg.counter(
+            "sparkml_analytic_flops_total",
+            "analytic FLOPs executed by fits", ("algo",),
+        ).inc(report.analytic_flops, algo=algo)
     reg.histogram(
         "sparkml_fit_seconds", "fit wall-clock seconds", ("algo",)
     ).observe(report.wall_seconds, algo=algo)
@@ -492,11 +584,14 @@ def attach_report(result, report, attr: str = REPORT_ATTR):
 
 
 def fit_instrumentation(algo: str, attach: bool = True):
-    """Wrap a fit function: fit context + root span + report.
+    """Wrap a fit function: fit context + fit-monitor run + root span +
+    report.
 
     The decorated function's result gains ``fit_report_`` (wrapped into an
     attribute-capable subclass when needed); a ``DeviceMesh`` argument
-    fills the report's mesh fields.
+    fills the report's mesh fields. The finished ``obs.fitmon`` run is
+    joined to the report's rollup, so ``/debug/fit`` shows what the result
+    carries.
     """
 
     def decorator(fn):
@@ -506,8 +601,11 @@ def fit_instrumentation(algo: str, attach: bool = True):
             token = _current_ctx.set(ctx)
             started = _utcnow()
             t0 = time.perf_counter()
+            fitmon_run = None
             try:
-                with _flight_deadline(algo, ctx.trace_id), spans.span(
+                with _flight_deadline(algo, ctx.trace_id), _fitmon_run(
+                    algo, ctx.trace_id
+                ) as fitmon_run, spans.span(
                     f"fit:{algo}", TraceColor.GREEN, trace_id=ctx.trace_id
                 ), ctx.timer.phase("total"):
                     result = fn(*args, **kwargs)
@@ -520,6 +618,19 @@ def fit_instrumentation(algo: str, attach: bool = True):
                     ctx, started, wall, _find_mesh(args, kwargs)
                 )
                 _publish(report)
+                if fitmon_run is not None and getattr(
+                    fitmon_run, "run_id", None
+                ):
+                    # join the finished run to its uniform report so
+                    # /debug/fit shows the same rollup the result carries
+                    fitmon_run.report = {
+                        "wall_seconds": report.wall_seconds,
+                        "rows": report.rows,
+                        "n_iter": report.n_iter,
+                        "analytic_mfu": report.analytic_mfu,
+                        "collective_bytes":
+                            report.total_collective_bytes(),
+                    }
                 if attach:
                     result = attach_report(result, report)
             except Exception:

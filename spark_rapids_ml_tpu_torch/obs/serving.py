@@ -24,8 +24,10 @@ keeps the program contract (``ServingProgram``: put / run / fetch) and
 files the same per-batch record through ``PipelineTransform``.
 
 Nothing compiles in eager PyTorch: a report's ``compiles`` /
-``recompiles`` / ``compile_seconds`` stay 0 and its ``analytic_flops``
-None; the fields are kept so a report reads like the JAX package's.
+``recompiles`` / ``compile_seconds`` stay 0. ``analytic_flops`` sums what
+programs file through ``obs.xprof.record_execution`` during the call; no
+transform path runs a counted program (only the fit's Gram is counted), so
+it stays None.
 
 Delegation shims (``Model.transform`` → ``self._transform``, both
 decorated) are deduplicated by instance identity: re-entering the
@@ -153,8 +155,8 @@ class TransformContext:
 
     __slots__ = (
         "algo", "trace_id", "span_id", "timer", "rows", "features",
-        "bytes_in", "bytes_out", "extra",
-        "owner_id", "explicit", "nested_in",
+        "bytes_in", "bytes_out", "analytic_flops", "extra",
+        "owner_id", "explicit", "nested_in", "_lock",
     )
 
     def __init__(self, algo: str, trace_id: Optional[str] = None,
@@ -168,10 +170,12 @@ class TransformContext:
         self.features: Optional[int] = None
         self.bytes_in: Optional[int] = None
         self.bytes_out: Optional[int] = None
+        self.analytic_flops = 0.0
         self.extra: Dict[str, Any] = {}
         self.owner_id = owner_id
         self.explicit = explicit
         self.nested_in = nested_in
+        self._lock = threading.Lock()
 
     @contextlib.contextmanager
     def phase(self, name: str):
@@ -180,6 +184,14 @@ class TransformContext:
             f"{self.algo}:{name}", TraceColor.PURPLE
         ):
             yield
+
+    def record_program(self, label: str, flops: Optional[float],
+                       nbytes: Optional[float]) -> None:
+        """Called by ``obs.xprof.record_execution`` on every counted
+        program execution during this call."""
+        with self._lock:
+            if flops:
+                self.analytic_flops += float(flops)
 
     def set_data(self, rows: Optional[int] = None,
                  features: Optional[int] = None,
@@ -205,6 +217,9 @@ class _NullTransformContext(TransformContext):
     @contextlib.contextmanager
     def phase(self, name: str):
         yield
+
+    def record_program(self, *args, **kwargs) -> None:
+        pass
 
     def set_data(self, *args, **kwargs) -> None:
         pass
@@ -508,6 +523,7 @@ def _build_report(ctx: TransformContext, started: str,
         bytes_in=ctx.bytes_in,
         bytes_out=ctx.bytes_out,
         rows_per_second=rows_per_second,
+        analytic_flops=ctx.analytic_flops or None,
         nested_in=ctx.nested_in,
         extra=dict(ctx.extra),
     )

@@ -676,17 +676,21 @@ def start_sampling(interval_seconds: Optional[float] = None
                    ) -> MetricsSampler:
     """Start (idempotently) the process-wide history sampler, with the
     device monitor's ``sample`` as a collector, so the device memory
-    gauges update every sweep, and register the ``metrics_history``
-    flight-dump section, so every dump from here on carries the last ~5
-    minutes of the key serve / SLO / device-memory series. Raises where
-    the device monitor does: no card and no CPU request."""
-    from spark_rapids_ml_tpu_torch.obs import devmon, flight
+    gauges update every sweep, and the fit monitor's watchdog
+    (``obs.fitmon``, at its own bounded cadence) beside it, so
+    ``sparkml_fit_backend_ok`` is published; register the
+    ``metrics_history`` flight-dump section, so every dump from here on
+    carries the last ~5 minutes of the key serve / SLO / device-memory
+    series. Raises where the device monitor does: no card and no CPU
+    request."""
+    from spark_rapids_ml_tpu_torch.obs import devmon, fitmon, flight
 
     monitor = devmon.get_device_monitor()
     sampler = get_sampler()
     if interval_seconds is not None:
         sampler.interval_seconds = interval_seconds
     sampler.register_collector(monitor.sample)
+    sampler.register_collector(fitmon.get_fit_monitor().watchdog_collector)
     flight.register_dump_section("metrics_history", _dump_history_tail)
     sampler.start()
     return sampler

@@ -13,6 +13,10 @@ on the card the kernel's prep pass writes one centred copy into scratch it
 allocates for the call (``ops.fused_gram.scratch_shape``). float64 (which
 the kernel does not take) is a plain product.
 
+``centered_gram`` reports its analytic cost on every route through
+``obs.xprof.record_execution``, so fit reports and the fit-path monitor
+count each Gram's FLOPs and bytes.
+
 All functions take an optional per-row 0/1 ``mask`` for padded buckets.
 """
 
@@ -23,6 +27,7 @@ from typing import Optional
 
 import torch
 
+from spark_rapids_ml_tpu_torch.obs.xprof import record_execution
 from spark_rapids_ml_tpu_torch.ops.fused_gram import fused_centered_gram
 from spark_rapids_ml_tpu_torch.utils.numeric import (
     GRAM_PRECISIONS as _ALLOWED_PRECISIONS,
@@ -80,25 +85,44 @@ def column_means(x: torch.Tensor, mask: Optional[torch.Tensor] = None
     return _masked(x, mask).sum(dim=0) / row_count(x, mask)
 
 
+def gram_cost(rows: int, n: int, in_itemsize: int, out_itemsize: int):
+    """(FLOPs, bytes) of one ``centered_gram`` over ``rows`` × ``n``: the
+    upper triangle with its diagonal, ``rows·n·(n+1)/2`` multiply-adds at 2
+    FLOPs each, one pass whatever the precision; X read once and the n×n
+    output written once. The count PERF.md's bound uses."""
+    return rows * n * (n + 1), rows * n * in_itemsize + n * n * out_itemsize
+
+
 def centered_gram(x: torch.Tensor, mean: Optional[torch.Tensor] = None,
                   rowmul: Optional[torch.Tensor] = None,
                   precision=None) -> torch.Tensor:
     """``(diag(rowmul)·(x − mean))ᵀ(diag(rowmul)·(x − mean))``; ``mean``
     None means no centring, ``rowmul`` None means ones. float32 takes the
-    fused Gram (see module docstring); ``precision`` applies to it."""
+    fused Gram (see module docstring); ``precision`` applies to it.
+
+    Each call files ``gram_cost`` with ``obs.xprof.record_execution``, on
+    the kernel, its plain version and float64 alike; ``rows`` counts every
+    row handed in, padding included, as the JAX package's cost analysis of
+    a static shape does. The port has no HLO cost analysis, so the other
+    work of a fit (the mean pass, ``eigh``, the randomized solve) reports
+    no FLOPs: it is absent from the accounting, not guessed."""
     rows, n = x.shape
     if x.dtype == torch.float32:
         if mean is None:
             mean = torch.zeros(n, dtype=x.dtype, device=x.device)
         if rowmul is None:
             rowmul = torch.ones(rows, dtype=x.dtype, device=x.device)
-        return fused_centered_gram(x.contiguous(), mean.to(x.dtype).contiguous(),
-                                   rowmul.to(x.dtype).contiguous(),
-                                   precision=precision)
-    xc = x if mean is None else x - mean[None, :]
-    if rowmul is not None:
-        xc = xc * rowmul[:, None].to(x.dtype)
-    return xc.T @ xc
+        out = fused_centered_gram(
+            x.contiguous(), mean.to(x.dtype).contiguous(),
+            rowmul.to(x.dtype).contiguous(), precision=precision)
+    else:
+        xc = x if mean is None else x - mean[None, :]
+        if rowmul is not None:
+            xc = xc * rowmul[:, None].to(x.dtype)
+        out = xc.T @ xc
+    record_execution("centered_gram",
+                     *gram_cost(rows, n, x.element_size(), out.element_size()))
+    return out
 
 
 def covariance(

@@ -21,8 +21,13 @@ Two communication schedules:
   covariance via ``G − n·μμᵀ``; 1 collective, the f32 cancellation caveat
   of ``ops.covariance.covariance_from_stats``.
 
-The JAX driver's fit instrumentation (phases, collective byte counts) is
-the fit monitor's, which the port does not have yet.
+``distributed_pca_fit`` is instrumented as the JAX one is: a fit report
+(``fit_report_``) with the phases ``prepare`` (pad, slice, cast),
+``placement`` (the host → device copy) and ``execute``, the collectives'
+payload bytes, and one fit-monitor step ``covariance_eigh`` (``obs.fitmon``)
+whose FLOPs are the Gram's. The count travels as two floats
+(``mesh.pack_count``), so a collective that carries it moves one element
+more than the JAX program's, and is accounted as such.
 """
 
 from __future__ import annotations
@@ -33,6 +38,11 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from spark_rapids_ml_tpu_torch.obs.fitmon import current_run
+from spark_rapids_ml_tpu_torch.obs.report import (
+    current_fit,
+    fit_instrumentation,
+)
 from spark_rapids_ml_tpu_torch.ops.covariance import (
     centered_gram,
     covariance_from_stats,
@@ -43,6 +53,7 @@ from spark_rapids_ml_tpu_torch.ops.eigh import pca_from_covariance
 from spark_rapids_ml_tpu_torch.parallel.mesh import (
     DATA_AXIS,
     axis_size,
+    collective_nbytes,
     mesh_device,
     pack_count,
     pad_rows_to_multiple,
@@ -113,6 +124,7 @@ def distributed_pca_fit_kernel(
     return DistributedPCAResult(components, evr, mean)
 
 
+@fit_instrumentation("distributed_pca")
 def distributed_pca_fit(
     x_host: np.ndarray,
     k: int,
@@ -127,19 +139,43 @@ def distributed_pca_fit(
     takes the d-th of D equal blocks, as the JAX row sharding does), place
     it on the rank's device and run the kernel. ``dtype`` (a numpy dtype)
     casts the host rows first."""
+    ctx = current_fit()
     x_host = np.asarray(x_host)
     if k > x_host.shape[1]:
         raise ValueError(
             f"k = {k} must be at most the number of features {x_host.shape[1]}"
         )
     n_dev = axis_size(mesh, DATA_AXIS)
-    x_padded, mask = pad_rows_to_multiple(x_host, n_dev)
-    per = x_padded.shape[0] // n_dev
-    d = mesh.get_local_rank(DATA_AXIS)
-    x_local, mask_local = x_padded[d * per:(d + 1) * per], mask[d * per:(d + 1) * per]
-    if dtype is not None:
-        x_local = x_local.astype(dtype)
-        mask_local = mask_local.astype(dtype)
-    return distributed_pca_fit_kernel(
-        x_local, mask_local, mesh=mesh, k=k, mean_centering=mean_centering,
-        one_pass=one_pass, flip_signs=flip_signs)
+    with ctx.phase("prepare"):
+        x_padded, mask = pad_rows_to_multiple(x_host, n_dev)
+        per = x_padded.shape[0] // n_dev
+        d = mesh.get_local_rank(DATA_AXIS)
+        x_local = x_padded[d * per:(d + 1) * per]
+        mask_local = mask[d * per:(d + 1) * per]
+        if dtype is not None:
+            x_local = x_local.astype(dtype)
+            mask_local = mask_local.astype(dtype)
+    with ctx.phase("placement"):
+        device = mesh_device(mesh)
+        x_dev = torch.as_tensor(x_local, device=device)
+        mask_dev = torch.as_tensor(mask_local, device=device)
+    n = x_host.shape[1]
+    dt = x_local.dtype
+    if one_pass:
+        # ONE all-reduce of (Gram, column sum, packed count)
+        ctx.record_collective(
+            "all_reduce", nbytes=collective_nbytes((n * n + n + 2,), dt))
+    else:
+        # all-reduce of (column sum, packed count), then of the Gram
+        ctx.record_collective(
+            "all_reduce", nbytes=collective_nbytes((n + 2,), dt))
+        ctx.record_collective(
+            "all_reduce", nbytes=collective_nbytes((n, n), dt))
+    with ctx.phase("execute"), current_run().step(
+        "covariance_eigh", rows=x_host.shape[0]
+    ) as step:
+        result = distributed_pca_fit_kernel(
+            x_dev, mask_dev, mesh=mesh, k=k, mean_centering=mean_centering,
+            one_pass=one_pass, flip_signs=flip_signs)
+        step.note(k=k, one_pass=int(one_pass))
+        return result

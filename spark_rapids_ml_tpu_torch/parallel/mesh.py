@@ -157,6 +157,15 @@ def unpack_count(packed: torch.Tensor) -> torch.Tensor:
     return hi * _COUNT_SPLIT + lo
 
 
+def collective_nbytes(shape, dtype) -> int:
+    """Payload bytes of one collective operand of ``shape``/``dtype`` (a
+    numpy or torch dtype) — the unit every fit's collective accounting
+    (``FitContext.record_collective``) is declared in."""
+    itemsize = (dtype.itemsize if isinstance(dtype, torch.dtype)
+                else np.dtype(dtype).itemsize)
+    return int(np.prod([int(s) for s in shape], dtype=np.int64)) * itemsize
+
+
 def pad_rows_to_multiple(x: np.ndarray, multiple: int):
     """Pad rows so the leading dim divides the mesh; returns (padded, mask).
 

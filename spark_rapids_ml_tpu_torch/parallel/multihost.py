@@ -20,6 +20,7 @@ plays that part, so it has no counterpart here.
 from __future__ import annotations
 
 import os
+import time
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -156,9 +157,33 @@ def make_global_array(local_rows: np.ndarray, mesh,
     array from every process's rows; here each rank keeps its own and the
     fit's collectives combine them. Ranks may hold different row counts;
     their sum must be ``n_global_rows`` (checked with one ``all_reduce``
-    over the ``data`` group, so every rank must call this)."""
+    over the ``data`` group, so every rank must call this). The host →
+    device copy is timed into a ``multihost:placement`` span and the
+    current fit-monitor run (``host<rank>`` seconds, a ``placement``
+    collective), as the JAX seam does."""
     device = mesh_device(mesh)
-    x = torch.as_tensor(np.asarray(local_rows), device=device).contiguous()
+    local_rows = np.asarray(local_rows)
+    t0 = time.perf_counter()
+    x = torch.as_tensor(local_rows, device=device).contiguous()
+    t1 = time.perf_counter()
+    try:
+        # this rank's placement seconds are the skew/straggler input: each
+        # process reports its own seam time into the live FitRun, and the
+        # run's skew() compares them against the fleet median
+        from spark_rapids_ml_tpu_torch.obs import fitmon, spans
+
+        nbytes = int(local_rows.nbytes)
+        spans.record_event(
+            "multihost:placement", t0, t1,
+            rows=int(local_rows.shape[0]), nbytes=nbytes,
+        )
+        run = fitmon.current_run()
+        run.note_host_step(f"host{process_info()['process_id']}", t1 - t0)
+        run.record_collective(
+            "placement", nbytes=nbytes, count=1, seconds=t1 - t0
+        )
+    except Exception:
+        pass
     total = torch.tensor(x.shape[0], dtype=torch.int64, device=device)
     dist.all_reduce(total, group=mesh.get_group(DATA_AXIS))
     if int(total) != n_global_rows:

@@ -14,6 +14,12 @@ rank.
 
 On the card each batch's float32 Gram launches the hand kernel once per
 rank (``ops.covariance.centered_gram``).
+
+``distributed_streaming_pca_fit`` is instrumented as the JAX one is: a
+fit report with the phases ``stream`` and ``finalize``, the finalize
+all-reduce's payload, and fit-monitor steps (``obs.fitmon``): one
+``stream_fold`` per batch, whose FLOPs are its Gram's, and one
+``finalize``.
 """
 
 from __future__ import annotations
@@ -22,6 +28,11 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from spark_rapids_ml_tpu_torch.obs.fitmon import current_run
+from spark_rapids_ml_tpu_torch.obs.report import (
+    current_fit,
+    fit_instrumentation,
+)
 from spark_rapids_ml_tpu_torch.ops.covariance import covariance_from_stats
 from spark_rapids_ml_tpu_torch.ops.eigh import pca_from_covariance
 from spark_rapids_ml_tpu_torch.ops.pca_kernel import PCAFitResult
@@ -33,6 +44,7 @@ from spark_rapids_ml_tpu_torch.ops.streaming import (
 from spark_rapids_ml_tpu_torch.parallel.mesh import (
     DATA_AXIS,
     axis_size,
+    collective_nbytes,
     mesh_device,
     pack_count,
     unpack_count,
@@ -106,11 +118,18 @@ class DistributedStreamingPCA:
     def finalize(
         self, k: int, mean_centering: bool = True, solver: str = "eigh"
     ) -> PCAFitResult:
+        # the ONE collective of the streamed fit: the packed (Gram, column
+        # sum, count) all-reduce
+        n = self._stats.col_sum.shape[0]
+        current_fit().record_collective(
+            "all_reduce",
+            nbytes=collective_nbytes((n * n + n + 2,), self._stats.gram.dtype))
         return finalize_stats_sharded(
             self._stats, k, mesh=self._mesh, mean_centering=mean_centering,
             solver=solver)
 
 
+@fit_instrumentation("distributed_streaming_pca")
 def distributed_streaming_pca_fit(
     source,
     k: int,
@@ -128,9 +147,24 @@ def distributed_streaming_pca_fit(
             f"source batch_rows {source.batch_rows} must be a multiple of "
             f"the mesh size {d}"
         )
+    ctx = current_fit()
     acc = DistributedStreamingPCA(source.n_features, mesh, dtype=dtype)
-    for batch, mask in source.batches():
-        acc.partial_fit(batch, mask)
+    n_batches = 0
+    with ctx.phase("stream"):
+        for batch, mask in source.batches():
+            # each fold's step ends in a device sync (obs.fitmon), so it
+            # times the placement and the Gram, not the launch alone
+            with current_run().step(
+                "stream_fold", rows=batch.shape[0]
+            ) as mon:
+                acc.partial_fit(batch, mask)
+                mon.note(fold=float(n_batches))
+            n_batches += 1
+    ctx.set_data(rows=acc.rows_seen, features=source.n_features)
+    ctx.note(batches_streamed=n_batches)
     if mean_centering and acc.rows_seen < 2:
         raise ValueError("mean centering requires more than one row")
-    return acc.finalize(k, mean_centering=mean_centering, solver=solver)
+    with ctx.phase("finalize"), current_run().step(
+        "finalize", rows=acc.rows_seen
+    ):
+        return acc.finalize(k, mean_centering=mean_centering, solver=solver)

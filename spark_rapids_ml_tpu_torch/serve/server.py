@@ -71,11 +71,16 @@ generators, probes) without a web framework.
 * ``GET /dashboard`` — the JAX package's live ops page
   (``serve.dashboard``), served as ``text/html; charset=utf-8``: tiles
   and tables polling ``/debug/slo``, ``/healthz``, ``/debug/history``,
-  ``/debug/incidents`` and ``/debug/traces?limit=10`` (its ``/debug/fit``
-  and ``/debug/fleet`` tiles stay empty: those routes are not ported yet).
+  ``/debug/incidents``, ``/debug/fit`` and ``/debug/traces?limit=10`` (its
+  ``/debug/fleet`` tiles stay empty: that route is not ported yet);
+* ``GET /debug/fit`` — the fit-path monitor's document
+  (``obs.fitmon.debug_fit_doc``): active runs with their step tables,
+  recent runs, the per-algo rollup, the backend watchdog's last verdict,
+  the straggler ratio and the card's peaks.
 
 ``start_serve_server`` starts the history sampler (``obs.tsdb``, with the
-device monitor ``obs.devmon`` as a collector) and registers the engine's
+device monitor ``obs.devmon`` and the fit monitor's backend watchdog
+``obs.fitmon`` as collectors) and registers the engine's
 SLO and queue-wait publishers and the cost ledger's ``publish`` on it, so
 the ``/debug/history`` series move every sweep whether or not anyone
 polls; unless ``SPARK_RAPIDS_ML_TORCH_OBS_INCIDENTS=0`` it installs the
@@ -86,9 +91,8 @@ hit, whose handler runs the reactivation (``serve.tiering``) before it
 enqueues — so ``/metrics``, ``/healthz`` and ``/debug/*`` never touch
 the card (the device monitor reads the allocator's host-side counters; a
 profile capture runs on helper threads of its own). The JAX package's
-other tiers' routes (``/debug/fit``, ``/debug/fleet``,
-``/debug/fleet/export``, ``/debug/rollout``, ``/debug/autoscale``) are
-not ported yet.
+other tiers' routes (``/debug/fleet``, ``/debug/fleet/export``,
+``/debug/rollout``, ``/debug/autoscale``) are not ported yet.
 """
 
 from __future__ import annotations
@@ -104,6 +108,7 @@ from typing import Optional
 import numpy as np
 
 from spark_rapids_ml_tpu_torch.obs import accounting as accounting_mod
+from spark_rapids_ml_tpu_torch.obs import fitmon as fitmon_mod
 from spark_rapids_ml_tpu_torch.obs import incidents as incidents_mod
 from spark_rapids_ml_tpu_torch.obs import profiler as profiler_mod
 from spark_rapids_ml_tpu_torch.obs import spans as spans_mod
@@ -365,6 +370,8 @@ def make_handler(engine: ServeEngine):
                 status = self._reply(200, engine.tiering_snapshot())
             elif path == "/debug/costs":
                 status = self._reply(200, engine.costs_snapshot())
+            elif path == "/debug/fit":
+                status = self._reply(200, fitmon_mod.debug_fit_doc())
             elif path == "/dashboard":
                 status = self._reply_bytes(
                     200, DASHBOARD_HTML.encode("utf-8"),
@@ -591,7 +598,8 @@ def start_serve_server(
 
     Also starts the process-wide history sampler (``obs.tsdb``, which
     outlives the server: ``tsdb.stop_sampling`` stops it) with the device
-    monitor, every live engine's SLO gauges, the cost ledger's gauges and
+    monitor, the fit monitor's backend watchdog, every live engine's SLO
+    gauges, the cost ledger's gauges and
     this engine's queue-wait estimate as collectors, so
     ``/debug/history`` has data, and — unless
     ``SPARK_RAPIDS_ML_TORCH_OBS_INCIDENTS=0`` — installs the auto-incident

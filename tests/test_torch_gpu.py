@@ -853,3 +853,68 @@ def test_fit_and_transform_reports_on_the_card(cuda_device):
     assert set(t.phases) == {"device_put", "compute", "host_sync", "total"}
     assert t.rows == 1024 and t.numerics["checked_rows"] == 1024
     assert t.numerics["nan_rows"] == t.numerics["inf_rows"] == 0
+
+
+def test_fit_watchdog_on_the_card(cuda_device):
+    """The watchdog's own devices and canary on the card: healthy, the
+    card's name and count, a real canary time; a ``cpu`` expectation is
+    a platform mismatch."""
+    from spark_rapids_ml_tpu_torch.obs import fitmon
+
+    verdict = fitmon.BackendWatchdog(expected_platform=None).check()
+    assert verdict["ok"] is True and verdict["reason"] is None
+    assert verdict["platform"] == "cuda"
+    assert verdict["device_kind"] == torch.cuda.get_device_name(0)
+    assert verdict["device_count"] == torch.cuda.device_count()
+    assert verdict["canary"] == "ok" and verdict["canary_seconds"] > 0
+    mismatch = fitmon.BackendWatchdog(expected_platform="cpu").check()
+    assert mismatch["ok"] is False
+    assert mismatch["reason"] == "platform_mismatch"
+
+
+def test_the_cards_peaks(cuda_device, monkeypatch):
+    """The peak table keyed by the card's name: the H100's published 700 W
+    figures, and absent (never guessed) for a card the table lacks."""
+    from spark_rapids_ml_tpu_torch.obs import fitmon, xprof
+    from spark_rapids_ml_tpu_torch.utils import platform
+
+    for name in ("SPARK_RAPIDS_ML_TORCH_FITMON_PEAK_FLOPS",
+                 "SPARK_RAPIDS_ML_TORCH_FITMON_PEAK_BW"):
+        monkeypatch.delenv(name, raising=False)
+    kind = torch.cuda.get_device_name(0)
+    assert platform.device_kind() == kind
+    want = (platform.PEAK_FLOPS_BF16.get(kind),
+            platform.PEAK_HBM_BYTES_PER_SECOND.get(kind))
+    assert fitmon.device_peaks() == want
+    assert xprof.peak_flops_per_second() == want[0]
+    if kind == "NVIDIA H100 80GB HBM3":
+        assert want == (989e12, 3.35e12)
+
+
+def test_the_flops_of_a_cuda_gram(cuda_device, monkeypatch):
+    """A Gram on the card through ``centered_gram`` inside a monitored
+    step: one kernel launch, the step's FLOPs the Gram formula, a device
+    time that covers the kernel (the step syncs), and an MFU against the
+    card's peak in (0, 1]."""
+    from spark_rapids_ml_tpu_torch.obs import fitmon
+    from spark_rapids_ml_tpu_torch.ops.covariance import centered_gram
+
+    monkeypatch.setattr(fitmon, "_monitor", fitmon.FitMonitor(enabled=True))
+    rows, n = 8192, 1024
+    x = torch.randn(rows, n, device=cuda_device)
+    name = fused_gram.kernel_name(None)
+    before = fused_gram.launches[name]
+    with fitmon.fit_run("gram_probe") as run:
+        with run.step("gram", rows=rows):
+            g = centered_gram(x)
+    assert fused_gram.launches[name] == before + 1
+    assert g.shape == (n, n)
+    (step,) = run.steps
+    assert step["flops"] == rows * n * (n + 1)
+    assert step["bytes_accessed"] == rows * n * 4 + n * n * 4
+    assert step["device_seconds"] > 0
+    peak, _ = fitmon.device_peaks()
+    if peak:
+        assert step["mfu"] == pytest.approx(
+            step["flops"] / step["device_seconds"] / peak, rel=1e-12)
+        assert 0 < step["mfu"] <= 1

@@ -36,16 +36,17 @@ def _is_forbidden(module: str) -> bool:
 
 
 # modules ported from JAX package code that imports nothing of JAX at the
-# top (the reports, the watermark and the probe reach JAX only inside their
-# functions; the dashboard is a string constant), which the port must
-# still not import from there
+# top (the reports, the watermark, the probe, the fit monitor, xprof's peak
+# and the peak tables reach JAX only inside their functions; the dashboard
+# is a string constant), which the port must still not import from there
 STANDALONE = ("obs.tracectx", "obs.spans", "obs.slo", "obs.tsdb",
               "obs.logging", "obs.retention", "obs.flight", "obs.profiler",
               "obs.accounting", "obs.robust", "obs.anomaly",
               "obs.incidents", "obs.metrics", "obs.memory", "obs.report",
               "obs.serving", "utils.health", "serve.admission",
               "serve.scheduler", "serve.wire", "serve.breaker",
-              "serve.tiering", "serve.dashboard")
+              "serve.tiering", "serve.dashboard", "obs.fitmon",
+              "obs.xprof", "utils.platform")
 
 
 def test_importing_every_port_module_leaves_jax_out():

@@ -522,3 +522,29 @@ def test_debug_costs_endpoint_serves_live_rollup(model, fresh_ledger):
         engine.shutdown()
         tsdb.reset_tsdb()
         devmon.reset_device_monitor()
+
+
+def test_a_fits_device_time_is_not_serving_drift(monkeypatch):
+    """The fit monitor attributes a fit's step device time to devmon's
+    ``fit:<algo>``. The port's reconcile leaves it out and stays ``ok``;
+    the JAX ledger counts it as ``(overflow)`` and reads drift (a
+    reference defect: a fit run in a serving process fails reconcile)."""
+    from spark_rapids_ml_tpu.obs import metrics as jax_metrics
+    from spark_rapids_ml_tpu_torch.obs import metrics
+
+    regs = {"torch": MetricsRegistry(), "jax": JaxMetrics()}
+    monkeypatch.setattr(metrics, "_default_registry", regs["torch"])
+    monkeypatch.setattr(jax_metrics, "_default_registry", regs["jax"])
+    reports = {}
+    for pkg, mod in (("torch", accounting), ("jax", jax_accounting)):
+        ledger = mod.ResourceLedger()
+        ledger.note_batch_seconds("served", 2.0)
+        family = regs[pkg].counter(DEVMON_FAMILY, "", ("model", "device"))
+        family.inc(2.0, model="served", device="cpu")
+        family.inc(5.0, model="fit:distributed_pca", device="cpu")
+        reports[pkg] = ledger.reconcile()
+    ours, theirs = reports["torch"], reports["jax"]
+    assert ours["verdict"] == "ok" and OVERFLOW_MODEL not in ours["models"]
+    assert ours["models"]["served"]["drift_ratio"] == 0.0
+    assert theirs["verdict"] == "drift"
+    assert theirs["models"][OVERFLOW_MODEL]["drift_ratio"] == 1.0

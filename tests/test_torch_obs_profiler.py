@@ -278,6 +278,31 @@ def test_capture_documents_match_jax(profile_dir, fake_profilers):
             theirs_count(outcome) - theirs0 == 1
 
 
+def test_capture_inside_a_fit_run_carries_its_run_id(
+        profile_dir, fake_profilers, monkeypatch):
+    """A capture started while a fit-monitor run is active names that run
+    in its documents, as the JAX capture does; outside any run, None."""
+    from spark_rapids_ml_tpu.obs import fitmon as jax_fitmon
+    from spark_rapids_ml_tpu_torch.obs import fitmon
+
+    ids = {}
+    for mod, mon in ((profiler, fitmon), (jax_profiler, jax_fitmon)):
+        monkeypatch.setattr(mon, "_monitor", mon.FitMonitor(enabled=True))
+        with mon.fit_run("distributed_pca") as run:
+            info = mod.start_capture(60.0, label="fit")
+            active = mod.capture_active()
+            result = mod.stop_capture()
+            mod.wait(WAIT)
+        assert info["fit_run_id"] == active["fit_run_id"] == \
+            result["fit_run_id"] == run.run_id
+        outside = mod.start_capture(60.0, label="nofit")
+        mod.stop_capture()
+        mod.wait(WAIT)
+        assert outside["fit_run_id"] is None
+        ids[mod] = run.run_id
+    assert ids[profiler] == ids[jax_profiler] == "fit-1"
+
+
 def test_unavailable_profiler_outcome_matches_jax(profile_dir,
                                                   fake_profilers,
                                                   monkeypatch):

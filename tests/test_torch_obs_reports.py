@@ -103,10 +103,13 @@ def test_pca_fit_report_matches_the_jax_report(rng, fit):
     assert set(ours.memory) == set(theirs.memory)
     assert ours.memory["per_device"] == [{"device": "cpu"}]
     assert ours.peak_device_bytes == ours.memory["host_peak_rss_bytes"]
-    # nothing compiles, and the analytic fields wait for the fit monitor
+    # nothing compiles; the analytic FLOPs are the Gram's, rows·n·(n+1)
+    # (none where the host computes the covariance), and without a card's
+    # peak there is no MFU
     assert (ours.compiles, ours.recompiles, ours.compile_seconds) == \
         (0, 0, 0.0)
-    assert ours.analytic_flops is None and ours.analytic_mfu is None
+    gram_flops = None if fit == "host" else 300 * 10 * 11
+    assert ours.analytic_flops == gram_flops and ours.analytic_mfu is None
     assert ours.collectives == {} and ours.mesh_shape is None
 
 

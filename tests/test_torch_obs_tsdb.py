@@ -557,17 +557,22 @@ def test_concurrent_record_and_query_8_threads():
 
 
 def test_start_sampling_registers_the_device_monitor(monkeypatch):
-    from spark_rapids_ml_tpu_torch.obs import devmon
+    """The device monitor's ``sample`` and, beside it, the fit monitor's
+    watchdog collector, as the JAX ``start_sampling`` registers them."""
+    from spark_rapids_ml_tpu_torch.obs import devmon, fitmon
 
     monkeypatch.setenv("SPARK_RAPIDS_ML_TORCH_PLATFORM", "cpu")
     devmon.reset_device_monitor()
+    fitmon.reset_fitmon()
     port_tsdb.reset_tsdb()
     try:
         sampler = port_tsdb.start_sampling(interval_seconds=3600.0)
         assert sampler is port_tsdb.get_sampler() and sampler.running
         assert sampler.interval_seconds == 3600.0
         assert port_tsdb.start_sampling() is sampler  # idempotent
-        assert sampler._collectors == [devmon.get_device_monitor().sample]
+        assert sampler._collectors == [
+            devmon.get_device_monitor().sample,
+            fitmon.get_fit_monitor().watchdog_collector]
         port_tsdb.stop_sampling()
         assert not sampler.running
         sampler.sample_once()
@@ -575,6 +580,11 @@ def test_start_sampling_registers_the_device_monitor(monkeypatch):
             "sparkml_device_mem_bytes_in_use", {"device": "cpu"},
             window=60.0)
         assert series and series[0]["labels"]["source"] == "host_rss"
+        # the CPU was asked for: the watchdog's verdict is healthy
+        (ok,) = port_tsdb.get_tsdb().range_query(
+            "sparkml_fit_backend_ok", {}, window=60.0)
+        assert ok["points"][-1][1] == 1.0
     finally:
         port_tsdb.reset_tsdb()
         devmon.reset_device_monitor()
+        fitmon.reset_fitmon()

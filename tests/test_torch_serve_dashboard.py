@@ -1,7 +1,7 @@
 """``GET /dashboard``: the port serves the JAX package's page byte for byte,
 as ``text/html; charset=utf-8``, and every URL the page fetches answers —
-200 for the routes the port serves, 404 for ``/debug/fit`` and
-``/debug/fleet``, whose tiles stay empty until those routes are ported."""
+200 for the routes the port serves (``/debug/fit`` among them), 404 for
+``/debug/fleet``, whose tiles stay empty until that route is ported."""
 
 import http.client
 import json
@@ -22,8 +22,8 @@ from spark_rapids_ml_tpu_torch.serve.dashboard import DASHBOARD_HTML
 
 TIMEOUT = 30
 SERVED = ("/debug/slo", "/healthz", "/debug/history", "/debug/incidents",
-          "/debug/traces?limit=10")
-NOT_YET = ("/debug/fit", "/debug/fleet")
+          "/debug/traces?limit=10", "/debug/fit")
+NOT_YET = ("/debug/fleet",)
 
 
 @pytest.fixture(scope="module")

@@ -33,6 +33,7 @@ from spark_rapids_ml_tpu_torch import PCAModel
 from spark_rapids_ml_tpu_torch.obs import (
     accounting,
     devmon,
+    fitmon,
     profiler,
     spans,
     tracectx,
@@ -65,9 +66,12 @@ def _cpu_requested(monkeypatch):
 @pytest.fixture
 def served(rng):
     """A float64 PCA model behind a port engine and server on an ephemeral
-    port; the sampler the server started is stopped and dropped after."""
+    port; the sampler the server started is stopped and dropped after,
+    and the monitors it sweeps (devmon, fitmon's watchdog) are made anew,
+    bound to the current registry."""
     tsdb.reset_tsdb()
     devmon.reset_device_monitor()
+    fitmon.reset_fitmon()
     basis = np.linalg.qr(rng.normal(size=(N_FEAT, 4)))[0]
     model = PCAModel.from_numpy(basis, [0.4, 0.3, 0.2, 0.1]).setDtype(
         "float64")
@@ -83,6 +87,7 @@ def served(rng):
         engine.shutdown()
         tsdb.reset_tsdb()
         devmon.reset_device_monitor()
+        fitmon.reset_fitmon()
 
 
 def _get(port, path):
@@ -396,8 +401,8 @@ def test_server_starts_the_sampler_with_its_collectors(served):
     assert sampler.running
     sampler.stop()
     names = [getattr(fn, "__name__", "") for fn in sampler._collectors]
-    assert names == ["sample", "publish_all_slos", "publish",
-                     "_publish_queue_wait"]
+    assert names == ["sample", "watchdog_collector", "publish_all_slos",
+                     "publish", "_publish_queue_wait"]
     assert accounting.get_ledger().publish in sampler._collectors
     _predict(port, x[:4])
     sampler.sample_once()
@@ -405,6 +410,7 @@ def test_server_starts_the_sampler_with_its_collectors(served):
     for name in ("sparkml_slo_budget_remaining",
                  server_mod.QUEUE_WAIT_SERIES,
                  "sparkml_device_mem_bytes_in_use",
+                 "sparkml_fit_backend_ok",
                  "sparkml_obs_overhead_seconds_total"):
         assert store.range_query(name, window=60.0), name
     # the sweep republished the engine's (decaying) queue-wait estimate
@@ -415,7 +421,7 @@ def test_server_starts_the_sampler_with_its_collectors(served):
     engine.shutdown()
     sampler.sample_once()
     assert [getattr(fn, "__name__", "") for fn in sampler._collectors] == [
-        "sample", "publish_all_slos", "publish"]
+        "sample", "watchdog_collector", "publish_all_slos", "publish"]
 
 
 def test_publish_all_slos_publishes_live_engines_only(monkeypatch):
