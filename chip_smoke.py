@@ -11,7 +11,10 @@ when there is no CUDA device or the port is not importable.
 Phases (any failure raises and the script exits non-zero):
 
 1. Environment: the card's name and power limit, torch and CUDA versions;
-   TF32 off for matmuls and cuDNN, so every f32 product is full f32.
+   TF32 off for matmuls and cuDNN, so every f32 product is full f32;
+   incidents start no profiler capture unless a phase asks for one
+   (``SPARK_RAPIDS_ML_TORCH_OBS_INCIDENT_CAPTURE_S`` defaults to 0 here;
+   phase 11 sets its own).
 2. Build: every kernel of the path from the checkout's sources, fresh,
    with the registers, shared memory and spills ``ptxas -v`` reports for
    the prep, FFMA and tensor-core kernels, and each Gram launch's dynamic
@@ -29,7 +32,11 @@ Phases (any failure raises and the script exits non-zero):
    tell a wrong precision. Timed with CUDA events at the bucket (the whole
    call, and the prep pass alone) beside its plain version, a library
    yardstick and its bound; the Gram launch's share (call − prep) is
-   logged as a rate against the operand type's peak.
+   logged as a rate against the operand type's peak. Then phase 14's new
+   shapes, each checked (prep bit for bit, Gram within its bar) and timed
+   the same way: bfloat16_3x on the streamed LinearRegression's bucket of
+   Z = [X | y] (7936 × 4097, one tile column past 4096) and highest on
+   65,536 × 4096 with a √weight row multiplier.
 4. The PCA slice at the north-star width (4096 features, k = 256; rows cut
    from 10,485,760 to fit the run's time), data with a decaying spectrum
    made per chunk from a seed on the card:
@@ -284,9 +291,35 @@ Phases (any failure raises and the script exits non-zero):
     MFU, bound), MFU per step, fitmon's cost per step
     (``component="fitmon"``) and the watchdog's per check, and the
     streamed fit's wall beside phase 7's unmonitored one (host clock).
+14. The Gram kernel's other callers at 4096 features, each run with the
+    launch counts set to 0 just before it and read just after, each
+    launching exactly what its code says. (i) ``RowMatrix`` over fit (a)'s
+    262,144 rows as 4 partitions (``use_xla_dot``, ``use_xla_svd``): 4
+    launches; its 256 principal components against fit (a)'s model at
+    phase 4's bar; ``multiply(pc)`` against the float64 product on the
+    host at the transform bar (1e-5). (ii) ``TruncatedSVD(k=256)`` on
+    65,536 of those rows shifted by 1.0 per column: 1 launch of the
+    uncentred Gram; against the same fit with the kernel's plain version
+    on the card, |cos| ≥ 0.999 over the top 64 components and σ within
+    1e-3 relative; the zero columns (σ = 0) the randomized solve leaves
+    in the tail are counted. (iii) ``LinearRegression`` on a Gaussian design
+    (N(0, 1), planted coefficients, intercept 3.0, noise 0.1), against
+    float64 normal equations on the card (cuBLAS DGEMM, no kernel),
+    relative error of (coefficients, intercept): one-shot on 65,536 rows
+    (the streaming threshold raised for it) and weighted (w ~ U(0.5, 2),
+    the √w route), 1 launch each at highest, ≤ 1e-4; elastic net
+    (regParam 0.01, elasticNetParam 0.5) against FISTA on the oracle's
+    moments, ≤ 1e-3; streamed from a generator of 4 chunks of 65,536
+    (Z = [X | y], 34 buckets of 7936 rows at the default precision),
+    ≤ 1e-4; ``distributed_linreg_fit`` on a fresh one-rank NCCL world
+    against the one-shot fit, ≤ 1e-6, with one all-reduce of
+    (n² + 2n + 3) float32. Prints each run's host seconds, errors and
+    ``fit_timings_``.
 
-Then one JSON line ``{"kernels": [...]}``, the card's name and power limit,
-and last ``{"ok": true, "device": {...}}``.
+Then one JSON line ``{"kernels": [...]}`` (each kernel with its launches
+per phase and, under ``extra_shapes``, phase 3's timings of phase 14's
+shapes), the card's name and power limit, and last ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -322,6 +355,15 @@ PRECISIONS = {
 }
 SOURCE = "spark_rapids_ml_tpu_torch/csrc/fused_gram.cu"
 REPLACES = "spark_rapids_ml_tpu/ops/pallas_gram.py:200"
+
+# Phase 14's new kernel shapes, checked and timed in phase 3: label →
+# (precision, rows, n, row multiplier). The streamed LinearRegression's
+# bucket of Z = [X | y] (auto_batch_rows(4097) = 7936 rows, one tile column
+# past 4096 wide) and its one-shot Gram (√weight rows, full f32).
+SLICE_14_SHAPES = {
+    "streamed Z bucket": ("bfloat16_3x", 7936, N_FEATURES + 1, "ones"),
+    "root-weight rows": ("highest", CHUNK_ROWS, N_FEATURES, "root_weights"),
+}
 
 # Fit vs plain-version fit: components whose spectral gap is well above
 # f32 rounding (the first 64 of a 1/(1+j) spectrum) and their EVR.
@@ -594,9 +636,56 @@ def phase_kernels(torch, fg, device):
         results[name] = {
             "max_abs_err": worst, "ms": ms, "prep_ms": prep_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms,
+            "library_ms": library_ms, "extra_shapes": {},
         }
+    for label, (precision, rows, n, rowmul_kind) in SLICE_14_SHAPES.items():
+        name = PRECISIONS[precision][0]
+        results[name]["extra_shapes"][label] = slice_14_shape(
+            torch, fg, device, label, precision, rows, n, rowmul_kind)
     return results
+
+
+def slice_14_shape(torch, fg, device, label, precision, rows, n, rowmul_kind):
+    """One of phase 14's new kernel shapes: the prep pass bit for bit and
+    the Gram within its bar against their plain versions, then timed as the
+    bucket is, beside ``torch.matmul`` on the same scaled rows and the
+    bound."""
+    name, operand, passes = PRECISIONS[precision]
+    gen = torch.Generator(device=device).manual_seed(SEED + 14)
+    x = torch.randn(rows, n, generator=gen, device=device)
+    mean = torch.zeros(n, device=device)
+    if rowmul_kind == "root_weights":
+        rowmul = torch.sqrt(0.5 + 1.5 * torch.rand(rows, generator=gen,
+                                                   device=device))
+    else:
+        rowmul = torch.ones(rows, device=device)
+    check_prep(torch, fg, x, mean, rowmul, precision, label)
+    got = fg.fused_centered_gram(x, mean, rowmul, precision)
+    torch.cuda.synchronize()
+    want = fg.fused_centered_gram_reference(x, mean, rowmul, precision)
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    bar = fg.PLAIN_RTOL[name]
+    log(f"  {name} {label} {rows}x{n}: max_abs_err {err:.3e} rel "
+        f"{err / scale:.3e} (bar {bar:g})")
+    check(bool(torch.isfinite(got).all()) and bool(torch.equal(got, got.T)),
+          f"{name} {label} finite and symmetric")
+    check(err <= bar * scale, f"{name} {label} kernel vs plain "
+          f"{err / scale:.3e}")
+    xs = x * rowmul[:, None]
+    ms = time_ms(torch, lambda: fg.fused_centered_gram(
+        x, mean, rowmul, precision), iters=10)
+    plain_ms = time_ms(torch, lambda: fg.fused_centered_gram_reference(
+        x, mean, rowmul, precision), iters=3)
+    library_ms = time_ms(torch, lambda: torch.matmul(xs.T, xs), iters=10)
+    bound_ms, bound_by = bound(rows, n, operand, passes)
+    log(f"  {name} {label} {rows}x{n}: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, torch.matmul yardstick {library_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.3f} of the "
+        f"bound")
+    return {"rows": rows, "n": n, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
 
 
 def chunk(torch, device, index: int, rows: int = CHUNK_ROWS) -> np.ndarray:
@@ -3655,6 +3744,315 @@ def phase_fitmon(torch, fg, device, model_a, model_c, streamed7_s):
     return launched
 
 
+# -- phase 14: the Gram kernel's other callers ------------------------------------
+
+SVD_ROWS = CHUNK_ROWS
+SVD_SHIFT = 1.0            # per column: the uncentred Gram is not the centred one
+SIGMA_RTOL = 1e-3          # σ relative error against the plain-version fit
+TRANSFORM_RTOL = 1e-5      # PERF.md §2's transform bar
+LINREG_INTERCEPT = 3.0
+LINREG_NOISE = 0.1
+LINREG_CHUNKS = 4          # the streamed fit: a generator of 4 chunks
+ENET = (0.01, 0.5)         # (regParam, elasticNetParam)
+# ‖[ŵ, b̂] − [w*, b*]‖ / ‖[w*, b*]‖ against the float64 oracle on the card,
+# set from PERF.md §2's error analysis before the first run
+LINREG_RTOL = 1e-4         # one-shot, weighted, streamed
+ENET_RTOL = 1e-3           # elastic net, against FISTA on the oracle's moments
+DIST_RTOL = 1e-6           # one NCCL rank, against the one-shot fit
+
+
+def planted_coefficients(torch, device):
+    gen = torch.Generator(device=device).manual_seed(SEED + 1400)
+    return torch.randn(N_FEATURES, generator=gen, device=device,
+                       dtype=torch.float64)
+
+
+def linreg_chunk(torch, device, index, coef, label_dtype=np.float64):
+    """(X, y): X ~ N(0, 1) as a host float32 array, y = X·w + 3.0 + 0.1·ε
+    (computed in float64, handed over as ``label_dtype``), made on the card
+    from SEED + 1401 + index."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 1401 + index)
+    x = torch.randn(CHUNK_ROWS, N_FEATURES, generator=gen, device=device)
+    eps = torch.randn(CHUNK_ROWS, generator=gen, device=device,
+                      dtype=torch.float64)
+    y = x.double() @ coef + LINREG_INTERCEPT + LINREG_NOISE * eps
+    return x.cpu().numpy(), y.cpu().numpy().astype(label_dtype)
+
+
+def oracle_moments(torch, device, chunks, weights=None):
+    """Centred float64 normal-equation operands (A, b, μx, μy) of the
+    weighted rows, on the card (cuBLAS DGEMM), which never reaches the
+    kernel."""
+    n = N_FEATURES
+    f64 = torch.float64
+    gxx = torch.zeros(n, n, dtype=f64, device=device)
+    gxy = torch.zeros(n, dtype=f64, device=device)
+    sx = torch.zeros(n, dtype=f64, device=device)
+    sy = torch.zeros((), dtype=f64, device=device)
+    sw = torch.zeros((), dtype=f64, device=device)
+    for x, y in chunks:
+        xd = torch.as_tensor(x, device=device).double()
+        yd = torch.as_tensor(y, device=device).double()
+        w = torch.ones(xd.shape[0], dtype=f64, device=device) \
+            if weights is None else torch.as_tensor(weights, device=device)
+        xw = xd * w[:, None]
+        gxx += xw.T @ xd
+        gxy += xw.T @ yd
+        sx += xw.sum(0)
+        sy += (w * yd).sum()
+        sw += w.sum()
+        del xd, xw
+    mu_x, mu_y = sx / sw, sy / sw
+    return gxx / sw - torch.outer(mu_x, mu_x), gxy / sw - mu_x * mu_y, \
+        mu_x, mu_y
+
+
+def oracle_solve(torch, moments):
+    a, b, mu_x, mu_y = moments
+    coef = torch.linalg.solve(a, b)
+    return coef.cpu().numpy(), float(mu_y - mu_x @ coef)
+
+
+def linreg_error(coef, intercept, want) -> float:
+    got = np.append(np.asarray(coef, dtype=np.float64), intercept)
+    ref = np.append(want[0], want[1])
+    return float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
+
+
+def counted_run(torch, fg, label, fn, expected):
+    """``fn()`` with the launch counts set to 0 just before and read just
+    after; fails unless exactly ``expected`` ({kernel: launches}) ran.
+    Returns (result, counts)."""
+    torch.cuda.synchronize()
+    fg.reset_launches()
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = {k: v for k, v in fg.launches.items() if v}
+    log(f"  {label}: {seconds:.2f} s (host clock), launches {counts}")
+    check(counts == expected, f"{label}: launches {counts}, expected "
+          f"{expected}")
+    return result, counts
+
+
+def plain_svd(torch, fg, x, k, device):
+    """TruncatedSVD's device fit with the Gram computed by the kernel's
+    plain version on the card: the same solve, σ the Rayleigh quotient."""
+    from spark_rapids_ml_tpu_torch.ops.eigh import pca_from_covariance_gated
+
+    xd = torch.as_tensor(x, dtype=torch.float32, device=device)
+    rows, n = xd.shape
+    g = fg.fused_centered_gram_reference(
+        xd, torch.zeros(n, device=device), torch.ones(rows, device=device))
+    v, _, used = pca_from_covariance_gated(g, k, solver="auto")
+    s = torch.sqrt(torch.clamp(torch.sum(v * (g @ v), dim=0), min=0))
+    return v.cpu().numpy(), s.cpu().numpy(), used
+
+
+def phase_gram_callers(torch, fg, device, model_a):
+    """Phase 14: RowMatrix, TruncatedSVD and LinearRegression through their
+    entry points at 4096 features, and ``distributed_linreg_fit`` on one
+    NCCL rank. Returns {kernel: launches}."""
+    import torch.distributed as dist
+
+    from spark_rapids_ml_tpu_torch import (
+        LinearRegression,
+        RowMatrix,
+        TruncatedSVD,
+    )
+    from spark_rapids_ml_tpu_torch.data.batches import (
+        STREAM_THRESHOLD_ENV,
+        auto_batch_rows,
+    )
+    from spark_rapids_ml_tpu_torch.data.frame import VectorFrame
+    from spark_rapids_ml_tpu_torch.models.linear_regression import (
+        _elastic_net_solve,
+    )
+    from spark_rapids_ml_tpu_torch.parallel import (
+        data_mesh,
+        distributed_linreg_fit,
+        initialize_multihost,
+    )
+
+    t_phase = time.perf_counter()
+    default = fg.kernel_name(None)
+    highest = fg.kernel_name("highest")
+    launched = {}
+
+    def add(counts):
+        for name, count in counts.items():
+            launched[name] = launched.get(name, 0) + count
+
+    # (i) RowMatrix: fit (a)'s rows as 4 partitions
+    parts = [chunk(torch, device, i) for i in range(4)]
+    mat = RowMatrix(parts, use_xla_dot=True, use_xla_svd=True)
+    (pc, evr), counts = counted_run(
+        torch, fg, f"(i) RowMatrix {mat.num_rows():,} x {mat.num_cols()} in "
+        f"{mat.num_partitions} partitions, principal components k = {K}",
+        lambda: mat.compute_principal_components_and_explained_variance(K),
+        {default: len(parts)})
+    add(counts)
+    check(pc.shape == (N_FEATURES, K) and np.isfinite(pc).all()
+          and np.isfinite(evr).all(), f"RowMatrix components {pc.shape}")
+    cos = np.abs(np.sum(model_a.pc * pc, axis=0))
+    evr_rel = np.abs(evr - model_a.explained_variance) / np.abs(
+        model_a.explained_variance)
+    log(f"    vs fit (a): |cos| min over top {TOP_COMPONENTS} "
+        f"{cos[:TOP_COMPONENTS].min():.6f} (bar {COS_BAR}), over all {K} "
+        f"{cos.min():.6f}; EVR max rel err top {TOP_COMPONENTS} "
+        f"{evr_rel[:TOP_COMPONENTS].max():.3e} (bar {EVR_RTOL:g})")
+    check(cos[:TOP_COMPONENTS].min() >= COS_BAR, "RowMatrix component |cos|")
+    check(evr_rel[:TOP_COMPONENTS].max() <= EVR_RTOL, "RowMatrix EVR")
+    projected, counts = counted_run(
+        torch, fg, "(i) RowMatrix.multiply(pc)", lambda: mat.multiply(pc), {})
+    worst = 0.0
+    for part, out in zip(parts, projected._parts):
+        want = part.astype(np.float64) @ pc
+        worst = max(worst, float(np.abs(out - want).max() / np.abs(want).max()))
+    log(f"    multiply: {projected.num_rows():,} x {projected.num_cols()}, "
+        f"max rel err vs float64 on the host {worst:.3e} (bar "
+        f"{TRANSFORM_RTOL:g})")
+    check(projected.num_cols() == K and worst <= TRANSFORM_RTOL,
+          f"RowMatrix.multiply rel err {worst:.3e}")
+    del parts, mat, projected
+
+    # (ii) TruncatedSVD: 65,536 of those rows, shifted off zero
+    x = chunk(torch, device, 0, rows=SVD_ROWS) + np.float32(SVD_SHIFT)
+    model, counts = counted_run(
+        torch, fg, f"(ii) TruncatedSVD(k={K}) on {SVD_ROWS:,} x {N_FEATURES}, "
+        f"columns shifted by {SVD_SHIFT}",
+        lambda: TruncatedSVD().setK(K).fit(x), {default: 1})
+    add(counts)
+    v, s, used = plain_svd(torch, fg, x, K, device)
+    check(model.components.shape == (N_FEATURES, K)
+          and np.isfinite(model.components).all()
+          and np.isfinite(model.singular_values).all(),
+          f"TruncatedSVD components {model.components.shape}")
+    cos = np.abs(np.sum(model.components * v, axis=0))
+    top = slice(0, TOP_COMPONENTS)
+    s_rel = np.abs(model.singular_values[top] - s[top]) / np.abs(s[top])
+    # the randomized solve's whitening drops the tail directions ~1e6 below
+    # the top eigenvalue as exactly-zero columns, and the residual gate
+    # passes them, as the JAX package's does (ROADMAP queue 3): counted,
+    # not held to a bar, which covers the top components
+    zeros = [int((np.abs(c).max(axis=0) == 0).sum())
+             for c in (model.components, v)]
+    log(f"    vs the plain-version fit: |cos| min over top {TOP_COMPONENTS} "
+        f"{cos[top].min():.6f} (bar {COS_BAR}), over all {K} "
+        f"{cos.min():.6f}; σ max rel err top {TOP_COMPONENTS} "
+        f"{s_rel.max():.3e} (bar {SIGMA_RTOL:g}); zero columns "
+        f"{zeros[0]} (plain fit {zeros[1]}) of {K}; σ₁ "
+        f"{model.singular_values[0]:.6g}, σ_{TOP_COMPONENTS} "
+        f"{model.singular_values[TOP_COMPONENTS - 1]:.6g}, σ_{K} "
+        f"{model.singular_values[K - 1]:.6g}; solver "
+        f"{model.svd_solver_used_} (plain {used}); fit_timings_ "
+        f"{ {k: round(t, 4) for k, t in model.fit_timings_.items()} }")
+    check(cos[top].min() >= COS_BAR, "TruncatedSVD |cos|")
+    check(s_rel.max() <= SIGMA_RTOL, "TruncatedSVD σ")
+    del x, model
+
+    # (iii) LinearRegression at 4096 features, Gaussian design
+    coef = planted_coefficients(torch, device)
+    x, y = linreg_chunk(torch, device, 0, coef)
+    rng = np.random.default_rng(SEED + 1400)
+    w = rng.uniform(0.5, 2.0, CHUNK_ROWS)
+    threshold = os.environ.get(STREAM_THRESHOLD_ENV)
+    # the one-shot route: 65,536 float64 rows are 2 GiB, above the 1 GiB
+    # default at which an in-memory fit streams
+    os.environ[STREAM_THRESHOLD_ENV] = str(4 << 30)
+    try:
+        one_shot, counts = counted_run(
+            torch, fg, f"(iii) LinearRegression one-shot {CHUNK_ROWS:,} x "
+            f"{N_FEATURES}", lambda: LinearRegression().fit(x, labels=y),
+            {highest: 1})
+        add(counts)
+        weighted, counts = counted_run(
+            torch, fg, "(iii) LinearRegression weighted, w ~ U(0.5, 2)",
+            lambda: LinearRegression().setWeightCol("w").fit(
+                VectorFrame({"features": x, "label": y, "w": w})),
+            {highest: 1})
+        add(counts)
+        enet, counts = counted_run(
+            torch, fg, f"(iii) LinearRegression elastic net regParam "
+            f"{ENET[0]}, elasticNetParam {ENET[1]}",
+            lambda: LinearRegression().setRegParam(ENET[0])
+            .setElasticNetParam(ENET[1]).fit(x, labels=y), {highest: 1})
+        add(counts)
+    finally:
+        if threshold is None:
+            os.environ.pop(STREAM_THRESHOLD_ENV, None)
+        else:
+            os.environ[STREAM_THRESHOLD_ENV] = threshold
+    plain = oracle_moments(torch, device, [(x, y)])
+    runs = [("one-shot", one_shot, oracle_solve(torch, plain), LINREG_RTOL),
+            ("weighted", weighted, oracle_solve(torch, oracle_moments(
+                torch, device, [(x, y)], weights=w)), LINREG_RTOL)]
+    a, b, mu_x, mu_y = (t.cpu().numpy() for t in plain)
+    enet_coef = _elastic_net_solve(a, b, *ENET)
+    runs.append(("elastic net", enet,
+                 (enet_coef, float(mu_y - mu_x @ enet_coef)), ENET_RTOL))
+    bucket = auto_batch_rows(N_FEATURES + 1)
+    rows = LINREG_CHUNKS * CHUNK_ROWS
+    buckets = -(-rows // bucket)
+    # float32 labels: Z = [X | y] stays float32 on the host (float64 labels
+    # promote every chunk to float64, converted back per bucket)
+    streamed, counts = counted_run(
+        torch, fg, f"(iii) LinearRegression streamed from a generator of "
+        f"{LINREG_CHUNKS} chunks of {CHUNK_ROWS:,} (Z = [X | y] float32, "
+        f"width {N_FEATURES + 1}, {buckets} buckets of {bucket} rows)",
+        lambda: LinearRegression().fit(
+            linreg_chunk(torch, device, i, coef, np.float32)
+            for i in range(LINREG_CHUNKS)), {default: buckets})
+    add(counts)
+    runs.append(("streamed", streamed, oracle_solve(torch, oracle_moments(
+        torch, device, (linreg_chunk(torch, device, i, coef, np.float32)
+                        for i in range(LINREG_CHUNKS)))), LINREG_RTOL))
+    for label, model, want, bar in runs:
+        check(np.isfinite(model.coefficients).all()
+              and np.isfinite(model.intercept), f"{label} finite")
+        err = linreg_error(model.coefficients, model.intercept, want)
+        log(f"    {label}: rel err vs the float64 oracle {err:.3e} (bar "
+            f"{bar:g}); intercept {model.intercept:.6f} (oracle "
+            f"{want[1]:.6f}); fit_timings_ "
+            f"{ {k: round(t, 4) for k, t in model.fit_timings_.items()} }")
+        check(err <= bar, f"LinearRegression {label} rel err {err:.3e}")
+
+    # distributed_linreg_fit on one NCCL rank, against the one-shot fit
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    coordinator = f"127.0.0.1:{free_port()}"
+    try:
+        initialize_multihost(coordinator, num_processes=1, process_id=0)
+    except Exception as exc:
+        raise RuntimeError(f"phase 14: the one-rank NCCL world did not "
+                           f"start at {coordinator}: {exc!r}") from exc
+    try:
+        check(dist.get_backend() == "nccl", "the card's world runs NCCL")
+        result, counts = counted_run(
+            torch, fg, "(iii) distributed_linreg_fit, one NCCL rank",
+            lambda: distributed_linreg_fit(x, y, data_mesh(1)), {highest: 1})
+        add(counts)
+        err = linreg_error(result.coefficients.cpu().numpy(),
+                           float(result.intercept),
+                           (one_shot.coefficients, one_shot.intercept))
+        report = result.fit_report_
+        log(f"    vs the one-shot fit: rel err {err:.3e} (bar "
+            f"{DIST_RTOL:g}); report phases "
+            f"{ {k: round(t, 4) for k, t in report.phases.items()} }, "
+            f"collectives {report.collectives}")
+        check(err <= DIST_RTOL, f"distributed_linreg_fit rel err {err:.3e}")
+        n = N_FEATURES
+        check(report.collectives == {"all_reduce": {
+            "count": 1, "bytes": (n * n + 2 * n + 3) * 4}},
+            f"distributed_linreg_fit collectives {report.collectives}")
+    finally:
+        dist.destroy_process_group()
+    del x, y
+    torch.cuda.empty_cache()
+    log(f"  phase 14 launches {launched}; {time.perf_counter() - t_phase:.1f} s")
+    return launched
+
+
 def build_fresh(cuda_build):
     """Build the Gram library anew, so ``ptxas -v`` reports on it."""
     path = cuda_build.library_path("fused_gram")
@@ -3669,9 +4067,15 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    from spark_rapids_ml_tpu_torch.obs.incidents import CAPTURE_ENV
     from spark_rapids_ml_tpu_torch.ops import fused_gram as fg
     from spark_rapids_ml_tpu_torch.utils import cuda_build
 
+    # Incident-triggered profiler captures only where phase 11 tests them:
+    # the servers of phases 5-6 leave the sampler sweeping, and a capture
+    # its memory detector started while phase 7 fitted on an NCCL world
+    # hung the process on the H100.
+    os.environ.setdefault(CAPTURE_ENV, "0")
     device = torch.device("cuda", 0)
     t_start = time.perf_counter()
     smi = nvidia_smi_line()
@@ -3759,11 +4163,15 @@ def main() -> int:
     monitored = {fg.kernel_name(None): phase_fitmon(
         torch, fg, device, model_a, model_c, streamed7_s)}
 
+    log("[14] RowMatrix, TruncatedSVD and LinearRegression at full width")
+    gram_callers = phase_gram_callers(torch, fg, device, model_a)
+
     kernels = []
     for name, m in measured.items():
         check(launches.get(name, 0) > 0, f"{name} not launched on the main path")
         by_phase = {"4": launches[name], "7": distributed.get(name, 0),
-                    "13": monitored.get(name, 0)}
+                    "13": monitored.get(name, 0),
+                    "14": gram_callers.get(name, 0)}
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES, "launches": sum(by_phase.values()),
@@ -3771,6 +4179,7 @@ def main() -> int:
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "prep_ms": m["prep_ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+            "extra_shapes": m["extra_shapes"],
         })
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -15,5 +15,22 @@ imports neither ``jax`` nor ``spark_rapids_ml_tpu``.
 __version__ = "0.1.0"
 
 from spark_rapids_ml_tpu_torch.models.pca import PCA, PCAModel  # noqa: F401
+from spark_rapids_ml_tpu_torch.models.linear_regression import (  # noqa: F401
+    LinearRegression,
+    LinearRegressionModel,
+)
+from spark_rapids_ml_tpu_torch.models.svd import (  # noqa: F401
+    TruncatedSVD,
+    TruncatedSVDModel,
+)
+from spark_rapids_ml_tpu_torch.linalg import RowMatrix  # noqa: F401
 
-__all__ = ["PCA", "PCAModel"]
+__all__ = [
+    "PCA",
+    "PCAModel",
+    "LinearRegression",
+    "LinearRegressionModel",
+    "TruncatedSVD",
+    "TruncatedSVDModel",
+    "RowMatrix",
+]

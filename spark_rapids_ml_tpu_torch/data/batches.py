@@ -103,10 +103,18 @@ class BatchSource:
     ``mask`` marking valid rows (``mask is None`` for full buckets).
     """
 
-    def __init__(self, source, batch_rows: int = 0):
+    def __init__(self, source, batch_rows: int = 0,
+                 n_features: Optional[int] = None, chunk_transform=None):
+        """``chunk_transform`` (chunk → 2-D array) runs on each raw chunk
+        BEFORE re-blocking — callers with structured chunks (e.g.
+        LinearRegression's (X, y) pairs) pass it here instead of wrapping
+        the source in a generator expression, which would defeat the
+        non-fresh-factory detection below. ``n_features``, when given,
+        spares a factory or one-shot source the peek at its first chunk."""
         self._matrix: Optional[np.ndarray] = None
         self._factory = None
         self._oneshot: Optional[Iterator] = None
+        self._transform = chunk_transform
 
         if callable(source):
             # A factory must produce a FRESH iterator per call. `lambda: gen`
@@ -121,8 +129,12 @@ class BatchSource:
             else:
                 self._factory = source
         elif isinstance(source, (list, tuple)):
-            chunks = [_as_chunk(c) for c in source]
+            chunks = [self._prep(c) for c in source]
             self._factory = lambda: iter(chunks)
+            # every chunk is transformed now; passes must not transform it
+            # again (the JAX package's BatchSource does, and a list of
+            # (X, y) pairs then fails)
+            self._transform = None
         elif hasattr(source, "__array__") or isinstance(source, np.ndarray):
             self._matrix = np.asarray(source)
             if self._matrix.ndim != 2:
@@ -136,14 +148,15 @@ class BatchSource:
 
         self._consumed = False
         self._first_pass_rows: Optional[int] = None
+        self.n_features = n_features
         self._peeked: Optional[np.ndarray] = None
         if self._matrix is not None:
             self.n_features = self._matrix.shape[1]
-        else:
+        elif self.n_features is None:
             # Peek one chunk to learn the width (stashed and re-yielded).
             it = self._factory() if self._factory else self._oneshot
             try:
-                first = _as_chunk(next(iter(it)))
+                first = self._prep(next(iter(it)))
             except StopIteration:
                 raise ValueError("batch source is empty") from None
             self.n_features = first.shape[1]
@@ -163,6 +176,11 @@ class BatchSource:
     def reiterable(self) -> bool:
         return self._matrix is not None or self._factory is not None
 
+    def _prep(self, chunk) -> np.ndarray:
+        if self._transform is not None:
+            chunk = self._transform(chunk)
+        return _as_chunk(chunk)
+
     def _chunks(self) -> Iterator[np.ndarray]:
         if self._matrix is not None:
             b = self.batch_rows
@@ -171,7 +189,7 @@ class BatchSource:
             return
         if self._factory is not None:
             for c in self._factory():
-                yield _as_chunk(c)
+                yield self._prep(c)
             return
         if self._consumed:
             raise RuntimeError(
@@ -184,7 +202,7 @@ class BatchSource:
             yield self._peeked
             self._peeked = None
         for c in self._oneshot:
-            yield _as_chunk(c)
+            yield self._prep(c)
 
     def batches(self) -> Iterator[Tuple[np.ndarray, Optional[np.ndarray]]]:
         """Yield fixed-shape ``(batch, mask)`` pairs; mask None = all valid.

@@ -1,17 +1,19 @@
-"""PCA persistence in Spark ML's on-disk layout.
+"""Model persistence in Spark ML's on-disk layout.
 
-A copy of the PCA part of the JAX package's ``io/persistence.py``, so a
-model saved by either package loads in the other
-(``RapidsPCA.scala:218-254``):
+A copy of the PCA, LinearRegression and TruncatedSVD parts of the JAX
+package's ``io/persistence.py``, so a model saved by either package loads
+in the other (``RapidsPCA.scala:218-254``):
 
 * ``path/metadata/part-00000`` — one JSON line: class, timestamp, uid,
   paramMap (Spark's ``DefaultParamsWriter.saveMetadata``); params Spark's
   reader does not know travel under ``tpuParamMap``, the JAX package's key;
 * ``path/metadata/_SUCCESS`` — empty marker;
-* ``path/data/part-00000.parquet`` — one row: ``pc`` (Spark DenseMatrix
-  struct), ``explainedVariance`` (Spark DenseVector struct) and the
-  extension column ``mean``. Without pyarrow (optional) the same row is
-  written as ``part-00000.json``, which both packages' readers accept.
+* ``path/data/part-00000.parquet`` — one row: for PCA ``pc`` (Spark
+  DenseMatrix struct), ``explainedVariance`` (Spark DenseVector struct) and
+  the extension column ``mean``; for LinearRegression Spark's
+  (``coefficients``, ``intercept``, ``scale``); for TruncatedSVD ``V`` and
+  ``s``. Without pyarrow (optional) the same row is written as
+  ``part-00000.json``, which both packages' readers accept.
 
 Estimators persist metadata only, like Spark's ``DefaultParamsWritable``.
 """
@@ -33,6 +35,8 @@ _FORMAT_VERSION = "1.0"
 _SPARK_CLASS_ALIASES = {
     "PCA": "org.apache.spark.ml.feature.PCA",
     "PCAModel": "org.apache.spark.ml.feature.PCAModel",
+    "LinearRegression": "org.apache.spark.ml.regression.LinearRegression",
+    "LinearRegressionModel": "org.apache.spark.ml.regression.LinearRegressionModel",
 }
 
 # Params a real Spark DefaultParamsReader recognizes per class; the rest
@@ -40,6 +44,10 @@ _SPARK_CLASS_ALIASES = {
 _SPARK_PARAM_ALLOWLIST = {
     "PCA": {"k", "inputCol", "outputCol"},
     "PCAModel": {"k", "inputCol", "outputCol"},
+    "LinearRegression": {"labelCol", "predictionCol", "fitIntercept",
+                         "regParam", "elasticNetParam", "weightCol"},
+    "LinearRegressionModel": {"labelCol", "predictionCol", "fitIntercept",
+                              "regParam", "elasticNetParam", "weightCol"},
 }
 
 
@@ -230,7 +238,11 @@ _VECTOR_UDT_JSON = {
     },
 }
 
-_SPARK_FIELD_TYPES = {"matrix": _MATRIX_UDT_JSON, "vector": _VECTOR_UDT_JSON}
+_SPARK_FIELD_TYPES = {
+    "matrix": _MATRIX_UDT_JSON,
+    "vector": _VECTOR_UDT_JSON,
+    "double": "double",
+}
 
 
 def spark_row_metadata(fields) -> str:
@@ -327,6 +339,85 @@ def load_pca_model(path: str):
         pc=_dense_matrix_from_struct(row["pc"]),
         explained_variance=_dense_vector_from_struct(row["explainedVariance"]),
         mean=_dense_vector_from_struct(row["mean"]) if "mean" in row else None,
+        uid=meta["uid"],
+    )
+    return _restore_params(model, meta)
+
+
+def save_linreg_model(model, path: str, overwrite: bool = False) -> None:
+    if model.coefficients is None:
+        raise ValueError("cannot save an unfitted LinearRegressionModel")
+    _require_target(path, overwrite)
+    cls = f"{type(model).__module__}.{type(model).__qualname__}"
+    _write_metadata(path, cls, model.uid, model.param_map_for_metadata())
+    row = {
+        "coefficients": _dense_vector_struct(model.coefficients),
+        "intercept": float(model.intercept),
+        "scale": 1.0,  # Spark writes (intercept, coefficients, scale)
+    }
+    try:
+        import pyarrow as pa
+    except ImportError:
+        schema = None
+    else:
+        schema = pa.schema(
+            [
+                ("coefficients", _vector_arrow_type()),
+                ("intercept", pa.float64()),
+                ("scale", pa.float64()),
+            ]
+        )
+    _write_data_row(path, row, schema=schema, spark_fields=[
+        ("coefficients", "vector"), ("intercept", "double"), ("scale", "double"),
+    ])
+
+
+def load_linreg_model(path: str):
+    from spark_rapids_ml_tpu_torch.models.linear_regression import (
+        LinearRegressionModel,
+    )
+
+    meta = _read_metadata(path)
+    row = _read_data_row(path)
+    model = LinearRegressionModel(
+        coefficients=_dense_vector_from_struct(row["coefficients"]),
+        intercept=float(row["intercept"]),
+        uid=meta["uid"],
+    )
+    return _restore_params(model, meta)
+
+
+def save_svd_model(model, path: str, overwrite: bool = False) -> None:
+    if model.components is None:
+        raise ValueError("cannot save an unfitted TruncatedSVDModel")
+    _require_target(path, overwrite)
+    cls = f"{type(model).__module__}.{type(model).__qualname__}"
+    _write_metadata(path, cls, model.uid, model.param_map_for_metadata())
+    row = {
+        "V": _dense_matrix_struct(model.components),
+        "s": _dense_vector_struct(model.singular_values),
+    }
+    try:
+        import pyarrow as pa
+    except ImportError:
+        schema = None
+    else:
+        schema = pa.schema(
+            [("V", _matrix_arrow_type()), ("s", _vector_arrow_type())]
+        )
+    _write_data_row(path, row, schema=schema, spark_fields=[
+        ("V", "matrix"), ("s", "vector"),
+    ])
+
+
+def load_svd_model(path: str):
+    from spark_rapids_ml_tpu_torch.models.svd import TruncatedSVDModel
+
+    meta = _read_metadata(path)
+    row = _read_data_row(path)
+    model = TruncatedSVDModel(
+        components=_dense_matrix_from_struct(row["V"]),
+        singular_values=_dense_vector_from_struct(row["s"]),
         uid=meta["uid"],
     )
     return _restore_params(model, meta)

@@ -1,0 +1,429 @@
+"""LinearRegression Estimator / Model (normal-equations solver), on PyTorch.
+
+Counterpart of the JAX package's ``models/linear_regression.py``, with the
+same params, so saved metadata stays compatible. Spark
+``org.apache.spark.ml.regression.LinearRegression``'s param surface, subset:
+featuresCol (= inputCol), labelCol, predictionCol, fitIntercept, regParam
+(L2), elasticNetParam, weightCol; the solver is "normal", the shape that
+maps onto the partial-aggregate + small-dense-solve pattern PCA shares
+(SURVEY.md §7 step 6).
+
+Fit routes:
+
+* one shot (``useXlaDot``): the statistics and the Cholesky solve on the
+  device (``ops/linreg_kernel.py``); the Gram is the hand kernel's
+  full-f32 pipeline on the card, with √weight as its row multiplier when
+  ``weightCol`` is set;
+* elastic net (``elasticNetParam`` > 0 with ``regParam`` > 0): the same
+  statistics on the device, then FISTA on the host in float64;
+* streamed: a generator or zero-arg callable of (X, y) chunks, or an
+  in-memory unweighted X above the streaming threshold, folds Z = [X | y]
+  into the device accumulator (``ops.streaming.update_stats``, the kernel
+  once per bucket at the default Gram precision), then the (n+1)-sized
+  solve on the host in float64;
+* host (``useXlaDot=False``): numpy float64, never a device.
+
+Weights are validated (finite, ≥ 0) on the host before anything is placed
+on a device. ``dtype='auto'`` is float32 here. ``fit_timings_`` keeps the
+JAX phase names: ``densify``, ``h2d``, ``fit_kernel``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from spark_rapids_ml_tpu_torch.data.frame import VectorFrame, as_vector_frame
+from spark_rapids_ml_tpu_torch.models.params import (
+    HasDeviceId,
+    HasInputCol,
+    HasWeightCol,
+    Param,
+)
+from spark_rapids_ml_tpu_torch.models.pca import _resolve_dtype
+from spark_rapids_ml_tpu_torch.obs.report import observed_fit
+from spark_rapids_ml_tpu_torch.obs.serving import observed_transform
+from spark_rapids_ml_tpu_torch.utils.resources import resolve_device
+from spark_rapids_ml_tpu_torch.utils.timing import PhaseTimer
+from spark_rapids_ml_tpu_torch.utils.tracing import TraceColor, TraceRange
+
+
+class LinearRegressionParams(HasInputCol, HasDeviceId, HasWeightCol):
+    labelCol = Param("labelCol", "label column name", "label")
+    elasticNetParam = Param(
+        "elasticNetParam",
+        "L1/L2 mix in [0,1]: penalty = regParam*(a*||w||_1 + (1-a)/2*||w||^2). "
+        "0 = pure ridge (closed-form normal equations); >0 solved by FISTA "
+        "on the same sufficient statistics (works on every fit path, "
+        "intercept unpenalized, matching Spark/sklearn conventions)",
+        0.0,
+        validator=lambda v: 0.0 <= float(v) <= 1.0,
+    )
+    predictionCol = Param("predictionCol", "prediction output column",
+                          "prediction")
+    fitIntercept = Param("fitIntercept", "whether to fit an intercept", True,
+                         validator=lambda v: isinstance(v, bool))
+    regParam = Param("regParam", "L2 regularization strength lambda", 0.0,
+                     validator=lambda v: v >= 0)
+    useXlaDot = Param(
+        "useXlaDot",
+        "solve on the device (True) or host NumPy (False)",
+        True, validator=lambda v: isinstance(v, bool))
+    dtype = Param("dtype", "device compute dtype: 'float32', 'float64', or "
+                  "'auto' (float32)", "auto",
+                  validator=lambda v: v in ("auto", "float32", "float64"))
+
+
+def _host(t) -> np.ndarray:
+    return np.asarray(t.cpu().numpy() if isinstance(t, torch.Tensor) else t,
+                      dtype=np.float64)
+
+
+class LinearRegression(LinearRegressionParams):
+    """``LinearRegression().setRegParam(0.1).fit(df)``; df needs features +
+    label columns."""
+
+    def save(self, path: str, overwrite: bool = False) -> None:
+        from spark_rapids_ml_tpu_torch.io.persistence import save_params
+
+        save_params(self, path, overwrite=overwrite)
+
+    @staticmethod
+    def load(path: str) -> "LinearRegression":
+        from spark_rapids_ml_tpu_torch.io.persistence import load_params
+
+        return load_params(LinearRegression, path)
+
+    @observed_fit("linreg")
+    def fit(self, dataset, labels=None) -> "LinearRegressionModel":
+        """``dataset`` may carry the label column, or pass ``labels``
+        explicitly alongside a bare feature matrix. Out-of-core: ``dataset``
+        may also be a generator (or zero-arg callable producing one) of
+        ``(X_chunk, y_chunk)`` pairs — sufficient statistics stream through
+        the device with bounded memory."""
+        from spark_rapids_ml_tpu_torch.data.batches import (
+            stream_threshold_bytes,
+        )
+
+        timer = PhaseTimer()
+        source = _streaming_xy_source(dataset, labels)
+        if source is not None:
+            self._reject_streamed_weights()
+            coef, intercept = self._fit_streamed(source, timer)
+        else:
+            frame = as_vector_frame(dataset, self.getInputCol())
+            with timer.phase("densify"):
+                x = frame.vectors_as_matrix(self.getInputCol())
+                if labels is not None:
+                    y = np.asarray(labels, dtype=np.float64).reshape(-1)
+                else:
+                    y = np.asarray(frame.column(self.getLabelCol()),
+                                   dtype=np.float64)
+            if y.shape[0] != x.shape[0]:
+                raise ValueError(
+                    f"labels length {y.shape[0]} != rows {x.shape[0]}"
+                )
+            weights = self._extract_weights(frame, x.shape[0])
+            if (
+                self.getUseXlaDot()
+                and weights is None
+                and x.nbytes > stream_threshold_bytes()
+            ):
+                source = _xy_batch_source(x, y)
+                coef, intercept = self._fit_streamed(source, timer)
+            elif self.getUseXlaDot():
+                coef, intercept = self._fit_device(x, y, timer, weights)
+            else:
+                coef, intercept = self._fit_host(x, y, timer, weights)
+        model = LinearRegressionModel(
+            coefficients=_host(coef),
+            intercept=float(intercept),
+        )
+        model.uid = self.uid
+        model.copy_values_from(self)
+        model.fit_timings_ = timer.as_dict()
+        return model
+
+    def _fit_streamed(self, source, timer):
+        """One pass of Z=[X|y] sufficient statistics (ZᵀZ, Σz, n) — on the
+        device accumulator when ``useXlaDot``, numpy float64 otherwise —
+        then the tiny (n_features+1) normal-equations solve on the host in
+        float64. Mathematically identical to the one-shot kernel; memory is
+        one batch + one (n+1)² Gram."""
+        nz = source.n_features  # n_features + 1 (label column)
+        if self.getUseXlaDot():
+            from spark_rapids_ml_tpu_torch.ops.streaming import (
+                init_stats,
+                update_stats,
+            )
+
+            device = resolve_device(self.getDeviceId())
+            dtype = _resolve_dtype(self.getDtype())
+            with timer.phase("fit_kernel"), TraceRange(
+                "linreg streamed", TraceColor.GREEN
+            ):
+                stats = init_stats(nz, dtype=dtype, device=device)
+                for batch, mask in source.batches():
+                    stats = update_stats(stats, batch, mask)
+                # the host copies synchronise: the phase covers the device
+                g = _host(stats.gram)
+                s = _host(stats.col_sum)
+                cnt = float(stats.count)
+        else:
+            with timer.phase("fit_kernel"), TraceRange(
+                "linreg host", TraceColor.ORANGE
+            ):
+                g = np.zeros((nz, nz))
+                s = np.zeros(nz)
+                cnt = 0.0
+                for batch, mask in source.batches():
+                    b = np.asarray(batch if mask is None else batch[mask],
+                                   dtype=np.float64)
+                    g += b.T @ b
+                    s += b.sum(axis=0)
+                    cnt += b.shape[0]
+        if cnt < 1:
+            raise ValueError("empty dataset")
+        n = nz - 1
+        return self._solve_from_raw_moments(
+            g[:n, :n], g[:n, n], s[:n], s[n], cnt
+        )
+
+    def _fit_device(self, x, y, timer, weights=None):
+        """The JAX package's ``_fit_xla``."""
+        from spark_rapids_ml_tpu_torch.ops.linreg_kernel import (
+            linreg_fit_kernel,
+            linreg_partial_stats,
+        )
+
+        device = resolve_device(self.getDeviceId())
+        dtype = _resolve_dtype(self.getDtype())
+        with timer.phase("h2d"):
+            x_dev = torch.as_tensor(x, dtype=dtype, device=device)
+            y_dev = torch.as_tensor(y, dtype=dtype, device=device)
+            # the kernel's mask slot IS a general per-row weight: every
+            # statistic it folds is Σ mᵢ·(…) — exactly weighted least
+            # squares (Spark's weightCol semantics)
+            w_dev = (
+                None
+                if weights is None
+                else torch.as_tensor(weights, dtype=dtype, device=device)
+            )
+        if float(self.getElasticNetParam()) > 0.0 and float(self.getRegParam()) > 0.0:
+            # L1 has no closed form: the device builds the (XᵀWX, XᵀWy)
+            # stats; the tiny d-dimensional FISTA runs on host f64
+            with timer.phase("fit_kernel"), TraceRange(
+                "linreg stats", TraceColor.GREEN
+            ):
+                stats = linreg_partial_stats(x_dev, y_dev, w_dev)
+                # the host copies synchronise: the phase covers the device
+                moments = (_host(stats.xtx), _host(stats.xty),
+                           _host(stats.x_sum), float(stats.y_sum),
+                           float(stats.count))
+            return self._solve_from_raw_moments(*moments)
+        with timer.phase("fit_kernel"), TraceRange("linreg normal", TraceColor.GREEN):
+            result = linreg_fit_kernel(
+                x_dev, y_dev, w_dev,
+                reg_param=float(self.getRegParam()),
+                fit_intercept=self.getFitIntercept(),
+            )
+            return _host(result.coefficients), float(result.intercept)
+
+    def _fit_host(self, x, y, timer, weights=None):
+        with timer.phase("fit_kernel"), TraceRange("linreg host", TraceColor.ORANGE):
+            w = np.ones(x.shape[0]) if weights is None else np.asarray(weights)
+            xw = x * w[:, None]
+            coef, intercept = self._solve_from_raw_moments(
+                x.T @ xw, xw.T @ y, xw.sum(axis=0), (w * y).sum(), w.sum()
+            )
+        return coef, intercept
+
+    def _solve_moments(self, a, b):
+        """Centered moments → coefficients: closed-form ridge, or FISTA
+        when elasticNetParam > 0 brings in the L1 term."""
+        lam = float(self.getRegParam())
+        alpha = float(self.getElasticNetParam())
+        if alpha > 0.0 and lam > 0.0:
+            return _elastic_net_solve(a, b, lam, alpha)
+        return np.linalg.solve(a + lam * np.eye(a.shape[0]), b)
+
+    def _solve_from_raw_moments(self, gxx, gxy, x_sum, y_sum, cnt):
+        """Raw (XᵀWX, XᵀWy, Σwx, Σwy, Σw) → (coef, intercept): the ONE
+        center → solve → intercept sequence every host solve funnels into."""
+        a, b, mu_x, mu_y = _centered_moments(
+            gxx, gxy, x_sum, y_sum, cnt, self.getFitIntercept()
+        )
+        coef = self._solve_moments(a, b)
+        intercept = mu_y - mu_x @ coef if self.getFitIntercept() else 0.0
+        return coef, intercept
+
+
+def _elastic_net_solve(a, b, lam, alpha, max_iter=500, tol=1e-8,
+                       penalty_mask=None):
+    """FISTA on a quadratic model: min_w  ½wᵀAw − bᵀw
+    + lam·(alpha·‖w∘m‖₁ + (1−alpha)/2·‖w∘m‖²). A is d×d — the iteration
+    is a small host loop; the device work (building A) already happened.
+    ``penalty_mask`` (0/1 per coordinate, default all-ones) exempts
+    coordinates.
+    """
+    m = np.ones(a.shape[0]) if penalty_mask is None else penalty_mask
+    l1 = lam * alpha * m
+    l2 = lam * (1.0 - alpha) * m
+    # Lipschitz constant of the smooth part: exact λmax(A) + l2. A is a
+    # small d×d host matrix, so eigvalsh is cheap AND safe — a power
+    # iteration seeded with a fixed vector diverges when that vector is
+    # (near-)orthogonal to the top eigenvector (e.g. negative-
+    # equicorrelation Grams, where ones IS the bottom eigenvector).
+    lip = float(np.linalg.eigvalsh(a)[-1]) + float(np.max(l2)) + 1e-12
+
+    def grad(w):
+        return a @ w - b + l2 * w
+
+    w = np.zeros(a.shape[0])
+    z = w.copy()
+    t = 1.0
+    for _ in range(max_iter):
+        g = grad(z)
+        w_new = z - g / lip
+        w_new = np.sign(w_new) * np.maximum(np.abs(w_new) - l1 / lip, 0.0)
+        t_new = (1.0 + np.sqrt(1.0 + 4.0 * t * t)) / 2.0
+        z = w_new + ((t - 1.0) / t_new) * (w_new - w)
+        if np.max(np.abs(w_new - w)) <= tol:
+            w = w_new
+            break
+        w, t = w_new, t_new
+    return w
+
+
+def _centered_moments(gxx, gxy, x_sum, y_sum, cnt, fit_intercept):
+    """(A, b, μx, μy) from raw second moments; A/b are the centered
+    (1/n)-scaled normal-equation operands shared by ridge and FISTA."""
+    if fit_intercept:
+        mu_x, mu_y = x_sum / cnt, y_sum / cnt
+        a = gxx / cnt - np.outer(mu_x, mu_x)
+        b = gxy / cnt - mu_x * mu_y
+    else:
+        mu_x = np.zeros(gxx.shape[0])
+        mu_y = 0.0
+        a = gxx / cnt
+        b = gxy / cnt
+    return a, b, mu_x, mu_y
+
+
+def _zip_xy(chunk) -> np.ndarray:
+    """(X_chunk, y_chunk) → Z_chunk = [X | y]."""
+    if not (isinstance(chunk, tuple) and len(chunk) == 2):
+        raise ValueError(
+            "streamed LinearRegression chunks must be (X, y) tuples"
+        )
+    x, y = chunk
+    x = np.asarray(x)
+    if x.ndim == 1:
+        x = x[None, :]
+    y = np.asarray(y)
+    # Promote to a common float dtype (at least f32) — casting y to x's
+    # dtype would silently floor float labels when X chunks are integer.
+    dt = np.promote_types(np.result_type(x.dtype, y.dtype), np.float32)
+    x = x.astype(dt, copy=False)
+    y = y.astype(dt, copy=False).reshape(-1, 1)
+    if y.shape[0] != x.shape[0]:
+        raise ValueError(
+            f"chunk labels length {y.shape[0]} != chunk rows {x.shape[0]}"
+        )
+    return np.concatenate([x, y], axis=1)
+
+
+def _streaming_xy_source(dataset, labels):
+    """BatchSource over Z=[X|y] for generator/callable inputs, else None.
+
+    The user's callable/iterator goes to BatchSource UNWRAPPED (``_zip_xy``
+    rides along as ``chunk_transform``) so the non-fresh-factory detection
+    in ``BatchSource.__init__`` still sees the underlying iterator."""
+    from spark_rapids_ml_tpu_torch.data.batches import BatchSource
+
+    if labels is None and (callable(dataset) or hasattr(dataset, "__next__")):
+        return BatchSource(dataset, batch_rows=0, chunk_transform=_zip_xy)
+    return None
+
+
+def _xy_batch_source(x: np.ndarray, y: np.ndarray):
+    """Re-iterable Z=[X|y] source over big in-memory arrays, chunk-wise (no
+    whole-matrix hstack copy)."""
+    from spark_rapids_ml_tpu_torch.data.batches import (
+        BatchSource,
+        auto_batch_rows,
+    )
+
+    rows = auto_batch_rows(x.shape[1] + 1)
+
+    def chunks():
+        for i in range(0, x.shape[0], rows):
+            yield (x[i:i + rows], y[i:i + rows])
+
+    return BatchSource(chunks, batch_rows=rows, n_features=x.shape[1] + 1,
+                       chunk_transform=_zip_xy)
+
+
+class LinearRegressionModel(LinearRegressionParams):
+    def __init__(self, coefficients: Optional[np.ndarray] = None,
+                 intercept: float = 0.0, uid: Optional[str] = None):
+        super().__init__(uid=uid)
+        self.coefficients = coefficients
+        self.intercept = intercept
+        self.fit_timings_ = {}
+
+    def _copy_internal_state(self, other: "LinearRegressionModel") -> None:
+        other.coefficients = self.coefficients
+        other.intercept = self.intercept
+
+    @observed_transform
+    def transform(self, dataset) -> VectorFrame:
+        if self.coefficients is None:
+            raise ValueError("model has no coefficients; fit first or load")
+        frame = as_vector_frame(dataset, self.getInputCol())
+        x = frame.vectors_as_matrix(self.getInputCol())
+        if self.getUseXlaDot():
+            from spark_rapids_ml_tpu_torch.ops.linreg_kernel import (
+                linreg_predict_kernel,
+            )
+
+            device = resolve_device(self.getDeviceId())
+            dtype = _resolve_dtype(self.getDtype())
+            pred = linreg_predict_kernel(
+                torch.as_tensor(x, dtype=dtype, device=device),
+                torch.as_tensor(self.coefficients, dtype=dtype, device=device),
+                torch.tensor(self.intercept, dtype=dtype, device=device),
+            ).cpu().numpy()
+        else:
+            pred = x @ self.coefficients + self.intercept
+        return frame.with_column(
+            self.getPredictionCol(), pred.astype(np.float64)
+        )
+
+    def evaluate(self, dataset, labels=None) -> dict:
+        """RMSE / MSE / R² summary (Spark's LinearRegressionSummary core)."""
+        frame = as_vector_frame(dataset, self.getInputCol())
+        x = frame.vectors_as_matrix(self.getInputCol())
+        if labels is not None:
+            y = np.asarray(labels, dtype=np.float64).reshape(-1)
+        else:
+            y = np.asarray(frame.column(self.getLabelCol()), dtype=np.float64)
+        pred = x @ self.coefficients + self.intercept
+        resid = y - pred
+        mse = float((resid**2).mean())
+        ss_tot = float(((y - y.mean()) ** 2).sum())
+        r2 = 1.0 - float((resid**2).sum()) / ss_tot if ss_tot > 0 else 0.0
+        return {"mse": mse, "rmse": mse**0.5, "r2": r2}
+
+    def save(self, path: str, overwrite: bool = False) -> None:
+        from spark_rapids_ml_tpu_torch.io.persistence import save_linreg_model
+
+        save_linreg_model(self, path, overwrite=overwrite)
+
+    @staticmethod
+    def load(path: str) -> "LinearRegressionModel":
+        from spark_rapids_ml_tpu_torch.io.persistence import load_linreg_model
+
+        return load_linreg_model(path)

@@ -1,7 +1,8 @@
 """Spark-ML-style Param/Params machinery.
 
-A copy of the JAX package's ``models/params.py`` (the parts PCA needs), kept
-here so the port imports nothing of that package. Fluent ``setX``/``getX``
+A copy of the JAX package's ``models/params.py`` (the parts PCA,
+TruncatedSVD and LinearRegression need), kept here so the port imports
+nothing of that package. Fluent ``setX``/``getX``
 accessors, defaults, validation, ``copy()``, ``explainParams()``, and param
 serialization into model metadata. Param surface parity:
 
@@ -158,6 +159,45 @@ class HasInputCol(Params):
 
 class HasOutputCol(Params):
     outputCol = Param("outputCol", "output column name", "output")
+
+
+class HasWeightCol(Params):
+    """weightCol Param + extraction/guards — ONE definition for every
+    estimator carrying Spark's per-row sample weights."""
+
+    weightCol = Param(
+        "weightCol",
+        "per-row sample-weight column ('' = unweighted). Supported on "
+        "in-memory fits; streamed/out-of-core inputs with weights are "
+        "not supported yet.",
+        "",
+        validator=lambda v: isinstance(v, str),
+    )
+
+    def _extract_weights(self, frame, n_rows: int):
+        """weightCol → validated float64 vector (None when unset). Runs on
+        the host, before anything is placed on a device: the fits rely on
+        weights ≥ 0 (LinearRegression passes √w to the Gram kernel)."""
+        import numpy as np
+
+        col = self.get_or_default("weightCol")
+        if not col:
+            return None
+        w = np.asarray(frame.column(col), dtype=np.float64).reshape(-1)
+        if w.shape[0] != n_rows:
+            raise ValueError(
+                f"weight column length {w.shape[0]} != rows {n_rows}"
+            )
+        if not np.isfinite(w).all() or (w < 0).any():
+            raise ValueError("weights must be finite and non-negative")
+        return w
+
+    def _reject_streamed_weights(self) -> None:
+        if self.get_or_default("weightCol"):
+            raise ValueError(
+                "weightCol is not supported with streamed/out-of-core "
+                "input yet; fit in-memory or drop the weights"
+            )
 
 
 class HasDeviceId(Params):

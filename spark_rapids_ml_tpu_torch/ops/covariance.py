@@ -125,6 +125,13 @@ def centered_gram(x: torch.Tensor, mean: Optional[torch.Tensor] = None,
     return out
 
 
+def gram(x: torch.Tensor, precision=None) -> torch.Tensor:
+    """Uncentred Gram XᵀX (TruncatedSVD's operator): ``centered_gram``
+    with no mean and unit rows, so a float32 input takes the kernel and
+    its FLOPs are filed like every other Gram's."""
+    return centered_gram(x, None, None, precision=precision)
+
+
 def covariance(
     x: torch.Tensor,
     mean: Optional[torch.Tensor] = None,

@@ -1,5 +1,6 @@
-"""PCA across ranks on ``torch.distributed``: meshes, the multi-host runtime,
-and the data-parallel, streamed and feature-sharded fits."""
+"""Fits across ranks on ``torch.distributed``: meshes, the multi-host
+runtime, the data-parallel, streamed and feature-sharded PCA fits, and the
+data-parallel LinearRegression fit."""
 
 from spark_rapids_ml_tpu_torch.parallel.mesh import (
     DATA_AXIS,
@@ -20,6 +21,10 @@ from spark_rapids_ml_tpu_torch.parallel.distributed_pca import (
     DistributedPCAResult,
     distributed_pca_fit,
     distributed_pca_fit_kernel,
+)
+from spark_rapids_ml_tpu_torch.parallel.distributed_linreg import (
+    distributed_linreg_fit,
+    distributed_linreg_fit_kernel,
 )
 from spark_rapids_ml_tpu_torch.parallel.streaming import (
     DistributedStreamingPCA,
@@ -42,6 +47,7 @@ __all__ = [
     "make_global_array", "process_info",
     "DistributedPCAResult", "distributed_pca_fit",
     "distributed_pca_fit_kernel",
+    "distributed_linreg_fit", "distributed_linreg_fit_kernel",
     "DistributedStreamingPCA", "distributed_streaming_pca_fit",
     "finalize_stats_sharded", "update_stats_sharded",
     "FeatureShardedPCAResult", "feature_sharded_covariance_kernel",

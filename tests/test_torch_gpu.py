@@ -918,3 +918,90 @@ def test_the_flops_of_a_cuda_gram(cuda_device, monkeypatch):
         assert step["mfu"] == pytest.approx(
             step["flops"] / step["device_seconds"] / peak, rel=1e-12)
         assert 0 < step["mfu"] <= 1
+
+
+# -- RowMatrix, TruncatedSVD and LinearRegression: the kernel's new routes -----
+
+# route → (rows, n, x's shift, the row multiplier, precision)
+SLICE_14_ROUTES = {
+    # TruncatedSVD's uncentred XᵀX: no mean, unit rows, data off zero
+    "uncentred": (2000, 300, 1.0, "ones", "bfloat16_3x"),
+    # LinearRegression's XᵀWX: √weight rows, full f32
+    "root_weights": (3000, 257, 0.0, "root_weights", "highest"),
+    # the streamed Z = [X | y] at the north-star width: n + 1 = 4097, one
+    # tile column past 4096, with a masked tail bucket
+    "ragged_4097": (1000, 4097, 0.0, "masked_tail", "bfloat16_3x"),
+}
+
+
+@pytest.mark.parametrize("route", list(SLICE_14_ROUTES))
+def test_slice_14_routes_match_plain_version(cuda_device, route):
+    rows, n, shift, rowmul_kind, precision = SLICE_14_ROUTES[route]
+    g = torch.Generator(device=cuda_device).manual_seed(14)
+    x = torch.randn(rows, n, generator=g, device=cuda_device) + shift
+    mean = torch.zeros(n, device=cuda_device)
+    rowmul = torch.ones(rows, device=cuda_device)
+    if rowmul_kind == "root_weights":
+        rowmul = torch.sqrt(0.5 + 1.5 * torch.rand(
+            rows, generator=g, device=cuda_device))
+    elif rowmul_kind == "masked_tail":
+        rowmul[rows - 300:] = 0.0
+    name = fused_gram.kernel_name(precision)
+    before = fused_gram.launches[name]
+    got = fused_centered_gram(x, mean, rowmul, precision)
+    torch.cuda.synchronize()
+    assert fused_gram.launches[name] == before + 1
+    want = fused_centered_gram_reference(x, mean, rowmul, precision)
+    err = (got - want).abs().max().item()
+    assert err <= fused_gram.PLAIN_RTOL[name] * want.abs().max().item()
+    assert torch.equal(got, got.T)
+
+
+def test_slice_14_entry_points_launch_the_kernel(cuda_device):
+    """RowMatrix once per partition, TruncatedSVD once, LinearRegression's
+    one-shot fit once at highest and its streamed fit once per bucket; each
+    within its float32 bar of the float64 host computation."""
+    from spark_rapids_ml_tpu_torch import (
+        LinearRegression,
+        RowMatrix,
+        TruncatedSVD,
+    )
+
+    default = fused_gram.kernel_name(None)
+    highest = fused_gram.kernel_name("highest")
+    x = _decaying(4000, 64, loc=0.0).astype(np.float32)
+
+    fused_gram.reset_launches()
+    cov = RowMatrix(x, num_partitions=4).compute_covariance()
+    assert fused_gram.launches[default] == 4
+    ref = RowMatrix(x, use_xla_dot=False).compute_covariance()
+    assert np.abs(cov - ref).max() <= 1e-5 * np.abs(ref).max()
+
+    fused_gram.reset_launches()
+    svd = TruncatedSVD().setK(4).fit(x + 1.0)
+    assert fused_gram.launches[default] == 1
+    host = TruncatedSVD().setK(4).setUseXlaDot(False).setUseXlaSvd(False) \
+        .fit(x + 1.0)
+    # a float32 solve errs by ~eps·λ₁ on every eigenvalue, so σᵢ by about
+    # eps·(σ₁/σᵢ)² relative: the mean shift makes σ₁/σ₄ ≈ 11
+    bar = 16 * np.finfo(np.float32).eps * (host.singular_values[0]
+                                           / host.singular_values) ** 2
+    assert (np.abs(svd.singular_values - host.singular_values)
+            <= bar * host.singular_values).all()
+
+    # a Gaussian design (XᵀX/n of condition ≈ 1.7): the decaying rows above
+    # have condition ~3e9, where float32 normal equations hold no digit
+    rng = np.random.default_rng(14)
+    x = rng.normal(size=(4000, 64)).astype(np.float32)
+    y = x @ rng.normal(size=64) + 3.0 + 0.1 * rng.normal(size=4000)
+    fused_gram.reset_launches()
+    one_shot = LinearRegression().fit(x, labels=y)
+    assert fused_gram.launches[highest] == 1
+    fused_gram.reset_launches()
+    streamed = LinearRegression().fit(
+        lambda: ((x[i:i + 1000], y[i:i + 1000]) for i in range(0, 4000, 1000)))
+    assert fused_gram.launches[default] == 1   # one bucket of auto rows
+    host = LinearRegression().setUseXlaDot(False).fit(x, labels=y)
+    for model in (one_shot, streamed):
+        np.testing.assert_allclose(model.coefficients, host.coefficients,
+                                   atol=1e-4 * np.abs(host.coefficients).max())

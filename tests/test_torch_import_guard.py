@@ -108,6 +108,55 @@ def test_serving_stack_runs_without_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+# the modules of the RowMatrix / TruncatedSVD / LinearRegression slice
+GRAM_CALLERS = ("linalg", "linalg.row_matrix", "models.svd",
+                "models.linear_regression", "ops.linreg_kernel",
+                "parallel.distributed_linreg")
+
+
+def test_gram_callers_run_without_jax():
+    """RowMatrix, TruncatedSVD and LinearRegression fitted, transformed,
+    saved and loaded, and ``distributed_linreg_fit`` in a one-rank gloo
+    world, in a process that never imports jax."""
+    mods = {m for _, m in _port_modules()}
+    assert {f"spark_rapids_ml_tpu_torch.{m}" for m in GRAM_CALLERS} <= mods
+    code = (
+        "import os, sys, tempfile\n"
+        "import numpy as np\n"
+        "import torch.distributed as dist\n"
+        "from spark_rapids_ml_tpu_torch import (LinearRegression, "
+        "LinearRegressionModel, RowMatrix, TruncatedSVD, TruncatedSVDModel)\n"
+        "from spark_rapids_ml_tpu_torch.parallel import (data_mesh, "
+        "distributed_linreg_fit)\n"
+        "x = np.random.default_rng(0).normal(size=(40, 5))\n"
+        "y = x @ np.arange(5.0) + 1.0\n"
+        "pc, _ = RowMatrix(x, num_partitions=2)"
+        ".compute_principal_components_and_explained_variance(2)\n"
+        "out = RowMatrix(x).multiply(pc).to_numpy()\n"
+        "svd = TruncatedSVD().setK(2).fit(x)\n"
+        "lr = LinearRegression().fit(x, labels=y)\n"
+        "d = tempfile.mkdtemp()\n"
+        "svd.save(d + '/svd'); lr.save(d + '/lr')\n"
+        "TruncatedSVDModel.load(d + '/svd').transform(x)\n"
+        "LinearRegressionModel.load(d + '/lr').transform(x)\n"
+        "dist.init_process_group('gloo', init_method='file://' + d + "
+        "'/store', rank=0, world_size=1)\n"
+        "res = distributed_linreg_fit(x, y, data_mesh(1))\n"
+        "dist.destroy_process_group()\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or "
+        "k.startswith('jax.') or k == 'spark_rapids_ml_tpu' or "
+        "k.startswith('spark_rapids_ml_tpu.'))\n"
+        "print(out.shape, res.coefficients, bad)\n"
+        "sys.exit(1 if bad or out.shape != (40, 2) else 0)\n"
+    )
+    env = dict(os.environ, SPARK_RAPIDS_ML_TORCH_PLATFORM="cpu",
+               OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO_DIR,
+                          capture_output=True, text=True, timeout=120,
+                          env=env)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_port_sources_import_no_jax():
     found = []
     smoke = os.path.join(REPO_DIR, "chip_smoke.py")

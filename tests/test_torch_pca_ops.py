@@ -170,6 +170,26 @@ def test_gate_falls_back_to_eigh_like_jax(rng):
     np.testing.assert_allclose(tpc.numpy(), np.asarray(jpc), atol=1e-8)
 
 
+def test_gate_passes_the_whitenings_zero_columns_as_jax_does(rng):
+    """A top eigenvalue 1e6 above the rest: the randomized solve's
+    whitening zeroes nearly every other direction for good, and the
+    residual gate, scaled by the mean eigenvalue, passes the zero columns,
+    in both packages (float64; ROADMAP's record of it has the card's
+    measurement and why the dense float32 solve is no remedy)."""
+    n, k = 1024, 128
+    q, _ = np.linalg.qr(rng.normal(size=(n, n)))
+    lam = 1.0 / (1.0 + np.arange(n))
+    lam[0] = 1e6
+    cov = (q * lam) @ q.T
+    jpc, _, jused = jeigh.pca_from_covariance_gated(jnp.asarray(cov), k)
+    tpc, _, tused = teigh.pca_from_covariance_gated(_t(cov), k)
+    assert tused == jused == "randomized"
+    for pc in (np.asarray(jpc), tpc.numpy()):
+        assert (np.abs(pc).max(axis=0) == 0).sum() > 100
+        # the top component itself is exact
+        assert abs(abs(pc[:, 0] @ q[:, 0]) - 1.0) < 1e-8
+
+
 # -- randomized ---------------------------------------------------------------
 
 @pytest.mark.parametrize("n,k", [(64, 6), (200, 20)])
