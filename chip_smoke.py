@@ -315,6 +315,38 @@ Phases (any failure raises and the script exits non-zero):
     against the one-shot fit, ≤ 1e-6, with one all-reduce of
     (n² + 2n + 3) float32. Prints each run's host seconds, errors and
     ``fit_timings_``.
+15. KMeans, StandardScaler and the fused pipeline. (i) 2,097,152 × 64
+    rows in 64 blobs (centres N(0, 100²) per coordinate, σ = 1, made on
+    the card from a seed; 1 GiB as float64, not above the streaming
+    threshold): ``KMeans().setK(64).fit`` one-shot; every row's label
+    must equal its blob's under one permutation, the centres lie within
+    1e-5 (max |Δ| / max |c|) of ``lloyd_iterations`` in float64 on the
+    card from the same initial centres, and ``training_cost_`` within
+    1e-5 of the float64 host cost of the returned centres. (ii)
+    ``kmeans_fit_kernel`` on device rows at 2,097,152 × 64 and × 512
+    (bench_models.py's shape), k = 64, 10 iterations at tol 0: seconds per
+    pass (the statistics pass; the final cost is one more), rows/s per
+    pass and the share of the bound (2·rows·n·k operations of the cross
+    term at the float32 peak, or the rows' bytes read once). (iii) The
+    same blobs streamed as 8 re-iterable chunks of 262,144 rows, and
+    ``distributed_kmeans_fit`` (float32) on a fresh one-rank NCCL world,
+    each to (i)'s label bar; the fit monitor's ``lloyd`` step is logged.
+    (iv) ``Pipeline([StandardScaler(withMean), PCA(k=256),
+    KMeans(k=64)]).fit`` on fit (c)'s 32,768 × 4096 rows: exactly one
+    Gram launch; saved, loaded through ``ModelRegistry.load`` and served
+    by one engine beside fit (c)'s PCA model and a KMeans(k=64) model of
+    the same rows: phase 5's 256 binary requests from 8 clients to the
+    pipeline, and 32 of them to the other two. Every pipeline response
+    must equal ``run_staged_pipeline`` on its rows bit for bit; the
+    labels may differ from ``PipelineModel.transform`` (host float64
+    scaler) on at most 1e-3 of the rows, and on none with every stage at
+    float64; ``sparkml_serve_program_runs_total`` must gain series for
+    ``pipeline``, ``kmeans`` and ``pca`` on ``cuda``; a ``torch.profiler``
+    capture over 8 pipeline requests must show one device→host copy per
+    batch. Prints requests/s and client p50. (v) The pipeline's bf16 and
+    int8 ladders through the engine's offline check: error (the label
+    mismatch fraction), verdict and the ladder served; a refused ladder
+    must serve native.
 
 Then one JSON line ``{"kernels": [...]}`` (each kernel with its launches
 per phase and, under ``extra_shapes``, phase 3's timings of phase 14's
@@ -4053,6 +4085,386 @@ def phase_gram_callers(torch, fg, device, model_a):
     return launched
 
 
+# -- phase 15: KMeans, StandardScaler and the fused pipeline --------------------
+
+KM_ROWS = 2_097_152
+KM_FEATURES = 64
+KM_K = 64
+KM_CENTRE_SD = 100.0
+KM_WIDE = 512              # (ii)'s second width (bench_models.py:42-66)
+KM_PASSES = 10
+KM_CHUNKS = 8
+KM_CENTRE_RTOL = 1e-5
+KM_COST_RTOL = 1e-5
+PIPE_SIDE_REQUESTS = 32    # to the PCA and KMeans models beside the pipeline
+PIPE_MISMATCH = 1e-3
+PIPE_F64_ROWS = 4096
+PIPE_PROFILED = 8
+
+
+def km_blobs(torch, device):
+    """(i)'s rows, float64 on the host, and each row's blob."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 1500)
+    centres = torch.randn(KM_K, KM_FEATURES, generator=gen, device=device,
+                          dtype=torch.float64) * KM_CENTRE_SD
+    truth = torch.randint(0, KM_K, (KM_ROWS,), generator=gen, device=device)
+    x = centres[truth] + torch.randn(KM_ROWS, KM_FEATURES, generator=gen,
+                                     device=device, dtype=torch.float64)
+    return x.cpu().numpy(), truth.cpu().numpy()
+
+
+def one_permutation(labels, truth) -> bool:
+    """Whether every row's label equals its blob's under one permutation."""
+    labels = np.asarray(labels, dtype=np.int64)
+    pairs = np.unique(truth.astype(np.int64) * KM_K + labels)
+    return (pairs.size == KM_K and np.unique(labels).size == KM_K
+            and np.unique(truth).size == KM_K)
+
+
+def km_labels(model, x) -> np.ndarray:
+    return np.asarray(model.transform(x).column("prediction"))
+
+
+def phase_kmeans(torch, fg, device, model_c):
+    """Phase 15: KMeans, StandardScaler and the fused pipeline. Returns
+    {kernel: launches}."""
+    import torch.distributed as dist
+
+    from spark_rapids_ml_tpu_torch import (
+        KMeans,
+        KMeansModel,
+        PCA,
+        Pipeline,
+        PipelineModel,
+        StandardScaler,
+    )
+    from spark_rapids_ml_tpu_torch.models._serving import run_staged_pipeline
+    from spark_rapids_ml_tpu_torch.obs import fitmon
+    from spark_rapids_ml_tpu_torch.obs.metrics import get_registry
+    from spark_rapids_ml_tpu_torch.ops import kmeans_kernel as kk
+    from spark_rapids_ml_tpu_torch.parallel import (
+        data_mesh,
+        distributed_kmeans_fit,
+        initialize_multihost,
+    )
+    from spark_rapids_ml_tpu_torch.serve import (
+        ModelRegistry,
+        ServeEngine,
+        start_serve_server,
+        wire,
+    )
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi_line()
+
+    def launched():
+        return {k: v for k, v in fg.launches.items() if v}
+
+    # (i) one-shot fit on the blobs
+    t0 = time.perf_counter()
+    x, truth = km_blobs(torch, device)
+    log(f"  (i) {KM_ROWS:,} x {KM_FEATURES} rows in {KM_K} blobs (centres "
+        f"N(0, {KM_CENTRE_SD:g}²), σ = 1), {x.nbytes / 2**30:.2f} GiB as "
+        f"float64, made in {time.perf_counter() - t0:.2f} s")
+    fg.reset_launches()
+    t0 = time.perf_counter()
+    model = KMeans().setK(KM_K).fit(x)
+    fit_s = time.perf_counter() - t0
+    check(launched() == {}, f"KMeans launched {launched()}")
+    t0 = time.perf_counter()
+    labels = km_labels(model, x)
+    transform_s = time.perf_counter() - t0
+    x32 = torch.as_tensor(x, dtype=torch.float32, device=device)
+    init = kk.kmeans_plus_plus_init(x32, KM_K, model.getSeed())
+    ref = kk.lloyd_iterations(x32.double(), init.double(), None,
+                              model.getMaxIter(), model.getTol())
+    ref_c = ref.centers.cpu().numpy()
+    centre_err = float(np.abs(model.cluster_centers - ref_c).max()
+                       / np.abs(ref_c).max())
+    host_cost = model.compute_cost(x)
+    cost_err = abs(model.training_cost_ - host_cost) / host_cost
+    log(f"  (i) KMeans().setK({KM_K}).fit: {fit_s:.3f} s, {model.n_iter_} "
+        f"iterations (float64 Lloyd from the same centres: "
+        f"{int(ref.n_iter)}); fit_timings_ "
+        f"{ {k: round(t, 4) for k, t in model.fit_timings_.items()} }; "
+        f"transform {transform_s:.3f} s; labels one permutation of the "
+        f"blobs: {one_permutation(labels, truth)}; centres vs float64 "
+        f"Lloyd {centre_err:.3e} (bar {KM_CENTRE_RTOL:g}); cost "
+        f"{model.training_cost_:.10g} vs float64 host {host_cost:.10g}: "
+        f"{cost_err:.3e} (bar {KM_COST_RTOL:g})")
+    check(one_permutation(labels, truth), "(i) labels are not the blobs'")
+    check(centre_err <= KM_CENTRE_RTOL, f"(i) centres {centre_err:.3e}")
+    check(cost_err <= KM_COST_RTOL, f"(i) cost {cost_err:.3e}")
+    del x32, init, ref
+
+    # (ii) Lloyd's throughput on device rows
+    for n in (KM_FEATURES, KM_WIDE):
+        gen = torch.Generator(device=device).manual_seed(SEED + 1510 + n)
+        xd = torch.randn(KM_ROWS, n, generator=gen, device=device)
+        start = xd[:KM_K].clone()
+        kk.kmeans_fit_kernel(xd[:65_536], start, max_iter=1, tol=0.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wide = xd.double()
+        torch.cuda.synchronize()
+        widen_s = time.perf_counter() - t0
+        del wide
+        t0 = time.perf_counter()
+        result = kk.kmeans_fit_kernel(xd, start, max_iter=KM_PASSES, tol=0.0)
+        cost = float(result.cost)
+        seconds = time.perf_counter() - t0
+        passes = int(result.n_iter) + 1
+        pass_ms = (seconds - widen_s) * 1e3 / passes
+        flops = 2.0 * KM_ROWS * n * KM_K
+        nbytes = float(KM_ROWS * n * 4)
+        by_ops = flops / PEAK_OPS_PER_S["f32"] * 1e3
+        by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        bound_ms = max(by_ops, by_bytes)
+        log(f"  (ii) kmeans_fit_kernel {KM_ROWS:,} x {n} float32, k = {KM_K}: "
+            f"{int(result.n_iter)} iterations + the final cost = {passes} "
+            f"statistics passes in {seconds:.4f} s (the one float64 widening "
+            f"of the rows {widen_s * 1e3:.3f} ms of it): {pass_ms:.4f} ms "
+            f"per pass, {KM_ROWS / pass_ms * 1e3:.6g} rows/s per pass; bound "
+            f"{bound_ms:.4f} ms ({'operations' if by_ops >= by_bytes else 'bytes'}"
+            f": {flops / 1e9:.4g} GFLOP of the cross term at "
+            f"{PEAK_OPS_PER_S['f32'] / 1e12:g} TFLOP/s, {nbytes / 2**20:.0f} "
+            f"MiB read at {PEAK_BYTES_PER_S / 1e12:g} TB/s), "
+            f"{bound_ms / pass_ms:.4f} of the bound; {smi}")
+        check(int(result.n_iter) >= 1 and np.isfinite(cost),
+              f"(ii) Lloyd at width {n}")
+        del xd, start, result
+    torch.cuda.empty_cache()
+
+    # (iii) streamed and distributed fits on (i)'s blobs
+    per = KM_ROWS // KM_CHUNKS
+
+    def chunks():
+        return (x[i * per:(i + 1) * per] for i in range(KM_CHUNKS))
+
+    fg.reset_launches()
+    t0 = time.perf_counter()
+    streamed = KMeans().setK(KM_K).fit(chunks)
+    streamed_s = time.perf_counter() - t0
+    check(launched() == {}, f"streamed KMeans launched {launched()}")
+    ok = one_permutation(km_labels(streamed, x), truth)
+    log(f"  (iii) streamed from {KM_CHUNKS} chunks of {per:,}: "
+        f"{streamed_s:.3f} s, {streamed.n_iter_} iterations, fit_timings_ "
+        f"{ {k: round(t, 4) for k, t in streamed.fit_timings_.items()} }; "
+        f"labels one permutation of the blobs: {ok}")
+    check(ok, "(iii) streamed labels are not the blobs'")
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    coordinator = f"127.0.0.1:{free_port()}"
+    try:
+        initialize_multihost(coordinator, num_processes=1, process_id=0)
+    except Exception as exc:
+        raise RuntimeError(f"phase 15: the one-rank NCCL world did not "
+                           f"start at {coordinator}: {exc!r}") from exc
+    try:
+        check(dist.get_backend() == "nccl", "the card's world runs NCCL")
+        t0 = time.perf_counter()
+        result = distributed_kmeans_fit(x, KM_K, data_mesh(1),
+                                        dtype=np.float32)
+        dist_s = time.perf_counter() - t0
+        step = fitmon.get_fit_monitor().recent_runs()[0].steps[-1]
+        centres = result.centers.cpu().numpy().astype(np.float64)
+        ok = one_permutation(km_labels(KMeansModel(cluster_centers=centres),
+                                       x), truth)
+        report = result.fit_report_
+        log(f"  (iii) distributed_kmeans_fit, one NCCL rank, float32: "
+            f"{dist_s:.3f} s, {int(result.n_iter)} iterations; fit monitor "
+            f"step {step['step']!r}: rows {step['rows']}, wall "
+            f"{step['wall_seconds']:.4f} s, scalars {step['scalars']}; "
+            f"collectives {report.collectives}; labels one permutation of "
+            f"the blobs: {ok}")
+        check(ok, "(iii) distributed labels are not the blobs'")
+        check(step["step"] == "lloyd"
+              and step["scalars"]["n_iter"] == int(result.n_iter),
+              f"(iii) fit monitor step {step}")
+    finally:
+        dist.destroy_process_group()
+    del x, truth, labels
+
+    # (iv) the pipeline on fit (c)'s rows, served beside PCA and KMeans
+    x_c = chunk(torch, device, 20, rows=CHUNK_ROWS // 2)
+    default = fg.kernel_name(None)
+    fg.reset_launches()
+    t0 = time.perf_counter()
+    pipe = Pipeline([
+        StandardScaler().setWithMean(True).setOutputCol("scaled"),
+        PCA().setK(K).setInputCol("scaled").setOutputCol("reduced"),
+        KMeans().setK(KM_K).setInputCol("reduced"),
+    ]).fit(x_c)
+    pipe_fit_s = time.perf_counter() - t0
+    pipe_launches = launched()
+    log(f"  (iv) Pipeline([StandardScaler(withMean), PCA(k={K}), "
+        f"KMeans(k={KM_K})]).fit on {x_c.shape[0]:,} x {x_c.shape[1]}: "
+        f"{pipe_fit_s:.3f} s, launches {pipe_launches}; stage fit_timings_ "
+        f"{[{k: round(t, 3) for k, t in s.fit_timings_.items()} for s in pipe.stages]}")
+    check(pipe_launches == {default: 1},
+          f"the pipeline fit launched {pipe_launches}, expected one {default}")
+    t0 = time.perf_counter()
+    km_c = KMeans().setK(KM_K).fit(x_c)
+    log(f"  (iv) KMeans(k={KM_K}) on the same rows: "
+        f"{time.perf_counter() - t0:.3f} s, {km_c.n_iter_} iterations")
+    registry = ModelRegistry()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        pipe.save(f"{tmp}/pipeline")
+        registry.load("pipeline", f"{tmp}/pipeline")
+        log(f"  (iv) save → ModelRegistry.load: "
+            f"{time.perf_counter() - t0:.3f} s")
+    loaded = registry.resolve("pipeline")
+    check([type(s).__name__ for s in loaded.stages]
+          == ["StandardScalerModel", "PCAModel", "KMeansModel"]
+          and np.array_equal(loaded.stages[1].pc, pipe.stages[1].pc),
+          "the loaded pipeline")
+    registry.register("pca", model_c)
+    registry.register("kmeans", km_c)
+    del x_c
+    metrics = get_registry()
+    traffic = serve_traffic()
+    engine = ServeEngine(registry, max_batch_rows=SERVE_MAX_ROWS,
+                         pipeline_depth=2)
+    server = None
+    try:
+        t0 = time.perf_counter()
+        for name in ("pipeline", "pca", "kmeans"):
+            engine.warmup(name)
+        spec = engine._async_specs[("pipeline", 1)]
+        check(spec is not None and spec.algo == "pipeline",
+              "the pipeline serves no fused program")
+        log(f"  (iv) warmup of the three models: "
+            f"{time.perf_counter() - t0:.2f} s")
+        server = start_serve_server(engine, port=0, addr="127.0.0.1")
+        port = server.server_address[1]
+        bodies = [(i, wire.encode_request("pipeline", rows),
+                   wire.BINARY_CONTENT_TYPE)
+                  for i, rows in enumerate(traffic)]
+        side = [(i, wire.encode_request(("pca", "kmeans")[i % 2], traffic[i]),
+                 wire.BINARY_CONTENT_TYPE)
+                for i in range(PIPE_SIDE_REQUESTS)]
+        before = serve_counters(metrics)
+        runs_before = {a: metric_sum(metrics.snapshot(),
+                                     "sparkml_serve_program_runs_total",
+                                     algo=a, device="cuda")
+                       for a in ("pipeline", "kmeans", "pca")}
+        results, wall = http_clients(port, bodies)
+        delta = {k: v - before[k] for k, v in serve_counters(metrics).items()}
+        side_results, _ = http_clients(port, side)
+        runs = {a: metric_sum(metrics.snapshot(),
+                              "sparkml_serve_program_runs_total", algo=a,
+                              device="cuda") - runs_before[a]
+                for a in runs_before}
+        check(len(results) == SERVE_REQUESTS,
+              f"{len(results)} pipeline responses")
+        lat = np.asarray([results[i][0] * 1e3 for i in sorted(results)])
+        served = []
+        staged_t0 = time.perf_counter()
+        unequal = 0
+        for i in sorted(results):
+            _, status, _, data = results[i]
+            check(status == 200, f"pipeline request {i}: HTTP {status}")
+            out = wire.decode_response(data)
+            check(out.dtype == np.int32 and out.shape == (len(traffic[i]),),
+                  f"pipeline request {i}: {out.dtype} {out.shape}")
+            unequal += not np.array_equal(
+                out, run_staged_pipeline(loaded, traffic[i]))
+            served.append(out)
+        staged_s = time.perf_counter() - staged_t0
+        rows_all = np.concatenate(traffic)
+        served = np.concatenate(served)
+        t0 = time.perf_counter()
+        frame = km_labels(loaded, rows_all)
+        frame_s = time.perf_counter() - t0
+        mismatch = float(np.mean(served != frame))
+        f64 = PipelineModel(stages=[s.copy({"dtype": "float64"})
+                                    for s in loaded.stages])
+        prog64 = f64.serving_transform_program()
+        sample = rows_all[:PIPE_F64_ROWS]
+        mismatch64 = float(np.mean(
+            prog64.fetch(prog64.run(prog64.put(sample)))
+            != km_labels(f64, sample)))
+        total_rows = rows_all.shape[0]
+        log(f"  (iv) {SERVE_REQUESTS} binary requests ({total_rows} rows) to "
+            f"the pipeline over HTTP from {SERVE_CLIENTS} clients in "
+            f"{wall:.3f} s: {SERVE_REQUESTS / wall:.1f} requests/s, "
+            f"{total_rows / wall:.0f} rows/s; client p50 "
+            f"{np.percentile(lat, 50):.2f} ms, p99 "
+            f"{np.percentile(lat, 99):.2f} ms; {delta['batches']:.0f} "
+            f"batches; responses unequal to run_staged_pipeline on their "
+            f"rows: {unequal} of {SERVE_REQUESTS} (staged references "
+            f"{staged_s:.2f} s); label mismatch vs PipelineModel.transform "
+            f"{mismatch:.3e} (bar {PIPE_MISMATCH:g}; the frame loop "
+            f"{frame_s:.2f} s), every stage at float64 on "
+            f"{PIPE_F64_ROWS} rows {mismatch64:.3e} (bar 0); program runs "
+            f"on cuda {runs}")
+        check(unequal == 0, f"{unequal} pipeline responses differ from "
+              f"run_staged_pipeline")
+        check(mismatch <= PIPE_MISMATCH, f"label mismatch {mismatch:.3e}")
+        check(mismatch64 == 0.0, f"float64 label mismatch {mismatch64:.3e}")
+        check(all(v > 0 for v in runs.values()),
+              f"program runs on cuda by algo {runs}")
+        check(delta["runs_cuda"] == delta["batches"] > 0,
+              f"{delta['runs_cuda']} cuda runs for {delta['batches']} batches")
+        for i, (_, status, _, data) in sorted(side_results.items()):
+            check(status == 200, f"side request {i}: HTTP {status}")
+            out = wire.decode_response(data)
+            if i % 2:
+                want = km_labels(km_c, traffic[i])
+                check(np.mean(out != want) <= PIPE_MISMATCH,
+                      f"kmeans request {i}")
+            else:
+                ref = traffic[i].astype(np.float64) @ model_c.pc
+                check(relative_error(out, ref) <= SERVE_BARS["native"],
+                      f"pca request {i}")
+
+        # one device→host copy per batch
+        from torch.profiler import ProfilerActivity, profile
+
+        before = serve_counters(metrics)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(PIPE_PROFILED):
+                engine.predict("pipeline", traffic[i])
+            torch.cuda.synchronize()
+        batches = serve_counters(metrics)["batches"] - before["batches"]
+        copies = sum(1 for e in prof.events() if "DtoH" in e.name
+                     and "Memcpy" in e.name)
+        log(f"  (iv) torch.profiler over {PIPE_PROFILED} pipeline requests: "
+            f"{batches:.0f} batches, {copies} device→host copies")
+        check(batches == PIPE_PROFILED and copies == batches,
+              f"{copies} device→host copies for {batches} batches")
+    finally:
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+        engine.shutdown()
+
+    # (v) the pipeline's reduced ladders through the offline check
+    only = ModelRegistry()
+    only.register("pipeline", loaded)
+    for precision in ("bf16", "int8"):
+        engine = ServeEngine(only, max_batch_rows=SERVE_MAX_ROWS,
+                             pipeline_depth=2, precision=precision)
+        try:
+            engine.warmup("pipeline")
+            checked = engine.precision_checks[("pipeline", 1, precision)]
+            serving = engine.stats()["queues"]["pipeline@1"]["precision"]
+            log(f"  (v) {precision}: offline check label mismatch "
+                f"{checked['error']}, verdict {checked['verdict']} (bar "
+                f"{checked['bar']:g}), serves {serving}")
+            check(checked["verdict"] in ("pass", "fail"),
+                  f"(v) {precision} check ended {checked['verdict']}")
+            check(checked["verdict"] == "pass" or serving == "native",
+                  f"(v) a refused {precision} ladder serves {serving}")
+        finally:
+            engine.shutdown()
+    torch.cuda.empty_cache()
+    log(f"  phase 15 launches {pipe_launches}; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return pipe_launches
+
+
 def build_fresh(cuda_build):
     """Build the Gram library anew, so ``ptxas -v`` reports on it."""
     path = cuda_build.library_path("fused_gram")
@@ -4166,12 +4578,16 @@ def main() -> int:
     log("[14] RowMatrix, TruncatedSVD and LinearRegression at full width")
     gram_callers = phase_gram_callers(torch, fg, device, model_a)
 
+    log("[15] KMeans, StandardScaler and the fused pipeline")
+    pipeline_launches = phase_kmeans(torch, fg, device, model_c)
+
     kernels = []
     for name, m in measured.items():
         check(launches.get(name, 0) > 0, f"{name} not launched on the main path")
         by_phase = {"4": launches[name], "7": distributed.get(name, 0),
                     "13": monitored.get(name, 0),
-                    "14": gram_callers.get(name, 0)}
+                    "14": gram_callers.get(name, 0),
+                    "15": pipeline_launches.get(name, 0)}
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES, "launches": sum(by_phase.values()),

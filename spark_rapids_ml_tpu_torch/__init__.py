@@ -15,6 +15,18 @@ imports neither ``jax`` nor ``spark_rapids_ml_tpu``.
 __version__ = "0.1.0"
 
 from spark_rapids_ml_tpu_torch.models.pca import PCA, PCAModel  # noqa: F401
+from spark_rapids_ml_tpu_torch.models.kmeans import (  # noqa: F401
+    KMeans,
+    KMeansModel,
+)
+from spark_rapids_ml_tpu_torch.models.scaler import (  # noqa: F401
+    StandardScaler,
+    StandardScalerModel,
+)
+from spark_rapids_ml_tpu_torch.models.pipeline import (  # noqa: F401
+    Pipeline,
+    PipelineModel,
+)
 from spark_rapids_ml_tpu_torch.models.linear_regression import (  # noqa: F401
     LinearRegression,
     LinearRegressionModel,
@@ -28,6 +40,12 @@ from spark_rapids_ml_tpu_torch.linalg import RowMatrix  # noqa: F401
 __all__ = [
     "PCA",
     "PCAModel",
+    "KMeans",
+    "KMeansModel",
+    "StandardScaler",
+    "StandardScalerModel",
+    "Pipeline",
+    "PipelineModel",
     "LinearRegression",
     "LinearRegressionModel",
     "TruncatedSVD",

@@ -257,3 +257,23 @@ class BatchSource:
                 f"{self._first_pass_rows}; the source factory must return a "
                 f"FRESH iterator over the same data on every call"
             )
+
+
+def streamed_reduce(source, reducer, initial=None):
+    """Fold valid rows of a streamed source through ``reducer(acc, rows)``
+    — the one masked-iteration loop the host-streamed scaler fit uses.
+    ``rows`` arrives as float64 with padding removed; empty batches are
+    skipped. Raises when the source held no rows at all."""
+    acc = initial
+    seen = False
+    for batch, mask in source.batches():
+        rows = np.asarray(
+            batch if mask is None else batch[mask], dtype=np.float64
+        )
+        if rows.shape[0] == 0:
+            continue
+        acc = reducer(acc, rows)
+        seen = True
+    if not seen:
+        raise ValueError("fit requires at least one row")
+    return acc

@@ -1,8 +1,8 @@
 """Model persistence in Spark ML's on-disk layout.
 
-A copy of the PCA, LinearRegression and TruncatedSVD parts of the JAX
-package's ``io/persistence.py``, so a model saved by either package loads
-in the other (``RapidsPCA.scala:218-254``):
+A copy of the PCA, KMeans, StandardScaler, LinearRegression and
+TruncatedSVD parts of the JAX package's ``io/persistence.py``, so a model
+saved by either package loads in the other (``RapidsPCA.scala:218-254``):
 
 * ``path/metadata/part-00000`` — one JSON line: class, timestamp, uid,
   paramMap (Spark's ``DefaultParamsWriter.saveMetadata``); params Spark's
@@ -10,20 +10,36 @@ in the other (``RapidsPCA.scala:218-254``):
 * ``path/metadata/_SUCCESS`` — empty marker;
 * ``path/data/part-00000.parquet`` — one row: for PCA ``pc`` (Spark
   DenseMatrix struct), ``explainedVariance`` (Spark DenseVector struct) and
-  the extension column ``mean``; for LinearRegression Spark's
-  (``coefficients``, ``intercept``, ``scale``); for TruncatedSVD ``V`` and
-  ``s``. Without pyarrow (optional) the same row is written as
-  ``part-00000.json``, which both packages' readers accept.
+  the extension column ``mean``; for KMeans ``clusterCenters`` and
+  ``trainingCost``; for StandardScaler ``mean`` and ``std``; for
+  LinearRegression Spark's (``coefficients``, ``intercept``, ``scale``);
+  for TruncatedSVD ``V`` and ``s``. Without pyarrow (optional) the same
+  row is written as ``part-00000.json``, which both packages' readers
+  accept.
 
 Estimators persist metadata only, like Spark's ``DefaultParamsWritable``.
+Pipelines (``models/pipeline.py``) write their metadata here and each
+stage under ``stages/``.
+
+``load_model`` loads any of these by the class its metadata records: the
+simple name of ``pythonClass`` picks the port's class of that name from
+``_MODEL_CLASSES``, so metadata the JAX package wrote (whose
+``pythonClass`` names ``spark_rapids_ml_tpu.models.…``) loads without
+importing the module it names. Every ``save_*`` writer is atomic
+(``_atomic_save``): the payload goes to a temporary sibling, the previous
+model is renamed aside, the new one renamed into place; a save that dies
+leaves the previous model or nothing, never a half-written directory.
 """
 
 from __future__ import annotations
 
+import functools
+import importlib
 import json
 import os
 import shutil
 import time
+import uuid
 from typing import Any, Dict
 
 import numpy as np
@@ -35,8 +51,14 @@ _FORMAT_VERSION = "1.0"
 _SPARK_CLASS_ALIASES = {
     "PCA": "org.apache.spark.ml.feature.PCA",
     "PCAModel": "org.apache.spark.ml.feature.PCAModel",
+    "KMeans": "org.apache.spark.ml.clustering.KMeans",
+    "KMeansModel": "org.apache.spark.ml.clustering.KMeansModel",
     "LinearRegression": "org.apache.spark.ml.regression.LinearRegression",
     "LinearRegressionModel": "org.apache.spark.ml.regression.LinearRegressionModel",
+    "StandardScaler": "org.apache.spark.ml.feature.StandardScaler",
+    "StandardScalerModel": "org.apache.spark.ml.feature.StandardScalerModel",
+    "Pipeline": "org.apache.spark.ml.Pipeline",
+    "PipelineModel": "org.apache.spark.ml.PipelineModel",
 }
 
 # Params a real Spark DefaultParamsReader recognizes per class; the rest
@@ -44,6 +66,11 @@ _SPARK_CLASS_ALIASES = {
 _SPARK_PARAM_ALLOWLIST = {
     "PCA": {"k", "inputCol", "outputCol"},
     "PCAModel": {"k", "inputCol", "outputCol"},
+    "KMeans": {"k", "maxIter", "tol", "seed", "predictionCol", "weightCol"},
+    "KMeansModel": {"k", "maxIter", "tol", "seed", "predictionCol",
+                    "weightCol"},
+    "StandardScaler": {"withMean", "withStd", "inputCol", "outputCol"},
+    "StandardScalerModel": {"withMean", "withStd", "inputCol", "outputCol"},
     "LinearRegression": {"labelCol", "predictionCol", "fitIntercept",
                          "regParam", "elasticNetParam", "weightCol"},
     "LinearRegressionModel": {"labelCol", "predictionCol", "fitIntercept",
@@ -421,3 +448,162 @@ def load_svd_model(path: str):
         uid=meta["uid"],
     )
     return _restore_params(model, meta)
+
+
+def save_kmeans_model(model, path: str, overwrite: bool = False) -> None:
+    if model.cluster_centers is None:
+        raise ValueError("cannot save an unfitted KMeansModel")
+    _require_target(path, overwrite)
+    cls = f"{type(model).__module__}.{type(model).__qualname__}"
+    _write_metadata(path, cls, model.uid, model.param_map_for_metadata())
+    row = {
+        "clusterCenters": _dense_matrix_struct(model.cluster_centers),
+        "trainingCost": (
+            float(model.training_cost_)
+            if model.training_cost_ is not None else None
+        ),
+    }
+    try:
+        import pyarrow as pa
+    except ImportError:
+        schema = None
+    else:
+        schema = pa.schema(
+            [
+                ("clusterCenters", _matrix_arrow_type()),
+                ("trainingCost", pa.float64()),
+            ]
+        )
+    _write_data_row(path, row, schema=schema, spark_fields=[
+        ("clusterCenters", "matrix"), ("trainingCost", "double"),
+    ])
+
+
+def load_kmeans_model(path: str):
+    from spark_rapids_ml_tpu_torch.models.kmeans import KMeansModel
+
+    meta = _read_metadata(path)
+    row = _read_data_row(path)
+    model = KMeansModel(
+        cluster_centers=_dense_matrix_from_struct(row["clusterCenters"]),
+        uid=meta["uid"],
+    )
+    model.training_cost_ = row.get("trainingCost")
+    return _restore_params(model, meta)
+
+
+def save_scaler_model(model, path: str, overwrite: bool = False) -> None:
+    if model.mean is None:
+        raise ValueError("cannot save an unfitted StandardScalerModel")
+    _require_target(path, overwrite)
+    cls = f"{type(model).__module__}.{type(model).__qualname__}"
+    _write_metadata(path, cls, model.uid, model.param_map_for_metadata())
+    row = {
+        "mean": _dense_vector_struct(model.mean),
+        "std": _dense_vector_struct(model.std),
+    }
+    try:
+        import pyarrow as pa
+    except ImportError:
+        schema = None
+    else:
+        schema = pa.schema(
+            [("mean", _vector_arrow_type()), ("std", _vector_arrow_type())]
+        )
+    _write_data_row(path, row, schema=schema, spark_fields=[
+        ("mean", "vector"), ("std", "vector"),
+    ])
+
+
+def load_scaler_model(path: str):
+    from spark_rapids_ml_tpu_torch.models.scaler import StandardScalerModel
+
+    meta = _read_metadata(path)
+    row = _read_data_row(path)
+    model = StandardScalerModel(
+        mean=_dense_vector_from_struct(row["mean"]),
+        std=_dense_vector_from_struct(row["std"]),
+        uid=meta["uid"],
+    )
+    return _restore_params(model, meta)
+
+
+# -- generic load + atomic save layer --------------------------------------
+
+# simple class name → (module of the port, class): what ``load_model`` may
+# construct, whichever package wrote the metadata
+_MODEL_CLASSES = {
+    name: (f"spark_rapids_ml_tpu_torch.models.{module}", name)
+    for module, names in (
+        ("pca", ("PCA", "PCAModel")),
+        ("kmeans", ("KMeans", "KMeansModel")),
+        ("scaler", ("StandardScaler", "StandardScalerModel")),
+        ("linear_regression", ("LinearRegression", "LinearRegressionModel")),
+        ("svd", ("TruncatedSVD", "TruncatedSVDModel")),
+        ("pipeline", ("Pipeline", "PipelineModel")),
+    )
+    for name in names
+}
+
+
+def load_model(path: str):
+    """Load any saved model or estimator by its metadata's ``pythonClass``
+    (the serving registry's load-from-disk entry point): the simple name
+    picks the port's class from ``_MODEL_CLASSES``, whose ``load`` reads
+    the directory. The recorded module is never imported."""
+    meta = _read_metadata(path)
+    dotted = meta.get("pythonClass")
+    if not dotted:
+        raise ValueError(
+            f"{path}: metadata carries no 'pythonClass' (a Spark-written "
+            "directory?); load it with the class-specific reader instead"
+        )
+    simple = dotted.rsplit(".", 1)[-1]
+    target = _MODEL_CLASSES.get(simple)
+    if target is None:
+        raise ValueError(
+            f"{path}: {dotted} has no counterpart in this package (one of "
+            f"{sorted(_MODEL_CLASSES)})"
+        )
+    module_name, cls_name = target
+    cls = getattr(importlib.import_module(module_name), cls_name)
+    return cls.load(path)
+
+
+def _atomic_save(save_fn):
+    """Make a ``save_*`` writer atomic: the payload is written to a temp
+    sibling directory, then renamed into place. A save that crashes
+    mid-write leaves the target untouched (the previous model or
+    nothing), never a half-written directory for the registry's load path
+    to pick up."""
+
+    @functools.wraps(save_fn)
+    def wrapper(obj, path, *args, overwrite: bool = False, **kwargs):
+        if os.path.exists(path) and not overwrite:
+            _require_target(path, False)  # the standard FileExistsError
+        token = f"{os.getpid()}-{uuid.uuid4().hex[:8]}"
+        tmp = f"{path}.tmp-{token}"
+        old = f"{path}.old-{token}"
+        try:
+            save_fn(obj, tmp, *args, overwrite=True, **kwargs)
+            # Swap by rename-aside: both steps are atomic renames, so a
+            # crash at any point leaves the previous model at ``path`` or,
+            # complete, at the ``.old`` sibling: never a half-written
+            # directory, never both copies gone.
+            if os.path.exists(path):  # overwrite=True, checked above
+                os.replace(path, old)
+            os.replace(tmp, path)
+            shutil.rmtree(old, ignore_errors=True)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+    wrapper.__wrapped_save__ = save_fn
+    return wrapper
+
+
+# Wrap every writer in this module (including ones later sections add
+# above this line).
+for _name, _fn in list(globals().items()):
+    if _name.startswith("save_") and callable(_fn):
+        globals()[_name] = _atomic_save(_fn)
+del _name, _fn

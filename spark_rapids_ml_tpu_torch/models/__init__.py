@@ -1,6 +1,12 @@
 """The port's estimators and models."""
 
 from spark_rapids_ml_tpu_torch.models.pca import PCA, PCAModel
+from spark_rapids_ml_tpu_torch.models.kmeans import KMeans, KMeansModel
+from spark_rapids_ml_tpu_torch.models.scaler import (
+    StandardScaler,
+    StandardScalerModel,
+)
+from spark_rapids_ml_tpu_torch.models.pipeline import Pipeline, PipelineModel
 from spark_rapids_ml_tpu_torch.models.linear_regression import (
     LinearRegression,
     LinearRegressionModel,
@@ -13,6 +19,12 @@ from spark_rapids_ml_tpu_torch.models.svd import (
 __all__ = [
     "PCA",
     "PCAModel",
+    "KMeans",
+    "KMeansModel",
+    "StandardScaler",
+    "StandardScalerModel",
+    "Pipeline",
+    "PipelineModel",
     "LinearRegression",
     "LinearRegressionModel",
     "TruncatedSVD",

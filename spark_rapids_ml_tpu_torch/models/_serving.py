@@ -1,11 +1,12 @@
-"""Shared ``ServingProgram`` construction for the pipelined serving hook.
+"""Shared ``ServingProgram`` construction for the pipelined serving hook,
+plus the fused whole-pipeline program.
 
 Counterpart of the JAX package's ``models/_serving.py`` (its single-model
-part; the fused whole-pipeline and batch-sharded builders wait for a
-``PipelineModel`` and a multi-device tier in the port). A model
-contributes only its kernel table and its per-precision weights, staged on
-the device once per program; this module resolves the device and dtype and
-wraps put / run / fetch into an ``obs.serving.ServingProgram``.
+and fused-pipeline parts; the batch-sharded builder waits for a
+multi-device tier in the port). A model contributes only its kernel table
+and its per-precision weights, staged on the device once per program;
+this module resolves the device and dtype and wraps put / run / fetch into
+an ``obs.serving.ServingProgram``.
 
 On the card every program on a device shares one pair of CUDA streams
 (``serving_streams``), made on the first build and captured by each
@@ -33,13 +34,26 @@ for the batcher worker that serves next. On the pair:
 Every ``run`` counts ``sparkml_serve_program_runs_total{algo, precision,
 device}`` with the device of the tensor it was handed, so a caller can
 tell from the metrics that every batch ran on the card.
+
+**Fused pipelines.** A ``PipelineModel.transform`` pays one host round
+trip per stage. Models also expose ``serving_stage(precision=...)``
+returning a ``ServingStage``: the stage's device function plus its
+device-staged weights. The JAX package composes a chain of them into one
+XLA program, which fuses the elementwise stages into the products. Eager
+PyTorch has no such compiler step; what the port keeps is the property
+that program exists for: ``build_fused_pipeline_program`` is ONE ``put``,
+ONE ``run`` that chains every stage body on the serving compute stream
+with no host sync between them, and ONE ``fetch``, so a batch makes one
+host round trip however many stages it has. ``run_staged_pipeline`` is
+the N-round-trip reference, built from the SAME stage bodies, with a
+device→host→device copy between stages, on the same serving stream.
 """
 
 from __future__ import annotations
 
 import contextvars
 import threading
-from typing import Callable, Dict, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -161,6 +175,20 @@ def build_serving_program(
             f"unknown serving precision {precision!r} "
             f"(one of {sorted(kernels)})"
         )
+    return _assemble_program(
+        device=device, dtype=dtype, algo=algo, precision=precision,
+        call=lambda x: kernel(x, *weights),
+        weight_bytes=staged_weight_bytes(weights), fetch_dtype=fetch_dtype)
+
+
+def _assemble_program(*, device, dtype: torch.dtype, algo: str,
+                      precision: str, call: Callable[[torch.Tensor],
+                                                     torch.Tensor],
+                      weight_bytes: int, fetch_dtype: Optional[np.dtype],
+                      count: bool = True) -> ServingProgram:
+    """put / run / fetch around ``call(batch) → output`` on ``device``'s
+    serving streams; ``count=False`` leaves the runs counter alone (the
+    staged reference is not served traffic)."""
     device = torch.device(device)
     host_dtype = _numpy_dtype(dtype)
     runs = get_registry().counter(
@@ -168,6 +196,10 @@ def build_serving_program(
         "serving-program launches by the device of the batch tensor",
         ("algo", "precision", "device"),
     )
+
+    def counted(x: torch.Tensor) -> None:
+        if count:
+            runs.inc(algo=algo, precision=precision, device=x.device.type)
 
     def finish(out: np.ndarray) -> np.ndarray:
         if fetch_dtype is None:
@@ -195,8 +227,8 @@ def build_serving_program(
             # still reads it
             x.record_stream(compute_stream)
             with torch.cuda.stream(compute_stream):
-                out = kernel(x, *weights)
-            runs.inc(algo=algo, precision=precision, device=x.device.type)
+                out = call(x)
+            counted(x)
             return out
 
         def fetch(out: torch.Tensor) -> np.ndarray:
@@ -217,8 +249,8 @@ def build_serving_program(
 
         def run(batch: DeviceBatch):
             x = batch.tensor
-            out = kernel(x, *weights)
-            runs.inc(algo=algo, precision=precision, device=x.device.type)
+            out = call(x)
+            counted(x)
             return out
 
         def fetch(out: torch.Tensor) -> np.ndarray:
@@ -226,5 +258,124 @@ def build_serving_program(
 
     return ServingProgram(put=put, run=run, fetch=fetch, dtype=host_dtype,
                           algo=algo, precision=precision, prime=None,
-                          weight_bytes=staged_weight_bytes(weights),
-                          device=device)
+                          weight_bytes=weight_bytes, device=device)
+
+
+def build_host_stat_stage(model, fn, host_weights, algo: str,
+                          device, dtype) -> ServingStage:
+    """Shared ``serving_stage`` assembly for the host-statistics families
+    (the scalers): the per-feature constants staged on the device once,
+    the elementwise body left as it is for the pipeline composer. Every
+    precision shares the native body (the product stages carry the
+    reduced ones). Float constants stage at the chain dtype; integer
+    index arrays and boolean masks keep their own dtype."""
+    if device is None or dtype is None:
+        device, dtype = resolve_serving_context(model)
+    weights = tuple(
+        torch.as_tensor(np.asarray(w), device=device,
+                        dtype=dtype if np.issubdtype(np.asarray(w).dtype,
+                                                     np.floating) else None)
+        for w in host_weights
+    )
+    return ServingStage(fn=fn, weights=weights, algo=algo,
+                        fetch_dtype=np.dtype(np.float64))
+
+
+# -- whole-pipeline fusion ---------------------------------------------------
+
+
+def resolve_pipeline_context(stages, device=None):
+    """The shared ``(device, dtype)`` a fused pipeline stages every weight
+    under: the first stage carrying device params decides (a pipeline
+    mixing device preferences is already incoherent for one program); an
+    all-host-statistics chain falls back to the defaults. ``device``
+    overrides the resolution, as in ``resolve_serving_context``."""
+    for stage in stages:
+        if callable(getattr(stage, "getDeviceId", None)) and callable(
+                getattr(stage, "getDtype", None)):
+            return resolve_serving_context(stage, device=device)
+    return resolve_serving_context(None, device=device)
+
+
+def collect_pipeline_stages(stages, precision: str, *, device, dtype,
+                            ) -> Optional[List[ServingStage]]:
+    """Every stage's ``ServingStage`` at ``precision`` under the shared
+    device/dtype, or None when the chain is not fusable: a stage without
+    the hook, a hook declining (returning None), or an output-typed
+    (``terminal``) stage anywhere but last — labels cannot feed a
+    downstream transformer."""
+    specs: List[ServingStage] = []
+    last = len(stages) - 1
+    for i, stage in enumerate(stages):
+        hook = getattr(stage, "serving_stage", None)
+        if not callable(hook):
+            return None
+        spec = hook(precision=precision, device=device, dtype=dtype)
+        if spec is None:
+            return None
+        if spec.terminal and i < last:
+            return None
+        specs.append(spec)
+    return specs or None
+
+
+def _chain(specs: List[ServingStage]) -> Callable[[torch.Tensor],
+                                                  torch.Tensor]:
+    def run_chain(x: torch.Tensor) -> torch.Tensor:
+        for spec in specs:
+            x = spec.fn(x, *spec.weights)
+        return x
+
+    return run_chain
+
+
+def build_fused_pipeline_program(
+    *,
+    device,
+    dtype: torch.dtype,
+    stages: List[ServingStage],
+    precision: str,
+    algo: str = "pipeline",
+) -> ServingProgram:
+    """ONE ``ServingProgram`` for a whole stage chain: one ``put``, one
+    ``run`` threading the batch through every stage body on the serving
+    compute stream with no host sync between stages, one ``fetch`` (see
+    the module docstring). The weights are each stage's, staged once."""
+    flat_weights = tuple(w for s in stages for w in s.weights)
+    return _assemble_program(
+        device=device, dtype=dtype, algo=algo, precision=precision,
+        call=_chain(stages), weight_bytes=staged_weight_bytes(flat_weights),
+        fetch_dtype=stages[-1].fetch_dtype)
+
+
+def run_staged_pipeline(model, x, precision: str = "native") -> np.ndarray:
+    """The N-round-trip reference: each composable stage as a program of
+    its own (put → run → fetch), with the host holding every intermediate
+    result, from the SAME stage bodies as the fused program, on the same
+    serving streams (through ``on_serving_thread``), so the fused program
+    can be held bit-equal to it. Raises ``ValueError`` when the pipeline
+    is not fusable (mirrors the hook declining)."""
+    stages = getattr(model, "stages", None) or []
+    device, dtype = resolve_pipeline_context(stages)
+    specs = collect_pipeline_stages(stages, precision,
+                                    device=device, dtype=dtype)
+    if not specs:
+        raise ValueError("pipeline has no fusable stage chain")
+
+    def staged() -> np.ndarray:
+        out = np.asarray(x)
+        for i, spec in enumerate(specs):
+            stage_dtype = (torch.from_numpy(np.ascontiguousarray(out[:0]))
+                           .dtype if i else dtype)
+            program = _assemble_program(
+                device=device, dtype=stage_dtype, algo=spec.algo,
+                precision=precision, call=_chain([spec]), weight_bytes=0,
+                fetch_dtype=None, count=False)
+            # the host round trip between stages IS the point of comparison
+            out = program.fetch(program.run(program.put(out)))
+        return out
+
+    out = on_serving_thread(device, staged)
+    if specs[-1].fetch_dtype is not None:
+        out = out.astype(specs[-1].fetch_dtype, copy=False)
+    return out

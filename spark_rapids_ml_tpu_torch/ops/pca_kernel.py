@@ -154,9 +154,8 @@ def _project_int8(x: torch.Tensor, components_q: torch.Tensor,
 pca_transform_int8 = _project_int8
 
 
-# The un-jitted stage bodies, keyed by precision like the JAX package's
-# (there they compose into fused whole-pipeline programs; the port has no
-# PipelineModel yet).
+# The stage bodies, keyed by precision like the JAX package's. The served
+# PCA stage (``PCAModel._serving_bodies``) keeps int8's first k columns.
 SERVING_STAGE_BODIES = {
     "native": _project,
     "bf16": _project_bf16,

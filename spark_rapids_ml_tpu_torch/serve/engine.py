@@ -53,7 +53,13 @@ thread pool (or the HTTP server in ``serve.server``) can hammer:
 A model with a ``serving_transform_program`` runs the pipelined batcher on
 that program (on the card unless the CPU was asked for); if the program
 cannot be built the engine counts ``error="serving_program"`` and keeps
-the blocking path through ``model.transform``.
+the blocking path through ``model.transform``. A ``PipelineModel``
+whose every stage has a serving hook serves as ONE fused program under
+its own ``algo`` (``pipeline``), a ``KMeansModel`` as ``kmeans``: their
+int32 labels pass through the batcher, ``extract_output`` on the blocking
+path (pipeline depth 1 at native precision, the kill switch, which serves
+the same rows) and the offline check, which holds labels to their
+mismatch fraction.
 
 Every request runs under a ``TraceContext`` (the caller's, or a fresh
 root) inside a ``serve:request:<model>`` span whose id the batcher's

@@ -5,7 +5,8 @@ map to immutable numbered versions of fitted models; aliases
 (``"prod" → ("pca_embedder", 3)``) give traffic a stable handle while new
 versions roll in behind it. Models arrive either in-process (``register``
 a fitted model, e.g. one carried across with ``PCAModel.from_numpy``) or
-from disk (``load``, through the port's ``io.persistence``).
+from disk (``load``, through ``io.persistence.load_model``, which loads
+every family the port saves, whichever package saved it).
 
 ``warmup`` pushes one zero batch per shape bucket through a model's
 transform before real traffic arrives.
@@ -46,6 +47,14 @@ _MANIFEST_VERSION = 1
 _FEATURE_HINTS = (
     ("pc", lambda v: v.shape[0]),                  # PCAModel (n_features, k)
     ("cluster_centers", lambda v: v.shape[1]),     # KMeans (k, n_features)
+    ("coefficients", lambda v: np.asarray(v).shape[0]),
+    ("coefficient_matrix", lambda v: v.shape[1]),  # multinomial (K, d)
+    # scaler-family statistics: one entry per input feature (these also
+    # lead fitted pipelines, whose input width IS the first stage's)
+    ("mean", lambda v: np.asarray(v).shape[0]),    # StandardScalerModel
+    ("original_min", lambda v: np.asarray(v).shape[0]),  # MinMaxScaler
+    ("max_abs", lambda v: np.asarray(v).shape[0]),       # MaxAbsScaler
+    ("median", lambda v: np.asarray(v).shape[0]),        # RobustScaler
 )
 
 
@@ -181,12 +190,11 @@ class ModelRegistry:
 
     def load(self, name: str, path: str, *,
              buckets: Optional[Sequence[int]] = None) -> int:
-        """Load a saved model from ``path`` (the port's
-        ``io.persistence``) and register it; returns the assigned
-        version."""
-        from spark_rapids_ml_tpu_torch.io.persistence import load_pca_model
+        """Load a saved model from ``path`` (``io.persistence.load_model``
+        dispatch) and register it; returns the assigned version."""
+        from spark_rapids_ml_tpu_torch.io.persistence import load_model
 
-        model = load_pca_model(path)
+        model = load_model(path)
         get_registry().counter(
             "sparkml_serve_model_loads_total",
             "models loaded from disk into the serving registry", ("model",),
@@ -479,10 +487,10 @@ class ModelRegistry:
                         continue
                     try:
                         from spark_rapids_ml_tpu_torch.io.persistence import (
-                            load_pca_model,
+                            load_model,
                         )
 
-                        model = load_pca_model(path)
+                        model = load_model(path)
                         self._register_at(
                             name, version, model,
                             buckets=entry.get("buckets"),
@@ -550,6 +558,20 @@ class ModelRegistry:
 
 
 def _infer_features(model) -> Optional[int]:
+    # A fitted PipelineModel's input width is its FIRST stage's: recurse
+    # down the chain until a stage carries per-feature state (stateless
+    # elementwise stages — Normalizer, Binarizer — preserve width, so
+    # looking past them stays correct; width-changing stages all carry
+    # state and resolve before the recursion passes them).
+    stages = getattr(model, "stages", None)
+    if isinstance(stages, (list, tuple)):
+        for stage in stages:
+            got = _infer_features(stage)
+            if got is not None:
+                return got
+            if type(stage).__name__ not in ("Normalizer", "Binarizer"):
+                break  # unknown stateful stage: width past it is unknowable
+        return None
     for attr, extract in _FEATURE_HINTS:
         value = getattr(model, attr, None)
         if value is not None:

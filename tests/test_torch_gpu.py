@@ -1005,3 +1005,129 @@ def test_slice_14_entry_points_launch_the_kernel(cuda_device):
     for model in (one_shot, streamed):
         np.testing.assert_allclose(model.coefficients, host.coefficients,
                                    atol=1e-4 * np.abs(host.coefficients).max())
+
+
+# -- KMeans, StandardScaler and the fused pipeline -------------------------------
+
+def _blobs(rows, n, k, seed=15, spread=20.0):
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(k, n)) * spread
+    truth = rng.integers(0, k, rows)
+    return centers[truth] + rng.normal(size=(rows, n)), centers, truth
+
+
+def _one_to_one(labels, truth):
+    """Whether ``labels`` equal ``truth`` under one permutation."""
+    pairs = set(zip(truth.tolist(), labels.tolist()))
+    return (len(pairs) == len(set(truth.tolist()))
+            == len({b for _, b in pairs}))
+
+
+def test_kmeans_fit_and_transform_on_the_card(cuda_device):
+    """One-shot, weighted and streamed fits on the card recover the blobs;
+    the device Lloyd from the fit's own initial centres equals the float64
+    Lloyd on the card within 1e-5, and the cost the host cost within 1e-5,
+    under the TF32 setting."""
+    from spark_rapids_ml_tpu_torch import KMeans
+    from spark_rapids_ml_tpu_torch.ops import kmeans_kernel as kk
+
+    x, _, truth = _blobs(20_000, 32, 8)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        model = KMeans().setK(8).setSeed(1).fit(x)
+        labels = np.asarray(model.transform(x).column("prediction"))
+        assert _one_to_one(labels, truth)
+        assert model.training_cost_ == pytest.approx(model.compute_cost(x),
+                                                     rel=1e-5)
+        x_dev = torch.as_tensor(x, dtype=torch.float32, device=cuda_device)
+        init = kk.kmeans_plus_plus_init(x_dev, 8, 1)
+        f64 = kk.kmeans_fit_kernel(x_dev.double(), init.double())
+        np.testing.assert_allclose(model.cluster_centers,
+                                   f64.centers.cpu().numpy(), rtol=0,
+                                   atol=1e-5 * np.abs(model.cluster_centers)
+                                   .max())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    from spark_rapids_ml_tpu_torch.data.frame import VectorFrame
+
+    w = np.random.default_rng(2).uniform(0.5, 2.0, len(x))
+    weighted = KMeans().setK(8).setSeed(1).setWeightCol("w").fit(
+        VectorFrame({"features": x, "w": list(w)}))
+    assert _one_to_one(np.asarray(weighted.transform(x).column("prediction")),
+                       truth)
+    streamed = KMeans().setK(8).setSeed(1).fit(
+        lambda: (x[i:i + 3000] for i in range(0, len(x), 3000)))
+    assert _one_to_one(np.asarray(streamed.transform(x).column("prediction")),
+                       truth)
+
+
+@pytest.mark.parametrize("precision", ["native", "bf16", "int8"])
+@pytest.mark.parametrize("rows", [1, 16, 17, 300])
+def test_kmeans_serving_precisions_on_the_card(cuda_device, precision, rows):
+    """Each ladder's program on the card against its CPU twin: the same
+    labels on blobs (int8 pads the batch to 32 rows and k = 5 to 8
+    columns)."""
+    from spark_rapids_ml_tpu_torch import KMeansModel
+
+    x, centers, truth = _blobs(rows, 24, 5)
+    model = KMeansModel(cluster_centers=centers)
+    prog = model.serving_transform_program(precision)
+    assert prog.device.type == "cuda"
+    got = prog.fetch(prog.run(prog.put(x)))
+    os.environ["SPARK_RAPIDS_ML_TORCH_PLATFORM"] = "cpu"
+    try:
+        twin = model.serving_transform_program(precision)
+        want = twin.fetch(twin.run(twin.put(x)))
+    finally:
+        del os.environ["SPARK_RAPIDS_ML_TORCH_PLATFORM"]
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+    assert _one_to_one(got, truth)
+
+
+def test_scaler_device_fit_on_the_card(cuda_device):
+    from spark_rapids_ml_tpu_torch import StandardScaler
+
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(50_000, 64)) * np.linspace(0.1, 10, 64) + 1e3
+    x[:, 7] = 5.0
+    model = StandardScaler().setWithMean(True).fit(x)
+    x32 = x.astype(np.float32).astype(np.float64)
+    np.testing.assert_allclose(model.mean, x32.mean(axis=0), rtol=1e-6)
+    np.testing.assert_allclose(model.std, x32.std(axis=0, ddof=1),
+                               rtol=1e-4, atol=1e-6)
+    assert model.std[7] == 0.0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_fused_pipeline_bit_equal_staged_on_the_card(cuda_device, dtype):
+    """StandardScaler → PCA → KMeans at 256 features: the fused program
+    (one put, one run, one fetch) equals ``run_staged_pipeline`` bit for
+    bit over ragged batch sizes, with one device→host copy per batch; the
+    PCA fit inside the pipeline launches the Gram kernel once (float32)."""
+    from spark_rapids_ml_tpu_torch import (
+        KMeans,
+        PCA,
+        Pipeline,
+        StandardScaler,
+    )
+    from spark_rapids_ml_tpu_torch.models._serving import run_staged_pipeline
+
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(8192, 256)) * np.linspace(0.5, 2.0, 256) + 1.0
+    fused_gram.reset_launches()
+    model = Pipeline([
+        StandardScaler().setWithMean(True).setOutputCol("s").setDtype(dtype),
+        PCA().setK(32).setInputCol("s").setOutputCol("r").setDtype(dtype),
+        KMeans().setK(16).setInputCol("r").setDtype(dtype),
+    ]).fit(x)
+    assert sum(fused_gram.launches.values()) == (dtype == "float32")
+    prog = model.serving_transform_program()
+    assert prog.device.type == "cuda"
+    for n in (1, 3, 17, 64, 100, 1024):
+        batch = x[:n]
+        fused = prog.fetch(prog.run(prog.put(batch)))
+        assert np.array_equal(fused, run_staged_pipeline(model, batch)), n
+    frame = np.asarray(model.transform(x[:1024]).column("prediction"))
+    fused = prog.fetch(prog.run(prog.put(x[:1024])))
+    assert np.mean(fused != frame) <= (1e-3 if dtype == "float32" else 0.0)

@@ -46,7 +46,8 @@ STANDALONE = ("obs.tracectx", "obs.spans", "obs.slo", "obs.tsdb",
               "obs.serving", "utils.health", "serve.admission",
               "serve.scheduler", "serve.wire", "serve.breaker",
               "serve.tiering", "serve.dashboard", "obs.fitmon",
-              "obs.xprof", "utils.platform")
+              "obs.xprof", "utils.platform", "models.kmeans",
+              "models.scaler", "models.pipeline")
 
 
 def test_importing_every_port_module_leaves_jax_out():
@@ -154,6 +155,90 @@ def test_gram_callers_run_without_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO_DIR,
                           capture_output=True, text=True, timeout=120,
                           env=env)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+# the modules of the KMeans / StandardScaler / Pipeline slice
+KMEANS_SLICE = ("ops.kmeans_kernel", "models.kmeans", "models.scaler",
+                "models.pipeline", "models._serving",
+                "parallel.distributed_kmeans", "io.persistence")
+
+
+def test_kmeans_slice_runs_without_jax(tmp_path):
+    """A KMeans, a StandardScaler and a StandardScaler → PCA → KMeans
+    pipeline that the JAX package saved, loaded by the port (directly and
+    through the registry) and served; the port's own fits, saves and fused
+    program; and ``distributed_kmeans_fit`` in a one-rank gloo world — in a
+    process that never imports jax. The JAX models are saved here, in the
+    test process."""
+    import spark_rapids_ml_tpu as jax_pkg
+
+    mods = {m for _, m in _port_modules()}
+    assert {f"spark_rapids_ml_tpu_torch.{m}" for m in KMEANS_SLICE} <= mods
+    x = np.random.default_rng(0).normal(size=(60, 6))
+    jax_pkg.KMeans().setK(3).fit(x).save(str(tmp_path / "km"))
+    jax_pkg.StandardScaler().setWithMean(True).fit(x).save(
+        str(tmp_path / "sc"))
+    jax_pkg.Pipeline([
+        jax_pkg.StandardScaler().setWithMean(True).setOutputCol("s"),
+        jax_pkg.PCA().setK(3).setInputCol("s").setOutputCol("r"),
+        jax_pkg.KMeans().setK(2).setInputCol("r"),
+    ]).fit(x).save(str(tmp_path / "pipe"))
+    np.save(tmp_path / "x.npy", x)
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "import torch.distributed as dist\n"
+        "from spark_rapids_ml_tpu_torch import (KMeans, KMeansModel, PCA, "
+        "Pipeline, PipelineModel, StandardScaler, StandardScalerModel)\n"
+        "from spark_rapids_ml_tpu_torch.io.persistence import load_model\n"
+        "from spark_rapids_ml_tpu_torch.models._serving import "
+        "run_staged_pipeline\n"
+        "from spark_rapids_ml_tpu_torch.parallel import (data_mesh, "
+        "distributed_kmeans_fit)\n"
+        "from spark_rapids_ml_tpu_torch.serve import (ModelRegistry, "
+        "ServeEngine)\n"
+        "d = sys.argv[1]\n"
+        "x = np.load(d + '/x.npy')\n"
+        "km = KMeansModel.load(d + '/km')\n"
+        "sc = load_model(d + '/sc')\n"
+        "pipe = PipelineModel.load(d + '/pipe')\n"
+        "assert type(sc) is StandardScalerModel\n"
+        "assert [type(s).__name__ for s in pipe.stages] == "
+        "['StandardScalerModel', 'PCAModel', 'KMeansModel']\n"
+        "labels = np.asarray(pipe.transform(x).column('prediction'))\n"
+        "reg = ModelRegistry()\n"
+        "for name in ('km', 'sc', 'pipe'):\n"
+        "    reg.load(name, d + '/' + name)\n"
+        "eng = ServeEngine(reg, max_wait_ms=1)\n"
+        "try:\n"
+        "    served = eng.predict('pipe', x)\n"
+        "    assert served.dtype == np.int32 and served.shape == (60,)\n"
+        "    assert np.array_equal(served, run_staged_pipeline(pipe, x))\n"
+        "    assert eng.predict('km', x).shape == (60,)\n"
+        "finally:\n"
+        "    eng.shutdown()\n"
+        "own = Pipeline([StandardScaler().setOutputCol('s'), "
+        "PCA().setK(2).setInputCol('s').setOutputCol('r'), "
+        "KMeans().setK(2).setInputCol('r')]).fit(x)\n"
+        "own.save(d + '/own')\n"
+        "prog = PipelineModel.load(d + '/own').serving_transform_program()\n"
+        "out = prog.fetch(prog.run(prog.put(x)))\n"
+        "dist.init_process_group('gloo', init_method='file://' + d + "
+        "'/store', rank=0, world_size=1)\n"
+        "res = distributed_kmeans_fit(x, 3, data_mesh(1))\n"
+        "dist.destroy_process_group()\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or "
+        "k.startswith('jax.') or k == 'spark_rapids_ml_tpu' or "
+        "k.startswith('spark_rapids_ml_tpu.'))\n"
+        "print(labels.shape, out.shape, tuple(res.centers.shape), bad)\n"
+        "sys.exit(1 if bad or out.shape != (60,) else 0)\n"
+    )
+    env = dict(os.environ, SPARK_RAPIDS_ML_TORCH_PLATFORM="cpu",
+               OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                          cwd=REPO_DIR, capture_output=True, text=True,
+                          timeout=120, env=env)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from spark_rapids_ml_tpu.obs import devmon as jax_devmon
 from spark_rapids_ml_tpu.obs import fitmon as jax_fitmon
 from spark_rapids_ml_tpu.obs import metrics as jax_metrics
 from spark_rapids_ml_tpu_torch import PCAModel
@@ -84,10 +85,14 @@ def registries(monkeypatch):
     monkeypatch.setattr(metrics, "_default_registry", regs["torch"])
     monkeypatch.setattr(jax_metrics, "_default_registry", regs["jax"])
     fitmon.reset_fitmon()
+    # each package's device monitor binds its counters to the registry
+    # current when it is made: drop both on each side of the swap
     devmon.reset_device_monitor()
+    jax_devmon.reset_device_monitor()
     yield regs
     fitmon.reset_fitmon()
     devmon.reset_device_monitor()
+    jax_devmon.reset_device_monitor()
 
 
 def _watchdog(mod, **kw):

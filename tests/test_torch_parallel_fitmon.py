@@ -22,6 +22,7 @@ import torch
 import torch.distributed as dist
 
 from spark_rapids_ml_tpu.data.batches import BatchSource as JaxBatchSource
+from spark_rapids_ml_tpu.obs import devmon as jax_devmon
 from spark_rapids_ml_tpu.obs import fitmon as jax_fitmon
 from spark_rapids_ml_tpu.obs import metrics as jax_metrics
 from spark_rapids_ml_tpu.parallel.distributed_pca import (
@@ -82,13 +83,17 @@ def monitors(monkeypatch):
                         metrics.MetricsRegistry())
     monkeypatch.setattr(jax_metrics, "_default_registry",
                         jax_metrics.MetricsRegistry())
+    # each package's device monitor binds its counters to the registry
+    # current when it is made: drop both on each side of the swap
     devmon.reset_device_monitor()
+    jax_devmon.reset_device_monitor()
     mons = {"torch": fitmon.FitMonitor(enabled=True),
             "jax": jax_fitmon.FitMonitor(enabled=True)}
     monkeypatch.setattr(fitmon, "_monitor", mons["torch"])
     monkeypatch.setattr(jax_fitmon, "_monitor", mons["jax"])
     yield mons
     devmon.reset_device_monitor()
+    jax_devmon.reset_device_monitor()
 
 
 def _fit(pkg, case, x, mesh):

@@ -1,0 +1,291 @@
+"""The port's persistence and registry repairs, against the JAX package's
+behaviour:
+
+* every ``save_*`` writer is atomic (temporary sibling, rename-aside,
+  rename into place): the crash cases of tests/test_persistence.py, for
+  every family the port saves;
+* ``io.persistence.load_model`` loads any family by the class its metadata
+  records — whichever package wrote it — without importing the recorded
+  module;
+* ``ModelRegistry.load`` and its manifest replay go through it, and
+  ``warmup`` infers the input width of every family (a pipeline's from its
+  first stage), as the JAX registry does.
+"""
+
+import os
+
+import numpy as np
+import pytest
+
+from spark_rapids_ml_tpu_torch import (
+    KMeans,
+    LinearRegression,
+    LinearRegressionModel,
+    PCA,
+    PCAModel,
+    Pipeline,
+    PipelineModel,
+    StandardScaler,
+    TruncatedSVD,
+    TruncatedSVDModel,
+)
+from spark_rapids_ml_tpu_torch.io import persistence
+from spark_rapids_ml_tpu_torch.io.persistence import load_model
+from spark_rapids_ml_tpu_torch.serve import ModelRegistry
+from spark_rapids_ml_tpu_torch.serve.registry import _infer_features
+
+
+@pytest.fixture(autouse=True)
+def _cpu_requested(monkeypatch):
+    monkeypatch.setenv("SPARK_RAPIDS_ML_TORCH_PLATFORM", "cpu")
+
+
+def _xy(seed=0, rows=60, n=5):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(rows, n))
+    return x, x @ np.arange(1.0, n + 1) + 0.5
+
+
+def _fitted(family):
+    x, y = _xy()
+    if family == "pca":
+        return PCA().setK(2).fit(x)
+    if family == "kmeans":
+        return KMeans().setK(3).fit(x)
+    if family == "scaler":
+        return StandardScaler().setWithMean(True).fit(x)
+    if family == "linreg":
+        return LinearRegression().fit(x, labels=y)
+    if family == "svd":
+        return TruncatedSVD().setK(2).fit(x)
+    if family == "pipeline":
+        return Pipeline([
+            StandardScaler().setWithMean(True).setOutputCol("s"),
+            PCA().setK(3).setInputCol("s").setOutputCol("r"),
+            KMeans().setK(2).setInputCol("r"),
+        ]).fit(x)
+    if family == "estimator":
+        return KMeans().setK(4)
+    raise KeyError(family)
+
+
+FAMILIES = ("pca", "kmeans", "scaler", "linreg", "svd", "pipeline",
+            "estimator")
+
+
+def _state(obj):
+    """What a save must carry back, as comparable arrays."""
+    if isinstance(obj, PipelineModel):
+        return [a for s in obj.stages for a in _state(s)]
+    out = []
+    for attr in ("pc", "cluster_centers", "mean", "std", "coefficients",
+                 "components", "singular_values"):
+        value = getattr(obj, attr, None)
+        if value is not None:
+            out.append(np.asarray(value))
+    return out + [np.asarray(sorted(obj.param_map_for_metadata().items()),
+                             dtype=object)] if hasattr(
+        obj, "param_map_for_metadata") else out
+
+
+def _same(a, b):
+    sa, sb = _state(a), _state(b)
+    assert len(sa) == len(sb)
+    for u, v in zip(sa, sb):
+        if u.dtype == object:
+            assert u.tolist() == v.tolist()
+        else:
+            np.testing.assert_array_equal(u, v)
+
+
+def _boom(*args, **kwargs):
+    raise RuntimeError("disk fell over mid-save")
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_atomic_save_crash_leaves_no_half_written_model(tmp_path, family,
+                                                        monkeypatch):
+    model = _fitted(family)
+    path = str(tmp_path / "model")
+    target = "_write_metadata" if family == "estimator" else "_write_data_row"
+    monkeypatch.setattr(persistence, target, _boom)
+    with pytest.raises(RuntimeError, match="mid-save"):
+        model.save(path)
+    assert not os.path.exists(path)
+    assert os.listdir(tmp_path) == []
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_atomic_overwrite_crash_keeps_previous_model(tmp_path, family,
+                                                     monkeypatch):
+    model = _fitted(family)
+    path = str(tmp_path / "model")
+    model.save(path)
+    target = "_write_metadata" if family == "estimator" else "_write_data_row"
+    monkeypatch.setattr(persistence, target, _boom)
+    with pytest.raises(RuntimeError, match="mid-save"):
+        model.save(path, overwrite=True)
+    monkeypatch.undo()
+    assert os.listdir(tmp_path) == ["model"]
+    _same(load_model(path), model)
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_atomic_save_leaves_no_tmp_on_success(tmp_path, family):
+    model = _fitted(family)
+    path = str(tmp_path / "model")
+    model.save(path)
+    model.save(path, overwrite=True)
+    assert sorted(os.listdir(tmp_path)) == ["model"]
+    with pytest.raises(FileExistsError):
+        model.save(path)
+    _same(load_model(path), model)
+
+
+def test_atomic_overwrite_swap_crash_preserves_a_complete_copy(tmp_path,
+                                                               monkeypatch):
+    """A crash INSIDE the swap (after the new payload is complete) leaves a
+    complete model on disk: the rename-aside parks the previous model at a
+    .old sibling before the target flips."""
+    model = _fitted("pca")
+    path = str(tmp_path / "model")
+    model.save(path)
+    real_replace = os.replace
+    calls = {"n": 0}
+
+    def crashy_replace(src, dst):
+        calls["n"] += 1
+        if calls["n"] == 1:          # the rename-aside of the old model
+            real_replace(src, dst)
+            raise RuntimeError("killed between the two renames")
+        return real_replace(src, dst)
+
+    monkeypatch.setattr(persistence.os, "replace", crashy_replace)
+    with pytest.raises(RuntimeError, match="between the two renames"):
+        model.save(path, overwrite=True)
+    monkeypatch.setattr(persistence.os, "replace", real_replace)
+    old_dirs = [p for p in os.listdir(tmp_path) if ".old-" in p]
+    assert len(old_dirs) == 1
+    recovered = PCAModel.load(str(tmp_path / old_dirs[0]))
+    np.testing.assert_array_equal(recovered.pc, model.pc)
+
+
+def test_every_writer_is_wrapped():
+    writers = [name for name in dir(persistence) if name.startswith("save_")]
+    assert {"save_params", "save_pca_model", "save_kmeans_model",
+            "save_scaler_model", "save_linreg_model",
+            "save_svd_model"} <= set(writers)
+    for name in writers:
+        assert hasattr(getattr(persistence, name), "__wrapped_save__"), name
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_load_model_dispatches_on_the_recorded_class(tmp_path, family):
+    model = _fitted(family)
+    path = str(tmp_path / family)
+    model.save(path)
+    loaded = load_model(path)
+    assert type(loaded) is type(model)
+    _same(loaded, model)
+    with pytest.raises(FileNotFoundError):
+        load_model(str(tmp_path / "ghost"))
+
+
+def _jax_fitted(family):
+    import spark_rapids_ml_tpu as jax_pkg
+
+    x, y = _xy()
+    if family == "linreg":
+        return jax_pkg.LinearRegression().fit(x, labels=y)
+    if family == "svd":
+        from spark_rapids_ml_tpu.models.svd import TruncatedSVD as JaxSVD
+
+        return JaxSVD().setK(2).fit(x)
+    if family == "kmeans":
+        return jax_pkg.KMeans().setK(3).fit(x)
+    if family == "scaler":
+        return jax_pkg.StandardScaler().setWithMean(True).fit(x)
+    if family == "pipeline":
+        return jax_pkg.Pipeline([
+            jax_pkg.StandardScaler().setWithMean(True).setOutputCol("s"),
+            jax_pkg.PCA().setK(3).setInputCol("s").setOutputCol("r"),
+            jax_pkg.KMeans().setK(2).setInputCol("r"),
+        ]).fit(x)
+    raise KeyError(family)
+
+
+@pytest.mark.parametrize("family", ["linreg", "svd", "kmeans", "scaler",
+                                    "pipeline"])
+def test_load_model_maps_jax_written_metadata_to_the_port(tmp_path, family):
+    jax_model = _jax_fitted(family)
+    path = str(tmp_path / family)
+    jax_model.save(path)
+    meta = persistence._read_metadata(path)
+    assert meta["pythonClass"].startswith("spark_rapids_ml_tpu.models.")
+    loaded = load_model(path)
+    assert type(loaded).__module__.startswith("spark_rapids_ml_tpu_torch.")
+    assert type(loaded).__name__ == type(jax_model).__name__
+
+
+def test_load_model_refuses_a_class_it_does_not_have(tmp_path):
+    _fitted("pca").save(str(tmp_path / "m"))
+    meta_path = tmp_path / "m" / "metadata" / "part-00000"
+    text = meta_path.read_text().replace(
+        "spark_rapids_ml_tpu_torch.models.pca.PCAModel",
+        "spark_rapids_ml_tpu.models.gmm.GaussianMixtureModel")
+    meta_path.write_text(text)
+    with pytest.raises(ValueError, match="no counterpart"):
+        load_model(str(tmp_path / "m"))
+
+
+# -- the registry ---------------------------------------------------------------
+
+@pytest.mark.parametrize("writer", ["port", "jax"])
+@pytest.mark.parametrize("family", ["linreg", "svd"])
+def test_registry_loads_linreg_and_svd_saved_by_either_package(
+        tmp_path, writer, family):
+    model = _fitted(family) if writer == "port" else _jax_fitted(family)
+    path = str(tmp_path / family)
+    model.save(path)
+    manifest = str(tmp_path / "manifest.json")
+    registry = ModelRegistry(manifest_path=manifest)
+    version = registry.load(family, path)
+    loaded = registry.resolve(family, version)
+    want = {"linreg": LinearRegressionModel,
+            "svd": TruncatedSVDModel}[family]
+    assert type(loaded) is want
+    x, _ = _xy(seed=1)
+    got = np.asarray(loaded.transform(x).column(
+        "prediction" if family == "linreg" else loaded.getOutputCol()))
+    assert got.shape[0] == x.shape[0] and np.isfinite(got).all()
+    # the manifest replay goes through the same dispatch
+    replayed = ModelRegistry(manifest_path=manifest)
+    assert replayed.recovery_report_["recovered"] == [f"{family}@{version}"]
+    assert type(replayed.resolve(family)) is want
+
+
+def test_linear_regression_warms_without_n_features():
+    registry = ModelRegistry()
+    registry.register("lr", _fitted("linreg"))
+    report = registry.warmup("lr", buckets=(8, 16))
+    assert sorted(report["buckets"]) == [8, 16]
+
+
+@pytest.mark.parametrize("family,width", [
+    ("pca", 5), ("kmeans", 5), ("scaler", 5), ("linreg", 5),
+    ("pipeline", 5)])
+def test_feature_inference_covers_every_family(family, width):
+    assert _infer_features(_fitted(family)) == width
+
+
+def test_feature_inference_walks_a_pipeline_from_its_first_stage():
+    model = _fitted("pipeline")
+    assert _infer_features(model) == 5
+    # a stateless head is looked past (width-preserving) ...
+    Normalizer = type("Normalizer", (), {"transform": lambda self, d: d})
+    assert _infer_features(PipelineModel(
+        stages=[Normalizer(), *model.stages])) == 5
+    # ... an unknown stateful one is not
+    Opaque = type("Opaque", (), {"transform": lambda self, d: d})
+    assert _infer_features(PipelineModel(
+        stages=[Opaque(), *model.stages])) is None

@@ -1,0 +1,517 @@
+"""Pipeline / PipelineModel and the fused serving program in the port,
+against the JAX package's.
+
+* The JAX package's test_pipeline.py behaviours through the port.
+* The fused program (one put, one run chaining every stage on the serving
+  stream, one fetch) bit-equal to ``run_staged_pipeline`` (each stage its
+  own put → run → fetch) at float32 and float64 over ragged batch sizes;
+  the labels of a StandardScaler → PCA → KMeans chain equal to the frame
+  loop (``PipelineModel.transform``) at float64, and to the JAX package's
+  fused program on the same fitted model (carried across by save → load).
+* Reduced precision through the stage hooks: bf16 within 0.02 and int8
+  within 0.05 (max |Δ| / max |ref|) of native on a PCA-terminal chain.
+* The four ways a chain declines to fuse, save / load in both directions,
+  and the engine serving the fused pipeline end to end, its kill switch
+  (pipeline depth 1 serves the same rows) and feature inference.
+
+The JAX suite runs with x64, so its 'auto' dtype is float64; the port's is
+float32: every comparison names its dtype.
+"""
+
+import concurrent.futures
+
+import numpy as np
+import pytest
+import torch
+
+import spark_rapids_ml_tpu as jax_pkg
+from spark_rapids_ml_tpu.models._serving import (
+    run_staged_pipeline as jax_run_staged,
+)
+from spark_rapids_ml_tpu_torch import (
+    KMeans,
+    LinearRegression,
+    PCA,
+    PCAModel,
+    Pipeline,
+    PipelineModel,
+    StandardScaler,
+)
+from spark_rapids_ml_tpu_torch.data.frame import VectorFrame
+from spark_rapids_ml_tpu_torch.data.vector import Vectors
+from spark_rapids_ml_tpu_torch.models._serving import run_staged_pipeline
+from spark_rapids_ml_tpu_torch.obs.metrics import get_registry
+from spark_rapids_ml_tpu_torch.serve import ModelRegistry, ServeEngine
+from spark_rapids_ml_tpu_torch.serve.registry import _infer_features
+
+RAGGED_SIZES = (1, 3, 17, 64, 100)
+
+
+@pytest.fixture(autouse=True)
+def _cpu_requested(monkeypatch):
+    monkeypatch.setenv("SPARK_RAPIDS_ML_TORCH_PLATFORM", "cpu")
+
+
+def _x(seed=42, n=512, d=16):
+    return np.random.default_rng(seed).normal(size=(n, d)) \
+        * np.linspace(0.5, 3.0, d) + 1.0
+
+
+def _fit_chain(dtype="float32", terminal="kmeans", x=None):
+    x = _x() if x is None else x
+    stages = [
+        StandardScaler().setWithMean(True).setOutputCol("scaled")
+        .setDtype(dtype),
+        PCA().setK(6).setInputCol("scaled").setOutputCol("reduced")
+        .setDtype(dtype),
+    ]
+    if terminal == "kmeans":
+        stages.append(KMeans().setK(4).setInputCol("reduced").setSeed(3)
+                      .setDtype(dtype))
+    return Pipeline(stages=stages).fit(x), x
+
+
+def make_frame(rng, n=80, d=10):
+    x = rng.normal(size=(n, d))
+    w = rng.normal(size=d)
+    y = x @ w + 0.1 * rng.normal(size=n)
+    return VectorFrame({"features": x, "label": list(y)}), x, y
+
+
+# -- the JAX package's test_pipeline.py ---------------------------------------
+
+def test_fit_chains_estimators():
+    frame, x, y = make_frame(np.random.default_rng(42))
+    pca = PCA().setK(6).setOutputCol("pca_features")
+    lr = LinearRegression().setInputCol("pca_features").setLabelCol("label") \
+        .setRegParam(0.01)
+    model = Pipeline(stages=[pca, lr]).fit(frame)
+    assert isinstance(model, PipelineModel)
+    assert len(model.stages) == 2 and isinstance(model.stages[0], PCAModel)
+    pred = np.asarray(model.transform(frame).column("prediction"))
+    assert pred.shape == (len(frame),)
+    resid = pred - y
+    assert float((resid ** 2).mean()) < float((y ** 2).mean())
+
+
+def test_transformer_stage_passthrough():
+    frame, x, _ = make_frame(np.random.default_rng(42))
+    pca_model = PCA().setK(4).setOutputCol("p4").fit(frame)
+    lr = LinearRegression().setInputCol("p4").setLabelCol("label")
+    model = Pipeline(stages=[pca_model, lr]).fit(frame)
+    assert model.stages[0] is pca_model
+    assert "prediction" in model.transform(frame).columns
+
+
+def test_empty_pipeline_is_identity():
+    frame, _, _ = make_frame(np.random.default_rng(42))
+    assert Pipeline(stages=[]).fit(frame).transform(frame) is frame
+
+
+def test_only_estimators_before_the_last_transform_the_running_data():
+    calls = []
+
+    class Tracker:
+        def __init__(self, name):
+            self.name = name
+
+        def transform(self, dataset):
+            calls.append(self.name)
+            return dataset
+
+    x = _x()
+    model = Pipeline([Tracker("head"), KMeans().setK(2),
+                      Tracker("tail")]).fit(x)
+    assert calls == ["head"]
+    assert [type(s).__name__ for s in model.stages] == \
+        ["Tracker", "KMeansModel", "Tracker"]
+
+
+def test_pipeline_model_persistence_roundtrip(tmp_path):
+    frame, _, _ = make_frame(np.random.default_rng(42))
+    pca = PCA().setK(5).setOutputCol("pca_features")
+    lr = LinearRegression().setInputCol("pca_features").setLabelCol("label") \
+        .setRegParam(0.02)
+    model = Pipeline(stages=[pca, lr]).fit(frame)
+    path = str(tmp_path / "pipe_model")
+    model.save(path)
+    loaded = PipelineModel.load(path)
+    assert loaded.uid == model.uid
+    assert [type(s).__name__ for s in loaded.stages] == [
+        "PCAModel", "LinearRegressionModel"]
+    np.testing.assert_array_equal(loaded.stages[0].pc, model.stages[0].pc)
+    np.testing.assert_allclose(
+        np.asarray(loaded.transform(frame).column("prediction")),
+        np.asarray(model.transform(frame).column("prediction")), atol=1e-12)
+
+
+def test_unfitted_pipeline_persistence_roundtrip(tmp_path):
+    pipe = Pipeline(stages=[PCA().setK(3), LinearRegression().setRegParam(0.5)])
+    path = str(tmp_path / "pipe")
+    pipe.save(path)
+    loaded = Pipeline.load(path)
+    assert loaded.uid == pipe.uid
+    stages = loaded.getStages()
+    assert [type(s).__name__ for s in stages] == ["PCA", "LinearRegression"]
+    assert stages[0].getK() == 3
+    assert stages[1].getRegParam() == 0.5
+
+
+def test_load_wrong_kind_raises(tmp_path):
+    path = str(tmp_path / "pipe")
+    Pipeline(stages=[PCA().setK(2)]).save(path)
+    with pytest.raises(ValueError, match="expected a PipelineModel"):
+        PipelineModel.load(path)
+
+
+def test_vector_rows_through_pipeline():
+    rows = [
+        Vectors.dense(1.0, 0.0, 3.0),
+        Vectors.sparse(3, [1], [2.0]),
+        Vectors.dense(0.5, 1.5, -1.0),
+        Vectors.sparse(3, [0, 2], [1.0, 1.0]),
+    ] * 5
+    frame = VectorFrame({"features": rows})
+    model = Pipeline(stages=[PCA().setK(2).setOutputCol("out")]).fit(frame)
+    assert np.asarray(model.transform(frame).column("out")).shape == (20, 2)
+
+
+def test_fitted_chain_matches_the_jax_fit_at_float64():
+    x = _x()
+    model, _ = _fit_chain("float64", terminal="pca", x=x)
+    jax_model = jax_pkg.Pipeline(stages=[
+        jax_pkg.StandardScaler().setWithMean(True).setOutputCol("scaled"),
+        jax_pkg.PCA().setK(6).setInputCol("scaled").setOutputCol("reduced"),
+    ]).fit(x)
+    got = np.asarray(model.transform(x).column("reduced"))
+    want = np.asarray(jax_model.transform(x).column("reduced"))
+    np.testing.assert_allclose(np.abs(got), np.abs(want), rtol=0,
+                               atol=1e-9 * np.abs(want).max())
+
+
+# -- fused vs staged ----------------------------------------------------------
+
+@pytest.mark.parametrize("terminal", ["kmeans", "pca"])
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_fused_bit_equal_staged_loop_ragged(dtype, terminal):
+    model, x = _fit_chain(dtype, terminal)
+    prog = model.serving_transform_program()
+    assert prog is not None and prog.algo == "pipeline"
+    want = np.int32 if terminal == "kmeans" else np.float64
+    for n in RAGGED_SIZES:
+        batch = x[:n]
+        fused = prog.fetch(prog.run(prog.put(batch)))
+        staged = run_staged_pipeline(model, batch)
+        assert fused.dtype == staged.dtype == np.dtype(want)
+        assert np.array_equal(fused, staged), f"batch size {n}"
+
+
+def test_staged_reference_runs_no_counted_program():
+    model, x = _fit_chain("float64")
+    runs = get_registry().counter(
+        "sparkml_serve_program_runs_total", "", ("algo", "precision",
+                                                 "device"))
+    before = {a: runs.value(algo=a, precision="native", device="cpu")
+              for a in ("pipeline", "kmeans", "pca", "standard_scaler")}
+    run_staged_pipeline(model, x[:10])
+    prog = model.serving_transform_program()
+    prog.fetch(prog.run(prog.put(x[:10])))
+    after = {a: runs.value(algo=a, precision="native", device="cpu")
+             for a in before}
+    assert {a: after[a] - before[a] for a in before} == {
+        "pipeline": 1, "kmeans": 0, "pca": 0, "standard_scaler": 0}
+
+
+def test_fused_labels_equal_the_frame_loop_at_float64():
+    model, x = _fit_chain("float64")
+    prog = model.serving_transform_program()
+    batch = x[:100]
+    fused = prog.fetch(prog.run(prog.put(batch)))
+    labels = np.asarray(
+        model.transform(batch).column(model.getPredictionCol()))
+    np.testing.assert_array_equal(fused, labels)
+
+
+def _jax_twin(model, tmp_path):
+    """The JAX package's PipelineModel of the same fitted stages: each stage
+    saved by the port and read by the JAX class's own loader (the JAX
+    ``PipelineModel.load`` would import the class the metadata records,
+    which for a port-saved stage is the port's)."""
+    loaders = {"StandardScalerModel": jax_pkg.StandardScalerModel,
+               "PCAModel": jax_pkg.PCAModel,
+               "KMeansModel": jax_pkg.KMeansModel}
+    stages = []
+    for i, stage in enumerate(model.stages):
+        path = str(tmp_path / f"stage{i}")
+        stage.save(path)
+        stages.append(loaders[type(stage).__name__].load(path))
+    return jax_pkg.PipelineModel(stages=stages)
+
+
+def test_fused_labels_equal_the_jax_fused_program(tmp_path):
+    model, x = _fit_chain("float64")
+    jax_model = _jax_twin(model, tmp_path)
+    prog = model.serving_transform_program()
+    jax_prog = jax_model.serving_transform_program()
+    for n in RAGGED_SIZES:
+        batch = x[:n]
+        got = prog.fetch(prog.run(prog.put(batch)))
+        want = jax_prog.fetch(jax_prog.run(jax_prog.put(batch)))
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(jax_run_staged(jax_model, batch), got)
+
+
+def test_float32_fused_labels_near_the_frame_loop():
+    """The frame loop scales in host float64, the fused program in float32
+    on the device: only near-tie rows may flip."""
+    model, x = _fit_chain("float32")
+    prog = model.serving_transform_program()
+    fused = prog.fetch(prog.run(prog.put(x)))
+    labels = np.asarray(model.transform(x).column("prediction"))
+    assert np.mean(fused != labels) <= 1e-3
+
+
+@pytest.mark.parametrize("precision,bar", [("bf16", 0.02), ("int8", 0.05)])
+def test_reduced_precision_composes_through_fusion(precision, bar):
+    model, x = _fit_chain("float64", terminal="pca")
+    native = model.serving_transform_program()
+    reduced = model.serving_transform_program(precision=precision)
+    assert reduced is not None and reduced.precision == precision
+    batch = x[:64]
+    ref = native.fetch(native.run(native.put(batch)))
+    red = reduced.fetch(reduced.run(reduced.put(batch.copy())))
+    assert ref.shape == red.shape
+    scale = float(np.max(np.abs(ref))) or 1.0
+    assert float(np.max(np.abs(ref - red))) / scale < bar
+    np.testing.assert_array_equal(
+        red, run_staged_pipeline(model, batch, precision=precision))
+
+
+@pytest.mark.parametrize("precision", ["bf16", "int8"])
+def test_reduced_precision_labels_on_blobs(precision):
+    rng = np.random.default_rng(5)
+    centers = rng.normal(size=(4, 16)) * 8.0
+    x = centers[rng.integers(0, 4, 400)] + rng.normal(size=(400, 16))
+    model, _ = _fit_chain("float32", x=x)
+    native = model.serving_transform_program()
+    reduced = model.serving_transform_program(precision)
+    ref = native.fetch(native.run(native.put(x)))
+    red = reduced.fetch(reduced.run(reduced.put(x)))
+    assert red.dtype == np.int32
+    assert np.mean(ref != red) <= 0.01
+
+
+# -- declining ----------------------------------------------------------------
+
+def test_unwired_pipeline_declines_fusion():
+    x = _x()
+    model = Pipeline(stages=[
+        StandardScaler().setWithMean(True).setOutputCol("scaled"),
+        PCA().setK(4),  # reads "features": NOT the scaler output
+    ]).fit(x)
+    assert model.serving_transform_program() is None
+    assert model.serving_stages() is None
+
+
+def test_terminal_stage_mid_chain_declines():
+    x = _x()
+    km = KMeans().setK(2).fit(x)
+    scaler = StandardScaler().fit(x)
+    model = PipelineModel(stages=[km, scaler])
+    assert model.serving_transform_program() is None
+    with pytest.raises(ValueError, match="fusable"):
+        run_staged_pipeline(model, x[:4])
+
+
+def test_host_path_stage_declines():
+    x = _x()
+    pca = PCA().setK(4).setInputCol("scaled").setOutputCol("r") \
+        .setUseXlaDot(False).fit(VectorFrame({"scaled": x}))
+    scaler = StandardScaler().setWithMean(True).setOutputCol("scaled").fit(x)
+    assert PipelineModel(stages=[scaler, pca]).serving_transform_program() \
+        is None
+
+
+def test_empty_and_unfusable_stage_pipelines_decline():
+    assert PipelineModel(stages=[]).serving_transform_program() is None
+
+    class Opaque:
+        def transform(self, dataset):
+            return dataset
+
+    assert PipelineModel(stages=[Opaque()]).serving_transform_program() \
+        is None
+
+
+# -- persistence in both directions -------------------------------------------
+
+def test_port_pipeline_stages_load_in_jax(tmp_path):
+    model, x = _fit_chain("float64")
+    path = str(tmp_path / "p")
+    model.save(path)
+    jax_model = _jax_twin(model, tmp_path)
+    assert [type(s).__module__ for s in jax_model.stages] == [
+        "spark_rapids_ml_tpu.models.scaler",
+        "spark_rapids_ml_tpu.models.pca",
+        "spark_rapids_ml_tpu.models.kmeans"]
+    np.testing.assert_array_equal(
+        np.asarray(jax_model.transform(x).column("prediction")),
+        np.asarray(model.transform(x).column("prediction")))
+
+
+def test_jax_pipeline_loads_in_the_port(tmp_path):
+    x = _x()
+    jax_model = jax_pkg.Pipeline(stages=[
+        jax_pkg.StandardScaler().setWithMean(True).setOutputCol("scaled"),
+        jax_pkg.PCA().setK(6).setInputCol("scaled").setOutputCol("reduced"),
+        jax_pkg.KMeans().setK(4).setInputCol("reduced").setSeed(3),
+    ]).fit(x)
+    path = str(tmp_path / "jax")
+    jax_model.save(path)
+    back = PipelineModel.load(path)
+    assert back.uid == jax_model.uid
+    assert [type(s).__module__ for s in back.stages] == [
+        "spark_rapids_ml_tpu_torch.models.scaler",
+        "spark_rapids_ml_tpu_torch.models.pca",
+        "spark_rapids_ml_tpu_torch.models.kmeans"]
+    np.testing.assert_array_equal(back.stages[1].pc, jax_model.stages[1].pc)
+    f64 = PipelineModel(stages=[s.copy({"dtype": "float64"})
+                                for s in back.stages])
+    np.testing.assert_array_equal(
+        np.asarray(f64.transform(x).column("prediction")),
+        np.asarray(jax_model.transform(x).column("prediction")))
+    prog = f64.serving_transform_program()
+    np.testing.assert_array_equal(
+        prog.fetch(prog.run(prog.put(x[:50]))),
+        np.asarray(jax_model.transform(x[:50]).column("prediction")))
+
+
+def test_jax_unfitted_pipeline_loads_in_the_port(tmp_path):
+    path = str(tmp_path / "pipe")
+    jax_pkg.Pipeline(stages=[jax_pkg.StandardScaler().setWithMean(True),
+                             jax_pkg.KMeans().setK(5)]).save(path)
+    loaded = Pipeline.load(path)
+    stages = loaded.getStages()
+    assert [type(s) for s in stages] == [StandardScaler, KMeans]
+    assert stages[0].getWithMean() is True and stages[1].getK() == 5
+
+
+# -- the engine ---------------------------------------------------------------
+
+def test_engine_serves_fused_pipeline_e2e():
+    model, x = _fit_chain("float64")
+    registry = ModelRegistry()
+    registry.register("fused_pipe", model)
+    engine = ServeEngine(registry, max_batch_rows=128, max_wait_ms=1.0,
+                         buckets=(32, 128))
+    try:
+        report = engine.warmup("fused_pipe")
+        assert sorted(report["pipeline"]["buckets"]) == [32, 128]
+        spec = engine._async_specs[("fused_pipe", 1)]
+        assert spec is not None and spec.algo == "pipeline"
+        prog = spec.program
+        direct = prog.fetch(prog.run(prog.put(x[:32])))
+        assert np.array_equal(engine.predict("fused_pipe", x[:32]), direct)
+        sizes = [1, 7, 32, 64, 100, 13, 2, 90]
+        expected = {n: run_staged_pipeline(model, x[:n]) for n in set(sizes)}
+
+        def one(n):
+            return n, engine.predict("fused_pipe", x[:n])
+
+        with concurrent.futures.ThreadPoolExecutor(6) as pool:
+            for n, out in pool.map(one, sizes * 4):
+                assert out.dtype == np.int32
+                np.testing.assert_array_equal(out, expected[n],
+                                              err_msg=f"size {n}")
+    finally:
+        engine.shutdown()
+
+
+def test_engine_staged_kill_switch_serves_same_rows():
+    model, x = _fit_chain("float64")
+    registry = ModelRegistry()
+    registry.register("staged_pipe", model)
+    engine = ServeEngine(registry, max_batch_rows=128, max_wait_ms=1.0,
+                         pipeline_depth=1)
+    try:
+        out = engine.predict("staged_pipe", x[:20])
+        assert engine._async_specs[("staged_pipe", 1)] is None
+        np.testing.assert_array_equal(out,
+                                      run_staged_pipeline(model, x[:20]))
+    finally:
+        engine.shutdown()
+
+
+def test_engine_serves_pipeline_kmeans_and_pca_under_their_algos():
+    model, x = _fit_chain("float64")
+    km = KMeans().setK(3).setDtype("float64").fit(x)
+    pca = PCA().setK(4).setDtype("float64").fit(x)
+    registry = ModelRegistry()
+    for name, m in (("pipe", model), ("km", km), ("pca", pca)):
+        registry.register(name, m)
+    engine = ServeEngine(registry, max_batch_rows=64, max_wait_ms=1.0)
+    runs = get_registry().counter(
+        "sparkml_serve_program_runs_total", "", ("algo", "precision",
+                                                 "device"))
+    before = {a: runs.value(algo=a, precision="native", device="cpu")
+              for a in ("pipeline", "kmeans", "pca")}
+    try:
+        labels = engine.predict("km", x[:9])
+        assert labels.dtype == np.int32
+        np.testing.assert_array_equal(
+            labels, np.asarray(km.transform(x[:9]).column("prediction")))
+        np.testing.assert_allclose(engine.predict("pca", x[:9]),
+                                   x[:9] @ pca.pc, rtol=1e-12)
+        engine.predict("pipe", x[:9])
+    finally:
+        engine.shutdown()
+    for algo in before:
+        assert runs.value(algo=algo, precision="native", device="cpu") > \
+            before[algo], algo
+
+
+def test_engine_precision_guard_runs_for_pipelines():
+    model, x = _fit_chain("float64", terminal="pca")
+    labelled, _ = _fit_chain("float64")
+    registry = ModelRegistry()
+    registry.register("prec_pipe", model)
+    registry.register("label_pipe", labelled)
+    engine = ServeEngine(registry, max_batch_rows=64, max_wait_ms=1.0,
+                         precision="bf16")
+    try:
+        out = engine.predict("prec_pipe", x[:16])
+        spec = engine._async_specs[("prec_pipe", 1)]
+        assert spec is not None and spec.precision == "bf16"
+        staged = run_staged_pipeline(model, x[:16])
+        scale = float(np.max(np.abs(staged))) or 1.0
+        assert float(np.max(np.abs(out - staged))) / scale < 0.05
+        engine.predict("label_pipe", x[:16])
+        check = engine.precision_checks[("label_pipe", 1, "bf16")]
+        # labels are checked by their mismatch fraction
+        assert check["verdict"] in ("pass", "fail")
+        assert 0.0 <= check["error"] <= 1.0
+        served = engine._async_specs[("label_pipe", 1)].precision
+        assert served == ("bf16" if check["verdict"] == "pass" else "native")
+    finally:
+        engine.shutdown()
+
+
+def test_registry_infers_pipeline_features(tmp_path):
+    model, _ = _fit_chain()
+    assert _infer_features(model) == 16
+    path = str(tmp_path / "p")
+    model.save(path)
+    registry = ModelRegistry()
+    registry.load("p", path)
+    report = registry.warmup("p", buckets=(4,))
+    assert list(report["buckets"]) == [4]
+
+
+def test_stage_weights_share_one_device_and_dtype():
+    model, _ = _fit_chain("float64")
+    device, dtype, specs = model.serving_stages()
+    assert dtype == torch.float64 and device == torch.device("cpu")
+    assert [s.algo for s in specs] == ["standard_scaler", "pca", "kmeans"]
+    prog = model.serving_transform_program()
+    assert prog.weight_bytes == sum(
+        w.nbytes for s in specs for w in s.weights)

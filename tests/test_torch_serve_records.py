@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 
 from spark_rapids_ml_tpu import PCA as JaxPCA
+from spark_rapids_ml_tpu.obs import devmon as jax_devmon
 from spark_rapids_ml_tpu.obs import metrics as jax_metrics
 from spark_rapids_ml_tpu.obs import serving as jax_serving
 from spark_rapids_ml_tpu.obs import spans as jax_spans
@@ -36,7 +37,13 @@ from spark_rapids_ml_tpu.serve import ServeEngine as JaxEngine
 from spark_rapids_ml_tpu.serve import fault_plane as jax_fault_plane
 from spark_rapids_ml_tpu.serve import reset_fault_plane as jax_reset_faults
 from spark_rapids_ml_tpu_torch import PCAModel
-from spark_rapids_ml_tpu_torch.obs import metrics, serving, spans, tracectx
+from spark_rapids_ml_tpu_torch.obs import (
+    devmon,
+    metrics,
+    serving,
+    spans,
+    tracectx,
+)
 from spark_rapids_ml_tpu_torch.serve import (
     ModelRegistry,
     ServeEngine,
@@ -63,11 +70,18 @@ def _isolated(monkeypatch):
                         metrics.MetricsRegistry())
     monkeypatch.setattr(jax_metrics, "_default_registry",
                         jax_metrics.MetricsRegistry())
+    # each package's device monitor binds its counters to the registry
+    # current when it is made: drop it on both sides of the swap, so no
+    # later test reads a registry this one's monitor never writes
     reset_fault_plane()
     jax_reset_faults()
+    devmon.reset_device_monitor()
+    jax_devmon.reset_device_monitor()
     yield
     reset_fault_plane()
     jax_reset_faults()
+    devmon.reset_device_monitor()
+    jax_devmon.reset_device_monitor()
 
 
 @pytest.fixture
