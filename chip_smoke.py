@@ -347,10 +347,47 @@ Phases (any failure raises and the script exits non-zero):
     int8 ladders through the engine's offline check: error (the label
     mismatch fraction), verdict and the ladder served; a refused ladder
     must serve native.
+16. LogisticRegression and the classifier chain, each fit with the launch
+    counts set to 0 just before it and read just after. (i) Phase 14
+    (iii)'s design (65,536 × 4096 N(0, 1) rows), labels Bernoulli(σ(x·w* +
+    0.5)) with w* ~ N(0, 4/4096) from a seed: one-shot, weighted (w ~
+    U(0.5, 2)), ``fitIntercept=False``, each one highest launch per
+    Newton iteration, against the same Newton in float64 on the card
+    (``logreg_fit_kernel`` on float64 tensors), ≤ 1e-4 relative; the first
+    iteration's Hessian on its own √s rows against its plain version and
+    timed beside ``torch.matmul`` (f32, TF32 off) and the bound; elastic
+    net (0.01 / 0.5, two prox-Newton steps: their FISTA on the 4097² system
+    runs on the host) against the same fit at float64, ≤ 1e-3; streamed
+    from 4 chunks of 65,536 (32 buckets of 8192 a pass, 6 passes), ≤ 1e-4
+    against float64 Newton on the 262,144 rows; ``distributed_logreg_fit``
+    on a fresh one-rank NCCL world, ≤ 1e-6 against the one-shot fit, its
+    fit-monitor step ``newton`` and its all-reduce record. (ii)
+    Multinomial, K = 4 (argmax of planted logits + Gumbel noise), maxIter
+    25: at 4096 features (K(K+1)/2 = 10 launches an iteration), against
+    the same fit with the Gram's plain version (≤ 1e-4 on [W | b] less its
+    class mean) and at float64 (class mismatch ≤ 1e-3, probabilities
+    ≤ 2e-3); streamed at 256 features (the first 256 columns, new labels;
+    the host float64 solve stays small) against an in-memory float64 fit.
+    (iii) ``Pipeline([StandardScaler(withMean), PCA(k=256),
+    LogisticRegression()])`` on fit (c)'s rows with binary labels planted
+    on the scaled rows: one bfloat16_3x and one highest launch per Newton
+    iteration; saved, loaded through ``ModelRegistry.load`` and served
+    over HTTP (phase 5's 256 binary requests from 8 clients): every
+    response bit-equal to ``run_staged_pipeline``, within 1e-5 of
+    ``PipelineModel.transform`` (1e-12 with every stage at float64), one
+    device→host copy per batch in a ``torch.profiler`` capture (a capture
+    with fewer copies than batches lost a record and is taken again, up
+    to 3 times; one with more fails); (iv) the
+    one-shot model of (i) served alone to the same traffic, within 1e-5
+    relative of float64 σ(Xw + b) on the host; (v) the chain's bf16 and
+    int8 ladders through the offline check. Prints each fit's n_iter and
+    whether it converged, wall and ``fit_timings_``, requests/s and client
+    p50 / p99 beside the card's name and power limit.
 
 Then one JSON line ``{"kernels": [...]}`` (each kernel with its launches
 per phase and, under ``extra_shapes``, phase 3's timings of phase 14's
-shapes), the card's name and power limit, and last ``{"ok": true,
+shapes and phase 16's Hessians), the card's name and power limit, and
+last ``{"ok": true,
 "device": {...}}``.
 """
 
@@ -3853,8 +3890,8 @@ def linreg_error(coef, intercept, want) -> float:
 
 def counted_run(torch, fg, label, fn, expected):
     """``fn()`` with the launch counts set to 0 just before and read just
-    after; fails unless exactly ``expected`` ({kernel: launches}) ran.
-    Returns (result, counts)."""
+    after; fails unless exactly ``expected`` ({kernel: launches}, or a
+    function of the result giving it) ran. Returns (result, counts)."""
     torch.cuda.synchronize()
     fg.reset_launches()
     t0 = time.perf_counter()
@@ -3862,6 +3899,8 @@ def counted_run(torch, fg, label, fn, expected):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = {k: v for k, v in fg.launches.items() if v}
+    if callable(expected):
+        expected = expected(result)
     log(f"  {label}: {seconds:.2f} s (host clock), launches {counts}")
     check(counts == expected, f"{label}: launches {counts}, expected "
           f"{expected}")
@@ -4465,6 +4504,545 @@ def phase_kmeans(torch, fg, device, model_c):
     return pipe_launches
 
 
+# -- phase 16: LogisticRegression and the classifier chain ---------------------
+
+LR_SCALE = 2.0             # sd of the planted logits: w* ~ N(0, LR_SCALE²/n)
+LR_INTERCEPT = 0.5
+LR_CHUNKS = 4              # the streamed fits: 4 chunks of CHUNK_ROWS
+LR_STREAM_ITER = 6         # Newton passes of the streamed binary fit
+LR_ENET = (0.01, 0.5)      # (regParam, elasticNetParam)
+LR_ENET_ITER = 2           # prox-Newton steps, each one FISTA on 4097² on the host
+LR_K = 4                   # classes of the multinomial fits
+LR_MN_ITER = 25
+LR_MN_STREAM_FEATURES = 256
+# bars, set in PERF.md §2 before the first run
+LOGREG_RTOL = 1e-4         # one-shot, weighted, no intercept, streamed
+LOGREG_ENET_RTOL = 1e-3
+LOGREG_DIST_RTOL = 1e-6    # one NCCL rank, against the one-shot fit
+MN_PLAIN_RTOL = 1e-4       # against the plain-Gram fit, modulo the gauge
+MN_MISMATCH = 1e-3         # against the float64 fit: classes ...
+MN_PROBA_ATOL = 2e-3       # ... and probabilities
+CHAIN_F32_ATOL = 1e-5      # served probabilities vs the frame loop
+CHAIN_F64_ATOL = 1e-12     # every stage at float64
+LR_SERVED_RTOL = 1e-5      # the binary model served alone
+PROFILE_ATTEMPTS = 3       # captures of the copies per batch (see phase_logreg)
+
+
+def logreg_design(torch, device, index):
+    """Phase 14 (iii)'s Gaussian design, X ~ N(0, 1), CHUNK_ROWS ×
+    N_FEATURES: the same draws as ``linreg_chunk``'s, on the card."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 1401 + index)
+    return torch.randn(CHUNK_ROWS, N_FEATURES, generator=gen, device=device)
+
+
+def planted_logits(torch, x, w, b):
+    """x·wᵀ + b in float64 on the card, on the host."""
+    wt = torch.as_tensor(np.asarray(w).T, device=x.device)
+    return (x.double() @ wt).cpu().numpy() + b
+
+
+def binary_labels(torch, x, w, rng):
+    """y ~ Bernoulli(σ(x·w* + LR_INTERCEPT)) as float32 (so a streamed
+    Z = [X | y] stays float32)."""
+    p = 1.0 / (1.0 + np.exp(-planted_logits(torch, x, w, LR_INTERCEPT)))
+    return (rng.random(p.shape[0]) < p).astype(np.float32)
+
+
+def class_labels(torch, x, w, b, rng):
+    """argmax(x·W*ᵀ + b* + Gumbel noise) as float32."""
+    z = planted_logits(torch, x, w, b)
+    return np.argmax(z + rng.gumbel(size=z.shape), axis=1).astype(np.float32)
+
+
+def newton64(torch, x, y, weights=None, reg=0.0, fit_intercept=True):
+    """The oracle: the port's Newton (``logreg_fit_kernel``) on float64
+    tensors on the card, which never reaches the kernel. Returns
+    ((coefficients, intercept), n_iter)."""
+    from spark_rapids_ml_tpu_torch.ops.logreg_kernel import logreg_fit_kernel
+
+    dev = x.device
+    result = logreg_fit_kernel(
+        x.double(), torch.as_tensor(y, device=dev).double(),
+        None if weights is None else torch.as_tensor(weights, device=dev),
+        reg_param=reg, fit_intercept=fit_intercept)
+    return ((result.coefficients.cpu().numpy(), float(result.intercept)),
+            int(result.n_iter))
+
+
+def gauge_free(model) -> np.ndarray:
+    """A multinomial model's [W | b] less its mean over the classes: the
+    softmax is invariant to that shift, which only the gauge ridge pins."""
+    wb = np.column_stack([model.coefficient_matrix, model.intercept_vector])
+    return wb - wb.mean(axis=0, keepdims=True)
+
+
+def fit_line(model, seconds) -> str:
+    stopped = ("converged" if model.n_iter_ < model.getMaxIter()
+               else "ran to maxIter")
+    return (f"{seconds:.3f} s, n_iter {model.n_iter_} ({stopped}), "
+            f"fit_timings_ {({k: round(t, 4) for k, t in model.fit_timings_.items()})}")
+
+
+def hessian_shape(torch, fg, label, x, rowmul):
+    """The first Newton iteration's Hessian (w = 0, so s = valid/4) on its
+    own √s rows: the kernel within its bar of the plain version, timed
+    beside ``torch.matmul`` on the same scaled rows (f32, TF32 off) and
+    the bound, as phase 3 times its shapes."""
+    name, operand, passes = PRECISIONS["highest"]
+    rows, n = x.shape
+    mean = torch.zeros(n, device=x.device)
+    got = fg.fused_centered_gram(x, mean, rowmul, "highest")
+    want = fg.fused_centered_gram_reference(x, mean, rowmul, "highest")
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    check(err <= fg.PLAIN_RTOL[name] * scale,
+          f"{label} Hessian kernel vs plain {err / scale:.3e}")
+    xs = x * rowmul[:, None]
+    ms = time_ms(torch, lambda: fg.fused_centered_gram(
+        x, mean, rowmul, "highest"), iters=10)
+    plain_ms = time_ms(torch, lambda: fg.fused_centered_gram_reference(
+        x, mean, rowmul, "highest"), iters=3)
+    library_ms = time_ms(torch, lambda: torch.matmul(xs.T, xs), iters=10)
+    bound_ms, bound_by = bound(rows, n, operand, passes)
+    log(f"    {label} first Hessian {rows}x{n} on √s rows: kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.matmul (f32, TF32 "
+        f"off) {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+        f"rel err vs plain {err / scale:.3e}")
+    return {"rows": rows, "n": n, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+def phase_logreg(torch, fg, device, model_c):
+    """Phase 16: LogisticRegression (binary, multinomial, streamed,
+    elastic net, one NCCL rank) at 4096 features and the StandardScaler
+    → PCA → LogisticRegression chain served. Returns ({kernel: launches},
+    {label: the Hessian shapes' timings})."""
+    import torch.distributed as dist
+
+    from spark_rapids_ml_tpu_torch import (
+        LogisticRegression,
+        PCA,
+        Pipeline,
+        PipelineModel,
+        StandardScaler,
+    )
+    from spark_rapids_ml_tpu_torch.data.frame import VectorFrame
+    from spark_rapids_ml_tpu_torch.models._serving import run_staged_pipeline
+    from spark_rapids_ml_tpu_torch.obs import fitmon
+    from spark_rapids_ml_tpu_torch.obs.metrics import get_registry
+    from spark_rapids_ml_tpu_torch.ops import covariance as cov_ops
+    from spark_rapids_ml_tpu_torch.parallel import (
+        data_mesh,
+        distributed_logreg_fit,
+        initialize_multihost,
+    )
+    from spark_rapids_ml_tpu_torch.serve import (
+        ModelRegistry,
+        ServeEngine,
+        start_serve_server,
+        wire,
+    )
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi_line()
+    highest = fg.kernel_name("highest")
+    launched, shapes = {}, {}
+
+    def add(counts):
+        for name, count in counts.items():
+            launched[name] = launched.get(name, 0) + count
+
+    def per_iter(factor=1):
+        return lambda m: {highest: factor * m.n_iter_} if m.n_iter_ else {}
+
+    # (i) binary at full width
+    rng = np.random.default_rng(SEED + 1600)
+    n = N_FEATURES
+    w_star = rng.normal(scale=LR_SCALE / np.sqrt(n), size=n)
+    x_dev = logreg_design(torch, device, 0)
+    y = binary_labels(torch, x_dev, w_star, rng)
+    x = x_dev.cpu().numpy()
+    weights = rng.uniform(0.5, 2.0, CHUNK_ROWS)
+    log(f"  (i) {CHUNK_ROWS:,} x {n} N(0, 1) rows (phase 14's design), "
+        f"labels Bernoulli(σ(x·w* + {LR_INTERCEPT})) with w* ~ N(0, "
+        f"{LR_SCALE:g}²/{n}): {y.mean():.4f} positive")
+    fits = {}
+    for label, est, data, oracle_kw in (
+            ("one-shot", LogisticRegression(), (x, y), {}),
+            ("weighted", LogisticRegression().setWeightCol("w"),
+             (VectorFrame({"features": x, "label": y, "w": weights}),),
+             {"weights": weights}),
+            ("no intercept", LogisticRegression().setFitIntercept(False),
+             (x, y), {"fit_intercept": False})):
+        t0 = time.perf_counter()
+        model, counts = counted_run(
+            torch, fg, f"(i) LogisticRegression {label}",
+            lambda: est.fit(*data), per_iter())
+        seconds = time.perf_counter() - t0
+        add(counts)
+        want, oracle_iter = newton64(torch, x_dev, y, **oracle_kw)
+        err = linreg_error(model.coefficients, model.intercept, want)
+        log(f"    {label}: {fit_line(model, seconds)}; rel err vs float64 "
+            f"Newton on the card {err:.3e} (bar {LOGREG_RTOL:g}; oracle "
+            f"n_iter {oracle_iter})")
+        check(np.isfinite(model.coefficients).all(), f"{label} finite")
+        check(err <= LOGREG_RTOL, f"LogisticRegression {label} rel err "
+              f"{err:.3e}")
+        fits[label] = model
+    shapes["logreg Hessian, s = 1/4 (phase 16)"] = hessian_shape(
+        torch, fg, "one-shot", x_dev, torch.full((CHUNK_ROWS,), 0.5,
+                                                 device=device))
+    shapes["logreg Hessian, s = w/4 (phase 16)"] = hessian_shape(
+        torch, fg, "weighted", x_dev, torch.sqrt(torch.as_tensor(
+            weights / 4, dtype=torch.float32, device=device)))
+
+    # elastic net against the same prox-Newton on float64 device statistics
+    enet = LogisticRegression().setRegParam(LR_ENET[0]).setElasticNetParam(
+        LR_ENET[1]).setMaxIter(LR_ENET_ITER)
+    t0 = time.perf_counter()
+    model, counts = counted_run(
+        torch, fg, f"(i) LogisticRegression elastic net regParam "
+        f"{LR_ENET[0]}, elasticNetParam {LR_ENET[1]}, maxIter {LR_ENET_ITER}",
+        lambda: enet.fit(x, y), per_iter())
+    seconds = time.perf_counter() - t0
+    add(counts)
+    oracle, _ = counted_run(
+        torch, fg, "(i) the same elastic net at float64 (no kernel)",
+        lambda: enet.copy({"dtype": "float64"}).fit(x, y), {})
+    err = linreg_error(model.coefficients, model.intercept,
+                       (oracle.coefficients, oracle.intercept))
+    log(f"    elastic net: {fit_line(model, seconds)}; rel err vs float64 "
+        f"{err:.3e} (bar {LOGREG_ENET_RTOL:g}); zero coefficients "
+        f"{int((model.coefficients == 0).sum())} (float64 "
+        f"{int((oracle.coefficients == 0).sum())}) of {n}")
+    check(err <= LOGREG_ENET_RTOL, f"elastic net rel err {err:.3e}")
+
+    # streamed: 4 chunks of 65,536 rows, buckets of auto_batch_rows(4096)
+    chunks = [(x, y)]
+    for i in range(1, LR_CHUNKS):
+        xi = logreg_design(torch, device, i)
+        chunks.append((xi.cpu().numpy(), binary_labels(torch, xi, w_star,
+                                                       rng)))
+        del xi
+    from spark_rapids_ml_tpu_torch.data.batches import auto_batch_rows
+
+    bucket = auto_batch_rows(n)
+    buckets = -(-LR_CHUNKS * CHUNK_ROWS // bucket)
+    t0 = time.perf_counter()
+    model, counts = counted_run(
+        torch, fg, f"(i) LogisticRegression streamed, {LR_CHUNKS} chunks of "
+        f"{CHUNK_ROWS:,} ({buckets} buckets of {bucket} rows), maxIter "
+        f"{LR_STREAM_ITER}",
+        lambda: LogisticRegression().setMaxIter(LR_STREAM_ITER).fit(
+            lambda: iter(chunks)), per_iter(buckets))
+    seconds = time.perf_counter() - t0
+    add(counts)
+    x_all = torch.cat([torch.as_tensor(c[0], device=device) for c in chunks])
+    want, oracle_iter = newton64(torch, x_all, np.concatenate(
+        [c[1] for c in chunks]))
+    del x_all
+    torch.cuda.empty_cache()
+    err = linreg_error(model.coefficients, model.intercept, want)
+    log(f"    streamed: {fit_line(model, seconds)}; rel err vs float64 "
+        f"Newton on the {LR_CHUNKS * CHUNK_ROWS:,} rows {err:.3e} (bar "
+        f"{LOGREG_RTOL:g}; oracle n_iter {oracle_iter})")
+    check(err <= LOGREG_RTOL, f"streamed rel err {err:.3e}")
+
+    # distributed_logreg_fit on one NCCL rank, against the one-shot fit
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    coordinator = f"127.0.0.1:{free_port()}"
+    try:
+        initialize_multihost(coordinator, num_processes=1, process_id=0)
+    except Exception as exc:
+        raise RuntimeError(f"phase 16: the one-rank NCCL world did not "
+                           f"start at {coordinator}: {exc!r}") from exc
+    try:
+        check(dist.get_backend() == "nccl", "the card's world runs NCCL")
+        one_shot = fits["one-shot"]
+        t0 = time.perf_counter()
+        result, counts = counted_run(
+            torch, fg, "(i) distributed_logreg_fit, one NCCL rank",
+            lambda: distributed_logreg_fit(x, y, data_mesh(1)),
+            lambda r: {highest: int(r.n_iter)})
+        seconds = time.perf_counter() - t0
+        add(counts)
+        n_iter = int(result.n_iter)
+        err = linreg_error(result.coefficients.cpu().numpy(),
+                           float(result.intercept),
+                           (one_shot.coefficients, one_shot.intercept))
+        report = result.fit_report_
+        step = fitmon.get_fit_monitor().recent_runs()[0].steps[-1]
+        log(f"    distributed: {seconds:.3f} s, n_iter {n_iter}, converged "
+            f"{bool(result.converged)}; vs the one-shot fit: rel err "
+            f"{err:.3e} (bar {LOGREG_DIST_RTOL:g}); report phases "
+            f"{ {k: round(t, 4) for k, t in report.phases.items()} }, "
+            f"collectives {report.collectives}; fit monitor step "
+            f"{step['step']!r} scalars {step['scalars']}")
+        check(err <= LOGREG_DIST_RTOL, f"distributed_logreg_fit rel err "
+              f"{err:.3e}")
+        check(step["step"] == "newton"
+              and step["scalars"] == {"n_iter": float(n_iter),
+                                      "converged": float(result.converged)},
+              f"fit monitor step {step}")
+        d = n + 1
+        check(report.collectives == {"all_reduce": {
+            "count": n_iter, "bytes": (d * d + d) * 4 * n_iter}},
+            f"distributed_logreg_fit collectives {report.collectives}")
+    finally:
+        dist.destroy_process_group()
+
+    # (ii) multinomial, K = 4
+    w_k = rng.normal(scale=LR_SCALE / np.sqrt(n), size=(LR_K, n))
+    b_k = rng.normal(size=LR_K)
+    y4 = class_labels(torch, x_dev, w_k, b_k, rng)
+    k_blocks = LR_K * (LR_K + 1) // 2
+    est = LogisticRegression().setMaxIter(LR_MN_ITER)
+    t0 = time.perf_counter()
+    mn, counts = counted_run(
+        torch, fg, f"(ii) multinomial K = {LR_K} at {n} features (a "
+        f"{LR_K * (n + 1):,}² system), maxIter {LR_MN_ITER}",
+        lambda: est.fit(x, y4), per_iter(k_blocks))
+    seconds = time.perf_counter() - t0
+    add(counts)
+    log(f"    multinomial: {fit_line(mn, seconds)}; {k_blocks} launches per "
+        f"iteration")
+    real_gram = cov_ops.fused_centered_gram
+    cov_ops.fused_centered_gram = fg.fused_centered_gram_reference
+    try:
+        t0 = time.perf_counter()
+        plain, _ = counted_run(
+            torch, fg, "(ii) the same fit with the Gram's plain version",
+            lambda: est.fit(x, y4), {})
+        plain_s = time.perf_counter() - t0
+    finally:
+        cov_ops.fused_centered_gram = real_gram
+    f64, _ = counted_run(torch, fg, "(ii) the same fit at float64",
+                         lambda: est.copy({"dtype": "float64"}).fit(x, y4),
+                         {})
+    err = float(np.linalg.norm(gauge_free(mn) - gauge_free(plain))
+                / np.linalg.norm(gauge_free(plain)))
+    p32, p64 = mn.predict_proba(x), f64.predict_proba(x)
+    mismatch = float(np.mean(p32.argmax(1) != p64.argmax(1)))
+    dp = float(np.abs(p32 - p64).max())
+    log(f"    vs the plain-Gram fit ({plain_s:.3f} s, n_iter "
+        f"{plain.n_iter_}): [W | b] modulo the gauge rel err {err:.3e} "
+        f"(bar {MN_PLAIN_RTOL:g}); vs float64 (n_iter {f64.n_iter_}): "
+        f"class mismatch {mismatch:.3e} (bar {MN_MISMATCH:g}), "
+        f"probabilities max |Δ| {dp:.3e} (bar {MN_PROBA_ATOL:g}); train "
+        f"accuracy {np.mean(p32.argmax(1) == y4):.4f}")
+    check(err <= MN_PLAIN_RTOL, f"multinomial vs plain {err:.3e}")
+    check(mismatch <= MN_MISMATCH, f"multinomial mismatch {mismatch:.3e}")
+    check(dp <= MN_PROBA_ATOL, f"multinomial probabilities {dp:.3e}")
+    del p32, p64, plain, f64
+
+    # streamed multinomial at 256 features: the host solve stays small
+    ns = min(LR_MN_STREAM_FEATURES, n)
+    w_s = rng.normal(scale=LR_SCALE / np.sqrt(ns), size=(LR_K, ns))
+    narrow = []
+    for xi, _ in chunks:
+        xs = np.ascontiguousarray(xi[:, :ns])
+        narrow.append((xs, class_labels(
+            torch, torch.as_tensor(xs, device=device), w_s, b_k, rng)))
+    s_bucket = auto_batch_rows(ns)
+    s_buckets = -(-LR_CHUNKS * CHUNK_ROWS // s_bucket)
+    t0 = time.perf_counter()
+    smn, counts = counted_run(
+        torch, fg, f"(ii) multinomial streamed at {ns} features, "
+        f"{LR_CHUNKS} chunks ({s_buckets} buckets of {s_bucket} rows)",
+        lambda: est.fit(lambda: iter(narrow)), per_iter(k_blocks * s_buckets))
+    seconds = time.perf_counter() - t0
+    add(counts)
+    xs_all = np.concatenate([c[0] for c in narrow])
+    ys_all = np.concatenate([c[1] for c in narrow])
+    sf64 = est.copy({"dtype": "float64"}).fit(xs_all, ys_all)
+    p32, p64 = smn.predict_proba(xs_all), sf64.predict_proba(xs_all)
+    mismatch = float(np.mean(p32.argmax(1) != p64.argmax(1)))
+    dp = float(np.abs(p32 - p64).max())
+    log(f"    streamed multinomial: {fit_line(smn, seconds)}; vs the "
+        f"in-memory float64 fit (n_iter {sf64.n_iter_}): class mismatch "
+        f"{mismatch:.3e} (bar {MN_MISMATCH:g}), probabilities max |Δ| "
+        f"{dp:.3e} (bar {MN_PROBA_ATOL:g})")
+    check(mismatch <= MN_MISMATCH, f"streamed mismatch {mismatch:.3e}")
+    check(dp <= MN_PROBA_ATOL, f"streamed probabilities {dp:.3e}")
+    del narrow, xs_all, chunks, x_dev
+    torch.cuda.empty_cache()
+
+    # (iii) the classifier chain on fit (c)'s rows
+    x_c = chunk(torch, device, 20, rows=CHUNK_ROWS // 2)
+    mu = x_c.mean(axis=0, dtype=np.float64)
+    sd = x_c.std(axis=0, ddof=1, dtype=np.float64)
+    z = ((x_c - mu) / sd) @ w_star + LR_INTERCEPT
+    y_c = (rng.random(z.shape[0]) < 1.0 / (1.0 + np.exp(-z))).astype(
+        np.float64)
+    default = fg.kernel_name(None)
+    t0 = time.perf_counter()
+    pipe, counts = counted_run(
+        torch, fg, f"(iii) Pipeline([StandardScaler(withMean), PCA(k={K}), "
+        f"LogisticRegression()]).fit on {x_c.shape[0]:,} x {n}",
+        lambda: Pipeline([
+            StandardScaler().setWithMean(True).setOutputCol("scaled"),
+            PCA().setK(K).setInputCol("scaled").setOutputCol("reduced"),
+            LogisticRegression().setInputCol("reduced"),
+        ]).fit(VectorFrame({"features": x_c, "label": y_c})),
+        lambda p: {default: 1, highest: p.stages[2].n_iter_})
+    add(counts)
+    log(f"    chain fit: {time.perf_counter() - t0:.3f} s; stage "
+        f"fit_timings_ {[{k: round(t, 3) for k, t in s.fit_timings_.items()} for s in pipe.stages]}; "
+        f"LogisticRegression n_iter {pipe.stages[2].n_iter_}")
+    registry = ModelRegistry()
+    with tempfile.TemporaryDirectory() as tmp:
+        pipe.save(f"{tmp}/chain")
+        registry.load("chain", f"{tmp}/chain")
+    loaded = registry.resolve("chain")
+    check([type(s).__name__ for s in loaded.stages]
+          == ["StandardScalerModel", "PCAModel", "LogisticRegressionModel"]
+          and np.array_equal(loaded.stages[2].coefficients,
+                             pipe.stages[2].coefficients),
+          "the loaded chain")
+    registry.register("logreg", fits["one-shot"])
+    del x_c
+    metrics = get_registry()
+    traffic = serve_traffic()
+    engine = ServeEngine(registry, max_batch_rows=SERVE_MAX_ROWS,
+                         pipeline_depth=2)
+    server = None
+    try:
+        for name in ("chain", "logreg"):
+            engine.warmup(name)
+        spec = engine._async_specs[("chain", 1)]
+        check(spec is not None and spec.algo == "pipeline",
+              "the chain serves no fused program")
+        server = start_serve_server(engine, port=0, addr="127.0.0.1")
+        port = server.server_address[1]
+        served = {}
+        for name in ("chain", "logreg"):
+            bodies = [(i, wire.encode_request(name, rows),
+                       wire.BINARY_CONTENT_TYPE)
+                      for i, rows in enumerate(traffic)]
+            before = serve_counters(metrics)
+            results, wall = http_clients(port, bodies)
+            delta = {k: v - before[k]
+                     for k, v in serve_counters(metrics).items()}
+            check(len(results) == SERVE_REQUESTS, f"{len(results)} {name} "
+                  f"responses")
+            outs = []
+            for i in sorted(results):
+                _, status, _, data = results[i]
+                check(status == 200, f"{name} request {i}: HTTP {status}")
+                out = wire.decode_response(data)
+                check(out.dtype == np.float64
+                      and out.shape == (len(traffic[i]),)
+                      and np.isfinite(out).all(),
+                      f"{name} request {i}: {out.dtype} {out.shape}")
+                outs.append(out)
+            lat = np.asarray([results[i][0] * 1e3 for i in sorted(results)])
+            rows_total = sum(len(t) for t in traffic)
+            log(f"  ({'iii' if name == 'chain' else 'iv'}) {SERVE_REQUESTS} "
+                f"binary requests ({rows_total} rows) to {name!r} over HTTP "
+                f"from {SERVE_CLIENTS} clients in {wall:.3f} s: "
+                f"{SERVE_REQUESTS / wall:.1f} requests/s, "
+                f"{rows_total / wall:.0f} rows/s; client p50 "
+                f"{np.percentile(lat, 50):.2f} ms, p99 "
+                f"{np.percentile(lat, 99):.2f} ms; {delta['batches']:.0f} "
+                f"batches; {smi}")
+            check(delta["runs_cuda"] == delta["batches"] > 0
+                  and delta["errors"] == delta["degraded"]
+                  == delta["retries"] == 0,
+                  f"{name}: counters {delta}")
+            served[name] = outs
+
+        unequal = sum(not np.array_equal(out, run_staged_pipeline(loaded, t))
+                      for out, t in zip(served["chain"], traffic))
+        rows_all = np.concatenate(traffic)
+        chain_out = np.concatenate(served["chain"])
+        t0 = time.perf_counter()
+        frame = np.asarray(loaded.transform(rows_all).column("probability"))
+        frame_s = time.perf_counter() - t0
+        d32 = float(np.abs(chain_out - frame).max())
+        f64 = PipelineModel(stages=[s.copy({"dtype": "float64"})
+                                    for s in loaded.stages])
+        prog64 = f64.serving_transform_program()
+        sample = rows_all[:PIPE_F64_ROWS]
+        d64 = float(np.abs(prog64.fetch(prog64.run(prog64.put(sample)))
+                           - np.asarray(f64.transform(sample).column(
+                               "probability"))).max())
+        log(f"  (iii) responses unequal to run_staged_pipeline on their "
+            f"rows: {unequal} of {SERVE_REQUESTS}; probabilities vs "
+            f"PipelineModel.transform max |Δ| {d32:.3e} (bar "
+            f"{CHAIN_F32_ATOL:g}; the frame loop {frame_s:.2f} s), every "
+            f"stage at float64 on {PIPE_F64_ROWS} rows {d64:.3e} (bar "
+            f"{CHAIN_F64_ATOL:g})")
+        check(unequal == 0, f"{unequal} chain responses differ from "
+              f"run_staged_pipeline")
+        check(d32 <= CHAIN_F32_ATOL, f"chain vs frame loop {d32:.3e}")
+        check(d64 <= CHAIN_F64_ATOL, f"float64 chain {d64:.3e}")
+        lr = fits["one-shot"]
+        worst = 0.0
+        for out, t in zip(served["logreg"], traffic):
+            want = 1.0 / (1.0 + np.exp(-(t.astype(np.float64)
+                                         @ lr.coefficients + lr.intercept)))
+            worst = max(worst, float(np.max(np.abs(out - want) / want)))
+        log(f"  (iv) the one-shot model served alone: max relative error "
+            f"vs float64 σ(Xw + b) on the host {worst:.3e} (bar "
+            f"{LR_SERVED_RTOL:g})")
+        check(worst <= LR_SERVED_RTOL, f"served logreg {worst:.3e}")
+
+        # one device→host copy per batch. Every answer reached the host, so
+        # a capture holding fewer copies than batches lost a trace record
+        # (ROADMAP queue 3 item 16) and is taken again; more copies fail.
+        from torch.profiler import ProfilerActivity, profile
+
+        for attempt in range(1, PROFILE_ATTEMPTS + 1):
+            before = serve_counters(metrics)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for i in range(PIPE_PROFILED):
+                    engine.predict("chain", traffic[i])
+                torch.cuda.synchronize()
+            batches = serve_counters(metrics)["batches"] - before["batches"]
+            copies = sum(1 for e in prof.events() if "DtoH" in e.name
+                         and "Memcpy" in e.name)
+            log(f"  (iii) torch.profiler over {PIPE_PROFILED} chain requests "
+                f"(capture {attempt}): {batches:.0f} batches, {copies} "
+                f"device→host copies")
+            check(batches == PIPE_PROFILED and copies <= batches,
+                  f"{copies} device→host copies for {batches} batches")
+            if copies == batches:
+                break
+        check(copies == batches, f"{copies} device→host copies for "
+              f"{batches} batches in each of {PROFILE_ATTEMPTS} captures")
+    finally:
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+        engine.shutdown()
+
+    # (v) the chain's reduced ladders through the offline check
+    only = ModelRegistry()
+    only.register("chain", loaded)
+    for precision in ("bf16", "int8"):
+        engine = ServeEngine(only, max_batch_rows=SERVE_MAX_ROWS,
+                             pipeline_depth=2, precision=precision)
+        try:
+            engine.warmup("chain")
+            checked = engine.precision_checks[("chain", 1, precision)]
+            serving = engine.stats()["queues"]["chain@1"]["precision"]
+            log(f"  (v) {precision}: offline check max |Δ| / max |ref| "
+                f"{checked['error']}, verdict {checked['verdict']} (bar "
+                f"{checked['bar']:g}), serves {serving}")
+            check(checked["verdict"] in ("pass", "fail"),
+                  f"(v) {precision} check ended {checked['verdict']}")
+            check(checked["verdict"] == "pass" or serving == "native",
+                  f"(v) a refused {precision} ladder serves {serving}")
+        finally:
+            engine.shutdown()
+    torch.cuda.empty_cache()
+    log(f"  phase 16 launches {launched}; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launched, shapes
+
+
 def build_fresh(cuda_build):
     """Build the Gram library anew, so ``ptxas -v`` reports on it."""
     path = cuda_build.library_path("fused_gram")
@@ -4581,13 +5159,18 @@ def main() -> int:
     log("[15] KMeans, StandardScaler and the fused pipeline")
     pipeline_launches = phase_kmeans(torch, fg, device, model_c)
 
+    log("[16] LogisticRegression and the classifier chain")
+    logreg_launches, logreg_shapes = phase_logreg(torch, fg, device, model_c)
+    measured[fg.kernel_name("highest")]["extra_shapes"].update(logreg_shapes)
+
     kernels = []
     for name, m in measured.items():
         check(launches.get(name, 0) > 0, f"{name} not launched on the main path")
         by_phase = {"4": launches[name], "7": distributed.get(name, 0),
                     "13": monitored.get(name, 0),
                     "14": gram_callers.get(name, 0),
-                    "15": pipeline_launches.get(name, 0)}
+                    "15": pipeline_launches.get(name, 0),
+                "16": logreg_launches.get(name, 0)}
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES, "launches": sum(by_phase.values()),

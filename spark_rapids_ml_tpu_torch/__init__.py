@@ -31,6 +31,10 @@ from spark_rapids_ml_tpu_torch.models.linear_regression import (  # noqa: F401
     LinearRegression,
     LinearRegressionModel,
 )
+from spark_rapids_ml_tpu_torch.models.logistic_regression import (  # noqa: F401
+    LogisticRegression,
+    LogisticRegressionModel,
+)
 from spark_rapids_ml_tpu_torch.models.svd import (  # noqa: F401
     TruncatedSVD,
     TruncatedSVDModel,
@@ -48,6 +52,8 @@ __all__ = [
     "PipelineModel",
     "LinearRegression",
     "LinearRegressionModel",
+    "LogisticRegression",
+    "LogisticRegressionModel",
     "TruncatedSVD",
     "TruncatedSVDModel",
     "RowMatrix",

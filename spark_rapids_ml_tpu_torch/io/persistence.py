@@ -1,8 +1,9 @@
 """Model persistence in Spark ML's on-disk layout.
 
-A copy of the PCA, KMeans, StandardScaler, LinearRegression and
-TruncatedSVD parts of the JAX package's ``io/persistence.py``, so a model
-saved by either package loads in the other (``RapidsPCA.scala:218-254``):
+A copy of the PCA, KMeans, StandardScaler, LinearRegression,
+LogisticRegression and TruncatedSVD parts of the JAX package's
+``io/persistence.py``, so a model saved by either package loads in the
+other (``RapidsPCA.scala:218-254``):
 
 * ``path/metadata/part-00000`` — one JSON line: class, timestamp, uid,
   paramMap (Spark's ``DefaultParamsWriter.saveMetadata``); params Spark's
@@ -13,6 +14,9 @@ saved by either package loads in the other (``RapidsPCA.scala:218-254``):
   the extension column ``mean``; for KMeans ``clusterCenters`` and
   ``trainingCost``; for StandardScaler ``mean`` and ``std``; for
   LinearRegression Spark's (``coefficients``, ``intercept``, ``scale``);
+  for LogisticRegression ``coefficients``, ``intercept``, ``numClasses``,
+  ``numFeatures`` and, multinomial, ``interceptVector`` and ``classes``
+  (the (K, d) matrix flattened row-major into ``coefficients``);
   for TruncatedSVD ``V`` and ``s``. Without pyarrow (optional) the same
   row is written as ``part-00000.json``, which both packages' readers
   accept.
@@ -55,6 +59,10 @@ _SPARK_CLASS_ALIASES = {
     "KMeansModel": "org.apache.spark.ml.clustering.KMeansModel",
     "LinearRegression": "org.apache.spark.ml.regression.LinearRegression",
     "LinearRegressionModel": "org.apache.spark.ml.regression.LinearRegressionModel",
+    "LogisticRegression":
+        "org.apache.spark.ml.classification.LogisticRegression",
+    "LogisticRegressionModel":
+        "org.apache.spark.ml.classification.LogisticRegressionModel",
     "StandardScaler": "org.apache.spark.ml.feature.StandardScaler",
     "StandardScalerModel": "org.apache.spark.ml.feature.StandardScalerModel",
     "Pipeline": "org.apache.spark.ml.Pipeline",
@@ -75,6 +83,12 @@ _SPARK_PARAM_ALLOWLIST = {
                          "regParam", "elasticNetParam", "weightCol"},
     "LinearRegressionModel": {"labelCol", "predictionCol", "fitIntercept",
                               "regParam", "elasticNetParam", "weightCol"},
+    "LogisticRegression": {"labelCol", "predictionCol", "probabilityCol",
+                           "maxIter", "tol", "regParam", "fitIntercept",
+                           "weightCol"},
+    "LogisticRegressionModel": {"labelCol", "predictionCol", "probabilityCol",
+                                "maxIter", "tol", "regParam", "fitIntercept",
+                                "weightCol"},
 }
 
 
@@ -269,6 +283,7 @@ _SPARK_FIELD_TYPES = {
     "matrix": _MATRIX_UDT_JSON,
     "vector": _VECTOR_UDT_JSON,
     "double": "double",
+    "integer": "integer",
 }
 
 
@@ -414,6 +429,81 @@ def load_linreg_model(path: str):
     return _restore_params(model, meta)
 
 
+def save_logreg_model(model, path: str, overwrite: bool = False) -> None:
+    multinomial = getattr(model, "coefficient_matrix", None) is not None
+    if model.coefficients is None and not multinomial:
+        raise ValueError("cannot save an unfitted LogisticRegressionModel")
+    _require_target(path, overwrite)
+    cls = f"{type(model).__module__}.{type(model).__qualname__}"
+    _write_metadata(path, cls, model.uid, model.param_map_for_metadata())
+    if multinomial:
+        # Spark's multinomial layout: coefficientMatrix flattened row-major
+        # into the vector slot + interceptVector/classes alongside
+        k, d = model.coefficient_matrix.shape
+        row = {
+            "coefficients": _dense_vector_struct(
+                np.asarray(model.coefficient_matrix).reshape(-1)
+            ),
+            "intercept": 0.0,
+            "interceptVector": _dense_vector_struct(model.intercept_vector),
+            "classes": _dense_vector_struct(model.classes_),
+            "numClasses": int(k),
+            "numFeatures": int(d),
+        }
+        fields = [
+            ("coefficients", "vector"), ("intercept", "double"),
+            ("interceptVector", "vector"), ("classes", "vector"),
+            ("numClasses", "integer"), ("numFeatures", "integer"),
+        ]
+    else:
+        row = {
+            "coefficients": _dense_vector_struct(model.coefficients),
+            "intercept": float(model.intercept),
+            "numClasses": 2,
+            "numFeatures": int(np.asarray(model.coefficients).shape[0]),
+        }
+        fields = [
+            ("coefficients", "vector"), ("intercept", "double"),
+            ("numClasses", "integer"), ("numFeatures", "integer"),
+        ]
+    try:
+        import pyarrow as pa
+    except ImportError:
+        schema = None
+    else:
+        arrow = {"vector": _vector_arrow_type(), "double": pa.float64(),
+                 "integer": pa.int32()}
+        schema = pa.schema([(name, arrow[kind]) for name, kind in fields])
+    _write_data_row(path, row, schema=schema, spark_fields=fields)
+
+
+def load_logreg_model(path: str):
+    from spark_rapids_ml_tpu_torch.models.logistic_regression import (
+        LogisticRegressionModel,
+    )
+
+    meta = _read_metadata(path)
+    row = _read_data_row(path)
+    n_classes = int(row.get("numClasses", 2))
+    if n_classes > 2 and row.get("interceptVector") is not None:
+        d = int(row["numFeatures"])
+        model = LogisticRegressionModel(
+            coefficient_matrix=_dense_vector_from_struct(
+                row["coefficients"]
+            ).reshape(n_classes, d),
+            intercept_vector=_dense_vector_from_struct(row["interceptVector"]),
+            classes=_dense_vector_from_struct(row["classes"]),
+            uid=meta["uid"],
+        )
+        return _restore_params(model, meta)
+    model = LogisticRegressionModel(
+        coefficients=_dense_vector_from_struct(row["coefficients"]),
+        intercept=float(row["intercept"]),
+        uid=meta["uid"],
+    )
+    return _restore_params(model, meta)
+
+
 def save_svd_model(model, path: str, overwrite: bool = False) -> None:
     if model.components is None:
         raise ValueError("cannot save an unfitted TruncatedSVDModel")
@@ -539,6 +629,8 @@ _MODEL_CLASSES = {
         ("kmeans", ("KMeans", "KMeansModel")),
         ("scaler", ("StandardScaler", "StandardScalerModel")),
         ("linear_regression", ("LinearRegression", "LinearRegressionModel")),
+        ("logistic_regression", ("LogisticRegression",
+                                 "LogisticRegressionModel")),
         ("svd", ("TruncatedSVD", "TruncatedSVDModel")),
         ("pipeline", ("Pipeline", "PipelineModel")),
     )

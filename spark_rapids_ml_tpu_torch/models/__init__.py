@@ -11,6 +11,10 @@ from spark_rapids_ml_tpu_torch.models.linear_regression import (
     LinearRegression,
     LinearRegressionModel,
 )
+from spark_rapids_ml_tpu_torch.models.logistic_regression import (
+    LogisticRegression,
+    LogisticRegressionModel,
+)
 from spark_rapids_ml_tpu_torch.models.svd import (
     TruncatedSVD,
     TruncatedSVDModel,
@@ -27,6 +31,8 @@ __all__ = [
     "PipelineModel",
     "LinearRegression",
     "LinearRegressionModel",
+    "LogisticRegression",
+    "LogisticRegressionModel",
     "TruncatedSVD",
     "TruncatedSVDModel",
 ]

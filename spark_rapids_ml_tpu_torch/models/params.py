@@ -209,3 +209,44 @@ class HasDeviceId(Params):
         -1,
         validator=lambda v: isinstance(v, int),
     )
+
+
+class HasThresholds(Params):
+    """Spark's classifier ``thresholds`` param + the ONE prediction rule:
+    predict ``argmax_i p(i)/t(i)`` over per-class probabilities — a class
+    with threshold 0 wins whenever its probability is positive (Spark
+    allows at most one zero). Unset (None/empty) = plain argmax."""
+
+    thresholds = Param(
+        "thresholds",
+        "per-class probability thresholds (length numClasses, "
+        "non-negative, at most one zero); prediction = "
+        "argmax p(i)/t(i). None/[] = plain argmax",
+        None,
+        validator=lambda v: v is None or (
+            hasattr(v, "__len__")
+            and all(float(t) >= 0 for t in v)
+            and sum(1 for t in v if float(t) == 0.0) <= 1
+            and (len(v) == 0 or sum(float(t) for t in v) > 0)
+        ),
+    )
+
+    def _predict_index(self, proba):
+        """Predicted CLASS INDEX per row under the thresholds rule."""
+        import numpy as np
+
+        t = self.get_or_default("thresholds")
+        proba = np.asarray(proba, dtype=np.float64)
+        if t is None or len(t) == 0:
+            return np.argmax(proba, axis=1)
+        t = np.asarray(t, dtype=np.float64)
+        if t.shape[0] != proba.shape[1]:
+            raise ValueError(
+                f"thresholds length {t.shape[0]} != numClasses "
+                f"{proba.shape[1]}"
+            )
+        with np.errstate(divide="ignore", invalid="ignore"):
+            scaled = proba / t
+        # p=0 at t=0 gives nan: that class has no support, never wins
+        scaled = np.where(np.isnan(scaled), -np.inf, scaled)
+        return np.argmax(scaled, axis=1)

@@ -1,6 +1,6 @@
 """Fits across ranks on ``torch.distributed``: meshes, the multi-host
 runtime, the data-parallel, streamed and feature-sharded PCA fits, and the
-data-parallel LinearRegression and KMeans fits."""
+data-parallel LinearRegression, LogisticRegression and KMeans fits."""
 
 from spark_rapids_ml_tpu_torch.parallel.mesh import (
     DATA_AXIS,
@@ -25,6 +25,10 @@ from spark_rapids_ml_tpu_torch.parallel.distributed_pca import (
 from spark_rapids_ml_tpu_torch.parallel.distributed_linreg import (
     distributed_linreg_fit,
     distributed_linreg_fit_kernel,
+)
+from spark_rapids_ml_tpu_torch.parallel.distributed_logreg import (
+    distributed_logreg_fit,
+    distributed_logreg_fit_kernel,
 )
 from spark_rapids_ml_tpu_torch.parallel.distributed_kmeans import (
     distributed_kmeans_fit,
@@ -52,6 +56,7 @@ __all__ = [
     "DistributedPCAResult", "distributed_pca_fit",
     "distributed_pca_fit_kernel",
     "distributed_linreg_fit", "distributed_linreg_fit_kernel",
+    "distributed_logreg_fit", "distributed_logreg_fit_kernel",
     "distributed_kmeans_fit", "distributed_kmeans_fit_kernel",
     "DistributedStreamingPCA", "distributed_streaming_pca_fit",
     "finalize_stats_sharded", "update_stats_sharded",

@@ -1131,3 +1131,159 @@ def test_fused_pipeline_bit_equal_staged_on_the_card(cuda_device, dtype):
     frame = np.asarray(model.transform(x[:1024]).column("prediction"))
     fused = prog.fetch(prog.run(prog.put(x[:1024])))
     assert np.mean(fused != frame) <= (1e-3 if dtype == "float32" else 0.0)
+
+
+# -- slice 16: LogisticRegression ---------------------------------------------
+
+def _logistic(rows, n, seed=16):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(rows, n)).astype(np.float32)
+    w = rng.normal(size=n) * (2.0 / np.sqrt(n))
+    y = (rng.random(rows) < 1.0 / (1.0 + np.exp(-(x @ w + 0.5)))).astype(
+        np.float32)
+    return x, y
+
+
+def test_logreg_newton_hessian_is_the_kernel_on_the_card(cuda_device):
+    """One highest launch per Newton iteration, each Hessian within the
+    kernel's bar of its plain version on the same √s rows, and the fit
+    within 1e-4 of the float64 Newton on the card."""
+    from spark_rapids_ml_tpu_torch.ops import logreg_kernel as lk
+
+    x, y = _logistic(20_000, 256)
+    xd = torch.as_tensor(x, device=cuda_device)
+    yd = torch.as_tensor(y, device=cuda_device)
+    highest = fused_gram.kernel_name("highest")
+    fused_gram.reset_launches()
+    result = lk.logreg_fit_kernel(xd, yd, reg_param=0.01, max_iter=8,
+                                  tol=0.0)
+    torch.cuda.synchronize()
+    assert int(result.n_iter) == 8
+    assert {k: v for k, v in fused_gram.launches.items() if v} == {
+        highest: 8}
+    w = torch.cat([result.coefficients, result.intercept.reshape(1)])
+    p = torch.sigmoid(xd @ w[:-1] + w[-1])
+    root = torch.sqrt(p * (1 - p))
+    zeros = torch.zeros(256, device=cuda_device)
+    got = fused_centered_gram(xd, zeros, root, "highest")
+    want = fused_centered_gram_reference(xd, zeros, root, "highest")
+    err = (got - want).abs().max().item()
+    assert err <= fused_gram.PLAIN_RTOL[highest] * want.abs().max().item()
+    ref = lk.logreg_fit_kernel(xd.double(), yd.double(), reg_param=0.01,
+                               max_iter=8, tol=0.0)
+    w64 = torch.cat([ref.coefficients, ref.intercept.reshape(1)])
+    assert (torch.linalg.norm(w.double() - w64)
+            / torch.linalg.norm(w64)).item() <= 1e-4
+
+
+def test_logreg_multinomial_blocks_on_the_card(cuda_device):
+    """K(K+1)/2 launches per statistics pass; every diagonal block is
+    positive semidefinite, every off-diagonal block negative semidefinite,
+    h_raw exactly symmetric, and the whole within 1e-5 of the float64
+    blocks."""
+    from spark_rapids_ml_tpu_torch.ops import logreg_kernel as lk
+
+    k, n = 4, 128
+    x, _ = _logistic(8192, n)
+    rng = np.random.default_rng(17)
+    y_oh = np.eye(k, dtype=np.float32)[rng.integers(0, k, 8192)]
+    wb = rng.normal(size=(k, n + 1)).astype(np.float32) * 0.05
+    xd = torch.as_tensor(x, device=cuda_device)
+    args = (torch.as_tensor(y_oh, device=cuda_device),
+            torch.ones(8192, device=cuda_device))
+    fused_gram.reset_launches()
+    gxa, h_raw, cnt = lk.multinomial_raw_stats(
+        torch.as_tensor(wb, device=cuda_device), xd, *args)
+    torch.cuda.synchronize()
+    assert fused_gram.launches[fused_gram.kernel_name("highest")] == \
+        k * (k + 1) // 2
+    assert torch.equal(h_raw, h_raw.T)
+    dim = n + 1
+    for a in range(k):
+        for b in range(k):
+            blk = h_raw[a * dim:(a + 1) * dim, b * dim:(b + 1) * dim]
+            ev = torch.linalg.eigvalsh(blk.double())
+            scale = ev.abs().max().item()
+            if a == b:
+                assert ev.min().item() >= -1e-5 * scale
+            else:
+                assert ev.max().item() <= 1e-5 * scale
+    _, h64, _ = lk.multinomial_raw_stats(
+        torch.as_tensor(wb, device=cuda_device).double(), xd.double(),
+        *(t.double() for t in args))
+    assert ((h_raw.double() - h64).abs().max()
+            / h64.abs().max()).item() <= 1e-5
+
+
+def test_logreg_serving_program_on_the_card(cuda_device):
+    """The device-resident program (native) equals its CPU twin within one
+    float32 ulp of σ and the float64 host σ(Xw + b) within 1e-5; the int8
+    body (``torch._int_mm``, rows padded to 32 and the coefficients to 8
+    columns) on CUDA equals its CPU twin bit for bit; bf16 within 0.02."""
+    from spark_rapids_ml_tpu_torch import LogisticRegressionModel
+
+    rng = np.random.default_rng(18)
+    coef = rng.normal(size=64) * 0.2
+    model = LogisticRegressionModel(coefficients=coef, intercept=0.3)
+    for rows in (1, 16, 17, 300):
+        x = rng.normal(size=(rows, 64))
+        host = 1.0 / (1.0 + np.exp(-(x.astype(np.float32).astype(np.float64)
+                                     @ coef + 0.3)))
+        for precision in ("native", "bf16", "int8"):
+            prog = model.serving_transform_program(precision)
+            assert prog.device.type == "cuda"
+            got = prog.fetch(prog.run(prog.put(x)))
+            os.environ["SPARK_RAPIDS_ML_TORCH_PLATFORM"] = "cpu"
+            try:
+                twin = model.serving_transform_program(precision)
+                want = twin.fetch(twin.run(twin.put(x)))
+            finally:
+                del os.environ["SPARK_RAPIDS_ML_TORCH_PLATFORM"]
+            assert got.dtype == np.float64 and got.shape == (rows,)
+            if precision == "int8":
+                np.testing.assert_array_equal(got, want)
+            elif precision == "native":
+                np.testing.assert_allclose(got, want, rtol=0,
+                                           atol=np.finfo(np.float32).eps)
+                assert np.max(np.abs(got - host) / host) <= 1e-5
+            else:
+                assert np.max(np.abs(got - host)) <= 0.02
+
+
+def test_classifier_chain_bit_equal_staged_on_the_card(cuda_device):
+    """StandardScaler → PCA → LogisticRegression at 256 features: the fit
+    launches one bfloat16_3x Gram (PCA) and one highest Gram per Newton
+    iteration; the fused program equals ``run_staged_pipeline`` bit for
+    bit over ragged batch sizes and the frame loop within 1e-5."""
+    from spark_rapids_ml_tpu_torch import (
+        LogisticRegression,
+        PCA,
+        Pipeline,
+        StandardScaler,
+    )
+    from spark_rapids_ml_tpu_torch.data.frame import VectorFrame
+    from spark_rapids_ml_tpu_torch.models._serving import run_staged_pipeline
+
+    rng = np.random.default_rng(19)
+    x = rng.normal(size=(8192, 256)) * np.linspace(0.5, 2.0, 256) + 1.0
+    xs = (x - x.mean(0)) / x.std(0, ddof=1)
+    y = (rng.random(8192) < 1 / (1 + np.exp(-(xs[:, :8].sum(1))))).astype(
+        float)
+    fused_gram.reset_launches()
+    model = Pipeline([
+        StandardScaler().setWithMean(True).setOutputCol("s"),
+        PCA().setK(32).setInputCol("s").setOutputCol("r"),
+        LogisticRegression().setInputCol("r").setMaxIter(10),
+    ]).fit(VectorFrame({"features": x, "label": list(y)}))
+    n_iter = model.stages[2].n_iter_
+    assert {k: v for k, v in fused_gram.launches.items() if v} == {
+        fused_gram.kernel_name(None): 1,
+        fused_gram.kernel_name("highest"): n_iter}
+    prog = model.serving_transform_program()
+    assert prog.device.type == "cuda"
+    for n in (1, 3, 17, 64, 100, 1024):
+        fused = prog.fetch(prog.run(prog.put(x[:n])))
+        assert np.array_equal(fused, run_staged_pipeline(model, x[:n])), n
+    frame = np.asarray(model.transform(x[:1024]).column("probability"))
+    fused = prog.fetch(prog.run(prog.put(x[:1024])))
+    assert np.max(np.abs(fused - frame)) <= 1e-5

@@ -242,6 +242,110 @@ def test_kmeans_slice_runs_without_jax(tmp_path):
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+# the modules of the LogisticRegression slice
+LOGREG_SLICE = ("utils.numeric", "models.params", "ops.logreg_kernel",
+                "models.logistic_regression", "parallel.distributed_logreg",
+                "io.persistence")
+
+
+def test_logreg_slice_runs_without_jax(tmp_path):
+    """A binary and a multinomial LogisticRegression and a StandardScaler →
+    PCA → LogisticRegression pipeline that the JAX package saved, loaded by
+    the port and served through the registry and engine; the port's own
+    fits (one-shot, streamed, elastic net, multinomial), saves and fused
+    program; and ``distributed_logreg_fit`` in a one-rank gloo world — in
+    a process that never imports jax. The JAX models are saved here, in the
+    test process."""
+    import spark_rapids_ml_tpu as jax_pkg
+
+    mods = {m for _, m in _port_modules()}
+    assert {f"spark_rapids_ml_tpu_torch.{m}" for m in LOGREG_SLICE} <= mods
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(90, 6))
+    y = (x[:, 0] + 0.5 * rng.normal(size=90) > 0).astype(float)
+    y3 = np.digitize(x[:, 1], [-0.4, 0.4]).astype(float)
+    jax_pkg.LogisticRegression().setRegParam(0.1).fit(x, y).save(
+        str(tmp_path / "bin"))
+    jax_pkg.LogisticRegression().setRegParam(0.1).fit(x, y3).save(
+        str(tmp_path / "mn"))
+    frame = jax_pkg.data.frame.VectorFrame({"features": x, "label": list(y)})
+    jax_pkg.Pipeline([
+        jax_pkg.StandardScaler().setWithMean(True).setOutputCol("s"),
+        jax_pkg.PCA().setK(3).setInputCol("s").setOutputCol("r"),
+        jax_pkg.LogisticRegression().setInputCol("r"),
+    ]).fit(frame).save(str(tmp_path / "pipe"))
+    np.save(tmp_path / "x.npy", x)
+    np.save(tmp_path / "y.npy", y)
+    np.save(tmp_path / "y3.npy", y3)
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "import torch.distributed as dist\n"
+        "from spark_rapids_ml_tpu_torch import (LogisticRegression, "
+        "LogisticRegressionModel, PCA, Pipeline, PipelineModel, "
+        "StandardScaler)\n"
+        "from spark_rapids_ml_tpu_torch.data import batches\n"
+        "from spark_rapids_ml_tpu_torch.data.frame import VectorFrame\n"
+        "from spark_rapids_ml_tpu_torch.io.persistence import load_model\n"
+        "from spark_rapids_ml_tpu_torch.models._serving import "
+        "run_staged_pipeline\n"
+        "from spark_rapids_ml_tpu_torch.parallel import (data_mesh, "
+        "distributed_logreg_fit)\n"
+        "from spark_rapids_ml_tpu_torch.serve import (ModelRegistry, "
+        "ServeEngine)\n"
+        "d = sys.argv[1]\n"
+        "# streamed buckets of 64 rows, not 128 MiB of zero padding\n"
+        "batches.auto_batch_rows = lambda *a, **k: 64\n"
+        "x, y, y3 = (np.load(d + f'/{n}.npy') for n in ('x', 'y', 'y3'))\n"
+        "b = LogisticRegressionModel.load(d + '/bin')\n"
+        "mn = load_model(d + '/mn')\n"
+        "pipe = PipelineModel.load(d + '/pipe')\n"
+        "assert mn.num_classes == 3 and b.num_classes == 2\n"
+        "assert [type(s).__name__ for s in pipe.stages] == "
+        "['StandardScalerModel', 'PCAModel', 'LogisticRegressionModel']\n"
+        "reg = ModelRegistry()\n"
+        "for name in ('bin', 'pipe'):\n"
+        "    reg.load(name, d + '/' + name)\n"
+        "eng = ServeEngine(reg, max_wait_ms=1)\n"
+        "try:\n"
+        "    served = eng.predict('pipe', x)\n"
+        "    assert served.dtype == np.float64 and served.shape == (90,)\n"
+        "    assert np.array_equal(served, run_staged_pipeline(pipe, x))\n"
+        "    assert eng.predict('bin', x).shape == (90,)\n"
+        "finally:\n"
+        "    eng.shutdown()\n"
+        "fits = [LogisticRegression().fit(x, y), "
+        "LogisticRegression().fit(lambda: iter([(x[:50], y[:50]), "
+        "(x[50:], y[50:])])), "
+        "LogisticRegression().setRegParam(0.1).setElasticNetParam(0.5)"
+        ".fit(x, y), LogisticRegression().fit(x, y3)]\n"
+        "fits[3].save(d + '/own_mn')\n"
+        "own = Pipeline([StandardScaler().setOutputCol('s'), "
+        "PCA().setK(2).setInputCol('s').setOutputCol('r'), "
+        "LogisticRegression().setInputCol('r')]).fit("
+        "VectorFrame({'features': x, 'label': list(y)}))\n"
+        "own.save(d + '/own')\n"
+        "prog = PipelineModel.load(d + '/own').serving_transform_program()\n"
+        "out = prog.fetch(prog.run(prog.put(x)))\n"
+        "dist.init_process_group('gloo', init_method='file://' + d + "
+        "'/store', rank=0, world_size=1)\n"
+        "res = distributed_logreg_fit(x, y, data_mesh(1))\n"
+        "dist.destroy_process_group()\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or "
+        "k.startswith('jax.') or k == 'spark_rapids_ml_tpu' or "
+        "k.startswith('spark_rapids_ml_tpu.'))\n"
+        "print(out.shape, tuple(res.coefficients.shape), "
+        "[f.n_iter_ for f in fits], bad)\n"
+        "sys.exit(1 if bad or out.shape != (90,) else 0)\n"
+    )
+    env = dict(os.environ, SPARK_RAPIDS_ML_TORCH_PLATFORM="cpu",
+               OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                          cwd=REPO_DIR, capture_output=True, text=True,
+                          timeout=120, env=env)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_port_sources_import_no_jax():
     found = []
     smoke = os.path.join(REPO_DIR, "chip_smoke.py")

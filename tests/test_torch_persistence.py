@@ -21,6 +21,8 @@ from spark_rapids_ml_tpu_torch import (
     KMeans,
     LinearRegression,
     LinearRegressionModel,
+    LogisticRegression,
+    LogisticRegressionModel,
     PCA,
     PCAModel,
     Pipeline,
@@ -46,6 +48,12 @@ def _xy(seed=0, rows=60, n=5):
     return x, x @ np.arange(1.0, n + 1) + 0.5
 
 
+def _classes(y, k):
+    """Labels 0..k-1 from ``y``'s quantiles (k = 2: the binary 0/1)."""
+    return np.searchsorted(np.quantile(y, np.linspace(0, 1, k + 1)[1:-1]),
+                           y).astype(np.float64)
+
+
 def _fitted(family):
     x, y = _xy()
     if family == "pca":
@@ -58,6 +66,10 @@ def _fitted(family):
         return LinearRegression().fit(x, labels=y)
     if family == "svd":
         return TruncatedSVD().setK(2).fit(x)
+    if family == "logreg":
+        return LogisticRegression().setRegParam(0.1).fit(x, _classes(y, 2))
+    if family == "logreg_mn":
+        return LogisticRegression().setRegParam(0.1).fit(x, _classes(y, 3))
     if family == "pipeline":
         return Pipeline([
             StandardScaler().setWithMean(True).setOutputCol("s"),
@@ -69,8 +81,8 @@ def _fitted(family):
     raise KeyError(family)
 
 
-FAMILIES = ("pca", "kmeans", "scaler", "linreg", "svd", "pipeline",
-            "estimator")
+FAMILIES = ("pca", "kmeans", "scaler", "linreg", "svd", "logreg",
+            "logreg_mn", "pipeline", "estimator")
 
 
 def _state(obj):
@@ -79,7 +91,8 @@ def _state(obj):
         return [a for s in obj.stages for a in _state(s)]
     out = []
     for attr in ("pc", "cluster_centers", "mean", "std", "coefficients",
-                 "components", "singular_values"):
+                 "components", "singular_values", "intercept",
+                 "coefficient_matrix", "intercept_vector", "classes_"):
         value = getattr(obj, attr, None)
         if value is not None:
             out.append(np.asarray(value))
@@ -174,7 +187,7 @@ def test_every_writer_is_wrapped():
     writers = [name for name in dir(persistence) if name.startswith("save_")]
     assert {"save_params", "save_pca_model", "save_kmeans_model",
             "save_scaler_model", "save_linreg_model",
-            "save_svd_model"} <= set(writers)
+            "save_svd_model", "save_logreg_model"} <= set(writers)
     for name in writers:
         assert hasattr(getattr(persistence, name), "__wrapped_save__"), name
 
@@ -205,6 +218,9 @@ def _jax_fitted(family):
         return jax_pkg.KMeans().setK(3).fit(x)
     if family == "scaler":
         return jax_pkg.StandardScaler().setWithMean(True).fit(x)
+    if family in ("logreg", "logreg_mn"):
+        return jax_pkg.LogisticRegression().setRegParam(0.1).fit(
+            x, _classes(y, 2 if family == "logreg" else 3))
     if family == "pipeline":
         return jax_pkg.Pipeline([
             jax_pkg.StandardScaler().setWithMean(True).setOutputCol("s"),
@@ -215,7 +231,7 @@ def _jax_fitted(family):
 
 
 @pytest.mark.parametrize("family", ["linreg", "svd", "kmeans", "scaler",
-                                    "pipeline"])
+                                    "logreg", "logreg_mn", "pipeline"])
 def test_load_model_maps_jax_written_metadata_to_the_port(tmp_path, family):
     jax_model = _jax_fitted(family)
     path = str(tmp_path / family)
@@ -264,6 +280,36 @@ def test_registry_loads_linreg_and_svd_saved_by_either_package(
     assert type(replayed.resolve(family)) is want
 
 
+@pytest.mark.parametrize("writer", ["port", "jax"])
+@pytest.mark.parametrize("family", ["logreg", "logreg_mn"])
+def test_registry_loads_logreg_saved_by_either_package(tmp_path, writer,
+                                                       family):
+    """A binary and a multinomial model saved by either package load
+    through ``load_model`` and ``ModelRegistry.load`` (and its manifest
+    replay) as the port's class, and predict what the writer predicts."""
+    model = _fitted(family) if writer == "port" else _jax_fitted(family)
+    path = str(tmp_path / family)
+    model.save(path)
+    assert type(load_model(path)) is LogisticRegressionModel
+    manifest = str(tmp_path / "manifest.json")
+    registry = ModelRegistry(manifest_path=manifest)
+    version = registry.load(family, path)
+    loaded = registry.resolve(family, version)
+    assert type(loaded) is LogisticRegressionModel
+    assert loaded.num_classes == (2 if family == "logreg" else 3)
+    x, _ = _xy(seed=1)
+    out = loaded.transform(x)
+    want = model.transform(x)
+    np.testing.assert_array_equal(np.asarray(out.column("prediction")),
+                                  np.asarray(want.column("prediction")))
+    np.testing.assert_allclose(np.asarray(out.column("probability")),
+                               np.asarray(want.column("probability")),
+                               rtol=1e-6, atol=1e-7)
+    replayed = ModelRegistry(manifest_path=manifest)
+    assert replayed.recovery_report_["recovered"] == [f"{family}@{version}"]
+    assert type(replayed.resolve(family)) is LogisticRegressionModel
+
+
 def test_linear_regression_warms_without_n_features():
     registry = ModelRegistry()
     registry.register("lr", _fitted("linreg"))
@@ -273,7 +319,7 @@ def test_linear_regression_warms_without_n_features():
 
 @pytest.mark.parametrize("family,width", [
     ("pca", 5), ("kmeans", 5), ("scaler", 5), ("linreg", 5),
-    ("pipeline", 5)])
+    ("logreg", 5), ("logreg_mn", 5), ("pipeline", 5)])
 def test_feature_inference_covers_every_family(family, width):
     assert _infer_features(_fitted(family)) == width
 

@@ -31,6 +31,7 @@ from spark_rapids_ml_tpu.models._serving import (
 from spark_rapids_ml_tpu_torch import (
     KMeans,
     LinearRegression,
+    LogisticRegression,
     PCA,
     PCAModel,
     Pipeline,
@@ -57,6 +58,13 @@ def _x(seed=42, n=512, d=16):
         * np.linspace(0.5, 3.0, d) + 1.0
 
 
+def _labels(x):
+    """Binary labels for the classifier chain (the JAX file's
+    ``_training_frame`` rule, on the centred rows)."""
+    xc = x - x.mean(axis=0)
+    return (xc[:, 0] + 0.3 * xc[:, 1] > 0).astype(float)
+
+
 def _fit_chain(dtype="float32", terminal="kmeans", x=None):
     x = _x() if x is None else x
     stages = [
@@ -65,10 +73,15 @@ def _fit_chain(dtype="float32", terminal="kmeans", x=None):
         PCA().setK(6).setInputCol("scaled").setOutputCol("reduced")
         .setDtype(dtype),
     ]
+    data = x
     if terminal == "kmeans":
         stages.append(KMeans().setK(4).setInputCol("reduced").setSeed(3)
                       .setDtype(dtype))
-    return Pipeline(stages=stages).fit(x), x
+    elif terminal == "logreg":
+        stages.append(LogisticRegression().setInputCol("reduced")
+                      .setLabelCol("label").setDtype(dtype))
+        data = VectorFrame({"features": x, "label": list(_labels(x))})
+    return Pipeline(stages=stages).fit(data), x
 
 
 def make_frame(rng, n=80, d=10):
@@ -191,7 +204,7 @@ def test_fitted_chain_matches_the_jax_fit_at_float64():
 
 # -- fused vs staged ----------------------------------------------------------
 
-@pytest.mark.parametrize("terminal", ["kmeans", "pca"])
+@pytest.mark.parametrize("terminal", ["kmeans", "pca", "logreg"])
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 def test_fused_bit_equal_staged_loop_ragged(dtype, terminal):
     model, x = _fit_chain(dtype, terminal)
@@ -239,7 +252,8 @@ def _jax_twin(model, tmp_path):
     which for a port-saved stage is the port's)."""
     loaders = {"StandardScalerModel": jax_pkg.StandardScalerModel,
                "PCAModel": jax_pkg.PCAModel,
-               "KMeansModel": jax_pkg.KMeansModel}
+               "KMeansModel": jax_pkg.KMeansModel,
+               "LogisticRegressionModel": jax_pkg.LogisticRegressionModel}
     stages = []
     for i, stage in enumerate(model.stages):
         path = str(tmp_path / f"stage{i}")
@@ -259,6 +273,100 @@ def test_fused_labels_equal_the_jax_fused_program(tmp_path):
         want = jax_prog.fetch(jax_prog.run(jax_prog.put(batch)))
         np.testing.assert_array_equal(got, want)
         np.testing.assert_array_equal(jax_run_staged(jax_model, batch), got)
+
+
+@pytest.mark.parametrize("dtype,bar", [("float64", 1e-12),
+                                       ("float32", 1e-5)])
+def test_classifier_chain_fused_vs_staged_vs_frame_loop(dtype, bar):
+    """StandardScaler → PCA → LogisticRegression: the fused program equal
+    to the staged loop bit for bit, and its probabilities within ``bar``
+    (max |Δ|) of ``PipelineModel.transform``, the frame loop, which scales
+    in host float64 and takes σ on the host."""
+    model, x = _fit_chain(dtype, "logreg")
+    assert [type(s).__name__ for s in model.stages] == [
+        "StandardScalerModel", "PCAModel", "LogisticRegressionModel"]
+    prog = model.serving_transform_program()
+    fused = prog.fetch(prog.run(prog.put(x)))
+    assert fused.dtype == np.float64 and fused.shape == (x.shape[0],)
+    np.testing.assert_array_equal(fused, run_staged_pipeline(model, x))
+    frame = np.asarray(model.transform(x).column(model.getProbabilityCol()))
+    assert float(np.max(np.abs(fused - frame))) <= bar
+    # the terminal stage's answer column resolves through the pipeline
+    assert model.getProbabilityCol() == "probability"
+
+
+def test_classifier_chain_matches_the_jax_fused_program(tmp_path):
+    """The same fitted float64 chain, carried to the JAX package by save →
+    load: the JAX fused program and staged loop give the port's
+    probabilities within 1e-12."""
+    model, x = _fit_chain("float64", "logreg")
+    jax_model = _jax_twin(model, tmp_path)
+    prog = model.serving_transform_program()
+    jax_prog = jax_model.serving_transform_program()
+    assert jax_prog is not None and jax_prog.algo == "pipeline"
+    for n in RAGGED_SIZES:
+        batch = x[:n]
+        got = prog.fetch(prog.run(prog.put(batch)))
+        want = jax_prog.fetch(jax_prog.run(jax_prog.put(batch)))
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
+        np.testing.assert_allclose(jax_run_staged(jax_model, batch), got,
+                                   rtol=0, atol=1e-12)
+
+
+def test_classifier_chain_fit_matches_the_jax_fit_at_float64():
+    x = _x()
+    model, _ = _fit_chain("float64", "logreg", x=x)
+    frame = jax_pkg.data.frame.VectorFrame(
+        {"features": x, "label": list(_labels(x))})
+    jax_model = jax_pkg.Pipeline(stages=[
+        jax_pkg.StandardScaler().setWithMean(True).setOutputCol("scaled"),
+        jax_pkg.PCA().setK(6).setInputCol("scaled").setOutputCol("reduced"),
+        jax_pkg.LogisticRegression().setInputCol("reduced")
+        .setLabelCol("label"),
+    ]).fit(frame)
+    got = np.asarray(model.transform(x).column("probability"))
+    want = np.asarray(jax_model.transform(x).column("probability"))
+    # PCA components carry a sign each; the classifier absorbs it
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-8)
+
+
+def test_pca_kmeans_logreg_stage_hooks_exist():
+    """The GEMM families expose the hook too, with terminal-ness matching
+    their output type (the JAX file's test of the same name)."""
+    x = _x()
+    frame = VectorFrame({"features": x, "label": list(_labels(x))})
+    pca = PCA().setK(3).fit(frame)
+    km = KMeans().setK(2).fit(frame)
+    lr = LogisticRegression().setLabelCol("label").fit(frame)
+    assert pca.serving_stage().terminal is False
+    assert km.serving_stage().terminal is True
+    assert lr.serving_stage().terminal is True
+    assert lr.serving_stage().fetch_dtype == np.float64
+
+
+def test_engine_serves_the_classifier_chain_e2e():
+    model, x = _fit_chain("float64", "logreg")
+    registry = ModelRegistry()
+    registry.register("clf_pipe", model)
+    engine = ServeEngine(registry, max_batch_rows=128, max_wait_ms=1.0,
+                         buckets=(32, 128))
+    try:
+        engine.warmup("clf_pipe")
+        spec = engine._async_specs[("clf_pipe", 1)]
+        assert spec is not None and spec.algo == "pipeline"
+        sizes = [1, 7, 32, 64, 100, 13]
+        expected = {n: run_staged_pipeline(model, x[:n]) for n in set(sizes)}
+
+        def one(n):
+            return n, engine.predict("clf_pipe", x[:n])
+
+        with concurrent.futures.ThreadPoolExecutor(4) as pool:
+            for n, out in pool.map(one, sizes * 3):
+                assert out.dtype == np.float64
+                np.testing.assert_array_equal(out, expected[n],
+                                              err_msg=f"size {n}")
+    finally:
+        engine.shutdown()
 
 
 def test_float32_fused_labels_near_the_frame_loop():
