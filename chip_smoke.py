@@ -383,11 +383,43 @@ Phases (any failure raises and the script exits non-zero):
     int8 ladders through the offline check. Prints each fit's n_iter and
     whether it converged, wall and ``fit_timings_``, requests/s and client
     p50 / p99 beside the card's name and power limit.
+17. The other stage families (``models/feature_scalers.py``,
+    ``models/feature_transformers.py``) on fit (c)'s 32,768 × 4096 rows
+    with every 16th column set to 2.5 (256 constant columns). (ii)
+    ``Pipeline([MinMaxScaler, ElementwiseProduct (N(0, 1) scalingVec),
+    VectorSlicer (3840 permuted indices), PCA(k=256),
+    LogisticRegression()])`` with labels planted on the rows its PCA sees:
+    one bfloat16_3x and one highest launch per Newton iteration; (iii)
+    ``Pipeline([RobustScaler(withCentering), MaxAbsScaler, Normalizer,
+    VarianceThresholdSelector, PCA(k=256), KMeans(k=64)])``: one
+    bfloat16_3x launch, the selector keeping 3840 columns. Each chain is
+    saved, loaded through ``ModelRegistry.load`` (same stage classes and
+    state), warmed with no ``n_features`` (the head gives 4096) and served
+    over HTTP in one engine (phase 5's 256 binary requests from 8
+    clients): every response bit-equal to ``run_staged_pipeline``; (ii)'s
+    probabilities within 1e-5 of ``PipelineModel.transform`` on the first
+    8192 served rows and 1e-12 with every stage at float64, (iii)'s labels
+    mismatched on at most 1e-3 of them and on none at float64; one
+    device→host copy per batch in a ``torch.profiler`` capture (retaken as
+    phase 16's); one CUDA program run per batch, no error, degraded
+    answer or retry. (i) Each family's body as a one-stage program on the
+    card (MinMax and Robust the chains' heads; MaxAbs, the variance
+    selector, which must drop exactly the 256 planted columns, Normalizer
+    p = 2 and ∞, Binarizer 0.25, ElementwiseProduct, VectorSlicer, a
+    ChiSqSelectorModel of 1024 indices) against the model's host
+    transform: float64 on 4096 rows bit-equal (Normalizer 1e-12
+    relative), float32 on the first 8192 rows equal for the gathers and
+    the Binarizer, within 1e-6 (Normalizer p = 2 1e-5) for the rest; each
+    body timed at float32 on all 32,768 rows with CUDA events beside its
+    bound (the bytes
+    read and written over 3.35 TB/s), printed as a ``{"stage_bodies":
+    [...]}`` line. (iv) Both chains' bf16 and int8 ladders through the
+    offline check; a refused ladder must serve native.
 
-Then one JSON line ``{"kernels": [...]}`` (each kernel with its launches
-per phase and, under ``extra_shapes``, phase 3's timings of phase 14's
-shapes and phase 16's Hessians), the card's name and power limit, and
-last ``{"ok": true,
+Then one JSON line ``{"stage_bodies": [...]}``, one ``{"kernels": [...]}``
+(each kernel with its launches per phase and, under ``extra_shapes``,
+phase 3's timings of phase 14's shapes and phase 16's Hessians), the
+card's name and power limit, and last ``{"ok": true,
 "device": {...}}``.
 """
 
@@ -4526,6 +4558,7 @@ CHAIN_F32_ATOL = 1e-5      # served probabilities vs the frame loop
 CHAIN_F64_ATOL = 1e-12     # every stage at float64
 LR_SERVED_RTOL = 1e-5      # the binary model served alone
 PROFILE_ATTEMPTS = 3       # captures of the copies per batch (see phase_logreg)
+PROFILE_PAUSE_S = 0.1      # from a copy capture's start to its traffic
 
 
 def logreg_design(torch, device, index):
@@ -4988,30 +5021,8 @@ def phase_logreg(torch, fg, device, model_c):
             f"{LR_SERVED_RTOL:g})")
         check(worst <= LR_SERVED_RTOL, f"served logreg {worst:.3e}")
 
-        # one device→host copy per batch. Every answer reached the host, so
-        # a capture holding fewer copies than batches lost a trace record
-        # (ROADMAP queue 3 item 16) and is taken again; more copies fail.
-        from torch.profiler import ProfilerActivity, profile
-
-        for attempt in range(1, PROFILE_ATTEMPTS + 1):
-            before = serve_counters(metrics)
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                for i in range(PIPE_PROFILED):
-                    engine.predict("chain", traffic[i])
-                torch.cuda.synchronize()
-            batches = serve_counters(metrics)["batches"] - before["batches"]
-            copies = sum(1 for e in prof.events() if "DtoH" in e.name
-                         and "Memcpy" in e.name)
-            log(f"  (iii) torch.profiler over {PIPE_PROFILED} chain requests "
-                f"(capture {attempt}): {batches:.0f} batches, {copies} "
-                f"device→host copies")
-            check(batches == PIPE_PROFILED and copies <= batches,
-                  f"{copies} device→host copies for {batches} batches")
-            if copies == batches:
-                break
-        check(copies == batches, f"{copies} device→host copies for "
-              f"{batches} batches in each of {PROFILE_ATTEMPTS} captures")
+        # one device→host copy per batch
+        copies_per_batch(torch, engine, metrics, "chain", traffic, "(iii)")
     finally:
         if server is not None:
             server.shutdown()
@@ -5041,6 +5052,475 @@ def phase_logreg(torch, fg, device, model_c):
     log(f"  phase 16 launches {launched}; "
         f"{time.perf_counter() - t_phase:.1f} s")
     return launched, shapes
+
+
+# -- phase 17: the other stage families and their chains ----------------------
+
+STAGE_CONSTANT = 2.5       # planted in every STAGE_CONSTANT_EVERY-th column
+STAGE_CONSTANT_EVERY = 16
+STAGE_THRESHOLD = 0.25     # the Binarizer's; float32 holds it exactly
+STAGE_TIMED = 20           # CUDA-event runs of each body, after 3 warm-up
+STAGE_FRAME_ROWS = 8192    # served rows held against the frame loop
+STAGE_CHECK_ROWS = 8192    # rows each float32 body is held to its host on
+CLUSTER_K = 64
+# bars, set in PERF.md §2 before the first run
+STAGE_F64_NORM_RTOL = 1e-12   # Normalizer at float64; the rest bit-equal
+STAGE_F32_RTOL = 1e-6         # arithmetic families at float32
+STAGE_F32_NORM2_RTOL = 1e-5   # Normalizer p = 2 at float32
+STAGE_EXACT = ("binarizer", "vector_slicer", "variance_selector",
+               "chisq_selector")   # equal to the host at float32 too
+
+
+def planted_rows(torch, device):
+    """Fit (c)'s 32,768 × 4096 float32 rows with every 16th column set to
+    2.5, and the indices of the columns left varying."""
+    x = chunk(torch, device, 20, rows=CHUNK_ROWS // 2)
+    x[:, ::STAGE_CONSTANT_EVERY] = STAGE_CONSTANT
+    varying = np.asarray([j for j in range(x.shape[1])
+                          if j % STAGE_CONSTANT_EVERY])
+    return x, varying
+
+
+def same_state(a, b) -> bool:
+    """Whether two stages hold equal learned state and equal params."""
+    for attr in ("original_min", "original_max", "max_abs", "median",
+                 "qrange", "selected_features", "pc", "explained_variance",
+                 "mean", "std", "cluster_centers", "coefficients"):
+        u, v = getattr(a, attr, None), getattr(b, attr, None)
+        if (u is None) != (v is None) or (
+                u is not None and not np.array_equal(np.asarray(u),
+                                                      np.asarray(v))):
+            return False
+    return a.param_map_for_metadata() == b.param_map_for_metadata()
+
+
+def copies_per_batch(torch, engine, metrics, name, traffic, label) -> None:
+    """One device→host copy per batch over PIPE_PROFILED requests to
+    ``name``, read from a ``torch.profiler`` capture of every thread. A
+    card program's fetch runs inside the ``FETCH_RANGE`` profiler range
+    and its put inside ``PUT_RANGE`` (``models/_serving.py``); the model's
+    batcher worker runs them one at a time. So the capture must hold one
+    host-side fetch range and one put range a batch, each holding exactly
+    one ``cudaMemcpy*`` runtime call: a skipped copy shows as a range with
+    none, a doubled one as a range with two. The memcpy activity records
+    and the ranges' device-side annotations are logged beside (each batch
+    lacking one named) and may not exceed one a batch: they went missing
+    for a capture's first batches (ROADMAP queue 3 item 16), so the
+    traffic starts PROFILE_PAUSE_S after the capture does. A capture
+    holding fewer host-side ranges than batches lost records and is taken
+    again (up to PROFILE_ATTEMPTS)."""
+    import bisect
+
+    from torch._C._profiler import _ExperimentalConfig
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from spark_rapids_ml_tpu_torch.models._serving import (
+        FETCH_RANGE,
+        PUT_RANGE,
+    )
+
+    def split(events, range_name, calls):
+        """(memcpy calls inside each host-side range, batches whose
+        device-side annotation is missing, device-side annotations)"""
+        host = sorted((e for e in events if e.name == range_name
+                       and e.device_type == DeviceType.CPU),
+                      key=lambda e: e.time_range.start)
+        inside = [sum(r.time_range.start <= c.time_range.start
+                      and c.time_range.end <= r.time_range.end
+                      for c in calls) for r in host]
+        starts = [r.time_range.start for r in host]
+        device = [bisect.bisect_right(starts, e.time_range.start) - 1
+                  for e in events if e.name == range_name
+                  and e.device_type != DeviceType.CPU]
+        return (inside, sorted(set(range(len(host))) - set(device)),
+                len(device))
+
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        before = serve_counters(metrics)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     experimental_config=_ExperimentalConfig(
+                         profile_all_threads=True)) as prof:
+            time.sleep(PROFILE_PAUSE_S)
+            for i in range(PIPE_PROFILED):
+                engine.predict(name, traffic[i])
+            torch.cuda.synchronize()
+        batches = serve_counters(metrics)["batches"] - before["batches"]
+        events = list(prof.events())
+        calls = [e for e in events if e.name.startswith("cudaMemcpy")]
+        fetches, fetch_lost, fetch_dev = split(events, FETCH_RANGE, calls)
+        puts, put_lost, put_dev = split(events, PUT_RANGE, calls)
+        dtoh = sum("Memcpy" in e.name and "DtoH" in e.name for e in events)
+        htod = sum("Memcpy" in e.name and "HtoD" in e.name for e in events)
+        log(f"  {label} torch.profiler over {PIPE_PROFILED} {name} requests "
+            f"(capture {attempt}, every thread, traffic {PROFILE_PAUSE_S} s "
+            f"after its start): {batches:.0f} batches, {len(fetches)} fetch "
+            f"ranges holding {fetches} cudaMemcpy* calls, {len(puts)} put "
+            f"ranges holding {puts}; {len(calls)} cudaMemcpy* calls in all; "
+            f"activity records {dtoh} device→host and {htod} host→device; "
+            f"device-side annotations {fetch_dev} fetch (none for batches "
+            f"{fetch_lost}) and {put_dev} put (none for batches {put_lost})")
+        check(batches == PIPE_PROFILED and len(fetches) <= batches
+              and len(puts) <= batches
+              and all(n == 1 for n in fetches + puts)
+              and max(dtoh, htod, fetch_dev, put_dev) <= batches,
+              f"{name}: fetch ranges {fetches}, put ranges {puts}, "
+              f"{dtoh} device→host and {htod} host→device records for "
+              f"{batches} batches")
+        if len(fetches) == len(puts) == batches:
+            return
+    check(False, f"{name}: fewer fetch or put ranges than batches in each "
+          f"of {PROFILE_ATTEMPTS} captures")
+
+
+def stage_bodies(torch, device, x, varying, fits):
+    """(i): each family's body as a one-stage program on the card against
+    its host transform, float32 on STAGE_CHECK_ROWS of ``x``'s rows and
+    float64 on PIPE_F64_ROWS of them, and each body timed at float32 on
+    all of ``x`` beside its bound."""
+    from spark_rapids_ml_tpu_torch import (
+        Binarizer,
+        ChiSqSelectorModel,
+        ElementwiseProduct,
+        Normalizer,
+        PipelineModel,
+        VectorSlicer,
+    )
+    from spark_rapids_ml_tpu_torch.models._serving import (
+        build_fused_pipeline_program,
+    )
+
+    rng = np.random.default_rng(SEED + 1700)
+    n = x.shape[1]
+    stages = {
+        "min_max_scaler": fits["min_max_scaler"],
+        "max_abs_scaler": fits["max_abs_scaler"],
+        "robust_scaler": fits["robust_scaler"],
+        "normalizer p=2": Normalizer(),
+        "normalizer p=inf": Normalizer().setP(float("inf")),
+        "binarizer": Binarizer().setThreshold(STAGE_THRESHOLD),
+        "elementwise_product": ElementwiseProduct(
+            scalingVec=rng.standard_normal(n).tolist()),
+        "vector_slicer": VectorSlicer(
+            indices=[int(i) for i in rng.permutation(n)[:varying.size]]),
+        "variance_selector": fits["variance_selector"],
+        "chisq_selector": ChiSqSelectorModel(
+            selected=rng.choice(n, n // 4, replace=False)),
+    }
+    x32 = x[:STAGE_CHECK_ROWS]
+    x64 = x[:PIPE_F64_ROWS].astype(np.float64)
+    xd = torch.as_tensor(x, device=device)
+    timings = []
+    for label, stage in stages.items():
+        family = label.split(" ")[0]
+        prog = PipelineModel(stages=[stage]).serving_transform_program()
+        check(prog is not None and prog.device.type == "cuda"
+              and prog.dtype == np.float32,
+              f"(i) {label}: one-stage program on "
+              f"{getattr(prog, 'device', None)}")
+        out = prog.fetch(prog.run(prog.put(x32)))
+        host = np.asarray(stage.transform(x32).column(stage.getOutputCol()))
+        check(out.shape == host.shape, f"(i) {label}: {out.shape} vs "
+              f"{host.shape}")
+        err32 = float(np.abs(out - host).max() / np.abs(host).max())
+        if family in STAGE_EXACT:
+            bar32 = 0.0
+        elif label == "normalizer p=2":
+            bar32 = STAGE_F32_NORM2_RTOL
+        else:
+            bar32 = STAGE_F32_RTOL
+        spec = stage.serving_stage(device=device, dtype=torch.float64)
+        prog64 = build_fused_pipeline_program(
+            device=device, dtype=torch.float64, stages=[spec],
+            precision="native")
+        out64 = prog64.fetch(prog64.run(prog64.put(x64)))
+        host64 = np.asarray(stage.transform(x64).column(
+            stage.getOutputCol()))
+        err64 = float(np.abs(out64 - host64).max() / np.abs(host64).max())
+        bar64 = STAGE_F64_NORM_RTOL if family == "normalizer" else 0.0
+        spec32 = stage.serving_stage(device=device, dtype=torch.float32)
+        body = spec32.fn(xd, *spec32.weights)
+        ms = time_ms(torch, lambda: spec32.fn(xd, *spec32.weights),
+                     STAGE_TIMED)
+        moved = xd.nbytes + body.nbytes + sum(w.nbytes
+                                              for w in spec32.weights)
+        bound_ms = moved / PEAK_BYTES_PER_S * 1e3
+        timings.append({"name": label, "algo": spec32.algo, "ms": ms,
+                        "bound_ms": bound_ms, "bound_by": "bytes",
+                        "out_shape": list(body.shape),
+                        "max_rel_err_f32": err32, "max_rel_err_f64": err64})
+        log(f"  (i) {label} ({spec32.algo}): float32 {x32.shape[0]:,} rows "
+            f"max |Δ| / max |ref| {err32:.3e} (bar {bar32:g}), float64 "
+            f"{PIPE_F64_ROWS} rows {err64:.3e} (bar {bar64:g}); body on "
+            f"{x.shape[0]:,} rows {ms:.4f} ms (CUDA events, {STAGE_TIMED} "
+            f"runs), bound "
+            f"{bound_ms:.4f} ms ({moved:,} B at {PEAK_BYTES_PER_S:g} B/s), "
+            f"{bound_ms / ms:.3f} of it")
+        check(err32 <= bar32, f"(i) {label} float32 {err32:.3e}")
+        check(err64 <= bar64, f"(i) {label} float64 {err64:.3e}")
+        del body
+    del xd
+    torch.cuda.empty_cache()
+    return timings
+
+
+def phase_stages(torch, fg, device):
+    """Phase 17: the other stage families (models/feature_scalers.py,
+    models/feature_transformers.py) on the card, and two chains of them in
+    front of PCA served as one fused program each. Returns ({kernel:
+    launches}, [stage body timings])."""
+    from spark_rapids_ml_tpu_torch import (
+        ElementwiseProduct,
+        KMeans,
+        LogisticRegression,
+        MaxAbsScaler,
+        MinMaxScaler,
+        Normalizer,
+        PCA,
+        Pipeline,
+        PipelineModel,
+        RobustScaler,
+        VarianceThresholdSelector,
+        VectorSlicer,
+    )
+    from spark_rapids_ml_tpu_torch.data.frame import VectorFrame
+    from spark_rapids_ml_tpu_torch.models._serving import run_staged_pipeline
+    from spark_rapids_ml_tpu_torch.obs.metrics import get_registry
+    from spark_rapids_ml_tpu_torch.serve import (
+        ModelRegistry,
+        ServeEngine,
+        start_serve_server,
+        wire,
+    )
+    from spark_rapids_ml_tpu_torch.serve.registry import _infer_features
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi_line()
+    default, highest = fg.kernel_name(None), fg.kernel_name("highest")
+    launched = {}
+
+    def add(counts):
+        for name, count in counts.items():
+            launched[name] = launched.get(name, 0) + count
+
+    x, varying = planted_rows(torch, device)
+    n = x.shape[1]
+    kept = varying.size
+    log(f"  {x.shape[0]:,} x {n} float32 rows (fit (c)'s), every "
+        f"{STAGE_CONSTANT_EVERY}th column set to {STAGE_CONSTANT}: "
+        f"{n - kept} constant columns")
+
+    # (ii) and (iii): the two chains, fitted with the launch counts read;
+    # their head stages serve (i) too (fitted on the same rows)
+    rng = np.random.default_rng(SEED + 1701)
+    scaling = rng.standard_normal(n)
+    indices = [int(i) for i in rng.permutation(n)[:kept]]
+    # labels planted on the rows the classifier's PCA sees: MinMax is
+    # affine per column and ElementwiseProduct a per-column scale, so once
+    # standardized those rows are the sliced columns (up to sign)
+    seen = x[:, indices].astype(np.float64)
+    sd = seen.std(axis=0, ddof=1)
+    seen = (seen - seen.mean(axis=0)) / np.where(sd > 0, sd, 1.0)
+    w_star = rng.normal(scale=LR_SCALE / np.sqrt(kept), size=kept)
+    z = seen @ w_star + LR_INTERCEPT
+    del seen
+    y = (rng.random(z.shape[0]) < 1.0 / (1.0 + np.exp(-z))).astype(
+        np.float64)
+    chains = {
+        "classifier": (Pipeline([
+            MinMaxScaler().setOutputCol("boxed"),
+            ElementwiseProduct(scalingVec=scaling.tolist())
+            .setInputCol("boxed").setOutputCol("weighted"),
+            VectorSlicer(indices=indices).setInputCol("weighted")
+            .setOutputCol("sliced"),
+            PCA().setK(K).setInputCol("sliced").setOutputCol("reduced"),
+            LogisticRegression().setInputCol("reduced"),
+        ]), VectorFrame({"features": x, "label": y}),
+            lambda p: {default: 1, highest: p.stages[4].n_iter_}),
+        "clustering": (Pipeline([
+            RobustScaler().setWithCentering(True).setOutputCol("robust"),
+            MaxAbsScaler().setInputCol("robust").setOutputCol("boxed"),
+            Normalizer().setInputCol("boxed").setOutputCol("normed"),
+            VarianceThresholdSelector().setInputCol("normed")
+            .setOutputCol("selected"),
+            PCA().setK(K).setInputCol("selected").setOutputCol("reduced"),
+            KMeans().setK(CLUSTER_K).setInputCol("reduced"),
+        ]), x, {default: 1}),
+    }
+    registry = ModelRegistry()
+    fitted = {}
+    for name, (pipeline, data, expected) in chains.items():
+        label = "(ii)" if name == "classifier" else "(iii)"
+        t0 = time.perf_counter()
+        pipe, counts = counted_run(
+            torch, fg, f"{label} the {name} chain "
+            f"{[type(s).__name__ for s in pipeline.getStages()]}.fit on "
+            f"{x.shape[0]:,} x {n}", lambda: pipeline.fit(data), expected)
+        add(counts)
+        log(f"    {name} chain fit {time.perf_counter() - t0:.3f} s; stage "
+            f"fit_timings_ "
+            f"{[{k: round(t, 3) for k, t in getattr(s, 'fit_timings_', {}).items()} for s in pipe.stages]}")
+        if name == "classifier":
+            log(f"    LogisticRegression n_iter {pipe.stages[4].n_iter_}")
+        else:
+            kept_chain = pipe.stages[3].selected_features.size
+            log(f"    RobustScaler fit {pipe.stages[0].fit_timings_['fit']:.3f} "
+                f"s (exact np.nanquantile); the selector keeps {kept_chain} "
+                f"columns")
+            check(kept_chain == kept, f"(iii) the selector keeps "
+                  f"{kept_chain}, expected {kept}")
+        with tempfile.TemporaryDirectory() as tmp:
+            pipe.save(f"{tmp}/{name}")
+            registry.load(name, f"{tmp}/{name}")
+        loaded = registry.resolve(name)
+        check([type(s).__name__ for s in loaded.stages]
+              == [type(s).__name__ for s in pipe.stages]
+              and all(same_state(a, b) for a, b in zip(loaded.stages,
+                                                       pipe.stages)),
+              f"{label} the loaded {name} chain")
+        check(_infer_features(loaded) == n, f"{label} {name}: inferred "
+              f"{_infer_features(loaded)} features")
+        fitted[name] = loaded
+    log(f"  (ii)-(iii) fits, saves and loads: "
+        f"{time.perf_counter() - t_phase:.1f} s into the phase")
+
+    # (i) each family's body: the chains' MinMax and Robust heads, and
+    # MaxAbs and the variance selector fitted on the raw rows
+    fits = {"min_max_scaler": fitted["classifier"].stages[0],
+            "robust_scaler": fitted["clustering"].stages[0]}
+    for label, est in (("max_abs_scaler", MaxAbsScaler()),
+                       ("variance_selector", VarianceThresholdSelector())):
+        fits[label], _ = counted_run(torch, fg, f"(i) {label} fit",
+                                     lambda: est.fit(x), {})
+    selected = fits["variance_selector"].selected_features
+    check(np.array_equal(selected, varying), f"(i) the variance selector "
+          f"kept {selected.size} columns, not the {kept} varying ones")
+    t0 = time.perf_counter()
+    timings = stage_bodies(torch, device, x, varying, fits)
+    log(f"  (i) {len(timings)} bodies checked and timed: "
+        f"{time.perf_counter() - t0:.1f} s")
+    del x, y, z
+    metrics = get_registry()
+    traffic = serve_traffic()
+    rows_all = np.concatenate(traffic)
+    engine = ServeEngine(registry, max_batch_rows=SERVE_MAX_ROWS,
+                         pipeline_depth=2)
+    server = None
+    try:
+        for name in chains:
+            report = engine.warmup(name)  # no n_features: the head gives it
+            spec = engine._async_specs[(name, 1)]
+            check("pipeline" in report and spec is not None
+                  and spec.algo == "pipeline",
+                  f"{name}: no fused program after warmup")
+        server = start_serve_server(engine, port=0, addr="127.0.0.1")
+        port = server.server_address[1]
+        for name, loaded in fitted.items():
+            label = "(ii)" if name == "classifier" else "(iii)"
+            bodies = [(i, wire.encode_request(name, rows),
+                       wire.BINARY_CONTENT_TYPE)
+                      for i, rows in enumerate(traffic)]
+            before = serve_counters(metrics)
+            results, wall = http_clients(port, bodies)
+            delta = {k: v - before[k]
+                     for k, v in serve_counters(metrics).items()}
+            check(len(results) == SERVE_REQUESTS, f"{len(results)} {name} "
+                  f"responses")
+            want = np.float64 if name == "classifier" else np.int32
+            served, unequal = [], 0
+            for i in sorted(results):
+                _, status, _, data = results[i]
+                check(status == 200, f"{name} request {i}: HTTP {status}")
+                out = wire.decode_response(data)
+                check(out.dtype == want and out.shape == (len(traffic[i]),)
+                      and np.isfinite(out).all(),
+                      f"{name} request {i}: {out.dtype} {out.shape}")
+                unequal += not np.array_equal(
+                    out, run_staged_pipeline(loaded, traffic[i]))
+                served.append(out)
+            lat = np.asarray([results[i][0] * 1e3 for i in sorted(results)])
+            log(f"  {label} {SERVE_REQUESTS} binary requests "
+                f"({rows_all.shape[0]} rows) to {name!r} over HTTP from "
+                f"{SERVE_CLIENTS} clients in {wall:.3f} s: "
+                f"{SERVE_REQUESTS / wall:.1f} requests/s, "
+                f"{rows_all.shape[0] / wall:.0f} rows/s; client p50 "
+                f"{np.percentile(lat, 50):.2f} ms, p99 "
+                f"{np.percentile(lat, 99):.2f} ms; {delta['batches']:.0f} "
+                f"batches; responses unequal to run_staged_pipeline on "
+                f"their rows: {unequal}; {smi}")
+            check(unequal == 0, f"{unequal} {name} responses differ from "
+                  f"run_staged_pipeline")
+            check(delta["runs_cuda"] == delta["batches"] > 0
+                  and delta["errors"] == delta["degraded"]
+                  == delta["retries"] == 0, f"{name}: counters {delta}")
+            served = np.concatenate(served)
+            f64 = PipelineModel(stages=[
+                s.copy({"dtype": "float64"}) if s.has_param("dtype") else s
+                for s in loaded.stages])
+            prog64 = f64.serving_transform_program()
+            sample = rows_all[:PIPE_F64_ROWS]
+            fused64 = prog64.fetch(prog64.run(prog64.put(sample)))
+            # the frame loop densifies every stage's output to float64 on
+            # the host: on the first STAGE_FRAME_ROWS served rows
+            framed, served = rows_all[:STAGE_FRAME_ROWS], \
+                served[:STAGE_FRAME_ROWS]
+            t0 = time.perf_counter()
+            if name == "classifier":
+                frame = np.asarray(loaded.transform(framed).column(
+                    "probability"))
+                d32 = float(np.abs(served - frame).max())
+                d64 = float(np.abs(fused64 - np.asarray(
+                    f64.transform(sample).column("probability"))).max())
+                bars = (CHAIN_F32_ATOL, CHAIN_F64_ATOL)
+                what = "probabilities max |Δ|"
+            else:
+                frame = km_labels(loaded, framed)
+                d32 = float(np.mean(served != frame))
+                d64 = float(np.mean(fused64 != km_labels(f64, sample)))
+                bars = (PIPE_MISMATCH, 0.0)
+                what = "label mismatch"
+            log(f"  {label} {what} vs PipelineModel.transform on the first "
+                f"{framed.shape[0]} served rows {d32:.3e} "
+                f"(bar {bars[0]:g}; the frame loop "
+                f"{time.perf_counter() - t0:.2f} s), every stage at float64 "
+                f"on {PIPE_F64_ROWS} rows {d64:.3e} (bar {bars[1]:g})")
+            check(d32 <= bars[0], f"{name} vs the frame loop {d32:.3e}")
+            check(d64 <= bars[1], f"{name} at float64 {d64:.3e}")
+            copies_per_batch(torch, engine, metrics, name, traffic, label)
+        log(f"  (ii)-(iii) served: {time.perf_counter() - t_phase:.1f} s "
+            f"into the phase")
+    finally:
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+        engine.shutdown()
+
+    # (iv) both chains' reduced ladders through the offline check
+    for name, loaded in fitted.items():
+        only = ModelRegistry()
+        only.register(name, loaded)
+        for precision in ("bf16", "int8"):
+            engine = ServeEngine(only, max_batch_rows=SERVE_MAX_ROWS,
+                                 pipeline_depth=2, precision=precision)
+            try:
+                engine.warmup(name)
+                checked = engine.precision_checks[(name, 1, precision)]
+                serving = engine.stats()["queues"][f"{name}@1"]["precision"]
+                log(f"  (iv) {name} {precision}: offline check error "
+                    f"{checked['error']}, verdict {checked['verdict']} (bar "
+                    f"{checked['bar']:g}), serves {serving}")
+                check(checked["verdict"] in ("pass", "fail"),
+                      f"(iv) {name} {precision} check ended "
+                      f"{checked['verdict']}")
+                check(checked["verdict"] == "pass" or serving == "native",
+                      f"(iv) a refused {precision} ladder serves {serving}")
+            finally:
+                engine.shutdown()
+    torch.cuda.empty_cache()
+    log(f"  phase 17 launches {launched}; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launched, timings
 
 
 def build_fresh(cuda_build):
@@ -5163,6 +5643,9 @@ def main() -> int:
     logreg_launches, logreg_shapes = phase_logreg(torch, fg, device, model_c)
     measured[fg.kernel_name("highest")]["extra_shapes"].update(logreg_shapes)
 
+    log("[17] the other stage families and their chains")
+    stage_launches, stage_timings = phase_stages(torch, fg, device)
+
     kernels = []
     for name, m in measured.items():
         check(launches.get(name, 0) > 0, f"{name} not launched on the main path")
@@ -5170,7 +5653,8 @@ def main() -> int:
                     "13": monitored.get(name, 0),
                     "14": gram_callers.get(name, 0),
                     "15": pipeline_launches.get(name, 0),
-                "16": logreg_launches.get(name, 0)}
+                    "16": logreg_launches.get(name, 0),
+                    "17": stage_launches.get(name, 0)}
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES, "launches": sum(by_phase.values()),
@@ -5181,6 +5665,7 @@ def main() -> int:
             "extra_shapes": m["extra_shapes"],
         })
     log(f"  total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"stage_bodies": stage_timings}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

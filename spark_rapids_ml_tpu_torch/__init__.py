@@ -39,6 +39,23 @@ from spark_rapids_ml_tpu_torch.models.svd import (  # noqa: F401
     TruncatedSVD,
     TruncatedSVDModel,
 )
+from spark_rapids_ml_tpu_torch.models.feature_scalers import (  # noqa: F401
+    Binarizer,
+    MaxAbsScaler,
+    MaxAbsScalerModel,
+    MinMaxScaler,
+    MinMaxScalerModel,
+    Normalizer,
+    RobustScaler,
+    RobustScalerModel,
+)
+from spark_rapids_ml_tpu_torch.models.feature_transformers import (  # noqa: F401
+    ChiSqSelectorModel,
+    ElementwiseProduct,
+    VarianceThresholdSelector,
+    VarianceThresholdSelectorModel,
+    VectorSlicer,
+)
 from spark_rapids_ml_tpu_torch.linalg import RowMatrix  # noqa: F401
 
 __all__ = [
@@ -57,4 +74,17 @@ __all__ = [
     "TruncatedSVD",
     "TruncatedSVDModel",
     "RowMatrix",
+    "Binarizer",
+    "MaxAbsScaler",
+    "MaxAbsScalerModel",
+    "MinMaxScaler",
+    "MinMaxScalerModel",
+    "Normalizer",
+    "RobustScaler",
+    "RobustScalerModel",
+    "ChiSqSelectorModel",
+    "ElementwiseProduct",
+    "VarianceThresholdSelector",
+    "VarianceThresholdSelectorModel",
+    "VectorSlicer",
 ]

@@ -44,7 +44,7 @@ import os
 import shutil
 import time
 import uuid
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 
@@ -103,7 +103,8 @@ def _require_target(path: str, overwrite: bool) -> None:
 
 
 def _write_metadata(path: str, cls: str, uid: str,
-                    param_map: Dict[str, Any]) -> None:
+                    param_map: Dict[str, Any],
+                    extra: Optional[Dict[str, Any]] = None) -> None:
     meta_dir = os.path.join(path, "metadata")
     os.makedirs(meta_dir, exist_ok=True)
     simple_name = cls.rsplit(".", 1)[-1]
@@ -124,6 +125,8 @@ def _write_metadata(path: str, cls: str, uid: str,
         "defaultParamMap": {},
         "tpuParamMap": extra_params,
     }
+    if extra:
+        metadata["extra"] = extra
     with open(os.path.join(meta_dir, "part-00000"), "w") as f:
         f.write(json.dumps(metadata))
     open(os.path.join(meta_dir, "_SUCCESS"), "w").close()
@@ -284,6 +287,8 @@ _SPARK_FIELD_TYPES = {
     "vector": _VECTOR_UDT_JSON,
     "double": "double",
     "integer": "integer",
+    "array<int>": {"type": "array", "elementType": "integer",
+                   "containsNull": False},
 }
 
 
@@ -582,39 +587,135 @@ def load_kmeans_model(path: str):
     return _restore_params(model, meta)
 
 
-def save_scaler_model(model, path: str, overwrite: bool = False) -> None:
-    if model.mean is None:
-        raise ValueError("cannot save an unfitted StandardScalerModel")
+def _save_vector_row(model, path: str, overwrite: bool,
+                     fields: Dict[str, str]) -> None:
+    """Metadata plus one data row of dense vectors, the layout the
+    host-statistics scalers share: ``fields`` maps each on-disk field
+    name to the model attribute holding it (None until fitted)."""
+    if any(getattr(model, attr) is None for attr in fields.values()):
+        raise ValueError(
+            f"cannot save an unfitted {type(model).__qualname__}")
     _require_target(path, overwrite)
     cls = f"{type(model).__module__}.{type(model).__qualname__}"
     _write_metadata(path, cls, model.uid, model.param_map_for_metadata())
-    row = {
-        "mean": _dense_vector_struct(model.mean),
-        "std": _dense_vector_struct(model.std),
-    }
+    row = {name: _dense_vector_struct(getattr(model, attr))
+           for name, attr in fields.items()}
     try:
         import pyarrow as pa
     except ImportError:
         schema = None
     else:
-        schema = pa.schema(
-            [("mean", _vector_arrow_type()), ("std", _vector_arrow_type())]
-        )
-    _write_data_row(path, row, schema=schema, spark_fields=[
-        ("mean", "vector"), ("std", "vector"),
-    ])
+        schema = pa.schema([(name, _vector_arrow_type()) for name in fields])
+    _write_data_row(path, row, schema=schema,
+                    spark_fields=[(name, "vector") for name in fields])
+
+
+def _load_vector_row(path: str, model_cls, fields: Dict[str, str]):
+    """Read what ``_save_vector_row`` wrote into ``model_cls``, whose
+    constructor takes each attribute of ``fields`` by name."""
+    meta = _read_metadata(path)
+    row = _read_data_row(path)
+    model = model_cls(**{attr: _dense_vector_from_struct(row[name])
+                         for name, attr in fields.items()})
+    model.uid = meta["uid"]
+    return _restore_params(model, meta)
+
+
+_SCALER_FIELDS = {"mean": "mean", "std": "std"}
+_MINMAX_FIELDS = {"originalMin": "original_min",
+                  "originalMax": "original_max"}
+_MAXABS_FIELDS = {"maxAbs": "max_abs"}
+_ROBUST_FIELDS = {"median": "median", "range": "qrange"}
+
+
+def save_scaler_model(model, path: str, overwrite: bool = False) -> None:
+    _save_vector_row(model, path, overwrite, _SCALER_FIELDS)
 
 
 def load_scaler_model(path: str):
     from spark_rapids_ml_tpu_torch.models.scaler import StandardScalerModel
 
-    meta = _read_metadata(path)
-    row = _read_data_row(path)
-    model = StandardScalerModel(
-        mean=_dense_vector_from_struct(row["mean"]),
-        std=_dense_vector_from_struct(row["std"]),
-        uid=meta["uid"],
+    return _load_vector_row(path, StandardScalerModel, _SCALER_FIELDS)
+
+
+def save_minmax_model(model, path: str, overwrite: bool = False) -> None:
+    _save_vector_row(model, path, overwrite, _MINMAX_FIELDS)
+
+
+def load_minmax_model(path: str):
+    from spark_rapids_ml_tpu_torch.models.feature_scalers import (
+        MinMaxScalerModel,
     )
+
+    return _load_vector_row(path, MinMaxScalerModel, _MINMAX_FIELDS)
+
+
+def save_maxabs_model(model, path: str, overwrite: bool = False) -> None:
+    _save_vector_row(model, path, overwrite, _MAXABS_FIELDS)
+
+
+def load_maxabs_model(path: str):
+    from spark_rapids_ml_tpu_torch.models.feature_scalers import (
+        MaxAbsScalerModel,
+    )
+
+    return _load_vector_row(path, MaxAbsScalerModel, _MAXABS_FIELDS)
+
+
+def save_robust_model(model, path: str, overwrite: bool = False) -> None:
+    _save_vector_row(model, path, overwrite, _ROBUST_FIELDS)
+
+
+def load_robust_model(path: str):
+    from spark_rapids_ml_tpu_torch.models.feature_scalers import (
+        RobustScalerModel,
+    )
+
+    return _load_vector_row(path, RobustScalerModel, _ROBUST_FIELDS)
+
+
+def save_selector_model(model, path: str, overwrite: bool = False) -> None:
+    """Spark's selector-model layout: a data row with selectedFeatures;
+    the model's class travels under the metadata's ``extra``."""
+    if model.selected_features is None:
+        raise ValueError("cannot save an unfitted selector model")
+    _require_target(path, overwrite)
+    cls = f"{type(model).__module__}.{type(model).__qualname__}"
+    _write_metadata(
+        path, cls, model.uid, model.param_map_for_metadata(),
+        extra={"selectorClass": type(model).__qualname__})
+    _write_data_row(
+        path,
+        {"selectedFeatures": [int(i) for i in model.selected_features]},
+        spark_fields=[("selectedFeatures", "array<int>")])
+
+
+_SELECTOR_MODEL_CLASSES = ("ChiSqSelectorModel",
+                           "VarianceThresholdSelectorModel",
+                           "UnivariateFeatureSelectorModel")
+
+
+def load_selector_model(path: str):
+    """A selector model by the ``selectorClass`` its metadata records
+    (ChiSq when absent, as in the JAX package). The port has no
+    ``UnivariateFeatureSelectorModel`` yet: that metadata is refused."""
+    from spark_rapids_ml_tpu_torch.models import feature_transformers as ft
+
+    meta = _read_metadata(path)
+    name = meta.get("extra", {}).get("selectorClass", "ChiSqSelectorModel")
+    if name not in _SELECTOR_MODEL_CLASSES:
+        raise ValueError(
+            f"{path}: unknown selector model class {name!r} "
+            f"(expected one of {_SELECTOR_MODEL_CLASSES})")
+    model_cls = getattr(ft, name, None)
+    if model_cls is None:
+        raise ValueError(
+            f"{path}: {name} has no counterpart in this package yet "
+            "(ROADMAP queue 1 item 7)")
+    row = _read_data_row(path)
+    model = model_cls(
+        selected=[int(i) for i in row["selectedFeatures"]],
+        uid=meta["uid"])
     return _restore_params(model, meta)
 
 
@@ -628,6 +729,14 @@ _MODEL_CLASSES = {
         ("pca", ("PCA", "PCAModel")),
         ("kmeans", ("KMeans", "KMeansModel")),
         ("scaler", ("StandardScaler", "StandardScalerModel")),
+        ("feature_scalers", ("MinMaxScaler", "MinMaxScalerModel",
+                             "MaxAbsScaler", "MaxAbsScalerModel",
+                             "RobustScaler", "RobustScalerModel",
+                             "Normalizer", "Binarizer")),
+        ("feature_transformers", ("ElementwiseProduct", "VectorSlicer",
+                                  "VarianceThresholdSelector",
+                                  "VarianceThresholdSelectorModel",
+                                  "ChiSqSelectorModel")),
         ("linear_regression", ("LinearRegression", "LinearRegressionModel")),
         ("logistic_regression", ("LogisticRegression",
                                  "LogisticRegressionModel")),

@@ -19,6 +19,23 @@ from spark_rapids_ml_tpu_torch.models.svd import (
     TruncatedSVD,
     TruncatedSVDModel,
 )
+from spark_rapids_ml_tpu_torch.models.feature_scalers import (
+    Binarizer,
+    MaxAbsScaler,
+    MaxAbsScalerModel,
+    MinMaxScaler,
+    MinMaxScalerModel,
+    Normalizer,
+    RobustScaler,
+    RobustScalerModel,
+)
+from spark_rapids_ml_tpu_torch.models.feature_transformers import (
+    ChiSqSelectorModel,
+    ElementwiseProduct,
+    VarianceThresholdSelector,
+    VarianceThresholdSelectorModel,
+    VectorSlicer,
+)
 
 __all__ = [
     "PCA",
@@ -35,4 +52,17 @@ __all__ = [
     "LogisticRegressionModel",
     "TruncatedSVD",
     "TruncatedSVDModel",
+    "Binarizer",
+    "MaxAbsScaler",
+    "MaxAbsScalerModel",
+    "MinMaxScaler",
+    "MinMaxScalerModel",
+    "Normalizer",
+    "RobustScaler",
+    "RobustScalerModel",
+    "ChiSqSelectorModel",
+    "ElementwiseProduct",
+    "VarianceThresholdSelector",
+    "VarianceThresholdSelectorModel",
+    "VectorSlicer",
 ]

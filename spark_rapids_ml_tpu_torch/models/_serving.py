@@ -31,6 +31,10 @@ for the batcher worker that serves next. On the pair:
 * ``fetch`` is the only sync: a device→host copy into pinned memory on
   the compute stream, a wait on its event, then ``fetch_dtype``.
 
+On a card ``put`` and ``fetch`` each run inside a ``torch.profiler``
+range (``PUT_RANGE``, ``FETCH_RANGE``), so a capture can tie each copy
+the runtime was asked for to the batch step that issued it.
+
 Every ``run`` counts ``sparkml_serve_program_runs_total{algo, precision,
 device}`` with the device of the tensor it was handed, so a caller can
 tell from the metrics that every batch ran on the card.
@@ -57,9 +61,14 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from spark_rapids_ml_tpu_torch.obs.metrics import get_registry
 from spark_rapids_ml_tpu_torch.obs.serving import DeviceBatch, ServingProgram
+
+# profiler ranges around a card program's put and fetch
+PUT_RANGE = "sparkml.serve.put"
+FETCH_RANGE = "sparkml.serve.fetch"
 
 
 class ServingStage(NamedTuple):
@@ -212,7 +221,7 @@ def _assemble_program(*, device, dtype: torch.dtype, algo: str,
         def put(matrix):
             host = torch.from_numpy(np.ascontiguousarray(matrix,
                                                          dtype=host_dtype))
-            with torch.cuda.stream(copy_stream):
+            with record_function(PUT_RANGE), torch.cuda.stream(copy_stream):
                 x = torch.empty(host.shape, dtype=dtype, device=device)
                 x.copy_(host, non_blocking=True)
                 copied = torch.cuda.Event()
@@ -232,13 +241,14 @@ def _assemble_program(*, device, dtype: torch.dtype, algo: str,
             return out
 
         def fetch(out: torch.Tensor) -> np.ndarray:
-            with torch.cuda.stream(compute_stream):
+            with record_function(FETCH_RANGE), \
+                    torch.cuda.stream(compute_stream):
                 host = torch.empty(out.shape, dtype=out.dtype,
                                    pin_memory=True)
                 host.copy_(out, non_blocking=True)
                 done = torch.cuda.Event()
                 done.record(compute_stream)
-            done.synchronize()
+                done.synchronize()
             return finish(host.numpy())
     else:
         def put(matrix):

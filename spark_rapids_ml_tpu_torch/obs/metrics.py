@@ -43,6 +43,9 @@ def _escape_label_value(value: str) -> str:
 
 
 def _format_value(v: float) -> str:
+    # the exposition format's spelling; ``int(v)`` below raises on NaN
+    if math.isnan(v):
+        return "NaN"
     if math.isinf(v):
         return "+Inf" if v > 0 else "-Inf"
     if v == int(v) and abs(v) < 1e15:

@@ -22,6 +22,7 @@ from spark_rapids_ml_tpu_torch.ops.fused_gram import (
     fused_centered_gram_reference,
 )
 from spark_rapids_ml_tpu_torch.utils import cuda_build
+from torch_stage_families import FAMILY_ALGOS, stage_family
 
 pytestmark = pytest.mark.gpu
 
@@ -1287,3 +1288,38 @@ def test_classifier_chain_bit_equal_staged_on_the_card(cuda_device):
     frame = np.asarray(model.transform(x[:1024]).column("probability"))
     fused = prog.fetch(prog.run(prog.put(x[:1024])))
     assert np.max(np.abs(fused - frame)) <= 1e-5
+
+
+# -- slice 17: the other stage families ---------------------------------------
+
+# whose float32 body must equal the host transform of the same float32 rows
+EXACT_FAMILIES = {"binarizer", "vector_slicer", "feature_selector"}
+
+
+@pytest.mark.parametrize("algo", FAMILY_ALGOS)
+def test_stage_family_bodies_on_the_card(cuda_device, algo):
+    """Each family's stage body on CUDA tensors against its host
+    transform: at float64 bit-equal (Normalizer within 1e-12 relative); at
+    float32 against the host transform of the same float32 rows, equal
+    for the exact families and within 1e-6 relative (Normalizer 1e-5)
+    for the arithmetic ones."""
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(4096, 64)) * np.linspace(0.5, 3.0, 64) + 0.2
+    x[:, ::16] = 2.5  # constant columns
+    model = stage_family(algo, x)
+    for dtype, rows in ((torch.float64, x),
+                        (torch.float32, x.astype(np.float32))):
+        spec = model.serving_stage(device=cuda_device, dtype=dtype)
+        out = spec.fn(torch.as_tensor(rows, device=cuda_device), *spec.weights)
+        assert out.device.type == "cuda" and out.dtype == dtype
+        got = out.cpu().numpy().astype(np.float64)
+        host = np.asarray(model.transform(rows).column(model.getOutputCol()))
+        if dtype == torch.float64 and algo != "normalizer":
+            np.testing.assert_array_equal(got, host)
+        elif dtype == torch.float32 and algo in EXACT_FAMILIES:
+            np.testing.assert_array_equal(got, host)
+        else:
+            bar = {torch.float64: 1e-12, torch.float32: 1e-6}[dtype]
+            if dtype == torch.float32 and algo == "normalizer":
+                bar = 1e-5
+            assert np.abs(got - host).max() <= bar * np.abs(host).max()

@@ -17,6 +17,7 @@ import os
 import numpy as np
 import pytest
 
+import spark_rapids_ml_tpu_torch as port_pkg
 from spark_rapids_ml_tpu_torch import (
     KMeans,
     LinearRegression,
@@ -78,11 +79,52 @@ def _fitted(family):
         ]).fit(x)
     if family == "estimator":
         return KMeans().setK(4)
+    return _stage_family(family, x, port_pkg)
+
+
+def _stage_family(family, x, pkg):
+    """The stage families of ``models/feature_scalers.py`` and
+    ``models/feature_transformers.py``, fitted on ``x`` by ``pkg`` (the
+    port or the JAX package), each with a param set away from its
+    default."""
+    if family == "minmax":
+        return pkg.MinMaxScaler().setMin(-1.0).setMax(2.0).fit(x)
+    if family == "maxabs":
+        return pkg.MaxAbsScaler().setOutputCol("abs_scaled").fit(x)
+    if family == "robust":
+        return pkg.RobustScaler().setWithCentering(True).setLower(0.1) \
+            .fit(x)
+    if family == "normalizer":
+        return pkg.Normalizer().setP(3.0)
+    if family == "binarizer":
+        return pkg.Binarizer().setThreshold(0.5)
+    if family == "elementwise":
+        return pkg.ElementwiseProduct(scalingVec=[0.5, -1.0, 2.0, 1.0, 3.0])
+    if family == "slicer":
+        return pkg.VectorSlicer(indices=[4, 0, 2])
+    if family == "varsel":
+        return pkg.VarianceThresholdSelector(varianceThreshold=0.1)
+    if family == "varsel_model":
+        return pkg.VarianceThresholdSelector(varianceThreshold=0.9).fit(x)
+    if family == "chisq_model":
+        return pkg.ChiSqSelectorModel(selected=[3, 1])
+    if family == "minmax_est":
+        return pkg.MinMaxScaler().setMax(4.0)
+    if family == "maxabs_est":
+        return pkg.MaxAbsScaler().setInputCol("raw")
+    if family == "robust_est":
+        return pkg.RobustScaler().setWithScaling(False)
     raise KeyError(family)
 
 
+# the stage families, and those of them that save params only
+STAGE_FAMILIES = ("minmax", "maxabs", "robust", "normalizer", "binarizer",
+                  "elementwise", "slicer", "varsel", "varsel_model",
+                  "chisq_model", "minmax_est", "maxabs_est", "robust_est")
+PARAMS_ONLY = {"estimator", "normalizer", "binarizer", "elementwise",
+               "slicer", "varsel", "minmax_est", "maxabs_est", "robust_est"}
 FAMILIES = ("pca", "kmeans", "scaler", "linreg", "svd", "logreg",
-            "logreg_mn", "pipeline", "estimator")
+            "logreg_mn", "pipeline", "estimator") + STAGE_FAMILIES
 
 
 def _state(obj):
@@ -92,7 +134,9 @@ def _state(obj):
     out = []
     for attr in ("pc", "cluster_centers", "mean", "std", "coefficients",
                  "components", "singular_values", "intercept",
-                 "coefficient_matrix", "intercept_vector", "classes_"):
+                 "coefficient_matrix", "intercept_vector", "classes_",
+                 "original_min", "original_max", "max_abs", "median",
+                 "qrange", "selected_features"):
         value = getattr(obj, attr, None)
         if value is not None:
             out.append(np.asarray(value))
@@ -120,7 +164,7 @@ def test_atomic_save_crash_leaves_no_half_written_model(tmp_path, family,
                                                         monkeypatch):
     model = _fitted(family)
     path = str(tmp_path / "model")
-    target = "_write_metadata" if family == "estimator" else "_write_data_row"
+    target = "_write_metadata" if family in PARAMS_ONLY else "_write_data_row"
     monkeypatch.setattr(persistence, target, _boom)
     with pytest.raises(RuntimeError, match="mid-save"):
         model.save(path)
@@ -134,7 +178,7 @@ def test_atomic_overwrite_crash_keeps_previous_model(tmp_path, family,
     model = _fitted(family)
     path = str(tmp_path / "model")
     model.save(path)
-    target = "_write_metadata" if family == "estimator" else "_write_data_row"
+    target = "_write_metadata" if family in PARAMS_ONLY else "_write_data_row"
     monkeypatch.setattr(persistence, target, _boom)
     with pytest.raises(RuntimeError, match="mid-save"):
         model.save(path, overwrite=True)
@@ -187,7 +231,9 @@ def test_every_writer_is_wrapped():
     writers = [name for name in dir(persistence) if name.startswith("save_")]
     assert {"save_params", "save_pca_model", "save_kmeans_model",
             "save_scaler_model", "save_linreg_model",
-            "save_svd_model", "save_logreg_model"} <= set(writers)
+            "save_svd_model", "save_logreg_model", "save_minmax_model",
+            "save_maxabs_model", "save_robust_model",
+            "save_selector_model"} <= set(writers)
     for name in writers:
         assert hasattr(getattr(persistence, name), "__wrapped_save__"), name
 
@@ -227,11 +273,12 @@ def _jax_fitted(family):
             jax_pkg.PCA().setK(3).setInputCol("s").setOutputCol("r"),
             jax_pkg.KMeans().setK(2).setInputCol("r"),
         ]).fit(x)
-    raise KeyError(family)
+    return _stage_family(family, x, jax_pkg)
 
 
 @pytest.mark.parametrize("family", ["linreg", "svd", "kmeans", "scaler",
-                                    "logreg", "logreg_mn", "pipeline"])
+                                    "logreg", "logreg_mn", "pipeline",
+                                    *STAGE_FAMILIES])
 def test_load_model_maps_jax_written_metadata_to_the_port(tmp_path, family):
     jax_model = _jax_fitted(family)
     path = str(tmp_path / family)
@@ -241,6 +288,8 @@ def test_load_model_maps_jax_written_metadata_to_the_port(tmp_path, family):
     loaded = load_model(path)
     assert type(loaded).__module__.startswith("spark_rapids_ml_tpu_torch.")
     assert type(loaded).__name__ == type(jax_model).__name__
+    if family in STAGE_FAMILIES:  # the same params, so the same state
+        _same(loaded, jax_model)
 
 
 def test_load_model_refuses_a_class_it_does_not_have(tmp_path):
@@ -319,7 +368,8 @@ def test_linear_regression_warms_without_n_features():
 
 @pytest.mark.parametrize("family,width", [
     ("pca", 5), ("kmeans", 5), ("scaler", 5), ("linreg", 5),
-    ("logreg", 5), ("logreg_mn", 5), ("pipeline", 5)])
+    ("logreg", 5), ("logreg_mn", 5), ("pipeline", 5), ("minmax", 5),
+    ("maxabs", 5), ("robust", 5)])
 def test_feature_inference_covers_every_family(family, width):
     assert _infer_features(_fitted(family)) == width
 
@@ -335,3 +385,61 @@ def test_feature_inference_walks_a_pipeline_from_its_first_stage():
     Opaque = type("Opaque", (), {"transform": lambda self, d: d})
     assert _infer_features(PipelineModel(
         stages=[Opaque(), *model.stages])) is None
+
+
+# -- the stage families against the JAX writers and loaders -------------------
+
+def _comparable_metadata(path):
+    """A saved stage's metadata, less the timestamp and the module path."""
+    meta = persistence._read_metadata(path)
+    meta.pop("timestamp")
+    for key in ("class", "pythonClass"):
+        meta[key] = meta[key].rsplit(".", 1)[-1]
+    return meta
+
+
+@pytest.mark.parametrize("family", STAGE_FAMILIES)
+def test_stage_metadata_equals_the_jax_writers(tmp_path, family):
+    port, jax_model = _fitted(family), _jax_fitted(family)
+    jax_model.uid = port.uid
+    port.save(str(tmp_path / "port"))
+    jax_model.save(str(tmp_path / "jax"))
+    got = _comparable_metadata(str(tmp_path / "port"))
+    want = _comparable_metadata(str(tmp_path / "jax"))
+    assert got == want
+    assert got["extra"] == {"selectorClass": type(port).__name__} \
+        if family in ("varsel_model", "chisq_model") else "extra" not in got
+    assert sorted(os.listdir(tmp_path / "port")) == sorted(
+        os.listdir(tmp_path / "jax"))
+
+
+def _jax_loader(name):
+    from spark_rapids_ml_tpu.models import feature_scalers as jfs
+    from spark_rapids_ml_tpu.models import feature_transformers as jft
+
+    return getattr(jfs, name, None) or getattr(jft, name)
+
+
+@pytest.mark.parametrize("family", STAGE_FAMILIES)
+def test_port_saved_stages_load_through_the_jax_class(tmp_path, family):
+    model = _fitted(family)
+    path = str(tmp_path / family)
+    model.save(path)
+    back = _jax_loader(type(model).__name__).load(path)
+    assert type(back).__module__.startswith("spark_rapids_ml_tpu.models.")
+    assert type(back).__name__ == type(model).__name__
+    assert back.uid == model.uid
+    _same(back, model)
+
+
+def test_univariate_selector_metadata_has_no_counterpart(tmp_path):
+    from spark_rapids_ml_tpu.models.feature_transformers2 import (
+        UnivariateFeatureSelectorModel,
+    )
+
+    path = str(tmp_path / "univariate")
+    UnivariateFeatureSelectorModel(selected=[0, 2]).save(path)
+    with pytest.raises(ValueError, match="no counterpart"):
+        load_model(path)
+    with pytest.raises(ValueError, match="no counterpart"):
+        persistence.load_selector_model(path)

@@ -44,6 +44,7 @@ from spark_rapids_ml_tpu_torch.models._serving import run_staged_pipeline
 from spark_rapids_ml_tpu_torch.obs.metrics import get_registry
 from spark_rapids_ml_tpu_torch.serve import ModelRegistry, ServeEngine
 from spark_rapids_ml_tpu_torch.serve.registry import _infer_features
+from torch_stage_families import FAMILY_ALGOS, stage_family
 
 RAGGED_SIZES = (1, 3, 17, 64, 100)
 
@@ -250,10 +251,12 @@ def _jax_twin(model, tmp_path):
     saved by the port and read by the JAX class's own loader (the JAX
     ``PipelineModel.load`` would import the class the metadata records,
     which for a port-saved stage is the port's)."""
-    loaders = {"StandardScalerModel": jax_pkg.StandardScalerModel,
-               "PCAModel": jax_pkg.PCAModel,
-               "KMeansModel": jax_pkg.KMeansModel,
-               "LogisticRegressionModel": jax_pkg.LogisticRegressionModel}
+    loaders = {name: getattr(jax_pkg, name) for name in (
+        "StandardScalerModel", "PCAModel", "KMeansModel",
+        "LogisticRegressionModel", "MinMaxScalerModel", "MaxAbsScalerModel",
+        "RobustScalerModel", "Normalizer", "Binarizer",
+        "ElementwiseProduct", "VectorSlicer",
+        "VarianceThresholdSelectorModel", "ChiSqSelectorModel")}
     stages = []
     for i, stage in enumerate(model.stages):
         path = str(tmp_path / f"stage{i}")
@@ -623,3 +626,276 @@ def test_stage_weights_share_one_device_and_dtype():
     prog = model.serving_transform_program()
     assert prog.weight_bytes == sum(
         w.nbytes for s in specs for w in s.weights)
+
+
+# -- the other stage families (models/feature_scalers.py and
+# -- models/feature_transformers.py) -------------------------------------------
+
+@pytest.fixture
+def isolated_registries(monkeypatch):
+    """Metrics registries of this test's own, in both packages, with the
+    singletons bound to them made anew on both sides of the swap."""
+    from spark_rapids_ml_tpu.obs import devmon as jax_devmon
+    from spark_rapids_ml_tpu.obs import fitmon as jax_fitmon
+    from spark_rapids_ml_tpu.obs import metrics as jax_metrics
+    from spark_rapids_ml_tpu_torch.obs import devmon, fitmon, metrics
+
+    monkeypatch.setattr(metrics, "_default_registry",
+                        metrics.MetricsRegistry())
+    monkeypatch.setattr(jax_metrics, "_default_registry",
+                        jax_metrics.MetricsRegistry())
+    resets = (devmon.reset_device_monitor, jax_devmon.reset_device_monitor,
+              fitmon.reset_fitmon, jax_fitmon.reset_fitmon)
+    for reset in resets:
+        reset()
+    yield
+    for reset in resets:
+        reset()
+
+
+def _port_body(model, x, dtype):
+    spec = model.serving_stage(device=torch.device("cpu"), dtype=dtype)
+    return spec.algo, spec.fn(torch.as_tensor(x, dtype=dtype),
+                              *spec.weights).numpy()
+
+
+def _jax_body(model, x, dtype):
+    """The JAX stage body jitted on the CPU, as the JAX parity test runs
+    it."""
+    import jax
+    import jax.numpy as jnp
+
+    from spark_rapids_ml_tpu.obs.xprof import tracked_jit
+
+    spec = model.serving_stage(device=jax.devices()[0], dtype=dtype)
+    kernel = tracked_jit(spec.fn, label=f"stage_test_{spec.algo}")
+    return spec.algo, np.asarray(kernel(
+        jax.device_put(jnp.asarray(x, dtype=dtype)), *spec.weights))
+
+
+@pytest.mark.parametrize("algo", FAMILY_ALGOS)
+def test_stage_family_parity_with_host_and_jax_bodies(algo, tmp_path,
+                                                      isolated_registries):
+    """The counterpart of the JAX file's family parity test, for each of
+    its nine families: the port's body at float64 equals the port's host
+    transform and the JAX body on the same state (carried across by save →
+    the JAX class's load), bit for bit, Normalizer within 1e-12 relative
+    (its row sums run in another order); at float32 it is within 1e-6
+    relative of the JAX float32 body."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=(64, 8))
+    x[:, 3] = 0.0  # a constant column meets every zero-spread path
+    model = stage_family(algo, x)
+    twin = _jax_twin(PipelineModel(stages=[model]), tmp_path).stages[0]
+    name, got = _port_body(model, x, torch.float64)
+    jax_name, want = _jax_body(twin, x, jnp.float64)
+    assert name == jax_name == algo
+    host = np.asarray(model.transform(x).column(model.getOutputCol()))
+    if algo == "normalizer":
+        np.testing.assert_allclose(got, host, rtol=1e-12, atol=0)
+        np.testing.assert_allclose(got, want, rtol=1e-12, atol=0)
+    else:
+        np.testing.assert_array_equal(got, host)
+        np.testing.assert_array_equal(got, want)
+    _, got32 = _port_body(model, x, torch.float32)
+    _, want32 = _jax_body(twin, x, jnp.float32)
+    assert got32.dtype == np.float32
+    assert float(np.abs(got32 - want32).max()) <= \
+        1e-6 * float(np.abs(want32).max())
+
+
+def _stage_chain_rows(seed=17, n=512, d=16):
+    x = _x(seed, n, d)
+    x[:, 5] = 2.5   # constant columns, planted
+    x[:, 12] = 2.5
+    return x
+
+
+def _fit_stage_chain(kind, dtype="float32"):
+    """The two chains at small size: ``classifier`` is MinMaxScaler →
+    ElementwiseProduct → VectorSlicer(15) → PCA(4) → LogisticRegression,
+    ``clustering`` is RobustScaler(withCentering) → MaxAbsScaler →
+    Normalizer → VarianceThresholdSelector → PCA(4) → KMeans(3)."""
+    import spark_rapids_ml_tpu_torch as port
+
+    x = _stage_chain_rows()
+    d = x.shape[1]
+    rng = np.random.default_rng(23)
+    pca = PCA().setK(4).setOutputCol("reduced").setDtype(dtype)
+    if kind == "classifier":
+        stages = [
+            port.MinMaxScaler().setOutputCol("boxed"),
+            port.ElementwiseProduct(scalingVec=rng.normal(size=d).tolist())
+            .setInputCol("boxed").setOutputCol("weighted"),
+            port.VectorSlicer(
+                indices=[int(i) for i in rng.permutation(d)[:d - 1]])
+            .setInputCol("weighted").setOutputCol("sliced"),
+            pca.setInputCol("sliced"),
+            LogisticRegression().setInputCol("reduced").setLabelCol("label")
+            .setDtype(dtype),
+        ]
+        data = VectorFrame({"features": x, "label": list(_labels(x))})
+    else:
+        stages = [
+            port.RobustScaler().setWithCentering(True).setOutputCol("robust"),
+            port.MaxAbsScaler().setInputCol("robust").setOutputCol("boxed"),
+            port.Normalizer().setInputCol("boxed").setOutputCol("normed"),
+            port.VarianceThresholdSelector().setInputCol("normed")
+            .setOutputCol("selected"),
+            pca.setInputCol("selected"),
+            KMeans().setK(3).setInputCol("reduced").setSeed(3)
+            .setDtype(dtype),
+        ]
+        data = x
+    return Pipeline(stages=stages).fit(data), x
+
+
+STAGE_CHAINS = ("classifier", "clustering")
+
+
+@pytest.mark.parametrize("kind", STAGE_CHAINS)
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_stage_chains_fused_bit_equal_staged(kind, dtype,
+                                             isolated_registries):
+    model, x = _fit_stage_chain(kind, dtype)
+    if kind == "clustering":
+        # the selector drops exactly the two planted constant columns
+        assert model.stages[3].selected_features.tolist() == [
+            j for j in range(16) if j not in (5, 12)]
+    prog = model.serving_transform_program()
+    assert prog is not None and prog.algo == "pipeline"
+    want = np.int32 if kind == "clustering" else np.float64
+    for n in RAGGED_SIZES:
+        batch = x[:n]
+        fused = prog.fetch(prog.run(prog.put(batch)))
+        staged = run_staged_pipeline(model, batch)
+        assert fused.dtype == staged.dtype == np.dtype(want)
+        assert np.array_equal(fused, staged), f"batch size {n}"
+
+
+@pytest.mark.parametrize("kind", STAGE_CHAINS)
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_stage_chains_near_the_frame_loop(kind, dtype, isolated_registries):
+    """Within the bars of the StandardScaler chains against
+    ``PipelineModel.transform``, which scales in host float64: classifier
+    probabilities 1e-12 (float64) and 1e-5 (float32) max |Δ|; KMeans
+    labels equal at float64 and mismatched on at most 1e-3 of the rows at
+    float32."""
+    model, x = _fit_stage_chain(kind, dtype)
+    prog = model.serving_transform_program()
+    fused = prog.fetch(prog.run(prog.put(x)))
+    if kind == "classifier":
+        frame = np.asarray(model.transform(x).column("probability"))
+        bar = 1e-12 if dtype == "float64" else 1e-5
+        assert float(np.max(np.abs(fused - frame))) <= bar
+    else:
+        frame = np.asarray(model.transform(x).column("prediction"))
+        assert np.mean(fused != frame) <= (0.0 if dtype == "float64"
+                                           else 1e-3)
+
+
+@pytest.mark.parametrize("kind", STAGE_CHAINS)
+def test_stage_chains_match_the_jax_fused_program(kind, tmp_path,
+                                                  isolated_registries):
+    model, x = _fit_stage_chain(kind, "float64")
+    jax_model = _jax_twin(model, tmp_path)
+    assert [type(s).__name__ for s in jax_model.stages] == [
+        type(s).__name__ for s in model.stages]
+    prog = model.serving_transform_program()
+    jax_prog = jax_model.serving_transform_program()
+    assert jax_prog is not None and jax_prog.algo == "pipeline"
+    for n in RAGGED_SIZES:
+        batch = x[:n]
+        got = prog.fetch(prog.run(prog.put(batch)))
+        want = jax_prog.fetch(jax_prog.run(jax_prog.put(batch)))
+        if kind == "clustering":
+            np.testing.assert_array_equal(got, want)
+        else:
+            np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("kind", STAGE_CHAINS)
+def test_engine_serves_the_stage_chains_e2e(kind, isolated_registries):
+    model, x = _fit_stage_chain(kind, "float64")
+    registry = ModelRegistry()
+    registry.register("chain", model)
+    engine = ServeEngine(registry, max_batch_rows=128, max_wait_ms=1.0,
+                         buckets=(32, 128))
+    try:
+        report = engine.warmup("chain")  # infers 16 features from the head
+        assert sorted(report["pipeline"]["buckets"]) == [32, 128]
+        spec = engine._async_specs[("chain", 1)]
+        assert spec is not None and spec.algo == "pipeline"
+        sizes = [1, 7, 32, 100, 13]
+        expected = {n: run_staged_pipeline(model, x[:n]) for n in sizes}
+
+        def one(n):
+            return n, engine.predict("chain", x[:n])
+
+        with concurrent.futures.ThreadPoolExecutor(4) as pool:
+            for n, out in pool.map(one, sizes * 2):
+                np.testing.assert_array_equal(out, expected[n],
+                                              err_msg=f"size {n}")
+    finally:
+        engine.shutdown()
+
+
+@pytest.mark.parametrize("algo,width", [
+    ("min_max_scaler", 8), ("max_abs_scaler", 8), ("robust_scaler", 8),
+    ("normalizer", 8), ("binarizer", 8), ("elementwise_product", None),
+    ("vector_slicer", None), ("feature_selector", None)])
+def test_infer_features_on_a_pipeline_headed_by_each_family(
+        algo, width, tmp_path, isolated_registries):
+    """MinMax, MaxAbs and Robust give their width; a Normalizer or
+    Binarizer head is looked past to the stage behind it; any other
+    stateless head gives None — as the JAX ``_infer_features`` does on the
+    same pipeline."""
+    from spark_rapids_ml_tpu.serve.registry import (
+        _infer_features as jax_infer,
+    )
+
+    x = np.random.default_rng(13).normal(size=(64, 8))
+    head = stage_family(algo, x)
+    model = PipelineModel(stages=[
+        head, StandardScaler().setInputCol(head.getOutputCol()).fit(
+            VectorFrame({head.getOutputCol(): x}))])
+    assert _infer_features(model) == width
+    assert jax_infer(_jax_twin(model, tmp_path)) == width
+
+
+@pytest.mark.parametrize("head", ["vector_slicer", "feature_selector"])
+def test_a_narrow_request_to_a_gather_head_fails_alone(head,
+                                                       isolated_registries):
+    """A request narrower than a gather head's largest index gets an error
+    answer before the gather runs (on a CUDA tensor an out-of-range index
+    would fire a device-side assert that poisons the process's CUDA
+    context), and the next good request still serves."""
+    import spark_rapids_ml_tpu_torch as port
+
+    x = _stage_chain_rows()
+    head_stage = (stage_family(head, x) if head == "vector_slicer"
+                  else port.VarianceThresholdSelector())
+    model = Pipeline(stages=[
+        head_stage,
+        PCA().setK(3).setInputCol(head_stage.getOutputCol())
+        .setDtype("float64"),
+    ]).fit(VectorFrame({"features": x}))
+    gather = model.stages[0]
+    widest = int(max(gather.get_or_default("indices")
+                     if head == "vector_slicer"
+                     else gather.selected_features))
+    assert widest >= 3
+    registry = ModelRegistry()
+    registry.register("chain", model)
+    engine = ServeEngine(registry, max_batch_rows=128, max_wait_ms=1.0,
+                         buckets=(32, 128))
+    try:
+        engine.warmup("chain", n_features=x.shape[1])
+        with pytest.raises(ValueError, match=f"has no column {widest}"):
+            engine.predict("chain", x[:4, :widest])
+        np.testing.assert_array_equal(engine.predict("chain", x[:7]),
+                                      run_staged_pipeline(model, x[:7]))
+    finally:
+        engine.shutdown()
