@@ -415,12 +415,38 @@ Phases (any failure raises and the script exits non-zero):
     read and written over 3.35 TB/s), printed as a ``{"stage_bodies":
     [...]}`` line. (iv) Both chains' bf16 and int8 ladders through the
     offline check; a refused ladder must serve native.
+18. LinearSVC and GeneralizedLinearRegression at 4096 features on phase
+    14's design (65,536 × 4096 N(0, 1), made on the card from the seed),
+    each float32 Newton Hessian and IRLS XᵀWX one highest launch (per
+    bucket when streamed), the counts set to 0 before each fit and held
+    exactly after it. (i) LinearSVC, labels 1[x·w* + 0.5 + ε > 0]:
+    one-shot, weighted (w ~ U(0.5, 2)), no intercept, standardization on,
+    streamed (4 × 65,536 rows in buckets of 8192, 3 Newton passes: cut),
+    each within 1e-4 of the same generalized Newton in float64 on the
+    card (``svc_fit_kernel`` on float64 tensors); ``distributed_svc_fit``
+    on one NCCL rank within 1e-6 of the one-shot fit, its fit-monitor
+    step and all-reduce bytes. (ii) GLM Poisson / log: one-shot and with
+    weights and an offset, within 1e-4 of the same IRLS at float64;
+    streamed at maxIter 2 within 1e-5 of the in-memory fit at maxIter 2
+    (a fit at maxIter launches once more, for its final deviance);
+    ``distributed_glm_fit`` at maxIter 2 within 1e-6 of that in-memory
+    fit, its ``irls_pass`` steps and all-reduce bytes. (iii) GLM at
+    the first 512 columns: gamma / log, tweedie p = 1.5 / log, binomial /
+    probit, gaussian / identity, each within 1e-4 of float64. Each fit's
+    wall split on the host clock into Gram launches, device and host
+    solves and host → device copies; the first Hessians (and the SVC's
+    last, on its active set) timed beside ``torch.matmul`` and the bound.
+    Every model saved, loaded by ``load_model`` and ``ModelRegistry.load``,
+    and (but the offset model) served 32 requests of ≤ 64 rows through
+    ``ServeEngine``'s blocking path: labels equal to the float64 host
+    margin's, margins within 1e-5 of ‖x‖·‖w‖ + |b|, μ within 1e-5
+    relative.
 
 Then one JSON line ``{"stage_bodies": [...]}``, one ``{"kernels": [...]}``
 (each kernel with its launches per phase and, under ``extra_shapes``,
-phase 3's timings of phase 14's shapes and phase 16's Hessians), the
-card's name and power limit, and last ``{"ok": true,
-"device": {...}}``.
+phase 3's timings of phase 14's shapes and phases 16 and 18's Hessians),
+the card's name and power limit, and last ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -4637,7 +4663,7 @@ def hessian_shape(torch, fg, label, x, rowmul):
         x, mean, rowmul, "highest"), iters=3)
     library_ms = time_ms(torch, lambda: torch.matmul(xs.T, xs), iters=10)
     bound_ms, bound_by = bound(rows, n, operand, passes)
-    log(f"    {label} first Hessian {rows}x{n} on √s rows: kernel "
+    log(f"    {label} Hessian {rows}x{n} on √s rows: kernel "
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.matmul (f32, TF32 "
         f"off) {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
         f"rel err vs plain {err / scale:.3e}")
@@ -4724,10 +4750,10 @@ def phase_logreg(torch, fg, device, model_c):
               f"{err:.3e}")
         fits[label] = model
     shapes["logreg Hessian, s = 1/4 (phase 16)"] = hessian_shape(
-        torch, fg, "one-shot", x_dev, torch.full((CHUNK_ROWS,), 0.5,
+        torch, fg, "one-shot first", x_dev, torch.full((CHUNK_ROWS,), 0.5,
                                                  device=device))
     shapes["logreg Hessian, s = w/4 (phase 16)"] = hessian_shape(
-        torch, fg, "weighted", x_dev, torch.sqrt(torch.as_tensor(
+        torch, fg, "weighted first", x_dev, torch.sqrt(torch.as_tensor(
             weights / 4, dtype=torch.float32, device=device)))
 
     # elastic net against the same prox-Newton on float64 device statistics
@@ -5523,6 +5549,502 @@ def phase_stages(torch, fg, device):
     return launched, timings
 
 
+# -- phase 18: LinearSVC and GeneralizedLinearRegression -----------------------
+
+SVC_NOISE = 1.0            # sd of ε in the labels 1[x·w* + 0.5 + ε > 0]
+SVC_STREAM_ITER = 3        # Newton passes of the streamed fit (cut)
+GLM_SCALE = 0.5            # sd of the planted η: w* ~ N(0, GLM_SCALE²/n)
+GLM_INTERCEPT = 0.5
+GLM_STREAM_ITER = 2        # IRLS passes of the streamed and one-rank fits
+                           # (cut), + 1 for the final deviance
+GLM_NARROW = 512           # (iii)'s width: the first 512 columns
+GLM_SERVED = 32            # requests of at most SERVE_JSON_MAX_ROWS rows
+# bars, set in PERF.md §2 before the first run
+SVC_RTOL = 1e-4            # every LinearSVC route vs float64 Newton
+SVC_DIST_RTOL = 1e-6       # one NCCL rank, against the one-shot fit
+GLM_RTOL = 1e-4            # every GLM fit vs the same IRLS in float64
+GLM_STREAM_RTOL = 1e-5     # streamed vs the in-memory fit at the same cut
+GLM_DIST_RTOL = 1e-6       # one NCCL rank, against the in-memory fit at
+                           # the same cut
+SERVED_RTOL = 1e-5         # margins (of ‖x‖·‖w‖ + |b|) and μ served vs the
+                           # float64 host product
+
+
+class WallSplit:
+    """A fit's wall split on the host clock: the Gram launches, the
+    device solves (``_cho_solve``), the host solves (``np.linalg.solve``)
+    and the host → device copies (``torch.as_tensor`` of a host array onto
+    the card), each timed between two synchronisations of the card, while
+    the context is open."""
+
+    def __init__(self, torch):
+        from spark_rapids_ml_tpu_torch.ops import covariance as cov_ops
+        from spark_rapids_ml_tpu_torch.ops import svm_kernel
+
+        self.torch = torch
+        self.targets = ((cov_ops, "fused_centered_gram", "gram"),
+                        (svm_kernel, "_cho_solve", "device solve"),
+                        (np.linalg, "solve", "host solve"),
+                        (torch, "as_tensor", "h2d"))
+        self.seconds = {name: 0.0 for _, _, name in self.targets}
+        self.calls = {name: 0 for _, _, name in self.targets}
+
+    def _timed(self, real, name):
+        torch = self.torch
+
+        def wrapper(*args, **kwargs):
+            if name == "h2d" and not (
+                    isinstance(args[0], np.ndarray)
+                    and str(kwargs.get("device", "cpu")).startswith("cuda")):
+                return real(*args, **kwargs)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.seconds[name] += time.perf_counter() - t0
+            self.calls[name] += 1
+            return out
+
+        return wrapper
+
+    def __enter__(self):
+        self.saved = [(mod, attr, getattr(mod, attr))
+                      for mod, attr, _ in self.targets]
+        for (mod, attr, real), (_, _, name) in zip(self.saved, self.targets):
+            setattr(mod, attr, self._timed(real, name))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, real in self.saved:
+            setattr(mod, attr, real)
+
+    def line(self, wall) -> str:
+        parts = [f"{name} {self.seconds[name]:.3f} s ({self.calls[name]})"
+                 for name in self.seconds if self.calls[name]]
+        rest = wall - sum(self.seconds.values())
+        return "split " + ", ".join(parts + [f"the rest {rest:.3f} s"])
+
+
+def split_run(torch, fg, label, fn, expected):
+    """``counted_run`` with the wall split: (result, counts, wall seconds,
+    the split's line)."""
+    t0 = time.perf_counter()
+    with WallSplit(torch) as split:
+        result, counts = counted_run(torch, fg, label, fn, expected)
+    wall = time.perf_counter() - t0
+    return result, counts, wall, split.line(wall)
+
+
+def svc64(torch, x, y, weights=None, fit_intercept=True, max_iter=100):
+    """The oracle: the port's generalized Newton (``svc_fit_kernel``) on
+    float64 tensors on the card, which never reaches the kernel. Returns
+    ((coefficients, intercept), n_iter)."""
+    from spark_rapids_ml_tpu_torch.ops.svm_kernel import svc_fit_kernel
+
+    dev = x.device
+    result = svc_fit_kernel(
+        x.double(), torch.as_tensor(y, device=dev).double(),
+        None if weights is None else torch.as_tensor(weights, device=dev),
+        fit_intercept=fit_intercept, max_iter=max_iter)
+    return ((result.coefficients.cpu().numpy(), float(result.intercept)),
+            int(result.n_iter))
+
+
+def glm_line(model, seconds) -> str:
+    stopped = ("converged" if model.num_iterations_ < model.getMaxIter()
+               else "ran to maxIter")
+    return (f"{seconds:.3f} s, {model.num_iterations_} iterations "
+            f"({stopped}), deviance {model.deviance_:.6f}")
+
+
+def glm_passes(kernel, buckets=1):
+    """Expected launches of a float32 GLM fit: one per bucket and pass, the
+    passes its iterations and, at maxIter, the final deviance's."""
+    def expected(model):
+        n = model.num_iterations_
+        return {kernel: buckets * (n + (n == model.getMaxIter()))}
+    return expected
+
+
+def tweedie_draws(rng, mu, p, phi=1.0):
+    """Tweedie(μ, φ, p), 1 < p < 2: a Poisson number of Gamma jumps."""
+    lam = mu ** (2.0 - p) / (phi * (2.0 - p))
+    alpha = (2.0 - p) / (p - 1.0)
+    gamma = phi * (p - 1.0) * mu ** (p - 1.0)
+    n = rng.poisson(lam)
+    return np.where(n > 0, rng.gamma(np.maximum(n * alpha, 1e-12), gamma),
+                    0.0)
+
+
+def phase_linear_models(torch, fg, device):
+    """Phase 18: LinearSVC and GeneralizedLinearRegression at 4096 features
+    (and the GLM grid at 512) through their entry points, every float32
+    Newton Hessian and IRLS XᵀWX on the kernel; the models saved, loaded
+    and served. Returns ({kernel: launches}, {label: Hessian timings})."""
+    import torch.distributed as dist
+
+    from spark_rapids_ml_tpu_torch import (
+        GeneralizedLinearRegression,
+        LinearSVC,
+    )
+    from spark_rapids_ml_tpu_torch.data.batches import auto_batch_rows
+    from spark_rapids_ml_tpu_torch.data.frame import VectorFrame
+    from spark_rapids_ml_tpu_torch.io.persistence import load_model
+    from spark_rapids_ml_tpu_torch.obs import fitmon
+    from spark_rapids_ml_tpu_torch.ops.glm_kernel import link_funcs
+    from spark_rapids_ml_tpu_torch.parallel import (
+        data_mesh,
+        distributed_glm_fit,
+        distributed_svc_fit,
+        initialize_multihost,
+    )
+    from spark_rapids_ml_tpu_torch.serve import ModelRegistry, ServeEngine
+
+    t_phase = time.perf_counter()
+    highest = fg.kernel_name("highest")
+    launched, shapes, models = {}, {}, {}
+    n = N_FEATURES
+
+    def add(counts):
+        for name, count in counts.items():
+            launched[name] = launched.get(name, 0) + count
+
+    def per_iter(factor=1):
+        return lambda m: {highest: factor * m.n_iter_} if m.n_iter_ else {}
+
+    # (i) LinearSVC at full width
+    rng = np.random.default_rng(SEED + 1800)
+    w_star = rng.normal(scale=LR_SCALE / np.sqrt(n), size=n)
+    x_dev = logreg_design(torch, device, 0)
+    x = x_dev.cpu().numpy()
+
+    def svc_labels(xd):
+        z = planted_logits(torch, xd, w_star, LR_INTERCEPT)
+        return (z + rng.normal(scale=SVC_NOISE, size=z.shape[0])
+                > 0).astype(np.float32)
+
+    y = svc_labels(x_dev)
+    weights = rng.uniform(0.5, 2.0, CHUNK_ROWS)
+    sd = x.std(axis=0, ddof=1, dtype=np.float64)
+    log(f"  (i) {CHUNK_ROWS:,} x {n} N(0, 1) rows (phase 14's design), "
+        f"labels 1[x·w* + {LR_INTERCEPT} + ε > 0], w* ~ N(0, "
+        f"{LR_SCALE:g}²/{n}), ε ~ N(0, {SVC_NOISE:g}²): {y.mean():.4f} "
+        f"positive")
+    fits = {}
+    for label, est, data, oracle in (
+            ("one-shot", LinearSVC().setStandardization(False), (x, y),
+             lambda: svc64(torch, x_dev, y)),
+            ("weighted", LinearSVC().setStandardization(False)
+             .setWeightCol("w"),
+             (VectorFrame({"features": x, "label": y, "w": weights}),),
+             lambda: svc64(torch, x_dev, y, weights=weights)),
+            ("no intercept", LinearSVC().setStandardization(False)
+             .setFitIntercept(False), (x, y),
+             lambda: svc64(torch, x_dev, y, fit_intercept=False)),
+            ("standardization", LinearSVC(), (x, y),
+             lambda: svc64(torch, x_dev / torch.as_tensor(
+                 sd, device=device), y))):
+        model, counts, wall, split = split_run(
+            torch, fg, f"(i) LinearSVC {label}", lambda: est.fit(*data),
+            per_iter())
+        add(counts)
+        (want_w, want_b), oracle_iter = oracle()
+        if label == "standardization":
+            want_w = want_w / sd
+        err = linreg_error(model.coefficients, model.intercept,
+                           (want_w, want_b))
+        log(f"    {label}: {fit_line(model, wall)}; {split}; rel err vs "
+            f"float64 Newton on the card {err:.3e} (bar {SVC_RTOL:g}; "
+            f"oracle n_iter {oracle_iter})")
+        check(np.isfinite(model.coefficients).all(), f"{label} finite")
+        check(err <= SVC_RTOL, f"LinearSVC {label} rel err {err:.3e}")
+        fits[label] = model
+        models[f"svc {label}"] = model
+    margin = 1.0 - (2.0 * torch.as_tensor(y, device=device) - 1.0) * (
+        x_dev @ torch.as_tensor(fits["one-shot"].coefficients,
+                                dtype=torch.float32, device=device)
+        + fits["one-shot"].intercept)
+    active = (margin > 0).float()
+    log(f"    one-shot active set at the solution: {int(active.sum())} of "
+        f"{CHUNK_ROWS} rows")
+    shapes["svc Hessian, s = 1 (phase 18)"] = hessian_shape(
+        torch, fg, "LinearSVC first", x_dev,
+        torch.ones(CHUNK_ROWS, device=device))
+    shapes["svc Hessian, s = the active set (phase 18)"] = hessian_shape(
+        torch, fg, "LinearSVC last (s = its active set)", x_dev, active)
+    del margin, active
+
+    # streamed: 4 chunks of 65,536 rows, buckets of auto_batch_rows(4096)
+    chunks = [(x, y)]
+    for i in range(1, LR_CHUNKS):
+        xi = logreg_design(torch, device, i)
+        chunks.append((xi.cpu().numpy(), svc_labels(xi)))
+        del xi
+    bucket = auto_batch_rows(n)
+    buckets = -(-LR_CHUNKS * CHUNK_ROWS // bucket)
+    model, counts, wall, split = split_run(
+        torch, fg, f"(i) LinearSVC streamed, {LR_CHUNKS} chunks of "
+        f"{CHUNK_ROWS:,} ({buckets} buckets of {bucket} rows), maxIter "
+        f"{SVC_STREAM_ITER}",
+        lambda: LinearSVC().setStandardization(False).setMaxIter(
+            SVC_STREAM_ITER).fit(lambda: iter(chunks)), per_iter(buckets))
+    add(counts)
+    x_all = torch.cat([torch.as_tensor(c[0], device=device) for c in chunks])
+    want, oracle_iter = svc64(torch, x_all, np.concatenate(
+        [c[1] for c in chunks]), max_iter=SVC_STREAM_ITER)
+    del x_all
+    torch.cuda.empty_cache()
+    err = linreg_error(model.coefficients, model.intercept, want)
+    log(f"    streamed: {fit_line(model, wall)}; {split}; rel err vs "
+        f"float64 Newton on the {LR_CHUNKS * CHUNK_ROWS:,} rows at maxIter "
+        f"{SVC_STREAM_ITER} {err:.3e} (bar {SVC_RTOL:g}; oracle n_iter "
+        f"{oracle_iter})")
+    check(err <= SVC_RTOL, f"streamed LinearSVC rel err {err:.3e}")
+    models["svc streamed"] = model
+    del chunks
+
+    # (ii) GLM Poisson / log at full width
+    w_glm = rng.normal(scale=GLM_SCALE / np.sqrt(n), size=n)
+    eta = planted_logits(torch, x_dev, w_glm, GLM_INTERCEPT)
+    counts_y = rng.poisson(np.exp(eta)).astype(np.float32)
+    offset = rng.normal(scale=0.1, size=CHUNK_ROWS)
+    counts_o = rng.poisson(np.exp(eta + offset)).astype(np.float32)
+    log(f"  (ii) Poisson labels at {n} features, η = x·w* + "
+        f"{GLM_INTERCEPT}, w* ~ N(0, {GLM_SCALE:g}²/{n}): mean "
+        f"{counts_y.mean():.4f}; with an offset ~ N(0, 0.1²) and weights "
+        f"~ U(0.5, 2)")
+    poisson = GeneralizedLinearRegression(family="poisson")
+    weighted = GeneralizedLinearRegression(family="poisson").setWeightCol(
+        "w").setOffsetCol("off")
+    frame_o = VectorFrame({"features": x, "label": counts_o, "w": weights,
+                           "off": offset})
+    for label, est, data in (
+            ("one-shot", poisson, (x,)),
+            ("weights and offset", weighted, (frame_o,))):
+        kw = {"labels": counts_y} if label == "one-shot" else {}
+        model, counts, wall, split = split_run(
+            torch, fg, f"(ii) GLM Poisson {label}",
+            lambda: est.fit(*data, **kw), glm_passes(highest))
+        add(counts)
+        f64, _, _, split64 = split_run(
+            torch, fg, "(ii) the same fit at float64 (no kernel)",
+            lambda: est.copy({"dtype": "float64"}).fit(*data, **kw), {})
+        err = linreg_error(model.coefficients, model.intercept,
+                           (f64.coefficients, f64.intercept))
+        log(f"    {label}: {glm_line(model, wall)}; {split}; float64: "
+            f"{f64.num_iterations_} iterations, deviance "
+            f"{f64.deviance_:.6f}, {split64}; rel err {err:.3e} (bar "
+            f"{GLM_RTOL:g})")
+        check(np.isfinite(model.coefficients).all(), f"GLM {label} finite")
+        check(err <= GLM_RTOL, f"GLM Poisson {label} rel err {err:.3e}")
+        models[f"glm poisson {label}"] = model
+    mu0 = torch.as_tensor(counts_y + 0.1, device=device)
+    shapes["glm XᵀWX, W = μ from mustart (phase 18)"] = hessian_shape(
+        torch, fg, "GLM Poisson first (W = μ₀ = y + 0.1)", x_dev,
+        torch.sqrt(mu0))
+    del mu0
+
+    # streamed at a cut maxIter, against the in-memory fit at the same cut
+    gchunks = [(x[i:i + CHUNK_ROWS // 4], counts_y[i:i + CHUNK_ROWS // 4])
+               for i in range(0, CHUNK_ROWS, CHUNK_ROWS // 4)]
+    g_buckets = -(-CHUNK_ROWS // bucket)
+    cut = GeneralizedLinearRegression(family="poisson").setMaxIter(
+        GLM_STREAM_ITER)
+    model, counts, wall, split = split_run(
+        torch, fg, f"(ii) GLM Poisson streamed, 4 chunks of "
+        f"{CHUNK_ROWS // 4:,} ({g_buckets} buckets of {bucket} rows), "
+        f"maxIter {GLM_STREAM_ITER}",
+        lambda: cut.fit(lambda: iter(gchunks)),
+        glm_passes(highest, g_buckets))
+    add(counts)
+    memory, counts, _, _ = split_run(
+        torch, fg, "(ii) the same fit in memory", lambda: cut.fit(
+            x, labels=counts_y), glm_passes(highest))
+    add(counts)
+    err = linreg_error(model.coefficients, model.intercept,
+                       (memory.coefficients, memory.intercept))
+    log(f"    streamed: {glm_line(model, wall)}; {split}; rel err vs "
+        f"the in-memory fit at maxIter {GLM_STREAM_ITER} {err:.3e} (bar "
+        f"{GLM_STREAM_RTOL:g})")
+    check(err <= GLM_STREAM_RTOL, f"streamed GLM rel err {err:.3e}")
+    models["glm poisson streamed"] = model
+    del gchunks
+
+    # distributed_svc_fit and distributed_glm_fit on one NCCL rank
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    coordinator = f"127.0.0.1:{free_port()}"
+    try:
+        initialize_multihost(coordinator, num_processes=1, process_id=0)
+    except Exception as exc:
+        raise RuntimeError(f"phase 18: the one-rank NCCL world did not "
+                           f"start at {coordinator}: {exc!r}") from exc
+    try:
+        check(dist.get_backend() == "nccl", "the card's world runs NCCL")
+        result, counts, wall, split = split_run(
+            torch, fg, "(i) distributed_svc_fit, one NCCL rank",
+            lambda: distributed_svc_fit(x, y, data_mesh(1)),
+            lambda r: {highest: int(r.n_iter)})
+        add(counts)
+        n_iter = int(result.n_iter)
+        one_shot = fits["one-shot"]
+        err = linreg_error(result.coefficients.cpu().numpy(),
+                           float(result.intercept),
+                           (one_shot.coefficients, one_shot.intercept))
+        report = result.fit_report_
+        step = fitmon.get_fit_monitor().recent_runs()[0].steps[-1]
+        log(f"    distributed_svc_fit: {wall:.3f} s, n_iter {n_iter}, "
+            f"converged {bool(result.converged)}; {split}; vs the one-shot "
+            f"fit: rel "
+            f"err {err:.3e} (bar {SVC_DIST_RTOL:g}); collectives "
+            f"{report.collectives}; fit monitor step {step['step']!r} "
+            f"scalars {step['scalars']}")
+        check(err <= SVC_DIST_RTOL, f"distributed_svc_fit rel err {err:.3e}")
+        check(step["step"] == "newton"
+              and step["scalars"] == {"n_iter": float(n_iter),
+                                      "converged": float(result.converged)},
+              f"fit monitor step {step}")
+        d = n + 1
+        check(report.collectives == {"all_reduce": {
+            "count": n_iter, "bytes": (d * d + d) * 4 * n_iter}},
+            f"distributed_svc_fit collectives {report.collectives}")
+        dist_glm, counts, wall, split = split_run(
+            torch, fg, f"(ii) distributed_glm_fit Poisson, one NCCL rank, "
+            f"maxIter {GLM_STREAM_ITER}",
+            lambda: distributed_glm_fit(x, counts_y, data_mesh(1),
+                                        family="poisson",
+                                        max_iter=GLM_STREAM_ITER),
+            glm_passes(highest))
+        add(counts)
+        err = linreg_error(dist_glm.coefficients, dist_glm.intercept,
+                           (memory.coefficients, memory.intercept))
+        report = dist_glm.fit_report_
+        run = fitmon.get_fit_monitor().recent_runs()[0]
+        passes = counts[highest]
+        log(f"    distributed_glm_fit: {glm_line(dist_glm, wall)}; "
+            f"{split}; vs the in-memory fit at maxIter {GLM_STREAM_ITER}: "
+            f"rel err {err:.3e} (bar "
+            f"{GLM_DIST_RTOL:g}); collectives {report.collectives}; fit "
+            f"monitor steps {[s['step'] for s in run.steps]}")
+        check(err <= GLM_DIST_RTOL, f"distributed_glm_fit rel err {err:.3e}")
+        check([s["step"] for s in run.steps] == ["irls_pass"] * passes,
+              f"fit monitor steps {[s['step'] for s in run.steps]}")
+        check(report.collectives == {"all_reduce": {
+            "count": passes, "bytes": (n * n + n + 6) * 4 * passes}},
+            f"distributed_glm_fit collectives {report.collectives}")
+        models["glm poisson one rank"] = dist_glm
+    finally:
+        dist.destroy_process_group()
+
+    # (iii) the GLM grid at 512 features
+    ns = GLM_NARROW
+    x_n = x_dev[:, :ns].contiguous()
+    xs = x_n.cpu().numpy()
+    w_n = rng.normal(scale=1.0 / np.sqrt(ns), size=ns)
+    eta_n = planted_logits(torch, x_n, w_n, 0.0)
+    mu_n = np.exp(0.3 * eta_n + GLM_INTERCEPT)
+    grid = (
+        ("gamma / log", GeneralizedLinearRegression(family="gamma")
+         .setLink("log"), rng.gamma(5.0, mu_n / 5.0)),
+        ("tweedie p = 1.5 / log", GeneralizedLinearRegression(
+            family="tweedie").setVariancePower(1.5).setLinkPower(0.0),
+         tweedie_draws(rng, mu_n, 1.5)),
+        ("binomial / probit", GeneralizedLinearRegression(
+            family="binomial").setLink("probit"),
+         (rng.random(CHUNK_ROWS) < torch.special.ndtr(
+             torch.as_tensor(eta_n)).numpy()).astype(np.float64)),
+        ("gaussian / identity", GeneralizedLinearRegression(),
+         eta_n + GLM_INTERCEPT + rng.normal(size=CHUNK_ROWS)),
+    )
+    log(f"  (iii) the GLM grid at {ns} features (the first {ns} columns)")
+    for label, est, labels in grid:
+        labels = labels.astype(np.float32)
+        model, counts, wall, split = split_run(
+            torch, fg, f"(iii) GLM {label}",
+            lambda: est.fit(xs, labels=labels), glm_passes(highest))
+        add(counts)
+        f64, _, _, _ = split_run(
+            torch, fg, "(iii) the same fit at float64 (no kernel)",
+            lambda: est.copy({"dtype": "float64"}).fit(xs, labels=labels),
+            {})
+        err = linreg_error(model.coefficients, model.intercept,
+                           (f64.coefficients, f64.intercept))
+        log(f"    {label}: {glm_line(model, wall)}; {split}; float64 "
+            f"{f64.num_iterations_} iterations; rel err {err:.3e} (bar "
+            f"{GLM_RTOL:g})")
+        check(np.isfinite(model.coefficients).all(), f"GLM {label} finite")
+        check(err <= GLM_RTOL, f"GLM {label} rel err {err:.3e}")
+        models[f"glm {label}"] = model
+    del x_n, x_dev
+    torch.cuda.empty_cache()
+
+    # save → load (load_model and ModelRegistry) → serve on the host path
+    traffic = serve_traffic()
+    small = [t for t in traffic
+             if t.shape[0] <= SERVE_JSON_MAX_ROWS][:GLM_SERVED]
+    check(len(small) == GLM_SERVED, f"{len(small)} small requests")
+    registry = ModelRegistry()
+    names = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (label, model) in enumerate(models.items()):
+            path = f"{tmp}/m{i}"
+            model.save(path)
+            back = load_model(path)
+            check(type(back) is type(model)
+                  and np.array_equal(back.coefficients, model.coefficients)
+                  and back.intercept == model.intercept,
+                  f"{label}: load_model")
+            names[label] = f"m{i}"
+            registry.load(f"m{i}", path)
+    engine = ServeEngine(registry, max_batch_rows=SERVE_MAX_ROWS,
+                         pipeline_depth=2)
+    worst = {}
+    try:
+        for label, model in models.items():
+            name = names[label]
+            loaded = registry.resolve(name)
+            check(np.array_equal(loaded.coefficients, model.coefficients),
+                  f"{label}: ModelRegistry.load")
+            if model.get_or_default("offsetCol") if label.startswith(
+                    "glm") else False:
+                continue   # its rows must carry the offset: not a matrix
+            width = model.coefficients.shape[0]
+            for rows in small:
+                rows = np.ascontiguousarray(rows[:, :width])
+                served = np.asarray(engine.predict(name, rows))
+                ref = rows.astype(np.float64) @ model.coefficients \
+                    + model.intercept
+                if label.startswith("svc"):
+                    check(np.array_equal(served, (ref > 0).astype(
+                        np.float64)), f"{label}: served labels")
+                    # a margin can lie as near 0 as it likes: its error is
+                    # taken against the dot product's scale ‖x‖·‖w‖ + |b|
+                    got = loaded.decision_function(rows)
+                    scale = np.linalg.norm(rows.astype(np.float64), axis=1) \
+                        * np.linalg.norm(model.coefficients) \
+                        + abs(model.intercept)
+                    err = float(np.max(np.abs(got - ref) / scale))
+                else:
+                    _, link, _, lp = model._resolved_family_link()
+                    mu = link_funcs(link, lp)[1](np, ref)
+                    err = float(np.max(np.abs(served - mu) / np.abs(mu)))
+                worst[label] = max(worst.get(label, 0.0), err)
+        log(f"  saved and loaded (load_model, ModelRegistry) "
+            f"{len(models)} models; served {len(worst)} (the offset model "
+            f"needs its column) {GLM_SERVED} requests of ≤ "
+            f"{SERVE_JSON_MAX_ROWS} rows each ({sum(len(t) for t in small)} "
+            f"rows) through ServeEngine's host path: labels equal; max "
+            f"relative error of margins / μ vs the float64 host product "
+            f"{ {k: float(f'{v:.3e}') for k, v in worst.items()} } (bar "
+            f"{SERVED_RTOL:g})")
+        for label, err in worst.items():
+            check(err <= SERVED_RTOL, f"{label}: served rel err {err:.3e}")
+    finally:
+        engine.shutdown()
+    log(f"  phase 18 launches {launched}; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launched, shapes
+
+
 def build_fresh(cuda_build):
     """Build the Gram library anew, so ``ptxas -v`` reports on it."""
     path = cuda_build.library_path("fused_gram")
@@ -5646,6 +6168,10 @@ def main() -> int:
     log("[17] the other stage families and their chains")
     stage_launches, stage_timings = phase_stages(torch, fg, device)
 
+    log("[18] LinearSVC and GeneralizedLinearRegression")
+    linear_launches, linear_shapes = phase_linear_models(torch, fg, device)
+    measured[fg.kernel_name("highest")]["extra_shapes"].update(linear_shapes)
+
     kernels = []
     for name, m in measured.items():
         check(launches.get(name, 0) > 0, f"{name} not launched on the main path")
@@ -5654,7 +6180,8 @@ def main() -> int:
                     "14": gram_callers.get(name, 0),
                     "15": pipeline_launches.get(name, 0),
                     "16": logreg_launches.get(name, 0),
-                    "17": stage_launches.get(name, 0)}
+                    "17": stage_launches.get(name, 0),
+                    "18": linear_launches.get(name, 0)}
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES, "launches": sum(by_phase.values()),

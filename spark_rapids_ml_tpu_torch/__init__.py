@@ -35,6 +35,14 @@ from spark_rapids_ml_tpu_torch.models.logistic_regression import (  # noqa: F401
     LogisticRegression,
     LogisticRegressionModel,
 )
+from spark_rapids_ml_tpu_torch.models.linear_svc import (  # noqa: F401
+    LinearSVC,
+    LinearSVCModel,
+)
+from spark_rapids_ml_tpu_torch.models.glm import (  # noqa: F401
+    GeneralizedLinearRegression,
+    GeneralizedLinearRegressionModel,
+)
 from spark_rapids_ml_tpu_torch.models.svd import (  # noqa: F401
     TruncatedSVD,
     TruncatedSVDModel,
@@ -71,6 +79,10 @@ __all__ = [
     "LinearRegressionModel",
     "LogisticRegression",
     "LogisticRegressionModel",
+    "LinearSVC",
+    "LinearSVCModel",
+    "GeneralizedLinearRegression",
+    "GeneralizedLinearRegressionModel",
     "TruncatedSVD",
     "TruncatedSVDModel",
     "RowMatrix",

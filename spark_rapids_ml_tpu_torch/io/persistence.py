@@ -1,7 +1,8 @@
 """Model persistence in Spark ML's on-disk layout.
 
 A copy of the PCA, KMeans, StandardScaler, LinearRegression,
-LogisticRegression and TruncatedSVD parts of the JAX package's
+LogisticRegression, LinearSVC, GeneralizedLinearRegression and
+TruncatedSVD parts of the JAX package's
 ``io/persistence.py``, so a model saved by either package loads in the
 other (``RapidsPCA.scala:218-254``):
 
@@ -16,7 +17,10 @@ other (``RapidsPCA.scala:218-254``):
   LinearRegression Spark's (``coefficients``, ``intercept``, ``scale``);
   for LogisticRegression ``coefficients``, ``intercept``, ``numClasses``,
   ``numFeatures`` and, multinomial, ``interceptVector`` and ``classes``
-  (the (K, d) matrix flattened row-major into ``coefficients``);
+  (the (K, d) matrix flattened row-major into ``coefficients``); for
+  LinearSVC (``coefficients``, ``intercept``); for
+  GeneralizedLinearRegression (``intercept``, ``coefficients``), its fit
+  summary (iterations, deviance, weight sum) in the metadata's ``extra``;
   for TruncatedSVD ``V`` and ``s``. Without pyarrow (optional) the same
   row is written as ``part-00000.json``, which both packages' readers
   accept.
@@ -63,6 +67,12 @@ _SPARK_CLASS_ALIASES = {
         "org.apache.spark.ml.classification.LogisticRegression",
     "LogisticRegressionModel":
         "org.apache.spark.ml.classification.LogisticRegressionModel",
+    "LinearSVC": "org.apache.spark.ml.classification.LinearSVC",
+    "LinearSVCModel": "org.apache.spark.ml.classification.LinearSVCModel",
+    "GeneralizedLinearRegression":
+        "org.apache.spark.ml.regression.GeneralizedLinearRegression",
+    "GeneralizedLinearRegressionModel":
+        "org.apache.spark.ml.regression.GeneralizedLinearRegressionModel",
     "StandardScaler": "org.apache.spark.ml.feature.StandardScaler",
     "StandardScalerModel": "org.apache.spark.ml.feature.StandardScalerModel",
     "Pipeline": "org.apache.spark.ml.Pipeline",
@@ -89,6 +99,20 @@ _SPARK_PARAM_ALLOWLIST = {
     "LogisticRegressionModel": {"labelCol", "predictionCol", "probabilityCol",
                                 "maxIter", "tol", "regParam", "fitIntercept",
                                 "weightCol"},
+    "LinearSVC": {"labelCol", "predictionCol", "rawPredictionCol",
+                  "maxIter", "tol", "regParam", "fitIntercept",
+                  "standardization", "threshold", "weightCol"},
+    "LinearSVCModel": {"labelCol", "predictionCol", "rawPredictionCol",
+                       "maxIter", "tol", "regParam", "fitIntercept",
+                       "standardization", "threshold", "weightCol"},
+    "GeneralizedLinearRegression": {
+        "labelCol", "predictionCol", "linkPredictionCol", "family", "link",
+        "variancePower", "linkPower", "offsetCol", "maxIter", "tol",
+        "regParam", "fitIntercept", "weightCol"},
+    "GeneralizedLinearRegressionModel": {
+        "labelCol", "predictionCol", "linkPredictionCol", "family", "link",
+        "variancePower", "linkPower", "offsetCol", "maxIter", "tol",
+        "regParam", "fitIntercept", "weightCol"},
 }
 
 
@@ -509,6 +533,102 @@ def load_logreg_model(path: str):
     return _restore_params(model, meta)
 
 
+def save_glm_model(model, path: str, overwrite: bool = False) -> None:
+    """Spark GeneralizedLinearRegressionModel layout: (intercept,
+    coefficients), as ``GeneralizedLinearRegressionModelWriter`` writes
+    it; the fit summary scalars ride in the metadata extras."""
+    if model.coefficients is None:
+        raise ValueError(
+            "cannot save an unfitted GeneralizedLinearRegressionModel")
+    _require_target(path, overwrite)
+    cls = f"{type(model).__module__}.{type(model).__qualname__}"
+    extras = {
+        "numIterations": int(model.num_iterations_),
+        "deviance": float(model.deviance_),
+        "weightSum": float(model.weight_sum_),
+    }
+    _write_metadata(path, cls, model.uid, model.param_map_for_metadata(),
+                    extra=extras)
+    row = {
+        "intercept": float(model.intercept),
+        "coefficients": _dense_vector_struct(model.coefficients),
+    }
+    try:
+        import pyarrow as pa
+    except ImportError:
+        schema = None
+    else:
+        schema = pa.schema(
+            [
+                ("intercept", pa.float64()),
+                ("coefficients", _vector_arrow_type()),
+            ]
+        )
+    _write_data_row(path, row, schema=schema, spark_fields=[
+        ("intercept", "double"), ("coefficients", "vector"),
+    ])
+
+
+def load_glm_model(path: str):
+    from spark_rapids_ml_tpu_torch.models.glm import (
+        GeneralizedLinearRegressionModel,
+    )
+
+    meta = _read_metadata(path)
+    row = _read_data_row(path)
+    model = GeneralizedLinearRegressionModel(
+        coefficients=_dense_vector_from_struct(row["coefficients"]),
+        intercept=float(row["intercept"]),
+        uid=meta["uid"],
+    )
+    extras = meta.get("extra", {})
+    model.num_iterations_ = int(extras.get("numIterations", 0))
+    model.deviance_ = float(extras.get("deviance", float("nan")))
+    model.weight_sum_ = float(extras.get("weightSum", 0.0))
+    return _restore_params(model, meta)
+
+
+def save_svc_model(model, path: str, overwrite: bool = False) -> None:
+    """Spark LinearSVCModel layout: (coefficients, intercept), as
+    ``LinearSVCModel.LinearSVCModelWriter`` writes it."""
+    if model.coefficients is None:
+        raise ValueError("cannot save an unfitted LinearSVCModel")
+    _require_target(path, overwrite)
+    cls = f"{type(model).__module__}.{type(model).__qualname__}"
+    _write_metadata(path, cls, model.uid, model.param_map_for_metadata())
+    row = {
+        "coefficients": _dense_vector_struct(model.coefficients),
+        "intercept": float(model.intercept),
+    }
+    try:
+        import pyarrow as pa
+    except ImportError:
+        schema = None
+    else:
+        schema = pa.schema(
+            [
+                ("coefficients", _vector_arrow_type()),
+                ("intercept", pa.float64()),
+            ]
+        )
+    _write_data_row(path, row, schema=schema, spark_fields=[
+        ("coefficients", "vector"), ("intercept", "double"),
+    ])
+
+
+def load_svc_model(path: str):
+    from spark_rapids_ml_tpu_torch.models.linear_svc import LinearSVCModel
+
+    meta = _read_metadata(path)
+    row = _read_data_row(path)
+    model = LinearSVCModel(
+        coefficients=_dense_vector_from_struct(row["coefficients"]),
+        intercept=float(row["intercept"]),
+        uid=meta["uid"],
+    )
+    return _restore_params(model, meta)
+
+
 def save_svd_model(model, path: str, overwrite: bool = False) -> None:
     if model.components is None:
         raise ValueError("cannot save an unfitted TruncatedSVDModel")
@@ -740,6 +860,9 @@ _MODEL_CLASSES = {
         ("linear_regression", ("LinearRegression", "LinearRegressionModel")),
         ("logistic_regression", ("LogisticRegression",
                                  "LogisticRegressionModel")),
+        ("linear_svc", ("LinearSVC", "LinearSVCModel")),
+        ("glm", ("GeneralizedLinearRegression",
+                 "GeneralizedLinearRegressionModel")),
         ("svd", ("TruncatedSVD", "TruncatedSVDModel")),
         ("pipeline", ("Pipeline", "PipelineModel")),
     )

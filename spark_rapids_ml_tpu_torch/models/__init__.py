@@ -15,6 +15,14 @@ from spark_rapids_ml_tpu_torch.models.logistic_regression import (
     LogisticRegression,
     LogisticRegressionModel,
 )
+from spark_rapids_ml_tpu_torch.models.linear_svc import (
+    LinearSVC,
+    LinearSVCModel,
+)
+from spark_rapids_ml_tpu_torch.models.glm import (
+    GeneralizedLinearRegression,
+    GeneralizedLinearRegressionModel,
+)
 from spark_rapids_ml_tpu_torch.models.svd import (
     TruncatedSVD,
     TruncatedSVDModel,
@@ -50,6 +58,10 @@ __all__ = [
     "LinearRegressionModel",
     "LogisticRegression",
     "LogisticRegressionModel",
+    "LinearSVC",
+    "LinearSVCModel",
+    "GeneralizedLinearRegression",
+    "GeneralizedLinearRegressionModel",
     "TruncatedSVD",
     "TruncatedSVDModel",
     "Binarizer",

@@ -1,6 +1,7 @@
 """Fits across ranks on ``torch.distributed``: meshes, the multi-host
 runtime, the data-parallel, streamed and feature-sharded PCA fits, and the
-data-parallel LinearRegression, LogisticRegression and KMeans fits."""
+data-parallel LinearRegression, LogisticRegression, LinearSVC,
+GeneralizedLinearRegression and KMeans fits."""
 
 from spark_rapids_ml_tpu_torch.parallel.mesh import (
     DATA_AXIS,
@@ -30,6 +31,13 @@ from spark_rapids_ml_tpu_torch.parallel.distributed_logreg import (
     distributed_logreg_fit,
     distributed_logreg_fit_kernel,
 )
+from spark_rapids_ml_tpu_torch.parallel.distributed_svc import (
+    distributed_svc_fit,
+    distributed_svc_fit_kernel,
+)
+from spark_rapids_ml_tpu_torch.parallel.distributed_glm import (
+    distributed_glm_fit,
+)
 from spark_rapids_ml_tpu_torch.parallel.distributed_kmeans import (
     distributed_kmeans_fit,
     distributed_kmeans_fit_kernel,
@@ -57,6 +65,8 @@ __all__ = [
     "distributed_pca_fit_kernel",
     "distributed_linreg_fit", "distributed_linreg_fit_kernel",
     "distributed_logreg_fit", "distributed_logreg_fit_kernel",
+    "distributed_svc_fit", "distributed_svc_fit_kernel",
+    "distributed_glm_fit",
     "distributed_kmeans_fit", "distributed_kmeans_fit_kernel",
     "DistributedStreamingPCA", "distributed_streaming_pca_fit",
     "finalize_stats_sharded", "update_stats_sharded",

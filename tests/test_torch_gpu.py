@@ -1323,3 +1323,95 @@ def test_stage_family_bodies_on_the_card(cuda_device, algo):
             if dtype == torch.float32 and algo == "normalizer":
                 bar = 1e-5
             assert np.abs(got - host).max() <= bar * np.abs(host).max()
+
+
+# -- slice 18: LinearSVC and GeneralizedLinearRegression ----------------------
+
+def test_svc_newton_hessian_is_the_kernel_on_the_card(cuda_device):
+    """One highest launch per Newton iteration, the Hessian on √s rows (s
+    the active set) within the kernel's bar of its plain version, and the
+    fit within 1e-4 of the float64 Newton on the card; the estimator and
+    its streamed route launch the same kernel (once per bucket a pass)."""
+    from spark_rapids_ml_tpu_torch import LinearSVC
+    from spark_rapids_ml_tpu_torch.data.batches import auto_batch_rows
+    from spark_rapids_ml_tpu_torch.ops import svm_kernel as sk
+
+    x, y = _logistic(20_000, 256, seed=18)
+    xd = torch.as_tensor(x, device=cuda_device)
+    yd = torch.as_tensor(y, device=cuda_device)
+    highest = fused_gram.kernel_name("highest")
+    fused_gram.reset_launches()
+    result = sk.svc_fit_kernel(xd, yd, reg_param=0.01, max_iter=6, tol=0.0)
+    torch.cuda.synchronize()
+    assert int(result.n_iter) == 6
+    assert {k: v for k, v in fused_gram.launches.items() if v} == {
+        highest: 6}
+    margin = 1.0 - (2.0 * yd - 1.0) * (xd @ result.coefficients
+                                       + result.intercept)
+    root = (margin > 0).float()
+    zeros = torch.zeros(256, device=cuda_device)
+    got = fused_centered_gram(xd, zeros, root, "highest")
+    want = fused_centered_gram_reference(xd, zeros, root, "highest")
+    err = (got - want).abs().max().item()
+    assert err <= fused_gram.PLAIN_RTOL[highest] * want.abs().max().item()
+    ref = sk.svc_fit_kernel(xd.double(), yd.double(), reg_param=0.01,
+                            max_iter=6, tol=0.0)
+    w = torch.cat([result.coefficients, result.intercept.reshape(1)])
+    w64 = torch.cat([ref.coefficients, ref.intercept.reshape(1)])
+    assert (torch.linalg.norm(w.double() - w64)
+            / torch.linalg.norm(w64)).item() <= 1e-4
+    fused_gram.reset_launches()
+    model = LinearSVC().setRegParam(0.01).setMaxIter(3).setTol(0.0).fit(x, y)
+    assert fused_gram.launches[highest] == model.n_iter_ == 3
+    fused_gram.reset_launches()
+    streamed = LinearSVC().setRegParam(0.01).setMaxIter(2).setTol(
+        0.0).setStandardization(False).fit(
+        lambda: iter([(x[:12_000], y[:12_000]), (x[12_000:], y[12_000:])]))
+    buckets = -(-20_000 // auto_batch_rows(256))
+    assert fused_gram.launches[highest] == buckets * streamed.n_iter_
+
+
+@pytest.mark.parametrize("family,link", [("poisson", "log"),
+                                         ("gamma", "log"),
+                                         ("binomial", "probit")])
+def test_glm_irls_gram_is_the_kernel_on_the_card(cuda_device, family, link):
+    """One highest launch per IRLS pass with √W as its row multiplier,
+    within the kernel's bar of its plain version; the pass's statistics
+    within 1e-5 of the float64 pass on the card; a fit launches once per
+    pass and once more for the final deviance at maxIter."""
+    from spark_rapids_ml_tpu_torch import GeneralizedLinearRegression
+    from spark_rapids_ml_tpu_torch.ops import glm_kernel as gk
+
+    rng = np.random.default_rng(19)
+    rows, n = 16_384, 128
+    x = rng.normal(size=(rows, n)).astype(np.float32)
+    eta = x @ (rng.normal(size=n) * 0.3 / np.sqrt(n)) + 0.2
+    y = {"poisson": rng.poisson(np.exp(eta)),
+         "gamma": rng.gamma(5.0, np.exp(eta) / 5.0),
+         "binomial": rng.random(rows) < 0.5}[family].astype(np.float32)
+    xd, yd = (torch.as_tensor(a, device=cuda_device) for a in (x, y))
+    ones = torch.ones(rows, device=cuda_device)
+    coef = torch.as_tensor(rng.normal(size=n) * 0.01, dtype=torch.float32,
+                           device=cuda_device)
+    b = torch.tensor(0.1, device=cuda_device)
+    kw = dict(family=family, link=link, var_power=0.0, link_power=1.0)
+    highest = fused_gram.kernel_name("highest")
+    fused_gram.reset_launches()
+    out = gk.glm_irls_device_step(xd, yd, ones, torch.zeros_like(ones),
+                                  coef, b, **kw)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in fused_gram.launches.items() if v} == {
+        highest: 1}
+    ref = gk.glm_irls_device_step(xd.double(), yd.double(), ones.double(),
+                                  torch.zeros_like(ones).double(),
+                                  coef.double(), b.double(), **kw)
+    for name, got, want in zip(gk.GlmStepOut._fields, out, ref):
+        assert torch.isfinite(got).all(), name
+        scale = want.abs().max().item()
+        assert (got.double() - want).abs().max().item() <= 1e-5 * scale, name
+    fused_gram.reset_launches()
+    model = GeneralizedLinearRegression(family=family).setLink(
+        link).setMaxIter(3).setTol(0.0).fit(x, labels=y)
+    assert model.num_iterations_ == 3
+    assert fused_gram.launches[highest] == 4
+    assert np.isfinite(model.coefficients).all()

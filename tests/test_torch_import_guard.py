@@ -346,6 +346,103 @@ def test_logreg_slice_runs_without_jax(tmp_path):
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+# the modules of the LinearSVC and GeneralizedLinearRegression slice
+SVC_GLM_SLICE = ("ops.svm_kernel", "models.linear_svc",
+                 "parallel.distributed_svc", "ops.glm_kernel", "models.glm",
+                 "parallel.distributed_glm", "io.persistence")
+
+
+def test_svc_glm_slice_runs_without_jax(tmp_path):
+    """A LinearSVC and a GLM model that the JAX package saved, loaded by
+    the port and served through the registry and engine; the port's own
+    fits (one-shot, streamed, host, every family of the GLM grid's
+    canonical links) and saves; and ``distributed_svc_fit`` and
+    ``distributed_glm_fit`` in a one-rank gloo world — in a process that
+    never imports jax. The JAX models are saved here, in the test
+    process."""
+    import spark_rapids_ml_tpu as jax_pkg
+
+    mods = {m for _, m in _port_modules()}
+    assert {f"spark_rapids_ml_tpu_torch.{m}" for m in SVC_GLM_SLICE} <= mods
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(90, 6))
+    y = (x[:, 0] + 0.5 * rng.normal(size=90) > 0).astype(float)
+    counts = rng.poisson(np.exp(0.3 * x[:, 1] + 0.2)).astype(float)
+    # binomial labels far from separable: a float32 fit on (nearly)
+    # separable labels saturates μ at the clip bound, which rounds to 1.0
+    # at float32, and gives NaN coefficients in both packages
+    yb = (rng.random(90) < 1.0 / (1.0 + np.exp(-0.5 * x[:, 0]))).astype(
+        float)
+    np.save(tmp_path / "yb.npy", yb)
+    jax_pkg.LinearSVC().setRegParam(0.1).fit(x, y).save(str(tmp_path / "svc"))
+    jax_pkg.GeneralizedLinearRegression(family="poisson").fit(
+        x, labels=counts).save(str(tmp_path / "glm"))
+    np.save(tmp_path / "x.npy", x)
+    np.save(tmp_path / "y.npy", y)
+    np.save(tmp_path / "c.npy", counts)
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "import torch.distributed as dist\n"
+        "from spark_rapids_ml_tpu_torch import (GeneralizedLinearRegression "
+        "as GLR, LinearSVC)\n"
+        "from spark_rapids_ml_tpu_torch.data import batches\n"
+        "from spark_rapids_ml_tpu_torch.io.persistence import load_model\n"
+        "from spark_rapids_ml_tpu_torch.parallel import (data_mesh, "
+        "distributed_glm_fit, distributed_svc_fit)\n"
+        "from spark_rapids_ml_tpu_torch.serve import (ModelRegistry, "
+        "ServeEngine)\n"
+        "d = sys.argv[1]\n"
+        "batches.auto_batch_rows = lambda *a, **k: 64\n"
+        "x, y, c, yb = (np.load(d + f'/{n}.npy') for n in ('x', 'y', "
+        "'c', 'yb'))\n"
+        "reg = ModelRegistry()\n"
+        "for name in ('svc', 'glm'):\n"
+        "    reg.load(name, d + '/' + name)\n"
+        "eng = ServeEngine(reg, max_wait_ms=1)\n"
+        "try:\n"
+        "    labels = eng.predict('svc', x)\n"
+        "    mu = eng.predict('glm', x)\n"
+        "finally:\n"
+        "    eng.shutdown()\n"
+        "assert set(np.unique(labels)) <= {0.0, 1.0}\n"
+        "assert mu.shape == (90,) and (mu > 0).all()\n"
+        "chunks = lambda: iter([(x[:50], y[:50]), (x[50:], y[50:])])\n"
+        "fits = [LinearSVC().fit(x, y), LinearSVC().setStandardization("
+        "False).fit(chunks), LinearSVC().setUseXlaDot(False).fit(x, y)]\n"
+        "fits[0].save(d + '/own_svc')\n"
+        "glms = [GLR(family=f).fit(x, labels=l) for f, l in ("
+        "('gaussian', c), ('binomial', yb), ('poisson', c), "
+        "('gamma', c + 0.5), ('tweedie', c))]\n"
+        "glms.append(GLR(family='poisson').fit(lambda: iter([(x[:50], "
+        "c[:50]), (x[50:], c[50:])])))\n"
+        "glms[2].save(d + '/own_glm')\n"
+        "assert type(load_model(d + '/own_svc')).__name__ == "
+        "'LinearSVCModel'\n"
+        "assert type(load_model(d + '/own_glm')).__name__ == "
+        "'GeneralizedLinearRegressionModel'\n"
+        "dist.init_process_group('gloo', init_method='file://' + d + "
+        "'/store', rank=0, world_size=1)\n"
+        "res = distributed_svc_fit(x, y, data_mesh(1))\n"
+        "gm = distributed_glm_fit(x, c, data_mesh(1), family='poisson')\n"
+        "dist.destroy_process_group()\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or "
+        "k.startswith('jax.') or k == 'spark_rapids_ml_tpu' or "
+        "k.startswith('spark_rapids_ml_tpu.'))\n"
+        "ok = all(np.isfinite(m.coefficients).all() for m in fits + glms "
+        "+ [gm])\n"
+        "print(tuple(res.coefficients.shape), [f.n_iter_ for f in fits], "
+        "[g.num_iterations_ for g in glms], bad)\n"
+        "sys.exit(1 if bad or not ok else 0)\n"
+    )
+    env = dict(os.environ, SPARK_RAPIDS_ML_TORCH_PLATFORM="cpu",
+               OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                          cwd=REPO_DIR, capture_output=True, text=True,
+                          timeout=120, env=env)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_port_sources_import_no_jax():
     found = []
     smoke = os.path.join(REPO_DIR, "chip_smoke.py")

@@ -13,7 +13,10 @@ more than the JAX program's. The FLOPs: the port counts each Gram
 analytically (``rows·n·(n+1)`` over the rows handed to it), where the JAX
 package reports XLA's cost analysis of whole programs; so the port's are
 held to the Gram formula. ``make_global_array`` notes ``host0`` and a
-``placement`` collective in the current run, as the JAX seam does.
+``placement`` collective in the current run, as the JAX seam does. The
+instrumented ``distributed_svc_fit`` and ``distributed_glm_fit`` give the
+JAX functions' run, steps, scalars and collective counts and bytes exactly
+(float64 in both; their collectives carry no row count).
 """
 
 import numpy as np
@@ -193,3 +196,77 @@ def test_make_global_array_notes_host0_and_a_placement(mesh, monitors):
     assert run.skew()["hosts"].keys() == jrun.skew()["hosts"].keys()
     assert any(e.name == "multihost:placement"
                for e in spans.get_recorder().events())
+
+
+# -- the LinearSVC and GLM fits under the fit monitor -------------------------
+
+def _linear_fit(pkg, algo, x, y, mesh):
+    """``distributed_svc_fit`` (ridge 0.02) or ``distributed_glm_fit``
+    (Poisson), float64, by ``pkg`` on a one-rank mesh."""
+    if pkg == "torch":
+        from spark_rapids_ml_tpu_torch.parallel import (
+            distributed_glm_fit,
+            distributed_svc_fit,
+        )
+    else:
+        from spark_rapids_ml_tpu.parallel import (
+            distributed_glm_fit,
+            distributed_svc_fit,
+        )
+
+        mesh = jax_data_mesh(1)
+    if algo == "distributed_svc":
+        return distributed_svc_fit(x, (y > np.median(y)).astype(np.float64),
+                                   mesh, reg_param=0.02)
+    return distributed_glm_fit(x, np.floor(np.abs(y)), mesh,
+                               family="poisson", dtype=np.float64)
+
+
+@pytest.mark.parametrize("algo", ["distributed_svc", "distributed_glm"])
+def test_instrumented_linear_fit_matches_the_jax_function(algo, mesh,
+                                                        monitors):
+    """The LinearSVC fit's one ``newton`` step noted with ``n_iter`` and
+    ``converged`` and its (d² + d)-element all-reduce per iteration; the
+    GLM fit's ``irls_pass`` step and (d² + d + 6)-element all-reduce
+    per pass: the same run, steps, rows, scalars and collective count and
+    bytes as the JAX functions', and the same fit."""
+    x = _data()
+    y = x @ np.linspace(-1.0, 1.0, N) * 2.0 + 1.0
+    results = {pkg: _linear_fit(pkg, algo, x, y, mesh)
+               for pkg in ("torch", "jax")}
+    runs = {}
+    for pkg, mon in monitors.items():
+        assert mon.active_runs() == []
+        (runs[pkg],) = mon.recent_runs()
+    ours, theirs = (results[p].fit_report_ for p in ("torch", "jax"))
+    assert ours.algo == theirs.algo == algo
+    assert set(ours.phases) == set(theirs.phases)
+    assert ours.rows == theirs.rows == ROWS
+    assert ours.n_iter == theirs.n_iter
+    assert ours.collectives == theirs.collectives
+    run, jrun = runs["torch"], runs["jax"]
+    assert (run.algo, run.status) == (jrun.algo, jrun.status) == \
+        (algo, "done")
+    assert _steps(run) == _steps(jrun)
+    assert run.rows_total == jrun.rows_total
+    for key in ("count", "bytes"):
+        assert run.collectives["all_reduce"][key] == \
+            jrun.collectives["all_reduce"][key] == \
+            ours.collectives["all_reduce"][key]
+    assert run.report["collective_bytes"] == \
+        jrun.report["collective_bytes"]
+    d = N + 1
+    per = d * d + d if algo == "distributed_svc" else N * N + N + 6
+    reduce = ours.collectives["all_reduce"]
+    assert reduce["bytes"] == per * 8 * reduce["count"]
+    if algo == "distributed_svc":
+        assert [s["step"] for s in run.steps] == ["newton"]
+        np.testing.assert_allclose(results["torch"].coefficients.numpy(),
+                                   np.asarray(results["jax"].coefficients),
+                                   rtol=1e-9, atol=1e-12)
+    else:
+        assert {s["step"] for s in run.steps} == {"irls_pass"}
+        assert reduce["count"] == len(run.steps)
+        np.testing.assert_allclose(results["torch"].coefficients,
+                                   results["jax"].coefficients,
+                                   rtol=1e-9, atol=1e-12)

@@ -19,7 +19,11 @@ import pytest
 
 import spark_rapids_ml_tpu_torch as port_pkg
 from spark_rapids_ml_tpu_torch import (
+    GeneralizedLinearRegression,
+    GeneralizedLinearRegressionModel,
     KMeans,
+    LinearSVC,
+    LinearSVCModel,
     LinearRegression,
     LinearRegressionModel,
     LogisticRegression,
@@ -71,6 +75,8 @@ def _fitted(family):
         return LogisticRegression().setRegParam(0.1).fit(x, _classes(y, 2))
     if family == "logreg_mn":
         return LogisticRegression().setRegParam(0.1).fit(x, _classes(y, 3))
+    if family in ("svc", "glm", "svc_est", "glm_est"):
+        return _linear_family(family, x, y, port_pkg)
     if family == "pipeline":
         return Pipeline([
             StandardScaler().setWithMean(True).setOutputCol("s"),
@@ -80,6 +86,24 @@ def _fitted(family):
     if family == "estimator":
         return KMeans().setK(4)
     return _stage_family(family, x, port_pkg)
+
+
+def _linear_family(family, x, y, pkg):
+    """LinearSVC and GeneralizedLinearRegression, fitted by ``pkg`` (the
+    port or the JAX package), or their estimators, each with a param set
+    away from its default."""
+    if family == "svc":
+        return pkg.LinearSVC().setRegParam(0.1).setThreshold(0.25).fit(
+            x, _classes(y, 2))
+    if family == "glm":
+        return pkg.GeneralizedLinearRegression(family="poisson") \
+            .setLinkPredictionCol("eta").fit(x, labels=np.floor(np.abs(y)))
+    if family == "svc_est":
+        return pkg.LinearSVC().setStandardization(False).setMaxIter(7)
+    if family == "glm_est":
+        return pkg.GeneralizedLinearRegression(family="tweedie") \
+            .setVariancePower(1.5).setLinkPower(0.0)
+    raise KeyError(family)
 
 
 def _stage_family(family, x, pkg):
@@ -122,9 +146,13 @@ STAGE_FAMILIES = ("minmax", "maxabs", "robust", "normalizer", "binarizer",
                   "elementwise", "slicer", "varsel", "varsel_model",
                   "chisq_model", "minmax_est", "maxabs_est", "robust_est")
 PARAMS_ONLY = {"estimator", "normalizer", "binarizer", "elementwise",
-               "slicer", "varsel", "minmax_est", "maxabs_est", "robust_est"}
+               "slicer", "varsel", "minmax_est", "maxabs_est", "robust_est",
+               "svc_est", "glm_est"}
+# LinearSVC and GeneralizedLinearRegression, models and estimators
+LINEAR_FAMILIES = ("svc", "glm", "svc_est", "glm_est")
 FAMILIES = ("pca", "kmeans", "scaler", "linreg", "svd", "logreg",
-            "logreg_mn", "pipeline", "estimator") + STAGE_FAMILIES
+            "logreg_mn", "pipeline", "estimator") + STAGE_FAMILIES \
+    + LINEAR_FAMILIES
 
 
 def _state(obj):
@@ -136,7 +164,8 @@ def _state(obj):
                  "components", "singular_values", "intercept",
                  "coefficient_matrix", "intercept_vector", "classes_",
                  "original_min", "original_max", "max_abs", "median",
-                 "qrange", "selected_features"):
+                 "qrange", "selected_features", "num_iterations_",
+                 "deviance_", "weight_sum_"):
         value = getattr(obj, attr, None)
         if value is not None:
             out.append(np.asarray(value))
@@ -232,6 +261,7 @@ def test_every_writer_is_wrapped():
     assert {"save_params", "save_pca_model", "save_kmeans_model",
             "save_scaler_model", "save_linreg_model",
             "save_svd_model", "save_logreg_model", "save_minmax_model",
+            "save_svc_model", "save_glm_model",
             "save_maxabs_model", "save_robust_model",
             "save_selector_model"} <= set(writers)
     for name in writers:
@@ -273,12 +303,14 @@ def _jax_fitted(family):
             jax_pkg.PCA().setK(3).setInputCol("s").setOutputCol("r"),
             jax_pkg.KMeans().setK(2).setInputCol("r"),
         ]).fit(x)
+    if family in LINEAR_FAMILIES:
+        return _linear_family(family, x, y, jax_pkg)
     return _stage_family(family, x, jax_pkg)
 
 
 @pytest.mark.parametrize("family", ["linreg", "svd", "kmeans", "scaler",
                                     "logreg", "logreg_mn", "pipeline",
-                                    *STAGE_FAMILIES])
+                                    *STAGE_FAMILIES, *LINEAR_FAMILIES])
 def test_load_model_maps_jax_written_metadata_to_the_port(tmp_path, family):
     jax_model = _jax_fitted(family)
     path = str(tmp_path / family)
@@ -288,8 +320,8 @@ def test_load_model_maps_jax_written_metadata_to_the_port(tmp_path, family):
     loaded = load_model(path)
     assert type(loaded).__module__.startswith("spark_rapids_ml_tpu_torch.")
     assert type(loaded).__name__ == type(jax_model).__name__
-    if family in STAGE_FAMILIES:  # the same params, so the same state
-        _same(loaded, jax_model)
+    if family in STAGE_FAMILIES + LINEAR_FAMILIES[2:]:
+        _same(loaded, jax_model)  # the same params, so the same state
 
 
 def test_load_model_refuses_a_class_it_does_not_have(tmp_path):
@@ -359,6 +391,83 @@ def test_registry_loads_logreg_saved_by_either_package(tmp_path, writer,
     assert type(replayed.resolve(family)) is LogisticRegressionModel
 
 
+def test_load_model_names_the_linear_svc_and_glm_classes():
+    for name, module in (("LinearSVC", "linear_svc"),
+                         ("LinearSVCModel", "linear_svc"),
+                         ("GeneralizedLinearRegression", "glm"),
+                         ("GeneralizedLinearRegressionModel", "glm")):
+        assert persistence._MODEL_CLASSES[name] == (
+            f"spark_rapids_ml_tpu_torch.models.{module}", name)
+
+
+@pytest.mark.parametrize("writer", ["port", "jax"])
+@pytest.mark.parametrize("family", ["svc", "glm"])
+def test_registry_loads_svc_and_glm_saved_by_either_package(tmp_path, writer,
+                                                           family):
+    """A LinearSVC and a GLM model saved by either package load through
+    ``load_model`` and ``ModelRegistry.load`` (and its manifest replay) as
+    the port's class, carry the writer's state, and serve through the
+    engine's blocking path what the writer's transform gives."""
+    from spark_rapids_ml_tpu_torch.serve import ServeEngine
+
+    model = _fitted(family) if writer == "port" else _jax_fitted(family)
+    path = str(tmp_path / family)
+    model.save(path)
+    want_cls = {"svc": LinearSVCModel,
+                "glm": GeneralizedLinearRegressionModel}[family]
+    assert type(load_model(path)) is want_cls
+    manifest = str(tmp_path / "manifest.json")
+    registry = ModelRegistry(manifest_path=manifest)
+    version = registry.load(family, path)
+    loaded = registry.resolve(family, version)
+    assert type(loaded) is want_cls
+    np.testing.assert_array_equal(loaded.coefficients, model.coefficients)
+    assert loaded.intercept == model.intercept
+    assert loaded.uid == model.uid
+    assert _infer_features(loaded) == 5
+    x, _ = _xy(seed=1)
+    want = np.asarray(model.transform(x).column("prediction"))
+    engine = ServeEngine(registry, max_wait_ms=1)
+    try:
+        served = engine.predict(family, x)
+    finally:
+        engine.shutdown()
+    if family == "svc":
+        np.testing.assert_array_equal(served, want)
+    else:
+        np.testing.assert_allclose(served, want, rtol=1e-12)
+    replayed = ModelRegistry(manifest_path=manifest)
+    assert replayed.recovery_report_["recovered"] == [f"{family}@{version}"]
+    assert type(replayed.resolve(family)) is want_cls
+
+
+@pytest.mark.parametrize("family", LINEAR_FAMILIES)
+def test_linear_family_metadata_equals_the_jax_writers(tmp_path, family):
+    """The metadata of LinearSVC and GLM models and estimators equals the
+    JAX writers' but for the timestamp and the module path (GLM's unset
+    link sentinels omitted in both), and a port-saved directory loads
+    through the JAX class."""
+    import spark_rapids_ml_tpu as jax_pkg
+
+    port, jax_model = _fitted(family), _jax_fitted(family)
+    jax_model.uid = port.uid
+    port.save(str(tmp_path / "port"))
+    jax_model.save(str(tmp_path / "jax"))
+    got = _comparable_metadata(str(tmp_path / "port"))
+    want = _comparable_metadata(str(tmp_path / "jax"))
+    if family in ("svc", "glm"):
+        # the fitted dtype param is each package's own default ('auto')
+        # and the fit summary differs in the last bits
+        assert set(got.pop("extra", {})) == set(want.pop("extra", {}))
+    assert got == want
+    merged = {**got["paramMap"], **got["tpuParamMap"]}
+    if family == "glm":
+        assert "link" not in merged and "linkPower" not in merged
+    back = getattr(jax_pkg, type(port).__name__).load(str(tmp_path / "port"))
+    assert type(back).__module__.startswith("spark_rapids_ml_tpu.models.")
+    _same(back, port)
+
+
 def test_linear_regression_warms_without_n_features():
     registry = ModelRegistry()
     registry.register("lr", _fitted("linreg"))
@@ -369,7 +478,7 @@ def test_linear_regression_warms_without_n_features():
 @pytest.mark.parametrize("family,width", [
     ("pca", 5), ("kmeans", 5), ("scaler", 5), ("linreg", 5),
     ("logreg", 5), ("logreg_mn", 5), ("pipeline", 5), ("minmax", 5),
-    ("maxabs", 5), ("robust", 5)])
+    ("maxabs", 5), ("robust", 5), ("svc", 5), ("glm", 5)])
 def test_feature_inference_covers_every_family(family, width):
     assert _infer_features(_fitted(family)) == width
 
