@@ -441,8 +441,44 @@ Phases (any failure raises and the script exits non-zero):
     ``ServeEngine``'s blocking path: labels equal to the float64 host
     margin's, margins within 1e-5 of ‖x‖·‖w‖ + |b|, μ within 1e-5
     relative.
+19. NearestNeighbors and DBSCAN (``models/nearest_neighbors.py``,
+    ``models/dbscan.py``, ``parallel/distributed_{knn,ivf,dbscan}.py``), no
+    hand kernel (asserted: the launch counts are set to 0 at the start and
+    must read 0 at the end). Data of SIFT1M's shape made on the card from
+    the seed: 1,000,000 × 128 float32 items in 1,024 Gaussian blobs
+    (centres N(0, 0.5²), σ = 1), 10,000 fresh queries from the same blobs,
+    k = 10. (i) Brute force: the card's ``kneighbors`` against the same
+    search at float64 on the card (k = 11) for all queries and against
+    ``_host_kneighbors`` for 256: index sets equal except rows whose
+    float64 10th and 11th distances lie within 1e-5 relative (counted),
+    distances within 1e-5 relative; bit-equal under
+    ``set_float32_matmul_precision("high")`` and in chunks of 97; queries/s
+    (host clock), one chunk's CUDA-event ms against its bound (the cross
+    term's operations at 67 TFLOP/s, or the items' bytes) split into
+    distances and selection, and the peak memory. (ii) IVF-Flat at nlist
+    √n = 1000: the build's seconds (k-means++, Lloyd, assignment, layout),
+    Lloyd's ms a pass at 1,000,000 × 1000 and the build's peak memory;
+    recall@10 against (i) and queries/s at nprobe 8 and 32; 256 queries'
+    ids and distances equal to the same search of a CPU copy of the card's
+    index; on 65,536 of the items at nlist 64 and nprobe 64, 1,024 queries
+    (cut) equal to float64 brute as in (i). (iii) IVF-PQ on the same
+    coarse quantizer, auto pqM (32 subspaces, dsub 4), pqBits 8: build
+    seconds, the uint8 codes' bytes (n·M) and padded layout, recall@10 and
+    queries/s at nprobe 8 and 32 with refineRatio 2 and 0; re-rank recall
+    ≥ recall without − 1e-9, recall at 32 ≥ recall at 8 − 0.05. (iv)
+    DBSCAN on 131,072 lattice rows (64 blobs in 16 dimensions, integer
+    centres N(0, 10²), N(0, 1) offsets rounded to 1/4, 2 % uniform noise):
+    dense on the first 16,384 rows equal to ``_host_dbscan`` in float64;
+    tiled (blockRows 4096) at 16,384 equal to dense, at 131,072 float32
+    equal to float64; sweeps and seconds a sweep. (v) On a fresh one-rank
+    NCCL world: ``distributed_kneighbors`` equal to (i),
+    ``distributed_ivf_search`` equal to the model's ivfflat (nprobe 8) and
+    ivfpq (nprobe 8, no re-rank) searches, ``distributed_dbscan_labels``
+    equal to the tiled float32 fit. (vi) A 16,384-item model saved, loaded
+    through ``load_model``, its ``kneighbors`` equal.
 
-Then one JSON line ``{"stage_bodies": [...]}``, one ``{"kernels": [...]}``
+Then one JSON line ``{"stage_bodies": [...]}``, one ``{"knn_dbscan":
+{...}}`` (phase 19's numbers), one ``{"kernels": [...]}``
 (each kernel with its launches per phase and, under ``extra_shapes``,
 phase 3's timings of phase 14's shapes and phases 16 and 18's Hessians),
 the card's name and power limit, and last ``{"ok": true, "device":
@@ -5571,23 +5607,27 @@ SERVED_RTOL = 1e-5         # margins (of ‖x‖·‖w‖ + |b|) and μ served v
 
 
 class WallSplit:
-    """A fit's wall split on the host clock: the Gram launches, the
-    device solves (``_cho_solve``), the host solves (``np.linalg.solve``)
-    and the host → device copies (``torch.as_tensor`` of a host array onto
-    the card), each timed between two synchronisations of the card, while
-    the context is open."""
+    """A wall split on the host clock: each of ``targets`` ((module,
+    attribute, name) triples) timed between two synchronisations of the
+    card while the context is open, its calls counted and its last result
+    kept. By default a fit's split: the Gram launches, the device solves
+    (``_cho_solve``), the host solves (``np.linalg.solve``) and the host →
+    device copies (``torch.as_tensor`` of a host array onto the card)."""
 
-    def __init__(self, torch):
-        from spark_rapids_ml_tpu_torch.ops import covariance as cov_ops
-        from spark_rapids_ml_tpu_torch.ops import svm_kernel
+    def __init__(self, torch, targets=None):
+        if targets is None:
+            from spark_rapids_ml_tpu_torch.ops import covariance as cov_ops
+            from spark_rapids_ml_tpu_torch.ops import svm_kernel
 
+            targets = ((cov_ops, "fused_centered_gram", "gram"),
+                       (svm_kernel, "_cho_solve", "device solve"),
+                       (np.linalg, "solve", "host solve"),
+                       (torch, "as_tensor", "h2d"))
         self.torch = torch
-        self.targets = ((cov_ops, "fused_centered_gram", "gram"),
-                        (svm_kernel, "_cho_solve", "device solve"),
-                        (np.linalg, "solve", "host solve"),
-                        (torch, "as_tensor", "h2d"))
+        self.targets = targets
         self.seconds = {name: 0.0 for _, _, name in self.targets}
         self.calls = {name: 0 for _, _, name in self.targets}
+        self.last = {}
 
     def _timed(self, real, name):
         torch = self.torch
@@ -5603,6 +5643,7 @@ class WallSplit:
             torch.cuda.synchronize()
             self.seconds[name] += time.perf_counter() - t0
             self.calls[name] += 1
+            self.last[name] = out
             return out
 
         return wrapper
@@ -6045,6 +6086,493 @@ def phase_linear_models(torch, fg, device):
     return launched, shapes
 
 
+# -- phase 19: NearestNeighbors and DBSCAN --------------------------------------
+
+NN_ITEMS = 1_000_000       # SIFT1M's shape: 1,000,000 × 128 float32
+NN_DIM = 128
+NN_QUERIES = 10_000
+NN_K = 10                  # the ANN-benchmarks default
+NN_BLOBS = 1024
+NN_CENTRE_SD = 0.5         # blob centres N(0, 0.5²) per coordinate, σ = 1
+NN_HOST_QUERIES = 256      # held against _host_kneighbors
+NN_OTHER_STEP = 97         # another chunking of the same queries
+NN_TIMED = 5               # CUDA-event runs of one chunk, after 3 warm-up
+NN_NPROBES = (8, 32)
+NN_REFINE = (2.0, 0.0)
+NN_CPU_QUERIES = 256       # the card-built index searched on the CPU
+NN_EXACT_ITEMS = 65_536
+NN_EXACT_NLIST = 64
+NN_EXACT_QUERIES = 1024    # (cut from 10,000)
+NN_SAVE_ITEMS = 16_384     # the saved model (cut: a JSON payload)
+NN_PQ_M = 32               # auto pqM at 128 features: dsub 4
+# bars, set in PERF.md §2 before the first run
+NN_TIE_RTOL = 1e-5         # float64 k-th and (k+1)-th within: a near-tie
+NN_DIST_RTOL = 1e-5        # distances vs float64 on the card
+PQ_RERANK_SLACK = 1e-9     # re-rank recall ≥ recall without − this
+PQ_NPROBE_SLACK = 0.05     # recall at nprobe 32 ≥ recall at 8 − this
+DB_BLOBS = 64
+DB_DIM = 16
+DB_NOISE = 0.02            # of the rows, uniform on the lattice
+DB_ROWS = 131_072
+DB_DENSE_ROWS = 16_384     # the dense kernel's envelope
+DB_BLOCK = 4096
+DB_MIN_PTS = 10
+DB_CENTRE_SD = 10.0        # blob centres N(0, 10²), rounded to integers
+DB_NOISE_BOX = 40.0
+# coordinates are multiples of 1/4, so every d² is a multiple of 1/16,
+# exact in float32 and float64; ε² lies 1/32 from the nearest level
+DB_EPS = float(np.sqrt(20.0 + 1.0 / 32.0))
+
+
+def nn_data(torch, device):
+    """(items, queries), float32 numpy: 1024 Gaussian blobs (centres
+    N(0, NN_CENTRE_SD²), σ = 1) made on the card from the seed; the
+    queries are fresh draws from the same blobs."""
+    g = torch.Generator(device=device).manual_seed(SEED + 1900)
+    centres = NN_CENTRE_SD * torch.randn(NN_BLOBS, NN_DIM, generator=g,
+                                         device=device)
+
+    def draw(rows):
+        which = torch.randint(0, NN_BLOBS, (rows,), generator=g,
+                              device=device)
+        return (centres[which] + torch.randn(rows, NN_DIM, generator=g,
+                                             device=device)).cpu().numpy()
+
+    return draw(NN_ITEMS), draw(NN_QUERIES)
+
+
+def db_data():
+    """DB_ROWS lattice rows: 64 blobs in 16 dimensions (integer centres,
+    N(0, 1) offsets rounded to 1/4) plus 2 % uniform noise on the lattice,
+    shuffled; float32 holds every coordinate exactly."""
+    rng = np.random.default_rng(SEED + 1919)
+    centres = np.round(rng.normal(scale=DB_CENTRE_SD, size=(DB_BLOBS,
+                                                             DB_DIM)))
+    n_noise = int(DB_ROWS * DB_NOISE)
+    n_blob = DB_ROWS - n_noise
+    x = (centres[rng.integers(0, DB_BLOBS, n_blob)]
+         + np.round(4 * rng.normal(size=(n_blob, DB_DIM))) / 4)
+    noise = np.round(4 * rng.uniform(-DB_NOISE_BOX, DB_NOISE_BOX,
+                                     size=(n_noise, DB_DIM))) / 4
+    return np.concatenate([x, noise])[rng.permutation(DB_ROWS)].astype(
+        np.float32)
+
+
+class SweepCounter:
+    """Counts and times DBSCAN's propagation sweeps (``dbscan_kernel.
+    _propagate``'s ``neighbor_min`` calls) while the context is open."""
+
+    def __init__(self, torch, dbscan_kernel):
+        self.torch, self.module = torch, dbscan_kernel
+        self.sweeps, self.seconds = 0, 0.0
+
+    def __enter__(self):
+        real = self.real = self.module._propagate
+
+        def counted(labels, core, neighbor_min):
+            def sweep(labels):
+                self.sweeps += 1
+                return neighbor_min(labels)
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(labels, core, sweep)
+            self.torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - t0
+            return out
+
+        self.module._propagate = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.module._propagate = self.real
+
+
+def recall(got, want, k=NN_K) -> float:
+    return float(np.mean([len(set(g[:k]) & set(w[:k])) / k
+                          for g, w in zip(got, want)]))
+
+
+def sets_outside_ties(label, got_i, want_i, want_d, k=NN_K) -> int:
+    """Fails unless each row's k ids equal the reference's as a set, except
+    rows whose reference k-th and (k+1)-th distances lie within
+    NN_TIE_RTOL; returns how many rows are such near-ties."""
+    near = np.isclose(want_d[:, k - 1], want_d[:, k], rtol=NN_TIE_RTOL,
+                      atol=0)
+    bad = [r for r in range(len(got_i)) if not near[r]
+           and set(got_i[r, :k]) != set(want_i[r, :k])]
+    log(f"    {label}: {len(bad)} rows differ outside {int(near.sum())} "
+        f"near-ties (k-th and (k+1)-th within {NN_TIE_RTOL:g})")
+    check(not bad, f"{label}: index sets differ in rows {bad[:10]}")
+    return int(near.sum())
+
+
+def dist_rel(got, want) -> float:
+    want = np.asarray(want, dtype=np.float64)
+    return float(np.max(np.abs(np.asarray(got, dtype=np.float64) - want)
+                        / np.maximum(want, 1e-30)))
+
+
+def timed_search(torch, model, queries, k=None):
+    """(result, host seconds) of ``model.kneighbors``, the card
+    synchronised on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = model.kneighbors(queries, k=k)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def knn_bound(rows, n, d, k):
+    """Least time for one brute chunk: the cross term's 2·rows·n·d
+    operations at the float32 peak (the float64 product runs on the FP64
+    tensor cores at the same 67 TFLOP/s), or the items, the chunk and its
+    (distance, index) output moved once. Returns (ms, by)."""
+    ops_ms = 2.0 * rows * n * d / PEAK_OPS_PER_S["f32"] * 1e3
+    bytes_ms = (4 * (n * d + rows * d) + 12 * rows * k) / PEAK_BYTES_PER_S \
+        * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
+                                                               "bytes")
+
+
+def phase_knn(torch, fg, device):
+    """Phase 19: NearestNeighbors (brute, IVF-Flat, IVF-PQ) at SIFT1M's
+    shape and DBSCAN at 16,384 and 131,072 rows through their entry
+    points, their sharded searches on one NCCL rank, and a save and load.
+    No hand kernel runs. Returns a summary for the JSON line."""
+    import torch.distributed as dist
+
+    from spark_rapids_ml_tpu_torch import DBSCAN, NearestNeighbors
+    from spark_rapids_ml_tpu_torch.io.persistence import load_model
+    from spark_rapids_ml_tpu_torch.models.dbscan import (
+        _host_dbscan,
+        _relabel_consecutive,
+    )
+    from spark_rapids_ml_tpu_torch.models.nearest_neighbors import (
+        _host_kneighbors,
+    )
+    from spark_rapids_ml_tpu_torch.ops import (
+        dbscan_kernel,
+        kmeans_kernel,
+        knn_kernel,
+    )
+    from spark_rapids_ml_tpu_torch.parallel import (
+        data_mesh,
+        distributed_dbscan_labels,
+        distributed_ivf_search,
+        distributed_kneighbors,
+        initialize_multihost,
+    )
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi_line()
+    fg.reset_launches()
+    summary = {"card": smi}
+    gib = 1024 ** 3
+    f32 = torch.float32
+    kmeans_split = ((kmeans_kernel, "kmeans_plus_plus_init", "k-means++"),
+                    (kmeans_kernel, "kmeans_fit_kernel", "lloyd"),
+                    (kmeans_kernel, "assign_clusters", "assign"))
+
+    # (i) brute force
+    t0 = time.perf_counter()
+    items, queries = nn_data(torch, device)
+    model = NearestNeighbors().setK(NN_K).fit(items)
+    log(f"  {smi}; data {NN_ITEMS:,} x {NN_DIM} items in {NN_BLOBS} blobs "
+        f"(centres N(0, {NN_CENTRE_SD:g}²), σ = 1), {NN_QUERIES:,} fresh "
+        f"queries, k = {NN_K}: made and fitted in "
+        f"{time.perf_counter() - t0:.2f} s")
+    step = knn_kernel.query_step(NN_ITEMS)
+    model.kneighbors(queries[:step])               # stages the items
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    (d32, i32), wall = timed_search(torch, model, queries)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  (i) brute, float32: {wall:.3f} s, {NN_QUERIES / wall:,.0f} "
+        f"queries/s (host clock), chunks of {step}; peak "
+        f"{peak / gib:.3f} GiB allocated ({base / gib:.3f} GiB before: the "
+        f"items)")
+    summary["brute"] = {"queries_per_s": NN_QUERIES / wall, "chunk": step,
+                        "peak_bytes": peak}
+    model64 = model.copy().setDtype("float64")
+    (d64, i64), wall64 = timed_search(torch, model64, queries, k=NN_K + 1)
+    del model64
+    torch.cuda.empty_cache()
+    log(f"    float64 on the card (k = {NN_K + 1}): {wall64:.3f} s")
+    ties = sets_outside_ties("float32 vs float64 on the card", i32, i64,
+                             d64)
+    err = dist_rel(d32, d64[:, :NN_K])
+    log(f"    distances vs float64: max rel {err:.3e} (bar "
+        f"{NN_DIST_RTOL:g})")
+    check(err <= NN_DIST_RTOL, f"brute distances rel {err:.3e}")
+    summary["brute"].update(near_ties=ties, dist_rel=err)
+    t0 = time.perf_counter()
+    hd, hi = _host_kneighbors(queries[:NN_HOST_QUERIES], model.items,
+                              NN_K + 1)
+    log(f"    _host_kneighbors on {NN_HOST_QUERIES}: "
+        f"{time.perf_counter() - t0:.2f} s")
+    sets_outside_ties("float32 vs the host", i32[:NN_HOST_QUERIES], hi, hd)
+    err = dist_rel(d32[:NN_HOST_QUERIES], hd[:, :NN_K])
+    check(err <= NN_DIST_RTOL, f"brute vs host distances rel {err:.3e}")
+    saved = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        (dh, ih), wall_h = timed_search(torch, model, queries)
+    finally:
+        torch.set_float32_matmul_precision(saved)
+    check(np.array_equal(dh, d32) and np.array_equal(ih, i32),
+          "brute under set_float32_matmul_precision('high') differs")
+    items_dev = model._items_on_device(device, f32)
+    do, io = model._stream_queries(
+        queries, NN_K, NN_OTHER_STEP, device, f32,
+        lambda q: knn_kernel.knn_kernel(q, items_dev, NN_K))
+    check(np.array_equal(do, d32) and np.array_equal(io, i32),
+          f"brute in chunks of {NN_OTHER_STEP} differs")
+    log(f"    equal bit for bit under 'high' ({wall_h:.3f} s) and in "
+        f"chunks of {NN_OTHER_STEP}")
+    qc = torch.as_tensor(queries[:step], device=device)
+    ms = time_ms(torch, lambda: knn_kernel.knn_kernel(qc, items_dev, NN_K),
+                 NN_TIMED)
+    ms_dist = time_ms(torch, lambda: knn_kernel.pairwise_sqdist(
+        qc, items_dev), NN_TIMED)
+    d2 = knn_kernel.pairwise_sqdist(qc, items_dev)
+    ms_topk = time_ms(torch, lambda: torch.topk(d2, NN_K, dim=1,
+                                                largest=False), NN_TIMED)
+    ms_select = time_ms(torch, lambda: knn_kernel._smallest_k(d2, NN_K),
+                        NN_TIMED)
+    del d2
+    torch.cuda.empty_cache()
+    b_ms, b_by = knn_bound(step, NN_ITEMS, NN_DIM, NN_K)
+    log(f"    one chunk of {step} (CUDA events, {smi}): {ms:.4f} ms "
+        f"against a bound of {b_ms:.4f} ms ({b_by}), share "
+        f"{b_ms / ms:.4f}; distances {ms_dist:.4f} ms, selection "
+        f"{ms_select:.4f} ms (torch.topk alone {ms_topk:.4f} ms)")
+    summary["brute"].update(chunk_ms=ms, bound_ms=b_ms, bound_by=b_by,
+                            dist_ms=ms_dist, select_ms=ms_select,
+                            topk_ms=ms_topk)
+
+    # (ii) IVF-Flat at the default nlist
+    ivf = model.copy().setAlgorithm("ivfflat")
+    nlist = ivf._resolve_nlist()
+    torch.cuda.reset_peak_memory_stats()
+    with WallSplit(torch, kmeans_split) as split:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cent, b_items, b_ids, b_mask, _ = ivf._ivf_index(device, f32)
+        torch.cuda.synchronize()
+        build = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    n_iter = int(split.last["lloyd"].n_iter)
+    lloyd = split.seconds["lloyd"]
+    coarse = sum(split.seconds.values())
+    max_size = int(b_ids.shape[1])
+    log(f"  (ii) ivfflat index, nlist {nlist}: {build:.3f} s (coarse "
+        f"k-means {coarse:.3f} s; {split.line(build)}: the layout); Lloyd "
+        f"{n_iter} iterations + the final "
+        f"cost, {lloyd / (n_iter + 1) * 1e3:.2f} ms a pass at {NN_ITEMS:,} x "
+        f"{nlist}; peak {peak / gib:.3f} GiB allocated; largest list "
+        f"{max_size}")
+    summary["ivfflat"] = {"nlist": nlist, "build_s": build,
+                          "coarse_s": coarse, "lloyd_iter": n_iter,
+                          "lloyd_ms_per_pass": lloyd / (n_iter + 1) * 1e3,
+                          "peak_bytes": peak, "max_list": max_size}
+    by_probe = {}
+    for nprobe in NN_NPROBES:
+        (di, ii), wall = timed_search(torch, ivf.setNprobe(nprobe), queries)
+        r = recall(ii, i32)
+        by_probe[nprobe] = (di, ii)
+        log(f"    nprobe {nprobe}: recall@{NN_K} {r:.4f} against (i), "
+            f"{NN_QUERIES / wall:,.0f} queries/s (host clock)")
+        summary["ivfflat"][f"nprobe{nprobe}"] = {
+            "recall": r, "queries_per_s": NN_QUERIES / wall}
+    q_cpu = torch.as_tensor(queries[:NN_CPU_QUERIES])
+    cd, ci = knn_kernel.ivf_search(q_cpu, cent.cpu(), b_items.cpu(),
+                                   b_ids.cpu(), b_mask.cpu(), NN_K,
+                                   NN_NPROBES[0])
+    di, ii = by_probe[NN_NPROBES[0]]
+    check(np.array_equal(ci.numpy(), ii[:NN_CPU_QUERIES]),
+          "ivfflat on the card differs from its index searched on the CPU")
+    # the squared distances agree; torch's CPU float32 square root is not
+    # correctly rounded, so the roots may differ by an ulp
+    err = dist_rel(torch.sqrt(cd).numpy(), di[:NN_CPU_QUERIES])
+    check(err <= NN_DIST_RTOL, f"ivfflat distances vs the CPU search's "
+          f"rel {err:.3e}")
+    log(f"    {NN_CPU_QUERIES} queries at nprobe {NN_NPROBES[0]}: ids equal "
+        f"to the same search of a CPU copy of the index, distances within "
+        f"{err:.3e} relative")
+    del cd, ci, q_cpu
+    sub = items[:NN_EXACT_ITEMS]
+    qs = queries[:NN_EXACT_QUERIES]
+    exact = (NearestNeighbors().setK(NN_K).setAlgorithm("ivfflat")
+             .setNlist(NN_EXACT_NLIST).setNprobe(NN_EXACT_NLIST).fit(sub))
+    (ed, ei), _ = timed_search(torch, exact, qs)
+    (bd, bi), _ = timed_search(
+        torch, NearestNeighbors().setK(NN_K).setDtype("float64").fit(sub),
+        qs, k=NN_K + 1)
+    sets_outside_ties(f"ivfflat at nprobe = nlist = {NN_EXACT_NLIST} on "
+                      f"{NN_EXACT_ITEMS:,} items vs float64 brute", ei, bi,
+                      bd)
+    err = dist_rel(ed, bd[:, :NN_K])
+    check(err <= NN_DIST_RTOL, f"exact ivfflat distances rel {err:.3e}")
+    del exact
+    torch.cuda.empty_cache()
+
+    # (iii) IVF-PQ on the same coarse quantizer
+    pq = ivf.setAlgorithm("ivfpq")
+    torch.cuda.reset_peak_memory_stats()
+    with WallSplit(torch, kmeans_split) as split:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, books, codes, _, _, _ = pq._ivfpq_index(device, f32)
+        torch.cuda.synchronize()
+        build = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    m_sub, ksub, dsub = books.shape
+    check((m_sub, ksub, dsub) == (NN_PQ_M, 256, NN_DIM // NN_PQ_M),
+          f"auto pqM at {NN_DIM}: codebooks {tuple(books.shape)}")
+    check(codes.dtype == torch.uint8, f"codes stored as {codes.dtype}")
+    resident = codes.numel() * codes.element_size()
+    log(f"  (iii) ivfpq index (coarse quantizer shared): {build:.3f} s "
+        f"({split.line(build)}); M = {m_sub}, dsub {dsub}, ksub {ksub}; codes "
+        f"uint8, {NN_ITEMS * m_sub:,} B of codes (n·M) in a "
+        f"{resident:,} B padded layout; peak {peak / gib:.3f} GiB")
+    summary["ivfpq"] = {"build_s": build, "code_bytes": NN_ITEMS * m_sub,
+                        "layout_bytes": resident, "peak_bytes": peak}
+    pq_runs = {}
+    for nprobe in NN_NPROBES:
+        for refine in NN_REFINE:
+            (dq, iq), wall = timed_search(
+                torch, pq.setNprobe(nprobe).setRefineRatio(refine), queries)
+            r = recall(iq, i32)
+            pq_runs[(nprobe, refine)] = (r, dq, iq)
+            log(f"    nprobe {nprobe}, refineRatio {refine:g}: "
+                f"recall@{NN_K} {r:.4f}, {NN_QUERIES / wall:,.0f} "
+                f"queries/s (host clock)")
+            summary["ivfpq"][f"nprobe{nprobe}_refine{refine:g}"] = {
+                "recall": r, "queries_per_s": NN_QUERIES / wall}
+    for nprobe in NN_NPROBES:
+        check(pq_runs[(nprobe, 2.0)][0] >= pq_runs[(nprobe, 0.0)][0]
+              - PQ_RERANK_SLACK, f"re-rank lowered recall at nprobe {nprobe}")
+    for refine in NN_REFINE:
+        check(pq_runs[(32, refine)][0] >= pq_runs[(8, refine)][0]
+              - PQ_NPROBE_SLACK, f"recall at nprobe 32 below nprobe 8 "
+              f"(refineRatio {refine:g})")
+
+    # (iv) DBSCAN on lattice blobs
+    x = db_data()
+    x16 = x[:DB_DENSE_ROWS]
+    with SweepCounter(torch, dbscan_kernel) as sweeps:
+        t0 = time.perf_counter()
+        dense = DBSCAN().setEps(DB_EPS).setMinPts(DB_MIN_PTS).fit(x16)
+        wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hl, hc = _host_dbscan(x16, DB_EPS, DB_MIN_PTS)
+    host_s = time.perf_counter() - t0
+    check(np.array_equal(dense.labels_, _relabel_consecutive(hl))
+          and np.array_equal(dense.core_mask_, hc),
+          "dense DBSCAN differs from the float64 host BFS")
+    log(f"  (iv) DBSCAN, {DB_BLOBS} lattice blobs in {DB_DIM} dimensions + "
+        f"{DB_NOISE:.0%} noise, eps² = {DB_EPS ** 2:g}, minPts "
+        f"{DB_MIN_PTS}: dense at {DB_DENSE_ROWS:,}: {wall:.3f} s, "
+        f"{sweeps.sweeps} sweeps, {dense.n_clusters_} clusters, "
+        f"{int((dense.labels_ < 0).sum())} noise, "
+        f"{int(dense.core_mask_.sum())} core; equal to the float64 host "
+        f"BFS ({host_s:.2f} s)")
+    blocked16 = DBSCAN().setEps(DB_EPS).setMinPts(DB_MIN_PTS).setBlockRows(
+        DB_BLOCK).fit(x16)
+    check(np.array_equal(blocked16.labels_, dense.labels_)
+          and np.array_equal(blocked16.core_mask_, dense.core_mask_),
+          "blocked DBSCAN at 16,384 rows differs from dense")
+    fits = {}
+    for label, dtype in (("float32", "float32"), ("float64", "float64")):
+        with SweepCounter(torch, dbscan_kernel) as sweeps:
+            t0 = time.perf_counter()
+            fits[label] = (DBSCAN().setEps(DB_EPS).setMinPts(DB_MIN_PTS)
+                           .setBlockRows(DB_BLOCK).setDtype(dtype).fit(x))
+            wall = time.perf_counter() - t0
+        log(f"    blocked ({DB_BLOCK}) at {DB_ROWS:,}, {label}: {wall:.3f} "
+            f"s, {sweeps.sweeps} sweeps, {sweeps.seconds / sweeps.sweeps:.3f}"
+            f" s a sweep (host clock, {smi}), {fits[label].n_clusters_} "
+            f"clusters")
+        summary[f"dbscan_{label}"] = {"seconds": wall,
+                                      "sweeps": sweeps.sweeps,
+                                      "s_per_sweep":
+                                          sweeps.seconds / sweeps.sweeps}
+    check(np.array_equal(fits["float32"].labels_, fits["float64"].labels_)
+          and np.array_equal(fits["float32"].core_mask_,
+                             fits["float64"].core_mask_),
+          "blocked DBSCAN at float32 differs from float64")
+    log(f"    equal to dense at {DB_DENSE_ROWS:,}; float32 equal to float64 "
+        f"at {DB_ROWS:,}")
+
+    # (v) the sharded searches and DBSCAN on one NCCL rank
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    coordinator = f"127.0.0.1:{free_port()}"
+    try:
+        initialize_multihost(coordinator, num_processes=1, process_id=0)
+    except Exception as exc:
+        raise RuntimeError(f"phase 19: the one-rank NCCL world did not "
+                           f"start at {coordinator}: {exc!r}") from exc
+    try:
+        check(dist.get_backend() == "nccl", "the card's world runs NCCL")
+        mesh = data_mesh(1)
+        t0 = time.perf_counter()
+        dd, di = distributed_kneighbors(queries, items, NN_K, mesh)
+        t_knn = time.perf_counter() - t0
+        check(np.array_equal(di, i32) and np.array_equal(
+            dd.astype(np.float64), d32), "distributed_kneighbors differs")
+        pq.setAlgorithm("ivfflat").setNprobe(NN_NPROBES[0])
+        t0 = time.perf_counter()
+        vd, vi = distributed_ivf_search(pq, queries, mesh)
+        t_ivf = time.perf_counter() - t0
+        want_d, want_i = by_probe[NN_NPROBES[0]]
+        check(np.array_equal(vi, want_i) and np.array_equal(
+            vd.astype(np.float64), want_d), "distributed ivfflat differs")
+        pq.setAlgorithm("ivfpq").setRefineRatio(0.0)
+        t0 = time.perf_counter()
+        pd_, pi = distributed_ivf_search(pq, queries, mesh)
+        t_pq = time.perf_counter() - t0
+        _, want_d, want_i = pq_runs[(NN_NPROBES[0], 0.0)]
+        check(np.array_equal(pi, want_i) and np.array_equal(
+            pd_.astype(np.float64), want_d), "distributed ivfpq differs")
+        t0 = time.perf_counter()
+        labels, core = distributed_dbscan_labels(x, DB_EPS, DB_MIN_PTS, mesh)
+        t_db = time.perf_counter() - t0
+        check(np.array_equal(_relabel_consecutive(labels),
+                             fits["float32"].labels_)
+              and np.array_equal(core, fits["float32"].core_mask_),
+              "distributed_dbscan_labels differs from the blocked fit")
+        log(f"  (v) one NCCL rank, each equal to its one-device search: "
+            f"distributed_kneighbors {t_knn:.3f} s, distributed_ivf_search "
+            f"ivfflat {t_ivf:.3f} s and ivfpq {t_pq:.3f} s, "
+            f"distributed_dbscan_labels {t_db:.3f} s (host clock)")
+    finally:
+        dist.destroy_process_group()
+
+    # (vi) save and load
+    small = NearestNeighbors().setK(NN_K).fit(items[:NN_SAVE_ITEMS])
+    want = small.kneighbors(queries[:NN_EXACT_QUERIES])
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "knn")
+        t0 = time.perf_counter()
+        small.save(path)
+        loaded = load_model(path)
+        save_s = time.perf_counter() - t0
+        got = loaded.kneighbors(queries[:NN_EXACT_QUERIES])
+    check(type(loaded).__name__ == "NearestNeighborsModel"
+          and np.array_equal(got[0], want[0])
+          and np.array_equal(got[1], want[1]),
+          "the loaded NearestNeighborsModel answers differently")
+    log(f"  (vi) a {NN_SAVE_ITEMS:,}-item model saved and loaded through "
+        f"load_model in {save_s:.2f} s; kneighbors equal")
+    launched = {k: v for k, v in fg.launches.items() if v}
+    check(not launched, f"phase 19 launched a hand kernel: {launched}")
+    del model, ivf, pq, items_dev
+    torch.cuda.empty_cache()
+    summary["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 19 launches {launched}; {summary['seconds']:.1f} s")
+    return summary
+
+
 def build_fresh(cuda_build):
     """Build the Gram library anew, so ``ptxas -v`` reports on it."""
     path = cuda_build.library_path("fused_gram")
@@ -6172,6 +6700,9 @@ def main() -> int:
     linear_launches, linear_shapes = phase_linear_models(torch, fg, device)
     measured[fg.kernel_name("highest")]["extra_shapes"].update(linear_shapes)
 
+    log("[19] NearestNeighbors and DBSCAN")
+    knn_summary = phase_knn(torch, fg, device)
+
     kernels = []
     for name, m in measured.items():
         check(launches.get(name, 0) > 0, f"{name} not launched on the main path")
@@ -6181,7 +6712,8 @@ def main() -> int:
                     "15": pipeline_launches.get(name, 0),
                     "16": logreg_launches.get(name, 0),
                     "17": stage_launches.get(name, 0),
-                    "18": linear_launches.get(name, 0)}
+                    "18": linear_launches.get(name, 0),
+                    "19": 0}
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES, "launches": sum(by_phase.values()),
@@ -6193,6 +6725,7 @@ def main() -> int:
         })
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"stage_bodies": stage_timings}))
+    print(json.dumps({"knn_dbscan": knn_summary}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -47,6 +47,14 @@ from spark_rapids_ml_tpu_torch.models.svd import (  # noqa: F401
     TruncatedSVD,
     TruncatedSVDModel,
 )
+from spark_rapids_ml_tpu_torch.models.nearest_neighbors import (  # noqa: F401
+    NearestNeighbors,
+    NearestNeighborsModel,
+)
+from spark_rapids_ml_tpu_torch.models.dbscan import (  # noqa: F401
+    DBSCAN,
+    DBSCANModel,
+)
 from spark_rapids_ml_tpu_torch.models.feature_scalers import (  # noqa: F401
     Binarizer,
     MaxAbsScaler,
@@ -86,6 +94,10 @@ __all__ = [
     "TruncatedSVD",
     "TruncatedSVDModel",
     "RowMatrix",
+    "NearestNeighbors",
+    "NearestNeighborsModel",
+    "DBSCAN",
+    "DBSCANModel",
     "Binarizer",
     "MaxAbsScaler",
     "MaxAbsScalerModel",

@@ -1,8 +1,8 @@
 """Model persistence in Spark ML's on-disk layout.
 
 A copy of the PCA, KMeans, StandardScaler, LinearRegression,
-LogisticRegression, LinearSVC, GeneralizedLinearRegression and
-TruncatedSVD parts of the JAX package's
+LogisticRegression, LinearSVC, GeneralizedLinearRegression,
+TruncatedSVD and NearestNeighbors parts of the JAX package's
 ``io/persistence.py``, so a model saved by either package loads in the
 other (``RapidsPCA.scala:218-254``):
 
@@ -21,9 +21,10 @@ other (``RapidsPCA.scala:218-254``):
   LinearSVC (``coefficients``, ``intercept``); for
   GeneralizedLinearRegression (``intercept``, ``coefficients``), its fit
   summary (iterations, deviance, weight sum) in the metadata's ``extra``;
-  for TruncatedSVD ``V`` and ``s``. Without pyarrow (optional) the same
-  row is written as ``part-00000.json``, which both packages' readers
-  accept.
+  for TruncatedSVD ``V`` and ``s``; for NearestNeighbors the fitted
+  ``items`` (DBSCAN's model has no writer, as in the JAX package).
+  Without pyarrow (optional) the same row is written as
+  ``part-00000.json``, which both packages' readers accept.
 
 Estimators persist metadata only, like Spark's ``DefaultParamsWritable``.
 Pipelines (``models/pipeline.py``) write their metadata here and each
@@ -839,6 +840,39 @@ def load_selector_model(path: str):
     return _restore_params(model, meta)
 
 
+def save_knn_model(model, path: str, overwrite: bool = False) -> None:
+    """NearestNeighborsModel: the fitted item matrix is the model payload
+    (brute-force KNN has no reduced parameters; the IVF indexes are
+    rebuilt from it), stored in the DenseMatrix wire struct every other
+    model uses."""
+    if model.items is None:
+        raise ValueError("cannot save an unfitted NearestNeighborsModel")
+    _require_target(path, overwrite)
+    cls = f"{type(model).__module__}.{type(model).__qualname__}"
+    _write_metadata(path, cls, model.uid, model.param_map_for_metadata())
+    try:
+        import pyarrow as pa
+    except ImportError:
+        schema = None
+    else:
+        schema = pa.schema([("items", _matrix_arrow_type())])
+    _write_data_row(path, {"items": _dense_matrix_struct(model.items)},
+                    schema=schema, spark_fields=[("items", "matrix")])
+
+
+def load_knn_model(path: str):
+    from spark_rapids_ml_tpu_torch.models.nearest_neighbors import (
+        NearestNeighborsModel,
+    )
+
+    meta = _read_metadata(path)
+    row = _read_data_row(path)
+    model = NearestNeighborsModel(
+        items=_dense_matrix_from_struct(row["items"]))
+    model.uid = meta["uid"]
+    return _restore_params(model, meta)
+
+
 # -- generic load + atomic save layer --------------------------------------
 
 # simple class name → (module of the port, class): what ``load_model`` may
@@ -864,6 +898,8 @@ _MODEL_CLASSES = {
         ("glm", ("GeneralizedLinearRegression",
                  "GeneralizedLinearRegressionModel")),
         ("svd", ("TruncatedSVD", "TruncatedSVDModel")),
+        ("nearest_neighbors", ("NearestNeighbors", "NearestNeighborsModel")),
+        ("dbscan", ("DBSCAN",)),
         ("pipeline", ("Pipeline", "PipelineModel")),
     )
     for name in names

@@ -27,6 +27,11 @@ from spark_rapids_ml_tpu_torch.models.svd import (
     TruncatedSVD,
     TruncatedSVDModel,
 )
+from spark_rapids_ml_tpu_torch.models.nearest_neighbors import (
+    NearestNeighbors,
+    NearestNeighborsModel,
+)
+from spark_rapids_ml_tpu_torch.models.dbscan import DBSCAN, DBSCANModel
 from spark_rapids_ml_tpu_torch.models.feature_scalers import (
     Binarizer,
     MaxAbsScaler,
@@ -64,6 +69,10 @@ __all__ = [
     "GeneralizedLinearRegressionModel",
     "TruncatedSVD",
     "TruncatedSVDModel",
+    "NearestNeighbors",
+    "NearestNeighborsModel",
+    "DBSCAN",
+    "DBSCANModel",
     "Binarizer",
     "MaxAbsScaler",
     "MaxAbsScalerModel",

@@ -1,7 +1,8 @@
 """Fits across ranks on ``torch.distributed``: meshes, the multi-host
 runtime, the data-parallel, streamed and feature-sharded PCA fits, and the
 data-parallel LinearRegression, LogisticRegression, LinearSVC,
-GeneralizedLinearRegression and KMeans fits."""
+GeneralizedLinearRegression and KMeans fits; the sharded brute-force and
+IVF searches and DBSCAN."""
 
 from spark_rapids_ml_tpu_torch.parallel.mesh import (
     DATA_AXIS,
@@ -42,6 +43,15 @@ from spark_rapids_ml_tpu_torch.parallel.distributed_kmeans import (
     distributed_kmeans_fit,
     distributed_kmeans_fit_kernel,
 )
+from spark_rapids_ml_tpu_torch.parallel.distributed_knn import (
+    distributed_kneighbors,
+)
+from spark_rapids_ml_tpu_torch.parallel.distributed_ivf import (
+    distributed_ivf_search,
+)
+from spark_rapids_ml_tpu_torch.parallel.distributed_dbscan import (
+    distributed_dbscan_labels,
+)
 from spark_rapids_ml_tpu_torch.parallel.streaming import (
     DistributedStreamingPCA,
     distributed_streaming_pca_fit,
@@ -68,6 +78,8 @@ __all__ = [
     "distributed_svc_fit", "distributed_svc_fit_kernel",
     "distributed_glm_fit",
     "distributed_kmeans_fit", "distributed_kmeans_fit_kernel",
+    "distributed_kneighbors", "distributed_ivf_search",
+    "distributed_dbscan_labels",
     "DistributedStreamingPCA", "distributed_streaming_pca_fit",
     "finalize_stats_sharded", "update_stats_sharded",
     "FeatureShardedPCAResult", "feature_sharded_covariance_kernel",

@@ -1415,3 +1415,108 @@ def test_glm_irls_gram_is_the_kernel_on_the_card(cuda_device, family, link):
     assert model.num_iterations_ == 3
     assert fused_gram.launches[highest] == 4
     assert np.isfinite(model.coefficients).all()
+
+
+def _knn_blobs(rows, dim, seed=0, n_blobs=32):
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(scale=4.0, size=(n_blobs, dim))
+    x = centers[rng.integers(0, n_blobs, rows)] + rng.normal(size=(rows, dim))
+    q = centers[rng.integers(0, n_blobs, 300)] + rng.normal(size=(300, dim))
+    return x.astype(np.float32), q.astype(np.float32)
+
+
+def test_knn_brute_on_the_card_is_tf32_proof(cuda_device):
+    """Brute force under ``set_float32_matmul_precision("high")`` equals
+    the same search under "highest" bit for bit (float32 distances are
+    float64 ones rounded once), matches float64 within 1e-5 relative with
+    equal index sets outside near-ties, and launches no hand kernel."""
+    from spark_rapids_ml_tpu_torch import NearestNeighbors
+
+    x, q = _knn_blobs(50_000, 128)
+    model = NearestNeighbors().setK(10).fit(x)
+    fused_gram.reset_launches()
+    saved = torch.get_float32_matmul_precision()
+    try:
+        torch.set_float32_matmul_precision("high")
+        high = model.kneighbors(q)
+        torch.set_float32_matmul_precision("highest")
+        highest = model.kneighbors(q)
+    finally:
+        torch.set_float32_matmul_precision(saved)
+    assert sum(fused_gram.launches.values()) == 0
+    np.testing.assert_array_equal(high[0], highest[0])
+    np.testing.assert_array_equal(high[1], highest[1])
+    d64, i64 = model.copy().setDtype("float64").kneighbors(q, k=11)
+    assert (np.abs(high[0] ** 2 - d64[:, :10] ** 2).max()
+            <= 1e-5 * (d64[:, :10] ** 2).max())
+    tied = np.isclose(d64[:, 9], d64[:, 10], rtol=1e-5)
+    for row in np.nonzero(~tied)[0]:
+        assert set(high[1][row]) == set(i64[row, :10]), row
+
+
+def test_ivfpq_codes_stay_uint8_on_the_card(cuda_device):
+    """The IVF-PQ index on the card: uint8 codes laid out (M, nlist,
+    max_size), the real codes n·M bytes; a search with and without the
+    re-rank returns real ids in ascending distance."""
+    from spark_rapids_ml_tpu_torch import NearestNeighbors
+
+    x, q = _knn_blobs(20_000, 64)
+    model = (NearestNeighbors().setK(10).setAlgorithm("ivfpq").setNlist(64)
+             .setNprobe(8).fit(x))
+    d, i = model.kneighbors(q)
+    cent, books, codes, ids, mask, nlist = model._ivfpq_index_cache[1]
+    assert codes.dtype == torch.uint8 and codes.is_cuda
+    m_sub = books.shape[0]
+    assert m_sub == 16 and codes.shape == (m_sub, nlist, ids.shape[1])
+    assert int((mask > 0).sum()) * m_sub * codes.element_size() == \
+        20_000 * m_sub
+    assert (i >= 0).all() and (np.diff(d, axis=1) >= -1e-6).all()
+    d0, i0 = model.setRefineRatio(0.0).kneighbors(q)
+    assert (i0 >= 0).all()
+
+
+def test_ivfflat_on_the_card_equals_its_cpu_copy(cuda_device):
+    """The same card-built index searched on the card and, copied, on the
+    CPU gives the same ids, and distances within an ulp (torch's CPU
+    float32 square root is not correctly rounded)."""
+    from spark_rapids_ml_tpu_torch import NearestNeighbors
+    from spark_rapids_ml_tpu_torch.ops.knn_kernel import ivf_search
+
+    x, q = _knn_blobs(20_000, 64)
+    model = (NearestNeighbors().setK(10).setAlgorithm("ivfflat")
+             .setNlist(64).setNprobe(4).fit(x))
+    d, i = model.kneighbors(q)
+    cent, items, ids, mask, _ = model._ivf_index_cache[1]
+    cd, ci = ivf_search(torch.as_tensor(q), cent.cpu(), items.cpu(),
+                        ids.cpu(), mask.cpu(), 10, 4)
+    np.testing.assert_array_equal(i, ci.numpy())
+    np.testing.assert_allclose(d, torch.sqrt(cd).numpy(), rtol=1e-6)
+
+
+def test_dbscan_dense_equals_blocked_on_the_card(cuda_device):
+    """Dense and tiled DBSCAN on the card give the same labels and core
+    mask, equal to the host BFS in float64 on lattice blobs (every d² a
+    multiple of 1/16, ε² between levels)."""
+    from spark_rapids_ml_tpu_torch import DBSCAN
+    from spark_rapids_ml_tpu_torch.models.dbscan import (
+        _host_dbscan,
+        _relabel_consecutive,
+    )
+
+    rng = np.random.default_rng(4)
+    centers = np.round(rng.normal(scale=8.0, size=(12, 4)))
+    x = np.concatenate(
+        [c + np.round(4 * rng.normal(scale=0.8, size=(300, 4))) / 4
+         for c in centers]
+        + [np.round(4 * rng.uniform(-40, 40, size=(80, 4))) / 4])
+    eps = float(np.sqrt(1.5 + 1 / 32))
+    dense = DBSCAN().setEps(eps).setMinPts(6).fit(x)
+    for block in (512, 1000):
+        blocked = DBSCAN().setEps(eps).setMinPts(6).setBlockRows(block).fit(x)
+        np.testing.assert_array_equal(blocked.labels_, dense.labels_)
+        np.testing.assert_array_equal(blocked.core_mask_, dense.core_mask_)
+    host_labels, host_core = _host_dbscan(x, eps, 6)
+    np.testing.assert_array_equal(dense.labels_,
+                                  _relabel_consecutive(host_labels))
+    np.testing.assert_array_equal(dense.core_mask_, host_core)
+    assert dense.n_clusters_ >= 2

@@ -443,6 +443,71 @@ def test_svc_glm_slice_runs_without_jax(tmp_path):
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+# the modules of the NearestNeighbors / DBSCAN slice
+KNN_SLICE = ("ops.knn_kernel", "models.nearest_neighbors",
+             "parallel.distributed_knn", "parallel.distributed_ivf",
+             "ops.dbscan_kernel", "models.dbscan",
+             "parallel.distributed_dbscan")
+
+
+def test_knn_dbscan_slice_runs_without_jax(tmp_path):
+    """A NearestNeighbors model that the JAX package saved, loaded by the
+    port and searched brute, ivfflat and ivfpq; DBSCAN dense, tiled and on
+    the host; the three sharded searches and DBSCAN in a one-rank gloo
+    world — in a process that never imports jax. The JAX model is saved
+    here, in the test process."""
+    import spark_rapids_ml_tpu as jax_pkg
+
+    mods = {m for _, m in _port_modules()}
+    assert {f"spark_rapids_ml_tpu_torch.{m}" for m in KNN_SLICE} <= mods
+    rng = np.random.default_rng(0)
+    x = np.concatenate([c + rng.normal(size=(40, 8))
+                        for c in rng.normal(scale=8, size=(4, 8))])
+    jax_pkg.NearestNeighbors().setK(3).fit(x).save(str(tmp_path / "knn"))
+    np.save(tmp_path / "x.npy", x)
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "import torch.distributed as dist\n"
+        "from spark_rapids_ml_tpu_torch import DBSCAN\n"
+        "from spark_rapids_ml_tpu_torch.io.persistence import load_model\n"
+        "from spark_rapids_ml_tpu_torch.parallel import (data_mesh, "
+        "distributed_dbscan_labels, distributed_ivf_search, "
+        "distributed_kneighbors)\n"
+        "d = sys.argv[1]\n"
+        "x = np.load(d + '/x.npy')\n"
+        "m = load_model(d + '/knn')\n"
+        "out = [m.setAlgorithm(a).kneighbors(x[:9])[1] for a in "
+        "('brute', 'ivfflat', 'ivfpq')]\n"
+        "labels = [DBSCAN().setEps(4.0).setMinPts(4).setBlockRows(b)"
+        ".fit(x).labels_ for b in (0, 48)]\n"
+        "labels.append(DBSCAN().setEps(4.0).setMinPts(4)"
+        ".setUseXlaDot(False).fit(x).labels_)\n"
+        "dist.init_process_group('gloo', init_method='file://' + d + "
+        "'/store', rank=0, world_size=1)\n"
+        "mesh = data_mesh(1)\n"
+        "bd, bi = distributed_kneighbors(x[:9], x, 3, mesh)\n"
+        "vd, vi = distributed_ivf_search(m.setAlgorithm('ivfflat'), x[:9], "
+        "mesh)\n"
+        "dl, dc = distributed_dbscan_labels(x, 4.0, 4, mesh)\n"
+        "dist.destroy_process_group()\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or "
+        "k.startswith('jax.') or k == 'spark_rapids_ml_tpu' or "
+        "k.startswith('spark_rapids_ml_tpu.'))\n"
+        "ok = (all((o[:, 0] == np.arange(9)).all() for o in out) and "
+        "(bi[:, 0] == np.arange(9)).all() and "
+        "all((l == labels[0]).all() for l in labels))\n"
+        "print([o.shape for o in out], int(labels[0].max()) + 1, bad)\n"
+        "sys.exit(1 if bad or not ok else 0)\n"
+    )
+    env = dict(os.environ, SPARK_RAPIDS_ML_TORCH_PLATFORM="cpu",
+               OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                          cwd=REPO_DIR, capture_output=True, text=True,
+                          timeout=120, env=env)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_port_sources_import_no_jax():
     found = []
     smoke = os.path.join(REPO_DIR, "chip_smoke.py")

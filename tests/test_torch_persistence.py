@@ -77,6 +77,8 @@ def _fitted(family):
         return LogisticRegression().setRegParam(0.1).fit(x, _classes(y, 3))
     if family in ("svc", "glm", "svc_est", "glm_est"):
         return _linear_family(family, x, y, port_pkg)
+    if family in KNN_FAMILIES:
+        return _knn_family(family, x, port_pkg)
     if family == "pipeline":
         return Pipeline([
             StandardScaler().setWithMean(True).setOutputCol("s"),
@@ -150,9 +152,26 @@ PARAMS_ONLY = {"estimator", "normalizer", "binarizer", "elementwise",
                "svc_est", "glm_est"}
 # LinearSVC and GeneralizedLinearRegression, models and estimators
 LINEAR_FAMILIES = ("svc", "glm", "svc_est", "glm_est")
+# NearestNeighbors (model and estimator) and the DBSCAN estimator (its
+# model has no writer in either package)
+KNN_FAMILIES = ("knn", "knn_est", "dbscan_est")
+PARAMS_ONLY |= {"knn_est", "dbscan_est"}
 FAMILIES = ("pca", "kmeans", "scaler", "linreg", "svd", "logreg",
             "logreg_mn", "pipeline", "estimator") + STAGE_FAMILIES \
-    + LINEAR_FAMILIES
+    + LINEAR_FAMILIES + KNN_FAMILIES
+
+
+def _knn_family(family, x, pkg):
+    """NearestNeighbors and DBSCAN, by ``pkg`` (the port or the JAX
+    package), each with params set away from their defaults."""
+    if family == "knn":
+        return pkg.NearestNeighbors().setK(4).setAlgorithm("ivfpq") \
+            .setNlist(3).setPqBits(6).setRefineRatio(3.0).fit(x)
+    if family == "knn_est":
+        return pkg.NearestNeighbors().setAlgorithm("ivfflat").setNprobe(2)
+    if family == "dbscan_est":
+        return pkg.DBSCAN().setEps(0.7).setMinPts(9).setBlockRows(64)
+    raise KeyError(family)
 
 
 def _state(obj):
@@ -165,7 +184,7 @@ def _state(obj):
                  "coefficient_matrix", "intercept_vector", "classes_",
                  "original_min", "original_max", "max_abs", "median",
                  "qrange", "selected_features", "num_iterations_",
-                 "deviance_", "weight_sum_"):
+                 "deviance_", "weight_sum_", "items"):
         value = getattr(obj, attr, None)
         if value is not None:
             out.append(np.asarray(value))
@@ -261,7 +280,7 @@ def test_every_writer_is_wrapped():
     assert {"save_params", "save_pca_model", "save_kmeans_model",
             "save_scaler_model", "save_linreg_model",
             "save_svd_model", "save_logreg_model", "save_minmax_model",
-            "save_svc_model", "save_glm_model",
+            "save_svc_model", "save_glm_model", "save_knn_model",
             "save_maxabs_model", "save_robust_model",
             "save_selector_model"} <= set(writers)
     for name in writers:
@@ -305,12 +324,15 @@ def _jax_fitted(family):
         ]).fit(x)
     if family in LINEAR_FAMILIES:
         return _linear_family(family, x, y, jax_pkg)
+    if family in KNN_FAMILIES:
+        return _knn_family(family, x, jax_pkg)
     return _stage_family(family, x, jax_pkg)
 
 
 @pytest.mark.parametrize("family", ["linreg", "svd", "kmeans", "scaler",
                                     "logreg", "logreg_mn", "pipeline",
-                                    *STAGE_FAMILIES, *LINEAR_FAMILIES])
+                                    *STAGE_FAMILIES, *LINEAR_FAMILIES,
+                                    *KNN_FAMILIES])
 def test_load_model_maps_jax_written_metadata_to_the_port(tmp_path, family):
     jax_model = _jax_fitted(family)
     path = str(tmp_path / family)
@@ -320,7 +342,7 @@ def test_load_model_maps_jax_written_metadata_to_the_port(tmp_path, family):
     loaded = load_model(path)
     assert type(loaded).__module__.startswith("spark_rapids_ml_tpu_torch.")
     assert type(loaded).__name__ == type(jax_model).__name__
-    if family in STAGE_FAMILIES + LINEAR_FAMILIES[2:]:
+    if family in STAGE_FAMILIES + LINEAR_FAMILIES[2:] + KNN_FAMILIES:
         _same(loaded, jax_model)  # the same params, so the same state
 
 
@@ -391,6 +413,16 @@ def test_registry_loads_logreg_saved_by_either_package(tmp_path, writer,
     assert type(replayed.resolve(family)) is LogisticRegressionModel
 
 
+def test_load_model_names_the_knn_and_dbscan_classes():
+    for name, module in (("NearestNeighbors", "nearest_neighbors"),
+                         ("NearestNeighborsModel", "nearest_neighbors"),
+                         ("DBSCAN", "dbscan")):
+        assert persistence._MODEL_CLASSES[name] == (
+            f"spark_rapids_ml_tpu_torch.models.{module}", name)
+    # the JAX DBSCANModel has no writer, so nothing names it on disk
+    assert "DBSCANModel" not in persistence._MODEL_CLASSES
+
+
 def test_load_model_names_the_linear_svc_and_glm_classes():
     for name, module in (("LinearSVC", "linear_svc"),
                          ("LinearSVCModel", "linear_svc"),
@@ -439,6 +471,31 @@ def test_registry_loads_svc_and_glm_saved_by_either_package(tmp_path, writer,
     replayed = ModelRegistry(manifest_path=manifest)
     assert replayed.recovery_report_["recovered"] == [f"{family}@{version}"]
     assert type(replayed.resolve(family)) is want_cls
+
+
+@pytest.mark.parametrize("family", KNN_FAMILIES)
+def test_knn_family_metadata_equals_the_jax_writers(tmp_path, family):
+    """NearestNeighbors and DBSCAN metadata equals the JAX writers' but for
+    the timestamp and the module path; a port-saved directory loads
+    through the JAX class with the same items and params, and the loaded
+    model answers as the saved one."""
+    import spark_rapids_ml_tpu as jax_pkg
+
+    port, jax_model = _fitted(family), _jax_fitted(family)
+    jax_model.uid = port.uid
+    port.save(str(tmp_path / "port"))
+    jax_model.save(str(tmp_path / "jax"))
+    assert _comparable_metadata(str(tmp_path / "port")) == \
+        _comparable_metadata(str(tmp_path / "jax"))
+    back = getattr(jax_pkg, type(port).__name__).load(str(tmp_path / "port"))
+    assert type(back).__module__.startswith("spark_rapids_ml_tpu.models.")
+    _same(back, port)
+    if family == "knn":
+        x, _ = _xy(seed=1)
+        want = port.kneighbors(x)
+        got = load_model(str(tmp_path / "jax")).kneighbors(x)
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
 
 
 @pytest.mark.parametrize("family", LINEAR_FAMILIES)
