@@ -476,9 +476,40 @@ Phases (any failure raises and the script exits non-zero):
     ivfpq (nprobe 8, no re-rank) searches, ``distributed_dbscan_labels``
     equal to the tiled float32 fit. (vi) A 16,384-item model saved, loaded
     through ``load_model``, its ``kneighbors`` equal.
+20. The tree family (``models/{random_forest,decision_tree,gbt}.py``,
+    ``ops/forest_kernel.py``, ``parallel/distributed_{forest,gbt}.py``),
+    no hand kernel (asserted). Data made on the host from the seed:
+    HIGGS's shape, 2,097,152 training rows (cut from 11 M so the host's
+    quantile binning stays at seconds) and 262,144 held out, 28 float32
+    features, a binary label from a planted nonlinear rule plus noise;
+    YearPredictionMSD's shape and published split, 463,715 + 51,630 rows
+    of 90 features, a planted year. (i) RandomForestClassifier at Spark's
+    defaults (20 trees, depth 5, 32 bins; subset 'auto'), float32: the
+    fit's densify / binning / grow seconds, trees a group, peak memory,
+    held-out accuracy and transform rows/s; the float64 fit on the card
+    grows the same trees (asserted) and agrees on ≥ 0.999 of the labels;
+    with ``maxMemoryInMB`` 8192 (20 trees a group) the same trees; one
+    deepest-level histogram contraction for 1 and 20 trees against its
+    bounds (bytes; the dense float64 GEMM's operations at 67 TFLOP/s).
+    (ii) DecisionTreeClassifier at depth 10 on (i)'s rows: seconds, peak,
+    ``depth_`` 10 and ``num_nodes_`` 2047. (iii) RandomForestRegressor on
+    the YearPredictionMSD rows ('auto': 30 of 90): the split, peak and
+    held-out RMSE (below the mean's). (iv) GBTClassifier on (i)'s rows
+    (maxIter 20, depth 5, stepSize 0.1, 10 % validation rows) and
+    GBTRegressor on (iii)'s: rounds kept, each round's grow against its
+    host time. (v) On a fresh one-rank NCCL world, ``distributed_forest_fit``
+    (10 trees) and ``distributed_gbt_fit`` (5 rounds) on all of (i)'s rows,
+    timed with their collective accounting; on the first 65,536 rows at
+    float64 each equals the same function in a one-rank gloo world on the
+    CPU (a subprocess): features and thresholds equal, leaves within 1e-9.
+    (vi) On those rows at float64, 4 trees of depth 5, the card against
+    the CPU: the classifier's trees identical, the regressor's predictions
+    within 1e-9 (trees that differ counted). (vii) A forest, a tree and a
+    GBT model saved, loaded through ``load_model``, transform bit-equal.
 
 Then one JSON line ``{"stage_bodies": [...]}``, one ``{"knn_dbscan":
-{...}}`` (phase 19's numbers), one ``{"kernels": [...]}``
+{...}}`` (phase 19's numbers), one ``{"trees": {...}}`` (phase 20's),
+one ``{"kernels": [...]}``
 (each kernel with its launches per phase and, under ``extra_shapes``,
 phase 3's timings of phase 14's shapes and phases 16 and 18's Hessians),
 the card's name and power limit, and last ``{"ok": true, "device":
@@ -508,7 +539,7 @@ SEED = 0
 
 # NVIDIA's published H100 SXM peaks (dense, 700 W)
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
+PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12, "f64": 67e12}
 
 # per precision: kernel instantiation, operand type and bf16 passes
 PRECISIONS = {
@@ -6573,6 +6604,424 @@ def phase_knn(torch, fg, device):
     return summary
 
 
+TREE_FIT_ROWS = 2_097_152   # HIGGS's 28 features; 11 M rows cut (binning)
+TREE_TEST_ROWS = 262_144
+TREE_FEATURES = 28
+MSD_FIT_ROWS = 463_715      # YearPredictionMSD's published train / test split
+MSD_TEST_ROWS = 51_630
+MSD_FEATURES = 90
+TREE_SMALL_ROWS = 65_536    # (v)'s and (vi)'s float64 comparisons
+TREE_AGREE = 0.999          # f32 vs f64 held-out labels that must agree
+TREE_F64_ATOL = 1e-9        # card vs CPU, NCCL vs gloo at float64
+GLOO_TIMEOUT_S = 300
+
+
+def higgs_rows(rng, rows):
+    """HIGGS-shaped rows: 28 float32 features, a binary label from a
+    planted nonlinear rule of the first six plus N(0, 0.5²) noise."""
+    x = rng.standard_normal((rows, TREE_FEATURES), dtype=np.float32)
+    z = (x[:, 0] * x[:, 1] + np.sin(2.0 * x[:, 2]) + 0.5 * x[:, 3] ** 2
+         - 0.5 + 0.5 * x[:, 4] - 0.3 * np.abs(x[:, 5])
+         + 0.5 * rng.standard_normal(rows, dtype=np.float32))
+    return x, (z > 0).astype(np.float64)
+
+
+def msd_rows(rng, rows):
+    """YearPredictionMSD-shaped rows: 90 float32 features and a planted
+    year: linear in 12 of them, two nonlinear terms, N(0, 3²) noise."""
+    x = rng.standard_normal((rows, MSD_FEATURES), dtype=np.float32)
+    w = np.linspace(2.0, 0.5, 12)
+    y = (1998.0 + x[:, :12].astype(np.float64) @ w
+         + 4.0 * np.sin(x[:, 12]) + 3.0 * x[:, 13] * x[:, 14]
+         + 3.0 * rng.standard_normal(rows))
+    return x, y
+
+
+def fit_split(model) -> str:
+    return ", ".join(f"{k} {v:.3f} s" for k, v in model.fit_timings_.items())
+
+
+def same_trees(a, b) -> bool:
+    return (np.array_equal(a.feature, b.feature)
+            and np.array_equal(a.threshold, b.threshold))
+
+
+def trees_differing(a, b) -> int:
+    return int(sum(not (np.array_equal(fa, fb) and np.array_equal(ta, tb))
+                   for fa, fb, ta, tb in zip(a.feature, b.feature,
+                                             a.threshold, b.threshold)))
+
+
+def peak_fit(torch, fit):
+    """(result, seconds, peak bytes allocated during it)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fit()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+
+def histogram_bound(rows, d, n_bins, trees, nodes, channels) -> dict:
+    """The least time of one level's histogram contraction: its inputs
+    read once (int32 bins, int64 node ids, float64 channels) and the
+    float64 histogram written once over 3.35 TB/s, against the dense
+    float64 GEMM's operations (2 per multiply-add, the one-hots' zeros
+    included) over 67 TFLOP/s."""
+    nbytes = (rows * d * 4 + trees * rows * 8 + trees * rows * channels * 8
+              + trees * channels * nodes * d * n_bins * 8)
+    ops = 2.0 * rows * trees * nodes * channels * d * n_bins
+    return {"bytes_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
+            "dense_ops_ms": ops / PEAK_OPS_PER_S["f64"] * 1e3}
+
+
+def sharded_tree_fits(x, y, small_x, small_y):
+    """(v) on a fresh one-rank NCCL world: both sharded fits on all rows
+    (timed, with their fit reports' collectives), then on the small rows
+    at float64. Returns (small ensembles, forest s, gbt s, collectives)."""
+    import torch.distributed as dist
+
+    from spark_rapids_ml_tpu_torch.parallel import (
+        data_mesh,
+        distributed_forest_fit,
+        distributed_gbt_fit,
+        initialize_multihost,
+    )
+
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    coordinator = f"127.0.0.1:{free_port()}"
+    try:
+        initialize_multihost(coordinator, num_processes=1, process_id=0)
+    except Exception as exc:
+        raise RuntimeError(f"phase 20: the one-rank NCCL world did not "
+                           f"start at {coordinator}: {exc!r}") from exc
+    try:
+        check(dist.get_backend() == "nccl", "the card's world runs NCCL")
+        mesh = data_mesh(1)
+        t0 = time.perf_counter()
+        forest = distributed_forest_fit(x, y, mesh, n_trees=10, max_depth=5,
+                                        classification=True)
+        t_forest = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        gbt = distributed_gbt_fit(x, y, mesh, max_iter=5, max_depth=5,
+                                  classification=True)
+        t_gbt = time.perf_counter() - t0
+        coll = {name: r.fit_report_.collectives
+                for name, r in (("forest", forest), ("gbt", gbt))}
+        small = {
+            "forest": distributed_forest_fit(
+                small_x, small_y, mesh, n_trees=10, max_depth=5,
+                classification=True, dtype=np.float64)[0],
+            "gbt": distributed_gbt_fit(
+                small_x, small_y, mesh, max_iter=5, max_depth=5,
+                classification=True, dtype=np.float64)[0]}
+    finally:
+        dist.destroy_process_group()
+    return small, t_forest, t_gbt, coll
+
+
+GLOO_SCRIPT = """
+import sys
+import numpy as np
+import torch.distributed as dist
+from spark_rapids_ml_tpu_torch.parallel import (data_mesh,
+    distributed_forest_fit, distributed_gbt_fit)
+d = sys.argv[1]
+x, y = np.load(d + '/x.npy'), np.load(d + '/y.npy')
+dist.init_process_group('gloo', init_method='file://' + d + '/store',
+                        rank=0, world_size=1)
+mesh = data_mesh(1)
+ens = distributed_forest_fit(x, y, mesh, n_trees=10, max_depth=5,
+                             classification=True, dtype=np.float64)[0]
+gbt = distributed_gbt_fit(x, y, mesh, max_iter=5, max_depth=5,
+                          classification=True, dtype=np.float64)[0]
+dist.destroy_process_group()
+np.savez(d + '/gloo.npz', **{f'forest/{k}': v for k, v in
+                             zip(ens._fields, ens)},
+         **{f'gbt/{k}': v for k, v in zip(gbt._fields, gbt)})
+"""
+
+
+def phase_trees(torch, fg, device):
+    """Phase 20: the tree family (RandomForest, DecisionTree, GBT) through
+    its entry points at HIGGS's and YearPredictionMSD's shapes, the
+    one-rank sharded fits, card against CPU, and a save and load. No hand
+    kernel runs. Returns a summary for the JSON line."""
+    from spark_rapids_ml_tpu_torch import (
+        DecisionTreeClassifier,
+        GBTClassifier,
+        GBTRegressor,
+        RandomForestClassifier,
+        RandomForestRegressor,
+    )
+    from spark_rapids_ml_tpu_torch.data.frame import VectorFrame
+    from spark_rapids_ml_tpu_torch.io.persistence import load_model
+    from spark_rapids_ml_tpu_torch.ops import forest_kernel as fk
+    from spark_rapids_ml_tpu_torch.utils.resources import PLATFORM_ENV
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi_line()
+    fg.reset_launches()
+    gib = 1024 ** 3
+    summary = {"card": smi}
+    rng = np.random.default_rng(SEED + 20)
+    t0 = time.perf_counter()
+    hx, hy = higgs_rows(rng, TREE_FIT_ROWS + TREE_TEST_ROWS)
+    hx_fit, hy_fit = hx[:TREE_FIT_ROWS], hy[:TREE_FIT_ROWS]
+    hx_test, hy_test = hx[TREE_FIT_ROWS:], hy[TREE_FIT_ROWS:]
+    mx, my = msd_rows(rng, MSD_FIT_ROWS + MSD_TEST_ROWS)
+    mx_fit, my_fit = mx[:MSD_FIT_ROWS], my[:MSD_FIT_ROWS]
+    mx_test, my_test = mx[MSD_FIT_ROWS:], my[MSD_FIT_ROWS:]
+    log(f"  {smi}; HIGGS-shaped {TREE_FIT_ROWS:,} + {TREE_TEST_ROWS:,} x "
+        f"{TREE_FEATURES} (positives {hy.mean():.4f}) and "
+        f"YearPredictionMSD-shaped {MSD_FIT_ROWS:,} + {MSD_TEST_ROWS:,} x "
+        f"{MSD_FEATURES} made in {time.perf_counter() - t0:.2f} s (host)")
+
+    # (i) RandomForestClassifier, Spark's defaults but the subset 'auto'
+    est = RandomForestClassifier().setNumTrees(20).setMaxDepth(5) \
+        .setMaxBins(32).setFeatureSubsetStrategy("auto").setSeed(SEED)
+    rf32, fit_s, peak = peak_fit(torch, lambda: est.fit(hx_fit, hy_fit))
+    t0 = time.perf_counter()
+    proba = rf32.predict_proba(hx_test)
+    apply_s = time.perf_counter() - t0
+    acc = float((rf32.classes_[proba.argmax(1)] == hy_test).mean())
+    rf64 = est.copy().setDtype("float64").fit(hx_fit, hy_fit)
+    proba64 = rf64.predict_proba(hx_test)
+    agree = float((proba.argmax(1) == proba64.argmax(1)).mean())
+    differ = trees_differing(rf32.ensemble_, rf64.ensemble_)
+    dp = float(np.abs(proba - proba64).max())
+    log(f"  (i) RandomForestClassifier, 20 trees, depth 5, 32 bins, 'auto' "
+        f"(5 of 28), float32: fit {fit_s:.3f} s ({fit_split(rf32)}), "
+        f"{rf32.trees_per_group_} tree(s) a group; peak "
+        f"{peak / gib:.3f} GiB allocated; held-out accuracy {acc:.4f}, "
+        f"transform {TREE_TEST_ROWS / apply_s:,.0f} rows/s (host clock, "
+        f"binning included); against the float64 fit on the card: "
+        f"{differ} of 20 trees differ, labels agree {agree:.6f}, "
+        f"max |Δp| {dp:.3e}")
+    check(acc > 0.6, f"held-out accuracy {acc} of the forest")
+    check(differ == 0, f"{differ} trees of the float32 forest differ from "
+          "the float64 forest's (both select splits on float64 histograms "
+          "of the same exact class counts)")
+    check(agree >= TREE_AGREE, f"float32 and float64 forests agree on "
+          f"{agree} of the held-out labels")
+    # the same fit with a budget that holds all 20 trees in one group:
+    # the same trees, one contraction a level for the whole forest
+    grouped, fit_g, peak_g = peak_fit(torch, lambda: est.copy()
+                                      .setMaxMemoryInMB(8192)
+                                      .fit(hx_fit, hy_fit))
+    dleaf = float(np.abs(grouped.ensemble_.leaf_value
+                         - rf32.ensemble_.leaf_value).max())
+    log(f"    maxMemoryInMB 8192: {grouped.trees_per_group_} trees a group, "
+        f"fit {fit_g:.3f} s (grow {grouped.fit_timings_['grow']:.3f} s), "
+        f"peak {peak_g / gib:.3f} GiB; trees equal to the default fit's, "
+        f"leaves max |Δ| {dleaf:.3e}")
+    check(same_trees(grouped.ensemble_, rf32.ensemble_) and dleaf <= 1e-6,
+          "the forest depends on its group size")
+    # the histogram contraction alone at (i)'s deepest level (16 nodes,
+    # 2 channels), for one tree and for a group of 20, against its bounds
+    binned = torch.as_tensor(fk.apply_bin_edges(hx_fit, rf32.edges_),
+                             device=device)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    hist = {}
+    for trees in (1, 20):
+        node = torch.randint(0, 16, (trees, TREE_FIT_ROWS), generator=gen,
+                             device=device)
+        chans = torch.rand((trees, TREE_FIT_ROWS, 2), generator=gen,
+                           dtype=torch.float64, device=device)
+        ms = time_ms(torch, lambda: fk.channel_histograms(
+            node, 16, binned, chans, 32), iters=5, warmup=1)
+        hbound = histogram_bound(TREE_FIT_ROWS, TREE_FEATURES, 32, trees,
+                                 16, 2)
+        hist[trees] = {"ms": ms, **hbound}
+        log(f"    histogram, deepest level (16 nodes × 2 channels), "
+            f"{trees} tree(s): {ms:.3f} ms (CUDA events) against "
+            f"{hbound['bytes_ms']:.3f} ms by bytes, "
+            f"{hbound['dense_ops_ms']:.3f} ms by the dense float64 GEMM's "
+            f"operations at 67 TFLOP/s")
+        del node, chans
+    del binned
+    summary["rf_classifier"] = {
+        "fit_s": fit_s, "split_s": rf32.fit_timings_,
+        "trees_per_group": rf32.trees_per_group_, "peak_bytes": peak,
+        "accuracy": acc, "transform_rows_per_s": TREE_TEST_ROWS / apply_s,
+        "f64_trees_differing": differ, "f64_label_agreement": agree,
+        "f64_max_abs_dp": dp, "histogram": hist,
+        "grouped": {"trees_per_group": grouped.trees_per_group_,
+                    "fit_s": fit_g, "grow_s": grouped.fit_timings_["grow"],
+                    "peak_bytes": peak_g, "max_abs_dleaf": dleaf}}
+    del rf64, proba64, grouped
+
+    # (ii) DecisionTreeClassifier at depth 10 on the same rows
+    dt, fit_s, peak = peak_fit(torch, lambda: DecisionTreeClassifier(
+        maxDepth=10).fit(hx_fit, hy_fit))
+    dt_acc = float((dt.classes_[dt.predict_proba(hx_test).argmax(1)]
+                    == hy_test).mean())
+    log(f"  (ii) DecisionTreeClassifier, depth 10: fit {fit_s:.3f} s "
+        f"({fit_split(dt)}); peak {peak / gib:.3f} GiB allocated; depth_ "
+        f"{dt.depth_}, num_nodes_ {dt.num_nodes_}; held-out accuracy "
+        f"{dt_acc:.4f}")
+    check(dt.depth_ == 10 and dt.num_nodes_ == 2 ** 11 - 1,
+          "the decision tree's depth and node count")
+    summary["decision_tree"] = {"fit_s": fit_s, "split_s": dt.fit_timings_,
+                                "peak_bytes": peak, "accuracy": dt_acc}
+
+    # (iii) RandomForestRegressor at YearPredictionMSD's shape
+    rfr, fit_s, peak = peak_fit(torch, lambda: RandomForestRegressor()
+                                .setNumTrees(20).setMaxDepth(5)
+                                .setFeatureSubsetStrategy("auto")
+                                .setSeed(SEED).fit(mx_fit, my_fit))
+    pred = np.asarray(rfr.transform(mx_test).column("prediction"))
+    rmse = float(np.sqrt(np.mean((pred - my_test) ** 2)))
+    rmse0 = float(np.sqrt(np.mean((my_fit.mean() - my_test) ** 2)))
+    log(f"  (iii) RandomForestRegressor, 20 trees, depth 5, 'auto' (30 of "
+        f"90), float32: fit {fit_s:.3f} s ({fit_split(rfr)}), "
+        f"{rfr.trees_per_group_} tree(s) a group; peak {peak / gib:.3f} GiB "
+        f"allocated; held-out RMSE {rmse:.4f} (the training mean's "
+        f"{rmse0:.4f})")
+    check(rmse < rmse0, "the forest regressor beats the mean")
+    summary["rf_regressor"] = {"fit_s": fit_s, "split_s": rfr.fit_timings_,
+                               "peak_bytes": peak, "rmse": rmse,
+                               "rmse_of_mean": rmse0}
+
+    # (iv) GBT: a classifier with 10 % validation rows, a regressor
+    val = np.random.default_rng(SEED + 21).random(TREE_FIT_ROWS) < 0.1
+    frame = VectorFrame({"features": hx_fit, "label": hy_fit, "val": val})
+    gbc, fit_s, peak = peak_fit(torch, lambda: GBTClassifier()
+                                .setMaxIter(20).setMaxDepth(5)
+                                .setStepSize(0.1)
+                                .setValidationIndicatorCol("val")
+                                .fit(frame))
+    gbc_acc = float((np.asarray(gbc.transform(hx_test).column("prediction"))
+                     == hy_test).mean())
+    gbr, fit_r, peak_r = peak_fit(torch, lambda: GBTRegressor()
+                                  .setMaxIter(20).setMaxDepth(5)
+                                  .fit(mx_fit, my_fit))
+    gbr_pred = np.asarray(gbr.transform(mx_test).column("prediction"))
+    gbr_rmse = float(np.sqrt(np.mean((gbr_pred - my_test) ** 2)))
+    for label, m, secs, pk in (("GBTClassifier (validation 10 %)", gbc,
+                                fit_s, peak),
+                               ("GBTRegressor", gbr, fit_r, peak_r)):
+        rounds = m.boost_rounds_
+        log(f"  (iv) {label}: fit {secs:.3f} s ({fit_split(m)}); "
+            f"{m.ensemble_.feature.shape[0]} rounds kept of {len(rounds)} "
+            f"grown; peak {pk / gib:.3f} GiB; per round grow (card) / "
+            f"host (residuals, refit, validation): "
+            + ", ".join(f"{r['grow_s'] * 1e3:.0f}/{r['host_s'] * 1e3:.0f}"
+                        for r in rounds) + " ms")
+    log(f"    held-out accuracy {gbc_acc:.4f}; regressor RMSE "
+        f"{gbr_rmse:.4f}")
+    check(gbc_acc > 0.6 and gbr_rmse < rmse0, "the GBT models learn")
+    summary["gbt"] = {
+        "classifier_rounds_kept": int(gbc.ensemble_.feature.shape[0]),
+        "classifier_rounds": gbc.boost_rounds_, "classifier_fit_s": fit_s,
+        "classifier_accuracy": gbc_acc, "regressor_fit_s": fit_r,
+        "regressor_rounds": gbr.boost_rounds_, "regressor_rmse": gbr_rmse}
+    del frame
+
+    # (v) the sharded fits on one NCCL rank; a one-rank gloo world on the
+    # CPU fits the first rows meanwhile, in a process of its own
+    small_x, small_y = hx_fit[:TREE_SMALL_ROWS], hy_fit[:TREE_SMALL_ROWS]
+    with tempfile.TemporaryDirectory() as tmp:
+        np.save(os.path.join(tmp, "x.npy"), small_x)
+        np.save(os.path.join(tmp, "y.npy"), small_y)
+        env = dict(os.environ, **{PLATFORM_ENV: "cpu"},
+                   CUDA_VISIBLE_DEVICES="")
+        gloo = subprocess.Popen([sys.executable, "-c", GLOO_SCRIPT, tmp],
+                                env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        try:
+            small, t_forest, t_gbt, coll = sharded_tree_fits(
+                hx_fit, hy_fit, small_x, small_y)
+            out, _ = gloo.communicate(timeout=GLOO_TIMEOUT_S)
+        finally:
+            if gloo.poll() is None:
+                gloo.kill()
+                gloo.communicate()
+        check(gloo.returncode == 0, f"the gloo world failed: {out[-2000:]}")
+        with np.load(os.path.join(tmp, "gloo.npz")) as z:
+            for name, ens in small.items():
+                check(np.array_equal(ens.feature, z[f"{name}/feature"])
+                      and np.array_equal(ens.threshold,
+                                         z[f"{name}/threshold"])
+                      and np.abs(ens.leaf_value
+                                 - z[f"{name}/leaf_value"]).max()
+                      <= TREE_F64_ATOL,
+                      f"distributed {name} on NCCL differs from gloo")
+    log(f"  (v) one NCCL rank, all {TREE_FIT_ROWS:,} rows: "
+        f"distributed_forest_fit (10 trees, depth 5) {t_forest:.3f} s, "
+        f"distributed_gbt_fit (5 rounds) {t_gbt:.3f} s (host clock); "
+        f"collectives {coll}; on the first {TREE_SMALL_ROWS:,} rows at "
+        f"float64 both equal a one-rank gloo world on the CPU (features, "
+        f"thresholds; leaves within {TREE_F64_ATOL:g})")
+    summary["sharded"] = {"forest_s": t_forest, "gbt_s": t_gbt,
+                          "collectives": coll}
+
+    # (vi) the card against the CPU, float64, 4 trees of depth 5
+    cx, cy = hx_fit[:TREE_SMALL_ROWS], hy_fit[:TREE_SMALL_ROWS]
+    rx, ry = mx_fit[:TREE_SMALL_ROWS], my_fit[:TREE_SMALL_ROWS]
+
+    def small_fits():
+        return (RandomForestClassifier().setNumTrees(4).setMaxDepth(5)
+                .setFeatureSubsetStrategy("auto").setDtype("float64")
+                .fit(cx, cy),
+                RandomForestRegressor().setNumTrees(4).setMaxDepth(5)
+                .setFeatureSubsetStrategy("auto").setDtype("float64")
+                .fit(rx, ry))
+
+    card_cls, card_reg = small_fits()
+    saved = os.environ.get(PLATFORM_ENV)
+    os.environ[PLATFORM_ENV] = "cpu"
+    try:
+        cpu_cls, cpu_reg = small_fits()
+        cpu_pred = np.asarray(cpu_reg.transform(mx_test).column("prediction"))
+    finally:
+        if saved is None:
+            del os.environ[PLATFORM_ENV]
+        else:
+            os.environ[PLATFORM_ENV] = saved
+    card_pred = np.asarray(card_reg.transform(mx_test).column("prediction"))
+    reg_differ = trees_differing(card_reg.ensemble_, cpu_reg.ensemble_)
+    dpred = float(np.abs(card_pred - cpu_pred).max())
+    log(f"  (vi) float64 on the card against the CPU, first "
+        f"{TREE_SMALL_ROWS:,} rows, 4 trees of depth 5: classifier trees "
+        f"identical {same_trees(card_cls.ensemble_, cpu_cls.ensemble_)}; "
+        f"regressor: {reg_differ} of 4 trees differ, held-out predictions "
+        f"max |Δ| {dpred:.3e}")
+    check(same_trees(card_cls.ensemble_, cpu_cls.ensemble_),
+          "the classifier's trees differ between the card and the CPU")
+    check(dpred <= TREE_F64_ATOL, f"the regressor's predictions differ "
+          f"between the card and the CPU by {dpred}")
+    summary["card_vs_cpu"] = {"regressor_trees_differing": reg_differ,
+                              "max_abs_dpred": dpred}
+
+    # (vii) save → load_model → transform, one model of each family
+    with tempfile.TemporaryDirectory() as d:
+        for name, model, rows in (("forest", card_cls, hx_test),
+                                  ("tree", dt, hx_test),
+                                  ("gbt", gbr, mx_test)):
+            want = model.transform(rows)
+            path = os.path.join(d, name)
+            t0 = time.perf_counter()
+            model.save(path)
+            loaded = load_model(path)
+            save_s = time.perf_counter() - t0
+            got = loaded.transform(rows)
+            check(type(loaded) is type(model), f"{name} loads as another "
+                  "class")
+            for col in ("prediction", "probability"):
+                if col in want.columns:
+                    check(np.array_equal(np.asarray(got.column(col)),
+                                         np.asarray(want.column(col))),
+                          f"the loaded {name} model's {col} differs")
+            log(f"  (vii) {type(model).__name__} saved and loaded through "
+                f"load_model in {save_s:.2f} s; transform bit-equal")
+    launched = {k: v for k, v in fg.launches.items() if v}
+    check(not launched, f"phase 20 launched a hand kernel: {launched}")
+    summary["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 20 launches {launched}; {summary['seconds']:.1f} s")
+    return summary
+
 def build_fresh(cuda_build):
     """Build the Gram library anew, so ``ptxas -v`` reports on it."""
     path = cuda_build.library_path("fused_gram")
@@ -6703,6 +7152,9 @@ def main() -> int:
     log("[19] NearestNeighbors and DBSCAN")
     knn_summary = phase_knn(torch, fg, device)
 
+    log("[20] the tree family")
+    tree_summary = phase_trees(torch, fg, device)
+
     kernels = []
     for name, m in measured.items():
         check(launches.get(name, 0) > 0, f"{name} not launched on the main path")
@@ -6713,7 +7165,7 @@ def main() -> int:
                     "16": logreg_launches.get(name, 0),
                     "17": stage_launches.get(name, 0),
                     "18": linear_launches.get(name, 0),
-                    "19": 0}
+                    "19": 0, "20": 0}
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES, "launches": sum(by_phase.values()),
@@ -6726,6 +7178,7 @@ def main() -> int:
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"stage_bodies": stage_timings}))
     print(json.dumps({"knn_dbscan": knn_summary}))
+    print(json.dumps({"trees": tree_summary}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

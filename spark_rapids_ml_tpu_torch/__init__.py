@@ -55,6 +55,24 @@ from spark_rapids_ml_tpu_torch.models.dbscan import (  # noqa: F401
     DBSCAN,
     DBSCANModel,
 )
+from spark_rapids_ml_tpu_torch.models.random_forest import (  # noqa: F401
+    RandomForestClassificationModel,
+    RandomForestClassifier,
+    RandomForestRegressionModel,
+    RandomForestRegressor,
+)
+from spark_rapids_ml_tpu_torch.models.decision_tree import (  # noqa: F401
+    DecisionTreeClassificationModel,
+    DecisionTreeClassifier,
+    DecisionTreeRegressionModel,
+    DecisionTreeRegressor,
+)
+from spark_rapids_ml_tpu_torch.models.gbt import (  # noqa: F401
+    GBTClassificationModel,
+    GBTClassifier,
+    GBTRegressionModel,
+    GBTRegressor,
+)
 from spark_rapids_ml_tpu_torch.models.feature_scalers import (  # noqa: F401
     Binarizer,
     MaxAbsScaler,
@@ -98,6 +116,18 @@ __all__ = [
     "NearestNeighborsModel",
     "DBSCAN",
     "DBSCANModel",
+    "RandomForestClassificationModel",
+    "RandomForestClassifier",
+    "RandomForestRegressionModel",
+    "RandomForestRegressor",
+    "DecisionTreeClassificationModel",
+    "DecisionTreeClassifier",
+    "DecisionTreeRegressionModel",
+    "DecisionTreeRegressor",
+    "GBTClassificationModel",
+    "GBTClassifier",
+    "GBTRegressionModel",
+    "GBTRegressor",
     "Binarizer",
     "MaxAbsScaler",
     "MaxAbsScalerModel",

@@ -2,9 +2,9 @@
 
 A copy of the PCA, KMeans, StandardScaler, LinearRegression,
 LogisticRegression, LinearSVC, GeneralizedLinearRegression,
-TruncatedSVD and NearestNeighbors parts of the JAX package's
-``io/persistence.py``, so a model saved by either package loads in the
-other (``RapidsPCA.scala:218-254``):
+TruncatedSVD, NearestNeighbors, RandomForest, DecisionTree and GBT parts
+of the JAX package's ``io/persistence.py``, so a model saved by either
+package loads in the other (``RapidsPCA.scala:218-254``):
 
 * ``path/metadata/part-00000`` — one JSON line: class, timestamp, uid,
   paramMap (Spark's ``DefaultParamsWriter.saveMetadata``); params Spark's
@@ -22,7 +22,11 @@ other (``RapidsPCA.scala:218-254``):
   GeneralizedLinearRegression (``intercept``, ``coefficients``), its fit
   summary (iterations, deviance, weight sum) in the metadata's ``extra``;
   for TruncatedSVD ``V`` and ``s``; for NearestNeighbors the fitted
-  ``items`` (DBSCAN's model has no writer, as in the JAX package).
+  ``items`` (DBSCAN's model has no writer, as in the JAX package); for
+  the tree models (RandomForest, DecisionTree, GBT) the ensemble's
+  ``feature``, ``threshold`` and ``leafValue`` and the bin ``edges`` as
+  DenseMatrix structs, with ``classes`` / ``numClasses`` (forests) or
+  ``init`` / ``stepSize`` (GBT) and ``featureImportances``.
   Without pyarrow (optional) the same row is written as
   ``part-00000.json``, which both packages' readers accept.
 
@@ -76,6 +80,14 @@ _SPARK_CLASS_ALIASES = {
         "org.apache.spark.ml.regression.GeneralizedLinearRegressionModel",
     "StandardScaler": "org.apache.spark.ml.feature.StandardScaler",
     "StandardScalerModel": "org.apache.spark.ml.feature.StandardScalerModel",
+    "DecisionTreeClassifier":
+        "org.apache.spark.ml.classification.DecisionTreeClassifier",
+    "DecisionTreeClassificationModel":
+        "org.apache.spark.ml.classification.DecisionTreeClassificationModel",
+    "DecisionTreeRegressor":
+        "org.apache.spark.ml.regression.DecisionTreeRegressor",
+    "DecisionTreeRegressionModel":
+        "org.apache.spark.ml.regression.DecisionTreeRegressionModel",
     "Pipeline": "org.apache.spark.ml.Pipeline",
     "PipelineModel": "org.apache.spark.ml.PipelineModel",
 }
@@ -90,6 +102,18 @@ _SPARK_PARAM_ALLOWLIST = {
                     "weightCol"},
     "StandardScaler": {"withMean", "withStd", "inputCol", "outputCol"},
     "StandardScalerModel": {"withMean", "withStd", "inputCol", "outputCol"},
+    "DecisionTreeClassifier": {
+        "maxDepth", "maxBins", "minInstancesPerNode", "labelCol",
+        "predictionCol", "probabilityCol", "seed", "weightCol"},
+    "DecisionTreeClassificationModel": {
+        "maxDepth", "maxBins", "minInstancesPerNode", "labelCol",
+        "predictionCol", "probabilityCol", "seed", "weightCol"},
+    "DecisionTreeRegressor": {
+        "maxDepth", "maxBins", "minInstancesPerNode", "labelCol",
+        "predictionCol", "seed", "weightCol"},
+    "DecisionTreeRegressionModel": {
+        "maxDepth", "maxBins", "minInstancesPerNode", "labelCol",
+        "predictionCol", "seed", "weightCol"},
     "LinearRegression": {"labelCol", "predictionCol", "fitIntercept",
                          "regParam", "elasticNetParam", "weightCol"},
     "LinearRegressionModel": {"labelCol", "predictionCol", "fitIntercept",
@@ -312,6 +336,7 @@ _SPARK_FIELD_TYPES = {
     "vector": _VECTOR_UDT_JSON,
     "double": "double",
     "integer": "integer",
+    "long": "long",
     "array<int>": {"type": "array", "elementType": "integer",
                    "containsNull": False},
 }
@@ -873,6 +898,173 @@ def load_knn_model(path: str):
     return _restore_params(model, meta)
 
 
+def _ensemble_fields(model, leaf2d) -> Dict[str, Any]:
+    """The ensemble's (feature, threshold, leafValue) arrays and the bin
+    edges as DenseMatrix wire structs (int arrays stored as exact
+    small-valued doubles, cast back on load) — the fields forest and GBT
+    rows share."""
+    return {
+        "feature": _dense_matrix_struct(
+            np.asarray(model.ensemble_.feature, dtype=np.float64)),
+        "threshold": _dense_matrix_struct(
+            np.asarray(model.ensemble_.threshold, dtype=np.float64)),
+        "leafValue": _dense_matrix_struct(leaf2d),
+        "edges": _dense_matrix_struct(
+            np.asarray(model.edges_, dtype=np.float64)),
+    }
+
+
+def _importances_struct(model) -> Dict[str, Any]:
+    return _dense_vector_struct(np.asarray(
+        model.feature_importances_
+        if model.feature_importances_ is not None else [],
+        dtype=np.float64))
+
+
+def _ensemble_from_row(row, leaf_value):
+    from spark_rapids_ml_tpu_torch.ops.forest_kernel import TreeEnsemble
+
+    return TreeEnsemble(
+        feature=_dense_matrix_from_struct(row["feature"]).astype(np.int32),
+        threshold=_dense_matrix_from_struct(row["threshold"]).astype(
+            np.int32),
+        leaf_value=leaf_value,
+    )
+
+
+def _tree_model_class(meta):
+    """The port's class of a saved tree model, by the simple name of the
+    class its metadata records (either package's)."""
+    dotted = meta.get("pythonClass") or meta["class"]
+    return _port_class(dotted.rsplit(".", 1)[-1])
+
+
+def _restore_importances(model, row, meta):
+    fi = _dense_vector_from_struct(
+        row.get("featureImportances", {"values": []}))
+    model.feature_importances_ = fi if fi.size else None
+    model.uid = meta["uid"]
+    return _restore_params(model, meta)
+
+
+def save_forest_model(model, path: str, overwrite: bool = False) -> None:
+    """RandomForest and DecisionTree models: the JAX package's layout —
+    the ensemble's (feature, threshold, leafValue) arrays plus bin edges,
+    all DenseMatrix wire structs. A 3-D classification leaf tensor
+    flattens to (trees, leaves*classes) with ``numClasses``/``classes``
+    alongside."""
+    if model.ensemble_ is None:
+        raise ValueError("cannot save an unfitted RandomForest model")
+    _require_target(path, overwrite)
+    cls = f"{type(model).__module__}.{type(model).__qualname__}"
+    _write_metadata(path, cls, model.uid, model.param_map_for_metadata())
+    leaf = np.asarray(model.ensemble_.leaf_value, dtype=np.float64)
+    if leaf.ndim == 3:
+        n_classes = leaf.shape[2]
+        leaf2d = leaf.reshape(leaf.shape[0], -1)
+        classes = np.asarray(model.classes_, dtype=np.float64)
+    else:
+        n_classes = 0
+        leaf2d = leaf
+        classes = np.zeros((0,), dtype=np.float64)
+    row = {
+        **_ensemble_fields(model, leaf2d),
+        "classes": _dense_vector_struct(classes),
+        "numClasses": int(n_classes),
+        "featureImportances": _importances_struct(model),
+    }
+    try:
+        import pyarrow as pa
+    except ImportError:
+        schema = None
+    else:
+        schema = pa.schema([
+            ("feature", _matrix_arrow_type()),
+            ("threshold", _matrix_arrow_type()),
+            ("leafValue", _matrix_arrow_type()),
+            ("edges", _matrix_arrow_type()),
+            ("classes", _vector_arrow_type()),
+            ("numClasses", pa.int64()),
+            ("featureImportances", _vector_arrow_type()),
+        ])
+    _write_data_row(path, row, schema=schema, spark_fields=[
+        ("feature", "matrix"), ("threshold", "matrix"),
+        ("leafValue", "matrix"), ("edges", "matrix"),
+        ("classes", "vector"), ("numClasses", "long"),
+        ("featureImportances", "vector"),
+    ])
+
+
+def load_forest_model(path: str):
+    meta = _read_metadata(path)
+    row = _read_data_row(path)
+    leaf2d = _dense_matrix_from_struct(row["leafValue"])
+    n_classes = int(row["numClasses"])
+    classes = _dense_vector_from_struct(row["classes"])
+    if n_classes:
+        leaf = leaf2d.reshape(leaf2d.shape[0], -1, n_classes)
+    else:
+        leaf = leaf2d
+        classes = None
+    model = _tree_model_class(meta)(
+        ensemble=_ensemble_from_row(row, leaf),
+        edges=_dense_matrix_from_struct(row["edges"]),
+        classes=classes,
+    )
+    return _restore_importances(model, row, meta)
+
+
+def save_gbt_model(model, path: str, overwrite: bool = False) -> None:
+    """GBT models: the boosted TreeEnsemble plus the additive-model scalars
+    (init, stepSize) — the JAX package's layout, the forest's wire
+    structs."""
+    if model.ensemble_ is None:
+        raise ValueError("cannot save an unfitted GBT model")
+    _require_target(path, overwrite)
+    cls = f"{type(model).__module__}.{type(model).__qualname__}"
+    _write_metadata(path, cls, model.uid, model.param_map_for_metadata())
+    row = {
+        **_ensemble_fields(model, np.asarray(model.ensemble_.leaf_value,
+                                             dtype=np.float64)),
+        "init": float(model.init_),
+        "stepSize": float(model.step_size_),
+        "featureImportances": _importances_struct(model),
+    }
+    try:
+        import pyarrow as pa
+    except ImportError:
+        schema = None
+    else:
+        schema = pa.schema([
+            ("feature", _matrix_arrow_type()),
+            ("threshold", _matrix_arrow_type()),
+            ("leafValue", _matrix_arrow_type()),
+            ("edges", _matrix_arrow_type()),
+            ("init", pa.float64()),
+            ("stepSize", pa.float64()),
+            ("featureImportances", _vector_arrow_type()),
+        ])
+    _write_data_row(path, row, schema=schema, spark_fields=[
+        ("feature", "matrix"), ("threshold", "matrix"),
+        ("leafValue", "matrix"), ("edges", "matrix"),
+        ("init", "double"), ("stepSize", "double"),
+        ("featureImportances", "vector"),
+    ])
+
+
+def load_gbt_model(path: str):
+    meta = _read_metadata(path)
+    row = _read_data_row(path)
+    model = _tree_model_class(meta)(
+        ensemble=_ensemble_from_row(
+            row, _dense_matrix_from_struct(row["leafValue"])),
+        edges=_dense_matrix_from_struct(row["edges"]),
+        init=float(row["init"]),
+        step_size=float(row["stepSize"]),
+    )
+    return _restore_importances(model, row, meta)
+
+
 # -- generic load + atomic save layer --------------------------------------
 
 # simple class name → (module of the port, class): what ``load_model`` may
@@ -900,6 +1092,16 @@ _MODEL_CLASSES = {
         ("svd", ("TruncatedSVD", "TruncatedSVDModel")),
         ("nearest_neighbors", ("NearestNeighbors", "NearestNeighborsModel")),
         ("dbscan", ("DBSCAN",)),
+        ("random_forest", ("RandomForestRegressor",
+                           "RandomForestRegressionModel",
+                           "RandomForestClassifier",
+                           "RandomForestClassificationModel")),
+        ("decision_tree", ("DecisionTreeRegressor",
+                           "DecisionTreeRegressionModel",
+                           "DecisionTreeClassifier",
+                           "DecisionTreeClassificationModel")),
+        ("gbt", ("GBTRegressor", "GBTRegressionModel", "GBTClassifier",
+                 "GBTClassificationModel")),
         ("pipeline", ("Pipeline", "PipelineModel")),
     )
     for name in names
@@ -919,15 +1121,18 @@ def load_model(path: str):
             "directory?); load it with the class-specific reader instead"
         )
     simple = dotted.rsplit(".", 1)[-1]
-    target = _MODEL_CLASSES.get(simple)
-    if target is None:
+    if simple not in _MODEL_CLASSES:
         raise ValueError(
             f"{path}: {dotted} has no counterpart in this package (one of "
             f"{sorted(_MODEL_CLASSES)})"
         )
-    module_name, cls_name = target
-    cls = getattr(importlib.import_module(module_name), cls_name)
-    return cls.load(path)
+    return _port_class(simple).load(path)
+
+
+def _port_class(simple: str):
+    """The port's class of that simple name, from ``_MODEL_CLASSES``."""
+    module_name, cls_name = _MODEL_CLASSES[simple]
+    return getattr(importlib.import_module(module_name), cls_name)
 
 
 def _atomic_save(save_fn):

@@ -32,6 +32,24 @@ from spark_rapids_ml_tpu_torch.models.nearest_neighbors import (
     NearestNeighborsModel,
 )
 from spark_rapids_ml_tpu_torch.models.dbscan import DBSCAN, DBSCANModel
+from spark_rapids_ml_tpu_torch.models.random_forest import (
+    RandomForestClassificationModel,
+    RandomForestClassifier,
+    RandomForestRegressionModel,
+    RandomForestRegressor,
+)
+from spark_rapids_ml_tpu_torch.models.decision_tree import (
+    DecisionTreeClassificationModel,
+    DecisionTreeClassifier,
+    DecisionTreeRegressionModel,
+    DecisionTreeRegressor,
+)
+from spark_rapids_ml_tpu_torch.models.gbt import (
+    GBTClassificationModel,
+    GBTClassifier,
+    GBTRegressionModel,
+    GBTRegressor,
+)
 from spark_rapids_ml_tpu_torch.models.feature_scalers import (
     Binarizer,
     MaxAbsScaler,
@@ -73,6 +91,18 @@ __all__ = [
     "NearestNeighborsModel",
     "DBSCAN",
     "DBSCANModel",
+    "RandomForestClassificationModel",
+    "RandomForestClassifier",
+    "RandomForestRegressionModel",
+    "RandomForestRegressor",
+    "DecisionTreeClassificationModel",
+    "DecisionTreeClassifier",
+    "DecisionTreeRegressionModel",
+    "DecisionTreeRegressor",
+    "GBTClassificationModel",
+    "GBTClassifier",
+    "GBTRegressionModel",
+    "GBTRegressor",
     "Binarizer",
     "MaxAbsScaler",
     "MaxAbsScalerModel",

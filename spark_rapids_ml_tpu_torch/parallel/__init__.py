@@ -2,7 +2,7 @@
 runtime, the data-parallel, streamed and feature-sharded PCA fits, and the
 data-parallel LinearRegression, LogisticRegression, LinearSVC,
 GeneralizedLinearRegression and KMeans fits; the sharded brute-force and
-IVF searches and DBSCAN."""
+IVF searches and DBSCAN; the RandomForest and GBT fits."""
 
 from spark_rapids_ml_tpu_torch.parallel.mesh import (
     DATA_AXIS,
@@ -52,6 +52,12 @@ from spark_rapids_ml_tpu_torch.parallel.distributed_ivf import (
 from spark_rapids_ml_tpu_torch.parallel.distributed_dbscan import (
     distributed_dbscan_labels,
 )
+from spark_rapids_ml_tpu_torch.parallel.distributed_forest import (
+    distributed_forest_fit,
+)
+from spark_rapids_ml_tpu_torch.parallel.distributed_gbt import (
+    distributed_gbt_fit,
+)
 from spark_rapids_ml_tpu_torch.parallel.streaming import (
     DistributedStreamingPCA,
     distributed_streaming_pca_fit,
@@ -80,6 +86,7 @@ __all__ = [
     "distributed_kmeans_fit", "distributed_kmeans_fit_kernel",
     "distributed_kneighbors", "distributed_ivf_search",
     "distributed_dbscan_labels",
+    "distributed_forest_fit", "distributed_gbt_fit",
     "DistributedStreamingPCA", "distributed_streaming_pca_fit",
     "finalize_stats_sharded", "update_stats_sharded",
     "FeatureShardedPCAResult", "feature_sharded_covariance_kernel",

@@ -104,3 +104,28 @@ def local_devices() -> List[torch.device]:
             f"{PLATFORM_ENV}=cpu to run on the CPU explicitly"
         )
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def tree_group_budget_bytes(local_est=None) -> int:
+    """Tree-group memory budget of the forest fit (the JAX package's
+    ``utils/resources.py::tree_group_budget_bytes``): the estimator's
+    ``maxMemoryInMB`` (Spark's aggregation-memory knob, default 256 on
+    the estimators; 64MB bare default), overridable by
+    SPARK_RAPIDS_ML_TPU_TREE_GROUP_BYTES (the JAX package's name). Parsed
+    lazily at fit time so a malformed env value fails the FIT with a
+    clear message."""
+    raw = os.environ.get("SPARK_RAPIDS_ML_TPU_TREE_GROUP_BYTES")
+    if raw is not None:
+        try:
+            value = int(raw)
+            if value < 1:
+                raise ValueError
+            return value
+        except ValueError:
+            raise ValueError(
+                f"SPARK_RAPIDS_ML_TPU_TREE_GROUP_BYTES={raw!r}: expected "
+                "a positive integer byte count"
+            ) from None
+    if local_est is not None and local_est.has_param("maxMemoryInMB"):
+        return int(local_est.get_or_default("maxMemoryInMB")) * 1024 * 1024
+    return 64 * 1024 * 1024

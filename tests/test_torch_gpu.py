@@ -1520,3 +1520,130 @@ def test_dbscan_dense_equals_blocked_on_the_card(cuda_device):
                                   _relabel_consecutive(host_labels))
     np.testing.assert_array_equal(dense.core_mask_, host_core)
     assert dense.n_clusters_ >= 2
+
+
+# -- the tree family (slice 20) ------------------------------------------------
+
+def _tree_rows(rows=300_000, d=12, seed=20):
+    """Rows over several of the histogram's row blocks, a binary label
+    from a planted rule and a continuous one."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((rows, d)).astype(np.float32)
+    z = x[:, 0] * x[:, 1] + np.sin(2 * x[:, 2]) + 0.5 * x[:, 3]
+    return (x, (z + 0.5 * rng.standard_normal(rows) > 0).astype(np.float64),
+            z + 0.1 * rng.standard_normal(rows))
+
+
+def _tree_fits(x, y_cls, y_reg, dtype="float32"):
+    from spark_rapids_ml_tpu_torch import (
+        GBTRegressor,
+        RandomForestClassifier,
+        RandomForestRegressor,
+    )
+
+    return (RandomForestClassifier().setNumTrees(6).setMaxDepth(5)
+            .setFeatureSubsetStrategy("auto").setDtype(dtype)
+            .fit(x, y_cls),
+            RandomForestRegressor().setNumTrees(4).setMaxDepth(5)
+            .setDtype(dtype).fit(x, y_reg),
+            GBTRegressor().setMaxIter(3).setMaxDepth(4).setDtype(dtype)
+            .fit(x, y_reg))
+
+
+def _tree_state(models):
+    return [np.asarray(a) for m in models for a in m.ensemble_]
+
+
+@pytest.mark.parametrize("trees", [1, 5])
+def test_tree_histogram_float32_is_float64_rounded_once(cuda_device, trees):
+    """The histogram contraction on the card: its float32 result is its
+    float64 result rounded once (no TF32 path, whatever the switch), and
+    the float64 result equals the CPU's within 1e-12 relative."""
+    from spark_rapids_ml_tpu_torch.ops import forest_kernel as fk
+
+    rows, d, bins, nodes = 300_000, 12, 32, 8
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    binned = torch.randint(0, bins, (rows, d), generator=gen,
+                           device=cuda_device, dtype=torch.int32)
+    node = torch.randint(0, nodes, (trees, rows), generator=gen,
+                         device=cuda_device)
+    chans = torch.randn((trees, rows, 3), generator=gen, device=cuda_device,
+                        dtype=torch.float64).to(torch.float32)
+    h64 = fk.channel_histograms(node, nodes, binned, chans, bins)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    h32 = fk.channel_histograms(node, nodes, binned, chans, bins,
+                                dtype=torch.float32)
+    assert h64.dtype == torch.float64 and h64.is_cuda
+    assert torch.equal(h32, h64.to(torch.float32))
+    cpu = fk.channel_histograms(node.cpu(), nodes, binned.cpu(), chans.cpu(),
+                                bins)
+    scale = cpu.abs().max()
+    assert float((h64.cpu() - cpu).abs().max() / scale) <= 1e-12
+
+
+def test_tree_fits_on_the_card_are_bit_identical_twice(cuda_device):
+    x, y_cls, y_reg = _tree_rows()
+    first = _tree_state(_tree_fits(x, y_cls, y_reg))
+    second = _tree_state(_tree_fits(x, y_cls, y_reg))
+    for a, b in zip(first, second):
+        assert np.array_equal(a, b)
+
+
+def test_tf32_changes_no_tree(cuda_device):
+    """``allow_tf32 = True`` moves no split and no leaf bit: every float
+    product of the grower is float64 (no TF32 mode) rounded once."""
+    x, y_cls, y_reg = _tree_rows()
+    off = _tree_state(_tree_fits(x, y_cls, y_reg))
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.set_float32_matmul_precision("high")
+    try:
+        on = _tree_state(_tree_fits(x, y_cls, y_reg))
+    finally:
+        torch.set_float32_matmul_precision("highest")
+    for a, b in zip(off, on):
+        assert np.array_equal(a, b)
+
+
+def test_tree_fits_keep_cuda_tensors_on_the_card(cuda_device, monkeypatch):
+    """Every histogram, split selection and routing of a fit and a
+    transform on the card takes CUDA tensors: none reaches the CPU."""
+    from spark_rapids_ml_tpu_torch.ops import forest_kernel as fk
+
+    seen = []
+
+    def watch(name):
+        real = getattr(fk, name)
+
+        def wrapper(*args, **kwargs):
+            seen.append((name, [a.device.type for a in args
+                                if isinstance(a, torch.Tensor)]))
+            return real(*args, **kwargs)
+
+        monkeypatch.setattr(fk, name, wrapper)
+
+    for name in ("channel_histograms", "level_split", "route_to_leaves"):
+        watch(name)
+    x, y_cls, y_reg = _tree_rows(rows=50_000)
+    models = _tree_fits(x, y_cls, y_reg)
+    for m in models:
+        m.transform(x[:1000])
+    names = {name for name, _ in seen}
+    assert names == {"channel_histograms", "level_split", "route_to_leaves"}
+    assert all(devices and set(devices) == {"cuda"} for _, devices in seen)
+
+
+def test_tree_fits_card_equal_cpu_at_float64(cuda_device, monkeypatch):
+    """At float64 the classifier's trees on the card equal the CPU's (exact
+    class counts), and the regressors' predictions agree within 1e-9."""
+    x, y_cls, y_reg = _tree_rows(rows=65_536)
+    card = _tree_fits(x, y_cls, y_reg, dtype="float64")
+    monkeypatch.setenv("SPARK_RAPIDS_ML_TORCH_PLATFORM", "cpu")
+    cpu = _tree_fits(x, y_cls, y_reg, dtype="float64")
+    np.testing.assert_array_equal(card[0].ensemble_.feature,
+                                  cpu[0].ensemble_.feature)
+    np.testing.assert_array_equal(card[0].ensemble_.threshold,
+                                  cpu[0].ensemble_.threshold)
+    for a, b in zip(card[1:], cpu[1:]):
+        got = np.asarray(a.transform(x[:5000]).column("prediction"))
+        want = np.asarray(b.transform(x[:5000]).column("prediction"))
+        assert np.abs(got - want).max() <= 1e-9

@@ -508,6 +508,79 @@ def test_knn_dbscan_slice_runs_without_jax(tmp_path):
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+# the modules of the tree slice
+TREE_SLICE = ("ops.forest_kernel", "models.random_forest",
+              "models.decision_tree", "models.gbt",
+              "parallel.distributed_forest", "parallel.distributed_gbt",
+              "utils.resources")
+
+
+def test_tree_slice_runs_without_jax(tmp_path):
+    """A RandomForest classifier, a DecisionTree regressor and a GBT
+    classifier that the JAX package saved, loaded by the port and
+    transformed; the port's own fits of every family, saves and loads;
+    and ``distributed_forest_fit`` and ``distributed_gbt_fit`` in a
+    one-rank gloo world — in a process that never imports jax. The JAX
+    models are saved here, in the test process."""
+    import spark_rapids_ml_tpu as jax_pkg
+
+    mods = {m for _, m in _port_modules()}
+    assert {f"spark_rapids_ml_tpu_torch.{m}" for m in TREE_SLICE} <= mods
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(300, 4))
+    y = (x[:, 0] + x[:, 1] ** 2 > 1.0).astype(np.float64)
+    jax_pkg.RandomForestClassifier().setNumTrees(3).setMaxDepth(3).fit(
+        x, y).save(str(tmp_path / "rf"))
+    jax_pkg.DecisionTreeRegressor(maxDepth=3).fit(x, x[:, 0]).save(
+        str(tmp_path / "dt"))
+    jax_pkg.GBTClassifier().setMaxIter(3).setMaxDepth(2).fit(x, y).save(
+        str(tmp_path / "gbt"))
+    np.save(tmp_path / "x.npy", x)
+    np.save(tmp_path / "y.npy", y)
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "import torch.distributed as dist\n"
+        "from spark_rapids_ml_tpu_torch import (DecisionTreeClassifier, "
+        "GBTRegressor, RandomForestRegressor)\n"
+        "from spark_rapids_ml_tpu_torch.io.persistence import load_model\n"
+        "from spark_rapids_ml_tpu_torch.parallel import (data_mesh, "
+        "distributed_forest_fit, distributed_gbt_fit)\n"
+        "d = sys.argv[1]\n"
+        "x, y = np.load(d + '/x.npy'), np.load(d + '/y.npy')\n"
+        "loaded = [load_model(d + '/' + k) for k in ('rf', 'dt', 'gbt')]\n"
+        "preds = [np.asarray(m.transform(x).column('prediction')) "
+        "for m in loaded]\n"
+        "fits = [RandomForestRegressor().setNumTrees(2).fit(x, x[:, 0]), "
+        "DecisionTreeClassifier(maxDepth=2).fit(x, y), "
+        "GBTRegressor().setMaxIter(2).fit(x, x[:, 1])]\n"
+        "for i, m in enumerate(fits):\n"
+        "    m.save(d + f'/port{i}')\n"
+        "    load_model(d + f'/port{i}').transform(x)\n"
+        "dist.init_process_group('gloo', init_method='file://' + d + "
+        "'/store', rank=0, world_size=1)\n"
+        "mesh = data_mesh(1)\n"
+        "ens = distributed_forest_fit(x, y, mesh, n_trees=2, max_depth=2, "
+        "classification=True)[0]\n"
+        "gbt = distributed_gbt_fit(x, y, mesh, max_iter=2, max_depth=2, "
+        "classification=True)[0]\n"
+        "dist.destroy_process_group()\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or "
+        "k.startswith('jax.') or k == 'spark_rapids_ml_tpu' or "
+        "k.startswith('spark_rapids_ml_tpu.'))\n"
+        "ok = ((preds[0] == y).mean() > 0.8 and "
+        "ens.feature.shape == (2, 3) and gbt.feature.shape == (2, 3))\n"
+        "print([type(m).__name__ for m in loaded], bad)\n"
+        "sys.exit(1 if bad or not ok else 0)\n"
+    )
+    env = dict(os.environ, SPARK_RAPIDS_ML_TORCH_PLATFORM="cpu",
+               OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                          cwd=REPO_DIR, capture_output=True, text=True,
+                          timeout=120, env=env)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_port_sources_import_no_jax():
     found = []
     smoke = os.path.join(REPO_DIR, "chip_smoke.py")

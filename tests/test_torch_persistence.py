@@ -79,6 +79,8 @@ def _fitted(family):
         return _linear_family(family, x, y, port_pkg)
     if family in KNN_FAMILIES:
         return _knn_family(family, x, port_pkg)
+    if family in TREE_FAMILIES:
+        return _tree_family(family, x, y, port_pkg)
     if family == "pipeline":
         return Pipeline([
             StandardScaler().setWithMean(True).setOutputCol("s"),
@@ -156,9 +158,45 @@ LINEAR_FAMILIES = ("svc", "glm", "svc_est", "glm_est")
 # model has no writer in either package)
 KNN_FAMILIES = ("knn", "knn_est", "dbscan_est")
 PARAMS_ONLY |= {"knn_est", "dbscan_est"}
+# RandomForest, DecisionTree and GBT models and estimators
+TREE_MODELS = ("rf_cls", "rf_reg", "dt_cls", "dt_reg", "gbt_cls", "gbt_reg")
+TREE_FAMILIES = TREE_MODELS + ("rf_est", "dt_est", "gbt_est")
+PARAMS_ONLY |= {"rf_est", "dt_est", "gbt_est"}
 FAMILIES = ("pca", "kmeans", "scaler", "linreg", "svd", "logreg",
             "logreg_mn", "pipeline", "estimator") + STAGE_FAMILIES \
-    + LINEAR_FAMILIES + KNN_FAMILIES
+    + LINEAR_FAMILIES + KNN_FAMILIES + TREE_FAMILIES
+
+
+def _tree_family(family, x, y, pkg):
+    """The tree models (float64, so both packages predict alike) and
+    estimators, by ``pkg`` (the port or the JAX package), each with
+    params set away from their defaults."""
+    if family == "rf_cls":  # three classes: a 3-D leaf tensor
+        return pkg.RandomForestClassifier().setNumTrees(3).setMaxDepth(3) \
+            .setSeed(2).setDtype("float64").fit(x, _classes(y, 3))
+    if family == "rf_reg":
+        return pkg.RandomForestRegressor().setNumTrees(2).setMaxDepth(2) \
+            .setSubsamplingRate(0.5).setDtype("float64").fit(x, y)
+    if family == "dt_cls":
+        return pkg.DecisionTreeClassifier(maxDepth=3, dtype="float64") \
+            .fit(x, _classes(y, 2))
+    if family == "dt_reg":
+        return pkg.DecisionTreeRegressor(maxDepth=2, dtype="float64") \
+            .setMinInstancesPerNode(3).fit(x, y)
+    if family == "gbt_cls":
+        return pkg.GBTClassifier().setMaxIter(3).setMaxDepth(2) \
+            .setDtype("float64").fit(x, _classes(y, 2))
+    if family == "gbt_reg":
+        return pkg.GBTRegressor().setMaxIter(3).setStepSize(0.2) \
+            .setDtype("float64").fit(x, y)
+    if family == "rf_est":
+        return pkg.RandomForestClassifier().setNumTrees(7) \
+            .setFeatureSubsetStrategy("sqrt")
+    if family == "dt_est":
+        return pkg.DecisionTreeRegressor(maxDepth=6)
+    if family == "gbt_est":
+        return pkg.GBTRegressor().setMaxIter(9).setValidationTol(0.05)
+    raise KeyError(family)
 
 
 def _knn_family(family, x, pkg):
@@ -184,10 +222,13 @@ def _state(obj):
                  "coefficient_matrix", "intercept_vector", "classes_",
                  "original_min", "original_max", "max_abs", "median",
                  "qrange", "selected_features", "num_iterations_",
-                 "deviance_", "weight_sum_", "items"):
+                 "deviance_", "weight_sum_", "items", "edges_", "init_",
+                 "step_size_", "feature_importances_"):
         value = getattr(obj, attr, None)
         if value is not None:
             out.append(np.asarray(value))
+    if getattr(obj, "ensemble_", None) is not None:
+        out += [np.asarray(a) for a in obj.ensemble_]
     return out + [np.asarray(sorted(obj.param_map_for_metadata().items()),
                              dtype=object)] if hasattr(
         obj, "param_map_for_metadata") else out
@@ -282,7 +323,8 @@ def test_every_writer_is_wrapped():
             "save_svd_model", "save_logreg_model", "save_minmax_model",
             "save_svc_model", "save_glm_model", "save_knn_model",
             "save_maxabs_model", "save_robust_model",
-            "save_selector_model"} <= set(writers)
+            "save_selector_model", "save_forest_model",
+            "save_gbt_model"} <= set(writers)
     for name in writers:
         assert hasattr(getattr(persistence, name), "__wrapped_save__"), name
 
@@ -326,13 +368,15 @@ def _jax_fitted(family):
         return _linear_family(family, x, y, jax_pkg)
     if family in KNN_FAMILIES:
         return _knn_family(family, x, jax_pkg)
+    if family in TREE_FAMILIES:
+        return _tree_family(family, x, y, jax_pkg)
     return _stage_family(family, x, jax_pkg)
 
 
 @pytest.mark.parametrize("family", ["linreg", "svd", "kmeans", "scaler",
                                     "logreg", "logreg_mn", "pipeline",
                                     *STAGE_FAMILIES, *LINEAR_FAMILIES,
-                                    *KNN_FAMILIES])
+                                    *KNN_FAMILIES, *TREE_FAMILIES])
 def test_load_model_maps_jax_written_metadata_to_the_port(tmp_path, family):
     jax_model = _jax_fitted(family)
     path = str(tmp_path / family)
@@ -342,7 +386,8 @@ def test_load_model_maps_jax_written_metadata_to_the_port(tmp_path, family):
     loaded = load_model(path)
     assert type(loaded).__module__.startswith("spark_rapids_ml_tpu_torch.")
     assert type(loaded).__name__ == type(jax_model).__name__
-    if family in STAGE_FAMILIES + LINEAR_FAMILIES[2:] + KNN_FAMILIES:
+    if family in STAGE_FAMILIES + LINEAR_FAMILIES[2:] + KNN_FAMILIES \
+            + TREE_FAMILIES:
         _same(loaded, jax_model)  # the same params, so the same state
 
 
@@ -523,6 +568,88 @@ def test_linear_family_metadata_equals_the_jax_writers(tmp_path, family):
     back = getattr(jax_pkg, type(port).__name__).load(str(tmp_path / "port"))
     assert type(back).__module__.startswith("spark_rapids_ml_tpu.models.")
     _same(back, port)
+
+
+def test_load_model_names_the_tree_classes():
+    for module, names in (
+            ("random_forest", ("RandomForestRegressor",
+                               "RandomForestRegressionModel",
+                               "RandomForestClassifier",
+                               "RandomForestClassificationModel")),
+            ("decision_tree", ("DecisionTreeRegressor",
+                               "DecisionTreeRegressionModel",
+                               "DecisionTreeClassifier",
+                               "DecisionTreeClassificationModel")),
+            ("gbt", ("GBTRegressor", "GBTRegressionModel", "GBTClassifier",
+                     "GBTClassificationModel"))):
+        for name in names:
+            assert persistence._MODEL_CLASSES[name] == (
+                f"spark_rapids_ml_tpu_torch.models.{module}", name)
+
+
+def _tree_predictions(model, x):
+    out = model.transform(x)
+    preds = [np.asarray(out.column("prediction"), dtype=np.float64)]
+    if "probability" in out.columns:
+        preds.append(np.asarray(out.column("probability"), dtype=np.float64))
+    return preds
+
+
+@pytest.mark.parametrize("family", TREE_FAMILIES)
+def test_tree_metadata_equals_the_jax_writers(tmp_path, family):
+    """Tree models' and estimators' metadata equals the JAX writers' but
+    for the timestamp and the module path (the DecisionTree classes under
+    their Spark class names), and the data directories hold the same
+    files."""
+    port, jax_model = _fitted(family), _jax_fitted(family)
+    jax_model.uid = port.uid
+    port.save(str(tmp_path / "port"))
+    jax_model.save(str(tmp_path / "jax"))
+    got = _comparable_metadata(str(tmp_path / "port"))
+    assert got == _comparable_metadata(str(tmp_path / "jax"))
+    meta = persistence._read_metadata(str(tmp_path / "port"))
+    if family.startswith("dt_") and family != "dt_est":
+        assert meta["class"].startswith("org.apache.spark.ml.")
+    assert sorted(os.listdir(tmp_path / "port")) == sorted(
+        os.listdir(tmp_path / "jax"))
+
+
+@pytest.mark.parametrize("family", TREE_MODELS)
+def test_tree_models_load_in_either_package(tmp_path, family):
+    """A forest, a decision tree and a GBT model saved by either package
+    load in the other and predict what the writer predicts (float64,
+    within 1e-12). The JAX package's tree readers build the class its
+    metadata names, so a port-saved directory loads there as the port's
+    class, as the pipeline does; with ``pythonClass`` pointed at the JAX
+    class the same payload builds the JAX package's own model."""
+    import json
+
+    import spark_rapids_ml_tpu as jax_pkg
+
+    x, _ = _xy(seed=1)
+    port, jax_model = _fitted(family), _jax_fitted(family)
+    port.save(str(tmp_path / "port"))
+    jax_model.save(str(tmp_path / "jax"))
+    # JAX-written → the port's load_model
+    loaded = load_model(str(tmp_path / "jax"))
+    assert type(loaded).__module__.startswith("spark_rapids_ml_tpu_torch.")
+    for got, want in zip(_tree_predictions(loaded, x),
+                         _tree_predictions(jax_model, x)):
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
+    # port-written → the JAX class's reader
+    jax_cls = getattr(jax_pkg, type(port).__name__)
+    back = jax_cls.load(str(tmp_path / "port"))
+    assert type(back) is type(port)
+    _same(back, port)
+    meta_path = tmp_path / "port" / "metadata" / "part-00000"
+    meta = json.loads(meta_path.read_text())
+    meta["pythonClass"] = f"{jax_cls.__module__}.{jax_cls.__name__}"
+    meta_path.write_text(json.dumps(meta))
+    back = jax_cls.load(str(tmp_path / "port"))
+    assert type(back) is jax_cls
+    for got, want in zip(_tree_predictions(back, x),
+                         _tree_predictions(port, x)):
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
 
 
 def test_linear_regression_warms_without_n_features():
