@@ -506,10 +506,37 @@ Phases (any failure raises and the script exits non-zero):
     the CPU: the classifier's trees identical, the regressor's predictions
     within 1e-9 (trees that differ counted). (vii) A forest, a tree and a
     GBT model saved, loaded through ``load_model``, transform bit-equal.
+21. The Spark statistics plane (``spark/{aggregate,device_aggregate,
+    estimator}.py``) on the card: the executor partials on numpy batches
+    (the non-Arrow branch; the card's machine has neither pandas nor
+    pyarrow) and the driver's combines and finalizers, with
+    ``executor_device_available()`` true and ``'auto'`` taking the device
+    plane. (i) PCA on fit (a)'s rows as 4 partitions (65,536 × 3 and a
+    ragged 65,535): ``partition_gram_stats_device`` → ``combine_stats`` →
+    ``finalize_pca_from_stats(k=256, use_xla_svd=True)``, ≥ 1 Gram launch a
+    partition, the combined Gram within 1e-4 of the host float64 plane's,
+    the model held at §2's fit bars to the host float64 plane's and to the
+    port's ``PCA().setK(256).fit`` on the same rows; a partition's device
+    ms, its row's ``tolist`` ms and the driver's combine and finalize ms.
+    (ii) LinearRegression on phase 14's 4 chunks (Z 4097 wide) through
+    ``partition_xy_stats_device`` → ``solve_linreg_from_stats``: partition
+    0's Z Gram within 1e-4 of the host plane's (the host plane cut to
+    that partition), the solve within 1e-4 of float64 normal equations on
+    the card and of the streamed ``LinearRegression``.
+    (iii) The front end's Newton loop, binary on phase 16's design (4 ×
+    16,384 × 4096, maxIter 3: cut), exactly 4 highest launches an
+    iteration, each iterate within 1e-4 of the host plane's; multinomial
+    K = 4 at 256 features, 10 highest launches a partition, [W | b] less
+    its class mean within 1e-4 and probabilities within 2e-3. (iv) KMeans
+    on phase 15's blobs as 8 partitions, k = 64, 5 iterations: counts equal
+    to the host plane's but at recorded near-ties, sums within 1e-6, cost
+    within 1e-5, no Gram launch. (v) The PCA and LogisticRegression
+    transforms' UDF bodies on 4096 rows against the port's
+    ``model.transform``.
 
 Then one JSON line ``{"stage_bodies": [...]}``, one ``{"knn_dbscan":
 {...}}`` (phase 19's numbers), one ``{"trees": {...}}`` (phase 20's),
-one ``{"kernels": [...]}``
+one ``{"spark_plane": {...}}`` (phase 21's), one ``{"kernels": [...]}``
 (each kernel with its launches per phase and, under ``extra_shapes``,
 phase 3's timings of phase 14's shapes and phases 16 and 18's Hessians),
 the card's name and power limit, and last ``{"ok": true, "device":
@@ -7022,6 +7049,390 @@ def phase_trees(torch, fg, device):
     log(f"  phase 20 launches {launched}; {summary['seconds']:.1f} s")
     return summary
 
+# -- phase 21: the Spark statistics plane on the card ------------------------
+
+PLANE_PCA_ROWS = (CHUNK_ROWS, CHUNK_ROWS, CHUNK_ROWS, CHUNK_ROWS - 1)
+PLANE_LR_PARTITIONS = 4        # (ii): phase 14's 4 chunks of CHUNK_ROWS
+PLANE_LOGREG_ROWS = 16_384     # (iii): rows of each of 4 partitions
+PLANE_LOGREG_ITER = 3          # Newton iterations (cut from maxIter 25)
+PLANE_MN_FEATURES = 256        # (iii) multinomial: phase 16 (ii)'s width
+PLANE_KM_PARTITIONS = 8        # (iv): phase 15's blobs in 8 partitions
+PLANE_KM_ITER = 5              # Lloyd iterations through the plane
+PLANE_UDF_ROWS = 4096          # (v)
+PLANE_TIE_RTOL = 1e-5          # a row's two nearest centres within: a tie
+PLANE_SUM_RTOL = 1e-6          # cluster sums: float64 sums rounded once
+PLANE_GRAM_RTOL = 1e-4         # a bfloat16_3x Gram partial vs float64
+
+
+def plane_rel(got, want) -> float:
+    got = np.asarray(got, dtype=np.float64)
+    want = np.asarray(want, dtype=np.float64)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def plane_pca_bars(label, pc, evr, ref_pc, ref_evr):
+    """PERF.md §2's fit bars: |cos| over the top 64, EVR relative."""
+    cos = np.abs(np.sum(pc * ref_pc, axis=0))
+    evr_rel = np.abs(evr - ref_evr) / np.abs(ref_evr)
+    log(f"    {label}: |cos| min over top {TOP_COMPONENTS} "
+        f"{cos[:TOP_COMPONENTS].min():.6f} (bar {COS_BAR}); EVR max rel "
+        f"err top {TOP_COMPONENTS} {evr_rel[:TOP_COMPONENTS].max():.3e} "
+        f"(bar {EVR_RTOL:g})")
+    check(np.isfinite(pc).all() and pc.shape == ref_pc.shape,
+          f"{label}: components finite, shape {pc.shape}")
+    check(cos[:TOP_COMPONENTS].min() >= COS_BAR, f"{label}: |cos|")
+    check(evr_rel[:TOP_COMPONENTS].max() <= EVR_RTOL, f"{label}: EVR")
+
+
+def phase_plane(torch, fg, device):
+    """Phase 21: the Spark statistics plane's executor partials and driver
+    finalizers on the card, on numpy batches (the non-Arrow branch: the
+    card's machine has neither pandas nor pyarrow). Returns ({kernel:
+    launches}, a summary for the JSON line)."""
+    from spark_rapids_ml_tpu_torch import LinearRegression, PCA
+    from spark_rapids_ml_tpu_torch.models.kmeans import _host_kmeans_pp
+    from spark_rapids_ml_tpu_torch.models.logistic_regression import (
+        LogisticRegressionModel,
+    )
+    from spark_rapids_ml_tpu_torch.models.pca import PCAModel
+    from spark_rapids_ml_tpu_torch.ops.covariance import (
+        default_gram_precision,
+    )
+    from spark_rapids_ml_tpu_torch.ops.logreg_kernel import (
+        assemble_multinomial_system,
+    )
+    from spark_rapids_ml_tpu_torch.spark import aggregate as agg
+    from spark_rapids_ml_tpu_torch.spark import device_aggregate as dev
+    from spark_rapids_ml_tpu_torch.spark import estimator as est
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi_line()
+    launched = {}
+    summary = {"card": smi}
+
+    laps = {}
+    t_lap = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        laps[name] = now - t_lap[0]
+        t_lap[0] = now
+        log(f"    ({name}) {laps[name]:.1f} s")
+
+    def run(label, fn):
+        """fn() with the counts set to 0 just before and read just after;
+        adds them to the phase's. Returns (result, {kernel: launches},
+        seconds)."""
+        torch.cuda.synchronize()
+        fg.reset_launches()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = {k: v for k, v in fg.launches.items() if v}
+        for name, count in counts.items():
+            launched[name] = launched.get(name, 0) + count
+        log(f"    {label}: {seconds:.3f} s (host clock), launches {counts}")
+        return result, counts, seconds
+
+    # the plane chooser on the card
+    check(dev.executor_device_available(),
+          "executor_device_available() is false on the card")
+    stats = est._select_stats_plane("auto", lambda b: "device",
+                                    lambda b: "host")
+    check(stats([]) == "device", "'auto' did not take the device plane")
+    precision = default_gram_precision()
+    log(f"  executor_device_available() True; 'auto' takes the device "
+        f"plane; the Gram partials run at {precision} (the default "
+        f"TPUML_GRAM_PRECISION), the logreg Hessians at highest")
+    gram_kernel = fg.kernel_name(None)
+    highest = fg.kernel_name("highest")
+
+    # (i) PCA at the north-star width: fit (a)'s rows, the last ragged
+    parts = [chunk(torch, device, i)[:rows]
+             for i, rows in enumerate(PLANE_PCA_ROWS)]
+    log(f"  (i) PCA: {len(parts)} partitions of {PLANE_PCA_ROWS} x "
+        f"{N_FEATURES} (fit (a)'s rows, the last one ragged), k = {K}")
+    t0 = time.perf_counter()
+    stats0 = dev._device_gram_accumulate([parts[0]], device, torch.float32)
+    torch.cuda.synchronize()
+    device_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    dev._gram_stats_row(stats0)
+    tolist_ms = (time.perf_counter() - t0) * 1e3
+    del stats0
+    rows, counts, part_s = run(
+        "partition_gram_stats_device x 4",
+        lambda: [r for p in parts
+                 for r in dev.partition_gram_stats_device([p], "features")])
+    check(counts.get(gram_kernel, 0) >= len(parts),
+          f"(i) {counts} launches: fewer Gram launches than partitions")
+    t0 = time.perf_counter()
+    combined = agg.combine_stats(rows)
+    combine_ms = (time.perf_counter() - t0) * 1e3
+    (pc, evr, mean), _, fin_s = run(
+        f"finalize_pca_from_stats(k={K}, use_xla_svd=True)",
+        lambda: agg.finalize_pca_from_stats(*combined, K, use_xla_svd=True))
+    check(combined[2] == sum(PLANE_PCA_ROWS), f"(i) count {combined[2]}")
+    log(f"    partition 0: device (H2D + Gram + sync) {device_ms:.1f} ms, "
+        f"row .tolist() (D2H + list of {N_FEATURES ** 2:,} floats) "
+        f"{tolist_ms:.1f} ms; driver combine_stats of 4 rows "
+        f"{combine_ms:.1f} ms, finalize {fin_s * 1e3:.1f} ms")
+    summary["pca_split_ms"] = {"partition_device": device_ms,
+                               "partition_tolist": tolist_ms,
+                               "combine": combine_ms,
+                               "finalize": fin_s * 1e3,
+                               "four_partitions": part_s * 1e3}
+    t0 = time.perf_counter()
+    host_rows = [r for p in parts for r in agg.partition_gram_stats([p], "f")]
+    host_s = time.perf_counter() - t0
+    host = agg.combine_stats(host_rows)
+    del host_rows
+    gram_err = plane_rel(combined[0], host[0])
+    log(f"    host float64 plane: {host_s:.2f} s for 4 partitions; Gram "
+        f"max |Δ| / max |G| {gram_err:.3e}, col_sum "
+        f"{plane_rel(combined[1], host[1]):.3e}, count {host[2]}")
+    check(host[2] == combined[2], "(i) host and device counts")
+    check(gram_err <= PLANE_GRAM_RTOL, f"(i) Gram vs host {gram_err:.3e}")
+    hpc, hevr, _ = agg.finalize_pca_from_stats(*host, K, use_xla_svd=True)
+    plane_pca_bars("device plane vs host float64 plane", pc, evr, hpc, hevr)
+    model, _, fit_s = run(f"port PCA().setK({K}).fit on the same rows",
+                          lambda: PCA().setK(K).fit(lambda: iter(parts)))
+    plane_pca_bars("device plane vs the port's PCA fit", pc, evr, model.pc,
+                   model.explained_variance)
+    summary["pca"] = {"gram_rel_err_vs_host": gram_err,
+                      "host_plane_s": host_s}
+    del host, combined, rows
+
+    lap("i")
+
+    # (ii) LinearRegression: phase 14's Gaussian design, Z width 4097.
+    # The host plane is cut to partition 0's partial: all 4 partitions take
+    # ~30 s of host float64 GEMM and list rows on the card's machine
+    # (PERF.md), and (i) already holds the full host plane. The solve is
+    # held to the same float64 normal equations computed on the card.
+    # float32 labels keep the streamed fit's Z float32.
+    coef = planted_coefficients(torch, device)
+    chunks = [linreg_chunk(torch, device, i, coef, label_dtype=np.float32)
+              for i in range(PLANE_LR_PARTITIONS)]
+    log(f"  (ii) LinearRegression: {PLANE_LR_PARTITIONS} partitions of "
+        f"{CHUNK_ROWS:,} x {N_FEATURES} (phase 14's design), Z = [X | y] "
+        f"{N_FEATURES + 1} wide")
+    rows, counts, _ = run(
+        "partition_xy_stats_device x 4",
+        lambda: [r for c in chunks
+                 for r in dev.partition_xy_stats_device([c], "f", "l")])
+    check(counts.get(gram_kernel, 0) >= len(chunks), f"(ii) {counts}")
+    plane_fit = agg.solve_linreg_from_stats(*agg.combine_stats(rows))
+    t0 = time.perf_counter()
+    host_row = next(agg.partition_xy_stats([chunks[0]], "f", "l"))
+    host_s = time.perf_counter() - t0
+    z_err = plane_rel(rows[0]["gram"], host_row["gram"])
+    del host_row, rows
+    oracle = oracle_solve(torch, oracle_moments(torch, device, chunks))
+    streamed, _, _ = run("port LinearRegression streamed over the chunks",
+                         lambda: LinearRegression().fit(lambda: iter(chunks)))
+    err_oracle = linreg_error(*plane_fit, oracle)
+    err_stream = linreg_error(*plane_fit, (streamed.coefficients,
+                                           streamed.intercept))
+    log(f"    host float64 plane, partition 0: {host_s:.2f} s, Z Gram max "
+        f"|Δ| / max |G| {z_err:.3e}; solve vs float64 normal equations "
+        f"{err_oracle:.3e}, vs the streamed LinearRegression "
+        f"{err_stream:.3e} (bar {LINREG_RTOL:g})")
+    check(z_err <= PLANE_GRAM_RTOL, f"(ii) partition 0's Z Gram {z_err:.3e}")
+    check(err_oracle <= LINREG_RTOL, f"(ii) vs float64 {err_oracle:.3e}")
+    check(err_stream <= LINREG_RTOL, f"(ii) vs streamed {err_stream:.3e}")
+    summary["linreg"] = {"z_gram_rel_err_vs_host": z_err,
+                         "vs_float64": err_oracle, "vs_streamed": err_stream}
+    del chunks
+
+    lap("ii")
+
+    # (iii) LogisticRegression: the front end's driver loop, both planes
+    rng = np.random.default_rng(SEED + 1600)
+    n = N_FEATURES
+    w_star = rng.normal(scale=LR_SCALE / np.sqrt(n), size=n)
+    lparts = []
+    for i in range(4):
+        x_dev = logreg_design(torch, device, i)[:PLANE_LOGREG_ROWS]
+        lparts.append((x_dev.cpu().numpy(),
+                       binary_labels(torch, x_dev, w_star, rng)))
+        del x_dev
+    log(f"  (iii) LogisticRegression binary: 4 partitions of "
+        f"{PLANE_LOGREG_ROWS:,} x {n} (phase 16's design and labels), "
+        f"maxIter {PLANE_LOGREG_ITER} (cut from 25)")
+    w_d, b_d = np.zeros(n), 0.0
+    w_h, b_h = np.zeros(n), 0.0
+    errs = []
+    for it in range(1, PLANE_LOGREG_ITER + 1):
+        rows, counts, _ = run(
+            f"iteration {it}: partition_logreg_stats_device x 4",
+            lambda: [r for p in lparts for r in
+                     dev.partition_logreg_stats_device([p], "f", "l", w_d,
+                                                       b_d)])
+        check(counts == {highest: 4},
+              f"(iii) iteration {it}: launches {counts}, expected 4 "
+              f"highest")
+        g = agg.combine_logreg_stats(rows)
+        w_d, b_d, _ = agg.logreg_newton_step_from_stats(*g[:5], g[6], w_d,
+                                                        b_d)
+        t0 = time.perf_counter()
+        g = agg.combine_logreg_stats(
+            [r for p in lparts
+             for r in agg.partition_logreg_stats([p], "f", "l", w_h, b_h)])
+        w_h, b_h, step = agg.logreg_newton_step_from_stats(*g[:5], g[6], w_h,
+                                                           b_h)
+        host_s = time.perf_counter() - t0
+        err = linreg_error(w_d, b_d, (w_h, b_h))
+        errs.append(err)
+        log(f"    iteration {it}: (w, b) vs the host float64 plane's "
+            f"{err:.3e} (bar {LOGREG_RTOL:g}); host plane {host_s:.2f} s, "
+            f"host step {step:.3e}")
+        check(err <= LOGREG_RTOL, f"(iii) iteration {it}: {err:.3e}")
+    summary["logreg"] = {"iterate_errors": errs}
+    # multinomial at 256 features, K = 4
+    ns = PLANE_MN_FEATURES
+    w_s = rng.normal(scale=LR_SCALE / np.sqrt(ns), size=(LR_K, ns))
+    b_k = rng.normal(size=LR_K)
+    mparts = []
+    for x, _ in lparts:
+        xs = np.ascontiguousarray(x[:, :ns])
+        mparts.append((xs, class_labels(
+            torch, torch.as_tensor(xs, device=device), w_s, b_k, rng)))
+    classes = np.arange(LR_K, dtype=np.float64)
+    dim = ns + 1
+    k_blocks = LR_K * (LR_K + 1) // 2
+    wb_d = np.zeros((LR_K, dim))
+    wb_h = np.zeros((LR_K, dim))
+
+    def newton_step(rows, wb):
+        gxa, h_raw, _, count = agg.combine_multinomial_stats(rows, LR_K, dim)
+        g, h = assemble_multinomial_system(
+            torch.as_tensor(gxa), torch.as_tensor(h_raw), float(count),
+            torch.as_tensor(wb), 0.0, True)
+        return wb - np.linalg.solve(h.numpy(), g.numpy().reshape(-1)) \
+            .reshape(LR_K, dim)
+
+    def gauge_free_wb(wb):
+        return wb - wb.mean(axis=0, keepdims=True)
+
+    mn_errs = []
+    for it in range(1, PLANE_LOGREG_ITER + 1):
+        rows, counts, _ = run(
+            f"multinomial iteration {it}: "
+            f"partition_multinomial_stats_device x 4",
+            lambda: [r for p in mparts for r in
+                     dev.partition_multinomial_stats_device(
+                         [p], "f", "l", classes, wb_d)])
+        check(counts == {highest: 4 * k_blocks},
+              f"(iii) multinomial iteration {it}: {counts}")
+        wb_d = newton_step(rows, wb_d)
+        wb_h = newton_step(
+            [r for p in mparts for r in agg.partition_multinomial_stats(
+                [p], "f", "l", classes, wb_h)], wb_h)
+        err = plane_rel(gauge_free_wb(wb_d), gauge_free_wb(wb_h))
+        mn_errs.append(err)
+        log(f"    multinomial iteration {it}: [W | b] less its class mean "
+            f"vs the host plane's {err:.3e} (bar {MN_PLAIN_RTOL:g})")
+        check(err <= MN_PLAIN_RTOL, f"(iii) multinomial {it}: {err:.3e}")
+    xs_all = np.concatenate([p[0] for p in mparts]).astype(np.float64)
+    p_d = est._multinomial_probability(xs_all, wb_d[:, :ns], wb_d[:, ns])
+    p_h = est._multinomial_probability(xs_all, wb_h[:, :ns], wb_h[:, ns])
+    dp = float(np.abs(p_d - p_h).max())
+    log(f"    multinomial probabilities max |Δ| {dp:.3e} (bar "
+        f"{MN_PROBA_ATOL:g})")
+    check(dp <= MN_PROBA_ATOL, f"(iii) multinomial probabilities {dp:.3e}")
+    summary["multinomial"] = {"iterate_errors": mn_errs, "proba_max": dp}
+    del mparts, xs_all
+
+    lap("iii")
+
+    # (iv) KMeans: phase 15's blobs in 8 partitions, k = 64
+    x_km, _ = km_blobs(torch, device)
+    kparts = np.array_split(x_km, PLANE_KM_PARTITIONS)
+    sample = x_km[:max(4096, 8 * KM_K)]
+    centers = _host_kmeans_pp(sample, KM_K, np.random.default_rng(SEED))
+    log(f"  (iv) KMeans: {KM_ROWS:,} x {KM_FEATURES} blobs in "
+        f"{PLANE_KM_PARTITIONS} partitions, k = {KM_K} (k-means++ on the "
+        f"first {len(sample)} rows, as the front end's sample), "
+        f"{PLANE_KM_ITER} plane iterations")
+    km_ties = 0
+    for it in range(1, PLANE_KM_ITER + 1):
+        rows, counts, _ = run(
+            f"iteration {it}: partition_kmeans_stats_device x "
+            f"{PLANE_KM_PARTITIONS}",
+            lambda: [r for p in kparts for r in
+                     dev.partition_kmeans_stats_device([p], "f", centers)])
+        check(not counts, f"(iv) the KMeans partial launched {counts}")
+        sums, cnt, cost, seen = agg.combine_kmeans_stats(rows, KM_K,
+                                                         KM_FEATURES)
+        t0 = time.perf_counter()
+        h_rows = [r for p in kparts
+                  for r in agg.partition_kmeans_stats([p], "f", centers)]
+        h_sums, h_cnt, h_cost, h_seen = agg.combine_kmeans_stats(
+            h_rows, KM_K, KM_FEATURES)
+        host_s = time.perf_counter() - t0
+        moved = int(np.abs(cnt - h_cnt).sum())
+        ties = 0
+        if moved:
+            c2 = (centers * centers).sum(axis=1)[None, :]
+            for p in kparts:
+                d = (p * p).sum(axis=1)[:, None] + c2 - 2.0 * (p @ centers.T)
+                two = np.partition(d, 1, axis=1)[:, :2]
+                ties += int(np.sum(two[:, 1] - two[:, 0]
+                                   <= PLANE_TIE_RTOL * two[:, 1]))
+        km_ties += ties
+        sum_err = plane_rel(sums, h_sums)
+        cost_err = abs(cost / h_cost - 1.0)
+        log(f"    iteration {it}: counts differ on {moved} rows (near-ties "
+            f"{ties}); sums max |Δ| / max |Σ| {sum_err:.3e} (bar "
+            f"{PLANE_SUM_RTOL:g}); cost rel {cost_err:.3e} (bar "
+            f"{KM_COST_RTOL:g}); rows {seen}; host plane {host_s:.2f} s")
+        check(seen == h_seen == KM_ROWS, "(iv) rows seen")
+        check(moved <= 2 * ties, f"(iv) iteration {it}: {moved} count "
+              f"moves beyond {ties} near-ties")
+        check(sum_err <= PLANE_SUM_RTOL, f"(iv) sums {sum_err:.3e}")
+        check(cost_err <= KM_COST_RTOL, f"(iv) cost {cost_err:.3e}")
+        centers = np.where(cnt[:, None] > 0,
+                           sums / np.maximum(cnt, 1e-300)[:, None], centers)
+    summary["kmeans"] = {"near_ties": km_ties}
+    del x_km, kparts
+
+    lap("iv")
+
+    # (v) the transforms' pandas_udf bodies on 4096 rows
+    x_udf = chunk(torch, device, 40, rows=PLANE_UDF_ROWS)
+    (proj, _, udf_s) = run("PCAModel body _project_pca on the card",
+                           lambda: est._project_pca(x_udf, pc, True))
+    local = PCAModel.from_numpy(pc, evr, mean)
+    want = np.asarray(local.transform(x_udf).column("pca_features"))
+    pca_err = plane_rel(proj, want)
+    log(f"    PCA body vs the port's PCAModel.transform: {pca_err:.3e} "
+        f"(bar {TRANSFORM_RTOL:g}), {udf_s * 1e3:.2f} ms")
+    check(pca_err <= TRANSFORM_RTOL, f"(v) PCA body {pca_err:.3e}")
+    x_lr = lparts[0][0][:PLANE_UDF_ROWS]
+    prob = est._logreg_probability(x_lr.astype(np.float64), w_d, b_d)
+    lr_model = LogisticRegressionModel(coefficients=w_d, intercept=b_d)
+    want = np.asarray(lr_model.transform(x_lr).column("probability"))
+    lr_err = plane_rel(prob, want)
+    log(f"    LogisticRegressionModel body (host float64, as the JAX "
+        f"front end's) vs the port's model.transform on the card: "
+        f"{lr_err:.3e} (bar {LR_SERVED_RTOL:g})")
+    check(lr_err <= LR_SERVED_RTOL, f"(v) logreg body {lr_err:.3e}")
+    summary["udf"] = {"pca": pca_err, "logreg": lr_err}
+    lap("v")
+    summary["section_s"] = laps
+
+    check(launched.get(gram_kernel, 0) > 0 and launched.get(highest, 0) > 0,
+          f"phase 21 launches {launched}: the partials' Gram and Hessian "
+          f"kernels must both run")
+    seconds = time.perf_counter() - t_phase
+    summary["seconds"] = seconds
+    summary["launches"] = launched
+    log(f"  phase 21 {seconds:.1f} s, launches {launched}; {smi}")
+    return launched, summary
+
+
 def build_fresh(cuda_build):
     """Build the Gram library anew, so ``ptxas -v`` reports on it."""
     path = cuda_build.library_path("fused_gram")
@@ -7155,6 +7566,9 @@ def main() -> int:
     log("[20] the tree family")
     tree_summary = phase_trees(torch, fg, device)
 
+    log("[21] the Spark statistics plane on the card")
+    plane_launches, plane_summary = phase_plane(torch, fg, device)
+
     kernels = []
     for name, m in measured.items():
         check(launches.get(name, 0) > 0, f"{name} not launched on the main path")
@@ -7165,7 +7579,8 @@ def main() -> int:
                     "16": logreg_launches.get(name, 0),
                     "17": stage_launches.get(name, 0),
                     "18": linear_launches.get(name, 0),
-                    "19": 0, "20": 0}
+                    "19": 0, "20": 0,
+                    "21": plane_launches.get(name, 0)}
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES, "launches": sum(by_phase.values()),
@@ -7179,6 +7594,7 @@ def main() -> int:
     print(json.dumps({"stage_bodies": stage_timings}))
     print(json.dumps({"knn_dbscan": knn_summary}))
     print(json.dumps({"trees": tree_summary}))
+    print(json.dumps({"spark_plane": plane_summary}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -67,6 +67,15 @@ from spark_rapids_ml_tpu_torch.utils.timing import PhaseTimer
 from spark_rapids_ml_tpu_torch.utils.tracing import TraceColor, TraceRange
 
 
+
+def _check_offset(offset: np.ndarray) -> None:
+    """Reject a non-finite offset, as a NaN weight is rejected
+    (``models/params.py::_extract_weights``): it would otherwise carry
+    NaN through η into every IRLS pass and give NaN coefficients without
+    an error. The JAX package takes the offset unchecked."""
+    if not np.isfinite(offset).all():
+        raise ValueError("offset must be finite")
+
 class GeneralizedLinearRegressionParams(HasInputCol, HasDeviceId,
                                         HasWeightCol):
     labelCol = Param("labelCol", "label column name", "label")
@@ -230,6 +239,7 @@ class GeneralizedLinearRegression(GeneralizedLinearRegressionParams):
             np.asarray(frame.column(offset_col), dtype=np.float64).reshape(-1)
             if offset_col else np.zeros(x.shape[0])
         )
+        _check_offset(offset)
         if self.getUseXlaDot():
             step = self._make_device_stepper(x, y, w, offset, family, link,
                                              var_power, link_power)

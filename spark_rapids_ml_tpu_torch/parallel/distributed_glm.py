@@ -91,6 +91,7 @@ def distributed_glm_fit(
     every other GLM path produces, with its summary surface populated)."""
     from spark_rapids_ml_tpu_torch.models.glm import (
         GeneralizedLinearRegression,
+        _check_offset,
     )
     from spark_rapids_ml_tpu_torch.utils.timing import PhaseTimer
 
@@ -129,6 +130,7 @@ def distributed_glm_fit(
         # _extract_weights — a NaN weight would otherwise all-reduce into
         # silently-NaN coefficients (and √W must be real for the kernel)
         raise ValueError("weights must be finite and non-negative")
+    _check_offset(o)
 
     n_dev = axis_size(mesh, DATA_AXIS)
     x_padded, _mask = pad_rows_to_multiple(x_host, n_dev)

@@ -1,0 +1,861 @@
+"""Executor-side partition aggregation: Arrow batches → sufficient statistics.
+
+The data-plane core of the Spark integration, kept free of any ``pyspark``
+import so it is unit-testable anywhere and ships to executors as plain
+functions. Mirrors the reference's per-partition covariance kernel
+(``RapidsRowMatrix.scala:168-202``: center rows → one GEMM per partition →
+driver-side reduce of n×n partials), with two changes:
+
+* ingestion is Arrow columnar batches (Spark's ``mapInArrow``), densified
+  without a JVM round-trip per row;
+* the per-partition payload is the ONE-PASS sufficient-statistics triple
+  (Σxxᵀ, Σx, n) rather than a centered Gram, so no global mean broadcast
+  pass is needed before partition work — the driver combines partials and
+  finalizes ``(G − n·μμᵀ)/(n−1)``.
+
+This module is the HOST plane: executor-CPU NumPy float64, exact enough
+that the one-pass cancellation hazard of float32 does not bite, with no
+device requirement on the workers. ``spark/device_aggregate.py`` is the
+plane on each executor's card.
+
+The port's copy of the JAX package's ``spark/aggregate.py``, the same
+operations in the same order: the Gram, Z = [X | y] and LinearRegression's
+solve, the binary and multinomial LogisticRegression partials, the
+label-value pass, KMeans, the NaiveBayes partials and
+``finalize_nb_from_stats``, ``combine_stats`` and
+``finalize_pca_from_stats``. The moments, SVC, GLM, GMM, feature-sample,
+imputer, LDA and bisecting partials are not ported yet (ROADMAP queue 1).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterable, Iterator, Optional, Tuple
+
+import numpy as np
+
+from spark_rapids_ml_tpu_torch.utils.numeric import sigmoid as _sigmoid
+
+from spark_rapids_ml_tpu_torch.data.vector import rows_to_matrix
+
+# Spark VectorUDT struct tags (pyspark.ml.linalg.VectorUDT.serialize)
+_SPARSE, _DENSE = 0, 1
+
+
+def vector_column_to_matrix(column, n_features: Optional[int] = None) -> np.ndarray:
+    """Densify one Arrow (or pylist) VectorUDT column to an (m, n) matrix.
+
+    Handles dense rows (type=1: values), sparse rows (type=0: size, indices,
+    values), plain list rows, and mixed encodings — the dense/sparse
+    equivalence contract of ``PCASuite.scala:155-190``.
+    """
+    if hasattr(column, "to_pylist"):
+        column = column.to_pylist()
+    rows = []
+    for entry in column:
+        if entry is None:
+            raise ValueError("null vector row in input column")
+        if isinstance(entry, dict):
+            if entry.get("type") == _DENSE or (
+                entry.get("type") is None and entry.get("indices") is None
+            ):
+                rows.append(np.asarray(entry["values"], dtype=np.float64))
+            elif entry.get("type") == _SPARSE:
+                size = int(entry["size"])
+                dense = np.zeros(size)
+                idx = np.asarray(entry["indices"], dtype=np.int64)
+                dense[idx] = np.asarray(entry["values"], dtype=np.float64)
+                rows.append(dense)
+            else:
+                raise ValueError(f"unrecognized vector struct: {entry!r}")
+        else:
+            rows.append(np.asarray(entry, dtype=np.float64).reshape(-1))
+    if not rows:
+        return np.zeros((0, n_features or 0))
+    return rows_to_matrix(rows)
+
+
+def _batch_weights_agg(batch, weight_col: Optional[str]):
+    """Validated weightCol values for one batch (None when unweighted).
+    Raises for non-Arrow test batches rather than silently fitting
+    unweighted — the tuple/array forms carry no named columns."""
+    if not weight_col:
+        return None
+    if not hasattr(batch, "column"):
+        raise ValueError(
+            "weight_col requires Arrow batches with named columns; "
+            "plain (x, y) tuple batches cannot carry weights"
+        )
+    wt = np.asarray(batch.column(weight_col).to_pylist(),
+                    dtype=np.float64).reshape(-1)
+    if not np.isfinite(wt).all() or (wt < 0).any():
+        raise ValueError("weights must be finite and non-negative")
+    return wt
+
+
+def partition_gram_stats(
+    batches: Iterable, input_col: str
+) -> Iterator[Dict[str, object]]:
+    """One partition's (Σxxᵀ, Σx, n) from an iterator of Arrow batches.
+
+    Shaped for ``DataFrame.mapInArrow``: consumes ``pyarrow.RecordBatch``es,
+    yields exactly one stats row (Gram flattened row-major). Also accepts an
+    iterable of plain (m, n) arrays for testing / non-Spark use.
+    """
+    gram: Optional[np.ndarray] = None
+    col_sum: Optional[np.ndarray] = None
+    count = 0
+    for batch in batches:
+        if hasattr(batch, "column"):
+            x = vector_column_to_matrix(batch.column(input_col))
+        else:
+            x = np.asarray(batch, dtype=np.float64)
+        if x.shape[0] == 0:
+            continue
+        if gram is None:
+            n = x.shape[1]
+            gram = np.zeros((n, n))
+            col_sum = np.zeros(n)
+        gram += x.T @ x
+        col_sum += x.sum(axis=0)
+        count += x.shape[0]
+    if gram is None:
+        return
+    yield {
+        "gram": gram.ravel().tolist(),
+        "col_sum": col_sum.tolist(),
+        "count": count,
+    }
+
+
+def partition_gram_stats_arrow(batches, input_col: str):
+    """``mapInArrow`` adapter: yields the stats row as an Arrow RecordBatch
+    (schema ``stats_arrow_schema()``). Empty partitions yield nothing — the
+    driver-side combine treats them as zero."""
+    import pyarrow as pa
+
+    for row in partition_gram_stats(batches, input_col):
+        yield pa.RecordBatch.from_pylist([row], schema=stats_arrow_schema())
+
+
+def stats_arrow_schema():
+    import pyarrow as pa
+
+    return pa.schema(
+        [
+            ("gram", pa.list_(pa.float64())),
+            ("col_sum", pa.list_(pa.float64())),
+            ("count", pa.float64()),  # Σw (= row count unweighted)
+        ]
+    )
+
+
+def stats_spark_ddl() -> str:
+    """The same schema as a Spark DDL string (mapInArrow's schema arg)."""
+    return "gram array<double>, col_sum array<double>, count double"
+
+
+def partition_xy_stats(
+    batches: Iterable, features_col: str, label_col: str,
+    weight_col: Optional[str] = None,
+) -> Iterator[Dict[str, object]]:
+    """One partition's sufficient statistics over Z = [X | y].
+
+    Shaped for ``mapInArrow`` on a (features, label[, weight]) selection;
+    the (n+1)² Gram of Z carries XᵀX, Xᵀy and yᵀy at once — the same
+    augmented-column trick the local streamed LinearRegression uses.
+    With ``weight_col`` every statistic is the weighted sum (Σw·zzᵀ,
+    Σw·z, Σw) — weighted least squares."""
+    gram: Optional[np.ndarray] = None
+    col_sum: Optional[np.ndarray] = None
+    count = 0.0
+    for batch in batches:
+        if hasattr(batch, "column"):
+            x = vector_column_to_matrix(batch.column(features_col))
+            y = np.asarray(batch.column(label_col).to_pylist(),
+                           dtype=np.float64)
+        else:
+            x, y = batch
+            x = np.asarray(x, dtype=np.float64)
+            y = np.asarray(y, dtype=np.float64)
+        if x.shape[0] == 0:
+            continue
+        wt = _batch_weights_agg(batch, weight_col)
+        z = np.concatenate([x, y.reshape(-1, 1)], axis=1)
+        if gram is None:
+            nz = z.shape[1]
+            gram = np.zeros((nz, nz))
+            col_sum = np.zeros(nz)
+        if wt is None:
+            gram += z.T @ z
+            col_sum += z.sum(axis=0)
+            count += z.shape[0]
+        else:
+            gram += z.T @ (z * wt[:, None])
+            col_sum += (z * wt[:, None]).sum(axis=0)
+            count += float(wt.sum())
+    if gram is None:
+        return
+    yield {
+        "gram": gram.ravel().tolist(),
+        "col_sum": col_sum.tolist(),
+        "count": count,
+    }
+
+
+def partition_xy_stats_arrow(batches, features_col: str, label_col: str,
+                             weight_col: Optional[str] = None):
+    import pyarrow as pa
+
+    for row in partition_xy_stats(batches, features_col, label_col,
+                                  weight_col=weight_col):
+        yield pa.RecordBatch.from_pylist([row], schema=stats_arrow_schema())
+
+
+def solve_linreg_from_stats(
+    gram: np.ndarray,
+    col_sum: np.ndarray,
+    count: int,
+    reg_param: float = 0.0,
+    fit_intercept: bool = True,
+) -> Tuple[np.ndarray, float]:
+    """Normal-equations solve from combined Z=[X|y] statistics — identical
+    math to the local streamed fit (``models/linear_regression.py``)."""
+    if count < 1:
+        raise ValueError("empty dataset")
+    n = col_sum.shape[0] - 1
+    gxx, gxy = gram[:n, :n], gram[:n, n]
+    if fit_intercept:
+        mu = col_sum / count
+        mu_x, mu_y = mu[:n], mu[n]
+        a = gxx / count - np.outer(mu_x, mu_x)
+        b = gxy / count - mu_x * mu_y
+        coef = np.linalg.solve(a + reg_param * np.eye(n), b)
+        return coef, float(mu_y - mu_x @ coef)
+    coef = np.linalg.solve(gxx / count + reg_param * np.eye(n), gxy / count)
+    return coef, 0.0
+
+
+def partition_logreg_stats(
+    batches: Iterable,
+    features_col: str,
+    label_col: str,
+    w: np.ndarray,
+    b: float,
+    weight_col: Optional[str] = None,
+) -> Iterator[Dict[str, object]]:
+    """One partition's Newton/IRLS partials under broadcast coefficients.
+
+    Given the current (w, b) captured by closure (the small-state broadcast
+    of ``RapidsRowMatrix.scala:162-166``, here per Newton iteration), emits
+    (Xᵀr, XᵀSX, XᵀS, Σr, Σs, loss, n) where r = σ(Xw+b) − y and
+    S = diag(σ(1−σ)) — everything the driver needs to assemble one
+    (n+1)² Newton system (``models.logistic_regression._assemble_newton``).
+    One Spark job per iteration, mirroring the per-pass streamed fit.
+    """
+    w = np.asarray(w, dtype=np.float64).reshape(-1)
+    b = float(b)
+    n = w.shape[0]
+    gx = np.zeros(n)
+    hxx = np.zeros((n, n))
+    hxb = np.zeros(n)
+    rsum = ssum = loss = 0.0
+    count = 0
+    for batch in batches:
+        if hasattr(batch, "column"):
+            x = vector_column_to_matrix(batch.column(features_col))
+            y = np.asarray(batch.column(label_col).to_pylist(),
+                           dtype=np.float64)
+        else:
+            x, y = batch
+            x = np.asarray(x, dtype=np.float64)
+            y = np.asarray(y, dtype=np.float64).reshape(-1)
+        if x.shape[0] == 0:
+            continue
+        from spark_rapids_ml_tpu_torch.models.logistic_regression import (
+            _check_binary,
+        )
+
+        _check_binary(y)
+        wt = _batch_weights_agg(batch, weight_col)
+        z = x @ w + b
+        p = _sigmoid(z)
+        r = p - y
+        s = p * (1.0 - p)
+        if wt is not None:
+            # weightCol: every Newton partial is a weighted sum
+            r = r * wt
+            s = s * wt
+        gx += x.T @ r
+        hxx += x.T @ (x * s[:, None])
+        hxb += x.T @ s
+        rsum += float(r.sum())
+        ssum += float(s.sum())
+        # stable per-row NLL: log(1+e^z) − y·z
+        nll = np.logaddexp(0.0, z) - y * z
+        loss += float((nll * wt).sum() if wt is not None else nll.sum())
+        count += float(wt.sum()) if wt is not None else x.shape[0]
+    if count == 0:
+        return
+    yield {
+        "gx": gx.tolist(),
+        "hxx": hxx.ravel().tolist(),
+        "hxb": hxb.tolist(),
+        "rsum": rsum,
+        "ssum": ssum,
+        "loss": loss,
+        "count": count,
+    }
+
+
+def partition_logreg_stats_arrow(batches, features_col: str, label_col: str,
+                                 w: np.ndarray, b: float,
+                                 weight_col: Optional[str] = None):
+    import pyarrow as pa
+
+    for row in partition_logreg_stats(batches, features_col, label_col, w, b,
+                                      weight_col=weight_col):
+        yield pa.RecordBatch.from_pylist([row], schema=logreg_stats_arrow_schema())
+
+
+def logreg_stats_arrow_schema():
+    import pyarrow as pa
+
+    return pa.schema(
+        [
+            ("gx", pa.list_(pa.float64())),
+            ("hxx", pa.list_(pa.float64())),
+            ("hxb", pa.list_(pa.float64())),
+            ("rsum", pa.float64()),
+            ("ssum", pa.float64()),
+            ("loss", pa.float64()),
+            ("count", pa.float64()),  # Σw (= row count unweighted)
+        ]
+    )
+
+
+def logreg_stats_spark_ddl() -> str:
+    return ("gx array<double>, hxx array<double>, hxb array<double>, "
+            "rsum double, ssum double, loss double, count double")
+
+
+def combine_logreg_stats(rows: Iterable):
+    """Driver-side reduce of per-partition IRLS partials →
+    (gx, hxx, hxb, rsum, ssum, loss, count)."""
+    gx = hxx = hxb = None
+    rsum = ssum = loss = 0.0
+    count = 0
+    for row in rows:
+        get = row.get if isinstance(row, dict) else row.__getitem__
+        g = np.asarray(get("gx"), dtype=np.float64)
+        if gx is None:
+            n = g.shape[0]
+            gx, hxx, hxb = np.zeros(n), np.zeros((n, n)), np.zeros(n)
+        gx += g
+        hxx += np.asarray(get("hxx"), dtype=np.float64).reshape(hxb.shape[0],
+                                                                hxb.shape[0])
+        hxb += np.asarray(get("hxb"), dtype=np.float64)
+        rsum += float(get("rsum"))
+        ssum += float(get("ssum"))
+        loss += float(get("loss"))
+        count += float(get("count"))  # Σw: fractional under weightCol
+    if gx is None:
+        raise ValueError("no partition statistics to combine (empty dataset)")
+    return gx, hxx, hxb, rsum, ssum, loss, count
+
+
+def logreg_newton_step_from_stats(
+    gx: np.ndarray,
+    hxx: np.ndarray,
+    hxb: np.ndarray,
+    rsum: float,
+    ssum: float,
+    count: int,
+    w: np.ndarray,
+    b: float,
+    reg_param: float = 0.0,
+    fit_intercept: bool = True,
+) -> Tuple[np.ndarray, float, float]:
+    """One damped-free Newton update from combined statistics; returns
+    (w', b', max|Δ|) with the same Spark-convention (1/n)-scaled system as
+    the local fits (shared ``_assemble_newton``)."""
+    from spark_rapids_ml_tpu_torch.models.logistic_regression import _assemble_newton
+
+    n = w.shape[0]
+    g, h = _assemble_newton(gx, hxx, hxb, rsum, ssum, float(count),
+                            w, reg_param, fit_intercept)
+    delta = np.linalg.solve(h, g)
+    w_new = w - delta[:n]
+    b_new = b - delta[n] if fit_intercept else b
+    return w_new, float(b_new), float(np.max(np.abs(delta)))
+
+
+def partition_label_values(
+    batches: Iterable, label_col: str
+) -> Iterator[Dict[str, object]]:
+    """One row: the distinct (finite-validated) label values this
+    partition saw — the cheap discovery pass Spark's family='auto' needs
+    before choosing binary vs multinomial. Runs over a LABEL-ONLY column
+    selection (no feature densify), and raises as soon as a partition
+    exceeds the 100-class multinomial cap rather than shipping an
+    unbounded set (a continuous target would otherwise collect every
+    distinct double)."""
+    seen = set()
+    for batch in batches:
+        if hasattr(batch, "column"):
+            y = np.asarray(batch.column(label_col).to_pylist(),
+                           dtype=np.float64)
+        else:
+            y = np.asarray(batch, dtype=np.float64).reshape(-1)
+        if y.size == 0:
+            continue
+        if not np.isfinite(y).all():
+            raise ValueError("labels must be finite")
+        seen.update(np.unique(y).tolist())
+        if len(seen) > 100:
+            raise ValueError(
+                "more than 100 distinct label values: looks like a "
+                "continuous target, not classes (multinomial supports "
+                "up to 100)"
+            )
+    if not seen:
+        return
+    yield {"labels": sorted(seen)}
+
+
+def partition_multinomial_stats(
+    batches: Iterable,
+    features_col: str,
+    label_col: str,
+    classes: np.ndarray,
+    wb: np.ndarray,
+    weight_col: Optional[str] = None,
+) -> Iterator[Dict[str, object]]:
+    """One partition's raw softmax-Newton partials at the broadcast
+    (K, d+1) parameters: (gxa, h_raw, loss, count) — the additive unit of
+    ``ops.logreg_kernel.multinomial_raw_stats``, here in executor-CPU
+    NumPy f64 (the host plane)."""
+    from spark_rapids_ml_tpu_torch.models.logistic_regression import (
+        class_indices,
+        softmax_log_loss,
+    )
+
+    classes = np.asarray(classes, dtype=np.float64)
+    k = classes.size
+    wb = np.asarray(wb, dtype=np.float64)
+    n = wb.shape[1] - 1
+    gxa = np.zeros((k, n + 1))
+    h_raw = np.zeros((k * (n + 1), k * (n + 1)))
+    loss = 0.0
+    count = 0
+    for batch in batches:
+        if hasattr(batch, "column"):
+            x = vector_column_to_matrix(batch.column(features_col))
+            y = np.asarray(batch.column(label_col).to_pylist(),
+                           dtype=np.float64)
+        else:
+            x, y = batch
+            x = np.asarray(x, dtype=np.float64)
+            y = np.asarray(y, dtype=np.float64).reshape(-1)
+        if x.shape[0] == 0:
+            continue
+        idx = class_indices(y, classes)
+        wt = _batch_weights_agg(batch, weight_col)
+        z = x @ wb[:, :n].T + wb[:, n][None, :]
+        z = z - z.max(axis=1, keepdims=True)
+        e = np.exp(z)
+        p = e / e.sum(axis=1, keepdims=True)
+        y_oh = np.eye(k)[idx]
+        r = p - y_oh
+        if wt is not None:
+            r = r * wt[:, None]
+        xa = np.concatenate([x, np.ones((x.shape[0], 1))], axis=1)
+        gxa += r.T @ xa
+        for kk in range(k):
+            for ll in range(k):
+                s = p[:, kk] * ((kk == ll) * 1.0 - p[:, ll])
+                if wt is not None:
+                    s = s * wt
+                h_raw[kk * (n + 1):(kk + 1) * (n + 1),
+                      ll * (n + 1):(ll + 1) * (n + 1)] += (
+                    (xa * s[:, None]).T @ xa
+                )
+        if wt is None:
+            loss += softmax_log_loss(x, wb, idx)
+            count += x.shape[0]
+        else:
+            # per-row weighted NLL from the shifted logits already in
+            # scope (z, e computed above for the gradient)
+            lse = np.log(e.sum(axis=1))
+            nll = lse - z[np.arange(x.shape[0]), idx]
+            loss += float((wt * nll).sum())
+            count += float(wt.sum())
+    if count == 0:
+        return
+    yield {
+        "gxa": gxa.ravel().tolist(),
+        "h": h_raw.ravel().tolist(),
+        "loss": loss,
+        "count": count,
+    }
+
+
+def multinomial_stats_arrow_schema():
+    import pyarrow as pa
+
+    return pa.schema(
+        [
+            ("gxa", pa.list_(pa.float64())),
+            ("h", pa.list_(pa.float64())),
+            ("loss", pa.float64()),
+            ("count", pa.float64()),  # Σw (= row count unweighted)
+        ]
+    )
+
+
+def multinomial_stats_spark_ddl() -> str:
+    return "gxa array<double>, h array<double>, loss double, count double"
+
+
+def combine_multinomial_stats(rows: Iterable, k: int, dim: int):
+    """Driver-side reduce → (gxa (k, dim), h_raw (k·dim)², loss, Σw)."""
+    gxa = np.zeros((k, dim))
+    h_raw = np.zeros((k * dim, k * dim))
+    loss = 0.0
+    count = 0
+    for row in rows:
+        get = row.get if isinstance(row, dict) else row.__getitem__
+        gxa += np.asarray(get("gxa"), dtype=np.float64).reshape(k, dim)
+        h_raw += np.asarray(get("h"), dtype=np.float64).reshape(
+            k * dim, k * dim
+        )
+        loss += float(get("loss"))
+        count += float(get("count"))
+    if count == 0:
+        raise ValueError("no partition statistics to combine (empty dataset)")
+    return gxa, h_raw, loss, count
+
+
+def partition_kmeans_stats(
+    batches: Iterable, input_col: str, centers: np.ndarray,
+    weight_col: Optional[str] = None,
+) -> Iterator[Dict[str, object]]:
+    """One partition's per-cluster (Σw·x, Σw, Σw·cost) under fixed
+    centers — one Lloyd assignment half-step, shaped for ``mapInArrow``
+    with the (small) centers broadcast via closure capture (w ≡ 1
+    unweighted — Spark 3.0 weightCol semantics otherwise)."""
+    k, n = centers.shape
+    sums = np.zeros((k, n))
+    counts = np.zeros(k)
+    cost = 0.0
+    seen = 0
+    c2 = (centers * centers).sum(axis=1)[None, :]
+    for batch in batches:
+        if hasattr(batch, "column"):
+            x = vector_column_to_matrix(batch.column(input_col))
+        else:
+            x = np.asarray(batch, dtype=np.float64)
+        if x.shape[0] == 0:
+            continue
+        wt = _batch_weights_agg(batch, weight_col)
+        d = np.maximum(
+            (x * x).sum(axis=1)[:, None] + c2 - 2.0 * (x @ centers.T), 0.0
+        )
+        labels = d.argmin(axis=1)
+        if wt is None:
+            np.add.at(sums, labels, x)
+            np.add.at(counts, labels, 1.0)
+            cost += float(d.min(axis=1).sum())
+        else:
+            np.add.at(sums, labels, x * wt[:, None])
+            np.add.at(counts, labels, wt)
+            cost += float((wt * d.min(axis=1)).sum())
+        seen += x.shape[0]
+    if seen == 0:
+        return
+    yield {
+        "sums": sums.ravel().tolist(),
+        "counts": counts.tolist(),
+        "cost": cost,
+        "count": seen,
+    }
+
+
+def kmeans_stats_arrow_schema():
+    import pyarrow as pa
+
+    return pa.schema(
+        [
+            ("sums", pa.list_(pa.float64())),
+            ("counts", pa.list_(pa.float64())),
+            ("cost", pa.float64()),
+            ("count", pa.int64()),
+        ]
+    )
+
+
+def kmeans_stats_spark_ddl() -> str:
+    return "sums array<double>, counts array<double>, cost double, count bigint"
+
+
+def combine_kmeans_stats(rows: Iterable, k: int, n: int):
+    """Driver-side reduce of per-partition Lloyd stats →
+    (sums (k,n), counts (k,), cost, rows_seen)."""
+    sums = np.zeros((k, n))
+    counts = np.zeros(k)
+    cost = 0.0
+    seen = 0
+    for row in rows:
+        get = row.get if isinstance(row, dict) else row.__getitem__
+        sums += np.asarray(get("sums"), dtype=np.float64).reshape(k, n)
+        counts += np.asarray(get("counts"), dtype=np.float64)
+        cost += float(get("cost"))
+        seen += int(get("count"))
+    return sums, counts, cost, seen
+
+
+def partition_nb_stats(
+    batches: Iterable, features_col: str, label_col: str, model_type: str,
+    weight_col: Optional[str] = None,
+) -> Iterator[Dict[str, object]]:
+    """One partition's per-class NaiveBayes statistics.
+
+    Emits the label values this partition saw with their (Σw, Σw·x, Σw·x²)
+    rows (w ≡ 1 unweighted) — additively combinable on the driver even
+    when partitions see different class subsets. Input validation
+    (multinomial/complement non-negative, bernoulli {0,1}, weights
+    finite/non-negative) runs here, where the rows are."""
+    sums: Dict[float, np.ndarray] = {}
+    sqs: Dict[float, np.ndarray] = {}
+    counts: Dict[float, float] = {}
+    for batch in batches:
+        if hasattr(batch, "column"):
+            x = vector_column_to_matrix(batch.column(features_col))
+            y = np.asarray(batch.column(label_col).to_pylist(),
+                           dtype=np.float64)
+        else:
+            x, y = batch
+            x = np.asarray(x, dtype=np.float64)
+            y = np.asarray(y, dtype=np.float64).reshape(-1)
+        if x.shape[0] == 0:
+            continue
+        w = _batch_weights_agg(batch, weight_col)
+        if model_type in ("multinomial", "complement") and (x < 0).any():
+            raise ValueError(
+                f"{model_type} NaiveBayes requires non-negative features"
+            )
+        if model_type == "bernoulli" and not np.isin(x, (0.0, 1.0)).all():
+            raise ValueError(
+                "bernoulli NaiveBayes requires {0,1} features"
+            )
+        for cls in np.unique(y):
+            sel = y == cls
+            rows_c = x[sel]
+            w_c = w[sel] if w is not None else None
+            key = float(cls)
+            if key not in sums:
+                sums[key] = np.zeros(x.shape[1])
+                sqs[key] = np.zeros(x.shape[1])
+                counts[key] = 0.0
+            if w_c is None:
+                sums[key] += rows_c.sum(axis=0)
+                sqs[key] += (rows_c * rows_c).sum(axis=0)
+                counts[key] += float(rows_c.shape[0])
+            else:
+                sums[key] += (w_c[:, None] * rows_c).sum(axis=0)
+                sqs[key] += (w_c[:, None] * rows_c * rows_c).sum(axis=0)
+                counts[key] += float(w_c.sum())
+    if not counts:
+        return
+    labels = sorted(counts)
+    yield {
+        "labels": labels,
+        "counts": [counts[c] for c in labels],
+        "sums": np.concatenate([sums[c] for c in labels]).tolist(),
+        "sq": np.concatenate([sqs[c] for c in labels]).tolist(),
+    }
+
+
+def nb_stats_arrow_schema():
+    import pyarrow as pa
+
+    return pa.schema(
+        [
+            ("labels", pa.list_(pa.float64())),
+            ("counts", pa.list_(pa.float64())),  # Σw (= row count unweighted)
+            ("sums", pa.list_(pa.float64())),
+            ("sq", pa.list_(pa.float64())),
+        ]
+    )
+
+
+def nb_stats_spark_ddl() -> str:
+    return ("labels array<double>, counts array<double>, "
+            "sums array<double>, sq array<double>")
+
+
+def combine_nb_stats(rows: Iterable):
+    """Driver-side union+sum of per-partition per-class statistics →
+    (classes, counts (K,), sums (K,d), sq (K,d))."""
+    acc: Dict[float, list] = {}
+    d = None
+    for row in rows:
+        get = row.get if isinstance(row, dict) else row.__getitem__
+        labels = list(get("labels"))
+        counts = list(get("counts"))
+        sums = np.asarray(get("sums"), dtype=np.float64)
+        sq = np.asarray(get("sq"), dtype=np.float64)
+        d = sums.shape[0] // len(labels)
+        sums = sums.reshape(len(labels), d)
+        sq = sq.reshape(len(labels), d)
+        for i, cls in enumerate(labels):
+            if cls not in acc:
+                acc[cls] = [0, np.zeros(d), np.zeros(d)]
+            acc[cls][0] += float(counts[i])
+            acc[cls][1] += sums[i]
+            acc[cls][2] += sq[i]
+    if not acc:
+        raise ValueError("no partition statistics to combine (empty dataset)")
+    classes = np.asarray(sorted(acc), dtype=np.float64)
+    counts = np.asarray([acc[c][0] for c in classes], dtype=np.float64)
+    sums = np.stack([acc[c][1] for c in classes])
+    sq = np.stack([acc[c][2] for c in classes])
+    return classes, counts, sums, sq
+
+
+def finalize_nb_from_stats(
+    classes: np.ndarray,
+    counts: np.ndarray,
+    sums: np.ndarray,
+    sq: np.ndarray,
+    model_type: str,
+    smoothing: float,
+):
+    """(pi, theta, sigma) from combined class statistics — the same math
+    as the local ``models.naive_bayes`` fit, with the gaussian variance
+    floor derived from the GLOBAL per-feature variance (itself exactly
+    recoverable from the class sums)."""
+    lam = float(smoothing)
+    pi = np.log(counts / counts.sum())
+    if model_type == "multinomial":
+        theta = np.log(
+            (sums + lam)
+            / (sums.sum(axis=1, keepdims=True) + lam * sums.shape[1])
+        )
+        return pi, theta, None
+    if model_type == "complement":
+        # Rennie et al. 2003 (Spark 3.0 / sklearn ComplementNB,
+        # norm=False): per-class COMPLEMENT feature mass, theta stored
+        # NEGATED so the likelihood stays the one x @ thetaᵀ contraction
+        comp = sums.sum(axis=0, keepdims=True) - sums
+        theta = -np.log(
+            (comp + lam)
+            / (comp.sum(axis=1, keepdims=True) + lam * comp.shape[1])
+        )
+        return pi, theta, None
+    if model_type == "bernoulli":
+        theta = np.log((sums + lam) / (counts[:, None] + 2.0 * lam))
+        return pi, theta, None
+    n = counts.sum()
+    mean = sums / counts[:, None]
+    var = sq / counts[:, None] - mean * mean
+    # clamp at 0: the E[x²]−E[x]² form can cancel to a tiny negative,
+    # unlike the local fit's x.var() which is non-negative by construction
+    global_var = np.maximum(
+        sq.sum(axis=0) / n - (sums.sum(axis=0) / n) ** 2, 0.0
+    )
+    var = np.maximum(var, 1e-9 * float(global_var.max() or 1.0))
+    return pi, mean, var
+
+
+def combine_stats(
+    rows: Iterable,
+) -> Tuple[np.ndarray, np.ndarray, int]:
+    """Driver-side reduce of per-partition stats rows → (G, Σx, n).
+
+    The analogue of the reference's ``cov.reduce(_ + _)``
+    (``RapidsRowMatrix.scala:202``), summing n×n partials on the driver —
+    but over ~P small rows collected once, not a shuffle."""
+    gram = None
+    col_sum = None
+    count = 0
+    for row in rows:
+        get = row.get if isinstance(row, dict) else row.__getitem__
+        g = np.asarray(get("gram"), dtype=np.float64)
+        s = np.asarray(get("col_sum"), dtype=np.float64)
+        if gram is None:
+            n = s.shape[0]
+            gram = np.zeros((n, n))
+            col_sum = np.zeros(n)
+        gram += g.reshape(col_sum.shape[0], col_sum.shape[0])
+        col_sum += s
+        count += float(get("count"))  # Σw: fractional under weightCol
+    if gram is None:
+        raise ValueError("no partition statistics to combine (empty dataset)")
+    return gram, col_sum, count
+
+
+def finalize_pca_from_stats(
+    gram: np.ndarray,
+    col_sum: np.ndarray,
+    count: int,
+    k: int,
+    mean_centering: bool = True,
+    use_xla_svd: bool = True,
+    device_id: int = -1,
+):
+    """Driver-side finalization: covariance from global stats → top-k eigh.
+
+    The covariance assembly from already-reduced statistics is a cheap host
+    NumPy step either way; ``use_xla_svd`` selects where the EIGENSOLVE runs
+    — the driver's card (``ops.eigh.pca_from_covariance`` at the port's
+    'auto' dtype, float32; the CPU when it is requested), like the
+    reference's driver-GPU ``calSVD`` (``RapidsRowMatrix.scala:94-95``), or
+    NumPy/LAPACK float64. Returns (pc, explained_variance, mean) float64.
+    """
+    if count < 2 and mean_centering:
+        raise ValueError("mean centering requires more than one row")
+    denom = max(count - 1, 1)
+    mean = col_sum / max(count, 1) if mean_centering else np.zeros_like(col_sum)
+    if mean_centering:
+        cov = (gram - count * np.outer(mean, mean)) / denom
+    else:
+        cov = gram / denom
+    if use_xla_svd:
+        import torch
+
+        from spark_rapids_ml_tpu_torch.models.pca import _resolve_dtype
+        from spark_rapids_ml_tpu_torch.ops.eigh import pca_from_covariance
+        from spark_rapids_ml_tpu_torch.utils.resources import resolve_device
+
+        device = resolve_device(device_id)
+        cov_dev = torch.as_tensor(cov, dtype=_resolve_dtype("auto"),
+                                  device=device)
+        pc, evr = pca_from_covariance(cov_dev, k)
+        return (
+            pc.cpu().numpy().astype(np.float64),
+            evr.cpu().numpy().astype(np.float64),
+            mean,
+        )
+    from spark_rapids_ml_tpu_torch.models.pca import _host_eig_topk
+
+    pc, evr = _host_eig_topk(cov, k)
+    return np.asarray(pc), np.asarray(evr), mean
+
+
+def discover_label_values(dataset, label_col: str) -> np.ndarray:
+    """One label-only discovery job → sorted distinct label values — the
+    family='auto' pre-pass shared by LogisticRegression and OneVsRest
+    (never densifies the feature vectors)."""
+    import pyarrow as pa
+
+    def job(batches):
+        for row in partition_label_values(batches, label_col):
+            yield pa.RecordBatch.from_pylist(
+                [row],
+                schema=pa.schema([("labels", pa.list_(pa.float64()))]),
+            )
+
+    rows = dataset.select(label_col).mapInArrow(
+        job, "labels array<double>"
+    ).collect()
+    return np.asarray(sorted({float(v) for r in rows for v in r["labels"]}))

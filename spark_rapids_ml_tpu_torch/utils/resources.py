@@ -1,7 +1,16 @@
-"""Device assignment: which CUDA device a task computes on.
+"""Spark-style GPU resource discovery and device assignment.
 
-Counterpart of the JAX package's ``utils/resources.py::resolve_device_ordinal``
-and ``models/pca.py::_resolve_device``: ``deviceId == -1`` takes the task's
+Counterpart of the JAX package's ``utils/resources.py``. Spark schedules
+GPUs as the resource ``gpu``: ``spark.task.resource.gpu.amount``,
+``spark.executor.resource.gpu.amount`` and a
+``spark.executor.resource.gpu.discoveryScript`` that prints Spark's
+ResourceInformation JSON (the reference's deployment contract and its
+``getGpusResources.sh``). The script ships as package data
+(``discovery_script_path()``) and needs no Python;
+``discover_gpu_addresses`` reads the same signals in process, and asks
+torch only on request.
+
+Which CUDA device a task computes on: ``deviceId == -1`` takes the task's
 assigned ``gpu`` resource address (Spark's TaskContext resources, the
 reference's gpuId discovery, ``RapidsRowMatrix.scala:171-175``), else the
 ``SPARK_RAPIDS_ML_TORCH_DEVICE`` env var, else ordinal 0.
@@ -14,9 +23,13 @@ resolution raises: the port never carries on quietly on the CPU.
 
 from __future__ import annotations
 
+import json
 import os
+import re
+import subprocess
 import warnings
-from typing import List, Mapping, Optional, Sequence
+from dataclasses import dataclass, field
+from typing import Dict, List, Mapping, Optional, Sequence, Union
 
 import torch
 
@@ -25,10 +38,128 @@ PLATFORM_ENV = "SPARK_RAPIDS_ML_TORCH_PLATFORM"
 _ENV_TASK_DEVICE = "SPARK_RAPIDS_ML_TORCH_DEVICE"
 _ENV_VISIBLE = "CUDA_VISIBLE_DEVICES"
 
+# Spark's own conf keys for GPU scheduling
+TASK_AMOUNT_KEY = "spark.task.resource.gpu.amount"
+EXECUTOR_AMOUNT_KEY = "spark.executor.resource.gpu.amount"
+DISCOVERY_SCRIPT_KEY = "spark.executor.resource.gpu.discoveryScript"
+
+
+@dataclass
+class ResourceInformation:
+    """Mirror of ``org.apache.spark.resource.ResourceInformation``: the
+    JSON shape a discovery script must print."""
+
+    name: str
+    addresses: List[str] = field(default_factory=list)
+
+    def to_json(self) -> str:
+        return json.dumps({"name": self.name, "addresses": self.addresses})
+
+    @staticmethod
+    def from_json(text: str) -> "ResourceInformation":
+        obj = json.loads(text)
+        if not isinstance(obj.get("name"), str) or not isinstance(
+            obj.get("addresses"), list
+        ):
+            raise ValueError(f"not a ResourceInformation payload: {text!r}")
+        return ResourceInformation(
+            name=obj["name"], addresses=[str(a) for a in obj["addresses"]]
+        )
+
+
+class ResourceConf:
+    """A properties mapping (``spark.*`` keys) with typed accessors for the
+    gpu resource keys."""
+
+    def __init__(self, conf: Optional[Mapping[str, str]] = None):
+        self._conf: Dict[str, str] = dict(conf or {})
+
+    @staticmethod
+    def from_properties(text: str) -> "ResourceConf":
+        """Parse ``key value`` / ``key=value`` lines (spark-defaults.conf
+        syntax: comments with #, blank lines ignored)."""
+        conf: Dict[str, str] = {}
+        for raw in text.splitlines():
+            line = raw.strip()
+            if not line or line.startswith("#"):
+                continue
+            # split at the FIRST separator so values containing '=' (java
+            # options, paths) survive intact
+            m = re.match(r"^([^=\s]+)\s*[=\s]\s*(.*)$", line)
+            if m:
+                conf[m.group(1)] = m.group(2).strip()
+        return ResourceConf(conf)
+
+    def get(self, key: str, default: Optional[str] = None) -> Optional[str]:
+        return self._conf.get(key, default)
+
+    def task_gpu_amount(self, default: float = 0.0) -> float:
+        return float(self.get(TASK_AMOUNT_KEY, str(default)))
+
+    def executor_gpu_amount(self, default: int = 0) -> int:
+        return int(float(self.get(EXECUTOR_AMOUNT_KEY, str(default))))
+
+    def discovery_script(self) -> Optional[str]:
+        return self.get(DISCOVERY_SCRIPT_KEY)
+
+
+def discovery_script_path() -> str:
+    """Absolute path of the packaged discovery script: what to set
+    ``spark.executor.resource.gpu.discoveryScript`` to."""
+    return os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        "scripts",
+        "get_gpus_resources.sh",
+    )
+
+
+def _nvidia_smi_indexes() -> Optional[List[str]]:
+    """GPU indexes from ``nvidia-smi``, or None when it is absent or
+    fails."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=index", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60,
+        )
+    except (OSError, subprocess.SubprocessError):
+        return None
+    if out.returncode != 0:
+        return None
+    return [line.strip() for line in out.stdout.splitlines() if line.strip()]
+
+
+def discover_gpu_addresses(probe_torch: bool = False) -> List[str]:
+    """Enumerate local GPU addresses, cheapest signal first:
+
+    1. ``CUDA_VISIBLE_DEVICES`` (explicit pinning); set but empty means no
+       GPU is visible to this process, as CUDA reads it;
+    2. ``nvidia-smi --query-gpu=index --format=csv,noheader``;
+    3. only with ``probe_torch=True``, ``torch.cuda.device_count()``, which
+       initializes CUDA in this process.
+    """
+    val = os.environ.get(_ENV_VISIBLE)
+    if val is not None:
+        return [a.strip() for a in val.split(",") if a.strip()]
+    indexes = _nvidia_smi_indexes()
+    if indexes:
+        return indexes
+    if probe_torch and torch.cuda.is_available():
+        return [str(i) for i in range(torch.cuda.device_count())]
+    return []
+
+
+def discovery_json(probe_torch: bool = False) -> str:
+    """What the discovery script prints: the exact contract
+    ``spark.executor.resource.gpu.discoveryScript`` expects."""
+    return ResourceInformation(
+        RESOURCE_NAME, discover_gpu_addresses(probe_torch=probe_torch)
+    ).to_json()
+
 
 def resolve_device_ordinal(
     device_id: int = -1,
-    task_resources: Optional[Mapping[str, Sequence[str]]] = None,
+    task_resources: Optional[
+        Mapping[str, Union[ResourceInformation, Sequence[str]]]] = None,
     env: Optional[Mapping[str, str]] = None,
 ) -> int:
     """Which local device ordinal a task should use.
@@ -37,12 +168,15 @@ def resolve_device_ordinal(
     ``deviceId != -1`` wins; otherwise the first address of the task's
     assigned ``gpu`` resource; otherwise ``SPARK_RAPIDS_ML_TORCH_DEVICE``;
     otherwise ordinal 0. ``task_resources`` maps a resource name to its
-    addresses.
+    ``ResourceInformation`` or to its addresses.
     """
     if device_id != -1:
         return device_id
     if task_resources and task_resources.get(RESOURCE_NAME):
-        return int(task_resources[RESOURCE_NAME][0])
+        info = task_resources[RESOURCE_NAME]
+        addresses = getattr(info, "addresses", info)
+        if addresses:
+            return int(addresses[0])
     env = os.environ if env is None else env
     if env.get(_ENV_TASK_DEVICE):
         return int(env[_ENV_TASK_DEVICE])

@@ -633,3 +633,71 @@ def test_fit_report_and_device_request(rng, monkeypatch):
     host = GeneralizedLinearRegression(family="poisson").setUseXlaDot(
         False).fit(x, labels=y)
     assert host.coefficients.shape == (4,)
+
+
+@pytest.fixture
+def one_rank_gloo(tmp_path):
+    """A one-rank gloo world in this process, torn down after the test."""
+    import torch.distributed as dist
+
+    from spark_rapids_ml_tpu_torch.parallel.mesh import data_mesh
+
+    assert not dist.is_initialized()
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}",
+                            rank=0, world_size=1)
+    try:
+        yield data_mesh(1)
+    finally:
+        dist.destroy_process_group()
+
+
+def _nan_offset_rows(rng):
+    x, _, beta, b = make_glm_data(rng, "poisson", n=200)
+    offset = rng.normal(scale=0.1, size=x.shape[0])
+    y = rng.poisson(np.exp(x @ beta + b + offset)).astype(float)
+    offset[17] = np.nan
+    return x, y, offset
+
+
+def test_nan_offset_raises_where_jax_gives_nan_coefficients(rng):
+    """A deliberate difference: the JAX fit takes a non-finite offset
+    unchecked and returns NaN coefficients; the port's local fit raises,
+    as it does for a NaN weight."""
+    x, y, offset = _nan_offset_rows(rng)
+    frames = _frames(x, y, {"off": offset})
+    ref = JaxGLR().set("family", "poisson").setOffsetCol("off").fit(frames[1])
+    assert np.isnan(np.append(ref.coefficients, ref.intercept)).all()
+    for dtype in ("float64", "float32"):
+        est = GeneralizedLinearRegression().setDtype(dtype).set(
+            "family", "poisson").setOffsetCol("off")
+        with pytest.raises(ValueError, match="offset must be finite"):
+            est.fit(frames[0])
+    host = GeneralizedLinearRegression().set("family", "poisson") \
+        .setOffsetCol("off").setUseXlaDot(False)
+    with pytest.raises(ValueError, match="offset must be finite"):
+        host.fit(frames[0])
+
+
+def test_nan_offset_raises_in_the_distributed_fit(rng, one_rank_gloo):
+    """The same rows through both packages' ``distributed_glm_fit``: JAX's
+    NaN coefficients, the port's ``ValueError`` (one gloo rank)."""
+    from spark_rapids_ml_tpu.parallel.distributed_glm import (
+        distributed_glm_fit as jax_distributed_glm_fit,
+    )
+    from spark_rapids_ml_tpu.parallel.mesh import data_mesh as jax_data_mesh
+    from spark_rapids_ml_tpu_torch.parallel.distributed_glm import (
+        distributed_glm_fit,
+    )
+
+    x, y, offset = _nan_offset_rows(rng)
+    ref = jax_distributed_glm_fit(x, y, jax_data_mesh(1), family="poisson",
+                                  offset=offset)
+    assert np.isnan(np.append(ref.coefficients, ref.intercept)).all()
+    with pytest.raises(ValueError, match="offset must be finite"):
+        distributed_glm_fit(x, y, one_rank_gloo, family="poisson",
+                            offset=offset)
+    # the finite offset still fits
+    offset[17] = 0.0
+    model = distributed_glm_fit(x, y, one_rank_gloo, family="poisson",
+                                offset=offset)
+    assert np.isfinite(model.coefficients).all()

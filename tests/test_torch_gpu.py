@@ -1647,3 +1647,93 @@ def test_tree_fits_card_equal_cpu_at_float64(cuda_device, monkeypatch):
         got = np.asarray(a.transform(x[:5000]).column("prediction"))
         want = np.asarray(b.transform(x[:5000]).column("prediction"))
         assert np.abs(got - want).max() <= 1e-9
+
+
+def _plane_rows(rows=20_000, d=256, seed=31):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(rows, d)) / np.sqrt(1.0 + np.arange(d)) + 0.2
+    w = rng.normal(size=d) / np.sqrt(d)
+    y_reg = x @ w + 0.5 + 0.1 * rng.normal(size=rows)
+    y_bin = (x @ w + rng.logistic(size=rows) * 0.5 > 0).astype(np.float64)
+    return x, y_reg, y_bin
+
+
+def _partition_launches(fn, kernel):
+    fused_gram.reset_launches()
+    rows = list(fn())
+    torch.cuda.synchronize()
+    return rows, fused_gram.launches[kernel]
+
+
+# a float32 partial against the host float64 plane, max |Δ| / max |ref|:
+# float32 sums over 20,000 rows (the bfloat16_3x Gram partial of 65,536 ×
+# 4096 rows was 2.985e-05 from float64 on the H100, chip_smoke.py phase 21)
+PLANE_F32_RTOL = 1e-4
+
+
+def test_spark_device_partials_on_the_card(cuda_device):
+    """The gram, Z = [X | y] and binary logreg executor partials on the
+    card against the host float64 plane of the same partition (ragged
+    batches, unpadded), each launching the Gram kernel (once a batch:
+    bfloat16_3x for the Grams, highest for the Hessian)."""
+    from spark_rapids_ml_tpu_torch.spark import aggregate as agg
+    from spark_rapids_ml_tpu_torch.spark import device_aggregate as dev
+
+    assert dev.executor_device_available()
+    x, y_reg, y_bin = _plane_rows()
+    halves = [x[:12_345], x[12_345:]]
+    row, n = _partition_launches(
+        lambda: dev.partition_gram_stats_device(halves, "f"),
+        fused_gram.kernel_name(None))
+    host = next(agg.partition_gram_stats(halves, "f"))
+    assert n == 2 and row[0]["count"] == host["count"] == x.shape[0]
+    for key in ("gram", "col_sum"):
+        got, want = np.asarray(row[0][key]), np.asarray(host[key])
+        assert np.abs(got - want).max() / np.abs(want).max() \
+            <= PLANE_F32_RTOL, key
+
+    xy = [(x[:7_000], y_reg[:7_000]), (x[7_000:], y_reg[7_000:])]
+    row, n = _partition_launches(
+        lambda: dev.partition_xy_stats_device(xy, "f", "l"),
+        fused_gram.kernel_name(None))
+    host = next(agg.partition_xy_stats(xy, "f", "l"))
+    assert n == 2
+    g, h = np.asarray(row[0]["gram"]), np.asarray(host["gram"])
+    assert np.abs(g - h).max() / np.abs(h).max() <= PLANE_F32_RTOL
+
+    w0, b0 = np.full(x.shape[1], 0.01), -0.1
+    lab = [(x[:9_999], y_bin[:9_999]), (x[9_999:], y_bin[9_999:])]
+    row, n = _partition_launches(
+        lambda: dev.partition_logreg_stats_device(lab, "f", "l", w0, b0),
+        fused_gram.kernel_name("highest"))
+    host = next(agg.partition_logreg_stats(lab, "f", "l", w0, b0))
+    assert n == 2 and row[0]["count"] == host["count"]
+    for key in ("gx", "hxx", "hxb"):
+        got, want = np.asarray(row[0][key]), np.asarray(host[key])
+        assert np.abs(got - want).max() / np.abs(want).max() \
+            <= PLANE_F32_RTOL, key
+    for key in ("rsum", "ssum"):   # sums of terms in [-1, 1], per row
+        assert abs(row[0][key] - host[key]) / host["count"] <= 1e-6, key
+    # both on the host in float64 (the sums taken in another order)
+    assert abs(row[0]["loss"] / host["loss"] - 1.0) <= 1e-12
+
+
+def test_spark_plane_pca_on_the_card_matches_the_host_plane(cuda_device):
+    """Partitions → device partials → combine → the driver's eigensolve on
+    the card, against the host float64 plane and the host eigensolve."""
+    from spark_rapids_ml_tpu_torch.spark import aggregate as agg
+    from spark_rapids_ml_tpu_torch.spark import device_aggregate as dev
+
+    x, _, _ = _plane_rows(rows=30_000, d=128)
+    parts = [x[:10_000], x[10_000:20_000], x[20_000:29_999]]
+    dev_rows = [r for p in parts
+                for r in dev.partition_gram_stats_device([p], "f")]
+    host_rows = [r for p in parts for r in agg.partition_gram_stats([p], "f")]
+    pc, evr, mean = agg.finalize_pca_from_stats(*agg.combine_stats(dev_rows),
+                                                8)
+    hpc, hevr, hmean = agg.finalize_pca_from_stats(
+        *agg.combine_stats(host_rows), 8, use_xla_svd=False)
+    cos = np.abs(np.sum(pc * hpc, axis=0))
+    assert cos.min() >= 0.999
+    assert np.abs(evr - hevr).max() / np.abs(hevr).max() <= 1e-3
+    np.testing.assert_allclose(mean, hmean, atol=1e-5)

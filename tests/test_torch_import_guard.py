@@ -581,6 +581,58 @@ def test_tree_slice_runs_without_jax(tmp_path):
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+SPARK_PLANE = ("spark", "spark._compat", "spark.local_engine",
+               "spark.aggregate", "spark.device_aggregate", "spark.estimator")
+
+
+def test_spark_plane_imports_and_runs_without_jax_pandas_or_pyarrow():
+    """``spark_rapids_ml_tpu_torch.spark`` and its submodules import, and
+    its executor partials and driver finalizers run on numpy batches (the
+    non-Arrow branch, as ``chip_smoke.py`` phase 21 drives them), in a
+    process where pandas and pyarrow cannot be imported (the card's
+    machine has neither) and that never imports jax or the JAX package."""
+    mods = {m for _, m in _port_modules()}
+    assert {f"spark_rapids_ml_tpu_torch.{m}" for m in SPARK_PLANE} <= mods
+    code = (
+        "import importlib, sys\n"
+        "sys.modules['pandas'] = None\n"
+        "sys.modules['pyarrow'] = None\n"
+        "import numpy as np\n"
+        f"for m in {SPARK_PLANE!r}:\n"
+        "    importlib.import_module('spark_rapids_ml_tpu_torch.' + m)\n"
+        "from spark_rapids_ml_tpu_torch.spark import aggregate as agg\n"
+        "from spark_rapids_ml_tpu_torch.spark import device_aggregate as dev\n"
+        "from spark_rapids_ml_tpu_torch.spark import estimator as est\n"
+        "x = np.random.default_rng(0).normal(size=(200, 6))\n"
+        "y = (x[:, 0] > 0).astype(float)\n"
+        "parts = [x[:120], x[120:]]\n"
+        "rows = [r for p in parts for r in "
+        "dev.partition_gram_stats_device([p], 'f')]\n"
+        "pc, evr, mean = agg.finalize_pca_from_stats("
+        "*agg.combine_stats(rows), 3)\n"
+        "g = agg.combine_logreg_stats([r for p in (0, 1) for r in "
+        "dev.partition_logreg_stats_device([(parts[p], y[:120] if p == 0 "
+        "else y[120:])], 'f', 'l', np.zeros(6), 0.0)])\n"
+        "w, b, step = agg.logreg_newton_step_from_stats(*g[:5], g[6], "
+        "np.zeros(6), 0.0)\n"
+        "proj = est._project_pca(x, pc, True)\n"
+        "bad = sorted(k for k in sys.modules if sys.modules[k] is not None "
+        "and (k in ('jax', 'spark_rapids_ml_tpu', 'pandas', 'pyarrow') or "
+        "k.split('.')[0] in ('jax', 'spark_rapids_ml_tpu', 'pandas', "
+        "'pyarrow')))\n"
+        "ok = pc.shape == (6, 3) and np.isfinite(w).all() and "
+        "proj.shape == (200, 3)\n"
+        "print(bad, ok)\n"
+        "sys.exit(1 if bad or not ok else 0)\n"
+    )
+    env = dict(os.environ, SPARK_RAPIDS_ML_TORCH_PLATFORM="cpu",
+               OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO_DIR,
+                          capture_output=True, text=True, timeout=120,
+                          env=env)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_port_sources_import_no_jax():
     found = []
     smoke = os.path.join(REPO_DIR, "chip_smoke.py")
