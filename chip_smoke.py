@@ -511,32 +511,57 @@ Phases (any failure raises and the script exits non-zero):
     (the non-Arrow branch; the card's machine has neither pandas nor
     pyarrow) and the driver's combines and finalizers, with
     ``executor_device_available()`` true and ``'auto'`` taking the device
-    plane. (i) PCA on fit (a)'s rows as 4 partitions (65,536 × 3 and a
-    ragged 65,535): ``partition_gram_stats_device`` → ``combine_stats`` →
+    plane. The phase runs at a cut depth (2 partitions of each family, 2
+    Newton iterations, the host float64 plane at a loop's first iteration
+    only), every bar as it stood. (i) PCA on fit (a)'s rows as 2
+    partitions (65,536 and a ragged 65,535): ``partition_gram_stats_device``
+    → ``combine_stats`` →
     ``finalize_pca_from_stats(k=256, use_xla_svd=True)``, ≥ 1 Gram launch a
     partition, the combined Gram within 1e-4 of the host float64 plane's,
     the model held at §2's fit bars to the host float64 plane's and to the
     port's ``PCA().setK(256).fit`` on the same rows; a partition's device
     ms, its row's ``tolist`` ms and the driver's combine and finalize ms.
-    (ii) LinearRegression on phase 14's 4 chunks (Z 4097 wide) through
+    (ii) LinearRegression on phase 14's first 2 chunks (Z 4097 wide) through
     ``partition_xy_stats_device`` → ``solve_linreg_from_stats``: partition
     0's Z Gram within 1e-4 of the host plane's (the host plane cut to
     that partition), the solve within 1e-4 of float64 normal equations on
     the card and of the streamed ``LinearRegression``.
-    (iii) The front end's Newton loop, binary on phase 16's design (4 ×
-    16,384 × 4096, maxIter 3: cut), exactly 4 highest launches an
-    iteration, each iterate within 1e-4 of the host plane's; multinomial
-    K = 4 at 256 features, 10 highest launches a partition, [W | b] less
-    its class mean within 1e-4 and probabilities within 2e-3. (iv) KMeans
-    on phase 15's blobs as 8 partitions, k = 64, 5 iterations: counts equal
-    to the host plane's but at recorded near-ties, sums within 1e-6, cost
+    (iii) The front end's Newton loop, binary on phase 16's design (2 ×
+    32,768 × 4096, maxIter 2: cut), exactly 2 highest launches an
+    iteration, each iterate within 1e-4 of the host plane's at iteration
+    1 and of the same Newton statistics in float64 on the card after;
+    multinomial K = 4 at 256 features, 10 highest launches a partition,
+    [W | b] less its class mean within 1e-4 (of the host plane's, then of
+    the float64 device partials') and probabilities within 2e-3. (iv)
+    KMeans on phase 15's blobs as 8 partitions, k = 64, 5 iterations:
+    counts equal to the host plane's (iteration 1) and the float64 device
+    partials' (after) but at recorded near-ties, sums within 1e-6, cost
     within 1e-5, no Gram launch. (v) The PCA and LogisticRegression
     transforms' UDF bodies on 4096 rows against the port's
     ``model.transform``.
+22. The forest plane (``spark/{forest_plane,forest_estimator,adapter,
+    adapter2}.py``, the forest partials of ``spark/device_aggregate.py``)
+    on the card, on numpy batches. (i) ``RandomForestClassifier`` at
+    Spark's defaults (20 trees, depth 5, 32 bins, 'auto') fitted streamed
+    over phase 20's HIGGS-shaped rows as 16 chunks of 131,072, its level
+    jobs on the device partials (``executorDevice`` 'auto'): 7 jobs, 5 of
+    them device partials, held-out accuracy within 0.01 of phase 20 (i)'s
+    in-memory fit; the deepest level's job split into host, device and the
+    rest, and one chunk's device partial equal to the host float64
+    partial. (ii) ``GBTClassifier`` streamed, 3 rounds (cut from 20),
+    depth 5, subsamplingRate 1.0, on the 16 chunks; then on the first 2
+    chunks on the device partials against the host float64 plane: trees
+    equal, leaves within 1e-9. (iii) The adapter bodies on 8192 numpy rows
+    (the forest, GBT and DecisionTree probability and prediction bodies,
+    LinearSVC's raw vector and prediction, GLM's η and μ, the four scalers
+    and TruncatedSVD), each model moved to the host by
+    ``_host_fitted_state`` and holding no tensor after it, within 1e-12 of
+    its own ``transform``. No hand kernel launches.
 
 Then one JSON line ``{"stage_bodies": [...]}``, one ``{"knn_dbscan":
 {...}}`` (phase 19's numbers), one ``{"trees": {...}}`` (phase 20's),
-one ``{"spark_plane": {...}}`` (phase 21's), one ``{"kernels": [...]}``
+one ``{"spark_plane": {...}}`` (phase 21's), one ``{"forest_plane":
+{...}}`` (phase 22's), one ``{"kernels": [...]}``
 (each kernel with its launches per phase and, under ``extra_shapes``,
 phase 3's timings of phase 14's shapes and phases 16 and 18's Hessians),
 the card's name and power limit, and last ``{"ok": true, "device":
@@ -7051,10 +7076,16 @@ def phase_trees(torch, fg, device):
 
 # -- phase 21: the Spark statistics plane on the card ------------------------
 
-PLANE_PCA_ROWS = (CHUNK_ROWS, CHUNK_ROWS, CHUNK_ROWS, CHUNK_ROWS - 1)
-PLANE_LR_PARTITIONS = 4        # (ii): phase 14's 4 chunks of CHUNK_ROWS
-PLANE_LOGREG_ROWS = 16_384     # (iii): rows of each of 4 partitions
-PLANE_LOGREG_ITER = 3          # Newton iterations (cut from maxIter 25)
+# Phase 21 runs at a cut depth (each cut keeps its bars): 2 PCA partitions
+# (was 4; the host float64 plane repeats both), 2 LinearRegression
+# partitions (was 4), 2 binary LogisticRegression partitions of 32,768 rows
+# (was 4 of 16,384: each partition's row carries a 16.8 M-float Hessian)
+# and 2 Newton iterations (was 3), the host plane at iteration 1 only
+PLANE_PCA_ROWS = (CHUNK_ROWS, CHUNK_ROWS - 1)
+PLANE_LR_PARTITIONS = 2        # (ii): phase 14's first 2 chunks
+PLANE_LOGREG_PARTS = 2         # (iii): partitions of the binary design
+PLANE_LOGREG_ROWS = 32_768     # (iii): rows of each partition
+PLANE_LOGREG_ITER = 2          # Newton iterations (cut from maxIter 25)
 PLANE_MN_FEATURES = 256        # (iii) multinomial: phase 16 (ii)'s width
 PLANE_KM_PARTITIONS = 8        # (iv): phase 15's blobs in 8 partitions
 PLANE_KM_ITER = 5              # Lloyd iterations through the plane
@@ -7082,6 +7113,33 @@ def plane_pca_bars(label, pc, evr, ref_pc, ref_evr):
           f"{label}: components finite, shape {pc.shape}")
     check(cos[:TOP_COMPONENTS].min() >= COS_BAR, f"{label}: |cos|")
     check(evr_rel[:TOP_COMPONENTS].max() <= EVR_RTOL, f"{label}: EVR")
+
+
+def logreg_stats64(torch, device, parts, w, b):
+    """``agg.combine_logreg_stats``'s tuple for the binary ``parts`` under
+    (w, b), the host plane's formulas in float64 on the card."""
+    f64 = torch.float64
+    wt = torch.as_tensor(w, dtype=f64, device=device)
+    n = wt.shape[0]
+    gx = torch.zeros(n, dtype=f64, device=device)
+    hxx = torch.zeros((n, n), dtype=f64, device=device)
+    hxb = torch.zeros(n, dtype=f64, device=device)
+    rsum = ssum = 0.0
+    count = 0
+    for x, y in parts:
+        xd = torch.as_tensor(x, device=device).to(f64)
+        p = torch.sigmoid(xd @ wt + float(b))
+        r = p - torch.as_tensor(y, dtype=f64, device=device)
+        s = p * (1.0 - p)
+        gx += xd.T @ r
+        hxx += xd.T @ (xd * s[:, None])
+        hxb += xd.T @ s
+        rsum += float(r.sum())
+        ssum += float(s.sum())
+        count += x.shape[0]
+        del xd
+    return (gx.cpu().numpy(), hxx.cpu().numpy(), hxb.cpu().numpy(), rsum,
+            ssum, 0.0, count)
 
 
 def phase_plane(torch, fg, device):
@@ -7162,7 +7220,7 @@ def phase_plane(torch, fg, device):
     tolist_ms = (time.perf_counter() - t0) * 1e3
     del stats0
     rows, counts, part_s = run(
-        "partition_gram_stats_device x 4",
+        f"partition_gram_stats_device x {len(parts)}",
         lambda: [r for p in parts
                  for r in dev.partition_gram_stats_device([p], "features")])
     check(counts.get(gram_kernel, 0) >= len(parts),
@@ -7176,7 +7234,7 @@ def phase_plane(torch, fg, device):
     check(combined[2] == sum(PLANE_PCA_ROWS), f"(i) count {combined[2]}")
     log(f"    partition 0: device (H2D + Gram + sync) {device_ms:.1f} ms, "
         f"row .tolist() (D2H + list of {N_FEATURES ** 2:,} floats) "
-        f"{tolist_ms:.1f} ms; driver combine_stats of 4 rows "
+        f"{tolist_ms:.1f} ms; driver combine_stats of {len(parts)} rows "
         f"{combine_ms:.1f} ms, finalize {fin_s * 1e3:.1f} ms")
     summary["pca_split_ms"] = {"partition_device": device_ms,
                                "partition_tolist": tolist_ms,
@@ -7189,8 +7247,8 @@ def phase_plane(torch, fg, device):
     host = agg.combine_stats(host_rows)
     del host_rows
     gram_err = plane_rel(combined[0], host[0])
-    log(f"    host float64 plane: {host_s:.2f} s for 4 partitions; Gram "
-        f"max |Δ| / max |G| {gram_err:.3e}, col_sum "
+    log(f"    host float64 plane: {host_s:.2f} s for {len(parts)} "
+        f"partitions; Gram max |Δ| / max |G| {gram_err:.3e}, col_sum "
         f"{plane_rel(combined[1], host[1]):.3e}, count {host[2]}")
     check(host[2] == combined[2], "(i) host and device counts")
     check(gram_err <= PLANE_GRAM_RTOL, f"(i) Gram vs host {gram_err:.3e}")
@@ -7207,7 +7265,7 @@ def phase_plane(torch, fg, device):
     lap("i")
 
     # (ii) LinearRegression: phase 14's Gaussian design, Z width 4097.
-    # The host plane is cut to partition 0's partial: all 4 partitions take
+    # The host plane is cut to partition 0's partial: 4 partitions took
     # ~30 s of host float64 GEMM and list rows on the card's machine
     # (PERF.md), and (i) already holds the full host plane. The solve is
     # held to the same float64 normal equations computed on the card.
@@ -7219,7 +7277,7 @@ def phase_plane(torch, fg, device):
         f"{CHUNK_ROWS:,} x {N_FEATURES} (phase 14's design), Z = [X | y] "
         f"{N_FEATURES + 1} wide")
     rows, counts, _ = run(
-        "partition_xy_stats_device x 4",
+        f"partition_xy_stats_device x {len(chunks)}",
         lambda: [r for c in chunks
                  for r in dev.partition_xy_stats_device([c], "f", "l")])
     check(counts.get(gram_kernel, 0) >= len(chunks), f"(ii) {counts}")
@@ -7253,43 +7311,56 @@ def phase_plane(torch, fg, device):
     n = N_FEATURES
     w_star = rng.normal(scale=LR_SCALE / np.sqrt(n), size=n)
     lparts = []
-    for i in range(4):
+    for i in range(PLANE_LOGREG_PARTS):
         x_dev = logreg_design(torch, device, i)[:PLANE_LOGREG_ROWS]
         lparts.append((x_dev.cpu().numpy(),
                        binary_labels(torch, x_dev, w_star, rng)))
         del x_dev
-    log(f"  (iii) LogisticRegression binary: 4 partitions of "
+    log(f"  (iii) LogisticRegression binary: {PLANE_LOGREG_PARTS} "
+        f"partitions of "
         f"{PLANE_LOGREG_ROWS:,} x {n} (phase 16's design and labels), "
         f"maxIter {PLANE_LOGREG_ITER} (cut from 25)")
+    lap("iii setup")
     w_d, b_d = np.zeros(n), 0.0
     w_h, b_h = np.zeros(n), 0.0
     errs = []
     for it in range(1, PLANE_LOGREG_ITER + 1):
         rows, counts, _ = run(
-            f"iteration {it}: partition_logreg_stats_device x 4",
+            f"iteration {it}: partition_logreg_stats_device x "
+            f"{PLANE_LOGREG_PARTS}",
             lambda: [r for p in lparts for r in
                      dev.partition_logreg_stats_device([p], "f", "l", w_d,
                                                        b_d)])
-        check(counts == {highest: 4},
-              f"(iii) iteration {it}: launches {counts}, expected 4 "
-              f"highest")
+        check(counts == {highest: PLANE_LOGREG_PARTS},
+              f"(iii) iteration {it}: launches {counts}, expected "
+              f"{PLANE_LOGREG_PARTS} highest")
         g = agg.combine_logreg_stats(rows)
         w_d, b_d, _ = agg.logreg_newton_step_from_stats(*g[:5], g[6], w_d,
                                                         b_d)
+        # the reference iterate: the host float64 plane at iteration 1,
+        # then (cut: 20-22 s of host DGEMM and list rows an iteration)
+        # the same Newton statistics in float64 on the card
         t0 = time.perf_counter()
-        g = agg.combine_logreg_stats(
-            [r for p in lparts
-             for r in agg.partition_logreg_stats([p], "f", "l", w_h, b_h)])
+        if it == 1:
+            ref = "the host float64 plane's"
+            g = agg.combine_logreg_stats(
+                [r for p in lparts
+                 for r in agg.partition_logreg_stats([p], "f", "l", w_h,
+                                                     b_h)])
+        else:
+            ref = "the float64 Newton on the card's"
+            g = logreg_stats64(torch, device, lparts, w_h, b_h)
         w_h, b_h, step = agg.logreg_newton_step_from_stats(*g[:5], g[6], w_h,
                                                            b_h)
         host_s = time.perf_counter() - t0
         err = linreg_error(w_d, b_d, (w_h, b_h))
         errs.append(err)
-        log(f"    iteration {it}: (w, b) vs the host float64 plane's "
-            f"{err:.3e} (bar {LOGREG_RTOL:g}); host plane {host_s:.2f} s, "
-            f"host step {step:.3e}")
+        log(f"    iteration {it}: (w, b) vs {ref} {err:.3e} (bar "
+            f"{LOGREG_RTOL:g}); reference {host_s:.2f} s, its step "
+            f"{step:.3e}")
         check(err <= LOGREG_RTOL, f"(iii) iteration {it}: {err:.3e}")
     summary["logreg"] = {"iterate_errors": errs}
+    lap("iii binary")
     # multinomial at 256 features, K = 4
     ns = PLANE_MN_FEATURES
     w_s = rng.normal(scale=LR_SCALE / np.sqrt(ns), size=(LR_K, ns))
@@ -7320,20 +7391,31 @@ def phase_plane(torch, fg, device):
     for it in range(1, PLANE_LOGREG_ITER + 1):
         rows, counts, _ = run(
             f"multinomial iteration {it}: "
-            f"partition_multinomial_stats_device x 4",
+            f"partition_multinomial_stats_device x {PLANE_LOGREG_PARTS}",
             lambda: [r for p in mparts for r in
                      dev.partition_multinomial_stats_device(
                          [p], "f", "l", classes, wb_d)])
-        check(counts == {highest: 4 * k_blocks},
+        check(counts == {highest: PLANE_LOGREG_PARTS * k_blocks},
               f"(iii) multinomial iteration {it}: {counts}")
         wb_d = newton_step(rows, wb_d)
-        wb_h = newton_step(
-            [r for p in mparts for r in agg.partition_multinomial_stats(
-                [p], "f", "l", classes, wb_h)], wb_h)
+        # the host float64 plane at iteration 1, then (cut) the float64
+        # device partials
+        if it == 1:
+            ref = "the host plane's"
+            ref_rows = [r for p in mparts
+                        for r in agg.partition_multinomial_stats(
+                            [p], "f", "l", classes, wb_h)]
+        else:
+            ref = "the float64 device partials'"
+            ref_rows = [r for p in mparts
+                        for r in dev.partition_multinomial_stats_device(
+                            [p], "f", "l", classes, wb_h, dtype="float64")]
+        wb_h = newton_step(ref_rows, wb_h)
+        del ref_rows
         err = plane_rel(gauge_free_wb(wb_d), gauge_free_wb(wb_h))
         mn_errs.append(err)
         log(f"    multinomial iteration {it}: [W | b] less its class mean "
-            f"vs the host plane's {err:.3e} (bar {MN_PLAIN_RTOL:g})")
+            f"vs {ref} {err:.3e} (bar {MN_PLAIN_RTOL:g})")
         check(err <= MN_PLAIN_RTOL, f"(iii) multinomial {it}: {err:.3e}")
     xs_all = np.concatenate([p[0] for p in mparts]).astype(np.float64)
     p_d = est._multinomial_probability(xs_all, wb_d[:, :ns], wb_d[:, ns])
@@ -7345,7 +7427,7 @@ def phase_plane(torch, fg, device):
     summary["multinomial"] = {"iterate_errors": mn_errs, "proba_max": dp}
     del mparts, xs_all
 
-    lap("iii")
+    lap("iii multinomial")
 
     # (iv) KMeans: phase 15's blobs in 8 partitions, k = 64
     x_km, _ = km_blobs(torch, device)
@@ -7366,9 +7448,19 @@ def phase_plane(torch, fg, device):
         check(not counts, f"(iv) the KMeans partial launched {counts}")
         sums, cnt, cost, seen = agg.combine_kmeans_stats(rows, KM_K,
                                                          KM_FEATURES)
+        # the host float64 plane at iteration 1, then (cut: 5.9-6.6 s of
+        # np.add.at an iteration) the float64 device partials
         t0 = time.perf_counter()
-        h_rows = [r for p in kparts
-                  for r in agg.partition_kmeans_stats([p], "f", centers)]
+        if it == 1:
+            ref = "host plane"
+            h_rows = [r for p in kparts
+                      for r in agg.partition_kmeans_stats([p], "f",
+                                                          centers)]
+        else:
+            ref = "float64 device partials"
+            h_rows = [r for p in kparts
+                      for r in dev.partition_kmeans_stats_device(
+                          [p], "f", centers, dtype="float64")]
         h_sums, h_cnt, h_cost, h_seen = agg.combine_kmeans_stats(
             h_rows, KM_K, KM_FEATURES)
         host_s = time.perf_counter() - t0
@@ -7387,7 +7479,8 @@ def phase_plane(torch, fg, device):
         log(f"    iteration {it}: counts differ on {moved} rows (near-ties "
             f"{ties}); sums max |Δ| / max |Σ| {sum_err:.3e} (bar "
             f"{PLANE_SUM_RTOL:g}); cost rel {cost_err:.3e} (bar "
-            f"{KM_COST_RTOL:g}); rows {seen}; host plane {host_s:.2f} s")
+            f"{KM_COST_RTOL:g}); rows {seen}; against the {ref}, "
+            f"{host_s:.2f} s")
         check(seen == h_seen == KM_ROWS, "(iv) rows seen")
         check(moved <= 2 * ties, f"(iv) iteration {it}: {moved} count "
               f"moves beyond {ties} near-ties")
@@ -7431,6 +7524,352 @@ def phase_plane(torch, fg, device):
     summary["launches"] = launched
     log(f"  phase 21 {seconds:.1f} s, launches {launched}; {smi}")
     return launched, summary
+
+
+FP_CHUNKS = 16                 # phase 20's HIGGS rows as 16 streamed chunks
+FP_CHUNK_ROWS = TREE_FIT_ROWS // FP_CHUNKS
+FP_ACC_SLACK = 0.01            # streamed held-out accuracy vs phase 20 (i)'s
+FP_GBT_ITER = 3                # GBT rounds (cut from 20: margins recompute
+#                                the whole prior ensemble in every pass, and
+#                                5 rounds took 55.9 s on the 16 chunks)
+FP_SMALL_CHUNKS = 2            # the first 262,144 rows: device vs host plane
+FP_LEAF_ATOL = 1e-9
+FP_BODY_ROWS = 8192            # rows each adapter body is held on
+FP_BODY_RTOL = 1e-12
+
+
+def tensors_in(value) -> int:
+    """Torch tensors anywhere in ``value`` (tuples, lists, dicts)."""
+    import torch
+
+    if isinstance(value, torch.Tensor):
+        return 1
+    if isinstance(value, (tuple, list)):
+        return sum(tensors_in(v) for v in value)
+    if isinstance(value, dict):
+        return sum(tensors_in(v) for v in value.values())
+    return 0
+
+
+def phase_forest_plane(torch, fg, device, ref_accuracy):
+    """Phase 22: the forest plane on the card, on numpy batches (the card's
+    machine has neither pandas nor pyarrow): the streamed tree fits run
+    the plane's driver loop over phase 20's HIGGS-shaped rows as 16 chunks,
+    their level jobs on the device partials (``executorDevice`` 'auto'),
+    held against phase 20 (i)'s in-memory accuracy and the host float64
+    plane; then the adapter front ends' bodies on numpy rows. No hand
+    kernel runs. Returns a summary for the JSON line."""
+    from spark_rapids_ml_tpu_torch import (
+        DecisionTreeClassifier,
+        GBTClassifier,
+        GeneralizedLinearRegression,
+        LinearSVC,
+        MaxAbsScaler,
+        MinMaxScaler,
+        RandomForestClassifier,
+        RobustScaler,
+        StandardScaler,
+        TruncatedSVD,
+    )
+    from spark_rapids_ml_tpu_torch.spark import adapter as ad
+    from spark_rapids_ml_tpu_torch.spark import device_aggregate as dev
+    from spark_rapids_ml_tpu_torch.spark import forest_estimator as fe
+    from spark_rapids_ml_tpu_torch.spark import forest_plane as fp
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi_line()
+    gib = 1024 ** 3
+    summary = {"card": smi}
+    laps = {}
+    t_lap = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        laps[name] = now - t_lap[0]
+        t_lap[0] = now
+        log(f"    ({name}) {laps[name]:.1f} s")
+
+    rng = np.random.default_rng(SEED + 20)
+    hx, hy = higgs_rows(rng, TREE_FIT_ROWS + TREE_TEST_ROWS)
+    hx_test, hy_test = hx[TREE_FIT_ROWS:], hy[TREE_FIT_ROWS:]
+    chunks = [(hx[i:i + FP_CHUNK_ROWS], hy[i:i + FP_CHUNK_ROWS])
+              for i in range(0, TREE_FIT_ROWS, FP_CHUNK_ROWS)]
+    check(len(chunks) == FP_CHUNKS, f"{len(chunks)} chunks")
+
+    def stream(n_chunks=FP_CHUNKS):
+        return lambda: iter(chunks[:n_chunks])
+
+    log(f"  {smi}; phase 20's HIGGS-shaped rows: {FP_CHUNKS} chunks of "
+        f"{FP_CHUNK_ROWS:,} x {TREE_FEATURES} float32 + {TREE_TEST_ROWS:,} "
+        f"held out (made in {time.perf_counter() - t_phase:.2f} s)")
+    check(dev.executor_device_available(),
+          "executor_device_available() is false on the card")
+
+    # count the plane's jobs and its device partials over the fits, and
+    # time each job and its host and device halves (the device half
+    # synchronized, so it holds the H2D copies and the contraction)
+    calls = {"jobs": 0, "forest_device": 0, "gbt_device": 0}
+    job_s = {}
+    orig = (fe._collect_rows, dev.partition_forest_histograms_device,
+            dev.partition_gbt_histograms_device, dev.forest_batch_host,
+            dev.group_histograms_device)
+
+    def counting(key, fn):
+        def wrapped(*args, **kwargs):
+            calls[key] += 1
+            return fn(*args, **kwargs)
+        return wrapped
+
+    def timed(key, fn, sync=False):
+        def wrapped(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            if sync:
+                torch.cuda.synchronize()
+            split = job_s.setdefault(calls["jobs"], {"host": 0.0,
+                                                     "device": 0.0})
+            split[key] = split.get(key, 0.0) + time.perf_counter() - t0
+            return out
+        return wrapped
+
+    fe._collect_rows = timed("wall", counting("jobs", orig[0]))
+    dev.partition_forest_histograms_device = counting("forest_device",
+                                                      orig[1])
+    dev.partition_gbt_histograms_device = counting("gbt_device", orig[2])
+    dev.forest_batch_host = timed("host", orig[3])
+    dev.group_histograms_device = timed("device", orig[4], sync=True)
+    fg.reset_launches()
+    try:
+        # (i) RandomForestClassifier at Spark's defaults, streamed
+        est = RandomForestClassifier().setNumTrees(20).setMaxDepth(5) \
+            .setMaxBins(32).setFeatureSubsetStrategy("auto").setSeed(SEED) \
+            .setExecutorDevice("auto")
+        rf, fit_s, peak = peak_fit(torch, lambda: est.fit(stream()))
+        rf_calls = dict(calls)
+        proba = rf.predict_proba(hx_test)
+        acc = float((rf.classes_[proba.argmax(1)] == hy_test).mean())
+        depth = 5
+        groups = -(-20 // rf.trees_per_group_)
+        log(f"  (i) RandomForestClassifier streamed, 20 trees, depth 5, 32 "
+            f"bins, 'auto', executorDevice 'auto': fit {fit_s:.3f} s "
+            f"({fit_split(rf)}); {rf.trees_per_group_} trees a group, "
+            f"{rf_calls['jobs']} jobs ({rf_calls['forest_device']} on the "
+            f"device partials); peak {peak / gib:.3f} GiB allocated; "
+            f"held-out accuracy {acc:.4f} against phase 20 (i)'s in-memory "
+            f"{ref_accuracy:.4f} (bar ±{FP_ACC_SLACK})")
+        check(rf_calls["jobs"] == 1 + groups * (depth + 1),
+              f"{rf_calls['jobs']} jobs for {groups} group(s)")
+        check(rf_calls["forest_device"] == groups * depth,
+              f"{rf_calls['forest_device']} device level jobs")
+        check(abs(acc - ref_accuracy) <= FP_ACC_SLACK,
+              f"streamed accuracy {acc} vs in-memory {ref_accuracy}")
+        summary["rf"] = {"fit_s": fit_s, "split_s": rf.fit_timings_,
+                         "trees_per_group": rf.trees_per_group_,
+                         "jobs": rf_calls["jobs"], "peak_bytes": peak,
+                         "accuracy": acc, "in_memory_accuracy": ref_accuracy}
+        lap("i")
+
+        # the deepest level's job of (i) (job 1 samples, jobs 2-6 grow
+        # levels 0-4): its wall split into host work (bin, draws, route),
+        # the device histogram, and the rest (the accumulator's D2H, the
+        # rows' tolist); a row's tolist timed alone at that level's size;
+        # combine and level_split over the 5 levels from fit_timings_. Then
+        # one chunk's device partial against the host float64 partial of
+        # the same spec.
+        deep = job_s[1 + depth]
+        deep["rest"] = deep["wall"] - deep["host"] - deep["device"]
+        n_nodes = 2 ** (depth - 1)
+        n_ch = len(rf.classes_)
+        h = torch.rand((20, n_ch * n_nodes * TREE_FEATURES * 32),
+                       dtype=torch.float64, device=device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h_np = h.cpu().numpy()
+        _ = [h_np[t].ravel().tolist() for t in range(20)]
+        deep["tolist"] = time.perf_counter() - t0
+        del h, h_np, _
+        ens = rf.ensemble_
+        spec = {"edges": rf.edges_, "n_bins": 32, "level": depth - 1,
+                "subsampling_rate": 1.0, "seed": SEED,
+                "classes": rf.classes_, "weight_col": None,
+                "bootstrap": True,
+                "trees": [{"tree": t, "feature": ens.feature[t],
+                           "threshold": ens.threshold[t]}
+                          for t in range(20)]}
+        chunk0 = [(chunks[0][0].astype(np.float64), chunks[0][1])]
+        # the host half on one chunk, piece by piece: binning, the 20
+        # trees' Poisson draws, their routing to the deepest level
+        x0 = chunk0[0][0]
+        t0 = time.perf_counter()
+        binned0 = fp.apply_bin_edges(x0, rf.edges_)
+        t1 = time.perf_counter()
+        for t in range(20):
+            fp._draw_weights(fp._tree_weight_stream(1.0, SEED, t, 0, True),
+                             1.0, x0.shape[0])
+        t2 = time.perf_counter()
+        for t in range(20):
+            fp.route_to_level_np(binned0, ens.feature[t], ens.threshold[t],
+                                 depth - 1)
+        t3 = time.perf_counter()
+        deep["chunk_host_ms"] = {"bin": (t1 - t0) * 1e3,
+                                 "draws": (t2 - t1) * 1e3,
+                                 "route": (t3 - t2) * 1e3}
+        del binned0
+        got = list(dev.partition_forest_histograms_device(chunk0, "f", "l",
+                                                          spec))
+        want = list(fp.partition_forest_histograms(chunk0, "f", "l", spec))
+        equal = (len(got) == len(want) == 20 and all(
+            g["tree"] == w["tree"] and g["hist"] == w["hist"]
+            for g, w in zip(got, want)))
+        log(f"    the deepest level's job (16 nodes x 2 classes x 20 trees "
+            f"over the 16 chunks), host clock: wall {deep['wall']:.3f} s = "
+            f"host (bin, draws, route) {deep['host']:.3f} s + device "
+            f"histogram (H2D + contraction, synchronized) "
+            f"{deep['device']:.3f} s + rest (D2H, rows) {deep['rest']:.3f} "
+            f"s; one chunk's host half by piece: bin "
+            f"{deep['chunk_host_ms']['bin']:.1f} ms, 20 trees' Poisson "
+            f"draws {deep['chunk_host_ms']['draws']:.1f} ms, their routing "
+            f"{deep['chunk_host_ms']['route']:.1f} ms; "
+            f"a row's tolist at that size alone {deep['tolist']:.3f} s; "
+            f"over the 5 levels combine {rf.fit_timings_['combine']:.3f} s, "
+            f"level_split {rf.fit_timings_['level_split']:.3f} s; one "
+            f"chunk's device partial equal to the host float64 partial: "
+            f"{equal}")
+        check(equal, "the device partial of one chunk differs from the "
+              "host float64 partial (class counts are exact)")
+        summary["rf"]["deepest_level_s"] = deep
+        summary["rf"]["job_s"] = {str(k): v for k, v in job_s.items()}
+        del got, want
+        lap("level")
+
+        # (ii) GBTClassifier streamed: all 16 chunks on the card, then the
+        # first 262,144 rows on the card against the host float64 plane
+        gest = GBTClassifier().setMaxIter(FP_GBT_ITER).setMaxDepth(5) \
+            .setSubsamplingRate(1.0).setSeed(SEED)
+        before = dict(calls)
+        gbt, gfit_s, gpeak = peak_fit(torch, lambda: gest.fit(stream()))
+        g_jobs = calls["jobs"] - before["jobs"]
+        g_dev = calls["gbt_device"] - before["gbt_device"]
+        g_acc = float(((gbt.predict_proba(hx_test) > 0.5) == hy_test).mean())
+        small_dev = gest.copy().fit(stream(FP_SMALL_CHUNKS))
+        small_host = gest.copy().setExecutorDevice("off") \
+            .fit(stream(FP_SMALL_CHUNKS))
+        dleaf = float(np.abs(small_dev.ensemble_.leaf_value
+                             - small_host.ensemble_.leaf_value).max())
+        log(f"  (ii) GBTClassifier streamed, {FP_GBT_ITER} rounds (cut from "
+            f"20), depth 5, subsamplingRate 1.0: fit {gfit_s:.3f} s "
+            f"({fit_split(gbt)}), {g_jobs} jobs ({g_dev} on the device "
+            f"partials), peak {gpeak / gib:.3f} GiB; held-out accuracy "
+            f"{g_acc:.4f}; on the first {FP_SMALL_CHUNKS * FP_CHUNK_ROWS:,} "
+            f"rows, device partials vs the host float64 plane: trees equal "
+            f"{same_trees(small_dev.ensemble_, small_host.ensemble_)}, "
+            f"leaves max |Δ| {dleaf:.3e} (bar {FP_LEAF_ATOL:g})")
+        check(g_jobs == 1 + FP_GBT_ITER * (depth + 1), f"{g_jobs} GBT jobs")
+        check(g_dev == FP_GBT_ITER * depth, f"{g_dev} GBT device jobs")
+        check(g_acc > 0.6, f"GBT held-out accuracy {g_acc}")
+        check(same_trees(small_dev.ensemble_, small_host.ensemble_),
+              "GBT trees on the device partials differ from the host "
+              "plane's")
+        check(dleaf <= FP_LEAF_ATOL, f"GBT leaves {dleaf:.3e}")
+        summary["gbt"] = {"fit_s": gfit_s, "split_s": gbt.fit_timings_,
+                          "jobs": g_jobs, "peak_bytes": gpeak,
+                          "accuracy": g_acc, "small_max_abs_dleaf": dleaf}
+        lap("ii")
+
+        # (iii) the adapter front ends' bodies on numpy rows, each against
+        # its model's own transform, after _host_fitted_state
+        dt = DecisionTreeClassifier().setMaxDepth(5) \
+            .fit(stream(FP_SMALL_CHUNKS))
+        xs = hx[:TREE_TEST_ROWS].astype(np.float64)
+        ys = hy[:TREE_TEST_ROWS]
+        counts_y = rng.poisson(np.exp(0.3 * xs[:, 0] - 0.2 * xs[:, 1]))
+        svc = LinearSVC().setDtype("float64").setRegParam(0.01).fit(xs, ys)
+        glm = GeneralizedLinearRegression().setFamily("poisson") \
+            .setDtype("float64").setLinkPredictionCol("eta") \
+            .fit(xs, counts_y.astype(np.float64))
+        scalers = {
+            "StandardScaler": StandardScaler().setWithMean(True)
+            .setDtype("float64").fit(xs),
+            "MinMaxScaler": MinMaxScaler().fit(xs),
+            "MaxAbsScaler": MaxAbsScaler().fit(xs),
+            "RobustScaler": RobustScaler().fit(xs),
+            "TruncatedSVD": TruncatedSVD().setK(8).setDtype("float64")
+            .fit(xs),
+        }
+        xb = hx_test[:FP_BODY_ROWS].astype(np.float64)
+
+        def rel(got, want):
+            got = np.asarray(got, dtype=np.float64)
+            want = np.asarray(want, dtype=np.float64)
+            return float(np.abs(got - want).max()
+                         / max(np.abs(want).max(), 1e-300))
+
+        bodies = {}
+
+        def shipped(name, model, want_fn):
+            """want_fn(model) before and after _host_fitted_state; the
+            model must hold no tensor after it."""
+            want = want_fn(model)
+            ad._host_fitted_state(model)
+            left = tensors_in(vars(model))
+            check(left == 0, f"{name}: {left} tensors after "
+                  "_host_fitted_state")
+            return want
+
+        for name, model, scalar in (("RandomForest", rf, False),
+                                    ("GBT", gbt, True),
+                                    ("DecisionTree", dt, False)):
+            want = shipped(name, model, lambda m: m.transform(xb))
+            want_p = np.asarray(want.column("probability"), dtype=np.float64)
+            if scalar:
+                want_p = np.stack([1.0 - want_p, want_p], axis=1)
+            got_p = ad._classifier_probability(model, xb, "probability",
+                                               scalar)
+            got_y = ad._classifier_prediction(
+                model, got_p, np.asarray(getattr(model, "classes_", None)
+                                         if getattr(model, "classes_", None)
+                                         is not None else [0.0, 1.0]))
+            bodies[name] = [rel(got_p, want_p),
+                            rel(got_y, want.column("prediction"))]
+        want = shipped("LinearSVC", svc, lambda m: (
+            m.decision_function(xb), m.transform(xb).column("prediction")))
+        raw = ad._svc_raw(svc, xb)
+        bodies["LinearSVC"] = [
+            rel(raw, np.stack([-want[0], want[0]], axis=1)),
+            rel(ad._svc_prediction(raw, float(svc.getThreshold())),
+                want[1])]
+        want = shipped("GeneralizedLinearRegression", glm,
+                       lambda m: m.transform(xb))
+        _, link, _, link_power = glm._resolved_family_link()
+        eta = ad._glm_eta(xb, glm.coefficients, glm.intercept)
+        bodies["GeneralizedLinearRegression"] = [
+            rel(eta, want.column("eta")),
+            rel(ad._glm_mu(eta, link, link_power), want.column("prediction"))]
+        for name, model in scalers.items():
+            col = model.getOutputCol()
+            want = shipped(name, model, lambda m: m.transform(xb).column(col))
+            bodies[name] = [rel(np.stack(ad._model_output(model, xb, col)),
+                                np.stack(want))]
+        worst = max(e for errs in bodies.values() for e in errs)
+        log(f"  (iii) adapter bodies on {FP_BODY_ROWS} numpy rows vs each "
+            f"model's transform after _host_fitted_state (bar "
+            f"{FP_BODY_RTOL:g}): " + ", ".join(
+                f"{k} {' / '.join(f'{e:.3e}' for e in v)}"
+                for k, v in bodies.items()))
+        check(worst <= FP_BODY_RTOL, f"an adapter body is {worst:.3e} off")
+        summary["bodies"] = bodies
+        lap("iii")
+    finally:
+        (fe._collect_rows, dev.partition_forest_histograms_device,
+         dev.partition_gbt_histograms_device, dev.forest_batch_host,
+         dev.group_histograms_device) = orig
+    launched = {k: v for k, v in fg.launches.items() if v}
+    check(not launched, f"phase 22 launched a hand kernel: {launched}")
+    seconds = time.perf_counter() - t_phase
+    summary["section_s"] = laps
+    summary["seconds"] = seconds
+    log(f"  phase 22 {seconds:.1f} s, launches {launched}; {smi}")
+    return summary
 
 
 def build_fresh(cuda_build):
@@ -7569,6 +8008,10 @@ def main() -> int:
     log("[21] the Spark statistics plane on the card")
     plane_launches, plane_summary = phase_plane(torch, fg, device)
 
+    log("[22] the forest plane on the card")
+    forest_summary = phase_forest_plane(
+        torch, fg, device, tree_summary["rf_classifier"]["accuracy"])
+
     kernels = []
     for name, m in measured.items():
         check(launches.get(name, 0) > 0, f"{name} not launched on the main path")
@@ -7580,7 +8023,7 @@ def main() -> int:
                     "17": stage_launches.get(name, 0),
                     "18": linear_launches.get(name, 0),
                     "19": 0, "20": 0,
-                    "21": plane_launches.get(name, 0)}
+                    "21": plane_launches.get(name, 0), "22": 0}
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES, "launches": sum(by_phase.values()),
@@ -7595,6 +8038,7 @@ def main() -> int:
     print(json.dumps({"knn_dbscan": knn_summary}))
     print(json.dumps({"trees": tree_summary}))
     print(json.dumps({"spark_plane": plane_summary}))
+    print(json.dumps({"forest_plane": forest_summary}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

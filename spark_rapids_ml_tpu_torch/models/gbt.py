@@ -19,8 +19,10 @@ distributed fit), as in the JAX package.
   gradient, values from the curvature.
 
 Deterministic by seed (Poisson subsampling weights drawn as the JAX
-package draws them, dense reductions). The streamed fit is not ported yet
-(ROADMAP queue 1 item 5): it raises ``NotImplementedError``.
+package draws them, dense reductions). The streamed fit (a zero-arg
+callable of (x, y) chunks) runs the Spark statistics plane's driver loop
+(``spark/forest_estimator.py``): maxIter × (maxDepth + 1) passes over the
+chunks, margins recomputed from the growing ensemble in every pass.
 """
 
 from __future__ import annotations
@@ -41,7 +43,6 @@ from spark_rapids_ml_tpu_torch.models.params import (
 )
 from spark_rapids_ml_tpu_torch.models.pca import _resolve_dtype
 from spark_rapids_ml_tpu_torch.models.random_forest import (
-    STREAMED_TREES,
     _apply_ensemble,
     _fit_labels,
 )
@@ -131,8 +132,16 @@ class _GBTBase(GBTParams):
 
     @observed_fit("gbt")
     def fit(self, dataset, labels=None):
+        # out-of-core: a zero-arg callable yielding (x, y) chunks fits
+        # through the statistics-plane driver loop (maxIter × (depth+1)
+        # passes; margins recomputed per pass) — bounded memory
         if callable(dataset) and labels is None:
-            raise NotImplementedError(STREAMED_TREES)
+            self._reject_streamed_weights()
+            from spark_rapids_ml_tpu_torch.spark.forest_estimator import (
+                fit_gbt_streamed,
+            )
+
+            return fit_gbt_streamed(self, dataset, self._classification)
         if hasattr(dataset, "__next__"):
             raise ValueError(
                 "tree fits need a RE-ITERABLE source (one pass per tree "

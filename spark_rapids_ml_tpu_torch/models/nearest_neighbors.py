@@ -176,6 +176,15 @@ class NearestNeighborsModel(NearestNeighborsParams):
     def _copy_internal_state(self, other: "NearestNeighborsModel") -> None:
         other.items = self.items
 
+    def _release_device_state(self) -> None:
+        """Drop the device caches (the items and the IVF indexes); the
+        next search restages them. ``spark.adapter`` calls it before a
+        model ships to executors."""
+        self._device_items = None
+        self._ivf_index_cache = None
+        self._ivfpq_index_cache = None
+        self._coarse_cache = None
+
     def kneighbors(
         self, dataset, k: Optional[int] = None
     ) -> Tuple[np.ndarray, np.ndarray]:

@@ -18,10 +18,10 @@ and a fit repeated on the card is bit-identical.
 
 Trees grow in groups sized by ``_tree_batch_size`` under the
 ``maxMemoryInMB`` budget; the trees do not depend on the group size. The
-streamed fit (a zero-arg callable of chunks) goes through the Spark
-statistics plane in the JAX package and is not ported yet (ROADMAP queue
-1 item 5): it raises ``NotImplementedError``. ``dtype='auto'`` is float32
-here.
+streamed fit (a zero-arg callable of (x, y) chunks) runs the Spark
+statistics plane's driver loop (``spark/forest_estimator.py``), one pass
+over the chunks per tree level, as the JAX package's does.
+``dtype='auto'`` is float32 here.
 """
 
 from __future__ import annotations
@@ -47,13 +47,6 @@ from spark_rapids_ml_tpu_torch.utils.resources import (
 )
 from spark_rapids_ml_tpu_torch.utils.timing import PhaseTimer
 from spark_rapids_ml_tpu_torch.utils.tracing import TraceColor, TraceRange
-
-STREAMED_TREES = (
-    "streamed tree fits (a zero-arg callable of (x, y) chunks) run through "
-    "the Spark statistics plane, which is not ported yet (ROADMAP queue 1 "
-    "item 5); fit an in-memory matrix instead"
-)
-
 
 class RandomForestParams(HasInputCol, HasDeviceId, HasWeightCol):
     labelCol = Param("labelCol", "label column name", "label")
@@ -207,8 +200,16 @@ class _ForestBase(RandomForestParams):
 
     @observed_fit("random_forest")
     def fit(self, dataset, labels=None):
+        # out-of-core: a zero-arg callable yielding (x, y) chunks fits
+        # through the statistics-plane driver loop (one pass per tree
+        # level) — bounded memory, never the dense matrix
         if callable(dataset) and labels is None:
-            raise NotImplementedError(STREAMED_TREES)
+            self._reject_streamed_weights()
+            from spark_rapids_ml_tpu_torch.spark.forest_estimator import (
+                fit_forest_streamed,
+            )
+
+            return fit_forest_streamed(self, dataset, self._classification)
         if hasattr(dataset, "__next__"):
             raise ValueError(
                 "tree fits need a RE-ITERABLE source (one pass per tree "

@@ -36,8 +36,15 @@ three differences by design:
   the count into two int32 lanes, because XLA on the TPU has no x64; NCCL
   and gloo take both types.
 
-The forest histogram partials wait for the forest plane (ROADMAP queue 1
-item 5b).
+The forest histogram partials (``partition_forest_histograms_device``,
+``partition_gbt_histograms_device``) keep binning, routing and the
+bootstrap draws on the host, as the JAX package does, and contract a tree
+group's batch on the card in one ``ops.forest_kernel.channel_histograms``
+call. Two more differences by design: the histograms accumulate in
+float64 (the JAX package accumulates in the fit's dtype, float32 on an
+accelerator; the port's grower takes its histograms in float64 since
+float32 Gini gains flipped splits at a million rows), and the batches go
+in unpadded, as above.
 """
 
 from __future__ import annotations
@@ -558,3 +565,181 @@ def partition_multinomial_stats_device(
         "loss": loss,
         "count": rows_seen,
     }
+
+
+# --------------------------------------------------------------------------
+# tree-ensemble histogram partials ON the executor's card
+# --------------------------------------------------------------------------
+
+def forest_batch_host(x, y, w_user, spec, streams):
+    """The host half of one batch of a forest group's level job: bin the
+    rows, draw each tree's bootstrap weights (in the host plane's stream
+    order), route every row to its node. Returns (binned (m, d) int32,
+    nodes (T, m) int64, channels (T, m, C) float64), the channels the
+    host plane's ``partition_forest_histograms`` builds."""
+    from spark_rapids_ml_tpu_torch.spark.forest_plane import (
+        _draw_weights,
+        apply_bin_edges,
+        route_to_level_np,
+    )
+
+    classes = spec.get("classes")
+    rate = float(spec["subsampling_rate"])
+    level = int(spec["level"])
+    trees = spec["trees"]
+    m = x.shape[0]
+    binned = apply_bin_edges(x, np.asarray(spec["edges"]))
+    if classes is not None:
+        y_idx = np.searchsorted(np.asarray(classes), y)
+        onehot = np.eye(len(classes))[y_idx]
+    n_ch = 3 if classes is None else len(classes)
+    nodes = np.empty((len(trees), m), dtype=np.int64)
+    channels = np.empty((len(trees), m, n_ch))
+    for ti, t in enumerate(trees):
+        w = _draw_weights(streams[ti], rate, m)
+        if w_user is not None:
+            w = w * w_user
+        if classes is None:
+            channels[ti] = np.stack([w, w * y, w * y * y], axis=1)
+        else:
+            channels[ti] = onehot * w[:, None]
+        nodes[ti] = route_to_level_np(
+            binned, np.asarray(t["feature"]), np.asarray(t["threshold"]),
+            level,
+        )
+    return binned, nodes, channels
+
+
+def group_histograms_device(binned, nodes, channels, n_nodes: int,
+                            n_bins: int, device):
+    """One batch's (T, C, nodes·d·bins) float64 histograms of a tree group
+    on ``device``: one ``ops.forest_kernel.channel_histograms`` call (a
+    float64 GEMM a row block, the blocks summed in order), laid out as the
+    host plane's ``histogram_channels_np``."""
+    import torch
+
+    from spark_rapids_ml_tpu_torch.ops.forest_kernel import (
+        channel_histograms,
+    )
+
+    h = channel_histograms(
+        torch.as_tensor(nodes, device=device), n_nodes,
+        torch.as_tensor(binned, device=device),
+        torch.as_tensor(channels, dtype=torch.float64, device=device),
+        n_bins,
+    )
+    return h.reshape(h.shape[0], h.shape[1], -1)
+
+
+def partition_forest_histograms_device(
+    batches: Iterable,
+    features_col: str,
+    label_col: str,
+    spec: dict,
+    device_id: int = -1,
+):
+    """Device counterpart of ``forest_plane.partition_forest_histograms``:
+    the same spec and row contract (the driver's combine is shared), with
+    each batch's (C, nodes, d, bins) statistics of the whole tree group
+    contracted on this executor's card (``group_histograms_device``) and
+    accumulated there in float64. The host does the cheap parts
+    (``forest_batch_host``: binning, partial-tree routing, the bootstrap
+    draws in the host plane's order), so classification partials, sums
+    of integer-weighted counts, equal the host plane's exactly."""
+    from spark_rapids_ml_tpu_torch.spark.forest_plane import (
+        _batch_weights,
+        _batch_xy,
+        _tree_weight_stream,
+        partition_identity,
+    )
+    from spark_rapids_ml_tpu_torch.utils.resources import resolve_device
+
+    device = resolve_device(device_id)
+    rate = float(spec["subsampling_rate"])
+    seed = int(spec["seed"])
+    trees = spec["trees"]
+    pid = partition_identity()
+    streams = [
+        _tree_weight_stream(rate, seed, int(t["tree"]), pid,
+                            always_poisson=True,
+                            bootstrap=bool(spec.get("bootstrap", True)))
+        for t in trees
+    ]
+    acc = None
+    for batch in batches:
+        x, y = _batch_xy(batch, features_col, label_col)
+        if x.shape[0] == 0:
+            continue
+        w_user = _batch_weights(batch, spec.get("weight_col"), x.shape[0])
+        binned, nodes, channels = forest_batch_host(x, y, w_user, spec,
+                                                    streams)
+        out = group_histograms_device(binned, nodes, channels,
+                                      2 ** int(spec["level"]),
+                                      int(spec["n_bins"]), device)
+        acc = out if acc is None else acc + out
+    if acc is None:
+        return
+    acc_np = acc.cpu().numpy()
+    for ti, t in enumerate(trees):
+        yield {"tree": int(t["tree"]), "hist": acc_np[ti].ravel().tolist()}
+
+
+def partition_gbt_histograms_device(
+    batches: Iterable,
+    features_col: str,
+    label_col: str,
+    spec: dict,
+    device_id: int = -1,
+):
+    """Device counterpart of ``forest_plane.partition_gbt_histograms``:
+    margins and residuals on the host from the broadcast prior ensemble
+    (the host plane's ``_gbt_margin`` / ``_gbt_residual_hess``), the
+    variance-channel contraction on this executor's card in float64. The
+    same row contract as the host plane."""
+    from spark_rapids_ml_tpu_torch.spark.forest_plane import (
+        _batch_weights,
+        _batch_xy,
+        _draw_weights,
+        _gbt_margin,
+        _gbt_residual_hess,
+        _tree_weight_stream,
+        apply_bin_edges,
+        partition_identity,
+        route_to_level_np,
+    )
+    from spark_rapids_ml_tpu_torch.utils.resources import resolve_device
+
+    device = resolve_device(device_id)
+    edges = np.asarray(spec["edges"])
+    level = int(spec["level"])
+    depth = int(spec["depth"])
+    rate = float(spec["subsampling_rate"])
+    tree_idx = int(spec["tree"])
+    stream = _tree_weight_stream(rate, int(spec["seed"]), tree_idx,
+                                 partition_identity(), always_poisson=False)
+    feature = np.asarray(spec["feature"])
+    threshold = np.asarray(spec["threshold"])
+    acc = None
+    for batch in batches:
+        x, y = _batch_xy(batch, features_col, label_col)
+        m = x.shape[0]
+        if m == 0:
+            continue
+        binned = apply_bin_edges(x, edges)
+        f = _gbt_margin(
+            binned, spec.get("ens_feature"), spec.get("ens_threshold"),
+            spec.get("ens_leaf"), spec["init"], spec["step_size"], depth,
+        )
+        r, _ = _gbt_residual_hess(y, f, bool(spec["classification"]))
+        w = _draw_weights(stream, rate, m)
+        w_user = _batch_weights(batch, spec.get("weight_col"), m)
+        if w_user is not None:
+            w = w * w_user
+        channels = np.stack([w, w * r, w * r * r], axis=1)[None]
+        nodes = route_to_level_np(binned, feature, threshold, level)[None]
+        out = group_histograms_device(binned, nodes, channels, 2 ** level,
+                                      int(spec["n_bins"]), device)
+        acc = out if acc is None else acc + out
+    if acc is None:
+        return
+    yield {"tree": tree_idx, "hist": acc[0].cpu().numpy().ravel().tolist()}

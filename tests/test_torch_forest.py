@@ -519,15 +519,33 @@ def test_subset_strategy_surface_is_the_jax_packages():
             RandomForestRegressor().setFeatureSubsetStrategy(bad)
 
 
-def test_streamed_tree_fits_are_not_ported_yet():
-    x = _x(n=64)
+def test_streamed_tree_fits_run_the_forest_plane():
+    """A zero-arg callable of (x, y) chunks fits through the forest
+    plane's driver loop (``spark/forest_estimator.py``) and returns the
+    estimator's fitted model; a one-shot iterator is refused (every tree
+    level is one pass over the chunks)."""
+    x = _x(n=256)
     y = _y_reg(x)
-    for est in (RandomForestRegressor(), DecisionTreeClassifier(),
-                port_pkg.GBTRegressor()):
-        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-            est.fit(lambda: iter([(x, y)]))
+    yc = _y_cls(x)
+
+    def chunks(target):
+        return lambda: iter([(x[:100], target[:100]), (x[100:], target[100:])])
+
+    for est, target, model_cls in (
+            (RandomForestRegressor().setNumTrees(2).setMaxDepth(2), y,
+             port_pkg.RandomForestRegressionModel),
+            (DecisionTreeClassifier().setMaxDepth(2), yc,
+             port_pkg.DecisionTreeClassificationModel),
+            (port_pkg.GBTRegressor().setMaxIter(2).setMaxDepth(2), y,
+             port_pkg.GBTRegressionModel)):
+        model = est.fit(chunks(target))
+        assert type(model) is model_cls
+        assert np.isfinite(np.asarray(model.transform(x[:8])
+                                      .column("prediction"),
+                                      dtype=np.float64)).all()
+        assert "sample" in model.fit_timings_
         with pytest.raises(ValueError, match="RE-ITERABLE"):
-            est.fit(iter([(x, y)]))
+            est.fit(iter([(x, target)]))
 
 
 def test_depth_comes_from_the_fitted_ensemble():

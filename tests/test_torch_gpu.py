@@ -1737,3 +1737,107 @@ def test_spark_plane_pca_on_the_card_matches_the_host_plane(cuda_device):
     assert cos.min() >= 0.999
     assert np.abs(evr - hevr).max() / np.abs(hevr).max() <= 1e-3
     np.testing.assert_allclose(mean, hmean, atol=1e-5)
+
+
+def _forest_plane_inputs(rows=200_000, d=12):
+    """Tree-plane batches (two of them, so the device accumulates) and a
+    level-3 spec of 4 partial trees, from ``_tree_rows``."""
+    from spark_rapids_ml_tpu_torch.ops.forest_kernel import quantile_bins
+
+    x, y_cls, y_reg = _tree_rows(rows=rows, d=d)
+    x = x.astype(np.float64)
+    _, edges = quantile_bins(x[:8192], 32)
+    rng = np.random.default_rng(22)
+    trees = [{"tree": t,
+              "feature": rng.integers(0, d, 7).astype(np.int32),
+              "threshold": rng.integers(1, 31, 7).astype(np.int32)}
+             for t in range(4)]
+    spec = {"edges": edges, "n_bins": 32, "level": 3,
+            "subsampling_rate": 1.0, "seed": 7, "classes": None,
+            "trees": trees}
+    half = rows // 2 + 1
+    return x, y_cls, y_reg, spec, half
+
+
+def test_spark_forest_partials_on_the_card_equal_the_cpu(cuda_device,
+                                                         monkeypatch):
+    """The forest and GBT device partials on the card against the same
+    partials on the CPU (float64 contractions a row block at a time, the
+    blocks in order): class counts equal, regression and GBT channels
+    within 1e-12 relative; and the classification partial equal to the
+    host float64 plane's."""
+    from spark_rapids_ml_tpu_torch.spark import device_aggregate as dev
+    from spark_rapids_ml_tpu_torch.spark import forest_plane as fp
+
+    x, y_cls, y_reg, spec, half = _forest_plane_inputs()
+    cls_spec = dict(spec, classes=np.array([0.0, 1.0]))
+    prior = spec["trees"][:2]
+    gbt_spec = {**{k: spec[k] for k in ("edges", "n_bins", "level", "seed")},
+                "depth": 3, "subsampling_rate": 1.0, "tree": 2,
+                "init": 0.1, "step_size": 0.1, "classification": True,
+                "ens_feature": np.stack([t["feature"] for t in prior]),
+                "ens_threshold": np.stack([t["threshold"] for t in prior]),
+                "ens_leaf": np.stack([np.linspace(-1.0, 1.0, 8),
+                                      np.linspace(0.5, -0.5, 8)]),
+                "feature": spec["trees"][2]["feature"],
+                "threshold": spec["trees"][2]["threshold"]}
+    cases = ((dev.partition_forest_histograms_device, y_cls, cls_spec, True),
+             (dev.partition_forest_histograms_device, y_reg, spec, False),
+             (dev.partition_gbt_histograms_device, y_cls, gbt_spec, False))
+    for fn, y, s, exact in cases:
+        batches = [(x[:half], y[:half]), (x[half:], y[half:])]
+        card = list(fn(batches, "f", "l", s))
+        monkeypatch.setenv("SPARK_RAPIDS_ML_TORCH_PLATFORM", "cpu")
+        cpu = list(fn(batches, "f", "l", s))
+        monkeypatch.delenv("SPARK_RAPIDS_ML_TORCH_PLATFORM")
+        assert [r["tree"] for r in card] == [r["tree"] for r in cpu]
+        for a, b in zip(card, cpu):
+            got, want = np.asarray(a["hist"]), np.asarray(b["hist"])
+            if exact:
+                np.testing.assert_array_equal(got, want)
+            else:
+                assert np.abs(got - want).max() <= \
+                    1e-12 * np.abs(want).max()
+    host = list(fp.partition_forest_histograms(
+        [(x[:half], y_cls[:half]), (x[half:], y_cls[half:])], "f", "l",
+        cls_spec))
+    card = list(dev.partition_forest_histograms_device(
+        [(x[:half], y_cls[:half]), (x[half:], y_cls[half:])], "f", "l",
+        cls_spec))
+    assert [a["hist"] for a in card] == [b["hist"] for b in host]
+
+
+def test_spark_streamed_tree_fit_on_the_card_equals_cpu(cuda_device,
+                                                        monkeypatch):
+    """A streamed forest and a streamed GBT, their level jobs on the
+    device partials ('on'), on the card and on the CPU: the classifier's
+    trees equal (exact class counts), the GBT's features and thresholds
+    equal and its leaves within 1e-9."""
+    from spark_rapids_ml_tpu_torch import GBTRegressor, RandomForestClassifier
+
+    x, y_cls, y_reg, _, _ = _forest_plane_inputs(rows=120_000)
+
+    def chunks(y):
+        return lambda: ((x[i:i + 40_000], y[i:i + 40_000])
+                        for i in range(0, x.shape[0], 40_000))
+
+    def fits():
+        return (RandomForestClassifier().setNumTrees(5).setMaxDepth(4)
+                .setFeatureSubsetStrategy("auto").setExecutorDevice("on")
+                .fit(chunks(y_cls)),
+                GBTRegressor().setMaxIter(3).setMaxDepth(4)
+                .setMinInstancesPerNode(8).setExecutorDevice("on")
+                .fit(chunks(y_reg)))
+
+    card = fits()
+    monkeypatch.setenv("SPARK_RAPIDS_ML_TORCH_PLATFORM", "cpu")
+    cpu = fits()
+    for a, b in zip(card, cpu):
+        np.testing.assert_array_equal(a.ensemble_.feature,
+                                      b.ensemble_.feature)
+        np.testing.assert_array_equal(a.ensemble_.threshold,
+                                      b.ensemble_.threshold)
+    np.testing.assert_array_equal(card[0].ensemble_.leaf_value,
+                                  cpu[0].ensemble_.leaf_value)
+    assert np.abs(card[1].ensemble_.leaf_value
+                  - cpu[1].ensemble_.leaf_value).max() <= 1e-9

@@ -582,7 +582,9 @@ def test_tree_slice_runs_without_jax(tmp_path):
 
 
 SPARK_PLANE = ("spark", "spark._compat", "spark.local_engine",
-               "spark.aggregate", "spark.device_aggregate", "spark.estimator")
+               "spark.aggregate", "spark.device_aggregate", "spark.estimator",
+               "spark.forest_plane", "spark.forest_estimator",
+               "spark.adapter", "spark.adapter2")
 
 
 def test_spark_plane_imports_and_runs_without_jax_pandas_or_pyarrow():
@@ -622,6 +624,49 @@ def test_spark_plane_imports_and_runs_without_jax_pandas_or_pyarrow():
         "'pyarrow')))\n"
         "ok = pc.shape == (6, 3) and np.isfinite(w).all() and "
         "proj.shape == (200, 3)\n"
+        "print(bad, ok)\n"
+        "sys.exit(1 if bad or not ok else 0)\n"
+    )
+    env = dict(os.environ, SPARK_RAPIDS_ML_TORCH_PLATFORM="cpu",
+               OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO_DIR,
+                          capture_output=True, text=True, timeout=120,
+                          env=env)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_streamed_tree_fits_run_without_jax_pandas_or_pyarrow():
+    """A streamed RandomForest and a streamed GBT fit (the forest plane's
+    driver loop over numpy chunks, its level jobs on the device partials
+    under the CPU request), a DecisionTree front end resolved from
+    ``spark``, and an adapter body on numpy rows, in a process where
+    pandas and pyarrow cannot be imported and that never imports jax or
+    the JAX package."""
+    code = (
+        "import sys\n"
+        "sys.modules['pandas'] = None\n"
+        "sys.modules['pyarrow'] = None\n"
+        "import numpy as np\n"
+        "from spark_rapids_ml_tpu_torch import GBTClassifier, "
+        "RandomForestClassifier\n"
+        "from spark_rapids_ml_tpu_torch import spark\n"
+        "from spark_rapids_ml_tpu_torch.spark import adapter\n"
+        "x = np.random.default_rng(0).normal(size=(400, 5))\n"
+        "y = (x[:, 0] + x[:, 1] > 0).astype(float)\n"
+        "chunks = lambda: iter([(x[:150], y[:150]), (x[150:], y[150:])])\n"
+        "rf = RandomForestClassifier().setNumTrees(3).setMaxDepth(3)"
+        ".setExecutorDevice('on').fit(chunks)\n"
+        "gbt = GBTClassifier().setMaxIter(3).setMaxDepth(2).fit(chunks)\n"
+        "adapter._host_fitted_state(rf)\n"
+        "p = adapter._classifier_probability(rf, x, 'probability', False)\n"
+        "pred = adapter._classifier_prediction(rf, p, rf.classes_)\n"
+        "assert spark.DecisionTreeClassifier.__name__ == "
+        "'DecisionTreeClassifier'\n"
+        "bad = sorted(k for k in sys.modules if sys.modules[k] is not None "
+        "and k.split('.')[0] in ('jax', 'spark_rapids_ml_tpu', 'pandas', "
+        "'pyarrow'))\n"
+        "ok = ((pred == y).mean() > 0.8 and gbt.ensemble_.feature.shape "
+        "== (3, 3) and rf.trees_per_group_ == 3)\n"
         "print(bad, ok)\n"
         "sys.exit(1 if bad or not ok else 0)\n"
     )

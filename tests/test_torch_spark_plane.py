@@ -720,13 +720,16 @@ def test_pca_transform_raises_where_jax_falls_back(monkeypatch):
 def test_unported_front_ends_name_their_roadmap_item():
     import spark_rapids_ml_tpu_torch.spark as spark
 
-    for name, item in (("NaiveBayes", "item 6"), ("GBTClassifier", "5b"),
-                       ("RandomForestClassificationModel", "5b"),
-                       ("StandardScaler", "5c"), ("Word2Vec", "5b"),
+    for name, item in (("NaiveBayes", "item 6"), ("UMAP", "item 10"),
+                       ("StandardScaler", "5c"), ("Word2Vec", "item 7"),
                        ("Tokenizer", "item 7"),
                        ("RegressionEvaluator", "item 7")):
         with pytest.raises(AttributeError, match=item):
             getattr(spark, name)
+    # the forest plane (ROADMAP queue 1 item 5b) routes its front ends
+    assert spark.GBTClassifier.__module__.endswith(".forest_estimator")
+    assert spark.RandomForestClassificationModel is \
+        spark.RandomForestClassifierModel
     with pytest.raises(AttributeError):
         spark.NotAFrontEnd
     assert spark.PCA is est.PCA
