@@ -557,11 +557,46 @@ Phases (any failure raises and the script exits non-zero):
     and TruncatedSVD), each model moved to the host by
     ``_host_fitted_state`` and holding no tensor after it, within 1e-12 of
     its own ``transform``. No hand kernel launches.
+23. The moments plane and NaiveBayes (``spark/{moments_estimator,
+    aggregate}.py``, ``spark/estimator.py::NaiveBayes``,
+    ``models/naive_bayes.py``, ``parallel/distributed_nb.py``) on the
+    card. The front ends' ``_fit`` runs on numpy partitions through
+    ``forest_estimator.PartitionFrame`` (the host float64 partials, the
+    driver's combines and solves). (i) The four scalers on fit (c)'s
+    32,768 × 4096 rows as 4 partitions of 8192: StandardScaler within
+    1e-9 of the in-memory float64 fit on the card, MinMax and MaxAbs equal
+    to the in-memory fits; RobustScaler equal to the in-memory fit on the
+    rows its sample kept (512 a partition at 4096 wide: the 2²³-element
+    budget over 4 partitions), and equal to the every-row fit on the first
+    256 columns, where the cap (8192) keeps every row. (ii) TruncatedSVD(k = 256) on
+    phase 14 (ii)'s 65,536 × 4096 rows + 1.0 as 2 partitions: the host
+    float64 Gram partial and the driver's gated solve at float64 on the
+    card, against the in-memory float64 fit on the card: |cos| ≥ 0.999
+    over the top 64, σ within 1e-3; zero columns counted. (iii)
+    LinearSVC (with and without standardization) and GLM Poisson / log,
+    unweighted, on the first 512 columns of phase 18's design (65,536
+    rows as 2 partitions; cut from 4096 so each job's host float64 XᵀSX
+    stays under a second), within 1e-8 relative of the in-memory float64
+    fit on the card. (iv) NaiveBayes: gaussian on phase 20's 2,097,152 ×
+    28 HIGGS-shaped rows; multinomial, complement and bernoulli
+    (binarized) on 65,536 × 4096 Poisson counts of 20 classes (class
+    rates 0.05 × U(0.5, 1.5), made on the card from the seed). Each
+    float32 fit on the card within 1e-6 (max |Δ| / max |ref|) of the host
+    float64 fit, predictions agreeing on ≥ 0.999 of 8192 rows (held out
+    for gaussian), gaussian and multinomial bit-equal under
+    ``set_float32_matmul_precision("high")``; ``distributed_nb_fit`` on
+    one NCCL rank equal to the local fit (gaussian, multinomial); the
+    front end on 4 numpy partitions within 1e-12 of the local float64
+    fit; the gaussian model saved, loaded by ``load_model`` and
+    ``ModelRegistry.load``, and 32 requests of ≤ 64 held-out rows served
+    through ``ServeEngine`` with labels equal to the model's
+    ``transform``. No hand kernel launches.
 
 Then one JSON line ``{"stage_bodies": [...]}``, one ``{"knn_dbscan":
 {...}}`` (phase 19's numbers), one ``{"trees": {...}}`` (phase 20's),
 one ``{"spark_plane": {...}}`` (phase 21's), one ``{"forest_plane":
-{...}}`` (phase 22's), one ``{"kernels": [...]}``
+{...}}`` (phase 22's), one ``{"moments_plane": {...}}`` (phase 23's),
+one ``{"kernels": [...]}``
 (each kernel with its launches per phase and, under ``extra_shapes``,
 phase 3's timings of phase 14's shapes and phases 16 and 18's Hessians),
 the card's name and power limit, and last ``{"ok": true, "device":
@@ -7872,6 +7907,395 @@ def phase_forest_plane(torch, fg, device, ref_accuracy):
     return summary
 
 
+MP_SCALER_PARTS = 4            # (i): fit (c)'s 32,768 rows as 4 partitions
+MP_ROBUST_NARROW = 256         # (i): the width whose 4 partitions fit the cap
+MP_SVD_PARTS = 2               # (ii): phase 14 (ii)'s rows as 2 partitions
+MP_LINEAR_FEATURES = 512       # (iii): cut from 4096 (host float64 XᵀSX)
+MP_LINEAR_PARTS = 2
+MP_NB_CLASSES = 20             # (iv): 20 Newsgroups' class count
+MP_NB_RATE = 0.05              # (iv): mean Poisson count of a term
+MP_NB_PARTS = 4                # (iv): the front end's numpy partitions
+MP_NB_REQUESTS = 32            # (iv): served requests of ≤ 64 rows
+MP_NB_PREDICT_ROWS = 8192      # (iv): rows whose labels are compared
+MP_SS_ATOL = 1e-9              # StandardScaler plane vs in-memory float64
+MP_LINEAR_RTOL = 1e-8          # LinearSVC / GLM plane vs in-memory float64
+MP_NB_RTOL = 1e-6              # NaiveBayes float32 on the card vs host f64
+MP_NB_AGREE = 0.999            # ... predictions that must agree
+MP_NB_PLANE_RTOL = 1e-12       # the front end's partials vs float64
+
+
+def mp_rel(got, want) -> float:
+    """max |Δ| / max |ref| over arrays of one shape."""
+    got = np.asarray(got, dtype=np.float64)
+    want = np.asarray(want, dtype=np.float64)
+    check(got.shape == want.shape, f"shape {got.shape} != {want.shape}")
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-300))
+
+
+def same_nb(a, b) -> bool:
+    return (np.array_equal(a.pi, b.pi) and np.array_equal(a.theta, b.theta)
+            and ((a.sigma is None and b.sigma is None)
+                 or np.array_equal(a.sigma, b.sigma)))
+
+
+def phase_moments_plane(torch, fg, device):
+    """Phase 23: the moments plane and NaiveBayes on the card. The front
+    ends' ``_fit`` runs on numpy partitions through
+    ``forest_estimator.PartitionFrame`` (the card's machine has neither
+    pandas nor pyarrow): the host float64 partials, the driver's combines
+    and solves (TruncatedSVD's gated eigensolve on the card), held against
+    the port's in-memory fits; then NaiveBayes' fits on the card, one NCCL
+    rank, the front end and serving. No hand kernel runs. Returns a
+    summary for the JSON line."""
+    import torch.distributed as dist
+
+    import spark_rapids_ml_tpu_torch.spark as ps
+    from spark_rapids_ml_tpu_torch import (
+        GeneralizedLinearRegression,
+        LinearSVC,
+        MaxAbsScaler,
+        MinMaxScaler,
+        NaiveBayes,
+        RobustScaler,
+        StandardScaler,
+        TruncatedSVD,
+    )
+    from spark_rapids_ml_tpu_torch.io.persistence import load_model
+    from spark_rapids_ml_tpu_torch.parallel import (
+        data_mesh,
+        distributed_nb_fit,
+        initialize_multihost,
+    )
+    from spark_rapids_ml_tpu_torch.serve import ModelRegistry, ServeEngine
+    from spark_rapids_ml_tpu_torch.spark import forest_estimator as fe
+    from spark_rapids_ml_tpu_torch.spark import moments_estimator as me
+    from spark_rapids_ml_tpu_torch.spark.forest_plane import (
+        quantile_sample_cap,
+    )
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi_line()
+    summary = {"card": smi}
+    laps = {}
+    t_lap = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        laps[name] = now - t_lap[0]
+        t_lap[0] = now
+        log(f"    ({name}) {laps[name]:.1f} s")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def partitions(x, n_parts, y=None):
+        """Rows as ``n_parts`` equal numpy partitions of one batch each,
+        ``(x, y)`` tuples with a label."""
+        per = x.shape[0] // n_parts
+        check(per * n_parts == x.shape[0], f"{x.shape[0]} rows")
+        return fe.PartitionFrame([
+            [x[i * per:(i + 1) * per] if y is None
+             else (x[i * per:(i + 1) * per], y[i * per:(i + 1) * per])]
+            for i in range(n_parts)])
+
+    log(f"  {smi}; the front ends' _fit on numpy partitions "
+        f"(forest_estimator.PartitionFrame), host float64 partials")
+    fg.reset_launches()
+
+    # (i) the scalers on fit (c)'s rows as 4 partitions of 8192
+    x_c = chunk(torch, device, 20, rows=CHUNK_ROWS // 2)
+    frame = partitions(x_c, MP_SCALER_PARTS)
+    scalers = {}
+    plane, s = timed(lambda: ps.StandardScaler().fit(frame)._local)
+    ref, s_ref = timed(lambda: StandardScaler().setDtype("float64").fit(x_c))
+    err = max(float(np.abs(plane.mean - ref.mean).max()),
+              float(np.abs(plane.std - ref.std).max()))
+    scalers["StandardScaler"] = {"s": s, "in_memory_s": s_ref,
+                                 "max_abs_err": err}
+    check(err <= MP_SS_ATOL, f"plane StandardScaler {err:.3e} off")
+    plane, s = timed(lambda: ps.MinMaxScaler().fit(frame)._local)
+    ref, s_ref = timed(lambda: MinMaxScaler().fit(x_c))
+    equal = (np.array_equal(plane.original_min, ref.original_min)
+             and np.array_equal(plane.original_max, ref.original_max))
+    scalers["MinMaxScaler"] = {"s": s, "in_memory_s": s_ref, "equal": equal}
+    check(equal, "plane MinMaxScaler differs from the in-memory fit")
+    plane, s = timed(lambda: ps.MaxAbsScaler().fit(frame)._local)
+    ref, s_ref = timed(lambda: MaxAbsScaler().fit(x_c))
+    equal = np.array_equal(plane.max_abs, ref.max_abs)
+    scalers["MaxAbsScaler"] = {"s": s, "in_memory_s": s_ref, "equal": equal}
+    check(equal, "plane MaxAbsScaler differs from the in-memory fit")
+    # RobustScaler at 4096 wide: 4 partitions under the 2²³-element
+    # budget keep 512 rows each, so the plane's quantiles are the sample's
+    cap = quantile_sample_cap(N_FEATURES, MP_SCALER_PARTS)
+    plane, s = timed(lambda: ps.RobustScaler().fit(frame)._local)
+    sample, n_seen = me._collect_feature_sample(frame, "features")
+    on_sample, s_ref = timed(lambda: RobustScaler().fit(sample))
+    equal = (np.array_equal(plane.median, on_sample.median)
+             and np.array_equal(plane.qrange, on_sample.qrange))
+    kept = min(cap, x_c.shape[0] // MP_SCALER_PARTS) * MP_SCALER_PARTS
+    check(equal and sample.shape == (kept, N_FEATURES)
+          and n_seen == x_c.shape[0],
+          f"plane RobustScaler vs the fit on its {sample.shape} sample")
+    # at 256 wide the cap is 8192: every row is kept
+    x_n = np.ascontiguousarray(x_c[:, :MP_ROBUST_NARROW])
+    plane_n, s_n = timed(lambda: ps.RobustScaler().fit(
+        partitions(x_n, MP_SCALER_PARTS))._local)
+    ref_n = RobustScaler().fit(x_n)
+    equal_n = (np.array_equal(plane_n.median, ref_n.median)
+               and np.array_equal(plane_n.qrange, ref_n.qrange))
+    scalers["RobustScaler"] = {
+        "s": s, "in_memory_s_on_sample": s_ref, "cap": cap,
+        "sampled_rows": int(sample.shape[0]), "equal_on_sample": equal,
+        f"s_at_{MP_ROBUST_NARROW}": s_n,
+        f"equal_at_{MP_ROBUST_NARROW}": equal_n}
+    check(equal_n, f"plane RobustScaler at {MP_ROBUST_NARROW} wide differs")
+    log(f"  (i) scalers on {x_c.shape[0]:,} x {N_FEATURES} as "
+        f"{MP_SCALER_PARTS} partitions: " + "; ".join(
+            f"{k} " + ", ".join(f"{n} {v:.4g}" if isinstance(v, float)
+                                else f"{n} {v}" for n, v in d.items())
+            for k, d in scalers.items()))
+    summary["scalers"] = scalers
+    del x_c, frame, x_n, sample
+    lap("i")
+
+    # (ii) TruncatedSVD(k = 256) on phase 14 (ii)'s rows as 2 partitions
+    x_s = chunk(torch, device, 0, rows=SVD_ROWS) + np.float32(SVD_SHIFT)
+    plane, s = timed(lambda: ps.TruncatedSVD(k=K, dtype="float64").fit(
+        partitions(x_s, MP_SVD_PARTS))._local)
+    ref, s_ref = timed(lambda: TruncatedSVD().setK(K).setDtype("float64")
+                       .fit(x_s))
+    cos = np.abs(np.sum(plane.components * ref.components, axis=0))
+    top = slice(0, TOP_COMPONENTS)
+    s_rel = float((np.abs(plane.singular_values[top]
+                          - ref.singular_values[top])
+                   / np.abs(ref.singular_values[top])).max())
+    zeros = [int((np.abs(c).max(axis=0) == 0).sum())
+             for c in (plane.components, ref.components)]
+    summary["truncated_svd"] = {
+        "s": s, "timings": plane.fit_timings_, "in_memory_s": s_ref,
+        "cos_min_top": float(cos[top].min()), "sigma_rel_top": s_rel,
+        "zero_columns": zeros,
+        "solver": [plane.svd_solver_used_, ref.svd_solver_used_]}
+    log(f"  (ii) TruncatedSVD(k={K}) on {x_s.shape[0]:,} x {N_FEATURES} + "
+        f"{SVD_SHIFT} as {MP_SVD_PARTS} partitions, float64: plane {s:.3f} s "
+        f"({ {k: round(v, 3) for k, v in plane.fit_timings_.items()} }), "
+        f"in memory {s_ref:.3f} s; |cos| min over top {TOP_COMPONENTS} "
+        f"{cos[top].min():.9f} (bar {COS_BAR}); σ rel {s_rel:.3e} (bar "
+        f"{SIGMA_RTOL:g}); zero columns {zeros[0]} (in memory {zeros[1]}) "
+        f"of {K}; solver {plane.svd_solver_used_} "
+        f"({ref.svd_solver_used_})")
+    check(cos[top].min() >= COS_BAR, "plane TruncatedSVD |cos|")
+    check(s_rel <= SIGMA_RTOL, "plane TruncatedSVD σ")
+    del x_s
+    lap("ii")
+
+    # (iii) LinearSVC and GLM Poisson at 512 features of phase 18's design
+    x_dev = logreg_design(torch, device, 0)[:, :MP_LINEAR_FEATURES] \
+        .contiguous()
+    x_l = x_dev.cpu().numpy()
+    rng = np.random.default_rng(SEED + 2300)
+    nl = MP_LINEAR_FEATURES
+    z = planted_logits(torch, x_dev, rng.normal(
+        scale=LR_SCALE / np.sqrt(nl), size=nl), LR_INTERCEPT)
+    y_svc = (z + rng.normal(scale=SVC_NOISE, size=z.shape[0])
+             > 0).astype(np.float64)
+    eta = planted_logits(torch, x_dev, rng.normal(
+        scale=GLM_SCALE / np.sqrt(nl), size=nl), GLM_INTERCEPT)
+    counts = rng.poisson(np.exp(eta)).astype(np.float64)
+    del x_dev
+    linear = {}
+    for label, plane_est, mem_est, y in (
+            ("LinearSVC standardization", ps.LinearSVC(),
+             LinearSVC().setDtype("float64"), y_svc),
+            ("LinearSVC raw", ps.LinearSVC(standardization=False),
+             LinearSVC().setStandardization(False).setDtype("float64"),
+             y_svc),
+            ("GLM Poisson / log",
+             ps.GeneralizedLinearRegression(family="poisson"),
+             GeneralizedLinearRegression(family="poisson")
+             .setDtype("float64"), counts)):
+        plane, s = timed(lambda: plane_est.fit(
+            partitions(x_l, MP_LINEAR_PARTS, y))._local)
+        ref, s_ref = timed(lambda: mem_est.fit(x_l, labels=y))
+        err = linreg_error(plane.coefficients, plane.intercept,
+                           (ref.coefficients, ref.intercept))
+        iters = [getattr(m, "n_iter_", None) or m.num_iterations_
+                 for m in (plane, ref)]
+        linear[label] = {"s": s, "in_memory_s": s_ref, "rel_err": err,
+                         "iterations": iters}
+        log(f"  (iii) {label}, {x_l.shape[0]:,} x {nl} as "
+            f"{MP_LINEAR_PARTS} partitions: plane {s:.3f} s, in-memory "
+            f"float64 on the card {s_ref:.3f} s; iterations {iters[0]} "
+            f"({iters[1]}); rel err {err:.3e} (bar {MP_LINEAR_RTOL:g})")
+        check(err <= MP_LINEAR_RTOL, f"plane {label} rel err {err:.3e}")
+    summary["linear"] = linear
+    del x_l
+    lap("iii")
+
+    # (iv) NaiveBayes: Gaussian at HIGGS's shape, the counting families
+    # on 20 classes of Poisson(0.05) counts
+    rng = np.random.default_rng(SEED + 20)
+    hx, hy = higgs_rows(rng, TREE_FIT_ROWS + TREE_TEST_ROWS)
+    hx_test = hx[TREE_FIT_ROWS:]
+    hx, hy = hx[:TREE_FIT_ROWS], hy[:TREE_FIT_ROWS]
+    gen = torch.Generator(device=device).manual_seed(SEED + 2301)
+    yc_dev = torch.randint(0, MP_NB_CLASSES, (CHUNK_ROWS,), generator=gen,
+                           device=device)
+    profile = MP_NB_RATE * (0.5 + torch.rand(MP_NB_CLASSES, N_FEATURES,
+                                             generator=gen, device=device))
+    xc = torch.poisson(profile[yc_dev], generator=gen).cpu().numpy()
+    yc = yc_dev.double().cpu().numpy()
+    del yc_dev, profile
+    xb = (xc > 0).astype(np.float32)
+    # (rows, labels, rows predicted)
+    cut = MP_NB_PREDICT_ROWS
+    data = {"gaussian": (hx, hy, hx_test[:cut]),
+            "multinomial": (xc, yc, xc[:cut]),
+            "complement": (xc, yc, xc[:cut]),
+            "bernoulli": (xb, yc, xb[:cut])}
+    log(f"  (iv) NaiveBayes: gaussian on {hx.shape[0]:,} x {hx.shape[1]} "
+        f"HIGGS-shaped rows, 2 classes; multinomial, complement, bernoulli "
+        f"on {xc.shape[0]:,} x {N_FEATURES} Poisson counts (class rates "
+        f"{MP_NB_RATE} x U(0.5, 1.5), {MP_NB_CLASSES} classes; mean count "
+        f"{float(xc.mean()):.4f}; bernoulli binarized)")
+    nb = {}
+    fitted = {}
+    for kind, (x, y, x_pred) in data.items():
+        est = NaiveBayes().setModelType(kind)
+        f32, s = timed(lambda: est.fit(x, labels=y))
+        host, s_host = timed(lambda: est.copy({"useXlaDot": False}).fit(
+            x, labels=y))
+        high = f32
+        if kind in ("gaussian", "multinomial"):
+            # the four families share one product; the TF32 trap needs it
+            # with and without the Σx² slot
+            prev = torch.get_float32_matmul_precision()
+            torch.set_float32_matmul_precision("high")
+            try:
+                high = est.fit(x, labels=y)
+            finally:
+                torch.set_float32_matmul_precision(prev)
+        errs = {"theta": mp_rel(f32.theta, host.theta),
+                "pi": mp_rel(f32.pi, host.pi)}
+        if kind == "gaussian":
+            errs["sigma"] = mp_rel(f32.sigma, host.sigma)
+        got = np.asarray(f32.transform(x_pred).column("prediction"))
+        want = np.asarray(host.transform(x_pred).column("prediction"))
+        agree = float((got == want).mean())
+        nb[kind] = {"s": s, "host_s": s_host, "rel_err": errs,
+                    "agree": agree}
+        if high is not f32:
+            nb[kind]["tf32_bit_equal"] = same_nb(high, f32)
+        fitted[kind] = f32
+        log(f"    {kind}: float32 on the card {s:.3f} s "
+            f"({ {k: round(v, 3) for k, v in f32.fit_timings_.items()} }), "
+            f"host float64 {s_host:.3f} s; rel err " + ", ".join(
+                f"{k} {v:.3e}" for k, v in errs.items())
+            + f" (bar {MP_NB_RTOL:g}); predictions agree on {agree:.6f} of "
+            f"{len(got):,} rows (bar {MP_NB_AGREE}); bit-equal under "
+            f"set_float32_matmul_precision('high'): "
+            f"{nb[kind].get('tf32_bit_equal', 'not run')}")
+        check(max(errs.values()) <= MP_NB_RTOL,
+              f"NaiveBayes {kind} float32 vs float64 {errs}")
+        check(agree >= MP_NB_AGREE, f"NaiveBayes {kind} agreement {agree}")
+        check(nb[kind].get("tf32_bit_equal", True), f"NaiveBayes {kind} "
+              f"moves under set_float32_matmul_precision('high')")
+    lap("iv fits")
+
+    # distributed_nb_fit on one NCCL rank, equal to the local float32 fit
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    coordinator = f"127.0.0.1:{free_port()}"
+    try:
+        initialize_multihost(coordinator, num_processes=1, process_id=0)
+    except Exception as exc:
+        raise RuntimeError(f"phase 23: the one-rank NCCL world did not "
+                           f"start at {coordinator}: {exc!r}") from exc
+    try:
+        check(dist.get_backend() == "nccl", "the card's world runs NCCL")
+        for kind in ("gaussian", "multinomial"):
+            x, y, _ = data[kind]
+            model, s = timed(lambda: distributed_nb_fit(
+                x, y, data_mesh(1), model_type=kind))
+            equal = same_nb(model, fitted[kind])
+            nb[kind]["one_rank"] = {
+                "s": s, "equal": equal,
+                "collectives": model.fit_report_.collectives}
+            log(f"    distributed_nb_fit {kind}, one NCCL rank: {s:.3f} s, "
+                f"equal to the local fit: {equal}; collectives "
+                f"{model.fit_report_.collectives}")
+            check(equal, f"distributed_nb_fit {kind} differs from the "
+                  f"local float32 fit")
+    finally:
+        dist.destroy_process_group()
+
+    # the front end on numpy partitions vs the local float64 fit
+    for kind in ("gaussian", "multinomial"):
+        x, y, _ = data[kind]
+        plane, s = timed(lambda: ps.NaiveBayes(modelType=kind).fit(
+            partitions(x, MP_NB_PARTS, y))._local)
+        ref = NaiveBayes().setModelType(kind).setDtype("float64").fit(
+            x, labels=y)
+        errs = [mp_rel(plane.pi, ref.pi), mp_rel(plane.theta, ref.theta)]
+        if kind == "gaussian":
+            errs.append(mp_rel(plane.sigma, ref.sigma))
+        nb[kind]["plane"] = {"s": s, "rel_err": max(errs)}
+        log(f"    the front end, {kind}, {MP_NB_PARTS} partitions: {s:.3f} "
+            f"s; vs the local float64 fit on the card {max(errs):.3e} (bar "
+            f"{MP_NB_PLANE_RTOL:g})")
+        check(max(errs) <= MP_NB_PLANE_RTOL,
+              f"NaiveBayes front end {kind} {errs}")
+    del xc, xb, data
+    lap("iv rank and plane")
+
+    # save → load_model → ModelRegistry.load → ServeEngine
+    model = fitted["gaussian"]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "nb")
+        model.save(path)
+        loaded = load_model(path)
+        check(type(loaded) is type(model) and same_nb(loaded, model),
+              "load_model's NaiveBayesModel")
+        registry = ModelRegistry()
+        registry.load("nb", path)
+        engine = ServeEngine(registry, max_wait_ms=1)
+        rng = np.random.default_rng(SEED + 2302)
+        rows = rng.integers(1, SERVE_JSON_MAX_ROWS + 1, MP_NB_REQUESTS)
+        starts = rng.integers(0, hx_test.shape[0] - SERVE_JSON_MAX_ROWS,
+                              MP_NB_REQUESTS)
+        mismatched = 0
+        t0 = time.perf_counter()
+        try:
+            for n_rows, start in zip(rows, starts):
+                batch = hx_test[start:start + n_rows]
+                served = np.asarray(engine.predict("nb", batch))
+                labels = loaded.classes_[np.argmax(served, axis=1)]
+                want = np.asarray(model.transform(batch).column("prediction"))
+                mismatched += int((labels != want).sum())
+        finally:
+            engine.shutdown()
+        serve_s = time.perf_counter() - t0
+    nb["served"] = {"requests": MP_NB_REQUESTS, "rows": int(rows.sum()),
+                    "label_mismatches": mismatched, "s": serve_s}
+    log(f"    served: {MP_NB_REQUESTS} requests, {int(rows.sum())} rows "
+        f"through ServeEngine in {serve_s:.3f} s; labels differing from "
+        f"the model's transform: {mismatched}")
+    check(mismatched == 0, f"{mismatched} served labels differ")
+    summary["naive_bayes"] = nb
+    lap("iv served")
+
+    launched = {k: v for k, v in fg.launches.items() if v}
+    check(not launched, f"phase 23 launched a hand kernel: {launched}")
+    seconds = time.perf_counter() - t_phase
+    summary["section_s"] = laps
+    summary["seconds"] = seconds
+    log(f"  phase 23 {seconds:.1f} s, launches {launched}; {smi}")
+    return summary
+
+
 def build_fresh(cuda_build):
     """Build the Gram library anew, so ``ptxas -v`` reports on it."""
     path = cuda_build.library_path("fused_gram")
@@ -8012,6 +8436,9 @@ def main() -> int:
     forest_summary = phase_forest_plane(
         torch, fg, device, tree_summary["rf_classifier"]["accuracy"])
 
+    log("[23] the moments plane and NaiveBayes on the card")
+    moments_summary = phase_moments_plane(torch, fg, device)
+
     kernels = []
     for name, m in measured.items():
         check(launches.get(name, 0) > 0, f"{name} not launched on the main path")
@@ -8023,7 +8450,8 @@ def main() -> int:
                     "17": stage_launches.get(name, 0),
                     "18": linear_launches.get(name, 0),
                     "19": 0, "20": 0,
-                    "21": plane_launches.get(name, 0), "22": 0}
+                    "21": plane_launches.get(name, 0), "22": 0,
+                    "23": 0}
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES, "launches": sum(by_phase.values()),
@@ -8039,6 +8467,7 @@ def main() -> int:
     print(json.dumps({"trees": tree_summary}))
     print(json.dumps({"spark_plane": plane_summary}))
     print(json.dumps({"forest_plane": forest_summary}))
+    print(json.dumps({"moments_plane": moments_summary}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

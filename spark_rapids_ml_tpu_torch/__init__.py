@@ -90,6 +90,10 @@ from spark_rapids_ml_tpu_torch.models.feature_transformers import (  # noqa: F40
     VarianceThresholdSelectorModel,
     VectorSlicer,
 )
+from spark_rapids_ml_tpu_torch.models.naive_bayes import (  # noqa: F401
+    NaiveBayes,
+    NaiveBayesModel,
+)
 from spark_rapids_ml_tpu_torch.linalg import RowMatrix  # noqa: F401
 
 __all__ = [
@@ -141,4 +145,6 @@ __all__ = [
     "VarianceThresholdSelector",
     "VarianceThresholdSelectorModel",
     "VectorSlicer",
+    "NaiveBayes",
+    "NaiveBayesModel",
 ]

@@ -2,9 +2,9 @@
 
 A copy of the PCA, KMeans, StandardScaler, LinearRegression,
 LogisticRegression, LinearSVC, GeneralizedLinearRegression,
-TruncatedSVD, NearestNeighbors, RandomForest, DecisionTree and GBT parts
-of the JAX package's ``io/persistence.py``, so a model saved by either
-package loads in the other (``RapidsPCA.scala:218-254``):
+TruncatedSVD, NearestNeighbors, NaiveBayes, RandomForest, DecisionTree and
+GBT parts of the JAX package's ``io/persistence.py``, so a model saved by
+either package loads in the other (``RapidsPCA.scala:218-254``):
 
 * ``path/metadata/part-00000`` — one JSON line: class, timestamp, uid,
   paramMap (Spark's ``DefaultParamsWriter.saveMetadata``); params Spark's
@@ -23,6 +23,8 @@ package loads in the other (``RapidsPCA.scala:218-254``):
   summary (iterations, deviance, weight sum) in the metadata's ``extra``;
   for TruncatedSVD ``V`` and ``s``; for NearestNeighbors the fitted
   ``items`` (DBSCAN's model has no writer, as in the JAX package); for
+  NaiveBayes ``pi``, ``theta``, ``sigma`` (empty but for gaussian),
+  ``classes`` and ``hasSigma``; for
   the tree models (RandomForest, DecisionTree, GBT) the ensemble's
   ``feature``, ``threshold`` and ``leafValue`` and the bin ``edges`` as
   DenseMatrix structs, with ``classes`` / ``numClasses`` (forests) or
@@ -337,6 +339,7 @@ _SPARK_FIELD_TYPES = {
     "double": "double",
     "integer": "integer",
     "long": "long",
+    "boolean": "boolean",
     "array<int>": {"type": "array", "elementType": "integer",
                    "containsNull": False},
 }
@@ -865,6 +868,59 @@ def load_selector_model(path: str):
     return _restore_params(model, meta)
 
 
+def save_nb_model(model, path: str, overwrite: bool = False) -> None:
+    """NaiveBayesModel: pi / theta (+ sigma for gaussian) / classes."""
+    if model.theta is None:
+        raise ValueError("cannot save an unfitted NaiveBayesModel")
+    _require_target(path, overwrite)
+    cls = f"{type(model).__module__}.{type(model).__qualname__}"
+    _write_metadata(path, cls, model.uid, model.param_map_for_metadata())
+    has_sigma = model.sigma is not None
+    row = {
+        "pi": _dense_vector_struct(model.pi),
+        "theta": _dense_matrix_struct(model.theta),
+        "sigma": _dense_matrix_struct(
+            model.sigma if has_sigma else np.zeros((0, 0))
+        ),
+        "classes": _dense_vector_struct(np.asarray(model.classes_, float)),
+        "hasSigma": bool(has_sigma),
+    }
+    try:
+        import pyarrow as pa
+    except ImportError:
+        schema = None
+    else:
+        schema = pa.schema([
+            ("pi", _vector_arrow_type()),
+            ("theta", _matrix_arrow_type()),
+            ("sigma", _matrix_arrow_type()),
+            ("classes", _vector_arrow_type()),
+            ("hasSigma", pa.bool_()),
+        ])
+    _write_data_row(path, row, schema=schema, spark_fields=[
+        ("pi", "vector"), ("theta", "matrix"), ("sigma", "matrix"),
+        ("classes", "vector"), ("hasSigma", "boolean"),
+    ])
+
+
+def load_nb_model(path: str):
+    from spark_rapids_ml_tpu_torch.models.naive_bayes import NaiveBayesModel
+
+    meta = _read_metadata(path)
+    row = _read_data_row(path)
+    sigma = (
+        _dense_matrix_from_struct(row["sigma"]) if row["hasSigma"] else None
+    )
+    model = NaiveBayesModel(
+        pi=_dense_vector_from_struct(row["pi"]),
+        theta=_dense_matrix_from_struct(row["theta"]),
+        sigma=sigma,
+        classes=_dense_vector_from_struct(row["classes"]),
+    )
+    model.uid = meta["uid"]
+    return _restore_params(model, meta)
+
+
 def save_knn_model(model, path: str, overwrite: bool = False) -> None:
     """NearestNeighborsModel: the fitted item matrix is the model payload
     (brute-force KNN has no reduced parameters; the IVF indexes are
@@ -1091,6 +1147,7 @@ _MODEL_CLASSES = {
                  "GeneralizedLinearRegressionModel")),
         ("svd", ("TruncatedSVD", "TruncatedSVDModel")),
         ("nearest_neighbors", ("NearestNeighbors", "NearestNeighborsModel")),
+        ("naive_bayes", ("NaiveBayes", "NaiveBayesModel")),
         ("dbscan", ("DBSCAN",)),
         ("random_forest", ("RandomForestRegressor",
                            "RandomForestRegressionModel",

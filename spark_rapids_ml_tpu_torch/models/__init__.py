@@ -67,6 +67,10 @@ from spark_rapids_ml_tpu_torch.models.feature_transformers import (
     VarianceThresholdSelectorModel,
     VectorSlicer,
 )
+from spark_rapids_ml_tpu_torch.models.naive_bayes import (
+    NaiveBayes,
+    NaiveBayesModel,
+)
 
 __all__ = [
     "PCA",
@@ -116,4 +120,6 @@ __all__ = [
     "VarianceThresholdSelector",
     "VarianceThresholdSelectorModel",
     "VectorSlicer",
+    "NaiveBayes",
+    "NaiveBayesModel",
 ]

@@ -1,8 +1,8 @@
 """Fits across ranks on ``torch.distributed``: meshes, the multi-host
 runtime, the data-parallel, streamed and feature-sharded PCA fits, and the
 data-parallel LinearRegression, LogisticRegression, LinearSVC,
-GeneralizedLinearRegression and KMeans fits; the sharded brute-force and
-IVF searches and DBSCAN; the RandomForest and GBT fits."""
+GeneralizedLinearRegression, KMeans and NaiveBayes fits; the sharded
+brute-force and IVF searches and DBSCAN; the RandomForest and GBT fits."""
 
 from spark_rapids_ml_tpu_torch.parallel.mesh import (
     DATA_AXIS,
@@ -42,6 +42,10 @@ from spark_rapids_ml_tpu_torch.parallel.distributed_glm import (
 from spark_rapids_ml_tpu_torch.parallel.distributed_kmeans import (
     distributed_kmeans_fit,
     distributed_kmeans_fit_kernel,
+)
+from spark_rapids_ml_tpu_torch.parallel.distributed_nb import (
+    distributed_nb_fit,
+    distributed_nb_stats_kernel,
 )
 from spark_rapids_ml_tpu_torch.parallel.distributed_knn import (
     distributed_kneighbors,
@@ -84,6 +88,7 @@ __all__ = [
     "distributed_svc_fit", "distributed_svc_fit_kernel",
     "distributed_glm_fit",
     "distributed_kmeans_fit", "distributed_kmeans_fit_kernel",
+    "distributed_nb_fit", "distributed_nb_stats_kernel",
     "distributed_kneighbors", "distributed_ivf_search",
     "distributed_dbscan_labels",
     "distributed_forest_fit", "distributed_gbt_fit",

@@ -11,12 +11,13 @@ lazily below.
 
 The port's copy of the JAX package's ``spark/__init__.py`` for what is
 ported: the statistics plane (``estimator.py``: PCA, LinearRegression,
-LogisticRegression, KMeans and their models), the per-level tree plane
-(``forest_estimator.py``: DecisionTree, RandomForest and GBT), and the
-generic adapter's models and NearestNeighbors (``adapter.py``,
-``adapter2.py``). Every other front end of the JAX package's Spark plane
-is not ported yet; its name raises ``AttributeError`` naming the ROADMAP
-item that brings it.
+LogisticRegression, KMeans, NaiveBayes and their models), the moments
+plane (``moments_estimator.py``: the four scalers, TruncatedSVD,
+LinearSVC and GLM), the per-level tree plane (``forest_estimator.py``:
+DecisionTree, RandomForest and GBT), and the generic adapter's models and
+NearestNeighbors (``adapter.py``, ``adapter2.py``). Every other front end
+of the JAX package's Spark plane is not ported yet; its name raises
+``AttributeError`` naming the ROADMAP item that brings it.
 """
 
 from spark_rapids_ml_tpu_torch.spark.aggregate import (  # noqa: F401
@@ -35,6 +36,21 @@ _PYSPARK_CLASSES = (
     "LogisticRegressionModel",
     "KMeans",
     "KMeansModel",
+    "NaiveBayes",
+)
+
+# moments-plane front-ends (spark/moments_estimator.py): the scalers,
+# TruncatedSVD, LinearSVC and GLM fit on executor moment / sample / Gram /
+# Newton partials, never collecting rows to the driver; their models stay
+# the adapter's
+_MOMENTS_PLANE_CLASSES = (
+    "StandardScaler",
+    "MinMaxScaler",
+    "MaxAbsScaler",
+    "RobustScaler",
+    "TruncatedSVD",
+    "LinearSVC",
+    "GeneralizedLinearRegression",
 )
 
 # tree-ensemble front-ends (spark/forest_estimator.py): fits run on the
@@ -62,6 +78,7 @@ _ADAPTER_CLASSES = (
     "MinMaxScalerModel",
     "MaxAbsScalerModel",
     "RobustScalerModel",
+    "NaiveBayesModel",
     "NearestNeighbors",
     "NearestNeighborsModel",
     "TruncatedSVDModel",
@@ -74,7 +91,6 @@ _ADAPTER2_CLASSES = (
     "DecisionTreeRegressorModel",
 )
 
-_MOMENTS = "5c (the moments plane)"
 _FAMILIES = "7 (their families and front ends)"
 _REST = "7 (the rest of spark/)"
 _EVAL = "7 (evaluation and tuning)"
@@ -82,17 +98,6 @@ _EVAL = "7 (evaluation and tuning)"
 # the JAX package's other Spark front ends → the ROADMAP queue 1 item that
 # ports them
 _UNPORTED = {
-    # the moments-plane estimators of ported families
-    "GeneralizedLinearRegression": _MOMENTS,
-    "LinearSVC": _MOMENTS,
-    "MaxAbsScaler": _MOMENTS,
-    "MinMaxScaler": _MOMENTS,
-    "RobustScaler": _MOMENTS,
-    "StandardScaler": _MOMENTS,
-    "TruncatedSVD": _MOMENTS,
-    # NaiveBayes
-    "NaiveBayes": "6 (NaiveBayes)",
-    "NaiveBayesModel": "6 (NaiveBayes)",
     # UMAP
     "UMAP": "10 (UMAP)",
     "UMAPModel": "10 (UMAP)",
@@ -203,6 +208,7 @@ _CANONICAL_ALIASES = {
 
 __all__ = [
     *_PYSPARK_CLASSES,
+    *_MOMENTS_PLANE_CLASSES,
     *_FOREST_PLANE_CLASSES,
     *_ADAPTER_CLASSES,
     *_ADAPTER2_CLASSES,
@@ -223,6 +229,10 @@ def __getattr__(name):
         from spark_rapids_ml_tpu_torch.spark import estimator
 
         return getattr(estimator, target)
+    if target in _MOMENTS_PLANE_CLASSES:
+        from spark_rapids_ml_tpu_torch.spark import moments_estimator
+
+        return getattr(moments_estimator, target)
     if target in _FOREST_PLANE_CLASSES:
         from spark_rapids_ml_tpu_torch.spark import forest_estimator
 

@@ -22,14 +22,15 @@ documented envelope for these families; the statistics families stream.
 The port's copy of the JAX package's ``spark/adapter.py``, for the
 families the port has: RandomForest and GBT (both kinds), LinearSVC,
 GeneralizedLinearRegression, StandardScaler, MinMaxScaler, MaxAbsScaler,
-RobustScaler, TruncatedSVD and NearestNeighbors. Every ``pandas_udf`` body
+RobustScaler, TruncatedSVD and NearestNeighbors, and NaiveBayes' model
+(its estimator is ``spark/estimator.py``'s). Every ``pandas_udf`` body
 is a module function on numpy rows (``_model_output``,
 ``_classifier_probability``, ``_classifier_prediction``, ``_svc_raw``,
 ``_svc_prediction``, ``_glm_eta``, ``_glm_mu``), so it runs without
 pandas; the UDFs only wrap them. ``_host_fitted_state`` moves a model's
 torch tensors to host numpy before it ships. The GaussianMixture, MLP,
-NaiveBayes, Imputer, UMAP and OneVsRest pairs wait for their families
-(ROADMAP queue 1 items 6, 7 and 10).
+Imputer, UMAP and OneVsRest pairs wait for their families (ROADMAP queue
+1 items 7 and 10).
 
 Works identically against real pyspark and the in-repo local engine
 (``spark/_compat.py``).
@@ -64,6 +65,7 @@ __all__ = [
     "MaxAbsScalerModel",
     "MinMaxScaler",
     "MinMaxScalerModel",
+    "NaiveBayesModel",
     "NearestNeighbors",
     "NearestNeighborsModel",
     "RandomForestClassifier",
@@ -583,6 +585,9 @@ from spark_rapids_ml_tpu_torch.models.linear_svc import (  # noqa: E402
     LinearSVC as _LSVC,
     LinearSVCModel as _LSVC_M,
 )
+from spark_rapids_ml_tpu_torch.models.naive_bayes import (  # noqa: E402
+    NaiveBayesModel as _LNB_M,
+)
 from spark_rapids_ml_tpu_torch.models.nearest_neighbors import (  # noqa: E402
     NearestNeighbors as _LNN,
     NearestNeighborsModel as _LNN_M,
@@ -616,6 +621,15 @@ GBTClassifier, GBTClassifierModel = _make_pair(
 )
 GBTRegressor, GBTRegressorModel = _make_pair(
     "GBTRegressor", _LGBTR, _LGBTR_M, needs_label=True,
+)
+# NaiveBayes model wrapper only: the ESTIMATOR lives in
+# spark/estimator.py as a mapInArrow statistics plane (per-class
+# count/sum/sq partials), which supersedes the driver-collect strategy
+NaiveBayesModel = type(
+    "NaiveBayesModel",
+    (_ClassifierAdapterModel,),
+    {"_local_model_cls": _LNB_M,
+     "__doc__": "DataFrame front-end over models.NaiveBayesModel."},
 )
 LinearSVC, LinearSVCModel = _make_pair(
     "LinearSVC", _LSVC, _LSVC_M, needs_label=True,

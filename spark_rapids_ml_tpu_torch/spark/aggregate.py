@@ -23,8 +23,11 @@ operations in the same order: the Gram, Z = [X | y] and LinearRegression's
 solve, the binary and multinomial LogisticRegression partials, the
 label-value pass, KMeans, the NaiveBayes partials and
 ``finalize_nb_from_stats``, ``combine_stats`` and
-``finalize_pca_from_stats``. The moments, SVC, GLM, GMM, feature-sample,
-imputer, LDA and bisecting partials are not ported yet (ROADMAP queue 1).
+``finalize_pca_from_stats``; then the moments plane's partials: the
+per-feature moments and their combine, the Summarizer partials, the
+LinearSVC and GLM Newton / IRLS partials and the feature sample. The GMM,
+imputer, LDA and bisecting partials come with their families (ROADMAP
+queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -859,3 +862,450 @@ def discover_label_values(dataset, label_col: str) -> np.ndarray:
         job, "labels array<double>"
     ).collect()
     return np.asarray(sorted({float(v) for r in rows for v in r["labels"]}))
+
+
+# --------------------------------------------------------------------------
+# per-feature moment partials (the scaler statistics plane)
+# --------------------------------------------------------------------------
+
+def partition_moment_stats(
+    batches: Iterable, input_col: str,
+    weight_col: Optional[str] = None,
+) -> Iterator[Dict[str, object]]:
+    """One partition's per-feature (n, Σx, Σx², min, max) — the additive
+    partial that serves EVERY scaler fit (StandardScaler needs Σx/Σx²/n,
+    MinMaxScaler needs min/max, MaxAbsScaler needs max(|min|, |max|)), so
+    one executor pass replaces three driver collects. Same shape contract
+    as ``partition_gram_stats``: Arrow batches or plain arrays, exactly
+    one row, empty partitions yield nothing."""
+    s1: Optional[np.ndarray] = None
+    s2: Optional[np.ndarray] = None
+    lo: Optional[np.ndarray] = None
+    hi: Optional[np.ndarray] = None
+    count = 0.0
+    for batch in batches:
+        if hasattr(batch, "column"):
+            x = vector_column_to_matrix(batch.column(input_col))
+        else:
+            x = np.asarray(batch, dtype=np.float64)
+        if x.shape[0] == 0:
+            continue
+        wt = _batch_weights_agg(batch, weight_col)
+        if s1 is None:
+            d = x.shape[1]
+            s1 = np.zeros(d)
+            s2 = np.zeros(d)
+            lo = np.full(d, np.inf)
+            hi = np.full(d, -np.inf)
+        if wt is None:
+            s1 += x.sum(axis=0)
+            s2 += (x * x).sum(axis=0)
+            count += x.shape[0]
+        else:
+            # weighted first/second moments (min/max stay unweighted —
+            # a weight scales mass, it does not move the value range)
+            s1 += (wt[:, None] * x).sum(axis=0)
+            s2 += (wt[:, None] * x * x).sum(axis=0)
+            count += float(wt.sum())
+        lo = np.minimum(lo, x.min(axis=0))
+        hi = np.maximum(hi, x.max(axis=0))
+    if s1 is None:
+        return
+    yield {
+        "count": count,
+        "s1": s1.tolist(),
+        "s2": s2.tolist(),
+        "lo": lo.tolist(),
+        "hi": hi.tolist(),
+    }
+
+
+def partition_moment_stats_arrow(batches, input_col: str,
+                                 weight_col: Optional[str] = None):
+    import pyarrow as pa
+
+    for row in partition_moment_stats(batches, input_col,
+                                      weight_col=weight_col):
+        yield pa.RecordBatch.from_pylist(
+            [row], schema=moment_stats_arrow_schema()
+        )
+
+
+def moment_stats_arrow_schema():
+    import pyarrow as pa
+
+    return pa.schema([
+        ("count", pa.float64()),  # Σw (= row count unweighted)
+        ("s1", pa.list_(pa.float64())),
+        ("s2", pa.list_(pa.float64())),
+        ("lo", pa.list_(pa.float64())),
+        ("hi", pa.list_(pa.float64())),
+    ])
+
+
+def moment_stats_spark_ddl() -> str:
+    return ("count double, s1 array<double>, s2 array<double>, "
+            "lo array<double>, hi array<double>")
+
+
+def summary_accumulate(x: np.ndarray, wt: Optional[np.ndarray],
+                       acc: Optional[Dict[str, object]]) -> Dict[str, object]:
+    """The ONE Summarizer accumulation step (Spark
+    MultivariateOnlineSummarizer semantics): zero-weight rows are
+    skipped entirely; count/nnz are UNWEIGHTED row/entry counts;
+    s1/s2/l1 are weighted; wsq carries sum(w^2) for the
+    reliability-weighted variance denominator. Shared by the executor
+    partial and stat.Summarizer's in-memory path."""
+    if wt is not None:
+        keep = wt > 0
+        x, wt = x[keep], wt[keep]
+    if x.shape[0] == 0:
+        return acc
+    if acc is None:
+        d = x.shape[1]
+        acc = {
+            "count": 0.0, "wsum": 0.0, "wsq": 0.0,
+            "s1": np.zeros(d), "s2": np.zeros(d),
+            "lo": np.full(d, np.inf), "hi": np.full(d, -np.inf),
+            "nnz": np.zeros(d), "l1": np.zeros(d),
+        }
+    w = np.ones(x.shape[0]) if wt is None else wt
+    xw = x * w[:, None]
+    acc["count"] += float(x.shape[0])
+    acc["wsum"] += float(w.sum())
+    acc["wsq"] += float((w * w).sum())
+    acc["s1"] += xw.sum(axis=0)
+    acc["s2"] += (xw * x).sum(axis=0)
+    acc["nnz"] += (x != 0).sum(axis=0)
+    acc["l1"] += np.abs(xw).sum(axis=0)
+    acc["lo"] = np.minimum(acc["lo"], x.min(axis=0))
+    acc["hi"] = np.maximum(acc["hi"], x.max(axis=0))
+    return acc
+
+
+def partition_summary_stats(
+    batches: Iterable, input_col: str,
+    weight_col: Optional[str] = None,
+) -> Iterator[Dict[str, object]]:
+    """The moments partial extended with Summarizer's extra metrics —
+    one executor pass serves ``stat.Summarizer`` on DataFrames."""
+    acc = None
+    for batch in batches:
+        if hasattr(batch, "column"):
+            x = vector_column_to_matrix(batch.column(input_col))
+        else:
+            x = np.asarray(batch, dtype=np.float64)
+        if x.shape[0] == 0:
+            continue
+        acc = summary_accumulate(x, _batch_weights_agg(batch, weight_col),
+                                 acc)
+    if acc is None:
+        return
+    yield {k: (v.tolist() if isinstance(v, np.ndarray) else v)
+           for k, v in acc.items()}
+
+
+_SUMMARY_FIELDS = ("count", "wsum", "wsq", "s1", "s2", "lo", "hi", "nnz",
+                   "l1")
+
+
+def summary_stats_arrow_schema():
+    import pyarrow as pa
+
+    return pa.schema(
+        [(f, pa.float64()) for f in ("count", "wsum", "wsq")]
+        + [(f, pa.list_(pa.float64()))
+           for f in ("s1", "s2", "lo", "hi", "nnz", "l1")]
+    )
+
+
+def summary_stats_spark_ddl() -> str:
+    return ("count double, wsum double, wsq double, s1 array<double>, "
+            "s2 array<double>, lo array<double>, hi array<double>, "
+            "nnz array<double>, l1 array<double>")
+
+
+def combine_summary_stats(rows: Iterable) -> Dict[str, object]:
+    """Sum/min/max-merge of summary_accumulate partials."""
+    acc = None
+    for row in rows:
+        get = row.get if isinstance(row, dict) else row.__getitem__
+        if acc is None:
+            acc = {f: (np.asarray(get(f), dtype=np.float64).copy()
+                       if f not in ("count", "wsum", "wsq")
+                       else float(get(f)))
+                   for f in _SUMMARY_FIELDS}
+        else:
+            for f in ("count", "wsum", "wsq"):
+                acc[f] += float(get(f))
+            for f in ("s1", "s2", "nnz", "l1"):
+                acc[f] += np.asarray(get(f), dtype=np.float64)
+            acc["lo"] = np.minimum(
+                acc["lo"], np.asarray(get("lo"), dtype=np.float64))
+            acc["hi"] = np.maximum(
+                acc["hi"], np.asarray(get("hi"), dtype=np.float64))
+    if acc is None:
+        raise ValueError("no partition statistics to combine (empty dataset)")
+    return acc
+
+
+def combine_moment_stats(rows: Iterable):
+    """(n, Σx, Σx², min, max) over all partitions."""
+    s1 = s2 = lo = hi = None
+    count = 0
+    for row in rows:
+        get = row.get if isinstance(row, dict) else row.__getitem__
+        if s1 is None:
+            s1 = np.asarray(get("s1"), dtype=np.float64).copy()
+            s2 = np.asarray(get("s2"), dtype=np.float64).copy()
+            lo = np.asarray(get("lo"), dtype=np.float64).copy()
+            hi = np.asarray(get("hi"), dtype=np.float64).copy()
+        else:
+            s1 += np.asarray(get("s1"), dtype=np.float64)
+            s2 += np.asarray(get("s2"), dtype=np.float64)
+            lo = np.minimum(lo, np.asarray(get("lo"), dtype=np.float64))
+            hi = np.maximum(hi, np.asarray(get("hi"), dtype=np.float64))
+        count += float(get("count"))
+    if s1 is None:
+        raise ValueError("no partition statistics to combine (empty dataset)")
+    return count, s1, s2, lo, hi
+
+
+def partition_svc_stats(
+    batches: Iterable,
+    features_col: str,
+    label_col: str,
+    w: np.ndarray,
+    b: float,
+    scale: Optional[np.ndarray] = None,
+    weight_col: Optional[str] = None,
+) -> Iterator[Dict[str, object]]:
+    """One partition's squared-hinge Newton partials under broadcast
+    (w, b) — the LinearSVC analogue of ``partition_logreg_stats``,
+    emitting the SAME row shape (gx, hxx, hxb, rsum≡Σaỹ, ssum≡Σs,
+    loss≡Σw·max(margin,0)², count≡Σw) so the logreg schema/combine are
+    shared. ``scale`` (per-feature stds, broadcast) makes executors
+    optimize in the standardized space, matching the local
+    ``standardization=True`` semantics; the driver unscales at the end.
+    """
+    from spark_rapids_ml_tpu_torch.models.logistic_regression import _check_binary
+
+    w = np.asarray(w, dtype=np.float64).reshape(-1)
+    b = float(b)
+    n = w.shape[0]
+    gx = np.zeros(n)
+    hxx = np.zeros((n, n))
+    hxb = np.zeros(n)
+    aysum = ssum = loss = 0.0
+    count = 0.0
+    for batch in batches:
+        if hasattr(batch, "column"):
+            x = vector_column_to_matrix(batch.column(features_col))
+            y = np.asarray(batch.column(label_col).to_pylist(),
+                           dtype=np.float64)
+        else:
+            x, y = batch
+            x = np.asarray(x, dtype=np.float64)
+            y = np.asarray(y, dtype=np.float64).reshape(-1)
+        if x.shape[0] == 0:
+            continue
+        _check_binary(y, estimator="LinearSVC")
+        wt = _batch_weights_agg(batch, weight_col)
+        if scale is not None:
+            x = x / np.asarray(scale)[None, :]
+        ypm = 2.0 * y - 1.0
+        margin = 1.0 - ypm * (x @ w + b)
+        a = np.maximum(margin, 0.0)
+        s = (margin > 0).astype(np.float64)
+        if wt is not None:
+            a = a * wt
+            s = s * wt
+        xs = x * s[:, None]
+        ay = a * ypm
+        gx += x.T @ ay
+        hxx += x.T @ xs
+        hxb += xs.sum(axis=0)
+        aysum += float(ay.sum())
+        ssum += float(s.sum())
+        loss += float((a * np.maximum(margin, 0.0)).sum())
+        count += float(wt.sum()) if wt is not None else x.shape[0]
+    if count == 0:
+        return
+    yield {
+        "gx": gx.tolist(),
+        "hxx": hxx.ravel().tolist(),
+        "hxb": hxb.tolist(),
+        "rsum": aysum,
+        "ssum": ssum,
+        "loss": loss,
+        "count": count,
+    }
+
+
+def partition_svc_stats_arrow(batches, features_col: str, label_col: str,
+                              w: np.ndarray, b: float,
+                              scale: Optional[np.ndarray] = None,
+                              weight_col: Optional[str] = None):
+    import pyarrow as pa
+
+    for row in partition_svc_stats(batches, features_col, label_col, w, b,
+                                   scale=scale, weight_col=weight_col):
+        yield pa.RecordBatch.from_pylist(
+            [row], schema=logreg_stats_arrow_schema()
+        )
+
+
+def partition_glm_stats(
+    batches: Iterable,
+    features_col: str,
+    label_col: str,
+    coef: np.ndarray,
+    intercept: float,
+    *,
+    family: str,
+    link: str,
+    var_power: float,
+    link_power: float,
+    first: bool,
+    weight_col: Optional[str] = None,
+    offset_col: Optional[str] = None,
+) -> Iterator[Dict[str, object]]:
+    """One partition's GLM IRLS partials under broadcast (coef,
+    intercept) — the weighted-least-squares working statistics
+    (X'WX, X'Wz, sum(wx), sum(wz), sum(w)) plus the deviance, emitted in
+    the SAME row shape as ``partition_logreg_stats`` (gx≡X'Wz, hxx≡X'WX,
+    hxb≡sum(wx), rsum≡sum(wz), ssum≡sum(w), loss≡deviance, count≡rows)
+    so the logreg schema/combine are shared. ``first`` runs the
+    mustart-style starting iteration (``ops.glm_kernel.irls_step_math``).
+    """
+    from spark_rapids_ml_tpu_torch.ops.glm_kernel import (
+        irls_step_math,
+        validate_label_range,
+    )
+
+    coef = np.asarray(coef, dtype=np.float64).reshape(-1)
+    totals = None
+    count = 0.0
+    for batch in batches:
+        if hasattr(batch, "column"):
+            x = vector_column_to_matrix(batch.column(features_col))
+            y = np.asarray(batch.column(label_col).to_pylist(),
+                           dtype=np.float64)
+        else:
+            x, y = batch
+            x = np.asarray(x, dtype=np.float64)
+            y = np.asarray(y, dtype=np.float64).reshape(-1)
+        if x.shape[0] == 0:
+            continue
+        validate_label_range(y, family=family, var_power=var_power)
+        wt = _batch_weights_agg(batch, weight_col)
+        if offset_col:
+            if not hasattr(batch, "column"):
+                raise ValueError(
+                    "plain (x, y) tuple batches cannot carry an offset "
+                    "column; use Arrow batches"
+                )
+            off = np.asarray(batch.column(offset_col).to_pylist(),
+                             dtype=np.float64)
+        else:
+            off = np.zeros(x.shape[0])
+        # count carries sum(prior weights), matching partition_logreg_stats
+        count += float(wt.sum()) if wt is not None else float(x.shape[0])
+        if wt is None:
+            wt = np.ones(x.shape[0])
+        out = irls_step_math(
+            np, x, y, wt, off, coef, float(intercept), family=family,
+            link=link, var_power=var_power, link_power=link_power,
+            use_init_mu=first,
+        )
+        totals = out if totals is None else type(out)(
+            *(a + b for a, b in zip(totals, out)))
+    if totals is None:
+        return
+    yield {
+        "gx": [float(v) for v in np.asarray(totals.xtz)],
+        "hxx": [float(v) for v in np.asarray(totals.xtx).reshape(-1)],
+        "hxb": [float(v) for v in np.asarray(totals.x_sum)],
+        "rsum": float(totals.z_sum),
+        "ssum": float(totals.w_sum),
+        "loss": float(totals.deviance),
+        "count": count,
+    }
+
+
+def partition_glm_stats_arrow(batches, features_col: str, label_col: str,
+                              coef: np.ndarray, intercept: float, **kw):
+    import pyarrow as pa
+
+    for row in partition_glm_stats(batches, features_col, label_col, coef,
+                                   intercept, **kw):
+        yield pa.RecordBatch.from_pylist(
+            [row], schema=logreg_stats_arrow_schema()
+        )
+
+
+def partition_feature_sample(
+    batches: Iterable,
+    input_col: str,
+    seed: int,
+    cap: int = 8192,
+    sample_stride: int = 1,
+) -> Iterator[Dict[str, object]]:
+    """One row per partition: a ≤``cap``-row approximately-uniform sample
+    of the feature vectors (NaNs preserved) plus the partition row count —
+    the features-only sibling of ``forest_plane.partition_forest_sample``,
+    feeding driver-side quantile statistics (RobustScaler / median
+    Imputer, the approxQuantile analogue). Strided partition gating keeps
+    the driver merge bounded exactly as the forest sampler does."""
+    from spark_rapids_ml_tpu_torch.spark.forest_plane import partition_identity
+
+    pid = partition_identity()
+    emit_sample = pid % max(sample_stride, 1) == 0
+    rng = np.random.default_rng([seed & 0x7FFFFFFF, pid])
+    buf = []
+    buffered = 0
+    n_seen = 0
+    d_seen = 0
+    for batch in batches:
+        if hasattr(batch, "column"):
+            x = vector_column_to_matrix(batch.column(input_col))
+        else:
+            x = np.asarray(batch, dtype=np.float64)
+        if x.shape[0] == 0:
+            continue
+        n_seen += x.shape[0]
+        d_seen = x.shape[1]
+        if emit_sample:
+            buf.append(x)
+            buffered += x.shape[0]
+            if buffered > 4 * cap:
+                xa = np.concatenate(buf)
+                keep = rng.choice(xa.shape[0], 4 * cap, replace=False)
+                buf, buffered = [xa[keep]], 4 * cap
+    if n_seen == 0:
+        return
+    if emit_sample:
+        xa = np.concatenate(buf)
+        if xa.shape[0] > cap:
+            keep = rng.choice(xa.shape[0], cap, replace=False)
+            xa = xa[keep]
+        sample = xa.ravel().tolist()
+        d = int(xa.shape[1])
+    else:
+        sample = []
+        d = int(d_seen)
+    yield {"n": n_seen, "sample": sample, "d": d}
+
+
+def feature_sample_arrow_schema():
+    import pyarrow as pa
+
+    return pa.schema([
+        ("n", pa.int64()),
+        ("sample", pa.list_(pa.float64())),
+        ("d", pa.int64()),
+    ])
+
+
+def feature_sample_spark_ddl() -> str:
+    return "n long, sample array<double>, d long"

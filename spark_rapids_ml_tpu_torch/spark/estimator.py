@@ -1,6 +1,6 @@
 """pyspark-facing Estimator/Model front ends of the statistics plane: PCA,
-LinearRegression, LogisticRegression and KMeans, the drop-in the reference
-ships.
+LinearRegression, LogisticRegression, KMeans and NaiveBayes, the drop-in
+the reference ships.
 
 The reference is consumed from spark-shell as a one-import-change drop-in
 over Spark DataFrames; its ``fit`` pulls an ``RDD[Vector]``
@@ -24,10 +24,12 @@ end for the port:
   (``io.persistence``) through the port's models, so a model saved here
   loads in the JAX package's front end and back, from the same files.
 
-The port's copy of the JAX package's ``spark/estimator.py``; NaiveBayes
-waits for ROADMAP queue 1 item 6. One difference by design: the JAX
-``PCAModel`` transform catches every failure of its device projection and
-projects on the host instead; here a device failure raises.
+The port's copy of the JAX package's ``spark/estimator.py``, NaiveBayes
+included; its statistics job runs through
+``forest_estimator._collect_rows``, so the partition shims drive it
+without pyarrow. One difference by design: the JAX ``PCAModel`` transform
+catches every failure of its device projection and projects on the host
+instead; here a device failure raises.
 
 Requires ``pyspark`` (an optional dependency) or the in-repo local engine
 (``spark/_compat.py``).
@@ -1376,3 +1378,107 @@ def _load_estimator_params(cls, path):
 # type(estimator).__module__ resolution in save_params sees the proxy class;
 # keep the Spark class alias mapping working by naming it after PCA.
 _LocalParamsProxy.__qualname__ = "PCA"
+
+
+class NaiveBayes(Estimator, Params):
+    """NaiveBayes over a Spark DataFrame as ONE ``mapInArrow`` statistics
+    pass: partitions emit per-class (count, Σx, Σx²) rows — additively
+    combinable even when partitions see different class subsets — and the
+    driver finalizes the (K, d) log-probability tables. Replaces the
+    driver-collect adapter strategy with the same partial-aggregate data
+    plane the PCA/regression fits use. ``modelType``:
+    multinomial | complement | bernoulli | gaussian (Spark 3's families + sklearn's
+    GaussianNB)."""
+
+    featuresCol = Param(Params._dummy(), "featuresCol", "features column",
+                        typeConverter=TypeConverters.toString)
+    labelCol = Param(Params._dummy(), "labelCol", "label column",
+                     typeConverter=TypeConverters.toString)
+    predictionCol = Param(Params._dummy(), "predictionCol",
+                          "prediction output column",
+                          typeConverter=TypeConverters.toString)
+    modelType = Param(Params._dummy(), "modelType",
+                      "multinomial | complement | bernoulli | gaussian",
+                      typeConverter=TypeConverters.toString)
+    smoothing = Param(Params._dummy(), "smoothing",
+                      "additive (Laplace) smoothing",
+                      typeConverter=TypeConverters.toFloat)
+    weightCol = Param(Params._dummy(), "weightCol",
+                      "per-row sample-weight column ('' = unweighted)",
+                      typeConverter=TypeConverters.toString)
+
+    @keyword_only
+    def __init__(self, *, featuresCol="features", labelCol="label",
+                 predictionCol="prediction", modelType="multinomial",
+                 smoothing=1.0, weightCol=""):
+        super().__init__()
+        self._setDefault(featuresCol="features", labelCol="label",
+                         predictionCol="prediction",
+                         modelType="multinomial", smoothing=1.0,
+                         weightCol="")
+        self._set(**{k_: v for k_, v in self._input_kwargs.items()
+                     if v is not None})
+
+    def setModelType(self, value):
+        return self._set(modelType=value)
+
+    def setSmoothing(self, value):
+        return self._set(smoothing=value)
+
+    def setWeightCol(self, value):
+        return self._set(weightCol=value)
+
+    def save(self, path: str, overwrite: bool = False) -> None:
+        _save_estimator_params(self, path, overwrite=overwrite)
+
+    @staticmethod
+    def load(path: str) -> "NaiveBayes":
+        return _load_estimator_params(NaiveBayes, path)
+
+    def _fit(self, dataset):
+        from spark_rapids_ml_tpu_torch.models.naive_bayes import (
+            NaiveBayesModel as LocalNBModel,
+        )
+        from spark_rapids_ml_tpu_torch.spark.adapter import (
+            NaiveBayesModel as AdapterNBModel,
+        )
+        from spark_rapids_ml_tpu_torch.spark.aggregate import (
+            combine_nb_stats,
+            finalize_nb_from_stats,
+            nb_stats_arrow_schema,
+            nb_stats_spark_ddl,
+            partition_nb_stats,
+        )
+        from spark_rapids_ml_tpu_torch.spark.forest_estimator import (
+            _collect_rows,
+        )
+
+        fcol = self.getOrDefault(self.featuresCol)
+        lcol = self.getOrDefault(self.labelCol)
+        kind = self.getOrDefault(self.modelType)
+        if kind not in ("multinomial", "complement", "bernoulli",
+                        "gaussian"):
+            raise ValueError(f"modelType {kind!r}")
+        wcol = self.getOrDefault(self.weightCol) or None
+        cols = [fcol, lcol] + ([wcol] if wcol else [])
+        df = dataset.select(*cols)
+
+        def stats(batches):
+            return partition_nb_stats(batches, fcol, lcol, kind,
+                                      weight_col=wcol)
+
+        rows = _collect_rows(df, stats, nb_stats_arrow_schema,
+                             nb_stats_spark_ddl())
+        classes, counts, sums, sq = combine_nb_stats(rows)
+        pi, theta, sigma = finalize_nb_from_stats(
+            classes, counts, sums, sq, kind,
+            self.getOrDefault(self.smoothing),
+        )
+        local = LocalNBModel(pi=pi, theta=theta, sigma=sigma,
+                             classes=classes)
+        local.set("inputCol", fcol)
+        local.set("labelCol", lcol)
+        local.set("predictionCol", self.getOrDefault(self.predictionCol))
+        local.set("modelType", kind)
+        local.set("smoothing", float(self.getOrDefault(self.smoothing)))
+        return AdapterNBModel(local)

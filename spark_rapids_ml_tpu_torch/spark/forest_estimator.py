@@ -32,10 +32,14 @@ functions yield plain row dicts; a ``RecordBatch`` is built only inside
 the job a real ``mapInArrow`` (pyspark's or the local engine's) runs. The
 streamed fits' shim (``_StreamFrame``) collects the row dicts directly —
 the dicts an Arrow round trip gives, key for key — so the streamed tree
-fits need neither pyarrow nor pandas.
+fits need neither pyarrow nor pandas. ``PartitionFrame`` does the same
+over partitions of numpy batches for every front end that collects its
+jobs through ``_collect_rows`` (the moments plane's and NaiveBayes').
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -56,6 +60,9 @@ from spark_rapids_ml_tpu_torch.spark.forest_plane import (
     sample_spark_ddl,
 )
 from spark_rapids_ml_tpu_torch.utils.timing import PhaseTimer
+
+# the partition id the local engine exports to its executors
+_PARTITION_ENV = "LOCALSPARK_PARTITION_ID"
 
 
 def _group_budget_bytes(local_est=None) -> int:
@@ -82,10 +89,10 @@ def _num_partitions(df) -> int:
 
 def _collect_rows(df, rows_fn, schema_fn, ddl: str) -> list:
     """``rows_fn``'s row dicts over every partition of ``df``: the stream
-    shim collects them directly; any other frame runs them as a
-    ``mapInArrow`` job that packs each row into a ``RecordBatch`` of
+    and partition shims collect them directly; any other frame runs them
+    as a ``mapInArrow`` job that packs each row into a ``RecordBatch`` of
     ``schema_fn()`` on the executor."""
-    if isinstance(df, _StreamFrame):
+    if isinstance(df, (_StreamFrame, PartitionFrame)):
         return df.collect_rows(rows_fn)
 
     def job(batches):
@@ -595,6 +602,65 @@ class _StreamFrame:
                 )
 
         return list(rows_fn(tuples()))
+
+
+class PartitionFrame:
+    """DataFrame-shaped shim over partitions of numpy batches, so a
+    statistics-plane front end's ``_fit`` runs its driver loop without
+    pyarrow, pandas or pyspark. Each partition is a list of batches:
+    (m, d) feature arrays, or (x, y) tuples where a label takes part (the
+    partition functions' non-Arrow inputs, which carry no weight or
+    offset column). ``collect_rows`` runs a partition function once per
+    partition, in order, with ``LOCALSPARK_PARTITION_ID`` exported as the
+    local engine exports it to its executors (``forest_plane.
+    partition_identity`` reads it), and takes its row dicts as they come:
+    the dicts an Arrow round trip gives, key for key. ``select`` of one
+    column keeps only the features of each batch, as a DataFrame's
+    projection does."""
+
+    def __init__(self, partitions):
+        self._partitions = [list(p) for p in partitions]
+
+    def select(self, *cols):
+        if len(cols) != 1:
+            return self
+        return PartitionFrame(
+            [[b[0] if isinstance(b, tuple) else b for b in part]
+             for part in self._partitions])
+
+    def persist(self, *_):
+        return self
+
+    def unpersist(self, *_):
+        return self
+
+    def first(self):
+        for part in self._partitions:
+            for batch in part:
+                if isinstance(batch, tuple):
+                    x = np.asarray(batch[0])
+                    if x.shape[0]:
+                        return [x[0], float(np.asarray(batch[1]).ravel()[0])]
+                else:
+                    x = np.asarray(batch)
+                    if x.shape[0]:
+                        return [x[0]]
+        return None
+
+    def collect_rows(self, rows_fn) -> list:
+        """``rows_fn``'s row dicts over every partition."""
+        saved = os.environ.get(_PARTITION_ENV)
+        rows = []
+        try:
+            for pid, part in enumerate(self._partitions):
+                os.environ[_PARTITION_ENV] = str(pid)
+                rows.extend(rows_fn(iter(part)))
+        finally:
+            if saved is None:
+                os.environ.pop(_PARTITION_ENV, None)
+            else:
+                os.environ[_PARTITION_ENV] = saved
+        return rows
 
 
 def fit_forest_streamed(local_est, factory, classification):

@@ -1,0 +1,428 @@
+"""DataFrame scaler, TruncatedSVD, LinearSVC and GLM fits on the executor
+statistics plane.
+
+These families decompose exactly like PCA's covariance (the reference's
+per-partition → driver-reduce shape, ``RapidsRowMatrix.scala:168-202``):
+
+* the three scalers share ONE per-feature moments partial
+  (n, Σx, Σx², min, max) — ``aggregate.partition_moment_stats`` — and a
+  few lines of driver math each;
+* TruncatedSVD is the UNCENTERED Gram: the same
+  ``aggregate.partition_gram_stats`` partial the PCA plane reduces,
+  finalized by the local estimator's gated eigensolve (``svd._solve``) on
+  the driver's card, so the DataFrame fit shares the auto-solver gate
+  verbatim;
+* LinearSVC and GLM run one job per Newton / IRLS iteration on the
+  logreg row shape (``aggregate.partition_svc_stats``,
+  ``aggregate.partition_glm_stats``), the small solve on the driver;
+* RobustScaler's quantiles come from one bounded row sample that covers
+  every partition (``aggregate.partition_feature_sample``).
+
+The classes subclass the adapter front-ends: param surface, setters,
+persistence, and pandas_udf transform are unchanged — only the fit
+strategy moves off driver-collect (the same seam ``forest_estimator``
+uses for RF/GBT).
+
+The port's copy of the JAX package's ``spark/moments_estimator.py`` for
+the families the port has; the partials are host NumPy float64 there and
+here, each equal to the JAX package's on the same batches. Every job goes
+through ``forest_estimator._collect_rows``, so ``forest_estimator.
+PartitionFrame`` drives each ``_fit`` on numpy partitions without
+pyarrow. The GaussianMixture, OneVsRest, BisectingKMeans, Imputer and LDA
+front ends of the JAX module come with their families (ROADMAP queue 1
+item 7).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from spark_rapids_ml_tpu_torch.spark import adapter as _adapter
+from spark_rapids_ml_tpu_torch.spark.aggregate import (
+    combine_logreg_stats,
+    combine_moment_stats,
+    combine_stats,
+    logreg_stats_arrow_schema,
+    logreg_stats_spark_ddl,
+    moment_stats_arrow_schema,
+    moment_stats_spark_ddl,
+    partition_gram_stats,
+    partition_moment_stats,
+    stats_arrow_schema,
+    stats_spark_ddl,
+)
+from spark_rapids_ml_tpu_torch.spark.forest_estimator import (
+    _collect_rows,
+    _num_partitions,
+)
+from spark_rapids_ml_tpu_torch.utils.timing import PhaseTimer
+
+
+def _collect_moments(dataset, fcol, wcol=None):
+    cols = [fcol] + ([wcol] if wcol else [])
+    df = dataset.select(*cols)
+
+    def job(batches):
+        return partition_moment_stats(batches, fcol, weight_col=wcol)
+
+    return combine_moment_stats(_collect_rows(
+        df, job, moment_stats_arrow_schema, moment_stats_spark_ddl()))
+
+
+class StandardScaler(_adapter.StandardScaler):
+    """StandardScaler over one executor moments pass (Σx, Σx², n partials;
+    f64 one-pass identity — the same acceptance as the local streamed
+    fit, ``models/scaler.py``)."""
+
+    def _fit(self, dataset):
+        from spark_rapids_ml_tpu_torch.models.scaler import (
+            StandardScalerModel,
+        )
+
+        timer = PhaseTimer()
+        fcol = self._local.getInputCol()
+        with timer.phase("fit_kernel"):
+            count, s1, s2, _lo, _hi = _collect_moments(dataset, fcol)
+            if count < 2:
+                raise ValueError("StandardScaler requires at least 2 rows")
+            mean = s1 / count
+            var = np.maximum((s2 - count * mean * mean) / (count - 1), 0.0)
+        local = StandardScalerModel(mean=mean, std=np.sqrt(var))
+        local.uid = self._local.uid
+        local.copy_values_from(self._local)
+        local.fit_timings_ = timer.as_dict()
+        return self._model_cls(local)
+
+
+class MinMaxScaler(_adapter.MinMaxScaler):
+    """MinMaxScaler over the shared executor moments pass (min/max)."""
+
+    def _fit(self, dataset):
+        from spark_rapids_ml_tpu_torch.models.feature_scalers import (
+            MinMaxScalerModel,
+        )
+
+        if float(self._local.getMin()) >= float(self._local.getMax()):
+            raise ValueError("min must be below max")
+        timer = PhaseTimer()
+        fcol = self._local.getInputCol()
+        with timer.phase("fit"):
+            _count, _s1, _s2, lo, hi = _collect_moments(dataset, fcol)
+        local = MinMaxScalerModel(original_min=lo, original_max=hi)
+        local.uid = self._local.uid
+        local.copy_values_from(self._local)
+        local.fit_timings_ = timer.as_dict()
+        return self._model_cls(local)
+
+
+class MaxAbsScaler(_adapter.MaxAbsScaler):
+    """MaxAbsScaler over the shared executor moments pass
+    (max|x| = max(|min|, |max|))."""
+
+    def _fit(self, dataset):
+        from spark_rapids_ml_tpu_torch.models.feature_scalers import (
+            MaxAbsScalerModel,
+        )
+
+        timer = PhaseTimer()
+        fcol = self._local.getInputCol()
+        with timer.phase("fit"):
+            _count, _s1, _s2, lo, hi = _collect_moments(dataset, fcol)
+        local = MaxAbsScalerModel(max_abs=np.maximum(np.abs(lo), np.abs(hi)))
+        local.uid = self._local.uid
+        local.copy_values_from(self._local)
+        local.fit_timings_ = timer.as_dict()
+        return self._model_cls(local)
+
+
+class TruncatedSVD(_adapter.TruncatedSVD):
+    """TruncatedSVD over the executor Gram plane: partitions reduce the
+    UNCENTERED (Σxxᵀ, Σx, n) — the identical partial the PCA plane uses —
+    and the driver runs the local estimator's gated eigensolve
+    (``models/svd.py::TruncatedSVD._solve``: ``svdSolver`` auto gate,
+    σ = √λ postprocessing) on its card."""
+
+    def _fit(self, dataset):
+        from spark_rapids_ml_tpu_torch.models.svd import TruncatedSVDModel
+
+        local_est = self._local
+        k = local_est.getK()
+        if k is None:
+            raise ValueError("k must be set before fit()")
+        timer = PhaseTimer()
+        fcol = local_est.getInputCol()
+        df = dataset.select(fcol)
+
+        def job(batches):
+            return partition_gram_stats(batches, fcol)
+
+        with timer.phase("gram"):
+            gram, _col_sum, count = combine_stats(_collect_rows(
+                df, job, stats_arrow_schema, stats_spark_ddl()))
+        n_features = gram.shape[0]
+        if k > n_features:
+            raise ValueError(
+                f"k = {k} must be <= number of features = {n_features}"
+            )
+        local_est._svd_solver_used = None
+        v, s = local_est._solve(gram, k, timer)
+        local = TruncatedSVDModel(components=v, singular_values=s)
+        local.uid = local_est.uid
+        local.copy_values_from(local_est)
+        local.fit_timings_ = timer.as_dict()
+        local.svd_solver_used_ = local_est._svd_solver_used
+        return self._model_cls(local)
+
+
+class LinearSVC(_adapter.LinearSVC):
+    """DataFrame LinearSVC on the executor statistics plane: the
+    squared-hinge generalized Newton decomposes exactly like the LogReg
+    plane — per partition (Xᵀ(aỹ), XᵀSX, XᵀS, Σaỹ, Σs, loss, Σw)
+    partials at the broadcast (w, b) (``aggregate.partition_svc_stats``,
+    sharing the logreg row schema/combine), one job per iteration, the
+    tiny (d+1)² solve on the driver. ``standardization=True`` runs ONE
+    weighted-moments pass first and optimizes in the scaled space
+    (coefficients unscale at the end); the per-feature std comes from the
+    f64 ONE-PASS moment identity — the same acceptance as the plane
+    StandardScaler — so a pathologically ill-conditioned column
+    (|mean|/sd ≳ 1e7) may standardize differently from the local fit's
+    two-pass std. The Newton iterates themselves are exact f64 matches
+    of the local fit. Rows never reach the driver."""
+
+    def _fit(self, dataset):
+        from spark_rapids_ml_tpu_torch.models.linear_svc import (
+            LinearSVCModel as LocalSVCModel,
+            _assemble_svc_newton,
+        )
+        from spark_rapids_ml_tpu_torch.spark.aggregate import (
+            partition_svc_stats,
+        )
+
+        local_est = self._local
+        timer = PhaseTimer()
+        fcol = local_est.getInputCol()
+        lcol = local_est.getLabelCol()
+        lam = float(local_est.getRegParam())
+        fit_b = bool(local_est.getFitIntercept())
+        tol = float(local_est.getTol())
+        max_iter = int(local_est.getMaxIter())
+        wcol = local_est.get_or_default("weightCol") or None
+        cols = [fcol, lcol] + ([wcol] if wcol else [])
+        df = dataset.select(*cols).persist()
+        try:
+            scale = None
+            if local_est.getStandardization():
+                with timer.phase("moments"):
+                    count, s1, s2, _lo, _hi = _collect_moments(
+                        df, fcol, wcol=wcol
+                    )
+                n = s1.shape[0]
+                if count > 1.0:
+                    mu = s1 / count
+                    var = np.maximum(
+                        (s2 - count * mu * mu) / (count - 1.0), 0.0
+                    )
+                    sd = np.sqrt(var)
+                    scale = np.where(sd > 0, sd, 1.0)
+            else:
+                # no standardization: only the feature WIDTH is needed —
+                # one first() row, not a full moments scan
+                first = df.first()
+                if first is None:
+                    raise ValueError("empty dataset")
+                n = len(first[0])
+
+            w = np.zeros(n)
+            b = 0.0
+            n_iter = 0
+            with timer.phase("fit_kernel"):
+                for n_iter in range(1, max_iter + 1):
+                    frozen_w, frozen_b = w.copy(), b
+
+                    def job(batches, _w=frozen_w, _b=frozen_b):
+                        return partition_svc_stats(
+                            batches, fcol, lcol, _w, _b,
+                            scale=scale, weight_col=wcol,
+                        )
+
+                    rows = _collect_rows(df, job, logreg_stats_arrow_schema,
+                                         logreg_stats_spark_ddl())
+                    gx, hxx, hxb, aysum, ssum, _loss, cnt = (
+                        combine_logreg_stats(rows)
+                    )
+                    g, h = _assemble_svc_newton(
+                        gx, hxx, hxb, float(aysum), float(ssum),
+                        float(cnt), w, lam, fit_b,
+                    )
+                    delta = np.linalg.solve(h, g)
+                    w = w - delta[:n]
+                    if fit_b:
+                        b = b - delta[n]
+                    if np.max(np.abs(delta)) <= tol:
+                        break
+        finally:
+            df.unpersist()
+        coef = w / scale if scale is not None else w
+        local = LocalSVCModel(
+            coefficients=np.asarray(coef, dtype=np.float64),
+            intercept=float(b),
+        )
+        local.uid = local_est.uid
+        local.copy_values_from(local_est)
+        local.n_iter_ = int(n_iter)
+        local.fit_timings_ = timer.as_dict()
+        return self._model_cls(local)
+
+
+class GeneralizedLinearRegression(_adapter.GeneralizedLinearRegression):
+    """DataFrame GLM on the executor statistics plane: each IRLS
+    iteration is one job emitting per-partition weighted working
+    statistics (X'WX, X'Wz, sums, deviance) under the broadcast
+    (coef, intercept) — ``aggregate.partition_glm_stats`` — reduced by
+    the shared logreg combine; the tiny (d x d) weighted solve and the
+    deviance convergence check run on the driver. Rows never reach the
+    driver. The first job runs the family's mustart starting iteration
+    (same math as the local fit, ``models/glm.py::_irls``)."""
+
+    def _fit(self, dataset):
+        from spark_rapids_ml_tpu_torch.models.glm import (
+            GeneralizedLinearRegressionModel as LocalGLMModel,
+        )
+        from spark_rapids_ml_tpu_torch.ops.glm_kernel import GlmStepOut
+        from spark_rapids_ml_tpu_torch.spark.aggregate import (
+            partition_glm_stats,
+        )
+
+        local_est = self._local
+        timer = PhaseTimer()
+        family, link, var_power, link_power = (
+            local_est._resolved_family_link()
+        )
+        fcol = local_est.getInputCol()
+        lcol = local_est.getLabelCol()
+        wcol = local_est.get_or_default("weightCol") or None
+        ocol = local_est.get_or_default("offsetCol") or None
+        cols = [fcol, lcol] + ([wcol] if wcol else []) \
+            + ([ocol] if ocol else [])
+        df = dataset.select(*cols).persist()
+        try:
+            first_row = df.first()
+            if first_row is None:
+                raise ValueError("empty dataset")
+            n = len(first_row[0])
+            w_sum_box = [0.0]
+
+            def step(coef, intercept, first=False):
+                def job(batches, _c=np.array(coef), _b=float(intercept),
+                        _first=bool(first)):
+                    return partition_glm_stats(
+                        batches, fcol, lcol, _c, _b,
+                        family=family, link=link, var_power=var_power,
+                        link_power=link_power, first=_first,
+                        weight_col=wcol, offset_col=ocol,
+                    )
+
+                rows = _collect_rows(df, job, logreg_stats_arrow_schema,
+                                     logreg_stats_spark_ddl())
+                xtz, xtx, x_sum, z_sum, wsum, dev, cnt = (
+                    combine_logreg_stats(rows)
+                )
+                w_sum_box[0] = float(cnt)
+                return GlmStepOut(xtx=np.asarray(xtx), xtz=xtz,
+                                  x_sum=x_sum, z_sum=z_sum, w_sum=wsum,
+                                  deviance=dev)
+
+            # the ONE IRLS driver loop (solve, convergence rule, mustart
+            # first pass, for/else final deviance) lives in models/glm.py
+            coef, intercept, n_iter, dev = local_est._irls(step, n, timer)
+        finally:
+            df.unpersist()
+        local = LocalGLMModel(
+            coefficients=np.asarray(coef, dtype=np.float64),
+            intercept=float(intercept),
+        )
+        local.uid = local_est.uid
+        local.copy_values_from(local_est)
+        local.num_iterations_ = int(n_iter)
+        local.deviance_ = float(dev)
+        local.weight_sum_ = w_sum_box[0]
+        local.fit_timings_ = timer.as_dict()
+        return self._model_cls(local)
+
+
+def _collect_feature_sample(dataset, fcol, seed=0):
+    """(sample matrix, n_total): bounded per-partition sampled rows for
+    driver-side quantile statistics — every partition contributes
+    (``forest_plane.quantile_sample_cap``)."""
+    from spark_rapids_ml_tpu_torch.spark.aggregate import (
+        feature_sample_arrow_schema,
+        feature_sample_spark_ddl,
+        partition_feature_sample,
+    )
+    from spark_rapids_ml_tpu_torch.spark.forest_plane import (
+        quantile_sample_cap,
+    )
+
+    df = dataset.select(fcol)
+    first = df.first()
+    if first is None:
+        raise ValueError("empty dataset")
+    width = len(first[0])
+    n_parts = _num_partitions(df)
+    # every partition contributes (stride 1): a skipped partition would
+    # bias the quantiles on partition-clustered data
+    cap = quantile_sample_cap(width, n_parts)
+
+    def job(batches):
+        return partition_feature_sample(
+            batches, fcol, seed, cap=cap, sample_stride=1
+        )
+
+    rows = _collect_rows(df, job, feature_sample_arrow_schema,
+                         feature_sample_spark_ddl())
+    if not rows:
+        raise ValueError("empty dataset")
+    d = int(rows[0]["d"])
+    xs = [
+        np.asarray(r["sample"], dtype=np.float64).reshape(-1, d)
+        for r in rows if len(r["sample"])
+    ]
+    if not xs:
+        raise ValueError("no sampled rows (all sampling partitions empty)")
+    return np.concatenate(xs), sum(int(r["n"]) for r in rows)
+
+
+class RobustScaler(_adapter.RobustScaler):
+    """RobustScaler on the statistics plane: quantiles come from ONE
+    bounded row sample covering EVERY partition (the approxQuantile
+    posture — Spark's RobustScaler also computes approximate quantiles),
+    reduced on the driver with NaN-ignoring quantiles. Rows never
+    collect in full."""
+
+    def _fit(self, dataset):
+        from spark_rapids_ml_tpu_torch.models.feature_scalers import (
+            RobustScalerModel,
+        )
+
+        local_est = self._local
+        if float(local_est.getLower()) >= float(local_est.getUpper()):
+            raise ValueError("lower must be below upper")
+        timer = PhaseTimer()
+        fcol = local_est.getInputCol()
+        with timer.phase("fit"):
+            sample, _n = _collect_feature_sample(dataset, fcol)
+            if np.isnan(sample).all(axis=0).any():
+                raise ValueError(
+                    "a feature column is entirely NaN; impute first"
+                )
+            qs = np.nanquantile(
+                sample,
+                [float(local_est.getLower()), 0.5,
+                 float(local_est.getUpper())],
+                axis=0,
+            )
+        local = RobustScalerModel(median=qs[1], qrange=qs[2] - qs[0])
+        local.uid = local_est.uid
+        local.copy_values_from(local_est)
+        local.fit_timings_ = timer.as_dict()
+        return self._model_cls(local)

@@ -640,6 +640,7 @@ def test_forest_plane_in_spawned_executors():
 
 PORTED = {
     **{n: "estimator" for n in port_spark._PYSPARK_CLASSES},
+    **{n: "moments_estimator" for n in port_spark._MOMENTS_PLANE_CLASSES},
     **{n: "forest_estimator" for n in port_spark._FOREST_PLANE_CLASSES},
     **{n: "adapter" for n in port_spark._ADAPTER_CLASSES},
     **{n: "adapter2" for n in port_spark._ADAPTER2_CLASSES},
@@ -667,8 +668,7 @@ def test_canonical_aliases(alias):
         assert alias in port_spark.__all__
 
 
-ITEMS = {"5c": "5c (the moments plane)", "6": "6 (NaiveBayes)",
-         "10": "10 (UMAP)"}
+ITEMS = {"10": "10 (UMAP)"}
 
 
 @pytest.mark.parametrize("name", sorted(port_spark._UNPORTED))
@@ -679,14 +679,7 @@ def test_unported_front_ends_name_their_item(name):
         getattr(port_spark, name)
     assert name not in port_spark.__all__
     assert name in jax_spark.__all__
-    moments = {"GeneralizedLinearRegression", "LinearSVC", "MaxAbsScaler",
-               "MinMaxScaler", "RobustScaler", "StandardScaler",
-               "TruncatedSVD"}
-    if name in moments:
-        assert item == ITEMS["5c"]
-    elif name.startswith("NaiveBayes"):
-        assert item == ITEMS["6"]
-    elif name.startswith("UMAP"):
+    if name.startswith("UMAP"):
         assert item == ITEMS["10"]
     else:
         assert item.startswith("7 ")

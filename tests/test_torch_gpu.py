@@ -1841,3 +1841,86 @@ def test_spark_streamed_tree_fit_on_the_card_equals_cpu(cuda_device,
                                   cpu[0].ensemble_.leaf_value)
     assert np.abs(card[1].ensemble_.leaf_value
                   - cpu[1].ensemble_.leaf_value).max() <= 1e-9
+
+
+# -- NaiveBayes (slice 23) ----------------------------------------------------
+
+def _nb_data(kind, rows=20_000, d=64, k=5, seed=23):
+    rng = np.random.default_rng(seed)
+    y = rng.integers(0, k, size=rows).astype(np.float64)
+    profile = rng.uniform(0.5, 1.5, size=(k, d))[y.astype(int)]
+    if kind == "gaussian":
+        x = rng.normal(size=(rows, d)) + profile
+    else:
+        x = rng.poisson(0.05 * profile).astype(np.float64)
+        if kind == "bernoulli":
+            x = (x > 0).astype(np.float64)
+    return x.astype(np.float32), y
+
+
+@pytest.mark.parametrize("kind", ["multinomial", "complement", "bernoulli",
+                                  "gaussian"])
+def test_nb_class_stats_on_the_card_match_the_host(cuda_device, kind):
+    """Each family's float32 fit on the card: its class products run on
+    CUDA tensors, within 1e-6 of the host float64 fit, and bit-equal
+    under set_float32_matmul_precision("high") (taken in float64)."""
+    from spark_rapids_ml_tpu_torch import NaiveBayes
+    from spark_rapids_ml_tpu_torch.models import naive_bayes
+
+    x, y = _nb_data(kind)
+    devices = []
+    real = naive_bayes.class_products
+
+    def spy(xt, oh, need_sq):
+        devices.append((xt.device.type, xt.dtype))
+        return real(xt, oh, need_sq)
+
+    naive_bayes.class_products = spy
+    try:
+        card = NaiveBayes().setModelType(kind).fit(x, labels=y)
+    finally:
+        naive_bayes.class_products = real
+    assert devices == [("cuda", torch.float32)]
+    host = NaiveBayes().setModelType(kind).setUseXlaDot(False).fit(
+        x, labels=y)
+    for got, want in ((card.theta, host.theta), (card.pi, host.pi),
+                      (card.sigma, host.sigma)):
+        if want is None:
+            assert got is None
+            continue
+        assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        high = NaiveBayes().setModelType(kind).fit(x, labels=y)
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    assert np.array_equal(high.theta, card.theta)
+    assert np.array_equal(high.pi, card.pi)
+    if kind == "gaussian":
+        assert np.array_equal(high.sigma, card.sigma)
+
+
+def test_distributed_nb_fit_on_one_nccl_rank(cuda_device, tmp_path):
+    """``distributed_nb_fit`` in a one-rank NCCL world equals the local
+    float32 fit on the card (one rank reduces nothing)."""
+    import torch.distributed as dist
+
+    from spark_rapids_ml_tpu_torch import NaiveBayes
+    from spark_rapids_ml_tpu_torch.parallel import (
+        data_mesh,
+        distributed_nb_fit,
+    )
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        for kind in ("gaussian", "multinomial"):
+            x, y = _nb_data(kind, seed=24)
+            model = distributed_nb_fit(x, y, data_mesh(1), model_type=kind)
+            local = NaiveBayes().setModelType(kind).fit(x, labels=y)
+            assert np.array_equal(model.theta, local.theta)
+            assert np.array_equal(model.pi, local.pi)
+            assert model.fit_report_.collectives["all_reduce"]["count"] == 1
+    finally:
+        dist.destroy_process_group()

@@ -584,7 +584,7 @@ def test_tree_slice_runs_without_jax(tmp_path):
 SPARK_PLANE = ("spark", "spark._compat", "spark.local_engine",
                "spark.aggregate", "spark.device_aggregate", "spark.estimator",
                "spark.forest_plane", "spark.forest_estimator",
-               "spark.adapter", "spark.adapter2")
+               "spark.adapter", "spark.adapter2", "spark.moments_estimator")
 
 
 def test_spark_plane_imports_and_runs_without_jax_pandas_or_pyarrow():
@@ -676,6 +676,72 @@ def test_streamed_tree_fits_run_without_jax_pandas_or_pyarrow():
                           capture_output=True, text=True, timeout=120,
                           env=env)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+MOMENTS_AND_NB = ("StandardScaler", "MinMaxScaler", "MaxAbsScaler",
+                  "RobustScaler", "TruncatedSVD", "LinearSVC",
+                  "GeneralizedLinearRegression", "NaiveBayes",
+                  "NaiveBayesModel")
+
+
+def test_moments_plane_and_naive_bayes_run_without_jax_pandas_or_pyarrow(
+        tmp_path):
+    """The nine front ends resolved from ``spark``, each estimator's
+    ``_fit`` on numpy partitions (``forest_estimator.PartitionFrame``),
+    the local NaiveBayes fit, ``distributed_nb_fit`` in a one-rank gloo
+    world and a NaiveBayes model saved and loaded (the JSON payload), in a
+    process where pandas and pyarrow cannot be imported and that never
+    imports jax or the JAX package."""
+    code = (
+        "import sys\n"
+        "sys.modules['pandas'] = None\n"
+        "sys.modules['pyarrow'] = None\n"
+        "import numpy as np\n"
+        "import torch.distributed as dist\n"
+        "from spark_rapids_ml_tpu_torch import NaiveBayes\n"
+        "from spark_rapids_ml_tpu_torch import spark\n"
+        "from spark_rapids_ml_tpu_torch.io.persistence import load_model\n"
+        "from spark_rapids_ml_tpu_torch.parallel import data_mesh, "
+        "distributed_nb_fit\n"
+        "from spark_rapids_ml_tpu_torch.spark.forest_estimator import "
+        "PartitionFrame\n"
+        f"classes = [getattr(spark, n) for n in {MOMENTS_AND_NB!r}]\n"
+        "rng = np.random.default_rng(0)\n"
+        "x = np.abs(rng.normal(size=(300, 5)))\n"
+        "y = (x[:, 0] > x[:, 1]).astype(float)\n"
+        "frame = PartitionFrame([[(x[:150], y[:150])], [(x[150:], y[150:])]])\n"
+        "models = [spark.StandardScaler().fit(frame), "
+        "spark.MinMaxScaler().fit(frame), spark.MaxAbsScaler().fit(frame), "
+        "spark.RobustScaler().fit(frame), spark.TruncatedSVD(k=2).fit(frame), "
+        "spark.LinearSVC().fit(frame), "
+        "spark.GeneralizedLinearRegression().fit(frame), "
+        "spark.NaiveBayes(modelType='gaussian').fit(frame)]\n"
+        "local = NaiveBayes().setModelType('gaussian').fit(x, labels=y)\n"
+        "d = sys.argv[1]\n"
+        "dist.init_process_group('gloo', init_method='file://' + d + "
+        "'/store', rank=0, world_size=1)\n"
+        "ranked = distributed_nb_fit(x, y, data_mesh(1), "
+        "model_type='gaussian')\n"
+        "dist.destroy_process_group()\n"
+        "local.save(d + '/nb')\n"
+        "loaded = load_model(d + '/nb')\n"
+        "bad = sorted(k for k in sys.modules if sys.modules[k] is not None "
+        "and k.split('.')[0] in ('jax', 'spark_rapids_ml_tpu', 'pandas', "
+        "'pyarrow'))\n"
+        "ok = (np.array_equal(ranked.theta, local.theta) and "
+        "np.array_equal(loaded.theta, local.theta) and "
+        "np.allclose(models[-1]._local.theta, local.theta, atol=1e-6) and "
+        "type(models[0]).__name__ == 'StandardScalerModel')\n"
+        "print([c.__module__ for c in classes], bad, ok)\n"
+        "sys.exit(1 if bad or not ok else 0)\n"
+    )
+    env = dict(os.environ, SPARK_RAPIDS_ML_TORCH_PLATFORM="cpu",
+               OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                          cwd=REPO_DIR, capture_output=True, text=True,
+                          timeout=120, env=env)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "spark_rapids_ml_tpu_torch.spark.moments_estimator" in proc.stdout
 
 
 def test_port_sources_import_no_jax():

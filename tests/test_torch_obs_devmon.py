@@ -14,11 +14,13 @@ import torch
 
 from spark_rapids_ml_tpu.obs import get_registry as jax_registry
 from spark_rapids_ml_tpu.obs import memory as jax_memory
+from spark_rapids_ml_tpu.obs import metrics as jax_metrics
 from spark_rapids_ml_tpu.obs import tsdb as jax_tsdb
 from spark_rapids_ml_tpu.obs.devmon import DeviceMonitor as JaxDeviceMonitor
 from spark_rapids_ml_tpu_torch import PCAModel
 from spark_rapids_ml_tpu_torch.obs import devmon
 from spark_rapids_ml_tpu_torch.obs import memory
+from spark_rapids_ml_tpu_torch.obs import metrics
 from spark_rapids_ml_tpu_torch.obs import tsdb
 from spark_rapids_ml_tpu_torch.obs.devmon import DeviceMonitor
 from spark_rapids_ml_tpu_torch.obs.metrics import get_registry
@@ -66,7 +68,14 @@ class _Props:
 @pytest.fixture
 def fake_cuda(monkeypatch):
     """Two fake CUDA devices behind the allocator's counters; any driver
-    call or sync a sample must not make fails the test."""
+    call or sync a sample must not make fails the test. Both packages'
+    metrics registries are the test's own: the fake devices' memory
+    gauges must not stay in the process-wide registries, where a later
+    history sweep would record them."""
+    monkeypatch.setattr(metrics, "_default_registry",
+                        metrics.MetricsRegistry())
+    monkeypatch.setattr(jax_metrics, "_default_registry",
+                        jax_metrics.MetricsRegistry())
     props_calls = []
 
     def memory_stats(index):

@@ -452,7 +452,10 @@ def test_readyz_recovers_without_predict_traffic(monkeypatch):
     from spark_rapids_ml_tpu_torch.serve import ShedController
 
     monkeypatch.setenv("SPARK_RAPIDS_ML_TORCH_PLATFORM", "cpu")
-    shed = ShedController(refresh_seconds=0.0, hold_seconds=0.05)
+    # a hold of 0.5 s: with 0.05 s, a pause of that length between the
+    # first two probes under a parallel suite let the hold lapse before
+    # the loop's first probe, which then read 200
+    shed = ShedController(refresh_seconds=0.0, hold_seconds=0.5)
     registry = ModelRegistry()
     registry.register("echo", _Echo())
     engine = ServeEngine(registry, max_wait_ms=1, shed=shed)

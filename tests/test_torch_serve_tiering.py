@@ -707,7 +707,16 @@ def _replicas_collapsed(doc):
     return doc
 
 
-def test_debug_routes_match_the_jax_engine(fresh_ledgers):
+def test_debug_routes_match_the_jax_engine(fresh_ledgers, monkeypatch):
+    # Both ledgers run on the controllers' injected clock. The cold
+    # ranking reads a ledger's clock (last-hit age, EWMA rate): on the wall
+    # clock, a stall of 0.3 s between route_a's last request and route_b's
+    # (CPU contention under a parallel suite) ranks route_a colder.
+    now = [0.0]
+    monkeypatch.setattr(accounting, "_ledger", accounting.ResourceLedger(
+        clock=lambda: now[0]))
+    monkeypatch.setattr(jax_accounting, "_ledger",
+                        jax_accounting.ResourceLedger(clock=lambda: now[0]))
     x = np.random.default_rng(11).normal(size=(200, N_FEAT))
     names = ("route_a", "route_b", "route_c")
     jax_models = {n: JaxPCA().setK(3).setDtype("float64").fit(
@@ -722,7 +731,6 @@ def test_debug_routes_match_the_jax_engine(fresh_ledgers):
     tsdb.reset_tsdb()
     devmon.reset_device_monitor()
     server = None
-    now = [0.0]
     try:
         for eng in (jeng, teng):
             for name in names:
