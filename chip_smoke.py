@@ -35,8 +35,9 @@ Phases (any failure raises and the script exits non-zero):
    logged as a rate against the operand type's peak. Then phase 14's new
    shapes, each checked (prep bit for bit, Gram within its bar) and timed
    the same way: bfloat16_3x on the streamed LinearRegression's bucket of
-   Z = [X | y] (7936 × 4097, one tile column past 4096) and highest on
-   65,536 × 4096 with a √weight row multiplier.
+   Z = [X | y] (7936 × 4097, one tile column past 4096), highest on
+   65,536 × 4096 with a √weight row multiplier, and bfloat16_3x on phase
+   24's PCA-init rows (60,000 × 784: a ragged tile column and fold).
 4. The PCA slice at the north-star width (4096 features, k = 256; rows cut
    from 10,485,760 to fit the run's time), data with a decaying spectrum
    made per chunk from a seed on the card:
@@ -352,7 +353,8 @@ Phases (any failure raises and the script exits non-zero):
     (iii)'s design (65,536 × 4096 N(0, 1) rows), labels Bernoulli(σ(x·w* +
     0.5)) with w* ~ N(0, 4/4096) from a seed: one-shot, weighted (w ~
     U(0.5, 2)), ``fitIntercept=False``, each one highest launch per
-    Newton iteration, against the same Newton in float64 on the card
+    Newton iteration (maxIter 20: cut from 100; float32 runs to it,
+    float64 stops at 7), against the same Newton in float64 on the card
     (``logreg_fit_kernel`` on float64 tensors), ≤ 1e-4 relative; the first
     iteration's Hessian on its own √s rows against its plain version and
     timed beside ``torch.matmul`` (f32, TF32 off) and the bound; elastic
@@ -360,10 +362,11 @@ Phases (any failure raises and the script exits non-zero):
     runs on the host) against the same fit at float64, ≤ 1e-3; streamed
     from 4 chunks of 65,536 (32 buckets of 8192 a pass, 6 passes), ≤ 1e-4
     against float64 Newton on the 262,144 rows; ``distributed_logreg_fit``
-    on a fresh one-rank NCCL world, ≤ 1e-6 against the one-shot fit, its
+    on a fresh one-rank NCCL world (maxIter 20), ≤ 1e-6 against the
+    one-shot fit, its
     fit-monitor step ``newton`` and its all-reduce record. (ii)
     Multinomial, K = 4 (argmax of planted logits + Gumbel noise), maxIter
-    25: at 4096 features (K(K+1)/2 = 10 launches an iteration), against
+    10 (cut from 25; float64 stops at 8): at 4096 features (K(K+1)/2 = 10 launches an iteration), against
     the same fit with the Gram's plain version (≤ 1e-4 on [W | b] less its
     class mean) and at float64 (class mismatch ≤ 1e-3, probabilities
     ≤ 2e-3); streamed at 256 features (the first 256 columns, new labels;
@@ -388,7 +391,8 @@ Phases (any failure raises and the script exits non-zero):
     with every 16th column set to 2.5 (256 constant columns). (ii)
     ``Pipeline([MinMaxScaler, ElementwiseProduct (N(0, 1) scalingVec),
     VectorSlicer (3840 permuted indices), PCA(k=256),
-    LogisticRegression()])`` with labels planted on the rows its PCA sees:
+    LogisticRegression(maxIter=20)])`` (cut from 100) with labels planted
+    on the rows its PCA sees:
     one bfloat16_3x and one highest launch per Newton iteration; (iii)
     ``Pipeline([RobustScaler(withCentering), MaxAbsScaler, Normalizer,
     VarianceThresholdSelector, PCA(k=256), KMeans(k=64)])``: one
@@ -426,7 +430,8 @@ Phases (any failure raises and the script exits non-zero):
     card (``svc_fit_kernel`` on float64 tensors); ``distributed_svc_fit``
     on one NCCL rank within 1e-6 of the one-shot fit, its fit-monitor
     step and all-reduce bytes. (ii) GLM Poisson / log: one-shot and with
-    weights and an offset, within 1e-4 of the same IRLS at float64;
+    weights and an offset, 3 IRLS passes (cut from 25: both precisions
+    converge at 6), within 1e-4 of the same IRLS at float64;
     streamed at maxIter 2 within 1e-5 of the in-memory fit at maxIter 2
     (a fit at maxIter launches once more, for its final deviance);
     ``distributed_glm_fit`` at maxIter 2 within 1e-6 of that in-memory
@@ -591,11 +596,40 @@ Phases (any failure raises and the script exits non-zero):
     ``ModelRegistry.load``, and 32 requests of ≤ 64 held-out rows served
     through ``ServeEngine`` with labels equal to the model's
     ``transform``. No hand kernel launches.
+24. UMAP (``ops/umap_kernel.py``, ``models/umap.py``,
+    ``parallel/distributed_umap.py``, the adapter pair) at MNIST's shape
+    and the JAX defaults (nNeighbors 15, nComponents 2, minDist 0.1, 200
+    epochs, learningRate 1, repulsionStrength 1), on 784-feature float32
+    rows in 10 classes made on the card from the seed (each class a mean
+    plus 4 directions of its own and small noise; the published digits
+    are not in the repo). (i) The dense fit on 16,384 rows (the dense
+    path's largest shape); (ii) the tiled fit on 60,000 rows, blockRows
+    auto (4096), whose PCA init launches the Gram kernel once
+    (bfloat16_3x, asserted; phase 3 holds that 60,000 × 784 shape to its
+    plain version). Each fit: its float32 graph against the same graph
+    at float64 on the card, P within 1e-5 (max |Δ| / max |P|) and σ
+    within 1e3·2⁻³⁰ but on rows whose float64 15th and 16th neighbor
+    distances lie within 1e-5 relative (counted); from the same init, the
+    first float32 epoch within 1e-4 of the float64 epoch; five epochs
+    bit-equal twice and under ``set_float32_matmul_precision("high")``;
+    T(10) ≥ 0.85 on a fixed 4096-row sample and a 10-NN classifier in
+    the embedding agreeing with the classes on ≥ 0.95 of it. (iii) The
+    transform of 10,000 fresh rows through (ii)'s model within 1e-5 of
+    the same placement at float64 on the host, but on queries whose
+    float64 15th and 16th distances lie within 1e-5 relative (counted).
+    (iv) ``distributed_umap_optimize`` on a one-rank NCCL world from
+    (ii)'s edge list and init, 5 epochs at float64, within 1e-9 of the
+    tiled optimizer, with JAX's collective record. (v) The Spark pair on
+    4 numpy partitions of 1024 rows through ``PartitionFrame``: its
+    embedding equal to the local fit's on the collected rows, the
+    transform body's equal to the local transform.
 
 Then one JSON line ``{"stage_bodies": [...]}``, one ``{"knn_dbscan":
 {...}}`` (phase 19's numbers), one ``{"trees": {...}}`` (phase 20's),
 one ``{"spark_plane": {...}}`` (phase 21's), one ``{"forest_plane":
 {...}}`` (phase 22's), one ``{"moments_plane": {...}}`` (phase 23's),
+one ``{"umap": {...}}`` (phase 24's: fit timings, ms an epoch of each
+optimizer, near-tie counts and every bar's number),
 one ``{"kernels": [...]}``
 (each kernel with its launches per phase and, under ``extra_shapes``,
 phase 3's timings of phase 14's shapes and phases 16 and 18's Hessians),
@@ -644,6 +678,9 @@ REPLACES = "spark_rapids_ml_tpu/ops/pallas_gram.py:200"
 SLICE_14_SHAPES = {
     "streamed Z bucket": ("bfloat16_3x", 7936, N_FEATURES + 1, "ones"),
     "root-weight rows": ("highest", CHUNK_ROWS, N_FEATURES, "root_weights"),
+    # phase 24's tiled UMAP fit: pca_init's covariance of MNIST's 60,000
+    # training rows (784 = 6·128 + 16: a ragged tile column; a ragged fold)
+    "UMAP PCA-init rows (phase 24)": ("bfloat16_3x", 60_000, 784, "ones"),
 }
 
 # Fit vs plain-version fit: components whose spectral gap is well above
@@ -4725,7 +4762,9 @@ LR_STREAM_ITER = 6         # Newton passes of the streamed binary fit
 LR_ENET = (0.01, 0.5)      # (regParam, elasticNetParam)
 LR_ENET_ITER = 2           # prox-Newton steps, each one FISTA on 4097² on the host
 LR_K = 4                   # classes of the multinomial fits
-LR_MN_ITER = 25
+LR_MN_ITER = 10            # (cut from 25: float64 stops at 8, float32 never)
+LR_ITER = 20               # the in-memory binary fits, the chains' Newton
+                           # (cut from 100: float64 stops at 7, float32 never)
 LR_MN_STREAM_FEATURES = 256
 # bars, set in PERF.md §2 before the first run
 LOGREG_RTOL = 1e-4         # one-shot, weighted, no intercept, streamed
@@ -4882,12 +4921,14 @@ def phase_logreg(torch, fg, device, model_c):
         f"{LR_SCALE:g}²/{n}): {y.mean():.4f} positive")
     fits = {}
     for label, est, data, oracle_kw in (
-            ("one-shot", LogisticRegression(), (x, y), {}),
-            ("weighted", LogisticRegression().setWeightCol("w"),
+            ("one-shot", LogisticRegression().setMaxIter(LR_ITER), (x, y),
+             {}),
+            ("weighted", LogisticRegression().setMaxIter(LR_ITER)
+             .setWeightCol("w"),
              (VectorFrame({"features": x, "label": y, "w": weights}),),
              {"weights": weights}),
-            ("no intercept", LogisticRegression().setFitIntercept(False),
-             (x, y), {"fit_intercept": False})):
+            ("no intercept", LogisticRegression().setMaxIter(LR_ITER)
+             .setFitIntercept(False), (x, y), {"fit_intercept": False})):
         t0 = time.perf_counter()
         model, counts = counted_run(
             torch, fg, f"(i) LogisticRegression {label}",
@@ -4976,7 +5017,8 @@ def phase_logreg(torch, fg, device, model_c):
         t0 = time.perf_counter()
         result, counts = counted_run(
             torch, fg, "(i) distributed_logreg_fit, one NCCL rank",
-            lambda: distributed_logreg_fit(x, y, data_mesh(1)),
+            lambda: distributed_logreg_fit(x, y, data_mesh(1),
+                                           max_iter=LR_ITER),
             lambda r: {highest: int(r.n_iter)})
         seconds = time.perf_counter() - t0
         add(counts)
@@ -5515,7 +5557,7 @@ def phase_stages(torch, fg, device):
             VectorSlicer(indices=indices).setInputCol("weighted")
             .setOutputCol("sliced"),
             PCA().setK(K).setInputCol("sliced").setOutputCol("reduced"),
-            LogisticRegression().setInputCol("reduced"),
+            LogisticRegression().setMaxIter(LR_ITER).setInputCol("reduced"),
         ]), VectorFrame({"features": x, "label": y}),
             lambda p: {default: 1, highest: p.stages[4].n_iter_}),
         "clustering": (Pipeline([
@@ -5710,6 +5752,9 @@ SVC_STREAM_ITER = 3        # Newton passes of the streamed fit (cut)
 GLM_SCALE = 0.5            # sd of the planted η: w* ~ N(0, GLM_SCALE²/n)
 GLM_INTERCEPT = 0.5
 GLM_STREAM_ITER = 2        # IRLS passes of the streamed and one-rank fits
+GLM_ITER = 3               # IRLS passes of (ii)'s in-memory pairs (cut from
+                           # 25: both precisions converged at 6, ~1.4 s of
+                           # host float64 solve a pass at 4097²)
                            # (cut), + 1 for the final deviance
 GLM_NARROW = 512           # (iii)'s width: the first 512 columns
 GLM_SERVED = 32            # requests of at most SERVE_JSON_MAX_ROWS rows
@@ -5972,9 +6017,10 @@ def phase_linear_models(torch, fg, device):
         f"{GLM_INTERCEPT}, w* ~ N(0, {GLM_SCALE:g}²/{n}): mean "
         f"{counts_y.mean():.4f}; with an offset ~ N(0, 0.1²) and weights "
         f"~ U(0.5, 2)")
-    poisson = GeneralizedLinearRegression(family="poisson")
-    weighted = GeneralizedLinearRegression(family="poisson").setWeightCol(
-        "w").setOffsetCol("off")
+    poisson = GeneralizedLinearRegression(family="poisson").setMaxIter(
+        GLM_ITER)
+    weighted = GeneralizedLinearRegression(family="poisson").setMaxIter(
+        GLM_ITER).setWeightCol("w").setOffsetCol("off")
     frame_o = VectorFrame({"features": x, "label": counts_o, "w": weights,
                            "off": offset})
     for label, est, data in (
@@ -8296,6 +8342,429 @@ def phase_moments_plane(torch, fg, device):
     return summary
 
 
+UMAP_FEATURES = 784            # MNIST's shape: 28 × 28 pixels
+UMAP_CLASSES = 10
+UMAP_TRAIN_ROWS = 60_000       # MNIST's training split
+UMAP_TEST_ROWS = 10_000        # MNIST's test split
+UMAP_DENSE_ROWS = 16_384       # the dense path's largest shape
+UMAP_LATENT_SD = (3.0, 2.0, 1.2, 0.7)    # each class's low-rank structure
+UMAP_NOISE_SD = 0.01           # per pixel, beside it
+UMAP_K = 15                    # the defaults: nNeighbors 15, nComponents 2,
+UMAP_EPOCHS = 200              # minDist 0.1, nEpochs 200, learningRate 1,
+UMAP_MIN_DIST = 0.1            # repulsionStrength 1
+UMAP_BLOCK = 4096              # blockRows' auto value past the dense envelope
+UMAP_SAMPLE = 4096             # rows the structure bars are taken on
+UMAP_REPEAT_EPOCHS = 5
+UMAP_SPARK_PARTS = 4           # (v): 4 numpy partitions of 1024 rows
+UMAP_SPARK_ROWS = 1024
+UMAP_TIE_RTOL = 1e-5           # float64 k-th and (k+1)-th within: a near-tie
+UMAP_P_RTOL = 1e-5             # the float32 graph vs the float64 graph
+UMAP_SIGMA_ATOL = 1e3 * 2.0 ** -30   # a few of the bisection's last steps
+UMAP_EPOCH_RTOL = 1e-4         # the first float32 epoch vs the float64 one
+UMAP_TRUST = 0.85              # T(10), the JAX tests' bar
+UMAP_KNN_AGREE = 0.95          # 10-NN labels in the embedding
+UMAP_TRANSFORM_RTOL = 1e-5     # the transform vs float64 on the host
+UMAP_SHARDED_ATOL = 1e-9       # one NCCL rank vs the tiled optimizer, float64
+UMAP_BF16X3_LAUNCHES = 1       # the tiled fit's PCA init, one Gram
+
+
+def mnist_shaped(torch, device, rows, seed):
+    """MNIST-shaped rows made on the card from a seed (the published
+    digits are not in the repo): 784 float32 features in 10 classes, class
+    means U(0, 0.5) per pixel, each class's rows spread along 4 directions
+    of its own (sd 3.0, 2.0, 1.2, 0.7) plus N(0, 0.01²) per pixel. The
+    classes' structure comes from one seed, the rows from ``seed``.
+    Returns (x float32 on the card, labels numpy)."""
+    c_gen = torch.Generator(device=device).manual_seed(SEED + 24)
+    means = 0.5 * torch.rand(UMAP_CLASSES, UMAP_FEATURES, generator=c_gen,
+                             device=device)
+    basis = torch.randn(UMAP_CLASSES, len(UMAP_LATENT_SD), UMAP_FEATURES,
+                        generator=c_gen, device=device) / UMAP_FEATURES ** 0.5
+    gen = torch.Generator(device=device).manual_seed(seed)
+    labels = torch.randint(0, UMAP_CLASSES, (rows,), generator=gen,
+                           device=device)
+    z = torch.randn(rows, len(UMAP_LATENT_SD), generator=gen, device=device)
+    z = z * torch.tensor(UMAP_LATENT_SD, device=device)
+    x = means[labels] + (z[:, :, None] * basis[labels]).sum(dim=1)
+    x += UMAP_NOISE_SD * torch.randn(rows, UMAP_FEATURES, generator=gen,
+                                     device=device)
+    return x.contiguous(), labels.cpu().numpy()
+
+
+def umap_structure(torch, x, emb, labels, rows):
+    """(T(10), 10-NN agreement) on ``rows``: trustworthiness among the
+    sample (``tests/test_umap.py``'s formula, in float64 on the card), and
+    each sample row's 10 nearest fitted rows in the embedding (itself
+    left out) voting its class."""
+    from spark_rapids_ml_tpu_torch.ops.knn_kernel import pairwise_sqdist
+
+    k = 10
+    device = x.device
+    idx = torch.as_tensor(rows, device=device)
+    xs = x[idx].double()
+    es = torch.as_tensor(emb[rows], dtype=torch.float64, device=device)
+    m = len(rows)
+    dx = pairwise_sqdist(xs, xs).fill_diagonal_(float("inf"))
+    de = pairwise_sqdist(es, es).fill_diagonal_(float("inf"))
+    rank_x = torch.argsort(torch.argsort(dx, dim=1), dim=1)
+    knn_e = torch.topk(de, k, dim=1, largest=False).indices
+    penalty = torch.clamp_min(rank_x.gather(1, knn_e) - k + 1, 0).sum().item()
+    trust = 1.0 - 2.0 / (m * k * (2 * m - 3 * k - 1)) * penalty
+    del dx, de, rank_x
+    e_all = torch.as_tensor(emb, dtype=torch.float64, device=device)
+    d = pairwise_sqdist(es, e_all)
+    d[torch.arange(m, device=device), idx] = float("inf")
+    nbrs = torch.topk(d, k, dim=1, largest=False).indices
+    lab = torch.as_tensor(labels, device=device)
+    votes = torch.nn.functional.one_hot(lab[nbrs], UMAP_CLASSES).sum(dim=1)
+    agree = (votes.argmax(dim=1) == lab[idx]).double().mean().item()
+    return trust, agree
+
+
+def umap_ties(d64, k):
+    """Rows whose float64 k-th and (k+1)-th neighbor distances lie within
+    ``UMAP_TIE_RTOL`` of each other: bool numpy (n,)."""
+    kth, nxt = d64[:, k - 1], d64[:, k]
+    return ((nxt - kth) <= UMAP_TIE_RTOL * nxt).cpu().numpy()
+
+
+def umap_repeat(torch, run):
+    """``run()`` twice and once more under TF32 (``allow_tf32`` and
+    ``set_float32_matmul_precision("high")``): (bit-equal twice,
+    bit-equal under TF32, seconds of one run)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first = run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    second = run()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.set_float32_matmul_precision("high")
+    try:
+        tf32 = run()
+    finally:
+        torch.set_float32_matmul_precision("highest")
+        torch.backends.cuda.matmul.allow_tf32 = False
+    return (bool(torch.equal(first, second)), bool(torch.equal(first, tf32)),
+            seconds)
+
+
+def phase_umap(torch, fg, device):
+    """Phase 24: UMAP at MNIST's shape on the card, at the JAX defaults.
+    (i) the dense fit on 16,384 rows, (ii) the tiled fit on 60,000, (iii)
+    the transform of 10,000 fresh rows through (ii)'s model, (iv) the
+    sharded optimizer on one NCCL rank from (ii)'s graph and init, (v) the
+    Spark pair on 4 numpy partitions. Each fit is held to the same graph
+    at float64 on the card, its first epoch to the float64 epoch, five
+    epochs repeated and under TF32 bit for bit, and its embedding to the
+    structure bars. Launches the Gram kernel once (the tiled fit's PCA
+    init, bfloat16_3x). Returns ({kernel: launches}, summary)."""
+    import torch.distributed as dist
+
+    from spark_rapids_ml_tpu_torch import UMAP
+    from spark_rapids_ml_tpu_torch.models.umap import knn_without_self, place
+    from spark_rapids_ml_tpu_torch.ops import umap_kernel as uk
+    from spark_rapids_ml_tpu_torch.ops.knn_kernel import knn_kernel
+    from spark_rapids_ml_tpu_torch.parallel import (
+        data_mesh,
+        distributed_umap_optimize,
+        initialize_multihost,
+    )
+    from spark_rapids_ml_tpu_torch.spark import adapter
+    from spark_rapids_ml_tpu_torch.spark import forest_estimator as fe
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi_line()
+    summary = {"card": smi}
+    laps = {}
+    t_lap = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        laps[name] = now - t_lap[0]
+        t_lap[0] = now
+        log(f"    ({name}) {laps[name]:.1f} s")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    fg.reset_launches()
+    x_train, y_train = mnist_shaped(torch, device, UMAP_TRAIN_ROWS,
+                                    SEED + 2400)
+    x_test, _ = mnist_shaped(torch, device, UMAP_TEST_ROWS, SEED + 2401)
+    x_np = x_train.cpu().numpy()
+    a, b = uk.fit_ab(UMAP_MIN_DIST)
+    sample_rng = np.random.default_rng(SEED + 2402)
+    samples = {"dense": sample_rng.choice(UMAP_DENSE_ROWS, UMAP_SAMPLE,
+                                          replace=False),
+               "tiled": sample_rng.choice(UMAP_TRAIN_ROWS, UMAP_SAMPLE,
+                                          replace=False)}
+    log(f"  {smi}; MNIST-shaped rows made on the card: {UMAP_TRAIN_ROWS:,} + "
+        f"{UMAP_TEST_ROWS:,} x {UMAP_FEATURES} float32 in {UMAP_CLASSES} "
+        f"classes; a {a:.6f}, b {b:.6f}")
+    lap("data")
+
+    def graphs(x32, n):
+        """The float32 graph's memberships and the float64 graph's, from
+        kNN searches in query chunks of ``UMAP_BLOCK`` rows: (d32, i32, d64
+        with the (k+1)-th column, i64, near-tie rows)."""
+        x64 = x32.double()
+        parts32 = [knn_without_self(x32[s:s + UMAP_BLOCK], x32, UMAP_K)
+                   for s in range(0, n, UMAP_BLOCK)]
+        parts64 = [knn_without_self(x64[s:s + UMAP_BLOCK], x64, UMAP_K + 1)
+                   for s in range(0, n, UMAP_BLOCK)]
+        d32 = torch.cat([d for d, _ in parts32])
+        i32 = torch.cat([i for _, i in parts32])
+        d64 = torch.cat([d for d, _ in parts64])
+        i64 = torch.cat([i for _, i in parts64])
+        return d32, i32, d64, i64, umap_ties(d64, UMAP_K)
+
+    def sigma_err(d32, d64, ties):
+        _, s32 = uk.smooth_knn_calibration(d32)
+        _, s64 = uk.smooth_knn_calibration(d64[:, :UMAP_K])
+        diff = (s32.double() - s64).abs().cpu().numpy()
+        return float(diff[~ties].max()), float(diff.max()), \
+            float(s64.median().item())
+
+    def epoch_err(y32, y64):
+        y32 = y32.double()
+        return ((y32 - y64).abs().max() / y64.abs().max()).item()
+
+    fits = {}
+    gamma = {}
+    # (i) the dense fit on 16,384 rows
+    n_d = UMAP_DENSE_ROWS
+    xd = x_np[:n_d]
+    gamma["dense"] = 1.0 * (5.0 * 2.0 * UMAP_K / n_d)
+    model_d, s_d = timed(lambda: UMAP().fit(xd))
+    fits["dense"] = {"s": s_d, "fit_timings": model_d.fit_timings_,
+                     "epoch_ms": model_d.fit_timings_["optimize"]
+                     / UMAP_EPOCHS * 1e3}
+    log(f"  (i) dense fit, {n_d:,} rows: {s_d:.2f} s (host clock), "
+        f"fit_timings_ {model_d.fit_timings_}; "
+        f"{fits['dense']['epoch_ms']:.3f} ms an epoch")
+    check(np.isfinite(model_d.embedding_).all(), "dense embedding finite")
+    lap("i fit")
+    xd32 = x_train[:n_d]
+    d32, i32, d64, i64, ties = graphs(xd32, n_d)
+    p32 = uk.fuzzy_graph(d32, i32, n_d)
+    p64 = uk.fuzzy_graph(d64[:, :UMAP_K], i64[:, :UMAP_K], n_d)
+    tie_t = torch.as_tensor(ties, device=device)
+    diff = (p32.double() - p64).abs_()
+    diff[tie_t] = 0.0
+    diff[:, tie_t] = 0.0
+    p_err = (diff.max() / p64.abs().max()).item()
+    del diff
+    s_err, s_err_all, s_med = sigma_err(d32, d64, ties)
+    emb0 = uk.spectral_init(p32, 2)
+    y32 = uk.optimize_embedding(p64.float(), emb0, a, b, 1.0,
+                                gamma["dense"], 1)
+    y64 = uk.optimize_embedding(p64, emb0.double(), a, b, 1.0,
+                                gamma["dense"], 1)
+    e_err = epoch_err(y32, y64)
+    del p64, y32, y64, d64, i64
+    same, same_tf32, s5 = umap_repeat(torch, lambda: uk.optimize_embedding(
+        p32, emb0, a, b, 1.0, gamma["dense"], UMAP_REPEAT_EPOCHS))
+    trust, agree = umap_structure(torch, xd32, model_d.embedding_,
+                                  y_train[:n_d], samples["dense"])
+    fits["dense"].update({
+        "near_ties": int(ties.sum()), "p_rel_err": p_err,
+        "sigma_abs_err": s_err, "sigma_abs_err_all_rows": s_err_all,
+        "sigma_median": s_med, "first_epoch_rel_err": e_err,
+        "repeat_bit_equal": same, "tf32_bit_equal": same_tf32,
+        "five_epochs_s": s5, "trustworthiness": trust, "knn_agreement": agree})
+    log(f"  (i) graph: near-tie rows {int(ties.sum())}; P float32 vs float64 "
+        f"{p_err:.3e} (bar {UMAP_P_RTOL:g}, outside them); σ {s_err:.3e} "
+        f"(bar {UMAP_SIGMA_ATOL:.3e}; {s_err_all:.3e} over every row; median "
+        f"σ {s_med:.4f}); first epoch {e_err:.3e} (bar {UMAP_EPOCH_RTOL:g}); "
+        f"5 epochs repeated bit-equal {same}, under TF32 {same_tf32} "
+        f"({s5 * 1e3 / UMAP_REPEAT_EPOCHS:.3f} ms an epoch); T(10) "
+        f"{trust:.4f} (bar {UMAP_TRUST}), 10-NN agreement {agree:.4f} (bar "
+        f"{UMAP_KNN_AGREE})")
+    del p32, d32, i32, emb0
+    check(p_err <= UMAP_P_RTOL, f"dense graph float32 vs float64 {p_err:.3e}")
+    check(s_err <= UMAP_SIGMA_ATOL, f"dense σ {s_err:.3e}")
+    check(e_err <= UMAP_EPOCH_RTOL, f"dense first epoch {e_err:.3e}")
+    check(same and same_tf32, "dense epochs repeat / under TF32")
+    check(trust >= UMAP_TRUST and agree >= UMAP_KNN_AGREE,
+          f"dense structure T {trust:.4f}, agreement {agree:.4f}")
+    lap("i bars")
+
+    # (ii) the tiled fit on 60,000 rows, blockRows auto (4096)
+    n_t = UMAP_TRAIN_ROWS
+    gamma["tiled"] = 1.0 * (5.0 * 2.0 * UMAP_K / n_t)
+    fg.reset_launches()
+    model_t, s_t = timed(lambda: UMAP().fit(x_np))
+    launched = {k: v for k, v in fg.launches.items() if v}
+    fits["tiled"] = {"s": s_t, "fit_timings": model_t.fit_timings_,
+                     "epoch_ms": model_t.fit_timings_["optimize"]
+                     / UMAP_EPOCHS * 1e3, "launches": launched}
+    log(f"  (ii) tiled fit, {n_t:,} rows in blocks of {UMAP_BLOCK}: "
+        f"{s_t:.2f} s (host clock), fit_timings_ {model_t.fit_timings_}; "
+        f"{fits['tiled']['epoch_ms']:.3f} ms an epoch; launches {launched}")
+    check(launched == {fg.kernel_name("bfloat16_3x"): UMAP_BF16X3_LAUNCHES},
+          f"the tiled fit's launches {launched}")
+    check(np.isfinite(model_t.embedding_).all(), "tiled embedding finite")
+    lap("ii fit")
+    d32, i32, d64, i64, ties = graphs(x_train, n_t)
+    mu32 = uk.memberships(d32).cpu().numpy()
+    mu64 = uk.memberships(d64[:, :UMAP_K]).cpu().numpy()
+    e32 = uk.symmetric_edge_list(mu32, i32.cpu().numpy(), n_t)
+    e64 = uk.symmetric_edge_list(mu64, i64[:, :UMAP_K].cpu().numpy(), n_t)
+    keep32 = ~(ties[e32[0]] | ties[e32[1]])
+    keep64 = ~(ties[e64[0]] | ties[e64[1]])
+    same_edges = (np.array_equal(e32[0][keep32], e64[0][keep64])
+                  and np.array_equal(e32[1][keep32], e64[1][keep64]))
+    p_err = (float(np.abs(e32[2][keep32] - e64[2][keep64]).max()
+                   / np.abs(e64[2]).max()) if same_edges else float("inf"))
+    s_err, s_err_all, s_med = sigma_err(d32, d64, ties)
+    del d32, i32, d64, i64, mu32, mu64
+    e_i, e_j, e_p = e32
+    # the fit's init again, for the bars: one launch of the kernel outside
+    # the main path, not counted
+    emb0 = uk.pca_init(x_train, 2)
+    fg.reset_launches()
+    p32 = torch.as_tensor(e_p, dtype=torch.float32, device=device)
+    p64 = torch.as_tensor(e_p, dtype=torch.float64, device=device)
+    y32 = uk.optimize_embedding_blocked(e_i, e_j, p32, emb0, None, a, b,
+                                        1.0, gamma["tiled"], 1, UMAP_BLOCK)
+    y64 = uk.optimize_embedding_blocked(e_i, e_j, p64, emb0.double(), None,
+                                        a, b, 1.0, gamma["tiled"], 1,
+                                        UMAP_BLOCK)
+    e_err = epoch_err(y32, y64)
+    same, same_tf32, s5 = umap_repeat(
+        torch, lambda: uk.optimize_embedding_blocked(
+            e_i, e_j, p32, emb0, None, a, b, 1.0, gamma["tiled"],
+            UMAP_REPEAT_EPOCHS, UMAP_BLOCK))
+    trust, agree = umap_structure(torch, x_train, model_t.embedding_,
+                                  y_train, samples["tiled"])
+    fits["tiled"].update({
+        "near_ties": int(ties.sum()), "edges": int(len(e_p)),
+        "same_edges_outside_ties": same_edges, "p_rel_err": p_err,
+        "sigma_abs_err": s_err, "sigma_abs_err_all_rows": s_err_all,
+        "sigma_median": s_med, "first_epoch_rel_err": e_err,
+        "repeat_bit_equal": same, "tf32_bit_equal": same_tf32,
+        "five_epochs_s": s5, "trustworthiness": trust, "knn_agreement": agree})
+    log(f"  (ii) graph: {len(e_p):,} edges, near-tie rows {int(ties.sum())}; "
+        f"the same edges outside them {same_edges}, P float32 vs float64 "
+        f"{p_err:.3e} (bar {UMAP_P_RTOL:g}); σ {s_err:.3e} (bar "
+        f"{UMAP_SIGMA_ATOL:.3e}; {s_err_all:.3e} over every row; median σ "
+        f"{s_med:.4f}); first epoch {e_err:.3e} (bar {UMAP_EPOCH_RTOL:g}); 5 "
+        f"epochs repeated bit-equal {same}, under TF32 {same_tf32} "
+        f"({s5 * 1e3 / UMAP_REPEAT_EPOCHS:.3f} ms an epoch); T(10) "
+        f"{trust:.4f} (bar {UMAP_TRUST}), 10-NN agreement {agree:.4f} (bar "
+        f"{UMAP_KNN_AGREE})")
+    check(same_edges and p_err <= UMAP_P_RTOL,
+          f"tiled graph float32 vs float64 {same_edges} {p_err:.3e}")
+    check(s_err <= UMAP_SIGMA_ATOL, f"tiled σ {s_err:.3e}")
+    check(e_err <= UMAP_EPOCH_RTOL, f"tiled first epoch {e_err:.3e}")
+    check(same and same_tf32, "tiled epochs repeat / under TF32")
+    check(trust >= UMAP_TRUST and agree >= UMAP_KNN_AGREE,
+          f"tiled structure T {trust:.4f}, agreement {agree:.4f}")
+    del p32, y32, y64
+    lap("ii bars")
+
+    # (iii) the transform of 10,000 fresh rows through (ii)'s model
+    q_np = x_test.cpu().numpy()
+    placed, s_q = timed(lambda: np.asarray(
+        model_t.transform(q_np).column("embedding")))
+    t0 = time.perf_counter()
+    ref = place(q_np, model_t.train_items_, model_t.embedding_, UMAP_K,
+                UMAP_BLOCK, torch.device("cpu"), torch.float64)
+    s_ref = time.perf_counter() - t0
+    items64 = torch.as_tensor(model_t.train_items_, device=device)
+    q_ties = np.concatenate([
+        umap_ties(knn_kernel(x_test[s:s + UMAP_BLOCK].double(), items64,
+                             UMAP_K + 1)[0], UMAP_K)
+        for s in range(0, UMAP_TEST_ROWS, UMAP_BLOCK)])
+    del items64
+    q_err = float(np.abs(placed[~q_ties] - ref[~q_ties]).max()
+                  / np.abs(ref).max())
+    summary["transform"] = {"rows": UMAP_TEST_ROWS, "s": s_q,
+                            "host_float64_s": s_ref,
+                            "near_ties": int(q_ties.sum()), "rel_err": q_err}
+    log(f"  (iii) transform of {UMAP_TEST_ROWS:,} fresh rows: {s_q:.3f} s "
+        f"(host clock; float64 on the host {s_ref:.2f} s); near-tie queries "
+        f"{int(q_ties.sum())}; vs float64 on the host {q_err:.3e} (bar "
+        f"{UMAP_TRANSFORM_RTOL:g}, outside them)")
+    check(q_err <= UMAP_TRANSFORM_RTOL, f"transform {q_err:.3e}")
+    lap("iii transform")
+
+    # (iv) the sharded optimizer on one NCCL rank, from (ii)'s graph and init
+    emb0_np = emb0.cpu().numpy()
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    coordinator = f"127.0.0.1:{free_port()}"
+    try:
+        initialize_multihost(coordinator, num_processes=1, process_id=0)
+    except Exception as exc:
+        raise RuntimeError(f"phase 24: the one-rank NCCL world did not "
+                           f"start at {coordinator}: {exc!r}") from exc
+    try:
+        check(dist.get_backend() == "nccl", "the card's world runs NCCL")
+        sharded, s_sh = timed(lambda: distributed_umap_optimize(
+            e_i, e_j, e_p, emb0_np, data_mesh(1), a, b, 1.0, gamma["tiled"],
+            UMAP_REPEAT_EPOCHS, dtype=np.float64, block_rows=UMAP_BLOCK))
+        collectives = sharded.fit_report_.collectives
+    finally:
+        dist.destroy_process_group()
+    tiled64, s_ti = timed(lambda: uk.optimize_embedding_blocked(
+        e_i, e_j, p64, emb0.double(), None, a, b, 1.0, gamma["tiled"],
+        UMAP_REPEAT_EPOCHS, UMAP_BLOCK).cpu().numpy())
+    sh_err = float(np.abs(np.asarray(sharded) - tiled64).max())
+    want_bytes = UMAP_REPEAT_EPOCHS * n_t * 2 * 8
+    summary["sharded"] = {"s": s_sh, "tiled_s": s_ti, "abs_err": sh_err,
+                          "collectives": collectives,
+                          "epoch_ms": s_sh / UMAP_REPEAT_EPOCHS * 1e3}
+    log(f"  (iv) distributed_umap_optimize, one NCCL rank, "
+        f"{UMAP_REPEAT_EPOCHS} epochs at float64: {s_sh:.3f} s against the "
+        f"tiled optimizer's {s_ti:.3f} s; max |Δ| {sh_err:.3e} (bar "
+        f"{UMAP_SHARDED_ATOL:g}); "
+        f"collectives {collectives}")
+    check(sh_err <= UMAP_SHARDED_ATOL, f"sharded optimizer {sh_err:.3e}")
+    check(all(collectives[kind] == {"count": UMAP_REPEAT_EPOCHS,
+                                    "bytes": want_bytes}
+              for kind in ("all_gather", "all_reduce")),
+          f"sharded collectives {collectives}")
+    del p64, emb0
+    lap("iv sharded")
+
+    # (v) the Spark pair on 4 numpy partitions of 1024 rows
+    rows = UMAP_SPARK_PARTS * UMAP_SPARK_ROWS
+    xs = x_np[:rows]
+    frame = fe.PartitionFrame([[xs[i * UMAP_SPARK_ROWS:
+                                   (i + 1) * UMAP_SPARK_ROWS]]
+                               for i in range(UMAP_SPARK_PARTS)])
+    pair, s_pair = timed(lambda: adapter.UMAP()._fit(frame))
+    local = UMAP().fit(xs)
+    fit_equal = np.array_equal(pair.embedding_, local.embedding_)
+    q = q_np[:UMAP_SPARK_ROWS]
+    body = np.stack(adapter._model_output(pair._local, q, "embedding"))
+    body_equal = np.array_equal(
+        body, np.asarray(local.transform(q).column("embedding")))
+    summary["spark_pair"] = {"rows": rows, "partitions": UMAP_SPARK_PARTS,
+                             "s": s_pair, "fit_equal": fit_equal,
+                             "transform_equal": body_equal}
+    log(f"  (v) the Spark pair on {UMAP_SPARK_PARTS} numpy partitions of "
+        f"{UMAP_SPARK_ROWS} rows: fit {s_pair:.2f} s, embedding equal to the "
+        f"local fit on the collected rows {fit_equal}; the transform body on "
+        f"{UMAP_SPARK_ROWS} rows equal to the local transform {body_equal}")
+    check(fit_equal and body_equal, "the Spark pair vs the local fit")
+    lap("v spark")
+
+    launched = {k: v for k, v in fg.launches.items() if v}
+    check(not launched, f"phase 24 launched a kernel outside the tiled fit: "
+          f"{launched}")
+    seconds = time.perf_counter() - t_phase
+    summary.update({"fits": fits, "section_s": laps, "seconds": seconds})
+    log(f"  phase 24 {seconds:.1f} s, launches {fits['tiled']['launches']} "
+        f"(the tiled fit's PCA init); {smi}")
+    return dict(fits["tiled"]["launches"]), summary
+
+
 def build_fresh(cuda_build):
     """Build the Gram library anew, so ``ptxas -v`` reports on it."""
     path = cuda_build.library_path("fused_gram")
@@ -8439,6 +8908,9 @@ def main() -> int:
     log("[23] the moments plane and NaiveBayes on the card")
     moments_summary = phase_moments_plane(torch, fg, device)
 
+    log("[24] UMAP at MNIST's shape on the card")
+    umap_launches, umap_summary = phase_umap(torch, fg, device)
+
     kernels = []
     for name, m in measured.items():
         check(launches.get(name, 0) > 0, f"{name} not launched on the main path")
@@ -8451,7 +8923,7 @@ def main() -> int:
                     "18": linear_launches.get(name, 0),
                     "19": 0, "20": 0,
                     "21": plane_launches.get(name, 0), "22": 0,
-                    "23": 0}
+                    "23": 0, "24": umap_launches.get(name, 0)}
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES, "launches": sum(by_phase.values()),
@@ -8468,6 +8940,7 @@ def main() -> int:
     print(json.dumps({"spark_plane": plane_summary}))
     print(json.dumps({"forest_plane": forest_summary}))
     print(json.dumps({"moments_plane": moments_summary}))
+    print(json.dumps({"umap": umap_summary}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

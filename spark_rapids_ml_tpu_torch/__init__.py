@@ -94,6 +94,10 @@ from spark_rapids_ml_tpu_torch.models.naive_bayes import (  # noqa: F401
     NaiveBayes,
     NaiveBayesModel,
 )
+from spark_rapids_ml_tpu_torch.models.umap import (  # noqa: F401
+    UMAP,
+    UMAPModel,
+)
 from spark_rapids_ml_tpu_torch.linalg import RowMatrix  # noqa: F401
 
 __all__ = [
@@ -147,4 +151,6 @@ __all__ = [
     "VectorSlicer",
     "NaiveBayes",
     "NaiveBayesModel",
+    "UMAP",
+    "UMAPModel",
 ]

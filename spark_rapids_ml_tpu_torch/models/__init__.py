@@ -71,6 +71,7 @@ from spark_rapids_ml_tpu_torch.models.naive_bayes import (
     NaiveBayes,
     NaiveBayesModel,
 )
+from spark_rapids_ml_tpu_torch.models.umap import UMAP, UMAPModel
 
 __all__ = [
     "PCA",
@@ -122,4 +123,6 @@ __all__ = [
     "VectorSlicer",
     "NaiveBayes",
     "NaiveBayesModel",
+    "UMAP",
+    "UMAPModel",
 ]

@@ -2,7 +2,8 @@
 runtime, the data-parallel, streamed and feature-sharded PCA fits, and the
 data-parallel LinearRegression, LogisticRegression, LinearSVC,
 GeneralizedLinearRegression, KMeans and NaiveBayes fits; the sharded
-brute-force and IVF searches and DBSCAN; the RandomForest and GBT fits."""
+brute-force and IVF searches and DBSCAN; the RandomForest and GBT fits;
+the UMAP optimizer."""
 
 from spark_rapids_ml_tpu_torch.parallel.mesh import (
     DATA_AXIS,
@@ -62,6 +63,9 @@ from spark_rapids_ml_tpu_torch.parallel.distributed_forest import (
 from spark_rapids_ml_tpu_torch.parallel.distributed_gbt import (
     distributed_gbt_fit,
 )
+from spark_rapids_ml_tpu_torch.parallel.distributed_umap import (
+    distributed_umap_optimize,
+)
 from spark_rapids_ml_tpu_torch.parallel.streaming import (
     DistributedStreamingPCA,
     distributed_streaming_pca_fit,
@@ -92,6 +96,7 @@ __all__ = [
     "distributed_kneighbors", "distributed_ivf_search",
     "distributed_dbscan_labels",
     "distributed_forest_fit", "distributed_gbt_fit",
+    "distributed_umap_optimize",
     "DistributedStreamingPCA", "distributed_streaming_pca_fit",
     "finalize_stats_sharded", "update_stats_sharded",
     "FeatureShardedPCAResult", "feature_sharded_covariance_kernel",

@@ -14,10 +14,10 @@ ported: the statistics plane (``estimator.py``: PCA, LinearRegression,
 LogisticRegression, KMeans, NaiveBayes and their models), the moments
 plane (``moments_estimator.py``: the four scalers, TruncatedSVD,
 LinearSVC and GLM), the per-level tree plane (``forest_estimator.py``:
-DecisionTree, RandomForest and GBT), and the generic adapter's models and
-NearestNeighbors (``adapter.py``, ``adapter2.py``). Every other front end
-of the JAX package's Spark plane is not ported yet; its name raises
-``AttributeError`` naming the ROADMAP item that brings it.
+DecisionTree, RandomForest and GBT), and the generic adapter's models,
+NearestNeighbors and UMAP (``adapter.py``, ``adapter2.py``). Every other
+front end of the JAX package's Spark plane is not ported yet; its name
+raises ``AttributeError`` naming the ROADMAP item that brings it.
 """
 
 from spark_rapids_ml_tpu_torch.spark.aggregate import (  # noqa: F401
@@ -66,7 +66,7 @@ _FOREST_PLANE_CLASSES = (
 )
 
 # generic-adapter front-ends (spark/adapter.py): the models' pandas_udf
-# transforms and the driver-collect NearestNeighbors fit
+# transforms and the driver-collect NearestNeighbors and UMAP fits
 _ADAPTER_CLASSES = (
     "RandomForestClassifierModel",
     "RandomForestRegressorModel",
@@ -82,6 +82,8 @@ _ADAPTER_CLASSES = (
     "NearestNeighbors",
     "NearestNeighborsModel",
     "TruncatedSVDModel",
+    "UMAP",
+    "UMAPModel",
 )
 
 # the DecisionTree models (spark/adapter2.py); their estimators route to
@@ -98,9 +100,6 @@ _EVAL = "7 (evaluation and tuning)"
 # the JAX package's other Spark front ends → the ROADMAP queue 1 item that
 # ports them
 _UNPORTED = {
-    # UMAP
-    "UMAP": "10 (UMAP)",
-    "UMAPModel": "10 (UMAP)",
     # families not ported yet, with their front ends
     "ALS": _FAMILIES,
     "ALSModel": _FAMILIES,

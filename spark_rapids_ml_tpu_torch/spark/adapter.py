@@ -22,15 +22,15 @@ documented envelope for these families; the statistics families stream.
 The port's copy of the JAX package's ``spark/adapter.py``, for the
 families the port has: RandomForest and GBT (both kinds), LinearSVC,
 GeneralizedLinearRegression, StandardScaler, MinMaxScaler, MaxAbsScaler,
-RobustScaler, TruncatedSVD and NearestNeighbors, and NaiveBayes' model
-(its estimator is ``spark/estimator.py``'s). Every ``pandas_udf`` body
-is a module function on numpy rows (``_model_output``,
+RobustScaler, TruncatedSVD, NearestNeighbors and UMAP, and NaiveBayes'
+model (its estimator is ``spark/estimator.py``'s). Every ``pandas_udf``
+body is a module function on numpy rows (``_model_output``,
 ``_classifier_probability``, ``_classifier_prediction``, ``_svc_raw``,
 ``_svc_prediction``, ``_glm_eta``, ``_glm_mu``), so it runs without
 pandas; the UDFs only wrap them. ``_host_fitted_state`` moves a model's
 torch tensors to host numpy before it ships. The GaussianMixture, MLP,
-Imputer, UMAP and OneVsRest pairs wait for their families (ROADMAP queue
-1 items 7 and 10).
+Imputer and OneVsRest pairs wait for their families (ROADMAP queue 1
+item 7).
 
 Works identically against real pyspark and the in-repo local engine
 (``spark/_compat.py``).
@@ -78,6 +78,8 @@ __all__ = [
     "StandardScalerModel",
     "TruncatedSVD",
     "TruncatedSVDModel",
+    "UMAP",
+    "UMAPModel",
 ]
 
 
@@ -606,6 +608,10 @@ from spark_rapids_ml_tpu_torch.models.svd import (  # noqa: E402
     TruncatedSVD as _LSVD,
     TruncatedSVDModel as _LSVD_M,
 )
+from spark_rapids_ml_tpu_torch.models.umap import (  # noqa: E402
+    UMAP as _LUMAP,
+    UMAPModel as _LUMAP_M,
+)
 
 RandomForestClassifier, RandomForestClassifierModel = _make_pair(
     "RandomForestClassifier", _LRFC, _LRFC_M, needs_label=True,
@@ -665,6 +671,13 @@ TruncatedSVD, TruncatedSVDModel = _make_pair(
     "TruncatedSVD", _LSVD, _LSVD_M, needs_label=False,
     out_col_param="outputCol", out_kind="vector",
     doc="Top-k singular structure on the driver's card.",
+)
+UMAP, UMAPModel = _make_pair(
+    "UMAP", _LUMAP, _LUMAP_M, needs_label=False,
+    out_col_param="outputCol", out_kind="vector",
+    doc="Fit embeds the collected items on the driver's card; "
+        "transform is the out-of-sample placement rule, applied per "
+        "Arrow batch on executors.",
 )
 
 

@@ -616,7 +616,8 @@ class PartitionFrame:
     partition_identity`` reads it), and takes its row dicts as they come:
     the dicts an Arrow round trip gives, key for key. ``select`` of one
     column keeps only the features of each batch, as a DataFrame's
-    projection does."""
+    projection does; ``count`` and ``collect`` give a driver-collect front
+    end (``spark/adapter.py``) its rows."""
 
     def __init__(self, partitions):
         self._partitions = [list(p) for p in partitions]
@@ -646,6 +647,25 @@ class PartitionFrame:
                     if x.shape[0]:
                         return [x[0]]
         return None
+
+    def count(self) -> int:
+        return sum(len(np.asarray(b[0] if isinstance(b, tuple) else b))
+                   for part in self._partitions for b in part)
+
+    def collect(self) -> list:
+        """Every row as a DataFrame's ``collect`` gives it, in partition
+        order: ``(features,)``, or ``(features, label)`` where a label
+        takes part — what the generic adapter's driver-collect fits
+        (``spark/adapter.py``) read."""
+        rows = []
+        for part in self._partitions:
+            for batch in part:
+                if isinstance(batch, tuple):
+                    x, y = (np.asarray(v) for v in batch)
+                    rows.extend(zip(x, (float(v) for v in y.ravel())))
+                else:
+                    rows.extend((r,) for r in np.asarray(batch))
+        return rows
 
     def collect_rows(self, rows_fn) -> list:
         """``rows_fn``'s row dicts over every partition."""

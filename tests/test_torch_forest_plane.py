@@ -668,9 +668,6 @@ def test_canonical_aliases(alias):
         assert alias in port_spark.__all__
 
 
-ITEMS = {"10": "10 (UMAP)"}
-
-
 @pytest.mark.parametrize("name", sorted(port_spark._UNPORTED))
 def test_unported_front_ends_name_their_item(name):
     item = port_spark._UNPORTED[name]
@@ -679,10 +676,7 @@ def test_unported_front_ends_name_their_item(name):
         getattr(port_spark, name)
     assert name not in port_spark.__all__
     assert name in jax_spark.__all__
-    if name.startswith("UMAP"):
-        assert item == ITEMS["10"]
-    else:
-        assert item.startswith("7 ")
+    assert item.startswith("7 ")
 
 
 def test_every_jax_front_end_is_routed():

@@ -1924,3 +1924,100 @@ def test_distributed_nb_fit_on_one_nccl_rank(cuda_device, tmp_path):
             assert model.fit_report_.collectives["all_reduce"]["count"] == 1
     finally:
         dist.destroy_process_group()
+
+
+# -- UMAP (slice 24) ----------------------------------------------------------
+
+def _umap_rows(n=3000, d=32, classes=6, seed=30):
+    rng = np.random.default_rng(seed)
+    y = rng.integers(0, classes, size=n)
+    x = rng.normal(size=(classes, d))[y] * 3.0 + rng.normal(size=(n, d))
+    return x.astype(np.float32), y
+
+
+def _umap_fits(x, epochs=5):
+    """Both fit paths (dense, and tiled with a ragged last block of 1000
+    rows a block) and the transform of 200 rows."""
+    from spark_rapids_ml_tpu_torch import UMAP
+
+    out = []
+    for block in (0, 1000):
+        model = UMAP().setNEpochs(epochs).setBlockRows(block).fit(x)
+        out.append(model.embedding_)
+        out.append(np.asarray(model.transform(x[:200]).column("embedding")))
+    return out
+
+
+def test_umap_fits_on_the_card_are_bit_identical_twice(cuda_device):
+    """Two fits from one seed give the same bits: the edge sums take a
+    fixed order (``SegmentSum``, no atomics) and every product is a
+    float64 cuBLAS call."""
+    x, _ = _umap_rows()
+    for a, b in zip(_umap_fits(x), _umap_fits(x)):
+        assert np.array_equal(a, b)
+
+
+def test_umap_on_the_card_is_tf32_proof(cuda_device):
+    """``allow_tf32`` and ``set_float32_matmul_precision("high")`` move
+    no bit of either fit or of the transform (no float32 product on the
+    path), and no hand kernel launches but the tiled fit's one PCA-init
+    Gram."""
+    x, _ = _umap_rows()
+    fused_gram.reset_launches()
+    off = _umap_fits(x)
+    launched = dict(fused_gram.launches)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.set_float32_matmul_precision("high")
+    try:
+        on = _umap_fits(x)
+    finally:
+        torch.set_float32_matmul_precision("highest")
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert {k: v for k, v in launched.items() if v} == {
+        fused_gram.kernel_name("bfloat16_3x"): 1}
+    for a, b in zip(off, on):
+        assert np.array_equal(a, b)
+
+
+def test_umap_sharded_optimizer_on_one_nccl_rank(cuda_device, tmp_path):
+    """``distributed_umap_optimize`` in a one-rank NCCL world equals the
+    tiled optimizer on the card bit for bit at float32 and float64 (one
+    rank reduces nothing; the panel streams in the same blocks)."""
+    import torch.distributed as dist
+
+    from spark_rapids_ml_tpu_torch.models.umap import knn_without_self
+    from spark_rapids_ml_tpu_torch.ops.umap_kernel import (
+        fit_ab,
+        memberships,
+        optimize_embedding_blocked,
+        pca_init,
+        symmetric_edge_list,
+    )
+    from spark_rapids_ml_tpu_torch.parallel import (
+        data_mesh,
+        distributed_umap_optimize,
+    )
+
+    x, _ = _umap_rows()
+    xt = torch.as_tensor(x, device=cuda_device)
+    d, i = knn_without_self(xt, xt, 15)
+    ei, ej, ep = symmetric_edge_list(memberships(d).cpu().numpy(),
+                                     i.cpu().numpy(), len(x))
+    emb0 = pca_init(xt, 2).cpu().numpy()
+    a, b = fit_ab(0.1)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        for dtype in (torch.float32, torch.float64):
+            npd = np.float32 if dtype == torch.float32 else np.float64
+            got = distributed_umap_optimize(ei, ej, ep, emb0, data_mesh(1),
+                                            a, b, 1.0, 0.05, 5, dtype=npd,
+                                            block_rows=1000)
+            want = optimize_embedding_blocked(
+                ei, ej, torch.as_tensor(ep, dtype=dtype, device=cuda_device),
+                torch.as_tensor(emb0, dtype=dtype, device=cuda_device), None,
+                a, b, 1.0, 0.05, 5, 1000)
+            assert np.array_equal(got, want.double().cpu().numpy())
+            assert got.fit_report_.collectives["all_gather"]["count"] == 5
+    finally:
+        dist.destroy_process_group()

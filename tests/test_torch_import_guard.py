@@ -508,6 +508,59 @@ def test_knn_dbscan_slice_runs_without_jax(tmp_path):
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+# the modules of the UMAP slice
+UMAP_SLICE = ("ops.umap_kernel", "models.umap", "parallel.distributed_umap")
+
+
+def test_umap_slice_runs_without_jax(tmp_path):
+    """UMAP's dense and tiled fits, the transform and the sharded
+    optimizer in a one-rank gloo world, in a process that never imports
+    jax."""
+    mods = {m for _, m in _port_modules()}
+    assert {f"spark_rapids_ml_tpu_torch.{m}" for m in UMAP_SLICE} <= mods
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "import torch\n"
+        "import torch.distributed as dist\n"
+        "from spark_rapids_ml_tpu_torch import UMAP\n"
+        "from spark_rapids_ml_tpu_torch.models.umap import knn_without_self\n"
+        "from spark_rapids_ml_tpu_torch.ops.umap_kernel import (fit_ab, "
+        "memberships, pca_init, symmetric_edge_list)\n"
+        "from spark_rapids_ml_tpu_torch.parallel import (data_mesh, "
+        "distributed_umap_optimize)\n"
+        "rng = np.random.default_rng(0)\n"
+        "x = np.concatenate([c + rng.normal(size=(40, 5)) for c in "
+        "rng.normal(scale=8, size=(3, 5))])\n"
+        "fits = [UMAP().setNNeighbors(6).setNEpochs(10).setBlockRows(b)"
+        ".fit(x) for b in (0, 48)]\n"
+        "placed = fits[1].transform(x[:7]).column('embedding')\n"
+        "xt = torch.as_tensor(x)\n"
+        "d, i = knn_without_self(xt, xt, 6)\n"
+        "e = symmetric_edge_list(memberships(d).numpy(), i.numpy(), len(x))\n"
+        "a, b = fit_ab(0.1)\n"
+        "dist.init_process_group('gloo', init_method='file://' + "
+        "sys.argv[1] + '/store', rank=0, world_size=1)\n"
+        "emb = distributed_umap_optimize(*e, pca_init(xt, 2).numpy(), "
+        "data_mesh(1), a, b, n_epochs=3)\n"
+        "dist.destroy_process_group()\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or "
+        "k.startswith('jax.') or k == 'spark_rapids_ml_tpu' or "
+        "k.startswith('spark_rapids_ml_tpu.'))\n"
+        "ok = (all(np.isfinite(f.embedding_).all() for f in fits) and "
+        "np.isfinite(placed).all() and emb.shape == (120, 2) and "
+        "np.isfinite(emb).all())\n"
+        "print(len(placed), emb.shape, bad)\n"
+        "sys.exit(1 if bad or not ok else 0)\n"
+    )
+    env = dict(os.environ, SPARK_RAPIDS_ML_TORCH_PLATFORM="cpu",
+               OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                          cwd=REPO_DIR, capture_output=True, text=True,
+                          timeout=120, env=env)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 # the modules of the tree slice
 TREE_SLICE = ("ops.forest_kernel", "models.random_forest",
               "models.decision_tree", "models.gbt",

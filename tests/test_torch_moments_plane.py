@@ -467,7 +467,7 @@ def test_routing_sends_the_nine_names_to_their_modules(name):
     ("GaussianMixture", "7 (their families and front ends)"),
     ("OneVsRest", "7 (their families and front ends)"),
     ("LDA", "7 (their families and front ends)"),
-    ("UMAP", "10 (UMAP)"),
+    ("ALS", "7 (their families and front ends)"),
     ("Pipeline", "7 (the rest of spark/)"),
     ("RegressionEvaluator", "7 (evaluation and tuning)"),
 ])

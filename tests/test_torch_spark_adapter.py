@@ -379,6 +379,7 @@ def _family_models(rng):
         "RobustScaler": port_pkg.RobustScaler().fit(x),
         "TruncatedSVD": port_pkg.TruncatedSVD().setK(3).fit(x),
         "NearestNeighbors": port_pkg.NearestNeighbors().setK(3).fit(x),
+        "UMAP": port_pkg.UMAP().setNNeighbors(8).setNEpochs(5).fit(x),
     }
     return x, fits
 
@@ -388,7 +389,7 @@ FAMILIES = ("RandomForestClassifier", "RandomForestRegressor",
             "DecisionTreeRegressor", "LinearSVC",
             "GeneralizedLinearRegression", "StandardScaler", "MinMaxScaler",
             "MaxAbsScaler", "RobustScaler", "TruncatedSVD",
-            "NearestNeighbors")
+            "NearestNeighbors", "UMAP")
 
 
 def _outputs(name, model, x):
@@ -502,6 +503,46 @@ def test_adapter_models_equal_jax_adapter_models(rng):
             .transform(jdf)
         for col in ("eta", "prediction"):
             assert _rel(_scalars(ours, col), _scalars(ref, col)) <= RTOL
+
+
+def test_umap_front_end(spark, rng):
+    """The UMAP pair: the fit collects to the driver and embeds there,
+    equal to the local fit on the collected rows, from a DataFrame and
+    from numpy partitions (``forest_estimator.PartitionFrame``); the
+    transform's body is the local model's placement; and the adapter
+    model serves what the JAX package's adapter model serves on the same
+    fitted state (1e-10, the transform's bar)."""
+    from spark_rapids_ml_tpu.models.umap import UMAPModel as JaxUMAPModel
+    from spark_rapids_ml_tpu_torch.spark.forest_estimator import (
+        PartitionFrame,
+    )
+
+    x = np.concatenate([rng.normal(size=(60, 5)) + c
+                        for c in (0.0, 6.0)])[rng.permutation(120)]
+    local = port_pkg.UMAP().setNNeighbors(8).setNEpochs(20).fit(x)
+    model = port_spark.UMAP(nNeighbors=8, nEpochs=20).fit(_df(spark, x))
+    assert type(model).__name__ == "UMAPModel"
+    np.testing.assert_array_equal(model.embedding_, local.embedding_)
+    frame = PartitionFrame([[x[:50]], [x[50:90], x[90:100]], [x[100:]]])
+    assert frame.count() == 120
+    parts = adapter.UMAP(nNeighbors=8, nEpochs=20)._fit(frame)
+    np.testing.assert_array_equal(parts.embedding_, local.embedding_)
+    q = rng.normal(size=(30, 5)) + 3.0
+    out = _vectors(model.transform(_df(spark, q)), "embedding")
+    want = np.asarray(local.transform(q).column("embedding"))
+    np.testing.assert_array_equal(out, want)
+    body = np.stack(adapter._model_output(model._local, q, "embedding"))
+    np.testing.assert_array_equal(body, want)
+    jax_model = jax_adapter.UMAPModel(JaxUMAPModel(
+        embedding=local.embedding_, train_items=local.train_items_)
+        .setNNeighbors(8))
+    ours = adapter.UMAPModel(port_pkg.UMAPModel(
+        embedding=local.embedding_, train_items=local.train_items_)
+        .setNNeighbors(8).setDtype("float64"))
+    ref = jax_model.transform(_df(jle.LocalSparkSession(n_partitions=2), q,
+                                  dense=jle.DenseVector))
+    assert _rel(_vectors(ours.transform(_df(spark, q)), "embedding"),
+                _vectors(ref, "embedding")) <= 1e-10
 
 
 def test_adapter2_and_factory_classes_live_in_their_modules():
