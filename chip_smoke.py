@@ -36,8 +36,10 @@ Phases (any failure raises and the script exits non-zero):
    shapes, each checked (prep bit for bit, Gram within its bar) and timed
    the same way: bfloat16_3x on the streamed LinearRegression's bucket of
    Z = [X | y] (7936 × 4097, one tile column past 4096), highest on
-   65,536 × 4096 with a √weight row multiplier, and bfloat16_3x on phase
-   24's PCA-init rows (60,000 × 784: a ragged tile column and fold).
+   65,536 × 4096 with a √weight row multiplier, bfloat16_3x on phase
+   24's PCA-init rows (60,000 × 784: a ragged tile column and fold), and
+   highest on phase 25's GMM √r rows (2,097,152 × 28: one upper tile;
+   60,000 × 784).
 4. The PCA slice at the north-star width (4096 features, k = 256; rows cut
    from 10,485,760 to fit the run's time), data with a decaying spectrum
    made per chunk from a seed on the card:
@@ -353,20 +355,21 @@ Phases (any failure raises and the script exits non-zero):
     (iii)'s design (65,536 × 4096 N(0, 1) rows), labels Bernoulli(σ(x·w* +
     0.5)) with w* ~ N(0, 4/4096) from a seed: one-shot, weighted (w ~
     U(0.5, 2)), ``fitIntercept=False``, each one highest launch per
-    Newton iteration (maxIter 20: cut from 100; float32 runs to it,
+    Newton iteration (maxIter 10: cut from 100; float32 runs to it,
     float64 stops at 7), against the same Newton in float64 on the card
     (``logreg_fit_kernel`` on float64 tensors), ≤ 1e-4 relative; the first
     iteration's Hessian on its own √s rows against its plain version and
     timed beside ``torch.matmul`` (f32, TF32 off) and the bound; elastic
-    net (0.01 / 0.5, two prox-Newton steps: their FISTA on the 4097² system
+    net (0.01 / 0.5, one prox-Newton step: its FISTA on the 4097² system
     runs on the host) against the same fit at float64, ≤ 1e-3; streamed
-    from 4 chunks of 65,536 (32 buckets of 8192 a pass, 6 passes), ≤ 1e-4
-    against float64 Newton on the 262,144 rows; ``distributed_logreg_fit``
-    on a fresh one-rank NCCL world (maxIter 20), ≤ 1e-6 against the
+    from 2 chunks of 65,536 (16 buckets of 8192 a pass, 6 passes), ≤ 1e-4
+    against float64 Newton on the 131,072 rows; ``distributed_logreg_fit``
+    on a fresh one-rank NCCL world (maxIter 10), ≤ 1e-6 against the
     one-shot fit, its
     fit-monitor step ``newton`` and its all-reduce record. (ii)
     Multinomial, K = 4 (argmax of planted logits + Gumbel noise), maxIter
-    10 (cut from 25; float64 stops at 8): at 4096 features (K(K+1)/2 = 10 launches an iteration), against
+    6 (cut from 25; float64 would stop at 8): at 4096 features
+    (K(K+1)/2 = 10 launches an iteration), against
     the same fit with the Gram's plain version (≤ 1e-4 on [W | b] less its
     class mean) and at float64 (class mismatch ≤ 1e-3, probabilities
     ≤ 2e-3); streamed at 256 features (the first 256 columns, new labels;
@@ -388,10 +391,11 @@ Phases (any failure raises and the script exits non-zero):
     p50 / p99 beside the card's name and power limit.
 17. The other stage families (``models/feature_scalers.py``,
     ``models/feature_transformers.py``) on fit (c)'s 32,768 × 4096 rows
-    with every 16th column set to 2.5 (256 constant columns). (ii)
+    with every 16th column set to 2.5 (256 constant columns), the chains
+    fitted on the first 16,384 (cut). (ii)
     ``Pipeline([MinMaxScaler, ElementwiseProduct (N(0, 1) scalingVec),
     VectorSlicer (3840 permuted indices), PCA(k=256),
-    LogisticRegression(maxIter=20)])`` (cut from 100) with labels planted
+    LogisticRegression(maxIter=10)])`` (cut from 100) with labels planted
     on the rows its PCA sees:
     one bfloat16_3x and one highest launch per Newton iteration; (iii)
     ``Pipeline([RobustScaler(withCentering), MaxAbsScaler, Normalizer,
@@ -402,7 +406,7 @@ Phases (any failure raises and the script exits non-zero):
     over HTTP in one engine (phase 5's 256 binary requests from 8
     clients): every response bit-equal to ``run_staged_pipeline``; (ii)'s
     probabilities within 1e-5 of ``PipelineModel.transform`` on the first
-    8192 served rows and 1e-12 with every stage at float64, (iii)'s labels
+    4096 served rows and 1e-12 with every stage at float64, (iii)'s labels
     mismatched on at most 1e-3 of them and on none at float64; one
     device→host copy per batch in a ``torch.profiler`` capture (retaken as
     phase 16's); one CUDA program run per batch, no error, degraded
@@ -412,7 +416,7 @@ Phases (any failure raises and the script exits non-zero):
     p = 2 and ∞, Binarizer 0.25, ElementwiseProduct, VectorSlicer, a
     ChiSqSelectorModel of 1024 indices) against the model's host
     transform: float64 on 4096 rows bit-equal (Normalizer 1e-12
-    relative), float32 on the first 8192 rows equal for the gathers and
+    relative), float32 on the first 4096 rows equal for the gathers and
     the Binarizer, within 1e-6 (Normalizer p = 2 1e-5) for the rest; each
     body timed at float32 on all 32,768 rows with CUDA events beside its
     bound (the bytes
@@ -425,12 +429,12 @@ Phases (any failure raises and the script exits non-zero):
     bucket when streamed), the counts set to 0 before each fit and held
     exactly after it. (i) LinearSVC, labels 1[x·w* + 0.5 + ε > 0]:
     one-shot, weighted (w ~ U(0.5, 2)), no intercept, standardization on,
-    streamed (4 × 65,536 rows in buckets of 8192, 3 Newton passes: cut),
+    streamed (2 × 65,536 rows in buckets of 8192, 3 Newton passes: cut),
     each within 1e-4 of the same generalized Newton in float64 on the
     card (``svc_fit_kernel`` on float64 tensors); ``distributed_svc_fit``
     on one NCCL rank within 1e-6 of the one-shot fit, its fit-monitor
     step and all-reduce bytes. (ii) GLM Poisson / log: one-shot and with
-    weights and an offset, 3 IRLS passes (cut from 25: both precisions
+    weights and an offset, 2 IRLS passes (cut from 25: both precisions
     converge at 6), within 1e-4 of the same IRLS at float64;
     streamed at maxIter 2 within 1e-5 of the in-memory fit at maxIter 2
     (a fit at maxIter launches once more, for its final deviance);
@@ -623,13 +627,41 @@ Phases (any failure raises and the script exits non-zero):
     4 numpy partitions of 1024 rows through ``PartitionFrame``: its
     embedding equal to the local fit's on the collected rows, the
     transform body's equal to the local transform.
+25. GaussianMixture and BisectingKMeans (``ops/gmm_kernel.py``,
+    ``models/{gaussian_mixture,bisecting_kmeans}.py``,
+    ``parallel/distributed_{gmm,bisecting}.py``, the GMM and bisecting
+    planes, ``spark/adapter3.py``). Every float32 EM pass reaches the Gram
+    kernel once per component at highest (Σ r·x·xᵀ), asserted per fit as
+    k × passes. (i) GMM at HIGGS's shape (phase 20's 2,097,152 × 28 fit
+    rows, k = 8, 3 passes): the float32 fit against the float64 fit on
+    the card from the same init (means within 1e-4, max |Δ| / max |ref|;
+    argmax agreement ≥ 0.999 on every row), one E-step's Σ r·x·xᵀ against
+    the Gram's plain version within its bar; on the first 262,144 rows
+    the fit twice and under ``set_float32_matmul_precision("high")`` bit
+    for bit. (ii) GMM at MNIST's shape (phase 24's 60,000 × 784 rows,
+    k = 10, 2 passes, regParam 1e-4: the rows' noise variance, since at
+    1e-6 a component of fewer than 784 rows cancels to an indefinite
+    float32 covariance), the same bars but the repeats. (iii)
+    BisectingKMeans at k = 16 on phase 15's blobs: the local fit on their
+    first 262,144 rows (computeCost within 1e-6 of training_cost_, no
+    blob split) and ``distributed_bisecting_kmeans_fit`` on all 2,097,152
+    (cost within 1e-6 of the host SSE of its labels, no blob split). (iv)
+    ``distributed_gmm_fit`` on one NCCL rank at (i)'s rows, equal to the
+    local float32 fit. (v) Both Spark planes on 4 numpy partitions of
+    65,536 rows (``PartitionFrame``): one GMM plane EM step within 1e-9 of
+    the same step at float64 on the card from the plane's init, and the
+    bisecting plane at k = 4, maxIter 3 (its assignment cost at most its
+    leaf cost); both models saved, loaded through ``load_model`` and
+    served through the adapters' transform bodies, equal to the fitted
+    models'.
 
 Then one JSON line ``{"stage_bodies": [...]}``, one ``{"knn_dbscan":
 {...}}`` (phase 19's numbers), one ``{"trees": {...}}`` (phase 20's),
 one ``{"spark_plane": {...}}`` (phase 21's), one ``{"forest_plane":
 {...}}`` (phase 22's), one ``{"moments_plane": {...}}`` (phase 23's),
 one ``{"umap": {...}}`` (phase 24's: fit timings, ms an epoch of each
-optimizer, near-tie counts and every bar's number),
+optimizer, near-tie counts and every bar's number), one
+``{"clustering": {...}}`` (phase 25's),
 one ``{"kernels": [...]}``
 (each kernel with its launches per phase and, under ``extra_shapes``,
 phase 3's timings of phase 14's shapes and phases 16 and 18's Hessians),
@@ -681,6 +713,12 @@ SLICE_14_SHAPES = {
     # phase 24's tiled UMAP fit: pca_init's covariance of MNIST's 60,000
     # training rows (784 = 6·128 + 16: a ragged tile column; a ragged fold)
     "UMAP PCA-init rows (phase 24)": ("bfloat16_3x", 60_000, 784, "ones"),
+    # phase 25's GMM E-step: Σ r·x·xᵀ per component as √r rows at HIGGS's
+    # shape (28 = one ragged tile column, 256 folds) and MNIST's (784)
+    "GMM Σ r·x·xᵀ, HIGGS rows (phase 25)": ("highest", 2_097_152, 28,
+                                             "root_weights"),
+    "GMM Σ r·x·xᵀ, MNIST rows (phase 25)": ("highest", 60_000, 784,
+                                             "root_weights"),
 }
 
 # Fit vs plain-version fit: components whose spectral gap is well above
@@ -4757,15 +4795,20 @@ def phase_kmeans(torch, fg, device, model_c):
 
 LR_SCALE = 2.0             # sd of the planted logits: w* ~ N(0, LR_SCALE²/n)
 LR_INTERCEPT = 0.5
-LR_CHUNKS = 4              # the streamed fits: 4 chunks of CHUNK_ROWS
+LR_CHUNKS = 2              # the streamed fits: 2 chunks of CHUNK_ROWS (cut
+                           # from 4; phases 16 and 18)
 LR_STREAM_ITER = 6         # Newton passes of the streamed binary fit
 LR_ENET = (0.01, 0.5)      # (regParam, elasticNetParam)
-LR_ENET_ITER = 2           # prox-Newton steps, each one FISTA on 4097² on the host
+LR_ENET_ITER = 1           # prox-Newton steps, each one FISTA on 4097² on the host
+                           # (cut from 2)
 LR_K = 4                   # classes of the multinomial fits
-LR_MN_ITER = 10            # (cut from 25: float64 stops at 8, float32 never)
-LR_ITER = 20               # the in-memory binary fits, the chains' Newton
-                           # (cut from 100: float64 stops at 7, float32 never)
+LR_MN_ITER = 6             # (cut from 25, then from 10; float64 stops at
+                           # 8, float32 never)
+LR_ITER = 10               # the in-memory binary fits, the chains' Newton
+                           # (cut from 100, then from 20; float64 stops at
+                           # 7, float32 never)
 LR_MN_STREAM_FEATURES = 256
+LR_MN_STREAM_CHUNKS = 4    # the streamed multinomial: 2 buckets at 256 wide
 # bars, set in PERF.md §2 before the first run
 LOGREG_RTOL = 1e-4         # one-shot, weighted, no intercept, streamed
 LOGREG_ENET_RTOL = 1e-3
@@ -4972,7 +5015,8 @@ def phase_logreg(torch, fg, device, model_c):
         f"{int((oracle.coefficients == 0).sum())}) of {n}")
     check(err <= LOGREG_ENET_RTOL, f"elastic net rel err {err:.3e}")
 
-    # streamed: 4 chunks of 65,536 rows, buckets of auto_batch_rows(4096)
+    # streamed: LR_CHUNKS chunks of 65,536 rows, buckets of
+    # auto_batch_rows(4096)
     chunks = [(x, y)]
     for i in range(1, LR_CHUNKS):
         xi = logreg_design(torch, device, i)
@@ -5095,16 +5139,23 @@ def phase_logreg(torch, fg, device, model_c):
     ns = min(LR_MN_STREAM_FEATURES, n)
     w_s = rng.normal(scale=LR_SCALE / np.sqrt(ns), size=(LR_K, ns))
     narrow = []
-    for xi, _ in chunks:
+    # the streamed binary fit's chunks, and more of the design past them,
+    # so the narrow fit folds more than one bucket
+    wide_chunks = [xi for xi, _ in chunks] + [
+        logreg_design(torch, device, i)[:, :ns].cpu().numpy()
+        for i in range(LR_CHUNKS, LR_MN_STREAM_CHUNKS)]
+    for xi in wide_chunks:
         xs = np.ascontiguousarray(xi[:, :ns])
         narrow.append((xs, class_labels(
             torch, torch.as_tensor(xs, device=device), w_s, b_k, rng)))
+    del wide_chunks
     s_bucket = auto_batch_rows(ns)
-    s_buckets = -(-LR_CHUNKS * CHUNK_ROWS // s_bucket)
+    s_buckets = -(-LR_MN_STREAM_CHUNKS * CHUNK_ROWS // s_bucket)
     t0 = time.perf_counter()
     smn, counts = counted_run(
         torch, fg, f"(ii) multinomial streamed at {ns} features, "
-        f"{LR_CHUNKS} chunks ({s_buckets} buckets of {s_bucket} rows)",
+        f"{LR_MN_STREAM_CHUNKS} chunks ({s_buckets} buckets of {s_bucket} "
+        f"rows)",
         lambda: est.fit(lambda: iter(narrow)), per_iter(k_blocks * s_buckets))
     seconds = time.perf_counter() - t0
     add(counts)
@@ -5282,8 +5333,11 @@ STAGE_CONSTANT = 2.5       # planted in every STAGE_CONSTANT_EVERY-th column
 STAGE_CONSTANT_EVERY = 16
 STAGE_THRESHOLD = 0.25     # the Binarizer's; float32 holds it exactly
 STAGE_TIMED = 20           # CUDA-event runs of each body, after 3 warm-up
-STAGE_FRAME_ROWS = 8192    # served rows held against the frame loop
-STAGE_CHECK_ROWS = 8192    # rows each float32 body is held to its host on
+STAGE_FRAME_ROWS = 4096    # served rows held against the frame loop (cut
+                           # from 8192)
+STAGE_CHECK_ROWS = 4096    # rows each float32 body is held to its host on
+                           # (cut from 8192)
+STAGE_FIT_ROWS = 16_384    # the chains' fit rows (cut from 32,768)
 CLUSTER_K = 64
 # bars, set in PERF.md §2 before the first run
 STAGE_F64_NORM_RTOL = 1e-12   # Normalizer at float64; the rest bit-equal
@@ -5558,7 +5612,8 @@ def phase_stages(torch, fg, device):
             .setOutputCol("sliced"),
             PCA().setK(K).setInputCol("sliced").setOutputCol("reduced"),
             LogisticRegression().setMaxIter(LR_ITER).setInputCol("reduced"),
-        ]), VectorFrame({"features": x, "label": y}),
+        ]), VectorFrame({"features": x[:STAGE_FIT_ROWS],
+                          "label": y[:STAGE_FIT_ROWS]}),
             lambda p: {default: 1, highest: p.stages[4].n_iter_}),
         "clustering": (Pipeline([
             RobustScaler().setWithCentering(True).setOutputCol("robust"),
@@ -5568,7 +5623,7 @@ def phase_stages(torch, fg, device):
             .setOutputCol("selected"),
             PCA().setK(K).setInputCol("selected").setOutputCol("reduced"),
             KMeans().setK(CLUSTER_K).setInputCol("reduced"),
-        ]), x, {default: 1}),
+        ]), x[:STAGE_FIT_ROWS], {default: 1}),
     }
     registry = ModelRegistry()
     fitted = {}
@@ -5578,7 +5633,8 @@ def phase_stages(torch, fg, device):
         pipe, counts = counted_run(
             torch, fg, f"{label} the {name} chain "
             f"{[type(s).__name__ for s in pipeline.getStages()]}.fit on "
-            f"{x.shape[0]:,} x {n}", lambda: pipeline.fit(data), expected)
+            f"{STAGE_FIT_ROWS:,} x {n}", lambda: pipeline.fit(data),
+            expected)
         add(counts)
         log(f"    {name} chain fit {time.perf_counter() - t0:.3f} s; stage "
             f"fit_timings_ "
@@ -5752,9 +5808,10 @@ SVC_STREAM_ITER = 3        # Newton passes of the streamed fit (cut)
 GLM_SCALE = 0.5            # sd of the planted η: w* ~ N(0, GLM_SCALE²/n)
 GLM_INTERCEPT = 0.5
 GLM_STREAM_ITER = 2        # IRLS passes of the streamed and one-rank fits
-GLM_ITER = 3               # IRLS passes of (ii)'s in-memory pairs (cut from
-                           # 25: both precisions converged at 6, ~1.4 s of
-                           # host float64 solve a pass at 4097²)
+GLM_ITER = 2               # IRLS passes of (ii)'s in-memory pairs (cut from
+                           # 25, then from 3: both precisions converged
+                           # at 6, ~1.4 s of host float64 solve a pass at
+                           # 4097²)
                            # (cut), + 1 for the final deviance
 GLM_NARROW = 512           # (iii)'s width: the first 512 columns
 GLM_SERVED = 32            # requests of at most SERVE_JSON_MAX_ROWS rows
@@ -5978,7 +6035,8 @@ def phase_linear_models(torch, fg, device):
         torch, fg, "LinearSVC last (s = its active set)", x_dev, active)
     del margin, active
 
-    # streamed: 4 chunks of 65,536 rows, buckets of auto_batch_rows(4096)
+    # streamed: LR_CHUNKS chunks of 65,536 rows, buckets of
+    # auto_batch_rows(4096)
     chunks = [(x, y)]
     for i in range(1, LR_CHUNKS):
         xi = logreg_design(torch, device, i)
@@ -8765,6 +8823,378 @@ def phase_umap(torch, fg, device):
     return dict(fits["tiled"]["launches"]), summary
 
 
+GMM_HIGGS_K = 8
+GMM_MNIST_K = 10
+GMM_ITER = 3                   # (i)'s EM passes (tol 0: every one runs)
+# (i)'s repeats run on the first 262,144 rows: at 28 wide the Gram is one
+# upper tile, one block walking every row (csrc/fused_gram.cu's grid), so
+# a pass of 8 launches over 2,097,152 rows takes about a second
+GMM_REPEAT_ROWS = 262_144
+GMM_MNIST_ITER = 2             # (ii)'s (each pass: 10 host Choleskys of 784²)
+# (ii)'s regParam: the rows' own per-pixel noise variance (0.01²). At the
+# default 1e-6 a component of fewer rows than 784 has a rank-deficient
+# covariance, and the float32 Σ r·x·xᵀ/n_k − μμᵀ cancels below 1e-6 (min
+# eigenvalue −1.2e-7 on 20,000 rows on the CPU): a fit that raises in both
+# packages (ROADMAP queue 3 item 22)
+GMM_MNIST_REG = 1e-4
+GMM_MEANS_RTOL = 1e-4          # float32 means vs float64, same init
+GMM_AGREE = 0.999              # argmax of the responsibilities, f32 vs f64
+BKM_K = 16
+BKM_LOCAL_ROWS = 262_144       # (iii)'s local fit: host index sets per split
+BKM_COST_RTOL = 1e-6           # tests/test_bisecting_kmeans.py's bar
+CL_PARTS = 4                   # (v): 4 numpy partitions ...
+CL_PART_ROWS = 65_536          # ... of 65,536 rows
+CL_PLANE_RTOL = 1e-9           # a GMM plane EM step vs float64 on the card
+BKM_PLANE_K = 4                # (v): host numpy partials, a job per step
+BKM_PLANE_ITER = 3             # Lloyd jobs per split (cut from 20)
+CL_SERVED_ROWS = 4096
+
+
+def cl_rel(got, want) -> float:
+    got = np.asarray(got, dtype=np.float64)
+    want = np.asarray(want, dtype=np.float64)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def blobs_whole(labels, truth) -> int:
+    """Blobs whose rows fall in more than one cluster."""
+    labels = np.asarray(labels, dtype=np.int64)
+    pairs = np.unique(truth.astype(np.int64) * (labels.max() + 1) + labels)
+    return int(pairs.size - np.unique(truth).size)
+
+
+def phase_clustering(torch, fg, device):
+    """Phase 25: GaussianMixture and BisectingKMeans on the card (see the
+    module docstring). Returns ({kernel: launches on the main path},
+    summary)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from spark_rapids_ml_tpu_torch import BisectingKMeans, GaussianMixture
+    from spark_rapids_ml_tpu_torch import spark
+    from spark_rapids_ml_tpu_torch.io.persistence import load_model
+    from spark_rapids_ml_tpu_torch.models.kmeans import _sqdist
+    from spark_rapids_ml_tpu_torch.ops import gmm_kernel as gk
+    from spark_rapids_ml_tpu_torch.parallel import (
+        data_mesh,
+        distributed_bisecting_kmeans_fit,
+        distributed_gmm_fit,
+        initialize_multihost,
+    )
+    from spark_rapids_ml_tpu_torch.spark import adapter
+    from spark_rapids_ml_tpu_torch.spark import forest_estimator as fe
+    from spark_rapids_ml_tpu_torch.spark import moments_estimator as me
+    from spark_rapids_ml_tpu_torch.utils.timing import PhaseTimer
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi_line()
+    summary = {"card": smi}
+    laps = {}
+    t_lap = [time.perf_counter()]
+    name = fg.kernel_name("highest")
+    main_path = {name: 0}
+
+    def lap(label):
+        now = time.perf_counter()
+        laps[label] = now - t_lap[0]
+        t_lap[0] = now
+        log(f"    ({label}) {laps[label]:.1f} s")
+
+    def counted_fit(label, k, fit):
+        """``fit()`` with the launch counts at 0 before and read after:
+        exactly k highest launches per EM pass and nothing else."""
+        fg.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = fit()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launched = {n: v for n, v in fg.launches.items() if v}
+        passes = model.num_iterations_
+        log(f"  {label}: {passes} EM passes in {seconds:.3f} s (host clock), "
+            f"launches {launched}")
+        check(launched == {name: k * passes},
+              f"{label}: launches {launched}, want {k} × {passes}")
+        main_path[name] += k * passes
+        return model, seconds
+
+    def same_fit(a, b) -> bool:
+        return (all(np.array_equal(getattr(a, f), getattr(b, f))
+                    for f in ("means", "weights", "covs"))
+                and a.log_likelihood_ == b.log_likelihood_)
+
+    def timed_once(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(end)
+
+    def estep_vs_plain(label, x_dev, model):
+        """One E-step at ``model``'s state: the kernel's Σ r·x·xᵀ against
+        the plain Gram on the same √r rows (outside the main path's
+        counts), and both timed."""
+        prec, log_det = gk.precision_cholesky(model.covs)
+        args = (x_dev, torch.ones(x_dev.shape[0], device=device),
+                model.means, prec, log_det, np.log(model.weights))
+        # one pass each, timed with CUDA events
+        got, ms = timed_once(lambda: gk.gmm_estep_device(*args))
+        want, plain_ms = timed_once(lambda: gk.gmm_estep_device(
+            *args, plain=True))
+        err = max(((got.sq_sum[j] - want.sq_sum[j]).abs().max()
+                   / want.sq_sum[j].abs().max()).item()
+                  for j in range(len(model.weights)))
+        rest = all(torch.equal(getattr(got, f), getattr(want, f))
+                   for f in ("resp_sum", "mean_sum", "loglik", "w_sum"))
+        bar = fg.PLAIN_RTOL[name]
+        log(f"  {label} E-step: Σ r·x·xᵀ kernel vs plain {err:.3e} (bar "
+            f"{bar:g}), the other statistics bit-equal {rest}; one pass "
+            f"{ms:.3f} ms, with the plain Gram {plain_ms:.3f} ms")
+        check(err <= bar and rest, f"{label} E-step vs plain {err:.3e}")
+        return {"sq_sum_rel_err": err, "estep_ms": ms,
+                "estep_plain_ms": plain_ms}
+
+    def gmm_pair(label, x_np, x_dev, k, iters, reg=1e-6):
+        """The float32 fit (counted) and the float64 fit from the same init
+        on the card; means and argmax agreement bars."""
+        kw = {"k": k, "seed": SEED, "maxIter": iters, "tol": 0.0,
+              "regParam": reg}
+        m32, s32 = counted_fit(f"{label} float32 fit",
+                               k, lambda: GaussianMixture(**kw).fit(x_np))
+        # the float64 reference from the same numpy init (the float32
+        # fit's own start, drawn again) through the same EM loop
+        t0 = time.perf_counter()
+        x64 = x_np.astype(np.float64)
+        ref = GaussianMixture(dtype="float64", **kw)
+        timer = PhaseTimer()
+        m64 = ref._fit_from_stepper(
+            ref._device_stepper(x64, np.ones(x64.shape[0]), timer),
+            gk.init_params(x64, np.ones(x64.shape[0]), k, SEED), timer)
+        s64 = time.perf_counter() - t0
+        del x64
+        fg.reset_launches()
+        mean_err = cl_rel(m32.means, m64.means)
+        p32 = m32.predict_proba(x_np).argmax(axis=1)
+        p64 = m64.predict_proba(x_np).argmax(axis=1)
+        agree = float((p32 == p64).mean())
+        out = {"rows": int(x_np.shape[0]), "d": int(x_np.shape[1]), "k": k,
+               "passes": m32.num_iterations_, "f32_s": s32, "f64_s": s64,
+               "means_rel_err": mean_err, "argmax_agreement": agree,
+               "loglik_f32": m32.log_likelihood_,
+               "loglik_f64": m64.log_likelihood_}
+        out.update(estep_vs_plain(label, x_dev, m32))
+        log(f"  {label}: float32 vs float64 means {mean_err:.3e} (bar "
+            f"{GMM_MEANS_RTOL:g}), argmax agreement {agree:.6f} (bar "
+            f"{GMM_AGREE}); mean loglik {m32.log_likelihood_:.6f} / "
+            f"{m64.log_likelihood_:.6f}; float64 fit {s64:.3f} s")
+        check(mean_err <= GMM_MEANS_RTOL, f"{label} means {mean_err:.3e}")
+        check(agree >= GMM_AGREE, f"{label} argmax agreement {agree:.6f}")
+        return m32, out
+
+    # (i) GMM at HIGGS's shape: phase 20's fit rows
+    hx, _hy = higgs_rows(np.random.default_rng(SEED + 20),
+                         TREE_FIT_ROWS + TREE_TEST_ROWS)
+    hx = np.ascontiguousarray(hx[:TREE_FIT_ROWS])
+    hx_dev = torch.as_tensor(hx, device=device)
+    lap("i data")
+    higgs32, summary["higgs"] = gmm_pair("(i) HIGGS", hx, hx_dev,
+                                         GMM_HIGGS_K, GMM_ITER)
+    kw = {"k": GMM_HIGGS_K, "seed": SEED, "maxIter": GMM_ITER, "tol": 0.0}
+    hr = hx[:GMM_REPEAT_ROWS]
+    first, _ = counted_fit("(i) HIGGS float32 fit, first 262,144 rows",
+                           GMM_HIGGS_K, lambda: GaussianMixture(**kw).fit(hr))
+    again, _ = counted_fit("(i) the same fit again", GMM_HIGGS_K,
+                           lambda: GaussianMixture(**kw).fit(hr))
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.set_float32_matmul_precision("high")
+    try:
+        tf32, _ = counted_fit("(i) the same fit under \"high\"",
+                              GMM_HIGGS_K,
+                              lambda: GaussianMixture(**kw).fit(hr))
+    finally:
+        torch.set_float32_matmul_precision("highest")
+        torch.backends.cuda.matmul.allow_tf32 = False
+    repeat = same_fit(first, again)
+    repeat_tf32 = same_fit(first, tf32)
+    summary["higgs"].update({"repeat_bit_equal": repeat,
+                             "tf32_bit_equal": repeat_tf32})
+    log(f"  (i) the float32 fit on {GMM_REPEAT_ROWS:,} rows repeated "
+        f"bit-equal {repeat}, under "
+        f"set_float32_matmul_precision(\"high\") {repeat_tf32}")
+    check(repeat and repeat_tf32, "(i) fit repeat / under TF32")
+    lap("i fits")
+
+    # (ii) GMM at MNIST's shape: phase 24's rows
+    mx_dev, _my = mnist_shaped(torch, device, UMAP_TRAIN_ROWS, SEED + 2400)
+    mx = mx_dev.cpu().numpy()
+    _m, summary["mnist"] = gmm_pair("(ii) MNIST", mx, mx_dev, GMM_MNIST_K,
+                                    GMM_MNIST_ITER, GMM_MNIST_REG)
+    del _m, mx_dev
+    lap("ii fits")
+
+    # (iii) BisectingKMeans on phase 15's blobs
+    bx, truth = km_blobs(torch, device)
+    lx, lt = bx[:BKM_LOCAL_ROWS], truth[:BKM_LOCAL_ROWS]
+    fg.reset_launches()
+    t0 = time.perf_counter()
+    local_bkm = BisectingKMeans(k=BKM_K, seed=SEED).fit(lx)
+    s_local = time.perf_counter() - t0
+    labels = np.asarray(local_bkm.transform(lx).column("prediction"))
+    cost = local_bkm.computeCost(lx)
+    cost_err = abs(cost - local_bkm.training_cost_) / local_bkm.training_cost_
+    split_local = blobs_whole(labels, lt)
+    summary["bisecting_local"] = {
+        "rows": BKM_LOCAL_ROWS, "k": BKM_K, "s": s_local,
+        "leaves": int(local_bkm.cluster_centers.shape[0]),
+        "cost_rel_err": cost_err, "blobs_split": split_local}
+    log(f"  (iii) local BisectingKMeans, {BKM_LOCAL_ROWS:,} × {KM_FEATURES} "
+        f"rows, k = {BKM_K}: {s_local:.2f} s; "
+        f"{local_bkm.cluster_centers.shape[0]} leaves, computeCost vs "
+        f"training_cost_ {cost_err:.3e} (bar {BKM_COST_RTOL:g}), blobs split "
+        f"{split_local}")
+    check(local_bkm.cluster_centers.shape[0] == BKM_K
+          and cost_err <= BKM_COST_RTOL and split_local == 0,
+          "(iii) the local bisecting fit")
+    lap("iii local")
+
+    # (iii) and (iv) on one NCCL rank
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    coordinator = f"127.0.0.1:{free_port()}"
+    try:
+        initialize_multihost(coordinator, num_processes=1, process_id=0)
+    except Exception as exc:
+        raise RuntimeError(f"phase 25: the one-rank NCCL world did not "
+                           f"start at {coordinator}: {exc!r}") from exc
+    try:
+        check(dist.get_backend() == "nccl", "the card's world runs NCCL")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ranked = distributed_bisecting_kmeans_fit(
+            bx, BKM_K, data_mesh(1), seed=SEED, dtype=np.float32)
+        s_ranked = time.perf_counter() - t0
+        bkm_collectives = ranked.fit_report_.collectives
+        fg.reset_launches()
+        ranked_gmm, s_rgmm = counted_fit(
+            "(iv) distributed_gmm_fit, one NCCL rank", GMM_HIGGS_K,
+            lambda: distributed_gmm_fit(hx, GMM_HIGGS_K, data_mesh(1),
+                                        max_iter=GMM_ITER, tol=0.0,
+                                        seed=SEED))
+        gmm_collectives = ranked_gmm.fit_report_.collectives
+    finally:
+        dist.destroy_process_group()
+    x32 = bx.astype(np.float32).astype(np.float64)
+    host_sse = sum(float(((x32[ranked.labels == i]
+                           - x32[ranked.labels == i].mean(axis=0)) ** 2)
+                         .sum())
+                   for i in range(ranked.centers.shape[0]))
+    r_err = abs(ranked.cost - host_sse) / host_sse
+    split_ranked = blobs_whole(ranked.labels, truth)
+    summary["bisecting_ranked"] = {
+        "rows": KM_ROWS, "k": BKM_K, "s": s_ranked,
+        "leaves": int(ranked.centers.shape[0]), "cost_rel_err": r_err,
+        "blobs_split": split_ranked, "collectives": bkm_collectives}
+    log(f"  (iii) distributed_bisecting_kmeans_fit, one NCCL rank, "
+        f"{KM_ROWS:,} rows: {s_ranked:.2f} s; {ranked.centers.shape[0]} "
+        f"leaves, cost vs the host SSE of its labels {r_err:.3e} (bar "
+        f"{BKM_COST_RTOL:g}), blobs split {split_ranked}; collectives "
+        f"{bkm_collectives}")
+    check(ranked.centers.shape[0] == BKM_K and r_err <= BKM_COST_RTOL
+          and split_ranked == 0, "(iii) the one-rank bisecting fit")
+    ranked_equal = same_fit(ranked_gmm, higgs32)
+    summary["gmm_ranked"] = {"s": s_rgmm, "equal_to_local": ranked_equal,
+                             "collectives": gmm_collectives}
+    log(f"  (iv) equal to the local float32 fit {ranked_equal}; collectives "
+        f"{gmm_collectives}")
+    check(ranked_equal, "(iv) one NCCL rank vs the local fit")
+    want_bytes = GMM_ITER * 4 * (GMM_HIGGS_K * (1 + 28 + 28 * 28) + 2)
+    check(gmm_collectives == {"all_reduce": {"count": GMM_ITER,
+                                             "bytes": want_bytes}},
+          f"(iv) collectives {gmm_collectives}")
+    del x32
+    lap("iii iv ranks")
+
+    # (v) the Spark planes on numpy partitions
+    rows = CL_PARTS * CL_PART_ROWS
+    parts = [slice(i * CL_PART_ROWS, (i + 1) * CL_PART_ROWS)
+             for i in range(CL_PARTS)]
+    frame = fe.PartitionFrame([[hx[p]] for p in parts])
+    fg.reset_launches()
+    t0 = time.perf_counter()
+    plane = spark.GaussianMixture(k=GMM_HIGGS_K, seed=SEED,
+                                  maxIter=1).fit(frame)
+    s_gplane = time.perf_counter() - t0
+    # the plane's init again (host passes), then the same EM step at
+    # float64 on the card
+    count, s1, s2, _lo, _hi = me._collect_moments(frame, "features")
+    sample, _n = me._collect_feature_sample(frame, "features", seed=SEED)
+    init = gk.init_from_moments(count, s1, s2, sample, GMM_HIGGS_K,
+                                np.random.default_rng(SEED))
+    est = GaussianMixture(k=GMM_HIGGS_K, maxIter=1, dtype="float64")
+    timer = PhaseTimer()
+    step = est._fit_from_stepper(
+        est._device_stepper(hx[:rows].astype(np.float64), np.ones(rows),
+                            timer), init, timer)
+    plane_err = max(cl_rel(getattr(plane._local, f), getattr(step, f))
+                    for f in ("means", "weights", "covs"))
+    log(f"  (v) GMM plane, {CL_PARTS} partitions of {CL_PART_ROWS:,} rows, "
+        f"one EM job: {s_gplane:.2f} s; vs the same step at float64 on the "
+        f"card {plane_err:.3e} (bar {CL_PLANE_RTOL:g})")
+    check(plane_err <= CL_PLANE_RTOL, f"(v) GMM plane {plane_err:.3e}")
+    bframe = fe.PartitionFrame([[bx[p]] for p in parts])
+    t0 = time.perf_counter()
+    bplane = spark.BisectingKMeans(k=BKM_PLANE_K, seed=SEED,
+                                   maxIter=BKM_PLANE_ITER).fit(bframe)
+    s_bplane = time.perf_counter() - t0
+    b_cost = float(_sqdist(bx[:rows], bplane._local.cluster_centers)
+                   .min(axis=1).sum())
+    b_leaf = bplane._local.training_cost_
+    log(f"  (v) bisecting plane, k = {BKM_PLANE_K}, maxIter "
+        f"{BKM_PLANE_ITER}: {s_bplane:.2f} s; "
+        f"{bplane._local.cluster_centers.shape[0]} leaves, assignment cost "
+        f"{b_cost:.6e} ≤ leaf cost {b_leaf:.6e}")
+    check(bplane._local.cluster_centers.shape[0] == BKM_PLANE_K
+          and b_cost <= b_leaf * (1 + 1e-12), "(v) the bisecting plane")
+    # saved, loaded and served through the adapters' transform bodies
+    q = hx[:CL_SERVED_ROWS]
+    qb = bx[:CL_SERVED_ROWS]
+    with tempfile.TemporaryDirectory() as tmp:
+        higgs32.save(os.path.join(tmp, "gmm"))
+        local_bkm.save(os.path.join(tmp, "bkm"))
+        gmm_back = load_model(os.path.join(tmp, "gmm"))
+        bkm_back = load_model(os.path.join(tmp, "bkm"))
+    served_p = adapter._classifier_probability(
+        adapter.GaussianMixtureModel(gmm_back)._local, q, "probability",
+        False)
+    served_l = adapter._model_output(bkm_back, qb, "prediction")
+    served_equal = (np.array_equal(served_p, higgs32.predict_proba(q))
+                    and np.array_equal(
+                        np.asarray(served_l),
+                        np.asarray(local_bkm.transform(qb)
+                                   .column("prediction"))))
+    launched = {n: v for n, v in fg.launches.items() if v}
+    summary["planes"] = {
+        "rows": rows, "partitions": CL_PARTS, "gmm_s": s_gplane,
+        "gmm_step_rel_err": plane_err, "bisecting_s": s_bplane,
+        "bisecting_assignment_cost": b_cost, "bisecting_leaf_cost": b_leaf,
+        "served_equal": served_equal, "launches": launched}
+    log(f"  (v) saved, loaded and served ({CL_SERVED_ROWS} rows each) equal "
+        f"to the fitted models {served_equal}; launches {launched} (the "
+        f"float64 step takes no kernel)")
+    check(served_equal, "(v) the served transforms")
+    check(not launched, f"(v) launched {launched}")
+    lap("v planes")
+
+    seconds = time.perf_counter() - t_phase
+    summary.update({"section_s": laps, "seconds": seconds,
+                    "launches": dict(main_path)})
+    log(f"  phase 25 {seconds:.1f} s, main-path launches {main_path}; {smi}")
+    return dict(main_path), summary
+
+
 def build_fresh(cuda_build):
     """Build the Gram library anew, so ``ptxas -v`` reports on it."""
     path = cuda_build.library_path("fused_gram")
@@ -8911,6 +9341,10 @@ def main() -> int:
     log("[24] UMAP at MNIST's shape on the card")
     umap_launches, umap_summary = phase_umap(torch, fg, device)
 
+    log("[25] GaussianMixture and BisectingKMeans on the card")
+    clustering_launches, clustering_summary = phase_clustering(
+        torch, fg, device)
+
     kernels = []
     for name, m in measured.items():
         check(launches.get(name, 0) > 0, f"{name} not launched on the main path")
@@ -8923,7 +9357,8 @@ def main() -> int:
                     "18": linear_launches.get(name, 0),
                     "19": 0, "20": 0,
                     "21": plane_launches.get(name, 0), "22": 0,
-                    "23": 0, "24": umap_launches.get(name, 0)}
+                    "23": 0, "24": umap_launches.get(name, 0),
+                    "25": clustering_launches.get(name, 0)}
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES, "launches": sum(by_phase.values()),
@@ -8941,6 +9376,7 @@ def main() -> int:
     print(json.dumps({"forest_plane": forest_summary}))
     print(json.dumps({"moments_plane": moments_summary}))
     print(json.dumps({"umap": umap_summary}))
+    print(json.dumps({"clustering": clustering_summary}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

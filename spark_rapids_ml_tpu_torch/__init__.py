@@ -98,6 +98,14 @@ from spark_rapids_ml_tpu_torch.models.umap import (  # noqa: F401
     UMAP,
     UMAPModel,
 )
+from spark_rapids_ml_tpu_torch.models.gaussian_mixture import (  # noqa: F401
+    GaussianMixture,
+    GaussianMixtureModel,
+)
+from spark_rapids_ml_tpu_torch.models.bisecting_kmeans import (  # noqa: F401
+    BisectingKMeans,
+    BisectingKMeansModel,
+)
 from spark_rapids_ml_tpu_torch.linalg import RowMatrix  # noqa: F401
 
 __all__ = [
@@ -153,4 +161,8 @@ __all__ = [
     "NaiveBayesModel",
     "UMAP",
     "UMAPModel",
+    "GaussianMixture",
+    "GaussianMixtureModel",
+    "BisectingKMeans",
+    "BisectingKMeansModel",
 ]

@@ -1,10 +1,11 @@
 """Model persistence in Spark ML's on-disk layout.
 
-A copy of the PCA, KMeans, StandardScaler, LinearRegression,
-LogisticRegression, LinearSVC, GeneralizedLinearRegression,
-TruncatedSVD, NearestNeighbors, NaiveBayes, RandomForest, DecisionTree and
-GBT parts of the JAX package's ``io/persistence.py``, so a model saved by
-either package loads in the other (``RapidsPCA.scala:218-254``):
+A copy of the PCA, KMeans, BisectingKMeans, GaussianMixture,
+StandardScaler, LinearRegression, LogisticRegression, LinearSVC,
+GeneralizedLinearRegression, TruncatedSVD, NearestNeighbors, NaiveBayes,
+RandomForest, DecisionTree and GBT parts of the JAX package's
+``io/persistence.py``, so a model saved by either package loads in the
+other (``RapidsPCA.scala:218-254``):
 
 * ``path/metadata/part-00000`` — one JSON line: class, timestamp, uid,
   paramMap (Spark's ``DefaultParamsWriter.saveMetadata``); params Spark's
@@ -12,8 +13,11 @@ either package loads in the other (``RapidsPCA.scala:218-254``):
 * ``path/metadata/_SUCCESS`` — empty marker;
 * ``path/data/part-00000.parquet`` — one row: for PCA ``pc`` (Spark
   DenseMatrix struct), ``explainedVariance`` (Spark DenseVector struct) and
-  the extension column ``mean``; for KMeans ``clusterCenters`` and
-  ``trainingCost``; for StandardScaler ``mean`` and ``std``; for
+  the extension column ``mean``; for KMeans and BisectingKMeans
+  ``clusterCenters`` and ``trainingCost``; for GaussianMixture
+  ``weights``, ``means`` and ``covs`` (the (k, d, d) stack as a (k·d, d)
+  matrix), its iterations and log-likelihood in the metadata's
+  ``extra``; for StandardScaler ``mean`` and ``std``; for
   LinearRegression Spark's (``coefficients``, ``intercept``, ``scale``);
   for LogisticRegression ``coefficients``, ``intercept``, ``numClasses``,
   ``numFeatures`` and, multinomial, ``interceptVector`` and ``classes``
@@ -68,6 +72,9 @@ _SPARK_CLASS_ALIASES = {
     "PCAModel": "org.apache.spark.ml.feature.PCAModel",
     "KMeans": "org.apache.spark.ml.clustering.KMeans",
     "KMeansModel": "org.apache.spark.ml.clustering.KMeansModel",
+    "BisectingKMeans": "org.apache.spark.ml.clustering.BisectingKMeans",
+    "BisectingKMeansModel":
+        "org.apache.spark.ml.clustering.BisectingKMeansModel",
     "LinearRegression": "org.apache.spark.ml.regression.LinearRegression",
     "LinearRegressionModel": "org.apache.spark.ml.regression.LinearRegressionModel",
     "LogisticRegression":
@@ -104,6 +111,10 @@ _SPARK_PARAM_ALLOWLIST = {
                     "weightCol"},
     "StandardScaler": {"withMean", "withStd", "inputCol", "outputCol"},
     "StandardScalerModel": {"withMean", "withStd", "inputCol", "outputCol"},
+    "BisectingKMeans": {"k", "maxIter", "seed", "predictionCol",
+                        "minDivisibleClusterSize", "weightCol"},
+    "BisectingKMeansModel": {"k", "maxIter", "seed", "predictionCol",
+                             "minDivisibleClusterSize", "weightCol"},
     "DecisionTreeClassifier": {
         "maxDepth", "maxBins", "minInstancesPerNode", "labelCol",
         "predictionCol", "probabilityCol", "seed", "weightCol"},
@@ -726,13 +737,97 @@ def save_kmeans_model(model, path: str, overwrite: bool = False) -> None:
 def load_kmeans_model(path: str):
     from spark_rapids_ml_tpu_torch.models.kmeans import KMeansModel
 
+    return _load_centers_model(path, KMeansModel)
+
+
+def _load_centers_model(path: str, model_cls):
+    """(clusterCenters, trainingCost) layout shared by KMeansModel and
+    BisectingKMeansModel."""
     meta = _read_metadata(path)
     row = _read_data_row(path)
-    model = KMeansModel(
+    model = model_cls(
         cluster_centers=_dense_matrix_from_struct(row["clusterCenters"]),
         uid=meta["uid"],
     )
     model.training_cost_ = row.get("trainingCost")
+    return _restore_params(model, meta)
+
+
+def save_bkm_model(model, path: str, overwrite: bool = False) -> None:
+    """BisectingKMeansModel: the KMeansModel data layout (leaf centers
+    matrix + training cost) — Spark persists its cluster tree, an
+    implementation detail the flat-leaves design does not carry.
+    Delegates to the KMeans writer so the wire format cannot drift."""
+    if model.cluster_centers is None:
+        raise ValueError("cannot save an unfitted BisectingKMeansModel")
+    save_kmeans_model.__wrapped_save__(model, path, overwrite=overwrite)
+
+
+def load_bkm_model(path: str):
+    from spark_rapids_ml_tpu_torch.models.bisecting_kmeans import (
+        BisectingKMeansModel,
+    )
+
+    return _load_centers_model(path, BisectingKMeansModel)
+
+
+def save_gmm_model(model, path: str, overwrite: bool = False) -> None:
+    """GaussianMixtureModel layout: (weights vector, means matrix, covs
+    stacked as a (k*d, d) matrix) — the covariance stack reshapes to
+    (k, d, d) on load; Spark's writer stores gaussians row-per-component,
+    an equivalent representation. The fit summary (iterations,
+    log-likelihood) travels in the metadata's ``extra``."""
+    if model.weights is None:
+        raise ValueError("cannot save an unfitted GaussianMixtureModel")
+    _require_target(path, overwrite)
+    cls = f"{type(model).__module__}.{type(model).__qualname__}"
+    extras = {
+        "numIterations": int(model.num_iterations_),
+        "logLikelihood": float(model.log_likelihood_),
+    }
+    _write_metadata(path, cls, model.uid, model.param_map_for_metadata(),
+                    extra=extras)
+    k, d = model.means.shape
+    row = {
+        "weights": _dense_vector_struct(model.weights),
+        "means": _dense_matrix_struct(model.means),
+        "covs": _dense_matrix_struct(model.covs.reshape(k * d, d)),
+    }
+    try:
+        import pyarrow as pa
+    except ImportError:
+        schema = None
+    else:
+        schema = pa.schema(
+            [
+                ("weights", _vector_arrow_type()),
+                ("means", _matrix_arrow_type()),
+                ("covs", _matrix_arrow_type()),
+            ]
+        )
+    _write_data_row(path, row, schema=schema, spark_fields=[
+        ("weights", "vector"), ("means", "matrix"), ("covs", "matrix"),
+    ])
+
+
+def load_gmm_model(path: str):
+    from spark_rapids_ml_tpu_torch.models.gaussian_mixture import (
+        GaussianMixtureModel,
+    )
+
+    meta = _read_metadata(path)
+    row = _read_data_row(path)
+    means = _dense_matrix_from_struct(row["means"])
+    k, d = means.shape
+    model = GaussianMixtureModel(
+        weights=_dense_vector_from_struct(row["weights"]),
+        means=means,
+        covs=_dense_matrix_from_struct(row["covs"]).reshape(k, d, d),
+        uid=meta["uid"],
+    )
+    extras = meta.get("extra", {})
+    model.num_iterations_ = int(extras.get("numIterations", 0))
+    model.log_likelihood_ = float(extras.get("logLikelihood", float("nan")))
     return _restore_params(model, meta)
 
 
@@ -1130,6 +1225,8 @@ _MODEL_CLASSES = {
     for module, names in (
         ("pca", ("PCA", "PCAModel")),
         ("kmeans", ("KMeans", "KMeansModel")),
+        ("bisecting_kmeans", ("BisectingKMeans", "BisectingKMeansModel")),
+        ("gaussian_mixture", ("GaussianMixture", "GaussianMixtureModel")),
         ("scaler", ("StandardScaler", "StandardScalerModel")),
         ("feature_scalers", ("MinMaxScaler", "MinMaxScalerModel",
                              "MaxAbsScaler", "MaxAbsScalerModel",

@@ -72,6 +72,14 @@ from spark_rapids_ml_tpu_torch.models.naive_bayes import (
     NaiveBayesModel,
 )
 from spark_rapids_ml_tpu_torch.models.umap import UMAP, UMAPModel
+from spark_rapids_ml_tpu_torch.models.gaussian_mixture import (
+    GaussianMixture,
+    GaussianMixtureModel,
+)
+from spark_rapids_ml_tpu_torch.models.bisecting_kmeans import (
+    BisectingKMeans,
+    BisectingKMeansModel,
+)
 
 __all__ = [
     "PCA",
@@ -125,4 +133,8 @@ __all__ = [
     "NaiveBayesModel",
     "UMAP",
     "UMAPModel",
+    "GaussianMixture",
+    "GaussianMixtureModel",
+    "BisectingKMeans",
+    "BisectingKMeansModel",
 ]

@@ -1,9 +1,9 @@
 """Fits across ranks on ``torch.distributed``: meshes, the multi-host
 runtime, the data-parallel, streamed and feature-sharded PCA fits, and the
 data-parallel LinearRegression, LogisticRegression, LinearSVC,
-GeneralizedLinearRegression, KMeans and NaiveBayes fits; the sharded
-brute-force and IVF searches and DBSCAN; the RandomForest and GBT fits;
-the UMAP optimizer."""
+GeneralizedLinearRegression, KMeans, NaiveBayes, GaussianMixture and
+BisectingKMeans fits; the sharded brute-force and IVF searches and DBSCAN;
+the RandomForest and GBT fits; the UMAP optimizer."""
 
 from spark_rapids_ml_tpu_torch.parallel.mesh import (
     DATA_AXIS,
@@ -63,6 +63,14 @@ from spark_rapids_ml_tpu_torch.parallel.distributed_forest import (
 from spark_rapids_ml_tpu_torch.parallel.distributed_gbt import (
     distributed_gbt_fit,
 )
+from spark_rapids_ml_tpu_torch.parallel.distributed_gmm import (
+    distributed_gmm_fit,
+    distributed_gmm_stats_kernel,
+)
+from spark_rapids_ml_tpu_torch.parallel.distributed_bisecting import (
+    BisectingKMeansResult,
+    distributed_bisecting_kmeans_fit,
+)
 from spark_rapids_ml_tpu_torch.parallel.distributed_umap import (
     distributed_umap_optimize,
 )
@@ -97,6 +105,8 @@ __all__ = [
     "distributed_dbscan_labels",
     "distributed_forest_fit", "distributed_gbt_fit",
     "distributed_umap_optimize",
+    "distributed_gmm_fit", "distributed_gmm_stats_kernel",
+    "BisectingKMeansResult", "distributed_bisecting_kmeans_fit",
     "DistributedStreamingPCA", "distributed_streaming_pca_fit",
     "finalize_stats_sharded", "update_stats_sharded",
     "FeatureShardedPCAResult", "feature_sharded_covariance_kernel",

@@ -13,9 +13,10 @@ The port's copy of the JAX package's ``spark/__init__.py`` for what is
 ported: the statistics plane (``estimator.py``: PCA, LinearRegression,
 LogisticRegression, KMeans, NaiveBayes and their models), the moments
 plane (``moments_estimator.py``: the four scalers, TruncatedSVD,
-LinearSVC and GLM), the per-level tree plane (``forest_estimator.py``:
-DecisionTree, RandomForest and GBT), and the generic adapter's models,
-NearestNeighbors and UMAP (``adapter.py``, ``adapter2.py``). Every other
+LinearSVC, GLM, GaussianMixture and BisectingKMeans), the per-level tree
+plane (``forest_estimator.py``: DecisionTree, RandomForest and GBT), and
+the generic adapter's models, NearestNeighbors and UMAP (``adapter.py``,
+``adapter2.py``, ``adapter3.py``). Every other
 front end of the JAX package's Spark plane is not ported yet; its name
 raises ``AttributeError`` naming the ROADMAP item that brings it.
 """
@@ -40,9 +41,9 @@ _PYSPARK_CLASSES = (
 )
 
 # moments-plane front-ends (spark/moments_estimator.py): the scalers,
-# TruncatedSVD, LinearSVC and GLM fit on executor moment / sample / Gram /
-# Newton partials, never collecting rows to the driver; their models stay
-# the adapter's
+# TruncatedSVD, LinearSVC, GLM, GaussianMixture and BisectingKMeans fit on
+# executor moment / sample / Gram / Newton / EM / split partials, never
+# collecting rows to the driver; their models stay the adapters'
 _MOMENTS_PLANE_CLASSES = (
     "StandardScaler",
     "MinMaxScaler",
@@ -51,6 +52,8 @@ _MOMENTS_PLANE_CLASSES = (
     "TruncatedSVD",
     "LinearSVC",
     "GeneralizedLinearRegression",
+    "GaussianMixture",
+    "BisectingKMeans",
 )
 
 # tree-ensemble front-ends (spark/forest_estimator.py): fits run on the
@@ -84,6 +87,7 @@ _ADAPTER_CLASSES = (
     "TruncatedSVDModel",
     "UMAP",
     "UMAPModel",
+    "GaussianMixtureModel",
 )
 
 # the DecisionTree models (spark/adapter2.py); their estimators route to
@@ -91,6 +95,12 @@ _ADAPTER_CLASSES = (
 _ADAPTER2_CLASSES = (
     "DecisionTreeClassifierModel",
     "DecisionTreeRegressorModel",
+)
+
+# the BisectingKMeans model (spark/adapter3.py); its estimator routes to
+# the moments plane
+_ADAPTER3_CLASSES = (
+    "BisectingKMeansModel",
 )
 
 _FAMILIES = "7 (their families and front ends)"
@@ -103,14 +113,10 @@ _UNPORTED = {
     # families not ported yet, with their front ends
     "ALS": _FAMILIES,
     "ALSModel": _FAMILIES,
-    "BisectingKMeans": _FAMILIES,
-    "BisectingKMeansModel": _FAMILIES,
     "BucketedRandomProjectionLSH": _FAMILIES,
     "BucketedRandomProjectionLSHModel": _FAMILIES,
     "FPGrowth": _FAMILIES,
     "FPGrowthModel": _FAMILIES,
-    "GaussianMixture": _FAMILIES,
-    "GaussianMixtureModel": _FAMILIES,
     "Imputer": _FAMILIES,
     "ImputerModel": _FAMILIES,
     "LDA": _FAMILIES,
@@ -211,6 +217,7 @@ __all__ = [
     *_FOREST_PLANE_CLASSES,
     *_ADAPTER_CLASSES,
     *_ADAPTER2_CLASSES,
+    *_ADAPTER3_CLASSES,
     *(alias for alias, target in _CANONICAL_ALIASES.items()
       if target not in _UNPORTED),
     "combine_stats",
@@ -244,6 +251,10 @@ def __getattr__(name):
         from spark_rapids_ml_tpu_torch.spark import adapter2
 
         return getattr(adapter2, target)
+    if target in _ADAPTER3_CLASSES:
+        from spark_rapids_ml_tpu_torch.spark import adapter3
+
+        return getattr(adapter3, target)
     if target in _UNPORTED:
         raise AttributeError(
             f"{name} is not ported to spark_rapids_ml_tpu_torch.spark yet: "

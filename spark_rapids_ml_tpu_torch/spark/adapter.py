@@ -22,15 +22,15 @@ documented envelope for these families; the statistics families stream.
 The port's copy of the JAX package's ``spark/adapter.py``, for the
 families the port has: RandomForest and GBT (both kinds), LinearSVC,
 GeneralizedLinearRegression, StandardScaler, MinMaxScaler, MaxAbsScaler,
-RobustScaler, TruncatedSVD, NearestNeighbors and UMAP, and NaiveBayes'
-model (its estimator is ``spark/estimator.py``'s). Every ``pandas_udf``
-body is a module function on numpy rows (``_model_output``,
+RobustScaler, TruncatedSVD, NearestNeighbors, UMAP and GaussianMixture
+(whose estimator ``spark/__init__.py`` routes to the moments plane), and
+NaiveBayes' model (its estimator is ``spark/estimator.py``'s). Every
+``pandas_udf`` body is a module function on numpy rows (``_model_output``,
 ``_classifier_probability``, ``_classifier_prediction``, ``_svc_raw``,
 ``_svc_prediction``, ``_glm_eta``, ``_glm_mu``), so it runs without
 pandas; the UDFs only wrap them. ``_host_fitted_state`` moves a model's
-torch tensors to host numpy before it ships. The GaussianMixture, MLP,
-Imputer and OneVsRest pairs wait for their families (ROADMAP queue 1
-item 7).
+torch tensors to host numpy before it ships. The MLP, Imputer and
+OneVsRest pairs wait for their families (ROADMAP queue 1 item 7).
 
 Works identically against real pyspark and the in-repo local engine
 (``spark/_compat.py``).
@@ -57,6 +57,8 @@ __all__ = [
     "GBTClassifierModel",
     "GBTRegressor",
     "GBTRegressorModel",
+    "GaussianMixture",
+    "GaussianMixtureModel",
     "GeneralizedLinearRegression",
     "GeneralizedLinearRegressionModel",
     "LinearSVC",
@@ -579,6 +581,10 @@ from spark_rapids_ml_tpu_torch.models.gbt import (  # noqa: E402
     GBTRegressionModel as _LGBTR_M,
     GBTRegressor as _LGBTR,
 )
+from spark_rapids_ml_tpu_torch.models.gaussian_mixture import (  # noqa: E402
+    GaussianMixture as _LGMM,
+    GaussianMixtureModel as _LGMM_M,
+)
 from spark_rapids_ml_tpu_torch.models.glm import (  # noqa: E402
     GeneralizedLinearRegression as _LGLM,
     GeneralizedLinearRegressionModel as _LGLM_M,
@@ -647,6 +653,13 @@ GeneralizedLinearRegression, GeneralizedLinearRegressionModel = _make_pair(
     "GeneralizedLinearRegression", _LGLM, _LGLM_M, needs_label=True,
     model_base=_GLMAdapterModel,
     doc="Transform emits mu and optional linkPrediction eta.",
+)
+GaussianMixture, GaussianMixtureModel = _make_pair(
+    "GaussianMixture", _LGMM, _LGMM_M, needs_label=False,
+    classifier=True,
+    doc="EM fit runs on the executor statistics plane "
+        "(spark/moments_estimator.py); probability holds the "
+        "responsibility vector, prediction its argmax.",
 )
 StandardScaler, StandardScalerModel = _make_pair(
     "StandardScaler", _LSS, _LSS_M, needs_label=False,

@@ -25,9 +25,10 @@ label-value pass, KMeans, the NaiveBayes partials and
 ``finalize_nb_from_stats``, ``combine_stats`` and
 ``finalize_pca_from_stats``; then the moments plane's partials: the
 per-feature moments and their combine, the Summarizer partials, the
-LinearSVC and GLM Newton / IRLS partials and the feature sample. The GMM,
-imputer, LDA and bisecting partials come with their families (ROADMAP
-queue 1 item 7).
+LinearSVC and GLM Newton / IRLS partials and the feature sample; then the
+GaussianMixture EM partial and the BisectingKMeans routing, moments,
+Lloyd and sample partials. The imputer and LDA partials come with their
+families (ROADMAP queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -1309,3 +1310,371 @@ def feature_sample_arrow_schema():
 
 def feature_sample_spark_ddl() -> str:
     return "n long, sample array<double>, d long"
+
+
+# --------------------------------------------------------------------------
+# GaussianMixture plane: one EM pass's partials under the broadcast state
+# --------------------------------------------------------------------------
+
+def gmm_stats_spark_ddl() -> str:
+    return ("nk array<double>, mk array<double>, sk array<double>, "
+            "loglik double, wsum double")
+
+
+def gmm_stats_arrow_schema():
+    import pyarrow as pa
+
+    return pa.schema(
+        [
+            ("nk", pa.list_(pa.float64())),
+            ("mk", pa.list_(pa.float64())),
+            ("sk", pa.list_(pa.float64())),
+            ("loglik", pa.float64()),
+            ("wsum", pa.float64()),
+        ]
+    )
+
+
+def partition_gmm_stats(
+    batches: Iterable,
+    features_col: str,
+    means: np.ndarray,
+    prec_chol: np.ndarray,
+    log_det: np.ndarray,
+    log_weights: np.ndarray,
+    weight_col: Optional[str] = None,
+) -> Iterator[Dict[str, object]]:
+    """One partition's GaussianMixture EM partials under the broadcast
+    mixture state: (sum r, sum r x, sum r x x^T, loglik, sum w) — the
+    per-iteration statistics-plane shape of ``ops.gmm_kernel``
+    (``estep_stats_math`` with numpy is the shared math)."""
+    from spark_rapids_ml_tpu_torch.ops.gmm_kernel import (
+        GmmStats,
+        estep_stats_math,
+    )
+
+    means = np.asarray(means, dtype=np.float64)
+    totals = None
+    for batch in batches:
+        if hasattr(batch, "column"):
+            x = vector_column_to_matrix(batch.column(features_col))
+        else:
+            x = np.asarray(batch, dtype=np.float64)
+        if x.shape[0] == 0:
+            continue
+        wt = _batch_weights_agg(batch, weight_col)
+        if wt is None:
+            wt = np.ones(x.shape[0])
+        out = estep_stats_math(
+            np, x, wt, means, np.asarray(prec_chol), np.asarray(log_det),
+            np.asarray(log_weights))
+        totals = out if totals is None else GmmStats(
+            *(a + b for a, b in zip(totals, out)))
+    if totals is None:
+        return
+    yield {
+        "nk": [float(v) for v in np.asarray(totals.resp_sum)],
+        "mk": [float(v) for v in np.asarray(totals.mean_sum).reshape(-1)],
+        "sk": [float(v) for v in np.asarray(totals.sq_sum).reshape(-1)],
+        "loglik": float(totals.loglik),
+        "wsum": float(totals.w_sum),
+    }
+
+
+def partition_gmm_stats_arrow(batches, features_col: str, means, prec_chol,
+                              log_det, log_weights, **kw):
+    import pyarrow as pa
+
+    for row in partition_gmm_stats(batches, features_col, means, prec_chol,
+                                   log_det, log_weights, **kw):
+        yield pa.RecordBatch.from_pylist(
+            [row], schema=gmm_stats_arrow_schema()
+        )
+
+
+def combine_gmm_stats(rows: Iterable, k: int, d: int):
+    """Driver-side reduce of per-partition GMM partials → GmmStats."""
+    from spark_rapids_ml_tpu_torch.ops.gmm_kernel import GmmStats
+
+    nk = np.zeros(k)
+    mk = np.zeros((k, d))
+    sk = np.zeros((k, d, d))
+    loglik = wsum = 0.0
+    seen = False
+    for row in rows:
+        get = row.get if isinstance(row, dict) else row.__getitem__
+        nk += np.asarray(get("nk"), dtype=np.float64)
+        mk += np.asarray(get("mk"), dtype=np.float64).reshape(k, d)
+        sk += np.asarray(get("sk"), dtype=np.float64).reshape(k, d, d)
+        loglik += float(get("loglik"))
+        wsum += float(get("wsum"))
+        seen = True
+    if not seen:
+        raise ValueError("no partition statistics to combine (empty dataset)")
+    return GmmStats(resp_sum=nk, mean_sum=mk, sq_sum=sk, loglik=loglik,
+                    w_sum=wsum)
+
+
+# --------------------------------------------------------------------------
+# BisectingKMeans plane: hierarchical routing + per-leaf / 2-means partials
+# --------------------------------------------------------------------------
+
+def route_rows_bisecting(x: np.ndarray, nodes) -> np.ndarray:
+    """Leaf id per row under the bisecting hierarchy.
+
+    ``nodes``: list of internal nodes ``{"cl", "cr", "l", "r"}`` — the
+    two ROUTING centers a split's 2-means produced, and the child ids
+    (``>= 0``: another internal node; ``< 0``: leaf ``-(child) - 1``).
+    A row descends from node 0, taking the nearer routing center at
+    each internal node — membership is a pure function of the broadcast
+    hierarchy, so executors re-derive it without the driver ever
+    shipping row indices. Empty ``nodes`` = the single root leaf 0.
+    """
+    n_rows = x.shape[0]
+    if not nodes:
+        return np.zeros(n_rows, dtype=np.int64)
+    leaf = np.full(n_rows, -1, dtype=np.int64)
+    cur = np.zeros(n_rows, dtype=np.int64)
+    active = np.ones(n_rows, dtype=bool)
+    while active.any():
+        for nid in np.unique(cur[active]):
+            rows = np.flatnonzero(active & (cur == nid))
+            node = nodes[int(nid)]
+            dl = ((x[rows] - np.asarray(node["cl"])[None, :]) ** 2).sum(1)
+            dr = ((x[rows] - np.asarray(node["cr"])[None, :]) ** 2).sum(1)
+            nxt = np.where(dr < dl, int(node["r"]), int(node["l"]))
+            into_leaf = nxt < 0
+            leaf_rows = rows[into_leaf]
+            leaf[leaf_rows] = -nxt[into_leaf] - 1
+            active[leaf_rows] = False
+            desc = rows[~into_leaf]
+            cur[desc] = nxt[~into_leaf]
+    return leaf
+
+
+def partition_bisecting_moments(
+    batches: Iterable, input_col: str, nodes, n_leaves: int,
+    weight_col: Optional[str] = None,
+) -> Iterator[Dict[str, object]]:
+    """Per-leaf (Σw·x, Σw, raw count, Σw·‖x−0‖² pieces, min, max) under
+    the broadcast hierarchy — one pass gives every leaf's weighted mean,
+    SSE (via the moments identity Σw‖x‖² − ‖Σwx‖²/Σw), divisibility
+    (raw size + per-feature spread), all additively combinable."""
+    d = None
+    sums = counts = raws = sqs = mins = maxs = None
+    seen = 0
+    for batch in batches:
+        if hasattr(batch, "column"):
+            x = vector_column_to_matrix(batch.column(input_col))
+        else:
+            x = np.asarray(batch, dtype=np.float64)
+        if x.shape[0] == 0:
+            continue
+        if d is None:
+            d = x.shape[1]
+            sums = np.zeros((n_leaves, d))
+            counts = np.zeros(n_leaves)
+            raws = np.zeros(n_leaves)
+            sqs = np.zeros(n_leaves)
+            mins = np.full((n_leaves, d), np.inf)
+            maxs = np.full((n_leaves, d), -np.inf)
+        wt = _batch_weights_agg(batch, weight_col)
+        w = np.ones(x.shape[0]) if wt is None else wt
+        leaf = route_rows_bisecting(x, nodes)
+        np.add.at(sums, leaf, x * w[:, None])
+        np.add.at(counts, leaf, w)
+        np.add.at(raws, leaf, 1.0)
+        np.add.at(sqs, leaf, w * (x * x).sum(axis=1))
+        for lf in np.unique(leaf):
+            rows = leaf == lf
+            mins[lf] = np.minimum(mins[lf], x[rows].min(axis=0))
+            maxs[lf] = np.maximum(maxs[lf], x[rows].max(axis=0))
+        seen += x.shape[0]
+    if d is None:
+        return
+    yield {
+        "sums": sums.ravel().tolist(),
+        "counts": counts.tolist(),
+        "extra": np.concatenate(
+            [raws, sqs, mins.ravel(), maxs.ravel()]).tolist(),
+        "cost": 0.0,
+        "count": seen,
+    }
+
+
+def partition_bisecting_lloyd(
+    batches: Iterable, input_col: str, nodes, target_leaf: int,
+    centers: np.ndarray, weight_col: Optional[str] = None,
+) -> Iterator[Dict[str, object]]:
+    """One Lloyd half-step of the target leaf's 2-means: rows routed to
+    ``target_leaf`` are assigned to the nearer of the two broadcast
+    centers; emits per-side (Σw·x, Σw, raw count) + assignment cost."""
+    c = np.asarray(centers, dtype=np.float64)
+    d = c.shape[1]
+    sums = np.zeros((2, d))
+    counts = np.zeros(2)
+    raws = np.zeros(2)
+    cost = 0.0
+    seen = 0
+    for batch in batches:
+        if hasattr(batch, "column"):
+            x = vector_column_to_matrix(batch.column(input_col))
+        else:
+            x = np.asarray(batch, dtype=np.float64)
+        if x.shape[0] == 0:
+            continue
+        wt = _batch_weights_agg(batch, weight_col)
+        w = np.ones(x.shape[0]) if wt is None else wt
+        leaf = route_rows_bisecting(x, nodes)
+        rows = leaf == target_leaf
+        if not rows.any():
+            seen += x.shape[0]
+            continue
+        xs, ws = x[rows], w[rows]
+        dist = np.maximum(
+            (xs * xs).sum(axis=1)[:, None]
+            + (c * c).sum(axis=1)[None, :] - 2.0 * (xs @ c.T), 0.0)
+        side = dist.argmin(axis=1)
+        np.add.at(sums, side, xs * ws[:, None])
+        np.add.at(counts, side, ws)
+        np.add.at(raws, side, 1.0)
+        cost += float((ws * dist.min(axis=1)).sum())
+        seen += x.shape[0]
+    yield {
+        "sums": sums.ravel().tolist(),
+        "counts": counts.tolist(),
+        "extra": raws.tolist(),
+        "cost": cost,
+        "count": seen,
+    }
+
+
+def partition_bisecting_sample(
+    batches: Iterable, input_col: str, nodes, target_leaf: int,
+    m: int,
+) -> Iterator[Dict[str, object]]:
+    """Up to ``m`` rows of the target leaf from this partition — the
+    bounded seeding sample the driver runs k-means++(2) on (the same
+    sample-seeded posture as the KMeans plane's ``df.limit`` seeding)."""
+    kept = []
+    total = 0
+    for batch in batches:
+        if total >= m:
+            break  # quota full: skip even the Arrow decode
+        if hasattr(batch, "column"):
+            x = vector_column_to_matrix(batch.column(input_col))
+        else:
+            x = np.asarray(batch, dtype=np.float64)
+        if x.shape[0] == 0:
+            continue
+        leaf = route_rows_bisecting(x, nodes)
+        rows = x[leaf == target_leaf]
+        take = rows[: m - total]
+        if take.shape[0]:
+            kept.append(take)
+            total += take.shape[0]
+    if not kept:
+        return
+    sample = np.concatenate(kept)
+    yield {
+        "rows": sample.ravel().tolist(),
+        "count": int(sample.shape[0]),
+    }
+
+
+def bisecting_stats_spark_ddl() -> str:
+    return ("sums array<double>, counts array<double>, "
+            "extra array<double>, cost double, count bigint")
+
+
+def bisecting_sample_spark_ddl() -> str:
+    return "rows array<double>, count bigint"
+
+
+def combine_bisecting_stats(rows: Iterable, n_groups: int, d: int,
+                            extra_per_group: int):
+    """Driver reduce: (sums (G,d), counts (G,), extra stacked per the
+    job's layout, cost, rows seen). ``extra`` combines additively for
+    the first ``2·G`` entries (raw counts / sq-sums) and by min/max for
+    the trailing min/max blocks when present (moments job)."""
+    sums = np.zeros((n_groups, d))
+    counts = np.zeros(n_groups)
+    extra = None
+    cost = 0.0
+    seen = 0
+    for row in rows:
+        get = row.get if isinstance(row, dict) else row.__getitem__
+        sums += np.asarray(get("sums"), dtype=np.float64).reshape(
+            n_groups, d)
+        counts += np.asarray(get("counts"), dtype=np.float64)
+        e = np.asarray(get("extra"), dtype=np.float64)
+        if extra is None:
+            extra = e.copy()
+        else:
+            if extra_per_group > 2:
+                # moments layout: [raws G | sqs G | mins G*d | maxs G*d]
+                add = 2 * n_groups
+                extra[:add] += e[:add]
+                half = (e.shape[0] - add) // 2
+                extra[add:add + half] = np.minimum(
+                    extra[add:add + half], e[add:add + half])
+                extra[add + half:] = np.maximum(
+                    extra[add + half:], e[add + half:])
+            else:
+                extra += e
+        cost += float(get("cost"))
+        seen += int(get("count"))
+    return sums, counts, extra, cost, seen
+
+
+def bisecting_stats_arrow_schema():
+    import pyarrow as pa
+
+    return pa.schema([
+        ("sums", pa.list_(pa.float64())),
+        ("counts", pa.list_(pa.float64())),
+        ("extra", pa.list_(pa.float64())),
+        ("cost", pa.float64()),
+        ("count", pa.int64()),
+    ])
+
+
+def bisecting_sample_arrow_schema():
+    import pyarrow as pa
+
+    return pa.schema([
+        ("rows", pa.list_(pa.float64())),
+        ("count", pa.int64()),
+    ])
+
+
+def partition_bisecting_moments_arrow(batches, input_col, nodes, n_leaves,
+                                      weight_col=None):
+    import pyarrow as pa
+
+    for row in partition_bisecting_moments(batches, input_col, nodes,
+                                           n_leaves,
+                                           weight_col=weight_col):
+        yield pa.RecordBatch.from_pylist(
+            [row], schema=bisecting_stats_arrow_schema())
+
+
+def partition_bisecting_lloyd_arrow(batches, input_col, nodes, target_leaf,
+                                    centers, weight_col=None):
+    import pyarrow as pa
+
+    for row in partition_bisecting_lloyd(batches, input_col, nodes,
+                                         target_leaf, centers,
+                                         weight_col=weight_col):
+        yield pa.RecordBatch.from_pylist(
+            [row], schema=bisecting_stats_arrow_schema())
+
+
+def partition_bisecting_sample_arrow(batches, input_col, nodes,
+                                     target_leaf, m):
+    import pyarrow as pa
+
+    for row in partition_bisecting_sample(batches, input_col, nodes,
+                                          target_leaf, m):
+        yield pa.RecordBatch.from_pylist(
+            [row], schema=bisecting_sample_arrow_schema())

@@ -16,7 +16,13 @@ per-partition → driver-reduce shape, ``RapidsRowMatrix.scala:168-202``):
   logreg row shape (``aggregate.partition_svc_stats``,
   ``aggregate.partition_glm_stats``), the small solve on the driver;
 * RobustScaler's quantiles come from one bounded row sample that covers
-  every partition (``aggregate.partition_feature_sample``).
+  every partition (``aggregate.partition_feature_sample``);
+* GaussianMixture runs one EM-statistics job per iteration
+  (``aggregate.partition_gmm_stats``) through the local estimator's EM
+  loop, and BisectingKMeans re-derives each row's leaf on the executors
+  from the broadcast split hierarchy (``aggregate.route_rows_bisecting``):
+  per split a seeding-sample job, one Lloyd job per iteration and one
+  moments job.
 
 The classes subclass the adapter front-ends: param surface, setters,
 persistence, and pandas_udf transform are unchanged — only the fit
@@ -28,9 +34,8 @@ the families the port has; the partials are host NumPy float64 there and
 here, each equal to the JAX package's on the same batches. Every job goes
 through ``forest_estimator._collect_rows``, so ``forest_estimator.
 PartitionFrame`` drives each ``_fit`` on numpy partitions without
-pyarrow. The GaussianMixture, OneVsRest, BisectingKMeans, Imputer and LDA
-front ends of the JAX module come with their families (ROADMAP queue 1
-item 7).
+pyarrow. The OneVsRest, Imputer and LDA front ends of the JAX module come
+with their families (ROADMAP queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from __future__ import annotations
 import numpy as np
 
 from spark_rapids_ml_tpu_torch.spark import adapter as _adapter
+from spark_rapids_ml_tpu_torch.spark import adapter3 as _adapter3
 from spark_rapids_ml_tpu_torch.spark.aggregate import (
     combine_logreg_stats,
     combine_moment_stats,
@@ -426,3 +432,265 @@ class RobustScaler(_adapter.RobustScaler):
         local.copy_values_from(local_est)
         local.fit_timings_ = timer.as_dict()
         return self._model_cls(local)
+
+
+class GaussianMixture(_adapter.GaussianMixture):
+    """DataFrame GaussianMixture on the executor statistics plane: init
+    is one moments pass + one capped feature-sample pass (seeded means);
+    each EM iteration is one job emitting per-partition
+    responsibility-weighted statistics (sum r, sum r x, sum r x x^T,
+    loglik) under the broadcast mixture state
+    (``aggregate.partition_gmm_stats``); the k x d x d M-step and the
+    mean-loglik convergence rule reuse the ONE EM driver loop in
+    ``models/gaussian_mixture.py::_fit_from_stepper``. Rows never reach
+    the driver."""
+
+    def _fit(self, dataset):
+        from spark_rapids_ml_tpu_torch.ops.gmm_kernel import (
+            init_from_moments,
+        )
+        from spark_rapids_ml_tpu_torch.spark.aggregate import (
+            combine_gmm_stats,
+            gmm_stats_arrow_schema,
+            gmm_stats_spark_ddl,
+            partition_gmm_stats,
+        )
+
+        local_est = self._local
+        timer = PhaseTimer()
+        k = int(local_est.getK())
+        fcol = local_est.getInputCol()
+        wcol = local_est.get_or_default("weightCol") or None
+        cols = [fcol] + ([wcol] if wcol else [])
+        df = dataset.select(*cols).persist()
+        try:
+            with timer.phase("init"):
+                count, s1, s2, _lo, _hi = _collect_moments(df, fcol,
+                                                           wcol=wcol)
+                d = s1.shape[0]
+                sample, n_rows = _collect_feature_sample(
+                    df, fcol, seed=int(local_est.getSeed()))
+                # guard on the ROW count (n_rows), not the weighted mass
+                # `count` — tiny weights must not mask usable rows
+                if n_rows < k:
+                    raise ValueError(
+                        f"k={k} components need at least k rows")
+                rng = np.random.default_rng(int(local_est.getSeed()))
+                init = init_from_moments(count, s1, s2, sample, k, rng)
+
+            def stepper(means, prec, log_det, log_w):
+                def job(batches, _m=np.array(means), _p=np.array(prec),
+                        _ld=np.array(log_det), _lw=np.array(log_w)):
+                    return partition_gmm_stats(
+                        batches, fcol, _m, _p, _ld, _lw, weight_col=wcol)
+
+                rows = _collect_rows(df, job, gmm_stats_arrow_schema,
+                                     gmm_stats_spark_ddl())
+                return combine_gmm_stats(rows, k, d)
+
+            # the ONE EM driver loop (M-step, mean-loglik tol) lives in
+            # models/gaussian_mixture.py
+            local = local_est._fit_from_stepper(stepper, init, timer)
+        finally:
+            df.unpersist()
+        return self._model_cls(local)
+
+
+def _fit_bisecting_plane(local_est, dataset):
+    """BisectingKMeans as executor statistics jobs: membership is a pure
+    function of the broadcast split hierarchy
+    (``aggregate.route_rows_bisecting``), so each bisection runs as a
+    bounded seeding-sample job + maxIter Lloyd partial jobs + one
+    moments job over the grown tree — rows never reach the driver.
+    Split selection (highest-SSE divisible leaf), the no-spread guard,
+    and minDivisibleClusterSize mirror ``models/bisecting_kmeans.py``;
+    the one documented deviation is sample-based k-means++ seeding per
+    split (the KMeans plane's ``df.limit`` posture) instead of the
+    local fit's full-data seeding."""
+    from spark_rapids_ml_tpu_torch.models.bisecting_kmeans import (
+        BisectingKMeansModel,
+    )
+    from spark_rapids_ml_tpu_torch.models.kmeans import _host_kmeans_pp
+    from spark_rapids_ml_tpu_torch.spark.aggregate import (
+        bisecting_sample_arrow_schema,
+        bisecting_sample_spark_ddl,
+        bisecting_stats_arrow_schema,
+        bisecting_stats_spark_ddl,
+        combine_bisecting_stats,
+        partition_bisecting_lloyd,
+        partition_bisecting_moments,
+        partition_bisecting_sample,
+    )
+
+    timer = PhaseTimer()
+    fcol = local_est.getInputCol()
+    wcol = local_est.get_or_default("weightCol") or None
+    k = int(local_est.getK())
+    max_iter = int(local_est.getMaxIter())
+    seed = int(local_est.getSeed())
+    min_div = float(local_est.get_or_default("minDivisibleClusterSize"))
+    cols = [fcol] + ([wcol] if wcol else [])
+    df = dataset.select(*cols).persist()
+
+    def stats_rows(job):
+        return _collect_rows(df, job, bisecting_stats_arrow_schema,
+                             bisecting_stats_spark_ddl())
+
+    nodes = []          # internal routing nodes
+    # leaves: leaf_id -> dict(center, sse, raw, divisible)
+    try:
+        def moments(n_leaves):
+            def job(batches, _nodes=list(nodes), _L=n_leaves):
+                return partition_bisecting_moments(
+                    batches, fcol, _nodes, _L, weight_col=wcol)
+
+            rows = stats_rows(job)
+            if not rows:
+                raise ValueError("empty dataset")
+            first = rows[0]
+            get = (first.get if isinstance(first, dict)
+                   else first.__getitem__)
+            d_local = len(get("sums")) // n_leaves
+            sums, counts, extra, _cost, _seen = combine_bisecting_stats(
+                rows, n_leaves, d_local, extra_per_group=3)
+            raws = extra[:n_leaves]
+            sqs = extra[n_leaves:2 * n_leaves]
+            mins = extra[2 * n_leaves:2 * n_leaves + n_leaves * d_local]\
+                .reshape(n_leaves, d_local)
+            maxs = extra[2 * n_leaves + n_leaves * d_local:]\
+                .reshape(n_leaves, d_local)
+            out = {}
+            for lf in range(n_leaves):
+                if counts[lf] <= 0:
+                    continue
+                center = sums[lf] / counts[lf]
+                # weighted SSE about the mean via the moments identity
+                sse = float(max(
+                    sqs[lf] - (sums[lf] @ sums[lf]) / counts[lf], 0.0))
+                spread = bool((maxs[lf] - mins[lf] > 0).any())
+                out[lf] = {"center": center, "sse": sse,
+                           "raw": float(raws[lf]), "spread": spread,
+                           "divisible": True}
+            return out, d_local
+
+        with timer.phase("init"):
+            leaves, d = moments(1)
+            n_total = sum(v["raw"] for v in leaves.values())
+            min_size = max(
+                min_div if min_div >= 1.0 else min_div * n_total, 2.0)
+
+        n_splits = 0
+        with timer.phase("fit_kernel"):
+            while len(leaves) < k:
+                order = sorted(leaves, key=lambda lf: leaves[lf]["sse"],
+                               reverse=True)
+                target = next(
+                    (lf for lf in order
+                     if leaves[lf]["divisible"]
+                     and leaves[lf]["raw"] >= min_size
+                     and leaves[lf]["spread"]),
+                    None)
+                if target is None:
+                    break
+                # bounded seeding sample of the target leaf
+                def sample_job(batches, _nodes=list(nodes), _t=target):
+                    return partition_bisecting_sample(
+                        batches, fcol, _nodes, _t, 4096)
+
+                srows = _collect_rows(df, sample_job,
+                                      bisecting_sample_arrow_schema,
+                                      bisecting_sample_spark_ddl())
+                pieces = []
+                for row in srows:
+                    get = (row.get if isinstance(row, dict)
+                           else row.__getitem__)
+                    pieces.append(np.asarray(
+                        get("rows"), dtype=np.float64).reshape(-1, d))
+                sample = (np.concatenate(pieces) if pieces
+                          else np.zeros((0, d)))
+                if sample.shape[0] < 2:
+                    leaves[target]["divisible"] = False
+                    continue
+                rng = np.random.default_rng(seed + n_splits)
+                c2 = _host_kmeans_pp(sample, 2, rng)
+
+                def lloyd_stats(centers):
+                    def lloyd_job(batches, _nodes=list(nodes),
+                                  _t=target, _c=np.array(centers)):
+                        return partition_bisecting_lloyd(
+                            batches, fcol, _nodes, _t, _c,
+                            weight_col=wcol)
+
+                    return combine_bisecting_stats(
+                        stats_rows(lloyd_job), 2, d, extra_per_group=1)
+
+                for _ in range(max_iter):
+                    sums, counts, _extra, _cost, _n = lloyd_stats(c2)
+                    new_c = np.where(counts[:, None] > 0,
+                                     sums / np.maximum(
+                                         counts[:, None], 1e-300),
+                                     c2)
+                    shift = float(((new_c - c2) ** 2).sum())
+                    c2 = new_c
+                    if shift == 0.0:
+                        break
+                # the degenerate-split guard must see the assignment
+                # under the COMMITTED (final) centers — the loop's last
+                # stats describe the pre-update ones, and a final center
+                # move can empty a side (classic k-means emptying); this
+                # job also covers maxIter=0 (seeded centers commit
+                # directly)
+                _sums, _counts, extra, _cost, _n = lloyd_stats(c2)
+                raw_sides = extra[:2]
+                if (raw_sides <= 0).any():
+                    # a degenerate split (all rows one side): keep the
+                    # leaf, mark non-divisible so selection moves on
+                    leaves[target]["divisible"] = False
+                    continue
+                # grow the tree: target leaf becomes an internal node
+                # routing to two fresh leaves
+                left_id = target          # reuse the slot
+                right_id = max(leaves) + 1
+                nodes.append({"cl": c2[0], "cr": c2[1],
+                              "l": -(left_id) - 1,
+                              "r": -(right_id) - 1})
+                # re-point whichever parent routed to `target` (the
+                # slice excludes the node just appended, whose own left
+                # child legitimately reuses the target leaf id)
+                for node in nodes[:-1]:
+                    if node["l"] == -(target) - 1:
+                        node["l"] = len(nodes) - 1
+                    if node["r"] == -(target) - 1:
+                        node["r"] = len(nodes) - 1
+                n_splits += 1
+                # refresh every leaf's stats under the grown tree (one
+                # moments job; also validates the split's membership)
+                leaves_new, _d2 = moments(max(leaves) + 2)
+                for lf, rec in leaves_new.items():
+                    rec["divisible"] = leaves.get(
+                        lf, {"divisible": True})["divisible"] \
+                        if lf != left_id and lf != right_id else True
+                leaves = leaves_new
+    finally:
+        df.unpersist()
+
+    centers = np.stack([leaves[lf]["center"] for lf in sorted(leaves)])
+    model = BisectingKMeansModel(cluster_centers=centers)
+    model.uid = local_est.uid
+    model.copy_values_from(local_est)
+    model.training_cost_ = float(
+        sum(v["sse"] for v in leaves.values()))
+    model.fit_timings_ = timer.as_dict()
+    return model
+
+
+class BisectingKMeans(_adapter3.BisectingKMeans):
+    """DataFrame BisectingKMeans on the executor statistics plane:
+    membership re-derives from the broadcast split hierarchy on
+    executors, each bisection = seeding-sample job + Lloyd partial jobs
+    + one moments refresh — rows never reach the driver (the
+    driver-collect adapter fit this replaces held the whole dataset)."""
+
+    def _fit(self, dataset):
+        return self._model_cls(_fit_bisecting_plane(self._local,
+                                                    dataset))

@@ -644,6 +644,7 @@ PORTED = {
     **{n: "forest_estimator" for n in port_spark._FOREST_PLANE_CLASSES},
     **{n: "adapter" for n in port_spark._ADAPTER_CLASSES},
     **{n: "adapter2" for n in port_spark._ADAPTER2_CLASSES},
+    **{n: "adapter3" for n in port_spark._ADAPTER3_CLASSES},
 }
 
 

@@ -2021,3 +2021,91 @@ def test_umap_sharded_optimizer_on_one_nccl_rank(cuda_device, tmp_path):
             assert got.fit_report_.collectives["all_gather"]["count"] == 5
     finally:
         dist.destroy_process_group()
+
+
+# -- GaussianMixture and BisectingKMeans (slice 25) ---------------------------
+
+def _gmm_rows(rows=20_000, d=12, k=4, seed=0):
+    rng = np.random.default_rng(seed)
+    centers = 4.0 * rng.normal(size=(k, d))
+    return (centers[rng.integers(0, k, size=rows)]
+            + rng.normal(size=(rows, d))).astype(np.float32)
+
+
+def test_gmm_float32_estep_on_the_card_matches_its_plain_version(
+        cuda_device):
+    """One float32 E-step on the card: Σ r·x·xᵀ from the hand kernel, one
+    highest launch per component, within the kernel's bar of the plain
+    Gram on the same √r rows; every other statistic bit-equal to the
+    plain route's (they do not touch the Gram)."""
+    from spark_rapids_ml_tpu_torch.ops import gmm_kernel as gk
+
+    x = _gmm_rows()
+    w = np.ones(x.shape[0])
+    weights, means, covs = gk.init_params(x.astype(np.float64), w, 4, 1)
+    prec, log_det = gk.precision_cholesky(covs)
+    xt = torch.as_tensor(x, device=cuda_device)
+    wt = torch.ones(x.shape[0], device=cuda_device)
+    name = fused_gram.kernel_name("highest")
+    fused_gram.reset_launches()
+    got = gk.gmm_estep_device(xt, wt, means, prec, log_det, np.log(weights))
+    torch.cuda.synchronize()
+    assert fused_gram.launches[name] == 4
+    want = gk.gmm_estep_device(xt, wt, means, prec, log_det,
+                               np.log(weights), plain=True)
+    assert fused_gram.launches[name] == 4
+    bar = fused_gram.PLAIN_RTOL[name]
+    for j in range(4):
+        scale = want.sq_sum[j].abs().max()
+        assert (got.sq_sum[j] - want.sq_sum[j]).abs().max() <= bar * scale
+    for field in ("resp_sum", "mean_sum", "loglik", "w_sum"):
+        assert torch.equal(getattr(got, field), getattr(want, field)), field
+    host = gk.estep_stats_math(np, x.astype(np.float64), w, means, prec,
+                               log_det, np.log(weights))
+    for a, b in zip(gk.stats_to_host(got), host):
+        assert np.abs(a - b).max() <= 1e-5 * np.abs(b).max()
+
+
+def test_gmm_float32_fit_on_the_card_repeats_under_tf32(cuda_device):
+    """A float32 fit twice and once under ``allow_tf32`` and
+    ``set_float32_matmul_precision("high")``: the same bits every time (the
+    products are float64 or the hand kernel's full f32), with k launches
+    per EM pass."""
+    from spark_rapids_ml_tpu_torch import GaussianMixture
+
+    x = _gmm_rows(seed=1)
+
+    def fit():
+        return GaussianMixture(k=4, seed=2, maxIter=6, tol=0.0).fit(x)
+
+    fused_gram.reset_launches()
+    first = fit()
+    assert fused_gram.launches[fused_gram.kernel_name("highest")] == \
+        4 * first.num_iterations_ == 24
+    second = fit()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.set_float32_matmul_precision("high")
+    try:
+        tf32 = fit()
+    finally:
+        torch.set_float32_matmul_precision("highest")
+        torch.backends.cuda.matmul.allow_tf32 = False
+    for other in (second, tf32):
+        for attr in ("means", "weights", "covs"):
+            assert np.array_equal(getattr(first, attr), getattr(other, attr))
+        assert first.log_likelihood_ == other.log_likelihood_
+
+
+def test_bisecting_kmeans_on_the_card_recovers_blobs(cuda_device):
+    from spark_rapids_ml_tpu_torch import BisectingKMeans
+
+    rng = np.random.default_rng(3)
+    centers = 20.0 * rng.normal(size=(8, 6))
+    truth = rng.integers(0, 8, size=40_000)
+    x = centers[truth] + rng.normal(size=(40_000, 6))
+    model = BisectingKMeans(k=8, seed=1).fit(x)
+    labels = np.asarray(model.transform(x).column("prediction"))
+    for b in range(8):
+        assert np.unique(labels[truth == b]).size == 1
+    assert model.computeCost(x) == pytest.approx(model.training_cost_,
+                                                 rel=1e-6)

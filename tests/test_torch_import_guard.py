@@ -797,6 +797,82 @@ def test_moments_plane_and_naive_bayes_run_without_jax_pandas_or_pyarrow(
     assert "spark_rapids_ml_tpu_torch.spark.moments_estimator" in proc.stdout
 
 
+# the modules of the GaussianMixture and BisectingKMeans slice
+CLUSTERING_SLICE = ("ops.gmm_kernel", "models.gaussian_mixture",
+                    "models.bisecting_kmeans", "parallel.distributed_gmm",
+                    "parallel.distributed_bisecting", "spark.adapter3",
+                    "spark.moments_estimator", "io.persistence")
+
+
+def test_clustering_slice_runs_without_jax_pandas_or_pyarrow(tmp_path):
+    """The GaussianMixture and BisectingKMeans fits (device, host,
+    streamed), both sharded fits in a one-rank gloo world, their Spark
+    planes on numpy partitions and a save → ``load_model`` round trip of
+    each model (the JSON payload), in a process where pandas and pyarrow
+    cannot be imported and that never imports jax or the JAX package."""
+    mods = {m for _, m in _port_modules()}
+    assert {f"spark_rapids_ml_tpu_torch.{m}" for m in CLUSTERING_SLICE} \
+        <= mods
+    code = (
+        "import sys\n"
+        "sys.modules['pandas'] = None\n"
+        "sys.modules['pyarrow'] = None\n"
+        "import numpy as np\n"
+        "import torch.distributed as dist\n"
+        "import spark_rapids_ml_tpu_torch.models.gaussian_mixture, "
+        "spark_rapids_ml_tpu_torch.models.bisecting_kmeans, "
+        "spark_rapids_ml_tpu_torch.parallel.distributed_gmm, "
+        "spark_rapids_ml_tpu_torch.parallel.distributed_bisecting, "
+        "spark_rapids_ml_tpu_torch.spark.adapter3\n"
+        "from spark_rapids_ml_tpu_torch import BisectingKMeans, "
+        "GaussianMixture, spark\n"
+        "from spark_rapids_ml_tpu_torch.io.persistence import load_model\n"
+        "from spark_rapids_ml_tpu_torch.parallel import data_mesh, "
+        "distributed_bisecting_kmeans_fit, distributed_gmm_fit\n"
+        "from spark_rapids_ml_tpu_torch.spark.forest_estimator import "
+        "PartitionFrame\n"
+        "rng = np.random.default_rng(0)\n"
+        "x = np.concatenate([rng.normal(size=(80, 3)), "
+        "rng.normal(size=(80, 3)) + 7.0])\n"
+        "gmm = GaussianMixture(k=2, dtype='float64').fit(x)\n"
+        "host = GaussianMixture(k=2).setUseXlaDot(False).fit(x)\n"
+        "streamed = GaussianMixture(k=2).fit(lambda: iter([x[:90], "
+        "x[90:]]))\n"
+        "bkm = BisectingKMeans(k=3).fit(x)\n"
+        "frame = PartitionFrame([[x[:70]], [x[70:]]])\n"
+        "planes = [spark.GaussianMixture(k=2).fit(frame), "
+        "spark.BisectingKMeans(k=3).fit(frame)]\n"
+        "d = sys.argv[1]\n"
+        "dist.init_process_group('gloo', init_method='file://' + d + "
+        "'/store', rank=0, world_size=1)\n"
+        "ranked = distributed_gmm_fit(x, 2, data_mesh(1), "
+        "dtype=np.float64)\n"
+        "split = distributed_bisecting_kmeans_fit(x, 3, data_mesh(1))\n"
+        "dist.destroy_process_group()\n"
+        "gmm.save(d + '/gmm')\n"
+        "bkm.save(d + '/bkm')\n"
+        "loaded = [load_model(d + '/gmm'), load_model(d + '/bkm')]\n"
+        "bad = sorted(k for k in sys.modules if sys.modules[k] is not None "
+        "and k.split('.')[0] in ('jax', 'spark_rapids_ml_tpu', 'pandas', "
+        "'pyarrow'))\n"
+        "ok = (np.allclose(ranked.means, gmm.means, rtol=0, atol=1e-10) and "
+        "np.array_equal(loaded[0].means, gmm.means) and "
+        "np.array_equal(loaded[1].cluster_centers, bkm.cluster_centers) and "
+        "split.centers.shape == (3, 3) and "
+        "np.isfinite(host.means).all() and np.isfinite(streamed.means).all() "
+        "and planes[1]._local.cluster_centers.shape == (3, 3) and "
+        "type(planes[0]).__name__ == 'GaussianMixtureModel')\n"
+        "print(bad, ok)\n"
+        "sys.exit(1 if bad or not ok else 0)\n"
+    )
+    env = dict(os.environ, SPARK_RAPIDS_ML_TORCH_PLATFORM="cpu",
+               OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                          cwd=REPO_DIR, capture_output=True, text=True,
+                          timeout=120, env=env)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_port_sources_import_no_jax():
     found = []
     smoke = os.path.join(REPO_DIR, "chip_smoke.py")

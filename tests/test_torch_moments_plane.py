@@ -464,7 +464,7 @@ def test_routing_sends_the_nine_names_to_their_modules(name):
 
 @pytest.mark.parametrize("name,item", [
     ("Imputer", "7 (their families and front ends)"),
-    ("GaussianMixture", "7 (their families and front ends)"),
+    ("MinHashLSH", "7 (their families and front ends)"),
     ("OneVsRest", "7 (their families and front ends)"),
     ("LDA", "7 (their families and front ends)"),
     ("ALS", "7 (their families and front ends)"),
@@ -475,3 +475,230 @@ def test_names_left_unported_still_raise_with_their_item(name, item):
     with pytest.raises(AttributeError, match=rf"item {item.split()[0]}"):
         getattr(port_spark, name)
     assert port_spark._UNPORTED[name] == item
+
+
+# -- GaussianMixture and BisectingKMeans: partials, planes, routing ------------
+
+def _mixture_state(x, k=2, seed=4):
+    """A GMM state a few EM steps in: (means, prec, log_det, log_w)."""
+    from spark_rapids_ml_tpu_torch.ops import gmm_kernel as pk
+
+    w = np.ones(x.shape[0])
+    weights, means, covs = pk.init_params(x, w, k, seed)
+    for _ in range(2):
+        prec, log_det = pk.precision_cholesky(covs)
+        weights, means, covs = pk.m_step(pk.estep_stats_math(
+            np, x, w, means, prec, log_det, np.log(weights)), 1e-6)
+    prec, log_det = pk.precision_cholesky(covs)
+    return means, prec, log_det, np.log(weights)
+
+
+def _two_blobs(seed=0, n=N, d=D):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, d))
+    x[: n // 2] += 6.0
+    return x, rng.uniform(0.5, 2.0, size=n)
+
+
+@pytest.mark.parametrize("form", ["arrow", "arrow_weighted", "numpy"])
+def test_gmm_partial_equals_jax(form):
+    x, w = _two_blobs()
+    state = _mixture_state(x)
+    if form == "numpy":
+        batches, kw = np.array_split(x, 3), {}
+    else:
+        batches = _arrow_batches(x, w=w)
+        kw = {"weight_col": "w"} if form == "arrow_weighted" else {}
+    got = list(pagg.partition_gmm_stats(batches, "features", *state, **kw))
+    want = list(jagg.partition_gmm_stats(batches, "features", *state, **kw))
+    _assert_rows_equal(got, want)
+    k, d = state[0].shape
+    for a, b in zip(pagg.combine_gmm_stats(got * 2, k, d),
+                    jagg.combine_gmm_stats(want * 2, k, d)):
+        assert np.array_equal(a, b)
+    with pytest.raises(ValueError, match="empty dataset"):
+        pagg.combine_gmm_stats([], k, d)
+
+
+def _hierarchy(x):
+    """Two internal nodes: the root routes by the first column's sign, its
+    right child splits again along the second column."""
+    lo, hi = x[:, 0] < 0, x[:, 0] >= 0
+    c_lo, c_hi = x[lo].mean(axis=0), x[hi].mean(axis=0)
+    up = hi & (x[:, 1] >= np.median(x[hi, 1]))
+    return [{"cl": c_lo, "cr": c_hi, "l": -1, "r": 1},
+            {"cl": x[hi & ~up].mean(axis=0), "cr": x[up].mean(axis=0),
+             "l": -2, "r": -3}]
+
+
+@pytest.mark.parametrize("job", ["route", "moments", "moments_weighted",
+                                 "lloyd", "lloyd_weighted", "sample"])
+def test_bisecting_partials_equal_jax(job):
+    x, _y, _c, w, _o = _design()
+    x = x - x.mean(axis=0)
+    nodes = _hierarchy(x)
+    batches = _arrow_batches(x, w=w)
+    kw = {"weight_col": "w"} if job.endswith("weighted") else {}
+    if job == "route":
+        root = [dict(nodes[0], r=-2)]
+        for nd in ([], root, nodes):
+            assert np.array_equal(pagg.route_rows_bisecting(x, nd),
+                                  jagg.route_rows_bisecting(x, nd))
+        return
+    if job.startswith("moments"):
+        args = ("features", nodes, 3)
+        name, groups, per = "partition_bisecting_moments", 3, 3
+    elif job.startswith("lloyd"):
+        leaf = pagg.route_rows_bisecting(x, nodes)
+        args = ("features", nodes, 2, x[leaf == 2][:2])
+        name, groups, per = "partition_bisecting_lloyd", 2, 1
+    else:
+        args = ("features", nodes, 1, 17)
+        name = "partition_bisecting_sample"
+    got = list(getattr(pagg, name)(batches, *args, **kw))
+    want = list(getattr(jagg, name)(batches, *args, **kw))
+    _assert_rows_equal(got, want)
+    if name != "partition_bisecting_sample":
+        two = [got[0], list(getattr(pagg, name)(batches[:1], *args, **kw))[0]]
+        for a, b in zip(pagg.combine_bisecting_stats(two, groups, D, per),
+                        jagg.combine_bisecting_stats(two, groups, D, per)):
+            assert np.array_equal(a, b)
+
+
+def test_gmm_plane_matches_local_em_fixed_point():
+    """One plane EM step from a frozen state equals the local E-step on
+    every row (tests/test_spark_local_lane.py's fixed-point check)."""
+    from spark_rapids_ml_tpu_torch.ops.gmm_kernel import (
+        estep_stats_math,
+        precision_cholesky,
+    )
+
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(120, 3)) + np.array([2.0, 0.0, -1.0])
+    pdf, _jdf = _frames(x)
+    means = np.array([[1.0, 0.0, 0.0], [3.0, 0.0, -2.0]])
+    weights = np.array([0.4, 0.6])
+    prec, log_det = precision_cholesky(np.tile(np.eye(3), (2, 1, 1)))
+
+    def job(batches):
+        return pagg.partition_gmm_stats(batches, "features", means, prec,
+                                        log_det, np.log(weights))
+
+    rows = fe._collect_rows(pdf.select("features"), job,
+                            pagg.gmm_stats_arrow_schema,
+                            pagg.gmm_stats_spark_ddl())
+    plane = pagg.combine_gmm_stats(rows, 2, 3)
+    local = estep_stats_math(np, x, np.ones(120), means, prec, log_det,
+                             np.log(weights))
+    for a, b in zip(plane, local):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-10)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_gmm_front_end_matches_jax(weighted):
+    x, w = _two_blobs(seed=1)
+    pdf, jdf = _frames(x, w=w)
+    kw = {"k": 2, "seed": 3, "maxIter": 40, "tol": 1e-8}
+    if weighted:
+        kw["weightCol"] = "w"
+    got = port_spark.GaussianMixture(**kw).fit(pdf)
+    want = jax_spark.GaussianMixture(**kw).fit(jdf)
+    assert type(got) is adapter.GaussianMixtureModel
+    for attr in ("means", "weights", "covs"):
+        assert _rel(getattr(got._local, attr),
+                    getattr(want._local, attr)) <= FIT_RTOL, attr
+    assert got._local.num_iterations_ == want._local.num_iterations_
+    assert got._local.log_likelihood_ == pytest.approx(
+        want._local.log_likelihood_, rel=FIT_RTOL)
+    out = got.transform(pdf).collect()
+    ref = want.transform(jdf).collect()
+    p = np.stack([r["probability"].toArray() for r in out])
+    assert _rel(p, np.stack([r["probability"].toArray() for r in ref])) \
+        <= 1e-6   # the port's local model serves float32
+    assert np.array_equal([r["prediction"] for r in out],
+                          [r["prediction"] for r in ref])
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_bisecting_front_end_equals_jax(weighted):
+    x, w = _two_blobs(seed=2)
+    x[::3] -= 9.0
+    pdf, jdf = _frames(x, w=w)
+    kw = {"k": 4, "seed": 5, "maxIter": 10}
+    if weighted:
+        kw["weightCol"] = "w"
+    got = port_spark.BisectingKMeans(**kw).fit(pdf)
+    want = jax_spark.BisectingKMeans(**kw).fit(jdf)
+    assert type(got).__name__ == "BisectingKMeansModel"
+    assert type(got).__module__.endswith(".adapter3")
+    assert np.array_equal(got._local.cluster_centers,
+                          want._local.cluster_centers)
+    assert got._local.training_cost_ == want._local.training_cost_
+    pred = [r["prediction"] for r in got.transform(pdf).collect()]
+    assert pred == [r["prediction"] for r in want.transform(jdf).collect()]
+
+
+def test_bisecting_plane_on_partitions_matches_the_local_fit():
+    """On well-separated blobs the plane (sample-seeded splits) and the
+    local host fit reach the same leaves: centres within 1e-9, the cost
+    within 1e-9 relative."""
+    from spark_rapids_ml_tpu_torch import BisectingKMeans
+
+    rng = np.random.default_rng(6)
+    blobs = np.array([[0.0, 0.0, 0.0], [12.0, 0.0, 0.0], [0.0, 12.0, 0.0],
+                      [0.0, 0.0, 12.0]])
+    x = np.concatenate([c + rng.normal(size=(60, 3)) for c in blobs])
+    x = x[rng.permutation(x.shape[0])]
+    plane = port_spark.BisectingKMeans(k=4, seed=1).fit(
+        _partition_frame(x))._local
+    local = BisectingKMeans(k=4, seed=1).setUseXlaDot(False).fit(x)
+    order = [int(np.argmin(np.linalg.norm(plane.cluster_centers - c,
+                                          axis=1)))
+             for c in local.cluster_centers]
+    assert sorted(order) == [0, 1, 2, 3]
+    np.testing.assert_allclose(plane.cluster_centers[order],
+                               local.cluster_centers, rtol=0, atol=1e-9)
+    assert plane.training_cost_ == pytest.approx(local.training_cost_,
+                                                 rel=1e-9)
+
+
+@pytest.mark.parametrize("name,kw,attrs", [
+    ("GaussianMixture", {"k": 2, "maxIter": 5}, ("means", "covs")),
+    ("BisectingKMeans", {"k": 3}, ("cluster_centers", "training_cost_")),
+])
+def test_clustering_partition_frame_fit_equals_the_local_engine_fit(
+        name, kw, attrs):
+    x, _w = _two_blobs(seed=3)
+    pdf, _jdf = _frames(x)
+    got = getattr(port_spark, name)(**kw).fit(_partition_frame(x))._local
+    want = getattr(port_spark, name)(**kw).fit(pdf)._local
+    for attr in attrs:
+        assert np.array_equal(getattr(got, attr), getattr(want, attr)), attr
+
+
+def test_clustering_planes_never_collect_rows(monkeypatch):
+    def boom(self, dataset):
+        raise AssertionError("driver-collect fired on a plane family")
+
+    monkeypatch.setattr(adapter._AdapterEstimator, "_collect_frame", boom)
+    x, _w = _two_blobs(seed=4)
+    pdf, _jdf = _frames(x)
+    assert port_spark.GaussianMixture(k=2, maxIter=3).fit(pdf) \
+        ._local.means.shape == (2, D)
+    assert port_spark.BisectingKMeans(k=2).fit(pdf) \
+        ._local.cluster_centers.shape == (2, D)
+
+
+@pytest.mark.parametrize("name,module", [
+    ("GaussianMixture", "moments_estimator"),
+    ("BisectingKMeans", "moments_estimator"),
+    ("GaussianMixtureModel", "adapter"),
+    ("BisectingKMeansModel", "adapter3"),
+])
+def test_routing_sends_the_clustering_names_to_their_modules(name, module):
+    cls = getattr(port_spark, name)
+    assert cls.__module__ == f"spark_rapids_ml_tpu_torch.spark.{module}"
+    assert cls.__module__.rsplit(".", 1)[-1] == \
+        getattr(jax_spark, name).__module__.rsplit(".", 1)[-1]
+    assert name in port_spark.__all__
+    assert name not in port_spark._UNPORTED

@@ -81,6 +81,8 @@ def _fitted(family):
         return _knn_family(family, x, port_pkg)
     if family in TREE_FAMILIES:
         return _tree_family(family, x, y, port_pkg)
+    if family in CLUSTER_FAMILIES:
+        return _cluster_family(family, x, port_pkg)
     if family == "pipeline":
         return Pipeline([
             StandardScaler().setWithMean(True).setOutputCol("s"),
@@ -162,9 +164,29 @@ PARAMS_ONLY |= {"knn_est", "dbscan_est"}
 TREE_MODELS = ("rf_cls", "rf_reg", "dt_cls", "dt_reg", "gbt_cls", "gbt_reg")
 TREE_FAMILIES = TREE_MODELS + ("rf_est", "dt_est", "gbt_est")
 PARAMS_ONLY |= {"rf_est", "dt_est", "gbt_est"}
+# GaussianMixture and BisectingKMeans models and estimators
+CLUSTER_FAMILIES = ("gmm", "bkm", "gmm_est", "bkm_est")
+PARAMS_ONLY |= {"gmm_est", "bkm_est"}
 FAMILIES = ("pca", "kmeans", "scaler", "linreg", "svd", "logreg",
             "logreg_mn", "pipeline", "estimator") + STAGE_FAMILIES \
-    + LINEAR_FAMILIES + KNN_FAMILIES + TREE_FAMILIES
+    + LINEAR_FAMILIES + KNN_FAMILIES + TREE_FAMILIES + CLUSTER_FAMILIES
+
+
+def _cluster_family(family, x, pkg):
+    """GaussianMixture and BisectingKMeans, fitted by ``pkg`` (the port or
+    the JAX package) at float64, or their estimators, each with a param
+    set away from its default."""
+    if family == "gmm":
+        return pkg.GaussianMixture(k=2, seed=3, maxIter=8, dtype="float64",
+                                   probabilityCol="p").fit(x)
+    if family == "bkm":
+        return pkg.BisectingKMeans(k=3, seed=1, maxIter=7).setUseXlaDot(
+            False).fit(x)
+    if family == "gmm_est":
+        return pkg.GaussianMixture(k=4, regParam=1e-3)
+    if family == "bkm_est":
+        return pkg.BisectingKMeans(k=5, minDivisibleClusterSize=0.2)
+    raise KeyError(family)
 
 
 def _tree_family(family, x, y, pkg):
@@ -223,7 +245,8 @@ def _state(obj):
                  "original_min", "original_max", "max_abs", "median",
                  "qrange", "selected_features", "num_iterations_",
                  "deviance_", "weight_sum_", "items", "edges_", "init_",
-                 "step_size_", "feature_importances_"):
+                 "step_size_", "feature_importances_", "weights", "means",
+                 "covs", "log_likelihood_", "training_cost_"):
         value = getattr(obj, attr, None)
         if value is not None:
             out.append(np.asarray(value))
@@ -324,7 +347,8 @@ def test_every_writer_is_wrapped():
             "save_svc_model", "save_glm_model", "save_knn_model",
             "save_maxabs_model", "save_robust_model",
             "save_selector_model", "save_forest_model",
-            "save_gbt_model"} <= set(writers)
+            "save_gbt_model", "save_gmm_model",
+            "save_bkm_model"} <= set(writers)
     for name in writers:
         assert hasattr(getattr(persistence, name), "__wrapped_save__"), name
 
@@ -370,13 +394,16 @@ def _jax_fitted(family):
         return _knn_family(family, x, jax_pkg)
     if family in TREE_FAMILIES:
         return _tree_family(family, x, y, jax_pkg)
+    if family in CLUSTER_FAMILIES:
+        return _cluster_family(family, x, jax_pkg)
     return _stage_family(family, x, jax_pkg)
 
 
 @pytest.mark.parametrize("family", ["linreg", "svd", "kmeans", "scaler",
                                     "logreg", "logreg_mn", "pipeline",
                                     *STAGE_FAMILIES, *LINEAR_FAMILIES,
-                                    *KNN_FAMILIES, *TREE_FAMILIES])
+                                    *KNN_FAMILIES, *TREE_FAMILIES,
+                                    *CLUSTER_FAMILIES])
 def test_load_model_maps_jax_written_metadata_to_the_port(tmp_path, family):
     jax_model = _jax_fitted(family)
     path = str(tmp_path / family)
@@ -387,7 +414,7 @@ def test_load_model_maps_jax_written_metadata_to_the_port(tmp_path, family):
     assert type(loaded).__module__.startswith("spark_rapids_ml_tpu_torch.")
     assert type(loaded).__name__ == type(jax_model).__name__
     if family in STAGE_FAMILIES + LINEAR_FAMILIES[2:] + KNN_FAMILIES \
-            + TREE_FAMILIES:
+            + TREE_FAMILIES + CLUSTER_FAMILIES:
         _same(loaded, jax_model)  # the same params, so the same state
 
 
@@ -396,7 +423,7 @@ def test_load_model_refuses_a_class_it_does_not_have(tmp_path):
     meta_path = tmp_path / "m" / "metadata" / "part-00000"
     text = meta_path.read_text().replace(
         "spark_rapids_ml_tpu_torch.models.pca.PCAModel",
-        "spark_rapids_ml_tpu.models.gmm.GaussianMixtureModel")
+        "spark_rapids_ml_tpu.models.als.ALSModel")
     meta_path.write_text(text)
     with pytest.raises(ValueError, match="no counterpart"):
         load_model(str(tmp_path / "m"))
@@ -736,3 +763,30 @@ def test_univariate_selector_metadata_has_no_counterpart(tmp_path):
         load_model(path)
     with pytest.raises(ValueError, match="no counterpart"):
         persistence.load_selector_model(path)
+
+
+# -- GaussianMixture and BisectingKMeans against the JAX writers and loaders --
+
+@pytest.mark.parametrize("family", ["gmm", "bkm"])
+def test_clustering_models_load_in_either_package(tmp_path, family):
+    """A model saved by either package loads in the other's class with the
+    same state, and both transforms agree on it."""
+    import spark_rapids_ml_tpu as jax_pkg
+
+    x, _y = _xy(seed=2)
+    port, jax_model = _fitted(family), _jax_fitted(family)
+    port.save(str(tmp_path / "port"))
+    jax_model.save(str(tmp_path / "jax"))
+    name = type(port).__name__
+    into_jax = getattr(jax_pkg, name).load(str(tmp_path / "port"))
+    into_port = getattr(port_pkg, name).load(str(tmp_path / "jax"))
+    assert type(into_jax).__module__.startswith("spark_rapids_ml_tpu.models")
+    assert type(into_port) is type(port)
+    _same(into_jax, port)
+    _same(into_port, jax_model)
+    col = "p" if family == "gmm" else "prediction"
+    got = np.asarray(list(into_port.transform(x).column(col)))
+    want = np.asarray(list(into_jax.transform(x).column(col)))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
+    assert _comparable_metadata(str(tmp_path / "port"))["paramMap"] == \
+        _comparable_metadata(str(tmp_path / "jax"))["paramMap"]

@@ -721,14 +721,17 @@ def test_unported_front_ends_name_their_roadmap_item():
     import spark_rapids_ml_tpu_torch.spark as spark
 
     for name, item in (("Imputer", "item 7"), ("ALS", "item 7"),
-                       ("GaussianMixture", "item 7"), ("Word2Vec", "item 7"),
+                       ("LDA", "item 7"), ("Word2Vec", "item 7"),
                        ("Tokenizer", "item 7"),
                        ("RegressionEvaluator", "item 7")):
         with pytest.raises(AttributeError, match=item):
             getattr(spark, name)
     # the forest plane (ROADMAP queue 1 item 5b), the moments plane (5c),
-    # NaiveBayes (6) and UMAP (10) route their front ends
+    # NaiveBayes (6), UMAP (10), GaussianMixture and BisectingKMeans (7)
+    # route their front ends
     assert spark.UMAP.__module__.endswith(".adapter")
+    assert spark.GaussianMixture.__module__.endswith(".moments_estimator")
+    assert spark.BisectingKMeansModel.__module__.endswith(".adapter3")
     assert spark.GBTClassifier.__module__.endswith(".forest_estimator")
     assert spark.StandardScaler.__module__.endswith(".moments_estimator")
     assert spark.NaiveBayes is est.NaiveBayes
