@@ -17,12 +17,16 @@ Phases (any failure raises and the script exits non-zero):
    phase 11 sets its own).
 2. Build: every kernel of the path from the checkout's sources, fresh,
    with the registers, shared memory and spills ``ptxas -v`` reports for
-   the prep, FFMA and tensor-core kernels, and each Gram launch's dynamic
-   shared memory. Fails if ptxas reports a spill, if the SASS
-   (``cuobjdump -sass``) of either tensor-core instantiation lacks wgmma
-   (``HGMMA``) or TMA loads (``UTMALDG``), or if the FFMA pipeline's lacks
-   ``UTMALDG`` or ``FFMA`` or holds a tensor-core instruction (``HGMMA``,
-   ``HMMA``).
+   the prep, FFMA, tensor-core, narrow and fold-reduce kernels, and each
+   Gram launch's dynamic shared memory. Fails if ptxas reports a spill, if
+   the SASS (``cuobjdump -sass``) of any tensor-core instantiation (two
+   precisions, whole-depth and split) lacks wgmma (``HGMMA``) or TMA loads
+   (``UTMALDG``), if either FFMA instantiation's lacks ``UTMALDG`` or
+   ``FFMA`` or holds a tensor-core instruction
+   (``HGMMA``, ``HMMA``), or if the narrow kernel's lacks ``FFMA`` or holds
+   a tensor-core instruction; or if the library's fold workspace size
+   differs from ``ops/fused_gram.gram_plan``'s at the split and narrow
+   shapes.
 3. Each kernel against its plain PyTorch version on the card, per
    precision, at the main-path bucket (8192 × 4096), with a masked tail, at
    a ragged shape, at 5 × 129 and on a row view with an odd stride, within
@@ -37,9 +41,15 @@ Phases (any failure raises and the script exits non-zero):
    the same way: bfloat16_3x on the streamed LinearRegression's bucket of
    Z = [X | y] (7936 × 4097, one tile column past 4096), highest on
    65,536 × 4096 with a √weight row multiplier, bfloat16_3x on phase
-   24's PCA-init rows (60,000 × 784: a ragged tile column and fold), and
-   highest on phase 25's GMM √r rows (2,097,152 × 28: one upper tile;
-   60,000 × 784).
+   24's PCA-init rows (60,000 × 784: a ragged tile column and fold),
+   highest on phase 25's GMM √r rows (2,097,152 × 28: the narrow route;
+   60,000 × 784) and on phase 21's multinomial partials (32,768 × 256).
+   Where ``gram_plan`` takes the split or the narrow route, the call must
+   equal the private whole-depth 128-tile launch (``_one_run``) bit for
+   bit (once, untimed), and the two GMM rows must be no slower than
+   ``torch.matmul`` on the same rows. These rows are timed with the card
+   held busy (``torch.cuda._sleep``) while the host enqueues the timed
+   calls, so a call shorter than its host work is timed on the card.
 4. The PCA slice at the north-star width (4096 features, k = 256; rows cut
    from 10,485,760 to fit the run's time), data with a decaying spectrum
    made per chunk from a seed on the card:
@@ -632,13 +642,14 @@ Phases (any failure raises and the script exits non-zero):
     ``parallel/distributed_{gmm,bisecting}.py``, the GMM and bisecting
     planes, ``spark/adapter3.py``). Every float32 EM pass reaches the Gram
     kernel once per component at highest (Σ r·x·xᵀ), asserted per fit as
-    k × passes. (i) GMM at HIGGS's shape (phase 20's 2,097,152 × 28 fit
-    rows, k = 8, 3 passes): the float32 fit against the float64 fit on
-    the card from the same init (means within 1e-4, max |Δ| / max |ref|;
-    argmax agreement ≥ 0.999 on every row), one E-step's Σ r·x·xᵀ against
-    the Gram's plain version within its bar; on the first 262,144 rows
-    the fit twice and under ``set_float32_matmul_precision("high")`` bit
-    for bit. (ii) GMM at MNIST's shape (phase 24's 60,000 × 784 rows,
+    k × passes under the route's kernel: the narrow route at HIGGS's 28
+    wide, the split 128-tile launch at MNIST's 784. (i) GMM at HIGGS's
+    shape (phase 20's 2,097,152 × 28 fit rows, k = 8, 3 passes): the
+    float32 fit against the float64 fit on the card from the same init
+    (means within 1e-4, max |Δ| / max |ref|; argmax agreement ≥ 0.999 on
+    every row), one E-step's Σ r·x·xᵀ against the Gram's plain version
+    within its bar; on the first 262,144 rows the fit twice and under
+    ``set_float32_matmul_precision("high")`` bit for bit. (ii) GMM at MNIST's shape (phase 24's 60,000 × 784 rows,
     k = 10, 2 passes, regParam 1e-4: the rows' noise variance, since at
     1e-6 a component of fewer than 784 rows cancels to an indefinite
     float32 covariance), the same bars but the repeats. (iii)
@@ -719,7 +730,23 @@ SLICE_14_SHAPES = {
                                              "root_weights"),
     "GMM Σ r·x·xᵀ, MNIST rows (phase 25)": ("highest", 60_000, 784,
                                              "root_weights"),
+    # phase 21's multinomial LogisticRegression partials: a 32,768-row
+    # partition at 256 wide (3 upper tiles, 4 folds), √(p(1 − p))-like rows
+    "multinomial partials (phase 21)": ("highest", 32_768, 256,
+                                        "root_weights"),
 }
+# (rows, n, precision) whose fold workspace phase 2 holds to the plan's: the
+# narrow route, the split at two precisions, the whole-depth launch
+WORKSPACE_SHAPES = ((2_097_152, 28, "highest"), (60_000, 784, "highest"),
+                    (60_000, 784, "bfloat16_3x"), (32_768, 256, "highest"),
+                    (65_536, 4096, "highest"))
+# Phase 25's GMM rows, which must be no slower than torch.matmul on the same
+# rows (the split and narrow routes exist for them)
+MATMUL_BARRED = ("GMM Σ r·x·xᵀ, HIGGS rows (phase 25)",
+                 "GMM Σ r·x·xᵀ, MNIST rows (phase 25)")
+# the card's time to spend asleep while the host enqueues a timed loop
+# (about 50 ms at 1.755 GHz)
+BUSY_CYCLES = 90_000_000
 
 # Fit vs plain-version fit: components whose spectral gap is well above
 # f32 rounding (the first 64 of a 1/(1+j) spectrum) and their EVR.
@@ -745,13 +772,17 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
+def time_ms(torch, fn, iters: int, warmup: int = 3, busy: bool = False) -> float:
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls. With
+    ``busy`` the card sleeps while the host enqueues them, so a call
+    shorter than its own host work is timed on the card."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if busy:
+        torch.cuda._sleep(BUSY_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -790,7 +821,8 @@ def check_ptxas(ptxas: str) -> None:
     """Every kernel of the path is in the report, with no spill."""
     entries = ptxas_entries(ptxas)
     for kernel in ("gram_prep_f32_kernel", "gram_ffma_kernel",
-                   "gram_prep_kernel", "gram_tc_kernel"):
+                   "gram_prep_kernel", "gram_tc_kernel",
+                   "gram_narrow_f32_kernel", "gram_fold_reduce_kernel"):
         found = [e for name, e in entries.items() if kernel in name]
         check(bool(found), f"{kernel} not in the ptxas report")
         for regs, stores, loads in found:
@@ -801,13 +833,16 @@ def check_ptxas(ptxas: str) -> None:
 
 def check_sass(cuda_build, path: str) -> None:
     """Fail unless each tensor-core instantiation's SASS holds wgmma
-    (HGMMA) and TMA tile loads (UTMALDG), and the FFMA pipeline's holds TMA
-    tile loads and FFMA and no tensor-core instruction."""
+    (HGMMA) and TMA tile loads (UTMALDG), the FFMA pipeline's holds TMA
+    tile loads and FFMA and no tensor-core instruction, and the narrow
+    kernel's holds FFMA and no tensor-core instruction; the split launch's
+    instantiations of the tensor-core and FFMA kernels are held alike."""
     cuobjdump = os.path.join(os.path.dirname(cuda_build.nvcc_path()),
                              "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", path], capture_output=True,
                           text=True, timeout=120, check=True).stdout
-    found = {"gram_tc_kernel": 0, "gram_ffma_kernel": 0}
+    found = {"gram_tc_kernel": 0, "gram_ffma_kernel": 0,
+             "gram_narrow_f32_kernel": 0}
     for block in sass.split("Function : ")[1:]:
         name = block.split("\n", 1)[0].strip()
         kernel = next((k for k in found if k in name), None)
@@ -820,14 +855,19 @@ def check_sass(cuda_build, path: str) -> None:
         if kernel == "gram_tc_kernel":
             check(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0,
                   f"{name} has no wgmma or no TMA load in its SASS")
+        elif kernel == "gram_narrow_f32_kernel":
+            check(counts["FFMA"] > 0, f"{name} has no FFMA in its SASS")
+            check(counts["HGMMA"] == 0 and counts["HMMA"] == 0,
+                  f"{name} runs on the tensor cores")
         else:
             check(counts["UTMALDG"] > 0 and counts["FFMA"] > 0,
                   f"{name} has no TMA load or no FFMA in its SASS")
             check(counts["HGMMA"] == 0 and counts["HMMA"] == 0,
                   f"{name} runs on the tensor cores")
-    check(found == {"gram_tc_kernel": 2, "gram_ffma_kernel": 1},
-          f"instantiations in the SASS: {found}, expected 2 tensor-core "
-          f"and 1 FFMA")
+    check(found == {"gram_tc_kernel": 4, "gram_ffma_kernel": 2,
+                    "gram_narrow_f32_kernel": 1},
+          f"instantiations in the SASS: {found}, expected 4 tensor-core "
+          f"(2 precisions, whole-depth and split), 2 FFMA and 1 narrow")
 
 
 def mirrored(torch, g):
@@ -995,18 +1035,32 @@ def phase_kernels(torch, fg, device):
             "library_ms": library_ms, "extra_shapes": {},
         }
     for label, (precision, rows, n, rowmul_kind) in SLICE_14_SHAPES.items():
-        name = PRECISIONS[precision][0]
-        results[name]["extra_shapes"][label] = slice_14_shape(
-            torch, fg, device, label, precision, rows, n, rowmul_kind)
+        row = slice_14_shape(torch, fg, device, label, precision, rows, n,
+                             rowmul_kind)
+        name = row["kernel"]
+        if name in results:
+            results[name]["extra_shapes"][label] = row
+        else:
+            # the narrow route's first row is its kernel's own line
+            results[name] = {k: row[k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")}
+            results[name].update({"prep_ms": None, "shape": label,
+                                  "extra_shapes": {}})
     return results
 
 
 def slice_14_shape(torch, fg, device, label, precision, rows, n, rowmul_kind):
     """One of phase 14's new kernel shapes: the prep pass bit for bit and
-    the Gram within its bar against their plain versions, then timed as the
-    bucket is, beside ``torch.matmul`` on the same scaled rows and the
-    bound."""
-    name, operand, passes = PRECISIONS[precision]
+    the Gram within its bar against their plain versions; on the split and
+    narrow routes the Gram bit for bit against the whole-depth 128-tile
+    launch (``_one_run``, once, untimed); then timed as the bucket is, with
+    the card held busy while the host enqueues, beside ``torch.matmul`` on
+    the same scaled rows and the bound."""
+    _, operand, passes = PRECISIONS[precision]
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    plan = fg.gram_plan(rows, n, precision, sms)
+    name = plan.kernel
     gen = torch.Generator(device=device).manual_seed(SEED + 14)
     x = torch.randn(rows, n, generator=gen, device=device)
     mean = torch.zeros(n, device=device)
@@ -1028,19 +1082,36 @@ def slice_14_shape(torch, fg, device, label, precision, rows, n, rowmul_kind):
           f"{name} {label} finite and symmetric")
     check(err <= bar * scale, f"{name} {label} kernel vs plain "
           f"{err / scale:.3e}")
+    same = None
+    if plan.route != "tile128":
+        one = fg.fused_centered_gram(x, mean, rowmul, precision,
+                                     _one_run=True)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(bits(torch, got), bits(torch, one)))
+        log(f"  {name} {label}: {plan.route} route, {plan.runs} runs of "
+            f"{plan.folds} folds, bit-equal to the whole-depth launch {same}")
+        check(same, f"{name} {label}: the {plan.route} route differs from "
+              f"the whole-depth launch")
+        del one
     xs = x * rowmul[:, None]
     ms = time_ms(torch, lambda: fg.fused_centered_gram(
-        x, mean, rowmul, precision), iters=10)
+        x, mean, rowmul, precision), iters=10, busy=True)
     plain_ms = time_ms(torch, lambda: fg.fused_centered_gram_reference(
-        x, mean, rowmul, precision), iters=3)
-    library_ms = time_ms(torch, lambda: torch.matmul(xs.T, xs), iters=10)
+        x, mean, rowmul, precision), iters=3, busy=True)
+    library_ms = time_ms(torch, lambda: torch.matmul(xs.T, xs), iters=10,
+                         busy=True)
     bound_ms, bound_by = bound(rows, n, operand, passes)
     log(f"  {name} {label} {rows}x{n}: kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, torch.matmul yardstick {library_ms:.4f} ms, "
         f"bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.3f} of the "
         f"bound")
-    return {"rows": rows, "n": n, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+    if label in MATMUL_BARRED:
+        check(ms <= library_ms, f"{name} {label}: {ms:.4f} ms, slower than "
+              f"torch.matmul's {library_ms:.4f} ms")
+    return {"rows": rows, "n": n, "kernel": name, "route": plan.route,
+            "runs": plan.runs, "bit_equal_one_run": same,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms}
 
 
@@ -8826,9 +8897,10 @@ def phase_umap(torch, fg, device):
 GMM_HIGGS_K = 8
 GMM_MNIST_K = 10
 GMM_ITER = 3                   # (i)'s EM passes (tol 0: every one runs)
-# (i)'s repeats run on the first 262,144 rows: at 28 wide the Gram is one
-# upper tile, one block walking every row (csrc/fused_gram.cu's grid), so
-# a pass of 8 launches over 2,097,152 rows takes about a second
+# (i)'s repeats run on the first 262,144 rows. On all 2,097,152 (the
+# narrow route takes ~2 ms a pass of 8 Grams) the smoke took 849.1 s on
+# one H100 host and 1092.3 s on a slower one, past the 1,080 s it is held
+# to (PERF.md §2), so the cut stays.
 GMM_REPEAT_ROWS = 262_144
 GMM_MNIST_ITER = 2             # (ii)'s (each pass: 10 host Choleskys of 784²)
 # (ii)'s regParam: the rows' own per-pixel noise variance (0.01²). At the
@@ -8892,8 +8964,10 @@ def phase_clustering(torch, fg, device):
     summary = {"card": smi}
     laps = {}
     t_lap = [time.perf_counter()]
-    name = fg.kernel_name("highest")
-    main_path = {name: 0}
+    # Σ r·x·xᵀ's kernel at each shape: the narrow route at 28 wide, the
+    # split 128-tile launch at 784 (ops/fused_gram.gram_plan)
+    narrow, split = fg.NARROW_KERNEL, fg.kernel_name("highest")
+    main_path = {narrow: 0, split: 0}
 
     def lap(label):
         now = time.perf_counter()
@@ -8901,9 +8975,9 @@ def phase_clustering(torch, fg, device):
         t_lap[0] = now
         log(f"    ({label}) {laps[label]:.1f} s")
 
-    def counted_fit(label, k, fit):
+    def counted_fit(label, k, fit, name):
         """``fit()`` with the launch counts at 0 before and read after:
-        exactly k highest launches per EM pass and nothing else."""
+        exactly k launches of ``name`` per EM pass and nothing else."""
         fg.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -8934,7 +9008,7 @@ def phase_clustering(torch, fg, device):
         torch.cuda.synchronize()
         return out, start.elapsed_time(end)
 
-    def estep_vs_plain(label, x_dev, model):
+    def estep_vs_plain(label, x_dev, model, name):
         """One E-step at ``model``'s state: the kernel's Σ r·x·xᵀ against
         the plain Gram on the same √r rows (outside the main path's
         counts), and both timed."""
@@ -8958,13 +9032,14 @@ def phase_clustering(torch, fg, device):
         return {"sq_sum_rel_err": err, "estep_ms": ms,
                 "estep_plain_ms": plain_ms}
 
-    def gmm_pair(label, x_np, x_dev, k, iters, reg=1e-6):
+    def gmm_pair(label, x_np, x_dev, k, iters, name, reg=1e-6):
         """The float32 fit (counted) and the float64 fit from the same init
         on the card; means and argmax agreement bars."""
         kw = {"k": k, "seed": SEED, "maxIter": iters, "tol": 0.0,
               "regParam": reg}
         m32, s32 = counted_fit(f"{label} float32 fit",
-                               k, lambda: GaussianMixture(**kw).fit(x_np))
+                               k, lambda: GaussianMixture(**kw).fit(x_np),
+                               name)
         # the float64 reference from the same numpy init (the float32
         # fit's own start, drawn again) through the same EM loop
         t0 = time.perf_counter()
@@ -8986,7 +9061,7 @@ def phase_clustering(torch, fg, device):
                "means_rel_err": mean_err, "argmax_agreement": agree,
                "loglik_f32": m32.log_likelihood_,
                "loglik_f64": m64.log_likelihood_}
-        out.update(estep_vs_plain(label, x_dev, m32))
+        out.update(estep_vs_plain(label, x_dev, m32, name))
         log(f"  {label}: float32 vs float64 means {mean_err:.3e} (bar "
             f"{GMM_MEANS_RTOL:g}), argmax agreement {agree:.6f} (bar "
             f"{GMM_AGREE}); mean loglik {m32.log_likelihood_:.6f} / "
@@ -9002,19 +9077,20 @@ def phase_clustering(torch, fg, device):
     hx_dev = torch.as_tensor(hx, device=device)
     lap("i data")
     higgs32, summary["higgs"] = gmm_pair("(i) HIGGS", hx, hx_dev,
-                                         GMM_HIGGS_K, GMM_ITER)
+                                         GMM_HIGGS_K, GMM_ITER, narrow)
     kw = {"k": GMM_HIGGS_K, "seed": SEED, "maxIter": GMM_ITER, "tol": 0.0}
     hr = hx[:GMM_REPEAT_ROWS]
     first, _ = counted_fit("(i) HIGGS float32 fit, first 262,144 rows",
-                           GMM_HIGGS_K, lambda: GaussianMixture(**kw).fit(hr))
+                           GMM_HIGGS_K, lambda: GaussianMixture(**kw).fit(hr),
+                           narrow)
     again, _ = counted_fit("(i) the same fit again", GMM_HIGGS_K,
-                           lambda: GaussianMixture(**kw).fit(hr))
+                           lambda: GaussianMixture(**kw).fit(hr), narrow)
     torch.backends.cuda.matmul.allow_tf32 = True
     torch.set_float32_matmul_precision("high")
     try:
         tf32, _ = counted_fit("(i) the same fit under \"high\"",
                               GMM_HIGGS_K,
-                              lambda: GaussianMixture(**kw).fit(hr))
+                              lambda: GaussianMixture(**kw).fit(hr), narrow)
     finally:
         torch.set_float32_matmul_precision("highest")
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -9032,7 +9108,7 @@ def phase_clustering(torch, fg, device):
     mx_dev, _my = mnist_shaped(torch, device, UMAP_TRAIN_ROWS, SEED + 2400)
     mx = mx_dev.cpu().numpy()
     _m, summary["mnist"] = gmm_pair("(ii) MNIST", mx, mx_dev, GMM_MNIST_K,
-                                    GMM_MNIST_ITER, GMM_MNIST_REG)
+                                    GMM_MNIST_ITER, split, GMM_MNIST_REG)
     del _m, mx_dev
     lap("ii fits")
 
@@ -9082,7 +9158,7 @@ def phase_clustering(torch, fg, device):
             "(iv) distributed_gmm_fit, one NCCL rank", GMM_HIGGS_K,
             lambda: distributed_gmm_fit(hx, GMM_HIGGS_K, data_mesh(1),
                                         max_iter=GMM_ITER, tol=0.0,
-                                        seed=SEED))
+                                        seed=SEED), narrow)
         gmm_collectives = ranked_gmm.fit_report_.collectives
     finally:
         dist.destroy_process_group()
@@ -9244,6 +9320,15 @@ def main() -> int:
         log(f"  {fg.kernel_name(precision)} Gram launch: "
             f"{fg.dynamic_smem_bytes(precision)} B dynamic shared memory")
     check_sass(cuda_build, result.path)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for rows, n, precision in WORKSPACE_SHAPES:
+        plan = fg.gram_plan(rows, n, precision, sms)
+        floats = fg.fold_workspace_floats(n, plan)
+        log(f"  {rows}x{n} {precision}: {plan.route} route, {plan.runs} "
+            f"runs, fold workspace {floats} floats (plan {plan.fold_floats})")
+        check(floats == plan.fold_floats,
+              f"{rows}x{n} {precision}: the library's fold workspace "
+              f"{floats} floats, the plan's {plan.fold_floats}")
     log(f"  build phase {time.perf_counter() - t0:.2f} s")
 
     log("[3] kernels vs plain versions")
@@ -9347,8 +9432,7 @@ def main() -> int:
 
     kernels = []
     for name, m in measured.items():
-        check(launches.get(name, 0) > 0, f"{name} not launched on the main path")
-        by_phase = {"4": launches[name], "7": distributed.get(name, 0),
+        by_phase = {"4": launches.get(name, 0), "7": distributed.get(name, 0),
                     "13": monitored.get(name, 0),
                     "14": gram_callers.get(name, 0),
                     "15": pipeline_launches.get(name, 0),
@@ -9359,6 +9443,11 @@ def main() -> int:
                     "21": plane_launches.get(name, 0), "22": 0,
                     "23": 0, "24": umap_launches.get(name, 0),
                     "25": clustering_launches.get(name, 0)}
+        # each kernel's own path: the PCA slice's fits, and phase 25's GMM
+        # at HIGGS's shape for the narrow route
+        home = "25" if name == fg.NARROW_KERNEL else "4"
+        check(by_phase[home] > 0,
+              f"{name} not launched on its main path (phase {home})")
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES, "launches": sum(by_phase.values()),

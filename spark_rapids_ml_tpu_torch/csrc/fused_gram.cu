@@ -96,8 +96,52 @@
 // plus a constant. An input of at most FOLD_ROWS rows never folds, needs
 // no workspace and gets the unfolded sums bit for bit.
 //
+// Few upper tiles (T(T+1)/2 below the SM count, so n ≤ 1920 on an H100) and
+// more than one fold: one block per upper tile would leave most SMs idle and
+// walk the whole depth alone (one block for 2,097,152 rows at n = 28). Since
+// every G element is one fmaf chain per fold, restarted at 0 every FOLD_ROWS
+// rows counted from row 0, and the folds are summed left to right, a fold's
+// partial sums do not depend on which block computes them. So the caller may
+// split the rows into `runs` runs of whole folds (the second grid dimension):
+//  * Split launch (every precision; the kRuns instantiation of each Gram
+//    kernel, so the whole-depth one compiles as it did without runs: on an
+//    H100 a single kernel for both was 10 % slower at the bf16x3 bucket):
+//    block (tile, run) walks only its run's
+//    folds, from the run's first row, and stores each fold's partial sums in
+//    that (fold, tile)'s slots of the workspace (the same coalesced slot layout
+//    as the whole-depth folds), with no epilogue. Then gram_fold_reduce_kernel
+//    sums, for each element, folds 0..F−1 left to right in f32 (slot = f0,
+//    then slot + f_i, as the whole-depth kernel does in place) and writes it
+//    and its mirror with store_tile's rules. The result is the whole-depth
+//    launch's, bit for bit.
+//  * Narrow launch (highest, n ≤ NW_EDGE): gram_narrow_f32_kernel has no prep
+//    pass and no scratch: one block per run reads its rows of X directly, so X
+//    is read once (the prep pass reads and writes it once more and the Gram
+//    reads the scratch again: 3× the bytes at 28 wide). It copies 64-row
+//    chunks of X into a ring of shared memory with cp.async, three chunks in
+//    flight while one is multiplied (16-byte copies where the prep pass's
+//    `vec` test holds), forms x̃ = (x − mean)·rowmul in place in f32,
+//    subtract then multiply, as the prep pass does, and runs
+//    fmaf(x̃[k][i], x̃[k][j], acc) in k order for i ≤ j only: each compute
+//    thread owns a 4 × 2 block of the upper triangle of the ⌈n/4⌉ × ⌈n/2⌉
+//    block grid (56 threads at n = 28, where a 128 × 128 tile computed 21×
+//    the products), over the 64 rows of every chunk; rows past `rows` are
+//    zeros, as the prep pass writes them, and fmaf(0, 0, s) leaves a sum
+//    unchanged (a sum that starts at +0 is never −0), so the bits are the
+//    128-tile launch's. Its fold partials go to a workspace of its own layout
+//    and the same reduce launch finishes the job. What bounds it: each fold
+//    is 8192 dependent fmaf steps per element, and a fold's few warps (2 at
+//    n = 28) leave the shared-memory latency of each step exposed, so it
+//    runs near the latency of its folds, not near the bytes of X. Of the
+//    shapes scripts/torch_narrow_variants.py times on an H100 (PERF.md), no
+//    other thread block (2 × 4, 2 × 2, 1 × 4, 4 × 4), chunk depth or unroll
+//    was faster at both 28 and 64 wide on 2,097,152 rows.
+//
 // A wait on a pipeline barrier that outlasts 2 s traps (hopper_ptx.cuh), so a
-// broken protocol fails the launch instead of hanging the card.
+// broken protocol fails the launch instead of hanging the card. A run that
+// starts mid-scratch starts its ring at phase 0 like any block, and its
+// producer and consumers walk the same k-blocks, so the trap sees the same
+// protocol.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -144,6 +188,31 @@ static_assert(FF_RING_BYTES >= BN * EPI_LD * 4, "epilogue staging must fit in th
 static_assert(FF_SMEM_BYTES <= 232448, "shared memory of one block");
 static_assert(FF_CONSUMERS == 256 && TC_CONSUMERS * 128 == 256, "fold slots per block");
 
+constexpr int NW_EDGE = 64;   // narrow route: n ≤ this
+constexpr int NW_TR = 4;      // a compute thread's block of the triangle: NW_TR rows
+constexpr int NW_TC = 2;      // × NW_TC columns
+constexpr int NW_ROWS = 64;   // rows of X in a chunk
+constexpr int NW_STAGES = 4;  // chunks in the ring: 3 in flight while one multiplies
+constexpr int NW_UNROLL = 16;  // rows of the k-loop unrolled
+constexpr int NW_SLOTS = NW_TR * NW_TC;  // sums per compute thread
+
+// Compute threads of the narrow kernel at width n: the upper-triangle blocks
+// of the ⌈n/NW_TR⌉ × ⌈n/NW_TC⌉ block grid (row block b holds the column
+// blocks bj ≥ ⌊NW_TR·b / NW_TC⌋, those with NW_TC·bj + NW_TC − 1 ≥ NW_TR·b).
+constexpr int narrow_threads(int n) {
+  int p = 0;
+  for (int b = 0; b < (n + NW_TR - 1) / NW_TR; ++b) p += (n + NW_TC - 1) / NW_TC - NW_TR * b / NW_TC;
+  return p;
+}
+constexpr int NW_THREADS = (narrow_threads(NW_EDGE) + 31) / 32 * 32;  // 288: 272 compute at n = 64
+constexpr int NW_LOADS = (NW_ROWS * NW_EDGE / 4 + NW_THREADS - 1) / NW_THREADS;  // float4s a thread
+static_assert(FOLD_ROWS % NW_ROWS == 0, "a chunk never straddles a fold");
+
+// Slot layouts of the fold workspace, by the kernel that writes it
+constexpr int kLayoutFfma = 0;
+constexpr int kLayoutTc = 1;
+constexpr int kLayoutNarrow = 2;
+
 template <bool kSplit>
 struct TcConfig {
   static constexpr int kPlanes = kSplit ? 2 : 1;                  // hi (+ lo)
@@ -167,11 +236,67 @@ __device__ __forceinline__ void upper_tile(int t, int tiles, int& ti, int& tj) {
   tj = i + t;
 }
 
-// This consumer thread's first fold slot (see the note at the top); its
-// slot e is FOLD_SLOTS·e further on.
+// This consumer thread's first slot in slot set `set` (see the note at the
+// top); its slot e is FOLD_SLOTS·e further on. A whole-depth launch keeps one
+// set per block (blockIdx.x), a split launch one per (fold, upper tile):
+// fold · tiles + tile.
 constexpr int FOLD_SLOTS = 256;  // consumer threads per block, both pipelines
-__device__ __forceinline__ float* fold_slots(float* fold, int consumer) {
-  return fold + static_cast<long long>(blockIdx.x) * 64 * FOLD_SLOTS + consumer;
+__device__ __forceinline__ float* fold_slots(float* fold, long long set, int consumer) {
+  return fold + set * 64 * FOLD_SLOTS + consumer;
+}
+
+// The k-blocks [kb0, kb1) of this block's run: all nk of them in a
+// whole-depth launch (one run), else run blockIdx.y's share of whole folds.
+__device__ __forceinline__ void run_kblocks(int nk, int fold_kb, int& kb0, int& kb1) {
+  const long long folds = (nk + fold_kb - 1) / fold_kb;
+  kb0 = static_cast<int>(blockIdx.y * folds / gridDim.y) * fold_kb;
+  kb1 = min(nk, static_cast<int>((blockIdx.y + 1) * folds / gridDim.y) * fold_kb);
+}
+
+// Where slot e of consumer thread t of a 128 × 128 tile's block keeps its
+// sum: the element (r, c) of the tile, as each pipeline's epilogue stages it.
+template <int kLayout>
+__device__ __forceinline__ void tile_slot_element(int t, int e, int& r, int& c) {
+  if constexpr (kLayout == kLayoutFfma) {
+    const int tx = t % 16, ty = t / 16, u = e / 8, v = e % 8;
+    r = (u / 4) * 64 + ty * 4 + u % 4;
+    c = (v / 4) * 64 + tx * 4 + v % 4;
+  } else {
+    const int wg = t / 128, tt = t % 128;
+    r = wg * 64 + 16 * (tt / 32) + (tt % 32) / 4 + 8 * ((e / 2) % 2);
+    c = 8 * (e / 4) + 2 * (tt % 4) + e % 2;
+  }
+}
+
+// The narrow route's compute thread p: the NW_TR × NW_TC block (bi, bj) of
+// the upper triangle of the block grid (rows NW_TR·bi.., columns NW_TC·bj..;
+// see narrow_threads), enumerated row by row; false past the last block.
+__device__ __forceinline__ bool narrow_block(int p, int n, int& bi, int& bj) {
+  const int rb = (n + NW_TR - 1) / NW_TR, cb = (n + NW_TC - 1) / NW_TC;
+  for (int b = 0; b < rb; ++b) {
+    const int first = NW_TR * b / NW_TC, count = cb - first;
+    if (p < count) {
+      bi = b;
+      bj = first + p;
+      return true;
+    }
+    p -= count;
+  }
+  return false;
+}
+
+// NW floats of shared memory at p (p aligned to NW floats) into v.
+template <int NW>
+__device__ __forceinline__ void load_floats(const float* p, float (&v)[NW]) {
+  if constexpr (NW == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+  } else if constexpr (NW == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x, v[1] = t.y;
+  } else {
+    v[0] = *p;
+  }
 }
 
 // (x − mean[col]) · rowmul[row], 0 outside [0, rows) × [0, n).
@@ -249,7 +374,9 @@ gram_prep_f32_kernel(const float* __restrict__ x, long long ldx, const float* __
 }
 
 // Full-f32 Gram over the upper tiles of the prep pass's scratch (kp × n4,
-// f32), read through `map`. See the note at the top.
+// f32), read through `map`: over the whole depth, or with kRuns over
+// blockIdx.y's run of whole folds (a split launch). See the note at the top.
+template <bool kRuns>
 __global__ void __launch_bounds__(FF_THREADS, 1)
 gram_ffma_kernel(const __grid_constant__ CUtensorMap map, float* __restrict__ g,
                  float* __restrict__ fold, int n, int kp, int tiles) {
@@ -263,6 +390,8 @@ gram_ffma_kernel(const __grid_constant__ CUtensorMap map, float* __restrict__ g,
   int ti, tj;
   upper_tile(blockIdx.x, tiles, ti, tj);
   const int i0 = ti * BN, j0 = tj * BN, nk = kp / FF_BK;
+  int kb0 = 0, kb1 = nk;
+  if constexpr (kRuns) run_kblocks(nk, FF_FOLD_KB, kb0, kb1);
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < FF_STAGES; ++s) {
@@ -280,7 +409,7 @@ gram_ffma_kernel(const __grid_constant__ CUtensorMap map, float* __restrict__ g,
       hopper::prefetch_tensor_map(&map);
       int s = 0;
       uint32_t phase = 0;
-      for (int kb = 0; kb < nk; ++kb) {
+      for (int kb = kb0; kb < kb1; ++kb) {
         hopper::mbar_wait(empty0 + 8 * s, phase ^ 1);  // first round passes at once
         const uint32_t full = full0 + 8 * s, st = ring + s * FF_STAGE_BYTES;
         const int k = kb * FF_BK;
@@ -311,8 +440,8 @@ gram_ffma_kernel(const __grid_constant__ CUtensorMap map, float* __restrict__ g,
   uint32_t phase = 0;
   // the k-loop in segments of FF_FOLD_KB k-blocks, folding between them, so
   // the hot loop is the unfolded one
-  for (int k0 = 0; k0 < nk; k0 += FF_FOLD_KB) {
-    const int k1 = min(nk, k0 + FF_FOLD_KB);
+  for (int k0 = kb0; k0 < kb1; k0 += FF_FOLD_KB) {
+    const int k1 = min(kb1, k0 + FF_FOLD_KB);
     for (int kb = k0; kb < k1; ++kb) {
       hopper::mbar_wait(full0 + 8 * s, phase);
       const float* a = ring_f + s * (FF_STAGE_BYTES / 4);
@@ -338,8 +467,19 @@ gram_ffma_kernel(const __grid_constant__ CUtensorMap map, float* __restrict__ g,
         phase ^= 1;
       }
     }
-    if (k1 < nk) {
-      float* slots = fold_slots(fold, tid);
+    if constexpr (kRuns) {
+      // this fold's partial sums, into its own slots
+      float* slots = fold_slots(
+          fold, static_cast<long long>(k0 / FF_FOLD_KB) * gridDim.x + blockIdx.x, tid);
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+#pragma unroll
+        for (int v = 0; v < 8; ++v) {
+          slots[(8 * u + v) * FOLD_SLOTS] = acc[u][v];
+          acc[u][v] = 0.0f;
+        }
+    } else if (k1 < nk) {
+      float* slots = fold_slots(fold, blockIdx.x, tid);
 #pragma unroll
       for (int u = 0; u < 8; ++u)
 #pragma unroll
@@ -350,8 +490,9 @@ gram_ffma_kernel(const __grid_constant__ CUtensorMap map, float* __restrict__ g,
         }
     }
   }
+  if constexpr (kRuns) return;  // gram_fold_reduce_kernel sums the folds
   if (nk > FF_FOLD_KB) {
-    const float* slots = fold_slots(fold, tid);
+    const float* slots = fold_slots(fold, blockIdx.x, tid);
 #pragma unroll
     for (int u = 0; u < 8; ++u)
 #pragma unroll
@@ -404,7 +545,7 @@ gram_prep_kernel(const float* __restrict__ x, long long ldx, const float* __rest
 
 // Tensor-core Gram over the upper tiles of x̃ᵀ (n × kp, K-major bf16), read
 // through `map_hi` (and `map_lo` for bfloat16_3x). See the note at the top.
-template <bool kSplit>
+template <bool kSplit, bool kRuns>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 gram_tc_kernel(const __grid_constant__ CUtensorMap map_hi,
                const __grid_constant__ CUtensorMap map_lo, float* __restrict__ g,
@@ -421,6 +562,8 @@ gram_tc_kernel(const __grid_constant__ CUtensorMap map_hi,
   upper_tile(blockIdx.x, tiles, ti, tj);
   const int i0 = ti * BN, j0 = tj * BN, nk = kp / TC_BK;
   const int wg = threadIdx.x / 128;
+  int kb0 = 0, kb1 = nk;
+  if constexpr (kRuns) run_kblocks(nk, TC_FOLD_KB, kb0, kb1);
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < Cfg::kStages; ++s) {
@@ -439,7 +582,7 @@ gram_tc_kernel(const __grid_constant__ CUtensorMap map_hi,
       if constexpr (kSplit) hopper::prefetch_tensor_map(&map_lo);
       int s = 0;
       uint32_t phase = 0;
-      for (int kb = 0; kb < nk; ++kb) {
+      for (int kb = kb0; kb < kb1; ++kb) {
         hopper::mbar_wait(empty0 + 8 * s, phase ^ 1);  // first round passes at once
         const uint32_t full = full0 + 8 * s, st = ring + s * Cfg::kStageBytes;
         const int k = kb * TC_BK;
@@ -471,8 +614,8 @@ gram_tc_kernel(const __grid_constant__ CUtensorMap map_hi,
     uint32_t phase = 0;
     // the k-loop in segments of TC_FOLD_KB k-blocks, folding between them, so
     // the hot loop is the unfolded one
-    for (int k0 = 0; k0 < nk; k0 += TC_FOLD_KB) {
-      const int k1 = min(nk, k0 + TC_FOLD_KB);
+    for (int k0 = kb0; k0 < kb1; k0 += TC_FOLD_KB) {
+      const int k1 = min(kb1, k0 + TC_FOLD_KB);
       for (int kb = k0; kb < k1; ++kb) {
         hopper::mbar_wait(full0 + 8 * s, phase);
         const uint32_t st = ring + s * Cfg::kStageBytes;
@@ -496,19 +639,24 @@ gram_tc_kernel(const __grid_constant__ CUtensorMap map_hi,
         hopper::wgmma_wait<1>();
         hopper::fence_operands(acc);
         if constexpr (kSplit) hopper::fence_operands(cross);
-        if (kb > 0 && threadIdx.x % 128 == 0) hopper::mbar_arrive(empty0 + 8 * prev);
+        if (kb > kb0 && threadIdx.x % 128 == 0) hopper::mbar_arrive(empty0 + 8 * prev);
         prev = s;
         if (++s == Cfg::kStages) {
           s = 0;
           phase ^= 1;
         }
       }
-      if (k1 < nk) {
+      if (kRuns || k1 < nk) {
         // the accumulators are read only once every issued wgmma is done
         hopper::wgmma_wait<0>();
         hopper::fence_operands(acc);
         if constexpr (kSplit) hopper::fence_operands(cross);
-        float* slots = fold_slots(fold, threadIdx.x);
+        // a split launch stores each fold's partial sums in their own slots
+        float* slots = fold_slots(
+            fold,
+            kRuns ? static_cast<long long>(k0 / TC_FOLD_KB) * gridDim.x + blockIdx.x
+                  : static_cast<long long>(blockIdx.x),
+            threadIdx.x);
 #pragma unroll
         for (int i = 0; i < 64; ++i) {
           float v = acc[i];
@@ -517,11 +665,12 @@ gram_tc_kernel(const __grid_constant__ CUtensorMap map_hi,
             cross[i] = 0.0f;
           }
           float* slot = slots + i * FOLD_SLOTS;
-          *slot = k0 == 0 ? v : *slot + v;
+          *slot = kRuns ? v : k0 == 0 ? v : *slot + v;
           acc[i] = 0.0f;
         }
       }
     }
+    if constexpr (kRuns) return;  // gram_fold_reduce_kernel sums the folds
     hopper::wgmma_wait<0>();
     hopper::fence_operands(acc);
     if constexpr (kSplit) {
@@ -530,7 +679,7 @@ gram_tc_kernel(const __grid_constant__ CUtensorMap map_hi,
       for (int i = 0; i < 64; ++i) acc[i] += cross[i];
     }
     if (nk > TC_FOLD_KB) {
-      const float* slots = fold_slots(fold, threadIdx.x);
+      const float* slots = fold_slots(fold, blockIdx.x, threadIdx.x);
 #pragma unroll
       for (int i = 0; i < 64; ++i) acc[i] = slots[i * FOLD_SLOTS] + acc[i];
     }
@@ -553,18 +702,210 @@ gram_tc_kernel(const __grid_constant__ CUtensorMap map_hi,
   }
 }
 
+// The float4s a thread of the narrow kernel copies and centres, the same in
+// every chunk: float4 q is chunk row lr, columns lc..+3 with (lr, lc) =
+// (e / quads, 4·(e % quads)), e = tid + q·NW_THREADS, stepped from q = 0
+// without a division (NW_THREADS = step_r·quads + step_c / 4).
+struct NarrowStage {
+  int lr0, lc0, step_r, step_c, ld;
+  __device__ __forceinline__ void next(int& lr, int& lc) const {
+    lr += step_r;
+    lc += step_c;
+    if (lc >= ld) {
+      lc -= ld;
+      ++lr;
+    }
+  }
+};
+
+// Starts the copies of X's rows [r0, min(r0 + NW_ROWS, r1)) into a ring stage
+// (`stage`: rows `ld` floats apart; `mul`: their rowmul) and commits them as
+// one group (an empty one past r1). Columns past n land as zeros: one 16-byte
+// copy a float4 where X's rows are whole float4s (`vec`), else four 4-byte
+// ones.
+__device__ __forceinline__ void narrow_issue(const float* __restrict__ x, long long ldx,
+                                             const float* __restrict__ rowmul, int n, bool vec,
+                                             int r0, int r1, const NarrowStage& st,
+                                             uint32_t stage, uint32_t mul) {
+  int lr = st.lr0, lc = st.lc0;
+#pragma unroll
+  for (int q = 0; q < NW_LOADS; ++q, st.next(lr, lc)) {
+    const int r = r0 + lr;
+    if (lr >= NW_ROWS || r >= r1) continue;
+    const float* xr = x + static_cast<long long>(r) * ldx + lc;
+    const uint32_t dst = stage + 4u * (lr * st.ld + lc);
+    if (vec) {
+      hopper::cp_async_16(dst, xr, 4u * static_cast<uint32_t>(min(4, n - lc)));
+    } else {
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        hopper::cp_async_4(dst + 4u * v, lc + v < n ? xr + v : x, lc + v < n ? 4u : 0u);
+      }
+    }
+  }
+  if (threadIdx.x < NW_ROWS && r0 + static_cast<int>(threadIdx.x) < r1) {
+    hopper::cp_async_4(mul + 4u * threadIdx.x, rowmul + r0 + threadIdx.x, 4u);
+  }
+  hopper::cp_async_commit();
+}
+
+// Dynamic shared memory of the narrow launch at width n: NW_STAGES stages of
+// NW_ROWS rows of ⌈n/4⌉ float4s, and their rowmuls.
+int narrow_smem_bytes(int n) { return NW_STAGES * NW_ROWS * ((n + 3) / 4 * 4 + 1) * 4; }
+
+// Narrow full-f32 Gram (highest, n ≤ NW_EDGE), straight from X: block b
+// walks run b's whole folds (gridDim.x runs of `folds`) in chunks of NW_ROWS
+// rows, NW_STAGES − 1 chunks of copies in flight ahead of the one it
+// multiplies, and stores each fold's partial sums, slot e of thread p at
+// fold[(f·NW_SLOTS + e)·NW_THREADS + p]. See the note at the top.
+__global__ void __launch_bounds__(NW_THREADS)
+gram_narrow_f32_kernel(const float* __restrict__ x, long long ldx, const float* __restrict__ mean,
+                       const float* __restrict__ rowmul, float* __restrict__ fold, int rows, int n,
+                       int folds, bool vec) {
+  extern __shared__ __align__(16) float nw_ring[];  // stages, then their rowmuls
+  __shared__ float mean_s[NW_EDGE];
+  const int tid = threadIdx.x;
+  const int quads = (n + 3) / 4, ld = 4 * quads, stage_floats = NW_ROWS * ld;
+  const float* mul_s = nw_ring + NW_STAGES * stage_floats;
+  const uint32_t ring = hopper::smem_addr(nw_ring);
+  const uint32_t mul0 = ring + 4u * NW_STAGES * stage_floats;
+  for (int c = tid; c < ld; c += NW_THREADS) mean_s[c] = c < n ? mean[c] : 0.0f;
+  const NarrowStage st{tid / quads, 4 * (tid % quads), NW_THREADS / quads,
+                       4 * (NW_THREADS % quads), ld};
+  int bi = 0, bj = 0;
+  const bool computes = narrow_block(tid, n, bi, bj);
+  const int i = NW_TR * bi, j = NW_TC * bj;
+
+  // this run's rows: whole folds, so its chunks never straddle a fold
+  const int r_begin =
+      static_cast<int>(blockIdx.x * static_cast<long long>(folds) / gridDim.x) * FOLD_ROWS;
+  const int r_end = min(
+      rows,
+      static_cast<int>((blockIdx.x + 1) * static_cast<long long>(folds) / gridDim.x) * FOLD_ROWS);
+  const int chunks = (r_end - r_begin + NW_ROWS - 1) / NW_ROWS;
+  for (int c = 0; c < NW_STAGES - 1; ++c) {
+    narrow_issue(x, ldx, rowmul, n, vec, r_begin + c * NW_ROWS, r_end, st,
+                 ring + 4u * c * stage_floats, mul0 + 4u * c * NW_ROWS);
+  }
+
+  float acc[NW_TR][NW_TC];
+#pragma unroll
+  for (int u = 0; u < NW_TR; ++u)
+#pragma unroll
+    for (int v = 0; v < NW_TC; ++v) acc[u][v] = 0.0f;
+  for (int c = 0; c < chunks; ++c) {
+    hopper::cp_async_wait<NW_STAGES - 2>();  // this thread's copies of chunk c have landed
+    __syncthreads();  // everyone's have, and chunk c − 1's stage is free
+    const int ahead = c + NW_STAGES - 1, s = c % NW_STAGES;
+    narrow_issue(x, ldx, rowmul, n, vec, r_begin + ahead * NW_ROWS, r_end, st,
+                 ring + 4u * (ahead % NW_STAGES) * stage_floats,
+                 mul0 + 4u * (ahead % NW_STAGES) * NW_ROWS);
+    float* xs = nw_ring + s * stage_floats;
+    const float* ms = mul_s + s * NW_ROWS;
+    const int r0 = r_begin + c * NW_ROWS, depth = min(NW_ROWS, r_end - r0);
+    int lr = st.lr0, lc = st.lc0;
+#pragma unroll
+    for (int q = 0; q < NW_LOADS; ++q, st.next(lr, lc)) {
+      if (lr < NW_ROWS) {
+        // x̃ = (x − mean)·rowmul in place, subtract then multiply, as the
+        // prep pass; rows past r_end are zeros, as the prep pass writes them
+        float4* p = reinterpret_cast<float4*>(xs + lr * ld + lc);
+        float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (lr < depth) {
+          v = *p;
+          const float s_r = ms[lr];
+          v.x = lc < n ? (v.x - mean_s[lc]) * s_r : 0.0f;
+          v.y = lc + 1 < n ? (v.y - mean_s[lc + 1]) * s_r : 0.0f;
+          v.z = lc + 2 < n ? (v.z - mean_s[lc + 2]) * s_r : 0.0f;
+          v.w = lc + 3 < n ? (v.w - mean_s[lc + 3]) * s_r : 0.0f;
+        }
+        *p = v;
+      }
+    }
+    __syncthreads();
+    if (computes) {
+      const float* p = xs;
+#pragma unroll NW_UNROLL
+      for (int k = 0; k < NW_ROWS; ++k, p += ld) {
+        float av[NW_TR], bv[NW_TC];
+        load_floats(p + i, av);
+        load_floats(p + j, bv);
+#pragma unroll
+        for (int u = 0; u < NW_TR; ++u)
+#pragma unroll
+          for (int v = 0; v < NW_TC; ++v) acc[u][v] = fmaf(av[u], bv[v], acc[u][v]);
+      }
+      if ((r0 + NW_ROWS) % FOLD_ROWS == 0 || c == chunks - 1) {
+        // the last chunk of fold r0 / FOLD_ROWS: its partial sums
+        float* slots = fold + static_cast<long long>(r0 / FOLD_ROWS) * NW_SLOTS * NW_THREADS + tid;
+#pragma unroll
+        for (int u = 0; u < NW_TR; ++u)
+#pragma unroll
+          for (int v = 0; v < NW_TC; ++v) {
+            slots[(NW_TC * u + v) * NW_THREADS] = acc[u][v];
+            acc[u][v] = 0.0f;
+          }
+      }
+    }
+  }
+  hopper::cp_async_wait<0>();  // the trailing empty groups
+}
+
+// Sums the fold partials of a split or narrow launch and writes G. Block
+// (tile, e) takes slot e of every thread of that upper tile's slot sets;
+// thread t sums its slot over folds 0..folds−1 left to right in f32 (slot = f0,
+// then slot + f_i: the whole-depth kernels' in-place order) and writes the
+// element and its mirror, on a diagonal tile only where row ≤ col (store_tile's
+// rules). kLayout names the kernel whose slots it reads.
+template <int kLayout>
+__global__ void __launch_bounds__(kLayout == kLayoutNarrow ? NW_THREADS : FOLD_SLOTS)
+gram_fold_reduce_kernel(const float* __restrict__ fold, float* __restrict__ g, int n, int tiles,
+                        int folds) {
+  constexpr int kSlots = kLayout == kLayoutNarrow ? NW_SLOTS : 64;
+  constexpr int kThreads = kLayout == kLayoutNarrow ? NW_THREADS : FOLD_SLOTS;
+  const int t = threadIdx.x, e = blockIdx.y;
+  int ti = 0, tj = 0, r, c;
+  if constexpr (kLayout == kLayoutNarrow) {
+    int bi, bj;
+    if (!narrow_block(t, n, bi, bj)) return;
+    r = NW_TR * bi + e / NW_TC;
+    c = NW_TC * bj + e % NW_TC;
+  } else {
+    upper_tile(blockIdx.x, tiles, ti, tj);
+    tile_slot_element<kLayout>(t, e, r, c);
+  }
+  if (ti == tj && r > c) return;
+  const int gi = ti * BN + r, gj = tj * BN + c;
+  if (gi >= n || gj >= n) return;
+  const long long per_fold = static_cast<long long>(gridDim.x) * kSlots * kThreads;
+  const float* s = fold + (static_cast<long long>(blockIdx.x) * kSlots + e) * kThreads + t;
+  float sum = s[0];
+#pragma unroll 8
+  for (int f = 1; f < folds; ++f) sum = sum + s[f * per_fold];
+  g[static_cast<long long>(gi) * n + gj] = sum;
+  g[static_cast<long long>(gj) * n + gi] = sum;
+}
+
 int round4(int n) { return (n + 3) / 4 * 4; }
 
-bool valid_prep_args(int rows, int n, int kp, const void* scratch) {
-  return scratch != nullptr && rows >= 0 && n > 0 && kp > 0 && kp % K_PAD == 0 && kp >= rows &&
+bool valid_shape(int rows, int n, int kp) {
+  return rows >= 0 && n > 0 && kp > 0 && kp % K_PAD == 0 && kp >= rows &&
          (n + PREP_TILE - 1) / PREP_TILE <= 65535;
+}
+
+bool valid_prep_args(int rows, int n, int kp, const void* scratch) {
+  return scratch != nullptr && valid_shape(rows, n, kp);
+}
+
+bool vec4(const float* x, long long ldx) {
+  return reinterpret_cast<uintptr_t>(x) % 16 == 0 && ldx % 4 == 0;
 }
 
 cudaError_t launch_prep(const float* x, long long ldx, const float* mean, const float* rowmul,
                         void* scratch, int rows, int n, int mode, int kp, cudaStream_t s) {
   if (mode == kModeF32) {
     const int n4 = round4(n);
-    const bool vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 && ldx % 4 == 0;
+    const bool vec = vec4(x, ldx);
     const dim3 grid(kp / F32_PREP_ROWS, (n4 + F32_PREP_COLS - 1) / F32_PREP_COLS);
     gram_prep_f32_kernel<<<grid, 256, 0, s>>>(x, ldx, mean, rowmul, static_cast<float*>(scratch),
                                                rows, n, n4, vec);
@@ -597,24 +938,25 @@ bool encode_plane(CUtensorMap* map, const __nv_bfloat16* plane, int n, int kp) {
 
 template <bool kSplit>
 cudaError_t launch_tc(const __nv_bfloat16* hi, float* g, float* fold, int n, int kp, int tiles,
-                      unsigned blocks, cudaStream_t s) {
+                      dim3 grid, cudaStream_t s) {
   CUtensorMap map_hi, map_lo;
   if (!encode_plane(&map_hi, hi, n, kp)) return cudaErrorInvalidValue;
   if (!encode_plane(&map_lo, kSplit ? hi + static_cast<long long>(n) * kp : hi, n, kp)) {
     return cudaErrorInvalidValue;
   }
   constexpr int smem = TcConfig<kSplit>::kSmemBytes;
+  const auto kernel = grid.y > 1 ? gram_tc_kernel<kSplit, true> : gram_tc_kernel<kSplit, false>;
   const cudaError_t err =
-      cudaFuncSetAttribute(gram_tc_kernel<kSplit>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  gram_tc_kernel<kSplit><<<blocks, TC_THREADS, smem, s>>>(map_hi, map_lo, g, fold, n, kp, tiles);
+  kernel<<<grid, TC_THREADS, smem, s>>>(map_hi, map_lo, g, fold, n, kp, tiles);
   return cudaGetLastError();
 }
 
 // The FFMA Gram over the f32 scratch (kp × n4): unswizzled 128 × BK boxes,
 // columns past n4 read as 0.
 cudaError_t launch_ffma(const float* xs, float* g, float* fold, int n, int kp, int tiles,
-                        unsigned blocks, cudaStream_t s) {
+                        dim3 grid, cudaStream_t s) {
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(round4(n)), static_cast<cuuint64_t>(kp)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(round4(n)) * 4};
   const cuuint32_t box[2] = {BN, FF_BK};
@@ -626,12 +968,28 @@ cudaError_t launch_ffma(const float* xs, float* g, float* fold, int n, int kp, i
                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS) {
     return cudaErrorInvalidValue;
   }
-  const cudaError_t err = cudaFuncSetAttribute(
-      gram_ffma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, FF_SMEM_BYTES);
+  const auto kernel = grid.y > 1 ? gram_ffma_kernel<true> : gram_ffma_kernel<false>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, FF_SMEM_BYTES);
   if (err != cudaSuccess) return err;
-  gram_ffma_kernel<<<blocks, FF_THREADS, FF_SMEM_BYTES, s>>>(map, g, fold, n, kp, tiles);
+  kernel<<<grid, FF_THREADS, FF_SMEM_BYTES, s>>>(map, g, fold, n, kp, tiles);
   return cudaGetLastError();
 }
+
+// The reduce launch of a split or narrow Gram: one block per (upper tile,
+// slot).
+template <int kLayout>
+cudaError_t launch_reduce(const float* fold, float* g, int n, int tiles, int folds,
+                          cudaStream_t s) {
+  constexpr bool narrow = kLayout == kLayoutNarrow;
+  const unsigned blocks = static_cast<unsigned>(tiles) * (tiles + 1) / 2;
+  gram_fold_reduce_kernel<kLayout><<<dim3(blocks, narrow ? NW_SLOTS : 64),
+                                     narrow ? NW_THREADS : FOLD_SLOTS, 0, s>>>(fold, g, n, tiles,
+                                                                             folds);
+  return cudaGetLastError();
+}
+
+long long fold_count(int kp) { return (static_cast<long long>(kp) + FOLD_ROWS - 1) / FOLD_ROWS; }
 
 }  // namespace
 
@@ -654,43 +1012,75 @@ extern "C" int tpuml_gram_prep(const void* x, long long ldx, const void* mean, c
       static_cast<cudaStream_t>(stream)));
 }
 
-// The whole Gram: the prep pass into `scratch` (as tpuml_gram_prep), then
-// the FFMA (mode 0) or tensor-core (modes 1, 2) launch that reads it. When
-// kp > FOLD_ROWS, `fold` is the fold workspace, tpuml_gram_fold_floats(n)
-// floats; otherwise it is not read and may be null.
+// The whole Gram, in `runs` runs of whole folds of FOLD_ROWS rows (see the
+// note at the top); the caller chooses the route and the run count.
+//  * narrow = 0, runs = 1: the prep pass into `scratch` (as tpuml_gram_prep),
+//    then the FFMA (mode 0) or tensor-core (modes 1, 2) launch that reads it,
+//    one block per upper tile over the whole depth.
+//  * narrow = 0, runs > 1 (at most the fold count): the same, with the rows
+//    split across blocks, then the reduce launch.
+//  * narrow = 1 (mode 0, n ≤ 64): the narrow launch on X itself, `runs`
+//    blocks, then the reduce launch; `scratch` is not read and may be null.
+// `fold` is the fold workspace, tpuml_gram_fold_floats(n, folds, runs, narrow)
+// floats; a whole-depth launch of at most FOLD_ROWS rows does not read it and
+// it may be null.
 extern "C" int tpuml_fused_centered_gram(const void* x, long long ldx, const void* mean,
                                          const void* rowmul, void* g, int rows, int n, int mode,
-                                         void* scratch, int kp, void* fold, void* stream) {
-  if (ldx < n || mode < kModeF32 || mode > kModeBf16x3 || !valid_prep_args(rows, n, kp, scratch) ||
-      (kp > FOLD_ROWS && fold == nullptr)) {
+                                         void* scratch, int kp, void* fold, int runs, int narrow,
+                                         void* stream) {
+  const long long folds = kp > 0 ? fold_count(kp) : 0;
+  if (ldx < n || mode < kModeF32 || mode > kModeBf16x3 || !valid_shape(rows, n, kp) ||
+      runs < 1 || runs > folds || (!narrow && (scratch == nullptr || runs > 65535)) ||
+      ((kp > FOLD_ROWS || runs > 1 || narrow) && fold == nullptr) ||
+      (narrow && (mode != kModeF32 || n > NW_EDGE || rows < 1))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long tiles = (static_cast<long long>(n) + BN - 1) / BN;
   const long long blocks = tiles * (tiles + 1) / 2;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const float* xf = static_cast<const float*>(x);
   float* ff = static_cast<float*>(fold);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* gf = static_cast<float*>(g);
-  const int t = static_cast<int>(tiles);
-  const unsigned b = static_cast<unsigned>(blocks);
-  cudaError_t err = launch_prep(static_cast<const float*>(x), ldx, static_cast<const float*>(mean),
-                                static_cast<const float*>(rowmul), scratch, rows, n, mode, kp, s);
+  const int t = static_cast<int>(tiles), f = static_cast<int>(folds);
+  cudaError_t err;
+  if (narrow) {
+    const int smem = narrow_smem_bytes(n);
+    err = cudaFuncSetAttribute(gram_narrow_f32_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    gram_narrow_f32_kernel<<<runs, NW_THREADS, smem, s>>>(
+        xf, ldx, static_cast<const float*>(mean), static_cast<const float*>(rowmul), ff, rows, n,
+        f, vec4(xf, ldx));
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(launch_reduce<kLayoutNarrow>(ff, gf, n, 1, f, s));
+  }
+  err = launch_prep(xf, ldx, static_cast<const float*>(mean), static_cast<const float*>(rowmul),
+                    scratch, rows, n, mode, kp, s);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(runs));
   if (mode == kModeF32) {
-    err = launch_ffma(static_cast<const float*>(scratch), gf, ff, n, kp, t, b, s);
+    err = launch_ffma(static_cast<const float*>(scratch), gf, ff, n, kp, t, grid, s);
   } else {
     const __nv_bfloat16* hi = static_cast<const __nv_bfloat16*>(scratch);
-    err = mode == kModeBf16x3 ? launch_tc<true>(hi, gf, ff, n, kp, t, b, s)
-                              : launch_tc<false>(hi, gf, ff, n, kp, t, b, s);
+    err = mode == kModeBf16x3 ? launch_tc<true>(hi, gf, ff, n, kp, t, grid, s)
+                              : launch_tc<false>(hi, gf, ff, n, kp, t, grid, s);
   }
-  return static_cast<int>(err);
+  if (err != cudaSuccess || runs == 1) return static_cast<int>(err);
+  return static_cast<int>(mode == kModeF32 ? launch_reduce<kLayoutFfma>(ff, gf, n, t, f, s)
+                                           : launch_reduce<kLayoutTc>(ff, gf, n, t, f, s));
 }
 
-// Floats of the fold workspace for an n-wide Gram: 64 slots for each of the
-// 256 consumer threads of each upper tile's block.
-extern "C" long long tpuml_gram_fold_floats(int n) {
+// Floats of the fold workspace of an n-wide Gram of `folds` folds in `runs`
+// runs: a whole-depth launch (runs = 1) 64 slots for each of the 256 consumer
+// threads of each upper tile's block, summed in place; a split launch those
+// for each (fold, upper tile); a narrow launch NW_SLOTS slots for each of its
+// NW_THREADS threads for each fold.
+extern "C" long long tpuml_gram_fold_floats(int n, int folds, int runs, int narrow) {
   const long long tiles = (static_cast<long long>(n) + BN - 1) / BN;
-  return tiles * (tiles + 1) / 2 * 64 * FOLD_SLOTS;
+  if (narrow) return static_cast<long long>(folds) * NW_SLOTS * NW_THREADS;
+  return (runs > 1 ? folds : 1) * tiles * (tiles + 1) / 2 * 64 * FOLD_SLOTS;
 }
 
 // Dynamic shared memory of a mode's Gram launch.

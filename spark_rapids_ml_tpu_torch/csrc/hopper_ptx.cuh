@@ -1,6 +1,6 @@
 // Inline-PTX building blocks for Hopper (sm_90a) pipelines: mbarriers, TMA
-// tile loads, wgmma with shared-memory descriptors, register rebalancing and
-// named barriers. Each wraps one or two PTX instructions; the kernels that
+// tile loads, cp.async copies, wgmma with shared-memory descriptors, register
+// rebalancing and named barriers. Each wraps one or two PTX instructions; the kernels that
 // use them own the protocol (who waits, who arrives, which phase).
 
 #pragma once
@@ -83,6 +83,33 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
 
 __device__ __forceinline__ void prefetch_tensor_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// ---- cp.async --------------------------------------------------------------
+
+// Copy the first `src_bytes` (0..16) of the 16 bytes at global `src` into
+// shared memory at `dst`, zero-filling the rest; both 16-byte aligned.
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, uint32_t src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+// Copy 4 bytes (src_bytes 4) or write 4 zero bytes (src_bytes 0).
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src, uint32_t src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
 // ---- wgmma -----------------------------------------------------------------

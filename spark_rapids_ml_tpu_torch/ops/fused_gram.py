@@ -21,15 +21,23 @@ f32 accumulation, 'bfloat16_3x' splits each operand into bf16 hi + lo and
 sums hi·hi + hi·lo + lo·hi in f32 (lo·lo dropped), as the TPU kernel did.
 The plain version rounds to bf16 exactly as the kernel does.
 
-Every precision runs in two launches on the current stream: a prep pass
-that centres X once into scratch this wrapper allocates (``scratch_shape``),
-then a Gram pipeline that reads only that scratch. For 'highest' the
-scratch is x̃ in f32, row-major (``padded_depth`` × n rounded up to 4),
-read by an FFMA pipeline; for the bf16 modes it is x̃ᵀ rounded and split
-into bf16 planes, read by a tensor-core pipeline. The call counts as one
-launch. ``gram_prep`` runs the prep pass alone, and ``gram_prep_reference``
-is its plain version; both serve only the tests and ``chip_smoke.py``,
-which hold the two bit for bit.
+Every precision runs a prep pass that centres X once into scratch this
+wrapper allocates (``scratch_shape``), then a Gram pipeline that reads only
+that scratch, on the current stream. For 'highest' the scratch is x̃ in f32,
+row-major (``padded_depth`` × n rounded up to 4), read by an FFMA pipeline;
+for the bf16 modes it is x̃ᵀ rounded and split into bf16 planes, read by a
+tensor-core pipeline. ``gram_prep`` runs the prep pass alone, and
+``gram_prep_reference`` is its plain version; both serve only the tests and
+``chip_smoke.py``, which hold the two bit for bit.
+
+``gram_plan`` picks the route from the shape and the card's SM count (see
+its docstring): one block per upper 128 × 128 tile over the whole depth
+(route ``tile128``), the rows split across blocks in whole ``FOLD_ROWS``-row
+folds and a reduce launch (``split``), or, for 'highest' at n ≤
+``NARROW_MAX_N``, a kernel that reads X once with no prep pass and no
+scratch, then the reduce launch (``narrow``). Every route gives the same
+bits. Each call counts as one launch: under the precision's name, or
+``NARROW_KERNEL`` for the narrow route.
 
 The JAX package's TPU cost rule (``symmetric_cost_wins``) and its v5e block
 constants were measured on a TPU and are not carried over.
@@ -39,7 +47,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -53,12 +61,15 @@ _MODES = {
     "bfloat16": 1, "default": 1,
     "bfloat16_3x": 2,
 }
-# kernel instantiation name by mode, the keys of ``launches``
+# kernel instantiation name by mode, the keys of ``launches``; last the
+# narrow route's kernel (highest only, see ``gram_plan``)
 KERNEL_NAMES = (
     "fused_centered_gram_f32",
     "fused_centered_gram_bf16",
     "fused_centered_gram_bf16x3",
+    "fused_centered_gram_f32_narrow",
 )
+NARROW_KERNEL = KERNEL_NAMES[3]
 
 # How far the kernel may be from its plain version on the same inputs,
 # max |Δ| / max |G| (the two sum the same f32 products in another order;
@@ -72,6 +83,8 @@ PLAIN_RTOL = {
     "fused_centered_gram_f32": 1.5e-5,
     "fused_centered_gram_bf16": 6e-5,
     "fused_centered_gram_bf16x3": 6.5e-5,
+    # the same function and bits as fused_centered_gram_f32
+    "fused_centered_gram_f32_narrow": 1.5e-5,
 }
 
 # ``gram_prep``'s count: the prep pass launched alone, outside any Gram
@@ -89,6 +102,16 @@ FOLD_ROWS = 8192
 # multiple of this: the tensor-core k-block (64 bf16, one 128-byte swizzle
 # row) and a whole number of the FFMA pipeline's k-blocks.
 K_BLOCK = 64
+
+# The split and narrow routes (``gram_plan``): the narrow kernel's widest
+# input, and its fold workspace per fold (csrc/fused_gram.cu NW_SLOTS sums
+# for each of its NW_THREADS threads); a 128 × 128 tile's fold slots (64
+# sums for each of 256 consumer threads); the waves of blocks a split aims
+# for.
+NARROW_MAX_N = 64
+NARROW_FOLD_FLOATS = 8 * 288
+TILE_FOLD_FLOATS = 64 * 256
+SPLIT_WAVES = 2
 
 # Launches of each instantiation, counted where the kernel is launched and
 # nowhere else (CPU calls take the plain version and do not count).
@@ -130,6 +153,51 @@ def _scratch_shape(rows: int, n: int, mode: int) -> tuple:
     if mode == 0:
         return (padded_depth(rows), -(-n // 4) * 4)
     return (2 if mode == 2 else 1, n, padded_depth(rows))
+
+
+class GramPlan(NamedTuple):
+    """How ``fused_centered_gram`` runs one call on the card."""
+
+    route: str         # "tile128", "split" or "narrow"
+    runs: int          # runs of whole folds the rows are split into
+    folds: int         # FOLD_ROWS-row folds of the padded depth
+    fold_floats: int   # floats of the fold workspace (0: none)
+    cuda_launches: int  # CUDA launches of the call (it counts as one)
+    kernel: str        # the ``launches`` key the call counts under
+
+
+def gram_plan(rows: int, n: int, precision: Optional[str], sms: int, *,
+              one_run: bool = False) -> GramPlan:
+    """The route of an (rows, n) Gram on a card with ``sms`` SMs.
+
+    With T = ⌈n/128⌉ and U = T(T+1)/2 upper tiles, the rows split across
+    blocks only where there is more than one fold and U < sms (n ≤ 1920 on
+    an H100), so that one block per upper tile would leave SMs idle:
+    'highest' at n ≤ NARROW_MAX_N takes the narrow kernel, one run per fold;
+    every other case the split 128-tile launch, in min(folds, ⌈2·sms/U⌉)
+    runs (about two waves of blocks). Otherwise, or with ``one_run``, the
+    whole-depth 128-tile launch. ``fold_floats`` matches
+    ``tpuml_gram_fold_floats``."""
+    mode = _MODES[_resolve(precision)]
+    folds = -(-padded_depth(rows) // FOLD_ROWS)
+    tiles = -(-n // 128)
+    upper = tiles * (tiles + 1) // 2
+    name = KERNEL_NAMES[mode]
+    if one_run or folds == 1 or upper >= sms:
+        return GramPlan("tile128", 1, folds,
+                        upper * TILE_FOLD_FLOATS if folds > 1 else 0, 2,
+                        name)
+    if mode == 0 and n <= NARROW_MAX_N:
+        return GramPlan("narrow", folds, folds, folds * NARROW_FOLD_FLOATS,
+                        2, NARROW_KERNEL)
+    runs = min(folds, -(-SPLIT_WAVES * sms // upper))
+    return GramPlan("split", runs, folds, folds * upper * TILE_FOLD_FLOATS,
+                    3, name)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _scratch_dtype(mode: int) -> torch.dtype:
@@ -221,7 +289,8 @@ def _kernel_fns():
     lib = cuda_build.load("fused_gram")
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     gram = lib.tpuml_fused_centered_gram
-    gram.argtypes = [ptr, i64, ptr, ptr, ptr, i32, i32, i32, ptr, i32, ptr, ptr]
+    gram.argtypes = [ptr, i64, ptr, ptr, ptr, i32, i32, i32, ptr, i32, ptr,
+                     i32, i32, ptr]
     prep = lib.tpuml_gram_prep
     prep.argtypes = [ptr, i64, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
     smem = lib.tpuml_gram_dynamic_smem
@@ -229,9 +298,17 @@ def _kernel_fns():
     for fn in (gram, prep, smem):
         fn.restype = ctypes.c_int
     fold_floats = lib.tpuml_gram_fold_floats
-    fold_floats.argtypes = [i32]
+    fold_floats.argtypes = [i32, i32, i32, i32]
     fold_floats.restype = i64
     return gram, prep, smem, fold_floats
+
+
+def fold_workspace_floats(n: int, plan: GramPlan) -> int:
+    """The library's fold workspace size for ``plan`` (equal to
+    ``plan.fold_floats`` where the plan folds). Builds the library if
+    needed."""
+    return _kernel_fns()[3](n, plan.folds, plan.runs,
+                            int(plan.route == "narrow"))
 
 
 def dynamic_smem_bytes(precision: Optional[str] = None) -> int:
@@ -278,22 +355,27 @@ def gram_prep(x: torch.Tensor, mean: torch.Tensor, rowmul: torch.Tensor,
 
 def fused_centered_gram(x: torch.Tensor, mean: torch.Tensor,
                         rowmul: torch.Tensor,
-                        precision: Optional[str] = None) -> torch.Tensor:
+                        precision: Optional[str] = None, *,
+                        _one_run: bool = False) -> torch.Tensor:
     """``(diag(rowmul)·(x − mean))ᵀ (diag(rowmul)·(x − mean))``, exactly
     symmetric, float32 (n, n).
 
     x is (rows, n) float32 with unit column stride (any row stride), mean
     (n,) and rowmul (rows,) float32 on the same device. A CUDA input
-    launches the kernel on the current stream (the prep pass, then the
-    Gram pipeline, counted as one launch); a CPU input takes the plain
-    version. Anything else the kernel does not take raises ValueError.
+    launches the kernel on the current stream by ``gram_plan``'s route,
+    counted as one launch; a CPU input takes the plain version. Anything
+    else the kernel does not take raises ValueError. ``_one_run`` forces
+    the whole-depth 128-tile launch, so the tests and ``chip_smoke.py`` can
+    hold the other routes against it bit for bit.
 
-    On the card the call also allocates the prep pass's scratch for its
-    duration (``scratch_shape``): for highest kp × n4 × 4 bytes (kp and n4
-    are rows and n rounded up to 64 and 4), 134 MB at the 8192 × 4096
-    bucket; for bfloat16 half that, for bfloat16_3x the same. Above
-    ``FOLD_ROWS`` rows it also allocates the fold workspace, 64 KiB per
-    upper 128 × 128 tile (35 MB at n = 4096).
+    On the card the call also allocates, for its duration, the prep pass's
+    scratch (``scratch_shape``; not on the narrow route): for highest kp ×
+    n4 × 4 bytes (kp and n4 are rows and n rounded up to 64 and 4), 134 MB
+    at the 8192 × 4096 bucket; for bfloat16 half that, for bfloat16_3x the
+    same. Above ``FOLD_ROWS`` rows it also allocates the fold workspace
+    (``GramPlan.fold_floats``): 64 KiB per upper 128 × 128 tile (35 MB at
+    n = 4096), or per (fold, upper tile) on the split route (14 MiB at
+    60,000 × 784), 9 KiB per fold on the narrow route.
     """
     if x.device.type == "cpu":
         return fused_centered_gram_reference(x, mean, rowmul, precision)
@@ -302,20 +384,25 @@ def fused_centered_gram(x: torch.Tensor, mean: torch.Tensor,
     _check_inputs(x, mean, rowmul)
     rows, n = x.shape
     mode = _MODES[_resolve(precision)]
+    plan = gram_plan(rows, n, precision, _sm_count(x.device.index or 0),
+                     one_run=_one_run)
     g = torch.empty((n, n), dtype=torch.float32, device=x.device)
-    scratch = torch.empty(_scratch_shape(rows, n, mode),
-                          dtype=_scratch_dtype(mode), device=x.device)
-    kp = padded_depth(rows)
+    scratch = None
+    if plan.route != "narrow":
+        scratch = torch.empty(_scratch_shape(rows, n, mode),
+                              dtype=_scratch_dtype(mode), device=x.device)
     fold = None
-    if kp > FOLD_ROWS:
-        fold = torch.empty(_kernel_fns()[3](n), dtype=torch.float32,
-                           device=x.device)
+    if plan.fold_floats:
+        fold = torch.empty(fold_workspace_floats(n, plan),
+                           dtype=torch.float32, device=x.device)
     err = _launch(_kernel_fns()[0], x, x.data_ptr(), max(x.stride(0), n),
                   mean.data_ptr(), rowmul.data_ptr(), g.data_ptr(), rows, n,
-                  mode, scratch.data_ptr(), kp,
-                  None if fold is None else fold.data_ptr())
-    _raise_on(err, "fused_centered_gram", x, mode)
-    launches[KERNEL_NAMES[mode]] += 1
+                  mode, None if scratch is None else scratch.data_ptr(),
+                  padded_depth(rows), None if fold is None else fold.data_ptr(),
+                  plan.runs, int(plan.route == "narrow"))
+    _raise_on(err, f"fused_centered_gram ({plan.route}, {plan.runs} runs)",
+              x, mode)
+    launches[plan.kernel] += 1
     return g
 
 

@@ -154,6 +154,80 @@ def test_tall_whole_shard_launch_matches_plain_version(cuda_device, precision,
     assert torch.equal(got, got.T)
 
 
+def _route_inputs(device, rows, n, view, seed):
+    """x + 0.5 with a masked tail of 1e6 garbage (a tenth of the rows) and,
+    with ``view``, as a row view of a parent 3 columns wider from column 1
+    (an odd row stride, unaligned); its masked mean and rowmul."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(rows, n + 3 * view, generator=g, device=device) + 0.5
+    if view:
+        x = x[:, 1:n + 1]
+    masked = rows // 10
+    mask = torch.ones(rows, device=device)
+    mask[rows - masked:] = 0.0
+    x[rows - masked:] = 1e6
+    valid = rows - masked
+    mean = ((x * mask[:, None]).sum(0) / valid).contiguous()
+    return x, mean, (mask / max(valid - 1, 1) ** 0.5).contiguous()
+
+
+def _hold_route_to_one_run(device, rows, n, precision, view=False, seed=0):
+    """The routed call against the private whole-depth 128-tile launch
+    (``_one_run``): bit for bit, counted once under the plan's kernel, a
+    repeat bit-equal, and within the plain version's bar. Returns the
+    plan."""
+    x, mean, rowmul = _route_inputs(device, rows, n, view, seed)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    plan = fused_gram.gram_plan(rows, n, precision, sms)
+    fused_gram.reset_launches()
+    got = fused_centered_gram(x, mean, rowmul, precision)
+    again = fused_centered_gram(x, mean, rowmul, precision)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in fused_gram.launches.items() if v} == {
+        plan.kernel: 2}
+    one = fused_centered_gram(x, mean, rowmul, precision, _one_run=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), one.view(torch.int32))
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    want = fused_centered_gram_reference(x, mean, rowmul, precision)
+    err = (got - want).abs().max().item()
+    assert err <= fused_gram.PLAIN_RTOL[plan.kernel] * want.abs().max().item()
+    return plan
+
+
+@pytest.mark.parametrize("precision", ["highest", "bfloat16", "bfloat16_3x"])
+@pytest.mark.parametrize("rows,n", [(60_000, 784), (262_144, 256)])
+def test_split_launch_is_bit_equal_to_one_run(cuda_device, precision, rows,
+                                              n):
+    """The rows split across blocks in whole folds, then the reduce launch:
+    MNIST's shape (a ragged tile column and last fold) and a rank's whole
+    shard at 256 wide, at every precision."""
+    plan = _hold_route_to_one_run(cuda_device, rows, n, precision)
+    assert plan.route == "split" and plan.runs > 1
+
+
+@pytest.mark.parametrize("view", [False, True])
+@pytest.mark.parametrize("rows", [8192, 8193, 70_000])
+@pytest.mark.parametrize("n", [1, 4, 28, 33, 64])
+def test_narrow_launch_is_bit_equal_to_one_run(cuda_device, n, rows, view):
+    """Highest at n ≤ 64 past one fold reads X once; one fold stays on the
+    whole-depth launch."""
+    plan = _hold_route_to_one_run(cuda_device, rows, n, "highest", view,
+                                  seed=n)
+    assert plan.route == ("tile128" if rows == 8192 else "narrow")
+
+
+def test_fold_workspace_sizes_match_the_plan(cuda_device):
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for rows, n, precision in [(2_097_152, 28, "highest"),
+                               (60_000, 784, "highest"),
+                               (60_000, 784, "bfloat16_3x"),
+                               (65_536, 4096, "highest"),
+                               (32_768, 256, "highest")]:
+        plan = fused_gram.gram_plan(rows, n, precision, sms)
+        assert fused_gram.fold_workspace_floats(n, plan) == plan.fold_floats
+
+
 def test_highest_bar_rejects_tf32_and_the_bf16_split(cuda_device):
     """At the main-path bucket the full-f32 kernel is within its bar, and a
     TF32 product or the bf16 hi/lo split of the same inputs is not."""
@@ -2035,7 +2109,7 @@ def _gmm_rows(rows=20_000, d=12, k=4, seed=0):
 def test_gmm_float32_estep_on_the_card_matches_its_plain_version(
         cuda_device):
     """One float32 E-step on the card: Σ r·x·xᵀ from the hand kernel, one
-    highest launch per component, within the kernel's bar of the plain
+    narrow launch per component, within the kernel's bar of the plain
     Gram on the same √r rows; every other statistic bit-equal to the
     plain route's (they do not touch the Gram)."""
     from spark_rapids_ml_tpu_torch.ops import gmm_kernel as gk
@@ -2046,7 +2120,8 @@ def test_gmm_float32_estep_on_the_card_matches_its_plain_version(
     prec, log_det = gk.precision_cholesky(covs)
     xt = torch.as_tensor(x, device=cuda_device)
     wt = torch.ones(x.shape[0], device=cuda_device)
-    name = fused_gram.kernel_name("highest")
+    # 20,000 × 12 at highest: the narrow route
+    name = fused_gram.NARROW_KERNEL
     fused_gram.reset_launches()
     got = gk.gmm_estep_device(xt, wt, means, prec, log_det, np.log(weights))
     torch.cuda.synchronize()
@@ -2080,7 +2155,8 @@ def test_gmm_float32_fit_on_the_card_repeats_under_tf32(cuda_device):
 
     fused_gram.reset_launches()
     first = fit()
-    assert fused_gram.launches[fused_gram.kernel_name("highest")] == \
+    # 20,000 × 12 at highest: the narrow route
+    assert fused_gram.launches[fused_gram.NARROW_KERNEL] == \
         4 * first.num_iterations_ == 24
     second = fit()
     torch.backends.cuda.matmul.allow_tf32 = True

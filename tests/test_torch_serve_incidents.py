@@ -16,6 +16,8 @@ import gc
 import http.client
 import json
 import os
+import subprocess
+import sys
 import threading
 import time
 
@@ -134,9 +136,53 @@ def _walk(nodes):
         yield from _walk(node["children"])
 
 
+# Healthy requests served before the drill's first sweep. The p99 spike
+# detector compares the newest p99 in its lookback with the oldest, and the
+# p99 is a sketch quantile over every request served so far: drawn from the
+# first sweep's two requests, that anchor is a cold sample, and on a loaded
+# machine the baseline's own tail then climbed past 2× it and +20 ms, so the
+# detector fired during the baseline and the incident opened a sweep early
+# (ten 8-thread matmul processes beside the drill reproduced it). A server
+# in service has a history; with one of 120 requests the anchor carries the
+# load's tail too. 120 + 40 baseline + 4 slow requests keeps the 4 slow ones
+# above the p99 (at most 301 requests do).
+WARMUP_REQUESTS = 120
+
+
+# A CPU-bound child's body: multithreaded matmuls until it is stopped (or
+# for two minutes at most).
+BURN = """
+import time, torch
+torch.set_num_threads(4)
+a = torch.randn(1024, 1024)
+end = time.monotonic() + 120.0
+while time.monotonic() < end:
+    a @ a
+"""
+
+
 def test_latency_fault_opens_one_incident_with_bundle_then_resolves(
         served_incident_pca):
-    engine, port, x = served_incident_pca
+    _latency_drill(*served_incident_pca)
+
+
+def test_latency_drill_holds_beside_a_cpu_bound_process(served_incident_pca):
+    """The same drill, as strict, beside two CPU-bound processes of its own
+    (multithreaded matmuls) for its whole length."""
+    burners = [subprocess.Popen([sys.executable, "-c", BURN],
+                                stdout=subprocess.DEVNULL,
+                                stderr=subprocess.DEVNULL)
+               for _ in range(2)]
+    try:
+        _latency_drill(*served_incident_pca)
+    finally:
+        for p in burners:
+            p.kill()
+        for p in burners:
+            p.wait(30.0)
+
+
+def _latency_drill(engine, port, x):
     # Own the cadence: stop the background thread and drive the SAME
     # process-wide sampler (the incident engine on its post-sweep hook)
     # under an injected clock, in the past so every point lies inside
@@ -152,7 +198,10 @@ def test_latency_fault_opens_one_incident_with_bundle_then_resolves(
         "sparkml_serve_faults_injected_total", "", ("model", "kind"))
     anomaly_cost_before = overhead.value(component="anomaly")
 
-    # -- baseline: healthy traffic, two requests a sweep, 20 sweeps ------
+    # -- warm-up, then the baseline: healthy traffic, two requests a sweep,
+    # 20 sweeps --------------------------------------------------------------
+    for i in range(WARMUP_REQUESTS):
+        _predict(port, x, 200 + i)
     for i in range(20):
         _predict(port, x, 2 * i)
         _predict(port, x, 2 * i + 1)
