@@ -84,6 +84,7 @@ from spark_rapids_ml_tpu_torch.models.feature_scalers import (  # noqa: F401
     RobustScalerModel,
 )
 from spark_rapids_ml_tpu_torch.models.feature_transformers import (  # noqa: F401
+    ChiSqSelector,
     ChiSqSelectorModel,
     ElementwiseProduct,
     VarianceThresholdSelector,
@@ -105,6 +106,29 @@ from spark_rapids_ml_tpu_torch.models.gaussian_mixture import (  # noqa: F401
 from spark_rapids_ml_tpu_torch.models.bisecting_kmeans import (  # noqa: F401
     BisectingKMeans,
     BisectingKMeansModel,
+)
+from spark_rapids_ml_tpu_torch.models.evaluation import (  # noqa: F401
+    BinaryClassificationEvaluator,
+    ClusteringEvaluator,
+    MulticlassClassificationEvaluator,
+    MultilabelClassificationEvaluator,
+    RankingEvaluator,
+    RegressionEvaluator,
+)
+from spark_rapids_ml_tpu_torch.models.tuning import (  # noqa: F401
+    CrossValidator,
+    CrossValidatorModel,
+    ParamGridBuilder,
+    TrainValidationSplit,
+    TrainValidationSplitModel,
+)
+from spark_rapids_ml_tpu_torch.stat import (  # noqa: F401
+    ANOVATest,
+    ChiSquareTest,
+    Correlation,
+    FValueTest,
+    KolmogorovSmirnovTest,
+    Summarizer,
 )
 from spark_rapids_ml_tpu_torch.linalg import RowMatrix  # noqa: F401
 
@@ -152,6 +176,7 @@ __all__ = [
     "Normalizer",
     "RobustScaler",
     "RobustScalerModel",
+    "ChiSqSelector",
     "ChiSqSelectorModel",
     "ElementwiseProduct",
     "VarianceThresholdSelector",
@@ -165,4 +190,21 @@ __all__ = [
     "GaussianMixtureModel",
     "BisectingKMeans",
     "BisectingKMeansModel",
+    "BinaryClassificationEvaluator",
+    "ClusteringEvaluator",
+    "MulticlassClassificationEvaluator",
+    "MultilabelClassificationEvaluator",
+    "RankingEvaluator",
+    "RegressionEvaluator",
+    "CrossValidator",
+    "CrossValidatorModel",
+    "ParamGridBuilder",
+    "TrainValidationSplit",
+    "TrainValidationSplitModel",
+    "ANOVATest",
+    "ChiSquareTest",
+    "Correlation",
+    "FValueTest",
+    "KolmogorovSmirnovTest",
+    "Summarizer",
 ]

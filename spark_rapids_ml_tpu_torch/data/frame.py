@@ -60,6 +60,19 @@ class VectorFrame:
         out._set(name, col)
         return out
 
+    def select_rows(self, indices) -> "VectorFrame":
+        """Row subset by integer indices, across every column (the k-fold /
+        train-validation split primitive — Spark's analogue is the
+        randomSplit/filter over the DataFrame)."""
+        idx = np.asarray(indices, dtype=np.int64)
+        cols = {}
+        for name, col in self._columns.items():
+            if isinstance(col, np.ndarray):
+                cols[name] = col[idx]
+            else:
+                cols[name] = [col[int(i)] for i in idx]
+        return VectorFrame(cols)
+
     def vectors_as_matrix(self, name: str) -> np.ndarray:
         """Densify a vector column to an (m, n) float64 matrix."""
         col = self.column(name)

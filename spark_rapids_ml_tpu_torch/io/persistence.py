@@ -36,9 +36,12 @@ other (``RapidsPCA.scala:218-254``):
   Without pyarrow (optional) the same row is written as
   ``part-00000.json``, which both packages' readers accept.
 
-Estimators persist metadata only, like Spark's ``DefaultParamsWritable``.
-Pipelines (``models/pipeline.py``) write their metadata here and each
-stage under ``stages/``.
+Estimators persist metadata only, like Spark's ``DefaultParamsWritable``,
+and so do the evaluators (``models/evaluation.py``). Pipelines
+(``models/pipeline.py``) write their metadata here and each stage under
+``stages/``; the tuning classes (``models/tuning.py``) write their
+metadata here and the estimator, evaluator and ``bestModel`` each in a
+directory of its own.
 
 ``load_model`` loads any of these by the class its metadata records: the
 simple name of ``pythonClass`` picks the port's class of that name from
@@ -1235,7 +1238,7 @@ _MODEL_CLASSES = {
         ("feature_transformers", ("ElementwiseProduct", "VectorSlicer",
                                   "VarianceThresholdSelector",
                                   "VarianceThresholdSelectorModel",
-                                  "ChiSqSelectorModel")),
+                                  "ChiSqSelector", "ChiSqSelectorModel")),
         ("linear_regression", ("LinearRegression", "LinearRegressionModel")),
         ("logistic_regression", ("LogisticRegression",
                                  "LogisticRegressionModel")),
@@ -1257,6 +1260,13 @@ _MODEL_CLASSES = {
         ("gbt", ("GBTRegressor", "GBTRegressionModel", "GBTClassifier",
                  "GBTClassificationModel")),
         ("pipeline", ("Pipeline", "PipelineModel")),
+        ("evaluation", ("RegressionEvaluator",
+                        "BinaryClassificationEvaluator",
+                        "MulticlassClassificationEvaluator",
+                        "ClusteringEvaluator", "RankingEvaluator",
+                        "MultilabelClassificationEvaluator")),
+        ("tuning", ("CrossValidator", "CrossValidatorModel",
+                    "TrainValidationSplit", "TrainValidationSplitModel")),
     )
     for name in names
 }

@@ -1,6 +1,6 @@
 """Spark ML feature transformers that compose into a served pipeline, on
-PyTorch: ElementwiseProduct, VectorSlicer, VarianceThresholdSelector (with
-its model) and ChiSqSelectorModel.
+PyTorch: ElementwiseProduct, VectorSlicer, VarianceThresholdSelector and
+ChiSqSelector (with their models).
 
 Counterpart of the stage half of the JAX package's
 ``models/feature_transformers.py``, with the same params
@@ -11,13 +11,15 @@ int64 index vector staged on the device once
 (``models._serving.build_host_stat_stage``); on a CUDA tensor the gather
 runs on the card.
 
-Not ported yet (ROADMAP queue 1 item 7): the categorical transformers
+``ChiSqSelector.fit`` ranks features by the port's
+``stat.ChiSquareTest`` (host float64, as the JAX package's); its Spark
+front end comes with ``spark/transformers.py`` (ROADMAP queue 1 item 7d).
+
+Not ported yet (ROADMAP queue 1 item 7d): the categorical transformers
 (StringIndexer, IndexToString, OneHotEncoder, VectorAssembler,
 Bucketizer, QuantileDiscretizer), which have no serving stage and need
-frame features this port's ``data/frame.py`` lacks, PolynomialExpansion,
-and ``ChiSqSelector.fit``, which needs the JAX package's
-``stat.ChiSquareTest``. A ``ChiSqSelectorModel`` the JAX package fitted
-and saved loads and serves here.
+frame features this port's ``data/frame.py`` lacks, and
+PolynomialExpansion.
 """
 
 from __future__ import annotations
@@ -242,3 +244,54 @@ class VarianceThresholdSelector(HasInputCol, HasOutputCol, Params):
 
 class ChiSqSelectorModel(_SelectorModelBase):
     """Keeps the chi-square-selected categorical features."""
+
+
+@_persistable
+class ChiSqSelector(HasInputCol, HasOutputCol, Params):
+    """Spark ``ChiSqSelector``: rank categorical features by the
+    chi-square independence test against the label
+    (``stat.ChiSquareTest``), then keep by numTopFeatures / percentile /
+    fpr. The model carries a ``fit_report_`` (the JAX package's carries
+    none)."""
+
+    labelCol = Param("labelCol", "label column name", "label")
+    outputCol = Param("outputCol", "selected vector column", "selected")
+    selectorType = Param("selectorType",
+                         "numTopFeatures | percentile | fpr",
+                         "numTopFeatures",
+                         validator=lambda v: v in (
+                             "numTopFeatures", "percentile", "fpr"))
+    numTopFeatures = Param("numTopFeatures", "how many features to keep",
+                           50,
+                           validator=lambda v: isinstance(v, int) and v >= 1)
+    percentile = Param("percentile", "fraction of features to keep", 0.1,
+                       validator=lambda v: 0.0 < float(v) <= 1.0)
+    fpr = Param("fpr", "p-value threshold", 0.05,
+                validator=lambda v: 0.0 < float(v) <= 1.0)
+
+    def __init__(self, uid: Optional[str] = None, **params):
+        super().__init__(uid=uid)
+        for name, value in params.items():
+            self.set(name, value)
+
+    @observed_fit("chi_sq_selector")
+    def fit(self, dataset) -> ChiSqSelectorModel:
+        from spark_rapids_ml_tpu_torch.stat import ChiSquareTest
+
+        res = ChiSquareTest.test(dataset, self.getInputCol(),
+                                 self.get_or_default("labelCol"))
+        p = res["pValues"]
+        kind = self.get_or_default("selectorType")
+        order = np.argsort(p, kind="stable")
+        if kind == "numTopFeatures":
+            keep = order[:int(self.get_or_default("numTopFeatures"))]
+        elif kind == "percentile":
+            n_keep = max(1, int(len(p) * float(
+                self.get_or_default("percentile"))))
+            keep = order[:n_keep]
+        else:
+            keep = np.flatnonzero(p < float(self.get_or_default("fpr")))
+        model = ChiSqSelectorModel(selected=keep)
+        model.uid = self.uid
+        model.copy_values_from(self)
+        return model

@@ -16,7 +16,9 @@ plane (``moments_estimator.py``: the four scalers, TruncatedSVD,
 LinearSVC, GLM, GaussianMixture and BisectingKMeans), the per-level tree
 plane (``forest_estimator.py``: DecisionTree, RandomForest and GBT), and
 the generic adapter's models, NearestNeighbors and UMAP (``adapter.py``,
-``adapter2.py``, ``adapter3.py``). Every other
+``adapter2.py``, ``adapter3.py``), the DataFrame ``Pipeline`` and model
+selection (``tuning_front.py``) and the six evaluators, which are the
+local ``models/evaluation.py`` classes. Every other
 front end of the JAX package's Spark plane is not ported yet; its name
 raises ``AttributeError`` naming the ROADMAP item that brings it.
 """
@@ -103,9 +105,31 @@ _ADAPTER3_CLASSES = (
     "BisectingKMeansModel",
 )
 
+# composition + model selection over DataFrames (spark/tuning_front.py)
+_TUNING_CLASSES = (
+    "CrossValidator",
+    "CrossValidatorModel",
+    "ParamGridBuilder",
+    "Pipeline",
+    "PipelineModel",
+    "TrainValidationSplit",
+    "TrainValidationSplitModel",
+)
+
+# the local evaluators accept transformed DataFrames directly
+# (data/frame.py::as_vector_frame duck-types DataFrames), so they ARE
+# the DataFrame evaluators
+_EVALUATOR_CLASSES = (
+    "BinaryClassificationEvaluator",
+    "ClusteringEvaluator",
+    "MulticlassClassificationEvaluator",
+    "MultilabelClassificationEvaluator",
+    "RankingEvaluator",
+    "RegressionEvaluator",
+)
+
 _FAMILIES = "7 (their families and front ends)"
 _REST = "7 (the rest of spark/)"
-_EVAL = "7 (evaluation and tuning)"
 
 # the JAX package's other Spark front ends → the ROADMAP queue 1 item that
 # ports them
@@ -138,8 +162,6 @@ _UNPORTED = {
     "ChiSqSelectorModel": _REST,
     "CountVectorizer": _REST,
     "CountVectorizerModel": _REST,
-    "CrossValidator": _REST,
-    "CrossValidatorModel": _REST,
     "DBSCAN": _REST,
     "DBSCANModel": _REST,
     "DCT": _REST,
@@ -160,9 +182,6 @@ _UNPORTED = {
     "Normalizer": _REST,
     "OneHotEncoder": _REST,
     "OneHotEncoderModel": _REST,
-    "ParamGridBuilder": _REST,
-    "Pipeline": _REST,
-    "PipelineModel": _REST,
     "PolynomialExpansion": _REST,
     "PowerIterationClustering": _REST,
     "PrefixSpan": _REST,
@@ -175,8 +194,6 @@ _UNPORTED = {
     "StringIndexer": _REST,
     "StringIndexerModel": _REST,
     "Tokenizer": _REST,
-    "TrainValidationSplit": _REST,
-    "TrainValidationSplitModel": _REST,
     "UnivariateFeatureSelector": _REST,
     "UnivariateFeatureSelectorModel": _REST,
     "VarianceThresholdSelector": _REST,
@@ -186,13 +203,6 @@ _UNPORTED = {
     "VectorIndexerModel": _REST,
     "VectorSizeHint": _REST,
     "VectorSlicer": _REST,
-    # evaluation and tuning
-    "BinaryClassificationEvaluator": _EVAL,
-    "ClusteringEvaluator": _EVAL,
-    "MulticlassClassificationEvaluator": _EVAL,
-    "MultilabelClassificationEvaluator": _EVAL,
-    "RankingEvaluator": _EVAL,
-    "RegressionEvaluator": _EVAL,
 }
 
 # pyspark's canonical model-class names (classification models are
@@ -218,6 +228,8 @@ __all__ = [
     *_ADAPTER_CLASSES,
     *_ADAPTER2_CLASSES,
     *_ADAPTER3_CLASSES,
+    *_TUNING_CLASSES,
+    *_EVALUATOR_CLASSES,
     *(alias for alias, target in _CANONICAL_ALIASES.items()
       if target not in _UNPORTED),
     "combine_stats",
@@ -255,6 +267,14 @@ def __getattr__(name):
         from spark_rapids_ml_tpu_torch.spark import adapter3
 
         return getattr(adapter3, target)
+    if target in _TUNING_CLASSES:
+        from spark_rapids_ml_tpu_torch.spark import tuning_front
+
+        return getattr(tuning_front, target)
+    if target in _EVALUATOR_CLASSES:
+        from spark_rapids_ml_tpu_torch.models import evaluation
+
+        return getattr(evaluation, target)
     if target in _UNPORTED:
         raise AttributeError(
             f"{name} is not ported to spark_rapids_ml_tpu_torch.spark yet: "

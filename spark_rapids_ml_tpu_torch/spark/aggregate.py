@@ -53,6 +53,9 @@ def vector_column_to_matrix(column, n_features: Optional[int] = None) -> np.ndar
     equivalence contract of ``PCASuite.scala:155-190``.
     """
     if hasattr(column, "to_pylist"):
+        dense = _dense_struct_matrix(column)
+        if dense is not None:
+            return dense
         column = column.to_pylist()
     rows = []
     for entry in column:
@@ -76,6 +79,43 @@ def vector_column_to_matrix(column, n_features: Optional[int] = None) -> np.ndar
     if not rows:
         return np.zeros((0, n_features or 0))
     return rows_to_matrix(rows)
+
+
+def _dense_struct_matrix(column) -> Optional[np.ndarray]:
+    """The (m, n) float64 matrix of an Arrow VectorUDT column whose rows
+    are all dense, non-null and of one size, read from its buffers without
+    a Python float per element; None for any other column, which the row
+    loop of ``vector_column_to_matrix`` then reads (and checks) as before.
+    """
+    import pyarrow as pa
+
+    if isinstance(column, pa.ChunkedArray):
+        column = column.combine_chunks()
+    if (not isinstance(column, pa.StructArray) or len(column) == 0
+            or column.null_count):
+        return None
+    kind = column.type
+    fields = dict(zip((kind.field(i).name for i in range(kind.num_fields)),
+                      column.flatten()))
+    values = fields.get("values")
+    if not isinstance(values, pa.ListArray) or values.null_count:
+        return None
+    tags = fields.get("type")
+    if tags is not None and not (
+            tags.null_count == 0
+            and (tags.to_numpy(zero_copy_only=False) == _DENSE).all()):
+        return None
+    if tags is None and fields.get("indices") is not None and (
+            fields["indices"].null_count != len(column)):
+        return None
+    sizes = np.diff(values.offsets.to_numpy())
+    if sizes[0] == 0 or (sizes != sizes[0]).any():
+        return None
+    flat = values.flatten()
+    if flat.null_count:
+        return None
+    return (flat.to_numpy(zero_copy_only=False).astype(np.float64)
+            .reshape(len(column), int(sizes[0])))
 
 
 def _batch_weights_agg(batch, weight_col: Optional[str]):

@@ -467,8 +467,33 @@ def _run_pickled_task(payload: bytes) -> bytes:
     batch = _record_batch(fields, columns)
     out_rows: List[Dict[str, Any]] = []
     for out in fn(iter([batch])):
-        out_rows.extend(out.to_pylist())
+        out_rows.extend(_batch_pylist(out))
     return cloudpickle.dumps(out_rows)
+
+
+def _batch_pylist(batch) -> List[Dict[str, Any]]:
+    """``batch.to_pylist()``, with each float list column (a partial's
+    flattened Gram or sums) read through numpy: the same Python lists,
+    without pyarrow making each float on its own."""
+    import pyarrow as pa
+
+    columns = []
+    for column in batch.columns:
+        if (pa.types.is_list(column.type)
+                and (pa.types.is_float32(column.type.value_type)
+                     or pa.types.is_float64(column.type.value_type))
+                and column.null_count == 0 and len(column)):
+            flat = column.flatten()
+            if flat.null_count == 0:
+                offsets = column.offsets.to_numpy()
+                columns.append([
+                    part.tolist() for part in np.split(
+                        flat.to_numpy(zero_copy_only=False),
+                        offsets[1:-1] - offsets[0])])
+                continue
+        columns.append(column.to_pylist())
+    names = batch.schema.names
+    return [dict(zip(names, row)) for row in zip(*columns)]
 
 
 def _record_batch(fields: Sequence[str], columns: Sequence[List[Any]]):
@@ -480,11 +505,35 @@ def _record_batch(fields: Sequence[str], columns: Sequence[List[Any]]):
     names = []
     for name, values in zip(fields, columns):
         if values and _is_vector_like(values[0]):
-            arrays.append(pa.array([_vector_to_struct(v) for v in values]))
+            dense = _dense_struct_array(values)
+            arrays.append(dense if dense is not None else
+                          pa.array([_vector_to_struct(v) for v in values]))
         else:
             arrays.append(pa.array(values))
         names.append(name)
     return pa.RecordBatch.from_arrays(arrays, names=names)
+
+
+def _dense_struct_array(values: Sequence[Any]):
+    """The VectorUDT struct array of a column of DenseVectors of one size,
+    built from one stacked matrix: the array ``pa.array`` makes of their
+    ``_vector_to_struct`` dicts, without a Python float per element. None
+    for any other column."""
+    import pyarrow as pa
+
+    if not all(isinstance(v, DenseVector) for v in values):
+        return None
+    size = len(values[0].values)
+    if (size == 0 or len(values) * size >= 2**31
+            or any(len(v.values) != size for v in values)):
+        return None  # a list array's int32 offsets end at 2**31 - 1
+    flat = pa.array(np.stack([v.values for v in values]).reshape(-1))
+    offsets = pa.array(np.arange(len(values) + 1, dtype=np.int32) * size)
+    return pa.StructArray.from_arrays(
+        [pa.array(np.ones(len(values), dtype=np.int64)),
+         pa.nulls(len(values)), pa.nulls(len(values)),
+         pa.ListArray.from_arrays(offsets, flat)],
+        names=["type", "size", "indices", "values"])
 
 
 class LocalDataFrame:
@@ -705,7 +754,7 @@ class _MappedFrame:
                     )
                     batch = _record_batch(fields, columns)
                     for out in self._fn(iter([batch])):
-                        rows.extend(out.to_pylist())
+                        rows.extend(_batch_pylist(out))
             finally:
                 # task identity must not outlive the task: stale values
                 # would spoof _task_identity() for later collective calls

@@ -639,19 +639,26 @@ def test_forest_plane_in_spawned_executors():
 # -- the package's routing ----------------------------------------------------
 
 PORTED = {
-    **{n: "estimator" for n in port_spark._PYSPARK_CLASSES},
-    **{n: "moments_estimator" for n in port_spark._MOMENTS_PLANE_CLASSES},
-    **{n: "forest_estimator" for n in port_spark._FOREST_PLANE_CLASSES},
-    **{n: "adapter" for n in port_spark._ADAPTER_CLASSES},
-    **{n: "adapter2" for n in port_spark._ADAPTER2_CLASSES},
-    **{n: "adapter3" for n in port_spark._ADAPTER3_CLASSES},
+    **{n: "spark.estimator" for n in port_spark._PYSPARK_CLASSES},
+    **{n: "spark.moments_estimator"
+       for n in port_spark._MOMENTS_PLANE_CLASSES},
+    **{n: "spark.forest_estimator"
+       for n in port_spark._FOREST_PLANE_CLASSES},
+    **{n: "spark.adapter" for n in port_spark._ADAPTER_CLASSES},
+    **{n: "spark.adapter2" for n in port_spark._ADAPTER2_CLASSES},
+    **{n: "spark.adapter3" for n in port_spark._ADAPTER3_CLASSES},
+    **{n: "spark.tuning_front" for n in port_spark._TUNING_CLASSES},
+    # tuning_front re-exports the local grid builder; the local evaluators
+    # are the DataFrame evaluators, as in the JAX package
+    "ParamGridBuilder": "models.tuning",
+    **{n: "models.evaluation" for n in port_spark._EVALUATOR_CLASSES},
 }
 
 
 @pytest.mark.parametrize("name", sorted(PORTED))
 def test_ported_front_ends_resolve(name):
     cls = getattr(port_spark, name)
-    assert cls.__module__ == f"spark_rapids_ml_tpu_torch.spark.{PORTED[name]}"
+    assert cls.__module__ == f"spark_rapids_ml_tpu_torch.{PORTED[name]}"
     assert cls.__name__ == name
     assert name in port_spark.__all__
     assert name in jax_spark.__all__

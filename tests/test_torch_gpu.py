@@ -2185,3 +2185,113 @@ def test_bisecting_kmeans_on_the_card_recovers_blobs(cuda_device):
         assert np.unique(labels[truth == b]).size == 1
     assert model.computeCost(x) == pytest.approx(model.training_cost_,
                                                  rel=1e-6)
+
+
+# -- evaluation, tuning and ml.stat (phase 26) ---------------------------------
+
+@pytest.mark.parametrize("shift", [0.0, 1.0])
+def test_correlation_on_the_card_is_one_gram_launch(cuda_device, monkeypatch,
+                                                    shift):
+    """Pearson at float32 is one bfloat16_3x launch of the hand kernel,
+    within 1e-4 of the same call at float64 on the card (cuBLAS) on
+    zero-mean columns; with every column shifted by 1.0 the uncentred
+    G/n − μμᵀ cancels (as the JAX package's does), so only its launch and
+    NaN pattern are held there."""
+    from spark_rapids_ml_tpu_torch import stat
+
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(8192, 512)) * (1.0 + np.arange(512)) ** -0.5 + shift
+    name = fused_gram.kernel_name(None)
+    fused_gram.reset_launches()
+    got = stat.Correlation.corr(x)
+    assert fused_gram.launches[name] == 1
+    assert sum(fused_gram.launches.values()) == 1
+    monkeypatch.setattr(stat, "_DTYPE", torch.float64)
+    want = stat.Correlation.corr(x)
+    assert sum(fused_gram.launches.values()) == 1
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+    assert np.array_equal(np.diag(got), np.ones(512))
+    if shift == 0.0:
+        assert np.abs(got - want).max() <= 1e-4
+
+
+def test_cross_validator_on_the_card_matches_float64(cuda_device):
+    """An in-memory CrossValidator over LinearRegression: one highest Gram
+    launch per fold fit and one for the refit, the same bestIndex as the
+    same search at float64 on the card, avgMetrics within 1e-4."""
+    from spark_rapids_ml_tpu_torch import (
+        CrossValidator,
+        LinearRegression,
+        ParamGridBuilder,
+        RegressionEvaluator,
+    )
+    from spark_rapids_ml_tpu_torch.data.frame import VectorFrame
+
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(4096, 256))
+    y = x @ rng.normal(size=256) + 3.0 + 0.1 * rng.normal(size=4096)
+    frame = VectorFrame({"features": x, "label": y})
+    grid = ParamGridBuilder().addGrid("regParam", [0.0, 1.0]).build()
+
+    def cv(dtype):
+        return CrossValidator(
+            estimator=LinearRegression().setDtype(dtype),
+            estimatorParamMaps=grid, evaluator=RegressionEvaluator(),
+            numFolds=3, seed=26).fit(frame)
+
+    fused_gram.reset_launches()
+    ours = cv("float32")
+    counts = {k: v for k, v in fused_gram.launches.items() if v}
+    assert counts == {fused_gram.kernel_name("highest"): 7}
+    ref = cv("float64")
+    assert ours.bestIndex == ref.bestIndex == 0
+    rel = np.abs(np.subtract(ours.avgMetrics, ref.avgMetrics)) / \
+        np.abs(ref.avgMetrics)
+    assert rel.max() <= 1e-4
+
+
+def test_front_end_cross_validator_partials_on_the_card(cuda_device,
+                                                        tmp_path):
+    """The DataFrame Pipeline under spark.CrossValidator on the local
+    engine: LinearRegression's partials launch the bfloat16_3x Gram on the
+    card; the search equals the host float64 plane's within 1e-4 and a
+    saved → loaded model transforms bit for bit."""
+    from spark_rapids_ml_tpu_torch import spark as S
+    from spark_rapids_ml_tpu_torch.spark.local_engine import (
+        DenseVector,
+        LocalSparkSession,
+    )
+
+    rng = np.random.default_rng(6)
+    x = rng.normal(size=(1024, 16))
+    y = x @ rng.normal(size=16) + 0.1 * rng.normal(size=1024)
+    df = LocalSparkSession(n_partitions=4).createDataFrame(
+        [{"features": DenseVector(r), "label": float(v)}
+         for r, v in zip(x, y)])
+
+    def cv(device):
+        pipe = S.Pipeline(stages=[
+            S.StandardScaler(featuresCol="features", outputCol="s"),
+            S.LinearRegression(featuresCol="s", executorDevice=device)])
+        return S.CrossValidator(
+            estimator=pipe, estimatorParamMaps=S.ParamGridBuilder()
+            .addGrid("regParam", [0.0, 1.0]).build(),
+            evaluator=S.RegressionEvaluator(), numFolds=3, seed=3).fit(df)
+
+    fused_gram.reset_launches()
+    card = cv("auto")
+    counts = {k: v for k, v in fused_gram.launches.items() if v}
+    assert set(counts) == {fused_gram.kernel_name(None)}
+    assert counts[fused_gram.kernel_name(None)] >= 7
+    host = cv("off")
+    assert card.bestIndex == host.bestIndex
+    rel = np.abs(np.subtract(card.avgMetrics, host.avgMetrics)) / \
+        np.abs(host.avgMetrics)
+    assert rel.max() <= 1e-4
+    card.save(str(tmp_path / "cvm"))
+    loaded = S.CrossValidatorModel.load(str(tmp_path / "cvm"))
+
+    def preds(model):
+        return [r["prediction"] for r in model.transform(df).collect()]
+
+    assert preds(loaded) == preds(card)

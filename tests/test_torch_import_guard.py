@@ -873,6 +873,123 @@ def test_clustering_slice_runs_without_jax_pandas_or_pyarrow(tmp_path):
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+# the modules of the evaluation, tuning and ml.stat slice
+TUNING_SLICE = ("stat", "models.evaluation", "models.tuning",
+                "spark.tuning_front")
+
+
+def test_tuning_stat_slice_runs_without_jax(tmp_path):
+    """A CrossValidatorModel, an evaluator and a DataFrame-layer
+    CrossValidatorModel (with its ``front_class.json`` sidecars naming the
+    JAX package's modules) that the JAX package saved, loaded by the port
+    and used; the port's own in-memory and front-end searches, the six
+    evaluators, every ``ml.stat`` entry and ``ChiSqSelector.fit`` — in a
+    process that never imports jax. The JAX objects are saved here, in the
+    test process."""
+    import spark_rapids_ml_tpu as jax_pkg
+    import spark_rapids_ml_tpu.spark as jax_spark
+    from spark_rapids_ml_tpu.data.frame import VectorFrame as JaxFrame
+    from spark_rapids_ml_tpu.spark import local_engine as jle
+
+    mods = {m for _, m in _port_modules()}
+    assert {f"spark_rapids_ml_tpu_torch.{m}" for m in TUNING_SLICE} <= mods
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(60, 3))
+    y = x @ np.array([1.0, -2.0, 0.5]) + 0.01 * rng.normal(size=60)
+    grid = [{"regParam": 0.0}, {"regParam": 10.0}]
+    jax_pkg.CrossValidator(
+        estimator=jax_pkg.LinearRegression(), estimatorParamMaps=grid,
+        evaluator=jax_pkg.RegressionEvaluator(), numFolds=3,
+    ).fit(JaxFrame({"features": x, "label": y})).save(str(tmp_path / "cvm"))
+    jax_pkg.BinaryClassificationEvaluator(
+        metricName="areaUnderPR").save(str(tmp_path / "ev"))
+    jdf = jle.LocalSparkSession(n_partitions=2).createDataFrame(
+        [{"features": jle.DenseVector(r), "label": float(v)}
+         for r, v in zip(x, y)])
+    jax_spark.CrossValidator(
+        estimator=jax_spark.Pipeline(stages=[
+            jax_spark.StandardScaler(featuresCol="features",
+                                     outputCol="s"),
+            jax_spark.LinearRegression(featuresCol="s",
+                                       executorDevice="off")]),
+        estimatorParamMaps=grid, evaluator=jax_spark.RegressionEvaluator(),
+        numFolds=3, seed=1).fit(jdf).save(str(tmp_path / "front"))
+    np.save(tmp_path / "x.npy", x)
+    np.save(tmp_path / "y.npy", y)
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "import spark_rapids_ml_tpu_torch as P\n"
+        "from spark_rapids_ml_tpu_torch import spark as S, stat\n"
+        "from spark_rapids_ml_tpu_torch.data.frame import VectorFrame\n"
+        "from spark_rapids_ml_tpu_torch.io.persistence import load_model\n"
+        "from spark_rapids_ml_tpu_torch.spark import local_engine as le\n"
+        "d = sys.argv[1]\n"
+        "x, y = np.load(d + '/x.npy'), np.load(d + '/y.npy')\n"
+        "frame = VectorFrame({'features': x, 'label': y})\n"
+        "cvm = load_model(d + '/cvm')\n"
+        "assert type(cvm) is P.CrossValidatorModel\n"
+        "assert type(cvm.bestModel) is P.LinearRegressionModel\n"
+        "pred = np.asarray(cvm.transform(frame).column('prediction'))\n"
+        "ev = P.BinaryClassificationEvaluator.load(d + '/ev')\n"
+        "assert ev.getMetricName() == 'areaUnderPR'\n"
+        "df = le.LocalSparkSession(n_partitions=2).createDataFrame("
+        "[{'features': le.DenseVector(r), 'label': float(v)} "
+        "for r, v in zip(x, y)])\n"
+        "front = S.CrossValidatorModel.load(d + '/front')\n"
+        "assert type(front.bestModel) is S.PipelineModel\n"
+        "assert type(front.bestModel.stages[1]) is S.LinearRegressionModel\n"
+        "rows = front.transform(df).collect()\n"
+        "grid = P.ParamGridBuilder().addGrid('regParam', [0.0, 1.0]).build()\n"
+        "own = P.CrossValidator(estimator=P.LinearRegression(), "
+        "estimatorParamMaps=grid, evaluator=P.RegressionEvaluator(), "
+        "numFolds=3).fit(frame)\n"
+        "own.save(d + '/own')\n"
+        "assert load_model(d + '/own').bestIndex == own.bestIndex\n"
+        "tvs = S.TrainValidationSplit(estimator=S.LinearRegression(), "
+        "estimatorParamMaps=grid, evaluator=S.RegressionEvaluator(), "
+        "seed=2).fit(df)\n"
+        "labels = (y > 0).astype(float)\n"
+        "scores = [P.RegressionEvaluator().evaluate(VectorFrame("
+        "{'label': y, 'prediction': pred})), "
+        "P.BinaryClassificationEvaluator().evaluate(VectorFrame("
+        "{'label': labels, 'probability': pred})), "
+        "P.MulticlassClassificationEvaluator().evaluate(VectorFrame("
+        "{'label': labels, 'prediction': (pred > 0).astype(float)})), "
+        "P.ClusteringEvaluator().evaluate(VectorFrame("
+        "{'features': x, 'prediction': list(labels)})), "
+        "P.RankingEvaluator().evaluate(VectorFrame("
+        "{'prediction': [[1, 2]], 'label': [[2]]})), "
+        "P.MultilabelClassificationEvaluator().evaluate(VectorFrame("
+        "{'prediction': [[1.0]], 'label': [[1.0, 2.0]]}))]\n"
+        "corr = stat.Correlation.corr(x)\n"
+        "stat.Correlation.corr(df, 'features', 'spearman')\n"
+        "cats = np.round(np.abs(x))\n"
+        "stat.ChiSquareTest.test(VectorFrame({'features': cats, "
+        "'label': labels}))\n"
+        "stat.Summarizer.summarize(df, 'features')\n"
+        "stat.KolmogorovSmirnovTest.test(VectorFrame({'s': list(y)}), "
+        "'s', 'norm')\n"
+        "stat.ANOVATest.test(VectorFrame({'features': x, 'label': labels}))\n"
+        "stat.FValueTest.test(VectorFrame({'features': x, 'label': y}))\n"
+        "sel = P.ChiSqSelector(numTopFeatures=1).fit(VectorFrame("
+        "{'features': cats, 'label': labels}))\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or "
+        "k.startswith('jax.') or k == 'spark_rapids_ml_tpu' or "
+        "k.startswith('spark_rapids_ml_tpu.'))\n"
+        "print(len(rows), tvs.bestIndex, corr.shape, scores, "
+        "sel.selected_features, bad)\n"
+        "sys.exit(1 if bad or len(rows) != 60 or corr.shape != (3, 3) "
+        "else 0)\n"
+    )
+    env = dict(os.environ, SPARK_RAPIDS_ML_TORCH_PLATFORM="cpu",
+               OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                          cwd=REPO_DIR, capture_output=True, text=True,
+                          timeout=120, env=env)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_port_sources_import_no_jax():
     found = []
     smoke = os.path.join(REPO_DIR, "chip_smoke.py")

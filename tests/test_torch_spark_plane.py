@@ -309,6 +309,70 @@ def test_vector_columns_and_label_discovery_equal_jax():
                                   jagg.discover_label_values(jdf, "label"))
 
 
+def _vector_column(case):
+    import pyarrow as pa
+
+    rows = np.random.default_rng(9).normal(size=(6, 4))
+    dense = [le.DenseVector(r) for r in rows]
+    if case == "mixed":
+        dense[2] = le.SparseVector(4, [1, 3], [2.0, -1.0])
+    if case == "ragged":
+        dense[3] = le.DenseVector(rows[3, :3])
+    column = le._record_batch(["f"], [dense]).column(0)
+    if case == "sliced":
+        return column.slice(1, 4)
+    if case == "chunked":
+        return pa.chunked_array([column, column.slice(2)])
+    if case == "null type":
+        return pa.array([{"type": None, "size": None, "indices": None,
+                          "values": r.tolist()} for r in rows])
+    if case == "null element":
+        return pa.array([{"type": 1, "size": None, "indices": None,
+                          "values": [1.0, None]}])
+    return column
+
+
+@pytest.mark.parametrize("case", ["dense", "sliced", "chunked", "mixed",
+                                  "ragged", "null type", "null element"])
+def test_vector_column_buffer_path_equals_jax(case):
+    """Dense columns are read from the Arrow buffers, every other column
+    row by row: the matrix (or the error) is JAX's either way, and the
+    local engine builds the struct column JAX's engine builds."""
+    column = _vector_column(case)
+    if case == "ragged":
+        with pytest.raises(ValueError, match="inconsistent vector sizes"):
+            jagg.vector_column_to_matrix(column)
+        with pytest.raises(ValueError, match="inconsistent vector sizes"):
+            agg.vector_column_to_matrix(column)
+        return
+    got = agg.vector_column_to_matrix(column)
+    want = jagg.vector_column_to_matrix(column)
+    np.testing.assert_array_equal(got, want)
+    assert got.dtype == want.dtype and got.flags.writeable
+    if case in ("dense", "mixed"):
+        values = [le.DenseVector(r) for r in want] if case == "dense" \
+            else None
+        if values is not None:
+            jvalues = [jle.DenseVector(r) for r in want]
+            assert le._record_batch(["f"], [values]).equals(
+                jle._record_batch(["f"], [jvalues]))
+
+
+def test_batch_rows_equal_to_pylist():
+    """The engine reads float list columns through numpy: the rows equal
+    ``to_pylist``'s, nulls, float32 lists and slices included."""
+    import pyarrow as pa
+
+    batch = pa.RecordBatch.from_pydict({
+        "gram": [[1.0, 2.5], [], [3.0]],
+        "n": [1, 2, 3],
+        "f32": pa.array([[1.5], [2.0], [0.1]], pa.list_(pa.float32())),
+        "name": ["a", None, "c"],
+        "holes": [[1.0, None], None, [2.0]]})
+    for view in (batch, batch.slice(1, 2), batch.slice(0, 0)):
+        assert le._batch_pylist(view) == view.to_pylist()
+
+
 # -- the device plane on CPU torch against JAX's device plane -----------------
 
 def _device_call(module, name, batches, *args, dtype):
@@ -723,12 +787,15 @@ def test_unported_front_ends_name_their_roadmap_item():
     for name, item in (("Imputer", "item 7"), ("ALS", "item 7"),
                        ("LDA", "item 7"), ("Word2Vec", "item 7"),
                        ("Tokenizer", "item 7"),
-                       ("RegressionEvaluator", "item 7")):
+                       ("ChiSqSelector", "item 7")):
         with pytest.raises(AttributeError, match=item):
             getattr(spark, name)
     # the forest plane (ROADMAP queue 1 item 5b), the moments plane (5c),
-    # NaiveBayes (6), UMAP (10), GaussianMixture and BisectingKMeans (7)
-    # route their front ends
+    # NaiveBayes (6), UMAP (10), GaussianMixture and BisectingKMeans (7),
+    # evaluation and tuning (7a) route their front ends
+    assert spark.RegressionEvaluator.__module__.endswith(
+        ".models.evaluation")
+    assert spark.CrossValidator.__module__.endswith(".spark.tuning_front")
     assert spark.UMAP.__module__.endswith(".adapter")
     assert spark.GaussianMixture.__module__.endswith(".moments_estimator")
     assert spark.BisectingKMeansModel.__module__.endswith(".adapter3")
