@@ -372,8 +372,9 @@ Phases (any failure raises and the script exits non-zero):
     timed beside ``torch.matmul`` (f32, TF32 off) and the bound; elastic
     net (0.01 / 0.5, one prox-Newton step: its FISTA on the 4097² system
     runs on the host) against the same fit at float64, ≤ 1e-3; streamed
-    from 2 chunks of 65,536 (16 buckets of 8192 a pass, 6 passes), ≤ 1e-4
-    against float64 Newton on the 131,072 rows; ``distributed_logreg_fit``
+    from 1 chunk of 65,536 (8 buckets of 8192 a pass, 6 passes; cut from
+    2 chunks to pay for phase 27), ≤ 1e-4 against float64 Newton on its
+    rows; ``distributed_logreg_fit``
     on a fresh one-rank NCCL world (maxIter 10), ≤ 1e-6 against the
     one-shot fit, its
     fit-monitor step ``newton`` and its all-reduce record. (ii)
@@ -390,10 +391,16 @@ Phases (any failure raises and the script exits non-zero):
     iteration; saved, loaded through ``ModelRegistry.load`` and served
     over HTTP (phase 5's 256 binary requests from 8 clients): every
     response bit-equal to ``run_staged_pipeline``, within 1e-5 of
-    ``PipelineModel.transform`` (1e-12 with every stage at float64), one
-    device→host copy per batch in a ``torch.profiler`` capture (a capture
-    with fewer copies than batches lost a record and is taken again, up
-    to 3 times; one with more fails); (iv) the
+    ``PipelineModel.transform`` on the first 4096 served rows (cut from
+    every served row to pay for phase 27; 1e-12 with every stage at
+    float64), one
+    device→host copy per batch in a ``torch.profiler`` capture of every
+    thread: each fetch and put range holds exactly one ``cudaMemcpy*``
+    call, the batcher's threads issue none outside them, and the memcpy
+    records of the batcher's copies are at most one a batch each way
+    (another thread's copies are logged with their op and Python stack
+    and not counted; a capture with fewer ranges than batches lost
+    records and is taken again, up to 3 times); (iv) the
     one-shot model of (i) served alone to the same traffic, within 1e-5
     relative of float64 σ(Xw + b) on the host; (v) the chain's bf16 and
     int8 ladders through the offline check. Prints each fit's n_iter and
@@ -402,7 +409,8 @@ Phases (any failure raises and the script exits non-zero):
 17. The other stage families (``models/feature_scalers.py``,
     ``models/feature_transformers.py``) on fit (c)'s 32,768 × 4096 rows
     with every 16th column set to 2.5 (256 constant columns), the chains
-    fitted on the first 16,384 (cut). (ii)
+    fitted on the first 8192 (cut from 32,768, then from 16,384 to pay for
+    phase 27). (ii)
     ``Pipeline([MinMaxScaler, ElementwiseProduct (N(0, 1) scalingVec),
     VectorSlicer (3840 permuted indices), PCA(k=256),
     LogisticRegression(maxIter=10)])`` (cut from 100) with labels planted
@@ -439,7 +447,8 @@ Phases (any failure raises and the script exits non-zero):
     bucket when streamed), the counts set to 0 before each fit and held
     exactly after it. (i) LinearSVC, labels 1[x·w* + 0.5 + ε > 0]:
     one-shot, weighted (w ~ U(0.5, 2)), no intercept, standardization on,
-    streamed (2 × 65,536 rows in buckets of 8192, 3 Newton passes: cut),
+    streamed (65,536 rows in buckets of 8192, 3 Newton passes: cut, from
+    2 × 65,536 rows with phase 16's),
     each within 1e-4 of the same generalized Newton in float64 on the
     card (``svc_fit_kernel`` on float64 tensors); ``distributed_svc_fit``
     on one NCCL rank within 1e-6 of the one-shot fit, its fit-monitor
@@ -686,6 +695,29 @@ Phases (any failure raises and the script exits non-zero):
     against the same search on the host float64 plane (``bestIndex``
     equal, avgMetrics within 1e-4 relative); the fitted
     ``CrossValidatorModel`` saved, loaded and its transform bit-equal.
+27. PowerIterationClustering (``models/pic.py``,
+    ``parallel/distributed_pic.py``) and the DBSCAN and PIC front ends
+    (``spark/adapter3.py``), no Gram launch (asserted). A seeded planted
+    partition at the envelope, ``maxDenseNodes`` 32,768 (a 4 GiB float32
+    affinity): 4 communities of 8192 nodes, each a ring with 7-step chords
+    and 12 random chords a node, one cross-community edge per 16 nodes,
+    weights U(0.5, 2). (i) ``PowerIterationClustering(k=4, maxIter=20,
+    weightCol='w').assign_clusters`` at float32, under
+    ``set_float32_matmul_precision("high")`` and ``"highest"``: the
+    affinity build, the host → device copy and the k-means on the host
+    clock, the 20 products (``torch.mv``) with CUDA events against their
+    bound (20 reads of W at 3.35 TB/s); the iterate within 1e-5 (relative
+    L1) of a float64 iterate from the same start on the same W widened on
+    the card, the labels' co-membership with the float64 run's ≥ 0.95 on
+    100,000 sampled pairs, v and the labels bit-equal under both
+    precisions; the planted communities' recovery recorded. (ii)
+    ``distributed_pic_assign`` on a fresh one-rank NCCL world over the same
+    edges: v and labels equal to (i)'s, 20 all_gathers of the iterate
+    recorded. (iii) On the local engine: ``spark.PowerIterationClustering
+    .assignClusters`` on the first community's edges equal to
+    ``assign_clusters``; ``spark.DBSCAN`` fit → transform on phase 19's
+    16,384 dense rows equal to the in-memory model's labels, and a frame
+    of another row count raising.
 
 Then one JSON line ``{"stage_bodies": [...]}``, one ``{"knn_dbscan":
 {...}}`` (phase 19's numbers), one ``{"trees": {...}}`` (phase 20's),
@@ -694,7 +726,8 @@ one ``{"spark_plane": {...}}`` (phase 21's), one ``{"forest_plane":
 one ``{"umap": {...}}`` (phase 24's: fit timings, ms an epoch of each
 optimizer, near-tie counts and every bar's number), one
 ``{"clustering": {...}}`` (phase 25's), one ``{"tuning_stat":
-{...}}`` (phase 26's), one ``{"kernels": [...]}``
+{...}}`` (phase 26's), one ``{"pic": {...}}`` (phase 27's), one
+``{"kernels": [...]}``
 (each kernel with its launches per phase and, under ``extra_shapes``,
 phase 3's timings of phase 14's shapes and phases 16 and 18's Hessians),
 the card's name and power limit, and last ``{"ok": true, "device":
@@ -4893,8 +4926,9 @@ def phase_kmeans(torch, fg, device, model_c):
 
 LR_SCALE = 2.0             # sd of the planted logits: w* ~ N(0, LR_SCALE²/n)
 LR_INTERCEPT = 0.5
-LR_CHUNKS = 2              # the streamed fits: 2 chunks of CHUNK_ROWS (cut
-                           # from 4; phases 16 and 18)
+LR_CHUNKS = 1              # the streamed fits: 1 chunk of CHUNK_ROWS, 8
+                           # buckets (cut from 4, then from 2 to pay for
+                           # phase 27; phases 16 and 18)
 LR_STREAM_ITER = 6         # Newton passes of the streamed binary fit
 LR_ENET = (0.01, 0.5)      # (regParam, elasticNetParam)
 LR_ENET_ITER = 1           # prox-Newton steps, each one FISTA on 4097² on the host
@@ -5358,8 +5392,11 @@ def phase_logreg(torch, fg, device, model_c):
 
         unequal = sum(not np.array_equal(out, run_staged_pipeline(loaded, t))
                       for out, t in zip(served["chain"], traffic))
-        rows_all = np.concatenate(traffic)
-        chain_out = np.concatenate(served["chain"])
+        # the frame loop densifies every stage's output to float64 on the
+        # host: on the first STAGE_FRAME_ROWS served rows (cut from every
+        # served row to pay for phase 27)
+        rows_all = np.concatenate(traffic)[:STAGE_FRAME_ROWS]
+        chain_out = np.concatenate(served["chain"])[:STAGE_FRAME_ROWS]
         t0 = time.perf_counter()
         frame = np.asarray(loaded.transform(rows_all).column("probability"))
         frame_s = time.perf_counter() - t0
@@ -5373,8 +5410,9 @@ def phase_logreg(torch, fg, device, model_c):
                                "probability"))).max())
         log(f"  (iii) responses unequal to run_staged_pipeline on their "
             f"rows: {unequal} of {SERVE_REQUESTS}; probabilities vs "
-            f"PipelineModel.transform max |Δ| {d32:.3e} (bar "
-            f"{CHAIN_F32_ATOL:g}; the frame loop {frame_s:.2f} s), every "
+            f"PipelineModel.transform on the first {rows_all.shape[0]} "
+            f"served rows max |Δ| {d32:.3e} (bar {CHAIN_F32_ATOL:g}; the "
+            f"frame loop {frame_s:.2f} s), every "
             f"stage at float64 on {PIPE_F64_ROWS} rows {d64:.3e} (bar "
             f"{CHAIN_F64_ATOL:g})")
         check(unequal == 0, f"{unequal} chain responses differ from "
@@ -5435,7 +5473,8 @@ STAGE_FRAME_ROWS = 4096    # served rows held against the frame loop (cut
                            # from 8192)
 STAGE_CHECK_ROWS = 4096    # rows each float32 body is held to its host on
                            # (cut from 8192)
-STAGE_FIT_ROWS = 16_384    # the chains' fit rows (cut from 32,768)
+STAGE_FIT_ROWS = 8192      # the chains' fit rows (cut from 32,768, then
+                           # from 16,384 to pay for phase 27)
 CLUSTER_K = 64
 # bars, set in PERF.md §2 before the first run
 STAGE_F64_NORM_RTOL = 1e-12   # Normalizer at float64; the rest bit-equal
@@ -5470,19 +5509,28 @@ def same_state(a, b) -> bool:
 
 def copies_per_batch(torch, engine, metrics, name, traffic, label) -> None:
     """One device→host copy per batch over PIPE_PROFILED requests to
-    ``name``, read from a ``torch.profiler`` capture of every thread. A
-    card program's fetch runs inside the ``FETCH_RANGE`` profiler range
-    and its put inside ``PUT_RANGE`` (``models/_serving.py``); the model's
-    batcher worker runs them one at a time. So the capture must hold one
-    host-side fetch range and one put range a batch, each holding exactly
-    one ``cudaMemcpy*`` runtime call: a skipped copy shows as a range with
-    none, a doubled one as a range with two. The memcpy activity records
-    and the ranges' device-side annotations are logged beside (each batch
-    lacking one named) and may not exceed one a batch: they went missing
-    for a capture's first batches (ROADMAP queue 3 item 16), so the
-    traffic starts PROFILE_PAUSE_S after the capture does. A capture
-    holding fewer host-side ranges than batches lost records and is taken
-    again (up to PROFILE_ATTEMPTS)."""
+    ``name``, read from a ``torch.profiler`` capture of every thread (with
+    Python stacks). A card program's fetch runs inside the ``FETCH_RANGE``
+    profiler range and its put inside ``PUT_RANGE``
+    (``models/_serving.py``); the model's batcher worker runs them one at
+    a time. So the capture must hold one host-side fetch range and one put
+    range a batch, each holding exactly one ``cudaMemcpy*`` runtime call:
+    a skipped copy shows as a range with none, a doubled one as a range
+    with two; and the batcher's threads (those that hold the ranges) may
+    issue no ``cudaMemcpy*`` outside them. Every ``cudaMemcpy*`` call
+    outside the ranges is logged with its thread and the innermost op
+    around it with that op's Python stack. The memcpy activity records
+    (and the ranges' device-side annotations) are logged beside: those of
+    copies the batcher's threads issued may not exceed one a batch in
+    either direction; another thread's copies (the capture profiles every
+    thread) do not count against the batches: the fit monitor's backend
+    canary (``obs/fitmon.py::_default_canary``, an ``.item()`` on a
+    short-lived thread that the history sampler starts every 30 s) lands
+    in about one ~1 s capture in 30. Records went missing for a
+    capture's first batches (ROADMAP queue 3 item 16), so the traffic
+    starts PROFILE_PAUSE_S after the capture does. A capture holding fewer
+    host-side ranges than batches lost records and is taken again (up to
+    PROFILE_ATTEMPTS)."""
     import bisect
 
     from torch._C._profiler import _ExperimentalConfig
@@ -5494,15 +5542,19 @@ def copies_per_batch(torch, engine, metrics, name, traffic, label) -> None:
         PUT_RANGE,
     )
 
-    def split(events, range_name, calls):
-        """(memcpy calls inside each host-side range, batches whose
-        device-side annotation is missing, device-side annotations)"""
-        host = sorted((e for e in events if e.name == range_name
+    def host_ranges(events, range_name):
+        return sorted((e for e in events if e.name == range_name
                        and e.device_type == DeviceType.CPU),
                       key=lambda e: e.time_range.start)
-        inside = [sum(r.time_range.start <= c.time_range.start
-                      and c.time_range.end <= r.time_range.end
-                      for c in calls) for r in host]
+
+    def within(outer, inner):
+        return (outer.time_range.start <= inner.time_range.start
+                and inner.time_range.end <= outer.time_range.end)
+
+    def split(events, host, calls, range_name):
+        """(memcpy calls inside each host-side range, batches whose
+        device-side annotation is missing, device-side annotations)"""
+        inside = [sum(within(r, c) for c in calls) for r in host]
         starts = [r.time_range.start for r in host]
         device = [bisect.bisect_right(starts, e.time_range.start) - 1
                   for e in events if e.name == range_name
@@ -5510,10 +5562,42 @@ def copies_per_batch(torch, engine, metrics, name, traffic, label) -> None:
         return (inside, sorted(set(range(len(host))) - set(device)),
                 len(device))
 
+    def records(events, threads):
+        """Memcpy activity records by direction: (all, those linked to an
+        op on one of ``threads``)."""
+        total = {"DtoH": 0, "HtoD": 0}
+        mine = {"DtoH": 0, "HtoD": 0}
+        for e in events:
+            if e.device_type != DeviceType.CPU and "Memcpy" in e.name:
+                for way in total:
+                    total[way] += way in e.name
+            if e.device_type == DeviceType.CPU and e.thread in threads:
+                for k in e.kernels:
+                    for way in mine:
+                        mine[way] += "Memcpy" in k.name and way in k.name
+        return total, mine
+
+    def origin(events, call):
+        """The thread of a ``cudaMemcpy*`` call (the profiler's own thread
+        id), the innermost op around it on that thread, the device records
+        linked to that op, and the op's Python stack (empty for a thread
+        that started after the capture did)."""
+        ops = [e for e in events if e.device_type == DeviceType.CPU
+               and e.thread == call.thread and e is not call
+               and not e.name.startswith("cuda") and within(e, call)]
+        inner = min(ops, key=lambda e: e.time_range.end - e.time_range.start,
+                    default=None)
+        stack = [f for e in ops for f in (e.stack or ())][:6]
+        return (f"{call.name} on thread {call.thread}, innermost "
+                f"op {inner.name if inner else None} with records "
+                f"{[k.name for k in inner.kernels] if inner else []}, "
+                f"stack {stack}")
+
     for attempt in range(1, PROFILE_ATTEMPTS + 1):
         before = serve_counters(metrics)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA],
+                     with_stack=True,
                      experimental_config=_ExperimentalConfig(
                          profile_all_threads=True)) as prof:
             time.sleep(PROFILE_PAUSE_S)
@@ -5523,25 +5607,39 @@ def copies_per_batch(torch, engine, metrics, name, traffic, label) -> None:
         batches = serve_counters(metrics)["batches"] - before["batches"]
         events = list(prof.events())
         calls = [e for e in events if e.name.startswith("cudaMemcpy")]
-        fetches, fetch_lost, fetch_dev = split(events, FETCH_RANGE, calls)
-        puts, put_lost, put_dev = split(events, PUT_RANGE, calls)
-        dtoh = sum("Memcpy" in e.name and "DtoH" in e.name for e in events)
-        htod = sum("Memcpy" in e.name and "HtoD" in e.name for e in events)
+        fetch_host = host_ranges(events, FETCH_RANGE)
+        put_host = host_ranges(events, PUT_RANGE)
+        fetches, fetch_lost, fetch_dev = split(events, fetch_host, calls,
+                                               FETCH_RANGE)
+        puts, put_lost, put_dev = split(events, put_host, calls, PUT_RANGE)
+        batcher = {r.thread for r in fetch_host + put_host}
+        stray = [c for c in calls
+                 if not any(within(r, c) for r in fetch_host + put_host)]
+        total, mine = records(events, batcher)
         log(f"  {label} torch.profiler over {PIPE_PROFILED} {name} requests "
             f"(capture {attempt}, every thread, traffic {PROFILE_PAUSE_S} s "
             f"after its start): {batches:.0f} batches, {len(fetches)} fetch "
             f"ranges holding {fetches} cudaMemcpy* calls, {len(puts)} put "
-            f"ranges holding {puts}; {len(calls)} cudaMemcpy* calls in all; "
-            f"activity records {dtoh} device→host and {htod} host→device; "
-            f"device-side annotations {fetch_dev} fetch (none for batches "
-            f"{fetch_lost}) and {put_dev} put (none for batches {put_lost})")
+            f"ranges holding {puts}; {len(calls)} cudaMemcpy* calls in all, "
+            f"{len(stray)} outside every range; activity records "
+            f"{total['DtoH']} device→host and {total['HtoD']} host→device, "
+            f"of which the batcher's threads {sorted(batcher)} issued "
+            f"{mine['DtoH']} and {mine['HtoD']}; device-side annotations "
+            f"{fetch_dev} fetch (none for batches {fetch_lost}) and "
+            f"{put_dev} put (none for batches {put_lost})")
+        for c in stray:
+            log(f"    outside every range: {origin(events, c)}")
+        strays_batcher = [c for c in stray if c.thread in batcher]
         check(batches == PIPE_PROFILED and len(fetches) <= batches
               and len(puts) <= batches
               and all(n == 1 for n in fetches + puts)
-              and max(dtoh, htod, fetch_dev, put_dev) <= batches,
+              and not strays_batcher
+              and max(mine["DtoH"], mine["HtoD"], fetch_dev,
+                      put_dev) <= batches,
               f"{name}: fetch ranges {fetches}, put ranges {puts}, "
-              f"{dtoh} device→host and {htod} host→device records for "
-              f"{batches} batches")
+              f"{len(strays_batcher)} batcher copies outside them, "
+              f"{mine['DtoH']} device→host and {mine['HtoD']} host→device "
+              f"records of the batcher's copies for {batches} batches")
         if len(fetches) == len(puts) == batches:
             return
     check(False, f"{name}: fewer fetch or put ranges than batches in each "
@@ -9522,6 +9620,297 @@ def phase_tuning_stat(torch, fg, device):
     return launched, summary
 
 
+# -- phase 27: PowerIterationClustering and the DBSCAN and PIC front ends -----
+
+PIC_COMMUNITIES = 4
+PIC_NODES = 8192               # a community's; 4 × 8192 = maxDenseNodes 32,768
+PIC_CHORD = 7                  # ring + 7-step chords (test_distributed.py)
+PIC_RANDOM_DEGREE = 12         # random chords a node: degree ≈ 2 + 2 + 12
+PIC_CROSS_EVERY = 16           # one cross-community edge per 16 nodes
+PIC_K = 4
+PIC_ITER = 20
+PIC_SEED = 27
+# bars, set in PERF.md §2 before the first call
+PIC_V_RTOL = 1e-5              # ‖v − v₆₄‖₁ / ‖v₆₄‖₁ on the same W and v0
+PIC_AGREE = 0.95               # co-membership vs the float64 run, sampled
+PIC_PAIRS = 100_000            # (tests/test_distributed.py's rule)
+
+
+def planted_edges():
+    """(src, dst, w) of PIC_COMMUNITIES planted communities of PIC_NODES:
+    in each a ring with PIC_CHORD-step chords and PIC_RANDOM_DEGREE random
+    chords a node (no self-loops), then one cross-community edge per
+    PIC_CROSS_EVERY nodes; weights U(0.5, 2), all from the seed. Node ids
+    are community · PIC_NODES + position."""
+    rng = np.random.default_rng(SEED + 2700)
+    i = np.arange(PIC_NODES)
+    src, dst = [], []
+    for c in range(PIC_COMMUNITIES):
+        base = c * PIC_NODES
+        rand = rng.integers(0, PIC_NODES, PIC_NODES * PIC_RANDOM_DEGREE // 2)
+        hop = rng.integers(1, PIC_NODES, rand.shape[0])
+        src += [base + i, base + i, base + rand]
+        dst += [base + (i + 1) % PIC_NODES, base + (i + PIC_CHORD) % PIC_NODES,
+                base + (rand + hop) % PIC_NODES]
+    n = PIC_COMMUNITIES * PIC_NODES
+    a = rng.integers(0, n, n // PIC_CROSS_EVERY)
+    other = (a // PIC_NODES + rng.integers(1, PIC_COMMUNITIES, a.shape[0])) \
+        % PIC_COMMUNITIES
+    b = other * PIC_NODES + rng.integers(0, PIC_NODES, a.shape[0])
+    src.append(a)
+    dst.append(b)
+    src = np.concatenate(src).astype(np.float64)
+    dst = np.concatenate(dst).astype(np.float64)
+    return src, dst, rng.uniform(0.5, 2.0, src.shape[0])
+
+
+def co_membership(a, b, rng, pairs=PIC_PAIRS) -> float:
+    """Share of sampled pairs (i, j) on which two labelings agree about
+    "same cluster" (permutation-free)."""
+    i = rng.integers(0, a.shape[0], pairs)
+    j = rng.integers(0, a.shape[0], pairs)
+    return float(np.mean((a[i] == a[j]) == (b[i] == b[j])))
+
+
+def planted_recovery(labels) -> dict:
+    """Each community's majority label and its share, and whether the
+    majorities are distinct (recorded, not asserted)."""
+    shares, majors = [], []
+    for c in range(PIC_COMMUNITIES):
+        part = labels[c * PIC_NODES:(c + 1) * PIC_NODES]
+        counts = np.bincount(part, minlength=PIC_K)
+        majors.append(int(counts.argmax()))
+        shares.append(float(counts.max() / part.shape[0]))
+    return {"majority_labels": majors, "majority_shares": shares,
+            "distinct": len(set(majors)) == PIC_COMMUNITIES}
+
+
+def phase_pic(torch, fg, device):
+    """Phase 27 (see the module docstring). Returns a summary."""
+    import torch.distributed as dist
+
+    from spark_rapids_ml_tpu_torch import DBSCAN, PowerIterationClustering
+    from spark_rapids_ml_tpu_torch import spark as S
+    from spark_rapids_ml_tpu_torch.data.frame import VectorFrame
+    from spark_rapids_ml_tpu_torch.models import pic
+    from spark_rapids_ml_tpu_torch.parallel import (
+        data_mesh,
+        distributed_pic,
+        distributed_pic_assign,
+        initialize_multihost,
+    )
+    from spark_rapids_ml_tpu_torch.spark.local_engine import (
+        DenseVector,
+        LocalSparkSession,
+    )
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi_line()
+    fg.reset_launches()
+    summary = {}
+    src, dst, w = planted_edges()
+    n = PIC_COMMUNITIES * PIC_NODES
+    edges = VectorFrame({"src": src, "dst": dst, "w": w})
+    log(f"  {PIC_COMMUNITIES} planted communities of {PIC_NODES} nodes "
+        f"(ring + {PIC_CHORD}-step chords + {PIC_RANDOM_DEGREE} random "
+        f"chords a node), {n // PIC_CROSS_EVERY} cross edges, weights "
+        f"U(0.5, 2): {src.shape[0]:,} edges, a {n} x {n} float32 affinity "
+        f"({n * n * 4 / 2**30:.0f} GiB)")
+    seen = {}
+    real_build, real_iterate = pic.build_affinity, pic._power_iterate
+
+    def build(*args, **kwargs):
+        out = real_build(*args, **kwargs)
+        seen["built"] = time.perf_counter()
+        return out
+
+    def iterate(w_dev, v0, max_iter):
+        seen["called"] = time.perf_counter()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        v = real_iterate(w_dev, v0, max_iter)
+        end.record()
+        end.synchronize()
+        seen.update(ms=start.elapsed_time(end), w=w_dev, v0=v0, v=v)
+        return v
+
+    # (i) the local PIC at float32, under both matmul precisions
+    est = PowerIterationClustering(k=PIC_K, maxIter=PIC_ITER, weightCol="w",
+                                   seed=PIC_SEED, dtype="float32")
+    runs = {}
+    pic.build_affinity, pic._power_iterate = build, iterate
+    try:
+        for precision in ("high", "highest"):
+            torch.set_float32_matmul_precision(precision)
+            try:
+                out = est.assign_clusters(edges)
+            finally:
+                torch.set_float32_matmul_precision("highest")
+            record = {key: seen.pop(key) for key in list(seen)}
+            if precision == "high":  # (the float64 run takes the second W)
+                del record["w"], record["v0"]
+            runs[precision] = dict(
+                record, labels=np.asarray(out.column("cluster")),
+                ids=np.asarray(out.column("id")),
+                timings=dict(est.assign_timings_))
+    finally:
+        pic.build_affinity, pic._power_iterate = real_build, real_iterate
+    run = runs["highest"]
+    check(np.array_equal(run["ids"], np.arange(n)), "PIC ids")
+    bits = bool(torch.equal(runs["high"]["v"], run["v"]))
+    w64 = run.pop("w").double()
+    v64 = real_iterate(w64, run.pop("v0").double(), PIC_ITER)
+    del w64
+    torch.cuda.empty_cache()
+    v32 = run["v"]
+    rel = float((v32.double() - v64).abs().sum() / v64.abs().sum())
+    labels64 = pic.cluster_iterate(v64, n, PIC_K, PIC_SEED)
+    agree = co_membership(run["labels"], labels64,
+                          np.random.default_rng(SEED + 2701))
+    # the float64 iterate rounded to float32 and clustered as the float32
+    # path clusters (the same k-means++ draws): tells the iterate's share
+    # of a disagreement from the seeding's (recorded, not asserted)
+    agree_drawn = co_membership(
+        run["labels"], pic.cluster_iterate(v64.float(), n, PIC_K, PIC_SEED),
+        np.random.default_rng(SEED + 2701))
+    recovered = planted_recovery(run["labels"])
+    timings = run["timings"]
+    copy_s = run["called"] - run["built"]
+    bound_ms = PIC_ITER * n * n * 4 / PEAK_BYTES_PER_S * 1e3
+    log(f"  (i) PowerIterationClustering(k={PIC_K}, maxIter={PIC_ITER}, "
+        f"weightCol='w').assign_clusters at float32: assign_timings_ "
+        f"{ {k: round(t, 3) for k, t in timings.items()} } (host clock); "
+        f"affinity return → iteration call {copy_s:.3f} s (the host→device "
+        f"copy of W and v0); the {PIC_ITER} products {run['ms']:.4f} ms "
+        f"(CUDA events), bound {bound_ms:.4f} ms ({PIC_ITER} × {n * n * 4:,} "
+        f"B at {PEAK_BYTES_PER_S:g} B/s), {bound_ms / run['ms']:.3f} of it; "
+        f"{smi}")
+    log(f"    v vs float64 on the same W and v0: ‖Δ‖₁ / ‖v₆₄‖₁ {rel:.3e} "
+        f"(bar {PIC_V_RTOL:g}); co-membership vs the float64 run's labels "
+        f"{agree:.5f} on {PIC_PAIRS:,} sampled pairs (bar {PIC_AGREE}), vs "
+        f"the float64 iterate clustered with the float32 run's k-means++ "
+        f"draws {agree_drawn:.5f} (recorded); v "
+        f"bit-equal under set_float32_matmul_precision('high') and "
+        f"('highest'): {bits}; planted communities (recorded): {recovered}")
+    check(rel <= PIC_V_RTOL, f"PIC v vs float64 {rel:.3e}")
+    check(agree >= PIC_AGREE, f"PIC co-membership vs float64 {agree:.5f}")
+    check(bits, "PIC v differs under set_float32_matmul_precision('high')")
+    check(np.array_equal(runs["high"]["labels"], run["labels"]),
+          "PIC labels differ under set_float32_matmul_precision('high')")
+    summary["local"] = {
+        "nodes": n, "edges": int(src.shape[0]), "k": PIC_K,
+        "max_iter": PIC_ITER, "timings": timings, "copy_s": copy_s,
+        "products_ms": run["ms"], "products_ms_high": runs["high"]["ms"],
+        "bound_ms": bound_ms, "share_of_bound": bound_ms / run["ms"],
+        "v_rel_l1": rel, "co_membership": agree,
+        "co_membership_same_draws": agree_drawn, "bit_equal_high": bits,
+        "planted": recovered}
+
+    # (ii) distributed_pic_assign on one NCCL rank over the same edges
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    coordinator = f"127.0.0.1:{free_port()}"
+    try:
+        initialize_multihost(coordinator, num_processes=1, process_id=0)
+    except Exception as exc:
+        raise RuntimeError(f"phase 27: the one-rank NCCL world did not "
+                           f"start at {coordinator}: {exc!r}") from exc
+    got = {}
+    real_kernel = distributed_pic.distributed_power_iterate_kernel
+
+    def kernel(*args, **kwargs):
+        got["v"] = real_kernel(*args, **kwargs)
+        return got["v"]
+
+    distributed_pic.distributed_power_iterate_kernel = kernel
+    try:
+        check(dist.get_backend() == "nccl", "the card's world runs NCCL")
+        t0 = time.perf_counter()
+        result = distributed_pic_assign(src, dst, w, k=PIC_K,
+                                        mesh=data_mesh(1), max_iter=PIC_ITER,
+                                        seed=PIC_SEED)
+        dist_s = time.perf_counter() - t0
+    finally:
+        distributed_pic.distributed_power_iterate_kernel = real_kernel
+        dist.destroy_process_group()
+    ids, labels = result
+    report = result.fit_report_
+    want = {"all_gather": {"count": PIC_ITER, "bytes": PIC_ITER * n * 4}}
+    same_v = bool(torch.equal(got["v"], v32))
+    same_labels = bool(np.array_equal(labels, run["labels"]))
+    log(f"  (ii) distributed_pic_assign, one NCCL rank: {dist_s:.3f} s; v "
+        f"bit-equal to (i)'s {same_v}, labels equal {same_labels}; report "
+        f"phases { {k: round(t, 4) for k, t in report.phases.items()} }, "
+        f"collectives {report.collectives}")
+    check(np.array_equal(ids, np.arange(n)), "distributed PIC ids")
+    check(same_v and same_labels, "distributed PIC vs (i)")
+    check(report.collectives == want,
+          f"distributed PIC collectives {report.collectives}")
+    summary["distributed"] = {"seconds": dist_s, "v_equal": same_v,
+                              "labels_equal": same_labels,
+                              "collectives": report.collectives}
+    del got, v32, v64, result
+    runs.clear()
+    torch.cuda.empty_cache()
+
+    # (iii) the front ends through the local engine
+    spark = LocalSparkSession(n_partitions=4)
+    first = (src < PIC_NODES) & (dst < PIC_NODES)
+    t0 = time.perf_counter()
+    df = spark.createDataFrame([
+        {"src": float(a), "dst": float(b), "w": float(c)}
+        for a, b, c in zip(src[first], dst[first], w[first])])
+    front = S.PowerIterationClustering(k=PIC_K, maxIter=PIC_ITER,
+                                       weightCol="w", seed=PIC_SEED)
+    rows = front.assignClusters(df).collect()
+    front_s = time.perf_counter() - t0
+    local = est.assign_clusters(VectorFrame({
+        "src": src[first], "dst": dst[first], "w": w[first]}))
+    pic_same = ([r["id"] for r in rows] == list(local.column("id"))
+                and [r["cluster"] for r in rows]
+                == list(local.column("cluster")))
+    x16 = db_data()[:DB_DENSE_ROWS]
+    t1 = time.perf_counter()
+    db_df = spark.createDataFrame([{"features": DenseVector(r)}
+                                   for r in x16])
+    db_model = S.DBSCAN(featuresCol="features", eps=DB_EPS,
+                        minPts=DB_MIN_PTS).fit(db_df)
+    db_rows = db_model.transform(db_df).collect()
+    db_s = time.perf_counter() - t1
+    in_memory = DBSCAN().setEps(DB_EPS).setMinPts(DB_MIN_PTS).fit(x16)
+    db_same = np.array_equal(np.asarray([r["prediction"] for r in db_rows]),
+                             in_memory.labels_)
+    try:
+        db_model.transform(spark.createDataFrame(
+            [{"features": DenseVector(r)} for r in x16[:DB_DENSE_ROWS // 2]]))
+        raised = False
+    except ValueError as exc:
+        raised = "fitted dataset only" in str(exc)
+    log(f"  (iii) spark.PowerIterationClustering.assignClusters on the first "
+        f"community's {int(first.sum()):,} edges ({front_s:.2f} s with the "
+        f"frame): equal to assign_clusters {pic_same}; spark.DBSCAN fit → "
+        f"transform on phase 19's {DB_DENSE_ROWS:,} dense rows "
+        f"({db_s:.2f} s): labels equal to the in-memory model's {db_same} "
+        f"({in_memory.n_clusters_} clusters); a {DB_DENSE_ROWS // 2:,}-row "
+        f"frame raises {raised}")
+    check(pic_same, "spark PIC front end vs assign_clusters")
+    check(db_same, "spark DBSCAN front end vs the in-memory model")
+    check(raised, "spark DBSCAN transform of another row count")
+    check(len(rows) == PIC_NODES, f"{len(rows)} PIC front-end rows")
+    summary["front_ends"] = {"pic_edges": int(first.sum()),
+                             "pic_seconds": front_s, "pic_equal": pic_same,
+                             "dbscan_rows": DB_DENSE_ROWS,
+                             "dbscan_seconds": db_s,
+                             "dbscan_equal": bool(db_same),
+                             "mismatch_raises": raised}
+    launched = {k: v for k, v in fg.launches.items() if v}
+    check(not launched, f"phase 27 launched the Gram kernel: {launched}")
+    seconds = time.perf_counter() - t_phase
+    summary["seconds"] = seconds
+    log(f"  phase 27 {seconds:.1f} s, launches {launched}; {smi}")
+    return summary
+
+
 def build_fresh(cuda_build):
     """Build the Gram library anew, so ``ptxas -v`` reports on it."""
     path = cuda_build.library_path("fused_gram")
@@ -9684,6 +10073,9 @@ def main() -> int:
     log("[26] evaluation, tuning and ml.stat on the card")
     tuning_launches, tuning_summary = phase_tuning_stat(torch, fg, device)
 
+    log("[27] PowerIterationClustering and the DBSCAN and PIC front ends")
+    pic_summary = phase_pic(torch, fg, device)
+
     kernels = []
     for name, m in measured.items():
         by_phase = {"4": launches.get(name, 0), "7": distributed.get(name, 0),
@@ -9697,7 +10089,7 @@ def main() -> int:
                     "21": plane_launches.get(name, 0), "22": 0,
                     "23": 0, "24": umap_launches.get(name, 0),
                     "25": clustering_launches.get(name, 0),
-                    "26": tuning_launches.get(name, 0)}
+                    "26": tuning_launches.get(name, 0), "27": 0}
         # each kernel's own path: the PCA slice's fits, and phase 25's GMM
         # at HIGGS's shape for the narrow route
         home = "25" if name == fg.NARROW_KERNEL else "4"
@@ -9722,6 +10114,7 @@ def main() -> int:
     print(json.dumps({"umap": umap_summary}))
     print(json.dumps({"clustering": clustering_summary}))
     print(json.dumps({"tuning_stat": tuning_summary}))
+    print(json.dumps({"pic": pic_summary}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

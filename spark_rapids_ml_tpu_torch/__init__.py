@@ -84,12 +84,48 @@ from spark_rapids_ml_tpu_torch.models.feature_scalers import (  # noqa: F401
     RobustScalerModel,
 )
 from spark_rapids_ml_tpu_torch.models.feature_transformers import (  # noqa: F401
+    Bucketizer,
     ChiSqSelector,
     ChiSqSelectorModel,
     ElementwiseProduct,
+    IndexToString,
+    OneHotEncoder,
+    OneHotEncoderModel,
+    PolynomialExpansion,
+    QuantileDiscretizer,
+    StringIndexer,
+    StringIndexerModel,
     VarianceThresholdSelector,
     VarianceThresholdSelectorModel,
+    VectorAssembler,
     VectorSlicer,
+)
+from spark_rapids_ml_tpu_torch.models.feature_transformers2 import (  # noqa: F401
+    DCT,
+    FeatureHasher,
+    Interaction,
+    RFormula,
+    RFormulaModel,
+    SQLTransformer,
+    UnivariateFeatureSelector,
+    UnivariateFeatureSelectorModel,
+    VectorIndexer,
+    VectorIndexerModel,
+    VectorSizeHint,
+)
+from spark_rapids_ml_tpu_torch.models.text import (  # noqa: F401
+    CountVectorizer,
+    CountVectorizerModel,
+    HashingTF,
+    IDF,
+    IDFModel,
+    NGram,
+    RegexTokenizer,
+    StopWordsRemover,
+    Tokenizer,
+)
+from spark_rapids_ml_tpu_torch.models.pic import (  # noqa: F401
+    PowerIterationClustering,
 )
 from spark_rapids_ml_tpu_torch.models.naive_bayes import (  # noqa: F401
     NaiveBayes,
@@ -182,6 +218,36 @@ __all__ = [
     "VarianceThresholdSelector",
     "VarianceThresholdSelectorModel",
     "VectorSlicer",
+    "StringIndexer",
+    "StringIndexerModel",
+    "IndexToString",
+    "OneHotEncoder",
+    "OneHotEncoderModel",
+    "VectorAssembler",
+    "Bucketizer",
+    "QuantileDiscretizer",
+    "PolynomialExpansion",
+    "DCT",
+    "Interaction",
+    "FeatureHasher",
+    "VectorIndexer",
+    "VectorIndexerModel",
+    "VectorSizeHint",
+    "SQLTransformer",
+    "UnivariateFeatureSelector",
+    "UnivariateFeatureSelectorModel",
+    "RFormula",
+    "RFormulaModel",
+    "Tokenizer",
+    "RegexTokenizer",
+    "StopWordsRemover",
+    "NGram",
+    "HashingTF",
+    "CountVectorizer",
+    "CountVectorizerModel",
+    "IDF",
+    "IDFModel",
+    "PowerIterationClustering",
     "NaiveBayes",
     "NaiveBayesModel",
     "UMAP",

@@ -5,8 +5,8 @@ Stands in for the Spark ``DataFrame`` the reference estimator consumes
 ``dataset.select(inputCol) → RDD[Vector]``). Columns are named; a column may
 hold Spark-style dense/sparse vectors, a 2-D numpy array (one row per frame
 row), or plain scalars. A ``pandas.DataFrame`` with a vector column
-converts to a frame; pandas is optional and imported only to recognise
-one.
+converts to a frame and back (``to_pandas``); pandas is optional and
+imported only where a frame meets one.
 """
 
 from __future__ import annotations
@@ -79,6 +79,19 @@ class VectorFrame:
         if isinstance(col, np.ndarray):
             return np.asarray(col, dtype=np.float64)
         return rows_to_matrix(col)
+
+    def to_pandas(self):
+        """A ``pandas.DataFrame`` of the same columns, a 2-D column as one
+        row array a cell."""
+        import pandas as pd
+
+        data = {}
+        for name, col in self._columns.items():
+            if isinstance(col, np.ndarray) and col.ndim == 2:
+                data[name] = list(col)
+            else:
+                data[name] = col
+        return pd.DataFrame(data)
 
     @staticmethod
     def from_pandas(df) -> "VectorFrame":

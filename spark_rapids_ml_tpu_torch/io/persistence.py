@@ -3,9 +3,9 @@
 A copy of the PCA, KMeans, BisectingKMeans, GaussianMixture,
 StandardScaler, LinearRegression, LogisticRegression, LinearSVC,
 GeneralizedLinearRegression, TruncatedSVD, NearestNeighbors, NaiveBayes,
-RandomForest, DecisionTree and GBT parts of the JAX package's
-``io/persistence.py``, so a model saved by either package loads in the
-other (``RapidsPCA.scala:218-254``):
+RandomForest, DecisionTree, GBT and feature-transformer parts of the JAX
+package's ``io/persistence.py``, so a model saved by either package loads
+in the other (``RapidsPCA.scala:218-254``):
 
 * ``path/metadata/part-00000`` — one JSON line: class, timestamp, uid,
   paramMap (Spark's ``DefaultParamsWriter.saveMetadata``); params Spark's
@@ -32,7 +32,12 @@ other (``RapidsPCA.scala:218-254``):
   the tree models (RandomForest, DecisionTree, GBT) the ensemble's
   ``feature``, ``threshold`` and ``leafValue`` and the bin ``edges`` as
   DenseMatrix structs, with ``classes`` / ``numClasses`` (forests) or
-  ``init`` / ``stepSize`` (GBT) and ``featureImportances``.
+  ``init`` / ``stepSize`` (GBT) and ``featureImportances``; for the
+  selector models ``selectedFeatures``; for StringIndexerModel
+  ``labelsArray``, OneHotEncoderModel ``categorySizes``,
+  CountVectorizerModel ``vocabulary``, IDFModel ``idf``, ``docFreq`` and
+  ``numDocs``; VectorIndexerModel and RFormulaModel carry one
+  ``jsonState`` column (``save_json_state_model``).
   Without pyarrow (optional) the same row is written as
   ``part-00000.json``, which both packages' readers accept.
 
@@ -100,6 +105,20 @@ _SPARK_CLASS_ALIASES = {
         "org.apache.spark.ml.regression.DecisionTreeRegressor",
     "DecisionTreeRegressionModel":
         "org.apache.spark.ml.regression.DecisionTreeRegressionModel",
+    "PowerIterationClustering":
+        "org.apache.spark.ml.clustering.PowerIterationClustering",
+    "DCT": "org.apache.spark.ml.feature.DCT",
+    "Interaction": "org.apache.spark.ml.feature.Interaction",
+    "FeatureHasher": "org.apache.spark.ml.feature.FeatureHasher",
+    "VectorIndexer": "org.apache.spark.ml.feature.VectorIndexer",
+    "VectorIndexerModel":
+        "org.apache.spark.ml.feature.VectorIndexerModel",
+    "UnivariateFeatureSelector":
+        "org.apache.spark.ml.feature.UnivariateFeatureSelector",
+    "UnivariateFeatureSelectorModel":
+        "org.apache.spark.ml.feature.UnivariateFeatureSelectorModel",
+    "RFormula": "org.apache.spark.ml.feature.RFormula",
+    "RFormulaModel": "org.apache.spark.ml.feature.RFormulaModel",
     "Pipeline": "org.apache.spark.ml.Pipeline",
     "PipelineModel": "org.apache.spark.ml.PipelineModel",
 }
@@ -154,6 +173,26 @@ _SPARK_PARAM_ALLOWLIST = {
         "labelCol", "predictionCol", "linkPredictionCol", "family", "link",
         "variancePower", "linkPower", "offsetCol", "maxIter", "tol",
         "regParam", "fitIntercept", "weightCol"},
+    "PowerIterationClustering": {
+        "k", "maxIter", "initMode", "srcCol", "dstCol", "weightCol"},
+    "DCT": {"inputCol", "outputCol", "inverse"},
+    "Interaction": {"inputCols", "outputCol"},
+    "FeatureHasher": {"inputCols", "outputCol", "numFeatures",
+                      "categoricalCols"},
+    "VectorIndexer": {"inputCol", "outputCol", "maxCategories",
+                      "handleInvalid"},
+    "VectorIndexerModel": {"inputCol", "outputCol", "maxCategories",
+                           "handleInvalid"},
+    # Spark's selector param is featuresCol; the selectors here (as in the
+    # JAX package) take inputCol, which rides the Spark-visible paramMap
+    "UnivariateFeatureSelector": {
+        "inputCol", "outputCol", "labelCol", "featureType",
+        "labelType", "selectionMode", "selectionThreshold"},
+    "UnivariateFeatureSelectorModel": {
+        "inputCol", "outputCol", "labelCol", "featureType",
+        "labelType", "selectionMode", "selectionThreshold"},
+    "RFormula": {"formula", "featuresCol", "labelCol"},
+    "RFormulaModel": {"formula", "featuresCol", "labelCol"},
 }
 
 
@@ -356,6 +395,15 @@ _SPARK_FIELD_TYPES = {
     "boolean": "boolean",
     "array<int>": {"type": "array", "elementType": "integer",
                    "containsNull": False},
+    "array<long>": {"type": "array", "elementType": "long",
+                    "containsNull": False},
+    "array<string>": {"type": "array", "elementType": "string",
+                      "containsNull": True},
+    "array<array<string>>": {
+        "type": "array",
+        "elementType": {"type": "array", "elementType": "string",
+                        "containsNull": True},
+        "containsNull": False},
 }
 
 
@@ -944,9 +992,9 @@ _SELECTOR_MODEL_CLASSES = ("ChiSqSelectorModel",
 
 def load_selector_model(path: str):
     """A selector model by the ``selectorClass`` its metadata records
-    (ChiSq when absent, as in the JAX package). The port has no
-    ``UnivariateFeatureSelectorModel`` yet: that metadata is refused."""
+    (ChiSq when absent, as in the JAX package)."""
     from spark_rapids_ml_tpu_torch.models import feature_transformers as ft
+    from spark_rapids_ml_tpu_torch.models import feature_transformers2 as ft2
 
     meta = _read_metadata(path)
     name = meta.get("extra", {}).get("selectorClass", "ChiSqSelectorModel")
@@ -954,15 +1002,150 @@ def load_selector_model(path: str):
         raise ValueError(
             f"{path}: unknown selector model class {name!r} "
             f"(expected one of {_SELECTOR_MODEL_CLASSES})")
-    model_cls = getattr(ft, name, None)
-    if model_cls is None:
-        raise ValueError(
-            f"{path}: {name} has no counterpart in this package yet "
-            "(ROADMAP queue 1 item 7)")
     row = _read_data_row(path)
+    model_cls = getattr(ft, name, None) or getattr(ft2, name)
     model = model_cls(
         selected=[int(i) for i in row["selectedFeatures"]],
         uid=meta["uid"])
+    return _restore_params(model, meta)
+
+
+def save_json_state_model(model, path: str, state: Dict[str, Any],
+                          overwrite: bool = False) -> None:
+    """Generic small-state model writer: Spark's metadata/params layout
+    plus one JSON payload column, for models whose learned state is
+    structured (category maps, encoders) rather than matrix-shaped."""
+    _require_target(path, overwrite)
+    cls = f"{type(model).__module__}.{type(model).__qualname__}"
+    _write_metadata(path, cls, model.uid, model.param_map_for_metadata())
+    _write_data_row(path, {"jsonState": json.dumps(state)})
+
+
+def load_json_state_model(model_cls, path: str):
+    """Counterpart of ``save_json_state_model``: (the model with its params
+    restored, the decoded state dict); the caller re-attaches its typed
+    state."""
+    meta = _read_metadata(path)
+    row = _read_data_row(path)
+    model = model_cls(uid=meta["uid"])
+    _restore_params(model, meta)
+    return model, json.loads(row["jsonState"])
+
+
+def save_countvec_model(model, path: str, overwrite: bool = False) -> None:
+    """Spark's CountVectorizerModel layout: a vocabulary array row."""
+    if model.vocabulary is None:
+        raise ValueError("cannot save an unfitted CountVectorizerModel")
+    _require_target(path, overwrite)
+    cls = f"{type(model).__module__}.{type(model).__qualname__}"
+    _write_metadata(path, cls, model.uid, model.param_map_for_metadata())
+    _write_data_row(
+        path, {"vocabulary": [str(t) for t in model.vocabulary]},
+        spark_fields=[("vocabulary", "array<string>")])
+
+
+def load_countvec_model(path: str):
+    from spark_rapids_ml_tpu_torch.models.text import CountVectorizerModel
+
+    meta = _read_metadata(path)
+    row = _read_data_row(path)
+    model = CountVectorizerModel(
+        vocabulary=[str(t) for t in row["vocabulary"]], uid=meta["uid"])
+    return _restore_params(model, meta)
+
+
+def save_idf_model(model, path: str, overwrite: bool = False) -> None:
+    """Spark's IDFModel layout: (idf vector, docFreq array, numDocs)."""
+    if model.idf is None:
+        raise ValueError("cannot save an unfitted IDFModel")
+    _require_target(path, overwrite)
+    cls = f"{type(model).__module__}.{type(model).__qualname__}"
+    _write_metadata(path, cls, model.uid, model.param_map_for_metadata())
+    row = {
+        "idf": _dense_vector_struct(model.idf),
+        "docFreq": [int(v) for v in np.asarray(model.doc_freq)],
+        "numDocs": int(model.num_docs),
+    }
+    try:
+        import pyarrow as pa
+    except ImportError:
+        schema = None
+    else:
+        schema = pa.schema([
+            ("idf", _vector_arrow_type()),
+            ("docFreq", pa.list_(pa.int64())),
+            ("numDocs", pa.int64()),
+        ])
+    _write_data_row(path, row, schema=schema, spark_fields=[
+        ("idf", "vector"), ("docFreq", "array<long>"), ("numDocs", "long"),
+    ])
+
+
+def load_idf_model(path: str):
+    from spark_rapids_ml_tpu_torch.models.text import IDFModel
+
+    meta = _read_metadata(path)
+    row = _read_data_row(path)
+    model = IDFModel(
+        idf=_dense_vector_from_struct(row["idf"]),
+        doc_freq=np.asarray(list(row["docFreq"]), dtype=np.float64),
+        num_docs=int(row["numDocs"]),
+        uid=meta["uid"],
+    )
+    return _restore_params(model, meta)
+
+
+def save_string_indexer_model(model, path: str,
+                              overwrite: bool = False) -> None:
+    """Spark's StringIndexerModel layout: a data row carrying
+    ``labelsArray`` (Spark 3.x stores one labels list per input column;
+    this model carries one)."""
+    if model.labels is None:
+        raise ValueError("cannot save an unfitted StringIndexerModel")
+    _require_target(path, overwrite)
+    cls = f"{type(model).__module__}.{type(model).__qualname__}"
+    _write_metadata(path, cls, model.uid, model.param_map_for_metadata())
+    _write_data_row(
+        path, {"labelsArray": [[str(v) for v in model.labels]]},
+        spark_fields=[("labelsArray", "array<array<string>>")])
+
+
+def load_string_indexer_model(path: str):
+    from spark_rapids_ml_tpu_torch.models.feature_transformers import (
+        StringIndexerModel,
+    )
+
+    meta = _read_metadata(path)
+    row = _read_data_row(path)
+    # Spark 3.x writes labelsArray; Spark 2.x wrote labels
+    labels = (list(row["labelsArray"][0]) if "labelsArray" in row
+              else list(row["labels"]))
+    model = StringIndexerModel(
+        labels=[str(v) for v in labels], uid=meta["uid"])
+    return _restore_params(model, meta)
+
+
+def save_onehot_model(model, path: str, overwrite: bool = False) -> None:
+    """Spark's OneHotEncoderModel layout: a data row with categorySizes
+    (one entry per input column; this model carries one)."""
+    _require_target(path, overwrite)
+    cls = f"{type(model).__module__}.{type(model).__qualname__}"
+    _write_metadata(path, cls, model.uid, model.param_map_for_metadata())
+    _write_data_row(path, {"categorySizes": [int(model.category_size)]},
+                    spark_fields=[("categorySizes", "array<int>")])
+
+
+def load_onehot_model(path: str):
+    from spark_rapids_ml_tpu_torch.models.feature_transformers import (
+        OneHotEncoderModel,
+    )
+
+    meta = _read_metadata(path)
+    row = _read_data_row(path)
+    model = OneHotEncoderModel(
+        category_size=int(list(row["categorySizes"])[0]),
+        uid=meta["uid"],
+    )
     return _restore_params(model, meta)
 
 
@@ -1238,7 +1421,21 @@ _MODEL_CLASSES = {
         ("feature_transformers", ("ElementwiseProduct", "VectorSlicer",
                                   "VarianceThresholdSelector",
                                   "VarianceThresholdSelectorModel",
-                                  "ChiSqSelector", "ChiSqSelectorModel")),
+                                  "ChiSqSelector", "ChiSqSelectorModel",
+                                  "StringIndexer", "StringIndexerModel",
+                                  "IndexToString", "OneHotEncoder",
+                                  "OneHotEncoderModel", "VectorAssembler",
+                                  "Bucketizer", "QuantileDiscretizer",
+                                  "PolynomialExpansion")),
+        ("feature_transformers2", ("DCT", "Interaction", "FeatureHasher",
+                                   "VectorIndexer", "VectorIndexerModel",
+                                   "UnivariateFeatureSelector",
+                                   "UnivariateFeatureSelectorModel",
+                                   "RFormula", "RFormulaModel",
+                                   "VectorSizeHint", "SQLTransformer")),
+        ("text", ("Tokenizer", "RegexTokenizer", "StopWordsRemover",
+                  "NGram", "HashingTF", "CountVectorizer",
+                  "CountVectorizerModel", "IDF", "IDFModel")),
         ("linear_regression", ("LinearRegression", "LinearRegressionModel")),
         ("logistic_regression", ("LogisticRegression",
                                  "LogisticRegressionModel")),
@@ -1249,6 +1446,7 @@ _MODEL_CLASSES = {
         ("nearest_neighbors", ("NearestNeighbors", "NearestNeighborsModel")),
         ("naive_bayes", ("NaiveBayes", "NaiveBayesModel")),
         ("dbscan", ("DBSCAN",)),
+        ("pic", ("PowerIterationClustering",)),
         ("random_forest", ("RandomForestRegressor",
                            "RandomForestRegressionModel",
                            "RandomForestClassifier",

@@ -3,7 +3,8 @@ runtime, the data-parallel, streamed and feature-sharded PCA fits, and the
 data-parallel LinearRegression, LogisticRegression, LinearSVC,
 GeneralizedLinearRegression, KMeans, NaiveBayes, GaussianMixture and
 BisectingKMeans fits; the sharded brute-force and IVF searches and DBSCAN;
-the RandomForest and GBT fits; the UMAP optimizer."""
+the RandomForest and GBT fits; the UMAP optimizer; the power iteration
+of PowerIterationClustering."""
 
 from spark_rapids_ml_tpu_torch.parallel.mesh import (
     DATA_AXIS,
@@ -74,6 +75,9 @@ from spark_rapids_ml_tpu_torch.parallel.distributed_bisecting import (
 from spark_rapids_ml_tpu_torch.parallel.distributed_umap import (
     distributed_umap_optimize,
 )
+from spark_rapids_ml_tpu_torch.parallel.distributed_pic import (
+    distributed_pic_assign,
+)
 from spark_rapids_ml_tpu_torch.parallel.streaming import (
     DistributedStreamingPCA,
     distributed_streaming_pca_fit,
@@ -105,6 +109,7 @@ __all__ = [
     "distributed_dbscan_labels",
     "distributed_forest_fit", "distributed_gbt_fit",
     "distributed_umap_optimize",
+    "distributed_pic_assign",
     "distributed_gmm_fit", "distributed_gmm_stats_kernel",
     "BisectingKMeansResult", "distributed_bisecting_kmeans_fit",
     "DistributedStreamingPCA", "distributed_streaming_pca_fit",

@@ -16,9 +16,11 @@ plane (``moments_estimator.py``: the four scalers, TruncatedSVD,
 LinearSVC, GLM, GaussianMixture and BisectingKMeans), the per-level tree
 plane (``forest_estimator.py``: DecisionTree, RandomForest and GBT), and
 the generic adapter's models, NearestNeighbors and UMAP (``adapter.py``,
-``adapter2.py``, ``adapter3.py``), the DataFrame ``Pipeline`` and model
-selection (``tuning_front.py``) and the six evaluators, which are the
-local ``models/evaluation.py`` classes. Every other
+``adapter2.py``, ``adapter3.py``), DBSCAN and PowerIterationClustering
+(``adapter3.py``), the feature and text transformers
+(``transformers.py``), the DataFrame ``Pipeline`` and model selection
+(``tuning_front.py``) and the six evaluators, which are the local
+``models/evaluation.py`` classes. Every other
 front end of the JAX package's Spark plane is not ported yet; its name
 raises ``AttributeError`` naming the ROADMAP item that brings it.
 """
@@ -99,10 +101,57 @@ _ADAPTER2_CLASSES = (
     "DecisionTreeRegressorModel",
 )
 
-# the BisectingKMeans model (spark/adapter3.py); its estimator routes to
-# the moments plane
+# the BisectingKMeans model, the DBSCAN pair and PIC (spark/adapter3.py);
+# the BisectingKMeans estimator routes to the moments plane, and PIC
+# mirrors Spark's no-model shape
 _ADAPTER3_CLASSES = (
     "BisectingKMeansModel",
+    "DBSCAN",
+    "DBSCANModel",
+    "PowerIterationClustering",
+)
+
+# row-wise transformer front-ends (spark/transformers.py): pandas_udf per
+# Arrow batch by default; row-dropping or reshaping configurations ride
+# the envelope-guarded rebuild path
+_TRANSFORMER_CLASSES = (
+    "Binarizer",
+    "Bucketizer",
+    "ChiSqSelector",
+    "ChiSqSelectorModel",
+    "CountVectorizer",
+    "CountVectorizerModel",
+    "DCT",
+    "ElementwiseProduct",
+    "FeatureHasher",
+    "HashingTF",
+    "IDF",
+    "IDFModel",
+    "IndexToString",
+    "Interaction",
+    "NGram",
+    "Normalizer",
+    "OneHotEncoder",
+    "OneHotEncoderModel",
+    "PolynomialExpansion",
+    "QuantileDiscretizer",
+    "RegexTokenizer",
+    "RFormula",
+    "RFormulaModel",
+    "SQLTransformer",
+    "StopWordsRemover",
+    "StringIndexer",
+    "StringIndexerModel",
+    "Tokenizer",
+    "UnivariateFeatureSelector",
+    "UnivariateFeatureSelectorModel",
+    "VarianceThresholdSelector",
+    "VarianceThresholdSelectorModel",
+    "VectorAssembler",
+    "VectorIndexer",
+    "VectorIndexerModel",
+    "VectorSizeHint",
+    "VectorSlicer",
 )
 
 # composition + model selection over DataFrames (spark/tuning_front.py)
@@ -156,53 +205,13 @@ _UNPORTED = {
     # the rest of spark/
     "AFTSurvivalRegression": _REST,
     "AFTSurvivalRegressionModel": _REST,
-    "Binarizer": _REST,
-    "Bucketizer": _REST,
-    "ChiSqSelector": _REST,
-    "ChiSqSelectorModel": _REST,
-    "CountVectorizer": _REST,
-    "CountVectorizerModel": _REST,
-    "DBSCAN": _REST,
-    "DBSCANModel": _REST,
-    "DCT": _REST,
-    "ElementwiseProduct": _REST,
     "FMClassificationModel": _REST,
     "FMClassifier": _REST,
     "FMRegressionModel": _REST,
     "FMRegressor": _REST,
-    "FeatureHasher": _REST,
-    "HashingTF": _REST,
-    "IDF": _REST,
-    "IDFModel": _REST,
-    "IndexToString": _REST,
-    "Interaction": _REST,
     "IsotonicRegression": _REST,
     "IsotonicRegressionModel": _REST,
-    "NGram": _REST,
-    "Normalizer": _REST,
-    "OneHotEncoder": _REST,
-    "OneHotEncoderModel": _REST,
-    "PolynomialExpansion": _REST,
-    "PowerIterationClustering": _REST,
     "PrefixSpan": _REST,
-    "QuantileDiscretizer": _REST,
-    "RFormula": _REST,
-    "RFormulaModel": _REST,
-    "RegexTokenizer": _REST,
-    "SQLTransformer": _REST,
-    "StopWordsRemover": _REST,
-    "StringIndexer": _REST,
-    "StringIndexerModel": _REST,
-    "Tokenizer": _REST,
-    "UnivariateFeatureSelector": _REST,
-    "UnivariateFeatureSelectorModel": _REST,
-    "VarianceThresholdSelector": _REST,
-    "VarianceThresholdSelectorModel": _REST,
-    "VectorAssembler": _REST,
-    "VectorIndexer": _REST,
-    "VectorIndexerModel": _REST,
-    "VectorSizeHint": _REST,
-    "VectorSlicer": _REST,
 }
 
 # pyspark's canonical model-class names (classification models are
@@ -228,6 +237,7 @@ __all__ = [
     *_ADAPTER_CLASSES,
     *_ADAPTER2_CLASSES,
     *_ADAPTER3_CLASSES,
+    *_TRANSFORMER_CLASSES,
     *_TUNING_CLASSES,
     *_EVALUATOR_CLASSES,
     *(alias for alias, target in _CANONICAL_ALIASES.items()
@@ -267,6 +277,10 @@ def __getattr__(name):
         from spark_rapids_ml_tpu_torch.spark import adapter3
 
         return getattr(adapter3, target)
+    if target in _TRANSFORMER_CLASSES:
+        from spark_rapids_ml_tpu_torch.spark import transformers
+
+        return getattr(transformers, target)
     if target in _TUNING_CLASSES:
         from spark_rapids_ml_tpu_torch.spark import tuning_front
 

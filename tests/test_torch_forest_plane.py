@@ -647,6 +647,7 @@ PORTED = {
     **{n: "spark.adapter" for n in port_spark._ADAPTER_CLASSES},
     **{n: "spark.adapter2" for n in port_spark._ADAPTER2_CLASSES},
     **{n: "spark.adapter3" for n in port_spark._ADAPTER3_CLASSES},
+    **{n: "spark.transformers" for n in port_spark._TRANSFORMER_CLASSES},
     **{n: "spark.tuning_front" for n in port_spark._TUNING_CLASSES},
     # tuning_front re-exports the local grid builder; the local evaluators
     # are the DataFrame evaluators, as in the JAX package

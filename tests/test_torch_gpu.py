@@ -2295,3 +2295,103 @@ def test_front_end_cross_validator_partials_on_the_card(cuda_device,
         return [r["prediction"] for r in model.transform(df).collect()]
 
     assert preds(loaded) == preds(card)
+
+
+# -- PowerIterationClustering (slice 28) --------------------------------------
+
+def _pic_edges(communities=4, nodes=512, seed=28):
+    """A planted partition of ``communities`` × ``nodes`` (n = 2048): a
+    ring with 7-step chords and 12 random chords a node in each, one
+    cross edge per 16 nodes, weights U(0.5, 2)."""
+    rng = np.random.default_rng(seed)
+    i = np.arange(nodes)
+    src, dst = [], []
+    for c in range(communities):
+        rand = rng.integers(0, nodes, nodes * 6)
+        hop = rng.integers(1, nodes, rand.shape[0])
+        src += [c * nodes + i, c * nodes + i, c * nodes + rand]
+        dst += [c * nodes + (i + 1) % nodes, c * nodes + (i + 7) % nodes,
+                c * nodes + (rand + hop) % nodes]
+    n = communities * nodes
+    a = rng.integers(0, n, n // 16)
+    b = ((a // nodes + rng.integers(1, communities, a.shape[0]))
+         % communities) * nodes + rng.integers(0, nodes, a.shape[0])
+    src = np.concatenate(src + [a]).astype(np.float64)
+    dst = np.concatenate(dst + [b]).astype(np.float64)
+    return src, dst, rng.uniform(0.5, 2.0, src.shape[0])
+
+
+def test_pic_on_the_card_matches_the_cpu_and_ignores_tf32(cuda_device,
+                                                          monkeypatch):
+    """``assign_clusters`` at float32 on the card: the iterate within 1e-5
+    (relative L1) of the CPU's float64 iterate from the same start, v and
+    labels bit-equal under ``set_float32_matmul_precision("high")`` (the
+    product is a GEMV), the labels' partition equal to the CPU float64
+    run's, and no Gram launch."""
+    from spark_rapids_ml_tpu_torch import PowerIterationClustering
+    from spark_rapids_ml_tpu_torch.data.frame import VectorFrame
+    from spark_rapids_ml_tpu_torch.models import pic
+
+    src, dst, w = _pic_edges()
+    frame = VectorFrame({"src": src, "dst": dst, "w": w})
+    seen = []
+    real = pic._power_iterate
+
+    def iterate(*args):
+        seen.append(real(*args))
+        return seen[-1]
+
+    monkeypatch.setattr(pic, "_power_iterate", iterate)
+    fused_gram.reset_launches()
+    est = PowerIterationClustering(k=4, maxIter=20, weightCol="w", seed=5,
+                                   dtype="float32")
+    out = est.assign_clusters(frame)
+    torch.set_float32_matmul_precision("high")
+    try:
+        high = est.assign_clusters(frame)
+    finally:
+        torch.set_float32_matmul_precision("highest")
+    assert not any(fused_gram.launches.values())
+    assert seen[0].is_cuda and seen[0].dtype == torch.float32
+    assert torch.equal(seen[0], seen[1])
+    assert high.column("cluster") == out.column("cluster")
+    monkeypatch.setenv("SPARK_RAPIDS_ML_TORCH_PLATFORM", "cpu")
+    cpu = est.copy({"dtype": "float64"}).assign_clusters(frame)
+    v64 = seen[2].numpy()
+    rel = np.abs(seen[0].cpu().numpy() - v64).sum() / np.abs(v64).sum()
+    assert rel <= 1e-5
+    labels, want = np.asarray(out.column("cluster")), np.asarray(
+        cpu.column("cluster"))
+    assert np.array_equal(labels[:, None] == labels[None, :],
+                          want[:, None] == want[None, :])
+
+
+def test_distributed_pic_on_one_nccl_rank(cuda_device, tmp_path):
+    """``distributed_pic_assign`` in a one-rank NCCL world equals
+    ``assign_clusters`` on the card label for label (the panel is the
+    whole W), with 20 all_gathers of the iterate recorded."""
+    import torch.distributed as dist
+
+    from spark_rapids_ml_tpu_torch import PowerIterationClustering
+    from spark_rapids_ml_tpu_torch.data.frame import VectorFrame
+    from spark_rapids_ml_tpu_torch.parallel import (
+        data_mesh,
+        distributed_pic_assign,
+    )
+
+    src, dst, w = _pic_edges()
+    local = PowerIterationClustering(k=4, maxIter=20, weightCol="w",
+                                     seed=5).assign_clusters(
+        VectorFrame({"src": src, "dst": dst, "w": w}))
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        result = distributed_pic_assign(src, dst, w, k=4, mesh=data_mesh(1),
+                                        max_iter=20, seed=5)
+    finally:
+        dist.destroy_process_group()
+    ids, labels = result
+    assert ids.tolist() == local.column("id")
+    assert labels.tolist() == local.column("cluster")
+    assert result.fit_report_.collectives == {
+        "all_gather": {"count": 20, "bytes": 20 * 2048 * 4}}

@@ -1073,3 +1073,103 @@ def test_kernel_source_ships_with_the_package():
     assert path.startswith(cuda_build.BUILD_DIR) and path.endswith(".so")
     with pytest.raises(FileNotFoundError):
         cuda_build.library_path("no_such_kernel")
+
+
+# the modules of the PIC and feature-transformer slice
+PIC_AND_TRANSFORMERS = ("models.pic", "parallel.distributed_pic",
+                        "models.text", "models.feature_transformers",
+                        "models.feature_transformers2", "spark.transformers",
+                        "spark.adapter3")
+
+
+def test_pic_and_transformer_slice_runs_without_jax(tmp_path):
+    """PIC (local, and ``distributed_pic_assign`` in a one-rank gloo
+    world), the text and feature transformers, their DataFrame front ends
+    and the DBSCAN and PIC front ends on the local engine, and models the
+    JAX package saved, loaded through ``load_model``, in a process that
+    never imports jax."""
+    from spark_rapids_ml_tpu.data.frame import VectorFrame as JaxFrame
+    from spark_rapids_ml_tpu.models import feature_transformers as jft
+    from spark_rapids_ml_tpu.models import feature_transformers2 as jft2
+    from spark_rapids_ml_tpu.models import text as jtx
+    from spark_rapids_ml_tpu.models.pic import PowerIterationClustering
+
+    mods = {m for _, m in _port_modules()}
+    assert {f"spark_rapids_ml_tpu_torch.{m}"
+            for m in PIC_AND_TRANSFORMERS} <= mods
+    saved = tmp_path / "jax"
+    jtx.CountVectorizer(inputCol="t").fit(
+        JaxFrame({"t": [["a", "b"], ["b"]]})).save(str(saved / "cv"))
+    jtx.IDF(inputCol="f").fit(JaxFrame({"f": [np.ones(2)]})).save(
+        str(saved / "idf"))
+    jft.StringIndexer(inputCol="c").fit(JaxFrame({"c": ["x", "y"]})).save(
+        str(saved / "si"))
+    jft.OneHotEncoder(inputCol="i").fit(JaxFrame({"i": [0.0, 2.0]})).save(
+        str(saved / "ohe"))
+    jft2.VectorIndexer(inputCol="f").fit(
+        JaxFrame({"f": [np.ones(2), np.zeros(2)]})).save(str(saved / "vi"))
+    jft2.RFormula(formula="y ~ a").fit(
+        JaxFrame({"y": [1.0, 0.0], "a": ["p", "q"]})).save(str(saved / "rf"))
+    jft2.UnivariateFeatureSelectorModel(selected=[1]).save(
+        str(saved / "ufs"))
+    jtx.Tokenizer(inputCol="s").save(str(saved / "tok"))
+    PowerIterationClustering(k=3).save(str(saved / "pic"))
+    code = (
+        "import os, sys, tempfile\n"
+        "import numpy as np\n"
+        "import torch.distributed as dist\n"
+        "import spark_rapids_ml_tpu_torch as P\n"
+        "import spark_rapids_ml_tpu_torch.spark as S\n"
+        "from spark_rapids_ml_tpu_torch.data.frame import VectorFrame\n"
+        "from spark_rapids_ml_tpu_torch.io.persistence import load_model\n"
+        "from spark_rapids_ml_tpu_torch.parallel import (data_mesh, "
+        "distributed_pic_assign)\n"
+        "from spark_rapids_ml_tpu_torch.spark.local_engine import "
+        "(DenseVector, LocalSparkSession)\n"
+        "src = [0, 1, 0, 3, 4, 3]; dst = [1, 2, 2, 4, 5, 5]\n"
+        "out = P.PowerIterationClustering(k=2, seed=1).assign_clusters("
+        "VectorFrame({'src': src, 'dst': dst}))\n"
+        "d = tempfile.mkdtemp()\n"
+        "dist.init_process_group('gloo', init_method='file://' + d + "
+        "'/store', rank=0, world_size=1)\n"
+        "ids, labels = distributed_pic_assign(src, dst, k=2, "
+        "mesh=data_mesh(1), seed=1)\n"
+        "dist.destroy_process_group()\n"
+        "frame = VectorFrame({'text': ['a b a', 'c b'], 'cat': ['x', 'y']})\n"
+        "toks = P.Tokenizer(inputCol='text', outputCol='t').transform(frame)\n"
+        "tf = P.HashingTF(inputCol='t', numFeatures=16).transform(toks)\n"
+        "idx = P.StringIndexer(inputCol='cat').fit(frame).transform(frame)\n"
+        "P.OneHotEncoder(inputCol='indexed').fit(idx).transform(idx)\n"
+        "P.FeatureHasher(inputCols=['cat'], numFeatures=8).transform(frame)\n"
+        "P.SQLTransformer(statement='SELECT cat FROM __THIS__')"
+        ".transform(frame)\n"
+        "spark = LocalSparkSession(n_partitions=2)\n"
+        "df = spark.createDataFrame([{'text': 'a b'}, {'text': 'b c'}])\n"
+        "rows = S.HashingTF(inputCol='t', outputCol='h', numFeatures=8)"
+        ".transform(S.Tokenizer(inputCol='text', outputCol='t')"
+        ".transform(df)).collect()\n"
+        "edges = spark.createDataFrame([{'src': s, 'dst': t} "
+        "for s, t in zip(src, dst)])\n"
+        "pic = S.PowerIterationClustering(k=2, seed=1).assignClusters(edges)"
+        ".collect()\n"
+        "x = np.concatenate([np.zeros((5, 2)), np.ones((5, 2)) * 9])\n"
+        "pts = spark.createDataFrame([{'features': DenseVector(r)} "
+        "for r in x])\n"
+        "db = S.DBSCAN(eps=0.5, minPts=2).fit(pts).transform(pts).collect()\n"
+        "loaded = [type(load_model(os.path.join(sys.argv[1], name))).__name__"
+        " for name in sorted(os.listdir(sys.argv[1]))]\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or "
+        "k.startswith('jax.') or k == 'spark_rapids_ml_tpu' or "
+        "k.startswith('spark_rapids_ml_tpu.'))\n"
+        "print(labels, out.column('cluster'), len(rows), len(pic), "
+        "[r['prediction'] for r in db], loaded, bad)\n"
+        "sys.exit(1 if bad or len(loaded) != 9 or len(pic) != 6 else 0)\n"
+    )
+    env = dict(os.environ, SPARK_RAPIDS_ML_TORCH_PLATFORM="cpu",
+               OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", code, str(saved)],
+                          cwd=REPO_DIR, capture_output=True, text=True,
+                          timeout=120, env=env)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "StringIndexerModel" in proc.stdout
+    assert "UnivariateFeatureSelectorModel" in proc.stdout

@@ -468,8 +468,8 @@ def test_routing_sends_the_nine_names_to_their_modules(name):
     ("OneVsRest", "7 (their families and front ends)"),
     ("LDA", "7 (their families and front ends)"),
     ("ALS", "7 (their families and front ends)"),
-    ("ChiSqSelector", "7 (the rest of spark/)"),
-    ("VectorAssembler", "7 (the rest of spark/)"),
+    ("FMRegressor", "7 (the rest of spark/)"),
+    ("PrefixSpan", "7 (the rest of spark/)"),
 ])
 def test_names_left_unported_still_raise_with_their_item(name, item):
     with pytest.raises(AttributeError, match=rf"item {item.split()[0]}"):

@@ -753,16 +753,20 @@ def test_port_saved_stages_load_through_the_jax_class(tmp_path, family):
 
 
 def test_univariate_selector_metadata_has_no_counterpart(tmp_path):
+    """A JAX-saved UnivariateFeatureSelectorModel once had no counterpart
+    in the port; since the feature transformers are ported it loads
+    through ``load_model`` and the selector reader alike."""
     from spark_rapids_ml_tpu.models.feature_transformers2 import (
         UnivariateFeatureSelectorModel,
     )
+    from spark_rapids_ml_tpu_torch.models import feature_transformers2
 
     path = str(tmp_path / "univariate")
-    UnivariateFeatureSelectorModel(selected=[0, 2]).save(path)
-    with pytest.raises(ValueError, match="no counterpart"):
-        load_model(path)
-    with pytest.raises(ValueError, match="no counterpart"):
-        persistence.load_selector_model(path)
+    UnivariateFeatureSelectorModel(selected=[2, 0]).save(path)
+    for loaded in (load_model(path), persistence.load_selector_model(path)):
+        assert type(loaded) is \
+            feature_transformers2.UnivariateFeatureSelectorModel
+        assert loaded.selected == [0, 2]
 
 
 # -- GaussianMixture and BisectingKMeans against the JAX writers and loaders --

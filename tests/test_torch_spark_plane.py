@@ -786,13 +786,17 @@ def test_unported_front_ends_name_their_roadmap_item():
 
     for name, item in (("Imputer", "item 7"), ("ALS", "item 7"),
                        ("LDA", "item 7"), ("Word2Vec", "item 7"),
-                       ("Tokenizer", "item 7"),
-                       ("ChiSqSelector", "item 7")):
+                       ("PrefixSpan", "item 7"),
+                       ("FMClassifier", "item 7")):
         with pytest.raises(AttributeError, match=item):
             getattr(spark, name)
     # the forest plane (ROADMAP queue 1 item 5b), the moments plane (5c),
     # NaiveBayes (6), UMAP (10), GaussianMixture and BisectingKMeans (7),
-    # evaluation and tuning (7a) route their front ends
+    # evaluation and tuning (7a), PIC and the transformers (7c, 7d) route
+    # their front ends
+    assert spark.Tokenizer.__module__.endswith(".spark.transformers")
+    assert spark.ChiSqSelector.__module__.endswith(".spark.transformers")
+    assert spark.PowerIterationClustering.__module__.endswith(".adapter3")
     assert spark.RegressionEvaluator.__module__.endswith(
         ".models.evaluation")
     assert spark.CrossValidator.__module__.endswith(".spark.tuning_front")
