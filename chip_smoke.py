@@ -718,6 +718,33 @@ Phases (any failure raises and the script exits non-zero):
     ``assign_clusters``; ``spark.DBSCAN`` fit → transform on phase 19's
     16,384 dense rows equal to the in-memory model's labels, and a frame
     of another row count raising.
+28. The MultilayerPerceptron (``ops/optim.py``, ``ops/mlp_kernel.py``,
+    ``models/mlp.py``, ``parallel/distributed_optim.py``) and OneVsRest
+    (``models/ovr.py``) with their front ends (≤ 25 s). (i) Phase 24's
+    MNIST-shaped rows (60,000 train, 10,000 held out, 784 wide, 10
+    classes), ``MultilayerPerceptronClassifier(layers=[784, 256, 128,
+    10])`` from one seed: the first L-BFGS iterate at float32 within 1e-5
+    of float64, the 20th iteration's loss within 1e-3, held-out classes
+    agreeing on ≥ 0.99; the float32 fit repeated bit-equal and bit-equal
+    under ``set_float32_matmul_precision("high")``; a fit at Spark's
+    default maxIter 100 (n_iter, loss, accuracy, an iteration's host
+    milliseconds and its objective evaluations' device milliseconds by
+    CUDA events recorded) saved → ``load_model`` → transform bit-equal;
+    20 GD steps recorded. (ii) ``distributed_mlp_fit`` on a fresh
+    one-rank NCCL world bit-equal to (i)'s float32 fit at 20 iterations,
+    its all-reduces recorded. (iii) UCI Covertype's shape made from the
+    seed (581,012 × 54: 10 continuous columns and a 4-way and a 40-way
+    one-hot, labels 1-7 from planted logits with the class counts within
+    1 % of the published ones): ``OneVsRest(LogisticRegression(maxIter=25,
+    regParam=1e-4))`` at float32 against the same search at float64, class
+    agreement ≥ 0.999 and scores within 1e-4; the Gram's route asserted
+    narrow and its launches equal to the sub-fits' Newton iterations; that
+    Gram timed beside ``torch.matmul`` with its bound. (iv) On 4
+    local-engine partitions of the first 16,384 rows: ``spark.OneVsRest``
+    (plane sub-fits) against the in-memory fit at float64, classes equal
+    and predictions agreeing on ≥ 0.999; the
+    ``spark.MultilayerPerceptronClassifier`` pair equal to its model's
+    transform.
 
 Then one JSON line ``{"stage_bodies": [...]}``, one ``{"knn_dbscan":
 {...}}`` (phase 19's numbers), one ``{"trees": {...}}`` (phase 20's),
@@ -727,9 +754,10 @@ one ``{"umap": {...}}`` (phase 24's: fit timings, ms an epoch of each
 optimizer, near-tie counts and every bar's number), one
 ``{"clustering": {...}}`` (phase 25's), one ``{"tuning_stat":
 {...}}`` (phase 26's), one ``{"pic": {...}}`` (phase 27's), one
-``{"kernels": [...]}``
+``{"mlp_ovr": {...}}`` (phase 28's), one ``{"kernels": [...]}``
 (each kernel with its launches per phase and, under ``extra_shapes``,
-phase 3's timings of phase 14's shapes and phases 16 and 18's Hessians),
+phase 3's timings of phase 14's shapes, phases 16 and 18's Hessians and
+phase 28's OneVsRest Gram),
 the card's name and power limit, and last ``{"ok": true, "device":
 {...}}``.
 """
@@ -9911,6 +9939,376 @@ def phase_pic(torch, fg, device):
     return summary
 
 
+MLP_LAYERS = [784, 256, 128, 10]   # Spark's MLP at MNIST's shape
+MLP_ITER = 20                  # the float32 / float64 comparison's L-BFGS
+MLP_SPARK_ITER = 100           # Spark's default maxIter
+MLP_GD_STEPS = 20
+MLP_SEED = 28
+# bars, set in PERF.md §2 before the first call
+MLP_FIRST_RTOL = 1e-5          # the first iterate, float32 vs float64
+MLP_LOSS_RTOL = 1e-3           # the 20th iteration's loss, float32 vs float64
+MLP_AGREE = 0.99               # held-out classes, float32 vs float64
+COVTYPE_ROWS = 581_012         # UCI Covertype's rows, ...
+COVTYPE_CONTINUOUS = 10        # ... its 10 continuous columns, ...
+COVTYPE_ONEHOTS = (4, 40)      # ... its wilderness and soil one-hots ...
+COVTYPE_COUNTS = (211_840, 283_301, 35_754, 2_747, 9_493, 17_367, 20_510)
+COVTYPE_SHARE_RTOL = 0.01      # ... and class counts within 1 %, labels 1-7
+OVR_ITER = 25                  # each sub-fit's Newton iterations
+OVR_REG = 1e-4
+OVR_AGREE = 0.999              # classes, the float32 search vs float64
+OVR_SCORE_ATOL = 1e-4          # rawPrediction max |Δ|, float32 vs float64
+OVR_FRONT_ROWS = 16_384        # (iv): the first rows, 4 local partitions
+OVR_FRONT_ITER = 5             # the front ends' Newton / L-BFGS iterations
+MLP_FRONT_LAYERS = [54, 32, 7]
+
+
+def covtype_shaped(torch, device):
+    """UCI Covertype's shape made from the seed (the published file is not
+    in the repo): 581,012 rows of 10 continuous columns N(0, 1) (the
+    columns as a user standardizes them) beside a 4-way and a 40-way
+    one-hot, 54 float32 features; labels 1-7 from planted logits as phase
+    16 (ii) plants them, argmax(x·W*ᵀ + b + Gumbel) with W* ~ N(0, 1/3) a
+    class (logits of sd ~2), the intercepts b fitted on the card to these
+    Gumbel draws until each class count is within 1 % of the published
+    one. Returns (x float32 numpy, labels float64 numpy 1-7)."""
+    rng = np.random.default_rng(SEED + 2800)
+    n = COVTYPE_ROWS
+    parts = [rng.normal(size=(n, COVTYPE_CONTINUOUS))]
+    for width in COVTYPE_ONEHOTS:
+        probs = rng.dirichlet(np.ones(width))
+        parts.append(np.eye(width)[rng.choice(width, size=n, p=probs)])
+    x = np.concatenate(parts, axis=1).astype(np.float32)
+    k = len(COVTYPE_COUNTS)
+    w_star = rng.normal(scale=(1.0 / 3.0) ** 0.5, size=(k, x.shape[1]))
+    z = torch.as_tensor(x, device=device).double() @ torch.as_tensor(
+        w_star.T, device=device)
+    z += torch.as_tensor(rng.gumbel(size=(n, k)), device=device)
+    target = torch.as_tensor(np.asarray(COVTYPE_COUNTS, dtype=np.float64),
+                             device=device)
+    b = torch.log(target / target.sum())
+    for _ in range(60):
+        counts = torch.bincount((z + b).argmax(dim=1), minlength=k).double()
+        if bool(((counts - target).abs() <= COVTYPE_SHARE_RTOL * target)
+                .all()):
+            break
+        b += 0.5 * torch.log(target / counts.clamp_min(1.0))
+    labels = (z + b).argmax(dim=1).cpu().numpy().astype(np.float64) + 1.0
+    counts = np.bincount(labels.astype(int) - 1, minlength=k)
+    check(bool((np.abs(counts - COVTYPE_COUNTS)
+                <= COVTYPE_SHARE_RTOL * np.asarray(COVTYPE_COUNTS)).all()),
+          f"covtype-shaped class counts {counts.tolist()}")
+    return x, labels
+
+
+def phase_mlp_ovr(torch, fg, device):
+    """Phase 28 (see the module docstring). Returns ({kernel: launches},
+    {label: the OneVsRest Gram's timings}, a summary)."""
+    import torch.distributed as dist
+
+    from spark_rapids_ml_tpu_torch import (
+        LogisticRegression,
+        MultilayerPerceptronClassifier,
+        OneVsRest,
+    )
+    from spark_rapids_ml_tpu_torch import spark as S
+    from spark_rapids_ml_tpu_torch.data.frame import as_vector_frame
+    from spark_rapids_ml_tpu_torch.io.persistence import load_model
+    from spark_rapids_ml_tpu_torch.ops import optim
+    from spark_rapids_ml_tpu_torch.ops.mlp_kernel import (
+        flatten_weights,
+        init_weights,
+        mlp_params_from_jax,
+        rowwise_cross_entropy,
+        validate_and_onehot,
+    )
+    from spark_rapids_ml_tpu_torch.parallel import (
+        data_mesh,
+        distributed_mlp_fit,
+        distributed_optim,
+        initialize_multihost,
+    )
+    from spark_rapids_ml_tpu_torch.spark.local_engine import (
+        DenseVector,
+        LocalSparkSession,
+    )
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi_line()
+    fg.reset_launches()
+    summary = {}
+
+    # (i) the MLP at MNIST's shape
+    t0 = time.perf_counter()
+    x_dev, y_train = mnist_shaped(torch, device, UMAP_TRAIN_ROWS,
+                                  SEED + 2400)
+    xt_dev, y_test = mnist_shaped(torch, device, UMAP_TEST_ROWS, SEED + 2401)
+    x_train, x_test = x_dev.cpu().numpy(), xt_dev.cpu().numpy()
+    del x_dev, xt_dev
+    data_s = time.perf_counter() - t0
+    evals = []
+    real_vg = optim.weighted_mean_value_and_grad
+
+    def counting_vg(*args, **kwargs):
+        vg = real_vg(*args, **kwargs)
+        evals.append(0)
+
+        def counted(flat):
+            evals[-1] += 1
+            return vg(flat)
+
+        return counted
+
+    def fit(dtype="float32", **params):
+        est = MultilayerPerceptronClassifier(
+            layers=MLP_LAYERS, seed=MLP_SEED, dtype=dtype, **params)
+        return est.fit(x_train, labels=y_train)
+
+    def flat_rel(a, b):
+        return float(np.abs(a.flat_weights - b.flat_weights).max()
+                     / np.abs(b.flat_weights).max())
+
+    optim.weighted_mean_value_and_grad = counting_vg
+    try:
+        first32, first64 = fit(maxIter=1), fit("float64", maxIter=1)
+        m32 = fit(maxIter=MLP_ITER, tol=0.0)
+        again = fit(maxIter=MLP_ITER, tol=0.0)
+        torch.set_float32_matmul_precision("high")
+        try:
+            high = fit(maxIter=MLP_ITER, tol=0.0)
+        finally:
+            torch.set_float32_matmul_precision("highest")
+        m64 = fit("float64", maxIter=MLP_ITER, tol=0.0)
+        t1 = time.perf_counter()
+        spark_fit = fit(maxIter=MLP_SPARK_ITER)
+        spark_fit_s = time.perf_counter() - t1
+        spark_evals = evals[-1]
+        gd = fit(maxIter=MLP_GD_STEPS, solver="gd")
+    finally:
+        optim.weighted_mean_value_and_grad = real_vg
+    first_rel = flat_rel(first32, first64)
+    loss_rel = abs(m32.final_loss_ - m64.final_loss_) / abs(m64.final_loss_)
+    p32 = np.argmax(m32.predict_proba(x_test), axis=1)
+    p64 = np.argmax(m64.predict_proba(x_test), axis=1)
+    agree = float(np.mean(p32 == p64))
+    repeat_bits = bool(np.array_equal(m32.flat_weights, again.flat_weights))
+    high_bits = bool(np.array_equal(m32.flat_weights, high.flat_weights))
+    acc = {name: float(np.mean(np.argmax(m.predict_proba(x_test), axis=1)
+                               == y_test))
+           for name, m in (("lbfgs20_f32", m32), ("lbfgs20_f64", m64),
+                           ("spark_default", spark_fit), ("gd", gd))}
+    with tempfile.TemporaryDirectory() as tmp:
+        spark_fit.save(os.path.join(tmp, "mlp"))
+        loaded = load_model(os.path.join(tmp, "mlp"))
+    raw = np.stack(spark_fit.transform(x_test).column("rawPrediction"))
+    raw_loaded = np.stack(loaded.transform(x_test).column("rawPrediction"))
+    saved_bits = bool(np.array_equal(raw, raw_loaded))
+    # one objective evaluation's device time, the card held busy while the
+    # host enqueues it; an iteration of the default fit on the host clock
+    xd = torch.as_tensor(x_train, device=device)
+    ohd = torch.as_tensor(validate_and_onehot(x_train, y_train, MLP_LAYERS),
+                          dtype=torch.float32, device=device)
+    wd = torch.ones(x_train.shape[0], device=device)
+    start = mlp_params_from_jax(init_weights(MLP_LAYERS, MLP_SEED),
+                                device=device, dtype=torch.float32)
+    shapes = [tuple(t.shape) for t in start.weights]
+    vg = real_vg(rowwise_cross_entropy, (xd, ohd), wd, shapes)
+    flat = optim.flatten(list(start.weights))
+    eval_ms = time_ms(torch, lambda: vg(flat), iters=5, busy=True)
+    del xd, ohd, wd
+    iter_host_ms = spark_fit.fit_timings_["fit_kernel"] * 1e3 / \
+        spark_fit.num_iterations_
+    evals_per_iter = spark_evals / spark_fit.num_iterations_
+    iter_device_ms = eval_ms * evals_per_iter
+    log(f"  (i) MultilayerPerceptronClassifier(layers={MLP_LAYERS}) on "
+        f"{UMAP_TRAIN_ROWS:,} MNIST-shaped rows (made in {data_s:.2f} s), "
+        f"held out {UMAP_TEST_ROWS:,}: first iterate float32 vs float64 "
+        f"{first_rel:.3e} (bar {MLP_FIRST_RTOL:g}); {MLP_ITER} L-BFGS "
+        f"iterations: loss {m32.final_loss_:.6g} vs {m64.final_loss_:.6g}, "
+        f"{loss_rel:.3e} (bar {MLP_LOSS_RTOL:g}), params {flat_rel(m32, m64):.3e} "
+        f"(recorded), held-out class agreement {agree:.5f} (bar "
+        f"{MLP_AGREE}); repeated bit-equal {repeat_bits}, under "
+        f"set_float32_matmul_precision('high') {high_bits}; maxIter "
+        f"{MLP_SPARK_ITER} (Spark's default): n_iter "
+        f"{spark_fit.num_iterations_}, loss {spark_fit.final_loss_:.6g}, "
+        f"{spark_fit_s:.2f} s, an iteration {iter_host_ms:.3f} ms on the "
+        f"host clock, {evals_per_iter:.2f} objective evaluations of "
+        f"{eval_ms:.4f} ms on the card (CUDA events, card held busy): "
+        f"{iter_device_ms:.3f} ms of device work; {MLP_GD_STEPS} GD steps: "
+        f"loss {gd.final_loss_:.6g}; held-out accuracy {acc}; save → "
+        f"load_model → transform bit-equal {saved_bits}; {smi}")
+    check(first_rel <= MLP_FIRST_RTOL, f"MLP first iterate {first_rel:.3e}")
+    check(loss_rel <= MLP_LOSS_RTOL, f"MLP 20th loss {loss_rel:.3e}")
+    check(agree >= MLP_AGREE, f"MLP held-out agreement {agree:.5f}")
+    check(repeat_bits, "the float32 MLP fit does not repeat bit for bit")
+    check(high_bits, "the float32 MLP fit differs under 'high'")
+    check(saved_bits, "MLP save → load_model → transform")
+    check(all(np.isfinite(m.final_loss_) for m in (m32, m64, spark_fit, gd)),
+          "an MLP loss is not finite")
+    summary["mlp"] = {
+        "rows": UMAP_TRAIN_ROWS, "held_out": UMAP_TEST_ROWS,
+        "layers": MLP_LAYERS, "first_iterate_rel": first_rel,
+        "loss20_f32": m32.final_loss_, "loss20_f64": m64.final_loss_,
+        "loss20_rel": loss_rel, "params20_rel": flat_rel(m32, m64),
+        "agreement": agree, "repeat_bit_equal": repeat_bits,
+        "high_bit_equal": high_bits, "saved_bit_equal": saved_bits,
+        "spark_default_n_iter": spark_fit.num_iterations_,
+        "spark_default_loss": spark_fit.final_loss_,
+        "spark_default_s": spark_fit_s, "gd_loss": gd.final_loss_,
+        "accuracy": acc, "iteration_host_ms": iter_host_ms,
+        "evaluations_per_iteration": evals_per_iter,
+        "evaluation_device_ms": eval_ms,
+        "iteration_device_ms": iter_device_ms}
+
+    # (ii) distributed_mlp_fit on one NCCL rank against (i)'s float32 fit
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    coordinator = f"127.0.0.1:{free_port()}"
+    try:
+        initialize_multihost(coordinator, num_processes=1, process_id=0)
+    except Exception as exc:
+        raise RuntimeError(f"phase 28: the one-rank NCCL world did not "
+                           f"start at {coordinator}: {exc!r}") from exc
+    try:
+        check(dist.get_backend() == "nccl", "the card's world runs NCCL")
+        # the sharded fit binds the objective when its module is imported:
+        # count its evaluations there
+        distributed_optim.weighted_mean_value_and_grad = counting_vg
+        t0 = time.perf_counter()
+        result = distributed_mlp_fit(x_train, y_train, MLP_LAYERS,
+                                     data_mesh(1), max_iter=MLP_ITER,
+                                     tol=0.0, seed=MLP_SEED)
+        dist_s = time.perf_counter() - t0
+        dist_evals = evals[-1]
+    finally:
+        distributed_optim.weighted_mean_value_and_grad = real_vg
+        dist.destroy_process_group()
+    params, n_iter, loss = result
+    same = bool(np.array_equal(flatten_weights(params), m32.flat_weights))
+    collectives = result.fit_report_.collectives
+    log(f"  (ii) distributed_mlp_fit, one NCCL rank: {dist_s:.3f} s, n_iter "
+        f"{n_iter}, loss {loss:.6g}; bit-equal to (i)'s float32 fit {same}; "
+        f"{dist_evals} objective evaluations, collectives {collectives}")
+    check(same and n_iter == m32.num_iterations_
+          and loss == m32.final_loss_, "distributed MLP vs (i)")
+    check(collectives["all_reduce"]["count"] == dist_evals >= n_iter + 1,
+          f"distributed MLP all-reduces {collectives} for {dist_evals} "
+          "objective evaluations")
+    summary["mlp_distributed"] = {"seconds": dist_s, "bit_equal": same,
+                                  "evaluations": dist_evals,
+                                  "collectives": collectives}
+    del x_train, x_test, m32, m64, again, high, first32, first64, gd
+    torch.cuda.empty_cache()
+
+    # (iii) OneVsRest at covtype's shape
+    t0 = time.perf_counter()
+    x, y = covtype_shaped(torch, device)
+    counts = np.bincount(y.astype(int) - 1).tolist()
+    cov_s = time.perf_counter() - t0
+    frame = as_vector_frame(x, "features").with_column("label", y)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    plan = fg.gram_plan(x.shape[0], x.shape[1], "highest", sms)
+    check(plan.route == "narrow", f"OneVsRest Gram route {plan.route}")
+
+    def ovr(dtype):
+        clf = LogisticRegression().setMaxIter(OVR_ITER).setRegParam(
+            OVR_REG).setDtype(dtype)
+        return OneVsRest(classifier=clf).fit(frame)
+
+    fg.reset_launches()
+    t0 = time.perf_counter()
+    o32 = ovr("float32")
+    ovr32_s = time.perf_counter() - t0
+    launched = dict(fg.launches)
+    o64 = ovr("float64")
+    launched64 = {k: v for k, v in fg.launches.items() if v != launched[k]}
+    iterations = sum(int(m.n_iter_) for m in o32.models)
+    out32, out64 = o32.transform(frame), o64.transform(frame)
+    s32 = np.asarray(out32.column("rawPrediction"), dtype=np.float64)
+    s64 = np.asarray(out64.column("rawPrediction"), dtype=np.float64)
+    pred32 = np.asarray(out32.column("prediction"))
+    pred64 = np.asarray(out64.column("prediction"))
+    ovr_agree = float(np.mean(pred32 == pred64))
+    score_err = float(np.abs(s32 - s64).max())
+    accuracy = float(np.mean(pred64 == y))
+    gram = {}
+    rowmul = torch.full((x.shape[0],), 0.5, device=device)
+    gram["OneVsRest logreg Hessian, covtype 581,012 x 54 (phase 28)"] = \
+        hessian_shape(torch, fg, "OneVsRest covtype",
+                      torch.as_tensor(x, device=device), rowmul)
+    log(f"  (iii) OneVsRest(LogisticRegression(maxIter={OVR_ITER}, "
+        f"regParam={OVR_REG})) on {x.shape[0]:,} x {x.shape[1]} "
+        f"covtype-shaped rows (made in {cov_s:.2f} s; class counts {counts} "
+        f"against {list(COVTYPE_COUNTS)}): float32 search {ovr32_s:.2f} s, "
+        f"{iterations} Newton iterations over {len(o32.models)} sub-fits, "
+        f"Gram launches {launched} on the {plan.route} route ({plan.runs} "
+        f"runs); the float64 search's {launched64}; classes {o32.classes.tolist()}; "
+        f"agreement with float64 {ovr_agree:.6f} (bar {OVR_AGREE}), scores "
+        f"max |Δ| {score_err:.3e} (bar {OVR_SCORE_ATOL:g}); accuracy "
+        f"{accuracy:.4f} (recorded)")
+    check(np.array_equal(o32.classes, np.arange(1, 8)), "OvR classes 1-7")
+    check(launched[fg.NARROW_KERNEL] == iterations == sum(launched.values()),
+          f"OvR Gram launches {launched} for {iterations} iterations")
+    check(not launched64, f"the float64 OvR launched {launched64}")
+    check(ovr_agree >= OVR_AGREE, f"OvR agreement {ovr_agree:.6f}")
+    check(score_err <= OVR_SCORE_ATOL, f"OvR scores {score_err:.3e}")
+    summary["ovr"] = {"rows": int(x.shape[0]), "features": int(x.shape[1]),
+                      "class_counts": counts, "route": plan.route,
+                      "runs": plan.runs, "launches": launched[
+                          fg.NARROW_KERNEL],
+                      "newton_iterations": iterations,
+                      "float32_seconds": ovr32_s, "agreement": ovr_agree,
+                      "score_max_abs_err": score_err, "accuracy": accuracy}
+    del s32, s64, out32, out64, o32
+    torch.cuda.empty_cache()
+
+    # (iv) the front ends on the local engine
+    x16, y16 = x[:OVR_FRONT_ROWS], y[:OVR_FRONT_ROWS]
+    spark = LocalSparkSession(n_partitions=4)
+    t0 = time.perf_counter()
+    df = spark.createDataFrame([
+        {"features": DenseVector(r), "label": float(lab),
+         "class_index": float(lab - 1.0)} for r, lab in zip(x16, y16)])
+    front = S.OneVsRest(classifier=LogisticRegression().setMaxIter(
+        OVR_FRONT_ITER).setRegParam(OVR_REG)).fit(df)
+    front_s = time.perf_counter() - t0
+    local = OneVsRest(classifier=LogisticRegression().setMaxIter(
+        OVR_FRONT_ITER).setRegParam(OVR_REG).setDtype("float64")).fit(
+            as_vector_frame(x16, "features").with_column("label", y16))
+    front_pred = np.asarray([r["prediction"] for r in
+                             front.transform(df).collect()])
+    local_pred = np.asarray(local.transform(x16).column("prediction"))
+    front_agree = float(np.mean(front_pred == local_pred))
+    classes_same = bool(np.array_equal(front._local.classes, local.classes))
+    t1 = time.perf_counter()
+    mlp_front = S.MultilayerPerceptronClassifier(
+        layers=MLP_FRONT_LAYERS, maxIter=OVR_FRONT_ITER * 4,
+        labelCol="class_index", seed=MLP_SEED).fit(df)
+    mlp_rows = mlp_front.transform(df).collect()
+    mlp_s = time.perf_counter() - t1
+    mlp_pred = np.asarray([r["prediction"] for r in mlp_rows])
+    mlp_local = np.asarray(mlp_front._local.transform(x16).column(
+        "prediction"))
+    mlp_same = bool(np.array_equal(mlp_pred, mlp_local))
+    log(f"  (iv) spark.OneVsRest (plane LogisticRegression sub-fits, maxIter "
+        f"{OVR_FRONT_ITER}) on {OVR_FRONT_ROWS:,} rows in 4 local "
+        f"partitions: {front_s:.2f} s with the frame; classes equal to the "
+        f"in-memory float64 fit {classes_same}, predictions agree "
+        f"{front_agree:.6f} (bar {OVR_AGREE}); "
+        f"spark.MultilayerPerceptronClassifier({MLP_FRONT_LAYERS}) fit → "
+        f"transform {mlp_s:.2f} s: predictions equal to its model's "
+        f"transform {mlp_same}")
+    check(classes_same, "spark OneVsRest classes vs the in-memory fit")
+    check(front_agree >= OVR_AGREE, f"spark OneVsRest {front_agree:.6f}")
+    check(mlp_same, "spark MLP pair vs its model's transform")
+    summary["front_ends"] = {"rows": OVR_FRONT_ROWS,
+                             "ovr_seconds": front_s,
+                             "ovr_agreement": front_agree,
+                             "mlp_seconds": mlp_s, "mlp_equal": mlp_same}
+    seconds = time.perf_counter() - t_phase
+    summary["seconds"] = seconds
+    log(f"  phase 28 {seconds:.1f} s; {smi}")
+    return {fg.NARROW_KERNEL: launched[fg.NARROW_KERNEL]}, gram, summary
+
+
 def build_fresh(cuda_build):
     """Build the Gram library anew, so ``ptxas -v`` reports on it."""
     path = cuda_build.library_path("fused_gram")
@@ -10076,6 +10474,10 @@ def main() -> int:
     log("[27] PowerIterationClustering and the DBSCAN and PIC front ends")
     pic_summary = phase_pic(torch, fg, device)
 
+    log("[28] the MultilayerPerceptron and OneVsRest on the card")
+    mlp_launches, ovr_shapes, mlp_summary = phase_mlp_ovr(torch, fg, device)
+    measured[fg.NARROW_KERNEL]["extra_shapes"].update(ovr_shapes)
+
     kernels = []
     for name, m in measured.items():
         by_phase = {"4": launches.get(name, 0), "7": distributed.get(name, 0),
@@ -10089,7 +10491,8 @@ def main() -> int:
                     "21": plane_launches.get(name, 0), "22": 0,
                     "23": 0, "24": umap_launches.get(name, 0),
                     "25": clustering_launches.get(name, 0),
-                    "26": tuning_launches.get(name, 0), "27": 0}
+                    "26": tuning_launches.get(name, 0), "27": 0,
+                    "28": mlp_launches.get(name, 0)}
         # each kernel's own path: the PCA slice's fits, and phase 25's GMM
         # at HIGGS's shape for the narrow route
         home = "25" if name == fg.NARROW_KERNEL else "4"
@@ -10115,6 +10518,7 @@ def main() -> int:
     print(json.dumps({"clustering": clustering_summary}))
     print(json.dumps({"tuning_stat": tuning_summary}))
     print(json.dumps({"pic": pic_summary}))
+    print(json.dumps({"mlp_ovr": mlp_summary}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -139,6 +139,18 @@ from spark_rapids_ml_tpu_torch.models.gaussian_mixture import (  # noqa: F401
     GaussianMixture,
     GaussianMixtureModel,
 )
+from spark_rapids_ml_tpu_torch.models.mlp import (  # noqa: F401
+    MultilayerPerceptronClassifier,
+    MultilayerPerceptronModel,
+)
+from spark_rapids_ml_tpu_torch.models.ovr import (  # noqa: F401
+    OneVsRest,
+    OneVsRestModel,
+)
+from spark_rapids_ml_tpu_torch.models.imputer import (  # noqa: F401
+    Imputer,
+    ImputerModel,
+)
 from spark_rapids_ml_tpu_torch.models.bisecting_kmeans import (  # noqa: F401
     BisectingKMeans,
     BisectingKMeansModel,
@@ -254,6 +266,12 @@ __all__ = [
     "UMAPModel",
     "GaussianMixture",
     "GaussianMixtureModel",
+    "MultilayerPerceptronClassifier",
+    "MultilayerPerceptronModel",
+    "OneVsRest",
+    "OneVsRestModel",
+    "Imputer",
+    "ImputerModel",
     "BisectingKMeans",
     "BisectingKMeansModel",
     "BinaryClassificationEvaluator",

@@ -37,7 +37,10 @@ in the other (``RapidsPCA.scala:218-254``):
   ``labelsArray``, OneHotEncoderModel ``categorySizes``,
   CountVectorizerModel ``vocabulary``, IDFModel ``idf``, ``docFreq`` and
   ``numDocs``; VectorIndexerModel and RFormulaModel carry one
-  ``jsonState`` column (``save_json_state_model``).
+  ``jsonState`` column (``save_json_state_model``); for
+  MultilayerPerceptronModel one flat ``weights`` vector (per layer, W
+  row-major then b), its layers, iterations and final loss in the
+  metadata's ``extra``; for ImputerModel ``surrogates``.
   Without pyarrow (optional) the same row is written as
   ``part-00000.json``, which both packages' readers accept.
 
@@ -121,6 +124,11 @@ _SPARK_CLASS_ALIASES = {
     "RFormulaModel": "org.apache.spark.ml.feature.RFormulaModel",
     "Pipeline": "org.apache.spark.ml.Pipeline",
     "PipelineModel": "org.apache.spark.ml.PipelineModel",
+    "MultilayerPerceptronClassifier":
+        "org.apache.spark.ml.classification.MultilayerPerceptronClassifier",
+    "MultilayerPerceptronModel":
+        "org.apache.spark.ml.classification."
+        "MultilayerPerceptronClassificationModel",
 }
 
 # Params a real Spark DefaultParamsReader recognizes per class; the rest
@@ -193,6 +201,15 @@ _SPARK_PARAM_ALLOWLIST = {
         "labelType", "selectionMode", "selectionThreshold"},
     "RFormula": {"formula", "featuresCol", "labelCol"},
     "RFormulaModel": {"formula", "featuresCol", "labelCol"},
+    # NOTE: Spark's MLP has no weightCol param — it stays in tpuParamMap
+    "MultilayerPerceptronClassifier": {
+        "layers", "labelCol", "predictionCol", "probabilityCol",
+        "rawPredictionCol", "maxIter", "tol", "seed", "solver",
+        "stepSize", "blockSize"},
+    "MultilayerPerceptronModel": {
+        "layers", "labelCol", "predictionCol", "probabilityCol",
+        "rawPredictionCol", "maxIter", "tol", "seed", "solver",
+        "stepSize", "blockSize"},
 }
 
 
@@ -923,6 +940,76 @@ _MAXABS_FIELDS = {"maxAbs": "max_abs"}
 _ROBUST_FIELDS = {"median": "median", "range": "qrange"}
 
 
+_IMPUTER_FIELDS = {"surrogates": "surrogates"}
+
+
+def save_imputer_model(model, path: str, overwrite: bool = False) -> None:
+    _save_vector_row(model, path, overwrite, _IMPUTER_FIELDS)
+
+
+def load_imputer_model(path: str):
+    from spark_rapids_ml_tpu_torch.models.imputer import ImputerModel
+
+    return _load_vector_row(path, ImputerModel, _IMPUTER_FIELDS)
+
+
+def save_mlp_model(model, path: str, overwrite: bool = False) -> None:
+    """Spark MultilayerPerceptronClassificationModel layout: the layer
+    sizes plus ONE flat weight vector (per layer: W row-major then b) —
+    matching ``MultilayerPerceptronClassifierWriter`` upstream."""
+    if model.weights_ is None:
+        raise ValueError(
+            "cannot save an unfitted MultilayerPerceptronModel")
+    _require_target(path, overwrite)
+    cls = f"{type(model).__module__}.{type(model).__qualname__}"
+    extras = {
+        "numIterations": int(model.num_iterations_),
+        "finalLoss": float(model.final_loss_),
+        "layersFitted": [int(v) for v in model.layers_],
+    }
+    _write_metadata(path, cls, model.uid, model.param_map_for_metadata(),
+                    extra=extras)
+    row = {"weights": _dense_vector_struct(model.flat_weights)}
+    try:
+        import pyarrow as pa
+    except ImportError:
+        schema = None
+    else:
+        schema = pa.schema([("weights", _vector_arrow_type())])
+    _write_data_row(path, row, schema=schema,
+                    spark_fields=[("weights", "vector")])
+
+
+def load_mlp_model(path: str):
+    from spark_rapids_ml_tpu_torch.models.mlp import (
+        MultilayerPerceptronModel,
+        weights_from_flat,
+    )
+
+    meta = _read_metadata(path)
+    row = _read_data_row(path)
+    extras = meta.get("extra", {})
+    # layersFitted is this writer's record; a genuine Spark-written
+    # directory carries layers only in its paramMap — fall back there
+    layers_raw = extras.get("layersFitted") \
+        or meta.get("paramMap", {}).get("layers") \
+        or meta.get("tpuParamMap", {}).get("layers")
+    if layers_raw is None:
+        raise ValueError(
+            f"{path}: metadata carries no layer sizes (layersFitted / "
+            "paramMap.layers)")
+    layers = [int(v) for v in layers_raw]
+    model = MultilayerPerceptronModel(
+        layers=layers,
+        weights=weights_from_flat(
+            _dense_vector_from_struct(row["weights"]), layers),
+        uid=meta["uid"],
+    )
+    model.num_iterations_ = int(extras.get("numIterations", 0))
+    model.final_loss_ = float(extras.get("finalLoss", float("nan")))
+    return _restore_params(model, meta)
+
+
 def save_scaler_model(model, path: str, overwrite: bool = False) -> None:
     _save_vector_row(model, path, overwrite, _SCALER_FIELDS)
 
@@ -1445,6 +1532,9 @@ _MODEL_CLASSES = {
         ("svd", ("TruncatedSVD", "TruncatedSVDModel")),
         ("nearest_neighbors", ("NearestNeighbors", "NearestNeighborsModel")),
         ("naive_bayes", ("NaiveBayes", "NaiveBayesModel")),
+        ("mlp", ("MultilayerPerceptronClassifier",
+                 "MultilayerPerceptronModel")),
+        ("imputer", ("Imputer", "ImputerModel")),
         ("dbscan", ("DBSCAN",)),
         ("pic", ("PowerIterationClustering",)),
         ("random_forest", ("RandomForestRegressor",

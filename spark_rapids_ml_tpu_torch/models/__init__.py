@@ -80,6 +80,12 @@ from spark_rapids_ml_tpu_torch.models.bisecting_kmeans import (
     BisectingKMeans,
     BisectingKMeansModel,
 )
+from spark_rapids_ml_tpu_torch.models.mlp import (
+    MultilayerPerceptronClassifier,
+    MultilayerPerceptronModel,
+)
+from spark_rapids_ml_tpu_torch.models.ovr import OneVsRest, OneVsRestModel
+from spark_rapids_ml_tpu_torch.models.imputer import Imputer, ImputerModel
 
 __all__ = [
     "PCA",
@@ -137,4 +143,10 @@ __all__ = [
     "GaussianMixtureModel",
     "BisectingKMeans",
     "BisectingKMeansModel",
+    "MultilayerPerceptronClassifier",
+    "MultilayerPerceptronModel",
+    "OneVsRest",
+    "OneVsRestModel",
+    "Imputer",
+    "ImputerModel",
 ]

@@ -4,7 +4,9 @@ data-parallel LinearRegression, LogisticRegression, LinearSVC,
 GeneralizedLinearRegression, KMeans, NaiveBayes, GaussianMixture and
 BisectingKMeans fits; the sharded brute-force and IVF searches and DBSCAN;
 the RandomForest and GBT fits; the UMAP optimizer; the power iteration
-of PowerIterationClustering."""
+of PowerIterationClustering; the shared smooth-objective optimizer and
+the MultilayerPerceptron fit (``distributed_optim``; its FM and AFT fits
+come with their families, ROADMAP queue 1 item 7e)."""
 
 from spark_rapids_ml_tpu_torch.parallel.mesh import (
     DATA_AXIS,
@@ -78,6 +80,10 @@ from spark_rapids_ml_tpu_torch.parallel.distributed_umap import (
 from spark_rapids_ml_tpu_torch.parallel.distributed_pic import (
     distributed_pic_assign,
 )
+from spark_rapids_ml_tpu_torch.parallel.distributed_optim import (
+    distributed_minimize,
+    distributed_mlp_fit,
+)
 from spark_rapids_ml_tpu_torch.parallel.streaming import (
     DistributedStreamingPCA,
     distributed_streaming_pca_fit,
@@ -110,6 +116,7 @@ __all__ = [
     "distributed_forest_fit", "distributed_gbt_fit",
     "distributed_umap_optimize",
     "distributed_pic_assign",
+    "distributed_minimize", "distributed_mlp_fit",
     "distributed_gmm_fit", "distributed_gmm_stats_kernel",
     "BisectingKMeansResult", "distributed_bisecting_kmeans_fit",
     "DistributedStreamingPCA", "distributed_streaming_pca_fit",

@@ -13,10 +13,12 @@ The port's copy of the JAX package's ``spark/__init__.py`` for what is
 ported: the statistics plane (``estimator.py``: PCA, LinearRegression,
 LogisticRegression, KMeans, NaiveBayes and their models), the moments
 plane (``moments_estimator.py``: the four scalers, TruncatedSVD,
-LinearSVC, GLM, GaussianMixture and BisectingKMeans), the per-level tree
-plane (``forest_estimator.py``: DecisionTree, RandomForest and GBT), and
-the generic adapter's models, NearestNeighbors and UMAP (``adapter.py``,
-``adapter2.py``, ``adapter3.py``), DBSCAN and PowerIterationClustering
+LinearSVC, GLM, GaussianMixture, BisectingKMeans, OneVsRest and Imputer),
+the per-level tree plane (``forest_estimator.py``: DecisionTree,
+RandomForest and GBT), and the generic adapter's models,
+NearestNeighbors, UMAP and the MultilayerPerceptronClassifier
+(``adapter.py``, ``adapter2.py``, ``adapter3.py``), DBSCAN and
+PowerIterationClustering
 (``adapter3.py``), the feature and text transformers
 (``transformers.py``), the DataFrame ``Pipeline`` and model selection
 (``tuning_front.py``) and the six evaluators, which are the local
@@ -45,7 +47,9 @@ _PYSPARK_CLASSES = (
 )
 
 # moments-plane front-ends (spark/moments_estimator.py): the scalers,
-# TruncatedSVD, LinearSVC, GLM, GaussianMixture and BisectingKMeans fit on
+# TruncatedSVD, LinearSVC, GLM, GaussianMixture, BisectingKMeans,
+# OneVsRest (plane LogisticRegression / LinearSVC sub-fits) and Imputer
+# (exact missing-aware partials, or the sampled-quantile pass) fit on
 # executor moment / sample / Gram / Newton / EM / split partials, never
 # collecting rows to the driver; their models stay the adapters'
 _MOMENTS_PLANE_CLASSES = (
@@ -58,6 +62,8 @@ _MOMENTS_PLANE_CLASSES = (
     "GeneralizedLinearRegression",
     "GaussianMixture",
     "BisectingKMeans",
+    "OneVsRest",
+    "Imputer",
 )
 
 # tree-ensemble front-ends (spark/forest_estimator.py): fits run on the
@@ -73,7 +79,8 @@ _FOREST_PLANE_CLASSES = (
 )
 
 # generic-adapter front-ends (spark/adapter.py): the models' pandas_udf
-# transforms and the driver-collect NearestNeighbors and UMAP fits
+# transforms and the driver-collect NearestNeighbors, UMAP and
+# MultilayerPerceptronClassifier fits
 _ADAPTER_CLASSES = (
     "RandomForestClassifierModel",
     "RandomForestRegressorModel",
@@ -92,6 +99,10 @@ _ADAPTER_CLASSES = (
     "UMAP",
     "UMAPModel",
     "GaussianMixtureModel",
+    "ImputerModel",
+    "OneVsRestModel",
+    "MultilayerPerceptronClassifier",
+    "MultilayerPerceptronClassifierModel",
 )
 
 # the DecisionTree models (spark/adapter2.py); their estimators route to
@@ -190,16 +201,10 @@ _UNPORTED = {
     "BucketedRandomProjectionLSHModel": _FAMILIES,
     "FPGrowth": _FAMILIES,
     "FPGrowthModel": _FAMILIES,
-    "Imputer": _FAMILIES,
-    "ImputerModel": _FAMILIES,
     "LDA": _FAMILIES,
     "LDAModel": _FAMILIES,
     "MinHashLSH": _FAMILIES,
     "MinHashLSHModel": _FAMILIES,
-    "MultilayerPerceptronClassifier": _FAMILIES,
-    "MultilayerPerceptronClassifierModel": _FAMILIES,
-    "OneVsRest": _FAMILIES,
-    "OneVsRestModel": _FAMILIES,
     "Word2Vec": _FAMILIES,
     "Word2VecModel": _FAMILIES,
     # the rest of spark/

@@ -22,15 +22,16 @@ documented envelope for these families; the statistics families stream.
 The port's copy of the JAX package's ``spark/adapter.py``, for the
 families the port has: RandomForest and GBT (both kinds), LinearSVC,
 GeneralizedLinearRegression, StandardScaler, MinMaxScaler, MaxAbsScaler,
-RobustScaler, TruncatedSVD, NearestNeighbors, UMAP and GaussianMixture
-(whose estimator ``spark/__init__.py`` routes to the moments plane), and
-NaiveBayes' model (its estimator is ``spark/estimator.py``'s). Every
+RobustScaler, Imputer, TruncatedSVD, NearestNeighbors, UMAP,
+GaussianMixture, MultilayerPerceptronClassifier and OneVsRest (whose
+Imputer, OneVsRest and moments-family estimators ``spark/__init__.py``
+routes to the moments plane), and NaiveBayes' model (its estimator is
+``spark/estimator.py``'s). Every
 ``pandas_udf`` body is a module function on numpy rows (``_model_output``,
 ``_classifier_probability``, ``_classifier_prediction``, ``_svc_raw``,
 ``_svc_prediction``, ``_glm_eta``, ``_glm_mu``), so it runs without
 pandas; the UDFs only wrap them. ``_host_fitted_state`` moves a model's
-torch tensors to host numpy before it ships. The MLP, Imputer and
-OneVsRest pairs wait for their families (ROADMAP queue 1 item 7).
+torch tensors to host numpy before it ships.
 
 Works identically against real pyspark and the in-repo local engine
 (``spark/_compat.py``).
@@ -61,15 +62,21 @@ __all__ = [
     "GaussianMixtureModel",
     "GeneralizedLinearRegression",
     "GeneralizedLinearRegressionModel",
+    "Imputer",
+    "ImputerModel",
     "LinearSVC",
     "LinearSVCModel",
     "MaxAbsScaler",
     "MaxAbsScalerModel",
     "MinMaxScaler",
     "MinMaxScalerModel",
+    "MultilayerPerceptronClassifier",
+    "MultilayerPerceptronClassifierModel",
     "NaiveBayesModel",
     "NearestNeighbors",
     "NearestNeighborsModel",
+    "OneVsRest",
+    "OneVsRestModel",
     "RandomForestClassifier",
     "RandomForestClassifierModel",
     "RandomForestRegressor",
@@ -589,9 +596,17 @@ from spark_rapids_ml_tpu_torch.models.glm import (  # noqa: E402
     GeneralizedLinearRegression as _LGLM,
     GeneralizedLinearRegressionModel as _LGLM_M,
 )
+from spark_rapids_ml_tpu_torch.models.imputer import (  # noqa: E402
+    Imputer as _LIMP,
+    ImputerModel as _LIMP_M,
+)
 from spark_rapids_ml_tpu_torch.models.linear_svc import (  # noqa: E402
     LinearSVC as _LSVC,
     LinearSVCModel as _LSVC_M,
+)
+from spark_rapids_ml_tpu_torch.models.mlp import (  # noqa: E402
+    MultilayerPerceptronClassifier as _LMLP,
+    MultilayerPerceptronModel as _LMLP_M,
 )
 from spark_rapids_ml_tpu_torch.models.naive_bayes import (  # noqa: E402
     NaiveBayesModel as _LNB_M,
@@ -661,6 +676,16 @@ GaussianMixture, GaussianMixtureModel = _make_pair(
         "(spark/moments_estimator.py); probability holds the "
         "responsibility vector, prediction its argmax.",
 )
+MultilayerPerceptronClassifier, MultilayerPerceptronClassifierModel = (
+    _make_pair(
+        "MultilayerPerceptronClassifier", _LMLP, _LMLP_M,
+        needs_label=True, classifier=True,
+        doc="Full-batch L-BFGS on the driver's card (the host-driven loop "
+            "of ops/optim.py); fit collects under the adapter envelope "
+            "(the line search's state does not decompose into cheap "
+            "per-partition statistics jobs).",
+    )
+)
 StandardScaler, StandardScalerModel = _make_pair(
     "StandardScaler", _LSS, _LSS_M, needs_label=False,
     out_col_param="outputCol", out_kind="vector",
@@ -680,6 +705,11 @@ RobustScaler, RobustScalerModel = _make_pair(
     doc="Quantile-range scaling; exact quantiles on the collected fit "
         "(envelope-guarded).",
 )
+Imputer, ImputerModel = _make_pair(
+    "Imputer", _LIMP, _LIMP_M, needs_label=False,
+    out_col_param="outputCol", out_kind="vector",
+    doc="Per-feature missing-value replacement (mean/median/mode).",
+)
 TruncatedSVD, TruncatedSVDModel = _make_pair(
     "TruncatedSVD", _LSVD, _LSVD_M, needs_label=False,
     out_col_param="outputCol", out_kind="vector",
@@ -692,6 +722,41 @@ UMAP, UMAPModel = _make_pair(
         "transform is the out-of-sample placement rule, applied per "
         "Arrow batch on executors.",
 )
+
+
+class OneVsRest(_AdapterEstimator):
+    """DataFrame front-end over ``models.OneVsRest``: multiclass reduction
+    over any local binary classifier (``spark.OneVsRest(classifier=
+    LinearSVC(...)._local)`` or any ``spark_rapids_ml_tpu_torch``
+    estimator)."""
+
+    from spark_rapids_ml_tpu_torch.models.ovr import (
+        OneVsRest as _local_cls_ref,
+    )
+
+    _local_cls = _local_cls_ref
+    _needs_label = True
+
+    def __init__(self, classifier=None, **kwargs):
+        super().__init__(**kwargs)
+        if classifier is not None:
+            # accept either a local estimator or an adapter wrapper
+            self._local.classifier = getattr(classifier, "_local",
+                                             classifier)
+
+    def _fit(self, dataset):
+        local_model = self._local.fit(self._collect_frame(dataset))
+        return OneVsRestModel(local_model)
+
+
+class OneVsRestModel(_AdapterModel):
+    from spark_rapids_ml_tpu_torch.models.ovr import (
+        OneVsRestModel as _local_model_cls_ref,
+    )
+
+    _local_model_cls = _local_model_cls_ref
+    _out_col_param = "predictionCol"
+    _out_kind = "double"
 
 
 def _kneighbors_rows(local, x: np.ndarray, k: Optional[int]) -> list:

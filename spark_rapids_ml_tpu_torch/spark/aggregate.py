@@ -27,8 +27,8 @@ label-value pass, KMeans, the NaiveBayes partials and
 per-feature moments and their combine, the Summarizer partials, the
 LinearSVC and GLM Newton / IRLS partials and the feature sample; then the
 GaussianMixture EM partial and the BisectingKMeans routing, moments,
-Lloyd and sample partials. The imputer and LDA partials come with their
-families (ROADMAP queue 1 item 7).
+Lloyd and sample partials, and the Imputer's missing-aware (count, Σx)
+partial. The LDA partial comes with its family (ROADMAP queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -1350,6 +1350,48 @@ def feature_sample_arrow_schema():
 
 def feature_sample_spark_ddl() -> str:
     return "n long, sample array<double>, d long"
+
+
+def partition_imputer_stats(
+    batches: Iterable, input_col: str, missing_value: float
+) -> Iterator[Dict[str, object]]:
+    """One partition's PER-FEATURE non-missing (count, Σx) — the
+    missing-aware moments the mean Imputer needs exactly (NaN entries
+    and the sentinel are excluded per feature, Spark's null semantics)."""
+    s1: Optional[np.ndarray] = None
+    cnt: Optional[np.ndarray] = None
+    for batch in batches:
+        if hasattr(batch, "column"):
+            x = vector_column_to_matrix(batch.column(input_col))
+        else:
+            x = np.asarray(batch, dtype=np.float64)
+        if x.shape[0] == 0:
+            continue
+        missing = np.isnan(x)
+        if not np.isnan(missing_value):
+            missing |= x == missing_value
+        if s1 is None:
+            s1 = np.zeros(x.shape[1])
+            cnt = np.zeros(x.shape[1])
+        xv = np.where(missing, 0.0, x)
+        s1 += xv.sum(axis=0)
+        cnt += (~missing).sum(axis=0)
+    if s1 is None:
+        return
+    yield {"count_vec": cnt.tolist(), "s1": s1.tolist()}
+
+
+def imputer_stats_arrow_schema():
+    import pyarrow as pa
+
+    return pa.schema([
+        ("count_vec", pa.list_(pa.float64())),
+        ("s1", pa.list_(pa.float64())),
+    ])
+
+
+def imputer_stats_spark_ddl() -> str:
+    return "count_vec array<double>, s1 array<double>"
 
 
 # --------------------------------------------------------------------------

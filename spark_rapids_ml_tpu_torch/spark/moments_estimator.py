@@ -22,7 +22,15 @@ per-partition → driver-reduce shape, ``RapidsRowMatrix.scala:168-202``):
   loop, and BisectingKMeans re-derives each row's leaf on the executors
   from the broadcast split hierarchy (``aggregate.route_rows_bisecting``):
   per split a seeding-sample job, one Lloyd job per iteration and one
-  moments job.
+  moments job;
+* OneVsRest discovers the labels in one job and fits each class's binary
+  sub-model on the LogisticRegression or LinearSVC plane (a relabelling
+  UDF column a class), the adapter collect for any other classifier or an
+  elastic-net LogisticRegression;
+* Imputer reduces EXACT per-feature missing-aware (count, Σx) partials
+  for the mean (``aggregate.partition_imputer_stats``), takes the median
+  from the sampled-quantile pass and keeps the adapter collect for the
+  mode.
 
 The classes subclass the adapter front-ends: param surface, setters,
 persistence, and pandas_udf transform are unchanged — only the fit
@@ -34,8 +42,9 @@ the families the port has; the partials are host NumPy float64 there and
 here, each equal to the JAX package's on the same batches. Every job goes
 through ``forest_estimator._collect_rows``, so ``forest_estimator.
 PartitionFrame`` drives each ``_fit`` on numpy partitions without
-pyarrow. The OneVsRest, Imputer and LDA front ends of the JAX module come
-with their families (ROADMAP queue 1 item 7).
+pyarrow (but OneVsRest's plane sub-fits, which run the statistics
+plane's ``mapInArrow`` jobs). The LDA front end of the JAX module comes
+with its family (ROADMAP queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -428,6 +437,185 @@ class RobustScaler(_adapter.RobustScaler):
                 axis=0,
             )
         local = RobustScalerModel(median=qs[1], qrange=qs[2] - qs[0])
+        local.uid = local_est.uid
+        local.copy_values_from(local_est)
+        local.fit_timings_ = timer.as_dict()
+        return self._model_cls(local)
+
+
+class OneVsRest(_adapter.OneVsRest):
+    """DataFrame OneVsRest whose K binary sub-fits run on the statistics
+    planes: classes come from one label-discovery job, each class gets a
+    relabeling UDF column plus a plane LogisticRegression / LinearSVC
+    fit (statistics partials, rows never on the driver). Classifier
+    types without a plane front-end fall back to the adapter path."""
+
+    def _fit(self, dataset):
+        from spark_rapids_ml_tpu_torch.models.linear_svc import (
+            LinearSVC as LocalSVCEst,
+        )
+        from spark_rapids_ml_tpu_torch.models.logistic_regression import (
+            LogisticRegression as LocalLogReg,
+        )
+        from spark_rapids_ml_tpu_torch.models.ovr import OneVsRestModel
+        from spark_rapids_ml_tpu_torch.spark.estimator import (
+            LogisticRegression as PlaneLR,
+        )
+
+        local_ovr = self._local
+        clf = local_ovr.classifier
+        plane_kind = None
+        if clf is None or isinstance(clf, (LocalLogReg, PlaneLR)):
+            plane_kind = "logreg"
+        elif isinstance(clf, LocalSVCEst):
+            plane_kind = "svc"
+
+        def sub_param(name, default):
+            if clf is None:
+                return default
+            if hasattr(clf, "has_param"):          # local Params system
+                if clf.has_param(name):
+                    return clf.get_or_default(name)
+                return default
+            if hasattr(clf, name):                  # pyspark-style Params
+                return clf.getOrDefault(getattr(clf, name))
+            return default
+
+        if plane_kind == "logreg" and float(
+            sub_param("elasticNetParam", 0.0)
+        ) > 0.0:
+            # the plane LogReg has no elastic-net path; the adapter
+            # collect + local proximal-Newton fit preserves the
+            # configured penalty instead of silently dropping it
+            plane_kind = None
+        if plane_kind is None:
+            return super()._fit(dataset)
+
+        import pyarrow  # noqa: F401 - mapInArrow dependency, fail early
+
+        from spark_rapids_ml_tpu_torch.spark._compat import pandas_udf
+        from spark_rapids_ml_tpu_torch.spark.aggregate import (
+            discover_label_values,
+        )
+
+        fcol = local_ovr.getInputCol()
+        lcol = local_ovr.getLabelCol()
+        classes = discover_label_values(dataset, lcol)
+        if classes.size < 2:
+            raise ValueError("OneVsRest needs at least two classes")
+        if not np.allclose(classes, np.round(classes)):
+            raise ValueError("labels must be integer class indices")
+
+        # uid-suffixed temp column: a dataset column literally named
+        # "ovr_label" (even the features column) must survive
+        bin_col = f"ovr_label_{local_ovr.uid}"
+        df = dataset.select(fcol, lcol).persist()
+        try:
+            models = []
+            for cls in classes:
+
+                @pandas_udf(returnType="double")
+                def bin_label(s, _c=float(cls)):
+                    import pandas as pd
+
+                    return pd.Series(
+                        (np.asarray(s, dtype=np.float64) == _c).astype(
+                            np.float64
+                        )
+                    )
+
+                df_c = df.withColumn(bin_col, bin_label(df[lcol]))
+                if plane_kind == "logreg":
+                    sub = PlaneLR(
+                        featuresCol=fcol, labelCol=bin_col,
+                        regParam=float(sub_param("regParam", 0.0)),
+                        fitIntercept=bool(sub_param("fitIntercept", True)),
+                        maxIter=int(sub_param("maxIter", 25)),
+                        tol=float(sub_param("tol", 1e-8)),
+                        # the {0,1} column was just built: skip the
+                        # per-sub-fit label-discovery job
+                        family="binomial",
+                    )
+                    models.append(sub.fit(df_c)._to_local())
+                else:
+                    sub = LinearSVC(
+                        featuresCol=fcol, labelCol=bin_col,
+                        regParam=float(sub_param("regParam", 0.0)),
+                        fitIntercept=bool(sub_param("fitIntercept", True)),
+                        maxIter=int(sub_param("maxIter", 100)),
+                        tol=float(sub_param("tol", 1e-8)),
+                        standardization=bool(
+                            sub_param("standardization", True)
+                        ),
+                    )
+                    models.append(sub.fit(df_c)._local)
+        finally:
+            df.unpersist()
+        local_model = OneVsRestModel(
+            models=models, classes=classes.astype(np.int64)
+        )
+        local_model.uid = local_ovr.uid
+        local_model.copy_values_from(local_ovr)
+        return _adapter.OneVsRestModel(local_model)
+
+
+class Imputer(_adapter.Imputer):
+    """Imputer on the statistics plane: strategy='mean' reduces EXACT
+    per-feature non-missing (count, Σx) partials; 'median' takes the
+    sampled-quantile pass (Spark's own median Imputer is approxQuantile);
+    'mode' needs exact value counts and keeps the adapter collect."""
+
+    def _fit(self, dataset):
+        from spark_rapids_ml_tpu_torch.models.imputer import ImputerModel
+        from spark_rapids_ml_tpu_torch.spark.aggregate import (
+            imputer_stats_arrow_schema,
+            imputer_stats_spark_ddl,
+            partition_imputer_stats,
+        )
+
+        local_est = self._local
+        strategy = local_est.getStrategy()
+        if strategy == "mode":
+            return super()._fit(dataset)
+        timer = PhaseTimer()
+        fcol = local_est.getInputCol()
+        missing = float(local_est.getMissingValue())
+        with timer.phase("fit"):
+            if strategy == "mean":
+                def job(batches):
+                    return partition_imputer_stats(batches, fcol, missing)
+
+                rows = _collect_rows(dataset.select(fcol), job,
+                                     imputer_stats_arrow_schema,
+                                     imputer_stats_spark_ddl())
+                if not rows:
+                    raise ValueError("empty dataset")
+                cnt = np.zeros(len(rows[0]["count_vec"]))
+                s1 = np.zeros_like(cnt)
+                for r in rows:
+                    cnt += np.asarray(r["count_vec"], dtype=np.float64)
+                    s1 += np.asarray(r["s1"], dtype=np.float64)
+                if (cnt == 0).any():
+                    j = int(np.argmax(cnt == 0))
+                    raise ValueError(
+                        f"feature {j} has no non-missing values to "
+                        f"impute from"
+                    )
+                surrogates = s1 / cnt
+            else:  # median via the sampled-quantile pass
+                sample, _n = _collect_feature_sample(dataset, fcol)
+                sentinel = missing
+                if not np.isnan(sentinel):
+                    sample = np.where(
+                        sample == sentinel, np.nan, sample
+                    )
+                if np.isnan(sample).all(axis=0).any():
+                    raise ValueError(
+                        "a feature column has no non-missing values to "
+                        "impute from"
+                    )
+                surrogates = np.nanmedian(sample, axis=0)
+        local = ImputerModel(surrogates=surrogates)
         local.uid = local_est.uid
         local.copy_values_from(local_est)
         local.fit_timings_ = timer.as_dict()

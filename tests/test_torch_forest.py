@@ -20,7 +20,11 @@ Bars:
   packages take differently. Poisson weights of 0 and nodes of a few rows
   make such exact ties (two partitions equal on the weighted rows), so
   the regression fits here keep ``minInstancesPerNode`` ≥ 8 and a strong
-  planted signal.
+  planted signal. ``test_min_instances_one_differs_from_jax_only_at_ties``
+  measures the ties themselves at Spark's default ``minInstancesPerNode``
+  1: every node the two packages split differently, below a path they
+  split alike, is one whose two chosen splits have gains within the
+  rounding bound of each other.
 """
 
 import numpy as np
@@ -591,3 +595,66 @@ def test_decision_tree_pins_are_enforced():
             est.set(name, value)
     est.set("numTrees", 1)
     assert DecisionTreeClassifier(maxDepth=3).getMaxDepth() == 3
+
+
+def _node_gain(binned, y, w, feature, threshold, n_bins):
+    """A split's variance gain on one node's rows, in one float64 numpy
+    arithmetic (0 for a pass-through, threshold = n_bins)."""
+    if threshold >= n_bins:
+        return 0.0
+
+    def sse(m):
+        c, s, q = w[m].sum(), (w[m] * y[m]).sum(), (w[m] * y[m] ** 2).sum()
+        return q - s * s / max(c, 1e-12)
+
+    left = binned[:, feature] <= threshold
+    return sse(np.ones(len(y), bool)) - sse(left) - sse(~left)
+
+
+def test_min_instances_one_differs_from_jax_only_at_ties():
+    """ROADMAP queue 3 item 20: at ``minInstancesPerNode`` 1, with zero
+    Poisson weights and nodes of a few rows (600 rows, 6 features, 8 bins,
+    depth 6, 16 trees), the port's float64 regression trees against the
+    JAX package's. Walking each pair level by level, every node reached
+    by the same splits in both trees is split alike, or is a tie: its two
+    chosen splits, recomputed on the node's rows in one float64 numpy
+    arithmetic, have gains within 1e-12 of the node's Σw·y² (a float64
+    sum of n ≤ 600 products rounds within ~n·2⁻⁵³ of it). Any other
+    difference would be a port fault. The seeded data holds one such tie
+    (tree 5, node 60: 13 rows, 10 weighted; the packages' histogram sums
+    round the two equal partitions' gains apart)."""
+    n, d, bins, depth, trees = 600, 6, 8, 6, 16
+    rng = np.random.default_rng(20)
+    x = rng.normal(size=(n, d))
+    y = x[:, 0] + 0.5 * rng.normal(size=n)
+    binned = np.asarray(jax_ops.quantile_bins(x, bins)[0])
+    weights = rng.poisson(1.0, size=(trees, n)).astype(np.float64)
+    mask = np.ones((depth, d))
+    ties = []
+    for t in range(trees):
+        w = weights[t]
+        jf, jt = (np.asarray(a) for a in jax_ops.grow_tree_regression(
+            jnp.asarray(binned), jnp.asarray(y), jnp.asarray(w),
+            jnp.asarray(mask), depth, bins, 1)[:2])
+        pf, pt = (a.numpy() for a in ops.grow_tree_regression(
+            _t(binned, torch.int32), _t(y), _t(w), _t(mask), depth, bins,
+            1)[:2])
+        node = np.zeros(n, dtype=np.int64)
+        same_path = {0: True}
+        for level in range(depth):
+            base = 2 ** level - 1
+            for k in range(base, 2 * base + 1):
+                alike = (pf[k], pt[k]) == (jf[k], jt[k])
+                if same_path[k] and not alike:
+                    rows = node == k
+                    args = (binned[rows], y[rows], w[rows])
+                    g_port = _node_gain(*args, pf[k], pt[k], bins)
+                    g_jax = _node_gain(*args, jf[k], jt[k], bins)
+                    bound = 1e-12 * (w[rows] * y[rows] ** 2).sum()
+                    assert abs(g_port - g_jax) <= bound, (t, k)
+                    ties.append((t, k))
+                same_path[2 * k + 1] = same_path[2 * k + 2] = \
+                    same_path[k] and alike
+            go_right = binned[np.arange(n), pf[node]] > pt[node]
+            node = (node - base) * 2 + go_right + (2 ** (level + 1) - 1)
+    assert ties == [(5, 60)]

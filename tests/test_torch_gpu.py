@@ -2395,3 +2395,105 @@ def test_distributed_pic_on_one_nccl_rank(cuda_device, tmp_path):
     assert labels.tolist() == local.column("cluster")
     assert result.fit_report_.collectives == {
         "all_gather": {"count": 20, "bytes": 20 * 2048 * 4}}
+
+
+# -- the MLP, the optimizer loop and OneVsRest (slice 29) ---------------------
+
+def _mlp_rows(rows=4096, d=20, k=4, seed=29):
+    rng = np.random.default_rng(seed)
+    y = rng.integers(0, k, size=rows).astype(np.float64)
+    centres = rng.normal(scale=2.0, size=(k, d))
+    return rng.normal(size=(rows, d)) + centres[y.astype(int)], y
+
+
+def test_mlp_fit_on_the_card_repeats_bit_equal_and_ignores_tf32(
+        cuda_device):
+    """A float32 L-BFGS fit on the card (an MLP [20, 16, 4] on 4096 seeded
+    rows, 15 iterations) repeated bit-equal, bit-equal under
+    ``set_float32_matmul_precision("high")`` (every layer product is
+    float64 rounded once, forward and backward), within 1e-4 of the same
+    fit at float64 on the card, and no Gram launch."""
+    from spark_rapids_ml_tpu_torch import MultilayerPerceptronClassifier
+
+    x, y = _mlp_rows()
+    params = dict(layers=[20, 16, 4], seed=3, maxIter=15, tol=0.0)
+    fused_gram.reset_launches()
+    first = MultilayerPerceptronClassifier(**params).fit(x, labels=y)
+    again = MultilayerPerceptronClassifier(**params).fit(x, labels=y)
+    torch.set_float32_matmul_precision("high")
+    try:
+        high = MultilayerPerceptronClassifier(**params).fit(x, labels=y)
+    finally:
+        torch.set_float32_matmul_precision("highest")
+    f64 = MultilayerPerceptronClassifier(dtype="float64", **params).fit(
+        x, labels=y)
+    np.testing.assert_array_equal(first.flat_weights, again.flat_weights)
+    np.testing.assert_array_equal(first.flat_weights, high.flat_weights)
+    assert first.final_loss_ == high.final_loss_
+    rel = np.abs(first.flat_weights - f64.flat_weights).max() / \
+        np.abs(f64.flat_weights).max()
+    assert rel <= 1e-4
+    assert not any(fused_gram.launches.values())
+
+
+def test_distributed_mlp_on_one_nccl_rank_equals_the_local_fit(cuda_device,
+                                                               tmp_path):
+    """``distributed_mlp_fit`` in a one-rank NCCL world equals the local
+    float32 fit bit for bit (one rank sums nothing), with one all-reduce
+    per objective evaluation recorded."""
+    import torch.distributed as dist
+
+    from spark_rapids_ml_tpu_torch import MultilayerPerceptronClassifier
+    from spark_rapids_ml_tpu_torch.ops.mlp_kernel import flatten_weights
+    from spark_rapids_ml_tpu_torch.parallel import (
+        data_mesh,
+        distributed_mlp_fit,
+    )
+
+    x, y = _mlp_rows(rows=2048)
+    local = MultilayerPerceptronClassifier(layers=[20, 16, 4], seed=3,
+                                           maxIter=10).fit(x, labels=y)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        result = distributed_mlp_fit(x, y, [20, 16, 4], data_mesh(1),
+                                     max_iter=10, seed=3)
+    finally:
+        dist.destroy_process_group()
+    params, n_iter, loss = result
+    assert n_iter == local.num_iterations_
+    assert loss == local.final_loss_
+    np.testing.assert_array_equal(flatten_weights(params),
+                                  local.flat_weights)
+    count = result.fit_report_.collectives["all_reduce"]["count"]
+    assert count >= n_iter + 1
+
+
+@pytest.mark.parametrize("kind", ["logreg", "svc"])
+def test_ovr_sub_fits_launch_the_narrow_gram_once_per_newton_iteration(
+        cuda_device, kind):
+    """OneVsRest over LogisticRegression or LinearSVC at float32 on 20,000
+    × 12 rows (3 folds of 8192: the narrow route, n ≤ 64), 3 classes: the
+    Gram kernel launches once per Newton iteration of each sub-fit, all
+    on the narrow instantiation."""
+    from spark_rapids_ml_tpu_torch import (
+        LinearSVC,
+        LogisticRegression,
+        OneVsRest,
+    )
+    from spark_rapids_ml_tpu_torch.data.frame import VectorFrame
+
+    x, y = _mlp_rows(rows=20_000, d=12, k=3, seed=7)
+    assert fused_gram.gram_plan(20_000, 12, "highest",
+                                fused_gram._sm_count(0)).route == "narrow"
+    clf = (LogisticRegression().setMaxIter(6) if kind == "logreg"
+           else LinearSVC().setMaxIter(6))
+    frame = VectorFrame({"features": list(x), "label": list(y)})
+    fused_gram.reset_launches()
+    model = OneVsRest(classifier=clf).fit(frame)
+    iterations = sum(int(m.n_iter_) for m in model.models)
+    assert iterations >= 3
+    assert fused_gram.launches[fused_gram.NARROW_KERNEL] == iterations
+    assert sum(fused_gram.launches.values()) == iterations
+    pred = np.asarray(model.transform(frame).column("prediction"))
+    assert (pred == y).mean() > 0.9

@@ -31,6 +31,7 @@ def _port_modules():
 
 def _is_forbidden(module: str) -> bool:
     return (module == "jax" or module.startswith("jax.")
+            or module == "optax" or module.startswith("optax.")
             or module == "spark_rapids_ml_tpu"
             or module.startswith("spark_rapids_ml_tpu."))
 
@@ -1173,3 +1174,86 @@ def test_pic_and_transformer_slice_runs_without_jax(tmp_path):
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "StringIndexerModel" in proc.stdout
     assert "UnivariateFeatureSelectorModel" in proc.stdout
+
+
+MLP_OVR_IMPUTER = ("ops.optim", "ops.mlp_kernel", "models.mlp", "models.ovr",
+                   "models.imputer", "parallel.distributed_optim")
+
+
+def test_mlp_ovr_imputer_slice_runs_without_jax(tmp_path):
+    """The optimizer loop, the MLP (local float32, and
+    ``distributed_mlp_fit`` in a one-rank gloo world), OneVsRest over
+    LogisticRegression and LinearSVC, the Imputer, their DataFrame front
+    ends on the local engine, and an MLP and an Imputer model the JAX
+    package saved, loaded through ``load_model``, in a process that never
+    imports jax or optax."""
+    from spark_rapids_ml_tpu import Imputer as JaxImputer
+    from spark_rapids_ml_tpu import MultilayerPerceptronClassifier as JaxMLP
+
+    mods = {m for _, m in _port_modules()}
+    assert {f"spark_rapids_ml_tpu_torch.{m}"
+            for m in MLP_OVR_IMPUTER} <= mods
+    saved = tmp_path / "jax"
+    rng = np.random.default_rng(29)
+    x = rng.normal(size=(40, 3))
+    y = (x[:, 0] > 0).astype(float)
+    JaxMLP(layers=[3, 4, 2], maxIter=5).fit(x, labels=y).save(
+        str(saved / "mlp"))
+    x_miss = np.where(rng.random(x.shape) < 0.2, np.nan, x)
+    JaxImputer().fit(x_miss).save(str(saved / "imp"))
+    code = (
+        "import os, sys, tempfile\n"
+        "import numpy as np\n"
+        "import torch.distributed as dist\n"
+        "import spark_rapids_ml_tpu_torch as P\n"
+        "import spark_rapids_ml_tpu_torch.spark as S\n"
+        "from spark_rapids_ml_tpu_torch.data.frame import VectorFrame\n"
+        "from spark_rapids_ml_tpu_torch.io.persistence import load_model\n"
+        "from spark_rapids_ml_tpu_torch.parallel import (data_mesh, "
+        "distributed_mlp_fit)\n"
+        "from spark_rapids_ml_tpu_torch.spark.local_engine import "
+        "(DenseVector, LocalSparkSession)\n"
+        "rng = np.random.default_rng(0)\n"
+        "y = rng.integers(0, 3, 90).astype(float)\n"
+        "x = rng.normal(size=(90, 3)) + 3 * np.eye(3)[y.astype(int)]\n"
+        "mlp = P.MultilayerPerceptronClassifier(layers=[3, 5, 3], maxIter="
+        "30).fit(x, labels=y)\n"
+        "d = tempfile.mkdtemp()\n"
+        "dist.init_process_group('gloo', init_method='file://' + d + "
+        "'/store', rank=0, world_size=1)\n"
+        "params, n_iter, loss = distributed_mlp_fit(x, y, [3, 5, 3], "
+        "data_mesh(1), max_iter=10)\n"
+        "dist.destroy_process_group()\n"
+        "frame = VectorFrame({'features': list(x), 'label': list(y)})\n"
+        "ovr = P.OneVsRest(classifier=P.LogisticRegression()).fit(frame)\n"
+        "svc = P.OneVsRest(classifier=P.LinearSVC()).fit(frame)\n"
+        "xm = np.where(rng.random(x.shape) < 0.2, np.nan, x)\n"
+        "imp = P.Imputer().setStrategy('median').fit(xm).transform(xm)\n"
+        "spark = LocalSparkSession(n_partitions=2)\n"
+        "df = spark.createDataFrame([{'features': DenseVector(r), "
+        "'label': float(l)} for r, l in zip(x, y)])\n"
+        "front = S.MultilayerPerceptronClassifier(layers=[3, 5, 3], "
+        "maxIter=10).fit(df).transform(df).collect()\n"
+        "mdf = spark.createDataFrame([{'features': DenseVector(r)} "
+        "for r in xm])\n"
+        "fimp = S.Imputer(strategy='mean').fit(mdf)\n"
+        "fovr = S.OneVsRest(classifier=P.MultilayerPerceptronClassifier("
+        "layers=[3, 4, 2], maxIter=5)).fit(df)\n"
+        "loaded = [type(load_model(os.path.join(sys.argv[1], name))).__name__"
+        " for name in sorted(os.listdir(sys.argv[1]))]\n"
+        "bad = sorted(k for k in sys.modules if k in ('jax', 'optax') or "
+        "k.startswith(('jax.', 'optax.')) or k == 'spark_rapids_ml_tpu' or "
+        "k.startswith('spark_rapids_ml_tpu.'))\n"
+        "print(mlp.num_iterations_, n_iter, ovr.classes, svc.classes, "
+        "len(front), fimp._local.surrogates, loaded, bad)\n"
+        "ok = (np.isfinite(loss) and np.isfinite(imp.column("
+        "'imputed_features')[0]).all() and len(front) == 90)\n"
+        "sys.exit(1 if bad or not ok or len(loaded) != 2 else 0)\n"
+    )
+    env = dict(os.environ, SPARK_RAPIDS_ML_TORCH_PLATFORM="cpu",
+               OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", code, str(saved)],
+                          cwd=REPO_DIR, capture_output=True, text=True,
+                          timeout=120, env=env)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "['ImputerModel', 'MultilayerPerceptronModel']" in proc.stdout

@@ -463,9 +463,9 @@ def test_routing_sends_the_nine_names_to_their_modules(name):
 
 
 @pytest.mark.parametrize("name,item", [
-    ("Imputer", "7 (their families and front ends)"),
+    ("Word2Vec", "7 (their families and front ends)"),
     ("MinHashLSH", "7 (their families and front ends)"),
-    ("OneVsRest", "7 (their families and front ends)"),
+    ("FPGrowth", "7 (their families and front ends)"),
     ("LDA", "7 (their families and front ends)"),
     ("ALS", "7 (their families and front ends)"),
     ("FMRegressor", "7 (the rest of spark/)"),

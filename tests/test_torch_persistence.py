@@ -83,6 +83,8 @@ def _fitted(family):
         return _tree_family(family, x, y, port_pkg)
     if family in CLUSTER_FAMILIES:
         return _cluster_family(family, x, port_pkg)
+    if family in SLICE29_FAMILIES:
+        return _slice29_family(family, x, y, port_pkg)
     if family == "pipeline":
         return Pipeline([
             StandardScaler().setWithMean(True).setOutputCol("s"),
@@ -167,9 +169,37 @@ PARAMS_ONLY |= {"rf_est", "dt_est", "gbt_est"}
 # GaussianMixture and BisectingKMeans models and estimators
 CLUSTER_FAMILIES = ("gmm", "bkm", "gmm_est", "bkm_est")
 PARAMS_ONLY |= {"gmm_est", "bkm_est"}
+# MultilayerPerceptron and Imputer models and estimators
+SLICE29_FAMILIES = ("mlp", "imputer", "mlp_est", "imputer_est")
+PARAMS_ONLY |= {"mlp_est", "imputer_est"}
 FAMILIES = ("pca", "kmeans", "scaler", "linreg", "svd", "logreg",
             "logreg_mn", "pipeline", "estimator") + STAGE_FAMILIES \
-    + LINEAR_FAMILIES + KNN_FAMILIES + TREE_FAMILIES + CLUSTER_FAMILIES
+    + LINEAR_FAMILIES + KNN_FAMILIES + TREE_FAMILIES + CLUSTER_FAMILIES \
+    + SLICE29_FAMILIES
+
+
+def _slice29_family(family, x, y, pkg):
+    """MultilayerPerceptron and Imputer, fitted by ``pkg`` (the port or
+    the JAX package; the port's MLP at float64, as JAX's tests run), or
+    their estimators, each with params set away from their defaults."""
+    if family == "mlp":
+        est = pkg.MultilayerPerceptronClassifier(
+            layers=[x.shape[1], 4, 3], seed=2, maxIter=9, blockSize=32)
+        if pkg is port_pkg:
+            est.setDtype("float64")
+        return est.fit(x, labels=_classes(y, 3))
+    if family == "imputer":
+        xm = np.where(np.abs(x) < 0.3, -9.0, x)
+        xm[::7, 1] = np.nan
+        return pkg.Imputer().setStrategy("median").setMissingValue(-9.0) \
+            .setOutputCol("filled").fit(xm)
+    if family == "mlp_est":
+        return pkg.MultilayerPerceptronClassifier(
+            layers=[5, 7, 2], solver="gd", stepSize=0.1, weightCol="w")
+    if family == "imputer_est":
+        return pkg.Imputer().setStrategy("mode").setInputCol("raw") \
+            .setMissingValue(0.0)
+    raise KeyError(family)
 
 
 def _cluster_family(family, x, pkg):
@@ -246,7 +276,8 @@ def _state(obj):
                  "qrange", "selected_features", "num_iterations_",
                  "deviance_", "weight_sum_", "items", "edges_", "init_",
                  "step_size_", "feature_importances_", "weights", "means",
-                 "covs", "log_likelihood_", "training_cost_"):
+                 "covs", "log_likelihood_", "training_cost_",
+                 "surrogates", "flat_weights", "layers_", "final_loss_"):
         value = getattr(obj, attr, None)
         if value is not None:
             out.append(np.asarray(value))
@@ -348,7 +379,8 @@ def test_every_writer_is_wrapped():
             "save_maxabs_model", "save_robust_model",
             "save_selector_model", "save_forest_model",
             "save_gbt_model", "save_gmm_model",
-            "save_bkm_model"} <= set(writers)
+            "save_bkm_model", "save_mlp_model",
+            "save_imputer_model"} <= set(writers)
     for name in writers:
         assert hasattr(getattr(persistence, name), "__wrapped_save__"), name
 
@@ -794,3 +826,40 @@ def test_clustering_models_load_in_either_package(tmp_path, family):
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
     assert _comparable_metadata(str(tmp_path / "port"))["paramMap"] == \
         _comparable_metadata(str(tmp_path / "jax"))["paramMap"]
+
+
+@pytest.mark.parametrize("family", ["mlp", "imputer"])
+def test_mlp_and_imputer_models_load_in_either_package(tmp_path, family):
+    """A MultilayerPerceptron or Imputer model saved by either package
+    loads in the other (the port's through ``load_model``) with the same
+    state, bit for bit, and the same transform; the metadata's paramMap
+    equal but for the port's own dtype."""
+    import spark_rapids_ml_tpu as jax_pkg
+
+    x, y = _xy(seed=3)
+    port = _slice29_family(family, x, y, port_pkg)
+    jax_model = _slice29_family(family, x, y, jax_pkg)
+    port.save(str(tmp_path / "port"))
+    jax_model.save(str(tmp_path / "jax"))
+    name = type(port).__name__
+    into_jax = getattr(jax_pkg, name).load(str(tmp_path / "port"))
+    into_port = load_model(str(tmp_path / "jax"))
+    assert type(into_jax).__module__.startswith("spark_rapids_ml_tpu.models")
+    assert type(into_port) is type(port)
+    _same(into_port, jax_model)
+    _same(into_jax, port)
+    if family == "mlp":
+        into_port.setDtype("float64")
+        np.testing.assert_array_equal(into_port.flat_weights,
+                                      jax_model.flat_weights)
+        got = into_port.predict_proba(x)
+        want = jax_model.predict_proba(x)
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
+    else:
+        got = np.stack(list(into_port.transform(x).column("filled")))
+        want = np.stack(list(jax_model.transform(x).column("filled")))
+        np.testing.assert_array_equal(got, want)
+    meta_port = _comparable_metadata(str(tmp_path / "port"))
+    meta_jax = _comparable_metadata(str(tmp_path / "jax"))
+    assert meta_port["paramMap"] == meta_jax["paramMap"]
+    assert meta_port["class"] == meta_jax["class"]

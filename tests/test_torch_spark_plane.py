@@ -784,7 +784,7 @@ def test_pca_transform_raises_where_jax_falls_back(monkeypatch):
 def test_unported_front_ends_name_their_roadmap_item():
     import spark_rapids_ml_tpu_torch.spark as spark
 
-    for name, item in (("Imputer", "item 7"), ("ALS", "item 7"),
+    for name, item in (("MinHashLSH", "item 7"), ("ALS", "item 7"),
                        ("LDA", "item 7"), ("Word2Vec", "item 7"),
                        ("PrefixSpan", "item 7"),
                        ("FMClassifier", "item 7")):
@@ -803,6 +803,11 @@ def test_unported_front_ends_name_their_roadmap_item():
     assert spark.UMAP.__module__.endswith(".adapter")
     assert spark.GaussianMixture.__module__.endswith(".moments_estimator")
     assert spark.BisectingKMeansModel.__module__.endswith(".adapter3")
+    # Imputer, OneVsRest and the MLP (7d (ii), 7e) route their front ends
+    assert spark.Imputer.__module__.endswith(".moments_estimator")
+    assert spark.OneVsRest.__module__.endswith(".moments_estimator")
+    assert spark.MultilayerPerceptronClassifier.__module__.endswith(
+        ".adapter")
     assert spark.GBTClassifier.__module__.endswith(".forest_estimator")
     assert spark.StandardScaler.__module__.endswith(".moments_estimator")
     assert spark.NaiveBayes is est.NaiveBayes
